@@ -1,0 +1,403 @@
+#!/usr/bin/env python3
+"""Drive the GPU port's main path once on one NVIDIA card, and check it.
+
+Run from the root of a checkout, on a machine with one CUDA device and the
+CUDA toolkit: ``python3 chip_smoke.py``. The kernels are built from
+``k8s_dra_driver_tpu_torch/csrc`` into ``k8s_dra_driver_tpu_torch/build``.
+One line per phase:
+
+1. device  the card's name and power limit (nvidia-smi); TF32 matmuls off
+2. build   nvcc of every kernel source, with its seconds
+3. check   each kernel against its plain PyTorch version on the card at the
+           smoke's width (b=32, h=32, d=128, cap=4096, ragged lengths):
+           f32 within 1e-4, bf16 within 2e-2, a poisoned cache tail changes
+           the output by less than 1e-5, and a block_k that does not divide
+           the cache raises ValueError; then a small engine on the card
+           against the same engine on the CPU, step for step
+4. timing  the kernel, its plain version and one library call, at the
+           engine's shape, beside the least time the card could take
+5. serve   a claim's CDI spec naming device 0, read back and bound to an
+           engine at one attention layer of Llama-2-7B (32 heads of 128,
+           a 4096-token cache, 32 slots) that serves 48 requests from 4
+           tenants through the kernel
+
+Then one JSON line with every kernel's numbers, and the last line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
+before that line; without a CUDA device the script exits 1 at once.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import re
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import zlib
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from k8s_dra_driver_tpu_torch.cdi.spec import CDIHandler, claim_edits_for
+from k8s_dra_driver_tpu_torch.compute import _build
+from k8s_dra_driver_tpu_torch.compute.flashattention import (
+    decode_attention_reference,
+    flash_attention_decode,
+)
+from k8s_dra_driver_tpu_torch.compute.serving import (
+    DecodeRequest,
+    ServingEngine,
+    ServingMetrics,
+    bind_engine,
+    tenant_vector,
+)
+
+# The smoke's width: one attention layer of Llama-2-7B's published config
+# (hidden 4096 = 32 heads x head_dim 128, max_position_embeddings 4096),
+# with 32 sequences in flight.
+BATCH, HEADS, HEAD_DIM, KV_CAP = 32, 32, 128, 4096
+# H100 SXM published peaks: HBM bandwidth, and f32 outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+TENANTS = ("tenant-a", "tenant-b", "tenant-c", "tenant-d")
+
+F32_TOL = 1e-4      # the JAX package's own decode-attention tolerance
+BF16_TOL = 2e-2     # bf16 rounding of p and of the output differs by place
+POISON_TOL = 1e-5
+
+
+def line(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
+    """Median device time of one call, by CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_device() -> str:
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    line("device", name=json.dumps(torch.cuda.get_device_name(0)),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda,
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    print(card, flush=True)
+    return card
+
+
+def phase_build() -> None:
+    t0 = time.monotonic()
+    built = _build.build_all(force=True)
+    require(bool(built), "no kernel source was built")
+    for name, (s, log) in sorted(built.items()):
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        smem = [int(n) for n in re.findall(r"(\d+) bytes smem", log)]
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
+        line("build", source=f"{name}.cu", seconds=f"{s:.2f}",
+             kernels=len(regs), registers=f"{min(regs)}-{max(regs)}",
+             smem_bytes=f"{min(smem)}-{max(smem)}", spill_bytes=spills)
+    line("build", total_seconds=f"{time.monotonic() - t0:.2f}")
+
+
+def smoke_lengths(rng: np.random.Generator) -> np.ndarray:
+    """Ragged lengths: 1, one not aligned to a kernel tile, the full cache,
+    and the rest uniform."""
+    lens = rng.integers(1, KV_CAP + 1, size=BATCH).astype(np.int32)
+    lens[:3] = (1, 1000, KV_CAP)
+    return lens
+
+
+def smoke_inputs(rng: np.random.Generator) -> tuple:
+    """Seeded K/V caches at the smoke's width on the card, and lengths."""
+    dev = torch.device("cuda", 0)
+    lens = torch.from_numpy(smoke_lengths(rng)).to(dev)
+    shape = (BATCH, HEADS, KV_CAP, HEAD_DIM)
+    k = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+    v = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+    return k, v, lens
+
+
+def phase_check(rng: np.random.Generator, k, v, lens) -> float:
+    """The checks at full width; returns the largest f32 error."""
+    dev = k.device
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    worst_f32 = 0.0
+    for ql in (1, 4):
+        q = torch.from_numpy(rng.standard_normal(
+            (BATCH, HEADS, ql, HEAD_DIM), np.float32)).to(dev)
+        out = flash_attention_decode(q, k, v, lens)
+        ref = decode_attention_reference(q, k, v, lens)
+        torch.cuda.synchronize()
+        require(out.shape == ref.shape and out.dtype == torch.float32,
+                f"f32 output {out.shape} {out.dtype}")
+        require(bool(torch.isfinite(out).all()), "f32 output not finite")
+        e32 = (out - ref).abs().max().item()
+        qb = q.to(torch.bfloat16)
+        outb = flash_attention_decode(qb, kb, vb, lens)
+        refb = decode_attention_reference(qb, kb, vb, lens)
+        e16 = (outb.float() - refb.float()).abs().max().item()
+        require(outb.dtype == torch.bfloat16, f"bf16 output {outb.dtype}")
+        # Poison every key beyond each length: a masked read would swamp it.
+        kp, vp = k.clone(), v.clone()
+        for i, n in enumerate(lens.tolist()):
+            kp[i, :, n:, :] = 1e6
+            vp[i, :, n:, :] = -1e6
+        ep = (flash_attention_decode(q, kp, vp, lens) - out).abs().max().item()
+        del kp, vp
+        line("check", kernel="decode_attention", ql=ql, f32_max_abs_err=e32,
+             bf16_max_abs_err=e16, poisoned_tail_max_abs_diff=ep)
+        require(e32 < F32_TOL, f"f32 error {e32} >= {F32_TOL} at ql={ql}")
+        require(e16 < BF16_TOL, f"bf16 error {e16} >= {BF16_TOL} at ql={ql}")
+        require(ep < POISON_TOL, f"poisoned tail moved the output by {ep}")
+        worst_f32 = max(worst_f32, e32)
+    # Every compiled variant at a small shape: each q_len (the kernel is
+    # built for 1, 2, 4 and 8 rows), 16-byte and scalar loads (d = 66 is
+    # not a multiple of a 16-byte vector), d up to 256, both dtypes.
+    small = np.array([1, 45, 300], np.int32)
+    worst = 0.0
+    for ql in range(1, 9):
+        for d in (66, 128, 256):
+            args = [torch.from_numpy(a).to(dev) for a in (
+                rng.standard_normal((3, 2, ql, d), np.float32),
+                rng.standard_normal((3, 2, 300, d), np.float32),
+                rng.standard_normal((3, 2, 300, d), np.float32), small)]
+            for dtype, tol in ((torch.float32, F32_TOL),
+                               (torch.bfloat16, BF16_TOL)):
+                a = [t.to(dtype) for t in args[:3]] + args[3:]
+                err = (flash_attention_decode(*a, block_k=300).float()
+                       - decode_attention_reference(*a).float()
+                       ).abs().max().item()
+                require(err < tol, f"{dtype} ql={ql} d={d}: error {err}")
+                worst = max(worst, err / tol)
+    line("check", kernel="decode_attention", variants="ql 1-8 x d 66/128/256"
+         " x f32/bf16", worst_err_over_tol=worst)
+    before = flash_attention_decode.launches
+    try:
+        flash_attention_decode(q, k, v, lens, block_k=1000)
+    except ValueError as e:
+        line("check", block_k_error=json.dumps(str(e)))
+    else:
+        raise SystemExit("chip_smoke: FAILED: block_k=1000 did not raise")
+    require(flash_attention_decode.launches == before,
+            "a refused call launched the kernel")
+    torch.cuda.synchronize()
+    return worst_f32
+
+
+def engine_parity() -> None:
+    """A small engine on the card against the same engine on the CPU (the
+    plain attend), driven step by step through one seeded stream."""
+    rng = np.random.default_rng(3)
+    reqs = [(f"r{i}", TENANTS[i % 4], int(rng.integers(3, 40)),
+             int(rng.integers(1, 12))) for i in range(24)]
+    runs = []
+    for device in ("cuda:0", "cpu"):
+        eng = ServingEngine("parity", n_chips=1, metrics=ServingMetrics(),
+                            max_batch=6, kv_cap=64, heads=4, head_dim=32,
+                            tokens_per_chip_step=24, modeled_chip_tok_s=1e9,
+                            device=device)
+        rs = [DecodeRequest(rid=r, tenant=t, prompt_tokens=p,
+                            max_new_tokens=n) for r, t, p, n in reqs]
+        for r in rs:
+            eng.submit(r)
+        while eng.completed < len(rs):
+            require(eng.steps < 1000, f"{device} engine did not converge")
+            eng.step()
+        runs.append((eng, rs))
+    (gpu, gpu_reqs), (cpu, cpu_reqs) = runs
+    require(list(gpu.step_log) == list(cpu.step_log),
+            "GPU and CPU engines' step logs differ")
+    err = max(float(np.abs(a.last_output - b.last_output).max())
+              for a, b in zip(gpu_reqs, cpu_reqs))
+    line("check", engine_parity_steps=gpu.steps,
+         last_output_max_abs_diff=err,
+         kv_isolation_max_err=gpu.kv_isolation_max_err)
+    require(err < 1e-5, f"GPU engine's outputs differ from the CPU's by {err}")
+    require(gpu.kv_isolation_max_err < F32_TOL, "GPU engine mixed tenants")
+
+
+def phase_timing(rng: np.random.Generator, k, v, lens) -> dict:
+    """The kernel at the engine's shape (ql = 1, f32, ragged lengths)."""
+    dev = k.device
+    lens_np = lens.cpu().numpy()
+    q = torch.from_numpy(rng.standard_normal(
+        (BATCH, HEADS, 1, HEAD_DIM), np.float32)).to(dev)
+    mask = (torch.arange(KV_CAP, device=dev)[None, None, None, :]
+            < lens[:, None, None, None])
+    ms = cuda_ms(lambda: flash_attention_decode(q, k, v, lens))
+    plain_ms = cuda_ms(lambda: decode_attention_reference(q, k, v, lens))
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask))
+    # Least time: each valid K/V row read once, q read and out written once;
+    # 4*d flops per valid key per head (q.k and p.v), in f32.
+    keys = int(np.minimum(lens_np, KV_CAP).sum()) * HEADS
+    nbytes = keys * HEAD_DIM * 4 * 2 + 2 * q.numel() * 4 + lens.numel() * 4
+    flops = keys * 4 * HEAD_DIM
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    flops_ms = flops / F32_FLOP_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    line("timing", kernel="decode_attention", kernel_ms=ms, plain_ms=plain_ms,
+         library_ms=library_ms, library="scaled_dot_product_attention",
+         bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
+         bound_basis="H100 SXM 3.35 TB/s HBM, 67 TFLOP/s f32",
+         hbm_share=bound_ms / ms)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_serve(seed: int) -> dict:
+    require(len({zlib.crc32(t.encode()) % 16 for t in TENANTS})
+            == len(TENANTS), "tenants share an isolation-oracle bucket")
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as cdi_root:
+        cdi = CDIHandler(cdi_root)
+        uid = "smoke-claim-0"
+        devices, claim_edits = claim_edits_for([0], [0])
+        devices = [replace(d, name=cdi.claim_device_name(uid, d.name))
+                   for d in devices]
+        ids = cdi.create_claim_spec_file(uid, devices,
+                                         claim_edits=claim_edits)
+        spec = cdi.read_claim_spec(uid)
+        engine = bind_engine(
+            spec, "smoke", metrics=ServingMetrics(), max_batch=BATCH,
+            kv_cap=KV_CAP, heads=HEADS, head_dim=HEAD_DIM,
+            tokens_per_chip_step=2048, queue_cap=64,
+            modeled_chip_tok_s=1e9)
+        cdi.delete_claim_spec_file(uid)
+    line("serve", cdi_ids=json.dumps(ids), device=str(engine.device),
+         n_chips=engine.n_chips,
+         kv_slab_gb=2 * engine._K.numel() * 4 / 1e9)
+    require(engine.device == torch.device("cuda", 0),
+            f"engine bound to {engine.device}")
+
+    step_ms: list[float] = []
+    inner = engine.step
+
+    def timed_step() -> int:
+        t0 = time.perf_counter()
+        spent = inner()
+        if spent:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return spent
+
+    engine.step = timed_step
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(512, 3073, size=48)
+    reqs = [DecodeRequest(rid=f"r{i}", tenant=TENANTS[i % 4],
+                          prompt_tokens=int(p), max_new_tokens=64)
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_decode.launches = 0
+    t0 = time.monotonic()
+    engine.start()
+    for r in reqs:
+        require(engine.submit(r), f"request {r.rid} rejected")
+    deadline = t0 + 600
+    while engine.completed < len(reqs) and time.monotonic() < deadline:
+        require(engine._thread.is_alive(), "the engine thread died")
+        time.sleep(0.005)
+    wall = time.monotonic() - t0
+    summary = engine.drain(timeout=60)
+    launches = flash_attention_decode.launches
+    decode_steps = sum(1 for e in engine.step_log if e["decode_tokens"])
+    mem_gb = torch.cuda.memory_allocated() / 1e9
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    line("serve", submitted=summary["submitted"],
+         completed=summary["completed"], shed=summary["shed"],
+         rejected=summary["rejected"], accounted=summary["accounted"],
+         steps=engine.steps, decode_steps=decode_steps,
+         kernel_launches=launches, wall_s=wall,
+         decode_tok_s=summary["decode_tokens"] / wall,
+         prefill_tok_s=summary["prefill_tokens"] / wall,
+         step_ms_p50=float(np.percentile(step_ms, 50)),
+         step_ms_p99=float(np.percentile(step_ms, 99)),
+         step_samples=len(step_ms),
+         kv_isolation_max_err=engine.kv_isolation_max_err,
+         mem_allocated_gb=mem_gb, mem_peak_gb=peak_gb)
+    require(summary["completed"] == summary["submitted"] == len(reqs),
+            f"completed {summary['completed']} of {summary['submitted']}")
+    require(summary["accounted"], "accounting identity broken")
+    require(engine.kv_isolation_max_err < F32_TOL,
+            f"kv_isolation_max_err {engine.kv_isolation_max_err}")
+    require(launches == decode_steps > 0,
+            f"{launches} kernel launches for {decode_steps} decode steps")
+    for r in reqs:
+        vec = tenant_vector(r.tenant, HEAD_DIM)
+        require(r.last_output is not None
+                and r.last_output.shape == (HEADS, HEAD_DIM)
+                and bool(np.isfinite(r.last_output).all())
+                and float(np.abs(r.last_output - vec).max()) < F32_TOL,
+                f"request {r.rid} decoded a wrong row")
+    return {"launches": launches}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 1
+    phase_device()
+    phase_build()
+    rng = np.random.default_rng(args.seed)
+    k, v, lens = smoke_inputs(rng)
+    max_abs_err = phase_check(rng, k, v, lens)
+    timing = phase_timing(rng, k, v, lens)
+    del k, v, lens
+    torch.cuda.empty_cache()
+    engine_parity()
+    served = phase_serve(args.seed)
+    kernels = [{
+        "name": "decode_attention", "route": "cuda",
+        "source": "k8s_dra_driver_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:125",
+        "launches": served["launches"], "max_abs_err": max_abs_err,
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": timing["library_ms"],
+    }]
+    require(all(math.isfinite(v) for k in kernels for v in
+                (k["ms"], k["plain_ms"], k["bound_ms"])), "non-finite time")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
