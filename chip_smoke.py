@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the GPU port's main path once on one NVIDIA card, and check it.
+"""Drive the GPU port's main paths once on one NVIDIA card, and check them.
 
 Run from the root of a checkout, on a machine with one CUDA device and the
 CUDA toolkit: ``python3 chip_smoke.py``. The kernels are built from
@@ -7,23 +7,41 @@ CUDA toolkit: ``python3 chip_smoke.py``. The kernels are built from
 One line per phase:
 
 1. device  the card's name and power limit (nvidia-smi); TF32 matmuls off
-2. build   nvcc of every kernel source, with its seconds
-3. check   each kernel against its plain PyTorch version on the card at the
-           smoke's width (b=32, h=32, d=128, cap=4096, ragged lengths):
-           f32 within 1e-4, bf16 within 2e-2, a poisoned cache tail changes
-           the output by less than 1e-5, and a block_k that does not divide
-           the cache raises ValueError; then a small engine on the card
-           against the same engine on the CPU, step for step
-4. timing  the kernel, its plain version and one library call, at the
-           engine's shape, beside the least time the card could take
+2. build   nvcc of every kernel source, all started together, with seconds
+3. check   the decode kernel against its plain PyTorch version on the card
+           at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
+           lengths): f32 within 1e-4, bf16 within 2e-2, a poisoned cache
+           tail changes the output by less than 1e-5, and a block_k that
+           does not divide the cache raises ValueError; then a small engine
+           on the card against the same engine on the CPU, step for step
+4. timing  the decode kernel, its plain version and one library call, at
+           the engine's shape, beside the least time the card could take
 5. serve   a claim's CDI spec naming device 0, read back and bound to an
            engine at one attention layer of Llama-2-7B (32 heads of 128,
            a 4096-token cache, 32 slots) that serves 48 requests from 4
-           tenants through the kernel
+           tenants through the decode kernel
+6. flash   the flash-attention kernel against its plain version
+           (``reference_attention``) on the card at the compute bench's
+           width [4, 8, 2048, 128], causal off and on: bf16 within
+           4e-3 + 1e-2 |ref| and f32 within 2e-5 + 2e-5 |ref| (the JAX
+           tests' f32 criterion) at every element; every compiled variant at
+           small shapes; block arguments that change nothing; causal row 0
+           equal to v's row 0; an indivisible S raising ValueError without a
+           launch
+7. bench   the compute bench's flash rows (the JAX bench's headline shape
+           and its sweep, seq 512-8192 at b*seq = 8192, h = 8, d = 128, bf16,
+           causal off and on): kernel, plain and library times beside the
+           least time the card could take, and each row's kernel output held
+           against its plain output within the bf16 limit above
+8. burnin  ``entry()`` on the card against the same step on the CPU with
+           the same weights, then the bf16 matmul chain (dim 8192, 256
+           matmuls) in TFLOP/s
 
-Then one JSON line with every kernel's numbers, and the last line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
-before that line; without a CUDA device the script exits 1 at once.
+Each main path (serve, bench, burnin) runs with every kernel's launch count
+set to 0 just before it and read just after. Then one JSON line with every
+kernel's numbers, and the last line ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero before that line; without a CUDA device
+the script exits 1 at once.
 """
 
 from __future__ import annotations
@@ -45,9 +63,14 @@ import torch
 
 from k8s_dra_driver_tpu_torch.cdi.spec import CDIHandler, claim_edits_for
 from k8s_dra_driver_tpu_torch.compute import _build
+from k8s_dra_driver_tpu_torch.compute.burnin import matmul_flops_bench
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     decode_attention_reference,
+    flash_attention,
     flash_attention_decode,
+)
+from k8s_dra_driver_tpu_torch.compute.ringattention import (
+    reference_attention,
 )
 from k8s_dra_driver_tpu_torch.compute.serving import (
     DecodeRequest,
@@ -56,19 +79,38 @@ from k8s_dra_driver_tpu_torch.compute.serving import (
     bind_engine,
     tenant_vector,
 )
+from k8s_dra_driver_tpu_torch.entry import entry
 
 # The smoke's width: one attention layer of Llama-2-7B's published config
 # (hidden 4096 = 32 heads x head_dim 128, max_position_embeddings 4096),
 # with 32 sequences in flight.
 BATCH, HEADS, HEAD_DIM, KV_CAP = 32, 32, 128, 4096
-# H100 SXM published peaks: HBM bandwidth, and f32 outside the tensor cores.
+# H100 SXM published peaks: HBM bandwidth, f32 outside the tensor cores, and
+# dense bf16 on the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+BF16_FLOP_S = 989.4e12
+# The compute bench's flash-attention headline shape [b, h, S, d], and its
+# sweep: seq 512-8192 at a constant b * seq = 8192 tokens, h = 8, d = 128.
+FLASH_SHAPE = (4, 8, 2048, 128)
+FLASH_SWEEP_SEQS = (512, 1024, 2048, 4096, 8192)
 TENANTS = ("tenant-a", "tenant-b", "tenant-c", "tenant-d")
 
 F32_TOL = 1e-4      # the JAX package's own decode-attention tolerance
 BF16_TOL = 2e-2     # bf16 rounding of p and of the output differs by place
 POISON_TOL = 1e-5
+# (atol, rtol) of the flash kernel against its plain version. f32: the JAX
+# package's flash-attention tolerance, as its tests apply it. bf16: the
+# kernel and the plain version each round their f32 result to bf16 and may
+# land one bf16 step apart (up to 2^-7 = 7.8e-3 of the value: rtol), and
+# the kernel rounds each softmax weight to bf16 before P V (up to 2^-9 of
+# the weight, which moves an output near zero by a few 1e-3: atol). A
+# softmax scale 1% off, or one K tile left out, exceeds it.
+FLASH_F32_TOL = (2e-5, 2e-5)
+FLASH_BF16_TOL = (4e-3, 1e-2)
+BURNIN_TOL = 3e-2
+# cuda_ms's calls per timing: warm-up calls, then timed calls.
+WARMUP_CALLS, TIMED_CALLS = 3, 30
 
 
 def line(phase: str, **kv) -> None:
@@ -81,7 +123,8 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
+def cuda_ms(fn, runs: int = TIMED_CALLS, warmup: int = WARMUP_CALLS
+            ) -> float:
     """Median device time of one call, by CUDA events around each call."""
     for _ in range(warmup):
         fn()
@@ -96,6 +139,31 @@ def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+KERNELS = {"decode_attention": flash_attention_decode,
+           "flash_attention": flash_attention}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def compare(out: torch.Tensor, ref: torch.Tensor, atol: float,
+            rtol: float | None = None) -> tuple:
+    """(max |out - ref|, max |out - ref| / (atol + rtol |ref|)): the second
+    is at most 1 where ``np.testing.assert_allclose(out, ref, rtol, atol)``
+    passes. ``rtol`` defaults to ``atol``."""
+    rtol = atol if rtol is None else rtol
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    over = (diff / (atol + rtol * ref.abs())).max().item()
+    return diff.max().item(), over
 
 
 def phase_device() -> str:
@@ -121,7 +189,8 @@ def phase_build() -> None:
     require(bool(built), "no kernel source was built")
     for name, (s, log) in sorted(built.items()):
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-        smem = [int(n) for n in re.findall(r"(\d+) bytes smem", log)]
+        # Kernels with only dynamic shared memory report no static bytes.
+        smem = [int(n) for n in re.findall(r"(\d+) bytes smem", log)] or [0]
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
         line("build", source=f"{name}.cu", seconds=f"{s:.2f}",
              kernels=len(regs), registers=f"{min(regs)}-{max(regs)}",
@@ -276,6 +345,202 @@ def phase_timing(rng: np.random.Generator, k, v, lens) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def randn(gen: torch.Generator, shape: tuple, dtype: torch.dtype):
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+def phase_flash_check(seed: int) -> float:
+    """The flash kernel against ``reference_attention`` on the card; returns
+    the largest bf16 error at the bench's width."""
+    gen = torch.Generator(device="cuda:0").manual_seed(seed)
+    b, h, s, d = FLASH_SHAPE
+    worst_bf16 = 0.0
+    for dtype, tol in ((torch.bfloat16, FLASH_BF16_TOL),
+                       (torch.float32, FLASH_F32_TOL)):
+        q, k, v = (randn(gen, FLASH_SHAPE, dtype) for _ in range(3))
+        for causal in (False, True):
+            out = flash_attention(q, k, v, causal=causal)
+            ref = reference_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            require(out.shape == ref.shape and out.dtype == dtype,
+                    f"flash output {tuple(out.shape)} {out.dtype}")
+            require(bool(torch.isfinite(out).all()), "flash output not finite")
+            err, over = compare(out, ref, *tol)
+            line("flash", shape=json.dumps(list(FLASH_SHAPE)),
+                 dtype=str(dtype)[6:], causal=causal, max_abs_err=err,
+                 max_abs_ref=ref.float().abs().max().item(),
+                 atol_rtol=json.dumps(tol), err_over_limit=over)
+            require(over <= 1, f"flash {dtype} causal={causal}: error {err}, "
+                               f"{over} of the limit (atol, rtol) = {tol}")
+            if dtype == torch.bfloat16:
+                worst_bf16 = max(worst_bf16, err)
+        del q, k, v, out, ref
+    # Every compiled variant at small shapes: the kernel is built for head
+    # dims up to 64, 128 and 256 (the larger of d and dv), in both dtypes;
+    # S = 100 and 192 leave a ragged last tile (64 rows in bf16, 32 in f32).
+    alt_dv = {32: 256, 64: 128, 128: 64, 256: 32}
+    worst = 0.0
+    for d in (32, 64, 128, 256):
+        for dv in (d, alt_dv[d]):
+            for s_small in (100, 192, 256):
+                for dtype, tol in ((torch.float32, FLASH_F32_TOL),
+                                   (torch.bfloat16, FLASH_BF16_TOL)):
+                    q, k = (randn(gen, (2, 3, s_small, d), dtype)
+                            for _ in range(2))
+                    v = randn(gen, (2, 3, s_small, dv), dtype)
+                    for causal in (False, True):
+                        out = flash_attention(q, k, v, causal=causal)
+                        ref = reference_attention(q, k, v, causal=causal)
+                        err, over = compare(out, ref, *tol)
+                        require(over <= 1, f"flash {dtype} d={d} dv={dv} "
+                                           f"S={s_small} causal={causal}: "
+                                           f"error {err}, {over} of the "
+                                           f"limit")
+                        worst = max(worst, over)
+    line("flash", variants="d 32/64/128/256 x dv = d or not x S 100/192/256"
+         " x f32/bf16 x causal", worst_err_over_limit=worst)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (randn(gen, (2, 3, 256, 64), dtype) for _ in range(3))
+        outs = [flash_attention(q, k, v, block_q=bq, block_k=bk, causal=True)
+                for bq, bk in ((64, 128), (128, 64), (256, 256))]
+        require(all(torch.equal(outs[0], o) for o in outs[1:]),
+                f"{dtype}: causal output depends on the block arguments")
+        out = flash_attention(q, q, q, causal=True)
+        row0 = (out[:, :, 0] - q[:, :, 0]).abs().max().item()
+        require(bool(torch.isfinite(out).all()) and torch.allclose(
+            out[:, :, 0].float(), q[:, :, 0].float(), rtol=1e-5, atol=0),
+            f"{dtype}: causal row 0 is not v's row 0 ({row0})")
+        line("flash", dtype=str(dtype)[6:], blocks_identical=True,
+             causal_row0_max_abs_diff=row0)
+    before = flash_attention.launches
+    q = randn(gen, (1, 1, 192, 32), torch.bfloat16)
+    try:
+        flash_attention(q, q, q, block_q=128, block_k=128)
+    except ValueError as e:
+        line("flash", indivisible_error=json.dumps(str(e)))
+    else:
+        raise SystemExit("chip_smoke: FAILED: S=192 with blocks of 128 did "
+                         "not raise")
+    require(flash_attention.launches == before,
+            "a refused flash call launched the kernel")
+    torch.cuda.synchronize()
+    return worst_bf16
+
+
+def flash_bench_row(gen: torch.Generator, b: int, h: int, s: int, d: int,
+                    causal: bool) -> dict:
+    """The kernel, its plain version and the library call at one shape; the
+    last output of the timed kernel calls is held against the last of the
+    plain version's."""
+    q, k, v = (randn(gen, (b, h, s, d), torch.bfloat16) for _ in range(3))
+    last = {}
+
+    def kernel() -> None:
+        last["out"] = flash_attention(q, k, v, causal=causal)
+
+    def plain() -> None:
+        last["ref"] = reference_attention(q, k, v, causal=causal)
+
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain)
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal))
+    # Causal attends half the positions: half the useful flops. Bytes: q,
+    # k, v read once and the output written once, in bf16.
+    flops = 4 * b * h * s * s * d // (2 if causal else 1)
+    nbytes = 4 * b * h * s * d * 2
+    flops_ms = flops / BF16_FLOP_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    bound_ms = max(flops_ms, bytes_ms)
+    row = {"shape": [b, h, s, d], "causal": causal, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms,
+           "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+           "tflops": flops / ms / 1e9, "library_tflops": flops / library_ms
+           / 1e9, "bound_share": bound_ms / ms}
+    err, over = compare(last["out"], last["ref"], *FLASH_BF16_TOL)
+    line("bench", kernel="flash_attention", max_abs_err=err,
+         err_over_limit=over, **{k: json.dumps(v) if isinstance(v, list)
+                                 else v for k, v in row.items()})
+    require(over <= 1, f"flash bench row {row['shape']} causal={causal}: "
+                       f"error {err}, {over} of the limit")
+    return row
+
+
+def phase_flash_bench(seed: int) -> dict:
+    """The compute bench's flash rows through the port's flash_attention:
+    the headline shape, then the sweep. Its own main path: the counts are
+    zeroed before it and read after it."""
+    gen = torch.Generator(device="cuda:0").manual_seed(seed)
+    reset_launches()
+    head = flash_bench_row(gen, *FLASH_SHAPE, causal=False)
+    rows = [flash_bench_row(gen, max(1, 8192 // s), 8, s, 128, causal)
+            for s in FLASH_SWEEP_SEQS for causal in (False, True)]
+    counts = launches()
+    line("bench", launches=json.dumps(counts), sweep_rows=len(rows),
+         bound_basis="H100 SXM 989.4 TFLOP/s dense bf16, 3.35 TB/s HBM")
+    # Every timed row's calls went through the kernel, and nothing else did.
+    calls = (1 + len(rows)) * (WARMUP_CALLS + TIMED_CALLS)
+    require(counts == {"flash_attention": calls, "decode_attention": 0},
+            f"the compute bench's launches: {counts}, expected {calls} of "
+            f"flash_attention")
+    torch.cuda.empty_cache()
+    return {**head, "launches": counts["flash_attention"]}
+
+
+def device_busy(fn, calls: int = 20) -> tuple:
+    """(device ms per call, device operations per call): the summed
+    durations of the kernels and copies that ``torch.profiler`` traced on
+    the card over ``calls`` calls. (0.0, 0.0) when it traced none."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in ops)
+    return busy_us / 1e3 / calls, len(ops) / calls
+
+
+def phase_burnin() -> None:
+    """``entry()`` on the card against the same step on the CPU, then the
+    bf16 matmul chain. No kernel of the port runs here (the JAX block's
+    matmuls and softmax are XLA's, the port's torch's)."""
+    reset_launches()
+    fn, (params, x) = entry()
+    require(x.is_cuda and all(w.is_cuda for w in params.values()),
+            "entry() did not place its arguments on the card")
+    out = fn(params, x)
+    torch.cuda.synchronize()
+    counts = launches()
+    require(out.shape == (8, 128, 512) and out.dtype == torch.bfloat16,
+            f"burn-in output {tuple(out.shape)} {out.dtype}")
+    require(bool(torch.isfinite(out.float()).all()), "burn-in not finite")
+    cpu = fn({n: w.cpu() for n, w in params.items()}, x.cpu())
+    err, over = compare(out.cpu(), cpu, BURNIN_TOL)
+    step_ms = cuda_ms(lambda: fn(params, x))
+    busy_ms, kernels = device_busy(lambda: fn(params, x))
+    line("burnin", shape=json.dumps(list(out.shape)), dtype="bfloat16",
+         gpu_vs_cpu_max_abs_err=err, tol=BURNIN_TOL, err_over_limit=over,
+         step_ms=step_ms,
+         device_busy_ms=busy_ms if kernels else "not measured",
+         device_ops_per_step=kernels,
+         idle_share=1 - busy_ms / step_ms if kernels else "not measured",
+         launches=json.dumps(counts))
+    require(over <= 1, f"burn-in on the card differs from the CPU by {err}")
+    mm = matmul_flops_bench(dim=8192, n_iters=256)
+    line("burnin", matmul_dim=int(mm["dim"]), matmul_iters=int(mm["iters"]),
+         seconds=mm["seconds"], tflops=mm["tflops"],
+         peak_share=mm["tflops"] * 1e12 / BF16_FLOP_S,
+         peak_basis="H100 SXM 989.4 TFLOP/s dense bf16")
+    require(math.isfinite(mm["tflops"]) and mm["tflops"] > 0,
+            f"matmul bench gave {mm['tflops']} TFLOP/s")
+
+
 def phase_serve(seed: int) -> dict:
     require(len({zlib.crc32(t.encode()) % 16 for t in TENANTS})
             == len(TENANTS), "tenants share an isolation-oracle bucket")
@@ -319,7 +584,7 @@ def phase_serve(seed: int) -> dict:
                           prompt_tokens=int(p), max_new_tokens=64)
             for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_decode.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     engine.start()
     for r in reqs:
@@ -330,7 +595,8 @@ def phase_serve(seed: int) -> dict:
         time.sleep(0.005)
     wall = time.monotonic() - t0
     summary = engine.drain(timeout=60)
-    launches = flash_attention_decode.launches
+    counts = launches()
+    n_launches = counts["decode_attention"]
     decode_steps = sum(1 for e in engine.step_log if e["decode_tokens"])
     mem_gb = torch.cuda.memory_allocated() / 1e9
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -338,7 +604,7 @@ def phase_serve(seed: int) -> dict:
          completed=summary["completed"], shed=summary["shed"],
          rejected=summary["rejected"], accounted=summary["accounted"],
          steps=engine.steps, decode_steps=decode_steps,
-         kernel_launches=launches, wall_s=wall,
+         kernel_launches=json.dumps(counts), wall_s=wall,
          decode_tok_s=summary["decode_tokens"] / wall,
          prefill_tok_s=summary["prefill_tokens"] / wall,
          step_ms_p50=float(np.percentile(step_ms, 50)),
@@ -351,8 +617,8 @@ def phase_serve(seed: int) -> dict:
     require(summary["accounted"], "accounting identity broken")
     require(engine.kv_isolation_max_err < F32_TOL,
             f"kv_isolation_max_err {engine.kv_isolation_max_err}")
-    require(launches == decode_steps > 0,
-            f"{launches} kernel launches for {decode_steps} decode steps")
+    require(n_launches == decode_steps > 0,
+            f"{n_launches} kernel launches for {decode_steps} decode steps")
     for r in reqs:
         vec = tenant_vector(r.tenant, HEAD_DIM)
         require(r.last_output is not None
@@ -360,7 +626,7 @@ def phase_serve(seed: int) -> dict:
                 and bool(np.isfinite(r.last_output).all())
                 and float(np.abs(r.last_output - vec).max()) < F32_TOL,
                 f"request {r.rid} decoded a wrong row")
-    return {"launches": launches}
+    return {"launches": n_launches}
 
 
 def main(argv=None) -> int:
@@ -381,6 +647,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     engine_parity()
     served = phase_serve(args.seed)
+    flash_err = phase_flash_check(args.seed)
+    flash = phase_flash_bench(args.seed)
+    phase_burnin()
     kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "k8s_dra_driver_tpu_torch/csrc/decode_attention.cu",
@@ -389,9 +658,18 @@ def main(argv=None) -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "k8s_dra_driver_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:36",
+        "launches": flash["launches"], "max_abs_err": flash_err,
+        "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
     }]
     require(all(math.isfinite(v) for k in kernels for v in
-                (k["ms"], k["plain_ms"], k["bound_ms"])), "non-finite time")
+                (k["ms"], k["plain_ms"], k["bound_ms"], k["library_ms"])),
+            "non-finite time")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""GPU compute plane: decode attention and the serving engine.
+"""GPU compute plane: attention kernels, the serving engine, burn-in.
 
 Submodules are imported by name (``compute.flashattention``,
-``compute.serving``); nothing here builds or loads a kernel at import.
+``compute.serving``, ``compute.burnin``, ...); nothing here builds or loads
+a kernel at import.
 """

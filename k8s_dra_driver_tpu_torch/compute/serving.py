@@ -44,6 +44,7 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from k8s_dra_driver_tpu_torch.compute._device import _resolve_device
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     flash_attention_decode,
 )
@@ -162,20 +163,6 @@ def tenant_vector(tenant: str, head_dim: int) -> np.ndarray:
     skews the output by the inter-tenant spacing (0.5 per bucket)."""
     bucket = zlib.crc32(tenant.encode()) % 16
     return np.full((head_dim,), 1.0 + 0.5 * bucket, np.float32)
-
-
-def _resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """``None`` is the current CUDA device. A CUDA device without CUDA
-    raises: the engine never falls back to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "engine on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 @dataclass

@@ -2,8 +2,9 @@
 or kernel build at import.
 
 A subprocess blocks ``jax`` and ``k8s_dra_driver_tpu`` in ``sys.modules``,
-imports every module of the port and ``chip_smoke.py``, and serves a CPU
-engine to completion; a source scan finds no such import anywhere in the
+imports every module of the port and ``chip_smoke.py``, serves a CPU
+engine to completion, runs ``entry(device="cpu")`` and one
+``flash_attention`` call on CPU tensors; a source scan finds no such import anywhere in the
 port or the smoke script.
 """
 
@@ -45,6 +46,16 @@ while eng.completed < len(reqs) and time.monotonic() < deadline:
 s = eng.drain(timeout=5.0)
 assert s["accounted"] and s["completed"] == len(reqs), s
 assert eng.kv_isolation_max_err < 1e-4
+import torch
+from k8s_dra_driver_tpu_torch.compute.flashattention import flash_attention
+from k8s_dra_driver_tpu_torch.entry import entry
+fn, args = entry(device="cpu")
+out = fn(*args)
+assert out.shape == (8, 128, 512) and bool(torch.isfinite(out.float()).all())
+q = torch.randn(1, 2, 64, 32)
+att = flash_attention(q, q, q, causal=True)
+assert att.shape == q.shape and flash_attention.launches == 0
+assert _build._libs == {}, "kernel library loaded on the CPU path"
 print("MODULES", len(mods))
 """
 
@@ -62,7 +73,7 @@ def test_port_imports_and_serves_with_jax_blocked():
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("MODULES", 1)[1])
-    assert n >= 9, proc.stdout
+    assert n >= 13, proc.stdout
 
 
 @pytest.mark.parametrize("path", _sources(),
