@@ -7,7 +7,10 @@ CUDA toolkit: ``python3 chip_smoke.py``. The kernels are built from
 One line per phase:
 
 1. device  the card's name and power limit (nvidia-smi); TF32 matmuls off
-2. build   nvcc of every kernel source, all started together, with seconds
+2. build   nvcc of every kernel source, all started together, with seconds;
+           per kernel ptxas's registers, shared memory and spills, and its
+           SASS count of warpgroup MMAs (HGMMA) and TMA loads (UTMALDG):
+           every bf16 flash kernel must have both
 3. check   the decode kernel against its plain PyTorch version on the card
            at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
            lengths): f32 within 1e-4, bf16 within 2e-2, a poisoned cache
@@ -25,23 +28,26 @@ One line per phase:
            width [4, 8, 2048, 128], causal off and on: bf16 within
            4e-3 + 1e-2 |ref| and f32 within 2e-5 + 2e-5 |ref| (the JAX
            tests' f32 criterion) at every element; every compiled variant at
-           small shapes; block arguments that change nothing; causal row 0
-           equal to v's row 0; an indivisible S raising ValueError without a
-           launch
+           small shapes, at S = 1 to 320 across the kernels' tile edges;
+           block arguments that change nothing; causal row 0 equal to v's
+           row 0; an indivisible S raising ValueError without a launch
 7. bench   the compute bench's flash rows (the JAX bench's headline shape
            and its sweep, seq 512-8192 at b*seq = 8192, h = 8, d = 128, bf16,
            causal off and on): kernel, plain and library times beside the
            least time the card could take, and each row's kernel output held
-           against its plain output within the bf16 limit above
+           against its plain output within the bf16 limit above; then, at
+           the headline, the kernel's and the library's device time per call
+           from torch.profiler as a cross-check of the event times
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
 
-Each main path (serve, bench, burnin) runs with every kernel's launch count
-set to 0 just before it and read just after. Then one JSON line with every
-kernel's numbers, and the last line ``{"ok": true, "device": {...}}``. Any
-failure raises and exits non-zero before that line; without a CUDA device
-the script exits 1 at once.
+Kernel times are CUDA-event times of a run of back-to-back calls over the
+count (``cuda_ms``). Each main path (serve, bench, burnin) runs with every
+kernel's launch count set to 0 just before it and read just after. Then one
+JSON line with every kernel's numbers, and the last line ``{"ok": true,
+"device": {...}}``. Any failure raises and exits non-zero before that line;
+without a CUDA device the script exits 1 at once.
 """
 
 from __future__ import annotations
@@ -50,7 +56,6 @@ import argparse
 import json
 import math
 import re
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -94,6 +99,8 @@ BF16_FLOP_S = 989.4e12
 # sweep: seq 512-8192 at a constant b * seq = 8192 tokens, h = 8, d = 128.
 FLASH_SHAPE = (4, 8, 2048, 128)
 FLASH_SWEEP_SEQS = (512, 1024, 2048, 4096, 8192)
+# Sequence lengths of the flash check's small variants (tile edges).
+FLASH_EDGE_SEQS = (1, 64, 100, 129, 192, 256, 320)
 TENANTS = ("tenant-a", "tenant-b", "tenant-c", "tenant-d")
 
 F32_TOL = 1e-4      # the JAX package's own decode-attention tolerance
@@ -125,20 +132,21 @@ def require(cond: bool, what: str) -> None:
 
 def cuda_ms(fn, runs: int = TIMED_CALLS, warmup: int = WARMUP_CALLS
             ) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+    """Device time of one call: after ``warmup`` calls and a synchronize,
+    ``runs`` back-to-back calls between one pair of CUDA events, over the
+    count. The host's time per call hides behind the device's unless it is
+    the longer of the two."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 KERNELS = {"decode_attention": flash_attention_decode,
@@ -183,18 +191,57 @@ def phase_device() -> str:
     return card
 
 
+def kernel_name(mangled: str, names: list) -> str:
+    """``flash_bf16_kernel<128>`` from a mangled name, given the names of
+    the source's kernels."""
+    for name in names:
+        i = mangled.find(name)
+        if i >= 0:
+            rest = mangled[i + len(name):]
+            args = (re.findall(r"Li(\d+)E", rest.split("Ev", 1)[0])
+                    if rest.startswith("I") else [])
+            return f"{name}<{','.join(args)}>" if args else name
+    return mangled
+
+
 def phase_build() -> None:
+    """Builds every kernel source; prints, for each kernel, ptxas's
+    registers, static shared memory and spills, and how many of its SASS
+    instructions are warpgroup MMAs (HGMMA) and TMA loads (UTMALDG). Every
+    bf16 flash kernel must have both."""
     t0 = time.monotonic()
     built = _build.build_all(force=True)
     require(bool(built), "no kernel source was built")
     for name, (s, log) in sorted(built.items()):
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-        # Kernels with only dynamic shared memory report no static bytes.
-        smem = [int(n) for n in re.findall(r"(\d+) bytes smem", log)] or [0]
-        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", log))
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                           r"\s*)?(\w+)\s*\(", src)
+        sass = {}
+        for fn in _build.disassemble(name).split("Function : ")[1:]:
+            sass[fn.split(None, 1)[0]] = (len(re.findall(r"\bHGMMA\.", fn)),
+                                          len(re.findall(r"\bUTMALDG\.", fn)))
+        chunks = log.split("Compiling entry function '")[1:]
         line("build", source=f"{name}.cu", seconds=f"{s:.2f}",
-             kernels=len(regs), registers=f"{min(regs)}-{max(regs)}",
-             smem_bytes=f"{min(smem)}-{max(smem)}", spill_bytes=spills)
+             kernels=len(chunks))
+        for warning in re.findall(r".*warning.*", log, re.IGNORECASE):
+            line("build", source=f"{name}.cu",
+                 warning=json.dumps(warning.strip()))
+        for chunk in chunks:
+            mangled = chunk.split("'", 1)[0]
+            kernel = kernel_name(mangled, names)
+            regs = re.search(r"Used (\d+) registers", chunk)
+            # A kernel with only dynamic shared memory reports no bytes.
+            smem = re.search(r"(\d+) bytes smem", chunk)
+            spills = sum(int(n) for n in
+                         re.findall(r"(\d+) bytes spill", chunk))
+            hgmma, utmaldg = sass.get(mangled, (0, 0))
+            line("build", kernel=kernel,
+                 registers=regs.group(1) if regs else "?",
+                 static_smem_bytes=smem.group(1) if smem else 0,
+                 spill_bytes=spills, sass_HGMMA=hgmma, sass_UTMALDG=utmaldg)
+            if kernel.startswith("flash_bf16_kernel"):
+                require(hgmma > 0 and utmaldg > 0,
+                        f"{kernel} has no wgmma or no TMA load in its SASS")
     line("build", total_seconds=f"{time.monotonic() - t0:.2f}")
 
 
@@ -376,20 +423,25 @@ def phase_flash_check(seed: int) -> float:
                 worst_bf16 = max(worst_bf16, err)
         del q, k, v, out, ref
     # Every compiled variant at small shapes: the kernel is built for head
-    # dims up to 64, 128 and 256 (the larger of d and dv), in both dtypes;
-    # S = 100 and 192 leave a ragged last tile (64 rows in bf16, 32 in f32).
+    # dims up to 64, 128 and 256 (the larger of d and dv), in both dtypes.
+    # The bf16 kernel takes 128 query rows a tile and 176 keys a tile (64
+    # at 256): S = 1 and 64 are less than one tile, 64 is one 64-key tile,
+    # 100, 129, 192, 256 and 320 leave a ragged last tile, and under causal
+    # the 256 bucket's 128 query rows cross two 64-key tiles on the
+    # diagonal. The f32 kernel's tiles are 32 wide.
     alt_dv = {32: 256, 64: 128, 128: 64, 256: 32}
     worst = 0.0
     for d in (32, 64, 128, 256):
         for dv in (d, alt_dv[d]):
-            for s_small in (100, 192, 256):
+            for s_small in FLASH_EDGE_SEQS:
                 for dtype, tol in ((torch.float32, FLASH_F32_TOL),
                                    (torch.bfloat16, FLASH_BF16_TOL)):
                     q, k = (randn(gen, (2, 3, s_small, d), dtype)
                             for _ in range(2))
                     v = randn(gen, (2, 3, s_small, dv), dtype)
                     for causal in (False, True):
-                        out = flash_attention(q, k, v, causal=causal)
+                        out = flash_attention(q, k, v, block_q=s_small,
+                                              block_k=s_small, causal=causal)
                         ref = reference_attention(q, k, v, causal=causal)
                         err, over = compare(out, ref, *tol)
                         require(over <= 1, f"flash {dtype} d={d} dv={dv} "
@@ -397,8 +449,9 @@ def phase_flash_check(seed: int) -> float:
                                            f"error {err}, {over} of the "
                                            f"limit")
                         worst = max(worst, over)
-    line("flash", variants="d 32/64/128/256 x dv = d or not x S 100/192/256"
-         " x f32/bf16 x causal", worst_err_over_limit=worst)
+    line("flash", variants="d 32/64/128/256 x dv = d or not x S "
+         + "/".join(map(str, FLASH_EDGE_SEQS)) + " x f32/bf16 x causal",
+         worst_err_over_limit=worst)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (randn(gen, (2, 3, 256, 64), dtype) for _ in range(3))
         outs = [flash_attention(q, k, v, block_q=bq, block_k=bk, causal=True)
@@ -484,8 +537,21 @@ def phase_flash_bench(seed: int) -> dict:
     require(counts == {"flash_attention": calls, "decode_attention": 0},
             f"the compute bench's launches: {counts}, expected {calls} of "
             f"flash_attention")
+    # Cross-check of the headline's event times (after the counts are read):
+    # the device time per call that torch.profiler traced.
+    q, k, v = (randn(gen, FLASH_SHAPE, torch.bfloat16) for _ in range(3))
+    busy_ms, _ = device_busy(lambda: flash_attention(q, k, v))
+    lib_busy_ms, _ = device_busy(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    line("bench", kernel="flash_attention",
+         shape=json.dumps(list(FLASH_SHAPE)), event_ms=head["ms"],
+         device_busy_ms=busy_ms or "not measured",
+         library_event_ms=head["library_ms"],
+         library_device_busy_ms=lib_busy_ms or "not measured")
+    del q, k, v
     torch.cuda.empty_cache()
-    return {**head, "launches": counts["flash_attention"]}
+    return {**head, "launches": counts["flash_attention"], "rows": rows,
+            "device_busy_ms": busy_ms, "library_device_busy_ms": lib_busy_ms}
 
 
 def device_busy(fn, calls: int = 20) -> tuple:

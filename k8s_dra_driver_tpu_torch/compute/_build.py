@@ -102,6 +102,18 @@ def _build_locked(force: bool) -> dict[str, tuple[float, str]]:
     return built
 
 
+def disassemble(name: str) -> str:
+    """``cuobjdump -sass`` (the toolkit's, beside nvcc) of ``lib<name>.so``,
+    built first if stale."""
+    with _lock:
+        if _stale(name):
+            _build_locked(force=False)
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of ``lib<name>.so``, built first if stale."""
     with _lock:

@@ -10,10 +10,14 @@ interpret mode and its ``reference_attention``, case for case as in
 without a card.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from k8s_dra_driver_tpu.compute.flashattention import (
     flash_attention as jax_flash_attention,
@@ -21,6 +25,7 @@ from k8s_dra_driver_tpu.compute.flashattention import (
 from k8s_dra_driver_tpu.compute.ringattention import (
     reference_attention as jax_reference_attention,
 )
+from k8s_dra_driver_tpu_torch.compute import _build
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     HEAD_DIM_MULTIPLE,
     MAX_HEAD_DIM,
@@ -72,8 +77,8 @@ class TestAgainstJax:
         _close(out.numpy(), jax_reference_attention(q, q, q), F32_TOL)
 
     def test_sequence_not_a_multiple_of_a_kernel_tile(self):
-        # S = 100: the JAX blocks clamp to 100; the CUDA kernel's 64-row
-        # tiles leave a ragged last tile.
+        # S = 100: the JAX blocks clamp to 100; the CUDA kernel's 128-row
+        # query and 176-key tiles are ragged.
         q, k, v = (_rand((1, 2, 100, 32), s) for s in (20, 21, 22))
         for causal in (False, True):
             pallas = jax_flash_attention(q, k, v, causal=causal,
@@ -141,6 +146,26 @@ class TestAgainstJax:
         pallas = jax_flash_attention(q, q, q, block_q=64, block_k=64,
                                      causal=True, interpret=True)
         _close(out.numpy(), pallas, F32_TOL)
+
+    # The CUDA kernel's tile edges: S = 1 and 64 are less than one 128-row
+    # query tile and one 176-key tile, 64 is exactly one 64-key tile of the
+    # 256 bucket, 129 and 320 are not multiples of 128 and leave a ragged
+    # key tile; the last case is the 256 bucket, whose 128 query rows meet
+    # two 64-key tiles on the causal diagonal.
+    @pytest.mark.parametrize("seq,d,causal", [
+        (1, 64, False), (1, 64, True), (64, 64, False), (64, 64, True),
+        (129, 64, False), (129, 64, True), (320, 64, False),
+        (320, 64, True), (320, 256, True)])
+    def test_kernel_tile_edges(self, seq, d, causal):
+        q, k, v = (_rand((1, 2, seq, d), s) for s in (50, 51, 52))
+        pallas = jax_flash_attention(q, k, v, block_q=seq, block_k=seq,
+                                     causal=causal, interpret=True)
+        out = flash_attention(*_t(q, k, v), block_q=seq, block_k=seq,
+                              causal=causal)
+        assert tuple(out.shape) == (1, 2, seq, d)
+        _close(out.numpy(), pallas, F32_TOL, f"S={seq} causal={causal}")
+        _close(out.numpy(), jax_reference_attention(q, k, v, causal=causal),
+               F32_TOL, f"S={seq} causal={causal}")
 
     def test_value_dim_differs_from_key_dim(self):
         q, k = _rand((1, 2, 128, 32), 13), _rand((1, 2, 128, 32), 14)
@@ -228,3 +253,39 @@ class TestWrapper:
         (tq,) = _t(_rand((1, 1, 32, 16), 11))
         with pytest.raises(ValueError, match="different devices"):
             flash_attention(tq, meta[1], meta[2])
+
+
+class TestBuildReport:
+    """What ``chip_smoke.phase_build`` reads: the toolkit's disassembly of a
+    built library and the kernels' names in it."""
+
+    def test_disassemble_runs_cuobjdump_beside_nvcc(self, tmp_path,
+                                                    monkeypatch):
+        bindir = tmp_path / "bin"
+        bindir.mkdir()
+        for tool, body in (
+                ("nvcc", 'while [ "$1" != "-o" ]; do shift; done\n'
+                         'echo lib > "$2"\n'),
+                ("cuobjdump", 'echo "Function : k $@"\n')):
+            path = bindir / tool
+            path.write_text("#!/bin/sh\n" + body)
+            path.chmod(0o755)
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}/bin")
+        out = _build.disassemble("flash_attention")
+        lib = _build.library_path("flash_attention")
+        assert lib.read_text() == "lib\n"            # built first
+        assert out.split() == ["Function", ":", "k", "-sass", str(lib)]
+
+    @pytest.mark.parametrize("mangled,name", [
+        ("_ZN12_GLOBAL__N_117flash_bf16_kernelILi128EEEv14CUtensorMap_stS1_"
+         "S1_P13__nv_bfloat16iiifi", "flash_bf16_kernel<128>"),
+        ("_ZN12_GLOBAL__N_116flash_f32_kernelEPKfS2_S2_Pfiiifi",
+         "flash_f32_kernel"),
+        ("_ZN41_GLOBAL__N__dec3f_19_decode_attention_cu_7de7d0af23decode_"
+         "attention_kernelILi8EfEEvPKT0_S3_", "decode_attention_kernel<8>"),
+        ("_Z5otheri", "_Z5otheri")])
+    def test_kernel_names(self, mangled, name):
+        names = ["flash_bf16_kernel", "flash_f32_kernel",
+                 "decode_attention_kernel"]
+        assert chip_smoke.kernel_name(mangled, names) == name
