@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Compare versions of the flash-attention kernel on one card, and run the
-kernel's mutation controls.
+"""Compare versions of the flash-attention kernel on one card, run the
+kernel's mutation controls, and compare the serve phase of two trees.
 
 Run from the root of a checkout on a machine with one CUDA device:
 
     python3 chip_ab.py versions OTHER.cu [OTHER.cu ...]
     python3 chip_ab.py controls
+    python3 chip_ab.py serve OTHER_TREE [--rounds N]
 
 ``versions`` copies the port (``chip_smoke.py`` and
 ``k8s_dra_driver_tpu_torch/``) once per source under ``--work``, puts the
@@ -20,12 +21,23 @@ JSON line of every turn with the card's name and power limit.
 ``chip_smoke``'s flash check in each; both must fail it. The first scales
 the bf16 kernel's softmax scale by 1.01, the second drops the last key tile
 of the non-causal walk. It exits non-zero if a control passes.
+
+``serve`` runs ``chip_smoke``'s serve phase (48 requests from 4 tenants at
+one Llama-2-7B attention layer) in OTHER_TREE (a directory holding another
+checkout's ``chip_smoke.py`` and ``k8s_dra_driver_tpu_torch/``, e.g. from
+``git archive``) and in this tree, each turn in its own process, in the
+order other, this, this, other, ``--rounds`` times; both trees' serve
+phases start from a ResourceClaim on the GPU that ``phase_enumerate``
+finds. It prints each turn's serve line, then one JSON line
+of every turn's decode tokens/s and step p50/p99 with the card's name and
+power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -46,6 +58,11 @@ BENCH = ("import json, chip_smoke as c; card = c.phase_device(); "
          "print('AB_RESULT ' + json.dumps({**r, 'card': card}))")
 CHECK = ("import chip_smoke as c; c.phase_device(); c.phase_build(); "
          "c.phase_flash_check(0)")
+SERVE = ("import chip_smoke as c; card = c.phase_device(); "
+         "print('AB_CARD ' + card); "
+         "c.phase_serve(0, **c.phase_enumerate())")
+SERVE_KEYS = ("decode_tok_s", "step_ms_p50", "step_ms_p99", "steps",
+              "kernel_launches", "claim_ready_ms", "ttfb_ms")
 
 
 def copy_tree(dest: Path, kernel_source: str) -> Path:
@@ -127,11 +144,37 @@ def controls(work: Path, timeout: float) -> int:
     return 0
 
 
+def serve(other: Path, rounds: int, timeout: float) -> int:
+    trees = [("other", other.resolve()), ("this-tree", ROOT)]
+    order = [0, 1, 1, 0] * rounds
+    turns = []
+    for turn, i in enumerate(order):
+        label, tree = trees[i]
+        rc, out = run(tree, SERVE, timeout)
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("[serve] submitted=")]
+        print(f"== turn {turn}: {label} (exit {rc})", flush=True)
+        for ln in lines:
+            print(ln, flush=True)
+        if rc != 0 or len(lines) != 1:
+            print(out[-4000:], flush=True)
+            return 1
+        fields = dict(re.findall(r"(\w+)=(\{[^}]*\}|\S+)", lines[0]))
+        turns.append({"turn": turn, "tree": label,
+                      "card": out.split("AB_CARD ", 1)[1].splitlines()[0],
+                      **{k: fields[k] for k in SERVE_KEYS if k in fields}})
+    print(json.dumps({"serve_turns": turns}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("versions", "controls"))
+    ap.add_argument("mode", choices=("versions", "controls", "serve"))
     ap.add_argument("sources", nargs="*",
-                    help="other flash_attention.cu files (versions)")
+                    help="other flash_attention.cu files (versions), or "
+                         "the other tree's directory (serve)")
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="serve: rounds of other, this, this, other")
     ap.add_argument("--work", type=Path, default=ROOT / "chipcopy" / "ab",
                     help="where the copies go (a directory .gitignore "
                          "lists)")
@@ -142,6 +185,10 @@ def main(argv=None) -> int:
         if not args.sources:
             ap.error("versions needs at least one other source")
         return versions(args.sources, args.work, args.timeout)
+    if args.mode == "serve":
+        if len(args.sources) != 1:
+            ap.error("serve needs the other tree's directory")
+        return serve(Path(args.sources[0]), args.rounds, args.timeout)
     return controls(args.work, args.timeout)
 
 

@@ -7,6 +7,11 @@ CUDA toolkit: ``python3 chip_smoke.py``. The kernels are built from
 One line per phase:
 
 1. device  the card's name and power limit (nvidia-smi); TF32 matmuls off
+   enumerate  the GPU device library on the machine's own roots (the
+           default backend, and NVML where libnvidia-ml.so.1 is present):
+           every GPU with uuid, minor, PCI address and device id, memory and
+           backend; the card torch uses must be found, with its UUID,
+           memory within 1% of torch's and its /dev/nvidia<minor> node
 2. build   nvcc of every kernel source, all started together, with seconds;
            per kernel ptxas's registers, shared memory and spills, and its
            SASS count of warpgroup MMAs (HGMMA) and TMA loads (UTMALDG):
@@ -19,10 +24,19 @@ One line per phase:
            on the card against the same engine on the CPU, step for step
 4. timing  the decode kernel, its plain version and one library call, at
            the engine's shape, beside the least time the card could take
-5. serve   a claim's CDI spec naming device 0, read back and bound to an
+5. serve   the claim path: a ResourceClaim for that card (CEL on its UUID)
+           allocated, prepared by the GPU kubelet plugin through the claim
+           watcher into a CDI spec naming it, read back and bound to an
            engine at one attention layer of Llama-2-7B (32 heads of 128,
            a 4096-token cache, 32 slots) that serves 48 requests from 4
-           tenants through the decode kernel
+           tenants through the decode kernel; then drained, unreserved,
+           unprepared and deleted with nothing left behind (claim_ready_ms,
+           ttfb_ms: claim create to Ready, to the first decoded batch)
+   servesmoke  the port's run_serving_smoke() on the card: ok, accounted,
+           no leaks, isolation error under 1e-4; then the decode kernel
+           against its plain version at that session's shapes (q [8, 2,
+           ql, 8] for ql 1-8, a 32-token cache, random K/V, ragged
+           lengths): f32 within 1e-4, bf16 within 2e-2
 6. flash   the flash-attention kernel against its plain version
            (``reference_attention``) on the card at the compute bench's
            width [4, 8, 2048, 128], causal off and on: bf16 within
@@ -43,8 +57,9 @@ One line per phase:
            matmuls) in TFLOP/s
 
 Kernel times are CUDA-event times of a run of back-to-back calls over the
-count (``cuda_ms``). Each main path (serve, bench, burnin) runs with every
-kernel's launch count set to 0 just before it and read just after. Then one
+count (``cuda_ms``). Each main path (serve, servesmoke, bench, burnin) runs
+with every kernel's launch count set to 0 just before it and read just
+after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero before that line;
 without a CUDA device the script exits 1 at once.
@@ -55,18 +70,17 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
 import zlib
-from dataclasses import replace
 
 import numpy as np
 import torch
 
-from k8s_dra_driver_tpu_torch.cdi.spec import CDIHandler, claim_edits_for
 from k8s_dra_driver_tpu_torch.compute import _build
 from k8s_dra_driver_tpu_torch.compute.burnin import matmul_flops_bench
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
@@ -83,8 +97,29 @@ from k8s_dra_driver_tpu_torch.compute.serving import (
     ServingMetrics,
     bind_engine,
     tenant_vector,
+    visible_device_entries,
 )
 from k8s_dra_driver_tpu_torch.entry import entry
+from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
+    find_nvml,
+    host_device_libs,
+    locate_gpu,
+)
+from k8s_dra_driver_tpu_torch.internal.stresslab import (
+    SERVING_SMOKE_ENGINE,
+    run_serving_smoke,
+)
+from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
+from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import NodePrepareLoop
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+    DriverConfig,
+    GpuDriver,
+)
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.device_state import (
+    DRIVER_NAME,
+)
 
 # The smoke's width: one attention layer of Llama-2-7B's published config
 # (hidden 4096 = 32 heads x head_dim 128, max_position_embeddings 4096),
@@ -189,6 +224,50 @@ def phase_device() -> str:
          allow_tf32=torch.backends.cuda.matmul.allow_tf32)
     print(card, flush=True)
     return card
+
+
+def torch_uuid(index: int) -> str:
+    """``GPU-<uuid>`` of torch's device ``index``."""
+    u = str(torch.cuda.get_device_properties(index).uuid)
+    return u if u.upper().startswith("GPU-") else f"GPU-{u}"
+
+
+def phase_enumerate() -> dict:
+    """The device library on the machine's own roots. Every GPU that each
+    backend ``locate_gpu`` tries finds is printed (the default backend,
+    and NVML where ``libnvidia-ml.so.1`` is present); then ``locate_gpu``
+    must find the card torch uses (``cuda:0``) by its UUID, with memory
+    within 1% of torch's total and its ``/dev/nvidia<minor>`` node.
+    Returns that GPU and the library that found it."""
+    want = torch_uuid(0)
+    total = torch.cuda.get_device_properties(0).total_memory
+    line("enumerate", torch_uuid=want, torch_total_memory=total,
+         nvml=json.dumps(find_nvml() or ""))
+    for lib in host_device_libs():
+        gpus = lib.enumerate_gpus()
+        line("enumerate", backend=lib.backend, gpus=len(gpus))
+        for g in gpus:
+            line("enumerate", backend=lib.backend, index=g.index, uuid=g.uuid,
+                 minor=g.minor, pci_address=g.pci_address or "not reported",
+                 pci_device_id=(f"0x{g.pci_device_id:04x}"
+                                if g.pci_device_id else "not reported"),
+                 product=json.dumps(g.product_name),
+                 memory_bytes=g.memory_bytes, numa_node=g.numa_node,
+                 driver_version=g.driver_version)
+    lib, gpu = locate_gpu(want)
+    share = abs(gpu.memory_bytes - total) / total
+    node = f"/dev/nvidia{gpu.minor}"
+    line("enumerate", used_backend=lib.backend, uuid=gpu.uuid,
+         minor=gpu.minor, pci_device_id=(f"0x{gpu.pci_device_id:04x}"
+                                         if gpu.pci_device_id
+                                         else "not reported"),
+         memory_vs_torch=share, device_node=node)
+    require(gpu.uuid.lower() == want.lower(),
+            f"locate_gpu returned {gpu.uuid}, not {want}")
+    require(share < 0.01, f"memory {gpu.memory_bytes} is {share:.2%} off "
+                          f"torch's {total}")
+    require(os.path.exists(node), f"{node} does not exist")
+    return {"lib": lib, "gpu": gpu}
 
 
 def kernel_name(mangled: str, names: list) -> str:
@@ -607,40 +686,102 @@ def phase_burnin() -> None:
             f"matmul bench gave {mm['tflops']} TFLOP/s")
 
 
-def phase_serve(seed: int) -> dict:
+def _claim_ready(client, name: str) -> bool:
+    """Whether the claim's status carries the GPU driver's Ready entry."""
+    c = client.try_get("ResourceClaim", name, "default") or {}
+    return any(d.get("driver") == DRIVER_NAME and any(
+        k.get("type") == "Ready" and k.get("status") == "True"
+        for k in d.get("conditions") or [])
+        for d in (c.get("status") or {}).get("devices") or [])
+
+
+def _wait(cond, what: str, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        require(time.monotonic() < deadline, f"{what} within {timeout} s")
+        time.sleep(0.001)
+
+
+def phase_serve(seed: int, lib, gpu) -> dict:
+    """The claim path into the engine: a FakeClient with the gpu.nvidia.com
+    DeviceClass, the GPU kubelet plugin on the device library that found
+    the card, and the claim watcher. A ResourceClaim for the card torch uses
+    (a CEL selector on its UUID) is allocated, prepared and read back as a
+    CDI spec, and ``bind_engine`` binds the engine to the GPU the spec
+    names. Then one attention layer of Llama-2-7B serves 48 requests from 4
+    tenants through the decode kernel, and the claim is drained, unreserved,
+    unprepared and deleted, leaving nothing behind."""
     require(len({zlib.crc32(t.encode()) % 16 for t in TENANTS})
             == len(TENANTS), "tenants share an isolation-oracle bucket")
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_dir) as cdi_root:
-        cdi = CDIHandler(cdi_root)
-        uid = "smoke-claim-0"
-        devices, claim_edits = claim_edits_for([0], [0])
-        devices = [replace(d, name=cdi.claim_device_name(uid, d.name))
-                   for d in devices]
-        ids = cdi.create_claim_spec_file(uid, devices,
-                                         claim_edits=claim_edits)
-        spec = cdi.read_claim_spec(uid)
-        engine = bind_engine(
-            spec, "smoke", metrics=ServingMetrics(), max_batch=BATCH,
-            kv_cap=KV_CAP, heads=HEADS, head_dim=HEAD_DIM,
-            tokens_per_chip_step=2048, queue_cap=64,
-            modeled_chip_tok_s=1e9)
-        cdi.delete_claim_spec_file(uid)
-    line("serve", cdi_ids=json.dumps(ids), device=str(engine.device),
-         n_chips=engine.n_chips,
-         kv_slab_gb=2 * engine._K.numel() * 4 / 1e9)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        client = FakeClient()
+        client.create(new_object(
+            "DeviceClass", DRIVER_NAME, spec={"selectors": [{"cel": {
+                "expression": "device.attributes['type'] == 'gpu'"}}]}))
+        client.create(new_object("Node", "node-0"))
+        driver = GpuDriver(client, DriverConfig(
+            node_name="node-0", state_dir=f"{tmp}/state",
+            cdi_root=f"{tmp}/cdi", env={}, retry_timeout=5.0),
+            device_lib=lib).start()
+        loop = NodePrepareLoop(client, driver, DRIVER_NAME, "node-0",
+                               namespace="default").start()
+        try:
+            served = _serve_claim(seed, client, driver, gpu)
+        finally:
+            loop.stop()
+            driver.stop()
+        residue = ([c["metadata"]["name"]
+                    for c in client.list("ResourceClaim")]
+                   + sorted(driver.state.prepared_claims_nolock())
+                   + driver.cdi.list_claim_uids()
+                   + sorted(p.name for p in driver.cdi.cdi_root.iterdir()))
+    line("serve", residue=json.dumps(residue))
+    require(not residue, f"left behind: {residue}")
+    return served
+
+
+def _serve_claim(seed: int, client, driver, gpu) -> dict:
+    name = "smoke-claim"
+    t0 = time.monotonic()
+    claim = client.create(new_object(
+        "ResourceClaim", name, "default", api_version="resource.k8s.io/v1",
+        spec={"devices": {"requests": [{"name": "gpu", "exactly": {
+            "deviceClassName": DRIVER_NAME, "allocationMode": "ExactCount",
+            "count": 1, "selectors": [{"cel": {"expression":
+                f"device.attributes['uuid'] == '{gpu.uuid}'"}}]}}]}}))
+    claim = Allocator(client).allocate(
+        claim, reserved_for=[{"resource": "pods", "name": "smoke-pod"}],
+        node="node-0")
+    uid = claim["metadata"]["uid"]
+    _wait(lambda: _claim_ready(client, name), "claim Ready")
+    claim_ready_ms = (time.monotonic() - t0) * 1e3
+    spec = driver.cdi.read_claim_spec(uid)
+    entries = visible_device_entries(spec)
+    engine = bind_engine(
+        spec, "smoke", metrics=ServingMetrics(), max_batch=BATCH,
+        kv_cap=KV_CAP, heads=HEADS, head_dim=HEAD_DIM,
+        tokens_per_chip_step=2048, queue_cap=64, modeled_chip_tok_s=1e9)
+    results = claim["status"]["allocation"]["devices"]["results"]
+    line("serve", claim=name, device=results[0]["device"],
+         cuda_visible_devices=json.dumps(entries),
+         engine_device=str(engine.device), n_chips=engine.n_chips,
+         kv_slab_gb=2 * engine._K.numel() * 4 / 1e9,
+         claim_ready_ms=claim_ready_ms)
+    require(entries == [gpu.uuid], f"the spec names {entries}, not "
+                                   f"{gpu.uuid}")
     require(engine.device == torch.device("cuda", 0),
-            f"engine bound to {engine.device}")
+            f"engine bound to {engine.device}, not the spec's GPU cuda:0")
 
     step_ms: list[float] = []
     inner = engine.step
 
     def timed_step() -> int:
-        t0 = time.perf_counter()
+        t = time.perf_counter()
         spent = inner()
         if spent:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_ms.append((time.perf_counter() - t) * 1e3)
         return spent
 
     engine.step = timed_step
@@ -651,21 +792,22 @@ def phase_serve(seed: int) -> dict:
             for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t0 = time.monotonic()
+    t1 = time.monotonic()
     engine.start()
     for r in reqs:
         require(engine.submit(r), f"request {r.rid} rejected")
-    deadline = t0 + 600
+    deadline = t1 + 600
     while engine.completed < len(reqs) and time.monotonic() < deadline:
         require(engine._thread.is_alive(), "the engine thread died")
         time.sleep(0.005)
-    wall = time.monotonic() - t0
+    wall = time.monotonic() - t1
     summary = engine.drain(timeout=60)
     counts = launches()
     n_launches = counts["decode_attention"]
     decode_steps = sum(1 for e in engine.step_log if e["decode_tokens"])
     mem_gb = torch.cuda.memory_allocated() / 1e9
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ttfb_ms = (engine.first_batch_t - t0) * 1e3
     line("serve", submitted=summary["submitted"],
          completed=summary["completed"], shed=summary["shed"],
          rejected=summary["rejected"], accounted=summary["accounted"],
@@ -677,7 +819,8 @@ def phase_serve(seed: int) -> dict:
          step_ms_p99=float(np.percentile(step_ms, 99)),
          step_samples=len(step_ms),
          kv_isolation_max_err=engine.kv_isolation_max_err,
-         mem_allocated_gb=mem_gb, mem_peak_gb=peak_gb)
+         mem_allocated_gb=mem_gb, mem_peak_gb=peak_gb,
+         claim_ready_ms=claim_ready_ms, ttfb_ms=ttfb_ms)
     require(summary["completed"] == summary["submitted"] == len(reqs),
             f"completed {summary['completed']} of {summary['submitted']}")
     require(summary["accounted"], "accounting identity broken")
@@ -692,7 +835,88 @@ def phase_serve(seed: int) -> dict:
                 and bool(np.isfinite(r.last_output).all())
                 and float(np.abs(r.last_output - vec).max()) < F32_TOL,
                 f"request {r.rid} decoded a wrong row")
-    return {"launches": n_launches}
+    del engine
+    torch.cuda.empty_cache()
+
+    # Teardown: unreserve, wait for the claim watcher to unprepare, delete.
+    c = client.get("ResourceClaim", name, "default")
+    c["status"].pop("reservedFor", None)
+    client.update_status(c)
+    _wait(lambda: not any(
+        d.get("driver") == DRIVER_NAME for d in (client.get(
+            "ResourceClaim", name, "default").get("status") or {}).get(
+            "devices") or []), "claim unprepared")
+    client.delete("ResourceClaim", name, "default")
+    return {"launches": n_launches, "claim_ready_ms": claim_ready_ms,
+            "ttfb_ms": ttfb_ms}
+
+
+def servesmoke_check(rng: np.random.Generator) -> float:
+    """The decode kernel against its plain version at the serving smoke's
+    shapes (``SERVING_SMOKE_ENGINE``: q [8, 2, ql, 8], K/V [8, 2, 32, 8]),
+    random K/V and ragged lengths (1, the full cache, the rest uniform),
+    ql 1-8, f32 within F32_TOL and bf16 within BF16_TOL. The smoke's own
+    caches hold one constant vector per slot, which any softmax weighting
+    reproduces; these inputs do not. Returns the largest error over its
+    tolerance."""
+    dev = torch.device("cuda", 0)
+    e = SERVING_SMOKE_ENGINE
+    b, h, d, cap = e["max_batch"], e["heads"], e["head_dim"], e["kv_cap"]
+    lens = rng.integers(1, cap + 1, size=b).astype(np.int32)
+    lens[:2] = (1, cap)
+    worst = 0.0
+    for ql in range(1, 9):
+        args = [torch.from_numpy(a).to(dev) for a in (
+            rng.standard_normal((b, h, ql, d), np.float32),
+            rng.standard_normal((b, h, cap, d), np.float32),
+            rng.standard_normal((b, h, cap, d), np.float32), lens)]
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            a = [t.to(dtype) for t in args[:3]] + args[3:]
+            out = flash_attention_decode(*a)
+            ref = decode_attention_reference(*a)
+            require(out.shape == ref.shape and out.dtype == dtype
+                    and bool(torch.isfinite(out).all()),
+                    f"servesmoke shape {dtype} ql={ql}: output "
+                    f"{out.shape} {out.dtype}")
+            err = (out.float() - ref.float()).abs().max().item()
+            require(err < tol, f"servesmoke shape {dtype} ql={ql}: "
+                               f"error {err} >= {tol}")
+            worst = max(worst, err / tol)
+    torch.cuda.synchronize()
+    line("servesmoke", kernel="decode_attention",
+         shape=json.dumps([b, h, "1-8", d]), kv_cap=cap,
+         lengths=json.dumps(lens.tolist()), dtypes="f32/bf16",
+         worst_err_over_tol=worst)
+    return worst
+
+
+def phase_servesmoke(rng: np.random.Generator) -> None:
+    """``run_serving_smoke()`` on the card: one replica's serve session
+    from a ResourceClaim to the first decoded batch, drained and torn down,
+    with the accounting identity and a zero-residue audit. Its own path:
+    the counts are zeroed before it and read after it. Then the decode
+    kernel is held against its plain version at the session's shapes
+    (``servesmoke_check``), outside the counted run."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    reset_launches()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        r = run_serving_smoke(tmpdir=tmp)
+    counts = launches()
+    line("servesmoke", ok=r["ok"], outcome=r["outcome"], backend=r["backend"],
+         device=r["device"], ttfb_s=r["ttfb_s"], completed=r["completed"],
+         shed=r["shed"], rejected=r["rejected"], accounted=r["accounted"],
+         leaks=json.dumps(r["leaks"]),
+         kv_isolation_max_err=r["kv_isolation_max_err"],
+         kernel_launches=json.dumps(counts), error=json.dumps(r["error"]))
+    require(r["ok"] and r["accounted"] and r["leaks"] == [],
+            f"serving smoke: {r}")
+    require(r["kv_isolation_max_err"] < F32_TOL,
+            f"serving smoke kv_isolation_max_err {r['kv_isolation_max_err']}")
+    require(r["device"] == "cuda:0", f"serving smoke on {r['device']}")
+    require(counts["decode_attention"] > 0,
+            "the serving smoke launched no decode kernel")
+    servesmoke_check(rng)
 
 
 def main(argv=None) -> int:
@@ -704,6 +928,7 @@ def main(argv=None) -> int:
               "false)", file=sys.stderr)
         return 1
     phase_device()
+    found = phase_enumerate()
     phase_build()
     rng = np.random.default_rng(args.seed)
     k, v, lens = smoke_inputs(rng)
@@ -712,7 +937,8 @@ def main(argv=None) -> int:
     del k, v, lens
     torch.cuda.empty_cache()
     engine_parity()
-    served = phase_serve(args.seed)
+    served = phase_serve(args.seed, found["lib"], found["gpu"])
+    phase_servesmoke(rng)
     flash_err = phase_flash_check(args.seed)
     flash = phase_flash_bench(args.seed)
     phase_burnin()

@@ -24,9 +24,16 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Optional, Sequence
 
+from k8s_dra_driver_tpu_torch.pkg import faultpoints, tracing
 from k8s_dra_driver_tpu_torch.pkg.durability import atomic_publish
 
 logger = logging.getLogger(__name__)
+
+#: Fault point: the transient claim-spec write fails or crashes before
+#: the atomic publish.
+FP_CDI_WRITE = faultpoints.register(
+    "cdi.write", "claim CDI spec write fails before the atomic rename",
+    errors={"oserror": OSError})
 
 # Claim UIDs become path components of transient spec files; restrict them to
 # the RFC-4122-ish charset the kubelet actually hands out so a hostile UID
@@ -78,26 +85,34 @@ class CDIDevice:
         return {"name": self.name, "containerEdits": edits}
 
 
-def claim_edits_for(indices: Sequence[int], minors: Sequence[int]
+def claim_edits_for(indices: Sequence[int], minors: Sequence[int],
+                    uuids: Optional[Sequence[str]] = None
                     ) -> tuple[list[CDIDevice], CDIDevice]:
     """The container edits a GPU plugin writes when it prepares a claim on
-    the GPUs with CUDA ``indices`` and device-node ``minors`` (pairwise).
+    the GPUs with node-local ``indices`` and device-node ``minors``
+    (pairwise).
 
     Returns ``(devices, claim_edits)``: one ``gpu-<index>`` device per GPU
     carrying its ``/dev/nvidia<minor>`` node plus the driver's shared
     control nodes, and the claim-wide edits carrying
     ``CUDA_VISIBLE_DEVICES`` and ``NVIDIA_VISIBLE_DEVICES`` (the union over
     the claim's GPUs, which must not be set per device where several
-    values would collide). Device names are claim-local; pass each through
-    :meth:`CDIHandler.claim_device_name` before writing the spec."""
+    values would collide). The visibility lists the GPUs' ``uuids``
+    (``GPU-<uuid>``) when given, else their indices: a UUID names the same
+    GPU whatever order CUDA enumerates the visible devices in. Device names
+    are claim-local; pass each through :meth:`CDIHandler.claim_device_name`
+    before writing the spec."""
     if len(indices) != len(minors):
         raise ValueError(f"{len(indices)} indices but {len(minors)} minors")
+    if uuids is not None and len(uuids) != len(indices):
+        raise ValueError(f"{len(indices)} indices but {len(uuids)} uuids")
     devices = [
         CDIDevice(name=f"gpu-{i}",
                   device_nodes=[f"/dev/nvidia{m}", *GPU_CONTROL_NODES])
         for i, m in zip(indices, minors)
     ]
-    visible = ",".join(str(i) for i in indices)
+    visible = ",".join(uuids if uuids is not None
+                       else (str(i) for i in indices))
     claim_edits = CDIDevice(name="claim", env={
         "CUDA_VISIBLE_DEVICES": visible,
         "NVIDIA_VISIBLE_DEVICES": visible,
@@ -168,6 +183,12 @@ class CDIHandler:
         if claim_edits is not None:
             spec["containerEdits"] = claim_edits.to_dict(
                 self._transform)["containerEdits"]
+        with tracing.child_span("cdi.write", attributes={"claim": claim_uid}):
+            return self._write_claim_spec(claim_uid, spec, devices)
+
+    def _write_claim_spec(self, claim_uid: str, spec: dict,
+                          devices: list[CDIDevice]) -> list[str]:
+        faultpoints.maybe_fail(FP_CDI_WRITE)
         path = self._spec_path(claim_uid)
         atomic_publish(path,
                        lambda f: json.dump(spec, f, indent=2, sort_keys=True),

@@ -48,6 +48,7 @@ from k8s_dra_driver_tpu_torch.compute._device import _resolve_device
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     flash_attention_decode,
 )
+from k8s_dra_driver_tpu_torch.pkg import sanitizer
 from k8s_dra_driver_tpu_torch.pkg.metrics import (
     Counter,
     Gauge,
@@ -60,6 +61,10 @@ from k8s_dra_driver_tpu_torch.pkg.metrics import (
 OUTCOME_COMPLETED = "completed"
 OUTCOME_SHED = "shed"
 OUTCOME_REJECTED = "rejected"
+
+#: replica serve-session outcomes (``claim_attempts_total``'s label)
+CLAIM_OK = "ok"
+CLAIM_ERROR = "error"
 
 
 class ServingMetrics:
@@ -126,17 +131,17 @@ def default_serving_metrics() -> ServingMetrics:
     return _default_serving_metrics
 
 
-def parse_visible_devices(spec: Optional[dict]) -> List[int]:
-    """CUDA device indices a CDI claim spec makes visible
-    (``CUDA_VISIBLE_DEVICES``).
+def visible_device_entries(spec: Optional[dict]) -> List[str]:
+    """The ``CUDA_VISIBLE_DEVICES`` entries a CDI claim spec sets, as
+    written: integer indices or ``GPU-<uuid>`` names.
 
     Scans both the claim-wide ``containerEdits`` and every per-device
-    edit block; entries are ``"K=V"`` strings. Returns sorted unique
-    indices; ``[]`` for a missing spec or the ``void`` sentinel. Entries
-    must be integer indices (a GPU UUID raises ValueError)."""
+    edit block; entries are ``"K=V"`` strings. Returns the unique entries
+    in the order met; ``[]`` for a missing spec or the ``void``
+    sentinel."""
     if not spec:
         return []
-    devices: set = set()
+    entries: List[str] = []
 
     def scan(edits: Optional[dict]) -> None:
         for e in (edits or {}).get("env") or []:
@@ -145,12 +150,64 @@ def parse_visible_devices(spec: Optional[dict]) -> List[int]:
                 if val and val != "void":
                     for part in val.split(","):
                         part = part.strip()
-                        if part:
-                            devices.add(int(part))
+                        if part and part not in entries:
+                            entries.append(part)
 
     scan(spec.get("containerEdits"))
     for dev in spec.get("devices") or []:
         scan(dev.get("containerEdits"))
+    return entries
+
+
+def cuda_device_uuids() -> Dict[str, int]:
+    """``GPU-<uuid>`` → torch device index, for every CUDA device this
+    process sees. Raises without CUDA."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available to match GPU UUIDs "
+                           "against")
+    out = {}
+    for i in range(torch.cuda.device_count()):
+        u = str(torch.cuda.get_device_properties(i).uuid).lower()
+        out[u if u.startswith("gpu-") else f"gpu-{u}"] = i
+    return out
+
+
+def parse_visible_devices(spec: Optional[dict],
+                          uuids: Optional[Dict[str, int]] = None
+                          ) -> List[int]:
+    """Torch device indices of the GPUs a CDI claim spec makes visible
+    (``CUDA_VISIBLE_DEVICES``); sorted and unique, ``[]`` for a missing
+    spec or ``void``.
+
+    An integer entry is an index already. A ``GPU-<uuid>`` entry is the
+    index of the device with that UUID: in ``uuids`` (``GPU-<uuid>`` →
+    index) when the caller passes it, else among the CUDA devices this
+    process sees (``torch.cuda.get_device_properties(i).uuid``), since the
+    UUID, not the node's enumeration order, names the GPU. A UUID that
+    matches no device, a UUID with neither a mapping nor CUDA to match it
+    against, and any other entry (a MIG instance) raise ValueError."""
+    devices: set = set()
+    table: Optional[Dict[str, int]] = None
+    if uuids is not None:
+        table = {k.lower(): v for k, v in uuids.items()}
+    for part in visible_device_entries(spec):
+        if part.lstrip("-").isdigit():
+            devices.add(int(part))
+            continue
+        if not part.lower().startswith("gpu-"):
+            raise ValueError(f"CUDA_VISIBLE_DEVICES entry {part!r} is "
+                             "neither an index nor a GPU UUID")
+        if table is None:
+            if not torch.cuda.is_available():
+                raise ValueError(
+                    f"CUDA_VISIBLE_DEVICES entry {part!r} is a GPU UUID, and "
+                    "there is neither a UUID mapping nor a CUDA device to "
+                    "match it against")
+            table = cuda_device_uuids()
+        if part.lower() not in table:
+            raise ValueError(f"no GPU has the UUID {part!r}; known: "
+                             f"{sorted(table)}")
+        devices.add(table[part.lower()])
     return sorted(devices)
 
 
@@ -223,7 +280,7 @@ class ServingEngine:
         self.clock = clock
         self.device = _resolve_device(device)
 
-        self._mu = threading.Lock()
+        self._mu = sanitizer.new_lock(f"ServingEngine.{name}._mu")
         self._queue: deque = deque()
         self._active: Dict[int, DecodeRequest] = {}      # slot -> request
         self._free = list(range(max_batch))
@@ -526,12 +583,14 @@ def kv_state_from_numpy(engine: ServingEngine, K: np.ndarray, V: np.ndarray,
 
 def bind_engine(spec: Optional[dict], name: str,
                 device: Union[str, torch.device, None] = None,
+                uuids: Optional[Dict[str, int]] = None,
                 **engine_kwargs) -> ServingEngine:
-    """The engine for a prepared claim: one device per visible
-    ``CUDA_VISIBLE_DEVICES`` index in its CDI ``spec``, with the slabs on
-    ``cuda:<first visible index>`` unless ``device`` says otherwise.
-    Raises ValueError when the spec makes no device visible."""
-    devices = parse_visible_devices(spec)
+    """The engine for a prepared claim: one device per GPU its CDI
+    ``spec`` makes visible (:func:`parse_visible_devices`, ``uuids`` as
+    there), with the slabs on ``cuda:<first visible index>`` unless
+    ``device`` says otherwise. Raises ValueError when the spec makes no
+    device visible."""
+    devices = parse_visible_devices(spec, uuids)
     if not devices:
         raise ValueError(f"engine {name}: the claim's CDI spec makes no "
                          f"CUDA device visible")

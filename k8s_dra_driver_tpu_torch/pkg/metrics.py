@@ -1,8 +1,10 @@
 """Prometheus-style metrics with text exposition.
 
-The subset of the JAX package's ``pkg/metrics.py`` that the serving
-engine's ``ServingMetrics`` uses: Counter, Gauge and Histogram with label
-vectors, a Registry, and the same text exposition format, line for line.
+The subset of the JAX package's ``pkg/metrics.py`` that this package uses:
+Counter, Gauge and Histogram with label vectors, a Registry and the same
+text exposition format, line for line; and the families of the claim path
+(DRA requests, informer, workqueue, allocator, fake-apiserver wire path),
+named ``gpu_dra_*`` where the JAX package's are ``tpu_dra_*``.
 
 Histogram exemplars take an explicit trace id only; there is no tracer in
 this package yet to supply one from an active span.
@@ -63,6 +65,10 @@ class Counter(_Metric):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def value(self, **labels: str) -> float:
+        with self._lock:
+            return self._values.get(self._key(labels), 0.0)
+
     def expose(self) -> Iterable[str]:
         yield f"# HELP {self.name} {self.help}"
         yield f"# TYPE {self.name} {self.TYPE}"
@@ -77,6 +83,9 @@ class Gauge(Counter):
     def set(self, value: float, **labels: str) -> None:
         with self._lock:
             self._values[self._key(labels)] = value
+
+    def dec(self, amount: float = 1.0, **labels: str) -> None:
+        self.inc(-amount, **labels)
 
 
 class Histogram(_Metric):
@@ -114,6 +123,10 @@ class Histogram(_Metric):
             if tid:
                 self._exemplars.setdefault(key, {})[landed or "+Inf"] = (
                     tid, value, time.time())
+
+    def count(self, **labels: str) -> int:
+        with self._lock:
+            return self._totals.get(self._key(labels), 0)
 
     def expose(self) -> Iterable[str]:
         yield f"# HELP {self.name} {self.help}"
@@ -159,3 +172,241 @@ class Registry:
         for m in metrics:
             lines.extend(m.expose())
         return "\n".join(lines) + "\n"
+
+
+# -- DRA request metrics (the dra_requests.go:27-85 family) -----------------
+
+REQUEST_DURATION_BUCKETS = exponential_buckets(0.05, 2, 9)  # 0.05 s → 12.8 s
+
+
+class DRAMetrics:
+    """The per-process DRA metric family. Instantiate once per plugin
+    (``init_dra_metrics``) and thread through; a fresh instance per test
+    keeps tests independent."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.requests_total = r.register(Counter(
+            "gpu_dra_requests_total",
+            "Total number of DRA prepare and unprepare requests.",
+            ("driver", "operation")))
+        self.request_duration_seconds = r.register(Histogram(
+            "gpu_dra_request_duration_seconds",
+            "Duration of DRA prepare and unprepare requests.",
+            REQUEST_DURATION_BUCKETS, ("driver", "operation"),
+            exemplars=True))
+        self.requests_inflight = r.register(Gauge(
+            "gpu_dra_requests_inflight",
+            "Number of in-flight DRA prepare and unprepare requests.",
+            ("driver", "operation")))
+        self.prepared_devices = r.register(Gauge(
+            "gpu_dra_prepared_devices",
+            "Current number of prepared devices by device type.",
+            ("node", "driver", "device_type")))
+        self.node_prepare_errors_total = r.register(Counter(
+            "gpu_dra_node_prepare_errors_total",
+            "Total number of failures during DRA node prepare.",
+            ("driver", "error_type")))
+        self.node_unprepare_errors_total = r.register(Counter(
+            "gpu_dra_node_unprepare_errors_total",
+            "Total number of failures during DRA node unprepare.",
+            ("driver", "error_type")))
+        # Concurrent-prepare observability (docs/performance.md): how many
+        # claims are inside DeviceState right now (requests_inflight counts
+        # kubelet batch requests; this counts per-claim critical sections),
+        # and how many checkpoint RMWs each group-commit batch coalesced.
+        self.prepare_inflight = r.register(Gauge(
+            "gpu_dra_prepare_inflight",
+            "Claims with a prepare/unprepare currently executing in "
+            "device state.",
+            ("driver",)))
+        self.checkpoint_batch_size = r.register(Histogram(
+            "gpu_dra_checkpoint_batch_size",
+            "Checkpoint transactions coalesced per group-commit batch.",
+            (1, 2, 4, 8, 16, 32), ("driver",)))
+
+    def timed_request(self, driver: str, operation: str,
+                      trace_id: str = ""):
+        """Context manager: counts the request, tracks inflight, observes
+        duration — wrap each Prepare/Unprepare batch with it.
+        ``trace_id`` (the batch's claim trace, extracted from its
+        traceparent annotation) becomes the duration exemplar."""
+        return _TimedRequest(self, driver, operation, trace_id)
+
+
+class InformerMetrics:
+    """Watch-stream health counters for the informer layer. One process-
+    global instance by default (:func:`default_informer_metrics`): every
+    informer in a process feeds the same reconnect counters, labelled by
+    kind — that is the operator view of a flapping API server."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.watch_reconnects_total = r.register(Counter(
+            "gpu_dra_informer_watch_reconnects_total",
+            "Watch streams re-established after dying behind the informer.",
+            ("kind",)))
+        self.resync_failures_total = r.register(Counter(
+            "gpu_dra_informer_resync_failures_total",
+            "Failed attempts to re-establish a dead watch (server down).",
+            ("kind",)))
+        self.relists_total = r.register(Counter(
+            "gpu_dra_informer_relists_total",
+            "Full relists after a dead watch could not resume from the "
+            "event backlog (expired resume point or server-side "
+            "backpressure disconnect).",
+            ("kind",)))
+        self.cache_objects = r.register(Gauge(
+            "gpu_dra_informer_cache_objects",
+            "Objects currently held in an informer's local cache.",
+            ("kind",)))
+
+
+_default_informer_metrics: Optional[InformerMetrics] = None
+
+
+def default_informer_metrics() -> InformerMetrics:
+    global _default_informer_metrics
+    if _default_informer_metrics is None:
+        _default_informer_metrics = InformerMetrics()
+    return _default_informer_metrics
+
+
+class WorkQueueMetrics:
+    """Workqueue health, client-go's ``workqueue_*`` family GPU-named: how
+    deep each queue is, how long items wait before a worker picks them up,
+    and how long the work itself takes. One process-global instance by
+    default (:func:`default_workqueue_metrics`), labelled by queue name —
+    served through the controller main's MetricsServer."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.depth = r.register(Gauge(
+            "gpu_dra_workqueue_depth",
+            "Items currently queued (due or backing off, incl. parked "
+            "re-queues), excluding items being processed.",
+            ("queue",)))
+        self.queue_latency_seconds = r.register(Histogram(
+            "gpu_dra_workqueue_queue_latency_seconds",
+            "Time from enqueue until a worker starts the item.",
+            exponential_buckets(0.001, 4, 8), ("queue",)))
+        self.work_duration_seconds = r.register(Histogram(
+            "gpu_dra_workqueue_work_duration_seconds",
+            "Time a worker spends processing one item.",
+            exponential_buckets(0.0005, 4, 8), ("queue",)))
+
+
+_default_workqueue_metrics: Optional[WorkQueueMetrics] = None
+
+
+def default_workqueue_metrics() -> WorkQueueMetrics:
+    global _default_workqueue_metrics
+    if _default_workqueue_metrics is None:
+        _default_workqueue_metrics = WorkQueueMetrics()
+    return _default_workqueue_metrics
+
+
+class AllocatorMetrics:
+    """Allocator index/cache effectiveness. One process-global instance by
+    default (:func:`default_allocator_metrics`), served through the same
+    MetricsServer as the plugin's DRA family: ``cache`` labels the index —
+    ``slices`` (device/view/capacity index per ResourceSlice generation),
+    ``usage`` (consumed counters + held devices per claim generation),
+    ``candidates`` (class-filtered candidate lists), ``selector`` (compiled
+    CEL expressions), ``topology`` (the per-pool free-box geometry).
+
+    The placement families (docs/performance.md, "Topology-aware
+    allocation"): ``allocations_total`` counts allocation attempts by
+    outcome — ``fragmented`` means the claim bounced while aggregate free
+    capacity existed (the defrag planner's SLO signal);
+    ``fragmentation`` is 1 − largest-allocatable-subslice ÷ free-chips
+    per node pool (0 = one contiguous free box, → 1 as free capacity
+    splinters); ``utilization`` is drawn ÷ healthy chips per node pool
+    (cordoned/tainted chips excluded — the occupancy number the
+    canary/usage dashboards read directly instead of deriving);
+    ``candidates_scanned_total`` counts per-placement scoring work so
+    best-fit's scan cost is visible next to its hit-rate."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.cache_hits_total = r.register(Counter(
+            "gpu_dra_allocator_cache_hits_total",
+            "Allocator index/cache lookups served without recomputation.",
+            ("cache",)))
+        self.cache_misses_total = r.register(Counter(
+            "gpu_dra_allocator_cache_misses_total",
+            "Allocator index/cache lookups that had to recompute.",
+            ("cache",)))
+        self.cache_evictions_total = r.register(Counter(
+            "gpu_dra_allocator_cache_evictions_total",
+            "Entries evicted from the allocator's bounded memo caches "
+            "(candidates LRU, compiled-selector LRU) at their size caps.",
+            ("cache",)))
+        self.allocations_total = r.register(Counter(
+            "gpu_dra_allocator_allocations_total",
+            "Allocation attempts by outcome: success, unsatisfiable (no "
+            "capacity anywhere), fragmented (free capacity exists but no "
+            "placement fits — the defrag planner's signal).",
+            ("outcome",)))
+        self.fragmentation = r.register(Gauge(
+            "gpu_dra_allocator_fragmentation",
+            "Free-capacity fragmentation per node pool: 1 - largest "
+            "allocatable subslice / free chips (0 = contiguous).",
+            ("node", "pool")))
+        self.candidates_scanned_total = r.register(Counter(
+            "gpu_dra_allocator_candidates_scanned_total",
+            "Placement candidates examined during allocation, by "
+            "strategy (best-fit scores every free placement; first-fit "
+            "stops at the first).",
+            ("strategy",)))
+        self.utilization = r.register(Gauge(
+            "gpu_dra_allocator_utilization",
+            "Fraction of healthy (un-tainted, un-cordoned) chips per "
+            "node pool currently drawn by allocations — refreshed on "
+            "allocate/release alongside the fragmentation gauge.",
+            ("node", "pool")))
+
+    def hit(self, cache: str) -> None:
+        self.cache_hits_total.inc(cache=cache)
+
+    def miss(self, cache: str) -> None:
+        self.cache_misses_total.inc(cache=cache)
+
+    def evict(self, cache: str, n: int = 1) -> None:
+        self.cache_evictions_total.inc(n, cache=cache)
+
+
+_default_allocator_metrics: Optional[AllocatorMetrics] = None
+
+
+def default_allocator_metrics() -> AllocatorMetrics:
+    global _default_allocator_metrics
+    if _default_allocator_metrics is None:
+        _default_allocator_metrics = AllocatorMetrics()
+    return _default_allocator_metrics
+
+
+class _TimedRequest:
+    def __init__(self, m: DRAMetrics, driver: str, operation: str,
+                 trace_id: str = ""):
+        self.m = m
+        self.driver = driver
+        self.operation = operation
+        self.trace_id = trace_id
+
+    def __enter__(self) -> "_TimedRequest":
+        self.t0 = time.monotonic()
+        self.m.requests_total.inc(driver=self.driver, operation=self.operation)
+        self.m.requests_inflight.inc(driver=self.driver, operation=self.operation)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.m.requests_inflight.dec(driver=self.driver, operation=self.operation)
+        self.m.request_duration_seconds.observe(
+            time.monotonic() - self.t0,
+            exemplar=self.trace_id or None,
+            driver=self.driver, operation=self.operation)

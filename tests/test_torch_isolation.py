@@ -1,11 +1,14 @@
-"""The GPU port stands alone: no JAX, nothing of the JAX package, no Triton
-or kernel build at import.
+"""The GPU port stands alone: no JAX, nothing of the JAX package, no YAML
+or gRPC, no Triton or kernel build at import.
 
-A subprocess blocks ``jax`` and ``k8s_dra_driver_tpu`` in ``sys.modules``,
-imports every module of the port and ``chip_smoke.py``, serves a CPU
-engine to completion, runs ``entry(device="cpu")`` and one
-``flash_attention`` call on CPU tensors; a source scan finds no such import anywhere in the
-port or the smoke script.
+A subprocess blocks ``jax``, ``k8s_dra_driver_tpu``, ``yaml`` and ``grpc``
+in ``sys.modules``, imports every module of the port (the device library,
+the k8s client, the kubelet plugin and the serving harness included) and
+``chip_smoke.py``, serves a CPU engine to completion, runs
+``entry(device="cpu")``, one ``flash_attention`` call on CPU tensors and
+the serving smoke (``run_serving_smoke(device="cpu")``: claim → GPU plugin
+→ CDI → engine); a source scan finds no such import anywhere in the port
+or the smoke script.
 """
 
 import ast
@@ -17,11 +20,11 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "k8s_dra_driver_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu")
+FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml", "grpc")
 
 _CHILD = r"""
 import pkgutil, sys, time
-for name in ("jax", "jaxlib", "k8s_dra_driver_tpu"):
+for name in ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml", "grpc"):
     sys.modules[name] = None          # any import of them now fails
 sys.path.insert(0, sys.argv[1])
 import k8s_dra_driver_tpu_torch as port
@@ -56,6 +59,11 @@ q = torch.randn(1, 2, 64, 32)
 att = flash_attention(q, q, q, causal=True)
 assert att.shape == q.shape and flash_attention.launches == 0
 assert _build._libs == {}, "kernel library loaded on the CPU path"
+from k8s_dra_driver_tpu_torch.internal.stresslab import run_serving_smoke
+r = run_serving_smoke(device="cpu")
+assert r["ok"] and r["accounted"] and r["leaks"] == [], r
+assert r["kv_isolation_max_err"] < 1e-4, r
+assert _build._libs == {}, "kernel library loaded by the CPU serving smoke"
 print("MODULES", len(mods))
 """
 
@@ -73,7 +81,7 @@ def test_port_imports_and_serves_with_jax_blocked():
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("MODULES", 1)[1])
-    assert n >= 13, proc.stdout
+    assert n >= 45, proc.stdout
 
 
 @pytest.mark.parametrize("path", _sources(),
