@@ -55,9 +55,30 @@ One line per phase:
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
+9. multigpu  the multi-GPU compute plane, one NCCL rank per card: the dry
+           run ``dryrun_multichip(device_count)``; the sharded dp x tp step
+           at ``train_state``'s widths (d_model 256, d_ff 1024, vocab 512,
+           8 x 16 tokens) on the card against the same step on 4 gloo ranks
+           (dp 2 x tp 2) from the same numpy weights and batch: loss within
+           2e-5, every updated weight within 1e-5; the MoE layer (ep 1 on
+           the card, dp 2 x ep 2 on the CPU) and the pipeline (pp 1 against
+           ``pipeline_reference``) at the dry run's widths, f32 within 2e-5;
+           the data-parallel ResNet at ``resnet_params``' defaults (depth 4,
+           32 channels, 16 x 16 images, bf16; dp 1 against dp 2) within
+           3e-2; the two training steps' ``cuda_ms`` with the profiler's
+           device-busy ms, operations and NCCL ms per step; ring attention
+           at the ring bench's rows (b 1, h 4, d 64, seq 1024-8192, f32,
+           sp 1) within 2e-5 of ``reference_attention``, with both times
+           and peak memory; ``psum_bench`` refusing one GPU, and the
+           modeled all-reduce of an ``h100-8`` node at 256 MiB. No kernel
+           of the port is on this path, and its ranks are processes of
+           their own
+10. leftovers  the ranks' fork server stopped and waited for; no child
+           process of the script may be left
 
 Kernel times are CUDA-event times of a run of back-to-back calls over the
-count (``cuda_ms``). Each main path (serve, servesmoke, bench, burnin) runs
+count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
+burnin) runs
 with every kernel's launch count set to 0 just before it and read just
 after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
@@ -81,7 +102,7 @@ import zlib
 import numpy as np
 import torch
 
-from k8s_dra_driver_tpu_torch.compute import _build
+from k8s_dra_driver_tpu_torch.compute import _build, _dist
 from k8s_dra_driver_tpu_torch.compute.burnin import matmul_flops_bench
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     decode_attention_reference,
@@ -99,8 +120,17 @@ from k8s_dra_driver_tpu_torch.compute.serving import (
     tenant_vector,
     visible_device_entries,
 )
-from k8s_dra_driver_tpu_torch.entry import entry
+from k8s_dra_driver_tpu_torch.compute import (
+    collectives,
+    moe,
+    pipeline,
+    resnet,
+    ringattention,
+    sharded,
+)
+from k8s_dra_driver_tpu_torch.entry import dryrun_multichip, entry
 from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
+    MockDeviceLib,
     find_nvml,
     host_device_libs,
     locate_gpu,
@@ -151,6 +181,11 @@ POISON_TOL = 1e-5
 FLASH_F32_TOL = (2e-5, 2e-5)
 FLASH_BF16_TOL = (4e-3, 1e-2)
 BURNIN_TOL = 3e-2
+# The multi-GPU plane's limits, the JAX tests' and its port tests': f32
+# outputs and losses, f32 weights after one SGD step, bf16 (the ResNet).
+MULTI_F32_TOL, MULTI_PARAM_TOL, MULTI_BF16_TOL = 2e-5, 1e-5, 3e-2
+# The ring bench's rows (the JAX bench's b, h, d and sequences).
+RING_SEQS = (1024, 2048, 4096, 8192)
 # cuda_ms's calls per timing: warm-up calls, then timed calls.
 WARMUP_CALLS, TIMED_CALLS = 3, 30
 
@@ -919,6 +954,212 @@ def phase_servesmoke(rng: np.random.Generator) -> None:
     servesmoke_check(rng)
 
 
+def _worst(got: dict, want: dict, tol: float, what: str) -> float:
+    """The largest of max |got - want| / (tol + tol |want|) over the keys
+    of two dicts of numpy arrays (nested lists and dicts too); at most 1
+    where ``np.testing.assert_allclose(got, want, tol, tol)`` passes."""
+    if isinstance(want, dict):
+        return max(_worst(got[k], want[k], tol, f"{what}.{k}") for k in want)
+    if isinstance(want, list):
+        return max(_worst(g, w, tol, what) for g, w in zip(got, want))
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    require(got.shape == want.shape, f"{what}: shape {got.shape} vs "
+                                     f"{want.shape}")
+    require(bool(np.isfinite(got).all()), f"{what}: not finite")
+    return float((np.abs(got - want) / (tol + tol * np.abs(want))).max())
+
+
+def timing_fields(t: dict) -> dict:
+    """A step's ``_dist.step_timing`` as the phase prints it: the event
+    time per step, and from the profiled steps the host window, the time
+    the card ran anything, operations and NCCL kernel time per step, and
+    the card's idle share of the window."""
+    return {"cuda_ms": t["ms"], "profiled_window_ms": t["window_ms"],
+            "device_busy_ms": t["busy_ms"], "device_ops_per_step": t["ops"],
+            "nccl_kernel_ms": t["nccl_ms"],
+            "idle_share": 1 - t["busy_ms"] / t["window_ms"]}
+
+
+def phase_multigpu(card: str, seed: int) -> None:
+    """The multi-GPU compute plane on the machine's GPUs, one NCCL rank
+    each, held against the same code on gloo ranks on the CPU (and against
+    the plain references). Every function here starts its own ranks. With
+    one GPU, every part runs at world 1 and ``psum_bench`` must refuse it;
+    with more, the parts run at the GPU count (the MoE at ep 2) and the
+    all-reduce's bus bandwidth is measured at 16 and 256 MiB a GPU."""
+    world = torch.cuda.device_count()
+    t0 = time.monotonic()
+    d = dryrun_multichip(world)
+    line("multigpu", part="dryrun", card=json.dumps(card), world=d["world"],
+         backend=d["backend"],
+         device=d["device"], mesh=json.dumps(d["mesh"]),
+         moe=json.dumps(d["moe"]), loss=d["loss"],
+         ring_max_abs_err=d["ring_max_abs_err"],
+         moe_max_abs_err=d["moe_max_abs_err"],
+         pipeline_max_abs_err=d["pipeline_max_abs_err"],
+         seconds=f"{time.monotonic() - t0:.2f}")
+    require(d["world"] == world and d["backend"] == "nccl",
+            f"dry run on {d['world']} {d['backend']} ranks")
+
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    # The sharded step at train_state's widths.
+    params = {"embed": normal(512, 256, scale=0.02),
+              "w1": normal(256, 1024, scale=0.02),
+              "w2": normal(1024, 256, scale=0.02),
+              "out": normal(256, 512, scale=0.02)}
+    tokens, targets = (rng.integers(0, 512, (8, 16)) for _ in range(2))
+    gpu = sharded.run_sharded_train_step(params, tokens, targets, world,
+                                         time_reps=TIMED_CALLS)
+    cpu = sharded.run_sharded_train_step(params, tokens, targets, 4,
+                                         device="cpu")
+    loss_over = _worst(gpu["losses"], cpu["losses"], MULTI_F32_TOL, "loss")
+    param_over = _worst(gpu["params"], cpu["params"], MULTI_PARAM_TOL,
+                        "params")
+    line("multigpu", part="sharded", card=json.dumps(card),
+         card_mesh=json.dumps(gpu["mesh"]), cpu_mesh=json.dumps(cpu["mesh"]),
+         card_loss=gpu["losses"][0], cpu_loss=cpu["losses"][0],
+         loss_over_tol=loss_over, params_over_tol=param_over,
+         **timing_fields(gpu["timing"]))
+    require(cpu["mesh"] == {"dp": 2, "tp": 2}, f"CPU mesh {cpu['mesh']}")
+    require(loss_over <= 1 and param_over <= 1,
+            "the card's sharded step differs from the CPU's")
+
+    # MoE at the dry run's widths: 4 experts, d_model 16, d_ff 32.
+    mp = {"wg": normal(16, 4, scale=0.25), "w1": normal(4, 16, 32,
+                                                        scale=0.25),
+          "w2": normal(4, 32, 16, scale=32 ** -0.5)}
+    x, y = normal(4, 4, 16), normal(4, 4, 16)
+    card_ep = 2 if world % 2 == 0 else 1
+    gpu = moe.run_moe(mp, x, y, world, card_ep)
+    cpu = moe.run_moe(mp, x, y, 4, 2, device="cpu")
+    ref = moe.moe_ffn_reference(moe.moe_params_from_numpy(mp),
+                                torch.from_numpy(x)).numpy()
+    over = max(_worst(gpu["out"], cpu["out"], MULTI_F32_TOL, "moe out"),
+               _worst(gpu["out"], ref, MULTI_F32_TOL, "moe ref"),
+               _worst(gpu["losses"], cpu["losses"], MULTI_F32_TOL, "loss"))
+    param_over = _worst(gpu["params"], cpu["params"], MULTI_PARAM_TOL,
+                        "moe params")
+    line("multigpu", part="moe", card_ep=card_ep,
+         card_dp=world // card_ep, cpu_ep=2, cpu_dp=2,
+         card_loss=gpu["losses"][0], cpu_loss=cpu["losses"][0],
+         out_over_tol=over, params_over_tol=param_over)
+    require(over <= 1 and param_over <= 1,
+            "the card's MoE differs from the CPU's or the reference")
+
+    # The pipeline at the dry run's widths, one stage per GPU, against the
+    # reference and the same stages on gloo ranks.
+    pp = {"w1": normal(world, 8, 8, scale=8 ** -0.5),
+          "w2": normal(world, 8, 8, scale=8 ** -0.5)}
+    xs, ys = normal(world, 2, 8), normal(world, 2, 8)
+    gpu = pipeline.run_pipeline(pp, xs, world, ys=ys)
+    cpu = pipeline.run_pipeline(pp, xs, world, ys=ys, device="cpu")
+    ref = pipeline.pipeline_reference(
+        pipeline.pipeline_params_from_numpy(pp), torch.from_numpy(xs)).numpy()
+    over = max(_worst(gpu["out"], ref, MULTI_F32_TOL, "pipeline ref"),
+               _worst(gpu["losses"], cpu["losses"], MULTI_F32_TOL, "loss"))
+    param_over = _worst(gpu["params"], cpu["params"], MULTI_PARAM_TOL,
+                        "pipeline params")
+    line("multigpu", part="pipeline", pp=world, card_loss=gpu["losses"][0],
+         out_over_tol=over, params_over_tol=param_over)
+    require(over <= 1 and param_over <= 1,
+            "the card's pipeline differs from the reference or the CPU")
+
+    # The data-parallel ResNet at resnet_params' defaults, bf16.
+    rp = resnet.resnet_params_to_numpy(resnet.resnet_params(
+        generator=torch.Generator().manual_seed(seed)))
+    images = normal(4 * world, 16, 16, 3)
+    labels = rng.integers(0, 10, 4 * world)
+    gpu = resnet.run_data_parallel_resnet(rp, images, labels, world,
+                                          time_reps=TIMED_CALLS)
+    cpu = resnet.run_data_parallel_resnet(rp, images, labels, 2,
+                                          device="cpu")
+    over = max(_worst(gpu["logits"], cpu["logits"], MULTI_BF16_TOL, "logits"),
+               _worst(gpu["losses"], cpu["losses"], MULTI_BF16_TOL, "loss"),
+               _worst(gpu["params"], cpu["params"], MULTI_BF16_TOL,
+                      "resnet params"))
+    line("multigpu", part="resnet", card=json.dumps(card), card_dp=world,
+         cpu_dp=2, card_loss=gpu["losses"][0], cpu_loss=cpu["losses"][0],
+         over_tol=over, **timing_fields(gpu["timing"]))
+    require(over <= 1, "the card's ResNet step differs from the CPU's")
+
+    # Ring attention at the ring bench's rows, held against the reference
+    # at every row.
+    rows = ringattention.ring_crossover_bench(
+        RING_SEQS, n_devices=world, reps=10,
+        full_exec_max_seq=max(RING_SEQS))
+    for r in rows:
+        line("multigpu", part="ring", card=json.dumps(card), seq=r["seq"],
+             shape=json.dumps(r["shape"]), sp=r["n_devices"],
+             ring_cuda_ms=r["ring_ms"], full_cuda_ms=r["full_ms"],
+             ring_peak_bytes=r["ring_peak_bytes"],
+             full_peak_bytes=r["full_peak_bytes"],
+             max_abs_err=r["max_abs_err"])
+        require(r["max_abs_err"] <= MULTI_F32_TOL,
+                f"ring attention at seq {r['seq']}: error "
+                f"{r['max_abs_err']}")
+    require([r["seq"] for r in rows] == list(RING_SEQS), "ring rows")
+
+    # The all-reduce bench needs two GPUs; the model is labelled as one.
+    if world < 2:
+        try:
+            collectives.psum_bench(n_devices=world)
+        except ValueError as e:
+            line("multigpu", part="psum", refused=json.dumps(str(e)))
+        else:
+            raise SystemExit(f"chip_smoke: FAILED: psum_bench ran on "
+                             f"{world} GPU")
+        print(f"busbw: not measured ({world} GPU)", flush=True)
+    else:
+        for elems in (1 << 22, 1 << 26):
+            b = collectives.psum_bench(shard_elems=elems, n_devices=world)
+            line("multigpu", part="psum", card=json.dumps(card),
+                 kind=b["kind"], n_devices=b["n_devices"],
+                 shard_mib=b["shard_bytes"] / (1 << 20),
+                 seconds=b["seconds"], bus_gbps=b["bus_gbps"])
+    info = MockDeviceLib("h100-8").node_info()
+    for n_gpus in sorted({info.num_gpus} | ({world} if world > 1 else set())):
+        m = collectives.modeled_allreduce(256 << 20, info.gpu_type.spec,
+                                          n_gpus)
+        line("multigpu", part="allreduce_model", kind=m["kind"],
+             gpu=json.dumps(m["gpu"]), n_gpus=n_gpus, shard_mib=256,
+             per_gpu_egress_gbps=m["per_gpu_egress_gbps"],
+             modeled_bus_gbps=m["modeled_bus_gbps"],
+             pct_of_line_rate=m["pct_of_line_rate"],
+             hop_latency_us=m["hop_latency_s"] * 1e6)
+    line("multigpu", card=json.dumps(card),
+         seconds=f"{time.monotonic() - t0:.2f}")
+
+
+def child_processes() -> list[str]:
+    """``pid command`` of every process whose parent is this one."""
+    me, found = str(os.getpid()), []
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except (OSError, ValueError):
+            continue
+        # The command, in parentheses, may hold spaces; the fields after it
+        # are the state and the parent's pid.
+        name, fields = stat[stat.find("(") + 1:stat.rfind(")")], \
+            stat[stat.rfind(")") + 2:].split()
+        if fields[1] == me:
+            found.append(f"{pid} {name} ({fields[0]})")
+    return found
+
+
+def phase_leftovers() -> None:
+    """Stop the ranks' fork server and require that no child is left."""
+    _dist.stop_rank_server()
+    left = child_processes()
+    require(not left, f"processes left running: {left}")
+    line("leftovers", children=0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -927,7 +1168,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
-    phase_device()
+    card = phase_device()
     found = phase_enumerate()
     phase_build()
     rng = np.random.default_rng(args.seed)
@@ -942,6 +1183,8 @@ def main(argv=None) -> int:
     flash_err = phase_flash_check(args.seed)
     flash = phase_flash_bench(args.seed)
     phase_burnin()
+    phase_multigpu(card, args.seed)
+    phase_leftovers()
     kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "k8s_dra_driver_tpu_torch/csrc/decode_attention.cu",

@@ -27,6 +27,7 @@ class GpuSpec:
     sm_count: int
     compute_capability: tuple[int, int]
     nvlink_links: int        # fourth-generation NVLink links per GPU
+    nvlink_gbps_per_link: float  # one direction, GB/s
     pci_device_ids: tuple[int, ...]
 
     @property
@@ -73,13 +74,15 @@ class GpuType(enum.Enum):
 
 # H100 SXM5 80GB, from NVIDIA's public H100 datasheet and whitepaper: 80 GB
 # HBM3 (the driver reports a total of 81559 MiB), 132 SMs, compute
-# capability 9.0, 18 NVLink links. PCI device id 0x2330, the PCI ID
-# database's entry for the H100 SXM5 80GB (10de:2330).
+# capability 9.0, 18 NVLink links carrying 900 GB/s per GPU counted in
+# both directions, so 25 GB/s per link in one. PCI device id 0x2330, the
+# PCI ID database's entry for the H100 SXM5 80GB (10de:2330).
 _GPU_SPECS: dict[GpuType, GpuSpec] = {
     GpuType.H100_SXM_80GB: GpuSpec(
         product_name="NVIDIA H100 80GB HBM3", architecture="Hopper",
         memory_bytes=81559 << 20, sm_count=132, compute_capability=(9, 0),
-        nvlink_links=18, pci_device_ids=(0x2330,)),
+        nvlink_links=18, nvlink_gbps_per_link=25.0,
+        pci_device_ids=(0x2330,)),
 }
 
 

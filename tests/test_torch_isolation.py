@@ -5,10 +5,11 @@ A subprocess blocks ``jax``, ``k8s_dra_driver_tpu``, ``yaml`` and ``grpc``
 in ``sys.modules``, imports every module of the port (the device library,
 the k8s client, the kubelet plugin and the serving harness included) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
-``entry(device="cpu")``, one ``flash_attention`` call on CPU tensors and
-the serving smoke (``run_serving_smoke(device="cpu")``: claim → GPU plugin
-→ CDI → engine); a source scan finds no such import anywhere in the port
-or the smoke script.
+``entry(device="cpu")``, one ``flash_attention`` call on CPU tensors, the
+serving smoke (``run_serving_smoke(device="cpu")``: claim → GPU plugin
+→ CDI → engine) and the multi-device dry run on two gloo ranks
+(``dryrun_multichip(2, device="cpu")``); a source scan finds no such
+import anywhere in the port or the smoke script.
 """
 
 import ast
@@ -64,6 +65,9 @@ r = run_serving_smoke(device="cpu")
 assert r["ok"] and r["accounted"] and r["leaks"] == [], r
 assert r["kv_isolation_max_err"] < 1e-4, r
 assert _build._libs == {}, "kernel library loaded by the CPU serving smoke"
+from k8s_dra_driver_tpu_torch.entry import dryrun_multichip
+d = dryrun_multichip(2, device="cpu")
+assert d["world"] == 2 and d["backend"] == "gloo", d
 print("MODULES", len(mods))
 """
 
@@ -81,7 +85,7 @@ def test_port_imports_and_serves_with_jax_blocked():
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("MODULES", 1)[1])
-    assert n >= 45, proc.stdout
+    assert n >= 51, proc.stdout
 
 
 @pytest.mark.parametrize("path", _sources(),
