@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py versions OTHER.cu [OTHER.cu ...]
     python3 chip_ab.py controls
     python3 chip_ab.py serve OTHER_TREE [--rounds N]
+    python3 chip_ab.py decode OTHER_TREE [--rounds N]
 
 ``versions`` copies the port (``chip_smoke.py`` and
 ``k8s_dra_driver_tpu_torch/``) once per source under ``--work``, puts the
@@ -31,6 +32,12 @@ phases start from a ResourceClaim on the GPU that ``phase_enumerate``
 finds. It prints each turn's serve line, then one JSON line
 of every turn's decode tokens/s and step p50/p99 with the card's name and
 power limit.
+
+``decode`` does the same with ``chip_smoke``'s build and timing phases:
+each turn builds its tree's kernels (printing each decode kernel's
+registers) and times its decode kernel at the smoke's width, beside the
+plain version and the library call; the JSON line holds every turn's
+times and decode kernels' registers.
 """
 
 from __future__ import annotations
@@ -63,6 +70,18 @@ SERVE = ("import chip_smoke as c; card = c.phase_device(); "
          "c.phase_serve(0, **c.phase_enumerate())")
 SERVE_KEYS = ("decode_tok_s", "step_ms_p50", "step_ms_p99", "steps",
               "kernel_launches", "claim_ready_ms", "ttfb_ms")
+DECODE = ("import numpy as np, chip_smoke as c; card = c.phase_device(); "
+          "print('AB_CARD ' + card); c.phase_build(); "
+          "rng = np.random.default_rng(0); "
+          "c.phase_timing(rng, *c.smoke_inputs(rng))")
+DECODE_KEYS = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+# What each mode runs in a tree, and the lines of its output it keeps.
+TREE_MODES = {
+    "serve": (SERVE, lambda ln: ln.startswith("[serve] submitted="),
+              SERVE_KEYS),
+    "decode": (DECODE, lambda ln: ln.startswith("[timing]") or (
+        ln.startswith("[build] kernel=decode")), DECODE_KEYS),
+}
 
 
 def copy_tree(dest: Path, kernel_source: str) -> Path:
@@ -144,37 +163,47 @@ def controls(work: Path, timeout: float) -> int:
     return 0
 
 
-def serve(other: Path, rounds: int, timeout: float) -> int:
-    trees = [("other", other.resolve()), ("this-tree", ROOT)]
-    order = [0, 1, 1, 0] * rounds
+def trees(mode: str, other: Path, rounds: int, timeout: float) -> int:
+    """Run ``mode``'s code in the other tree and this one, in turns (other,
+    this, this, other) ``rounds`` times; print the kept lines and one JSON
+    line of every turn's numbers."""
+    code, keep, keys = TREE_MODES[mode]
+    sides = [("other", other.resolve()), ("this-tree", ROOT)]
     turns = []
-    for turn, i in enumerate(order):
-        label, tree = trees[i]
-        rc, out = run(tree, SERVE, timeout)
-        lines = [ln for ln in out.splitlines()
-                 if ln.startswith("[serve] submitted=")]
+    for turn, i in enumerate([0, 1, 1, 0] * rounds):
+        label, tree = sides[i]
+        rc, out = run(tree, code, timeout)
+        lines = [ln for ln in out.splitlines() if keep(ln)]
         print(f"== turn {turn}: {label} (exit {rc})", flush=True)
         for ln in lines:
             print(ln, flush=True)
-        if rc != 0 or len(lines) != 1:
+        if rc != 0 or not lines:
             print(out[-4000:], flush=True)
             return 1
-        fields = dict(re.findall(r"(\w+)=(\{[^}]*\}|\S+)", lines[0]))
-        turns.append({"turn": turn, "tree": label,
-                      "card": out.split("AB_CARD ", 1)[1].splitlines()[0],
-                      **{k: fields[k] for k in SERVE_KEYS if k in fields}})
-    print(json.dumps({"serve_turns": turns}), flush=True)
+        fields = dict(re.findall(r"(\w+)=(\{[^}]*\}|\S+)", lines[-1]))
+        record = {"turn": turn, "tree": label,
+                  "card": out.split("AB_CARD ", 1)[1].splitlines()[0],
+                  **{k: fields[k] for k in keys if k in fields}}
+        builds = [dict(re.findall(r"(\w+)=(\S+)", ln)) for ln in lines
+                  if ln.startswith("[build]")]
+        if builds:
+            record["registers"] = [f"{b['kernel']}={b['registers']}"
+                                   for b in builds]
+        turns.append(record)
+    print(json.dumps({f"{mode}_turns": turns}), flush=True)
     return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("versions", "controls", "serve"))
+    ap.add_argument("mode", choices=("versions", "controls", "serve",
+                                     "decode"))
     ap.add_argument("sources", nargs="*",
                     help="other flash_attention.cu files (versions), or "
-                         "the other tree's directory (serve)")
+                         "the other tree's directory (serve, decode)")
     ap.add_argument("--rounds", type=int, default=2,
-                    help="serve: rounds of other, this, this, other")
+                    help="serve, decode: rounds of other, this, this, "
+                         "other")
     ap.add_argument("--work", type=Path, default=ROOT / "chipcopy" / "ab",
                     help="where the copies go (a directory .gitignore "
                          "lists)")
@@ -185,10 +214,11 @@ def main(argv=None) -> int:
         if not args.sources:
             ap.error("versions needs at least one other source")
         return versions(args.sources, args.work, args.timeout)
-    if args.mode == "serve":
+    if args.mode in TREE_MODES:
         if len(args.sources) != 1:
-            ap.error("serve needs the other tree's directory")
-        return serve(Path(args.sources[0]), args.rounds, args.timeout)
+            ap.error(f"{args.mode} needs the other tree's directory")
+        return trees(args.mode, Path(args.sources[0]), args.rounds,
+                     args.timeout)
     return controls(args.work, args.timeout)
 
 

@@ -20,7 +20,9 @@ One line per phase:
            at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
            lengths): f32 within 1e-4, bf16 within 2e-2, a poisoned cache
            tail changes the output by less than 1e-5, and a block_k that
-           does not divide the cache raises ValueError; then a small engine
+           does not divide the cache raises ValueError; every compiled
+           variant at small shapes, with v's head dim unlike k's and 16 or
+           20 query rows (launched 8 rows at a time); then a small engine
            on the card against the same engine on the CPU, step for step
 4. timing  the decode kernel, its plain version and one library call, at
            the engine's shape, beside the least time the card could take
@@ -43,6 +45,8 @@ One line per phase:
            4e-3 + 1e-2 |ref| and f32 within 2e-5 + 2e-5 |ref| (the JAX
            tests' f32 criterion) at every element; every compiled variant at
            small shapes, at S = 1 to 320 across the kernels' tile edges;
+           head dims 8, 40 and 24 that the wrapper zero-pads to multiples of
+           16, within the same limits;
            block arguments that change nothing; causal row 0 equal to v's
            row 0; an indivisible S raising ValueError without a launch
 7. bench   the compute bench's flash rows (the JAX bench's headline shape
@@ -55,9 +59,20 @@ One line per phase:
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
-9. multigpu  the multi-GPU compute plane, one NCCL rank per card: the dry
-           run ``dryrun_multichip(device_count)``; the sharded dp x tp step
-           at ``train_state``'s widths (d_model 256, d_ff 1024, vocab 512,
+9. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
+           the device library that found the card, the controller's live
+           loop reconciling a CD of numNodes 1, and one daemon reporting the
+           card's health and the address 127.0.0.1. A channel claim from
+           the controller's template is refused (retryably, the node
+           labelled) while the CD is not Ready and prepares once it is;
+           prints cd_ready_ms (CD created to Ready) and channel_ready_ms
+           (claim created to prepared) with the card, and the claim's
+           rendezvous env (MASTER_ADDR, MASTER_PORT, NNODES, NODE_RANK)
+   multigpu  the multi-GPU compute plane, one NCCL rank per card: the dry
+           run ``dryrun_multichip(device_count)`` (its step 1 on mock
+           nodes), its ranks started from that claim's env at world
+           NNODES x device_count; the sharded dp x tp step at
+           ``train_state``'s widths (d_model 256, d_ff 1024, vocab 512,
            8 x 16 tokens) on the card against the same step on 4 gloo ranks
            (dp 2 x tp 2) from the same numpy weights and batch: loss within
            2e-5, every updated weight within 1e-5; the MoE layer (ep 1 on
@@ -72,7 +87,9 @@ One line per phase:
            and peak memory; ``psum_bench`` refusing one GPU, and the
            modeled all-reduce of an ``h100-8`` node at 256 MiB. No kernel
            of the port is on this path, and its ranks are processes of
-           their own
+           their own. After it the channel claim is unprepared and deleted,
+           the CD torn down, the daemon's and the controller's threads
+           stopped, and nothing of them may be left
 10. leftovers  the ranks' fork server stopped and waited for; no child
            process of the script may be left
 
@@ -93,6 +110,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -102,6 +120,7 @@ import zlib
 import numpy as np
 import torch
 
+from k8s_dra_driver_tpu_torch.cdi.spec import claim_spec_env
 from k8s_dra_driver_tpu_torch.compute import _build, _dist
 from k8s_dra_driver_tpu_torch.compute.burnin import matmul_flops_bench
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
@@ -128,7 +147,18 @@ from k8s_dra_driver_tpu_torch.compute import (
     ringattention,
     sharded,
 )
-from k8s_dra_driver_tpu_torch.entry import dryrun_multichip, entry
+from k8s_dra_driver_tpu_torch.api.computedomain import (
+    NODE_LABEL_CD,
+    STATUS_READY,
+    cd_status,
+    clique_daemons,
+    new_compute_domain,
+)
+from k8s_dra_driver_tpu_torch.entry import (
+    CHANNEL_CLASS,
+    dryrun_multichip,
+    entry,
+)
 from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
     MockDeviceLib,
     find_nvml,
@@ -143,6 +173,19 @@ from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
 from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
 from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
 from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import NodePrepareLoop
+from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
+from k8s_dra_driver_tpu_torch.pkg.errors import is_permanent
+from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller import (
+    ComputeDomainController,
+)
+from k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon import (
+    ComputeDomainDaemon,
+)
+from k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin import (
+    MASTER_PORT,
+    CdDriver,
+    CdDriverConfig,
+)
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
     DriverConfig,
     GpuDriver,
@@ -312,7 +355,7 @@ def kernel_name(mangled: str, names: list) -> str:
         i = mangled.find(name)
         if i >= 0:
             rest = mangled[i + len(name):]
-            args = (re.findall(r"Li(\d+)E", rest.split("Ev", 1)[0])
+            args = (re.findall(r"L[ib](\d+)E", rest.split("Ev", 1)[0])
                     if rest.startswith("I") else [])
             return f"{name}<{','.join(args)}>" if args else name
     return mangled
@@ -431,6 +474,32 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
                 worst = max(worst, err / tol)
     line("check", kernel="decode_attention", variants="ql 1-8 x d 66/128/256"
          " x f32/bf16", worst_err_over_tol=worst)
+    # The shapes beyond one launch that the JAX function takes: v's head dim
+    # unlike k's, and more than 8 query rows, which the wrapper launches in
+    # groups of 8 (ql 16: two launches; ql 20: three, the last of 4 rows).
+    worst = 0.0
+    for ql, d, dv in ((1, 64, 128), (4, 128, 64), (2, 66, 130), (16, 128, 128),
+                      (20, 64, 32)):
+        args = [torch.from_numpy(a).to(dev) for a in (
+            rng.standard_normal((3, 2, ql, d), np.float32),
+            rng.standard_normal((3, 2, 300, d), np.float32),
+            rng.standard_normal((3, 2, 300, dv), np.float32), small)]
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            a = [t.to(dtype) for t in args[:3]] + args[3:]
+            before = flash_attention_decode.launches
+            out = flash_attention_decode(*a, block_k=300)
+            groups = flash_attention_decode.launches - before
+            ref = decode_attention_reference(*a)
+            require(out.shape == ref.shape == (3, 2, ql, dv),
+                    f"ql={ql} d={d} dv={dv}: output {tuple(out.shape)}")
+            err = (out.float() - ref.float()).abs().max().item()
+            require(err < tol, f"{dtype} ql={ql} d={d} dv={dv}: error {err}")
+            require(groups == -(-ql // 8), f"ql={ql}: {groups} launches")
+            worst = max(worst, err / tol)
+    line("check", kernel="decode_attention",
+         variants="dv != d and ql 16/20 (launches of 8 rows) x f32/bf16",
+         worst_err_over_tol=worst)
     before = flash_attention_decode.launches
     try:
         flash_attention_decode(q, k, v, lens, block_k=1000)
@@ -566,6 +635,29 @@ def phase_flash_check(seed: int) -> float:
     line("flash", variants="d 32/64/128/256 x dv = d or not x S "
          + "/".join(map(str, FLASH_EDGE_SEQS)) + " x f32/bf16 x causal",
          worst_err_over_limit=worst)
+    # Head dims that are not multiples of 16, which the wrapper zero-pads
+    # to the next (8 -> 16, 40 -> 48, 24 -> 32) with the scale of the true d.
+    worst = 0.0
+    for d, dv in ((40, 40), (8, 8), (40, 24)):
+        for s_small in (64, 129):
+            for dtype, tol in ((torch.float32, FLASH_F32_TOL),
+                               (torch.bfloat16, FLASH_BF16_TOL)):
+                q, k = (randn(gen, (2, 3, s_small, d), dtype)
+                        for _ in range(2))
+                v = randn(gen, (2, 3, s_small, dv), dtype)
+                for causal in (False, True):
+                    out = flash_attention(q, k, v, block_q=s_small,
+                                          block_k=s_small, causal=causal)
+                    ref = reference_attention(q, k, v, causal=causal)
+                    require(out.shape == ref.shape and out.is_contiguous(),
+                            f"flash d={d} dv={dv}: {tuple(out.shape)}")
+                    err, over = compare(out, ref, *tol)
+                    require(over <= 1, f"flash {dtype} d={d} dv={dv} "
+                                       f"S={s_small} causal={causal}: "
+                                       f"error {err}, {over} of the limit")
+                    worst = max(worst, over)
+    line("flash", variants="padded head dims d/dv 40/40, 8/8, 40/24 x S "
+         "64/129 x f32/bf16 x causal", worst_err_over_limit=worst)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (randn(gen, (2, 3, 256, 64), dtype) for _ in range(3))
         outs = [flash_attention(q, k, v, block_q=bq, block_k=bk, causal=True)
@@ -980,25 +1072,141 @@ def timing_fields(t: dict) -> dict:
             "idle_share": 1 - t["busy_ms"] / t["window_ms"]}
 
 
-def phase_multigpu(card: str, seed: int) -> None:
+def phase_computedomain(card: str, lib, tmp: str):
+    """A ComputeDomain of this one node: the CD kubelet plugin on the
+    device library that found the card, the controller's live loop, and one
+    daemon on the node reporting the card's health and the address
+    127.0.0.1. A channel claim is refused (retryably) while the CD is not
+    Ready, and prepares once the daemon has made it Ready; its env is the
+    rendezvous ``phase_multigpu``'s dry run starts from. Returns that env
+    and a teardown that unprepares and deletes the claim, deletes the CD,
+    stops the daemon's loop and the controller's threads, and requires that
+    nothing is left."""
+    client = FakeClient()
+    client.create(new_object("Node", "node-0"))
+    client.create(new_object("DeviceClass", CHANNEL_CLASS, spec={
+        "selectors": [{"cel": {"expression":
+                               "device.attributes['type'] == 'channel'"}}]}))
+    controller = ComputeDomainController(client).start()
+    daemon = None
+    driver = CdDriver(client, CdDriverConfig(
+        node_name="node-0", state_dir=f"{tmp}/cd-state",
+        cdi_root=f"{tmp}/cd-cdi", env={}, retry_timeout=0.05),
+        device_lib=lib).start()
+    try:
+        t_cd = time.monotonic()
+        cd = client.create(new_compute_domain("smoke-cd", num_nodes=1))
+        uid = cd["metadata"]["uid"]
+        _wait(lambda: client.try_get("ResourceClaimTemplate",
+                                     "smoke-cd-channel", "default")
+              is not None, "the controller's channel template")
+        template = client.get("ResourceClaimTemplate", "smoke-cd-channel",
+                              "default")
+        t_claim = time.monotonic()
+        claim = Allocator(client).allocate(client.create(new_object(
+            "ResourceClaim", "smoke-channel", "default",
+            api_version="resource.k8s.io/v1",
+            spec=template["spec"]["spec"])), node="node-0")
+        claim_uid = claim["metadata"]["uid"]
+        refused = driver.prepare_resource_claims([claim])[claim_uid].error
+        refused_ms = (time.monotonic() - t_claim) * 1e3
+        labels = client.get("Node", "node-0")["metadata"].get("labels", {})
+        line("computedomain", refused=json.dumps(str(refused)),
+             refused_ms=refused_ms, node_label=labels.get(NODE_LABEL_CD))
+        require(refused is not None and not is_permanent(refused),
+                f"prepare before Ready gave {refused!r}, not a retryable "
+                "refusal")
+        require(labels.get(NODE_LABEL_CD) == uid,
+                "the refused prepare did not label the node")
+
+        t_daemon = time.monotonic()
+        daemon = ComputeDomainDaemon(
+            client=client, device_lib=lib, cd_uid=uid, cd_name="smoke-cd",
+            node_name="node-0", hostname=socket.gethostname(),
+            ip_address="127.0.0.1").start(interval=0.5)
+        _wait(lambda: cd_status(client.get("ComputeDomain", "smoke-cd",
+                                           "default")) == STATUS_READY,
+              "the ComputeDomain Ready")
+        t_ready = time.monotonic()
+        driver.config.retry_timeout = 10.0
+        result = driver.prepare_resource_claims([claim])[claim_uid]
+        t_prepared = time.monotonic()
+        require(result.error is None, f"channel prepare: {result.error!r}")
+        env = claim_spec_env(driver.cdi.read_claim_spec(claim_uid))
+        entry = clique_daemons(client.list("ComputeDomainClique")[0])[0]
+        line("computedomain", card=json.dumps(card), backend=lib.backend,
+             clique=entry.clique_id, daemon_status=entry.status,
+             daemon_gpus=entry.topology, daemon_address=entry.ip_address,
+             cd_ready_ms=(t_ready - t_cd) * 1e3,
+             daemon_to_ready_ms=(t_ready - t_daemon) * 1e3,
+             prepare_ms=(t_prepared - t_ready) * 1e3,
+             channel_ready_ms=(t_prepared - t_claim) * 1e3,
+             env=json.dumps({k: env[k] for k in _dist.RENDEZVOUS_KEYS}))
+        require(entry.status == STATUS_READY
+                and entry.topology == str(torch.cuda.device_count()),
+                f"daemon entry {entry}")
+        require(env["MASTER_ADDR"] == "127.0.0.1"
+                and env["MASTER_PORT"] == str(MASTER_PORT)
+                and env["NNODES"] == "1" and env["NODE_RANK"] == "0",
+                f"channel env {env}")
+    except BaseException:
+        if daemon is not None:
+            daemon.stop()
+        controller.stop()
+        driver.stop()
+        raise
+
+    def teardown() -> None:
+        # The workload's claim goes first (its unprepare unlabels the
+        # node), then the daemon leaves its clique, as the DaemonSet's pod
+        # would, and the CD's deletion tears down what the controller made.
+        errs = driver.unprepare_resource_claims([ClaimRef(
+            uid=claim_uid, name="smoke-channel", namespace="default")])
+        client.delete("ResourceClaim", "smoke-channel", "default")
+        daemon.stop()
+        client.delete("ComputeDomain", "smoke-cd", "default")
+        _wait(lambda: client.try_get("ComputeDomain", "smoke-cd", "default")
+              is None, "the ComputeDomain's teardown")
+        controller.stop()
+        driver.stop(unpublish=True)
+        residue = ([f"{k}/{o['metadata']['name']}" for k in (
+            "ResourceClaim", "ComputeDomain", "ComputeDomainClique",
+            "DaemonSet", "ResourceClaimTemplate", "ResourceSlice")
+            for o in client.list(k)]
+            + [f"{u}: {e}" for u, e in errs.items() if e is not None]
+            + sorted(driver.state.prepared_claims_nolock())
+            + driver.cdi.list_claim_uids()
+            + [k for k in client.get("Node", "node-0")["metadata"].get(
+                "labels") or {} if k == NODE_LABEL_CD])
+        line("computedomain", teardown="done", residue=json.dumps(residue))
+        require(not residue, f"left behind: {residue}")
+
+    return env, teardown
+
+
+def phase_multigpu(card: str, seed: int, rendezvous: dict) -> None:
     """The multi-GPU compute plane on the machine's GPUs, one NCCL rank
     each, held against the same code on gloo ranks on the CPU (and against
-    the plain references). Every function here starts its own ranks. With
-    one GPU, every part runs at world 1 and ``psum_bench`` must refuse it;
-    with more, the parts run at the GPU count (the MoE at ep 2) and the
+    the plain references). The dry run's ranks start from ``rendezvous``,
+    the env of the channel claim ``phase_computedomain`` prepared, at world
+    NNODES x the GPU count; every other function here starts its own ranks.
+    With one GPU, every part runs at world 1 and ``psum_bench`` must refuse
+    it; with more, the parts run at the GPU count (the MoE at ep 2) and the
     all-reduce's bus bandwidth is measured at 16 and 256 MiB a GPU."""
     world = torch.cuda.device_count()
     t0 = time.monotonic()
-    d = dryrun_multichip(world)
+    d = dryrun_multichip(world, rendezvous=rendezvous)
     line("multigpu", part="dryrun", card=json.dumps(card), world=d["world"],
-         backend=d["backend"],
+         backend=d["backend"], rendezvous=json.dumps(
+             _dist.rendezvous_from_env(rendezvous, world)[0]),
          device=d["device"], mesh=json.dumps(d["mesh"]),
          moe=json.dumps(d["moe"]), loss=d["loss"],
          ring_max_abs_err=d["ring_max_abs_err"],
          moe_max_abs_err=d["moe_max_abs_err"],
          pipeline_max_abs_err=d["pipeline_max_abs_err"],
          seconds=f"{time.monotonic() - t0:.2f}")
-    require(d["world"] == world and d["backend"] == "nccl",
+    require(d["world"] == int(rendezvous["NNODES"]) * world
+            and d["backend"] == "nccl",
             f"dry run on {d['world']} {d['backend']} ranks")
 
     rng = np.random.default_rng(seed)
@@ -1183,7 +1391,14 @@ def main(argv=None) -> int:
     flash_err = phase_flash_check(args.seed)
     flash = phase_flash_bench(args.seed)
     phase_burnin()
-    phase_multigpu(card, args.seed)
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        rendezvous, cd_teardown = phase_computedomain(card, found["lib"], tmp)
+        try:
+            phase_multigpu(card, args.seed, rendezvous)
+        finally:
+            cd_teardown()
     phase_leftovers()
     kernels = [{
         "name": "decode_attention", "route": "cuda",

@@ -8,18 +8,25 @@ via the plugin's prepare path) rejects unknown fields; ``strict=False``
 ignores them.
 
 Kinds: ``GpuConfig`` carries extra env for full-GPU devices (the reference's
-``GpuConfig`` without its sharing strategies). ``MigDeviceConfig`` and
+``GpuConfig`` without its sharing strategies);
+``ComputeDomainChannelConfig{domainID, allocationMode}`` and
+``ComputeDomainDaemonConfig{domainID}`` are the ComputeDomain plugin's
+(``computedomainconfig.go:28-82``). ``MigDeviceConfig`` and
 ``VfioDeviceConfig`` name features this package does not have yet; decoding
 either raises :class:`ConfigError` saying so.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
 API_GROUP = "resource.nvidia.com"
 API_VERSION = f"{API_GROUP}/v1beta1"
+
+_UUID_RE = re.compile(
+    r"^[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}$")
 
 # Env the driver computes itself; user configs must not override these —
 # they carry the isolation contract.
@@ -68,7 +75,81 @@ class GpuConfig:
         return cls(env={str(k): str(v) for k, v in env.items()})
 
 
-_KINDS = {GpuConfig.KIND: GpuConfig}
+ALLOCATION_MODE_SINGLE = "Single"
+ALLOCATION_MODE_ALL = "All"
+
+
+@dataclass
+class ComputeDomainChannelConfig:
+    """Opaque config on workload-claim channel devices
+    (computedomainconfig.go:28-54)."""
+
+    KIND = "ComputeDomainChannelConfig"
+
+    domain_id: str = ""
+    allocation_mode: str = ""
+
+    def normalize(self) -> None:
+        if not self.allocation_mode:
+            self.allocation_mode = ALLOCATION_MODE_SINGLE
+
+    def validate(self) -> None:
+        if not _UUID_RE.match(self.domain_id or ""):
+            raise ConfigError(
+                f"ComputeDomainChannelConfig.domainID {self.domain_id!r}: "
+                "must be a lowercase UUID")
+        if self.allocation_mode not in (ALLOCATION_MODE_SINGLE,
+                                        ALLOCATION_MODE_ALL):
+            raise ConfigError(
+                f"ComputeDomainChannelConfig.allocationMode "
+                f"{self.allocation_mode!r}: want Single|All")
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"apiVersion": API_VERSION, "kind": self.KIND,
+                "domainID": self.domain_id,
+                "allocationMode": self.allocation_mode}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any], strict: bool
+                  ) -> "ComputeDomainChannelConfig":
+        _check_fields(cls.KIND, d, {"apiVersion", "kind", "domainID",
+                                    "allocationMode"}, strict)
+        return cls(domain_id=str(d.get("domainID", "")),
+                   allocation_mode=str(d.get("allocationMode", "")))
+
+
+@dataclass
+class ComputeDomainDaemonConfig:
+    """Opaque config on the per-CD daemon claim
+    (computedomainconfig.go:56-82)."""
+
+    KIND = "ComputeDomainDaemonConfig"
+
+    domain_id: str = ""
+
+    def normalize(self) -> None:
+        pass
+
+    def validate(self) -> None:
+        if not _UUID_RE.match(self.domain_id or ""):
+            raise ConfigError(
+                f"ComputeDomainDaemonConfig.domainID {self.domain_id!r}: "
+                "must be a lowercase UUID")
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"apiVersion": API_VERSION, "kind": self.KIND,
+                "domainID": self.domain_id}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any], strict: bool
+                  ) -> "ComputeDomainDaemonConfig":
+        _check_fields(cls.KIND, d, {"apiVersion", "kind", "domainID"},
+                      strict)
+        return cls(domain_id=str(d.get("domainID", "")))
+
+
+_KINDS = {c.KIND: c for c in (GpuConfig, ComputeDomainChannelConfig,
+                              ComputeDomainDaemonConfig)}
 
 #: Kinds of the reference's config surface that wait for a later slice.
 _WAITING_KINDS = {
@@ -110,5 +191,5 @@ def decode_opaque_config(params: Mapping[str, Any], strict: bool = True) -> Any:
 
 
 def strict_decode(params: Mapping[str, Any]) -> Any:
-    """User-supplied config (prepare path)."""
+    """User-supplied config (webhook, prepare path)."""
     return decode_opaque_config(params, strict=True)

@@ -120,6 +120,18 @@ def claim_edits_for(indices: Sequence[int], minors: Sequence[int],
     return devices, claim_edits
 
 
+def claim_spec_env(spec: dict) -> dict[str, str]:
+    """The env a claim spec sets in a container: its claim-wide edits' and
+    every device's, ``K=V`` strings as a dict."""
+    out: dict[str, str] = {}
+    for edits in [spec.get("containerEdits")] + [
+            d.get("containerEdits") for d in spec.get("devices") or []]:
+        for e in (edits or {}).get("env") or []:
+            k, _, v = e.partition("=")
+            out[k] = v
+    return out
+
+
 class CDIHandler:
     def __init__(
         self,

@@ -10,8 +10,11 @@ collectives. The port runs one process per device instead:
   Ranks are fresh processes forked from a server process that has
   imported torch and this package (and nothing of the caller's state).
   Each run rendezvouses through a fresh ``file://`` path in a temporary
-  directory (no fixed TCP port) and has a deadline, after which its ranks
-  are terminated and the call raises. ``stop_rank_server()`` stops the
+  directory (no fixed TCP port), or, given a ComputeDomain channel claim's
+  env (``MASTER_ADDR``, ``MASTER_PORT``, ``NNODES``, ``NODE_RANK``),
+  through ``tcp://MASTER_ADDR:MASTER_PORT`` as this node's share of the
+  domain's ranks. Each run has a deadline, after which its ranks are
+  terminated and the call raises. ``stop_rank_server()`` stops the
   server and waits for it; it also runs when the program exits, so a
   program that ran ranks leaves no process behind.
 - ``make_device_mesh(shape, names)`` is a named ``DeviceMesh`` over the
@@ -44,7 +47,7 @@ import tempfile
 import time
 import traceback
 from datetime import timedelta
-from typing import Any, Callable, Sequence, Union
+from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -54,18 +57,18 @@ import torch.multiprocessing as mp
 DEFAULT_TIMEOUT_S = 120.0
 
 
-def _rank_main(rank: int, world: int, device_type: str, init: str,
-               timeout_s: float, results, work: str) -> None:
+def _rank_main(local_rank: int, rank: int, world: int, device_type: str,
+               init: str, timeout_s: float, results, work: str) -> None:
     torch.set_num_threads(1)
     try:
         with open(work, "rb") as f:
             fn, args = pickle.load(f)
         if device_type == "cuda":
-            torch.cuda.set_device(rank)
+            torch.cuda.set_device(local_rank)
             # f32 stays f32 on the card, as on the CPU and in JAX.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-            device = torch.device("cuda", rank)
+            device = torch.device("cuda", local_rank)
         else:
             device = torch.device("cpu")
         dist.init_process_group(
@@ -76,23 +79,57 @@ def _rank_main(rank: int, world: int, device_type: str, init: str,
             out = fn(rank, world, device, *args)
         finally:
             dist.destroy_process_group()
-        results.put((rank, True, out))
+        results.put((local_rank, True, out))
     except Exception:  # noqa: BLE001 — the parent raises it, with this trace
-        results.put((rank, False, traceback.format_exc()))
+        results.put((local_rank, False, traceback.format_exc()))
+
+
+#: The variables of a ComputeDomain channel claim that place a node's ranks.
+RENDEZVOUS_KEYS = ("MASTER_ADDR", "MASTER_PORT", "NNODES", "NODE_RANK")
+
+
+def rendezvous_from_env(env: dict[str, str], local_count: int
+                        ) -> tuple[str, int, int]:
+    """``(init_method, first global rank, world size)`` for ``local_count``
+    ranks on the node that ``env`` (a channel claim's rendezvous variables)
+    describes: ``tcp://MASTER_ADDR:MASTER_PORT``, ranks from
+    ``NODE_RANK * local_count`` on, of ``NNODES * local_count``. Missing
+    or malformed variables raise ValueError."""
+    missing = [k for k in RENDEZVOUS_KEYS if not env.get(k)]
+    if missing:
+        raise ValueError(f"rendezvous env lacks {missing}")
+    try:
+        port, nnodes, node_rank = (int(env[k]) for k in RENDEZVOUS_KEYS[1:])
+    except ValueError:
+        raise ValueError(f"rendezvous env is not numeric where it must be: "
+                         f"{ {k: env[k] for k in RENDEZVOUS_KEYS} }") from None
+    if not (0 < port < 65536 and nnodes >= 1 and 0 <= node_rank < nnodes):
+        raise ValueError(f"rendezvous env out of range: "
+                         f"{ {k: env[k] for k in RENDEZVOUS_KEYS} }")
+    return (f"tcp://{env['MASTER_ADDR']}:{port}", node_rank * local_count,
+            nnodes * local_count)
 
 
 def run_ranks(fn: Callable, n: int, *args: Any,
               device: Union[str, torch.device, None] = None,
-              timeout: float = DEFAULT_TIMEOUT_S) -> list:
-    """``[fn(r, n, device_r, *args) for r in range(n)]``, each in its own
-    rank of one process group. ``fn`` must be importable by name (a
-    module-level function of the port), and its arguments and result
+              timeout: float = DEFAULT_TIMEOUT_S,
+              rendezvous: Optional[dict[str, str]] = None) -> list:
+    """``[fn(r, world, device_r, *args) for r in this node's ranks]``, each
+    in its own rank of one process group. ``fn`` must be importable by name
+    (a module-level function of the port), and its arguments and result
     picklable.
 
-    ``device=None`` is the card: NCCL, rank ``r`` on ``cuda:r``; more
+    ``device=None`` is the card: NCCL, local rank ``r`` on ``cuda:r``; more
     ranks than GPUs raises. ``device="cpu"`` is gloo. Each rank runs with
     one intra-op thread. A rank that raises, or a run that outlasts
-    ``timeout`` seconds, terminates every rank and raises here."""
+    ``timeout`` seconds, terminates every rank and raises here.
+
+    Without ``rendezvous`` the ``n`` ranks are the whole world (ranks
+    ``0..n-1``) and meet at a fresh ``file://`` path. With a channel
+    claim's env they are this node's share of ``NNODES * n`` ranks, global
+    ranks ``NODE_RANK * n + r``, meeting at ``tcp://MASTER_ADDR:
+    MASTER_PORT``; a port that is taken fails the run (nothing retries
+    elsewhere). Returns the results of this node's ranks, by local rank."""
     device_type = torch.device("cuda" if device is None else device).type
     if device_type == "cuda":
         if not torch.cuda.is_available():
@@ -106,6 +143,9 @@ def run_ranks(fn: Callable, n: int, *args: Any,
         raise ValueError(f"ranks run on 'cuda' or 'cpu', not {device_type!r}")
     if n < 1:
         raise ValueError(f"need at least one rank, got {n}")
+    first, world = 0, n
+    if rendezvous is not None:
+        init, first, world = rendezvous_from_env(rendezvous, n)
     # A fork server that has imported torch once starts each rank in
     # milliseconds, where a spawned rank imports torch anew (seconds). It
     # never initializes CUDA, so its children may.
@@ -114,7 +154,8 @@ def run_ranks(fn: Callable, n: int, *args: Any,
     results = ctx.Queue()
     out: dict[int, Any] = {}
     with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
-        init = "file://" + os.path.join(tmp, "rendezvous")
+        if rendezvous is None:
+            init = "file://" + os.path.join(tmp, "rendezvous")
         # The function and its arguments go through a file: a start whose
         # arguments overflow the pipe would wait for the child's imports,
         # and the ranks would start one after another.
@@ -122,8 +163,8 @@ def run_ranks(fn: Callable, n: int, *args: Any,
         with open(work, "wb") as f:
             pickle.dump((fn, args), f)
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, n, device_type, init, timeout, results,
-                                   work))
+                             args=(r, first + r, world, device_type, init,
+                                   timeout, results, work))
                  for r in range(n)]
         for p in procs:
             p.start()
@@ -149,8 +190,8 @@ def run_ranks(fn: Callable, n: int, *args: Any,
                     continue
                 if not ok:
                     raise RuntimeError(
-                        f"{fn.__qualname__} failed on rank {rank} of {n}:\n"
-                        f"{payload}")
+                        f"{fn.__qualname__} failed on rank {first + rank} of "
+                        f"{world}:\n{payload}")
                 out[rank] = payload
         finally:
             for p in procs:

@@ -12,7 +12,11 @@ cannot build or launch its kernel raises.
 The functions are the JAX package's ``flash_attention`` and
 ``flash_attention_decode`` (Pallas kernels for the TPU): scores accumulated
 in f32 and scaled by 1/sqrt(d), the causal mask or the keys at index
->= ``kv_lengths[b]`` masked, softmax, output in q's dtype.
+>= ``kv_lengths[b]`` masked, softmax, output in q's dtype. Both take every
+shape the JAX functions take. On the card the wrappers fit a shape to its
+kernel: the flash wrapper zero-pads head dims to the next multiple of 16,
+and the decode wrapper launches once per group of up to 8 query rows. Only
+a head dim over 256 is refused there, and only there (``ValueError``).
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ from k8s_dra_driver_tpu_torch.compute.ringattention import (
     reference_attention,
 )
 
-#: The kernels' limits: query rows per sequence (decode) and head dim; the
-#: flash kernel's head dims must also be multiples of HEAD_DIM_MULTIPLE.
+#: The kernels' limits: query rows per decode launch and head dim; the flash
+#: kernel's head dims must also be multiples of HEAD_DIM_MULTIPLE, to which
+#: its wrapper pads them.
 MAX_Q_LEN = 8
 MAX_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 16
@@ -70,14 +75,35 @@ def _check_flash(q, k, v) -> None:
         raise ValueError(f"q, k, v must share one dtype of "
                          f"{sorted(map(str, _DTYPES))}, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    for name, dim in (("d", d), ("dv", v.shape[3])):
-        if not (0 < dim <= MAX_HEAD_DIM and dim % HEAD_DIM_MULTIPLE == 0):
-            raise ValueError(f"head dim {name}={dim} must be a multiple of "
-                             f"{HEAD_DIM_MULTIPLE} in 1..{MAX_HEAD_DIM}")
-    if b < 1 or h < 1:
-        raise ValueError(f"empty batch or heads: q {tuple(q.shape)}")
+    if b < 1 or h < 1 or d < 1 or v.shape[3] < 1:
+        raise ValueError(f"empty batch, heads or head dim: q "
+                         f"{tuple(q.shape)}, v {tuple(v.shape)}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous")
+
+
+def check_kernel_head_dims(kernel: str, d: int, dv: int) -> None:
+    """Raise ValueError, naming the limit, where ``d`` or ``dv`` exceeds
+    MAX_HEAD_DIM: the CUDA kernels' tiles and registers hold no more."""
+    for name, dim in (("d", d), ("dv", dv)):
+        if dim > MAX_HEAD_DIM:
+            raise ValueError(f"head dim {name}={dim}: the CUDA {kernel} "
+                             f"kernel takes head dims up to {MAX_HEAD_DIM}")
+
+
+def padded_head_dims(d: int, dv: int) -> tuple[int, int]:
+    """The flash kernel's head dims for true ``d`` and ``dv``: each rounded
+    up to a multiple of HEAD_DIM_MULTIPLE (ValueError over MAX_HEAD_DIM)."""
+    check_kernel_head_dims("flash_attention", d, dv)
+    step = HEAD_DIM_MULTIPLE
+    return -(-d // step) * step, -(-dv // step) * step
+
+
+def _pad_last(t: torch.Tensor, size: int) -> torch.Tensor:
+    """``t`` with its last dim zero-padded to ``size`` (itself if it fits)."""
+    if t.shape[-1] == size:
+        return t
+    return torch.nn.functional.pad(t, (0, size - t.shape[-1])).contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -85,8 +111,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """[b, h, S, d] -> [b, h, S, dv] exact attention, optionally causal.
 
-    q, k: [b, h, S, d]; v: [b, h, S, dv]; d and dv multiples of 16 up to
-    256; one dtype, f32 or bf16. Returns [b, h, S, dv] in q's dtype.
+    q, k: [b, h, S, d]; v: [b, h, S, dv]; one dtype, f32 or bf16. Returns
+    [b, h, S, dv] in q's dtype. On the card, d and dv go up to 256; one that
+    is not a multiple of 16 is zero-padded to the next (zero columns add
+    nothing to q k^T, and the scale stays 1/sqrt(d)), and the output is cut
+    back to dv.
     ``block_q`` and ``block_k`` are the JAX signature's block sizes: clamped
     to S, they must divide it, as there (else ValueError); the CUDA kernel
     walks the sequence in its own tiles.
@@ -106,21 +135,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return reference_attention(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start on 16-byte boundaries")
     b, h, _, d = q.shape
     dv = v.shape[3]
+    dp, dvp = padded_head_dims(d, dv)
+    q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn, err_str = _c_entry("flash_attention", q.dtype,
                            [p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
-    out = torch.empty((b, h, seq, dv), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, seq, dvp), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b * h, seq, d, dv, int(causal), 1.0 / math.sqrt(d), stream)
+                 b * h, seq, dp, dvp, int(causal), 1.0 / math.sqrt(d), stream)
     _raise_on(err, err_str, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out if dvp == dv else out[..., :dv].contiguous()
 
 
 flash_attention.launches = 0
@@ -131,9 +162,9 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                kv_lengths: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch decode attention with ragged KV lengths.
 
-    q [b,h,ql,d] against padded caches k/v [b,h,cap,d]; keys at index
-    >= kv_lengths[b] are masked. f32 einsum, mask, softmax, cast to q's
-    dtype: the JAX package's ``xla_decode_attention``. The CPU path of
+    q [b,h,ql,d] against padded caches k [b,h,cap,d] and v [b,h,cap,dv];
+    keys at index >= kv_lengths[b] are masked. f32 einsum, mask, softmax,
+    cast to q's dtype: the JAX package's ``xla_decode_attention``. The CPU path of
     ``flash_attention_decode`` and the kernel's oracle on the card."""
     d = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / (d ** 0.5)
@@ -150,13 +181,14 @@ def _check(q, k, v, kv_lengths) -> None:
     if len(devices) != 1:
         raise ValueError(f"q, k, v and kv_lengths on different devices: "
                          f"{sorted(map(str, devices))}")
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"q and k/v must be [b,h,ql,d] and [b,h,cap,d], "
-                         f"got {tuple(q.shape)} and {tuple(k.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k and v must be [b,h,ql,d], [b,h,cap,d] and "
+                         f"[b,h,cap,dv], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     b, h, ql, d = q.shape
-    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+    if k.shape[:2] != (b, h) or k.shape[3] != d or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
-                         f"both be [{b},{h},cap,{d}]")
+                         f"be [{b},{h},cap,{d}] and [{b},{h},cap,dv]")
     if kv_lengths.shape != (b,) or kv_lengths.dtype != torch.int32:
         raise ValueError(f"kv_lengths must be int32 [{b}], got "
                          f"{kv_lengths.dtype} {tuple(kv_lengths.shape)}")
@@ -164,9 +196,9 @@ def _check(q, k, v, kv_lengths) -> None:
         raise ValueError(f"q, k, v must share one dtype of "
                          f"{sorted(map(str, _DTYPES))}, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    if not 1 <= ql <= MAX_Q_LEN or not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"q_len {ql} must be in 1..{MAX_Q_LEN} and head "
-                         f"dim {d} in 1..{MAX_HEAD_DIM}")
+    if ql < 1 or d < 1 or v.shape[3] < 1:
+        raise ValueError(f"q_len {ql} and head dims d={d}, dv={v.shape[3]} "
+                         f"must be at least 1")
     if b < 1 or h < 1 or k.shape[2] < 1:
         raise ValueError(f"empty batch, heads or cache: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
@@ -179,17 +211,20 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            block_k: int = 512) -> torch.Tensor:
     """Decode-shaped attention: short q against a long padded KV cache.
 
-    q:          [b, h, q_len, d]   — q_len in 1..8, d in 1..256
-    k, v:       [b, h, kv_cap, d]  — padded cache, valid prefix per batch
+    q:          [b, h, q_len, d]
+    k:          [b, h, kv_cap, d]  — padded cache, valid prefix per batch
+    v:          [b, h, kv_cap, dv]
     kv_lengths: [b] int32          — valid keys per sequence (> 0)
 
-    Returns [b, h, q_len, d] in q's dtype (f32 or bf16). ``block_k`` is the
-    JAX signature's block size: it must divide ``kv_cap`` once clamped to
-    it, as there; the CUDA kernel walks the cache in its own tiles.
+    Returns [b, h, q_len, dv] in q's dtype (f32 or bf16). ``block_k`` is
+    the JAX signature's block size: it must divide ``kv_cap`` once clamped
+    to it, as there; the CUDA kernel walks the cache in its own tiles.
 
     CUDA tensors go through the CUDA kernel on the tensors' device and
-    current stream, counted in ``flash_attention_decode.launches``; CPU
-    tensors go through ``decode_attention_reference``."""
+    current stream, one launch per group of up to MAX_Q_LEN query rows
+    (the rows do not attend to each other), each counted in
+    ``flash_attention_decode.launches``; d and dv go up to MAX_HEAD_DIM
+    there. CPU tensors go through ``decode_attention_reference``."""
     kv_cap = k.shape[2]
     block_k = min(block_k, kv_cap)
     if kv_cap % block_k:
@@ -200,17 +235,22 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, ql, d = q.shape
+    dv = v.shape[3]
+    check_kernel_head_dims("decode_attention", d, dv)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn, err_str = _c_entry("decode_attention", q.dtype,
-                           [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
-    out = torch.empty_like(q)
+                           [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                            ctypes.c_float, p])
+    out = torch.empty((b, h, ql, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 kv_lengths.data_ptr(), out.data_ptr(), b, h, ql, kv_cap, d,
-                 1.0 / math.sqrt(d), stream)
-    _raise_on(err, err_str, "decode_attention")
-    flash_attention_decode.launches += 1
+        for row0 in range(0, ql, MAX_Q_LEN):
+            rows = min(MAX_Q_LEN, ql - row0)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     kv_lengths.data_ptr(), out.data_ptr(), b, h, ql, row0,
+                     rows, kv_cap, d, dv, 1.0 / math.sqrt(d), stream)
+            _raise_on(err, err_str, "decode_attention")
+            flash_attention_decode.launches += 1
     return out
 
 

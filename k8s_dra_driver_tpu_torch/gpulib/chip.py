@@ -118,6 +118,9 @@ class GpuInfo:
     driver_version: str = ""
     device_paths: list[str] = field(default_factory=list)  # /dev/nvidia<minor>
     health: GpuHealth = field(default_factory=GpuHealth)
+    # Which node of a multi-node mock cluster holds the GPU (published as
+    # the ``hostIndex`` attribute); -1 where no cluster layout says.
+    host_index: int = -1
 
     @property
     def spec(self) -> GpuSpec:
@@ -134,10 +137,22 @@ class NodeGpuInfo:
     """Node-level facts: the GPUs' product and the NVLink domain they
     share (the TPU package's SliceTopologyInfo counterpart). ``clique_id``
     is ``<clusterUUID>.<cliqueId>`` of the NVSwitch fabric, or "" when the
-    node reports none."""
+    node reports none. ``clique_hosts`` nodes share the clique (1 on an HGX
+    H100, where the fabric ends at the node) and this node is
+    ``host_index`` among them."""
 
     node_uuid: str                  # stable identity of this node's GPU set
     num_gpus: int
     gpu_type: GpuType
     clique_id: str = ""
     backend: str = ""               # which enumeration produced the GPUs
+    host_index: int = 0
+    clique_hosts: int = 1
+
+    @property
+    def domain_clique_id(self) -> str:
+        """The clique a ComputeDomain daemon on this node joins: the NVLink
+        domain's ``clique_id``, or, on a node that reports none, the node
+        itself (``<node_uuid>.0``). Ranks rendezvous over the network
+        whatever the NVLink reach, so every node has a clique."""
+        return self.clique_id or f"{self.node_uuid}.0"

@@ -31,8 +31,8 @@ watches.
   before mutating.
 
 Copied from the JAX package's ``k8sclient/client.py``, trimmed to what the
-informer, the allocator, the claim watcher and the GPU kubelet plugin
-call: without its HTTP transport (the wire codec, the LIST wire memo, the
+informer, the allocator, the claim watcher, the GPU and ComputeDomain
+kubelet plugins, the ComputeDomain daemon and its controller call: without its HTTP transport (the wire codec, the LIST wire memo, the
 partition gate), paginated LISTs and their rollback snapshots, the
 status-patch group commit, the wire-path metrics and the bench baseline
 modes.
@@ -670,6 +670,23 @@ class FakeClient:
             if finalizer not in fins:
                 return obj
             fins.remove(finalizer)
+            try:
+                return self.update(obj)
+            except ConflictError:
+                continue
+
+    def patch_labels(self, kind: str, name: str,
+                     labels: dict[str, Optional[str]],
+                     namespace: str = "") -> Obj:
+        """Merge-patch labels; a None value removes the label."""
+        while True:
+            obj = self.get(kind, name, namespace)
+            lbls = meta(obj).setdefault("labels", {})
+            for k, v in labels.items():
+                if v is None:
+                    lbls.pop(k, None)
+                else:
+                    lbls[k] = v
             try:
                 return self.update(obj)
             except ConflictError:

@@ -6,8 +6,8 @@ versioned specs (default + maturity per driver version) and an emulation
 version selects which spec applies; operators flip gates via
 ``--feature-gates A=true,B=false`` (mirrored by the Helm values).
 
-The GPU gate set holds the gates the GPU kubelet plugin consults. Two of
-them name features this package does not have yet (MIG partitions, VFIO
+The GPU gate set holds the gates the GPU and ComputeDomain kubelet plugins
+and the ComputeDomain controller consult. Two of them name features this package does not have yet (MIG partitions, VFIO
 passthrough): they parse, and the plugin refuses to start with either one
 enabled instead of ignoring it.
 """
@@ -41,6 +41,13 @@ PASSTHROUGH_SUPPORT = "PassthroughSupport"
 CRASH_ON_NVLINK_FABRIC_ERRORS = "CrashOnNVLinkFabricErrors"
 # Publish list-valued DRA device attributes (requires matching k8s gate).
 DRA_LIST_TYPE_ATTRIBUTES = "DRAListTypeAttributes"
+# Store per-daemon rendezvous info in ComputeDomainClique objects instead of
+# ComputeDomain.Status.Nodes.
+COMPUTE_DOMAIN_CLIQUES = "ComputeDomainCliques"
+# The operator, not the driver, runs the rendezvous service: the controller
+# creates no per-domain daemons and channel prepare reads the host's
+# rendezvous file.
+HOST_MANAGED_RENDEZVOUS = "HostManagedRendezvous"
 
 
 @dataclass(frozen=True)
@@ -55,6 +62,8 @@ DEFAULT_FEATURE_GATES: dict[str, tuple[VersionedSpec, ...]] = {
     PASSTHROUGH_SUPPORT: (VersionedSpec((0, 1), False, ALPHA),),
     CRASH_ON_NVLINK_FABRIC_ERRORS: (VersionedSpec((0, 1), False, ALPHA),),
     DRA_LIST_TYPE_ATTRIBUTES: (VersionedSpec((0, 1), False, ALPHA),),
+    COMPUTE_DOMAIN_CLIQUES: (VersionedSpec((0, 1), True, BETA),),
+    HOST_MANAGED_RENDEZVOUS: (VersionedSpec((0, 1), False, ALPHA),),
 }
 
 

@@ -3,8 +3,9 @@
 The subset of the JAX package's ``pkg/metrics.py`` that this package uses:
 Counter, Gauge and Histogram with label vectors, a Registry and the same
 text exposition format, line for line; and the families of the claim path
-(DRA requests, informer, workqueue, allocator, fake-apiserver wire path),
-named ``gpu_dra_*`` where the JAX package's are ``tpu_dra_*``.
+(DRA requests, informer, workqueue, allocator, fake-apiserver wire path)
+and of the ComputeDomain controller and daemon, named ``gpu_dra_*`` where
+the JAX package's are ``tpu_dra_*``.
 
 Histogram exemplars take an explicit trace id only; there is no tracer in
 this package yet to supply one from an active span.
@@ -233,6 +234,43 @@ class DRAMetrics:
         ``trace_id`` (the batch's claim trace, extracted from its
         traceparent annotation) becomes the duration exemplar."""
         return _TimedRequest(self, driver, operation, trace_id)
+
+
+class ControllerMetrics:
+    """The CD controller's metric family (the controller-runtime
+    reconcile-counter analogue the reference gets from client-go)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.reconciles_total = r.register(Counter(
+            "gpu_dra_cd_reconciles_total",
+            "Total ComputeDomain reconcile executions.",
+            ("outcome",)))  # success | error | teardown
+        self.reconcile_duration_seconds = r.register(Histogram(
+            "gpu_dra_cd_reconcile_duration_seconds",
+            "Duration of ComputeDomain reconcile executions.",
+            REQUEST_DURATION_BUCKETS, ()))
+        self.orphans_swept_total = r.register(Counter(
+            "gpu_dra_cd_orphans_swept_total",
+            "Orphaned objects removed by the cleanup sweep.",
+            ("category",)))  # children | cliques | labels
+        self.compute_domains = r.register(Gauge(
+            "gpu_dra_compute_domains",
+            "ComputeDomains currently known to the controller.", ()))
+
+
+class DaemonMetrics:
+    """The CD daemon's sync-loop health: consecutive failures as a gauge
+    (0 = healthy; a climbing value is a degrading node the operator can
+    alert on long before the CD flips NotReady)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        self.sync_consecutive_failures = self.registry.register(Gauge(
+            "gpu_dra_cd_daemon_sync_consecutive_failures",
+            "Consecutive ComputeDomainDaemon sync_once failures.",
+            ("node",)))
 
 
 class InformerMetrics:

@@ -36,6 +36,8 @@ def _gpu_attrs(gpu: GpuInfo, list_type_attrs: bool = False) -> dict:
         attrs["driverVersion"] = VersionStr(version)
     if gpu.pci_address:
         attrs["pciAddress"] = gpu.pci_address
+    if gpu.host_index >= 0:
+        attrs["hostIndex"] = gpu.host_index
     if gpu.numa_node >= 0:
         # KEP-6072: the list form expresses "all NUMA nodes this device is
         # local to"; a single-element list is the valid encoding.

@@ -26,6 +26,7 @@ from k8s_dra_driver_tpu_torch.compute import _build
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     MAX_HEAD_DIM,
     MAX_Q_LEN,
+    check_kernel_head_dims,
     decode_attention_reference,
     flash_attention_decode,
 )
@@ -34,11 +35,12 @@ B, H, D, CAP = 4, 2, 8, 64
 LENS = np.array([1, 17, 33, 64], np.int32)
 
 
-def _inputs(seed, ql, b=B, h=H, d=D, cap=CAP):
+def _inputs(seed, ql, b=B, h=H, d=D, cap=CAP, dv=None):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, ql, d)).astype(np.float32)
     k = rng.standard_normal((b, h, cap, d)).astype(np.float32)
-    v = rng.standard_normal((b, h, cap, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, cap, d if dv is None else dv)).astype(
+        np.float32)
     return q, k, v
 
 
@@ -96,6 +98,22 @@ class TestAgainstJax:
                                                    interpret=True))
         assert _max_abs(poisoned.numpy(), jax_poisoned) < 1e-4
 
+    # Shapes the JAX function takes beyond the CUDA kernel's one launch: v's
+    # head dim unlike k's, more than 8 query rows (the wrapper launches per
+    # group of 8 on the card), and head dims over 256 (refused on the card).
+    @pytest.mark.parametrize("ql,d,dv", [
+        (1, 16, 32), (4, 32, 16), (16, D, D), (MAX_Q_LEN + 1, D, D),
+        (20, 16, 24), (1, 2 * MAX_HEAD_DIM, 2 * MAX_HEAD_DIM)])
+    def test_shapes_jax_takes(self, ql, d, dv):
+        q, k, v = _inputs(17, ql, d=d, dv=dv)
+        pallas = np.asarray(jax_flash_decode(q, k, v, LENS, block_k=16,
+                                             interpret=True))
+        out = flash_attention_decode(*_t(q, k, v, LENS), block_k=16)
+        assert tuple(out.shape) == (B, H, ql, dv)
+        assert _max_abs(out.numpy(), pallas) < 1e-4
+        assert _max_abs(out.numpy(),
+                        xla_decode_attention(q, k, v, LENS)) < 1e-4
+
     @pytest.mark.parametrize("block_k,raises", [(24, True), (48, True),
                                                 (16, False), (512, False)])
     def test_block_k_must_divide_cap_as_in_jax(self, block_k, raises):
@@ -130,9 +148,22 @@ class TestWrapper:
     @pytest.mark.parametrize("ql,d", [(MAX_Q_LEN + 1, D),
                                       (1, MAX_HEAD_DIM + 1), (0, D)])
     def test_kernel_limits_raise(self, ql, d):
+        # An empty q raises everywhere; more than 8 rows and a head dim over
+        # 256 run on the CPU path, and the head dim is refused for the
+        # CUDA kernel only.
         q, k, v = _inputs(1, ql, d=d, cap=16)
-        with pytest.raises(ValueError, match="q_len"):
-            flash_attention_decode(*_t(q, k, v, LENS))
+        args = _t(q, k, v, LENS)
+        if ql < 1:
+            with pytest.raises(ValueError, match="q_len"):
+                flash_attention_decode(*args)
+            return
+        out = flash_attention_decode(*args)
+        assert torch.equal(out, decode_attention_reference(*args))
+        if d > MAX_HEAD_DIM:
+            with pytest.raises(ValueError, match=f"up to {MAX_HEAD_DIM}"):
+                check_kernel_head_dims("decode_attention", d, d)
+        else:
+            check_kernel_head_dims("decode_attention", d, d)
 
     def test_bad_inputs_raise(self):
         q, k, v = _inputs(2, 1)

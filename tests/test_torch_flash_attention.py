@@ -30,6 +30,7 @@ from k8s_dra_driver_tpu_torch.compute.flashattention import (
     HEAD_DIM_MULTIPLE,
     MAX_HEAD_DIM,
     flash_attention,
+    padded_head_dims,
 )
 from k8s_dra_driver_tpu_torch.compute.ringattention import (
     reference_attention,
@@ -178,6 +179,22 @@ class TestAgainstJax:
             assert tuple(out.shape) == (1, 2, 128, 64)
             _close(out.numpy(), pallas, F32_TOL, f"causal={causal}")
 
+    # Head dims that are not multiples of 16 (8, 40) and one over the CUDA
+    # kernel's 256 (320): the JAX function takes each, and so does the
+    # port's CPU path. On the card the wrapper pads 8 and 40 to 16 and 48.
+    @pytest.mark.parametrize("d,dv,causal", [
+        (8, 8, False), (8, 8, True), (40, 40, False), (40, 40, True),
+        (40, 24, False), (320, 320, False), (320, 320, True)])
+    def test_head_dims_jax_takes(self, d, dv, causal):
+        q, k = _rand((1, 2, 64, d), 60), _rand((1, 2, 64, d), 61)
+        v = _rand((1, 2, 64, dv), 62)
+        pallas = jax_flash_attention(q, k, v, block_q=32, block_k=32,
+                                     causal=causal, interpret=True)
+        out = flash_attention(*_t(q, k, v), block_q=32, block_k=32,
+                              causal=causal)
+        assert tuple(out.shape) == (1, 2, 64, dv)
+        _close(out.numpy(), pallas, F32_TOL, f"d={d} dv={dv}")
+
 
 class TestReferenceAttention:
     @pytest.mark.parametrize("causal", [False, True])
@@ -211,10 +228,19 @@ class TestWrapper:
     @pytest.mark.parametrize("d,dv", [(24, 32), (32, 40), (
         MAX_HEAD_DIM + HEAD_DIM_MULTIPLE, 32), (32, MAX_HEAD_DIM + 16)])
     def test_head_dim_limits_raise(self, d, dv):
+        # The CPU path takes every head dim; the CUDA kernel's limit is
+        # MAX_HEAD_DIM, below which the wrapper pads to multiples of 16.
         q, k = _rand((1, 1, 32, d), 1), _rand((1, 1, 32, d), 2)
         v = _rand((1, 1, 32, dv), 3)
-        with pytest.raises(ValueError, match="head dim"):
-            flash_attention(*_t(q, k, v))
+        out = flash_attention(*_t(q, k, v))
+        assert torch.equal(out, reference_attention(*_t(q, k, v)))
+        if max(d, dv) > MAX_HEAD_DIM:
+            with pytest.raises(ValueError, match=f"up to {MAX_HEAD_DIM}"):
+                padded_head_dims(d, dv)
+        else:
+            assert padded_head_dims(d, dv) == (
+                -(-d // HEAD_DIM_MULTIPLE) * HEAD_DIM_MULTIPLE,
+                -(-dv // HEAD_DIM_MULTIPLE) * HEAD_DIM_MULTIPLE)
 
     def test_largest_head_dims_pass(self):
         q = _rand((1, 1, 16, MAX_HEAD_DIM), 4)
@@ -284,6 +310,8 @@ class TestBuildReport:
          "flash_f32_kernel"),
         ("_ZN41_GLOBAL__N__dec3f_19_decode_attention_cu_7de7d0af23decode_"
          "attention_kernelILi8EfEEvPKT0_S3_", "decode_attention_kernel<8>"),
+        ("_ZN12_GLOBAL__N_123decode_attention_kernelIfLi1ELi4ELb1EEEvPKT_",
+         "decode_attention_kernel<1,4,1>"),
         ("_Z5otheri", "_Z5otheri")])
     def test_kernel_names(self, mangled, name):
         names = ["flash_bf16_kernel", "flash_f32_kernel",

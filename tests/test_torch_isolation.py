@@ -3,13 +3,16 @@ or gRPC, no Triton or kernel build at import.
 
 A subprocess blocks ``jax``, ``k8s_dra_driver_tpu``, ``yaml`` and ``grpc``
 in ``sys.modules``, imports every module of the port (the device library,
-the k8s client, the kubelet plugin and the serving harness included) and
+the k8s client, the GPU and ComputeDomain kubelet plugins, the
+ComputeDomain daemon and controller, the webhook and the serving harness
+included; the new subpackages are named and must be among them) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
 ``entry(device="cpu")``, one ``flash_attention`` call on CPU tensors, the
 serving smoke (``run_serving_smoke(device="cpu")``: claim → GPU plugin
 → CDI → engine) and the multi-device dry run on two gloo ranks
-(``dryrun_multichip(2, device="cpu")``); a source scan finds no such
-import anywhere in the port or the smoke script.
+(``dryrun_multichip(2, device="cpu")``, its ComputeDomain flow on mock
+nodes included); a source scan finds no such import anywhere in the port
+or the smoke script.
 """
 
 import ast
@@ -69,7 +72,26 @@ from k8s_dra_driver_tpu_torch.entry import dryrun_multichip
 d = dryrun_multichip(2, device="cpu")
 assert d["world"] == 2 and d["backend"] == "gloo", d
 print("MODULES", len(mods))
+print("NAMES", ",".join(mods))
 """
+
+#: Modules of the ComputeDomain slice the sweep must reach.
+CD_MODULES = [
+    "k8s_dra_driver_tpu_torch.api.computedomain",
+    "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.cleanup",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin."
+    "computedomain",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin."
+    "device_state",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin.devices",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin.driver",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin.cleanup",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon.daemon",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.controller",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.cleanup",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.election",
+    "k8s_dra_driver_tpu_torch.plugins.webhook.admission",
+]
 
 
 def _sources():
@@ -84,8 +106,10 @@ def test_port_imports_and_serves_with_jax_blocked():
                           cwd=REPO, capture_output=True, text=True,
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    n = int(proc.stdout.split("MODULES", 1)[1])
-    assert n >= 51, proc.stdout
+    n = int(proc.stdout.split("MODULES", 1)[1].split()[0])
+    assert n >= 51 + len(CD_MODULES), proc.stdout
+    names = set(proc.stdout.split("NAMES", 1)[1].split()[0].split(","))
+    assert set(CD_MODULES) <= names, sorted(set(CD_MODULES) - names)
 
 
 @pytest.mark.parametrize("path", _sources(),
