@@ -59,7 +59,20 @@ One line per phase:
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
-9. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
+9. selfheal  a GPU fault under a served claim, healed: the GPU plugin on
+           the device library that found the card, with its health monitor
+           (holding NVML's event session: its status is printed), the
+           claim watcher, the drain controller, the reallocator, a node
+           lease and the lifecycle controller, and a canary prober. A
+           claim for the card serves 16 requests through the decode kernel
+           at the serve phase's width; the ``gpulib.gpu.unhealthy`` fault
+           point taints the card and the claim is drained (the probe
+           NOT_SERVING), a canary probe fails in admission, the repair
+           lets the card rejoin, the claim is Ready again on it and a new
+           engine serves 16 more; canary probes pass on the free and the
+           repaired card; prints detect_ms, drain_ms, rejoin_ms, outage_ms
+           and ttfb_after_ms, and requires no residue and no thread left
+10. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
            the device library that found the card, the controller's live
            loop reconciling a CD of numNodes 1, and one daemon reporting the
            card's health and the address 127.0.0.1. A channel claim from
@@ -90,12 +103,12 @@ One line per phase:
            their own. After it the channel claim is unprepared and deleted,
            the CD torn down, the daemon's and the controller's threads
            stopped, and nothing of them may be left
-10. leftovers  the ranks' fork server stopped and waited for; no child
+11. leftovers  the ranks' fork server stopped and waited for; no child
            process of the script may be left
 
 Kernel times are CUDA-event times of a run of back-to-back calls over the
 count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
-burnin) runs
+burnin, and each of selfheal's two batches) runs
 with every kernel's launch count set to 0 just before it and read just
 after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
@@ -114,6 +127,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -160,6 +174,8 @@ from k8s_dra_driver_tpu_torch.entry import (
     entry,
 )
 from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
+    BACKEND_NVML,
+    BACKEND_PROCFS,
     MockDeviceLib,
     find_nvml,
     host_device_libs,
@@ -173,8 +189,26 @@ from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
 from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
 from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
 from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import NodePrepareLoop
+from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
+    ANN_DRAIN,
+    ClaimReallocator,
+    DrainController,
+    SimulatedRepair,
+    parse_gpu_index,
+)
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
+from k8s_dra_driver_tpu_torch.pkg import bootid, faultpoints
+from k8s_dra_driver_tpu_torch.pkg.canary import (
+    CanaryProber,
+    driver_probe_hooks,
+)
 from k8s_dra_driver_tpu_torch.pkg.errors import is_permanent
+from k8s_dra_driver_tpu_torch.pkg.metrics import RemediationMetrics
+from k8s_dra_driver_tpu_torch.pkg.nodelease import (
+    NodeLeaseHeartbeat,
+    NodeLifecycleController,
+    fence_cleanup_for,
+)
 from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller import (
     ComputeDomainController,
 )
@@ -190,8 +224,20 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
     DriverConfig,
     GpuDriver,
 )
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.checkpoint import (
+    STATE_PREPARE_ABORTED,
+)
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.device_state import (
     DRIVER_NAME,
+)
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.health import (
+    TAINT_KEY_XID,
+    attach_health_monitor,
+)
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.healthcheck import (
+    STATUS_NOT_SERVING,
+    STATUS_SERVING,
+    driver_probe,
 )
 
 # The smoke's width: one attention layer of Llama-2-7B's published config
@@ -869,6 +915,69 @@ def phase_serve(seed: int, lib, gpu) -> dict:
     return served
 
 
+def tenant_requests(rng: np.random.Generator, n: int, prefix: str,
+                    prompts: tuple = (512, 3072), new_tokens: int = 64
+                    ) -> list:
+    """``n`` requests from the 4 tenants in turn, prompts uniform in
+    ``prompts`` (inclusive), ``new_tokens`` each."""
+    lengths = rng.integers(prompts[0], prompts[1] + 1, size=n)
+    return [DecodeRequest(rid=f"{prefix}{i}", tenant=TENANTS[i % 4],
+                          prompt_tokens=int(p), max_new_tokens=new_tokens)
+            for i, p in enumerate(lengths)]
+
+
+def serve_requests(engine, reqs: list, what: str,
+                   timeout: float = 600) -> float:
+    """Start ``engine`` with every kernel's launch count at 0, submit
+    ``reqs`` and wait until all have completed; the engine keeps running.
+    Returns the seconds from the start to the last completion."""
+    reset_launches()
+    t1 = time.monotonic()
+    engine.start()
+    for r in reqs:
+        require(engine.submit(r), f"{what}: request {r.rid} rejected")
+    deadline = t1 + timeout
+    while engine.completed < len(reqs) and time.monotonic() < deadline:
+        require(engine._thread.is_alive(), f"{what}: the engine thread died")
+        time.sleep(0.005)
+    return time.monotonic() - t1
+
+
+def finish_engine(engine) -> dict:
+    """Drain ``engine`` and read the launch counts of its run: its
+    summary, the counts and its decode steps."""
+    summary = engine.drain(timeout=60)
+    return {"summary": summary, "counts": launches(),
+            "decode_steps": sum(1 for e in engine.step_log
+                                if e["decode_tokens"])}
+
+
+def check_served(engine, done: dict, reqs: list, what: str) -> None:
+    """The serve checks: every request completed, the accounting identity,
+    ``kv_isolation_max_err`` under F32_TOL, decode kernel launches equal
+    to decode steps (none on a CPU engine: the plain version runs there),
+    and every request's last output row its tenant's vector."""
+    summary, counts = done["summary"], done["counts"]
+    n_launches, decode_steps = counts["decode_attention"], done["decode_steps"]
+    require(summary["completed"] == summary["submitted"] == len(reqs),
+            f"{what}: completed {summary['completed']} of "
+            f"{summary['submitted']}")
+    require(summary["accounted"], f"{what}: accounting identity broken")
+    require(engine.kv_isolation_max_err < F32_TOL,
+            f"{what}: kv_isolation_max_err {engine.kv_isolation_max_err}")
+    want = decode_steps if engine.device.type == "cuda" else 0
+    require(n_launches == want and decode_steps > 0,
+            f"{what}: {n_launches} kernel launches for {decode_steps} "
+            "decode steps")
+    for r in reqs:
+        vec = tenant_vector(r.tenant, engine.head_dim)
+        require(r.last_output is not None
+                and r.last_output.shape == (engine.heads, engine.head_dim)
+                and bool(np.isfinite(r.last_output).all())
+                and float(np.abs(r.last_output - vec).max()) < F32_TOL,
+                f"{what}: request {r.rid} decoded a wrong row")
+
+
 def _serve_claim(seed: int, client, driver, gpu) -> dict:
     name = "smoke-claim"
     t0 = time.monotonic()
@@ -913,32 +1022,19 @@ def _serve_claim(seed: int, client, driver, gpu) -> dict:
 
     engine.step = timed_step
     rng = np.random.default_rng(seed)
-    prompts = rng.integers(512, 3073, size=48)
-    reqs = [DecodeRequest(rid=f"r{i}", tenant=TENANTS[i % 4],
-                          prompt_tokens=int(p), max_new_tokens=64)
-            for i, p in enumerate(prompts)]
+    reqs = tenant_requests(rng, 48, "r")
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t1 = time.monotonic()
-    engine.start()
-    for r in reqs:
-        require(engine.submit(r), f"request {r.rid} rejected")
-    deadline = t1 + 600
-    while engine.completed < len(reqs) and time.monotonic() < deadline:
-        require(engine._thread.is_alive(), "the engine thread died")
-        time.sleep(0.005)
-    wall = time.monotonic() - t1
-    summary = engine.drain(timeout=60)
-    counts = launches()
+    wall = serve_requests(engine, reqs, "serve")
+    done = finish_engine(engine)
+    summary, counts = done["summary"], done["counts"]
     n_launches = counts["decode_attention"]
-    decode_steps = sum(1 for e in engine.step_log if e["decode_tokens"])
     mem_gb = torch.cuda.memory_allocated() / 1e9
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ttfb_ms = (engine.first_batch_t - t0) * 1e3
     line("serve", submitted=summary["submitted"],
          completed=summary["completed"], shed=summary["shed"],
          rejected=summary["rejected"], accounted=summary["accounted"],
-         steps=engine.steps, decode_steps=decode_steps,
+         steps=engine.steps, decode_steps=done["decode_steps"],
          kernel_launches=json.dumps(counts), wall_s=wall,
          decode_tok_s=summary["decode_tokens"] / wall,
          prefill_tok_s=summary["prefill_tokens"] / wall,
@@ -948,20 +1044,7 @@ def _serve_claim(seed: int, client, driver, gpu) -> dict:
          kv_isolation_max_err=engine.kv_isolation_max_err,
          mem_allocated_gb=mem_gb, mem_peak_gb=peak_gb,
          claim_ready_ms=claim_ready_ms, ttfb_ms=ttfb_ms)
-    require(summary["completed"] == summary["submitted"] == len(reqs),
-            f"completed {summary['completed']} of {summary['submitted']}")
-    require(summary["accounted"], "accounting identity broken")
-    require(engine.kv_isolation_max_err < F32_TOL,
-            f"kv_isolation_max_err {engine.kv_isolation_max_err}")
-    require(n_launches == decode_steps > 0,
-            f"{n_launches} kernel launches for {decode_steps} decode steps")
-    for r in reqs:
-        vec = tenant_vector(r.tenant, HEAD_DIM)
-        require(r.last_output is not None
-                and r.last_output.shape == (HEADS, HEAD_DIM)
-                and bool(np.isfinite(r.last_output).all())
-                and float(np.abs(r.last_output - vec).max()) < F32_TOL,
-                f"request {r.rid} decoded a wrong row")
+    check_served(engine, done, reqs, "serve")
     del engine
     torch.cuda.empty_cache()
 
@@ -976,6 +1059,349 @@ def _serve_claim(seed: int, client, driver, gpu) -> dict:
     client.delete("ResourceClaim", name, "default")
     return {"launches": n_launches, "claim_ready_ms": claim_ready_ms,
             "ttfb_ms": ttfb_ms}
+
+
+#: The selfheal phase's engine: the serve phase's width (one attention
+#: layer of Llama-2-7B, 32 slots, a 4096-token cache), and its traffic:
+#: 16 requests a batch, prompts of 512-3072 tokens, 64 new tokens each.
+#: ``device`` None binds the engine to the GPU the claim's CDI spec names.
+SELFHEAL_WIDTH = {"max_batch": BATCH, "heads": HEADS, "head_dim": HEAD_DIM,
+                  "kv_cap": KV_CAP, "prompts": (512, 3072), "new_tokens": 64,
+                  "requests": 16, "device": None, "uuids": None}
+#: The selfheal phase's loops: the health monitor's and the drain
+#: controller's polls, the reallocator's retry, the node lease (its
+#: duration and renewal) and the lifecycle controller's poll, in seconds.
+SELFHEAL_POLL_S, SELFHEAL_LEASE_S, SELFHEAL_RENEW_S = 0.05, 2.0, 0.25
+
+
+def _slice_taints(client, device: str) -> list:
+    """The taint keys the published ResourceSlice carries on ``device``."""
+    return [t.get("key") for s in client.list("ResourceSlice")
+            for d in (s.get("spec") or {}).get("devices") or []
+            if d.get("name") == device for t in d.get("taints") or []]
+
+
+def _canary_line(tag: str, res: dict) -> None:
+    line("selfheal", canary=tag, outcome=res["outcome"],
+         failed_phase=res["phase"] or "none", leaks=json.dumps(res["leaks"]),
+         **{f"{k}_ms": round(v * 1e3, 3) for k, v in res["phases"].items()},
+         error=json.dumps(res["error"][:120]))
+
+
+def phase_selfheal(card: str, seed: int, lib, gpu,
+                   width: dict | None = None) -> dict:
+    """The self-healing path around the claim the serve phase prepares,
+    on the device library that found the card: the GPU kubelet plugin
+    with its health monitor (holding the library's NVML event session),
+    the claim watcher, the drain controller, the claim reallocator, a node
+    lease with the lifecycle controller, and a canary prober on node-0.
+
+    A canary probe passes while the card is free; a claim for the card by
+    UUID is prepared and engine A serves batch A. Then the
+    ``gpulib.gpu.unhealthy`` fault point is armed: the monitor taints the
+    card ``gpu.nvidia.com/xid`` (``detect_ms``), the drain controller
+    tombstones the claim, deletes its CDI spec and marks it for
+    reallocation (``drain_ms``) while the probe reads NOT_SERVING, and
+    the phase, playing the pod, drains engine A and frees its slab. A
+    canary probe now fails in admission, the only GPU being tainted. The
+    repair is then let through (it disarms the fault point and flips the
+    node's boot id): the taints are cleared in one republish
+    (``rejoin_ms``, from the repair; ``held_ms`` is the phase's own hold
+    before it), the reallocator binds the claim to the same GPU and the
+    claim watcher prepares it again (``reready_ms`` from the rejoin,
+    ``outage_ms`` from the fault); engine B is bound from the new spec and serves batch
+    B (``ttfb_after_ms``: fault to its first decoded batch). The claim is
+    torn down, a last canary probe passes, and nothing may be left: no
+    claim, checkpoint entry, tombstone or CDI spec, no thread the phase
+    started. ``width`` overrides :data:`SELFHEAL_WIDTH` (a CPU engine in
+    the tests)."""
+    w = {**SELFHEAL_WIDTH, **(width or {})}
+    on_card = w["device"] is None
+    if on_card:
+        require(lib.backend in (BACKEND_NVML, BACKEND_PROCFS),
+                f"selfheal on the {lib.backend} library, not the one that "
+                "found the card")
+    device = gpu.canonical_name
+    rng = np.random.default_rng(seed + 7)
+    threads_before = set(threading.enumerate())
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    fault = faultpoints.FaultPlan("gpulib.gpu.unhealthy=every:1")
+    repair_ok = threading.Event()
+    stops: list = []
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        boot = f"{tmp}/boot_id"
+        with open(boot, "w") as f:
+            f.write("selfheal-boot-0\n")
+        env = {bootid.ENV_ALT_BOOT_ID_PATH: boot}
+        client = FakeClient()
+        client.create(new_object(
+            "DeviceClass", DRIVER_NAME, spec={"selectors": [{"cel": {
+                "expression": "device.attributes['type'] == 'gpu'"}}]}))
+        client.create(new_object("Node", "node-0"))
+        driver = GpuDriver(client, DriverConfig(
+            node_name="node-0", state_dir=f"{tmp}/state",
+            cdi_root=f"{tmp}/cdi", env=env, retry_timeout=5.0),
+            device_lib=lib).start()
+        stops.append(driver.stop)
+
+        def heal(dev: str) -> None:
+            if faultpoints.active_plan() is fault:
+                faultpoints.deactivate()
+            lib.set_healthy(parse_gpu_index(dev))
+
+        simulated = SimulatedRepair(heal=heal, env=env)
+
+        def repair(dev: str):
+            # Held until the phase has probed the tainted card.
+            return simulated(dev) if repair_ok.is_set() else None
+
+        try:
+            require(driver.device_lib is lib and any(
+                g.uuid == gpu.uuid for g in driver.state.gpus),
+                "the plugin does not run on the library that found the card")
+            monitor = attach_health_monitor(driver,
+                                            poll_interval=SELFHEAL_POLL_S)
+            stops.append(monitor.stop)
+            hb = NodeLeaseHeartbeat(
+                client, "node-0", state_dir=f"{tmp}/state",
+                lease_duration=SELFHEAL_LEASE_S,
+                renew_interval=SELFHEAL_RENEW_S,
+                fence_cleanup=fence_cleanup_for(driver, client),
+                identity="gpu-kubelet-plugin", env=env).start()
+            stops.append(hb.stop)
+            loop = NodePrepareLoop(
+                client, driver, DRIVER_NAME, "node-0", namespace="default",
+                retry_delay=SELFHEAL_POLL_S,
+                fence=lambda: hb.fenced or hb.suspect).start()
+            stops.append(loop.stop)
+            remediation = RemediationMetrics()
+            drainer = DrainController(client, driver, repair=repair,
+                                      poll_interval=SELFHEAL_POLL_S,
+                                      metrics=remediation).start()
+            stops.append(drainer.stop)
+            alloc = Allocator(client)
+            # 60 s of retries: the claim waits out the held repair.
+            realloc = ClaimReallocator(
+                client, retry_delay=SELFHEAL_POLL_S, attempt_budget=1200,
+                metrics=remediation, allocator=alloc).start()
+            stops.append(realloc.stop)
+            lifecycle = NodeLifecycleController(
+                client, poll_interval=SELFHEAL_RENEW_S).start()
+            stops.append(lifecycle.stop)
+            verify, residue = driver_probe_hooks(lambda _node: driver)
+            prober = CanaryProber(client, alloc, nodes=["node-0"],
+                                  probe_deadline_s=10.0, verify=verify,
+                                  residue=residue)
+
+            def probe() -> int:
+                return driver_probe(driver, drainer, fenced=lambda: hb.fenced)
+
+            line("selfheal", card=json.dumps(card), backend=lib.backend,
+                 nvml_events=json.dumps(monitor.nvml_events))
+            if lib.backend == BACKEND_NVML:
+                require(monitor.events_session is not None,
+                        "no NVML event session on the nvml backend")
+            require(probe() == STATUS_SERVING, "the plugin is not SERVING")
+            canary = [prober.probe_node("node-0")]
+            _canary_line("free", canary[0])
+            require(canary[0]["outcome"] == "ok",
+                    f"canary on the free card: {canary[0]}")
+
+            # Claim A and batch A, as the serve phase.
+            name = "selfheal-claim"
+            claim = client.create(new_object(
+                "ResourceClaim", name, "default",
+                api_version="resource.k8s.io/v1",
+                spec={"devices": {"requests": [{"name": "gpu", "exactly": {
+                    "deviceClassName": DRIVER_NAME,
+                    "allocationMode": "ExactCount", "count": 1,
+                    "selectors": [{"cel": {"expression":
+                        f"device.attributes['uuid'] == '{gpu.uuid}'"}}]}}]}}))
+            uid = claim["metadata"]["uid"]
+            alloc.allocate(claim, reserved_for=[
+                {"resource": "pods", "name": "selfheal-pod"}], node="node-0")
+            _wait(lambda: _claim_ready(client, name), "claim A Ready")
+
+            def bind(tag: str):
+                spec = driver.cdi.read_claim_spec(uid)
+                entries = visible_device_entries(spec)
+                require(entries == [gpu.uuid],
+                        f"engine {tag}: the spec names {entries}")
+                return bind_engine(
+                    spec, f"selfheal-{tag}", device=w["device"],
+                    uuids=w["uuids"], metrics=ServingMetrics(),
+                    max_batch=w["max_batch"], kv_cap=w["kv_cap"],
+                    heads=w["heads"], head_dim=w["head_dim"],
+                    tokens_per_chip_step=2048, queue_cap=64,
+                    modeled_chip_tok_s=1e9)
+
+            engine = bind("a")
+            reqs_a = tenant_requests(rng, w["requests"], "a", w["prompts"],
+                                     w["new_tokens"])
+            serve_requests(engine, reqs_a, "selfheal batch A")
+
+            # The fault. The drain's own state is read the moment it
+            # returns, before the claim is marked and released.
+            drained: dict = {}
+            inner_drain = driver.drain_claim
+
+            def observed_drain(ref, reason=""):
+                ok = inner_drain(ref, reason=reason)
+                if ok and ref.uid == uid and not drained:
+                    pc = driver.state.prepared_claims_nolock().get(uid)
+                    drained.update(
+                        tombstone=(pc is not None
+                                   and pc.state == STATE_PREPARE_ABORTED),
+                        spec_gone=driver.cdi.read_claim_spec(uid) is None)
+                return ok
+
+            driver.drain_claim = observed_drain
+            t_arm = time.monotonic()
+            faultpoints.activate(fault)
+            _wait(lambda: TAINT_KEY_XID in _slice_taints(client, device),
+                  "the xid taint on the published slice")
+            out["detect_ms"] = (time.monotonic() - t_arm) * 1e3
+            _wait(lambda: drained and ANN_DRAIN in (client.get(
+                "ResourceClaim", name, "default")["metadata"].get(
+                "annotations") or {}), "the claim drained and marked")
+            t_drained = time.monotonic()
+            out["drain_ms"] = (t_drained - t_arm) * 1e3
+            serving_mid = probe()
+            done_a = finish_engine(engine)    # the pod leaves the bad GPU
+            check_served(engine, done_a, reqs_a, "selfheal batch A")
+            del engine
+            if on_card:
+                torch.cuda.empty_cache()
+            line("selfheal", fault="gpulib.gpu.unhealthy", device=device,
+                 detect_ms=out["detect_ms"], drain_ms=out["drain_ms"],
+                 tombstone=drained["tombstone"],
+                 cdi_spec_gone=drained["spec_gone"],
+                 probe_while_draining=serving_mid,
+                 batch_a_launches=json.dumps(done_a["counts"]),
+                 batch_a_decode_steps=done_a["decode_steps"])
+            require(drained["tombstone"] and drained["spec_gone"],
+                    f"drain left {drained}")
+            require(serving_mid == STATUS_NOT_SERVING,
+                    f"the probe read {serving_mid} while draining")
+
+            canary.append(prober.probe_node("node-0"))
+            _canary_line("tainted", canary[1])
+            require(canary[1]["outcome"] == "failed"
+                    and canary[1]["phase"] == "admission"
+                    and not canary[1]["leaks"]
+                    and TAINT_KEY_XID in _slice_taints(client, device),
+                    f"canary on the tainted card: {canary[1]}")
+
+            # Repair, rejoin, reallocation to the same GPU, batch B.
+            t_rep = time.monotonic()
+            out["held_ms"] = (t_rep - t_drained) * 1e3
+            repair_ok.set()
+            _wait(lambda: not _slice_taints(client, device),
+                  "the health taints cleared")
+            t_rejoined = time.monotonic()
+            out["rejoin_ms"] = (t_rejoined - t_rep) * 1e3
+
+            def ready_again() -> bool:
+                c = client.get("ResourceClaim", name, "default")
+                res = ((c.get("status") or {}).get("allocation") or {}).get(
+                    "devices", {}).get("results") or []
+                return (_claim_ready(client, name)
+                        and [r["device"] for r in res] == [device]
+                        and ANN_DRAIN not in (c["metadata"].get(
+                            "annotations") or {}))
+
+            _wait(ready_again, "the claim Ready again on the same GPU")
+            t_ready = time.monotonic()
+            out["reready_ms"] = (t_ready - t_rejoined) * 1e3
+            out["outage_ms"] = (t_ready - t_arm) * 1e3
+            engine = bind("b")
+            reqs_b = tenant_requests(rng, w["requests"], "b", w["prompts"],
+                                     w["new_tokens"])
+            serve_requests(engine, reqs_b, "selfheal batch B")
+            out["ttfb_after_ms"] = (engine.first_batch_t - t_arm) * 1e3
+            done_b = finish_engine(engine)
+            check_served(engine, done_b, reqs_b, "selfheal batch B")
+            del engine
+            if on_card:
+                torch.cuda.empty_cache()
+
+            # Teardown of the claim, the last probe, and the final reads.
+            c = client.get("ResourceClaim", name, "default")
+            c["status"].pop("reservedFor", None)
+            client.update_status(c)
+            _wait(lambda: not any(
+                d.get("driver") == DRIVER_NAME for d in (client.get(
+                    "ResourceClaim", name, "default").get("status")
+                    or {}).get("devices") or []), "claim unprepared")
+            client.delete("ResourceClaim", name, "default")
+            canary.append(prober.probe_node("node-0"))
+            _canary_line("repaired", canary[2])
+            require(canary[2]["outcome"] == "ok",
+                    f"canary on the repaired card: {canary[2]}")
+            serving_end = probe()
+            out.update(
+                repairs=len(simulated.repaired_devices()),
+                boot_adopted=driver.state.node_boot_id == bootid.read_boot_id(
+                    env) != "selfheal-boot-0",
+                reallocated=realloc.reallocated, failed=realloc.failed,
+                drains=int(remediation.drains_total.value(
+                    driver=DRIVER_NAME)),
+                recoveries=len(drainer.recoveries),
+                cordons=len(lifecycle.cordons),
+                lease_renewals=hb.renewals,
+                launches_a=done_a["counts"]["decode_attention"],
+                decode_steps_a=done_a["decode_steps"],
+                launches_b=done_b["counts"]["decode_attention"],
+                decode_steps_b=done_b["decode_steps"],
+                nvml_events=monitor.nvml_events,
+                nvml_delivered=getattr(monitor.events_session, "delivered",
+                                       "no session"))
+        finally:
+            if faultpoints.active_plan() is fault:
+                faultpoints.deactivate()
+            for stop in reversed(stops):
+                stop()
+        require(serving_end == STATUS_SERVING,
+                f"the probe read {serving_end} at the end")
+        require(out["cordons"] == 0, "the lifecycle controller declared "
+                                     "node-0 lost")
+        require(out["repairs"] == 1 and out["boot_adopted"],
+                f"repairs {out['repairs']}, boot adopted "
+                f"{out['boot_adopted']}")
+        require(out["reallocated"] == 1 and out["failed"] == 0,
+                f"reallocated {out['reallocated']}, failed {out['failed']}")
+        expired = driver.state.delete_expired_aborted(
+            now=time.time() + driver.state.aborted_ttl + 1)
+        residue = ([c["metadata"]["name"]
+                    for c in client.list("ResourceClaim")]
+                   + sorted(driver.state.prepared_claims_nolock())
+                   + driver.cdi.list_claim_uids()
+                   + sorted(p.name for p in driver.cdi.cdi_root.iterdir()))
+    deadline = time.monotonic() + 10
+    while True:
+        left = sorted(t.name for t in threading.enumerate()
+                      if t not in threads_before and t.is_alive())
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    line("selfheal", detect_ms=out["detect_ms"], drain_ms=out["drain_ms"],
+         held_ms=out["held_ms"], rejoin_ms=out["rejoin_ms"],
+         reready_ms=out["reready_ms"], outage_ms=out["outage_ms"],
+         ttfb_after_ms=out["ttfb_after_ms"],
+         kernel_launches=out["launches_a"] + out["launches_b"],
+         decode_steps=out["decode_steps_a"] + out["decode_steps_b"],
+         drains=out["drains"], reallocated=out["reallocated"],
+         recoveries=out["recoveries"], cordons=out["cordons"],
+         lease_renewals=out["lease_renewals"],
+         nvml_events=json.dumps(out["nvml_events"]),
+         nvml_events_delivered=out["nvml_delivered"],
+         tombstones_expired=len(expired), residue=json.dumps(residue),
+         threads_left=json.dumps(left))
+    require(not residue, f"selfheal left behind: {residue}")
+    require(not left, f"selfheal left threads running: {left}")
+    return out
 
 
 def servesmoke_check(rng: np.random.Generator) -> float:
@@ -1391,6 +1817,7 @@ def main(argv=None) -> int:
     flash_err = phase_flash_check(args.seed)
     flash = phase_flash_bench(args.seed)
     phase_burnin()
+    phase_selfheal(card, args.seed, found["lib"], found["gpu"])
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:

@@ -95,11 +95,13 @@ class HealthState(enum.Enum):
 @dataclass
 class GpuHealth:
     """Per-GPU health snapshot (the NVML XID/event state consumed by the
-    reference's ``device_health.go:103-273``)."""
+    reference's ``device_health.go:103-273``): critical XID errors and
+    double-bit ECC errors seen since the GPU was last repaired."""
 
     state: HealthState = HealthState.HEALTHY
     reason: str = ""
     xid_errors: int = 0
+    ecc_errors: int = 0
 
 
 @dataclass

@@ -32,8 +32,9 @@ watches.
 
 Copied from the JAX package's ``k8sclient/client.py``, trimmed to what the
 informer, the allocator, the claim watcher, the GPU and ComputeDomain
-kubelet plugins, the ComputeDomain daemon and its controller call: without its HTTP transport (the wire codec, the LIST wire memo, the
-partition gate), paginated LISTs and their rollback snapshots, the
+kubelet plugins, the ComputeDomain daemon and its controller, and the
+self-healing path call, the partition gate included: without its HTTP
+transport (the wire codec, the LIST wire memo), paginated LISTs and their rollback snapshots, the
 status-patch group commit, the wire-path metrics and the bench baseline
 modes.
 """
@@ -79,6 +80,14 @@ class ExpiredError(RuntimeError):
     ``Expired``) — the consumer must relist and resume from fresh state."""
 
 
+class PartitionError(RuntimeError):
+    """The node is partitioned from the API server: every verb from its
+    clients fails and its watch streams die (docs/self-healing.md,
+    "Whole-node repair"). Retryable — the partition heals, the caller's
+    backoff loops ride it out; meanwhile the node's lease expires and
+    the cluster side fences + cordons it."""
+
+
 # Fault points (docs/fault-injection.md). The fake-client verbs are the
 # substrate every in-process stack rides, so injecting here reaches every
 # controller/plugin retry loop at once.
@@ -92,6 +101,12 @@ FP_FAKE_READ = faultpoints.register(
 FP_WATCH_DROP = faultpoints.register(
     "k8sclient.watch.drop",
     "watch stream dies behind the consumer (server blip / stream reset)")
+FP_PARTITION = faultpoints.register(
+    "k8sclient.partition",
+    "every API verb from one node's (PartitionedClient-wrapped) clients "
+    "fails and its watch streams die — the node-scale network partition "
+    "the lease/fence machinery exists for",
+    errors={"partition": PartitionError}, default_error="partition")
 
 
 def _copy_obj(o: Any) -> Any:
@@ -692,3 +707,159 @@ class FakeClient:
             except ConflictError:
                 continue
 
+
+
+# --------------------------------------------------------------------------
+# Partition fencing (docs/self-healing.md, "Whole-node repair")
+# --------------------------------------------------------------------------
+
+class PartitionGate:
+    """Which nodes are currently partitioned from the API server. One
+    gate is shared by every :class:`PartitionedClient` of a harness."""
+
+    def __init__(self) -> None:
+        self._mu = sanitizer.new_lock("PartitionGate._mu")
+        self._partitioned: set[str] = set()
+
+    def partition(self, node: str) -> None:
+        with self._mu:
+            self._partitioned.add(node)
+
+    def heal(self, node: Optional[str] = None) -> None:
+        with self._mu:
+            if node is None:
+                self._partitioned.clear()
+            else:
+                self._partitioned.discard(node)
+
+    def is_partitioned(self, node: str) -> bool:
+        with self._mu:
+            return node in self._partitioned
+
+
+class _PartitionedWatch:
+    """Wraps a live Watch: when the node partitions, the stream DIES
+    (buffered events lost, ``alive`` False) exactly like a dropped HTTP
+    stream — the informer's reconnect then fails at ``watch()`` until
+    the partition heals, so a partitioned node goes fully deaf instead
+    of continuing to act on a miraculously healthy event feed."""
+
+    def __init__(self, watch: Watch, cut: Callable[[], bool]):
+        self._watch = watch
+        self._cut = cut
+
+    def next(self, timeout: Optional[float] = 5.0) -> Optional[WatchEvent]:
+        if self._cut() and self._watch.alive:
+            self._watch.stop()
+            return None
+        return self._watch.next(timeout=timeout)
+
+    def __getattr__(self, name: str):
+        return getattr(self._watch, name)
+
+    @property
+    def alive(self) -> bool:
+        return self._watch.alive and not self._cut()
+
+    @property
+    def overflowed(self) -> bool:
+        return self._watch.overflowed
+
+
+class PartitionedClient:
+    """Per-node client wrapper: every verb consults the
+    ``k8sclient.partition`` fault point and (when given) a
+    :class:`PartitionGate` — while the node is partitioned every call
+    raises :class:`PartitionError` and its watches die.
+
+    Wrap ONLY a node's own components (drivers, claim loops, health/
+    drain controllers, the lease heartbeat): the cluster side and the
+    harness actors keep the unwrapped client, exactly as a real
+    partition isolates one node's management network, not the world.
+    Errors carry the injected-provenance marker so chaos oracles
+    classify them as scheduled faults."""
+
+    def __init__(self, inner, node_name: str,
+                 gate: Optional[PartitionGate] = None):
+        self._inner = inner
+        self.node_name = node_name
+        self._gate = gate
+
+    def _is_cut(self) -> bool:
+        return self._gate is not None and self._gate.is_partitioned(
+            self.node_name)
+
+    def _check(self) -> None:
+        if self._is_cut():
+            err = PartitionError(
+                f"node {self.node_name} is partitioned from the API server")
+            err._gpu_dra_injected = True  # type: ignore[attr-defined]
+            raise err
+        faultpoints.maybe_fail(FP_PARTITION)
+
+    # -- verb surface (everything a node-side component calls) ---------------
+
+    def create(self, obj: Obj) -> Obj:
+        self._check()
+        return self._inner.create(obj)
+
+    def get(self, kind: str, name: str, namespace: str = "") -> Obj:
+        self._check()
+        return self._inner.get(kind, name, namespace)
+
+    def try_get(self, kind: str, name: str,
+                namespace: str = "") -> Optional[Obj]:
+        try:
+            return self.get(kind, name, namespace)
+        except NotFoundError:
+            return None
+
+    def update(self, obj: Obj) -> Obj:
+        self._check()
+        return self._inner.update(obj)
+
+    def update_status(self, obj: Obj) -> Obj:
+        self._check()
+        return self._inner.update_status(obj)
+
+    def delete(self, kind: str, name: str, namespace: str = "") -> None:
+        self._check()
+        return self._inner.delete(kind, name, namespace)
+
+    def list(self, kind: str, namespace: Optional[str] = None,
+             label_selector: Optional[dict[str, str]] = None) -> list[Obj]:
+        self._check()
+        return self._inner.list(kind, namespace, label_selector)
+
+    def list_with_rv(self, kind: str, namespace: Optional[str] = None,
+                     label_selector: Optional[dict[str, str]] = None,
+                     ) -> tuple[list[Obj], int]:
+        self._check()
+        return self._inner.list_with_rv(kind, namespace, label_selector)
+
+    def watch(self, *args: Any, **kwargs: Any):
+        self._check()
+        return _PartitionedWatch(self._inner.watch(*args, **kwargs),
+                                 self._is_cut)
+
+    def add_finalizer(self, kind: str, name: str, finalizer: str,
+                      namespace: str = "") -> Obj:
+        self._check()
+        return self._inner.add_finalizer(kind, name, finalizer, namespace)
+
+    def remove_finalizer(self, kind: str, name: str, finalizer: str,
+                         namespace: str = "") -> Optional[Obj]:
+        self._check()
+        return self._inner.remove_finalizer(kind, name, finalizer, namespace)
+
+    def patch_labels(self, kind: str, name: str,
+                     labels: dict[str, Optional[str]],
+                     namespace: str = "") -> Obj:
+        self._check()
+        return self._inner.patch_labels(kind, name, labels, namespace)
+
+    def __getattr__(self, name: str):
+        # Introspection surfaces (kind_generation, …) pass through
+        # un-gated: they are harness/metrics reads, not the node's
+        # management-network traffic.
+        return getattr(self._inner, name)

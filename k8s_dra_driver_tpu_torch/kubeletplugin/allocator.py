@@ -4,9 +4,9 @@ In a real cluster this work belongs to the kube-scheduler's DRA plugin; the
 reference therefore tests allocation with a live (kind) cluster. This repo's
 test substrate is the in-memory API, so allocation is reimplemented here in
 structured form (copied from the JAX package's allocator, which it decides
-exactly like on the same objects; the defrag planner's placement and
-fragmentation reports and the extended-resource claim synthesis are left
-out):
+exactly like on the same objects, the defrag planner's placement options
+and the fragmentation report included; the extended-resource claim
+synthesis is left out):
 
 - honors ``deviceClassName`` (DeviceClass objects may carry selectors too),
 - request selectors (a CEL subset evaluated against ``device.attributes`` /
@@ -1473,6 +1473,79 @@ class Allocator:
             self.metrics.utilization.set(
                 self._utilization(idx, geo, mask),
                 node=row["node"], pool=pool)
+
+    def fragmentation_report(self,
+                             update_gauge: bool = True) -> list[dict]:
+        """Per-pool fragmentation + utilization rows (free chips, largest
+        allocatable box, the gauge values) — the debug and test surface;
+        optionally refreshes ``gpu_dra_allocator_fragmentation`` and
+        ``gpu_dra_allocator_utilization`` for every pool."""
+        with self.mutex:
+            idx = self._slice_index()
+            _stamp, _consumed, _allocated, _dirty, masks = self._usage()
+            rows = []
+            for pool in sorted(idx.geometry):
+                geo = idx.geometry[pool]
+                mask = masks.get(pool, 0)
+                row = geo.fragmentation(mask)
+                row["utilization"] = self._utilization(idx, geo, mask)
+                rows.append(row)
+                if update_gauge:
+                    self.metrics.fragmentation.set(
+                        row["fragmentation"], node=row["node"], pool=pool)
+                    self.metrics.utilization.set(
+                        row["utilization"], node=row["node"], pool=pool)
+            return rows
+
+    def placement_options(self, claim: Obj,
+                          node: Optional[str] = None) -> list[dict]:
+        """Every geometry placement that could host the claim's
+        ExactCount requests, with its current occupants — the defrag
+        planner's target menu. Each row: request, pool, device, volume,
+        victims (holding claims as uid, name, namespace and the chips
+        they hold, deduplicated), and victim_chips (total chips those
+        claims hold anywhere — the drain-priority weight preemption
+        scoring minimizes)."""
+        with self.mutex:
+            idx = self._slice_index()
+            _stamp, _consumed, allocated, _dirty, _masks = self._usage()
+            holder_chips: dict[tuple[str, str, str], int] = {}
+            for (pool, dev), h in allocated.items():
+                geo = idx.geometry.get(pool)
+                g = geo.boxes.get(dev) if geo is not None else None
+                holder_chips[h] = holder_chips.get(h, 0) + (
+                    g.volume if g is not None else 1)
+            out: list[dict] = []
+            for req in claim_requests(claim):
+                exact = req.get("exactly") or req
+                if exact.get("allocationMode", "ExactCount") != "ExactCount":
+                    continue
+                cands = self._candidates(
+                    exact.get("deviceClassName"),
+                    exact.get("selectors", []), node=node)
+                for cand in cands:
+                    geo = idx.geometry.get(cand.pool)
+                    g = geo.boxes.get(cand.name) if geo is not None else None
+                    if g is None:
+                        continue
+                    victims: dict[tuple[str, str, str], None] = {}
+                    for o in (g, *g.overlapping):
+                        h = allocated.get((cand.pool, o.name))
+                        if h is not None:
+                            victims[h] = None
+                    out.append({
+                        "request": req.get("name", ""),
+                        "pool": cand.pool,
+                        "device": cand.name,
+                        "volume": g.volume,
+                        "victims": [
+                            {"uid": h[0], "name": h[1], "namespace": h[2],
+                             "chips": holder_chips.get(h, 0)}
+                            for h in victims],
+                        "victim_chips": sum(holder_chips.get(h, 0)
+                                            for h in victims),
+                    })
+            return out
 
     def release(self, claim: Obj) -> Obj:
         """Drop the claim's allocation and update the usage index IN

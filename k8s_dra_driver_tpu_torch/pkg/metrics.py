@@ -3,8 +3,9 @@
 The subset of the JAX package's ``pkg/metrics.py`` that this package uses:
 Counter, Gauge and Histogram with label vectors, a Registry and the same
 text exposition format, line for line; and the families of the claim path
-(DRA requests, informer, workqueue, allocator, fake-apiserver wire path)
-and of the ComputeDomain controller and daemon, named ``gpu_dra_*`` where
+(DRA requests, informer, workqueue, allocator, fake-apiserver wire path),
+of the ComputeDomain controller and daemon, and of the self-healing path
+(remediation and node leases), named ``gpu_dra_*`` where
 the JAX package's are ``tpu_dra_*``.
 
 Histogram exemplars take an explicit trace id only; there is no tracer in
@@ -426,6 +427,88 @@ def default_allocator_metrics() -> AllocatorMetrics:
     if _default_allocator_metrics is None:
         _default_allocator_metrics = AllocatorMetrics()
     return _default_allocator_metrics
+
+
+class RemediationMetrics:
+    """Self-healing pipeline health (docs/self-healing.md): claims drained
+    off tainted devices, devices inside the taint→drain→repair→rejoin
+    pipeline right now, how long a device's recovery takes, how drained
+    claims fared at reallocation, and the defrag planner's preemptions. One
+    process-global instance by default (:func:`default_remediation_metrics`):
+    the node-side DrainController and the cluster-side ClaimReallocator feed
+    the same families."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.drains_total = r.register(Counter(
+            "gpu_dra_remediation_drains_total",
+            "Claims gracefully drained off tainted devices.",
+            ("driver",)))
+        self.active_drains = r.register(Gauge(
+            "gpu_dra_remediation_active_drains",
+            "Devices currently inside the taint->drain->repair->rejoin "
+            "pipeline.",
+            ("node",)))
+        self.recovery_seconds = r.register(Histogram(
+            "gpu_dra_remediation_recovery_seconds",
+            "Taint observed -> device rejoined the published ResourceSlice, "
+            "per device.",
+            exponential_buckets(0.1, 2, 10), ("node",)))
+        self.reallocations_total = r.register(Counter(
+            "gpu_dra_remediation_reallocations_total",
+            "Drained claims re-bound by the reallocation controller, by "
+            "outcome.",
+            ("outcome",)))  # success | failed
+        self.preemptions_total = r.register(Counter(
+            "gpu_dra_remediation_preemptions_total",
+            "Defrag-planner preemptions of movable claims, by outcome "
+            "(annotated | skipped_bounded | skipped_unmovable).",
+            ("outcome",)))
+
+
+_default_remediation_metrics: Optional[RemediationMetrics] = None
+
+
+def default_remediation_metrics() -> RemediationMetrics:
+    global _default_remediation_metrics
+    if _default_remediation_metrics is None:
+        _default_remediation_metrics = RemediationMetrics()
+    return _default_remediation_metrics
+
+
+class NodeMetrics:
+    """Node failure domains (docs/self-healing.md, "Whole-node repair"):
+    lease renewals on the node side, cordon counts and fence-to-uncordon
+    durations on the cluster side. One process-global instance by default
+    (:func:`default_node_metrics`)."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.lease_renewals_total = r.register(Counter(
+            "gpu_dra_node_lease_renewals_total",
+            "Node-lease heartbeat renewals that landed.",
+            ("node",)))
+        self.cordons_total = r.register(Counter(
+            "gpu_dra_node_cordons_total",
+            "Whole-node cordons, by reason (node-lost | requested).",
+            ("reason",)))
+        self.fence_seconds = r.register(Histogram(
+            "gpu_dra_node_fence_seconds",
+            "Node fenced (cordon started) -> fence cleared and node "
+            "uncordoned, per node-loss episode.",
+            exponential_buckets(0.5, 2, 10), ("node",)))
+
+
+_default_node_metrics: Optional[NodeMetrics] = None
+
+
+def default_node_metrics() -> NodeMetrics:
+    global _default_node_metrics
+    if _default_node_metrics is None:
+        _default_node_metrics = NodeMetrics()
+    return _default_node_metrics
 
 
 class _TimedRequest:

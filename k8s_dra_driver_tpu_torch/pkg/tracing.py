@@ -52,6 +52,12 @@ def child_span(name: str,
     return NOOP_SPAN
 
 
+def start_span(name: str, parent: Optional[object] = None,
+               attributes: Optional[dict[str, Any]] = None,
+               activate: bool = True, new_root: bool = False) -> _NoopSpan:
+    return NOOP_SPAN
+
+
 def span_for_object(name: str, obj: Optional[dict],
                     attributes: Optional[dict[str, Any]] = None) -> _NoopSpan:
     return NOOP_SPAN
@@ -60,6 +66,11 @@ def span_for_object(name: str, obj: Optional[dict],
 def current_span() -> None:
     """No span is ever active while tracing is disabled."""
     return None
+
+
+def inject(span: object, obj: dict) -> dict:
+    """Stamps a span's traceparent on an object: no-op spans stamp none."""
+    return obj
 
 
 def extract(obj: Optional[dict]) -> None:

@@ -1,7 +1,8 @@
 """Transactional prepare/unprepare of GPU claims around the checkpoint.
 
 Copied from the JAX package's ``plugins/tpu_kubelet_plugin/device_state.py``
-and cut to whole GPUs (MIG partitions and VFIO passthrough wait). As there,
+and cut to whole GPUs (MIG partitions and VFIO passthrough wait), its drain
+side included: a drained claim leaves a ``PrepareAborted`` tombstone. As there,
 the analogue of the reference's ``cmd/gpu-kubelet-plugin/device_state.go``
 (``Prepare`` :289, ``Unprepare`` :486, ``prepareDevices`` :818,
 ``GetOpaqueDeviceConfigs`` :1410, ``validateNoOverlappingPreparedDevices``
@@ -36,7 +37,7 @@ import logging
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 from k8s_dra_driver_tpu_torch.api.configs import (
     ConfigError,
@@ -89,6 +90,12 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.prepared import Prepare
 logger = logging.getLogger(__name__)
 
 DRIVER_NAME = "gpu.nvidia.com"
+
+# How long a drained claim's PrepareAborted tombstone is kept (the CD
+# plugin's PREPARE_ABORTED_TTL, generalized to the GPU plugin by the drain
+# path): long enough to reject a stale kubelet prepare retry of the drained
+# claim version.
+PREPARE_ABORTED_TTL = 10 * 60.0
 
 # Fault point inside the device-preparation window: after the claim's
 # PrepareStarted record is durable, before any device side effect. A
@@ -143,8 +150,12 @@ class DeviceState:
         driver_name: str = DRIVER_NAME,
         gates: Optional[FeatureGates] = None,
         metrics: Optional[DRAMetrics] = None,
+        aborted_ttl: float = PREPARE_ABORTED_TTL,
+        clock: Callable[[], float] = time.time,
     ):
         self.device_lib = device_lib
+        self.aborted_ttl = aborted_ttl
+        self.clock = clock
         self.cdi = cdi
         self.lock = Flock(lock_path)
         self.metrics = metrics
@@ -556,3 +567,145 @@ class DeviceState:
             self.cdi.delete_claim_spec_file(ref.uid)
             self.checkpoints.transact(
                 lambda c: c.prepared_claims.pop(ref.uid, None))
+
+    # -- drain (self-healing remediation, docs/self-healing.md) --------------
+
+    def drain(self, ref: ClaimRef, reason: str = "") -> bool:
+        """Gracefully evict one prepared claim from this node: undo its
+        device state exactly like :meth:`unprepare`, but leave a
+        ``PrepareAborted`` tombstone instead of dropping the record, so a
+        stale kubelet prepare retry of the SAME claim version is rejected
+        (the bad GPU must not be re-entered) while a RE-ALLOCATED version
+        (different results) overwrites the tombstone and prepares normally.
+
+        Serializes on the claim's flight lock — a drain landing while the
+        claim's prepare is still in flight waits for it to finish and then
+        unwinds the completed state. Returns whether anything was drained;
+        crash-safe: a crash between the CDI delete and the tombstone commit
+        leaves the claim checkpointed, so a replayed drain re-runs the
+        (idempotent) delete and commits the tombstone."""
+        with self._flights.claim(ref.uid):
+            cp = self.checkpoints.read_cached()
+            pc = cp.prepared_claims.get(ref.uid)
+            if pc is None or pc.state == STATE_PREPARE_ABORTED:
+                return False
+            self.cdi.delete_claim_spec_file(ref.uid)
+            expiry = self.clock() + self.aborted_ttl
+
+            def mark(c: Checkpoint) -> bool:
+                entry = c.prepared_claims.get(ref.uid)
+                if entry is None or entry.state == STATE_PREPARE_ABORTED:
+                    return False
+                entry.state = STATE_PREPARE_ABORTED
+                entry.prepared_devices = []
+                entry.aborted_expiry = expiry
+                return True
+
+            drained = bool(self.checkpoints.transact(mark))
+            if drained:
+                logger.info("drained claim %s off this node%s", ref.uid,
+                            f" ({reason})" if reason else "")
+            return drained
+
+    def delete_expired_aborted(self, now: Optional[float] = None) -> list[str]:
+        """Drop expired PrepareAborted tombstones (the CD plugin's GC,
+        generalized here for drained claims). One atomic transaction; a
+        read-only pre-check keeps the periodic sweep from publishing a
+        checkpoint when there is nothing to drop."""
+        now = self.clock() if now is None else now
+
+        def expired_in(claims: dict[str, PreparedClaimCP]) -> list[str]:
+            return [
+                uid for uid, pc in claims.items()
+                if pc.state == STATE_PREPARE_ABORTED
+                and (pc.aborted_expiry == 0.0 or now >= pc.aborted_expiry)
+            ]
+
+        if not expired_in(self.checkpoints.read().prepared_claims):
+            return []
+
+        def drop(c: Checkpoint) -> list[str]:
+            expired = expired_in(c.prepared_claims)
+            for uid in expired:
+                c.prepared_claims.pop(uid, None)
+            return expired
+
+        expired = self.checkpoints.transact(drop)
+        if expired:
+            logger.info("expired %d PrepareAborted tombstones: %s",
+                        len(expired), expired)
+        return expired
+
+    def adopt_boot_id(self, new_id: str) -> None:
+        """Record a repair-simulated reboot (docs/self-healing.md): the
+        checkpoint's boot id moves WITH the live process, so a later real
+        restart does not read the flipped file as a second reboot and
+        discard claims prepared after the rejoin."""
+        if not new_id or new_id == self.node_boot_id:
+            return
+
+        def set_id(c: Checkpoint) -> None:
+            c.node_boot_id = new_id
+
+        self.checkpoints.transact(set_id)
+        self.node_boot_id = new_id
+
+    def claims_holding_device(self, device: str) -> list[ClaimRef]:
+        """Checkpointed claims whose prepared state covers ``device`` —
+        the drain controller's work list when that device is tainted.
+        Comparison is at physical-identity granularity (the overlap
+        validator's currency). A vanished GPU has no enumeration entry;
+        its name still encodes the GPU index, which is exactly what the
+        prepare-time records hold."""
+        enum = self._enum
+        want = self._device_phys_ids(device, enum)
+        if not want and device.startswith("gpu-"):
+            try:
+                want = {f"gpu:{int(device.split('-')[1])}"}
+            except (ValueError, IndexError):
+                want = set()
+        if not want:
+            return []
+        out: list[ClaimRef] = []
+        try:
+            claims = self.prepared_claims_nolock()
+        except Exception:  # noqa: BLE001 — unreadable state already fails
+            # requests loudly elsewhere; the drain retries next poll.
+            return []
+        for uid, pc in claims.items():
+            if pc.state == STATE_PREPARE_ABORTED:
+                continue
+            held = self._held_phys_ids(pc)
+            if not held:
+                for r in pc.results:
+                    held |= self._device_phys_ids(r.get("device", ""), enum)
+            if not held and any(r.get("device", "") == device
+                                for r in pc.results):
+                held = set(want)
+            if want & held:
+                out.append(ClaimRef(uid=uid, name=pc.name,
+                                    namespace=pc.namespace))
+        return sorted(out, key=lambda r: r.uid)
+
+    def claim_device_count(self, uid: str) -> int:
+        """How many physical GPUs a prepared claim holds — the drain
+        controller's priority key (docs/self-healing.md, "Drain
+        ordering"): small claims vacate a tainted device before
+        multi-GPU ones. 0 for unknown/unreadable claims (sorts first:
+        nothing to evict)."""
+        try:
+            pc = self.prepared_claims_nolock().get(uid)
+        except Exception:  # noqa: BLE001 — unreadable state already
+            # fails requests loudly elsewhere; ordering degrades to uid.
+            return 0
+        if pc is None:
+            return 0
+        held = self._held_phys_ids(pc)
+        if held:
+            return len(held)
+        enum = self._enum
+        for r in pc.results:
+            held |= self._device_phys_ids(r.get("device", ""), enum)
+        if held:
+            return len({h for h in held if h.startswith("gpu:")})
+        return max(len(pc.prepared_devices), len(pc.results))

@@ -2,9 +2,10 @@
 
 Copied from the JAX package's ``plugins/tpu_kubelet_plugin/driver.py`` and
 cut to whole GPUs: the MIG and passthrough gates raise at assembly
-(``validate_gate_dependencies``), and the health monitor that drives the
-taint surface waits, as do the node lease and the drain controller. As
-there, the analogue of the reference's driver core (``cmd/gpu-kubelet-plugin/
+(``validate_gate_dependencies``). The taint surface is driven by the health
+monitor (``health.attach_health_monitor``) and the drain surface
+(``device_healthy`` … ``rejoin_device``) by the drain controller
+(``kubeletplugin/remediation.py``). As there, the analogue of the reference's driver core (``cmd/gpu-kubelet-plugin/
 driver.go``): ``NewDriver`` :70 (assembly), ``GenerateDriverResources``
 :190-307 (flat vs KEP-4815 partitionable slices), ``PrepareResourceClaims``
 :344-443 (batch dispatch with per-claim flock + metrics + phase timings),
@@ -21,6 +22,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from k8s_dra_driver_tpu_torch.cdi.spec import CDIHandler
+from k8s_dra_driver_tpu_torch.gpulib.chip import HealthState
 from k8s_dra_driver_tpu_torch.gpulib.device_lib import DeviceLib, new_device_lib
 from k8s_dra_driver_tpu_torch.k8sclient.client import FakeClient, Obj
 from k8s_dra_driver_tpu_torch.kubeletplugin import (
@@ -59,6 +61,9 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import partitions
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.device_state import (
     DRIVER_NAME,
     DeviceState,
+)
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.health import (
+    HEALTH_TAINT_KEYS,
 )
 
 logger = logging.getLogger(__name__)
@@ -114,9 +119,8 @@ class GpuDriver:
                                     host=config.node_name)
         self.helper = Helper(client, DRIVER_NAME, config.node_name, self)
         self._generation = 1
-        # Taint state is touched from more than one thread (in the JAX
-        # package: the health monitor's and the drain controller's polls):
-        # the RMW in
+        # Taint state is touched from more than one thread (the health
+        # monitor's and the drain controller's polls): the RMW in
         # update_device_taints, the snapshot in device_taints, and the
         # publication read all serialize here. Reentrant because
         # update_device_taints republishes (→ generate_driver_resources)
@@ -255,6 +259,56 @@ class GpuDriver:
         with self._taints_mu:
             return {dev: list(taints)
                     for dev, taints in self._taints.items()}
+
+    # -- remediation surface (kubeletplugin/remediation.py wiring) -----------
+
+    def device_healthy(self, device: str) -> bool:
+        """Freshest health read for one GPU device (drain-cancel and
+        rejoin decisions read through the device lib, not the enumeration
+        snapshot, which lags a refresh). A vanished GPU is unhealthy."""
+        try:
+            for gpu in self.device_lib.enumerate_gpus():
+                if gpu.canonical_name == device:
+                    health = self.device_lib.gpu_health(gpu)
+                    return (health.state == HealthState.HEALTHY
+                            and gpu.health.state == HealthState.HEALTHY)
+        except Exception:  # noqa: BLE001 — cannot confirm healthy
+            return False
+        return False
+
+    def affected_claims(self, device: str) -> list[ClaimRef]:
+        """Prepared claims whose devices cover ``device``."""
+        return self.state.claims_holding_device(device)
+
+    def claim_device_count(self, ref: ClaimRef) -> int:
+        """Physical GPUs held by a prepared claim — the drain controller's
+        smallest-first priority key."""
+        return self.state.claim_device_count(ref.uid)
+
+    def drain_claim(self, ref: ClaimRef, reason: str = "") -> bool:
+        """Gracefully unprepare one claim, leaving a crash-safe
+        PrepareAborted tombstone (DeviceState.drain)."""
+        drained = self.state.drain(ref, reason=reason)
+        if drained:
+            self._update_prepared_gauge()
+        return drained
+
+    def rejoin_device(self, device: str) -> bool:
+        """Repair-complete side of the pipeline: re-enumerate, verify the
+        GPU is back and healthy, and clear every health taint in ONE
+        republish so the device rejoins the published ResourceSlice.
+        Returns False (retry next poll) while the GPU is still bad."""
+        if not self.device_healthy(device):
+            return False
+        if not self.update_device_taints(device,
+                                         clear_keys=HEALTH_TAINT_KEYS):
+            # Taints already cleared (health monitor observed the recovery
+            # first): the repaired GPU still needs a re-enumerated publish.
+            self.republish()
+        return True
+
+    def adopt_boot_id(self, new_id: str) -> None:
+        self.state.adopt_boot_id(new_id)
 
     # -- node-scope cordon (docs/self-healing.md, "Whole-node repair") -------
 

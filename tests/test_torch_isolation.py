@@ -4,8 +4,9 @@ or gRPC, no Triton or kernel build at import.
 A subprocess blocks ``jax``, ``k8s_dra_driver_tpu``, ``yaml`` and ``grpc``
 in ``sys.modules``, imports every module of the port (the device library,
 the k8s client, the GPU and ComputeDomain kubelet plugins, the
-ComputeDomain daemon and controller, the webhook and the serving harness
-included; the new subpackages are named and must be among them) and
+ComputeDomain daemon and controller, the webhook, the serving harness and
+the self-healing path included; the modules of the last two slices are
+named and must be among them) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
 ``entry(device="cpu")``, one ``flash_attention`` call on CPU tensors, the
 serving smoke (``run_serving_smoke(device="cpu")``: claim → GPU plugin
@@ -93,6 +94,15 @@ CD_MODULES = [
     "k8s_dra_driver_tpu_torch.plugins.webhook.admission",
 ]
 
+#: Modules of the self-healing slice the sweep must reach.
+SELFHEAL_MODULES = [
+    "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.health",
+    "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.healthcheck",
+    "k8s_dra_driver_tpu_torch.kubeletplugin.remediation",
+    "k8s_dra_driver_tpu_torch.pkg.nodelease",
+    "k8s_dra_driver_tpu_torch.pkg.canary",
+]
+
 
 def _sources():
     """The port's Python sources (not its build outputs) and the smoke."""
@@ -107,9 +117,10 @@ def test_port_imports_and_serves_with_jax_blocked():
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("MODULES", 1)[1].split()[0])
-    assert n >= 51 + len(CD_MODULES), proc.stdout
+    assert n >= 51 + len(CD_MODULES) + 3, proc.stdout
     names = set(proc.stdout.split("NAMES", 1)[1].split()[0].split(","))
-    assert set(CD_MODULES) <= names, sorted(set(CD_MODULES) - names)
+    want = set(CD_MODULES) | set(SELFHEAL_MODULES)
+    assert want <= names, sorted(want - names)
 
 
 @pytest.mark.parametrize("path", _sources(),
