@@ -72,6 +72,22 @@ One line per phase:
            engine serves 16 more; canary probes pass on the free and the
            repaired card; prints detect_ms, drain_ms, rejoin_ms, outage_ms
            and ttfb_after_ms, and requires no residue and no thread left
+   processes  the port's binaries as OS processes, as a node runs them:
+           the API server (``python -m ...k8sclient.httpapi``) and the GPU
+           kubelet plugin on the machine's own device library (NVML), with
+           its metrics, debug and (where ``grpc`` imports) gRPC health
+           servers; over HTTP the DeviceClass, the Node and a claim for the
+           card by UUID, which the plugin process prepares into a CDI spec
+           that an engine binds to and serves 16 requests from (the
+           selfheal batch) through the decode kernel; the prepare and the
+           unprepare counted on its /metrics; every process exits 0 on
+           SIGTERM and nothing is left (plugin_start_ms: spawn to the slice
+           naming the card; claim_ready_ms and ttfb_ms over the wire;
+           stop_ms). Then the webhook process against the in-process admit
+           function on an admission corpus, and the ComputeDomain plugin
+           (channel-0 and daemon published), ``daemon check`` (exit 0) and
+           ``daemon run`` (its clique entry published and withdrawn) as
+           processes on the same node
 10. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
            the device library that found the card, the controller's live
            loop reconciling a CD of numNodes 1, and one daemon reporting the
@@ -108,7 +124,7 @@ One line per phase:
 
 Kernel times are CUDA-event times of a run of back-to-back calls over the
 count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
-burnin, and each of selfheal's two batches) runs
+burnin, each of selfheal's two batches, and the processes batch) runs
 with every kernel's launch count set to 0 just before it and read just
 after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
@@ -129,12 +145,13 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 import zlib
 
 import numpy as np
 import torch
 
-from k8s_dra_driver_tpu_torch.cdi.spec import claim_spec_env
+from k8s_dra_driver_tpu_torch.cdi.spec import CDIHandler, claim_spec_env
 from k8s_dra_driver_tpu_torch.compute import _build, _dist
 from k8s_dra_driver_tpu_torch.compute.burnin import matmul_flops_bench
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
@@ -178,8 +195,8 @@ from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
     BACKEND_PROCFS,
     MockDeviceLib,
     find_nvml,
-    host_device_libs,
     locate_gpu,
+    new_device_lib,
 )
 from k8s_dra_driver_tpu_torch.internal.stresslab import (
     SERVING_SMOKE_ENGINE,
@@ -187,6 +204,7 @@ from k8s_dra_driver_tpu_torch.internal.stresslab import (
 )
 from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
 from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+from k8s_dra_driver_tpu_torch.k8sclient.httpapi import HttpClient
 from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
 from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import NodePrepareLoop
 from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
@@ -216,6 +234,7 @@ from k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon import (
     ComputeDomainDaemon,
 )
 from k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin import (
+    CD_DRIVER_NAME,
     MASTER_PORT,
     CdDriver,
     CdDriverConfig,
@@ -226,6 +245,7 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
 )
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.checkpoint import (
     STATE_PREPARE_ABORTED,
+    Checkpoint,
 )
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.device_state import (
     DRIVER_NAME,
@@ -239,6 +259,7 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.healthcheck import (
     STATUS_SERVING,
     driver_probe,
 )
+from k8s_dra_driver_tpu_torch.plugins.webhook.admission import review_response
 
 # The smoke's width: one attention layer of Llama-2-7B's published config
 # (hidden 4096 = 32 heads x head_dim 128, max_position_embeddings 4096),
@@ -357,27 +378,27 @@ def torch_uuid(index: int) -> str:
 
 
 def phase_enumerate() -> dict:
-    """The device library on the machine's own roots. Every GPU that each
-    backend ``locate_gpu`` tries finds is printed (the default backend,
-    and NVML where ``libnvidia-ml.so.1`` is present); then ``locate_gpu``
-    must find the card torch uses (``cuda:0``) by its UUID, with memory
+    """The device library on the machine's own roots. Every GPU that the
+    host's library (``new_device_lib``: NVML where ``libnvidia-ml.so.1``
+    is present, else procfs) finds is printed; then ``locate_gpu`` must
+    find the card torch uses (``cuda:0``) by its UUID, with memory
     within 1% of torch's total and its ``/dev/nvidia<minor>`` node.
     Returns that GPU and the library that found it."""
     want = torch_uuid(0)
     total = torch.cuda.get_device_properties(0).total_memory
     line("enumerate", torch_uuid=want, torch_total_memory=total,
          nvml=json.dumps(find_nvml() or ""))
-    for lib in host_device_libs():
-        gpus = lib.enumerate_gpus()
-        line("enumerate", backend=lib.backend, gpus=len(gpus))
-        for g in gpus:
-            line("enumerate", backend=lib.backend, index=g.index, uuid=g.uuid,
-                 minor=g.minor, pci_address=g.pci_address or "not reported",
-                 pci_device_id=(f"0x{g.pci_device_id:04x}"
-                                if g.pci_device_id else "not reported"),
-                 product=json.dumps(g.product_name),
-                 memory_bytes=g.memory_bytes, numa_node=g.numa_node,
-                 driver_version=g.driver_version)
+    lib = new_device_lib()
+    gpus = lib.enumerate_gpus()
+    line("enumerate", backend=lib.backend, gpus=len(gpus))
+    for g in gpus:
+        line("enumerate", backend=lib.backend, index=g.index, uuid=g.uuid,
+             minor=g.minor, pci_address=g.pci_address or "not reported",
+             pci_device_id=(f"0x{g.pci_device_id:04x}"
+                            if g.pci_device_id else "not reported"),
+             product=json.dumps(g.product_name),
+             memory_bytes=g.memory_bytes, numa_node=g.numa_node,
+             driver_version=g.driver_version)
     lib, gpu = locate_gpu(want)
     share = abs(gpu.memory_bytes - total) / total
     node = f"/dev/nvidia{gpu.minor}"
@@ -1404,6 +1425,437 @@ def phase_selfheal(card: str, seed: int, lib, gpu,
     return out
 
 
+#: The node-side binaries and the API server, each run as
+#: ``python -m <module>`` from the checkout's root.
+API_SERVER_MODULE = "k8s_dra_driver_tpu_torch.k8sclient.httpapi"
+GPU_PLUGIN_MODULE = "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin"
+CD_PLUGIN_MODULE = "k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin"
+CD_DAEMON_MODULE = "k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon"
+WEBHOOK_MODULE = "k8s_dra_driver_tpu_torch.plugins.webhook"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+#: Seconds a process has to exit after SIGTERM before it is killed (and
+#: the phase fails).
+STOP_TIMEOUT_S = 20.0
+
+_ADMISSION_GROUP = "resource.nvidia.com/v1beta1"
+_DOMAIN_ID = "0f0f0f0f-0000-4000-8000-000000000001"
+
+
+def _admission_review(resource: str, configs: list) -> dict:
+    spec = {"devices": {"requests": [{"name": "gpu", "exactly": {
+        "deviceClassName": DRIVER_NAME}}], "config": configs}}
+    if resource == "resourceclaimtemplates":
+        spec = {"spec": spec}
+    return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "request": {"uid": f"uid-{resource}-{len(configs)}",
+                        "resource": {"group": "resource.k8s.io",
+                                     "version": "v1", "resource": resource},
+                        "object": {"spec": spec}}}
+
+
+def _opaque(driver: str, kind: str, **fields) -> dict:
+    return {"opaque": {"driver": driver, "parameters": {
+        "apiVersion": _ADMISSION_GROUP, "kind": kind, **fields}}}
+
+
+#: AdmissionReviews the webhook process answers, from the corpus of the
+#: port's webhook tests: valid and invalid opaque configs of both drivers.
+ADMISSION_CORPUS = {
+    "no-configs": _admission_review("resourceclaims", []),
+    "device-env": _admission_review("resourceclaims", [
+        _opaque(DRIVER_NAME, "GpuConfig", env={"FOO": "1"})]),
+    "device-unknown-field": _admission_review("resourceclaims", [
+        _opaque(DRIVER_NAME, "GpuConfig", bogusField=1)]),
+    "channel-single": _admission_review("resourceclaims", [
+        _opaque("compute-domain.nvidia.com", "ComputeDomainChannelConfig",
+                domainID=_DOMAIN_ID, allocationMode="Single")]),
+    "channel-bad-mode": _admission_review("resourceclaims", [
+        _opaque("compute-domain.nvidia.com", "ComputeDomainChannelConfig",
+                domainID=_DOMAIN_ID, allocationMode="Some")]),
+    "daemon-bad-domain": _admission_review("resourceclaimtemplates", [
+        _opaque("compute-domain.nvidia.com", "ComputeDomainDaemonConfig",
+                domainID="not-a-uuid")]),
+}
+
+
+class Processes:
+    """The OS processes a phase starts: each ``python -m`` a module of the
+    port from the checkout's root, its output in a log file. ``stop``
+    sends SIGTERM, waits, kills a process still alive after
+    ``STOP_TIMEOUT_S`` and requires exit code 0; ``close`` ends whatever
+    is still running (a phase that failed midway leaves no process)."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.procs: list = []
+
+    def spawn(self, name: str, module: str, *args: str
+              ) -> subprocess.Popen:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (ROOT, env.get("PYTHONPATH", "")) if p)
+        path = os.path.join(self.log_dir, f"{name}.log")
+        with open(path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", module, *args], stdout=log,
+                stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+        proc.name, proc.log_path = name, path
+        self.procs.append(proc)
+        return proc
+
+    def log_tail(self, proc, n: int = 2000) -> str:
+        with open(proc.log_path) as f:
+            return f.read()[-n:]
+
+    def alive(self, proc) -> bool:
+        require(proc.poll() is None, f"{proc.name} exited {proc.returncode}:"
+                                     f" {self.log_tail(proc)}")
+        return True
+
+    def wait_log(self, proc, pattern: str, timeout: float = 60.0) -> str:
+        """The first group of ``pattern``'s first match in the process's
+        log, waiting for it while the process runs."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with open(proc.log_path) as f:
+                m = re.search(pattern, f.read())
+            if m:
+                return m.group(1)
+            self.alive(proc)
+            require(time.monotonic() < deadline,
+                    f"{proc.name}: no {pattern!r} within {timeout} s: "
+                    f"{self.log_tail(proc)}")
+            time.sleep(0.01)
+
+    def wait_until(self, proc, cond, what: str,
+                   timeout: float = 60.0) -> None:
+        """``_wait`` that also fails at once if ``proc`` exits."""
+        _wait(lambda: self.alive(proc) and cond(), what, timeout)
+
+    def stop(self, proc) -> float:
+        """SIGTERM, then ms until the process exited with code 0. The
+        caller has seen the process's ready line first: its stop handlers
+        are installed only then, and a SIGTERM before it kills the process
+        (-15)."""
+        t = time.monotonic()
+        proc.terminate()
+        try:
+            rc = proc.wait(timeout=STOP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+            require(False, f"{proc.name} still running {STOP_TIMEOUT_S} s "
+                           "after SIGTERM (killed)")
+        ms = (time.monotonic() - t) * 1e3
+        require(rc == 0, f"{proc.name} exited {rc} after SIGTERM: "
+                         f"{self.log_tail(proc)}")
+        return ms
+
+    def run(self, name: str, module: str, *args: str,
+            timeout: float = 60.0) -> tuple:
+        """Run a command to its end: (exit code, its output)."""
+        proc = self.spawn(name, module, *args)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+            raise SystemExit(f"chip_smoke: FAILED: {name} ran past "
+                             f"{timeout} s")
+        return rc, self.log_tail(proc)
+
+    def close(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=STOP_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=10)
+
+
+def _slice_uuids(client, driver: str, node: str) -> list:
+    """The ``uuid`` attributes of the devices ``driver`` publishes on
+    ``node``."""
+    return [(d.get("attributes") or {}).get("uuid", {}).get("string")
+            for s in client.list("ResourceSlice")
+            if s["spec"].get("driver") == driver
+            and s["spec"].get("nodeName") == node
+            for d in s["spec"].get("devices") or []]
+
+
+def _metric(text: str, name: str, **labels) -> float:
+    """The value of one sample of a Prometheus text exposition (0 when
+    absent)."""
+    want = "{" + ",".join(f'{k}="{v}"' for k, v in labels.items()) + "}"
+    for row in text.splitlines():
+        if row.startswith(name + want + " "):
+            return float(row.split()[-1])
+    return 0.0
+
+
+def _http_get(url: str) -> bytes:
+    with urllib.request.urlopen(url, timeout=10) as resp:  # noqa: S310
+        require(resp.status == 200, f"GET {url}: {resp.status}")
+        return resp.read()
+
+
+def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
+                    width: dict | None = None) -> dict:
+    """The port's binaries as OS processes, as a node runs them: the API
+    server (``k8sclient.httpapi``), then the GPU kubelet plugin on the
+    machine's own device library (``device_args`` adds ``--mock-profile``
+    on a machine without the card, as the tests run it). Over HTTP the
+    phase creates the DeviceClass and the Node and waits for the plugin's
+    ResourceSlice to name the card's UUID (``plugin_start_ms``: spawn to
+    slice); a claim for that UUID is allocated over HTTP and the plugin
+    process prepares it (``claim_ready_ms``). The engine is bound to the CDI
+    spec the plugin wrote and serves 16 requests through the decode kernel
+    (``ttfb_ms``, ``decode_tok_s``). The plugin's ``/metrics`` counts the
+    prepare, its ``/debug`` endpoints answer, and its gRPC health service
+    reads SERVING where ``grpc`` imports. The claim is unreserved,
+    unprepared by the plugin and deleted (the unprepare counted), the
+    plugin stops on SIGTERM with exit code 0 (``stop_ms``), and no claim,
+    checkpoint entry or CDI spec is left. Then the webhook process answers
+    an admission corpus as the in-process ``review_response`` does, the
+    ComputeDomain plugin publishes ``channel-0`` and ``daemon``, ``daemon
+    check`` exits 0, and ``daemon run`` publishes its clique entry and
+    withdraws it on SIGTERM. Every process exits 0 on SIGTERM. The engine
+    and its batch are the selfheal phase's (:data:`SELFHEAL_WIDTH`, which
+    ``width`` overrides)."""
+    w = {**SELFHEAL_WIDTH, **(width or {})}
+    try:
+        import grpc  # noqa: F401
+        from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.healthcheck \
+            import check_health
+        has_grpc = True
+    except ImportError:
+        has_grpc = False
+    line("processes", card=json.dumps(card), grpc=has_grpc,
+         health_server="on" if has_grpc else "off (--healthcheck-addr '')")
+    rng = np.random.default_rng(seed + 8)
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        procs = Processes(tmp)
+        try:
+            api = procs.spawn("api-server", API_SERVER_MODULE, "--port", "0")
+            endpoint = procs.wait_log(api, r"api server listening on (\S+)")
+            client = HttpClient(endpoint)
+            # An abstract unix socket: no path, so no length limit.
+            health = (f"unix-abstract:gpu-dra-smoke-health-{os.getpid()}"
+                      if has_grpc else "")
+            t_spawn = time.monotonic()
+            plugin = procs.spawn(
+                "gpu-kubelet-plugin", GPU_PLUGIN_MODULE,
+                "--node-name", "node-0", "--api-endpoint", endpoint,
+                "--state-dir", f"{tmp}/state", "--cdi-root", f"{tmp}/cdi",
+                "--metrics-port", "0", "--healthcheck-addr", health,
+                *device_args)
+            client.create(new_object(
+                "DeviceClass", DRIVER_NAME, spec={"selectors": [{"cel": {
+                    "expression": "device.attributes['type'] == 'gpu'"}}]}))
+            client.create(new_object("Node", "node-0"))
+            procs.wait_until(plugin, lambda: gpu.uuid in _slice_uuids(
+                client, DRIVER_NAME, "node-0"), "the plugin's slice naming "
+                "the card")
+            out["plugin_start_ms"] = (time.monotonic() - t_spawn) * 1e3
+            published = _slice_uuids(client, DRIVER_NAME, "node-0")
+            # Every component started (the claim loop last).
+            procs.wait_log(plugin, r"(running on node node-0)")
+            out["plugin_ready_ms"] = (time.monotonic() - t_spawn) * 1e3
+            metrics_port = procs.wait_log(
+                plugin, r"metrics on http://127\.0\.0\.1:(\d+)/metrics")
+            base = f"http://127.0.0.1:{metrics_port}"
+            line("processes", api_server=endpoint, plugin_pid=plugin.pid,
+                 devices_published=len(published),
+                 plugin_start_ms=out["plugin_start_ms"],
+                 plugin_ready_ms=out["plugin_ready_ms"])
+            require(len(published) > 0 and gpu.uuid in published,
+                    f"the plugin published {published}, not {gpu.uuid}")
+
+            # A claim for the card over HTTP, prepared by the process.
+            name = "proc-claim"
+            t0 = time.monotonic()
+            claim = client.create(new_object(
+                "ResourceClaim", name, "default",
+                api_version="resource.k8s.io/v1",
+                spec={"devices": {"requests": [{"name": "gpu", "exactly": {
+                    "deviceClassName": DRIVER_NAME,
+                    "allocationMode": "ExactCount", "count": 1,
+                    "selectors": [{"cel": {"expression":
+                        f"device.attributes['uuid'] == '{gpu.uuid}'"}}]}}]}}))
+            Allocator(client).allocate(claim, reserved_for=[
+                {"resource": "pods", "name": "proc-pod"}], node="node-0")
+            out["allocate_ms"] = (time.monotonic() - t0) * 1e3
+            uid = claim["metadata"]["uid"]
+            procs.wait_until(plugin, lambda: _claim_ready(client, name),
+                             "claim Ready over the wire")
+            t_ready = time.monotonic()
+            out["claim_ready_ms"] = (t_ready - t0) * 1e3
+            spec = CDIHandler(f"{tmp}/cdi").read_claim_spec(uid)
+            require(spec is not None, "no CDI spec from the plugin process")
+            entries = visible_device_entries(spec)
+            require(entries == [gpu.uuid],
+                    f"the plugin's spec names {entries}, not {gpu.uuid}")
+            engine = bind_engine(
+                spec, "processes", device=w["device"], uuids=w["uuids"],
+                metrics=ServingMetrics(), max_batch=w["max_batch"],
+                kv_cap=w["kv_cap"], heads=w["heads"],
+                head_dim=w["head_dim"], tokens_per_chip_step=2048,
+                queue_cap=64, modeled_chip_tok_s=1e9)
+            out["bind_ms"] = (time.monotonic() - t_ready) * 1e3
+            reqs = tenant_requests(rng, w["requests"], "p", w["prompts"],
+                                   w["new_tokens"])
+            wall = serve_requests(engine, reqs, "processes")
+            out["ttfb_ms"] = (engine.first_batch_t - t0) * 1e3
+            done = finish_engine(engine)
+            summary = done["summary"]
+            out["decode_tok_s"] = summary["decode_tokens"] / wall
+            out["launches"] = done["counts"]["decode_attention"]
+            out["decode_steps"] = done["decode_steps"]
+            line("processes", claim=name, cuda_visible_devices=json.dumps(
+                entries), engine_device=str(engine.device),
+                allocate_ms=out["allocate_ms"],
+                claim_ready_ms=out["claim_ready_ms"], bind_ms=out["bind_ms"],
+                ttfb_ms=out["ttfb_ms"],
+                decode_tok_s=out["decode_tok_s"],
+                completed=summary["completed"],
+                decode_steps=out["decode_steps"],
+                kernel_launches=json.dumps(done["counts"]))
+            check_served(engine, done, reqs, "processes")
+            del engine
+            if w["device"] is None:
+                torch.cuda.empty_cache()
+
+            # The plugin's metrics, debug endpoints and health service.
+            text = _http_get(f"{base}/metrics").decode()
+            prepares = _metric(text, "gpu_dra_requests_total",
+                               driver=DRIVER_NAME, operation="prepare")
+            debug = {}
+            for ep in ("informers", "workqueue", "inflight", "nodelease",
+                       "profile"):
+                debug[ep] = json.loads(_http_get(f"{base}/debug/{ep}"))
+            heartbeats = [h["node"] for h in debug["nodelease"]["heartbeats"]]
+            samples = sum(sum(p["samples"].values())
+                          for p in debug["profile"])
+            serving = check_health(health) if has_grpc else "not served"
+            line("processes", prepare_requests=prepares,
+                 debug=json.dumps({k: len(v) for k, v in debug.items()}),
+                 lease_heartbeats=json.dumps(heartbeats),
+                 profile_samples=samples, health=serving)
+            require(prepares == 1, f"prepare counter {prepares}, not 1")
+            require(heartbeats == ["node-0"] and debug["informers"]
+                    and len(debug["profile"]) == 1,
+                    f"debug endpoints: {debug}")
+            require(not has_grpc or serving == STATUS_SERVING,
+                    f"health check read {serving}")
+
+            # Teardown: unreserve, the process unprepares, delete.
+            c = client.get("ResourceClaim", name, "default")
+            c["status"].pop("reservedFor", None)
+            client.update_status(c)
+            procs.wait_until(plugin, lambda: not any(
+                d.get("driver") == DRIVER_NAME for d in (client.get(
+                    "ResourceClaim", name, "default").get("status")
+                    or {}).get("devices") or []), "claim unprepared")
+            client.delete("ResourceClaim", name, "default")
+            unprepares = _metric(_http_get(f"{base}/metrics").decode(),
+                                 "gpu_dra_requests_total",
+                                 driver=DRIVER_NAME, operation="unprepare")
+            require(unprepares == 1, f"unprepare counter {unprepares}")
+            claims_left = [o["metadata"]["name"]
+                           for o in client.list("ResourceClaim")]
+            out["stop_ms"] = procs.stop(plugin)
+            with open(f"{tmp}/state/checkpoint.json") as f:
+                entries_left = sorted(
+                    Checkpoint.unmarshal(f.read()).prepared_claims)
+            specs_left = sorted(os.listdir(f"{tmp}/cdi"))
+            line("processes", unprepare_requests=unprepares,
+                 stop_ms=out["stop_ms"], plugin_exit=plugin.returncode,
+                 residue=json.dumps(claims_left + entries_left + specs_left))
+            require(not (claims_left or entries_left or specs_left),
+                    f"left behind: {claims_left + entries_left + specs_left}")
+
+            # The webhook process against the in-process admit function.
+            hook = procs.spawn("webhook", WEBHOOK_MODULE, "--port", "0")
+            hook_ep = procs.wait_log(hook, r"webhook server on (http://\S+)")
+            agree = 0
+            for case, review in ADMISSION_CORPUS.items():
+                req = urllib.request.Request(
+                    hook_ep + "/validate-resource-claim-parameters",
+                    data=json.dumps(review).encode(), method="POST",
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=10) as resp:  # noqa: S310
+                    got = json.loads(resp.read())
+                require(got == review_response(review),
+                        f"webhook process on {case}: {got}")
+                agree += 1
+            allowed = sum(review_response(r)["response"]["allowed"]
+                          for r in ADMISSION_CORPUS.values())
+            procs.wait_log(hook, r"(serving on http://\S+)")
+            out["webhook_stop_ms"] = procs.stop(hook)
+            line("processes", webhook=hook_ep, reviews=agree,
+                 allowed=allowed, denied=agree - allowed,
+                 webhook_stop_ms=out["webhook_stop_ms"])
+            require(0 < allowed < agree, "the corpus needs both answers")
+
+            # The ComputeDomain plugin and daemon on the same node.
+            cd_plugin = procs.spawn(
+                "cd-kubelet-plugin", CD_PLUGIN_MODULE,
+                "--node-name", "node-0", "--api-endpoint", endpoint,
+                "--state-dir", f"{tmp}/cd-state", "--cdi-root",
+                f"{tmp}/cd-cdi", "--metrics-port", "-1",
+                "--healthcheck-addr", "", *device_args)
+
+            def cd_devices() -> list:
+                return sorted(d["name"] for s in client.list("ResourceSlice")
+                              if s["spec"].get("driver") == CD_DRIVER_NAME
+                              for d in s["spec"].get("devices") or [])
+
+            procs.wait_until(cd_plugin, cd_devices, "the CD plugin's slice")
+            cd_published = cd_devices()
+            rc, said = procs.run("cd-daemon-check", CD_DAEMON_MODULE, "check",
+                                 "--node-name", "node-0", *device_args)
+            require(rc == 0 and "READY" in said,
+                    f"daemon check exited {rc}: {said}")
+            daemon = procs.spawn(
+                "cd-daemon", CD_DAEMON_MODULE, "run", "--node-name",
+                "node-0", "--api-endpoint", endpoint, "--cd-uid",
+                "proc-cd-uid", "--cd-name", "proc-cd", "--pod-ip",
+                "127.0.0.1", "--sync-interval", "0.5", *device_args)
+
+            def daemon_nodes() -> list:
+                return [d.node_name for c in client.list(
+                    "ComputeDomainClique") for d in clique_daemons(c)]
+
+            procs.wait_until(daemon, lambda: "node-0" in daemon_nodes(),
+                             "the daemon's clique entry")
+            procs.wait_log(daemon, r"(running for ComputeDomain proc-cd-uid)")
+            daemon_stop_ms = procs.stop(daemon)
+            withdrawn = "node-0" not in daemon_nodes()
+            procs.wait_log(cd_plugin, r"(running on node node-0)")
+            cd_stop_ms = procs.stop(cd_plugin)
+            line("processes", cd_devices=json.dumps(cd_published),
+                 daemon_check=rc, daemon_withdrawn=withdrawn,
+                 daemon_stop_ms=daemon_stop_ms, cd_plugin_stop_ms=cd_stop_ms)
+            require(cd_published == ["channel-0", "daemon"],
+                    f"the CD plugin published {cd_published}")
+            require(withdrawn, "the daemon left its clique entry")
+            out["api_stop_ms"] = procs.stop(api)
+        finally:
+            procs.close()
+        exits = {p.name: p.returncode for p in procs.procs}
+    left = child_processes()
+    line("processes", exits=json.dumps(exits), api_stop_ms=out["api_stop_ms"],
+         children_left=json.dumps(left))
+    require(all(rc == 0 for rc in exits.values()), f"exit codes {exits}")
+    require(not left, f"processes left running: {left}")
+    return out
+
+
 def servesmoke_check(rng: np.random.Generator) -> float:
     """The decode kernel against its plain version at the serving smoke's
     shapes (``SERVING_SMOKE_ENGINE``: q [8, 2, ql, 8], K/V [8, 2, 32, 8]),
@@ -1818,6 +2270,7 @@ def main(argv=None) -> int:
     flash = phase_flash_bench(args.seed)
     phase_burnin()
     phase_selfheal(card, args.seed, found["lib"], found["gpu"])
+    processes = phase_processes(card, args.seed, found["gpu"])
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -1831,7 +2284,8 @@ def main(argv=None) -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "k8s_dra_driver_tpu_torch/csrc/decode_attention.cu",
         "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:125",
-        "launches": served["launches"], "max_abs_err": max_abs_err,
+        "launches": served["launches"] + processes["launches"],
+        "max_abs_err": max_abs_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],

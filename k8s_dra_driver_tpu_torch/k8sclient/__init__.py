@@ -4,8 +4,9 @@ its claim watcher and the allocator run against.
 Copied from the JAX package's ``k8sclient``: objects are plain dicts in the
 standard k8s shape, stored with uid + resourceVersion bookkeeping,
 optimistic concurrency, finalizer-aware deletion, label-selector lists,
-watch/informer support, and the per-node partition gate. The HTTP API
-server and client wait.
+watch/informer support, and the per-node partition gate; and its HTTP
+transport (``httpapi``: the REST API server, its client and the wire codec),
+so that the binaries of separate processes share one cluster state.
 """
 
 from k8s_dra_driver_tpu_torch.k8sclient.client import (

@@ -13,48 +13,58 @@ watches.
   cross-shard state is the cluster-wide monotonic resourceVersion counter
   (its own short lock, acquired strictly inside a shard lock).
 - **resourceVersion-consistent LIST+WATCH.** Every commit stamps a
-  monotonic resourceVersion; :meth:`FakeClient.list_with_rv` returns the
-  rv its items were read at, ``watch(resource_version=...)`` replays the
+  monotonic resourceVersion; ``watch(resource_version=...)`` replays the
   missed events from a bounded per-kind backlog, and a watcher past the
-  backlog window gets :class:`ExpiredError` ("resourceVersion too old")
-  so the consumer relists instead of going stale. Idle watchers receive
-  periodic BOOKMARK events carrying the shard's current resourceVersion
-  so they can always resume cheaply.
+  backlog window gets :class:`ExpiredError` ("resourceVersion too old",
+  410 Gone over HTTP) so the consumer relists instead of going stale.
+  Idle watchers receive periodic BOOKMARK events carrying the shard's
+  current resourceVersion so they can always resume cheaply.
+- **Paginated LIST.** :meth:`FakeClient.list_page` serves ``limit``/
+  ``continue`` chunks that are snapshot-consistent at the first page's
+  resourceVersion (later pages roll concurrent writes back via the
+  backlog).
 - **Bounded watch queues.** A watcher that stops consuming is disconnected
-  once ``DEFAULT_WATCH_QUEUE`` events pile up (forcing a clean resync)
-  instead of ballooning memory.
+  once ``max_queue`` events pile up (forcing a clean resync) instead of
+  ballooning memory.
 - **Copy-free fan-out.** Stored objects are copy-on-write (no verb
   mutates a published dict in place), so the committed object itself is
   a faithful immutable snapshot — fan-out delivers it to every matching
   watcher WITHOUT a deep copy. Delivered objects are READ-ONLY by
   contract — informer caches hand them out as-is and handlers must copy
   before mutating.
+- **Encode-once wire forms.** The HTTP transport serializes each event's
+  wire form once (:meth:`WatchEvent.wire`, spliced via :mod:`wirecodec`)
+  and shares the bytes across every remote watcher; LIST pages are
+  encoded by :meth:`FakeClient.list_page_wire`.
 
-Copied from the JAX package's ``k8sclient/client.py``, trimmed to what the
-informer, the allocator, the claim watcher, the GPU and ComputeDomain
-kubelet plugins, the ComputeDomain daemon and its controller, and the
-self-healing path call, the partition gate included: without its HTTP
-transport (the wire codec, the LIST wire memo), paginated LISTs and their rollback snapshots, the
-status-patch group commit, the wire-path metrics and the bench baseline
-modes.
+The counterpart of the JAX package's ``k8sclient/client.py``, with what
+``k8sclient/httpapi.py`` serves from. Left out: the status-patch group
+commit, the per-shard LIST wire memo, the wire-path counters and metric
+families, the commit and watch-expiry fault points and the bench's
+baseline modes there (a one-node port has no traffic that needs them yet),
+and the sanitizer's frozen deliveries, which this package's sanitizer does
+not have.
 """
 
 from __future__ import annotations
 
+import bisect
 import copy
+import json
 import queue
 import time
 import uuid
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+from k8s_dra_driver_tpu_torch.k8sclient import wirecodec
 from k8s_dra_driver_tpu_torch.pkg import faultpoints, racelab, sanitizer
 
 Obj = dict[str, Any]
 
-#: committed events retained per kind for watch replay; a consumer
-#: further behind than this window gets ExpiredError.
+#: committed events retained per kind for watch replay / paginated-list
+#: rollback; a consumer further behind than this window gets ExpiredError.
 DEFAULT_BACKLOG_WINDOW = 1024
 #: events a watcher may leave unconsumed before it is disconnected.
 DEFAULT_WATCH_QUEUE = 1024
@@ -75,7 +85,7 @@ class ConflictError(RuntimeError):
 
 
 class ExpiredError(RuntimeError):
-    """resourceVersion too old: the requested watch resume point has
+    """resourceVersion too old: the requested watch/list-continue point has
     fallen out of the per-kind event backlog (HTTP 410 Gone, reason
     ``Expired``) — the consumer must relist and resume from fresh state."""
 
@@ -90,7 +100,8 @@ class PartitionError(RuntimeError):
 
 # Fault points (docs/fault-injection.md). The fake-client verbs are the
 # substrate every in-process stack rides, so injecting here reaches every
-# controller/plugin retry loop at once.
+# controller/plugin retry loop at once; the watch-drop point is shared with
+# the HTTP transport (httpapi streams consult the same name).
 FP_FAKE_MUTATE = faultpoints.register(
     "k8sclient.fake.mutate",
     "FakeClient create/update/update_status/delete fails",
@@ -150,6 +161,19 @@ def new_object(kind: str, name: str, namespace: str = "",
 class WatchEvent:
     type: str  # ADDED | MODIFIED | DELETED | BOOKMARK
     object: Obj
+    # Lazily memoized JSON wire form, shared by every HTTP watcher of this
+    # event (encode-once fan-out). Benign race: two threads may both
+    # encode, producing identical bytes; one wins the store.
+    _wire: Optional[bytes] = field(default=None, repr=False, compare=False)
+
+    def wire(self) -> bytes:
+        w = self._wire
+        if w is None:
+            w = wirecodec.wire_watch_frame(
+                self.type, wirecodec.encode_obj(self.object,
+                                                site="watch_frame"))
+            self._wire = w
+        return w
 
 
 class Watch:
@@ -197,7 +221,7 @@ class Watch:
         return True
 
     def deliver(self, event: WatchEvent, replay: bool = False) -> bool:
-        """``replay``: backlog-replay events generated
+        """``replay``: initial-list / backlog-replay events generated
         synchronously under the shard lock — they bypass the stall bound
         (one bounded burst, not unbounded growth). Returns whether the
         event was actually queued (False for stopped/overflowed watches,
@@ -315,7 +339,7 @@ class _Shard:
 
     __slots__ = ("lock", "objects", "gens", "usage_gens", "watches",
                  "backlog", "trim_rv", "delivered_rv", "pending_notify",
-                 "notify_mu", "last_rv")
+                 "notify_mu", "last_rv", "sorted_keys")
 
     def __init__(self, backlog_window: int):
         self.lock = sanitizer.new_lock("FakeClient._Shard.lock",
@@ -323,6 +347,12 @@ class _Shard:
         # Keyed (kind, namespace, name): one shard serves one kind.
         self.objects: dict[tuple[str, str, str], Obj] = sanitizer.track_state(
             {}, "FakeClient.shard.objects")
+        # Lazily rebuilt sorted view of objects' keys (guarded by lock,
+        # invalidated on create/delete): paginated crawls and initial
+        # snapshots iterate in key order, and re-sorting the whole kind
+        # under the lock on EVERY page would cost more critical-section
+        # time than the one-shot LIST pagination exists to replace.
+        self.sorted_keys: Optional[list[tuple[str, str, str]]] = None
         self.gens: dict[str, int] = {}
         # Status-bearing writes only (see FakeClient.kind_usage_generation):
         # bumped when a commit changed some object's ``status`` — including
@@ -332,8 +362,9 @@ class _Shard:
         # annotation RMWs stop invalidating them.
         self.usage_gens: dict[str, int] = {}
         self.watches: list[Watch] = []
-        # (rv, etype, obj) in commit order, for watch resumes.
-        self.backlog: deque[tuple[int, str, Obj]] = deque(
+        # (rv, etype, obj, prev) in commit order; prev is the displaced
+        # stored object (MODIFIED/DELETED) for paginated-list rollback.
+        self.backlog: deque[tuple[int, str, Obj, Optional[Obj]]] = deque(
             maxlen=backlog_window)
         self.trim_rv = 0        # highest rv ever evicted from the backlog
         self.last_rv = 0        # rv of the newest commit in this shard
@@ -341,6 +372,12 @@ class _Shard:
         self.pending_notify: deque[tuple[int, str, Obj, tuple[Watch, ...]]] \
             = deque()
         self.notify_mu = sanitizer.new_lock("FakeClient._Shard.notify_mu")
+
+    def sorted_key_view(self) -> list[tuple[str, str, str]]:
+        """Caller holds ``lock``. The returned list must not be mutated."""
+        if self.sorted_keys is None:
+            self.sorted_keys = sorted(self.objects)
+        return self.sorted_keys
 
 
 class FakeClient:
@@ -382,7 +419,9 @@ class FakeClient:
         published dict in place), so the reference stays a faithful
         snapshot until the fan-out in :meth:`_drain_notify` hands it out.
         ``prev`` is the displaced stored object, whose status decides
-        whether the commit advances the status-write generation."""
+        whether the commit advances the status-write generation; it rides
+        the backlog so paginated LISTs can roll late writes back to their
+        snapshot."""
         kind = obj.get("kind", "")
         shard.gens[kind] = shard.gens.get(kind, 0) + 1
         # Status-write generation: advance only when this commit changed
@@ -405,7 +444,7 @@ class FakeClient:
                 and len(shard.backlog) == shard.backlog.maxlen
                 and shard.backlog):
             shard.trim_rv = max(shard.trim_rv, shard.backlog[0][0])
-        shard.backlog.append((rv, etype, obj))
+        shard.backlog.append((rv, etype, obj, prev))
         shard.pending_notify.append((rv, etype, obj, tuple(shard.watches)))
 
     def _drain_notify(self, shard: _Shard) -> None:
@@ -489,6 +528,7 @@ class FakeClient:
             m.setdefault("creationTimestamp", time.time())
             m.setdefault("labels", m.get("labels") or {})
             shard.objects[key] = stored
+            shard.sorted_keys = None  # key set grew
             self._notify(shard, "ADDED", stored)
             ret = _copy_obj(stored)
         self._drain_notify(shard)
@@ -540,6 +580,7 @@ class FakeClient:
         # last finalizer, the update completes the delete.
         if m.get("deletionTimestamp") is not None and not m.get("finalizers"):
             del shard.objects[key]
+            shard.sorted_keys = None  # key set shrank
             self._notify(shard, "DELETED", stored, prev=current)
             return _copy_obj(stored)
         shard.objects[key] = stored
@@ -582,6 +623,7 @@ class FakeClient:
                     self._notify(shard, "MODIFIED", terminating, prev=obj)
             else:
                 del shard.objects[key]
+                shard.sorted_keys = None  # key set shrank
                 # The deletion gets its own fresh resourceVersion (as on a
                 # real apiserver): backlog replay is rv-ordered, so a
                 # DELETED event carrying the object's stale rv would sort
@@ -595,30 +637,103 @@ class FakeClient:
 
     def list(self, kind: str, namespace: Optional[str] = None,
              label_selector: Optional[dict[str, str]] = None) -> list[Obj]:
-        return self.list_with_rv(kind, namespace, label_selector)[0]
+        return self.list_page(kind, namespace, label_selector)["items"]
 
-    def list_with_rv(self, kind: str, namespace: Optional[str] = None,
-                     label_selector: Optional[dict[str, str]] = None,
-                     ) -> tuple[list[Obj], int]:
-        """The (filtered) objects of ``kind`` in key order, copied, and the
-        resourceVersion they were read at: a watch resumed from it misses
-        nothing committed after the list."""
+    def list_page(self, kind: str, namespace: Optional[str] = None,
+                  label_selector: Optional[dict[str, str]] = None,
+                  limit: int = 0, continue_token: str = "") -> dict[str, Any]:
+        """LIST with k8s-style chunking. Returns ``{"items": [...],
+        "metadata": {"resourceVersion": str, "continue": str}}``.
+
+        With ``limit`` > 0 only that many (filtered) items are copied per
+        call; the returned ``continue`` token resumes after the last key.
+        Every page is served from the store AS OF the first page's
+        resourceVersion: writes committed after the snapshot are rolled
+        back via the per-kind backlog, so a crawler never sees a
+        half-old/half-new world. A token whose snapshot has fallen out of
+        the backlog raises :class:`ExpiredError` (410 Gone) — restart the
+        list, exactly as against a real apiserver."""
+        selected, snapshot_rv, next_key = self._list_page_select(
+            kind, namespace, label_selector, limit, continue_token)
+        return {"items": [_copy_obj(o) for o in selected],
+                "metadata": {"resourceVersion": str(snapshot_rv),
+                             "continue": next_key}}
+
+    def list_page_wire(self, kind: str, namespace: Optional[str] = None,
+                       label_selector: Optional[dict[str, str]] = None,
+                       limit: int = 0, continue_token: str = "") -> bytes:
+        """:meth:`list_page`, already encoded: byte-identical to
+        ``json.dumps(self.list_page(...)).encode()``, with no copy of the
+        selected objects (each is encoded outside the shard lock; stored
+        objects are immutable by contract). The HTTP apiserver serves LIST
+        from here."""
+        selected, snapshot_rv, next_key = self._list_page_select(
+            kind, namespace, label_selector, limit, continue_token)
+        return wirecodec.wire_list_page(
+            [wirecodec.encode_obj(o, site="list_item") for o in selected],
+            str(snapshot_rv), next_key)
+
+    def _list_page_select(self, kind: str, namespace: Optional[str],
+                          label_selector: Optional[dict[str, str]],
+                          limit: int, continue_token: str,
+                          ) -> tuple[list[Obj], int, str]:
+        """Shared LIST core: select the page's stored objects (refs, not
+        copies — stored objects are immutable-by-contract, so holding
+        them past the lock is safe) plus snapshot rv and continue token.
+        Callers copy or encode per their serving shape."""
         faultpoints.maybe_fail(FP_FAKE_READ)
         shard = self._shard(kind)
+        after_key: Optional[tuple[str, str, str]] = None
+        snapshot_rv = 0
+        if continue_token:
+            snapshot_rv, after_key = _decode_continue(continue_token)
         with shard.lock:
-            items = [_copy_obj(shard.objects[key])
-                     for key in sorted(shard.objects)
-                     if key[0] == kind
-                     and (namespace is None or key[1] == namespace)
-                     and match_labels(shard.objects[key], label_selector)]
-            return items, self._current_rv_locked(shard)
+            if continue_token:
+                if snapshot_rv < shard.trim_rv:
+                    raise ExpiredError(
+                        f"continue token at resourceVersion {snapshot_rv} "
+                        f"is too old (backlog starts past {shard.trim_rv})")
+                if shard.last_rv <= snapshot_rv:
+                    # Nothing committed since the snapshot — the common
+                    # quiet-crawl case needs no store copy or rollback.
+                    objects = shard.objects
+                else:
+                    objects = _rollback(shard, snapshot_rv)
+            else:
+                objects = shard.objects
+                snapshot_rv = self._current_rv_locked(shard)
+            items: list[Obj] = []
+            next_key = ""
+            last_key: Optional[tuple[str, str, str]] = None
+            # The live store iterates its cached sorted view; only a
+            # rolled-back snapshot (writes landed mid-crawl) pays a sort.
+            keys = (shard.sorted_key_view() if objects is shard.objects
+                    else sorted(objects))
+            start = (bisect.bisect_right(keys, after_key)
+                     if after_key is not None else 0)
+            for key in keys[start:]:
+                if key[0] != kind:
+                    continue
+                obj = objects[key]
+                if namespace is not None and key[1] != namespace:
+                    continue
+                if not match_labels(obj, label_selector):
+                    continue
+                if limit and len(items) >= limit:
+                    # Token records the last INCLUDED key; the next page
+                    # resumes strictly after it (this key is served then).
+                    next_key = _encode_continue(snapshot_rv, last_key)
+                    break
+                items.append(obj)
+                last_key = key
+            return items, snapshot_rv, next_key
 
     def _current_rv_locked(self, shard: _Shard) -> int:
-        """Snapshot rv for a list: the global counter would overstate what
-        this shard has committed only by rvs belonging to OTHER kinds,
-        which never appear in this shard's backlog — so the shard's own
-        last commit is the tightest safe stamp, and the global counter the
-        safe fallback for an empty shard."""
+        """Snapshot rv for a fresh list: the global counter would overstate
+        what this shard has committed only by rvs belonging to OTHER
+        kinds, which never appear in this shard's backlog — so the
+        shard's own last commit is the tightest safe stamp, and the
+        global counter the safe fallback for an empty shard."""
         if shard.last_rv:
             return shard.last_rv
         with self._rv_mu:
@@ -627,7 +742,10 @@ class FakeClient:
     # -- watch --------------------------------------------------------------
 
     def watch(self, kind: str, namespace: Optional[str] = None,
-              resource_version: Optional[int] = None) -> Watch:
+              send_initial: bool = False,
+              resource_version: Optional[int] = None,
+              max_queue: int = DEFAULT_WATCH_QUEUE,
+              bookmark_interval: float = DEFAULT_BOOKMARK_INTERVAL) -> Watch:
         """Subscribe to ``kind`` events.
 
         ``resource_version``: resume point — every backlogged event with a
@@ -636,7 +754,18 @@ class FakeClient:
         with its last-seen rv misses nothing and re-receives nothing. If
         the backlog no longer reaches back that far, raises
         :class:`ExpiredError` and the consumer must relist.
+
+        Mutually exclusive with ``send_initial`` (as on a real
+        apiserver): combining them would deliver each post-resume object
+        twice — its snapshot ADDED at the latest rv AND its replayed
+        events, with the replay arriving rv-backwards after the snapshot.
         """
+        if send_initial and resource_version is not None:
+            raise ValueError(
+                "watch(): send_initial and resource_version are mutually "
+                "exclusive — a resume replays the missed events, a "
+                "snapshot restates the world; mixing them duplicates and "
+                "reorders deliveries")
         shard = self._shard(kind)
         with shard.lock:
             if resource_version is not None and \
@@ -647,10 +776,20 @@ class FakeClient:
                     f"past {shard.trim_rv})")
             w = Watch(kind, namespace,
                       lambda w, s=shard: self._remove_watch(s, w),
-                      current_rv=lambda s=shard: s.delivered_rv)
+                      current_rv=lambda s=shard: s.delivered_rv,
+                      max_queue=max_queue,
+                      bookmark_interval=bookmark_interval)
             shard.watches.append(w)
+            if send_initial:
+                for key in shard.sorted_key_view():
+                    if key[0] != kind:
+                        continue
+                    obj = shard.objects[key]
+                    if w.matches(obj):
+                        w.deliver(WatchEvent("ADDED", obj),
+                                  replay=True)
             if resource_version is not None:
-                for rv, etype, obj in shard.backlog:
+                for rv, etype, obj, _prev in shard.backlog:
                     if rv > resource_version and w.matches(obj):
                         w.deliver(WatchEvent(etype, obj), replay=True)
             return w
@@ -707,6 +846,21 @@ class FakeClient:
             except ConflictError:
                 continue
 
+
+def _encode_continue(snapshot_rv: int, after_key: tuple[str, str, str]) -> str:
+    # Continue tokens ride inside LIST response bodies — encoded via the
+    # blessed codec like every other serve-path byte (DL601).
+    return wirecodec.encode_doc(
+        {"rv": snapshot_rv, "after": list(after_key)}).decode()
+
+
+def _decode_continue(token: str) -> tuple[int, tuple[str, str, str]]:
+    try:
+        doc = json.loads(token)
+        after = doc["after"]
+        return int(doc["rv"]), (str(after[0]), str(after[1]), str(after[2]))
+    except (ValueError, KeyError, IndexError, TypeError):
+        raise ExpiredError(f"malformed continue token: {token!r}") from None
 
 
 # --------------------------------------------------------------------------
@@ -831,11 +985,12 @@ class PartitionedClient:
         self._check()
         return self._inner.list(kind, namespace, label_selector)
 
-    def list_with_rv(self, kind: str, namespace: Optional[str] = None,
-                     label_selector: Optional[dict[str, str]] = None,
-                     ) -> tuple[list[Obj], int]:
+    def list_page(self, kind: str, namespace: Optional[str] = None,
+                  label_selector: Optional[dict[str, str]] = None,
+                  limit: int = 0, continue_token: str = "") -> dict[str, Any]:
         self._check()
-        return self._inner.list_with_rv(kind, namespace, label_selector)
+        return self._inner.list_page(kind, namespace, label_selector,
+                                     limit, continue_token)
 
     def watch(self, *args: Any, **kwargs: Any):
         self._check()
@@ -863,3 +1018,21 @@ class PartitionedClient:
         # un-gated: they are harness/metrics reads, not the node's
         # management-network traffic.
         return getattr(self._inner, name)
+
+
+def _rollback(shard: _Shard, snapshot_rv: int) -> dict[tuple[str, str, str], Obj]:
+    """State of the shard as of ``snapshot_rv``: shallow-copy the store
+    (values are immutable-by-contract, so sharing refs is safe) and undo
+    every backlogged commit newer than the snapshot, newest first. Caller
+    holds ``shard.lock`` and has verified the backlog covers the span."""
+    objects = dict(shard.objects)
+    for rv, etype, obj, prev in reversed(shard.backlog):
+        if rv <= snapshot_rv:
+            break
+        key = obj_key(obj)
+        if etype == "ADDED":
+            objects.pop(key, None)
+        else:  # MODIFIED / DELETED: restore what the commit displaced
+            if prev is not None:
+                objects[key] = prev
+    return objects

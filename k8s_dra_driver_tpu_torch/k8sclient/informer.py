@@ -8,7 +8,7 @@ thread. ``wait_for_cache_sync`` gates controller startup.
 
 resourceVersion tracking (docs/performance.md, "API machinery"): the
 informer remembers the newest resourceVersion it has seen — from the
-initial LIST, every delivered event, and periodic BOOKMARK
+initial paginated LIST, every delivered event, and periodic BOOKMARK
 events the server sends while the stream is idle. When the watch dies it
 first tries to RESUME from that rv (the server replays the missed events
 from its backlog — no relist, no O(cache) diff); only a "resourceVersion
@@ -46,6 +46,11 @@ logger = logging.getLogger(__name__)
 #: a re-established watch that stays alive this long counts as stable —
 #: the next death starts the reconnect backoff over from the base delay.
 RECONNECT_STABLE_AFTER = 5.0
+
+#: page size for the informer's chunked LISTs — each apiserver critical
+#: section copies at most this many objects, not the whole kind.
+LIST_PAGE_LIMIT = 500
+
 
 def default_reconnect_limiter() -> RateLimiter:
     """Jittered expo 50 ms → 5 s: even if every informer in the fleet loses
@@ -196,8 +201,46 @@ class Informer:
         return self.name is None or meta(obj).get("name") == self.name
 
     def _list_all(self) -> tuple[list[Obj], int]:
-        """Full LIST and the resourceVersion it was read at."""
-        return self.client.list_with_rv(self.kind, self.namespace)
+        """Full LIST via resourceVersion-consistent pages: each apiserver
+        critical section copies at most LIST_PAGE_LIMIT objects, and the
+        returned rv is the snapshot every page was served at. A crawl
+        whose continue token expires mid-way (backlog outran it) restarts
+        from scratch — same contract as a real apiserver's 410. Clients
+        without ``list_page`` (test stubs) fall back to one full list."""
+        lister = getattr(self.client, "list_page", None)
+        if lister is None:
+            # rv unknown (-1): stub clients without pagination can never
+            # be resumed against, only relisted.
+            return list(self.client.list(self.kind, self.namespace)), -1
+        while True:
+            items: list[Obj] = []
+            token = ""
+            try:
+                while True:
+                    if self._stop.is_set():
+                        # A churn-heavy server can expire crawl after
+                        # crawl — stop() must still terminate the thread.
+                        return items, -1
+                    page = lister(self.kind, self.namespace,
+                                  limit=LIST_PAGE_LIMIT,
+                                  continue_token=token)
+                    items.extend(page["items"])
+                    token = page["metadata"].get("continue", "")
+                    if not token:
+                        try:
+                            rv = int(page["metadata"].get(
+                                "resourceVersion", 0))
+                        except (TypeError, ValueError):
+                            rv = 0
+                        return items, rv
+            except ExpiredError:
+                logger.info("informer %s: list continue expired; "
+                            "restarting list", self.kind)
+                # Brief pause (stop-aware) so continuous write pressure
+                # cannot pin this thread in a full-speed LIST hot loop.
+                if self._stop.wait(0.05):
+                    return items, -1
+                continue
 
     def start(self) -> "Informer":
         if self._resume_rv is not None and self._resume_rv >= 0:

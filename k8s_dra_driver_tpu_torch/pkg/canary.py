@@ -1,8 +1,8 @@
 """Synthetic end-to-end probing — the user-perspective plane.
 
-The counterpart of the JAX package's ``pkg/canary.py``, GPU-named; its
-feeds into the SLO and usage planes, and the ``/debug/canary`` registry of
-live probers, wait for that plane's port.
+The counterpart of the JAX package's ``pkg/canary.py``, GPU-named, with its
+``/debug/canary`` registry of live probers; its feeds into the SLO and
+usage planes wait for that plane's port.
 
 Nothing inside the driver measures what a *user* experiences: can a
 tenant get a GPU right now, and how long does it take? The reference
@@ -39,6 +39,7 @@ import logging
 import threading
 import time
 import uuid
+import weakref
 from collections import deque
 from typing import Any, Callable, Iterable, Optional
 
@@ -120,6 +121,26 @@ class _ProbeFailure(Exception):
         self.phase = phase
 
 
+#: every live prober in the process, for ``/debug/canary`` (the
+#: informer/workqueue/slo weakref-registry pattern).
+_live_probers: "weakref.WeakSet[CanaryProber]" = weakref.WeakSet()
+
+
+def canary_debug_snapshot() -> list[dict[str, Any]]:
+    """The ``/debug/canary`` payload: per-node probe history, phase
+    latencies, and last failure for every live prober. Empty in
+    processes that never assemble one — the endpoint set stays uniform
+    across binaries."""
+    out = []
+    for prober in list(_live_probers):
+        try:
+            out.append(prober.debug_snapshot())
+        except Exception as e:  # noqa: BLE001 — one broken prober must
+            # not blank the endpoint.
+            out.append({"error": repr(e)})
+    return out
+
+
 class CanaryProber:
     """Continuous synthetic claim-lifecycle probing against every node.
 
@@ -190,6 +211,7 @@ class CanaryProber:
         self._paused = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        _live_probers.add(self)
 
     # -- node set -------------------------------------------------------------
 

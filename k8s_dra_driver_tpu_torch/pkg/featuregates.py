@@ -33,6 +33,9 @@ EMULATION_VERSION: Version = (0, 1)
 # MIG partitions created at prepare time (the reference's DynamicMIG). Not
 # in this package yet: the plugin refuses to start with it enabled.
 DYNAMIC_MIG = "DynamicMIG"
+# Device health monitoring (NVML XID/ECC events and enumeration →
+# DeviceTaints) and the drain controller that closes its loop.
+DEVICE_HEALTH_CHECK = "DeviceHealthCheck"
 # VM passthrough via vfio-pci. Not in this package yet: the plugin refuses
 # to start with it enabled.
 PASSTHROUGH_SUPPORT = "PassthroughSupport"
@@ -59,6 +62,7 @@ class VersionedSpec:
 
 DEFAULT_FEATURE_GATES: dict[str, tuple[VersionedSpec, ...]] = {
     DYNAMIC_MIG: (VersionedSpec((0, 1), False, ALPHA),),
+    DEVICE_HEALTH_CHECK: (VersionedSpec((0, 1), True, BETA),),
     PASSTHROUGH_SUPPORT: (VersionedSpec((0, 1), False, ALPHA),),
     CRASH_ON_NVLINK_FABRIC_ERRORS: (VersionedSpec((0, 1), False, ALPHA),),
     DRA_LIST_TYPE_ATTRIBUTES: (VersionedSpec((0, 1), False, ALPHA),),

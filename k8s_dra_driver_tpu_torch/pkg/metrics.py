@@ -6,7 +6,8 @@ text exposition format, line for line; and the families of the claim path
 (DRA requests, informer, workqueue, allocator, fake-apiserver wire path),
 of the ComputeDomain controller and daemon, and of the self-healing path
 (remediation and node leases), named ``gpu_dra_*`` where
-the JAX package's are ``tpu_dra_*``.
+the JAX package's are ``tpu_dra_*``; and :class:`MetricsServer`, the
+``/metrics`` and ``/debug/<name>`` endpoint every binary serves.
 
 Histogram exemplars take an explicit trace id only; there is no tracer in
 this package yet to supply one from an active span.
@@ -14,9 +15,11 @@ this package yet to supply one from an active span.
 
 from __future__ import annotations
 
+import http.server
+import json
 import threading
 import time
-from typing import Iterable, Optional, Sequence
+from typing import Callable, Iterable, Optional, Sequence
 
 
 def exponential_buckets(start: float, factor: float, count: int) -> list[float]:
@@ -531,3 +534,83 @@ class _TimedRequest:
             time.monotonic() - self.t0,
             exemplar=self.trace_id or None,
             driver=self.driver, operation=self.operation)
+
+
+# -- /metrics HTTP server ---------------------------------------------------
+
+class MetricsServer:
+    """Threaded ``/metrics`` endpoint (prometheus_httpserver.go:52).
+
+    Accepts additional registries so one endpoint can expose a process's
+    whole metric surface — e.g. a plugin's DRAMetrics plus the shared
+    informer reconnect counters — without merging them at registration.
+
+    ``debug``: name → zero-arg callable; each is served as JSON under
+    ``/debug/<name>`` (docs/observability.md, "Debug endpoints") with
+    ``/debug`` itself listing what is available. Callables run on the
+    scrape thread and must be cheap, read-only snapshots; a callable that
+    raises yields a 500 with the error text rather than killing the
+    server thread."""
+
+    def __init__(self, registry: Registry, *extra_registries: Registry,
+                 host: str = "127.0.0.1", port: int = 0,
+                 debug: Optional[dict[str, Callable[[], object]]] = None):
+        regs = (registry, *extra_registries)
+        debug_handlers = dict(debug or {})
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def _send(self, code: int, body: bytes,
+                      content_type: str) -> None:
+                self.send_response(code)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self) -> None:  # noqa: N802 — http.server API
+                path = self.path.split("?", 1)[0].rstrip("/")
+                if path in ("", "/metrics"):
+                    body = "".join(r.expose_text() for r in regs).encode()
+                    self._send(200, body, "text/plain; version=0.0.4")
+                    return
+                if path == "/debug":
+                    body = json.dumps(
+                        {"endpoints": sorted(f"/debug/{k}"
+                                             for k in debug_handlers)}
+                    ).encode()
+                    self._send(200, body, "application/json")
+                    return
+                if path.startswith("/debug/"):
+                    name = path[len("/debug/"):]
+                    fn = debug_handlers.get(name)
+                    if fn is None:
+                        self.send_response(404)
+                        self.end_headers()
+                        return
+                    try:
+                        body = json.dumps(fn(), default=str).encode()
+                    except Exception as e:  # noqa: BLE001 — a broken
+                        # snapshot must not kill the serving thread.
+                        self._send(500, f"debug handler {name} failed: "
+                                        f"{e}".encode(), "text/plain")
+                        return
+                    self._send(200, body, "application/json")
+                    return
+                self.send_response(404)
+                self.end_headers()
+
+            def log_message(self, *args) -> None:
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer((host, port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="metrics", daemon=True)
+
+    def start(self) -> "MetricsServer":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()

@@ -2,9 +2,8 @@
 rejoin, and partition fencing (docs/self-healing.md, "Whole-node repair").
 
 The counterpart of the JAX package's ``pkg/nodelease.py``, GPU-named
-(``gpu.nvidia.com/cordon``); the ``/debug/nodelease`` registry of live
-heartbeats and controllers is not ported (this package serves no debug
-endpoints).
+(``gpu.nvidia.com/cordon``), with its ``/debug/nodelease`` registry of
+live heartbeats and lifecycle controllers.
 
 The per-device pipeline (``kubeletplugin/remediation.py``) assumes a live
 node agent: the health monitor taints, the drain controller tombstones,
@@ -54,8 +53,9 @@ import logging
 import os
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
-from typing import Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 from k8s_dra_driver_tpu_torch.k8sclient.client import (
     AlreadyExistsError,
@@ -111,6 +111,53 @@ WRITE_RETRIES = 25
 
 def node_lease_name(node: str) -> str:
     return f"node-{node}"
+
+
+# -- /debug/nodelease (docs/observability.md, "Debug endpoints") -------------
+#
+# Lease epochs, fence acks, and cordon state are load-bearing incident
+# inputs (pkg/blackbox.py) with no introspection surface of their own —
+# the same weakref live-registry pattern as informers and workqueues.
+
+_live_heartbeats: "weakref.WeakSet[NodeLeaseHeartbeat]" = weakref.WeakSet()
+_live_lifecycles: "weakref.WeakSet[NodeLifecycleController]" = \
+    weakref.WeakSet()
+
+
+def nodelease_debug_snapshot() -> dict[str, Any]:
+    """The ``/debug/nodelease`` payload: this process's heartbeats (node
+    epoch, boot id, renewals, fence/suspect state) and lifecycle
+    controllers (cordoned nodes, bounded cordon/uncordon history)."""
+    heartbeats = []
+    for hb in list(_live_heartbeats):
+        try:
+            heartbeats.append({
+                "node": hb.node_name,
+                "lease": hb.lease_name,
+                "identity": hb.identity,
+                "epoch": hb.epoch,
+                "boot_id": hb.boot_id,
+                "lease_duration_s": hb.lease_duration,
+                "renewals": hb.renewals,
+                "fenced": hb.fenced,
+                "suspect": hb.suspect,
+                "fence_recoveries": hb.fence_recoveries,
+            })
+        except Exception as e:  # noqa: BLE001 — one broken heartbeat
+            # must not blank the endpoint.
+            heartbeats.append({"error": repr(e)})
+    lifecycles = []
+    for lc in list(_live_lifecycles):
+        try:
+            lifecycles.append({
+                "cordoned": lc.cordoned_nodes(),
+                "cordons": [[n, round(t, 3)] for n, t in lc.cordons[-20:]],
+                "uncordons": [[n, round(t, 3)]
+                              for n, t in lc.uncordons[-20:]],
+            })
+        except Exception as e:  # noqa: BLE001 — ditto
+            lifecycles.append({"error": repr(e)})
+    return {"heartbeats": heartbeats, "lifecycle": lifecycles}
 
 
 def next_node_epoch(state_dir: Optional[str],
@@ -241,6 +288,7 @@ class NodeLeaseHeartbeat:
         self._mu = sanitizer.new_lock("NodeLeaseHeartbeat._mu")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        _live_heartbeats.add(self)
 
     # -- introspection (healthcheck gating, claim-loop fence gate) -----------
 
@@ -683,6 +731,7 @@ class NodeLifecycleController:
         self.uncordons: list[tuple[str, float]] = []
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        _live_lifecycles.add(self)
 
     # -- introspection -------------------------------------------------------
 

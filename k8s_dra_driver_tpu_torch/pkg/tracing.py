@@ -80,3 +80,14 @@ def extract(obj: Optional[dict]) -> None:
 
 def annotate_fault(point: str, hit: int, action: str) -> None:
     """Records an injected fault on the active span: none is active."""
+
+
+#: the JAX tracer's default span-store capacity, reported as it reports it.
+DEFAULT_CAPACITY = 8192
+
+
+def debug_snapshot() -> dict[str, Any]:
+    """The ``/debug/traces`` payload, as the JAX tracer serves it while
+    disabled: no span stored, none dropped."""
+    return {"enabled": False, "capacity": DEFAULT_CAPACITY,
+            "stored_spans": 0, "dropped_spans": 0, "traces": 0, "spans": []}

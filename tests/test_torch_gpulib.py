@@ -180,8 +180,7 @@ class TestMaterializedTree:
                "GPU_DRA_DRIVER_ROOT": str(tmp_path / "noroot"),
                dl.ENV_NVML_LIBRARY: ""}
         want = mock.enumerate_gpus()[6]
-        assert [x.backend for x in dl.host_device_libs(env)] == [
-            dl.BACKEND_PROCFS]
+        assert dl.new_device_lib(env).backend == dl.BACKEND_PROCFS
         lib, gpu = dl.locate_gpu(want.uuid.lower(), env)
         assert lib.backend == dl.BACKEND_PROCFS and gpu == want
         with pytest.raises(dl.EnumerationError, match="no backend"):

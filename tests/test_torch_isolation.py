@@ -4,16 +4,19 @@ or gRPC, no Triton or kernel build at import.
 A subprocess blocks ``jax``, ``k8s_dra_driver_tpu``, ``yaml`` and ``grpc``
 in ``sys.modules``, imports every module of the port (the device library,
 the k8s client, the GPU and ComputeDomain kubelet plugins, the
-ComputeDomain daemon and controller, the webhook, the serving harness and
-the self-healing path included; the modules of the last two slices are
-named and must be among them) and
+ComputeDomain daemon and controller, the webhook, the serving harness, the
+self-healing path and the binaries with their HTTP API server included;
+the modules of the last three slices are named and must be among them;
+the ``__main__`` modules, which run their binary when imported, are
+source-scanned only) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
 ``entry(device="cpu")``, one ``flash_attention`` call on CPU tensors, the
 serving smoke (``run_serving_smoke(device="cpu")``: claim → GPU plugin
 → CDI → engine) and the multi-device dry run on two gloo ranks
 (``dryrun_multichip(2, device="cpu")``, its ComputeDomain flow on mock
-nodes included); a source scan finds no such import anywhere in the port
-or the smoke script.
+nodes included); a source scan finds no import of JAX, the JAX package or
+YAML anywhere in the port or the smoke script, and no module-level import
+of Triton or gRPC.
 """
 
 import ast
@@ -25,7 +28,11 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "k8s_dra_driver_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml", "grpc")
+FORBIDDEN = ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml")
+#: Imported only inside the function that needs them, never at import:
+#: Triton (the kernels' launchers), gRPC and protobuf (the health server,
+#: which a machine without them runs without).
+LAZY = ("triton", "grpc", "google")
 
 _CHILD = r"""
 import pkgutil, sys, time
@@ -33,7 +40,8 @@ for name in ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml", "grpc"):
     sys.modules[name] = None          # any import of them now fails
 sys.path.insert(0, sys.argv[1])
 import k8s_dra_driver_tpu_torch as port
-mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")
+        if not m.name.endswith(".__main__")]
 for m in mods:
     __import__(m)
 import chip_smoke  # noqa: F401
@@ -104,6 +112,28 @@ SELFHEAL_MODULES = [
 ]
 
 
+#: Modules of the binaries slice the sweep must reach.
+BINARY_MODULES = [
+    "k8s_dra_driver_tpu_torch.internal.info",
+    "k8s_dra_driver_tpu_torch.internal.common",
+    "k8s_dra_driver_tpu_torch.pkg.process",
+    "k8s_dra_driver_tpu_torch.pkg.logging",
+    "k8s_dra_driver_tpu_torch.pkg.flags",
+    "k8s_dra_driver_tpu_torch.pkg.blackbox",
+    "k8s_dra_driver_tpu_torch.k8sclient.wirecodec",
+    "k8s_dra_driver_tpu_torch.k8sclient.httpapi",
+    "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.main",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin.main",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon.main",
+    "k8s_dra_driver_tpu_torch.plugins.webhook.main",
+]
+
+#: The binaries' ``python -m`` entry files: scanned, never imported.
+MAIN_FILES = [PORT / "plugins" / name / "__main__.py" for name in (
+    "gpu_kubelet_plugin", "compute_domain_kubelet_plugin",
+    "compute_domain_daemon", "webhook")]
+
+
 def _sources():
     """The port's Python sources (not its build outputs) and the smoke."""
     return sorted(p for p in PORT.rglob("*.py")
@@ -119,8 +149,15 @@ def test_port_imports_and_serves_with_jax_blocked():
     n = int(proc.stdout.split("MODULES", 1)[1].split()[0])
     assert n >= 51 + len(CD_MODULES) + 3, proc.stdout
     names = set(proc.stdout.split("NAMES", 1)[1].split()[0].split(","))
-    want = set(CD_MODULES) | set(SELFHEAL_MODULES)
+    want = set(CD_MODULES) | set(SELFHEAL_MODULES) | set(BINARY_MODULES)
     assert want <= names, sorted(want - names)
+    assert not any(n.endswith(".__main__") for n in names)
+
+
+def test_every_main_file_is_scanned():
+    assert set(MAIN_FILES) <= set(_sources())
+    for path in MAIN_FILES:
+        assert "raise SystemExit(main())" in path.read_text()
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -148,5 +185,5 @@ def test_no_module_level_triton_import(path):
         if isinstance(node, (ast.Import, ast.ImportFrom)):
             names = ([a.name for a in node.names]
                      if isinstance(node, ast.Import) else [node.module or ""])
-            assert all(n.split(".")[0] != "triton" for n in names), \
-                f"{path.name}:{node.lineno} imports triton at import time"
+            assert all(n.split(".")[0] not in LAZY for n in names), \
+                f"{path.name}:{node.lineno} imports {names} at import time"

@@ -79,8 +79,6 @@ def _script(mod):
 
 def _list_rv(c, kind, namespace):
     """(items, rv) from either package's client."""
-    if hasattr(c, "list_with_rv"):
-        return c.list_with_rv(kind, namespace)
     page = c.list_page(kind, namespace)
     return page["items"], int(page["metadata"]["resourceVersion"])
 
