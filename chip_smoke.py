@@ -87,7 +87,27 @@ One line per phase:
            function on an admission corpus, and the ComputeDomain plugin
            (channel-0 and daemon published), ``daemon check`` (exit 0) and
            ``daemon run`` (its clique entry published and withdrawn) as
-           processes on the same node
+           processes on the same node. Beside the plugin the ComputeDomain
+           controller's process scrapes its /metrics, probes the node with
+           canaries and meters the claim: the plugin up with a
+           ``gpu_dra_fleet_*`` mirror, the SLOs listed and none firing before
+           the claim, a canary probe ok (its CDI spec naming one of the
+           node's GPUs), probes refused while the claim holds the card
+           counted as such, the claim billed within 5% of its Ready-to-
+           deleted span, exit 0 on SIGTERM, no canary residue
+           (controller_start_ms, first_scrape_ms, canary_ok,
+           canary_refused, usage_gpu_s beside host_span_s, stop_ms)
+   soak    ``run_serving_soak`` on the card with the JAX leg's defaults:
+           two mock ``h100-8`` nodes, node 0 killed at 2 s, two tenant
+           replicas cycling 0.35 s sessions whose engines (one attention
+           layer of Llama-2-7B: 32 heads of 128, a 4096-token cache, 8
+           slots) share the card; the soak's oracle whole (the claim_ready
+           page fired on the loss and cleared after the rejoin, a resolved
+           incident bundle, GPU-seconds conserved, green sessions after the
+           rejoin, the accounting identity, isolation error under 1e-4) and
+           the replicas' decode launches equal to their decode steps; then
+           the decode kernel against its plain version at the engines'
+           shape
 10. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
            the device library that found the card, the controller's live
            loop reconciling a CD of numNodes 1, and one daemon reporting the
@@ -124,7 +144,7 @@ One line per phase:
 
 Kernel times are CUDA-event times of a run of back-to-back calls over the
 count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
-burnin, each of selfheal's two batches, and the processes batch) runs
+burnin, each of selfheal's two batches, the processes batch and the soak) runs
 with every kernel's launch count set to 0 just before it and read just
 after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
@@ -201,11 +221,13 @@ from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
 from k8s_dra_driver_tpu_torch.internal.stresslab import (
     SERVING_SMOKE_ENGINE,
     run_serving_smoke,
+    run_serving_soak,
 )
 from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
 from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
 from k8s_dra_driver_tpu_torch.k8sclient.httpapi import HttpClient
 from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
+from k8s_dra_driver_tpu_torch.kubeletplugin.allocator import AllocationError
 from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import NodePrepareLoop
 from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
     ANN_DRAIN,
@@ -880,9 +902,9 @@ def phase_burnin() -> None:
             f"matmul bench gave {mm['tflops']} TFLOP/s")
 
 
-def _claim_ready(client, name: str) -> bool:
+def _claim_ready(client, name: str, namespace: str = "default") -> bool:
     """Whether the claim's status carries the GPU driver's Ready entry."""
-    c = client.try_get("ResourceClaim", name, "default") or {}
+    c = client.try_get("ResourceClaim", name, namespace) or {}
     return any(d.get("driver") == DRIVER_NAME and any(
         k.get("type") == "Ready" and k.get("status") == "True"
         for k in d.get("conditions") or [])
@@ -969,8 +991,7 @@ def finish_engine(engine) -> dict:
     summary, the counts and its decode steps."""
     summary = engine.drain(timeout=60)
     return {"summary": summary, "counts": launches(),
-            "decode_steps": sum(1 for e in engine.step_log
-                                if e["decode_tokens"])}
+            "decode_steps": engine.decode_steps}
 
 
 def check_served(engine, done: dict, reqs: list, what: str) -> None:
@@ -1432,6 +1453,15 @@ GPU_PLUGIN_MODULE = "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin"
 CD_PLUGIN_MODULE = "k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin"
 CD_DAEMON_MODULE = "k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon"
 WEBHOOK_MODULE = "k8s_dra_driver_tpu_torch.plugins.webhook"
+CONTROLLER_MODULE = "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller"
+#: The served claim's namespace in the processes phase: a tenant of its
+#: own, so the usage meter's bill for it is its namespace's total.
+PROCESSES_TENANT = "serve-tenant"
+#: The SLOs the controller's engine evaluates: the default set plus the
+#: two opt-in objectives its main adds with fleet telemetry on.
+CONTROLLER_SLOS = {"claim_ready_latency", "prepare_errors",
+                   "remediation_recovery", "allocation_admission",
+                   "canary_availability"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: Seconds a process has to exit after SIGTERM before it is killed (and
 #: the phase fails).
@@ -1601,6 +1631,51 @@ def _http_get(url: str) -> bytes:
         return resp.read()
 
 
+class SpecWatch:
+    """Polls a CDI root for claim specs other than ``skip``'s, every
+    2 ms in a thread: the GPUs each one makes visible
+    (``CUDA_VISIBLE_DEVICES``), by claim uid. A canary probe's spec lives
+    from its prepare to its unprepare, tens of milliseconds."""
+
+    def __init__(self, cdi_root: str):
+        self.handler = CDIHandler(cdi_root)
+        self.skip: set = set()
+        self.seen: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="spec-watch")
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.002):
+            try:
+                uids = self.handler.list_claim_uids()
+            except OSError:
+                continue
+            for uid in uids:
+                if uid in self.seen or uid in self.skip:
+                    continue
+                try:
+                    spec = self.handler.read_claim_spec(uid)
+                except (OSError, ValueError):
+                    continue
+                if spec is not None:
+                    self.seen[uid] = visible_device_entries(spec)
+
+    def start(self) -> "SpecWatch":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def _canary_rows(doc: list) -> list:
+    """Every probe in a controller's ``/debug/canary`` history."""
+    return [h for p in doc for st in p["nodes"].values()
+            for h in st["history"]]
+
+
 def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                     width: dict | None = None) -> dict:
     """The port's binaries as OS processes, as a node runs them: the API
@@ -1623,7 +1698,28 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
     check`` exits 0, and ``daemon run`` publishes its clique entry and
     withdraws it on SIGTERM. Every process exits 0 on SIGTERM. The engine
     and its batch are the selfheal phase's (:data:`SELFHEAL_WIDTH`, which
-    ``width`` overrides)."""
+    ``width`` overrides).
+
+    The controller (``python -m ...compute_domain_controller``) runs
+    beside the plugin, scraping its ``/metrics`` every 0.2 s and probing
+    the node with a canary every 0.5 s, the usage meter on
+    (``controller_start_ms``: spawn to its ``running`` line;
+    ``first_scrape_ms``: spawn to the plugin's target up). Before the
+    claim: a canary probe succeeded (its CDI spec, read from the plugin's
+    CDI root, names one of the node's GPUs), ``/debug/slo`` lists the
+    default SLOs with ``allocation_admission`` and ``canary_availability``
+    and none firing, and ``/debug/incidents`` holds no bundle. The claim
+    is allocated right after a probe, retried while a probe holds the
+    card, and held until a probe has run during it: on a node of one GPU
+    such a probe is refused in admission (``canary_refused``), and the
+    ``canary_availability`` SLO may then fire, with its incident bundle —
+    no other SLO may, and no probe may fail otherwise. The controller's
+    ``/metrics`` mirrors the plugin's families as ``gpu_dra_fleet_*``;
+    ``/debug/usage`` bills the claim's tenant within 5% of the claim's
+    Ready-to-deleted span on the host's clock (``usage_gpu_s``,
+    ``host_span_s``); the controller exits 0 on SIGTERM
+    (``controller_stop_ms``) and leaves no canary claim, checkpoint entry or
+    CDI spec."""
     w = {**SELFHEAL_WIDTH, **(width or {})}
     try:
         import grpc  # noqa: F401
@@ -1676,22 +1772,82 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             require(len(published) > 0 and gpu.uuid in published,
                     f"the plugin published {published}, not {gpu.uuid}")
 
-            # A claim for the card over HTTP, prepared by the process.
-            name = "proc-claim"
+            # The controller watching the plugin: fleet telemetry, the
+            # SLO engine, the canary, the usage meter, the recorder.
+            specs = SpecWatch(f"{tmp}/cdi").start()
+            t_ctl = time.monotonic()
+            ctl = procs.spawn(
+                "controller", CONTROLLER_MODULE, "--api-endpoint", endpoint,
+                "--metrics-port", "0", "--fleet-scrape-targets",
+                f"node-0=127.0.0.1:{metrics_port}",
+                "--fleet-scrape-interval", "0.2", "--canary-interval", "0.5",
+                "--incident-dir", f"{tmp}/incidents")
+            procs.wait_log(ctl, r"(compute-domain-controller running)")
+            out["controller_start_ms"] = (time.monotonic() - t_ctl) * 1e3
+            ctl_base = "http://127.0.0.1:" + procs.wait_log(
+                ctl, r"metrics on http://127\.0\.0\.1:(\d+)/metrics")
+
+            def ctl_get(path: str):
+                return json.loads(_http_get(ctl_base + path))
+
+            def plugin_up() -> bool:
+                rows = [t for t in ctl_get("/debug/fleet")["targets"]
+                        if t["name"] == "node-0"]
+                return bool(rows) and not rows[0]["stale"] and \
+                    rows[0]["scrapes"] > rows[0]["failures"]
+
+            procs.wait_until(ctl, plugin_up, "the controller's first scrape "
+                             "of the plugin")
+            out["first_scrape_ms"] = (time.monotonic() - t_ctl) * 1e3
+            procs.wait_until(ctl, lambda: any(
+                h["outcome"] == "ok"
+                for h in _canary_rows(ctl_get("/debug/canary"))),
+                "a canary probe of the node")
+            slo = ctl_get("/debug/slo")
+            incidents = ctl_get("/debug/incidents")
+            names = {x["name"] for e in slo for x in e["slos"]}
+            line("processes", controller_pid=ctl.pid,
+                 controller_start_ms=out["controller_start_ms"],
+                 first_scrape_ms=out["first_scrape_ms"],
+                 slos=json.dumps(sorted(names)),
+                 firing=json.dumps([e["firing"] for e in slo]),
+                 incident_bundles=sum(len(r["bundles"]) for r in incidents))
+            require(len(slo) == 1 and CONTROLLER_SLOS <= names,
+                    f"/debug/slo lists {sorted(names)}")
+            require(slo[0]["firing"] == {}, f"SLOs firing: {slo}")
+            require(len(incidents) == 1 and not incidents[0]["bundles"],
+                    f"/debug/incidents: {incidents}")
+
+            # A claim for the card over HTTP, prepared by the process,
+            # allocated right after a canary probe (the card is free).
+            name, ns = "proc-claim", PROCESSES_TENANT
+            n_probes = len(_canary_rows(ctl_get("/debug/canary")))
+            procs.wait_until(ctl, lambda: len(_canary_rows(
+                ctl_get("/debug/canary"))) > n_probes, "a canary probe")
             t0 = time.monotonic()
+            hold_from = time.time()
             claim = client.create(new_object(
-                "ResourceClaim", name, "default",
+                "ResourceClaim", name, ns,
                 api_version="resource.k8s.io/v1",
                 spec={"devices": {"requests": [{"name": "gpu", "exactly": {
                     "deviceClassName": DRIVER_NAME,
                     "allocationMode": "ExactCount", "count": 1,
                     "selectors": [{"cel": {"expression":
                         f"device.attributes['uuid'] == '{gpu.uuid}'"}}]}}]}}))
-            Allocator(client).allocate(claim, reserved_for=[
-                {"resource": "pods", "name": "proc-pod"}], node="node-0")
+            attempts = 0
+            while True:    # a probe in flight holds the card: retry
+                attempts += 1
+                try:
+                    Allocator(client).allocate(claim, reserved_for=[
+                        {"resource": "pods", "name": "proc-pod"}],
+                        node="node-0")
+                    break
+                except AllocationError as e:
+                    require(attempts < 500, f"allocation refused: {e}")
+                    time.sleep(0.01)
             out["allocate_ms"] = (time.monotonic() - t0) * 1e3
             uid = claim["metadata"]["uid"]
-            procs.wait_until(plugin, lambda: _claim_ready(client, name),
+            procs.wait_until(plugin, lambda: _claim_ready(client, name, ns),
                              "claim Ready over the wire")
             t_ready = time.monotonic()
             out["claim_ready_ms"] = (t_ready - t0) * 1e3
@@ -1718,7 +1874,7 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             out["decode_steps"] = done["decode_steps"]
             line("processes", claim=name, cuda_visible_devices=json.dumps(
                 entries), engine_device=str(engine.device),
-                allocate_ms=out["allocate_ms"],
+                allocate_ms=out["allocate_ms"], allocate_attempts=attempts,
                 claim_ready_ms=out["claim_ready_ms"], bind_ms=out["bind_ms"],
                 ttfb_ms=out["ttfb_ms"],
                 decode_tok_s=out["decode_tok_s"],
@@ -1746,26 +1902,102 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                  debug=json.dumps({k: len(v) for k, v in debug.items()}),
                  lease_heartbeats=json.dumps(heartbeats),
                  profile_samples=samples, health=serving)
-            require(prepares == 1, f"prepare counter {prepares}, not 1")
+            # The canary's probes are prepared by the same plugin.
+            require(prepares >= 1, f"prepare counter {prepares}")
             require(heartbeats == ["node-0"] and debug["informers"]
                     and len(debug["profile"]) == 1,
                     f"debug endpoints: {debug}")
             require(not has_grpc or serving == STATUS_SERVING,
                     f"health check read {serving}")
 
+            # The tenant holds the claim until a canary probe has run
+            # during it, and the meter bills it on the card.
+            live = [r for u in ctl_get("/debug/usage") for r in u["live"]
+                    if r["namespace"] == ns]
+            require([(r["name"], r["gpus"]) for r in live] == [(name, 1)],
+                    f"the usage meter's live claims: {live}")
+            n_probes = len(_canary_rows(ctl_get("/debug/canary")))
+            procs.wait_until(ctl, lambda: len(_canary_rows(
+                ctl_get("/debug/canary"))) > n_probes,
+                "a canary probe during the claim")
+
             # Teardown: unreserve, the process unprepares, delete.
-            c = client.get("ResourceClaim", name, "default")
+            c = client.get("ResourceClaim", name, ns)
             c["status"].pop("reservedFor", None)
             client.update_status(c)
             procs.wait_until(plugin, lambda: not any(
                 d.get("driver") == DRIVER_NAME for d in (client.get(
-                    "ResourceClaim", name, "default").get("status")
+                    "ResourceClaim", name, ns).get("status")
                     or {}).get("devices") or []), "claim unprepared")
-            client.delete("ResourceClaim", name, "default")
-            unprepares = _metric(_http_get(f"{base}/metrics").decode(),
-                                 "gpu_dra_requests_total",
-                                 driver=DRIVER_NAME, operation="unprepare")
-            require(unprepares == 1, f"unprepare counter {unprepares}")
+            client.delete("ResourceClaim", name, ns)
+            host_span_s = time.monotonic() - t_ready
+            hold_to = time.time()
+
+            # The controller's bill, mirror, probes and SLOs; then SIGTERM.
+            procs.wait_until(ctl, lambda: not [
+                r for u in ctl_get("/debug/usage") for r in u["live"]
+                if r["namespace"] == ns], "the meter closing the claim")
+            usage = ctl_get("/debug/usage")
+            usage_gpu_s = sum(u["tenants"].get(ns, 0.0) for u in usage)
+            ctl_metrics = _http_get(ctl_base + "/metrics").decode()
+            mirrored = _metric(ctl_metrics, "gpu_dra_fleet_requests_total",
+                               driver=DRIVER_NAME, operation="prepare")
+            spec_ids = {u: v for u, v in specs.seen.items() if u != uid}
+            rows = _canary_rows(ctl_get("/debug/canary"))
+            ok = [h for h in rows if h["outcome"] == "ok"]
+            refused = [h for h in rows if h["outcome"] == "failed"
+                       and h["phase"] == "admission"
+                       and h["at"] < hold_to
+                       and h["at"] + h["duration_s"] > hold_from]
+            other = [h for h in rows if h["outcome"] != "ok"
+                     and h not in refused]
+            slo = ctl_get("/debug/slo")
+            firing = sorted({k.split("/")[0] for e in slo
+                             for k in e["firing"]})
+            bundles = [b for r in ctl_get("/debug/incidents")
+                       for b in r["bundles"]]
+            out["controller_stop_ms"] = procs.stop(ctl)
+            specs.stop()
+            # Every claim the plugin prepared (the served one and each
+            # probe past admission) it has unprepared.
+            text = _http_get(f"{base}/metrics").decode()
+            prepares, unprepares = (
+                _metric(text, "gpu_dra_requests_total", driver=DRIVER_NAME,
+                        operation=op) for op in ("prepare", "unprepare"))
+            out.update(canary_ok=len(ok), canary_refused=len(refused),
+                       usage_gpu_s=usage_gpu_s, host_span_s=host_span_s)
+            line("processes", usage_gpu_s=usage_gpu_s,
+                 host_span_s=host_span_s,
+                 usage_over_span=usage_gpu_s / host_span_s,
+                 fleet_prepare_requests=mirrored,
+                 canary_ok=len(ok), canary_refused=len(refused),
+                 canary_other=len(other),
+                 canary_specs=json.dumps(sorted(
+                     {e for v in spec_ids.values() for e in v})),
+                 firing=json.dumps(firing),
+                 incident_bundles=json.dumps(
+                     [(b["slo"], b["status"]) for b in bundles]),
+                 controller_stop_ms=out["controller_stop_ms"],
+                 controller_exit=ctl.returncode)
+            require(abs(usage_gpu_s - host_span_s) <= 0.05 * host_span_s,
+                    f"usage bill {usage_gpu_s} GPU-s against a span of "
+                    f"{host_span_s} s")
+            require(mirrored >= 1, "no gpu_dra_fleet_* mirror of the "
+                                   "plugin's request counter")
+            require(ok and not other, f"canary probes: {rows}")
+            require(spec_ids and all(
+                len(v) == 1 and v[0] in published
+                for v in spec_ids.values()),
+                f"canary CDI specs make visible {spec_ids}")
+            # A refused probe is unavailability by the SLO's own definition:
+            # only canary_availability may burn for it.
+            allowed = {"canary_availability"} if refused else set()
+            require(set(firing) <= allowed, f"SLOs firing: {firing}")
+            require({b["slo"] for b in bundles} <= allowed,
+                    f"incident bundles: {bundles}")
+            require(prepares == unprepares >= 1 + len(ok),
+                    f"prepare/unprepare counters {prepares}/{unprepares} "
+                    f"for 1 claim and {len(ok)} probes")
             claims_left = [o["metadata"]["name"]
                            for o in client.list("ResourceClaim")]
             out["stop_ms"] = procs.stop(plugin)
@@ -1773,7 +2005,8 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                 entries_left = sorted(
                     Checkpoint.unmarshal(f.read()).prepared_claims)
             specs_left = sorted(os.listdir(f"{tmp}/cdi"))
-            line("processes", unprepare_requests=unprepares,
+            line("processes", prepare_requests=prepares,
+                 unprepare_requests=unprepares,
                  stop_ms=out["stop_ms"], plugin_exit=plugin.returncode,
                  residue=json.dumps(claims_left + entries_left + specs_left))
             require(not (claims_left or entries_left or specs_left),
@@ -1854,6 +2087,115 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
     require(all(rc == 0 for rc in exits.values()), f"exit codes {exits}")
     require(not left, f"processes left running: {left}")
     return out
+
+
+#: The soak's replica engines: one attention layer of Llama-2-7B (the serve
+#: phase's heads, head dim and cache) in the JAX leg's 8 slots, queue of
+#: 64 and 16-token step budget; no modeled device sleep (the card decodes).
+SOAK_ENGINE = {"max_batch": 8, "heads": HEADS, "head_dim": HEAD_DIM,
+               "kv_cap": KV_CAP, "tokens_per_chip_step": 16,
+               "modeled_chip_tok_s": 1e9, "queue_cap": 64}
+
+
+def soak_check(rng: np.random.Generator, e: dict) -> float:
+    """The decode kernel against its plain version at the soak engines'
+    shape (q [8, 32, 1, 128] against a [8, 32, 4096, 128] cache), random
+    K/V and ragged lengths (1, the full cache, the rest uniform), f32
+    within F32_TOL. Returns the error."""
+    dev = torch.device("cuda", 0)
+    b, h, d, cap = e["max_batch"], e["heads"], e["head_dim"], e["kv_cap"]
+    lens = rng.integers(1, cap + 1, size=b).astype(np.int32)
+    lens[:2] = (1, cap)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        dev) for shape in ((b, h, 1, d), (b, h, cap, d), (b, h, cap, d)))
+    lt = torch.from_numpy(lens).to(dev)
+    out = flash_attention_decode(q, k, v, lt)
+    ref = decode_attention_reference(q, k, v, lt)
+    err = (out - ref).abs().max().item()
+    require(out.shape == ref.shape and bool(torch.isfinite(out).all())
+            and err < F32_TOL, f"soak shape: error {err}")
+    line("soak", kernel="decode_attention", shape=json.dumps([b, h, 1, d]),
+         kv_cap=cap, lengths=json.dumps(lens.tolist()), dtype="f32",
+         max_abs_err=err)
+    return err
+
+
+def phase_soak(card: str, rng: np.random.Generator, device=None,
+               engine: dict | None = None) -> dict:
+    """``run_serving_soak`` with the JAX leg's defaults (8 s, 2 mock
+    ``h100-8`` nodes, node 0 killed at 2.0 s, 1.2 s leases, 2 replicas,
+    0.35 s sessions, 0.6 s deadline, seed 0) and its traffic (bursts of 8
+    requests, 4-token prompts, 4 new tokens), the replicas' engines on the
+    card (every mock GPU's UUID mapped onto it) at :data:`SOAK_ENGINE`'s
+    width (``engine`` overrides it, ``device`` moves it). Its own path:
+    the counts are zeroed before it and read after it. The soak's oracle
+    must hold whole — no error, leak or stuck claim; the ``claim_ready``
+    page fired during the node loss and cleared after the repair; a
+    resolved incident bundle; GPU-seconds conserved across the kill; green
+    sessions after the rejoin; every replica's ``completed + shed +
+    rejected == submitted``; ``kv_isolation_max_err`` under F32_TOL — and
+    the replicas' decode-kernel launches must equal their decode steps
+    (none on a CPU engine). Prints the page's delay after the kill and its
+    clear after the rejoin, the sessions per replica, the replicas'
+    first-batch p50, decode tok/s (decode tokens over the soak's run) and
+    the phase's wall time; then the kernel against its plain version at
+    the engines' shape (``soak_check``), outside the counted run."""
+    e = {**SOAK_ENGINE, **(engine or {})}
+    t0 = time.monotonic()
+    reset_launches()
+    r = run_serving_soak(device=device, serving_engine=e)
+    n = launches()["decode_attention"]
+    wall = time.monotonic() - t0
+    sv = r["serving"]
+    replica_launches = n - sv["warmup_launches"]
+    on_card = sv["device"].startswith("cuda")
+    for rep_name, rep in sorted(sv["per_replica"].items()):
+        line("soak", replica=rep_name, node=rep["node"],
+             sessions=rep["sessions"], ok=rep["ok"], errors=rep["errors"],
+             first_batch_p50_ms=rep["ttfb_p50_s"] * 1e3,
+             decode_tokens=rep["decode_tokens"],
+             decode_steps=rep["decode_steps"], accounted=rep["accounted"])
+    line("soak", card=json.dumps(card), device=sv["device"],
+         engine=json.dumps(e), seconds=r["duration_s"],
+         detection_s=r["node_failure"]["detections_s"].get("node_kill"),
+         page_after_kill_s=sv["detection_delay_s"],
+         rejoin_after_kill_s=sv["rejoin_after_kill_s"],
+         clear_after_rejoin_s=sv["clear_after_rejoin_s"],
+         sessions=sv["sessions"], ok_sessions=sv["ok_sessions"],
+         error_sessions=sv["error_sessions"],
+         first_batch_p50_ms=sv["ttfb_p50_s"] * 1e3,
+         first_batch_p99_ms=sv["ttfb_p99_s"] * 1e3,
+         decode_tok_s=sv["decode_tokens"] / r["duration_s"],
+         bundles=sv["bundles"], conservation=json.dumps(sv["conservation"]),
+         accounting=json.dumps(sv["accounting"]),
+         kv_isolation_max_err=sv["kv_isolation_max_err"],
+         decode_steps=sv["decode_steps"], warmup_launches=sv[
+             "warmup_launches"], kernel_launches=n, wall_s=wall)
+    require(r["error_count"] == 0, f"soak errors: {r['errors']}")
+    require(not r["leaks"] and r["outcomes"]["stuck"] == 0,
+            f"soak leaks {r['leaks']}, outcomes {r['outcomes']}")
+    require(sv["fired_page"] and sv["cleared"]
+            and sv["clear_after_rejoin_s"] is not None,
+            f"claim_ready page fired {sv['fired_page']}, cleared "
+            f"{sv['cleared']} after the rejoin {sv['clear_after_rejoin_s']}")
+    require(sv["pre_kill_pages"] == 0 and sv["fault_free_failures"] == 0,
+            f"pages before the kill {sv['pre_kill_pages']}, failures off "
+            f"the kill path {sv['fault_free_failures']}")
+    require(sv["bundle_captured"], "no resolved claim_ready bundle")
+    require(sv["conservation_ok"], f"usage: {sv['conservation']}")
+    require(sv["green_after_rejoin"], "no green session after the rejoin")
+    require(sv["accounting"]["ok"] and all(
+        rep["accounted"] for rep in sv["per_replica"].values()),
+        f"accounting: {sv['accounting']}")
+    require(sv["kv_isolation_max_err"] < F32_TOL,
+            f"kv_isolation_max_err {sv['kv_isolation_max_err']}")
+    require(sv["decode_steps"] > 0 and replica_launches == (
+        sv["decode_steps"] if on_card else 0),
+        f"{replica_launches} replica launches for {sv['decode_steps']} "
+        "decode steps")
+    max_abs_err = soak_check(rng, e) if on_card else None
+    return {"launches": n, "decode_steps": sv["decode_steps"],
+            "max_abs_err": max_abs_err, "wall_s": wall}
 
 
 def servesmoke_check(rng: np.random.Generator) -> float:
@@ -2271,6 +2613,7 @@ def main(argv=None) -> int:
     phase_burnin()
     phase_selfheal(card, args.seed, found["lib"], found["gpu"])
     processes = phase_processes(card, args.seed, found["gpu"])
+    soak = phase_soak(card, rng)
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -2284,8 +2627,9 @@ def main(argv=None) -> int:
         "name": "decode_attention", "route": "cuda",
         "source": "k8s_dra_driver_tpu_torch/csrc/decode_attention.cu",
         "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:125",
-        "launches": served["launches"] + processes["launches"],
-        "max_abs_err": max_abs_err,
+        "launches": (served["launches"] + processes["launches"]
+                     + soak["launches"]),
+        "max_abs_err": max(max_abs_err, soak["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],

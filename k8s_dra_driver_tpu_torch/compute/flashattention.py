@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -39,6 +40,8 @@ MAX_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 16
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: guards the wrappers' launch counts (a read-modify-write)
+_LAUNCH_COUNT_MU = threading.Lock()
 
 
 def _c_entry(source: str, dtype: torch.dtype, argtypes: list):
@@ -150,7 +153,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b * h, seq, dp, dvp, int(causal), 1.0 / math.sqrt(d), stream)
     _raise_on(err, err_str, "flash_attention")
-    flash_attention.launches += 1
+    with _LAUNCH_COUNT_MU:
+        flash_attention.launches += 1
     return out if dvp == dv else out[..., :dv].contiguous()
 
 
@@ -250,7 +254,8 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_lengths.data_ptr(), out.data_ptr(), b, h, ql, row0,
                      rows, kv_cap, d, dv, 1.0 / math.sqrt(d), stream)
             _raise_on(err, err_str, "decode_attention")
-            flash_attention_decode.launches += 1
+            with _LAUNCH_COUNT_MU:   # engines launch from several threads
+                flash_attention_decode.launches += 1
     return out
 
 

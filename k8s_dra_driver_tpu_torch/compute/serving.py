@@ -300,6 +300,8 @@ class ServingEngine:
         self.prefill_tokens = 0
         self.decode_tokens = 0
         self.steps = 0
+        #: steps that decoded: one decode-attention call each
+        self.decode_steps = 0
         self.kv_isolation_max_err = 0.0
         self.first_batch_t: Optional[float] = None
         self.step_log: deque = deque(maxlen=4096)
@@ -501,6 +503,8 @@ class ServingEngine:
             self.prefill_tokens += pf_tokens
             self.decode_tokens += dc_tokens
             self.steps += 1
+            if decode_slots:
+                self.decode_steps += 1
             self.step_log.append({
                 "step": self.steps,
                 "prefill_tokens": pf_tokens,

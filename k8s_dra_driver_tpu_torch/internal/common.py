@@ -40,33 +40,35 @@ def dump_stacks(path: str = STACK_DUMP_PATH) -> str:
     return text
 
 
-def _no_component() -> list:
-    """The payload of an endpoint whose component this process never
-    assembles: an empty list, as the JAX package serves it there."""
-    return []
-
-
 def standard_debug_handlers() -> dict:
     """The ``/debug/*`` endpoint set every binary's MetricsServer mounts
     (docs/observability.md, "Debug endpoints"): traces (the tracer's
     state; disabled in this package), informers (cache/stream health),
     workqueue (depth + in-processing keys), inflight (per-claim flight
-    locks), slo, nodelease (lease epochs, fence acks, cordon state),
-    incidents, profile (the continuous profiler's folded stacks + lock
-    contention), canary (per-node synthetic-probe history) and usage.
-    The endpoint set is uniform across binaries; those of components a
-    process never assembles serve empty lists. Imported lazily so this
+    locks), slo (objective states, burn rates, transition history),
+    nodelease (lease epochs, fence acks, cordon state), incidents (the
+    flight recorder's bundle index + newest bundle), profile (the
+    continuous profiler's folded stacks + lock contention), canary
+    (per-node synthetic-probe history + last failure), and usage (the
+    per-tenant GPU-seconds ledger + cluster utilization). The last six
+    serve empty lists in processes that never assemble the component —
+    the endpoint set is uniform across binaries. Imported lazily so this
     helper stays importable from any layer."""
     from k8s_dra_driver_tpu_torch.k8sclient.informer import (
         informer_debug_snapshot,
     )
     from k8s_dra_driver_tpu_torch.pkg import tracing
-    from k8s_dra_driver_tpu_torch.pkg.blackbox import profile_debug_snapshot
+    from k8s_dra_driver_tpu_torch.pkg.blackbox import (
+        incidents_debug_snapshot,
+        profile_debug_snapshot,
+    )
     from k8s_dra_driver_tpu_torch.pkg.canary import canary_debug_snapshot
     from k8s_dra_driver_tpu_torch.pkg.inflight import inflight_debug_snapshot
     from k8s_dra_driver_tpu_torch.pkg.nodelease import (
         nodelease_debug_snapshot,
     )
+    from k8s_dra_driver_tpu_torch.pkg.slo import slo_debug_snapshot
+    from k8s_dra_driver_tpu_torch.pkg.usage import usage_debug_snapshot
     from k8s_dra_driver_tpu_torch.pkg.workqueue import (
         workqueue_debug_snapshot,
     )
@@ -76,15 +78,12 @@ def standard_debug_handlers() -> dict:
         "informers": informer_debug_snapshot,
         "workqueue": workqueue_debug_snapshot,
         "inflight": inflight_debug_snapshot,
-        # The SLO engine, the flight recorder's incident bundles and the
-        # usage meter are the observability plane (ROADMAP item 5): no
-        # process of this package assembles them yet.
-        "slo": _no_component,
+        "slo": slo_debug_snapshot,
         "nodelease": nodelease_debug_snapshot,
-        "incidents": _no_component,
+        "incidents": incidents_debug_snapshot,
         "profile": profile_debug_snapshot,
         "canary": canary_debug_snapshot,
-        "usage": _no_component,
+        "usage": usage_debug_snapshot,
     }
 
 

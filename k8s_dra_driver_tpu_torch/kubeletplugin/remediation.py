@@ -73,6 +73,7 @@ from k8s_dra_driver_tpu_torch.pkg.nodelease import (
     cordon_annotation,
     mutate_with_retry,
 )
+from k8s_dra_driver_tpu_torch.pkg.slo import SLO_ALLOCATION_ADMISSION
 
 logger = logging.getLogger(__name__)
 
@@ -94,10 +95,6 @@ FP_DRAIN = faultpoints.register(
 FP_REJOIN = faultpoints.register(
     "remediation.rejoin",
     "a repaired device's rejoin (taint clear + republish) fails")
-
-#: the fleet SLO whose alert arms the defrag planner (the JAX package's
-#: ``pkg.slo.SLO_ALLOCATION_ADMISSION``; the SLO plane is not ported yet).
-SLO_ALLOCATION_ADMISSION = "allocation_admission"
 
 #: API-write retry budget for annotation/status updates (conflicts and
 #: injected transients); each attempt is cheap, the work is idempotent.

@@ -1,8 +1,7 @@
 """Synthetic end-to-end probing — the user-perspective plane.
 
 The counterpart of the JAX package's ``pkg/canary.py``, GPU-named, with its
-``/debug/canary`` registry of live probers; its feeds into the SLO and
-usage planes wait for that plane's port.
+``/debug/canary`` registry of live probers.
 
 Nothing inside the driver measures what a *user* experiences: can a
 tenant get a GPU right now, and how long does it take? The reference
@@ -25,7 +24,9 @@ driver gets this from external probers; here the driver carries it
   continuous leak detector, not just a latency probe.
 - The per-node verdict (:meth:`CanaryProber.node_failing`) feeds the
   node lifecycle controller as a second *corroborating* node-lost input
-  (never sufficient alone).
+  (never sufficient alone), and the probe counters feed the
+  ``canary_availability`` SLO (``pkg/slo.py``) through the fleet recording
+  rules.
 
 The ``canary.probe`` fault point fails one probe round against one node:
 the failure is counted and classified, and can never raise into the
@@ -73,7 +74,9 @@ OUTCOME_LEAKED = "leaked"
 
 class CanaryMetrics:
     """The canary plane's families (docs/observability.md, "Synthetic
-    probing")."""
+    probing"). Controller-registered, fleet-mirrored through the
+    controller's local pseudo-target so dashboards read
+    ``gpu_dra_fleet_canary_*``."""
 
     def __init__(self, registry: Optional[Registry] = None):
         self.registry = registry or Registry()
@@ -88,7 +91,7 @@ class CanaryMetrics:
         self.probes_total = r.register(Counter(
             "gpu_dra_canary_probes_total",
             "Whole canary probes by node and outcome (ok / failed / "
-            "leaked).",
+            "leaked) — the availability SLO's signal.",
             ("node", "outcome")))
         self.phase_seconds = r.register(Histogram(
             "gpu_dra_canary_phase_seconds",

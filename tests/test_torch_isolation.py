@@ -5,8 +5,9 @@ A subprocess blocks ``jax``, ``k8s_dra_driver_tpu``, ``yaml`` and ``grpc``
 in ``sys.modules``, imports every module of the port (the device library,
 the k8s client, the GPU and ComputeDomain kubelet plugins, the
 ComputeDomain daemon and controller, the webhook, the serving harness, the
-self-healing path and the binaries with their HTTP API server included;
-the modules of the last three slices are named and must be among them;
+self-healing path, the binaries with their HTTP API server, and the
+observability plane with the controller's binary and the soak included;
+the modules of the last four slices are named and must be among them;
 the ``__main__`` modules, which run their binary when imported, are
 source-scanned only) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
@@ -128,10 +129,20 @@ BINARY_MODULES = [
     "k8s_dra_driver_tpu_torch.plugins.webhook.main",
 ]
 
+#: Modules of the observability slice (and the controller's binary).
+OBSERVABILITY_MODULES = [
+    "k8s_dra_driver_tpu_torch.pkg.telemetry",
+    "k8s_dra_driver_tpu_torch.pkg.slo",
+    "k8s_dra_driver_tpu_torch.pkg.usage",
+    "k8s_dra_driver_tpu_torch.pkg.blackbox",
+    "k8s_dra_driver_tpu_torch.internal.stresslab",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.main",
+]
+
 #: The binaries' ``python -m`` entry files: scanned, never imported.
 MAIN_FILES = [PORT / "plugins" / name / "__main__.py" for name in (
     "gpu_kubelet_plugin", "compute_domain_kubelet_plugin",
-    "compute_domain_daemon", "webhook")]
+    "compute_domain_daemon", "webhook", "compute_domain_controller")]
 
 
 def _sources():
@@ -149,7 +160,8 @@ def test_port_imports_and_serves_with_jax_blocked():
     n = int(proc.stdout.split("MODULES", 1)[1].split()[0])
     assert n >= 51 + len(CD_MODULES) + 3, proc.stdout
     names = set(proc.stdout.split("NAMES", 1)[1].split()[0].split(","))
-    want = set(CD_MODULES) | set(SELFHEAL_MODULES) | set(BINARY_MODULES)
+    want = (set(CD_MODULES) | set(SELFHEAL_MODULES) | set(BINARY_MODULES)
+            | set(OBSERVABILITY_MODULES))
     assert want <= names, sorted(want - names)
     assert not any(n.endswith(".__main__") for n in names)
 

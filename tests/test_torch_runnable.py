@@ -6,8 +6,9 @@ flags; the log formatters write the same text and JSON lines; each
 package's gRPC health client reads the other package's health server.
 Each ``run_*(args, block=False)`` assembles on ``--mock-profile h100-8``
 against the port's ``ApiServer``, with the scenarios of
-``tests/test_runnable.py::TestPluginAssembly`` (all but the controller's,
-whose main waits for the observability plane); the webhook server answers
+``tests/test_runnable.py::TestPluginAssembly``, the controller's included
+(its ``--shards`` above 0 exits naming the ROADMAP item); the webhook
+server answers
 the admission corpus of ``tests/test_torch_webhook.py`` as the JAX one
 does. Then the port's processes: the API server and the GPU plugin as OS
 processes (the multi-process smoke and the ``-v 1`` / ``-v 0`` logging
@@ -30,6 +31,7 @@ import urllib.request
 import pytest
 
 from k8s_dra_driver_tpu.pkg import logging as jax_logging
+from k8s_dra_driver_tpu.plugins.compute_domain_controller import main as jax_controller_main
 from k8s_dra_driver_tpu.plugins.compute_domain_daemon import main as jax_daemon_main
 from k8s_dra_driver_tpu.plugins.compute_domain_kubelet_plugin import main as jax_cd_main
 from k8s_dra_driver_tpu.plugins.tpu_kubelet_plugin import healthcheck as jax_health
@@ -46,6 +48,7 @@ from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
 from k8s_dra_driver_tpu_torch.pkg import blackbox, flags, process, sanitizer
 from k8s_dra_driver_tpu_torch.pkg import logging as port_logging
 from k8s_dra_driver_tpu_torch.pkg.process import ProcessHandle
+from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller import main as controller_main
 from k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon import main as daemon_main
 from k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin import main as cd_main
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import healthcheck
@@ -57,7 +60,8 @@ MODULES = ["k8s_dra_driver_tpu_torch.k8sclient.httpapi",
            "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin",
            "k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin",
            "k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon",
-           "k8s_dra_driver_tpu_torch.plugins.webhook"]
+           "k8s_dra_driver_tpu_torch.plugins.webhook",
+           "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller"]
 STOP_TIMEOUT = 20
 
 
@@ -154,18 +158,29 @@ FLAG_CASES = {
         ["--port", "0"],
         {"TPU_DRA_WEBHOOK_TLS_CERT": "c", "TPU_DRA_WEBHOOK_TLS_KEY": "k"},
         {"GPU_DRA_WEBHOOK_TLS_CERT": "c", "GPU_DRA_WEBHOOK_TLS_KEY": "k"}),
+    "controller": (
+        jax_controller_main.build_parser, controller_main.build_parser,
+        ["--fleet-scrape-targets", "node-0=h:1,h:2", "--canary-interval",
+         "0.5", "--leader-elect", "--incident-dir", "/i"],
+        {"TPU_DRA_FLEET_SCRAPE_INTERVAL": "0.2", "TPU_DRA_DEFRAG": "off",
+         "TPU_DRA_USAGE_METERING": "false", "TPU_DRA_SHARDS": "0",
+         "TPU_DRA_INCIDENT_RETENTION": "4", "POD_NAMESPACE": "ns"},
+        {"GPU_DRA_FLEET_SCRAPE_INTERVAL": "0.2", "GPU_DRA_DEFRAG": "off",
+         "GPU_DRA_USAGE_METERING": "false", "GPU_DRA_SHARDS": "0",
+         "GPU_DRA_INCIDENT_RETENTION": "4", "POD_NAMESPACE": "ns"}),
 }
 
 #: Defaults that name each package's own driver and paths, and the mock
 #: node index (JAX's TPU worker id 0, the port's unset node 0).
-PACKAGE_DEFAULTS = {"state_dir", "healthcheck_addr", "host_index"}
+PACKAGE_DEFAULTS = {"state_dir", "healthcheck_addr", "host_index",
+                    "incident_dir"}
 
 
 def _resolve(parser_fn, argv, env, monkeypatch):
     for k in list(os.environ):
         if k.startswith(("TPU_DRA_", "GPU_DRA_")) or k in (
                 "NODE_NAME", "CDI_ROOT", "POD_IP", "COMPUTE_DOMAIN_NAME",
-                "TPU_WORKER_ID"):
+                "TPU_WORKER_ID", "POD_NAMESPACE"):
             monkeypatch.delenv(k)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -444,6 +459,112 @@ def test_gpu_plugin_prepares_a_claim_and_gates_health(tmp_path, api):
         handle.stop()
 
 
+def test_controller_run(api):
+    """Controller main shares the run_*(args, block=) contract."""
+    server, _client = api
+    args = controller_main.build_parser().parse_args([
+        "--api-endpoint", server.endpoint, "--metrics-port", "-1"])
+    handle = controller_main.run_controller(args, block=False)
+    try:
+        assert handle.driver is not None
+        assert handle.binary == "compute-domain-controller"
+        assert handle.meter is not None          # usage metering: default on
+        assert handle.telemetry is None          # no scrape targets
+        assert handle.reallocator is not None
+    finally:
+        handle.stop()
+
+
+def test_controller_shards_refused_naming_the_roadmap_item(api):
+    server, _ = api
+    args = controller_main.build_parser().parse_args([
+        "--api-endpoint", server.endpoint, "--shards", "1"])
+    threads = set(threading.enumerate())
+    with pytest.raises(SystemExit, match="ROADMAP item 5b"):
+        controller_main.run_controller(args, block=False)
+    assert set(threading.enumerate()) <= threads   # nothing was started
+
+
+def test_controller_watches_a_plugin(tmp_path, api):
+    """The controller's observability plane over a GPU plugin's /metrics:
+    the plugin scraped as up, a gpu_dra_fleet_* mirror of its families,
+    the default SLOs plus allocation_admission and canary_availability
+    none firing, a canary probe of the node, the served claim metered in
+    GPU-seconds, and no incident; stop() ends every thread."""
+    server, client = api
+    client.create(new_object("DeviceClass", "gpu.nvidia.com", spec={
+        "selectors": [{"cel": {
+            "expression": "device.attributes['type'] == 'gpu'"}}]}))
+    client.create(new_object("Node", "proc-node"))
+    threads = set(threading.enumerate())
+    plugin = plugin_main.run_plugin(_plugin_args(
+        server, tmp_path, "--healthcheck-addr", "", "--metrics-port", "0"),
+        block=False)
+    ctl = None
+    try:
+        port = plugin.servers[0].port
+        ctl = controller_main.run_controller(
+            controller_main.build_parser().parse_args([
+                "--api-endpoint", server.endpoint, "--metrics-port", "0",
+                "--fleet-scrape-targets",
+                f"proc-node=127.0.0.1:{port}",
+                "--fleet-scrape-interval", "0.1",
+                "--canary-interval", "0.2",
+                "--incident-dir", str(tmp_path / "inc")]), block=False)
+        base = f"http://127.0.0.1:{ctl.servers[0].port}"
+
+        def get(path):
+            return json.loads(urllib.request.urlopen(base + path).read())
+
+        def up():
+            fleet = get("/debug/fleet")
+            node = [t for t in fleet["targets"] if t["name"] == "proc-node"]
+            return node and not node[0]["stale"] and \
+                node[0]["scrapes"] > node[0]["failures"]
+        assert _wait(up), get("/debug/fleet")
+        claim = client.create(new_object(
+            "ResourceClaim", "served", "default",
+            api_version="resource.k8s.io/v1",
+            spec={"devices": {"requests": [{"name": "gpu", "exactly": {
+                "deviceClassName": "gpu.nvidia.com",
+                "allocationMode": "ExactCount", "count": 2}}]}}))
+        Allocator(client).allocate(claim, reserved_for=[
+            {"resource": "pods", "name": "p"}], node="proc-node")
+
+        def billed():
+            return any(r.get("gpus") == 2 for u in get("/debug/usage")
+                       for r in u.get("live", []))
+        assert _wait(billed), get("/debug/usage")
+        assert _wait(lambda: any(
+            st["probes"] - st["failures"] >= 1
+            for p in get("/debug/canary")
+            for st in p["nodes"].values())), get("/debug/canary")
+        metrics = urllib.request.urlopen(base + "/metrics").read().decode()
+        assert "gpu_dra_fleet_requests_total" in metrics
+        assert "gpu_dra_fleet_canary_probes_total" in metrics
+        # The process's registries also list earlier tests' live planes:
+        # the controller's are the engine with its SLO set and the
+        # recorder on its incident dir.
+        mine = [e for e in get("/debug/slo")
+                if {x["name"] for x in e["slos"]} == {
+                    "claim_ready_latency", "prepare_errors",
+                    "remediation_recovery", "allocation_admission",
+                    "canary_availability"}]
+        assert mine and all(e["firing"] == {} for e in mine), mine
+        incidents = [r for r in get("/debug/incidents")
+                     if r["dir"] == str(tmp_path / "inc" / "incidents")]
+        assert [r["bundles"] for r in incidents] == [[]]
+    finally:
+        if ctl is not None:
+            ctl.stop()
+        plugin.stop()
+
+    def left():   # the API server's handlers serve this test's client
+        return sorted(t.name for t in set(threading.enumerate()) - threads
+                      if "process_request_thread" not in t.name)
+    assert _wait(lambda: not left(), 10), left()
+
+
 def test_cd_plugin_run(tmp_path, api):
     server, client = api
     client.create(new_object("Node", "proc-node"))
@@ -596,10 +717,27 @@ def test_api_server_admission_gate_through_the_port_webhook():
 def test_debug_handler_set_is_jaxs():
     from k8s_dra_driver_tpu.internal import common as jax_common
 
+    from k8s_dra_driver_tpu_torch.pkg.blackbox import (
+        incidents_debug_snapshot,
+    )
+    from k8s_dra_driver_tpu_torch.pkg.slo import slo_debug_snapshot
+    from k8s_dra_driver_tpu_torch.pkg.usage import usage_debug_snapshot
+
     handlers = common.standard_debug_handlers()
     assert set(handlers) == set(jax_common.standard_debug_handlers())
-    for name in ("slo", "incidents", "usage"):
-        assert handlers[name]() == []
+    assert handlers["slo"] is slo_debug_snapshot
+    assert handlers["incidents"] is incidents_debug_snapshot
+    assert handlers["usage"] is usage_debug_snapshot
+    # A process that assembles none of them serves empty lists (a fresh
+    # one: earlier tests' engines and meters may still be alive here).
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "from k8s_dra_driver_tpu_torch.internal.common import "
+         "standard_debug_handlers as h; d = h(); "
+         "print([d[n]() for n in ('slo', 'incidents', 'usage')])"],
+        capture_output=True, text=True, env=_env(), cwd=REPO, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[[], [], []]"
     assert handlers["traces"]() == {
         "enabled": False, "capacity": 8192, "stored_spans": 0,
         "dropped_spans": 0, "traces": 0, "spans": []}
