@@ -88,15 +88,23 @@ One line per phase:
            (channel-0 and daemon published), ``daemon check`` (exit 0) and
            ``daemon run`` (its clique entry published and withdrawn) as
            processes on the same node. Beside the plugin the ComputeDomain
-           controller's process scrapes its /metrics, probes the node with
-           canaries and meters the claim: the plugin up with a
+           controller runs as two sharded processes (--shards 4, ctl-a and
+           ctl-b) that scrape its /metrics; the four shard Leases split
+           between them, and the holder of shard 0 alone probes the node
+           with canaries and meters the claim: the plugin up with a
            ``gpu_dra_fleet_*`` mirror, the SLOs listed and none firing before
            the claim, a canary probe ok (its CDI spec naming one of the
            node's GPUs), probes refused while the claim holds the card
-           counted as such, the claim billed within 5% of its Ready-to-
-           deleted span, exit 0 on SIGTERM, no canary residue
-           (controller_start_ms, first_scrape_ms, canary_ok,
-           canary_refused, usage_gpu_s beside host_span_s, stop_ms)
+           counted as such; the leader is sent SIGTERM under the claim and
+           the other takes every shard with fresh singletons (handoff_ms),
+           and bills the claim within 5% of its Ready-to-deleted span; exit
+           0 on SIGTERM, no canary residue (controller_start_ms,
+           first_scrape_ms, canary_ok, canary_refused, usage_gpu_s beside
+           host_span_s, stop_ms). The plugin runs with --trace true: the
+           claim's trace (the smoke's root span merged with the process's
+           /debug/traces) passes the audit with node_prepare,
+           checkpoint.transact and cdi.write, its phase breakdown is
+           printed, and the prepare histogram's exemplar names it
    soak    ``run_serving_soak`` on the card with the JAX leg's defaults:
            two mock ``h100-8`` nodes, node 0 killed at 2 s, two tenant
            replicas cycling 0.35 s sessions whose engines (one attention
@@ -237,7 +245,7 @@ from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
     parse_gpu_index,
 )
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
-from k8s_dra_driver_tpu_torch.pkg import bootid, faultpoints
+from k8s_dra_driver_tpu_torch.pkg import bootid, faultpoints, tracing
 from k8s_dra_driver_tpu_torch.pkg.canary import (
     CanaryProber,
     driver_probe_hooks,
@@ -1462,6 +1470,13 @@ PROCESSES_TENANT = "serve-tenant"
 CONTROLLER_SLOS = {"claim_ready_latency", "prepare_errors",
                    "remediation_recovery", "allocation_admission",
                    "canary_availability"}
+#: The controller's replicas in the processes phase, active-active over
+#: this many lease-claimed shards (``--shards``); the replica holding
+#: shard 0 runs the singletons (canary, usage meter, recorder).
+CONTROLLER_IDS = ("ctl-a", "ctl-b")
+CONTROLLER_SHARDS = 4
+#: The spans of the plugin process a claim's trace must hold.
+CLAIM_TRACE_SPANS = {"node_prepare", "checkpoint.transact", "cdi.write"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 #: Seconds a process has to exit after SIGTERM before it is killed (and
 #: the phase fails).
@@ -1569,8 +1584,14 @@ class Processes:
         (-15)."""
         t = time.monotonic()
         proc.terminate()
+        return self.reap(proc, t)
+
+    def reap(self, proc, t: float) -> float:
+        """Wait for a process sent SIGTERM at ``t`` (monotonic): ms from
+        ``t`` until it exited with code 0."""
         try:
-            rc = proc.wait(timeout=STOP_TIMEOUT_S)
+            rc = proc.wait(timeout=max(0.0, t + STOP_TIMEOUT_S
+                                       - time.monotonic()))
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=10)
@@ -1676,6 +1697,57 @@ def _canary_rows(doc: list) -> list:
             for h in st["history"]]
 
 
+def _shard_holders(client) -> list:
+    """The holder of each controller shard's Lease ('' when free)."""
+    return [((client.try_get("Lease", f"controller-shard-{i}", "default")
+              or {}).get("spec") or {}).get("holderIdentity", "")
+            for i in range(CONTROLLER_SHARDS)]
+
+
+def _family_total(text: str, prefix: str) -> float:
+    """The sum of every sample of the families named ``prefix*`` in a
+    Prometheus text exposition (0 when there is none)."""
+    return sum(float(row.split()[-1]) for row in text.splitlines()
+               if row.startswith(prefix))
+
+
+def _claim_trace(base: str, tracer, root) -> tuple:
+    """The claim's whole trace: the spans this process recorded under the
+    root's trace id (the root and the allocation) merged with those the
+    plugin process recorded (read from its ``/debug/traces``), once these
+    include :data:`CLAIM_TRACE_SPANS` and the merged trace passes
+    ``audit_traces`` (a span the process still has open would orphan its
+    ended children for a moment). Returns the merged trace with what the
+    merge took to come out clean: the number of reads of
+    ``/debug/traces``, the ms they spanned, and the audit's problem count
+    on the first read."""
+    local = [s for s in tracer.store.spans()
+             if s["trace_id"] == root.trace_id]
+    t0 = time.monotonic()
+    deadline = t0 + 10.0
+    polls, first_problems = 0, None
+    while True:
+        snap = json.loads(_http_get(base + "/debug/traces"))
+        require(snap["enabled"], "the plugin's tracer is off")
+        spans = sorted([*local, *(
+            s for s in snap["spans"] if s["trace_id"] == root.trace_id)],
+            key=lambda s: (s["start"], s["span_id"]))
+        merged = {root.trace_id: spans}
+        problems = tracing.audit_traces(merged,
+                                        dropped=snap["dropped_spans"])
+        names = {s["name"] for s in spans}
+        polls += 1
+        if first_problems is None:
+            first_problems = len(problems)
+        if CLAIM_TRACE_SPANS <= names and not problems:
+            return (merged, polls, (time.monotonic() - t0) * 1e3,
+                    first_problems)
+        require(time.monotonic() < deadline,
+                f"the claim's trace: spans {sorted(names)}, "
+                f"problems {problems}")
+        time.sleep(0.01)
+
+
 def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                     width: dict | None = None) -> dict:
     """The port's binaries as OS processes, as a node runs them: the API
@@ -1700,26 +1772,43 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
     and its batch are the selfheal phase's (:data:`SELFHEAL_WIDTH`, which
     ``width`` overrides).
 
-    The controller (``python -m ...compute_domain_controller``) runs
-    beside the plugin, scraping its ``/metrics`` every 0.2 s and probing
-    the node with a canary every 0.5 s, the usage meter on
-    (``controller_start_ms``: spawn to its ``running`` line;
-    ``first_scrape_ms``: spawn to the plugin's target up). Before the
-    claim: a canary probe succeeded (its CDI spec, read from the plugin's
-    CDI root, names one of the node's GPUs), ``/debug/slo`` lists the
-    default SLOs with ``allocation_admission`` and ``canary_availability``
-    and none firing, and ``/debug/incidents`` holds no bundle. The claim
-    is allocated right after a probe, retried while a probe holds the
-    card, and held until a probe has run during it: on a node of one GPU
-    such a probe is refused in admission (``canary_refused``), and the
-    ``canary_availability`` SLO may then fire, with its incident bundle —
-    no other SLO may, and no probe may fail otherwise. The controller's
-    ``/metrics`` mirrors the plugin's families as ``gpu_dra_fleet_*``;
-    ``/debug/usage`` bills the claim's tenant within 5% of the claim's
-    Ready-to-deleted span on the host's clock (``usage_gpu_s``,
-    ``host_span_s``); the controller exits 0 on SIGTERM
-    (``controller_stop_ms``) and leaves no canary claim, checkpoint entry or
-    CDI spec."""
+    The plugin runs with ``--trace true``. The claim carries the
+    traceparent of a root span ``claim`` that the smoke starts before it
+    creates the claim and ends ``ok`` at Ready; merged with the spans the
+    plugin process recorded under that trace id (its ``/debug/traces``),
+    the trace must pass ``audit_traces`` and hold ``node_prepare``,
+    ``checkpoint.transact`` and ``cdi.write``; its ``phase_breakdown`` is
+    printed (``watch_delivery``, each span's ms, ``total``), and the
+    plugin's prepare-duration histogram carries an exemplar naming it.
+
+    Two controller processes (``python -m ...compute_domain_controller
+    --shards 4``, identities ``ctl-a`` and ``ctl-b``) run beside the
+    plugin, each scraping its ``/metrics`` every 0.2 s; the four
+    ``controller-shard-*`` Leases must split between them, and the holder
+    of shard 0 (the leader) runs the canary (a probe every 0.5 s), the
+    usage meter and the flight recorder (``controller_start_ms``: spawn to
+    both ``running`` lines; ``first_scrape_ms``: to both scraping the
+    plugin up; ``shards_split_ms``). Before the claim: a canary probe
+    succeeded (its CDI spec, read from the plugin's CDI root, names one of
+    the node's GPUs), each ``/debug/slo`` lists the default SLOs with
+    ``allocation_admission`` and ``canary_availability`` and none firing,
+    and the leader's ``/debug/incidents`` holds no bundle (the follower
+    has no recorder). The claim is allocated right after a probe, retried
+    while a probe holds the card, and held until a probe has run during
+    it: on a node of one GPU such a probe is refused in admission
+    (``canary_refused``), and the ``canary_availability`` SLO may then
+    fire, with its incident bundle — no other SLO may, and no probe may
+    fail otherwise. Only the leader's ``/metrics`` counts canary and usage
+    samples. While the claim is held the leader gets SIGTERM: the
+    follower must hold shard 0 (``handoff_ms``, from the SIGTERM) and then
+    every shard, start fresh usage-meter, canary and recorder incarnations,
+    and hold the claim open again from its usage-since stamp; the leader
+    exits 0. The follower's ``/metrics`` mirrors the plugin's families as
+    ``gpu_dra_fleet_*``; its ``/debug/usage`` bills the claim's tenant
+    within 5% of the claim's Ready-to-deleted span on the host's clock
+    (``usage_gpu_s``, ``host_span_s``); it exits 0 on SIGTERM
+    (``controller_stop_ms``), and no canary claim, checkpoint entry or CDI
+    spec is left."""
     w = {**SELFHEAL_WIDTH, **(width or {})}
     try:
         import grpc  # noqa: F401
@@ -1749,7 +1838,7 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                 "--node-name", "node-0", "--api-endpoint", endpoint,
                 "--state-dir", f"{tmp}/state", "--cdi-root", f"{tmp}/cdi",
                 "--metrics-port", "0", "--healthcheck-addr", health,
-                *device_args)
+                "--trace", "true", *device_args)
             client.create(new_object(
                 "DeviceClass", DRIVER_NAME, spec={"selectors": [{"cel": {
                     "expression": "device.attributes['type'] == 'gpu'"}}]}))
@@ -1772,68 +1861,101 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             require(len(published) > 0 and gpu.uuid in published,
                     f"the plugin published {published}, not {gpu.uuid}")
 
-            # The controller watching the plugin: fleet telemetry, the
-            # SLO engine, the canary, the usage meter, the recorder.
+            # Two sharded controllers watching the plugin: each scrapes it
+            # (fleet telemetry, the SLO engine); the one holding shard 0
+            # runs the canary, the usage meter and the recorder.
             specs = SpecWatch(f"{tmp}/cdi").start()
             t_ctl = time.monotonic()
-            ctl = procs.spawn(
-                "controller", CONTROLLER_MODULE, "--api-endpoint", endpoint,
+            ctls = {ident: procs.spawn(
+                ident, CONTROLLER_MODULE, "--api-endpoint", endpoint,
                 "--metrics-port", "0", "--fleet-scrape-targets",
                 f"node-0=127.0.0.1:{metrics_port}",
                 "--fleet-scrape-interval", "0.2", "--canary-interval", "0.5",
-                "--incident-dir", f"{tmp}/incidents")
-            procs.wait_log(ctl, r"(compute-domain-controller running)")
+                "--incident-dir", f"{tmp}/incidents-{ident}",
+                "--shards", str(CONTROLLER_SHARDS), "--identity", ident)
+                for ident in CONTROLLER_IDS}
+            for ctl in ctls.values():
+                procs.wait_log(ctl, r"(compute-domain-controller running)")
             out["controller_start_ms"] = (time.monotonic() - t_ctl) * 1e3
-            ctl_base = "http://127.0.0.1:" + procs.wait_log(
+            ctl_base = {ident: "http://127.0.0.1:" + procs.wait_log(
                 ctl, r"metrics on http://127\.0\.0\.1:(\d+)/metrics")
+                for ident, ctl in ctls.items()}
 
-            def ctl_get(path: str):
-                return json.loads(_http_get(ctl_base + path))
+            def ctl_get(ident: str, path: str):
+                return json.loads(_http_get(ctl_base[ident] + path))
 
-            def plugin_up() -> bool:
-                rows = [t for t in ctl_get("/debug/fleet")["targets"]
+            def plugin_up(ident: str) -> bool:
+                rows = [t for t in ctl_get(ident, "/debug/fleet")["targets"]
                         if t["name"] == "node-0"]
                 return bool(rows) and not rows[0]["stale"] and \
                     rows[0]["scrapes"] > rows[0]["failures"]
 
-            procs.wait_until(ctl, plugin_up, "the controller's first scrape "
-                             "of the plugin")
+            for ident, ctl in ctls.items():
+                procs.wait_until(ctl, lambda i=ident: plugin_up(i),
+                                 f"{ident}'s first scrape of the plugin")
             out["first_scrape_ms"] = (time.monotonic() - t_ctl) * 1e3
-            procs.wait_until(ctl, lambda: any(
+            # The shards split between the replicas (each syncs every 2 s;
+            # an over-share replica sheds one shard per rebalance window).
+            _wait(lambda: all(procs.alive(c) for c in ctls.values())
+                  and set(_shard_holders(client)) == set(CONTROLLER_IDS),
+                  "the shards split between the controllers")
+            out["shards_split_ms"] = (time.monotonic() - t_ctl) * 1e3
+            split = _shard_holders(client)
+            leader = split[0]
+            follower = next(i for i in CONTROLLER_IDS if i != leader)
+            procs.wait_until(ctls[leader], lambda: any(
                 h["outcome"] == "ok"
-                for h in _canary_rows(ctl_get("/debug/canary"))),
+                for h in _canary_rows(ctl_get(leader, "/debug/canary"))),
                 "a canary probe of the node")
-            slo = ctl_get("/debug/slo")
-            incidents = ctl_get("/debug/incidents")
-            names = {x["name"] for e in slo for x in e["slos"]}
-            line("processes", controller_pid=ctl.pid,
+            slo = {i: ctl_get(i, "/debug/slo") for i in CONTROLLER_IDS}
+            incidents = {i: ctl_get(i, "/debug/incidents")
+                         for i in CONTROLLER_IDS}
+            names = {i: {x["name"] for e in slo[i] for x in e["slos"]}
+                     for i in CONTROLLER_IDS}
+            line("processes", controllers=json.dumps(
+                {i: c.pid for i, c in ctls.items()}),
                  controller_start_ms=out["controller_start_ms"],
                  first_scrape_ms=out["first_scrape_ms"],
-                 slos=json.dumps(sorted(names)),
-                 firing=json.dumps([e["firing"] for e in slo]),
-                 incident_bundles=sum(len(r["bundles"]) for r in incidents))
-            require(len(slo) == 1 and CONTROLLER_SLOS <= names,
-                    f"/debug/slo lists {sorted(names)}")
-            require(slo[0]["firing"] == {}, f"SLOs firing: {slo}")
-            require(len(incidents) == 1 and not incidents[0]["bundles"],
+                 shards_split_ms=out["shards_split_ms"],
+                 shard_holders=json.dumps(split), leader=leader,
+                 slos=json.dumps(sorted(names[leader])),
+                 firing=json.dumps([e["firing"] for i in CONTROLLER_IDS
+                                    for e in slo[i]]),
+                 incident_bundles=sum(len(r["bundles"]) for i in
+                                      CONTROLLER_IDS for r in incidents[i]))
+            for i in CONTROLLER_IDS:
+                require(len(slo[i]) == 1 and CONTROLLER_SLOS <= names[i],
+                        f"{i}'s /debug/slo lists {sorted(names[i])}")
+                require(slo[i][0]["firing"] == {}, f"SLOs firing: {slo}")
+            # The recorder is the leader's alone.
+            require(len(incidents[leader]) == 1
+                    and not incidents[leader][0]["bundles"]
+                    and incidents[follower] == [],
                     f"/debug/incidents: {incidents}")
 
             # A claim for the card over HTTP, prepared by the process,
-            # allocated right after a canary probe (the card is free).
+            # allocated right after a canary probe (the card is free), and
+            # traced: the smoke's root span, stamped on the claim, is the
+            # parent of this process's allocation span and of the plugin
+            # process's spans.
             name, ns = "proc-claim", PROCESSES_TENANT
-            n_probes = len(_canary_rows(ctl_get("/debug/canary")))
-            procs.wait_until(ctl, lambda: len(_canary_rows(
-                ctl_get("/debug/canary"))) > n_probes, "a canary probe")
+            n_probes = len(_canary_rows(ctl_get(leader, "/debug/canary")))
+            procs.wait_until(ctls[leader], lambda: len(_canary_rows(
+                ctl_get(leader, "/debug/canary"))) > n_probes,
+                "a canary probe")
+            tracer = tracing.default_tracer().enable()
             t0 = time.monotonic()
             hold_from = time.time()
-            claim = client.create(new_object(
+            root = tracer.start_span("claim", new_root=True, activate=False,
+                                     attributes={"claim": name})
+            claim = client.create(tracer.inject(root, new_object(
                 "ResourceClaim", name, ns,
                 api_version="resource.k8s.io/v1",
                 spec={"devices": {"requests": [{"name": "gpu", "exactly": {
                     "deviceClassName": DRIVER_NAME,
                     "allocationMode": "ExactCount", "count": 1,
                     "selectors": [{"cel": {"expression":
-                        f"device.attributes['uuid'] == '{gpu.uuid}'"}}]}}]}}))
+                        f"device.attributes['uuid'] == '{gpu.uuid}'"}}]}}]}})))
             attempts = 0
             while True:    # a probe in flight holds the card: retry
                 attempts += 1
@@ -1850,7 +1972,33 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             procs.wait_until(plugin, lambda: _claim_ready(client, name, ns),
                              "claim Ready over the wire")
             t_ready = time.monotonic()
+            root.set_status("ok")
+            root.end()
             out["claim_ready_ms"] = (t_ready - t0) * 1e3
+            trace, trace_polls, trace_wait_ms, first_problems = \
+                _claim_trace(base, tracer, root)
+            spans = trace[root.trace_id]
+            breakdown = tracing.phase_breakdown(trace)
+            out["breakdown"] = {k: v["p50_ms"] for k, v in breakdown.items()}
+            exemplar = re.search(
+                r"# EXEMPLAR gpu_dra_request_duration_seconds_bucket\{"
+                r'[^}]*operation="prepare"[^}]*\} trace_id=(\w+) ',
+                _http_get(f"{base}/metrics").decode())
+            line("processes", trace_id=root.trace_id, trace_spans=len(spans),
+                 trace_polls=trace_polls, trace_wait_ms=trace_wait_ms,
+                 first_read_problems=first_problems,
+                 span_names=json.dumps(sorted(
+                     {s["name"] for s in spans})),
+                 prepare_exemplar=exemplar.group(1) if exemplar else None)
+            line("processes", breakdown_ms=json.dumps(
+                {k: {"ms": v["p50_ms"], "count": v["count"]}
+                 for k, v in breakdown.items()}))
+            require({"watch_delivery", "total"} <= set(breakdown),
+                    f"the claim's breakdown: {sorted(breakdown)}")
+            require(exemplar is not None
+                    and exemplar.group(1) == root.trace_id,
+                    "the prepare histogram's exemplar names "
+                    f"{exemplar and exemplar.group(1)}, not {root.trace_id}")
             spec = CDIHandler(f"{tmp}/cdi").read_claim_spec(uid)
             require(spec is not None, "no CDI spec from the plugin process")
             entries = visible_device_entries(spec)
@@ -1911,15 +2059,58 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                     f"health check read {serving}")
 
             # The tenant holds the claim until a canary probe has run
-            # during it, and the meter bills it on the card.
-            live = [r for u in ctl_get("/debug/usage") for r in u["live"]
-                    if r["namespace"] == ns]
+            # during it, and the meter bills it on the card. Only the
+            # leader counts canary and usage samples.
+            live = [r for u in ctl_get(leader, "/debug/usage")
+                    for r in u["live"] if r["namespace"] == ns]
             require([(r["name"], r["gpus"]) for r in live] == [(name, 1)],
                     f"the usage meter's live claims: {live}")
-            n_probes = len(_canary_rows(ctl_get("/debug/canary")))
-            procs.wait_until(ctl, lambda: len(_canary_rows(
-                ctl_get("/debug/canary"))) > n_probes,
+            n_probes = len(_canary_rows(ctl_get(leader, "/debug/canary")))
+            procs.wait_until(ctls[leader], lambda: len(_canary_rows(
+                ctl_get(leader, "/debug/canary"))) > n_probes,
                 "a canary probe during the claim")
+            counted = {}
+            for i in CONTROLLER_IDS:
+                t = _http_get(ctl_base[i] + "/metrics").decode()
+                counted[i] = (_family_total(t, "gpu_dra_canary_"),
+                              _family_total(t, "gpu_dra_usage_"))
+            line("processes", canary_usage_samples=json.dumps(counted))
+            require(min(counted[leader]) > 0
+                    and counted[follower] == (0.0, 0.0),
+                    f"canary and usage samples by replica: {counted}")
+
+            # SIGTERM the leader while the claim is held: it releases its
+            # shards, and the follower takes all of them and starts fresh
+            # singletons, whose meter rebuilds the claim's open interval
+            # from its usage-since stamp.
+            rows = _canary_rows(ctl_get(leader, "/debug/canary"))
+            slo_seen = [ctl_get(leader, "/debug/slo")]
+            bundles = [b for r in ctl_get(leader, "/debug/incidents")
+                       for b in r["bundles"]]
+            t_term = time.monotonic()
+            ctls[leader].terminate()
+            successor = ctls[follower]
+            procs.wait_until(successor, lambda: _shard_holders(client)[0]
+                             == follower, "the follower holding shard 0")
+            out["handoff_ms"] = (time.monotonic() - t_term) * 1e3
+            procs.wait_until(successor, lambda: _shard_holders(client)
+                             == [follower] * CONTROLLER_SHARDS,
+                             "the follower holding every shard")
+            out["all_shards_ms"] = (time.monotonic() - t_term) * 1e3
+            out["leader_stop_ms"] = procs.reap(ctls[leader], t_term)
+            for single in ("usage-meter", "canary-prober", "flight-recorder"):
+                procs.wait_log(successor, rf"started singleton ({single}) "
+                               r"\(incarnation 1\)")
+            procs.wait_until(successor, lambda: [
+                (r["name"], r["gpus"])
+                for u in ctl_get(follower, "/debug/usage")
+                for r in u["live"] if r["namespace"] == ns] == [(name, 1)],
+                "the successor's meter holding the claim open")
+            line("processes", handoff_ms=out["handoff_ms"],
+                 all_shards_ms=out["all_shards_ms"],
+                 leader_stop_ms=out["leader_stop_ms"],
+                 leader_exit=ctls[leader].returncode,
+                 shard_holders=json.dumps(_shard_holders(client)))
 
             # Teardown: unreserve, the process unprepares, delete.
             c = client.get("ResourceClaim", name, ns)
@@ -1933,17 +2124,18 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             host_span_s = time.monotonic() - t_ready
             hold_to = time.time()
 
-            # The controller's bill, mirror, probes and SLOs; then SIGTERM.
-            procs.wait_until(ctl, lambda: not [
-                r for u in ctl_get("/debug/usage") for r in u["live"]
-                if r["namespace"] == ns], "the meter closing the claim")
-            usage = ctl_get("/debug/usage")
+            # The successor's bill, mirror, probes and SLOs; then SIGTERM.
+            procs.wait_until(successor, lambda: not [
+                r for u in ctl_get(follower, "/debug/usage")
+                for r in u["live"] if r["namespace"] == ns],
+                "the meter closing the claim")
+            usage = ctl_get(follower, "/debug/usage")
             usage_gpu_s = sum(u["tenants"].get(ns, 0.0) for u in usage)
-            ctl_metrics = _http_get(ctl_base + "/metrics").decode()
+            ctl_metrics = _http_get(ctl_base[follower] + "/metrics").decode()
             mirrored = _metric(ctl_metrics, "gpu_dra_fleet_requests_total",
                                driver=DRIVER_NAME, operation="prepare")
             spec_ids = {u: v for u, v in specs.seen.items() if u != uid}
-            rows = _canary_rows(ctl_get("/debug/canary"))
+            rows += _canary_rows(ctl_get(follower, "/debug/canary"))
             ok = [h for h in rows if h["outcome"] == "ok"]
             refused = [h for h in rows if h["outcome"] == "failed"
                        and h["phase"] == "admission"
@@ -1951,12 +2143,12 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                        and h["at"] + h["duration_s"] > hold_from]
             other = [h for h in rows if h["outcome"] != "ok"
                      and h not in refused]
-            slo = ctl_get("/debug/slo")
-            firing = sorted({k.split("/")[0] for e in slo
-                             for k in e["firing"]})
-            bundles = [b for r in ctl_get("/debug/incidents")
-                       for b in r["bundles"]]
-            out["controller_stop_ms"] = procs.stop(ctl)
+            slo_seen.append(ctl_get(follower, "/debug/slo"))
+            firing = sorted({k.split("/")[0] for sl in slo_seen
+                             for e in sl for k in e["firing"]})
+            bundles += [b for r in ctl_get(follower, "/debug/incidents")
+                        for b in r["bundles"]]
+            out["controller_stop_ms"] = procs.stop(successor)
             specs.stop()
             # Every claim the plugin prepared (the served one and each
             # probe past admission) it has unprepared.
@@ -1978,7 +2170,8 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                  incident_bundles=json.dumps(
                      [(b["slo"], b["status"]) for b in bundles]),
                  controller_stop_ms=out["controller_stop_ms"],
-                 controller_exit=ctl.returncode)
+                 controller_exits=json.dumps(
+                     {i: c.returncode for i, c in ctls.items()}))
             require(abs(usage_gpu_s - host_span_s) <= 0.05 * host_span_s,
                     f"usage bill {usage_gpu_s} GPU-s against a span of "
                     f"{host_span_s} s")
@@ -2079,6 +2272,7 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             require(withdrawn, "the daemon left its clique entry")
             out["api_stop_ms"] = procs.stop(api)
         finally:
+            tracing.disable()
             procs.close()
         exits = {p.name: p.returncode for p in procs.procs}
     left = child_processes()

@@ -43,12 +43,12 @@ def dump_stacks(path: str = STACK_DUMP_PATH) -> str:
 def standard_debug_handlers() -> dict:
     """The ``/debug/*`` endpoint set every binary's MetricsServer mounts
     (docs/observability.md, "Debug endpoints"): traces (the tracer's
-    state; disabled in this package), informers (cache/stream health),
-    workqueue (depth + in-processing keys), inflight (per-claim flight
-    locks), slo (objective states, burn rates, transition history),
-    nodelease (lease epochs, fence acks, cordon state), incidents (the
-    flight recorder's bundle index + newest bundle), profile (the
-    continuous profiler's folded stacks + lock contention), canary
+    ring buffer), informers (cache/stream health), workqueue (depth +
+    in-processing keys), inflight (per-claim flight locks), slo
+    (objective states, burn rates, transition history), nodelease (lease
+    epochs, fence acks, cordon state), incidents (the flight recorder's
+    bundle index + newest bundle), profile (the continuous profiler's
+    folded stacks + lock contention), canary
     (per-node synthetic-probe history + last failure), and usage (the
     per-tenant GPU-seconds ledger + cluster utilization). The last six
     serve empty lists in processes that never assemble the component —

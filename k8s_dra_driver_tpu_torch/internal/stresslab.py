@@ -16,6 +16,12 @@ smoke and the self-healing soak need:
   through a node kill) and :func:`run_serving_soak` (tenant replicas
   decoding through a node kill while the ``claim_ready`` burn-rate SLO
   pages and the flight recorder captures the incident).
+- :func:`run_controller_shard_scale` and :func:`run_shard_smoke`, the
+  controller-sharding legs: one replica against N shard-gated replicas
+  on one workload, then replica-kill failover with the usage meter's
+  exact conservation across incarnations, a partitioned replica's
+  handoff audited by the epoch-stamped op ledger, and rebalance
+  hysteresis.
 
 The serving paths run on the card unless the caller asks for the CPU
 (``device="cpu"``), where the engine uses the decode kernel's plain
@@ -2479,3 +2485,532 @@ def run_soak(
                          "fault_errors": len(fault_errors),
                          "fired_by_point": fired}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Controller sharding: scale, failover, partition, hysteresis
+# ---------------------------------------------------------------------------
+
+def _trimmed_mean(xs: list[float], lo: float = 0.1, hi: float = 0.9) -> float:
+    """Mean of the middle (lo, hi) quantile band: a median of one arm's
+    few rounds can flip on a hair's-width shift; the trimmed mean moves
+    smoothly and still ignores the tails."""
+    if not xs:
+        return 0.0
+    xs = sorted(xs)
+    n = len(xs)
+    cut = xs[int(lo * n):max(int(lo * n) + 1, int(hi * n))]
+    return sum(cut) / len(cut)
+
+
+def _settle_shard_fleet(replicas: list, advance, rounds: int = 200,
+                        per_replica: "Optional[int]" = None) -> bool:
+    """Round-robin ``sync_once`` (with clock advances between rounds)
+    until the fleet's owned sets partition the whole keyspace with each
+    replica at its fair share (``per_replica`` when given). Returns
+    whether it settled within ``rounds``."""
+    shards = replicas[0].shard_map.shards
+    want = (per_replica if per_replica is not None
+            else -(-shards // len(replicas)))
+    for _ in range(rounds):
+        owned = []
+        for r in replicas:
+            owned.append(r.sync_once())
+        flat = [s for o in owned for s in o]
+        if (len(flat) == shards and len(set(flat)) == shards
+                and all(len(o) <= want for o in owned)):
+            return True
+        advance()
+    return False
+
+
+def run_controller_shard_scale(
+    n_domains: int = 1000,
+    n_replicas: int = 4,
+    rounds: int = 4,
+    workers: int = 2,
+    reconcile_latency_s: float = 0.008,
+    ready_timeout_s: float = 120.0,
+) -> dict:
+    """Headline bench for active-active controller sharding
+    (docs/architecture.md, "Controller sharding"): the same control
+    plane measured as ONE replica and as ``n_replicas`` shard-gated
+    replicas, same run, interleaved arms — plus the protocol legs the
+    scaling claim rests on (replica-kill failover, partitioned-replica
+    handoff, rebalance hysteresis, leader-pinned usage-meter
+    conservation), every admitted op recorded in one shared
+    epoch-stamped :class:`~k8s_dra_driver_tpu_torch.pkg.shardmap.ShardOpLedger`
+    whose audit IS the zero-double-reconcile claim.
+
+    **Throughput arms.** ``n_domains`` ComputeDomains (numNodes=1, one
+    fake node each) are converged in per-round batches, alternating
+    1-replica and N-replica arms with the order flipped each round so
+    machine drift lands on both symmetrically; per-round throughputs
+    pool into per-arm trimmed means. ``reconcile_latency_s`` holds each
+    ADMITTED reconcile open via the ``cd.controller.reconcile`` fault
+    point (the API-round-trip stand-in); gated skips stay cheap, which is exactly the claim under test:
+    replicas scale because they drop each other's work at the gate, not
+    re-do it. Shard ownership for these arms is pre-settled through the
+    REAL lease protocol (membership census + acquisition), with long
+    leases so the arms measure reconcile scaling, not lease churn.
+
+    **Failover leg** (fake clock): two replicas at fair share, one
+    killed dead (stops syncing AND its leader-pinned singletons stop,
+    leases left to expire — a page-out, not a graceful leave). The
+    survivor must own every orphaned shard within ONE lease duration of
+    the victim's last renewal, and the leader-shard singletons must
+    fail over: the usage meter's next incarnation rebuilds from the
+    durable ``usage-since`` stamps and closes the victim-opened
+    interval EXACTLY (bit-equal GPU-seconds, endpoint arithmetic).
+
+    **Partition leg** (fake clock): one replica partitioned mid-flight;
+    its gate keeps admitting only while lease confidence lasts (renew
+    deadline), the survivor claims within one lease duration, and the
+    shared ledger must show zero double-reconcile and zero epoch
+    regressions across the handoff.
+
+    **Hysteresis leg** (fake clock): a fresh replica joins a loaded
+    one; voluntary handoffs are counted per rebalance window and must
+    never exceed ``rebalance_max_handoffs`` — the excess shows up as
+    counted deferrals, never a storm, and the fleet still converges to
+    fair share.
+    """
+    from k8s_dra_driver_tpu_torch.api.computedomain import (
+        STATUS_READY,
+        new_clique,
+        new_compute_domain,
+    )
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+    from k8s_dra_driver_tpu_torch.k8sclient.client import (
+        PartitionGate,
+        PartitionedClient,
+    )
+    from k8s_dra_driver_tpu_torch.pkg import faultpoints
+    from k8s_dra_driver_tpu_torch.pkg.shardmap import ShardOpLedger, shard_for
+    from k8s_dra_driver_tpu_torch.pkg.usage import ANN_USAGE_SINCE, UsageMeter
+    from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.controller import (
+        ComputeDomainController,
+    )
+    from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.sharding import (
+        LEADER_SHARD,
+        ShardedController,
+        SingletonHandle,
+    )
+
+    shards = n_replicas
+    per_round = max(1, n_domains // rounds)
+
+    # -- throughput arms -----------------------------------------------------
+
+    plan = faultpoints.FaultPlan("", seed=0)
+    if reconcile_latency_s > 0:
+        plan.add("cd.controller.reconcile", f"latency:{reconcile_latency_s}")
+
+    def _mk_arm(arm_replicas: int) -> dict:
+        client = FakeClient()
+        ledger = ShardOpLedger()
+        sharded, controllers = [], []
+        for i in range(arm_replicas):
+            s = ShardedController(
+                client, f"replica-{arm_replicas}r-{i}", shards,
+                lease_prefix=f"bench-{arm_replicas}r",
+                # Static ownership: the arms measure reconcile scaling.
+                lease_duration=3600.0, renew_deadline=2400.0,
+                ledger=ledger)
+            c = ComputeDomainController(client, workers=workers,
+                                        shard_gate=s.gate)
+            # The orphan sweep is kicked per reconcile and LISTs the
+            # whole store; its cost belongs to the apiserver, not this
+            # in-process GIL — unthrottled it grows with every batch and
+            # buries the signal the arms exist to measure.
+            c.cleanup.interval = 3600.0
+            c.cleanup.min_gap = 3600.0
+            sharded.append(s)
+            controllers.append(c)
+        # Register every replica's membership before anyone acquires, so
+        # the census is complete and the fair share is right from round
+        # one (a real fleet converges there through rebalancing; the
+        # bench wants the steady state, not the join transient).
+        for s in sharded:
+            s.shard_map._renew_membership()
+        settled = _settle_shard_fleet(sharded, advance=lambda: None,
+                                      rounds=50)
+        for c in controllers:
+            c.start()
+        return {"client": client, "ledger": ledger, "sharded": sharded,
+                "controllers": controllers, "settled": settled,
+                "throughputs": [], "created": []}
+
+    arms = {1: _mk_arm(1), n_replicas: _mk_arm(n_replicas)}
+    stuck: list[str] = []
+    prev_plan = faultpoints.active_plan()
+    faultpoints.activate(plan)
+    try:
+        def _drive_batch(arm: dict, tag: str) -> None:
+            client = arm["client"]
+            # One namespace per batch: list-scoped work stays O(batch)
+            # instead of growing with every prior round's leftovers, so
+            # each round measures the same workload.
+            ns = f"bench-{tag}"
+            names = []
+            t0 = time.monotonic()
+            for i in range(per_round):
+                cd = client.create(new_compute_domain(
+                    f"cd-{tag}-{i}", ns, num_nodes=1))
+                names.append(cd["metadata"]["name"])
+                clique = new_clique(cd["metadata"]["uid"], "slice0", ns,
+                                    owner_cd_name=cd["metadata"]["name"])
+                clique["daemons"] = [{"nodeName": f"node-{tag}-{i}",
+                                      "index": 0, "status": STATUS_READY}]
+                client.create(clique)
+            deadline = t0 + ready_timeout_s
+
+            pending = set(names)
+            while time.monotonic() < deadline:
+                for n in list(pending):
+                    cd = client.get("ComputeDomain", n, ns)
+                    if (cd.get("status") or {}).get("status") == STATUS_READY:
+                        pending.discard(n)
+                if not pending:
+                    break
+                # Coarse poll: the convergence signal must not compete
+                # with the workers for the interpreter.
+                time.sleep(0.05)
+            else:
+                stuck.append(tag)
+            arm["throughputs"].append(per_round / (time.monotonic() - t0))
+            arm["created"].extend((ns, n) for n in names)
+            # Drain barrier, OUTSIDE the measured window: the final
+            # status updates re-enqueue their CDs, and each of those
+            # trailing reconciles holds a worker for the fault latency.
+            # Without the drain the next batch of this arm starts
+            # against busy workers and measures leftover work, not the
+            # workload (the 1-vs-N comparison then skews by arm order).
+            drain_deadline = time.monotonic() + ready_timeout_s
+            while time.monotonic() < drain_deadline:
+                if all(len(c.queue) == 0 for c in arm["controllers"]):
+                    break
+                time.sleep(0.02)
+            time.sleep(2 * reconcile_latency_s + 0.02)  # last in-flight op
+
+        for rnd in range(rounds):
+            order = ([1, n_replicas] if rnd % 2 == 0
+                     else [n_replicas, 1])  # flip: drift lands on both
+            for arm_n in order:
+                _drive_batch(arms[arm_n], f"{arm_n}r-{rnd}")
+    finally:
+        faultpoints.deactivate()
+        for arm in arms.values():
+            for c in arm["controllers"]:
+                c.stop()
+        if prev_plan is not None:
+            faultpoints.activate(prev_plan)
+
+    tput = {n: _trimmed_mean(arm["throughputs"])
+            for n, arm in arms.items()}
+    scaling_x = (tput[n_replicas] / tput[1]) if tput[1] else 0.0
+
+    errors = 0
+    leaks: dict[str, Any] = {}
+    for n, arm in arms.items():
+        for c in arm["controllers"]:
+            errors += int(c.metrics.reconciles_total.value(outcome="error"))
+        ds = sorted((d["metadata"]["namespace"], d["metadata"]["name"])
+                    for d in arm["client"].list("DaemonSet"))
+        want = sorted((ns, f"{name}-daemon")
+                      for ns, name in arm["created"])
+        if ds != want:
+            leaks[f"arm{n}_daemonsets"] = {"got": len(ds),
+                                           "want": len(want)}
+    # Per-shard single-writer proof for the N-replica arm: every
+    # admitted op in the shared ledger, audited.
+    tput_violations = arms[n_replicas]["ledger"].violations()
+
+    # -- failover + singleton-conservation leg (fake clock) ------------------
+
+    now = [10_000.0]
+    lease_d, renew_d = 10.0, 6.0
+    f_client = FakeClient()
+    f_ledger = ShardOpLedger()
+    meters: list[UsageMeter] = []
+    singleton_log: list[tuple[str, str, str]] = []
+
+    def _meter_factory(ident: str):
+        def make():
+            m = UsageMeter(f_client, clock=lambda: now[0])
+            meters.append(m)
+            singleton_log.append((ident, "usage-meter", "start"))
+            return SingletonHandle(
+                m, lambda: singleton_log.append(
+                    (ident, "usage-meter", "stop")))
+        return make
+
+    def _mk_failover_replica(ident: str) -> ShardedController:
+        return ShardedController(
+            f_client, ident, shards, lease_prefix="fo-shard",
+            lease_duration=lease_d, renew_deadline=renew_d,
+            clock=lambda: now[0], ledger=f_ledger,
+            singleton_factories={"usage-meter": _meter_factory(ident)},
+            rebalance_max_handoffs=1, rebalance_window=1.0)
+
+    fo = [_mk_failover_replica("fo-a"), _mk_failover_replica("fo-b")]
+    for s in fo:
+        s.shard_map._renew_membership()
+    fo_settled = _settle_shard_fleet(
+        fo, advance=lambda: now.__setitem__(0, now[0] + 1.0))
+
+    # One allocated claim, observed by the CURRENT leader's meter (the
+    # victim's incarnation) — its durable usage-since stamp is what the
+    # successor's incarnation must rebuild from.
+    claim = {
+        "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+        "metadata": {"name": "tenant-claim", "namespace": "tenant-a",
+                     "uid": "claim-uid-1"},
+        "status": {"allocation": {"devices": {"results": [
+            {"pool": "node-0", "device": "gpu-0"},
+            {"pool": "node-0", "device": "gpu-1"},
+        ]}}},
+    }
+    f_client.create(claim)
+    t_open = now[0]
+
+    def _leader() -> "Optional[ShardedController]":
+        owners = [s for s in fo
+                  if s.shard_map.confident(LEADER_SHARD)]
+        return owners[0] if len(owners) == 1 else None
+
+    def _tick_meter() -> None:
+        lead = _leader()
+        if lead is not None:
+            handle = lead.singleton("usage-meter")
+            if handle is not None:
+                handle.obj.observe(now[0])
+
+    _tick_meter()  # opens the interval + stamps usage-since durably
+    stamped = (f_client.get("ResourceClaim", "tenant-claim", "tenant-a")
+               ["metadata"].get("annotations") or {}).get(ANN_USAGE_SINCE)
+
+    victim = _leader()
+    survivor = fo[1] if victim is fo[0] else fo[0]
+    # The kill strictly AFTER the last renewal: the one-lease failover
+    # clock starts at the victim's final renew, which is in the past.
+    now[0] += 0.5
+    t_kill = now[0]
+    victim._stop_singletons()  # the dead process takes its singletons
+    singleton_log.append((victim.identity, "killed", "dead"))
+
+    failover_s = None
+    fo_deadline = t_kill + 3.0 * lease_d
+    while now[0] < fo_deadline:
+        survivor.sync_once()
+        _tick_meter()
+        if len(survivor.shard_map.owned()) == shards:
+            failover_s = now[0] - t_kill
+            break
+        now[0] += 0.25
+
+    # Conservation across the forced failover: deallocate, let the
+    # SUCCESSOR incarnation close the interval it never saw open.
+    now[0] += 2.0
+    live = f_client.get("ResourceClaim", "tenant-claim", "tenant-a")
+    live["status"] = {}
+    f_client.update(live)
+    t_close = now[0]
+    survivor.sync_once()
+    _tick_meter()
+    successor_handle = survivor.singleton("usage-meter")
+    successor_meter = (successor_handle.obj
+                       if successor_handle is not None else None)
+    expected_cs = 2 * max(0.0, t_close - t_open)  # 2 GPUs, exact endpoints
+    observed_cs = (successor_meter.completed().get("tenant-a", 0.0)
+                   if successor_meter is not None else -1.0)
+    conservation_exact = (
+        stamped is not None
+        and successor_meter is not None
+        and len(meters) >= 2                 # a genuinely fresh incarnation
+        and successor_meter is not meters[0]
+        and observed_cs == expected_cs)      # bit-equal, not approx
+
+    # No overlapping incarnations: starts and stops alternate per the
+    # log — a second start before the victim died would be a double
+    # singleton.
+    starts_before_kill = [e for e in singleton_log
+                          if e[2] == "start"
+                          and singleton_log.index(e) < singleton_log.index(
+                              (victim.identity, "killed", "dead"))]
+    singleton_overlap = len(starts_before_kill) > 1
+
+    # -- partition leg (fake clock, shared op ledger) ------------------------
+
+    p_now = [50_000.0]
+    p_gate = PartitionGate()
+    p_base = FakeClient()
+    p_ledger = ShardOpLedger()
+
+    def _mk_part_replica(ident: str) -> ShardedController:
+        return ShardedController(
+            PartitionedClient(p_base, ident, p_gate), ident, shards,
+            lease_prefix="part-shard", lease_duration=lease_d,
+            renew_deadline=renew_d, clock=lambda: p_now[0],
+            ledger=p_ledger, rebalance_window=1.0)
+
+    pa, pb = _mk_part_replica("part-a"), _mk_part_replica("part-b")
+    for s in (pa, pb):
+        s.shard_map._renew_membership()
+    part_settled = _settle_shard_fleet(
+        [pa, pb], advance=lambda: p_now.__setitem__(0, p_now[0] + 1.0))
+
+    # Keys routed one per shard, so both replicas' gates face every
+    # shard's traffic each step.
+    keys = []
+    i = 0
+    while len(keys) < shards and i < 10_000:
+        uid = f"uid-{i}"
+        s = shard_for("tenant", uid, shards)
+        if s not in [k[1] for k in keys]:
+            keys.append((uid, s))
+        i += 1
+
+    p_now[0] += 0.5
+    p_gate.partition(pa.identity)
+    t_part = p_now[0]
+    served_after_deadline = 0
+    pa_last_admit = None
+    takeover_s = None
+    part_deadline = t_part + 3.0 * lease_d
+    while p_now[0] < part_deadline:
+        pa.sync_once()   # fails to renew through the partition
+        pb.sync_once()
+        for uid, _s in keys:
+            if pa.gate.admit("tenant", uid, "reconcile"):
+                pa_last_admit = p_now[0]
+                if p_now[0] - t_part > renew_d:
+                    served_after_deadline += 1
+            pb.gate.admit("tenant", uid, "reconcile")
+        if takeover_s is None and len(pb.shard_map.owned()) == shards:
+            takeover_s = p_now[0] - t_part
+        if takeover_s is not None and p_now[0] - t_part > lease_d + 2.0:
+            break
+        p_now[0] += 0.25
+    p_gate.heal()
+    part_violations = p_ledger.violations()
+
+    # -- hysteresis leg (fake clock) -----------------------------------------
+
+    h_now = [90_000.0]
+    h_client = FakeClient()
+    h_shards, h_window, h_cap = 2 * shards, 4.0, 1
+
+    def _mk_h_replica(ident: str) -> ShardedController:
+        return ShardedController(
+            h_client, ident, h_shards, lease_prefix="hys-shard",
+            lease_duration=lease_d, renew_deadline=renew_d,
+            clock=lambda: h_now[0], rebalance_max_handoffs=h_cap,
+            rebalance_window=h_window)
+
+    h1 = _mk_h_replica("hys-a")
+    h1.shard_map._renew_membership()
+    h1.sync_once()  # sole member: absorbs the whole keyspace
+    h2 = _mk_h_replica("hys-b")
+    h2.shard_map._renew_membership()
+
+    window_handoffs: dict[int, int] = {}
+    deferred_events = 0
+    h_deadline = h_now[0] + 40.0 * h_window
+    h_converged = False
+    while h_now[0] < h_deadline:
+        for r in (h1, h2):
+            r.sync_once()
+            for reason, _shard in r.shard_map.last_events:
+                if reason == "rebalance":
+                    bucket = int(h_now[0] // h_window)
+                    window_handoffs[bucket] = (
+                        window_handoffs.get(bucket, 0) + 1)
+                elif reason == "defer":
+                    deferred_events += 1
+        if (len(h1.shard_map.owned()) == h_shards // 2
+                and len(h2.shard_map.owned()) == h_shards // 2):
+            h_converged = True
+            break
+        h_now[0] += 0.5
+    max_window_handoffs = max(window_handoffs.values(), default=0)
+
+    return {
+        "n_domains": per_round * rounds,
+        "n_replicas": n_replicas,
+        "shards": shards,
+        "rounds": rounds,
+        "workers_per_replica": workers,
+        "reconcile_latency_ms": reconcile_latency_s * 1e3,
+        "throughput": {
+            "arms_settled": all(a["settled"] for a in arms.values()),
+            "one_replica_cds_per_s": round(tput[1], 2),
+            "n_replica_cds_per_s": round(tput[n_replicas], 2),
+            "per_round": {str(n): [round(x, 2) for x in a["throughputs"]]
+                          for n, a in arms.items()},
+            "scaling_x": round(scaling_x, 3),
+            "ledger_violations": tput_violations,
+        },
+        "failover": {
+            "settled": fo_settled,
+            "lease_duration_s": lease_d,
+            "failover_s": failover_s,
+            "within_one_lease": (failover_s is not None
+                                 and failover_s <= lease_d),
+            "meter_incarnations": len(meters),
+            "usage_stamp_durable": stamped is not None,
+            "expected_gpu_seconds": expected_cs,
+            "observed_gpu_seconds": observed_cs,
+            "conservation_exact": conservation_exact,
+            "singleton_overlap": singleton_overlap,
+        },
+        "partition": {
+            "settled": part_settled,
+            "renew_deadline_s": renew_d,
+            "served_after_deadline": served_after_deadline,
+            "victim_last_admit_after_partition_s": (
+                None if pa_last_admit is None
+                else round(pa_last_admit - t_part, 3)),
+            "takeover_s": takeover_s,
+            "within_one_lease": (takeover_s is not None
+                                 and takeover_s <= lease_d),
+            "ledger_violations": part_violations,
+        },
+        "hysteresis": {
+            "shards": h_shards,
+            "cap_per_window": h_cap,
+            "max_window_handoffs": max_window_handoffs,
+            "within_bound": max_window_handoffs <= h_cap,
+            "deferred_events": deferred_events,
+            "converged": h_converged,
+        },
+        "errors": errors,
+        "leaks": leaks,
+        "stuck": stuck,
+    }
+
+
+def run_shard_smoke() -> dict:
+    """Seconds-scale sharding smoke: the full
+    :func:`run_controller_shard_scale` protocol surface at a fraction of
+    the fleet — every leg runs (interleaved arms, replica kill, partition
+    handoff, hysteresis, conservation), only the throughput statistics
+    are too small to gate on."""
+    res = run_controller_shard_scale(
+        n_domains=96, n_replicas=4, rounds=2, workers=2,
+        reconcile_latency_s=0.004, ready_timeout_s=60.0)
+    ok = (res["throughput"]["arms_settled"]
+          and res["throughput"]["ledger_violations"] == []
+          and res["failover"]["within_one_lease"]
+          and res["failover"]["conservation_exact"]
+          and not res["failover"]["singleton_overlap"]
+          and res["partition"]["within_one_lease"]
+          and res["partition"]["served_after_deadline"] == 0
+          and res["partition"]["ledger_violations"] == []
+          and res["hysteresis"]["within_bound"]
+          and res["hysteresis"]["deferred_events"] > 0
+          and res["hysteresis"]["converged"]
+          and res["errors"] == 0
+          and not res["leaks"]
+          and not res["stuck"])
+    return {"ok": ok, "result": res}

@@ -2,9 +2,10 @@
 
 The counterpart of the JAX package's ``pkg/blackbox.py``. The stack
 DETECTS trouble (``pkg/slo.py`` multi-window burn-rate alerts) and leaves
-forensics scattered across live, rotating state: deduplicated Events,
-``pkg/telemetry.py`` sample rings, ``pkg/nodelease.py`` lease/fence/cordon
-state, allocator fragmentation, and the ``/debug/*`` snapshots. By the
+forensics scattered across live, rotating state: the ``pkg/tracing.py``
+ring buffer, deduplicated Events, ``pkg/telemetry.py`` sample rings,
+``pkg/nodelease.py`` lease/fence/cordon state, allocator fragmentation,
+and the ``/debug/*`` snapshots. By the
 time an operator looks, the rings have rotated and the windows have slid.
 This module is the flight recorder (docs/observability.md, "Incident
 bundles"):
@@ -21,15 +22,13 @@ bundles"):
   with bounded, COUNTED retention, and served via ``/debug/incidents`` on
   every main.
 - The bundle's headline artifact is the **timeline**
-  (:func:`build_timeline`): traces (span starts/ends + span events),
-  Events, per-target metric samples, and SLO transitions joined into one
-  causally-ordered list on the wall clock (monotonic sources converted
-  through a captured anchor). :func:`audit_timeline_chain` is the
-  completeness oracle the node-kill soak gates on: injection → burn →
-  fence → repair → clear, present and ordered. This package's tracer is
-  the disabled API (``pkg/tracing.py``): it stores no span, so a bundle's
-  trace section is empty and the timeline is built from the other three
-  streams.
+  (:func:`build_timeline`): traces (span starts/ends + span events,
+  including ``fault.injected``), Events, per-target metric samples, and
+  SLO transitions joined into one causally-ordered list on the wall clock
+  (monotonic sources converted through a captured anchor).
+  :func:`audit_timeline_chain` is the completeness oracle the node-kill
+  soak gates on: injection → burn → fence → repair → clear, present and
+  ordered.
 - :class:`ContinuousProfiler` is a sampling wall-clock profiler over all
   driver threads: a bounded map of folded stacks (flamegraph-ready),
   always-on at a low rate, **burst-sampled while an alert is firing**
@@ -517,9 +516,9 @@ class FlightRecorder:
     audits. Profiler burst (if a profiler is attached) follows
     fired/cleared the same way.
 
-    ``tracer``: None, or an object with the tracer's ``debug_snapshot()``
-    (``pkg/tracing`` itself: the disabled tracer, whose trace section is
-    empty).
+    ``tracer``: None, or a ``pkg.tracing.Tracer`` whose store's newest
+    ``max_spans`` spans (and its eviction count) become the bundle's
+    trace section; a disabled tracer gives an empty one.
 
     Capture runs synchronously on the engine's evaluation thread:
     bounded sources keep it in the tens of milliseconds, ordering stays
@@ -765,17 +764,14 @@ class FlightRecorder:
                 sections["nodelease"] = self._section(
                     "nodelease", self._nodelease_section, failed)
             if self.tracer is not None:
-                # The tracer's ``/debug/traces`` snapshot: the disabled
-                # tracer (``pkg/tracing.py``) stores no span, so the
-                # section is empty there.
-                snap = self._section("traces", self.tracer.debug_snapshot,
-                                     failed)
-                out = (list(snap.get("spans") or [])[-self.max_spans:]
-                       if "error" not in snap else snap)
+                out = self._section(
+                    "traces",
+                    lambda: self.tracer.store.spans()[-self.max_spans:],
+                    failed)
                 raw_spans = out if isinstance(out, list) else []
                 sections["traces"] = {
                     "spans": out,
-                    "dropped": snap.get("dropped_spans", 0),
+                    "dropped": self.tracer.store.dropped,
                 }
             if self.telemetry is not None:
                 sections["telemetry"] = self._section(

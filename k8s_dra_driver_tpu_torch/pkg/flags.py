@@ -73,7 +73,7 @@ def add_logging_flags(p: argparse.ArgumentParser) -> None:
                    env="GPU_DRA_LOG_FORMAT", default="text",
                    choices=["text", "json"],
                    help="log output format: human text or JSON lines with "
-                        "the component (and trace ids once tracing is in)")
+                        "the component and trace ids")
 
 
 def add_api_client_flags(p: argparse.ArgumentParser) -> None:
@@ -160,8 +160,10 @@ def add_profiling_flags(p: argparse.ArgumentParser) -> None:
                         "locks created after startup")
     p.add_argument("--trace", action=EnvDefault,
                    env="GPU_DRA_TRACE", type=parse_bool, default=False,
-                   help="claim-lifecycle tracing: not in this package yet "
-                        "(true refuses to start)")
+                   help="enable claim-lifecycle tracing in this process "
+                        "(pkg/tracing; bounded ring buffer): prepare phase "
+                        "timings become span events in /debug/traces "
+                        "and incident bundles instead of log lines")
 
 
 #: GIL switch interval the control-plane binaries run with. The
@@ -179,13 +181,11 @@ def tune_interpreter() -> None:
 
 
 def enable_tracing_if_requested(args: argparse.Namespace) -> None:
-    """Honor --trace/GPU_DRA_TRACE at assembly time. This package's tracer
-    is the disabled API only, so tracing asked for is refused, as the
-    gates of features this package does not have are."""
+    """Honor --trace/GPU_DRA_TRACE at assembly time (the phase-timing
+    span events in device_state/driver are no-ops until enabled)."""
     if getattr(args, "trace", False):
-        raise SystemExit(
-            "--trace: claim-lifecycle tracing is not in this package yet "
-            "(ROADMAP item 6, tracing in full)")
+        from k8s_dra_driver_tpu_torch.pkg import tracing
+        tracing.enable()
 
 
 def parse_feature_gates(args: argparse.Namespace) -> FeatureGates:

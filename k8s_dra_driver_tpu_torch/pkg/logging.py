@@ -4,10 +4,8 @@ The counterpart of the JAX package's ``pkg/logging.py`` (the reference's
 klog wiring, ``pkg/flags/logging.go``): a classic text formatter or
 machine-parseable JSON lines (``--log-format json``), each record carrying
 the emitting ``component`` (binary name) and — when the record is produced
-inside a recording trace span — its ``trace_id``/``span_id``. This
-package's tracer is the disabled API only (``pkg/tracing.py``), so no
-record carries trace ids yet; the formatters read them the same way, so
-the port's tracer will fill them in without a change here.
+inside a recording trace span (``pkg/tracing.py``) — its
+``trace_id``/``span_id``.
 """
 
 from __future__ import annotations

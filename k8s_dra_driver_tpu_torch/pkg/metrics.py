@@ -4,13 +4,12 @@ The subset of the JAX package's ``pkg/metrics.py`` that this package uses:
 Counter, Gauge and Histogram with label vectors, a Registry and the same
 text exposition format, line for line; and the families of the claim path
 (DRA requests, informer, workqueue, allocator, fake-apiserver wire path),
-of the ComputeDomain controller and daemon, and of the self-healing path
-(remediation and node leases), named ``gpu_dra_*`` where
-the JAX package's are ``tpu_dra_*``; and :class:`MetricsServer`, the
-``/metrics`` and ``/debug/<name>`` endpoint every binary serves.
-
-Histogram exemplars take an explicit trace id only; there is no tracer in
-this package yet to supply one from an active span.
+of the ComputeDomain controller and daemon, of the self-healing path
+(remediation and node leases) and of controller sharding, named
+``gpu_dra_*`` where the JAX package's are ``tpu_dra_*``; and
+:class:`MetricsServer`, the ``/metrics`` and ``/debug/<name>`` endpoint
+every binary serves. A histogram with exemplars records the trace id of
+the calling thread's active span (``pkg/tracing``) unless given one.
 """
 
 from __future__ import annotations
@@ -93,6 +92,21 @@ class Gauge(Counter):
         self.inc(-amount, **labels)
 
 
+_tracing_mod = None
+
+
+def _active_trace_id() -> str:
+    """trace_id of the calling thread's active span, else "". Lazily
+    imports pkg.tracing (tracing never imports metrics — no cycle) and
+    costs one attribute read when tracing is disabled."""
+    global _tracing_mod
+    if _tracing_mod is None:
+        from k8s_dra_driver_tpu_torch.pkg import tracing as _t
+        _tracing_mod = _t
+    span = _tracing_mod.current_span()
+    return span.trace_id if span is not None else ""
+
+
 class Histogram(_Metric):
     TYPE = "histogram"
 
@@ -111,10 +125,14 @@ class Histogram(_Metric):
 
     def observe(self, value: float, exemplar: Optional[str] = None,
                 **labels: str) -> None:
-        """``exemplar``: a trace id recorded on the bucket the value lands
-        in, when the histogram keeps exemplars; None records none."""
+        """``exemplar``: an explicit trace id for this observation (the
+        batch paths extract it from the claim's traceparent annotation —
+        the active span has already ended when the batch timer fires);
+        None falls back to the calling thread's active span."""
         key = self._key(labels)
-        tid = exemplar if self.exemplars and exemplar else ""
+        tid = ""
+        if self.exemplars:
+            tid = exemplar if exemplar is not None else _active_trace_id()
         with self._lock:
             counts = self._counts.setdefault(key, [0] * len(self.buckets))
             landed: Optional[str] = None
@@ -132,6 +150,12 @@ class Histogram(_Metric):
     def count(self, **labels: str) -> int:
         with self._lock:
             return self._totals.get(self._key(labels), 0)
+
+    def exemplar(self, le: str, **labels: str):
+        """(trace_id, value, ts) recorded for the ``le`` bucket of this
+        labelset, or None — test/debug accessor."""
+        with self._lock:
+            return self._exemplars.get(self._key(labels), {}).get(le)
 
     def expose(self) -> Iterable[str]:
         yield f"# HELP {self.name} {self.help}"
@@ -512,6 +536,47 @@ def default_node_metrics() -> NodeMetrics:
     if _default_node_metrics is None:
         _default_node_metrics = NodeMetrics()
     return _default_node_metrics
+
+
+class ShardMetrics:
+    """Active-active controller sharding (docs/architecture.md,
+    "Controller sharding"): shard-lease ownership churn, hysteresis
+    deferrals, and the per-replica owned-shard count. One process-global
+    instance by default (:func:`default_shard_metrics`): every ShardMap
+    in the process feeds the same families, served by the controller
+    main's MetricsServer."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.handoffs_total = r.register(Counter(
+            "gpu_dra_shard_handoffs_total",
+            "Shard-lease ownership changes observed by this replica, by "
+            "reason (acquire | takeover | rebalance | lost | release).",
+            ("reason",)))
+        self.rebalance_deferred_total = r.register(Counter(
+            "gpu_dra_shard_rebalance_deferred_total",
+            "Rebalance handoffs suppressed by the hysteresis cap this "
+            "window (bounded churn is counted, never silent)."))
+        self.owned_shards = r.register(Gauge(
+            "gpu_dra_shard_owned",
+            "Shards this replica currently owns with a live lease.",
+            ("identity",)))
+        self.gated_ops_total = r.register(Counter(
+            "gpu_dra_shard_gated_ops_total",
+            "Shard-gate admission decisions, by component (reconcile | "
+            "realloc | lifecycle) and outcome (admitted | skipped).",
+            ("component", "outcome")))
+
+
+_default_shard_metrics: Optional[ShardMetrics] = None
+
+
+def default_shard_metrics() -> ShardMetrics:
+    global _default_shard_metrics
+    if _default_shard_metrics is None:
+        _default_shard_metrics = ShardMetrics()
+    return _default_shard_metrics
 
 
 class _TimedRequest:

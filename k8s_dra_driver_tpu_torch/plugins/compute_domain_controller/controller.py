@@ -13,10 +13,9 @@ CD kubelet plugin applies when a workload channel claim lands on a node;
 the workload RCT's opaque config carries ``domainID``; the status becomes
 Ready when ``numNodes`` daemons report Ready, summed over all of the CD's
 cliques (one per HGX node, or one per multi-node NVLink domain), with its
-nodes listed in the workers' ``(cliqueID, index)`` order.
-
-Active-active sharding (the JAX package's ``shard_gate``) waits with the
-controller's ``sharding.py``.
+nodes listed in the workers' ``(cliqueID, index)`` order. Under
+active-active sharding (``sharding.py``) a ``shard_gate`` admits only the
+CDs whose shard this replica confidently owns.
 """
 
 from __future__ import annotations
@@ -144,7 +143,8 @@ class ComputeDomainController:
                  gates: Optional[FeatureGates] = None,
                  driver_namespace: Optional[str] = None,
                  metrics: Optional[ControllerMetrics] = None,
-                 workers: int = DEFAULT_WORKERS):
+                 workers: int = DEFAULT_WORKERS,
+                 shard_gate=None):
         """``driver_namespace``: where driver-owned children (per-CD
         DaemonSet, daemon RCT, cliques) are created — the reference keeps
         them in the namespace the driver RUNS in while ComputeDomains live
@@ -163,6 +163,11 @@ class ComputeDomainController:
         self.metrics = metrics or ControllerMetrics()
         self.events = EventRecorder(client, "compute-domain-controller")
         self.workers = max(1, workers)
+        # Active-active sharding (sharding.ShardGate): when set, every
+        # reconcile is admitted only if this replica confidently owns the
+        # CD's shard — None (the default, and every single-replica
+        # deployment) admits everything.
+        self.shard_gate = shard_gate
         self.queue = WorkQueue(default_controller_rate_limiter(),
                                name="cd-controller")
         self._informer: Optional[Informer] = None
@@ -385,6 +390,15 @@ class ComputeDomainController:
         self.metrics.compute_domains.set(float(count))
 
     def reconcile(self, cd: Obj) -> None:
+        if self.shard_gate is not None and not self.shard_gate.admit(
+                cd["metadata"].get("namespace", ""),
+                cd["metadata"].get("uid", ""), "reconcile"):
+            # Not this replica's shard (or ownership is no longer
+            # confident): the owning replica's informer saw the same
+            # event and reconciles it — dropping here is what makes N
+            # replicas scale instead of duplicating work.
+            self.metrics.reconciles_total.inc(outcome="skipped_not_owner")
+            return
         t0 = time.monotonic()
         # Joins the trace of a CD created with a traceparent annotation
         # (docs/observability.md); untraced CDs cost one annotation read.

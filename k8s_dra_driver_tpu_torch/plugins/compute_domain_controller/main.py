@@ -8,10 +8,9 @@ the cluster half of the observability and self-healing planes: fleet
 telemetry over the node plugins' ``/metrics`` (with the SLO engine and
 ``/debug/fleet``), the claim reallocator, the usage meter, the canary
 prober, the defrag planner, the incident flight recorder and the node
-lifecycle controller.
-
-Active-active sharding (``--shards`` above 0) is not in this package yet:
-such a start is refused, naming the ROADMAP item.
+lifecycle controller. With ``--shards N`` the replicas run active-active:
+each reconciles only the keys of the shards it holds (``sharding.py``),
+and the singletons run on whichever replica holds shard 0.
 
 Run standalone::
 
@@ -177,13 +176,21 @@ def build_parser() -> argparse.ArgumentParser:
                    default="compute-domain-controller")
     p.add_argument("--identity", action=flags.EnvDefault,
                    env="POD_NAME", default="",
-                   help="leader-election identity (defaults to hostname)")
+                   help="leader-election / shard-ownership identity "
+                        "(defaults to hostname)")
     p.add_argument("--shards", action=flags.EnvDefault,
                    env="GPU_DRA_SHARDS", type=int, default=0,
-                   help="active-active controller sharding: not in this "
-                        "package yet (a value above 0 refuses to start); "
-                        "0 = a single active controller; use "
-                        "--leader-elect for hot-standby HA")
+                   help="active-active controller sharding: partition the "
+                        "reconcile keyspace into this many lease-claimed "
+                        "shards; every replica runs its informers and a "
+                        "shard gate admits only confidently-owned work, "
+                        "with the singleton components (canary prober, "
+                        "usage meter, flight recorder, defrag planner) "
+                        "pinned to the leader shard; ownership churn in "
+                        "gpu_dra_shard_* (docs/architecture.md, "
+                        "'Controller sharding'). 0 disables — single "
+                        "active controller; use --leader-elect for "
+                        "hot-standby HA instead")
     p.add_argument("--version", action="version", version=version_string())
     return p
 
@@ -268,10 +275,6 @@ def run_controller(args: argparse.Namespace,
                    block: bool = True) -> ProcessHandle:
     """Assemble and start the controller — same run_*(args, block=)
     contract as the plugins."""
-    if int(getattr(args, "shards", 0) or 0) > 0:
-        raise SystemExit(
-            "--shards: active-active controller sharding is not in this "
-            "package yet (ROADMAP item 5b, controller sharding)")
     gates = flags.parse_feature_gates(args)
     flags.log_startup_config(BINARY, args, gates)
     flags.tune_interpreter()
@@ -290,10 +293,52 @@ def run_controller(args: argparse.Namespace,
         profiler = ContinuousProfiler(
             base_interval_s=args.profile_interval).start()
 
+    # Active-active sharding (docs/architecture.md, "Controller
+    # sharding"): N replicas partition the reconcile keyspace by
+    # lease-claimed shard. Every replica watches everything; the gate
+    # admits only confidently-owned work, recorded in the epoch-stamped
+    # op ledger.
+    sharded = None
+    if args.shards > 0:
+        import socket
+
+        from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.sharding import (
+            ShardedController,
+        )
+        sharded = ShardedController(
+            client, args.identity or socket.gethostname(), args.shards)
+    gate = sharded.gate if sharded is not None else None
+
     controller = ComputeDomainController(
         client, namespace=args.namespace, gates=gates,
         driver_namespace=args.driver_namespace,
-        workers=getattr(args, "workers", DEFAULT_WORKERS))
+        workers=getattr(args, "workers", DEFAULT_WORKERS), shard_gate=gate)
+
+    if sharded is not None:
+        from k8s_dra_driver_tpu_torch.pkg.shardmap import shard_for
+        from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.controller import (
+            KIND_COMPUTE_DOMAIN,
+        )
+
+        def _resync_shard(shard: int) -> None:
+            # Replay the acquired shard's CDs: work the previous owner
+            # had in flight runs again here — reconciles are idempotent,
+            # so at-least-once per owner is safe, and the gate keeps it
+            # to exactly one owner at a time.
+            try:
+                cds = client.list(KIND_COMPUTE_DOMAIN, args.namespace)
+            except Exception:  # noqa: BLE001 — transient: the informer
+                # resync and the next acquisition replay cover it.
+                logger.warning("shard %d resync list failed", shard,
+                               exc_info=True)
+                return
+            for cd in cds:
+                m = cd["metadata"]
+                if shard_for(m.get("namespace", ""), m.get("uid", ""),
+                             sharded.shard_map.shards) == shard:
+                    controller._enqueue_cd(cd)
+
+        sharded.on_shard_acquired = _resync_shard
 
     # Assembled before the MetricsServer so the aggregate and the SLO
     # families ride the same endpoint.
@@ -328,6 +373,8 @@ def run_controller(args: argparse.Namespace,
                            default_slo_metrics().registry,
                            telemetry.aggregator]
             debug["fleet"] = telemetry.debug_snapshot
+        if sharded is not None:
+            extra_regs.append(sharded.metrics.registry)
         ms = MetricsServer(controller.metrics.registry,
                            default_informer_metrics().registry,
                            default_workqueue_metrics().registry,
@@ -347,7 +394,7 @@ def run_controller(args: argparse.Namespace,
     if telemetry is not None:
         telemetry.start()
 
-    if args.leader_elect:
+    if args.leader_elect and sharded is None:
         import socket
 
         from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.election import (
@@ -361,29 +408,46 @@ def run_controller(args: argparse.Namespace,
         elector.start()
         runner = elector
     else:
+        # Sharded replicas are active-active: every replica starts its
+        # controller (informers + queue) and the shard gate partitions
+        # the WORK — singleton leader election would defeat the point.
         controller.start()
         runner = controller
 
     # Self-healing's cluster half: drained claims (annotated by the node
     # plugins' drain controllers) are released and re-allocated onto
-    # healthy devices (docs/self-healing.md).
+    # healthy devices (docs/self-healing.md). Shard-gated: a replica
+    # processes only the pending claims whose shard it owns.
     realloc = None
     if getattr(args, "remediation", True):
-        realloc = ClaimReallocator(client, namespace=args.namespace).start()
+        realloc = ClaimReallocator(client, namespace=args.namespace,
+                                   shard_gate=gate).start()
 
     # The user-perspective plane (docs/observability.md, "Synthetic
-    # probing" / "Usage metering") and its downstream consumers: process
-    # singletons, built and started inline.
-    meter = prober = None
-    stops: list = []
-    if getattr(args, "usage_metering", True):
+    # probing" / "Usage metering") and its downstream consumers are
+    # process singletons. Single-replica: built and started inline.
+    # Sharded: registered as leader-pinned singleton FACTORIES on the
+    # ShardedController — whichever replica owns the leader shard builds
+    # fresh incarnations (the usage meter rebuilds its ledger exactly from
+    # the durable usage-since stamps), and loses them before a successor
+    # can act confidently. Each factory returns a handle whose ``stop``
+    # tears its incarnation down.
+    #
+    # ``pinned`` carries the current incarnations between factories (the
+    # recorder bundles the leader's meter and prober); factories run in
+    # registration order.
+    pinned: dict = {}
+
+    def _make_meter():
         from k8s_dra_driver_tpu_torch.pkg.usage import UsageMeter
-        meter = UsageMeter(client, namespace=args.namespace).start(
+        m = UsageMeter(client, namespace=args.namespace).start(
             observe_interval_s=min(5.0, args.fleet_scrape_interval))
-        stops.append(meter.stop)
-    if getattr(args, "canary_interval", 0.0) > 0 and realloc is not None:
+        pinned["usage"] = m
+        return m
+
+    def _make_prober():
         from k8s_dra_driver_tpu_torch.pkg.canary import CanaryProber
-        prober = CanaryProber(
+        pr = CanaryProber(
             client, realloc.alloc,
             interval_s=args.canary_interval,
             namespace=args.namespace or "default",
@@ -391,27 +455,33 @@ def run_controller(args: argparse.Namespace,
             # realloc.alloc_mutex IS the allocator's own reentrant mutex:
             # every consumer stays on the one scheduler lock.
             alloc_mutex=realloc.alloc_mutex).start()
-        stops.append(prober.stop)
-    if (getattr(args, "defrag", True) and telemetry is not None
-            and realloc is not None):
+        pinned["canary"] = pr
+        return pr
+
+    def _make_defrag():
         # Defragmentation (docs/performance.md, "Topology-aware
         # allocation"): a firing allocation_admission alert triggers
         # scored preemption of movable small claims through the
-        # reallocator's drain pipeline.
+        # reallocator's drain pipeline. One scheduler actor fleet-wide —
+        # leader-pinned under sharding for the same reason the prober is.
         from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
             DefragPlanner,
             attach_defrag_planner,
         )
-        defrag = DefragPlanner(client, realloc.alloc,
-                               alloc_mutex=realloc.alloc_mutex)
-        attach_defrag_planner(telemetry.slo_engine, defrag)
-        defrag.start(poll_interval=args.fleet_scrape_interval)
+        from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.sharding import (
+            SingletonHandle,
+        )
+        d = DefragPlanner(client, realloc.alloc,
+                          alloc_mutex=realloc.alloc_mutex)
+        attach_defrag_planner(telemetry.slo_engine, d)
+        d.start(poll_interval=args.fleet_scrape_interval)
 
-        def _stop_defrag(engine=telemetry.slo_engine, d=defrag) -> None:
-            engine.unsubscribe(d.on_alert)
+        def _stop() -> None:
+            telemetry.slo_engine.unsubscribe(d.on_alert)
             d.stop()
-        stops.append(_stop_defrag)
-    if getattr(args, "blackbox", True) and telemetry is not None:
+        return SingletonHandle(d, _stop)
+
+    def _make_recorder():
         # Incident flight recorder (docs/observability.md, "Incident
         # bundles"): a FIRED transition captures the bundle, the matching
         # CLEARED resolves it. The informer/workqueue/inflight debug
@@ -419,20 +489,23 @@ def run_controller(args: argparse.Namespace,
         # bundle embedding the previous bundle would grow without bound).
         from k8s_dra_driver_tpu_torch.pkg import tracing
         from k8s_dra_driver_tpu_torch.pkg.blackbox import FlightRecorder
+        from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.sharding import (
+            SingletonHandle,
+        )
         all_debug = standard_debug_handlers()
-        recorder = FlightRecorder(
+        rec = FlightRecorder(
             args.incident_dir,
             client=client,
             engine=telemetry.slo_engine,
             telemetry=telemetry,
-            tracer=tracing,
+            tracer=tracing.default_tracer(),
             allocator=realloc.alloc if realloc is not None else None,
             alloc_mutex=(realloc.alloc_mutex if realloc is not None
                          else None),
             # What users saw (probe history) + who was consuming
             # (per-tenant ledger) ride every bundle.
-            canary=prober,
-            usage=meter,
+            canary=pinned.get("canary"),
+            usage=pinned.get("usage"),
             profiler=profiler,
             debug={k: all_debug[k]
                    for k in ("informers", "workqueue", "inflight")},
@@ -440,10 +513,29 @@ def run_controller(args: argparse.Namespace,
             retention=args.incident_retention)
         # on_alert owns the profiler burst toggle too — no separate
         # attach_profiler_burst subscription (one owner, not two).
-        telemetry.slo_engine.subscribe(recorder.on_alert)
-        stops.append(lambda engine=telemetry.slo_engine, r=recorder:
-                     engine.unsubscribe(r.on_alert))
-    elif profiler is not None and telemetry is not None:
+        telemetry.slo_engine.subscribe(rec.on_alert)
+        return SingletonHandle(
+            rec, lambda: telemetry.slo_engine.unsubscribe(rec.on_alert))
+
+    factories: dict = {}
+    if getattr(args, "usage_metering", True):
+        factories["usage-meter"] = _make_meter
+    if getattr(args, "canary_interval", 0.0) > 0 and realloc is not None:
+        factories["canary-prober"] = _make_prober
+    if (getattr(args, "defrag", True) and telemetry is not None
+            and realloc is not None):
+        factories["defrag-planner"] = _make_defrag
+    want_recorder = getattr(args, "blackbox", True) and telemetry is not None
+    if want_recorder:
+        factories["flight-recorder"] = _make_recorder
+    stops: list = []
+    if sharded is not None:
+        sharded.singleton_factories.update(factories)
+    else:
+        for make in factories.values():
+            stops.append(make().stop)
+    meter, prober = pinned.get("usage"), pinned.get("canary")
+    if not want_recorder and profiler is not None and telemetry is not None:
         # Recorder disabled but engine + profiler present: the burst
         # coupling still wants an owner.
         from k8s_dra_driver_tpu_torch.pkg.blackbox import (
@@ -467,11 +559,17 @@ def run_controller(args: argparse.Namespace,
             canary_signal = canary_probe_signal(prober)
         node_lifecycle = NodeLifecycleController(
             client, scrape_stale=scrape_stale,
-            canary_failing=canary_signal).start()
+            canary_failing=canary_signal, shard_gate=gate).start()
+
+    if sharded is not None:
+        # Last: every component and factory is wired, so the sync loop
+        # may acquire shards (and the leader shard may start singletons)
+        # from its first round.
+        sharded.start()
 
     handle = ProcessHandle(BINARY, driver=runner, servers=servers,
                            telemetry=telemetry, reallocator=realloc,
-                           meter=meter)
+                           meter=meter, sharded=sharded)
     for s in servers:
         handle.on_stop(s.stop)
     if telemetry is not None:
@@ -482,6 +580,10 @@ def run_controller(args: argparse.Namespace,
         handle.on_stop(realloc.stop)
     if node_lifecycle is not None:
         handle.on_stop(node_lifecycle.stop)
+    if sharded is not None:
+        # Releases every shard lease (successors take over immediately)
+        # and stops the leader-pinned singletons.
+        handle.on_stop(sharded.stop)
     if profiler is not None:
         handle.on_stop(profiler.stop)
     handle.on_stop(runner.stop)

@@ -405,9 +405,10 @@ class TestPortSurface:
 
     def test_disabled_tracer_leaves_the_trace_section_empty(self, tmp_path,
                                                             client):
-        """The port's tracer is the disabled API: a recorder wired to it
-        captures an empty trace section, not a made-up one."""
-        rec = FlightRecorder(str(tmp_path), client=client, tracer=tracing,
+        """A recorder wired to the tracer while tracing is off captures an
+        empty trace section, not a made-up one."""
+        rec = FlightRecorder(str(tmp_path), client=client,
+                             tracer=tracing.default_tracer(),
                              metrics=BlackboxMetrics())
         rec.on_alert(fired())
         doc = rec.bundle(rec.list_bundles()[0]["id"])

@@ -48,7 +48,7 @@ from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
 from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
 from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import NodePrepareLoop
 from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import DefragPlanner
-from k8s_dra_driver_tpu_torch.pkg import faultpoints
+from k8s_dra_driver_tpu_torch.pkg import faultpoints, tracing
 from k8s_dra_driver_tpu_torch.pkg.canary import (
     ANN_CANARY,
     CanaryMetrics,
@@ -150,9 +150,8 @@ class TestCanaryProber:
         assert p.success_p99_s() is not None
 
     def test_probe_histograms_carry_no_exemplar_while_untraced(self, stack):
-        """The JAX test enables its tracer and finds each probe's trace as
-        an exemplar; the port's tracer is the disabled API, so the same
-        histograms expose none."""
+        """With the tracer off (the default) the probe histograms expose
+        no exemplar."""
         client, driver, _loop = stack
         p = _prober(client, driver)
         assert p.probe_node("node-a")["outcome"] == "ok"
@@ -160,6 +159,20 @@ class TestCanaryProber:
         assert "gpu_dra_canary_phase_seconds_bucket" in text
         assert "gpu_dra_canary_probe_seconds_bucket" in text
         assert "# EXEMPLAR" not in text
+
+    def test_probe_phases_carry_trace_exemplars(self, stack):
+        """With the tracer on, each probe's trace is the exemplar of its
+        phase and probe histograms, as in the JAX test."""
+        client, driver, _loop = stack
+        tracing.enable()
+        try:
+            p = _prober(client, driver)
+            assert p.probe_node("node-a")["outcome"] == "ok"
+            text = p.metrics.registry.expose_text()
+            assert "# EXEMPLAR gpu_dra_canary_phase_seconds" in text
+            assert "# EXEMPLAR gpu_dra_canary_probe_seconds" in text
+        finally:
+            tracing._reset_for_tests()
 
     def test_admission_failure_classified(self, stack):
         client, _driver, _loop = stack

@@ -5,9 +5,10 @@ A subprocess blocks ``jax``, ``k8s_dra_driver_tpu``, ``yaml`` and ``grpc``
 in ``sys.modules``, imports every module of the port (the device library,
 the k8s client, the GPU and ComputeDomain kubelet plugins, the
 ComputeDomain daemon and controller, the webhook, the serving harness, the
-self-healing path, the binaries with their HTTP API server, and the
-observability plane with the controller's binary and the soak included;
-the modules of the last four slices are named and must be among them;
+self-healing path, the binaries with their HTTP API server, the
+observability plane with the controller's binary and the soak, and
+controller sharding with the full claim-lifecycle tracer included; the
+modules of the last five slices are named and must be among them;
 the ``__main__`` modules, which run their binary when imported, are
 source-scanned only) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
@@ -81,6 +82,11 @@ assert _build._libs == {}, "kernel library loaded by the CPU serving smoke"
 from k8s_dra_driver_tpu_torch.entry import dryrun_multichip
 d = dryrun_multichip(2, device="cpu")
 assert d["world"] == 2 and d["backend"] == "gloo", d
+from k8s_dra_driver_tpu_torch.pkg import tracing
+t = tracing.Tracer().enable()
+with t.start_span("claim") as s:
+    s.set_status("ok")
+assert tracing.audit_traces(t.store.traces()) == []
 print("MODULES", len(mods))
 print("NAMES", ",".join(mods))
 """
@@ -139,6 +145,13 @@ OBSERVABILITY_MODULES = [
     "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.main",
 ]
 
+#: Modules of the sharding and tracing slice.
+SHARDING_MODULES = [
+    "k8s_dra_driver_tpu_torch.pkg.shardmap",
+    "k8s_dra_driver_tpu_torch.pkg.tracing",
+    "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.sharding",
+]
+
 #: The binaries' ``python -m`` entry files: scanned, never imported.
 MAIN_FILES = [PORT / "plugins" / name / "__main__.py" for name in (
     "gpu_kubelet_plugin", "compute_domain_kubelet_plugin",
@@ -161,7 +174,7 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert n >= 51 + len(CD_MODULES) + 3, proc.stdout
     names = set(proc.stdout.split("NAMES", 1)[1].split()[0].split(","))
     want = (set(CD_MODULES) | set(SELFHEAL_MODULES) | set(BINARY_MODULES)
-            | set(OBSERVABILITY_MODULES))
+            | set(OBSERVABILITY_MODULES) | set(SHARDING_MODULES))
     assert want <= names, sorted(want - names)
     assert not any(n.endswith(".__main__") for n in names)
 

@@ -7,9 +7,8 @@ package's gRPC health client reads the other package's health server.
 Each ``run_*(args, block=False)`` assembles on ``--mock-profile h100-8``
 against the port's ``ApiServer``, with the scenarios of
 ``tests/test_runnable.py::TestPluginAssembly``, the controller's included
-(its ``--shards`` above 0 exits naming the ROADMAP item); the webhook
-server answers
-the admission corpus of ``tests/test_torch_webhook.py`` as the JAX one
+(``--shards 1`` and the GPU plugin's ``--trace true`` among them); the
+webhook server answers the admission corpus of ``tests/test_torch_webhook.py`` as the JAX one
 does. Then the port's processes: the API server and the GPU plugin as OS
 processes (the multi-process smoke and the ``-v 1`` / ``-v 0`` logging
 contract of ``TestMultiProcessSmoke``), and ``chip_smoke.py``'s
@@ -243,16 +242,24 @@ def test_bad_feature_gates_and_refused_features_exit_cleanly():
             flags.parse_feature_gates(args)
 
 
-def test_trace_refused_naming_the_roadmap_item(api):
+def test_trace_true_starts_the_plugin_with_the_tracer_on(tmp_path, api):
+    """``--trace true`` enables the process's tracer at assembly: the
+    plugin starts and its ``/debug/traces`` reports ``enabled: true``."""
+    from k8s_dra_driver_tpu_torch.pkg import tracing
+
     server, _ = api
-    args = plugin_main.build_parser().parse_args([
-        "--node-name", "n", "--api-endpoint", server.endpoint,
-        "--mock-profile", "h100-8", "--trace", "true",
-        "--healthcheck-addr", ""])
-    threads = set(threading.enumerate())
-    with pytest.raises(SystemExit, match="ROADMAP item 6"):
-        plugin_main.run_plugin(args, block=False)
-    assert set(threading.enumerate()) <= threads   # nothing was started
+    handle = plugin_main.run_plugin(_plugin_args(
+        server, tmp_path, "--trace", "true", "--healthcheck-addr", "",
+        "--metrics-port", "0"), block=False)
+    try:
+        base = f"http://127.0.0.1:{handle.servers[0].port}"
+        snap = json.loads(urllib.request.urlopen(
+            f"{base}/debug/traces").read())
+        assert snap["enabled"] is True
+        assert snap["capacity"] == tracing.DEFAULT_CAPACITY
+    finally:
+        handle.stop()
+        tracing._reset_for_tests()
 
 
 def test_health_server_without_grpc_exits_naming_the_flag(api, tmp_path,
@@ -475,14 +482,29 @@ def test_controller_run(api):
         handle.stop()
 
 
-def test_controller_shards_refused_naming_the_roadmap_item(api):
-    server, _ = api
-    args = controller_main.build_parser().parse_args([
-        "--api-endpoint", server.endpoint, "--shards", "1"])
-    threads = set(threading.enumerate())
-    with pytest.raises(SystemExit, match="ROADMAP item 5b"):
-        controller_main.run_controller(args, block=False)
-    assert set(threading.enumerate()) <= threads   # nothing was started
+def test_controller_with_one_shard_starts_and_stops(api):
+    """``--shards 1`` as an OS process: the replica takes the one shard
+    lease (its first sync round comes one retry period after start), and
+    on SIGTERM empties it and exits 0."""
+    server, client = api
+
+    def holder():
+        lease = client.try_get("Lease", "controller-shard-0", "default")
+        return (lease or {}).get("spec", {}).get("holderIdentity")
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", MODULES[-1], "--api-endpoint",
+         server.endpoint, "--metrics-port", "-1", "--shards", "1",
+         "--identity", "solo"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, cwd=REPO,
+        env=_env())
+    try:
+        assert _wait(lambda: holder() == "solo"), holder()
+        proc.terminate()
+        assert proc.wait(timeout=STOP_TIMEOUT) == 0
+        assert holder() == ""
+    finally:
+        assert _stop(proc) == 0
 
 
 def test_controller_watches_a_plugin(tmp_path, api):
