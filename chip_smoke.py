@@ -116,6 +116,21 @@ One line per phase:
            the replicas' decode launches equal to their decode steps; then
            the decode kernel against its plain version at the engines'
            shape
+   scale   ``run_serving_scale`` on the card with the JAX harness's
+           defaults: tenant replicas claiming two GPUs of a mock ``h100-8``
+           node each, measured at 1 and 4 replicas in interleaved arms,
+           then the autoscale leg through a GPU-vanish flap and a restart
+           of a node's prepare loop, then two shard-gated controllers
+           under a churning replica; engines at the serve phase's width
+           (32 slots, 32 heads of 128, a 4096-token cache: the shape the
+           check phase holds the kernel to) share the card. Prints tokens/s
+           at 1 and 4 replicas and their ratio (not held: one card), TTFB
+           p50/p99, sessions, the legs' events and leaders, and the claims
+           the restarted loop adopted from its checkpoint and unprepared
+           (released or deleted while no loop ran); holds no error
+           or leak, the accounting identity, isolation error under 1e-4,
+           both legs ok, TTFB p99 within 1.5 s, and the replicas' decode
+           launches equal to their decode steps
 10. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
            the device library that found the card, the controller's live
            loop reconciling a CD of numNodes 1, and one daemon reporting the
@@ -152,7 +167,8 @@ One line per phase:
 
 Kernel times are CUDA-event times of a run of back-to-back calls over the
 count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
-burnin, each of selfheal's two batches, the processes batch and the soak) runs
+burnin, each of selfheal's two batches, the processes batch, the soak and
+the scale harness) runs
 with every kernel's launch count set to 0 just before it and read just
 after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
@@ -163,7 +179,9 @@ without a CUDA device the script exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import logging
 import math
 import os
 import re
@@ -228,6 +246,7 @@ from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
 )
 from k8s_dra_driver_tpu_torch.internal.stresslab import (
     SERVING_SMOKE_ENGINE,
+    run_serving_scale,
     run_serving_smoke,
     run_serving_soak,
 )
@@ -1475,6 +1494,9 @@ CONTROLLER_SLOS = {"claim_ready_latency", "prepare_errors",
 #: shard 0 runs the singletons (canary, usage meter, recorder).
 CONTROLLER_IDS = ("ctl-a", "ctl-b")
 CONTROLLER_SHARDS = 4
+#: The controller started first: its shard scan starts at shard 0, so it
+#: keeps shard 0 (and the singletons) at a fair share of 2.
+CONTROLLER_LEADER = "ctl-b"
 #: The spans of the plugin process a claim's trace must hold.
 CLAIM_TRACE_SPANS = {"node_prepare", "checkpoint.transact", "cdi.write"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1626,6 +1648,69 @@ class Processes:
                     proc.wait(timeout=10)
 
 
+#: The GPU plugin's log lines that give a claim one more Prepare request
+#: (an idempotent republish, or a retry armed after a failure) or one more
+#: Unprepare request (a retry).
+_REPEAT_LINES = {
+    "prepare": (r"claim (\S+) prepared but its status entry is missing",
+                r"node prepare of claim (\S+) failed",
+                r"status publish of claim (\S+) failed"),
+    "unprepare": (r"node unprepare of claim (\S+) failed",
+                  r"unprepare of deleted claim (\S+) failed",
+                  r"status clear of claim (\S+) failed"),
+}
+
+
+def prepare_record(log: str) -> dict:
+    """The GPU plugin's own record of its Prepare and Unprepare requests,
+    read from its log: ``requests``, each (operation, [(claim UID,
+    outcome), ...]) in the log's order, and ``repeats``, per operation the
+    count by claim of the log lines that explain a repeated request
+    (:data:`_REPEAT_LINES`)."""
+    requests = [(op, [tuple(t.split("=", 1)) for t in body.split()
+                      if "=" in t])
+                for op, body in re.findall(
+                    r" (prepare|unprepare) request: (.*?)(?: trace=\S+)?$",
+                    log, re.M)]
+    repeats = {op: collections.Counter(
+        uid for pat in pats for uid in re.findall(pat, log))
+        for op, pats in _REPEAT_LINES.items()}
+    return {"requests": requests, "repeats": repeats}
+
+
+def prepare_record_problems(record: dict, counted: dict) -> list:
+    """What is wrong with a plugin's request record (:func:`prepare_record`)
+    against its request counters (``counted``: operation → the value of
+    ``gpu_dra_requests_total``): every counted request is logged; every
+    unprepare follows a prepare of its claim; every claim with an ok
+    prepare has an ok unprepare after its last ok prepare; and each request
+    beyond one per claim and operation is matched by a logged republish or
+    retry of that claim."""
+    problems = []
+    for op, n in counted.items():
+        logged = sum(o == op for o, _ in record["requests"])
+        if logged != n:
+            problems.append(f"{n} {op} requests counted, {logged} logged")
+    last: dict = {}
+    per_claim: collections.Counter = collections.Counter()
+    for op, claims in record["requests"]:
+        for uid, outcome in claims:
+            per_claim[op, uid] += 1
+            if op == "unprepare" and uid not in last:
+                problems.append(f"unprepare of {uid} before any prepare")
+            if outcome == "ok" or uid not in last:
+                last[uid] = (op, outcome)
+    for uid, (op, outcome) in sorted(last.items()):
+        if (op, outcome) == ("prepare", "ok"):
+            problems.append(f"claim {uid} prepared and never unprepared")
+    for (op, uid), n in sorted(per_claim.items()):
+        if n - 1 > record["repeats"][op][uid]:
+            problems.append(f"{n} {op} requests for {uid}, "
+                            f"{record['repeats'][op][uid]} logged "
+                            "republish or retry")
+    return problems
+
+
 def _slice_uuids(client, driver: str, node: str) -> list:
     """The ``uuid`` attributes of the devices ``driver`` publishes on
     ``node``."""
@@ -1697,6 +1782,13 @@ def _canary_rows(doc: list) -> list:
             for h in st["history"]]
 
 
+def _newest_probe(doc: list) -> float:
+    """When the newest probe in a ``/debug/canary`` history started (0 when
+    there is none). The history keeps the last 32 probes a node, so a new
+    probe shows as a newer start, not as a longer history."""
+    return max((h["at"] for h in _canary_rows(doc)), default=0.0)
+
+
 def _shard_holders(client) -> list:
     """The holder of each controller shard's Lease ('' when free)."""
     return [((client.try_get("Lease", f"controller-shard-{i}", "default")
@@ -1762,7 +1854,7 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
     (``ttfb_ms``, ``decode_tok_s``). The plugin's ``/metrics`` counts the
     prepare, its ``/debug`` endpoints answer, and its gRPC health service
     reads SERVING where ``grpc`` imports. The claim is unreserved,
-    unprepared by the plugin and deleted (the unprepare counted), the
+    unprepared by the plugin and deleted, the
     plugin stops on SIGTERM with exit code 0 (``stop_ms``), and no claim,
     checkpoint entry or CDI spec is left. Then the webhook process answers
     an admission corpus as the in-process ``review_response`` does, the
@@ -1783,12 +1875,15 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
 
     Two controller processes (``python -m ...compute_domain_controller
     --shards 4``, identities ``ctl-a`` and ``ctl-b``) run beside the
-    plugin, each scraping its ``/metrics`` every 0.2 s; the four
-    ``controller-shard-*`` Leases must split between them, and the holder
-    of shard 0 (the leader) runs the canary (a probe every 0.5 s), the
-    usage meter and the flight recorder (``controller_start_ms``: spawn to
-    both ``running`` lines; ``first_scrape_ms``: to both scraping the
-    plugin up; ``shards_split_ms``). Before the claim: a canary probe
+    plugin, each scraping its ``/metrics`` every 0.2 s. ``ctl-b`` starts
+    first and takes all four ``controller-shard-*`` Leases; once ``ctl-a``
+    has joined, the Leases must split between them with shard 0 on
+    ``ctl-b`` (:data:`CONTROLLER_LEADER`), whose shedding order keeps it.
+    The holder of shard 0 (the leader) runs the canary (a probe every
+    0.5 s), the usage meter and the flight recorder
+    (``controller_start_ms``: each spawn to its ``running`` line, the
+    larger; ``first_scrape_ms``: the first spawn to both scraping the
+    plugin up; ``shards_split_ms``: the first spawn to the split). Before the claim: a canary probe
     succeeded (its CDI spec, read from the plugin's CDI root, names one of
     the node's GPUs), each ``/debug/slo`` lists the default SLOs with
     ``allocation_admission`` and ``canary_availability`` and none firing,
@@ -1808,7 +1903,13 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
     within 5% of the claim's Ready-to-deleted span on the host's clock
     (``usage_gpu_s``, ``host_span_s``); it exits 0 on SIGTERM
     (``controller_stop_ms``), and no canary claim, checkpoint entry or CDI
-    spec is left."""
+    spec is left. The plugin's log records each Prepare and Unprepare
+    request by claim (:func:`prepare_record`): it must hold every request
+    that ``gpu_dra_requests_total`` counted, every claim it prepared (the
+    served one and each probe past admission) unprepared after, and each
+    request beyond one per claim matched by a logged republish or retry of
+    that claim (the claim watcher republishes through an idempotent
+    prepare when a racing status writer dropped its Ready entry)."""
     w = {**SELFHEAL_WIDTH, **(width or {})}
     try:
         import grpc  # noqa: F401
@@ -1866,17 +1967,33 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             # runs the canary, the usage meter and the recorder.
             specs = SpecWatch(f"{tmp}/cdi").start()
             t_ctl = time.monotonic()
-            ctls = {ident: procs.spawn(
-                ident, CONTROLLER_MODULE, "--api-endpoint", endpoint,
-                "--metrics-port", "0", "--fleet-scrape-targets",
-                f"node-0=127.0.0.1:{metrics_port}",
-                "--fleet-scrape-interval", "0.2", "--canary-interval", "0.5",
-                "--incident-dir", f"{tmp}/incidents-{ident}",
-                "--shards", str(CONTROLLER_SHARDS), "--identity", ident)
-                for ident in CONTROLLER_IDS}
-            for ctl in ctls.values():
-                procs.wait_log(ctl, r"(compute-domain-controller running)")
-            out["controller_start_ms"] = (time.monotonic() - t_ctl) * 1e3
+            ctls: dict = {}
+            start_ms = []
+            # The leader starts alone and takes every shard; the other
+            # joins after. An over-share replica sheds its shards in the
+            # reverse of its scan order, and the leader's scan starts at
+            # shard 0 (crc32 of its identity), so it never sheds shard 0
+            # down to a fair share of 2: the singletons stay on it while
+            # the phase runs, whatever the timing of the rebalance.
+            for ident in (CONTROLLER_LEADER, *(
+                    i for i in CONTROLLER_IDS if i != CONTROLLER_LEADER)):
+                t_spawn = time.monotonic()
+                ctls[ident] = procs.spawn(
+                    ident, CONTROLLER_MODULE, "--api-endpoint", endpoint,
+                    "--metrics-port", "0", "--fleet-scrape-targets",
+                    f"node-0=127.0.0.1:{metrics_port}",
+                    "--fleet-scrape-interval", "0.2",
+                    "--canary-interval", "0.5",
+                    "--incident-dir", f"{tmp}/incidents-{ident}",
+                    "--shards", str(CONTROLLER_SHARDS), "--identity", ident)
+                procs.wait_log(ctls[ident],
+                               r"(compute-domain-controller running)")
+                start_ms.append((time.monotonic() - t_spawn) * 1e3)
+                if ident == CONTROLLER_LEADER:
+                    procs.wait_until(ctls[ident], lambda: _shard_holders(
+                        client) == [CONTROLLER_LEADER] * CONTROLLER_SHARDS,
+                        "the first controller holding every shard")
+            out["controller_start_ms"] = max(start_ms)
             ctl_base = {ident: "http://127.0.0.1:" + procs.wait_log(
                 ctl, r"metrics on http://127\.0\.0\.1:(\d+)/metrics")
                 for ident, ctl in ctls.items()}
@@ -1902,6 +2019,7 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             out["shards_split_ms"] = (time.monotonic() - t_ctl) * 1e3
             split = _shard_holders(client)
             leader = split[0]
+            require(leader == CONTROLLER_LEADER, f"shard holders {split}")
             follower = next(i for i in CONTROLLER_IDS if i != leader)
             procs.wait_until(ctls[leader], lambda: any(
                 h["outcome"] == "ok"
@@ -1939,9 +2057,9 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             # parent of this process's allocation span and of the plugin
             # process's spans.
             name, ns = "proc-claim", PROCESSES_TENANT
-            n_probes = len(_canary_rows(ctl_get(leader, "/debug/canary")))
-            procs.wait_until(ctls[leader], lambda: len(_canary_rows(
-                ctl_get(leader, "/debug/canary"))) > n_probes,
+            newest = _newest_probe(ctl_get(leader, "/debug/canary"))
+            procs.wait_until(ctls[leader], lambda: _newest_probe(
+                ctl_get(leader, "/debug/canary")) > newest,
                 "a canary probe")
             tracer = tracing.default_tracer().enable()
             t0 = time.monotonic()
@@ -2065,9 +2183,9 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                     for r in u["live"] if r["namespace"] == ns]
             require([(r["name"], r["gpus"]) for r in live] == [(name, 1)],
                     f"the usage meter's live claims: {live}")
-            n_probes = len(_canary_rows(ctl_get(leader, "/debug/canary")))
-            procs.wait_until(ctls[leader], lambda: len(_canary_rows(
-                ctl_get(leader, "/debug/canary"))) > n_probes,
+            newest = _newest_probe(ctl_get(leader, "/debug/canary"))
+            procs.wait_until(ctls[leader], lambda: _newest_probe(
+                ctl_get(leader, "/debug/canary")) > newest,
                 "a canary probe during the claim")
             counted = {}
             for i in CONTROLLER_IDS:
@@ -2151,11 +2269,19 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             out["controller_stop_ms"] = procs.stop(successor)
             specs.stop()
             # Every claim the plugin prepared (the served one and each
-            # probe past admission) it has unprepared.
+            # probe past admission) it has unprepared: read per claim from
+            # the plugin's own log, every counted request in it.
             text = _http_get(f"{base}/metrics").decode()
             prepares, unprepares = (
                 _metric(text, "gpu_dra_requests_total", driver=DRIVER_NAME,
                         operation=op) for op in ("prepare", "unprepare"))
+            with open(plugin.log_path) as f:
+                record = prepare_record(f.read())
+            prepared = {u for op, claims in record["requests"]
+                        for u, outcome in claims
+                        if op == "prepare" and outcome == "ok"}
+            repeated = {op: sum(r.values())
+                        for op, r in record["repeats"].items()}
             out.update(canary_ok=len(ok), canary_refused=len(refused),
                        usage_gpu_s=usage_gpu_s, host_span_s=host_span_s)
             line("processes", usage_gpu_s=usage_gpu_s,
@@ -2188,9 +2314,12 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             require(set(firing) <= allowed, f"SLOs firing: {firing}")
             require({b["slo"] for b in bundles} <= allowed,
                     f"incident bundles: {bundles}")
-            require(prepares == unprepares >= 1 + len(ok),
-                    f"prepare/unprepare counters {prepares}/{unprepares} "
-                    f"for 1 claim and {len(ok)} probes")
+            problems = prepare_record_problems(
+                record, {"prepare": prepares, "unprepare": unprepares})
+            require(not problems, f"the plugin's request record: {problems}")
+            require(uid in prepared and len(prepared) >= 1 + len(ok),
+                    f"{len(prepared)} claims prepared for 1 claim and "
+                    f"{len(ok)} probes")
             claims_left = [o["metadata"]["name"]
                            for o in client.list("ResourceClaim")]
             out["stop_ms"] = procs.stop(plugin)
@@ -2199,7 +2328,8 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
                     Checkpoint.unmarshal(f.read()).prepared_claims)
             specs_left = sorted(os.listdir(f"{tmp}/cdi"))
             line("processes", prepare_requests=prepares,
-                 unprepare_requests=unprepares,
+                 unprepare_requests=unprepares, claims_prepared=len(prepared),
+                 republish_or_retry=json.dumps(repeated),
                  stop_ms=out["stop_ms"], plugin_exit=plugin.returncode,
                  residue=json.dumps(claims_left + entries_left + specs_left))
             require(not (claims_left or entries_left or specs_left),
@@ -2390,6 +2520,127 @@ def phase_soak(card: str, rng: np.random.Generator, device=None,
     max_abs_err = soak_check(rng, e) if on_card else None
     return {"launches": n, "decode_steps": sv["decode_steps"],
             "max_abs_err": max_abs_err, "wall_s": wall}
+
+
+#: The scale phase's replica engines: one attention layer of Llama-2-7B at
+#: the serve phase's width (32 slots, 32 heads x 128, a 4096-token cache),
+#: the JAX harness's queue of 128 and 16-token step budget a GPU; no
+#: modeled device sleep (the card decodes).
+SCALE_ENGINE = {"max_batch": BATCH, "heads": HEADS, "head_dim": HEAD_DIM,
+                "kv_cap": KV_CAP, "tokens_per_chip_step": 16,
+                "modeled_chip_tok_s": 1e9, "queue_cap": 128}
+
+
+#: the claim watcher's lines for a claim its loop adopted from the
+#: checkpoint at start and then unprepared: released, or deleted, while no
+#: loop ran (the scale harness restarts node 0's loop mid-traffic)
+ADOPTED_RELEASED = "released while no loop ran"
+ADOPTED_GONE = "prepared before this loop started is gone"
+
+
+class _LogCount(logging.Handler):
+    """Counts the log records whose message holds each of ``needles``."""
+
+    def __init__(self, *needles: str):
+        super().__init__(logging.INFO)
+        self.needles = needles
+        self.counts: collections.Counter = collections.Counter()
+
+    def emit(self, record: logging.LogRecord) -> None:
+        msg = record.getMessage()
+        for n in self.needles:
+            if n in msg:
+                self.counts[n] += 1
+
+
+def phase_scale(card: str, device=None, engine: dict | None = None,
+                **harness) -> dict:
+    """``run_serving_scale`` at the JAX harness's defaults (2 measured
+    rounds of 1.5 s arms at 1 and 4 replicas, the four-phase autoscale leg
+    of 0.8 s phases through a GPU-vanish flap and a prepare-loop restart,
+    the two-shard controller leg; 2 mock ``h100-8`` nodes, 2 GPUs a claim;
+    ``harness`` overrides them), the engines on the card at
+    :data:`SCALE_ENGINE`'s width (``engine`` overrides it, ``device`` moves
+    it). Its own path: the counts are zeroed before it and read after it.
+    Also printed: how many claims node 0's restarted claim watcher adopted
+    from its checkpoint and unprepared (released or deleted while no loop
+    ran). Hard: no error session and no leak, the accounting identity,
+    ``kv_isolation_max_err`` under F32_TOL, the autoscale and shard legs
+    ok, TTFB p99 within the JAX harness's 1.5 s, and the replicas'
+    decode-kernel launches equal to their decode steps (none on a CPU
+    engine). The scaling ratio is printed, not held: the replicas share one
+    card with real device time. On the card the engines' decode shape, q
+    [32, 32, ql, 128] against a [32, 32, 4096, 128] cache, is the one
+    ``phase_check`` holds the kernel to at full width."""
+    e = {**SCALE_ENGINE, **(engine or {})}
+    on_card = torch.device("cuda" if device is None else device).type \
+        == "cuda"
+    if on_card:
+        require((e["max_batch"], e["heads"], e["head_dim"], e["kv_cap"])
+                == (BATCH, HEADS, HEAD_DIM, KV_CAP),
+                f"scale engines {e} are not at phase_check's shape")
+        torch.cuda.reset_peak_memory_stats(0)
+    watcher = logging.getLogger(
+        "k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher")
+    adopted = _LogCount(ADOPTED_RELEASED, ADOPTED_GONE)
+    level = watcher.level
+    watcher.setLevel(logging.INFO)
+    watcher.addHandler(adopted)
+    t0 = time.monotonic()
+    reset_launches()
+    try:
+        r = run_serving_scale(device=device, serving_engine=e, **harness)
+    finally:
+        watcher.removeHandler(adopted)
+        watcher.setLevel(level)
+    n = launches()["decode_attention"]
+    wall = time.monotonic() - t0
+    tokens, auto, shard = r["tokens"], r["autoscale"], r["shard"]
+    replica_launches = n - tokens["warmup_launches"]
+    line("scale", card=json.dumps(card), engine=json.dumps(e),
+         rounds=r["rounds"], arm_window_s=r["arm_window_s"],
+         replicas_hi=r["replicas_hi"], gpus_per_claim=r["gpus_per_claim"],
+         tokens_s_lo=r["tokens_s_lo"], tokens_s_hi=r["tokens_s_hi"],
+         scaling_x=r["scaling_x"], per_round=json.dumps(r["per_round"]))
+    line("scale", ttfb_count=r["ttfb"]["count"],
+         ttfb_p50_ms=r["ttfb"]["p50_s"] * 1e3,
+         ttfb_p99_ms=r["ttfb"]["p99_s"] * 1e3,
+         ttfb_bound_ms=r["ttfb"]["bound_s"] * 1e3, sessions=r["sessions"],
+         ok_sessions=r["ok_sessions"], error_sessions=r["error_sessions"],
+         accounting=json.dumps(r["accounting"]),
+         kv_isolation_max_err=r["kv_isolation_max_err"])
+    line("scale", autoscale_events=json.dumps(auto["events"]),
+         autoscale_tenants=json.dumps(auto["tenants"]),
+         recovered=json.dumps(auto["recovered"]),
+         fault_window_errors=auto["fault_window_errors"],
+         shard_leaders=json.dumps(shard["leaders"]),
+         leader_pinned=shard["leader_pinned"],
+         ledger_violations=len(shard["ledger_violations"]),
+         churn_sessions=shard["churn_sessions"], churn_ok=shard["churn_ok"])
+    line("scale", adopted_released=adopted.counts[ADOPTED_RELEASED],
+         adopted_gone=adopted.counts[ADOPTED_GONE],
+         leak_count=r["leak_count"], errors=json.dumps(r["errors"]),
+         decode_tokens=tokens["decode"], decode_steps=tokens["decode_steps"],
+         warmup_launches=tokens["warmup_launches"], kernel_launches=n,
+         peak_memory_gb=(torch.cuda.max_memory_allocated(0) / 1e9
+                         if on_card else "not measured (CPU)"),
+         wall_s=wall)
+    require(r["error_count"] == 0 and r["error_sessions"] == 0,
+            f"scale errors: {r['errors']}")
+    require(r["leak_count"] == 0, f"scale leaks: {r['leaks']}")
+    require(r["accounting"]["ok"], f"accounting: {r['accounting']}")
+    require(r["kv_isolation_max_err"] < F32_TOL,
+            f"kv_isolation_max_err {r['kv_isolation_max_err']}")
+    require(auto["ok"], f"autoscale leg: {auto}")
+    require(shard["ok"], f"shard leg: {shard}")
+    require(r["ttfb"]["ok"], f"TTFB p99 {r['ttfb']['p99_s']} s over "
+                             f"{r['ttfb']['bound_s']} s")
+    require(tokens["decode_steps"] > 0 and replica_launches == (
+        tokens["decode_steps"] if on_card else 0),
+        f"{replica_launches} replica launches for {tokens['decode_steps']} "
+        "decode steps")
+    return {"launches": n, "decode_steps": tokens["decode_steps"],
+            "scaling_x": r["scaling_x"], "wall_s": wall}
 
 
 def servesmoke_check(rng: np.random.Generator) -> float:
@@ -2808,6 +3059,7 @@ def main(argv=None) -> int:
     phase_selfheal(card, args.seed, found["lib"], found["gpu"])
     processes = phase_processes(card, args.seed, found["gpu"])
     soak = phase_soak(card, rng)
+    scale = phase_scale(card)
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -2822,7 +3074,7 @@ def main(argv=None) -> int:
         "source": "k8s_dra_driver_tpu_torch/csrc/decode_attention.cu",
         "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:125",
         "launches": (served["launches"] + processes["launches"]
-                     + soak["launches"]),
+                     + soak["launches"] + scale["launches"]),
         "max_abs_err": max(max_abs_err, soak["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

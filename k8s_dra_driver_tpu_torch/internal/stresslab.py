@@ -1,7 +1,8 @@
-"""Stress harness: tenant replicas through the claim path, and the soak.
+"""Stress harness: tenant replicas through the claim path, the soak, serving
+at scale, and the churn, fleet and chaos harnesses.
 
-The pieces of the JAX package's ``internal/stresslab.py`` that the serving
-smoke and the self-healing soak need:
+The pieces of the JAX package's ``internal/stresslab.py`` that the port
+has so far:
 
 - :class:`ServingReplica` and :func:`run_serving_smoke`. A session creates
   a ResourceClaim, has it allocated and prepared by the GPU kubelet plugin
@@ -16,12 +17,21 @@ smoke and the self-healing soak need:
   through a node kill) and :func:`run_serving_soak` (tenant replicas
   decoding through a node kill while the ``claim_ready`` burn-rate SLO
   pages and the flight recorder captures the incident).
+- :func:`run_serving_scale`, the serving dataplane at scale: interleaved
+  1-vs-N replica throughput arms, an autoscale leg through faults, and a
+  sharded-controller leg, then the residue, accounting and KV-isolation
+  audits.
 - :func:`run_controller_shard_scale` and :func:`run_shard_smoke`, the
   controller-sharding legs: one replica against N shard-gated replicas
   on one workload, then replica-kill failover with the usage meter's
   exact conservation across incarnations, a partitioned replica's
   handoff audited by the epoch-stamped op ledger, and rebalance
   hysteresis.
+- :func:`run_claim_churn` (both kubelet plugins churned under optional
+  fault schedules, with a leak audit), :func:`run_node_fleet` (the API
+  machinery under a fleet of informer stacks), :func:`run_cd_fleet` (a
+  ComputeDomain fleet through the live controller) and
+  :func:`run_cross_kind_writes` (the sharded store against one lock).
 
 The serving paths run on the card unless the caller asks for the CPU
 (``device="cpu"``), where the engine uses the decode kernel's plain
@@ -500,6 +510,423 @@ def run_serving_smoke(tmpdir: Optional[str] = None,
         "device": rec["device"],
         "ok": (rec["outcome"] == CLAIM_OK and rep.completed > 0
                and accounted and not leaks),
+    }
+
+
+#: the scale harness's engine on the CPU (the JAX harness's): 32 slots
+#: over a 64-token cache at the engine's default width, a queue of 128,
+#: device time modeled at 500 tokens/s a GPU
+SCALE_SERVING_ENGINE = dict(max_batch=32, kv_cap=64, tokens_per_chip_step=16,
+                            modeled_chip_tok_s=500.0, queue_cap=128)
+
+
+def run_serving_scale(
+    measure_rounds: int = 2,
+    arm_window_s: float = 1.5,
+    replicas_hi: int = 4,
+    gpus_per_claim: int = 2,
+    n_nodes: int = 2,
+    profile: str = "h100-8",
+    serve_s: float = 0.45,
+    deadline_s: float = 2.0,
+    ttfb_bound_s: float = 1.5,
+    autoscale: bool = True,
+    autoscale_phase_s: float = 0.8,
+    shards: int = 2,
+    tmpdir: Optional[str] = None,
+    serving_engine: Optional[dict] = None,
+    device: Union[str, torch.device, None] = None,
+) -> dict:
+    """Serving-dataplane scale harness (the JAX package's, on GPUs): tenant
+    replicas claim GPUs through the real claim path, bind decode engines to
+    the GPUs their CDI specs name, and serve continuous-batched traffic —
+    measured, autoscaled and audited.
+
+    **Throughput arms**: the aggregate decode rate is measured as 1 replica
+    and as ``replicas_hi`` replicas in the same run, alternating the arms'
+    order each round so drift lands on both; the drain barrier sits outside
+    the measured window. Each claim takes ``gpus_per_claim`` whole GPUs of
+    a mock ``h100-8`` node (2, as the JAX harness's ``chips_per_claim``, so
+    each engine's modeled rate matches; at ``replicas_hi=4`` each node is
+    half full, where the JAX harness's 4-chip hosts are full).
+
+    **Autoscale leg**: two tenants follow a four-phase curve of replica
+    counts, serving through a GPU-vanish flap (``set_unhealthy`` on node
+    1's GPU 0) and a restart of node 0's prepare loop; scale-down drains,
+    and every tenant must serve green again after the faults heal.
+
+    **Shard leg** (``shards`` > 1): a tenant replica churns claims while
+    ``shards`` shard-gated ComputeDomain controllers race six domains —
+    the shared op ledger must stay violation-free and the usage-meter
+    singleton pinned to the leader shard's holder.
+
+    The end audit: no claim, checkpoint entry or CDI spec left, the
+    admission accounting identity across every replica, and the
+    KV-isolation oracle's maximum deviation.
+
+    ``device``: where the engines run — the card by default (every engine
+    on it: the nodes are mock nodes, so a claim's GPU UUIDs map to the
+    mock's indices, which keeps a claim's two GPUs two, and the engine is
+    placed on the card), ``"cpu"`` for the decode kernel's plain version;
+    without a card and without ``device="cpu"`` it raises. Engines take
+    ``serving_engine`` (default :data:`SCALE_SERVING_ENGINE`). The keys are
+    the JAX harness's (``gpus_per_claim`` for ``chips_per_claim``);
+    ``tokens`` adds ``decode_steps`` and ``warmup_launches``, the counts a
+    caller holds the decode kernel's launches to."""
+    from k8s_dra_driver_tpu_torch.gpulib.device_lib import MockDeviceLib
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+    from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+    from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
+    from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import (
+        NodePrepareLoop,
+    )
+    from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+        DriverConfig,
+        GpuDriver,
+    )
+
+    dev = _resolve_device(device)
+    tmp = tmpdir or tempfile.mkdtemp(prefix="serving-scale-")
+    client = FakeClient()
+    client.create(new_object(
+        "DeviceClass", DRIVER_NAME,
+        spec={"selectors": [{"cel": {
+            "expression": "device.attributes['type'] == 'gpu'"}}]}))
+    libs: list = []
+    drivers: list = []
+    loops: list = [None] * n_nodes
+    for i in range(n_nodes):
+        client.create(new_object("Node", f"node-{i}"))
+        lib = MockDeviceLib(profile, host_index=i)
+        libs.append(lib)
+        drv = GpuDriver(client, DriverConfig(
+            node_name=f"node-{i}", state_dir=f"{tmp}/gpu-{i}",
+            cdi_root=f"{tmp}/cdi-{i}", env={}, retry_timeout=2.0,
+        ), device_lib=lib).start()
+        drivers.append(drv)
+        loops[i] = NodePrepareLoop(client, drv, DRIVER_NAME,
+                                   f"node-{i}", namespace="default").start()
+    uuids = {g.uuid: g.index for lib in libs for g in lib.enumerate_gpus()}
+    alloc = Allocator(client)
+    metrics = ServingMetrics()
+    engine_kwargs = dict(serving_engine or SCALE_SERVING_ENGINE)
+    warmup_launches = _serving_warmup(engine_kwargs, dev)
+
+    def _cdi(node: str, uid: str):
+        return drivers[int(node.rsplit("-", 1)[1])].cdi.read_claim_spec(uid)
+
+    all_reps: list[ServingReplica] = []
+
+    def _mk_replica(j: int, tenant: Optional[str] = None,
+                    node: Optional[str] = None,
+                    serve: float = serve_s) -> ServingReplica:
+        r = ServingReplica(
+            name=f"r{len(all_reps)}", tenant=tenant or f"tenant-{j}",
+            client=client, allocator=alloc,
+            node=node or f"node-{j % n_nodes}", metrics=metrics,
+            cdi_lookup=_cdi, gpus_per_claim=gpus_per_claim,
+            serve_s=serve, deadline_s=deadline_s,
+            engine_kwargs=engine_kwargs, device=dev, uuids=uuids)
+        all_reps.append(r)
+        return r
+
+    errors: list = []
+    ttfb_all: list[float] = []
+    arm_tput: dict[int, list[float]] = {1: [], replicas_hi: []}
+    auto_result = None
+    shard_result = None
+
+    def _decode_total(tenants: list[str]) -> float:
+        return sum(metrics.tokens_total.value(tenant=t, kind="decode")
+                   for t in tenants)
+
+    try:
+        # One unmeasured warm session: claim path + engine.
+        warm = _mk_replica(0)
+        w = warm.serve_once()
+        if w["outcome"] != CLAIM_OK:
+            errors.append(("warmup", w["error"]))
+
+        def _run_arm(n: int) -> None:
+            reps = [_mk_replica(j) for j in range(n)]
+            tenants = [r.tenant for r in reps]
+            for r in reps:
+                r.start()
+            settle = time.monotonic() + 10.0
+            while time.monotonic() < settle:
+                if all(r.ok >= 1 for r in reps):
+                    break
+                time.sleep(0.02)
+            t0 = time.monotonic()
+            tok0 = _decode_total(tenants)
+            time.sleep(arm_window_s)
+            tok1 = _decode_total(tenants)
+            t1 = time.monotonic()
+            for r in reps:           # drain barrier OUTSIDE the window
+                r.stop()
+            arm_tput[n].append((tok1 - tok0) / max(t1 - t0, 1e-9))
+            for r in reps:
+                ttfb_all.extend(r.ttfb_s)
+                if r.errors:
+                    errors.append((f"arm{n}:{r.tenant}", r.last_error))
+
+        for rnd in range(measure_rounds):
+            for n in ([1, replicas_hi] if rnd % 2 == 0
+                      else [replicas_hi, 1]):
+                _run_arm(n)
+
+        # -- autoscale + resilience leg --------------------------------
+        if autoscale:
+            curve = [
+                {"tenant-a": 1, "tenant-b": 1},
+                {"tenant-a": 2, "tenant-b": 1},   # + GPU-vanish flap
+                {"tenant-a": 1, "tenant-b": 2},   # + prepare-loop restart
+                {"tenant-a": 1, "tenant-b": 1},
+            ]
+            fleets: dict[str, list[ServingReplica]] = {
+                t: [] for t in curve[0]}
+            spawned = [0]
+
+            def _scale_to(targets: dict[str, int]) -> None:
+                for tenant, want in targets.items():
+                    fleet = fleets[tenant]
+                    while len(fleet) < want:
+                        r = _mk_replica(spawned[0], tenant=tenant,
+                                        node=f"node-{len(fleet) % n_nodes}",
+                                        serve=0.3)
+                        spawned[0] += 1
+                        fleet.append(r)
+                        r.start()
+                    while len(fleet) > want:
+                        # Scale-down is the drain contract: stop() lets
+                        # the in-flight session finish; anything unshed
+                        # shows up in the accounting audit.
+                        fleet.pop().stop()
+
+            events: list[str] = []
+            for pi, targets in enumerate(curve):
+                _scale_to(targets)
+                if pi == 1:
+                    libs[1 % n_nodes].set_unhealthy(
+                        0, reason="serving GPU-vanish flap")
+                    events.append("gpu_vanish")
+                if pi == 2:
+                    libs[1 % n_nodes].set_healthy(0)
+                    loops[0].stop()
+                    loops[0] = NodePrepareLoop(
+                        client, drivers[0], DRIVER_NAME, "node-0",
+                        namespace="default").start()
+                    events.append("daemon_restart")
+                time.sleep(autoscale_phase_s)
+            for fleet in fleets.values():
+                for r in fleet:
+                    r.stop()
+            # Green after the faults: one synchronous session per tenant
+            # must serve end to end now that the flap healed and the
+            # restarted loop took over.
+            recovered = {t: fleets[t][0].serve_once()["outcome"] == CLAIM_OK
+                         for t in fleets}
+            fault_window_errors = sum(
+                r.errors for f in fleets.values() for r in f)
+            auto_result = {
+                "phases": len(curve),
+                "events": events,
+                "tenants": {t: {"sessions": sum(r.sessions for r in f),
+                                "ok": sum(r.ok for r in f),
+                                "errors": sum(r.errors for r in f)}
+                            for t, f in fleets.items()},
+                "fault_window_errors": fault_window_errors,
+                "recovered": recovered,
+                "ok": all(recovered.values()),
+            }
+            if not all(recovered.values()):
+                errors.append(("autoscale_recovery", str(recovered)))
+
+        # -- sharded-controller compatibility leg ----------------------
+        if shards > 1:
+            from k8s_dra_driver_tpu_torch.api.computedomain import (
+                new_compute_domain,
+            )
+            from k8s_dra_driver_tpu_torch.pkg.shardmap import ShardOpLedger
+            from k8s_dra_driver_tpu_torch.pkg.usage import (
+                UsageMeter,
+                UsageMetrics,
+            )
+            from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller \
+                .controller import ComputeDomainController
+            from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller \
+                .sharding import (
+                    LEADER_SHARD,
+                    ShardedController,
+                    SingletonHandle,
+                )
+
+            ledger = ShardOpLedger()
+            singleton_log: list[tuple[str, str]] = []
+
+            def _meter_factory(ident: str):
+                def make():
+                    m = UsageMeter(client, namespace="default",
+                                   metrics=UsageMetrics())
+                    singleton_log.append((ident, "start"))
+                    return SingletonHandle(
+                        m, lambda: singleton_log.append((ident, "stop")))
+                return make
+
+            sharded: list = []
+            controllers: list = []
+            for i in range(shards):
+                ident = f"serve-shard-{i}"
+                s = ShardedController(
+                    client, ident, shards, lease_prefix="serve-shard",
+                    # Static ownership: the leg audits gate discipline
+                    # under claim churn, not lease churn.
+                    lease_duration=3600.0, renew_deadline=2400.0,
+                    ledger=ledger,
+                    singleton_factories={
+                        "usage-meter": _meter_factory(ident)})
+                c = ComputeDomainController(client, workers=1,
+                                            shard_gate=s.gate)
+                c.cleanup.interval = 3600.0
+                c.cleanup.min_gap = 3600.0
+                sharded.append(s)
+                controllers.append(c)
+            for s in sharded:
+                s.shard_map._renew_membership()
+            settled = _settle_shard_fleet(sharded, advance=lambda: None,
+                                          rounds=50)
+            churn = _mk_replica(0, tenant="tenant-shard", serve=0.25)
+            churn.start()
+            cd_names = []
+            for di in range(6):
+                cd = client.create(new_compute_domain(
+                    f"serve-cd-{di}", "default", num_nodes=1))
+                cd_names.append(cd["metadata"]["name"])
+            for _ in range(4):
+                for nm in cd_names:
+                    obj = client.get("ComputeDomain", nm, "default")
+                    for c in controllers:
+                        # Both replicas race every domain; the shard
+                        # gate must admit exactly one.
+                        c.reconcile(obj)
+                time.sleep(0.05)
+            churn.stop()
+            # Read leadership before stopping: stop() releases the
+            # leases, so confidence (rightly) drops to zero after.
+            leaders = [s.identity for s in sharded
+                       if s.shard_map.confident(LEADER_SHARD)]
+            for s in sharded:
+                s.stop()
+            starts = [e for e in singleton_log if e[1] == "start"]
+            leader_pinned = (len(leaders) == 1 and len(starts) == 1
+                             and starts[0][0] == leaders[0])
+            violations = ledger.violations()
+            shard_result = {
+                "shards": shards,
+                "settled": settled,
+                "ledger_violations": violations[:5],
+                "leaders": leaders,
+                "singleton_starts": [e[0] for e in starts],
+                "leader_pinned": leader_pinned,
+                "churn_sessions": churn.sessions,
+                "churn_ok": churn.ok,
+                "churn_errors": churn.errors,
+                "ok": (settled and leader_pinned and not violations
+                       and churn.ok > 0 and churn.errors == 0),
+            }
+            if violations:
+                errors.append(("shard_ledger", str(violations[:3])))
+            if not leader_pinned:
+                errors.append(("shard_singleton",
+                               f"leaders={leaders} starts={starts}"))
+            if churn.errors:
+                errors.append(("shard_churn", churn.last_error))
+    finally:
+        for r in all_reps:
+            r.stop()
+        for lp in loops:
+            if lp is not None:
+                lp.stop()
+        for d in drivers:
+            d.stop()
+
+    # -- end audits --------------------------------------------------------
+    leaks: list[str] = []
+    try:
+        for c in client.list("ResourceClaim", "default"):
+            nm = (c.get("metadata") or {}).get("name", "")
+            if nm.startswith("serve-"):
+                leaks.append(f"claim:{nm}")
+    except Exception as e:  # noqa: BLE001 — a failed audit LIST is
+        # itself a failure, not a pass
+        leaks.append(f"audit-list-failed:{e!r}")
+    for i, drv in enumerate(drivers):
+        try:
+            for _uid, pc in sorted(drv.state.prepared_claims_nolock()
+                                   .items()):
+                if pc.name.startswith("serve-"):
+                    leaks.append(f"checkpoint:node-{i}:{pc.name}")
+        except Exception:  # noqa: BLE001 — a stopped driver's state dir
+            # is still readable; a race here would re-read empty
+            pass
+        leaks += [f"cdi:node-{i}:{uid}" for uid in drv.cdi.list_claim_uids()]
+    if tmpdir is None:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    agg = {k: sum(getattr(r, k) for r in all_reps)
+           for k in ("sessions", "ok", "errors", "submitted", "completed",
+                     "shed", "rejected", "prefill_tokens",
+                     "decode_tokens", "decode_steps")}
+    accounted = (agg["completed"] + agg["shed"] + agg["rejected"]
+                 == agg["submitted"])
+    if not accounted:
+        errors.append(("accounting", str(agg)))
+    if leaks:
+        errors.append(("residue", str(leaks[:5])))
+    kv_err = max((r.kv_isolation_max_err for r in all_reps), default=0.0)
+
+    t_lo = _trimmed_mean(arm_tput[1], lo=0.0, hi=0.98)
+    t_hi = _trimmed_mean(arm_tput[replicas_hi], lo=0.0, hi=0.98)
+    scaling = round(t_hi / t_lo, 2) if t_lo else 0.0
+    ttfb_p99 = _pct(ttfb_all, 0.99)
+    return {
+        "rounds": measure_rounds,
+        "arm_window_s": arm_window_s,
+        "replicas_hi": replicas_hi,
+        "gpus_per_claim": gpus_per_claim,
+        "tokens_s_lo": round(t_lo, 1),
+        "tokens_s_hi": round(t_hi, 1),
+        "scaling_x": scaling,
+        "per_round": {str(k): [round(x, 1) for x in v]
+                      for k, v in arm_tput.items()},
+        "ttfb": {
+            "count": len(ttfb_all),
+            "p50_s": round(_pct(ttfb_all, 0.50), 4),
+            "p99_s": round(ttfb_p99, 4),
+            "bound_s": ttfb_bound_s,
+            "ok": bool(ttfb_all) and ttfb_p99 <= ttfb_bound_s,
+        },
+        "sessions": agg["sessions"],
+        "ok_sessions": agg["ok"],
+        "error_sessions": agg["errors"],
+        "accounting": {
+            "submitted": agg["submitted"],
+            "completed": agg["completed"],
+            "shed": agg["shed"],
+            "rejected": agg["rejected"],
+            "ok": accounted,
+        },
+        "tokens": {"prefill": agg["prefill_tokens"],
+                   "decode": agg["decode_tokens"],
+                   "decode_steps": agg["decode_steps"],
+                   "warmup_launches": warmup_launches},
+        "kv_isolation_max_err": kv_err,
+        "autoscale": auto_result,
+        "shard": shard_result,
+        "leaks": leaks[:10],
+        "leak_count": len(leaks),
+        "errors": errors[:10],
+        "error_count": len(errors),
     }
 
 
@@ -3014,3 +3441,905 @@ def run_shard_smoke() -> dict:
           and not res["leaks"]
           and not res["stuck"])
     return {"ok": ok, "result": res}
+
+
+# -- Fault injection, churn and fleets ---------------------------------------
+
+
+def _reject_crash_schedules(plan, harness: str, what: str) -> None:
+    """A FaultCrash would kill a harness thread with nothing playing the
+    restarted process; crash schedules belong to the kill-restart tests."""
+    crashers = [n for n, s in plan.schedules.items()
+                if s.mode.startswith("crash")]
+    if crashers:
+        raise ValueError(
+            f"{harness} cannot host crash schedules {crashers}; a "
+            f"FaultCrash would kill {what} with nothing playing the "
+            "restarted process — use the kill-restart tests")
+
+
+def _fired_by_point(plan) -> dict[str, int]:
+    fired: dict[str, int] = {}
+    for point, _hit, _action in plan.log():
+        fired[point] = fired.get(point, 0) + 1
+    return fired
+
+
+def run_cd_fleet(
+    n_domains: int = 32,
+    workers: int = 4,
+    reconcile_latency_s: float = 0.005,
+    ready_timeout_s: float = 120.0,
+    settle_timeout_s: float = 10.0,
+    storm_window_s: float = 0.75,
+    faults: Optional[str] = None,
+    fault_seed: int = 0,
+) -> dict:
+    """Control-plane convergence: converge an ``n_domains`` ComputeDomain
+    fleet through the live controller loop (informers + workqueue worker
+    pool) and measure time-to-all-Ready.
+
+    Each CD (numNodes=1) gets a Ready clique at once, so convergence is
+    pure control-plane work. ``reconcile_latency_s`` holds every reconcile
+    open through the ``cd.controller.reconcile`` latency fault point — the
+    stand-in for a real reconcile's API round-trips, without which an
+    in-memory reconcile is GIL-bound and shows no worker scaling.
+
+    After convergence the harness waits for the queue to go quiet and
+    counts reconciles over ``storm_window_s``: a converged fleet must make
+    none (anything else is a self-sustaining event storm).
+
+    ``faults``: an extra fault schedule (``GPU_DRA_FAULTS`` syntax), e.g.
+    ``cd.controller.patch=rate:0.2``; crash schedules are rejected. The
+    audit then checks convergence despite injection: every CD Ready,
+    exactly one set of children per CD, nothing orphaned."""
+    from k8s_dra_driver_tpu_torch.api.computedomain import (
+        STATUS_READY,
+        new_clique,
+        new_compute_domain,
+    )
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+    from k8s_dra_driver_tpu_torch.pkg import faultpoints
+    from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller \
+        .controller import ComputeDomainController
+
+    plan = faultpoints.FaultPlan(faults or "", seed=fault_seed)
+    _reject_crash_schedules(plan, "run_cd_fleet", "a workqueue worker thread")
+    if reconcile_latency_s > 0:
+        plan.add("cd.controller.reconcile", f"latency:{reconcile_latency_s}")
+
+    client = FakeClient()
+    controller = ComputeDomainController(client, workers=workers)
+    controller.cleanup.interval = 3600.0  # the periodic sweep is noise here
+
+    def reconcile_totals() -> dict[str, float]:
+        return {outcome: controller.metrics.reconciles_total.value(
+                    outcome=outcome)
+                for outcome in ("success", "error", "teardown")}
+
+    prev_plan = faultpoints.active_plan()
+    faultpoints.activate(plan)
+    try:
+        controller.start()
+        t0 = time.monotonic()
+        names = []
+        for i in range(n_domains):
+            cd = client.create(new_compute_domain(
+                f"fleet-{i}", "default", num_nodes=1))
+            names.append(cd["metadata"]["name"])
+            clique = new_clique(cd["metadata"]["uid"], "slice0", "default",
+                                owner_cd_name=cd["metadata"]["name"])
+            clique["daemons"] = [{"nodeName": f"node-{i}", "index": 0,
+                                  "status": STATUS_READY}]
+            client.create(clique)
+
+        deadline = t0 + ready_timeout_s
+        converged = False
+
+        def cd_statuses() -> list:
+            return [(client.get("ComputeDomain", n, "default").get("status")
+                     or {}).get("status") for n in names]
+
+        while time.monotonic() < deadline:
+            if all(s == STATUS_READY for s in cd_statuses()):
+                converged = True
+                break
+            time.sleep(0.01)
+        t_ready = time.monotonic() - t0
+
+        # Settle: wait for the queue to drain and the counters to stop
+        # moving, then measure the storm window.
+        settle_deadline = time.monotonic() + settle_timeout_s
+        last = reconcile_totals()
+        quiet_since = time.monotonic()
+        while time.monotonic() < settle_deadline:
+            time.sleep(0.05)
+            cur = reconcile_totals()
+            if cur != last or len(controller.queue):
+                last = cur
+                quiet_since = time.monotonic()
+            elif time.monotonic() - quiet_since >= 0.25:
+                break
+        before = reconcile_totals()
+        time.sleep(storm_window_s)
+        after = reconcile_totals()
+        storm_events = int(sum(after.values()) - sum(before.values()))
+
+        # Audit: exactly one child set per CD, nothing extra (a retried
+        # reconcile that minted a second DaemonSet/RCT is a dup bug).
+        leaks: dict[str, Any] = {}
+        ds_names = sorted(d["metadata"]["name"]
+                          for d in client.list("DaemonSet", "default"))
+        want_ds = sorted(f"{n}-daemon" for n in names)
+        if ds_names != want_ds:
+            leaks["daemonsets"] = {"got": ds_names, "want": want_ds}
+        rct_names = sorted(r["metadata"]["name"] for r in client.list(
+            "ResourceClaimTemplate", "default"))
+        want_rct = sorted([f"{n}-daemon" for n in names]
+                          + [f"{n}-channel" for n in names])
+        if rct_names != want_rct:
+            leaks["rcts"] = {"got": rct_names, "want": want_rct}
+        if not converged:
+            leaks["not_ready"] = [
+                n for n, s in zip(names, cd_statuses()) if s != STATUS_READY]
+    finally:
+        faultpoints.deactivate()
+        controller.stop()
+        if prev_plan is not None:
+            faultpoints.activate(prev_plan)
+
+    totals = reconcile_totals()
+    reconciles = sum(totals.values())
+    out = {
+        "n_domains": n_domains,
+        "workers": workers,
+        "reconcile_latency_ms": reconcile_latency_s * 1e3,
+        "converged": converged,
+        "time_to_ready_s": round(t_ready, 4),
+        "reconciles": {k: int(v) for k, v in totals.items()},
+        "reconciles_per_sec": (round(reconciles / t_ready, 2)
+                               if t_ready else 0.0),
+        "errors": int(totals["error"]),
+        "storm_events": storm_events,
+        "leaks": leaks,
+    }
+    if faults:
+        out["faults"] = {"spec": faults, "seed": fault_seed,
+                         "fired_by_point": _fired_by_point(plan)}
+    return out
+
+
+class _InstantDriver:
+    """Stub DRA plugin for the node fleet: prepares instantly and
+    perfectly. The fleet measures the API machinery — watch fan-out,
+    informer delivery, LIST latency, status-write throughput — so the
+    disk/CDI prepare path (what :func:`run_claim_churn` measures) is
+    stubbed out; every claim transition still flows through the real
+    NodePrepareLoop + Informer + FakeClient stack."""
+
+    def __init__(self, driver_name: str):
+        self.driver_name = driver_name
+        self.prepares = 0
+        self.unprepares = 0
+        self._mu = sanitizer.new_lock("stresslab._InstantDriver._mu")
+
+    def prepare_resource_claims(self, claims: list) -> dict:
+        from k8s_dra_driver_tpu_torch.kubeletplugin.types import (
+            PreparedDeviceRef,
+            PrepareResult,
+            claim_allocation_results,
+        )
+        out = {}
+        for c in claims:
+            refs = [PreparedDeviceRef(
+                        requests=[r.get("request") or "gpu"],
+                        pool=r.get("pool", ""), device=r.get("device", ""),
+                        cdi_device_ids=[
+                            f"{self.driver_name}/dev={r.get('device', '')}"])
+                    for r in claim_allocation_results(c)
+                    if r.get("driver") == self.driver_name]
+            out[c["metadata"]["uid"]] = PrepareResult(devices=refs)
+        with self._mu:
+            self.prepares += len(claims)
+        return out
+
+    def unprepare_resource_claims(self, refs: list) -> dict:
+        with self._mu:
+            self.unprepares += len(refs)
+        return {r.uid: None for r in refs}
+
+
+def run_node_fleet(
+    n_nodes: int = 200,
+    ready_timeout_s: float = 240.0,
+    list_limit: int = 50,
+    list_probe_interval_s: float = 0.05,
+    stall_queue: int = 64,
+    bookmark_interval_s: float = 1.0,
+    faults: Optional[str] = None,
+    fault_seed: int = 0,
+    sharded: bool = True,
+    trace: bool = False,
+    trace_capacity: int = 60_000,
+) -> dict:
+    """Fleet-scale API machinery: ``n_nodes`` simulated nodes, each running
+    both kubelet plugins' informer stacks (a NodePrepareLoop for the GPU
+    driver and one for the ComputeDomain driver — 2×n informers on
+    ResourceClaim) against ONE shared FakeClient.
+
+    The wave: one allocated+reserved ResourceClaim per node (alternating
+    the two drivers), created through the API — every create fans out to
+    every informer, the owning node prepares through its loop, and the
+    status publish fans out again. Convergence = every claim carries its
+    driver's Ready device status.
+
+    Measured: time to converge, watch events/s delivered to watcher
+    queues, paginated-LIST latency percentiles under the fan-out (a prober
+    crawls ``list_limit``-sized pages throughout), and the stalled-watcher
+    bound — a never-consumed watch must be disconnected with at most
+    ``stall_queue`` events held.
+
+    ``faults``: a chaos schedule (e.g. watch drops and forced 410s); crash
+    schedules are rejected. The fleet must still converge — informer
+    resumes replay missed events from the backlog, forced-expired resumes
+    fall back to relist. ``sharded=False`` runs the single-lock store.
+    ``trace``: a root span per wave claim, ended when the harness sees it
+    Ready; the loops' ``node_prepare`` spans stitch in."""
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+    from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+    from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import (
+        NodePrepareLoop,
+    )
+    from k8s_dra_driver_tpu_torch.pkg import faultpoints, tracing
+    from k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin \
+        .devices import CD_DRIVER_NAME
+
+    plan = faultpoints.FaultPlan(faults or "", seed=fault_seed)
+    _reject_crash_schedules(plan, "run_node_fleet", "an informer thread")
+
+    client = FakeClient(sharded=sharded)
+    loops: list = []
+    drivers: list[_InstantDriver] = []
+
+    errors: list = []
+    prev_plan = faultpoints.active_plan()
+    faultpoints.activate(plan)
+    try:
+        for i in range(n_nodes):
+            client.create(new_object("Node", f"fleet-node-{i}"))
+        for i in range(n_nodes):
+            for drv in (DRIVER_NAME, CD_DRIVER_NAME):
+                stub = _InstantDriver(drv)
+                drivers.append(stub)
+                loops.append(NodePrepareLoop(
+                    client, stub, driver_name=drv,
+                    pool_name=f"fleet-node-{i}",
+                    namespace="default").start())
+
+        # The stalled consumer: subscribed like any watcher, never read.
+        stalled = client.watch("ResourceClaim", namespace="default",
+                               max_queue=stall_queue,
+                               bookmark_interval=bookmark_interval_s)
+
+        # LIST prober: paginated crawls for the whole convergence window.
+        list_lat: list[float] = []
+        probe_stop = threading.Event()
+
+        def probe() -> None:
+            while not probe_stop.is_set():
+                token = ""
+                try:
+                    while True:
+                        t0 = time.perf_counter()
+                        page = client.list_page(
+                            "ResourceClaim", "default", limit=list_limit,
+                            continue_token=token)
+                        list_lat.append(time.perf_counter() - t0)
+                        token = page["metadata"].get("continue", "")
+                        if not token:
+                            break
+                except Exception as e:  # noqa: BLE001 — audited
+                    if not faultpoints.is_injected(e):
+                        errors.append(("list-probe", repr(e)))
+                probe_stop.wait(list_probe_interval_s)
+
+        prober = threading.Thread(target=probe, name="fleet-list-probe",
+                                  daemon=True)
+        prober.start()
+
+        if trace:
+            tracing.enable(capacity=trace_capacity)
+        roots: dict[str, Any] = {}
+        delivered_before = client.watch_events_delivered()
+        expected_driver: dict[str, str] = {}
+        t0 = time.monotonic()
+        for i in range(n_nodes):
+            drv = DRIVER_NAME if i % 2 == 0 else CD_DRIVER_NAME
+            name = f"fleet-claim-{i}"
+            expected_driver[name] = drv
+            obj = new_object(
+                "ResourceClaim", name, "default",
+                api_version="resource.k8s.io/v1",
+                spec={"devices": {"requests": [{"name": "gpu"}]}},
+                status={
+                    "allocation": {"devices": {"results": [{
+                        "request": "gpu", "driver": drv,
+                        "pool": f"fleet-node-{i}", "device": "gpu-0"}]}},
+                    "reservedFor": [{"resource": "pods",
+                                     "name": f"fleet-pod-{i}"}],
+                })
+            if trace:
+                # new_root (many roots minted from this one thread must
+                # not nest), not activated (ended from the poll loop).
+                root = tracing.start_span(
+                    "claim", new_root=True, activate=False,
+                    attributes={"claim": name, "driver": drv})
+                tracing.inject(root, obj)
+                roots[name] = root
+            client.create(obj)
+
+        def ready_count() -> int:
+            n = 0
+            for c in client.list("ResourceClaim", "default"):
+                name = c["metadata"]["name"]
+                drv = expected_driver.get(name)
+                if drv is None:
+                    continue
+                for d in (c.get("status") or {}).get("devices") or []:
+                    if d.get("driver") == drv and any(
+                            cond.get("type") == "Ready"
+                            and cond.get("status") == "True"
+                            for cond in d.get("conditions") or []):
+                        n += 1
+                        root = roots.get(name)
+                        if root is not None:
+                            root.set_status("ok")
+                            root.end()
+                            roots.pop(name, None)
+                        break
+            return n
+
+        deadline = t0 + ready_timeout_s
+        ready = 0
+        while time.monotonic() < deadline:
+            ready = ready_count()
+            if ready >= n_nodes:
+                break
+            time.sleep(0.05)
+        t_converge = time.monotonic() - t0
+        converged = ready >= n_nodes
+        delivered = client.watch_events_delivered() - delivered_before
+
+        probe_stop.set()
+        prober.join(timeout=10)
+
+        if not converged:
+            errors.append(("not_converged",
+                           f"{ready}/{n_nodes} claims ready"))
+        for name, root in sorted(roots.items()):
+            root.set_status("error", "never observed Ready")
+            root.end()
+        roots.clear()
+
+        # The stalled watcher: disconnected, its held events capped at the
+        # queue bound. Enforced only when the wave (~2 events a claim)
+        # exceeds the bound — tiny fleets just report.
+        stalled_queued = stalled.events.qsize()
+        stalled_report = {
+            "max_queue": stall_queue,
+            "disconnected": not stalled.alive,
+            "overflowed": stalled.overflowed,
+            "queued_at_end": stalled_queued,
+            "bounded": stalled.overflowed and stalled_queued <= stall_queue,
+        }
+        if 2 * n_nodes > stall_queue and not stalled_report["bounded"]:
+            errors.append(("stalled_watcher", str(stalled_report)))
+        stalled.stop()
+
+        if faults:
+            # Heal before reporting: stop injecting, then wait for every
+            # informer stream to be re-established, so the resume/relist/
+            # reconnect counts are settled.
+            faultpoints.deactivate()
+            heal_deadline = time.monotonic() + 30.0
+            while time.monotonic() < heal_deadline:
+                if all(lp._informer is not None
+                       and lp._informer._watch is not None
+                       and lp._informer._watch.alive for lp in loops):
+                    break
+                time.sleep(0.05)
+    finally:
+        if trace:
+            tracing.disable()
+        faultpoints.deactivate()
+        # Teardown in two phases: signal everything, then join.
+        for lp in loops:
+            lp.initiate_stop()
+        for lp in loops:
+            lp.join(timeout=10.0)
+        if prev_plan is not None:
+            faultpoints.activate(prev_plan)
+
+    # Summarize only after the loops are joined: a node_prepare span still
+    # open would make its stored children read as orphans.
+    tracing_report = (tracing.summarize_store(
+        tracing.default_tracer().store) if trace else None)
+
+    informers = [lp._informer for lp in loops if lp._informer is not None]
+    out = {
+        "n_nodes": n_nodes,
+        "informers": len(loops),
+        "sharded": sharded,
+        "converged": converged,
+        "time_to_converge_s": round(t_converge, 3),
+        "watch_events_delivered": delivered,
+        "watch_events_per_sec": (round(delivered / t_converge, 1)
+                                 if t_converge else 0.0),
+        "list_pages": len(list_lat),
+        "list_p50_ms": round(_pct(list_lat, 0.50) * 1e3, 3),
+        "list_p99_ms": round(_pct(list_lat, 0.99) * 1e3, 3),
+        "stalled_watcher": stalled_report,
+        "watch_resumes": sum(i.resume_count for i in informers),
+        "watch_relists": sum(i.relist_count for i in informers),
+        "watch_reconnects": sum(i.reconnect_count for i in informers),
+        "prepares": sum(d.prepares for d in drivers),
+        "errors": errors[:10],
+        "error_count": len(errors),
+    }
+    if trace:
+        out["tracing"] = tracing_report
+    if faults:
+        out["faults"] = {"spec": faults, "seed": fault_seed,
+                         "fired_by_point": _fired_by_point(plan)}
+    return out
+
+
+def run_cross_kind_writes(
+    n_kinds: int = 4,
+    writes_per_kind: int = 150,
+    commit_hold_s: float = 0.00025,
+    rounds: int = 2,
+) -> dict:
+    """Same-run shard-vs-single-lock comparison: ``n_kinds`` writer
+    threads, each creating ``writes_per_kind`` objects of its own kind,
+    against (a) the sharded store and (b) ``FakeClient(sharded=False)``,
+    where every kind shares one lock.
+
+    Every commit is held open ``commit_hold_s`` through the
+    ``k8sclient.fake.commit`` latency fault point, fired inside the shard
+    lock — the stand-in for a real apiserver's per-write work (a bare dict
+    insert would measure Python's scheduler, not lock contention). Under
+    one lock the holds serialize across kinds; per-kind shards overlap
+    them. ``rounds`` alternating measurements per mode; the minimum wins."""
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+    from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+    from k8s_dra_driver_tpu_torch.pkg import faultpoints
+
+    plan = faultpoints.FaultPlan(
+        f"k8sclient.fake.commit=latency:{commit_hold_s}", seed=0)
+
+    def one(sharded: bool) -> float:
+        client = FakeClient(sharded=sharded)
+        start = threading.Barrier(n_kinds + 1)
+
+        def writer(k: int) -> None:
+            start.wait()
+            for j in range(writes_per_kind):
+                client.create(new_object(f"BenchKind{k}", f"obj-{j}",
+                                         "default"))
+
+        threads = [threading.Thread(target=writer, args=(k,), daemon=True)
+                   for k in range(n_kinds)]
+        for t in threads:
+            t.start()
+        start.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - t0
+
+    best = {True: float("inf"), False: float("inf")}
+    prev_plan = faultpoints.active_plan()
+    faultpoints.activate(plan)
+    try:
+        for _ in range(rounds):
+            for sharded in (False, True):
+                best[sharded] = min(best[sharded], one(sharded))
+    finally:
+        faultpoints.deactivate()
+        if prev_plan is not None:
+            faultpoints.activate(prev_plan)
+
+    total_writes = n_kinds * writes_per_kind
+    return {
+        "n_kinds": n_kinds,
+        "writes_per_kind": writes_per_kind,
+        "commit_hold_ms": commit_hold_s * 1e3,
+        "single_lock_s": round(best[False], 4),
+        "sharded_s": round(best[True], 4),
+        "speedup": round(best[False] / best[True], 2) if best[True] else 0.0,
+        "sharded_writes_per_sec": (round(total_writes / best[True], 1)
+                                   if best[True] else 0.0),
+    }
+
+
+def run_claim_churn(
+    duration_s: float = 10.0,
+    n_nodes: int = 4,
+    workers_per_node: int = 2,
+    profile: str = "h100-8",
+    tmpdir: Optional[str] = None,
+    channel_every: int = 4,
+    faults: Optional[str] = None,
+    fault_seed: int = 0,
+    trace: bool = False,
+    trace_capacity: int = 120_000,
+    trace_every: int = 1,
+) -> dict:
+    """Churn prepare/unprepare across ``n_nodes`` node stacks (the GPU and
+    the ComputeDomain kubelet plugin on each mock ``profile`` node) for
+    ``duration_s`` seconds. Every worker cycles: create a claim for one
+    whole GPU → allocate node-pinned → prepare → unprepare → delete,
+    mixing in a ComputeDomain channel claim every ``channel_every``
+    cycles. Returns latency percentiles per driver and a leak audit.
+
+    ``faults``: a ``pkg.faultpoints`` schedule (the ``GPU_DRA_FAULTS``
+    syntax) active for the churn window only. Crash schedules are
+    rejected. The harness plays kubelet: a retryably-failed unprepare is
+    retried (after the window if need be) rather than abandoned, and the
+    claim object is deleted only once its unprepare succeeded.
+    Injection-attributable failures are reported apart (``fault_errors``)
+    from real errors (``errors``).
+
+    ``trace``: the process-global tracer on for the window, a root span
+    per claim cycle propagated through the claim's annotations; the result
+    gains a ``tracing`` report (completeness audit, per-phase breakdown).
+    Under ``faults`` every claim whose prepare failed by injection must
+    carry a ``PrepareFailed`` Event (``missing_events``).
+
+    ``trace_every``: trace every Nth GPU cycle only; the GPU prepare
+    latencies are then split into traced and untraced arms of one run
+    (``tracing.p50_traced_ms`` / ``p50_untraced_ms``)."""
+    import statistics
+
+    from k8s_dra_driver_tpu_torch.api.computedomain import new_compute_domain
+    from k8s_dra_driver_tpu_torch.gpulib.device_lib import MockDeviceLib
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+    from k8s_dra_driver_tpu_torch.k8sclient.client import (
+        AlreadyExistsError,
+        NotFoundError,
+        new_object,
+    )
+    from k8s_dra_driver_tpu_torch.kubeletplugin import (
+        AllocationError,
+        Allocator,
+    )
+    from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
+    from k8s_dra_driver_tpu_torch.pkg import faultpoints, tracing
+    from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller \
+        .controller import DEVICE_CLASS_CHANNEL, ComputeDomainController
+    from k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon import (
+        ComputeDomainDaemon,
+    )
+    from k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin \
+        import CdDriver, CdDriverConfig
+    from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+        DriverConfig,
+        GpuDriver,
+    )
+
+    plan = None
+    if faults:
+        plan = faultpoints.FaultPlan(faults, seed=fault_seed)
+        _reject_crash_schedules(plan, "run_claim_churn",
+                                "a churn worker thread")
+
+    tmp = tmpdir or tempfile.mkdtemp(prefix="stress-")
+    client = FakeClient()
+    client.create(new_object(
+        "DeviceClass", DRIVER_NAME,
+        spec={"selectors": [{"cel": {
+            "expression": "device.attributes['type'] == 'gpu'"}}]}))
+    client.create(new_object(
+        "DeviceClass", DEVICE_CLASS_CHANNEL,
+        spec={"selectors": [{"cel": {
+            "expression": "device.attributes['type'] == 'channel'"}}]}))
+
+    gpu_drivers: list = []
+    cd_drivers: list = []
+    for i in range(n_nodes):
+        node = f"node-{i}"
+        client.create(new_object("Node", node))
+        gpu_drivers.append(GpuDriver(client, DriverConfig(
+            node_name=node, state_dir=f"{tmp}/gpu-{i}",
+            cdi_root=f"{tmp}/cdi-gpu-{i}", env={}, retry_timeout=1.0,
+        ), device_lib=MockDeviceLib(profile, host_index=i)).start())
+        cd_drivers.append(CdDriver(client, CdDriverConfig(
+            node_name=node, state_dir=f"{tmp}/cd-{i}",
+            cdi_root=f"{tmp}/cdi-cd-{i}", env={}, retry_timeout=1.0,
+        ), device_lib=MockDeviceLib(profile, host_index=i)).start())
+
+    # One ComputeDomain spanning all nodes with Ready daemons, so channel
+    # claims prepare instead of being rendezvous-gated.
+    controller = ComputeDomainController(client)
+    cd = client.create(new_compute_domain("stress-dom", "default",
+                                          num_nodes=n_nodes))
+    controller.reconcile(cd)
+    for i in range(n_nodes):
+        ComputeDomainDaemon(
+            client=client,
+            device_lib=MockDeviceLib(profile, host_index=i),
+            cd_uid=cd["metadata"]["uid"], cd_name="stress-dom",
+            node_name=f"node-{i}", namespace="default",
+            hostname=f"node-{i}").sync_once()
+    controller.reconcile(client.get("ComputeDomain", "stress-dom",
+                                    "default"))
+
+    channel_rct = client.get("ResourceClaimTemplate", "stress-dom-channel",
+                             "default")
+
+    alloc = Allocator(client)  # one scheduler actor, shared
+    lat: dict[str, list[float]] = {"gpu": [], "cd": []}
+    # Interleaved-arm split (trace_every > 1): GPU prepare latencies by
+    # whether that cycle carried a root span.
+    lat_split: dict[str, list[float]] = {"traced": [], "untraced": []}
+    lat_lock = sanitizer.new_lock("stresslab.churn.lat_lock")
+    errors: list = []
+    fault_errors: list = []
+    # Claims whose PREPARE failed by injection: the Event oracle's set.
+    prep_fault_failed: set = set()
+    prep_failed_lock = sanitizer.new_lock("stresslab.churn.prep_failed_lock")
+    # Unprepares that exhausted their in-cycle retry budget under
+    # injection, drained fault-free after the window.
+    deferred: list = []
+    deferred_lock = sanitizer.new_lock("stresslab.churn.deferred_lock")
+    stop_at = time.monotonic() + duration_s
+
+    def is_injected(err: BaseException) -> bool:
+        """A failure attributable to the active plan, by provenance marker:
+        a real liveness bug that happens to time out under churn does not
+        qualify and fails the run."""
+        return faultpoints.is_injected(err)
+
+    def record(name: str, err: BaseException) -> None:
+        (fault_errors if faults and is_injected(err) else errors).append(
+            (name, repr(err)))
+
+    def api(fn, *args):
+        """One API interaction as the harness actor: retried over injected
+        or transient failures."""
+        last: Optional[BaseException] = None
+        for _ in range(50):
+            try:
+                return fn(*args)
+            except (AllocationError, NotFoundError, AlreadyExistsError):
+                raise
+            except Exception as e:  # noqa: BLE001 — bounded retry
+                last = e
+                time.sleep(0.005)
+        raise last  # type: ignore[misc]
+
+    def churn(node_i: int, worker: int) -> None:
+        gpu = gpu_drivers[node_i]
+        cdd = cd_drivers[node_i]
+        cycle = 0
+        gpu_cycle = 0
+        while time.monotonic() < stop_at:
+            cycle += 1
+            use_channel = cycle % channel_every == 0
+            if not use_channel:
+                gpu_cycle += 1
+            name = f"stress-{node_i}-{worker}-{cycle}"
+            # With trace_every > 1 the arms alternate over GPU cycles only,
+            # so the split does not correlate with channel_every's phase.
+            traced_cycle = trace and (
+                trace_every == 1
+                or (not use_channel and gpu_cycle % trace_every == 0))
+            root = (tracing.start_span(
+                        "claim", new_root=True,
+                        attributes={"claim": name, "driver": "gpu"})
+                    if traced_cycle else None)
+            try:
+                if use_channel:
+                    spec = dict(channel_rct["spec"]["spec"])
+                    driver, kind = cdd, "cd"
+                else:
+                    spec = {"devices": {"requests": [{
+                        "name": "gpu", "exactly": {
+                            "deviceClassName": DRIVER_NAME,
+                            "allocationMode": "ExactCount", "count": 1}}]}}
+                    driver, kind = gpu, "gpu"
+                if root is not None:
+                    root.set_attribute("driver", kind)
+                obj = new_object(
+                    "ResourceClaim", name, "default",
+                    api_version="resource.k8s.io/v1", spec=spec)
+                if root is not None:
+                    tracing.inject(root, obj)
+                claim = api(client.create, obj)
+                try:
+                    allocated = api(
+                        lambda: alloc.allocate(claim,
+                                               node=f"node-{node_i}"))
+                except AllocationError:
+                    api(client.delete, "ResourceClaim", name, "default")
+                    if root is not None:
+                        root.set_status("error", "allocation contention")
+                    continue  # contention: everything busy right now
+                uid = allocated["metadata"]["uid"]
+                t0 = time.perf_counter()
+                res = driver.prepare_resource_claims([allocated])[uid]
+                dt = time.perf_counter() - t0
+                if res.error is not None:
+                    record(name, res.error)
+                    if faults and is_injected(res.error):
+                        with prep_failed_lock:
+                            prep_fault_failed.add(name)
+                    if root is not None:
+                        root.set_status("error", repr(res.error))
+                else:
+                    with lat_lock:
+                        lat[kind].append(dt)
+                        if trace and trace_every > 1 and kind == "gpu":
+                            lat_split["traced" if traced_cycle
+                                      else "untraced"].append(dt)
+                    if root is not None:
+                        root.set_status("ok")
+                if root is not None:
+                    # Ready or failed: the root ends here, so unprepare and
+                    # delete never leave it open.
+                    root.end()
+                # Unprepare runs even after a failed prepare (partial state
+                # is what it must be able to unwind).
+                ref = ClaimRef(uid=uid, name=name, namespace="default")
+                errs = driver.unprepare_resource_claims([ref])
+                if errs[uid] is not None:
+                    if faults and is_injected(errs[uid]):
+                        with deferred_lock:
+                            deferred.append((driver, ref))
+                        continue  # claim object kept until unprepared
+                    record(name, errs[uid])
+                api(client.delete, "ResourceClaim", name, "default")
+            except Exception as e:  # noqa: BLE001 — audited below
+                record(name, e)
+                if root is not None and root.status == "unset":
+                    root.set_status("error", repr(e))
+            finally:
+                if root is not None:
+                    if root.status == "unset":
+                        root.set_status("error", "cycle aborted")
+                    root.end()  # idempotent when already ended above
+
+    prev_plan = None
+    if plan is not None:
+        prev_plan = faultpoints.active_plan()
+        faultpoints.activate(plan)
+    if trace:
+        # Enabled after all fallible setup, disabled in the finally below.
+        tracing.enable(capacity=trace_capacity)
+    t_start = time.monotonic()
+    try:
+        try:
+            threads = [
+                threading.Thread(target=churn, args=(i, w), daemon=True)
+                for i in range(n_nodes) for w in range(workers_per_node)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=duration_s + 120)
+        finally:
+            if plan is not None:
+                faultpoints.deactivate()
+        elapsed = time.monotonic() - t_start
+
+        # Fault-free drain of the deferred unprepares: every one must now
+        # succeed; one that still cannot is a recovery bug.
+        for driver, ref in deferred:
+            errs = driver.unprepare_resource_claims([ref])
+            if errs[ref.uid] is not None:
+                errors.append((ref.name, repr(errs[ref.uid])))
+            else:
+                try:
+                    client.delete("ResourceClaim", ref.name, "default")
+                except NotFoundError:
+                    pass
+
+        if faults:
+            # A prepare that timed out under injection and was then
+            # unprepared leaves a PrepareAborted tombstone by design;
+            # expire them through the real GC path, time-accelerated.
+            for d in cd_drivers:
+                d.state.delete_expired_aborted(
+                    now=time.time() + d.state.aborted_ttl + 1.0)
+
+        # Leak audit across every node stack.
+        leaks: dict[str, Any] = {}
+        for i in range(n_nodes):
+            if gpu_drivers[i].state.prepared_claims():
+                leaks[f"gpu-{i}-checkpoint"] = list(
+                    gpu_drivers[i].state.prepared_claims())
+            if gpu_drivers[i].cdi.list_claim_uids():
+                leaks[f"gpu-{i}-cdi"] = gpu_drivers[i].cdi.list_claim_uids()
+            if cd_drivers[i].state.prepared_claims():
+                leaks[f"cd-{i}-checkpoint"] = list(
+                    cd_drivers[i].state.prepared_claims())
+            if cd_drivers[i].cdi.list_claim_uids():
+                leaks[f"cd-{i}-cdi"] = cd_drivers[i].cdi.list_claim_uids()
+        lingering = [
+            c["metadata"]["name"] for c in client.list("ResourceClaim")
+            if c["metadata"]["name"].startswith("stress-")
+            and c["metadata"]["name"] != "stress-dom-channel"]
+        if lingering:
+            leaks["claims"] = lingering
+
+        # Event oracle: every claim whose prepare failed by injection must
+        # carry a durable PrepareFailed Event.
+        missing_events: list = []
+        if faults and prep_fault_failed:
+            from k8s_dra_driver_tpu_torch.pkg.events import (
+                REASON_PREPARE_FAILED,
+                list_events,
+            )
+            have = {(e.get("involvedObject") or {}).get("name")
+                    for e in list_events(client,
+                                         reason=REASON_PREPARE_FAILED)}
+            missing_events = sorted(n for n in prep_fault_failed
+                                    if n not in have)
+    finally:
+        if trace:
+            tracing.disable()
+        if prev_plan is not None:
+            faultpoints.activate(prev_plan)
+
+    def dist(xs: list[float]) -> dict:
+        return {
+            "ops": len(xs),
+            "p50_ms": round(statistics.median(xs) * 1e3, 3) if xs else 0.0,
+            "p90_ms": round(_pct(xs, 0.90) * 1e3, 3),
+            "p99_ms": round(_pct(xs, 0.99) * 1e3, 3),
+            "max_ms": round(max(xs) * 1e3, 3) if xs else 0.0,
+        }
+
+    for d in [*gpu_drivers, *cd_drivers]:
+        d.stop()
+    if tmpdir is None:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {
+        "duration_s": round(elapsed, 2),
+        "n_nodes": n_nodes,
+        "workers": n_nodes * workers_per_node,
+        "profile": profile,
+        "gpu_prepare": dist(lat["gpu"]),
+        "cd_prepare": dist(lat["cd"]),
+        "errors": errors[:10],
+        "error_count": len(errors),
+        "leaks": leaks,
+    }
+    if trace:
+        out["tracing"] = tracing.summarize_store(
+            tracing.default_tracer().store,
+            started=tracing.default_tracer().started_spans())
+        if trace_every > 1:
+            t = out["tracing"]
+            t["trace_every"] = trace_every
+            for arm in ("traced", "untraced"):
+                xs = lat_split[arm]
+                t[f"p50_{arm}_ms"] = (round(statistics.median(xs) * 1e3, 3)
+                                      if xs else 0.0)
+                t[f"mean_{arm}_ms"] = round(_trimmed_mean(xs) * 1e3, 3)
+            t["split_ops"] = {k: len(v) for k, v in lat_split.items()}
+    if faults:
+        log = plan.log() if plan is not None else []
+        out["faults"] = {
+            "spec": faults,
+            "seed": fault_seed,
+            "injected": len(log),
+            # The full (point, hit#, action) log: determinism tests compare
+            # per-point prefixes across runs.
+            "log": log,
+            "fault_errors": len(fault_errors),
+            "deferred_unprepares": len(deferred),
+            "prepare_fault_failures": sorted(prep_fault_failed),
+            "missing_events": missing_events,
+        }
+    return out

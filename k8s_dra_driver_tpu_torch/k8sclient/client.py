@@ -109,9 +109,22 @@ FP_FAKE_MUTATE = faultpoints.register(
     default_error="")
 FP_FAKE_READ = faultpoints.register(
     "k8sclient.fake.read", "FakeClient get/list fails")
+FP_FAKE_COMMIT = faultpoints.register(
+    "k8sclient.fake.commit",
+    "fires INSIDE the shard lock on every store commit — latency mode "
+    "holds the write critical section open (the apiserver-side work a "
+    "real commit pays), error modes fail the commit with the store "
+    "untouched",
+    errors={"conflict": ConflictError})
 FP_WATCH_DROP = faultpoints.register(
     "k8sclient.watch.drop",
     "watch stream dies behind the consumer (server blip / stream reset)")
+FP_WATCH_EXPIRED = faultpoints.register(
+    "k8sclient.watch.expired",
+    "watch(resource_version=...) resume is rejected with ExpiredError "
+    "(410 Gone) even though the backlog still covers it — forces the "
+    "consumer's relist-and-resume path",
+    errors={"expired": ExpiredError}, default_error="expired")
 FP_PARTITION = faultpoints.register(
     "k8sclient.partition",
     "every API verb from one node's (PartitionedClient-wrapped) clients "
@@ -339,7 +352,7 @@ class _Shard:
 
     __slots__ = ("lock", "objects", "gens", "usage_gens", "watches",
                  "backlog", "trim_rv", "delivered_rv", "pending_notify",
-                 "notify_mu", "last_rv", "sorted_keys")
+                 "notify_mu", "last_rv", "sorted_keys", "events_delivered")
 
     def __init__(self, backlog_window: int):
         self.lock = sanitizer.new_lock("FakeClient._Shard.lock",
@@ -372,6 +385,8 @@ class _Shard:
         self.pending_notify: deque[tuple[int, str, Obj, tuple[Watch, ...]]] \
             = deque()
         self.notify_mu = sanitizer.new_lock("FakeClient._Shard.notify_mu")
+        self.events_delivered = 0  # per-watcher queue puts (guarded by
+        # notify_mu — the only writer holds it)
 
     def sorted_key_view(self) -> list[tuple[str, str, str]]:
         """Caller holds ``lock``. The returned list must not be mutated."""
@@ -382,9 +397,14 @@ class _Shard:
 
 class FakeClient:
     """Thread-safe in-memory object store with k8s API semantics, one
-    shard per kind."""
+    shard per kind.
 
-    def __init__(self) -> None:
+    ``sharded=False`` collapses every kind onto ONE shard (one lock, one
+    backlog, one notify FIFO): the single-lock baseline that
+    ``run_cross_kind_writes`` and ``run_node_fleet`` compare against."""
+
+    def __init__(self, sharded: bool = True) -> None:
+        self._sharded = sharded
         self._shards: dict[str, _Shard] = {}
         self._shards_mu = sanitizer.new_lock("FakeClient._shards_mu")
         # Cluster-wide monotonic resourceVersion. Taken strictly INSIDE a
@@ -395,7 +415,7 @@ class FakeClient:
     # -- internals ----------------------------------------------------------
 
     def _shard(self, kind: str) -> _Shard:
-        key = kind
+        key = kind if self._sharded else ""
         s = self._shards.get(key)
         if s is None:
             with self._shards_mu:
@@ -470,8 +490,8 @@ class FakeClient:
                     rv, etype, obj, watchers = shard.pending_notify.popleft()
                 event = WatchEvent(etype, obj)
                 for w in watchers:
-                    if w.matches(obj):
-                        w.deliver(event)
+                    if w.matches(obj) and w.deliver(event):
+                        shard.events_delivered += 1
                 shard.delivered_rv = max(shard.delivered_rv, rv)
 
     # -- generation stamps ----------------------------------------------------
@@ -510,6 +530,17 @@ class FakeClient:
                 out.append(shard.usage_gens.get(k, 0))
         return tuple(out)
 
+    def watch_events_delivered(self) -> int:
+        """Total watcher-queue deliveries across all shards (the node
+        fleet's events/s numerator)."""
+        total = 0
+        with self._shards_mu:
+            shards = list(self._shards.values())
+        for s in shards:
+            with s.notify_mu:
+                total += s.events_delivered
+        return total
+
     # -- CRUD ---------------------------------------------------------------
 
     def create(self, obj: Obj) -> Obj:
@@ -519,6 +550,7 @@ class FakeClient:
             raise ValueError(f"object needs kind and metadata.name: {key}")
         shard = self._shard(key[0])
         with shard.lock:
+            faultpoints.maybe_fail(FP_FAKE_COMMIT)
             if key in shard.objects:
                 raise AlreadyExistsError(f"{key} already exists")
             stored = _copy_obj(obj)
@@ -553,6 +585,7 @@ class FakeClient:
         faultpoints.maybe_fail(FP_FAKE_MUTATE)
         shard = self._shard(obj.get("kind", ""))
         with shard.lock:
+            faultpoints.maybe_fail(FP_FAKE_COMMIT)
             ret = self._update_locked(shard, obj)
         self._drain_notify(shard)
         return ret
@@ -593,6 +626,7 @@ class FakeClient:
         faultpoints.maybe_fail(FP_FAKE_MUTATE)
         shard = self._shard(obj.get("kind", ""))
         with shard.lock:
+            faultpoints.maybe_fail(FP_FAKE_COMMIT)
             key = obj_key(obj)
             if key not in shard.objects:
                 raise NotFoundError(f"{key} not found")
@@ -608,6 +642,7 @@ class FakeClient:
         faultpoints.maybe_fail(FP_FAKE_MUTATE)
         shard = self._shard(kind)
         with shard.lock:
+            faultpoints.maybe_fail(FP_FAKE_COMMIT)
             key = (kind, namespace, name)
             if key not in shard.objects:
                 raise NotFoundError(f"{key} not found")
@@ -768,12 +803,13 @@ class FakeClient:
                 "reorders deliveries")
         shard = self._shard(kind)
         with shard.lock:
-            if resource_version is not None and \
-                    resource_version < shard.trim_rv:
-                raise ExpiredError(
-                    f"watch of {kind} from resourceVersion "
-                    f"{resource_version} is too old (backlog starts "
-                    f"past {shard.trim_rv})")
+            if resource_version is not None:
+                faultpoints.maybe_fail(FP_WATCH_EXPIRED)
+                if resource_version < shard.trim_rv:
+                    raise ExpiredError(
+                        f"watch of {kind} from resourceVersion "
+                        f"{resource_version} is too old (backlog starts "
+                        f"past {shard.trim_rv})")
             w = Watch(kind, namespace,
                       lambda w, s=shard: self._remove_watch(s, w),
                       current_rv=lambda s=shard: s.delivered_rv,

@@ -167,12 +167,21 @@ class NodePrepareLoop:
         # treated as already-done.
         self._prepared_sig: dict[str, tuple] = sanitizer.guarded_dict(
             self._mu, "NodePrepareLoop._prepared_sig")
+        # Claims the driver's checkpoint holds as prepared when this loop
+        # starts (a restarted loop or process: ``_prepared`` is empty then).
+        # A claim released or deleted while no loop ran sends no event that
+        # reaches the tracked paths, so without this record it would stay
+        # prepared — its devices refused to the next claim — forever.
+        self._adopted: dict[str, ClaimRef] = sanitizer.guarded_dict(
+            self._mu, "NodePrepareLoop._adopted")
         self._stopped = False
 
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> "NodePrepareLoop":
         resume_rv = self._rv_store.load() if self._rv_store else None
+        with self._mu:
+            self._adopted.update(self._checkpointed_claims())
         self._informer = Informer(
             self.client, "ResourceClaim", self.namespace,
             on_add=self._on_change,
@@ -182,7 +191,56 @@ class NodePrepareLoop:
             on_rv=self._rv_store.note if self._rv_store else None,
         ).start()
         self._informer.wait_for_cache_sync()
+        with self._mu:
+            adopted = list(self._adopted.values())
+        for ref in adopted:
+            self._check_adopted(ref)
         return self
+
+    def _checkpointed_claims(self) -> dict[str, ClaimRef]:
+        """The claims the driver's checkpoint holds as completed prepares
+        in this loop's namespace. Drivers without a checkpoint surface
+        (stub drivers in the fleet harness) hold none."""
+        state = getattr(self.driver, "state", None)
+        if state is None or not hasattr(state, "prepared_claims_nolock"):
+            return {}
+        from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.checkpoint import (
+            STATE_PREPARE_COMPLETED,
+        )
+        try:
+            held = state.prepared_claims_nolock()
+        except Exception:  # noqa: BLE001 — unreadable state: nothing to
+            # adopt; the request paths fail loudly on their own.
+            return {}
+        return {uid: ClaimRef(uid=uid, name=pc.name, namespace=pc.namespace)
+                for uid, pc in held.items()
+                if pc.state == STATE_PREPARE_COMPLETED and pc.name
+                and self.namespace in (None, pc.namespace)}
+
+    def _check_adopted(self, ref: ClaimRef) -> None:
+        """An adopted claim that is gone from the API server (or whose name
+        now belongs to another UID) was deleted while no loop ran: no event
+        will ever come for it (a resumed watch does not dispatch the delete
+        of an object its fresh cache never held), so unprepare it now. A
+        failed lookup re-arms the check."""
+        if self._stopped:
+            return
+        try:
+            obj = self.client.try_get("ResourceClaim", ref.name,
+                                      ref.namespace)
+        except Exception:  # noqa: BLE001 — transient: look again later
+            t = threading.Timer(self.retry_delay, self._check_adopted,
+                                args=(ref,))
+            t.daemon = True
+            t.start()
+            return
+        if obj is not None and claim_uid(obj) == ref.uid:
+            return
+        with self._mu:
+            if ref.uid in self._adopted:
+                logger.info("claim %s prepared before this loop started is "
+                            "gone: unpreparing", ref.uid)
+                self._unprepare_deleted(ref.uid)
 
     def initiate_stop(self) -> None:
         """Signal-only stop (no join): fleet-scale teardown signals every
@@ -334,10 +392,14 @@ class NodePrepareLoop:
                 return
         deleting = claim["metadata"].get("deletionTimestamp") is not None
         ours = self._our_results(claim)
-        if not ours and uid not in self._prepared:
+        tracked = uid in self._prepared or uid in self._adopted
+        if not ours and not tracked:
             return
         if deleting or not self._reserved(claim) or not ours:
-            if uid in self._prepared:
+            if tracked:
+                if uid not in self._prepared:
+                    logger.info("claim %s released while no loop ran: "
+                                "unpreparing", uid)
                 self._unprepare(ref)
             return
         sig = tuple(sorted((r.get("pool", ""), r.get("device", ""))
@@ -429,10 +491,13 @@ class NodePrepareLoop:
             # Recording it here would make the retry hit the
             # already-prepared early return and never publish, leaving a
             # Ready claim invisible forever.
+            logger.warning("status publish of claim %s failed: retry armed",
+                           uid)
             self._schedule_retry(ref.name, ref.namespace)
             raise
         self._prepared[uid] = ref
         self._prepared_sig[uid] = sig
+        self._adopted.pop(uid, None)
         logger.info("node-prepared claim %s (%d devices)",
                     uid, len(res.devices))
 
@@ -455,10 +520,13 @@ class NodePrepareLoop:
             # would strand the stale Ready entry in status with nothing
             # left to clear it (the devices themselves are already
             # unprepared — the retry's unprepare is an idempotent noop).
+            logger.warning("status clear of claim %s failed: retry armed",
+                           ref.uid)
             self._schedule_retry(ref.name, ref.namespace)
             raise
         self._prepared.pop(ref.uid, None)
         self._prepared_sig.pop(ref.uid, None)
+        self._adopted.pop(ref.uid, None)
         logger.info("node-unprepared claim %s", ref.uid)
 
     def _on_delete(self, claim: Obj) -> None:
@@ -473,13 +541,14 @@ class NodePrepareLoop:
         the stored ClaimRef — otherwise a PREPARE_COMPLETED orphan keeps its
         CDI spec and vfio-bound chips until a process restart. Caller holds
         ``_mu``."""
-        ref = self._prepared.get(uid)
+        ref = self._prepared.get(uid) or self._adopted.get(uid)
         if ref is None:
             return
         errs = self.driver.unprepare_resource_claims([ref])
         if errs.get(ref.uid) is None:
             self._prepared.pop(uid, None)
             self._prepared_sig.pop(uid, None)
+            self._adopted.pop(uid, None)
             return
         logger.warning("unprepare of deleted claim %s failed (%s); retrying "
                        "in %.1fs", uid, errs.get(ref.uid), self.retry_delay)

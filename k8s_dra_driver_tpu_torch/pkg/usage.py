@@ -404,9 +404,16 @@ class UsageMeter:
             return
         current: dict[str, tuple[dict, list[dict]]] = {}
         released: dict[str, float] = {}
+        behind: set[str] = set()
         for c in self.client.list("ResourceClaim", self.namespace):
-            uid = (c.get("metadata") or {}).get("uid", "")
+            meta = c.get("metadata") or {}
+            uid = meta.get("uid", "")
             if not uid:
+                continue
+            if not self._delivered(meta.get("name", ""),
+                                   meta.get("namespace", ""), uid,
+                                   self._rv(c)):
+                behind.add(uid)
                 continue
             results = self._results(c)
             if results:
@@ -414,7 +421,13 @@ class UsageMeter:
             else:
                 released[uid] = self._rv(c)
         with self._mu:
-            for uid in [u for u in self._live if u not in current]:
+            for uid in [u for u in self._live
+                        if u not in current and u not in behind]:
+                rec = self._live[uid]
+                if uid not in released and not self._delivered(
+                        rec.name, rec.namespace, uid, float("inf")):
+                    behind.add(uid)  # its delete not delivered yet
+                    continue
                 # Present-but-unallocated closes at its rv (so a stale
                 # event cannot reopen it); absent = deleted, final.
                 self._close_locked(uid, now,
@@ -422,7 +435,28 @@ class UsageMeter:
             for uid, (c, results) in current.items():
                 if uid not in self._live:
                     self._open_locked(c, results, now)
-        self._reconcile_stamp = stamp
+        if not behind:
+            self._reconcile_stamp = stamp
+
+    def _delivered(self, name: str, namespace: str, uid: str,
+                   rv: float) -> bool:
+        """Whether the meter's claim informer has delivered the claim's
+        state at ``rv`` (``inf``: its deletion). The LIST reconcile acts
+        only on such claims: one the event stream has not reached yet is
+        left to the stream, whose events arrive in order. Acting ahead of
+        it opens the interval at the LIST's state, and the stream's older
+        events — an earlier allocation and its release — then read as
+        stale, so a drain → reallocate inside one tick loses an interval.
+        Without an informer (a meter driven by hand) everything counts as
+        delivered."""
+        if self._informer is None:
+            return True
+        seen = self._informer.cached(name, namespace)
+        if seen is None or (seen.get("metadata") or {}).get("uid") != uid:
+            # Deleted from the cache (delivered, when rv is inf), or not
+            # listed yet.
+            return rv == float("inf")
+        return rv != float("inf") and self._rv(seen) >= rv
 
     def _stamp_pending(self) -> None:
         """Write the durable ``usage-since`` annotation for intervals

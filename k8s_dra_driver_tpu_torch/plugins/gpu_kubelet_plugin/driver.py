@@ -74,6 +74,15 @@ PU_LOCK_NAME = "pu.lock"
 CHECKPOINT_NAME = "checkpoint.json"
 
 
+def _log_request(operation: str, errors: dict) -> None:
+    """One line per Prepare/Unprepare request, each claim UID with its
+    outcome: the per-claim record behind ``gpu_dra_requests_total``, which
+    counts requests (an idempotent republish or a retry is one more)."""
+    logger.info("%s request: %s", operation, " ".join(
+        f"{uid}={'ok' if err is None else 'failed'}"
+        for uid, err in errors.items()))
+
+
 @dataclass
 class DriverConfig:
     node_name: str
@@ -395,6 +404,7 @@ class GpuDriver:
                                   f"node prepare failed: {err}", TYPE_WARNING)
             out[uid] = PrepareResult(error=err)
         self._update_prepared_gauge()
+        _log_request("prepare", {u: r.error for u, r in out.items()})
         return out
 
     def _prepare_one(self, claim: Obj):
@@ -428,6 +438,7 @@ class GpuDriver:
                     f"node unprepare failed: {err}")
             out[uid] = err
         self._update_prepared_gauge()
+        _log_request("unprepare", out)
         return out
 
     def _unprepare_one(self, ref: ClaimRef) -> None:

@@ -1,0 +1,1127 @@
+"""The chaos tier on the GPU port: the classes of the JAX package's
+``tests/test_chaos.py`` on the port's modules.
+
+Deterministic fault schedules (the port's ``pkg/faultpoints.py``) against
+every layer: the injector's determinism contract, API-server error
+responses over HTTP, watch-stream drops with informer reconnect backoff,
+torn checkpoint writes and torn group-commit batches, kill-and-restart
+reconvergence of the GPU kubelet plugin, GPU faults in the device library,
+ComputeDomain daemon sync backoff, controller patch faults, and the fleet,
+churn and node-fleet harnesses under fault schedules with their leak
+audits as the oracle. The JAX package's slow classes are slow here too.
+``TestAgainstJax`` runs the fleet and churn harnesses of both packages at
+one seed and holds their verdicts and timing-free counts equal.
+(``TestChaosSelfHealingQuick`` is held in ``test_torch_soak.py``;
+``TestChaosDefrag`` waits for ``run_allocator_scale``.)"""
+
+import threading
+import time
+
+import pytest
+
+from k8s_dra_driver_tpu.internal import stresslab as jax_stresslab
+from k8s_dra_driver_tpu_torch.gpulib.chip import HealthState
+from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
+    EnumerationError,
+    MockDeviceLib,
+)
+from k8s_dra_driver_tpu_torch.internal.stresslab import (
+    SOAK_FAULT_MIX,
+    run_cd_fleet,
+    run_claim_churn,
+    run_node_fleet,
+    run_soak,
+)
+from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+from k8s_dra_driver_tpu_torch.k8sclient.client import ConflictError, new_object
+from k8s_dra_driver_tpu_torch.k8sclient.httpapi import (
+    ApiServer,
+    HttpClient,
+    TooManyRequestsError,
+)
+from k8s_dra_driver_tpu_torch.k8sclient.informer import Informer
+from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
+from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
+from k8s_dra_driver_tpu_torch.pkg import faultpoints
+from k8s_dra_driver_tpu_torch.pkg.errors import is_permanent
+from k8s_dra_driver_tpu_torch.pkg.faultpoints import (
+    FaultCrash,
+    FaultPlan,
+    FaultSpecError,
+    InjectedFault,
+)
+from k8s_dra_driver_tpu_torch.pkg.metrics import InformerMetrics
+from k8s_dra_driver_tpu_torch.pkg.workqueue import (
+    ItemExponentialFailureRateLimiter,
+)
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+    DriverConfig,
+    GpuDriver,
+)
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.checkpoint import (
+    STATE_PREPARE_COMPLETED,
+    STATE_PREPARE_STARTED,
+    Checkpoint,
+    CheckpointManager,
+    CorruptCheckpointError,
+    PreparedClaimCP,
+)
+
+DRIVER = "gpu.nvidia.com"
+
+# The port's fault-point catalog. Kept as literals on purpose: the
+# determinism test below exercises every point.
+ALL_FAULT_POINTS = [
+    "k8sclient.fake.mutate",
+    "k8sclient.fake.read",
+    "k8sclient.fake.commit",
+    "k8sclient.watch.drop",
+    "k8sclient.watch.expired",
+    "k8sclient.partition",
+    "k8sclient.http.get",
+    "k8sclient.http.post",
+    "k8sclient.http.put",
+    "k8sclient.http.delete",
+    "k8sclient.apiserver.response",
+    "checkpoint.write",
+    "checkpoint.replace",
+    "checkpoint.read",
+    "devicestate.prepare",
+    "cdi.write",
+    "gpulib.enumerate",
+    "gpulib.gpu.vanish",
+    "gpulib.gpu.unhealthy",
+    "cd.daemon.sync",
+    "cd.controller.patch",
+    "cd.controller.reconcile",
+    "health.probe",
+    "remediation.drain",
+    "remediation.rejoin",
+    "telemetry.scrape",
+    "canary.probe",
+    "usage.observe",
+]
+
+
+@pytest.fixture(autouse=True)
+def _port_faultpoints_guard():
+    """The port's fault plan is process-global like the JAX package's: no
+    test may leave one active."""
+    assert faultpoints.active_plan() is None, \
+        "a previous test leaked an active fault plan"
+    yield
+    leaked = faultpoints.active_plan() is not None
+    faultpoints.deactivate()
+    assert not leaked, "test left a fault plan active"
+
+
+def test_catalog_matches_registry():
+    """Importing the port's packages registers exactly this catalog: the
+    JAX package's, with ``gpulib`` names for ``tpulib`` and without the
+    crash explorer's ``durability.*`` points (no crashlab in the port)."""
+    import k8s_dra_driver_tpu_torch.cdi.spec  # noqa: F401 — registration
+    import k8s_dra_driver_tpu_torch.gpulib.device_lib  # noqa: F401
+    import k8s_dra_driver_tpu_torch.k8sclient.httpapi  # noqa: F401
+    import k8s_dra_driver_tpu_torch.kubeletplugin.remediation  # noqa: F401
+    import k8s_dra_driver_tpu_torch.pkg.canary  # noqa: F401
+    import k8s_dra_driver_tpu_torch.pkg.telemetry  # noqa: F401
+    import k8s_dra_driver_tpu_torch.pkg.usage  # noqa: F401
+    import k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.controller  # noqa: F401,E501
+    import k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon.daemon  # noqa: F401,E501
+    import k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.checkpoint  # noqa: F401,E501
+    import k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.health  # noqa: F401,E501
+    from k8s_dra_driver_tpu.pkg import faultpoints as jax_faultpoints
+
+    assert set(faultpoints.registered()) == set(ALL_FAULT_POINTS)
+    import k8s_dra_driver_tpu.k8sclient.client  # noqa: F401
+    jax_k8s = {p for p in jax_faultpoints.registered()
+               if p.startswith("k8sclient.")}
+    assert jax_k8s <= set(ALL_FAULT_POINTS)
+
+
+class TestInjectorMechanics:
+    def test_disabled_is_noop(self):
+        assert faultpoints.active_plan() is None
+        faultpoints.maybe_fail("k8sclient.fake.mutate")  # must not raise
+        assert faultpoints.fires("k8sclient.watch.drop") is False
+
+    def test_unscheduled_point_is_noop_under_active_plan(self):
+        with faultpoints.injected("k8sclient.fake.read=nth:1"):
+            faultpoints.maybe_fail("k8sclient.fake.mutate")
+
+    def test_schedule_modes(self):
+        with faultpoints.injected("k8sclient.fake.mutate=nth:2"):
+            faultpoints.maybe_fail("k8sclient.fake.mutate")  # hit 1
+            with pytest.raises(InjectedFault):
+                faultpoints.maybe_fail("k8sclient.fake.mutate")  # hit 2
+            faultpoints.maybe_fail("k8sclient.fake.mutate")  # hit 3
+        with faultpoints.injected("k8sclient.fake.mutate=first:2"):
+            for _ in range(2):
+                with pytest.raises(InjectedFault):
+                    faultpoints.maybe_fail("k8sclient.fake.mutate")
+            faultpoints.maybe_fail("k8sclient.fake.mutate")
+        with faultpoints.injected("k8sclient.fake.mutate=every:3"):
+            fired = 0
+            for _ in range(9):
+                try:
+                    faultpoints.maybe_fail("k8sclient.fake.mutate")
+                except InjectedFault:
+                    fired += 1
+            assert fired == 3
+
+    def test_error_kinds(self):
+        with faultpoints.injected("k8sclient.fake.mutate=nth:1:conflict"):
+            with pytest.raises(ConflictError):
+                faultpoints.maybe_fail("k8sclient.fake.mutate")
+        with faultpoints.injected("gpulib.enumerate=nth:1"):
+            # Registered default error kind, no explicit kind needed.
+            with pytest.raises(EnumerationError):
+                faultpoints.maybe_fail("gpulib.enumerate")
+
+    def test_crash_is_baseexception(self):
+        with faultpoints.injected("checkpoint.write=crash-nth:1"):
+            try:
+                faultpoints.maybe_fail("checkpoint.write")
+            except Exception:  # noqa: BLE001 — the point of the test
+                pytest.fail("FaultCrash must not be catchable as Exception")
+            except FaultCrash:
+                pass
+
+    def test_latency_sleeps_instead_of_raising(self):
+        with faultpoints.injected("k8sclient.fake.read=latency:0.05"):
+            t0 = time.monotonic()
+            faultpoints.maybe_fail("k8sclient.fake.read")
+            assert time.monotonic() - t0 >= 0.045
+
+    def test_bad_specs_rejected(self):
+        for bad in ("p=explode:1", "p=nth", "p", "p=rate:-1", "seed=fourty",
+                    "p=nth:0", "p=every:0.5", "p=crash-nth:0", "p=rate:1.5"):
+            with pytest.raises(FaultSpecError):
+                FaultPlan(bad)
+
+    def test_nested_injected_restores_outer_plan(self):
+        with faultpoints.injected("k8sclient.fake.read=every:1") as outer:
+            with faultpoints.injected("k8sclient.fake.mutate=nth:1"):
+                with pytest.raises(InjectedFault):
+                    faultpoints.maybe_fail("k8sclient.fake.mutate")
+            assert faultpoints.active_plan() is outer
+            with pytest.raises(InjectedFault):  # outer schedule still live
+                faultpoints.maybe_fail("k8sclient.fake.read")
+        assert faultpoints.active_plan() is None
+
+    def test_crash_schedule_on_fires_point_still_crashes(self):
+        """crash-here on a value-altering point means process death, not a
+        quiet value alteration."""
+        lib = MockDeviceLib("h100-8")
+        with faultpoints.injected("gpulib.gpu.vanish=crash-nth:1"):
+            with pytest.raises(FaultCrash):
+                lib.enumerate_gpus()
+
+    def test_unknown_error_kind_rejected_at_activation(self):
+        with pytest.raises(FaultSpecError):
+            faultpoints.activate(FaultPlan("cdi.write=nth:1:oserorr"))
+        assert faultpoints.active_plan() is None
+
+    def test_injected_errors_carry_provenance_marker(self):
+        with faultpoints.injected("k8sclient.fake.mutate=nth:1:conflict"):
+            try:
+                faultpoints.maybe_fail("k8sclient.fake.mutate")
+            except ConflictError as e:
+                assert faultpoints.is_injected(e)
+                wrapped = None
+                try:
+                    raise RuntimeError("wrapper") from e
+                except RuntimeError as w:
+                    wrapped = w
+                assert faultpoints.is_injected(wrapped)
+        assert not faultpoints.is_injected(ConflictError("injected-looking"))
+        assert not faultpoints.is_injected(TimeoutError("retry exhausted"))
+
+    def test_env_var_activation(self):
+        try:
+            assert faultpoints.configure_from_env({}) is False
+            assert faultpoints.configure_from_env(
+                {"GPU_DRA_FAULTS": "seed=9;cdi.write=nth:1"}) is True
+            plan = faultpoints.active_plan()
+            assert plan is not None and plan.seed == 9
+            assert "cdi.write" in plan.schedules
+        finally:
+            faultpoints.deactivate()
+
+    def test_same_seed_same_injection_sequence(self):
+        """One spec + seed → one injection sequence, across every point in
+        the catalog."""
+        spec = ";".join(f"{p}=rate:0.4" for p in ALL_FAULT_POINTS)
+
+        def drive(seed: int) -> list:
+            with faultpoints.injected(spec, seed=seed) as plan:
+                for _ in range(40):
+                    for p in ALL_FAULT_POINTS:
+                        try:
+                            faultpoints.maybe_fail(p)
+                        except (InjectedFault, Exception):  # noqa: BLE001
+                            pass
+                return plan.log()
+
+        log_a = drive(seed=1234)
+        log_b = drive(seed=1234)
+        log_c = drive(seed=99)
+        assert log_a == log_b
+        assert len(log_a) > 50
+        assert log_a != log_c
+
+    def test_hit_order_across_threads_is_immaterial(self):
+        spec = "k8sclient.fake.read=rate:0.3"
+        total = 120
+
+        def fired_hits(threads: int) -> list:
+            with faultpoints.injected(spec, seed=7) as plan:
+                def work():
+                    for _ in range(total // threads):
+                        try:
+                            faultpoints.maybe_fail("k8sclient.fake.read")
+                        except InjectedFault:
+                            pass
+                ts = [threading.Thread(target=work) for _ in range(threads)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join()
+                return plan.log()
+
+        assert fired_hits(threads=4) == fired_hits(threads=1)
+
+
+class TestApiServerFaults:
+    @pytest.fixture()
+    def http_cluster(self):
+        server = ApiServer().start()
+        yield server, HttpClient(server.endpoint)
+        server.stop()
+
+    def test_injected_status_responses_map_to_typed_errors(self, http_cluster):
+        server, client = http_cluster
+        client.create(new_object("ConfigMap", "a"))
+        with faultpoints.injected(
+                "k8sclient.apiserver.response=first:3:conflict"):
+            with pytest.raises(ConflictError) as ei:
+                client.get("ConfigMap", "a")
+            assert faultpoints.is_injected(ei.value)
+        with faultpoints.injected(
+                "k8sclient.apiserver.response=first:3:toomany"):
+            with pytest.raises(TooManyRequestsError):
+                client.get("ConfigMap", "a")
+        with faultpoints.injected(
+                "k8sclient.apiserver.response=first:3:internal"):
+            with pytest.raises(RuntimeError):
+                client.get("ConfigMap", "a")
+        assert client.get("ConfigMap", "a")["metadata"]["name"] == "a"
+
+    def test_client_transport_faults_per_verb(self, http_cluster):
+        _, client = http_cluster
+        client.create(new_object("ConfigMap", "b"))
+        for spec, op in [
+            ("k8sclient.http.get=nth:1", lambda: client.get("ConfigMap", "b")),
+            ("k8sclient.http.post=nth:1",
+             lambda: client.create(new_object("ConfigMap", "c"))),
+            ("k8sclient.http.put=nth:1",
+             lambda: client.update(client.get("ConfigMap", "b"))),
+            ("k8sclient.http.delete=nth:1",
+             lambda: client.delete("ConfigMap", "b")),
+        ]:
+            with faultpoints.injected(spec):
+                with pytest.raises(InjectedFault):
+                    op()
+            op()  # and the verb works once the schedule is exhausted
+
+    def test_finalizer_retry_converges_under_conflict_storm(self, http_cluster):
+        _, client = http_cluster
+        client.create(new_object("ConfigMap", "f"))
+        with faultpoints.injected(
+                "k8sclient.apiserver.response=rate:0.3:conflict", seed=3):
+            for i in range(10):
+                obj = self._retry(lambda i=i: client.add_finalizer(
+                    "ConfigMap", "f", f"fin-{i}"))
+                assert f"fin-{i}" in obj["metadata"]["finalizers"]
+            for i in range(10):
+                self._retry(lambda i=i: client.remove_finalizer(
+                    "ConfigMap", "f", f"fin-{i}"))
+        assert client.get("ConfigMap", "f")["metadata"]["finalizers"] == []
+
+    @staticmethod
+    def _retry(fn, attempts: int = 60):
+        """The caller-side retry a controller's workqueue provides; the
+        final assertion still proves convergence."""
+        last = None
+        for _ in range(attempts):
+            try:
+                return fn()
+            except Exception as e:  # noqa: BLE001 — bounded, asserted after
+                last = e
+                time.sleep(0.002)
+        raise last
+
+
+class TestInformerWatchRecovery:
+    @staticmethod
+    def _fast_informer(client, metrics, **kw):
+        return Informer(
+            client, "ConfigMap",
+            reconnect_limiter=ItemExponentialFailureRateLimiter(0.01, 0.05),
+            reconnect_stable_after=0.2,
+            metrics=metrics,
+            **kw)
+
+    def test_inprocess_drop_recovers_without_missing_events(self):
+        client = FakeClient()
+        client.create(new_object("ConfigMap", "pre"))
+        seen: dict[str, dict] = {}
+        seen_lock = threading.Lock()
+
+        def on_add(obj):
+            with seen_lock:
+                seen[obj["metadata"]["name"]] = obj
+
+        metrics = InformerMetrics()
+        inf = self._fast_informer(
+            client, metrics, on_add=on_add,
+            on_update=lambda old, new: on_add(new))
+        inf.start()
+        assert inf.wait_for_cache_sync()
+        with faultpoints.injected("k8sclient.watch.drop=nth:1"):
+            client.create(new_object("ConfigMap", "during-1"))
+            deadline = time.monotonic() + 5.0
+            while inf.reconnect_count < 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            client.create(new_object("ConfigMap", "during-2"))
+        client.create(new_object("ConfigMap", "after"))
+        deadline = time.monotonic() + 5.0
+        want = {"pre", "during-1", "during-2", "after"}
+        while time.monotonic() < deadline:
+            with seen_lock:
+                if want <= set(seen):
+                    break
+            time.sleep(0.01)
+        inf.stop()
+        with seen_lock:
+            assert want <= set(seen)
+        assert inf.reconnect_count >= 1
+        assert metrics.watch_reconnects_total.value(kind="ConfigMap") >= 1
+
+    def test_http_stream_drop_recovers(self):
+        server = ApiServer().start()
+        try:
+            client = HttpClient(server.endpoint)
+            client.create(new_object("ConfigMap", "pre"))
+            seen: set = set()
+            seen_lock = threading.Lock()
+
+            def on_add(obj):
+                with seen_lock:
+                    seen.add(obj["metadata"]["name"])
+
+            metrics = InformerMetrics()
+            inf = self._fast_informer(
+                client, metrics, on_add=on_add,
+                on_update=lambda old, new: on_add(new))
+            inf.start()
+            assert inf.wait_for_cache_sync()
+            with faultpoints.injected("k8sclient.watch.drop=nth:1"):
+                deadline = time.monotonic() + 8.0
+                while inf.reconnect_count < 1 and time.monotonic() < deadline:
+                    time.sleep(0.02)
+            client.create(new_object("ConfigMap", "post-drop"))
+            deadline = time.monotonic() + 8.0
+            while time.monotonic() < deadline:
+                with seen_lock:
+                    if {"pre", "post-drop"} <= seen:
+                        break
+                time.sleep(0.02)
+            inf.stop()
+            with seen_lock:
+                assert {"pre", "post-drop"} <= seen
+            assert metrics.watch_reconnects_total.value(kind="ConfigMap") >= 1
+        finally:
+            server.stop()
+
+    def test_flapping_stream_is_backoff_paced_not_hot(self):
+        """Every re-established watch dies on its first next(): the
+        jittered expo limiter must pace reconnects (~10 in a second at base
+        40 ms, cap 640 ms), not let the LIST+watch cycle spin."""
+        client = FakeClient()
+        client.create(new_object("ConfigMap", "x"))
+        when_calls: list[float] = []
+
+        class CountingLimiter(ItemExponentialFailureRateLimiter):
+            def when(self, key, now):
+                d = super().when(key, now)
+                when_calls.append(d)
+                return d
+
+        metrics = InformerMetrics()
+        inf = Informer(client, "ConfigMap",
+                       reconnect_limiter=CountingLimiter(0.04, 0.64),
+                       reconnect_stable_after=30.0,
+                       metrics=metrics)
+        with faultpoints.injected("k8sclient.watch.drop=every:1"):
+            inf.start()
+            time.sleep(1.0)
+            inf.stop()
+        reconnects = metrics.watch_reconnects_total.value(kind="ConfigMap")
+        assert 1 <= reconnects <= 20
+        assert when_calls and max(when_calls) > 0.04
+
+
+class TestCheckpointTornWrite:
+    def _cp(self, n: int) -> Checkpoint:
+        cp = Checkpoint(node_boot_id="boot-1")
+        cp.prepared_claims[f"uid-{n}"] = PreparedClaimCP(
+            state=STATE_PREPARE_COMPLETED,
+            prepared_devices=[{"device": f"gpu-{n}"}])
+        return cp
+
+    def test_crash_before_write_leaves_old_state(self, tmp_path):
+        mgr = CheckpointManager(str(tmp_path / "cp.json"))
+        mgr.write(self._cp(1))
+        with faultpoints.injected("checkpoint.write=crash-nth:1"):
+            with pytest.raises(FaultCrash):
+                mgr.write(self._cp(2))
+        got = CheckpointManager(str(tmp_path / "cp.json")).read()
+        assert list(got.prepared_claims) == ["uid-1"]
+
+    def test_crash_in_torn_window_leaves_old_state(self, tmp_path):
+        """Crash after the .tmp is durable but before the rename: the
+        published checkpoint is still the old, checksum-valid state."""
+        path = tmp_path / "cp.json"
+        mgr = CheckpointManager(str(path))
+        mgr.write(self._cp(1))
+        with faultpoints.injected("checkpoint.replace=crash-nth:1"):
+            with pytest.raises(FaultCrash):
+                mgr.write(self._cp(2))
+        assert path.with_suffix(".tmp").exists()  # the torn artifact
+        got = CheckpointManager(str(path)).read()  # fresh "process"
+        assert list(got.prepared_claims) == ["uid-1"]
+        mgr2 = CheckpointManager(str(path))
+        mgr2.write(self._cp(3))
+        assert list(mgr2.read().prepared_claims) == ["uid-3"]
+
+    def test_injected_corrupt_read_is_permanent(self, tmp_path):
+        mgr = CheckpointManager(str(tmp_path / "cp.json"))
+        mgr.write(self._cp(1))
+        with faultpoints.injected("checkpoint.read=nth:1:corrupt"):
+            with pytest.raises(CorruptCheckpointError) as ei:
+                mgr.read()
+            assert is_permanent(ei.value)
+        assert list(mgr.read().prepared_claims) == ["uid-1"]
+
+
+def _wait_leader_committing(mgr, timeout=5.0):
+    """Block until a batch leader has swapped the queue (pending empty) and
+    holds commit leadership: from then on a new transaction lands in the
+    NEXT batch, which stays open while the leader's slowed write runs."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with mgr._pending_mu:
+            pending_empty = not mgr._pending
+        if pending_empty and mgr._commit_mu.locked():
+            return
+        time.sleep(0.002)
+    raise AssertionError("no batch leader entered its commit in time")
+
+
+@pytest.fixture()
+def gpu_cluster(tmp_path):
+    client = FakeClient()
+    client.create(new_object(
+        "DeviceClass", DRIVER,
+        spec={"selectors": [{"cel": {
+            "expression": "device.attributes['type'] == 'gpu'"}}]}))
+    cfg = DriverConfig(
+        node_name="node-a",
+        state_dir=str(tmp_path / "state"),
+        cdi_root=str(tmp_path / "cdi"),
+        env={},
+        # Room for two injected-failure retries at the workqueue's 250 ms
+        # base backoff inside one request budget.
+        retry_timeout=2.0,
+    )
+    driver = GpuDriver(client, cfg, device_lib=MockDeviceLib("h100-8")).start()
+    return client, driver
+
+
+def _make_gpu_claim(client, name):
+    return client.create(new_object(
+        "ResourceClaim", name, "default",
+        api_version="resource.k8s.io/v1",
+        spec={"devices": {"requests": [{
+            "name": "gpu", "exactly": {
+                "deviceClassName": DRIVER,
+                "allocationMode": "ExactCount", "count": 1}}]}}))
+
+
+class TestCheckpointGroupCommitChaos:
+    """The batched writer under crash schedules: a torn batch behaves like
+    a torn single write — previous checkpoint intact, every transaction of
+    the batch failed together, a restarted process replays all of them."""
+
+    def _stalled_multi_txn_batches(self, mgr, make_mutation, n=2):
+        outcomes = [None] * n
+
+        def dummy():
+            mgr.transact(lambda c: None)
+
+        def txn(i):
+            try:
+                mgr.transact(make_mutation(i))
+                outcomes[i] = "ok"
+            except BaseException as e:  # noqa: BLE001 — supervisor role
+                outcomes[i] = e
+
+        lead = threading.Thread(target=dummy)
+        lead.start()
+        _wait_leader_committing(mgr)
+        threads = [threading.Thread(target=txn, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        lead.join(timeout=30)
+        return outcomes
+
+    def test_torn_batch_leaves_previous_checkpoint_intact(self, tmp_path):
+        path = tmp_path / "cp.json"
+        batches = []
+        mgr = CheckpointManager(str(path), on_batch=batches.append)
+        mgr.write(Checkpoint(prepared_claims={"uid-old": PreparedClaimCP(
+            state=STATE_PREPARE_COMPLETED,
+            prepared_devices=[{"device": "gpu-old"}])}))
+
+        def make_mutation(i):
+            def mutate(c):
+                c.prepared_claims[f"uid-{i}"] = PreparedClaimCP(
+                    state=STATE_PREPARE_COMPLETED,
+                    prepared_devices=[{"device": f"gpu-{i}"}])
+            return mutate
+
+        with faultpoints.injected(
+                "checkpoint.write=latency:0.25;"
+                "checkpoint.replace=crash-nth:2"):
+            outcomes = self._stalled_multi_txn_batches(mgr, make_mutation)
+        assert all(isinstance(o, FaultCrash) for o in outcomes), outcomes
+        assert 2 in batches, f"no multi-entry batch formed: {batches}"
+        assert path.with_suffix(".tmp").exists()
+        got = CheckpointManager(str(path)).read()
+        assert list(got.prepared_claims) == ["uid-old"]
+        mgr2 = CheckpointManager(str(path))
+        mgr2.transact(make_mutation(7))
+        assert set(mgr2.read().prepared_claims) == {"uid-old", "uid-7"}
+
+    def test_crash_mid_batch_replays_every_batched_claim(self, gpu_cluster):
+        """Two claims whose PrepareStarted registrations share one crashed
+        batch: neither became durable, both prepares died with the process,
+        and a restarted plugin replays both to completion."""
+        client, driver = gpu_cluster
+        alloc = Allocator(client)
+        claims = {}
+        for name in ("wl-ga", "wl-gb"):
+            _make_gpu_claim(client, name)
+            claims[name] = alloc.allocate(
+                client.get("ResourceClaim", name, "default"), node="node-a")
+
+        crashes = []
+
+        def prep(claim):
+            try:
+                driver.prepare_resource_claims([claim])
+            except FaultCrash as e:  # the "supervisor" catches the SIGKILL
+                crashes.append(e)
+
+        with faultpoints.injected(
+                "checkpoint.write=latency:0.25;"
+                "checkpoint.replace=crash-nth:2"):
+            lead = threading.Thread(
+                target=lambda: driver.state.checkpoints.transact(
+                    lambda c: None))
+            lead.start()
+            _wait_leader_committing(driver.state.checkpoints)
+            threads = [threading.Thread(target=prep, args=(c,))
+                       for c in claims.values()]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=30)
+            lead.join(timeout=30)
+        assert len(crashes) == 2, "both batched prepares must die together"
+        assert driver.state.prepared_claims() == {}
+        hist = driver.metrics.registry.expose_text()
+        assert f'gpu_dra_checkpoint_batch_size_count{{driver="{DRIVER}"}} 2'\
+            in hist
+        assert f'gpu_dra_checkpoint_batch_size_sum{{driver="{DRIVER}"}} 3'\
+            in hist
+
+        driver2 = GpuDriver(client, driver.config,
+                            device_lib=MockDeviceLib("h100-8")).start()
+        for name, claim in claims.items():
+            uid = claim["metadata"]["uid"]
+            res = driver2.prepare_resource_claims([claim])[uid]
+            assert res.error is None
+            assert driver2.cdi.read_claim_spec(uid) is not None
+        for name, claim in claims.items():
+            uid = claim["metadata"]["uid"]
+            errs = driver2.unprepare_resource_claims([ClaimRef(
+                uid=uid, name=name, namespace="default")])
+            assert errs[uid] is None
+        assert driver2.state.prepared_claims() == {}
+        assert driver2.cdi.list_claim_uids() == []
+
+
+class TestGpuKillRestartReconverge:
+    def test_checkpoint_replay_after_crash(self, gpu_cluster):
+        """Kill the plugin mid-prepare (a crash in the torn-write window of
+        the completing checkpoint update), restart over the same state
+        dir: completed claims replay identically, the crashed claim rolls
+        back and re-prepares, and unprepare drains everything."""
+        client, driver = gpu_cluster
+        alloc = Allocator(client)
+        claims = {}
+        for name in ("wl-a", "wl-b"):
+            _make_gpu_claim(client, name)
+            claims[name] = alloc.allocate(
+                client.get("ResourceClaim", name, "default"),
+                node="node-a")
+            res = driver.prepare_resource_claims([claims[name]])
+            uid = claims[name]["metadata"]["uid"]
+            assert res[uid].error is None
+
+        _make_gpu_claim(client, "wl-crash")
+        claims["wl-crash"] = alloc.allocate(
+            client.get("ResourceClaim", "wl-crash", "default"), node="node-a")
+        crash_uid = claims["wl-crash"]["metadata"]["uid"]
+        with faultpoints.injected("checkpoint.replace=crash-nth:2"):
+            with pytest.raises(FaultCrash):
+                driver.prepare_resource_claims([claims["wl-crash"]])
+        before = driver.state.prepared_claims()
+        assert before[crash_uid].state == STATE_PREPARE_STARTED
+
+        driver2 = GpuDriver(client, driver.config,
+                            device_lib=MockDeviceLib("h100-8")).start()
+        after = driver2.state.prepared_claims()
+        assert set(after) == set(before)
+        for name in ("wl-a", "wl-b"):
+            uid = claims[name]["metadata"]["uid"]
+            assert after[uid].state == STATE_PREPARE_COMPLETED
+            assert after[uid].prepared_devices == before[uid].prepared_devices
+
+        uid_a = claims["wl-a"]["metadata"]["uid"]
+        r1 = driver2.prepare_resource_claims([claims["wl-a"]])[uid_a]
+        assert r1.error is None
+        r1_again = driver2.prepare_resource_claims([claims["wl-a"]])[uid_a]
+        assert r1.devices == r1_again.devices
+
+        r2 = driver2.prepare_resource_claims([claims["wl-crash"]])[crash_uid]
+        assert r2.error is None
+        assert driver2.cdi.read_claim_spec(crash_uid) is not None
+
+        for name, claim in claims.items():
+            errs = driver2.unprepare_resource_claims([ClaimRef(
+                uid=claim["metadata"]["uid"], name=name,
+                namespace="default")])
+            assert errs[claim["metadata"]["uid"]] is None
+        assert driver2.state.prepared_claims() == {}
+        assert driver2.cdi.list_claim_uids() == []
+
+    def test_stale_claims_swept_on_restart(self, gpu_cluster):
+        """A CDI spec with no checkpoint backing is swept on startup."""
+        client, driver = gpu_cluster
+        from k8s_dra_driver_tpu_torch.cdi.spec import CDIDevice
+        driver.cdi.create_claim_spec_file("stale-uid", [CDIDevice(name="x")])
+        driver2 = GpuDriver(client, driver.config,
+                            device_lib=MockDeviceLib("h100-8"))
+        assert driver2.cdi.read_claim_spec("stale-uid") is None
+
+    def test_prepare_retries_through_transient_cdi_faults(self, gpu_cluster):
+        """The first two CDI writes fail, the third succeeds: the request
+        succeeds without external retries."""
+        client, driver = gpu_cluster
+        _make_gpu_claim(client, "wl-flaky")
+        claim = Allocator(client).allocate(
+            client.get("ResourceClaim", "wl-flaky", "default"), node="node-a")
+        uid = claim["metadata"]["uid"]
+        with faultpoints.injected("cdi.write=first:2"):
+            res = driver.prepare_resource_claims([claim])[uid]
+        assert res.error is None
+        assert driver.cdi.read_claim_spec(uid) is not None
+        errs = driver.unprepare_resource_claims(
+            [ClaimRef(uid=uid, name="wl-flaky", namespace="default")])
+        assert errs[uid] is None
+
+
+class TestDeviceFaults:
+    def test_enumeration_fault_fails_daemon_readiness_then_recovers(self):
+        from k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon import (
+            ComputeDomainDaemon,
+        )
+        d = ComputeDomainDaemon(
+            client=FakeClient(), device_lib=MockDeviceLib("h100-8"),
+            cd_uid="cd-uid", cd_name="cd", node_name="node-0")
+        with faultpoints.injected("gpulib.enumerate=first:1"):
+            assert d.local_ready() is False
+        assert d.local_ready() is True
+
+    def test_gpu_vanish_and_unhealthy_alter_enumeration(self):
+        lib = MockDeviceLib("h100-8")
+        with faultpoints.injected(
+                "gpulib.gpu.vanish=nth:1;gpulib.gpu.unhealthy=nth:2"):
+            assert len(lib.enumerate_gpus()) == 7  # one GPU gone
+            gpus = lib.enumerate_gpus()  # second call: unhealthy flip
+            assert len(gpus) == 8
+            assert gpus[0].health.state == HealthState.UNHEALTHY
+        assert all(g.health.state != HealthState.UNHEALTHY
+                   for g in lib.enumerate_gpus())
+
+    def test_single_poll_vanish_produces_no_taint(self, tmp_path):
+        """A GPU missing from exactly one health poll must produce no
+        DeviceTainted Event, no published taint and no drain work."""
+        from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
+            DrainController,
+        )
+        from k8s_dra_driver_tpu_torch.pkg.events import (
+            REASON_DEVICE_TAINTED,
+            list_events,
+        )
+        from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.health import (
+            attach_health_monitor,
+        )
+        client = FakeClient()
+        client.create(new_object(
+            "DeviceClass", DRIVER,
+            spec={"selectors": [{"cel": {
+                "expression": "device.attributes['type'] == 'gpu'"}}]}))
+        driver = GpuDriver(client, DriverConfig(
+            node_name="node-a", state_dir=str(tmp_path / "state"),
+            cdi_root=str(tmp_path / "cdi"), env={},
+            retry_timeout=0.5), device_lib=MockDeviceLib("h100-8")).start()
+        monitor = attach_health_monitor(driver, start=False)
+        drainer = DrainController(client, driver, poll_interval=999)
+        monitor.poll_once()  # learn the population
+        with faultpoints.injected("gpulib.gpu.vanish=nth:1"):
+            assert monitor.poll_once() == []  # the flap: damped
+        assert monitor.poll_once() == []      # GPU back: still quiet
+        assert not driver.device_taints()
+        assert list_events(client, reason=REASON_DEVICE_TAINTED) == []
+        counts = drainer.poll_once()
+        assert counts == {"drained": 0, "rejoined": 0, "cancelled": 0}
+        assert not drainer.draining
+        monitor.stop()
+        driver.stop()
+
+
+class TestDaemonSyncBackoff:
+    def test_failure_streak_backs_off_and_resets_on_success(self):
+        from k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon import (
+            ComputeDomainDaemon,
+        )
+        d = ComputeDomainDaemon(
+            client=FakeClient(), device_lib=MockDeviceLib("h100-8"),
+            cd_uid="cd-uid", cd_name="cd", node_name="node-0")
+        d.start(interval=0.01)
+
+        def gauge() -> float:
+            return d.metrics.sync_consecutive_failures.value(node="node-0")
+
+        try:
+            with faultpoints.injected("cd.daemon.sync=first:3"):
+                deadline = time.monotonic() + 5.0
+                peak = 0.0
+                while peak < 2 and time.monotonic() < deadline:
+                    peak = max(peak, gauge())
+                    time.sleep(0.002)
+                assert peak >= 2
+                deadline = time.monotonic() + 5.0
+                while gauge() > 0 and time.monotonic() < deadline:
+                    time.sleep(0.005)
+            assert gauge() == 0
+            assert d.sync_consecutive_failures == 0
+        finally:
+            d.stop()
+
+
+class TestControllerPatchFaults:
+    def test_reconcile_retries_through_patch_faults(self):
+        from k8s_dra_driver_tpu_torch.api.computedomain import (
+            new_compute_domain,
+        )
+        from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller \
+            .controller import ComputeDomainController
+        client = FakeClient()
+        controller = ComputeDomainController(client)
+        cd = client.create(new_compute_domain("dom", "default", num_nodes=1))
+        with faultpoints.injected("cd.controller.patch=first:1"):
+            with pytest.raises(InjectedFault):
+                controller.reconcile(cd)
+        controller.reconcile(client.get("ComputeDomain", "dom", "default"))
+        status = client.get(
+            "ComputeDomain", "dom", "default").get("status") or {}
+        assert status.get("status")  # aggregated (NotReady until daemons)
+
+
+class TestControlPlaneFleetChaos:
+    """An N-CD fleet converges through the live workers=4 loop while
+    controller write-backs are randomly failed: one child set per CD, no
+    leak, quiet afterwards."""
+
+    def test_fleet_converges_under_patch_faults(self):
+        out = run_cd_fleet(
+            n_domains=12, workers=4,
+            faults="cd.controller.patch=rate:0.2", fault_seed=7)
+        assert out["converged"], out
+        assert out["leaks"] == {}, out
+        assert out["storm_events"] == 0, out
+        assert out["faults"]["fired_by_point"].get(
+            "cd.controller.patch", 0) > 0, out["faults"]
+        assert faultpoints.active_plan() is None
+
+    def test_fleet_rejects_crash_schedules(self):
+        with pytest.raises(ValueError, match="crash"):
+            run_cd_fleet(n_domains=1,
+                         faults="cd.controller.patch=crash-nth:1")
+        assert faultpoints.active_plan() is None
+
+
+def test_churn_rejects_crash_schedules(tmp_path):
+    with pytest.raises(ValueError, match="crash"):
+        run_claim_churn(duration_s=0.1, n_nodes=1, workers_per_node=1,
+                        tmpdir=str(tmp_path),
+                        faults="checkpoint.replace=crash-nth:1")
+    assert faultpoints.active_plan() is None
+
+
+def _assert_churn_converged(out):
+    assert out["errors"] == [], out
+    assert out["leaks"] == {}, out
+    assert out["gpu_prepare"]["ops"] + out["cd_prepare"]["ops"] > 0
+
+
+@pytest.mark.slow
+class TestChurnChaos:
+    """Both plugins under fault schedules: no non-injected error and a
+    clean leak audit (no checkpointed claim, CDI file or claim object)."""
+
+    def test_churn_under_api_and_daemon_faults(self, tmp_path):
+        out = run_claim_churn(
+            duration_s=3.0, n_nodes=2, workers_per_node=2,
+            tmpdir=str(tmp_path),
+            faults=("k8sclient.fake.mutate=rate:0.06:conflict;"
+                    "k8sclient.fake.read=rate:0.03;"
+                    "cd.daemon.sync=rate:0.25;"
+                    "cd.controller.patch=rate:0.25"),
+            fault_seed=11)
+        _assert_churn_converged(out)
+        assert out["faults"]["injected"] > 0, out
+
+    def test_churn_under_storage_and_device_faults(self, tmp_path):
+        out = run_claim_churn(
+            duration_s=3.0, n_nodes=2, workers_per_node=2,
+            tmpdir=str(tmp_path),
+            faults=("cdi.write=rate:0.08;"
+                    "checkpoint.read=rate:0.03:oserror;"
+                    "k8sclient.fake.mutate=latency:0.002;"
+                    "k8sclient.watch.drop=every:25"),
+            fault_seed=23)
+        _assert_churn_converged(out)
+        assert out["faults"]["injected"] > 0, out
+
+    def test_churn_same_seed_is_deterministic(self, tmp_path):
+        """Same spec + seed → same injection schedule, per point: one run's
+        fired (hit, action) sequence is a prefix of the other's."""
+        spec = "k8sclient.fake.mutate=rate:0.2:conflict"
+        outs = [run_claim_churn(
+            duration_s=1.5, n_nodes=1, workers_per_node=1,
+            tmpdir=str(tmp_path / f"r{i}"), faults=spec, fault_seed=42)
+            for i in (0, 1)]
+        for out in outs:
+            assert out["errors"] == [], out
+            assert out["leaks"] == {}, out
+
+        def by_point(out) -> dict:
+            grouped: dict = {}
+            for point, hit, action in out["faults"]["log"]:
+                grouped.setdefault(point, []).append((hit, action))
+            return grouped
+
+        a, b = by_point(outs[0]), by_point(outs[1])
+        assert a and b
+        for point in set(a) | set(b):
+            fa, fb = a.get(point, []), b.get(point, [])
+            shorter = min(len(fa), len(fb))
+            assert fa[:shorter] == fb[:shorter], (point, fa, fb)
+
+
+class TestNodeFleetChaos:
+    """A node fleet converges while watch streams are randomly dropped and
+    resumes randomly rejected with 410: dropped streams resume from the
+    backlog, forced-expired resumes fall back to relist."""
+
+    def test_fleet_converges_under_watch_drops_and_410s(self):
+        out = run_node_fleet(
+            n_nodes=12, ready_timeout_s=180.0,
+            faults=("k8sclient.watch.drop=rate:0.02;"
+                    "k8sclient.watch.expired=rate:0.5"),
+            fault_seed=3)
+        assert out["converged"], out
+        assert out["error_count"] == 0, out["errors"]
+        assert out["faults"]["fired_by_point"].get(
+            "k8sclient.watch.drop", 0) > 0, out["faults"]
+        assert out["watch_reconnects"] > 0, out
+        if out["faults"]["fired_by_point"].get("k8sclient.watch.expired"):
+            assert out["watch_relists"] > 0, out
+        assert faultpoints.active_plan() is None
+
+    def test_fleet_rejects_crash_schedules(self):
+        with pytest.raises(ValueError, match="crash"):
+            run_node_fleet(n_nodes=1,
+                           faults="k8sclient.watch.drop=crash-nth:1")
+        assert faultpoints.active_plan() is None
+
+
+@pytest.mark.slow
+class TestChaosObservability:
+    """Chaos traces are self-explaining and every injected-failure claim
+    leaves a durable PrepareFailed Event."""
+
+    def test_traced_chaos_churn_annotates_and_records_events(self, tmp_path):
+        out = run_claim_churn(
+            duration_s=3.0, n_nodes=2, workers_per_node=2,
+            tmpdir=str(tmp_path), trace=True,
+            faults="devicestate.prepare=rate:0.5", fault_seed=31)
+        _assert_churn_converged(out)
+        t = out["tracing"]
+        assert t["traces"] > 0
+        assert t["complete"] == t["traces"], t["audit_problems"]
+        assert t["dropped_spans"] == 0
+        assert t["fault_annotated_traces"] > 0
+        assert out["faults"]["injected"] > 0
+        assert out["faults"]["prepare_fault_failures"], out["faults"]
+        assert out["faults"]["missing_events"] == [], out["faults"]
+
+
+@pytest.mark.slow
+class TestChaosSelfHealing:
+    """The self-healing soak under the full fault mix: GPU faults, API,
+    checkpoint and watch injection, reallocator restarts — zero leaks,
+    every claim Ready or cleanly failed, every injected GPU drained,
+    repaired and rejoined."""
+
+    def test_soak_full_fault_mix(self, tmp_path):
+        out = run_soak(duration_s=6.0, n_nodes=2, tmpdir=str(tmp_path),
+                       gpu_fault_interval_s=0.5, faults=SOAK_FAULT_MIX,
+                       fault_seed=7, realloc_restart_interval_s=1.5)
+        assert out["error_count"] == 0, out["errors"]
+        assert not out["leaks"], out["leaks"]
+        assert out["outcomes"]["stuck"] == 0, out["outcomes"]
+        assert out["gpu_injections"] > 0
+        assert out["unresolved_injections"] == 0
+        assert out["drained_claims"] > 0
+        assert out["slo_ok"], out["claim_recovery"]
+        assert out["faults"]["injected"] > 0
+        assert out["realloc_restarts"] > 0
+
+
+@pytest.mark.slow
+class TestChaosNodeFailure:
+    """A whole-node kill and a network partition under the full fault mix,
+    across seeds: detected within 2× the lease, every cordoned node
+    uncordoned, the fencing contract held, the soak oracle green."""
+
+    @pytest.mark.parametrize("seed", [1, 2, 3])
+    def test_node_kill_and_partition_legs(self, tmp_path, seed):
+        out = run_soak(duration_s=8.0, n_nodes=2, tmpdir=str(tmp_path),
+                       gpu_fault_interval_s=0.8, faults=SOAK_FAULT_MIX,
+                       fault_seed=seed,
+                       lease_duration_s=0.6,
+                       node_kill_at_s=1.5,
+                       partition_at_s=4.0, partition_duration_s=1.8,
+                       recovery_slo_s=8.0)
+        assert out["error_count"] == 0, out["errors"]
+        assert not out["leaks"], out["leaks"]
+        assert out["outcomes"]["stuck"] == 0, out["outcomes"]
+        assert out["unresolved_injections"] == 0
+        assert out["slo_ok"], out["claim_recovery"]
+        nf = out["node_failure"]
+        assert nf["cordons"] >= 2, nf
+        assert nf["uncordons"] >= nf["cordons"], nf
+        assert not nf["cordoned_at_end"], nf
+        assert len(nf["detections_s"]) == 2, nf
+        assert max(nf["detections_s"].values()) <= nf["detect_bound_s"], nf
+        assert nf["fence_recoveries"] >= 1, nf
+        assert nf["split_brain_violations"] == 0, nf["split_brain_samples"]
+
+
+def _jax_plan_clear():
+    from k8s_dra_driver_tpu.pkg import faultpoints as jax_faultpoints
+    return jax_faultpoints.active_plan() is None
+
+
+class TestAgainstJax:
+    """Each harness of both packages at one seed and the same arguments:
+    the oracle verdicts agree, and so do the counts that do not depend on
+    timing."""
+
+    def test_cd_fleet(self):
+        kw = dict(n_domains=8, workers=4,
+                  faults="cd.controller.patch=rate:0.2", fault_seed=7)
+        port, jax = run_cd_fleet(**kw), jax_stresslab.run_cd_fleet(**kw)
+        for key in ("n_domains", "workers", "converged", "leaks",
+                    "storm_events"):
+            assert port[key] == jax[key], key
+        assert port["converged"] and port["leaks"] == {}
+        assert (sorted(port["faults"]["fired_by_point"])
+                == sorted(jax["faults"]["fired_by_point"]))
+        assert _jax_plan_clear() and faultpoints.active_plan() is None
+
+    def test_node_fleet(self):
+        kw = dict(n_nodes=12, ready_timeout_s=180.0,
+                  faults="k8sclient.watch.drop=rate:0.02", fault_seed=3)
+        port, jax = run_node_fleet(**kw), jax_stresslab.run_node_fleet(**kw)
+        for key in ("n_nodes", "informers", "sharded", "converged",
+                    "error_count"):
+            assert port[key] == jax[key], key
+        assert port["converged"] and port["error_count"] == 0
+        assert port["prepares"] >= port["n_nodes"]
+        assert jax["prepares"] >= jax["n_nodes"]
+        assert set(port) == set(jax)
+        assert _jax_plan_clear() and faultpoints.active_plan() is None
+
+    def test_claim_churn(self, tmp_path):
+        kw = dict(duration_s=1.0, n_nodes=2, workers_per_node=1,
+                  faults="k8sclient.fake.mutate=rate:0.1:conflict",
+                  fault_seed=42)
+        port = run_claim_churn(tmpdir=str(tmp_path / "port"), **kw)
+        jax = jax_stresslab.run_claim_churn(tmpdir=str(tmp_path / "jax"),
+                                            **kw)
+        for key in ("n_nodes", "workers", "error_count", "leaks"):
+            assert port[key] == jax[key], key
+        assert port["error_count"] == 0 and port["leaks"] == {}
+        renamed = {"gpu_prepare": "tpu_prepare"}
+        assert {renamed.get(k, k) for k in port} == set(jax)
+        assert port["faults"]["missing_events"] == jax["faults"][
+            "missing_events"] == []
+        # One seed, one schedule: the first fired hits agree point by point.
+        for out in (port, jax):
+            assert out["faults"]["injected"] > 0
+        first = {o: [h for p, h, _a in out["faults"]["log"]][:3]
+                 for o, out in (("port", port), ("jax", jax))}
+        assert first["port"] == first["jax"]
+
+    def test_cross_kind_writes(self):
+        from k8s_dra_driver_tpu_torch.internal.stresslab import (
+            run_cross_kind_writes,
+        )
+        kw = dict(n_kinds=4, writes_per_kind=40)
+        port = run_cross_kind_writes(**kw)
+        jax = jax_stresslab.run_cross_kind_writes(**kw)
+        assert set(port) == set(jax)
+        for key in ("n_kinds", "writes_per_kind", "commit_hold_ms"):
+            assert port[key] == jax[key], key
+        # Both stores serialize the held commits only on the single lock.
+        assert port["speedup"] > 1.0 and jax["speedup"] > 1.0

@@ -9,6 +9,8 @@ self-healing path, the binaries with their HTTP API server, the
 observability plane with the controller's binary and the soak, and
 controller sharding with the full claim-lifecycle tracer included; the
 modules of the last five slices are named and must be among them;
+the serving-scale, churn, fleet and chaos harnesses run small in a child
+of their own with the same modules blocked;
 the ``__main__`` modules, which run their binary when imported, are
 source-scanned only) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
@@ -152,6 +154,39 @@ SHARDING_MODULES = [
     "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.sharding",
 ]
 
+#: The serving-scale, churn, fleet and chaos slice: its functions, each
+#: imported and run small in a child with JAX blocked.
+SCALE_FUNCTIONS = {
+    "k8s_dra_driver_tpu_torch.internal.stresslab": (
+        "run_serving_scale", "run_cd_fleet", "run_node_fleet",
+        "run_cross_kind_writes", "run_claim_churn"),
+    "k8s_dra_driver_tpu_torch.k8sclient.client": ("FakeClient",),
+}
+
+_SCALE_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml", "grpc"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+from k8s_dra_driver_tpu_torch.internal.stresslab import (
+    run_cd_fleet, run_claim_churn, run_cross_kind_writes, run_node_fleet,
+    run_serving_scale)
+from k8s_dra_driver_tpu_torch.k8sclient.client import FakeClient
+assert FakeClient(sharded=False).list("ConfigMap") == []
+r = run_serving_scale(measure_rounds=1, arm_window_s=0.3, autoscale=False,
+                      shards=1, device="cpu", serving_engine=dict(
+                          max_batch=8, kv_cap=32, heads=2, head_dim=8,
+                          modeled_chip_tok_s=2000.0, queue_cap=32))
+assert r["error_count"] == 0 and r["leak_count"] == 0, r
+assert r["accounting"]["ok"] and r["tokens"]["decode_steps"] > 0, r
+assert run_cd_fleet(n_domains=2)["converged"]
+assert run_node_fleet(n_nodes=4)["error_count"] == 0
+assert run_cross_kind_writes(n_kinds=2, writes_per_kind=10)["sharded_s"] > 0
+c = run_claim_churn(duration_s=0.3, n_nodes=1, workers_per_node=1)
+assert c["error_count"] == 0 and c["leaks"] == {}, c
+print("SCALE_OK")
+"""
+
 #: The binaries' ``python -m`` entry files: scanned, never imported.
 MAIN_FILES = [PORT / "plugins" / name / "__main__.py" for name in (
     "gpu_kubelet_plugin", "compute_domain_kubelet_plugin",
@@ -177,6 +212,25 @@ def test_port_imports_and_serves_with_jax_blocked():
             | set(OBSERVABILITY_MODULES) | set(SHARDING_MODULES))
     assert want <= names, sorted(want - names)
     assert not any(n.endswith(".__main__") for n in names)
+
+
+def test_this_slices_harnesses_run_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _SCALE_CHILD, str(REPO)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SCALE_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("module", sorted(SCALE_FUNCTIONS))
+def test_this_slices_functions_are_scanned(module):
+    """Each function of the slice is defined in a module the source scan
+    reads."""
+    path = PORT / Path(*module.split(".")[1:]).with_suffix(".py")
+    assert path in _sources()
+    defined = {n.name for n in ast.parse(path.read_text()).body
+               if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    assert set(SCALE_FUNCTIONS[module]) <= defined
 
 
 def test_every_main_file_is_scanned():

@@ -519,6 +519,87 @@ class TestDebugEndpoints:
         assert "tenants" in bundle["sections"]["usage"]
 
 
+class _LaggingInformer:
+    """The meter's claim informer, held at a chosen point of the stream:
+    ``cached`` answers what it has delivered so far."""
+
+    def __init__(self):
+        self.delivered: dict = {}
+
+    def cached(self, name, namespace=""):
+        return self.delivered.get((namespace, name))
+
+
+class TestReconcileBehindTheStream:
+    """A drain → reallocate inside one metering tick, while the meter's
+    informer lags the store: the LIST reconcile used to open the interval
+    at the reallocated state, and the stream's older events (the first
+    allocation, its release) then read as stale, so the meter counted one
+    interval where the claim had two (the canary leg's rare conservation
+    mismatch under load). The reconcile now leaves a claim to the stream
+    until the stream has delivered the state the LIST shows."""
+
+    def _timeline(self, devices=("gpu-0", None, "gpu-1")):
+        client = FakeClient()
+        claim = client.create(new_object(
+            "ResourceClaim", "c", "default",
+            api_version="resource.k8s.io/v1", spec={}))
+        states = []
+        for dev in devices:
+            c = client.get("ResourceClaim", "c", "default")
+            c["status"] = ({"allocation": {"devices": {"results": [{
+                "driver": DRIVER, "pool": "node-a", "device": dev}]}}}
+                if dev else {})
+            client.update_status(c)
+            states.append(client.get("ResourceClaim", "c", "default"))
+        return client, claim, states
+
+    def test_lagging_stream_keeps_both_intervals(self):
+        client, claim, (alloc, release, realloc) = self._timeline()
+        t = [100.0]
+        meter = UsageMeter(client, namespace="default",
+                           metrics=UsageMetrics(), clock=lambda: t[0],
+                           stamp_since=False)
+        stream = meter._informer = _LaggingInformer()
+        meter.observe()                  # the stream has delivered nothing
+        assert meter.ledger()["live"] == []
+        for obj in (claim, alloc, release, realloc):
+            t[0] += 1.0
+            stream.delivered[("default", "c")] = obj
+            meter.observe_claim(obj)
+            meter.observe()
+        client.delete("ResourceClaim", "c", "default")
+        t[0] += 1.0
+        meter.observe()                  # delete not delivered: left open
+        assert len(meter.ledger()["live"]) == 1
+        stream.delivered.clear()
+        meter.observe_claim_deleted(realloc)
+        uid = claim["metadata"]["uid"]
+        entry = meter.ledger()["claims"][uid]
+        assert entry["intervals"] == 2
+        assert entry["seconds"] == pytest.approx(1.0 + 1.0)
+        assert meter.ledger()["live"] == []
+
+    def test_reconcile_still_closes_what_the_stream_missed(self):
+        """The safety net holds where the stream has caught up: a release
+        whose event was lost is closed by the LIST."""
+        client, claim, (alloc, release) = self._timeline(("gpu-0", None))
+        t = [100.0]
+        meter = UsageMeter(client, namespace="default",
+                           metrics=UsageMetrics(), clock=lambda: t[0],
+                           stamp_since=False)
+        stream = meter._informer = _LaggingInformer()
+        stream.delivered[("default", "c")] = alloc
+        meter.observe_claim(alloc)
+        t[0] += 2.0
+        stream.delivered[("default", "c")] = release   # its event lost
+        meter.observe()
+        led = meter.ledger()
+        entry = led["claims"][claim["metadata"]["uid"]]
+        assert (entry["intervals"], entry["seconds"]) == (1, 2.0)
+        assert led["live"] == []
+
+
 class TestCanaryHarness:
     def test_node_kill_detected_cleared_and_conserved(self):
         """The canary leg: probes green → node kill → the availability
