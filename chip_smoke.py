@@ -131,6 +131,23 @@ One line per phase:
            or leak, the accounting identity, isolation error under 1e-4,
            both legs ok, TTFB p99 within 1.5 s, and the replicas' decode
            launches equal to their decode steps
+   mig     MIG partitions and VFIO passthrough in the GPU kubelet plugin:
+           NVML's answer to the card's MIG mode (current and pending, or
+           the NVML error), required off, and the plugin on that library
+           with DynamicMIG on publishing the card whole and no MIG device;
+           then a mock ``h100-8`` node in MIG mode with DynamicMIG on: its
+           152 placements published, two tenant claims for 3g.40gb given
+           GPU 0's two halves, a 4g.40gb and a whole-GPU claim there
+           refused, each claim's CDI spec naming its own MIG-<uuid> and
+           nvidia-caps nodes; an engine per claim at the serve phase's
+           width bound through its spec (the mock's MIG UUIDs mapped onto
+           the card), within its profile's memory, decoding 8 requests
+           through the decode kernel under the serve checks, launches equal
+           to the two engines' decode steps; the kernel against its plain
+           version at that shape; nothing left after unprepare, and the
+           4g.40gb claim then prepared; VFIO only on a materialized mock
+           tree with the kernel's rebinding emulated, never on the card's
+           /sys (claim_ready_ms, ttfb_ms, decode_tok_s)
 10. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
            the device library that found the card, the controller's live
            loop reconciling a CD of numNodes 1, and one daemon reporting the
@@ -167,8 +184,8 @@ One line per phase:
 
 Kernel times are CUDA-event times of a run of back-to-back calls over the
 count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
-burnin, each of selfheal's two batches, the processes batch, the soak and
-the scale harness) runs
+burnin, each of selfheal's two batches, the processes batch, the soak,
+the scale harness and the mig tenants) runs
 with every kernel's launch count set to 0 just before it and read just
 after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
@@ -236,10 +253,13 @@ from k8s_dra_driver_tpu_torch.entry import (
     dryrun_multichip,
     entry,
 )
+from k8s_dra_driver_tpu_torch.api.configs import API_VERSION
 from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
     BACKEND_NVML,
     BACKEND_PROCFS,
+    FakeVfioKernel,
     MockDeviceLib,
+    SysfsDeviceLib,
     find_nvml,
     locate_gpu,
     new_device_lib,
@@ -270,6 +290,7 @@ from k8s_dra_driver_tpu_torch.pkg.canary import (
     driver_probe_hooks,
 )
 from k8s_dra_driver_tpu_torch.pkg.errors import is_permanent
+from k8s_dra_driver_tpu_torch.pkg.featuregates import new_feature_gates
 from k8s_dra_driver_tpu_torch.pkg.metrics import RemediationMetrics
 from k8s_dra_driver_tpu_torch.pkg.nodelease import (
     NodeLeaseHeartbeat,
@@ -292,6 +313,7 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
     DriverConfig,
     GpuDriver,
 )
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import partitions
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.checkpoint import (
     STATE_PREPARE_ABORTED,
     Checkpoint,
@@ -307,6 +329,9 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.healthcheck import (
     STATUS_NOT_SERVING,
     STATUS_SERVING,
     driver_probe,
+)
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.vfio import (
+    VfioPciManager,
 )
 from k8s_dra_driver_tpu_torch.plugins.webhook.admission import review_response
 
@@ -1026,18 +1051,25 @@ def check_served(engine, done: dict, reqs: list, what: str) -> None:
     ``kv_isolation_max_err`` under F32_TOL, decode kernel launches equal
     to decode steps (none on a CPU engine: the plain version runs there),
     and every request's last output row its tenant's vector."""
-    summary, counts = done["summary"], done["counts"]
-    n_launches, decode_steps = counts["decode_attention"], done["decode_steps"]
+    check_outputs(engine, done["summary"], reqs, what)
+    n_launches = done["counts"]["decode_attention"]
+    decode_steps = done["decode_steps"]
+    want = decode_steps if engine.device.type == "cuda" else 0
+    require(n_launches == want and decode_steps > 0,
+            f"{what}: {n_launches} kernel launches for {decode_steps} "
+            "decode steps")
+
+
+def check_outputs(engine, summary: dict, reqs: list, what: str) -> None:
+    """The serve checks but the launch count: every request completed,
+    the accounting identity, ``kv_isolation_max_err`` under F32_TOL, and
+    every request's last output row its tenant's vector."""
     require(summary["completed"] == summary["submitted"] == len(reqs),
             f"{what}: completed {summary['completed']} of "
             f"{summary['submitted']}")
     require(summary["accounted"], f"{what}: accounting identity broken")
     require(engine.kv_isolation_max_err < F32_TOL,
             f"{what}: kv_isolation_max_err {engine.kv_isolation_max_err}")
-    want = decode_steps if engine.device.type == "cuda" else 0
-    require(n_launches == want and decode_steps > 0,
-            f"{what}: {n_launches} kernel launches for {decode_steps} "
-            "decode steps")
     for r in reqs:
         vec = tenant_vector(r.tenant, engine.head_dim)
         require(r.last_output is not None
@@ -2421,26 +2453,32 @@ SOAK_ENGINE = {"max_batch": 8, "heads": HEADS, "head_dim": HEAD_DIM,
                "modeled_chip_tok_s": 1e9, "queue_cap": 64}
 
 
-def soak_check(rng: np.random.Generator, e: dict) -> float:
-    """The decode kernel against its plain version at the soak engines'
-    shape (q [8, 32, 1, 128] against a [8, 32, 4096, 128] cache), random
-    K/V and ragged lengths (1, the full cache, the rest uniform), f32
-    within F32_TOL. Returns the error."""
+def soak_check(rng: np.random.Generator, e: dict, phase: str = "soak",
+               emit: bool = True) -> float:
+    """The decode kernel against its plain version at engines' shape ``e``
+    (the soak's: q [8, 32, 1, 128] against a [8, 32, 4096, 128] cache),
+    random K/V (drawn on the card from a generator seeded by ``rng``) and
+    ragged lengths (1, the full cache, the rest uniform), f32 within
+    F32_TOL. Prints a ``phase`` line unless ``emit`` is off. Returns the
+    error."""
     dev = torch.device("cuda", 0)
     b, h, d, cap = e["max_batch"], e["heads"], e["head_dim"], e["kv_cap"]
     lens = rng.integers(1, cap + 1, size=b).astype(np.int32)
     lens[:2] = (1, cap)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
-        dev) for shape in ((b, h, 1, d), (b, h, cap, d), (b, h, cap, d)))
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    q, k, v = (randn(gen, shape, torch.float32)
+               for shape in ((b, h, 1, d), (b, h, cap, d), (b, h, cap, d)))
     lt = torch.from_numpy(lens).to(dev)
     out = flash_attention_decode(q, k, v, lt)
     ref = decode_attention_reference(q, k, v, lt)
     err = (out - ref).abs().max().item()
     require(out.shape == ref.shape and bool(torch.isfinite(out).all())
-            and err < F32_TOL, f"soak shape: error {err}")
-    line("soak", kernel="decode_attention", shape=json.dumps([b, h, 1, d]),
-         kv_cap=cap, lengths=json.dumps(lens.tolist()), dtype="f32",
-         max_abs_err=err)
+            and err < F32_TOL, f"{phase} shape: error {err}")
+    if emit:
+        line(phase, kernel="decode_attention",
+             shape=json.dumps([b, h, 1, d]), kv_cap=cap,
+             lengths=json.dumps(lens.tolist()), dtype="f32",
+             max_abs_err=err)
     return err
 
 
@@ -2641,6 +2679,350 @@ def phase_scale(card: str, device=None, engine: dict | None = None,
         "decode steps")
     return {"launches": n, "decode_steps": tokens["decode_steps"],
             "scaling_x": r["scaling_x"], "wall_s": wall}
+
+
+#: The mig phase's tenants: two claims for a 3g.40gb partition each of one
+#: mock GPU in MIG mode; each engine at the serve phase's width (one
+#: attention layer of Llama-2-7B, 32 slots, a 4096-token cache: 4.29 GB of
+#: f32 K+V) serving 8 requests, prompts of 512-3072 tokens, 32 new tokens
+#: each. ``device`` None binds each engine through its claim's CDI spec,
+#: the mock's MIG UUIDs mapped onto the card.
+MIG_PROFILE = "3g.40gb"
+MIG_WIDTH = {"max_batch": BATCH, "heads": HEADS, "head_dim": HEAD_DIM,
+             "kv_cap": KV_CAP, "prompts": (512, 3072), "new_tokens": 32,
+             "requests": 8, "device": None}
+
+
+def _mig_claim(client, name: str, device_class: str, selectors: list,
+               config: dict | None = None) -> dict:
+    exactly = {"deviceClassName": device_class,
+               "allocationMode": "ExactCount", "count": 1,
+               "selectors": [{"cel": {"expression": e}} for e in selectors]}
+    spec = {"devices": {"requests": [{"name": "gpu", "exactly": exactly}]}}
+    if config is not None:
+        spec["devices"]["config"] = [{"requests": ["gpu"], "opaque": {
+            "driver": DRIVER_NAME, "parameters": config}}]
+    return client.create(new_object(
+        "ResourceClaim", name, "default", api_version="resource.k8s.io/v1",
+        spec=spec))
+
+
+def _release_claims(client, names: list) -> None:
+    """Unreserve each claim, wait for the claim watcher to unprepare it,
+    delete it."""
+    for name in names:
+        c = client.get("ResourceClaim", name, "default")
+        c["status"].pop("reservedFor", None)
+        client.update_status(c)
+    for name in names:
+        _wait(lambda: not any(
+            d.get("driver") == DRIVER_NAME for d in (client.get(
+                "ResourceClaim", name, "default").get("status") or {}).get(
+                "devices") or []), f"{name} unprepared")
+        client.delete("ResourceClaim", name, "default")
+
+
+class _NoVfioOnTheHost:
+    """While entered, a VfioPciManager on the machine's own ``/sys`` raises
+    instead of being built: rebinding the card would end the run."""
+
+    def __enter__(self):
+        self.orig = VfioPciManager.__init__
+        self.roots: list = []
+        orig = self.orig
+
+        def guarded(mgr, sysfs_root="/sys", *args, **kwargs):
+            require(os.path.realpath(sysfs_root) != "/sys",
+                    "a VfioPciManager on the real /sys")
+            self.roots.append(str(sysfs_root))
+            orig(mgr, sysfs_root, *args, **kwargs)
+        VfioPciManager.__init__ = guarded
+        return self
+
+    def __exit__(self, *exc):
+        VfioPciManager.__init__ = self.orig
+
+
+def phase_mig(card: str, seed: int, lib, gpu, width: dict | None = None
+              ) -> dict:
+    """MIG partitions and VFIO passthrough in the GPU kubelet plugin.
+
+    NVML's answer: the card's MIG mode, current and pending, or the NVML
+    error (a virtualized card cannot enter MIG mode); required off or a
+    named error, and the plugin on that library with DynamicMIG on must
+    publish each of its GPUs whole and no MIG device. The partition path,
+    on a mock ``h100-8`` node in MIG mode with DynamicMIG on: all 152
+    placements published (19 devices a GPU with the whole one); two
+    tenant claims for 3g.40gb on GPU 0 get its two halves, a 4g.40gb
+    claim and a whole-GPU claim there are refused; each claim's CDI spec
+    names its own ``MIG-<uuid>`` and ``nvidia-caps`` nodes, and the
+    engine bound through it (the mock's MIG UUIDs mapped onto the card)
+    holds no more bytes than its profile's memory capacity and decodes
+    through the decode kernel under the serve checks, launches equal to
+    the two engines' decode steps (its own path: the counts zeroed
+    before, read after); the kernel against its plain version at the
+    engines' shape outside it. After unprepare no MIG instance, claim,
+    checkpoint entry, CDI spec or caps node is left, and the 4g.40gb
+    claim then allocates and prepares. VFIO on a materialized mock tree
+    only, with FakeVfioKernel: prepare binds, the restore record is in
+    the checkpoint, unprepare restores; no VfioPciManager is ever built
+    on the machine's /sys. Prints one ``mig`` line."""
+    w = {**MIG_WIDTH, **(width or {})}
+    t_phase = time.monotonic()
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    mig_gates = new_feature_gates("DynamicMIG=true")
+    out: dict = {"card": card}
+    split: dict = {}               # ms per part of the phase
+    mark = [time.monotonic()]
+
+    def lap(what: str) -> None:
+        now = time.monotonic()
+        split[what] = (now - mark[0]) * 1e3
+        mark[0] = now
+
+    with _NoVfioOnTheHost() as guard, \
+            tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        # NVML's answer, and the real backend with DynamicMIG on.
+        answers = getattr(lib, "mig_modes", {})
+        answer = answers.get(gpu.uuid, f"not read ({lib.backend} backend)")
+        out["nvml_mig"] = answer
+        require(lib.backend == BACKEND_NVML and not gpu.mig_enabled
+                and not answer.startswith("current=enabled"),
+                f"the card's MIG mode: {answer} ({lib.backend})")
+        require(answer.startswith("current=disabled")
+                or re.fullmatch(r".+ \(code \d+\)", answer) is not None,
+                f"NVML's MIG answer {answer!r} is neither disabled nor an "
+                "NVML error")
+        real = GpuDriver(FakeClient(), DriverConfig(
+            node_name="node-0", state_dir=f"{tmp}/real-state",
+            cdi_root=f"{tmp}/real-cdi", env={}, feature_gates=mig_gates),
+            device_lib=lib)
+        published = [d.name for pool in
+                     real.generate_driver_resources().pools.values()
+                     for sl in pool.slices for d in sl.devices]
+        require(published == [g.canonical_name for g in real.state.gpus]
+                and gpu.canonical_name in published,
+                f"the card's library with DynamicMIG published {published}")
+        require(real.state._vfio is None, "a VFIO manager on the card")
+        out["real_published"] = published
+        lap("nvml")
+
+        # The partition path on a mock node in MIG mode.
+        mock = MockDeviceLib("h100-8", mig=True)
+        dev_root = mock.materialize(f"{tmp}/tree")[0]
+        client = FakeClient()
+        for cls, expr in partitions.DEVICE_CLASS_SELECTORS.items():
+            client.create(new_object("DeviceClass", cls, spec={
+                "selectors": [{"cel": {"expression": expr}}]}))
+        client.create(new_object("Node", "node-0"))
+        driver = GpuDriver(client, DriverConfig(
+            node_name="node-0", state_dir=f"{tmp}/state",
+            cdi_root=f"{tmp}/cdi", env={}, retry_timeout=5.0,
+            feature_gates=mig_gates), device_lib=mock).start()
+        loop = NodePrepareLoop(client, driver, DRIVER_NAME, "node-0",
+                               namespace="default").start()
+        lap("node")
+        try:
+            out.update(_mig_tenants(seed, client, driver, mock, dev_root, w,
+                                    lap))
+        finally:
+            loop.stop()
+            driver.stop()
+        residue = ([c["metadata"]["name"]
+                    for c in client.list("ResourceClaim")]
+                   + sorted(driver.state.prepared_claims_nolock())
+                   + driver.cdi.list_claim_uids()
+                   + [m.uuid for m in mock.mig_devices()]
+                   + sorted(os.listdir(os.path.join(dev_root,
+                                                    "nvidia-caps"))))
+        out["residue"] = residue
+        out["vfio"] = _mig_vfio_leg(f"{tmp}/vfio")
+        out["vfio_managers"] = len(guard.roots)
+        lap("vfio")
+    out["split_ms"] = split
+    out["wall_s"] = time.monotonic() - t_phase
+    line("mig", **{k: json.dumps(v) if isinstance(v, (list, dict)) else v
+                   for k, v in out.items()})
+    require(not residue, f"mig: left behind {residue}")
+    return out
+
+
+def _mig_tenants(seed: int, client, driver, mock, dev_root: str,
+                 w: dict, lap) -> dict:
+    """The tenants' claims, engines and teardown on the mock node; ``lap``
+    times each part."""
+    spec = client.list("ResourceSlice")[0]["spec"]
+    devices = {d["name"]: d for d in spec["devices"]}
+    n_mig = sum(1 for d in devices.values()
+                if d["attributes"]["type"] == {"string": "mig"})
+    require(len(devices) == 8 * 19 and n_mig == 8 * 18
+            and len(spec["sharedCounters"][0]["counters"]) == 8 * 8,
+            f"published {len(devices)} devices, {n_mig} MIG")
+    on0 = ["device.attributes['parentIndex'] == 0"]
+    alloc = Allocator(client)
+    names, ready_ms, t0s = ("tenant-mig-a", "tenant-mig-b"), [], []
+    for name in names:
+        t0 = time.monotonic()
+        t0s.append(t0)
+        alloc.allocate(_mig_claim(
+            client, name, partitions.DEVICE_CLASS_MIG,
+            [f"device.attributes['profile'] == '{MIG_PROFILE}'", *on0]),
+            reserved_for=[{"resource": "pods", "name": f"{name}-pod"}],
+            node="node-0")
+        _wait(lambda: _claim_ready(client, name), f"{name} Ready")
+        ready_ms.append((time.monotonic() - t0) * 1e3)
+    claims = [client.get("ResourceClaim", n, "default") for n in names]
+    got = sorted(c["status"]["allocation"]["devices"]["results"][0]["device"]
+                 for c in claims)
+    require(got == [f"gpu-0-mig-{MIG_PROFILE}-0-4",
+                    f"gpu-0-mig-{MIG_PROFILE}-4-4"], f"tenants got {got}")
+    refused = []
+    for name, cls, sels in (
+            ("over-4g", partitions.DEVICE_CLASS_MIG,
+             ["device.attributes['profile'] == '4g.40gb'", *on0]),
+            ("over-whole", partitions.DEVICE_CLASS_GPU,
+             ["device.attributes['index'] == 0"])):
+        _mig_claim(client, name, cls, sels)
+        try:
+            alloc.allocate(client.get("ResourceClaim", name, "default"))
+        except AllocationError:
+            refused.append(name)
+    require(refused == ["over-4g", "over-whole"], f"refused only {refused}")
+
+    specs = [driver.cdi.read_claim_spec(c["metadata"]["uid"])
+             for c in claims]
+    migs = {m.uuid: m for m in mock.mig_devices()}
+    visible = [visible_device_entries(s) for s in specs]
+    require(len(migs) == 2 and sorted(v[0] for v in visible) == sorted(migs)
+            and all(len(v) == 1 for v in visible),
+            f"the specs name {visible}, the node has {sorted(migs)}")
+    for s, (uuid,) in zip(specs, visible):
+        nodes = [n["path"] for d in s["devices"]
+                 for n in d["containerEdits"]["deviceNodes"]]
+        caps = migs[uuid].caps_paths
+        require(nodes[0] == "/dev/nvidia0" and nodes[-2:] == caps
+                and all(os.path.exists(os.path.join(dev_root, p[5:]))
+                        for p in caps), f"{uuid}: nodes {nodes}")
+    capacity = devices[got[0]]["capacity"]["memory"]["value"]
+    lap("claims")
+
+    engines, reqs, engine_bytes = [], [], []
+    rng = np.random.default_rng(seed)
+    on_card = w["device"] is None or torch.device(w["device"]).type == "cuda"
+    for name, s in zip(names, specs):
+        before = torch.cuda.memory_allocated(0) if on_card else 0
+        eng = bind_engine(
+            s, name, device=w["device"], uuids={u: 0 for u in migs},
+            metrics=ServingMetrics(), max_batch=w["max_batch"],
+            kv_cap=w["kv_cap"], heads=w["heads"], head_dim=w["head_dim"],
+            tokens_per_chip_step=2048, queue_cap=64, modeled_chip_tok_s=1e9)
+        engine_bytes.append(
+            torch.cuda.memory_allocated(0) - before if on_card else
+            sum(t.numel() * t.element_size()
+                for t in (eng._K, eng._V, eng._lens)))
+        require(engine_bytes[-1] <= capacity,
+                f"{name}: {engine_bytes[-1]} bytes over the profile's "
+                f"{capacity}")
+        engines.append(eng)
+        reqs.append(tenant_requests(rng, w["requests"], f"{name}-",
+                                    w["prompts"], w["new_tokens"]))
+    lap("engines")
+    reset_launches()
+    t1 = time.monotonic()
+    for eng, rs in zip(engines, reqs):
+        eng.start()
+        for r in rs:
+            require(eng.submit(r), f"{eng.name}: request {r.rid} rejected")
+    deadline = t1 + 600
+    while any(e.completed < len(rs) for e, rs in zip(engines, reqs)):
+        require(time.monotonic() < deadline
+                and all(e._thread.is_alive() for e in engines),
+                "mig engines stalled")
+        time.sleep(0.005)
+    wall = time.monotonic() - t1
+    summaries = [e.drain(timeout=60) for e in engines]
+    n = launches()["decode_attention"]
+    steps = sum(e.decode_steps for e in engines)
+    for eng, summary, rs in zip(engines, summaries, reqs):
+        check_outputs(eng, summary, rs, eng.name)
+    require(steps > 0 and n == (steps if on_card else 0),
+            f"mig: {n} kernel launches for {steps} decode steps")
+    iso = max(e.kv_isolation_max_err for e in engines)
+    lap("serve")
+    out = {"devices_published": len(devices), "tenants": got,
+           "refused": refused, "mig_uuids": len(migs),
+           "profile_memory_bytes": capacity, "engine_bytes": engine_bytes,
+           "claim_ready_ms": ready_ms,
+           "ttfb_ms": [(e.first_batch_t - t0) * 1e3
+                       for e, t0 in zip(engines, t0s)],
+           "decode_tok_s": sum(s["decode_tokens"] for s in summaries) / wall,
+           "decode_steps": steps, "kernel_launches": n,
+           "kv_isolation_max_err": iso,
+           "max_abs_err": (soak_check(rng, w, "mig", emit=False)
+                           if on_card else None)}
+    del engines
+    if on_card:
+        torch.cuda.empty_cache()
+    lap("check")
+
+    _release_claims(client, list(names))
+    require(mock.mig_devices() == [] and not os.listdir(
+        os.path.join(dev_root, "nvidia-caps")), "MIG instances left")
+    client.delete("ResourceClaim", "over-whole", "default")
+    c = client.get("ResourceClaim", "over-4g", "default")
+    alloc.allocate(c, reserved_for=[{"resource": "pods", "name": "p4g"}],
+                   node="node-0")
+    _wait(lambda: _claim_ready(client, "over-4g"), "4g.40gb Ready")
+    (m,) = mock.mig_devices()
+    require((m.profile, m.start) == ("4g.40gb", 0), f"4g.40gb got {m}")
+    out["after_4g"] = m.profile
+    _release_claims(client, ["over-4g"])
+    lap("teardown")
+    return out
+
+
+def _mig_vfio_leg(root: str) -> dict:
+    """VFIO passthrough of one mock GPU on a materialized tree, the
+    kernel's rebinding emulated: prepare binds it with its restore record
+    in the checkpoint, unprepare restores the nvidia driver."""
+    dev, sysfs, proc = MockDeviceLib("h100-8").materialize(root)
+    mgr = VfioPciManager(sysfs, dev, kernel=FakeVfioKernel(sysfs, dev))
+    client = FakeClient()
+    client.create(new_object("DeviceClass", partitions.DEVICE_CLASS_GPU,
+                             spec={"selectors": [{"cel": {"expression":
+                                 partitions.DEVICE_CLASS_SELECTORS[
+                                     partitions.DEVICE_CLASS_GPU]}}]}))
+    driver = GpuDriver(client, DriverConfig(
+        node_name="node-v", state_dir=f"{root}/state",
+        cdi_root=f"{root}/cdi", env={}, retry_timeout=2.0,
+        feature_gates=new_feature_gates("PassthroughSupport=true")),
+        device_lib=SysfsDeviceLib(dev_root=dev, sysfs_root=sysfs,
+                                  proc_root=proc, env={}))
+    driver.state._vfio = mgr
+    driver.start()
+    claim = Allocator(client).allocate(_mig_claim(
+        client, "vm", partitions.DEVICE_CLASS_GPU,
+        ["device.attributes['index'] == 2"],
+        {"apiVersion": API_VERSION, "kind": "VfioDeviceConfig"}))
+    uid = claim["metadata"]["uid"]
+    res = driver.prepare_resource_claims([claim])[uid]
+    require(res.error is None, f"vfio prepare: {res.error}")
+    env = claim_spec_env(driver.cdi.read_claim_spec(uid))
+    bdf = env["GPU_PASSTHROUGH_PCI_ADDRESSES"]
+    bound = mgr.current_driver(bdf)
+    ledger = dict(driver.state.prepared_claims()[uid].vfio_restore)
+    require(bound == "vfio-pci" and ledger == {bdf: "nvidia"}
+            and env["CUDA_VISIBLE_DEVICES"] == "void",
+            f"vfio: bound {bound}, ledger {ledger}, env {env}")
+    errs = driver.unprepare_resource_claims([ClaimRef.from_claim(claim)])
+    restored = mgr.current_driver(bdf)
+    require(errs[uid] is None and restored == "nvidia"
+            and driver.state.prepared_claims() == {},
+            f"vfio unprepare: {errs[uid]}, {restored}")
+    driver.stop()
+    return {"bdf": bdf, "bound": bound, "ledger": ledger,
+            "restored": restored}
 
 
 def servesmoke_check(rng: np.random.Generator) -> float:
@@ -3060,6 +3442,7 @@ def main(argv=None) -> int:
     processes = phase_processes(card, args.seed, found["gpu"])
     soak = phase_soak(card, rng)
     scale = phase_scale(card)
+    mig = phase_mig(card, args.seed, found["lib"], found["gpu"])
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -3074,8 +3457,10 @@ def main(argv=None) -> int:
         "source": "k8s_dra_driver_tpu_torch/csrc/decode_attention.cu",
         "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:125",
         "launches": (served["launches"] + processes["launches"]
-                     + soak["launches"] + scale["launches"]),
-        "max_abs_err": max(max_abs_err, soak["max_abs_err"]),
+                     + soak["launches"] + scale["launches"]
+                     + mig["kernel_launches"]),
+        "max_abs_err": max(max_abs_err, soak["max_abs_err"],
+                           mig["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],

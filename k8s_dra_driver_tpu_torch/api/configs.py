@@ -8,12 +8,13 @@ via the plugin's prepare path) rejects unknown fields; ``strict=False``
 ignores them.
 
 Kinds: ``GpuConfig`` carries extra env for full-GPU devices (the reference's
-``GpuConfig`` without its sharing strategies);
+``GpuConfig`` without its sharing strategies); ``MigDeviceConfig{profile,
+env}`` constrains the MIG profile a claim accepts (the JAX package's
+``SubsliceConfig``); ``VfioDeviceConfig{iommu}`` asks for VM passthrough
+(``vfiodeviceconfig.go:29``, the JAX package's ``VfioChipConfig``);
 ``ComputeDomainChannelConfig{domainID, allocationMode}`` and
 ``ComputeDomainDaemonConfig{domainID}`` are the ComputeDomain plugin's
-(``computedomainconfig.go:28-82``). ``MigDeviceConfig`` and
-``VfioDeviceConfig`` name features this package does not have yet; decoding
-either raises :class:`ConfigError` saying so.
+(``computedomainconfig.go:28-82``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass, field
 from typing import Any, Mapping
+
+from k8s_dra_driver_tpu_torch.gpulib.chip import MIG_PROFILES
 
 API_GROUP = "resource.nvidia.com"
 API_VERSION = f"{API_GROUP}/v1beta1"
@@ -31,6 +34,10 @@ _UUID_RE = re.compile(
 # Env the driver computes itself; user configs must not override these —
 # they carry the isolation contract.
 DRIVER_MANAGED_ENV = ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES")
+
+#: MIG profile names of every GPU product the device library knows.
+MIG_PROFILE_NAMES = frozenset(p.name for ps in MIG_PROFILES.values()
+                              for p in ps)
 
 
 def _validate_env_map(kind: str, env: Mapping[str, str]) -> None:
@@ -73,6 +80,78 @@ class GpuConfig:
             raise ConfigError(f"GpuConfig.env must be an object, got "
                               f"{type(env).__name__}")
         return cls(env={str(k): str(v) for k, v in env.items()})
+
+
+@dataclass
+class MigDeviceConfig:
+    """MIG request (the reference's ``MigDeviceConfig``): the profile a
+    claim accepts, e.g. ``3g.40gb`` (empty: any), and workload env. The
+    published MIG devices already encode valid placements; this config
+    constrains which profile the claim takes."""
+
+    KIND = "MigDeviceConfig"
+
+    profile: str = ""
+    env: dict[str, str] = field(default_factory=dict)
+
+    def normalize(self) -> None:
+        self.profile = self.profile.lower().strip()
+
+    def validate(self) -> None:
+        if self.profile and self.profile not in MIG_PROFILE_NAMES:
+            raise ConfigError(
+                f"MigDeviceConfig.profile {self.profile!r}: want one of "
+                f"{sorted(MIG_PROFILE_NAMES)}")
+        _validate_env_map("MigDeviceConfig", self.env)
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"apiVersion": API_VERSION, "kind": self.KIND,
+                "profile": self.profile, "env": dict(self.env)}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any], strict: bool
+                  ) -> "MigDeviceConfig":
+        _check_fields(cls.KIND, d, {"apiVersion", "kind", "profile", "env"},
+                      strict)
+        env = d.get("env") or {}
+        if not isinstance(env, Mapping):
+            raise ConfigError(f"MigDeviceConfig.env must be an object, got "
+                              f"{type(env).__name__}")
+        return cls(profile=str(d.get("profile", "")),
+                   env={str(k): str(v) for k, v in env.items()})
+
+
+IOMMU_LEGACY = "legacy"
+IOMMU_IOMMUFD = "iommufd"
+
+
+@dataclass
+class VfioDeviceConfig:
+    """VM passthrough config (``vfiodeviceconfig.go:29``): the IOMMU API
+    the VMM uses, ``legacy`` (the default) or ``iommufd``."""
+
+    KIND = "VfioDeviceConfig"
+
+    iommu: str = ""
+
+    def normalize(self) -> None:
+        if not self.iommu:
+            self.iommu = IOMMU_LEGACY
+
+    def validate(self) -> None:
+        if self.iommu not in (IOMMU_LEGACY, IOMMU_IOMMUFD):
+            raise ConfigError(
+                f"VfioDeviceConfig.iommu {self.iommu!r}: want legacy|iommufd")
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"apiVersion": API_VERSION, "kind": self.KIND,
+                "iommu": self.iommu}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any], strict: bool
+                  ) -> "VfioDeviceConfig":
+        _check_fields(cls.KIND, d, {"apiVersion", "kind", "iommu"}, strict)
+        return cls(iommu=str(d.get("iommu", "")))
 
 
 ALLOCATION_MODE_SINGLE = "Single"
@@ -148,14 +227,9 @@ class ComputeDomainDaemonConfig:
         return cls(domain_id=str(d.get("domainID", "")))
 
 
-_KINDS = {c.KIND: c for c in (GpuConfig, ComputeDomainChannelConfig,
+_KINDS = {c.KIND: c for c in (GpuConfig, MigDeviceConfig, VfioDeviceConfig,
+                              ComputeDomainChannelConfig,
                               ComputeDomainDaemonConfig)}
-
-#: Kinds of the reference's config surface that wait for a later slice.
-_WAITING_KINDS = {
-    "MigDeviceConfig": "MIG partitions",
-    "VfioDeviceConfig": "VFIO passthrough",
-}
 
 
 def _check_fields(kind: str, d: Mapping[str, Any], known: set[str],
@@ -169,7 +243,7 @@ def _check_fields(kind: str, d: Mapping[str, Any], known: set[str],
 def decode_opaque_config(params: Mapping[str, Any], strict: bool = True) -> Any:
     """Decode + normalize + validate one opaque config parameter object.
     Raises ConfigError on unknown kind/apiVersion, unknown fields (strict),
-    a kind this package does not support yet, or validation failure."""
+    or validation failure."""
     if not isinstance(params, Mapping):
         raise ConfigError(f"opaque config parameters must be an object, "
                           f"got {type(params).__name__}")
@@ -178,9 +252,6 @@ def decode_opaque_config(params: Mapping[str, Any], strict: bool = True) -> Any:
         raise ConfigError(
             f"unknown config apiVersion {api_version!r} (want {API_VERSION})")
     kind = params.get("kind", "")
-    if kind in _WAITING_KINDS:
-        raise ConfigError(f"config kind {kind!r} ({_WAITING_KINDS[kind]}) is "
-                          "not supported by this driver yet")
     cls = _KINDS.get(kind)
     if cls is None:
         raise ConfigError(f"unknown config kind {kind!r}; known: {sorted(_KINDS)}")

@@ -9,7 +9,12 @@ GPU injection model: a container that uses GPUs needs the per-GPU device
 node ``/dev/nvidia<minor>``, the driver's shared nodes ``/dev/nvidiactl``,
 ``/dev/nvidia-uvm`` and ``/dev/nvidia-uvm-tools``, and claim-wide
 visibility env ``CUDA_VISIBLE_DEVICES`` / ``NVIDIA_VISIBLE_DEVICES``
-(:func:`claim_edits_for` builds exactly that set).
+(:func:`claim_edits_for` builds exactly that set). A MIG device adds its
+instance's two ``/dev/nvidia-caps/nvidia-cap<K>`` nodes to its parent's
+(:func:`mig_device_edits`) and is made visible by its ``MIG-<uuid>``. A
+passthrough device is its ``/dev/vfio/<group>`` node (or iommufd cdev),
+with one IOMMU API node for the claim and the PCI addresses in
+``GPU_PASSTHROUGH_PCI_ADDRESSES`` (:func:`claim_visibility_edits`).
 
 Specs are written atomically (tmp + rename) so a crash mid-write never
 leaves a truncated spec for the runtime to trip over.
@@ -55,6 +60,9 @@ DEFAULT_CLASS = "claim"
 #: ``/dev/nvidia<minor>`` nodes.
 GPU_CONTROL_NODES = ("/dev/nvidiactl", "/dev/nvidia-uvm",
                      "/dev/nvidia-uvm-tools")
+#: Claim-wide env listing a passthrough claim's PCI functions for the VM
+#: launcher.
+PASSTHROUGH_ENV = "GPU_PASSTHROUGH_PCI_ADDRESSES"
 
 
 @dataclass
@@ -111,13 +119,35 @@ def claim_edits_for(indices: Sequence[int], minors: Sequence[int],
                   device_nodes=[f"/dev/nvidia{m}", *GPU_CONTROL_NODES])
         for i, m in zip(indices, minors)
     ]
-    visible = ",".join(uuids if uuids is not None
-                       else (str(i) for i in indices))
-    claim_edits = CDIDevice(name="claim", env={
-        "CUDA_VISIBLE_DEVICES": visible,
-        "NVIDIA_VISIBLE_DEVICES": visible,
-    })
-    return devices, claim_edits
+    return devices, claim_visibility_edits(
+        list(uuids) if uuids is not None else [str(i) for i in indices])
+
+
+def mig_device_edits(name: str, parent_minor: int,
+                     caps_paths: Sequence[str]) -> CDIDevice:
+    """A MIG device's edits: its parent's ``/dev/nvidia<minor>``, the
+    driver's control nodes and the instance's ``nvidia-caps`` nodes (its
+    GPU instance's and compute instance's access)."""
+    return CDIDevice(name=name, device_nodes=[
+        f"/dev/nvidia{parent_minor}", *GPU_CONTROL_NODES, *caps_paths])
+
+
+def claim_visibility_edits(visible: Sequence[str],
+                           passthrough_bdfs: Sequence[str] = (),
+                           iommu_node: str = "") -> CDIDevice:
+    """Claim-wide edits: ``CUDA_VISIBLE_DEVICES`` and
+    ``NVIDIA_VISIBLE_DEVICES`` list ``visible`` (``GPU-``/``MIG-`` UUIDs or
+    indices). A claim holding only passthrough devices sets both to
+    ``void``, never leaves them unset: a runtime that reads unset as "all"
+    would hand the VM launcher every GPU of the host (vfio-cdi.go:55-58).
+    Passthrough functions go in :data:`PASSTHROUGH_ENV`, with the claim's
+    one IOMMU API node."""
+    value = ",".join(visible) or ("void" if passthrough_bdfs else "")
+    env = {"CUDA_VISIBLE_DEVICES": value, "NVIDIA_VISIBLE_DEVICES": value}
+    if passthrough_bdfs:
+        env[PASSTHROUGH_ENV] = ",".join(passthrough_bdfs)
+    return CDIDevice(name="claim", env=env,
+                     device_nodes=[iommu_node] if iommu_node else [])
 
 
 def claim_spec_env(spec: dict) -> dict[str, str]:

@@ -133,7 +133,7 @@ def default_serving_metrics() -> ServingMetrics:
 
 def visible_device_entries(spec: Optional[dict]) -> List[str]:
     """The ``CUDA_VISIBLE_DEVICES`` entries a CDI claim spec sets, as
-    written: integer indices or ``GPU-<uuid>`` names.
+    written: integer indices or ``GPU-<uuid>`` and ``MIG-<uuid>`` names.
 
     Scans both the claim-wide ``containerEdits`` and every per-device
     edit block; entries are ``"K=V"`` strings. Returns the unique entries
@@ -160,16 +160,26 @@ def visible_device_entries(spec: Optional[dict]) -> List[str]:
 
 
 def cuda_device_uuids() -> Dict[str, int]:
-    """``GPU-<uuid>`` → torch device index, for every CUDA device this
-    process sees. Raises without CUDA."""
+    """``GPU-<uuid>`` and ``MIG-<uuid>`` → torch device index, for every
+    CUDA device this process sees (a MIG instance is a CUDA device of its
+    own, and torch reports its UUID without the prefix). Raises without
+    CUDA."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available to match GPU UUIDs "
                            "against")
     out = {}
     for i in range(torch.cuda.device_count()):
         u = str(torch.cuda.get_device_properties(i).uuid).lower()
-        out[u if u.startswith("gpu-") else f"gpu-{u}"] = i
+        if u.startswith(_UUID_PREFIXES):
+            out[u] = i
+        else:
+            out.update({f"{p}{u}": i for p in _UUID_PREFIXES})
     return out
+
+
+#: The prefixes of CUDA_VISIBLE_DEVICES entries naming a device by UUID: a
+#: whole GPU's and a MIG instance's.
+_UUID_PREFIXES = ("gpu-", "mig-")
 
 
 def parse_visible_devices(spec: Optional[dict],
@@ -179,13 +189,13 @@ def parse_visible_devices(spec: Optional[dict],
     (``CUDA_VISIBLE_DEVICES``); sorted and unique, ``[]`` for a missing
     spec or ``void``.
 
-    An integer entry is an index already. A ``GPU-<uuid>`` entry is the
-    index of the device with that UUID: in ``uuids`` (``GPU-<uuid>`` →
-    index) when the caller passes it, else among the CUDA devices this
-    process sees (``torch.cuda.get_device_properties(i).uuid``), since the
-    UUID, not the node's enumeration order, names the GPU. A UUID that
-    matches no device, a UUID with neither a mapping nor CUDA to match it
-    against, and any other entry (a MIG instance) raise ValueError."""
+    An integer entry is an index already. A ``GPU-<uuid>`` or
+    ``MIG-<uuid>`` entry is the index of the device with that UUID: in
+    ``uuids`` (UUID → index) when the caller passes it, else among the CUDA
+    devices this process sees (``torch.cuda.get_device_properties(i).uuid``),
+    since the UUID, not the node's enumeration order, names the device. A
+    UUID that matches no device, a UUID with neither a mapping nor CUDA to
+    match it against, and any other entry raise ValueError."""
     devices: set = set()
     table: Optional[Dict[str, int]] = None
     if uuids is not None:
@@ -194,9 +204,9 @@ def parse_visible_devices(spec: Optional[dict],
         if part.lstrip("-").isdigit():
             devices.add(int(part))
             continue
-        if not part.lower().startswith("gpu-"):
+        if not part.lower().startswith(_UUID_PREFIXES):
             raise ValueError(f"CUDA_VISIBLE_DEVICES entry {part!r} is "
-                             "neither an index nor a GPU UUID")
+                             "neither an index nor a GPU or MIG UUID")
         if table is None:
             if not torch.cuda.is_available():
                 raise ValueError(
@@ -205,7 +215,7 @@ def parse_visible_devices(spec: Optional[dict],
                     "match it against")
             table = cuda_device_uuids()
         if part.lower() not in table:
-            raise ValueError(f"no GPU has the UUID {part!r}; known: "
+            raise ValueError(f"no device has the UUID {part!r}; known: "
                              f"{sorted(table)}")
         devices.add(table[part.lower()])
     return sorted(devices)
@@ -589,8 +599,8 @@ def bind_engine(spec: Optional[dict], name: str,
                 device: Union[str, torch.device, None] = None,
                 uuids: Optional[Dict[str, int]] = None,
                 **engine_kwargs) -> ServingEngine:
-    """The engine for a prepared claim: one device per GPU its CDI
-    ``spec`` makes visible (:func:`parse_visible_devices`, ``uuids`` as
+    """The engine for a prepared claim: one device per GPU or MIG instance
+    its CDI ``spec`` makes visible (:func:`parse_visible_devices`, ``uuids`` as
     there), with the slabs on ``cuda:<first visible index>`` unless
     ``device`` says otherwise. Raises ValueError when the spec makes no
     device visible."""

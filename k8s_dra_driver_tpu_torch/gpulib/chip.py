@@ -5,7 +5,13 @@ analogue of the reference's ``cmd/gpu-kubelet-plugin/deviceinfo.go:36-118``
 GpuInfo): one physical GPU with its identities — UUID, node-local index,
 device minor, PCI address — the hardware envelope of its product, and its
 health. Containers address a GPU through ``/dev/nvidia<minor>`` plus
-``CUDA_VISIBLE_DEVICES``. MIG instances are not modelled yet.
+``CUDA_VISIBLE_DEVICES``.
+
+Two partial views of a GPU sit beside it, the counterparts of the JAX
+package's ``SubsliceInfo`` and ``VfioChipInfo``: a MIG instance
+(:class:`MigDeviceInfo`), one placement of a profile of the GPU's
+:data:`MIG_PROFILES` table, and a GPU bound to ``vfio-pci`` for
+passthrough (:class:`VfioGpuInfo`).
 """
 
 from __future__ import annotations
@@ -86,6 +92,65 @@ _GPU_SPECS: dict[GpuType, GpuSpec] = {
 }
 
 
+#: Memory slices of a MIG-capable GPU: a placement's start and size count
+#: them, and the KEP-4815 counters draw one unit per slice.
+MIG_MEMORY_SLICES = 8
+#: Compute slices of a MIG-capable GPU.
+MIG_COMPUTE_SLICES = 7
+
+
+@dataclass(frozen=True)
+class MigProfile:
+    """One GPU-instance profile: its name, the placement starts the driver
+    accepts, its size in memory slices and its compute slices. ``nvml_index``
+    is the profile's ``NVML_GPU_INSTANCE_PROFILE_*`` constant (nvml.h), the
+    argument of ``nvmlDeviceGetGpuInstanceProfileInfo``."""
+
+    name: str
+    starts: tuple[int, ...]
+    size: int
+    compute_slices: int
+    nvml_index: int
+
+    def memory_bytes(self, gpu_memory_bytes: int) -> int:
+        """Its share of the GPU's memory: ``size`` of the eight slices."""
+        return gpu_memory_bytes * self.size // MIG_MEMORY_SLICES
+
+
+# The H100 80GB's GPU-instance profiles and placements, from NVIDIA's
+# Multi-Instance GPU User Guide ("Supported MIG Profiles", H100 80GB):
+# placement starts and size in memory slices out of 8, compute slices out
+# of 7. The NVML constants: 1_SLICE 0, 2_SLICE 1, 3_SLICE 2, 4_SLICE 3,
+# 7_SLICE 4, 1_SLICE_REV2 9 (the 1g.20gb). 1g.10gb+me (1_SLICE_REV1, media
+# extensions) is not listed yet.
+MIG_PROFILES: dict[GpuType, tuple[MigProfile, ...]] = {
+    GpuType.H100_SXM_80GB: (
+        MigProfile("1g.10gb", starts=(0, 1, 2, 3, 4, 5, 6), size=1,
+                   compute_slices=1, nvml_index=0),
+        MigProfile("1g.20gb", starts=(0, 2, 4, 6), size=2, compute_slices=1,
+                   nvml_index=9),
+        MigProfile("2g.20gb", starts=(0, 2, 4), size=2, compute_slices=2,
+                   nvml_index=1),
+        MigProfile("3g.40gb", starts=(0, 4), size=4, compute_slices=3,
+                   nvml_index=2),
+        MigProfile("4g.40gb", starts=(0,), size=4, compute_slices=4,
+                   nvml_index=3),
+        MigProfile("7g.80gb", starts=(0,), size=8, compute_slices=7,
+                   nvml_index=4),
+    ),
+}
+
+
+def mig_profile(gpu_type: GpuType, name: str) -> MigProfile:
+    """The profile ``name`` of ``gpu_type``; ValueError naming the known
+    ones when there is none."""
+    for p in MIG_PROFILES.get(gpu_type, ()):
+        if p.name == name:
+            return p
+    raise ValueError(f"no MIG profile {name!r} for {gpu_type.value}; known: "
+                     f"{[p.name for p in MIG_PROFILES.get(gpu_type, ())]}")
+
+
 class HealthState(enum.Enum):
     HEALTHY = "Healthy"
     UNHEALTHY = "Unhealthy"
@@ -123,6 +188,9 @@ class GpuInfo:
     # Which node of a multi-node mock cluster holds the GPU (published as
     # the ``hostIndex`` attribute); -1 where no cluster layout says.
     host_index: int = -1
+    # MIG mode is on (NVML's current mode; the procfs backend cannot read
+    # it and reports off): only then are MIG devices published for it.
+    mig_enabled: bool = False
 
     @property
     def spec(self) -> GpuSpec:
@@ -132,6 +200,65 @@ class GpuInfo:
     def canonical_name(self) -> str:
         """DRA device name of the full GPU: ``gpu-<index>``."""
         return f"gpu-{self.index}"
+
+
+def mig_device_name(gpu_index: int, profile: str, start: int,
+                    size: int) -> str:
+    """DRA device name of a MIG placement:
+    ``gpu-<index>-mig-<profile>-<start>-<size>`` (the reference's canonical
+    MIG name, ``mig.go:111-116``)."""
+    return f"gpu-{gpu_index}-mig-{profile}-{start}-{size}"
+
+
+@dataclass
+class MigDeviceInfo:
+    """One MIG instance — the MigDeviceInfo of ``deviceinfo.go:75-99``, the
+    JAX package's ``SubsliceInfo`` counterpart: a GPU instance of
+    ``profile`` at memory slices ``[start, start + size)`` of its parent,
+    with one compute instance over all of it. ``caps_minors`` are the
+    minors of the instance's two ``/dev/nvidia-caps/nvidia-cap<K>`` nodes
+    (the GPU instance's and the compute instance's access)."""
+
+    parent_index: int
+    parent_uuid: str
+    parent_minor: int
+    profile: str
+    start: int
+    size: int
+    gi_id: int = -1
+    ci_id: int = -1
+    uuid: str = ""                  # "MIG-<uuid>"
+    caps_minors: tuple[int, ...] = ()
+
+    @property
+    def caps_paths(self) -> list[str]:
+        return [f"/dev/nvidia-caps/nvidia-cap{m}" for m in self.caps_minors]
+
+    def to_dict(self) -> dict:
+        """The checkpoint's record of the instance."""
+        return {"profile": self.profile, "parentUUID": self.parent_uuid,
+                "placementStart": self.start, "placementSize": self.size,
+                "giID": self.gi_id, "ciID": self.ci_id, "uuid": self.uuid,
+                "capsMinors": list(self.caps_minors)}
+
+
+@dataclass
+class VfioGpuInfo:
+    """A GPU bound to vfio-pci for VM passthrough — the VfioDeviceInfo of
+    ``deviceinfo.go:101-118``. Such a GPU has left the NVIDIA driver, so
+    its PCI address is its identity; ``index`` is its position in the vfio
+    scan and names the device only."""
+
+    index: int
+    pci_address: str
+    gpu_type: GpuType
+    pci_device_id: int = 0
+    numa_node: int = -1
+    iommu_group: int = -1
+
+    @property
+    def canonical_name(self) -> str:
+        return f"vfio-gpu-{self.index}"
 
 
 @dataclass(frozen=True)

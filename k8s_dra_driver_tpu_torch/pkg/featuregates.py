@@ -7,9 +7,7 @@ version selects which spec applies; operators flip gates via
 ``--feature-gates A=true,B=false`` (mirrored by the Helm values).
 
 The GPU gate set holds the gates the GPU and ComputeDomain kubelet plugins
-and the ComputeDomain controller consult. Two of them name features this package does not have yet (MIG partitions, VFIO
-passthrough): they parse, and the plugin refuses to start with either one
-enabled instead of ignoring it.
+and the ComputeDomain controller consult.
 """
 
 from __future__ import annotations
@@ -30,14 +28,15 @@ EMULATION_VERSION: Version = (0, 1)
 
 # -- Gate names -------------------------------------------------------------
 
-# MIG partitions created at prepare time (the reference's DynamicMIG). Not
-# in this package yet: the plugin refuses to start with it enabled.
+# MIG partitions published over KEP-4815 shared counters and created at
+# prepare time (the reference's DynamicMIG, the JAX package's
+# DynamicSubslice).
 DYNAMIC_MIG = "DynamicMIG"
 # Device health monitoring (NVML XID/ECC events and enumeration →
 # DeviceTaints) and the drain controller that closes its loop.
 DEVICE_HEALTH_CHECK = "DeviceHealthCheck"
-# VM passthrough via vfio-pci. Not in this package yet: the plugin refuses
-# to start with it enabled.
+# VM passthrough via vfio-pci: VfioDeviceConfig claims and published
+# vfio-bound GPUs.
 PASSTHROUGH_SUPPORT = "PassthroughSupport"
 # Refuse to start instead of degrading when the GPUs of one node disagree
 # (duplicate minors or UUIDs, mixed products, or different NVLink cliques).
@@ -144,13 +143,3 @@ def new_feature_gates(flag: str = "",
         fg.set_from_map(values)
     return fg
 
-
-def validate_gate_dependencies(gates: FeatureGates) -> None:
-    """Assembly-time gate validation (featuregates.go:247-256): a gate that
-    asks for a feature this package does not have fails loudly here
-    instead of being silently ignored."""
-    for name in (DYNAMIC_MIG, PASSTHROUGH_SUPPORT):
-        if gates.enabled(name):
-            raise ValueError(
-                f"feature gate {name} is not supported by the GPU kubelet "
-                "plugin yet")

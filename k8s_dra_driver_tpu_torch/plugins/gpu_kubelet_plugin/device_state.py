@@ -1,12 +1,17 @@
 """Transactional prepare/unprepare of GPU claims around the checkpoint.
 
-Copied from the JAX package's ``plugins/tpu_kubelet_plugin/device_state.py``
-and cut to whole GPUs (MIG partitions and VFIO passthrough wait), its drain
-side included: a drained claim leaves a ``PrepareAborted`` tombstone. As there,
-the analogue of the reference's ``cmd/gpu-kubelet-plugin/device_state.go``
-(``Prepare`` :289, ``Unprepare`` :486, ``prepareDevices`` :818,
-``GetOpaqueDeviceConfigs`` :1410, ``validateNoOverlappingPreparedDevices``
-:1484): every Prepare is a PrepareStarted → (device prep + CDI write) →
+Copied from the JAX package's ``plugins/tpu_kubelet_plugin/device_state.py``,
+its drain side included: a drained claim leaves a ``PrepareAborted``
+tombstone. Where the JAX package prepares a subslice, this one prepares a MIG
+device, creating the instance at prepare (DynamicMIG) and destroying it at
+unprepare, drain and rollback; a whole GPU with a ``VfioDeviceConfig``, or a
+published vfio-bound GPU, is prepared for passthrough as there. Physical
+identity, the overlap check's currency, is a (GPU, memory slice) pair: two
+disjoint MIG devices of one GPU do not overlap, a MIG device and its whole
+GPU do. As there, the analogue of the reference's
+``cmd/gpu-kubelet-plugin/device_state.go`` (``Prepare`` :289,
+``Unprepare`` :486, ``prepareDevices`` :818, ``GetOpaqueDeviceConfigs``
+:1410, ``validateNoOverlappingPreparedDevices`` :1484): every Prepare is a PrepareStarted → (device prep + CDI write) →
 PrepareCompleted transaction, idempotent on replay, with rollback of
 partially prepared claims and boot-id invalidation of stale state.
 
@@ -27,7 +32,8 @@ fsyncs:
   lock, so a prepare sees one consistent enumeration end to end without
   holding any lock while touching devices.
 
-Lock hierarchy: claim lock → checkpoint commit locks → flock; ``_mu`` is never held while
+Lock hierarchy: claim lock → DeviceState._mu (vfio lazy-init only) and
+claim lock → checkpoint commit locks → flock; ``_mu`` is never held while
 acquiring a claim lock or a checkpoint lock.
 """
 
@@ -40,16 +46,28 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 from k8s_dra_driver_tpu_torch.api.configs import (
+    IOMMU_IOMMUFD,
+    IOMMU_LEGACY,
     ConfigError,
     GpuConfig,
+    MigDeviceConfig,
+    VfioDeviceConfig,
     strict_decode,
 )
 from k8s_dra_driver_tpu_torch.cdi.spec import (
     CDIDevice,
     CDIHandler,
     claim_edits_for,
+    claim_visibility_edits,
+    mig_device_edits,
 )
-from k8s_dra_driver_tpu_torch.gpulib.chip import GpuInfo, NodeGpuInfo
+from k8s_dra_driver_tpu_torch.gpulib.chip import (
+    MIG_MEMORY_SLICES,
+    GpuInfo,
+    NodeGpuInfo,
+    VfioGpuInfo,
+    mig_profile,
+)
 from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
     DeviceLib,
     enforce_fabric_consistency,
@@ -69,6 +87,8 @@ from k8s_dra_driver_tpu_torch.pkg.errors import (
 )
 from k8s_dra_driver_tpu_torch.pkg.featuregates import (
     CRASH_ON_NVLINK_FABRIC_ERRORS,
+    DYNAMIC_MIG,
+    PASSTHROUGH_SUPPORT,
     FeatureGates,
     new_feature_gates,
 )
@@ -86,6 +106,10 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.checkpoint import (
     bootstrap_checkpoint,
 )
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.prepared import PreparedDevice
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.vfio import (
+    VFIO_DRIVER,
+    VfioPciManager,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -96,6 +120,10 @@ DRIVER_NAME = "gpu.nvidia.com"
 # path): long enough to reject a stale kubelet prepare retry of the drained
 # claim version.
 PREPARE_ABORTED_TTL = 10 * 60.0
+
+# Per-device env of a passthrough device (the JAX package's
+# TPU_PASSTHROUGH).
+PASSTHROUGH_DEVICE_ENV = "GPU_PASSTHROUGH"
 
 # Fault point inside the device-preparation window: after the claim's
 # PrepareStarted record is durable, before any device side effect. A
@@ -130,6 +158,27 @@ class _Enumeration:
     node_info: NodeGpuInfo
     gpus: tuple[GpuInfo, ...]
     gpus_by_name: dict[str, GpuInfo]
+    gpus_by_index: dict[int, GpuInfo]
+    vfio_gpus: tuple[VfioGpuInfo, ...]
+    vfio_by_name: dict[str, VfioGpuInfo]
+
+
+def parse_mig_name(name: str) -> Optional[tuple[int, str, int, int]]:
+    """``gpu-<index>-mig-<profile>-<start>-<size>`` → (index, profile,
+    start, size); None for any other name."""
+    head, sep, tail = name.partition("-mig-")
+    if not sep or not head.startswith("gpu-"):
+        return None
+    parts = tail.rsplit("-", 2)
+    try:
+        return int(head[4:]), parts[0], int(parts[1]), int(parts[2])
+    except (ValueError, IndexError):
+        return None
+
+
+def _slice_ids(gpu_index: int, start: int = 0,
+               size: int = MIG_MEMORY_SLICES) -> set[str]:
+    return {f"gpu:{gpu_index}/mem:{s}" for s in range(start, start + size)}
 
 
 class DeviceState:
@@ -154,6 +203,9 @@ class DeviceState:
         clock: Callable[[], float] = time.time,
     ):
         self.device_lib = device_lib
+        # Built at the first passthrough prepare (:attr:`vfio`); a test
+        # sets a manager over a materialized tree here first.
+        self._vfio: Optional[VfioPciManager] = None
         self.aborted_ttl = aborted_ttl
         self.clock = clock
         self.cdi = cdi
@@ -165,8 +217,8 @@ class DeviceState:
         self.pool_name = pool_name
         self.driver_name = driver_name
         self.gates = gates or new_feature_gates()
-        # Short shared-state lock: guards the enumeration snapshot swap.
-        # Never held across a prepare.
+        # Short shared-state lock: guards the enumeration snapshot swap and
+        # the lazy VFIO manager. Never held across a prepare.
         self._mu = sanitizer.new_lock("DeviceState._mu")
         self._flights = ClaimFlightTable(
             "DeviceState", on_change=self._set_inflight_gauge,
@@ -179,12 +231,21 @@ class DeviceState:
 
     def _enumerate(self) -> _Enumeration:
         gpus = tuple(self.device_lib.enumerate_gpus())
+        # Only a passthrough node scans for vfio-bound functions.
+        vfio_gpus = (tuple(self.device_lib.vfio_gpus())
+                     if self.gates.enabled(PASSTHROUGH_SUPPORT) else ())
         enum = _Enumeration(
             node_info=self.device_lib.node_info(),
             gpus=gpus,
             gpus_by_name=sanitizer.track_state(
                 {g.canonical_name: g for g in gpus},
                 "DeviceState.enum.gpus_by_name"),
+            gpus_by_index=sanitizer.track_state(
+                {g.index: g for g in gpus}, "DeviceState.enum.gpus_by_index"),
+            vfio_gpus=vfio_gpus,
+            vfio_by_name=sanitizer.track_state(
+                {v.canonical_name: v for v in vfio_gpus},
+                "DeviceState.enum.vfio_by_name"),
         )
         # Strict-vs-lenient node agreement (nvlib.go:209-330): a node whose
         # GPUs disagree must not be published under
@@ -203,6 +264,10 @@ class DeviceState:
     @property
     def gpus(self) -> list[GpuInfo]:
         return list(self._enum.gpus)
+
+    @property
+    def vfio_gpus(self) -> list[VfioGpuInfo]:
+        return list(self._enum.vfio_gpus)
 
     def refresh_enumeration(self) -> None:
         """Re-walk the hardware (long-lived process observing hotplug /
@@ -224,21 +289,38 @@ class DeviceState:
             self.metrics.checkpoint_batch_size.observe(
                 size, driver=self.driver_name)
 
+    @property
+    def vfio(self) -> VfioPciManager:
+        """Lazy, so a node that never sees a passthrough claim never touches
+        the VFIO sysfs surface (NewVfioPciManager is likewise conditional,
+        device_state.go:195-198). Created under the state lock: concurrent
+        passthrough prepares share one manager."""
+        with self._mu:
+            if self._vfio is None:
+                self._vfio = VfioPciManager(
+                    sysfs_root=getattr(self.device_lib, "sysfs_root", "/sys"),
+                    dev_root=getattr(self.device_lib, "dev_root", "/dev"))
+            return self._vfio
+
     # -- startup ------------------------------------------------------------
 
     def _bootstrap_checkpoint(self) -> None:
-        """Boot-id invalidation via the shared helper; on a reboot the only
-        artifact to heal per claim is its CDI spec."""
+        """Boot-id invalidation via the shared helper; on a reboot the
+        artifact to heal per claim is its CDI spec (MIG instances do not
+        survive a reboot, and the startup sweep destroys any that did)."""
         with self.lock.held(timeout=10.0):
             bootstrap_checkpoint(
                 self.checkpoints, self.node_boot_id,
                 on_discard=lambda uid, pc: self.cdi.delete_claim_spec_file(uid))
 
     def sweep_unknown_claim_artifacts(self) -> list[str]:
-        """Startup sweep (the DestroyUnknownMIGDevices analogue,
-        device_state.go:448): delete CDI spec files not backed by a
-        checkpointed claim. Whole-GPU claims create no kernel objects, so
-        stray CDI files are the only artifacts to heal."""
+        """Startup sweep (DestroyUnknownMIGDevices, device_state.go:448):
+        delete CDI spec files not backed by a checkpointed claim and, under
+        DynamicMIG, destroy the MIG instances no completed claim recorded
+        (a crash between create and the checkpoint leaves one; a claim
+        still in PrepareStarted rolls back on its retry and needs none).
+        Without DynamicMIG the plugin creates none and leaves an admin's
+        alone. Returns the swept claim UIDs and MIG UUIDs."""
         with self.lock.held(timeout=10.0):
             cp = self.checkpoints.read()
             known = set(cp.prepared_claims)
@@ -247,8 +329,17 @@ class DeviceState:
                 if uid not in known:
                     self.cdi.delete_claim_spec_file(uid)
                     removed.append(uid)
+            if self.gates.enabled(DYNAMIC_MIG):
+                held = {d["mig"].get("uuid")
+                        for pc in cp.prepared_claims.values()
+                        if pc.state == STATE_PREPARE_COMPLETED
+                        for d in pc.prepared_devices if d.get("mig")}
+                for m in self.device_lib.mig_devices():
+                    if m.uuid not in held:
+                        self.device_lib.destroy_mig_device(m)
+                        removed.append(m.uuid)
             if removed:
-                logger.info("swept %d unknown claim CDI specs: %s",
+                logger.info("swept %d unknown claim artifacts: %s",
                             len(removed), removed)
             return removed
 
@@ -401,38 +492,63 @@ class DeviceState:
 
     @staticmethod
     def _device_phys_ids(name: str, enum: _Enumeration) -> set[str]:
-        """Physical identities behind a DRA device name: ``gpu:<index>``
-        plus ``pci:<bdf>`` when known. Unknown names map to empty
-        (cross-driver results are filtered out before this)."""
+        """Physical identities behind a DRA device name: a whole GPU is its
+        eight ``gpu:<index>/mem:<slice>`` memory slices plus ``pci:<bdf>``
+        when known; a MIG device the slices of its placement (its name
+        encodes them, so a vanished parent still maps); a published
+        passthrough device its ``pci:<bdf>`` alone (its scan index aliases
+        GPU indices, so the PCI address is its only trustworthy identity).
+        Unknown names map to empty (cross-driver results are filtered out
+        before this)."""
         g = enum.gpus_by_name.get(name)
-        if g is None:
-            return set()
-        out = {f"gpu:{g.index}"}
-        if g.pci_address:
-            out.add(f"pci:{g.pci_address}")
-        return out
+        if g is not None:
+            out = _slice_ids(g.index)
+            if g.pci_address:
+                out.add(f"pci:{g.pci_address}")
+            return out
+        v = enum.vfio_by_name.get(name)
+        if v is not None:
+            return {f"pci:{v.pci_address}"}
+        mig = parse_mig_name(name)
+        if mig is not None:
+            index, _, start, size = mig
+            return _slice_ids(index, start, size)
+        return set()
 
     @staticmethod
     def _held_phys_ids(pc: PreparedClaimCP) -> set[str]:
         """Identities a checkpointed claim holds, from prepare-time records
         (re-deriving from live enumeration would silently drop a claim's
         GPUs once one dies, disabling the overlap check). The records keep
-        the checkpoint format's ``chipIndices`` key for the GPU index."""
+        the checkpoint format's ``chipIndices`` key for the GPU index; a
+        MIG record holds only its placement's slices."""
         held: set[str] = set()
         for d in pc.prepared_devices:
+            mig = d.get("mig") or {}
             for i in d.get("chipIndices") or []:
-                held.add(f"gpu:{i}")
+                held |= (_slice_ids(i, mig["placementStart"],
+                                    mig["placementSize"]) if mig
+                         else _slice_ids(i))
+            bdf = (d.get("vfio") or {}).get("pciAddress")
+            if bdf:
+                held.add(f"pci:{bdf}")
+        for bdf in pc.vfio_restore or {}:
+            held.add(f"pci:{bdf}")
         return held
 
     def _validate_no_overlap(self, cp: Checkpoint, uid: str,
                              results: list[dict[str, Any]],
                              enum: _Enumeration) -> None:
-        """The same PHYSICAL GPU prepared under two different claims is a
-        scheduler race or force-delete artifact; fail loudly
-        (validateNoOverlappingPreparedDevices, device_state.go:1484).
-        Comparison is at physical-identity granularity (GPU index / PCI
-        BDF). Runs inside the registration transaction, so concurrent
-        prepares validate against each other's records."""
+        """The same PHYSICAL memory slice or PCI function prepared under
+        two different claims is a scheduler race or force-delete artifact;
+        fail loudly (validateNoOverlappingPreparedDevices,
+        device_state.go:1484). Comparison is at physical-identity
+        granularity, not device-name granularity: a whole-GPU claim and a
+        MIG claim on that GPU overlap though their names differ, two
+        disjoint MIG claims on one GPU do not, and a GPU claim clashes with
+        a passthrough claim on its function. Runs inside the registration
+        transaction, so concurrent prepares validate against each other's
+        records."""
         wanted: set[str] = set()
         for r in results:
             wanted |= self._device_phys_ids(r.get("device", ""), enum)
@@ -453,10 +569,54 @@ class DeviceState:
                     f"{other_uid}; refusing overlapping prepare")
 
     def _rollback_partial(self, uid: str, pc: PreparedClaimCP) -> None:
-        """Undo a partially executed prepare: whole-GPU prepares create no
-        device state, so the CDI spec is the only artifact
+        """Undo a partially executed prepare: restore any vfio-pci binds via
+        the checkpointed restore ledger (the partial-VFIO rollback,
+        device_state.go:621-655), destroy the MIG instances at the claim's
+        placements, then delete the CDI spec
         (unpreparePartiallyPrepairedClaim, device_state.go:612-700)."""
+        self._undo_devices(pc)
+        self.checkpoints.transact(
+            lambda c: c.prepared_claims[uid].vfio_restore.clear()
+            if uid in c.prepared_claims else None)
         self.cdi.delete_claim_spec_file(uid)
+
+    def _undo_devices(self, pc: PreparedClaimCP) -> None:
+        """Release what a claim's prepare did to the devices: rebind its
+        vfio-bound functions and destroy its MIG instances. Raises
+        (retryably) on failure — the claim record stays until the undo
+        actually succeeds."""
+        self._restore_vfio(pc)
+        self._destroy_migs(pc)
+
+    def _restore_vfio(self, pc: PreparedClaimCP) -> None:
+        """Rebind every function this claim moved to vfio-pci back to its
+        recorded original driver."""
+        for bdf, original in (pc.vfio_restore or {}).items():
+            if original:
+                self.vfio.unconfigure(bdf, original)
+
+    def _destroy_migs(self, pc: PreparedClaimCP) -> None:
+        """Destroy the claim's MIG instances: those its completed records
+        name by UUID (an id the driver reused for another instance is never
+        touched), and, for a prepare that did not complete, any instance at
+        exactly one of its allocated placements — the registration
+        transaction gave the claim those slices alone. Idempotent."""
+        uuids = {d["mig"].get("uuid") for d in pc.prepared_devices
+                 if d.get("mig")}
+        placements = set()
+        if pc.state != STATE_PREPARE_COMPLETED:
+            for r in pc.results:
+                mig = parse_mig_name(r.get("device", ""))
+                if mig is not None:
+                    placements.add((mig[0], mig[2], mig[3]))
+        if not uuids and not placements:
+            return
+        for m in self.device_lib.mig_devices():
+            if m.uuid in uuids or (m.parent_index, m.start,
+                                   m.size) in placements:
+                self.device_lib.destroy_mig_device(m)
+                logger.info("destroyed MIG instance %s (%s at %d on GPU %d)",
+                            m.uuid, m.profile, m.start, m.parent_index)
 
     # -- config resolution (GetOpaqueDeviceConfigs, device_state.go:1410) ----
 
@@ -486,16 +646,51 @@ class DeviceState:
 
     def _prepare_devices(self, claim: Obj, results: list[dict[str, Any]],
                          enum: _Enumeration) -> list[PreparedDevice]:
+        """Route each allocated device (the JAX package's
+        ``_prepare_devices``): a published passthrough device, a whole GPU
+        (for passthrough when its configs hold a VfioDeviceConfig), or a
+        MIG placement."""
         uid = claim_uid(claim)
         prepared: list[PreparedDevice] = []
         for r in results:
             name = r.get("device", "")
-            if name not in enum.gpus_by_name:
+            configs = self._configs_for(claim, r.get("request", ""))
+            wants_vfio = any(isinstance(c, VfioDeviceConfig)
+                             for c in configs)
+            if name in enum.vfio_by_name:
+                # A pre-bound function: its scan index is positional, so
+                # no GPU index — the PCI address is its identity.
+                prepared.append(self._prepare_gpu_vfio(
+                    uid, r, configs, None,
+                    enum.vfio_by_name[name].pci_address))
+            elif name in enum.gpus_by_name:
+                gpu = enum.gpus_by_name[name]
+                prepared.append(
+                    self._prepare_gpu_vfio(uid, r, configs, gpu.index,
+                                           gpu.pci_address)
+                    if wants_vfio else self._prepare_gpu(uid, r, configs,
+                                                         enum))
+            elif parse_mig_name(name) is not None:
+                prepared.append(self._prepare_mig(uid, r, configs, enum))
+            else:
                 raise PermanentError(f"allocated device {name!r} is not an "
                                      f"allocatable device on this node")
-            configs = self._configs_for(claim, r.get("request", ""))
-            prepared.append(self._prepare_gpu(uid, r, configs, enum))
         return prepared
+
+    @staticmethod
+    def _config_env(name: str, configs: list[Any], own: type) -> dict:
+        """The env of the device's GpuConfigs and of its ``own`` config
+        kind, later configs winning; a config of another kind cannot target
+        the device and is a PermanentError (the reference's config/device
+        type mismatch refusal, device_state.go:874)."""
+        env: dict[str, str] = {}
+        for cfg in configs:
+            if isinstance(cfg, (GpuConfig, own)):
+                env.update(getattr(cfg, "env", {}))
+            else:
+                raise PermanentError(
+                    f"{type(cfg).__name__} cannot target device {name}")
+        return env
 
     def _prepare_gpu(self, uid: str, result: dict[str, Any],
                      configs: list[Any],
@@ -505,10 +700,7 @@ class DeviceState:
         plus the env of the claim's GpuConfigs, later ones winning."""
         name = result["device"]
         gpu = enum.gpus_by_name[name]
-        env: dict[str, str] = {}
-        for cfg in configs:
-            if isinstance(cfg, GpuConfig):
-                env.update(cfg.env)
+        env = self._config_env(name, configs, GpuConfig)
         (edits,), _ = claim_edits_for([gpu.index], [gpu.minor], [gpu.uuid])
         return PreparedDevice(
             device=name,
@@ -520,18 +712,154 @@ class DeviceState:
             chip_indices=[gpu.index],
         )
 
+    def _prepare_mig(self, uid: str, result: dict[str, Any],
+                     configs: list[Any],
+                     enum: _Enumeration) -> PreparedDevice:
+        """One MIG placement (the JAX package's ``_prepare_subslice``):
+        DynamicMIG creates the instance here. Its edits are the parent's
+        node and the instance's ``nvidia-caps`` nodes; a MigDeviceConfig
+        whose profile is not the device's is a PermanentError."""
+        name = result["device"]
+        if not self.gates.enabled(DYNAMIC_MIG):
+            raise PermanentError(f"MIG device {name}: feature gate "
+                                 f"{DYNAMIC_MIG} is disabled on this node")
+        index, profile, start, size = parse_mig_name(name)
+        gpu = enum.gpus_by_index.get(index)
+        if gpu is None:
+            raise PermanentError(
+                f"MIG device {name} names GPU {index}, not present on this "
+                "node")
+        try:
+            p = mig_profile(gpu.gpu_type, profile)
+        except ValueError as e:
+            raise PermanentError(f"MIG device {name}: {e}") from e
+        if start not in p.starts or size != p.size:
+            raise PermanentError(f"MIG device {name}: {profile} has no "
+                                 f"placement {start}+{size}")
+        for cfg in configs:
+            if isinstance(cfg, MigDeviceConfig) and cfg.profile \
+                    and cfg.profile != profile:
+                raise PermanentError(
+                    f"claim requests MIG profile {cfg.profile} but "
+                    f"allocated device {name} has profile {profile}")
+        env = self._config_env(name, configs, MigDeviceConfig)
+        mig = self.device_lib.create_mig_device(gpu, profile, start)
+        logger.info("created MIG instance %s (%s at %d on GPU %d) for claim "
+                    "%s", mig.uuid, profile, start, index, uid)
+        edits = mig_device_edits(name, gpu.minor, mig.caps_paths)
+        return PreparedDevice(
+            device=name,
+            requests=[result.get("request", "")],
+            pool=self.pool_name,
+            cdi_device_name=self.cdi.claim_device_name(uid, name),
+            device_nodes=list(edits.device_nodes),
+            env=env,
+            chip_indices=[gpu.index],
+            mig=mig.to_dict(),
+        )
+
+    def _prepare_gpu_vfio(self, uid: str, result: dict[str, Any],
+                          configs: list[Any], gpu_index: Optional[int],
+                          bdf: str) -> PreparedDevice:
+        """Passthrough prepare (the JAX package's ``_prepare_chip_vfio``):
+        bind the GPU's PCI function to vfio-pci and hand the container the
+        VFIO group cdev instead of ``/dev/nvidia<minor>``; the claim-wide
+        IOMMU API node is added once at the claim level
+        (prepareVfioDevices, device_state.go:905-960; node shape per
+        vfio-cdi.go:52-110)."""
+        name = result["device"]
+        if not self.gates.enabled(PASSTHROUGH_SUPPORT):
+            raise PermanentError(
+                f"VFIO passthrough of device {name}: feature gate "
+                f"{PASSTHROUGH_SUPPORT} is disabled on this node")
+        if not bdf:
+            raise PermanentError(
+                f"device {name} has no PCI address; cannot passthrough")
+        vfio_cfgs = [c for c in configs if isinstance(c, VfioDeviceConfig)]
+        prefer_iommufd = bool(vfio_cfgs) and \
+            vfio_cfgs[-1].iommu == IOMMU_IOMMUFD
+        env = self._config_env(name, configs, VfioDeviceConfig)
+        env[PASSTHROUGH_DEVICE_ENV] = "1"
+
+        mgr = self.vfio
+        original = mgr.current_driver(bdf)
+        if original == VFIO_DRIVER:
+            original = ""  # pre-bound (admin); never unbind at unprepare
+        # Ledger BEFORE bind: a crash between the checkpoint write and the
+        # bind leaves a harmless no-op restore; the reverse order would leak
+        # a vfio-bound GPU with no record of how to restore it.
+        self.checkpoints.transact(
+            lambda c: c.prepared_claims[uid].vfio_restore.__setitem__(
+                bdf, original))
+        mgr.configure(bdf)  # VfioError is retryable; let it propagate
+
+        group_node = mgr.vfio_device_node(bdf)
+        backend = (IOMMU_IOMMUFD
+                   if mgr.iommu_api_node(prefer_iommufd) == "/dev/iommu"
+                   else IOMMU_LEGACY)
+        # iommufd mode injects the per-device iommufd cdev
+        # (/dev/vfio/devices/vfioN): the legacy group cdev cannot be opened
+        # through the iommufd API a VMM handed /dev/iommu uses
+        # (vfio-cdi.go:96-106). Retryable when the cdev has not appeared.
+        device_node = (mgr.iommufd_device_node(bdf)
+                       if backend == IOMMU_IOMMUFD else group_node)
+        return PreparedDevice(
+            device=name,
+            requests=[result.get("request", "")],
+            pool=self.pool_name,
+            cdi_device_name=self.cdi.claim_device_name(uid, name),
+            device_nodes=[device_node],
+            env=env,
+            chip_indices=[] if gpu_index is None else [gpu_index],
+            vfio={"pciAddress": bdf,
+                  "iommuGroup": group_node.rsplit("/", 1)[-1],
+                  "iommu": backend},
+        )
+
     @staticmethod
     def _claim_edits(prepared: list[PreparedDevice],
                      enum: _Enumeration) -> CDIDevice:
-        """Claim-wide visibility: ``CUDA_VISIBLE_DEVICES`` and
-        ``NVIDIA_VISIBLE_DEVICES`` over the union of the claim's GPUs, by
-        UUID (:func:`claim_edits_for`), in node index order."""
-        gpus = sorted({enum.gpus_by_name[pd.device].index:
-                       enum.gpus_by_name[pd.device] for pd in prepared}.items())
-        _, claim_edits = claim_edits_for(
-            [g.index for _, g in gpus], [g.minor for _, g in gpus],
-            [g.uuid for _, g in gpus])
-        return claim_edits
+        """Claim-wide edits (:func:`claim_visibility_edits`):
+        ``CUDA_VISIBLE_DEVICES`` and ``NVIDIA_VISIBLE_DEVICES`` list the
+        claim's whole GPUs by UUID in node index order, then its MIG
+        instances' ``MIG-<uuid>``; passthrough devices are left out (their
+        nodes are gone once vfio-bound) and go in the PCI-address variable,
+        with ONE IOMMU API node per claim (GetCommonEdits,
+        vfio-cdi.go:52-79): iommufd only when every passthrough device
+        resolved to it, else the claim-consistent legacy container."""
+        whole = sorted({enum.gpus_by_name[pd.device].index:
+                        enum.gpus_by_name[pd.device].uuid
+                        for pd in prepared
+                        if not pd.vfio and not pd.mig}.items())
+        visible = [u for _, u in whole] + [pd.mig["uuid"] for pd in prepared
+                                           if pd.mig]
+        vfio_pds = [pd for pd in prepared if pd.vfio]
+        iommu_node = ""
+        if vfio_pds:
+            iommu_node = ("/dev/iommu" if all(
+                pd.vfio.get("iommu") == IOMMU_IOMMUFD for pd in vfio_pds)
+                else "/dev/vfio/vfio")
+        return claim_visibility_edits(
+            visible, [pd.vfio["pciAddress"] for pd in vfio_pds], iommu_node)
+
+    def claimed_vfio_bdfs(self) -> set[str]:
+        """PCI functions tied to ANY checkpointed claim — publication keeps
+        a GPU this plugin vfio-bound for a live claim from resurfacing as a
+        fresh allocatable passthrough device. Lock-free read: publication
+        must not queue behind a prepare."""
+        out: set[str] = set()
+        try:
+            claims = self.prepared_claims_nolock()
+        except Exception:  # noqa: BLE001 — unreadable state already fails
+            # requests loudly elsewhere; publication just stays conservative.
+            return out
+        for pc in claims.values():
+            out.update(pc.vfio_restore or {})
+            for d in pc.prepared_devices:
+                bdf = (d.get("vfio") or {}).get("pciAddress")
+                if bdf:
+                    out.add(bdf)
+        return out
 
     def _refs_from_checkpoint(self, uid: str,
                               pc: PreparedClaimCP) -> list[PreparedDeviceRef]:
@@ -562,8 +890,9 @@ class DeviceState:
                 self.checkpoints.transact(
                     lambda c: c.prepared_claims.pop(ref.uid, None))
                 return
-            # Undo BEFORE dropping the record: a failed delete leaves the
-            # claim checkpointed so the kubelet retries unprepare.
+            # Undo BEFORE dropping the record: a failed restore or destroy
+            # leaves the claim checkpointed so the kubelet retries unprepare.
+            self._undo_devices(pc)
             self.cdi.delete_claim_spec_file(ref.uid)
             self.checkpoints.transact(
                 lambda c: c.prepared_claims.pop(ref.uid, None))
@@ -583,12 +912,13 @@ class DeviceState:
         unwinds the completed state. Returns whether anything was drained;
         crash-safe: a crash between the CDI delete and the tombstone commit
         leaves the claim checkpointed, so a replayed drain re-runs the
-        (idempotent) delete and commits the tombstone."""
+        (idempotent) undo and commits the tombstone."""
         with self._flights.claim(ref.uid):
             cp = self.checkpoints.read_cached()
             pc = cp.prepared_claims.get(ref.uid)
             if pc is None or pc.state == STATE_PREPARE_ABORTED:
                 return False
+            self._undo_devices(pc)
             self.cdi.delete_claim_spec_file(ref.uid)
             expiry = self.clock() + self.aborted_ttl
 
@@ -598,6 +928,7 @@ class DeviceState:
                     return False
                 entry.state = STATE_PREPARE_ABORTED
                 entry.prepared_devices = []
+                entry.vfio_restore = {}
                 entry.aborted_expiry = expiry
                 return True
 
@@ -654,14 +985,15 @@ class DeviceState:
         """Checkpointed claims whose prepared state covers ``device`` —
         the drain controller's work list when that device is tainted.
         Comparison is at physical-identity granularity (the overlap
-        validator's currency). A vanished GPU has no enumeration entry;
-        its name still encodes the GPU index, which is exactly what the
-        prepare-time records hold."""
+        validator's currency), so a MIG claim on a tainted GPU is found
+        though its device name differs. A vanished GPU has no enumeration
+        entry; its name still encodes the GPU index, which is exactly what
+        the prepare-time records hold."""
         enum = self._enum
         want = self._device_phys_ids(device, enum)
         if not want and device.startswith("gpu-"):
             try:
-                want = {f"gpu:{int(device.split('-')[1])}"}
+                want = _slice_ids(int(device.split("-")[1]))
             except (ValueError, IndexError):
                 want = set()
         if not want:
@@ -688,11 +1020,11 @@ class DeviceState:
         return sorted(out, key=lambda r: r.uid)
 
     def claim_device_count(self, uid: str) -> int:
-        """How many physical GPUs a prepared claim holds — the drain
-        controller's priority key (docs/self-healing.md, "Drain
-        ordering"): small claims vacate a tainted device before
-        multi-GPU ones. 0 for unknown/unreadable claims (sorts first:
-        nothing to evict)."""
+        """How many physical GPUs a prepared claim holds (a MIG claim its
+        parent) — the drain controller's priority key
+        (docs/self-healing.md, "Drain ordering"): small claims vacate a
+        tainted device before multi-GPU ones. 0 for unknown/unreadable
+        claims (sorts first: nothing to evict)."""
         try:
             pc = self.prepared_claims_nolock().get(uid)
         except Exception:  # noqa: BLE001 — unreadable state already
@@ -701,11 +1033,11 @@ class DeviceState:
         if pc is None:
             return 0
         held = self._held_phys_ids(pc)
-        if held:
-            return len(held)
-        enum = self._enum
-        for r in pc.results:
-            held |= self._device_phys_ids(r.get("device", ""), enum)
-        if held:
-            return len({h for h in held if h.startswith("gpu:")})
+        if not held:
+            enum = self._enum
+            for r in pc.results:
+                held |= self._device_phys_ids(r.get("device", ""), enum)
+        gpus = {h.split("/")[0] for h in held if h.startswith("gpu:")}
+        if gpus or held:
+            return len(gpus) or len(held)
         return max(len(pc.prepared_devices), len(pc.results))

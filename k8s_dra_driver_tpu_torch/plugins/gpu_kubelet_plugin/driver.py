@@ -1,12 +1,13 @@
 """GPU DRA driver: resource generation, publication, claim dispatch.
 
-Copied from the JAX package's ``plugins/tpu_kubelet_plugin/driver.py`` and
-cut to whole GPUs: the MIG and passthrough gates raise at assembly
-(``validate_gate_dependencies``). The taint surface is driven by the health
-monitor (``health.attach_health_monitor``) and the drain surface
+Copied from the JAX package's ``plugins/tpu_kubelet_plugin/driver.py``:
+whole GPUs, and under ``DynamicMIG`` every MIG placement over the node's
+memory-slice counters; under ``PassthroughSupport`` the GPUs already bound to
+vfio-pci. The taint surface is driven by the health monitor
+(``health.attach_health_monitor``) and the drain surface
 (``device_healthy`` … ``rejoin_device``) by the drain controller
-(``kubeletplugin/remediation.py``). As there, the analogue of the reference's driver core (``cmd/gpu-kubelet-plugin/
-driver.go``): ``NewDriver`` :70 (assembly), ``GenerateDriverResources``
+(``kubeletplugin/remediation.py``). As there, the analogue of the
+reference's driver core (``cmd/gpu-kubelet-plugin/driver.go``): ``NewDriver`` :70 (assembly), ``GenerateDriverResources``
 :190-307 (flat vs KEP-4815 partitionable slices), ``PrepareResourceClaims``
 :344-443 (batch dispatch with per-claim flock + metrics + phase timings),
 ``publishResources`` :462-501. The retry-until-deadline batch semantics
@@ -44,9 +45,10 @@ from k8s_dra_driver_tpu_torch.pkg.events import (
 )
 from k8s_dra_driver_tpu_torch.pkg.featuregates import (
     DRA_LIST_TYPE_ATTRIBUTES,
+    DYNAMIC_MIG,
+    PASSTHROUGH_SUPPORT,
     FeatureGates,
     new_feature_gates,
-    validate_gate_dependencies,
 )
 from k8s_dra_driver_tpu_torch.pkg.metrics import DRAMetrics
 from k8s_dra_driver_tpu_torch.pkg.nodelease import (
@@ -105,7 +107,6 @@ class GpuDriver:
     ):
         self.config = config
         self.gates = config.feature_gates or new_feature_gates()
-        validate_gate_dependencies(self.gates)
         env = dict(os.environ if config.env is None else config.env)
         self.device_lib = device_lib or new_device_lib(env)
         self.metrics = metrics or DRAMetrics()
@@ -159,20 +160,47 @@ class GpuDriver:
     # -- resource generation (GenerateDriverResources, driver.go:190-307) ----
 
     def generate_driver_resources(self) -> DriverResources:
-        """One device per GPU, with its taints and, while the node is
-        cordoned, the cordon taint on every device."""
+        """One device per GPU; under DynamicMIG every MIG placement of the
+        GPUs in MIG mode, all drawing the node's memory-slice counters;
+        under PassthroughSupport the vfio-bound GPUs this plugin did not
+        bind for a live claim. Each with its taints (a GPU's also on every
+        MIG device on it) and, while the node is cordoned, the cordon taint
+        on every device."""
+        gpus = self.state.gpus
+        partitionable = self.gates.enabled(DYNAMIC_MIG)
         list_attrs = self.gates.enabled(DRA_LIST_TYPE_ATTRIBUTES)
         devices: list[Device] = [
-            partitions.full_gpu_device(g, list_type_attrs=list_attrs)
-            for g in self.state.gpus
+            partitions.full_gpu_device(g, with_counters=partitionable,
+                                       list_type_attrs=list_attrs)
+            for g in gpus
         ]
+        shared = []
+        if partitionable:
+            devices.extend(partitions.mig_devices(gpus))
+            shared = [partitions.memory_slice_counter_set(gpus)]
+        if self.gates.enabled(PASSTHROUGH_SUPPORT):
+            # GPUs already bound to vfio-pci left the NVIDIA driver; they
+            # surface as their own passthrough device type
+            # (nvlib.go:660-694) — except those this plugin bound for a
+            # live claim, which must not be re-offered.
+            claimed = self.state.claimed_vfio_bdfs()
+            devices.extend(partitions.vfio_gpu_device(v)
+                           for v in self.state.vfio_gpus
+                           if v.pci_address not in claimed)
         # One snapshot under the lock: the taint surface may be mutated
-        # from another thread.
+        # from another thread. A GPU's taints reach every MIG device on
+        # it: a faulted GPU poisons all of its placements.
         taint_snapshot = self.device_taints()
+        by_parent = {g.index: taint_snapshot.get(g.canonical_name, [])
+                     for g in gpus}
         for d in devices:
-            taints = taint_snapshot.get(d.name)
+            taints = list(taint_snapshot.get(d.name, []))
+            if d.attributes.get("type") == partitions.DEVICE_TYPE_MIG:
+                own = {t.key for t in taints}
+                taints += [t for t in by_parent[d.attributes["parentIndex"]]
+                           if t.key not in own]
             if taints:
-                d.taints = list(taints)
+                d.taints = taints
         with self._taints_mu:
             cordon_reason = self._cordon_reason
         if cordon_reason:
@@ -182,7 +210,7 @@ class GpuDriver:
         return DriverResources(pools={
             self.pool_name: Pool(
                 generation=self._generation,
-                slices=[Slice(devices=devices)],
+                slices=[Slice(devices=devices, shared_counters=shared)],
             )
         })
 

@@ -12,7 +12,10 @@ Run against the machine's own GPUs (NVML where the host has it)::
         --node-name node-0 --api-endpoint http://127.0.0.1:8700 \
         --state-dir /var/lib/gpu-dra --cdi-root /var/run/cdi
 
-or on the mock backend with ``--mock-profile h100-8``. Point
+or on the mock backend with ``--mock-profile h100-8``.
+``--feature-gates DynamicMIG=true,PassthroughSupport=true`` publishes the
+MIG placements of the GPUs in MIG mode and the vfio-bound GPUs, and
+prepares both. Point
 ``--api-endpoint`` at ``python -m k8s_dra_driver_tpu_torch.k8sclient.httpapi``
 to share cluster state with other processes; empty, the plugin runs on an
 in-process fake API of its own.

@@ -2,8 +2,9 @@
 the JAX package: what Prepare materializes per allocated device and
 records in the checkpoint, with JSON round-tripping so Unprepare and crash
 recovery can reconstruct everything without the API object. The record
-keeps every key of the JAX package's (the ``vfio`` marker stays empty for
-whole GPUs), so either package reads the other's checkpoint."""
+keeps every key of the JAX package's, so either package reads the other's
+checkpoint; a MIG device's record adds a ``mig`` key (its profile,
+placement, instance ids and UUID), written only for MIG devices."""
 
 from __future__ import annotations
 
@@ -26,11 +27,14 @@ class PreparedDevice:
     chip_indices: list[int] = field(default_factory=list)
     mounts: list[tuple[str, str]] = field(default_factory=list)  # (host, container)
     # VFIO passthrough marker of the shared format ({"pciAddress",
-    # "iommuGroup"} for a passthrough device); always empty here.
+    # "iommuGroup", "iommu"} for a passthrough device).
     vfio: dict[str, str] = field(default_factory=dict)
+    # The MIG instance a MIG device was prepared into
+    # (``MigDeviceInfo.to_dict``); empty for any other device.
+    mig: dict[str, Any] = field(default_factory=dict)
 
     def to_dict(self) -> dict[str, Any]:
-        return {
+        d = {
             "device": self.device,
             "requests": list(self.requests),
             "pool": self.pool,
@@ -41,6 +45,9 @@ class PreparedDevice:
             "mounts": [list(m) for m in self.mounts],
             "vfio": dict(self.vfio),
         }
+        if self.mig:
+            d["mig"] = dict(self.mig)
+        return d
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "PreparedDevice":
@@ -54,6 +61,7 @@ class PreparedDevice:
             chip_indices=list(d.get("chipIndices") or []),
             mounts=[tuple(m) for m in d.get("mounts") or []],
             vfio=dict(d.get("vfio") or {}),
+            mig=dict(d.get("mig") or {}),
         )
 
     def to_ref(self, qualified_id: str) -> PreparedDeviceRef:

@@ -147,12 +147,25 @@ class TestPublication:
 
     @pytest.mark.parametrize("gate", [DYNAMIC_MIG, PASSTHROUGH_SUPPORT])
     def test_waiting_features_refuse_to_start(self, tmp_path, gate):
-        with pytest.raises(ValueError, match="not supported"):
-            GpuDriver(FakeClient(), DriverConfig(
-                node_name="n", state_dir=str(tmp_path / "s"),
-                cdi_root=str(tmp_path / "c"), env={},
-                feature_gates=new_feature_gates(f"{gate}=true")),
-                device_lib=MockDeviceLib("h100-8"))
+        """Once refused at assembly, each gate now starts the plugin:
+        DynamicMIG publishes the 19 devices of each GPU in MIG mode over
+        the memory-slice counters, PassthroughSupport the GPUs (the mock
+        binds none to vfio-pci)."""
+        client = FakeClient()
+        GpuDriver(client, DriverConfig(
+            node_name="n", state_dir=str(tmp_path / "s"),
+            cdi_root=str(tmp_path / "c"), env={},
+            feature_gates=new_feature_gates(f"{gate}=true")),
+            device_lib=MockDeviceLib("h100-8", mig=True)).start()
+        (spec,) = [s["spec"] for s in client.list("ResourceSlice")]
+        if gate == DYNAMIC_MIG:
+            assert len(spec["devices"]) == 8 * 19
+            (cs,) = spec["sharedCounters"]
+            assert len(cs["counters"]) == 8 * 8
+        else:
+            assert [d["name"] for d in spec["devices"]] == [
+                f"gpu-{i}" for i in range(8)]
+            assert "sharedCounters" not in spec
 
 
 class TestPrepareEndToEnd:
@@ -241,8 +254,10 @@ class TestPrepareEndToEnd:
         ({"kind": "GpuConfig", "env": {"CUDA_VISIBLE_DEVICES": "7"}},
          "driver-managed"),
         ({"kind": "GpuConfig", "envv": {"X": "1"}}, "unknown fields"),
-        ({"kind": "MigDeviceConfig", "profile": "1g.10gb"}, "not supported"),
-        ({"kind": "VfioDeviceConfig", "iommu": "legacy"}, "not supported"),
+        ({"kind": "MigDeviceConfig", "profile": "1g.10gb"},
+         "MigDeviceConfig cannot target device gpu-"),
+        ({"kind": "VfioDeviceConfig", "iommu": "legacy"},
+         "feature gate PassthroughSupport is disabled"),
         ({"kind": "TimeSlicingConfig"}, "unknown config kind"),
     ])
     def test_invalid_opaque_config_is_permanent(self, cluster, config, match):

@@ -388,6 +388,27 @@ class TestParseVisibleDevicesUuids:
         with pytest.raises(ValueError):
             parse_visible_devices(self.spec(val), self.UUIDS)
 
+    def test_mig_entries_map_through_the_table_or_cuda(self, monkeypatch):
+        """A ``MIG-<uuid>`` entry is a device of its own: matched in the
+        caller's table, or among the CUDA devices (whose UUIDs torch
+        reports without the prefix)."""
+        import torch
+        spec = self.spec("MIG-1111,GPU-bbbb")
+        assert parse_visible_devices(spec, {"MIG-1111": 2,
+                                            **self.UUIDS}) == [0, 2]
+
+        class Props:
+            def __init__(self, u):
+                self.uuid = u
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda i: Props(["aaaa", "1111"][i]))
+        assert parse_visible_devices(self.spec("MIG-1111")) == [1]
+        assert parse_visible_devices(self.spec("GPU-aaaa")) == [0]
+        with pytest.raises(ValueError, match="no device has the UUID"):
+            parse_visible_devices(self.spec("MIG-2222"))
+
     def test_uuid_without_a_table_or_cuda_raises(self, monkeypatch):
         import torch
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -7,8 +7,10 @@ the k8s client, the GPU and ComputeDomain kubelet plugins, the
 ComputeDomain daemon and controller, the webhook, the serving harness, the
 self-healing path, the binaries with their HTTP API server, the
 observability plane with the controller's binary and the soak, and
-controller sharding with the full claim-lifecycle tracer included; the
-modules of the last five slices are named and must be among them;
+controller sharding with the full claim-lifecycle tracer included, and
+the MIG and VFIO modules; the modules of the last six slices are named and
+must be among them; a MIG and a passthrough claim prepare and unprepare
+in a child of their own with the same modules blocked;
 the serving-scale, churn, fleet and chaos harnesses run small in a child
 of their own with the same modules blocked;
 the ``__main__`` modules, which run their binary when imported, are
@@ -154,6 +156,16 @@ SHARDING_MODULES = [
     "k8s_dra_driver_tpu_torch.plugins.compute_domain_controller.sharding",
 ]
 
+#: Modules of the MIG and VFIO slice.
+MIG_MODULES = [
+    "k8s_dra_driver_tpu_torch.gpulib.chip",
+    "k8s_dra_driver_tpu_torch.gpulib.device_lib",
+    "k8s_dra_driver_tpu_torch.api.configs",
+    "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.partitions",
+    "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.vfio",
+    "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.device_state",
+]
+
 #: The serving-scale, churn, fleet and chaos slice: its functions, each
 #: imported and run small in a child with JAX blocked.
 SCALE_FUNCTIONS = {
@@ -209,7 +221,8 @@ def test_port_imports_and_serves_with_jax_blocked():
     assert n >= 51 + len(CD_MODULES) + 3, proc.stdout
     names = set(proc.stdout.split("NAMES", 1)[1].split()[0].split(","))
     want = (set(CD_MODULES) | set(SELFHEAL_MODULES) | set(BINARY_MODULES)
-            | set(OBSERVABILITY_MODULES) | set(SHARDING_MODULES))
+            | set(OBSERVABILITY_MODULES) | set(SHARDING_MODULES)
+            | set(MIG_MODULES))
     assert want <= names, sorted(want - names)
     assert not any(n.endswith(".__main__") for n in names)
 
@@ -231,6 +244,70 @@ def test_this_slices_functions_are_scanned(module):
     defined = {n.name for n in ast.parse(path.read_text()).body
                if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
     assert set(SCALE_FUNCTIONS[module]) <= defined
+
+
+_MIG_CHILD = r"""
+import sys, tempfile
+for name in ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml", "grpc"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
+    FakeVfioKernel, MockDeviceLib, SysfsDeviceLib)
+from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
+from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
+from k8s_dra_driver_tpu_torch.pkg.featuregates import new_feature_gates
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+    DriverConfig, GpuDriver, partitions)
+from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.vfio import (
+    VfioPciManager)
+tmp = tempfile.mkdtemp()
+dev, sysfs, proc = MockDeviceLib("h100-8").materialize(tmp + "/tree")
+mig = MockDeviceLib("h100-8", mig=True)
+for lib, gates, cls, key in (
+        (mig, "DynamicMIG=true", partitions.DEVICE_CLASS_MIG, "mig"),
+        (SysfsDeviceLib(dev_root=dev, sysfs_root=sysfs, proc_root=proc,
+                        env={}), "PassthroughSupport=true",
+         partitions.DEVICE_CLASS_GPU, "vfio")):
+    client = FakeClient()
+    client.create(new_object("DeviceClass", cls, spec={"selectors": [
+        {"cel": {"expression": partitions.DEVICE_CLASS_SELECTORS[cls]}}]}))
+    d = GpuDriver(client, DriverConfig(
+        node_name="n", state_dir=f"{tmp}/{key}", cdi_root=f"{tmp}/{key}-cdi",
+        env={}, retry_timeout=0.5, feature_gates=new_feature_gates(gates)),
+        device_lib=lib)
+    d.state._vfio = VfioPciManager(sysfs, dev, kernel=FakeVfioKernel(
+        sysfs, dev))
+    d.start()
+    spec = {"devices": {"requests": [{"name": "g", "exactly": {
+        "deviceClassName": cls, "allocationMode": "ExactCount",
+        "count": 1}}]}}
+    if key == "vfio":
+        spec["devices"]["config"] = [{"opaque": {
+            "driver": "gpu.nvidia.com", "parameters": {
+                "apiVersion": "resource.nvidia.com/v1beta1",
+                "kind": "VfioDeviceConfig"}}}]
+    c = Allocator(client).allocate(client.create(new_object(
+        "ResourceClaim", key, "default", api_version="resource.k8s.io/v1",
+        spec=spec)))
+    r = d.prepare_resource_claims([c])[c["metadata"]["uid"]]
+    assert r.error is None, r.error
+    assert d.unprepare_resource_claims([ClaimRef.from_claim(c)])[
+        c["metadata"]["uid"]] is None
+assert mig.mig_devices() == []
+print("MIG_OK")
+"""
+
+
+def test_this_slices_mig_and_vfio_paths_run_with_jax_blocked():
+    """A MIG claim prepared and unprepared on the mock, and a passthrough
+    claim on a materialized tree, in a child with JAX blocked."""
+    proc = subprocess.run([sys.executable, "-c", _MIG_CHILD, str(REPO)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "MIG_OK" in proc.stdout
 
 
 def test_every_main_file_is_scanned():

@@ -6,8 +6,8 @@ through both packages' ``admit_resource_claim_parameters``: the decision,
 the reason and the message agree once the JAX package's names (API group,
 driver names, the full-device config kind and its driver-managed variable)
 are mapped to the port's. Then the scenarios of ``tests/test_webhook.py``
-that need no HTTP server, on the port, and the config kinds the port
-refuses because it lacks their features (MIG, VFIO).
+that need no HTTP server, on the port, and the MIG and VFIO config kinds
+against their JAX counterparts.
 """
 
 import re
@@ -189,11 +189,31 @@ class TestAdmit:
         ("MigDeviceConfig", "MIG partitions"),
         ("VfioDeviceConfig", "VFIO passthrough")])
     def test_kinds_of_features_still_to_come_denied(self, kind, feature):
-        resp = admit_resource_claim_parameters(_claim([_opaque(
-            {"apiVersion": API, "kind": kind})]))
-        assert not resp["allowed"]
-        assert feature in resp["status"]["message"]
-        assert "not supported by this driver yet" in resp["status"]["message"]
+        """The kinds once refused for want of their feature are admitted
+        when valid and denied on a bad value or an unknown field, as the
+        JAX webhook admits and denies its counterparts (SubsliceConfig,
+        VfioChipConfig) on the same shapes."""
+        port_jax = {
+            "MigDeviceConfig": ("SubsliceConfig", {"profile": "3g.40gb"},
+                                {"shape": "2x2"}, {"profile": "9g.90gb"},
+                                {"shape": "2by2"}),
+            "VfioDeviceConfig": ("VfioChipConfig", {"iommu": "iommufd"},
+                                 {"iommu": "iommufd"}, {"iommu": "nope"},
+                                 {"iommu": "nope"})}
+        jax_kind, good, jax_good, bad, jax_bad = port_jax[kind]
+        for fields, jax_fields, allowed in ((good, jax_good, True),
+                                            (bad, jax_bad, False),
+                                            ({"zz": 1}, {"zz": 1}, False)):
+            resp = admit_resource_claim_parameters(_claim([_opaque(
+                {"apiVersion": API, "kind": kind, **fields})]))
+            theirs = JAX["admit"](_claim([_opaque(
+                {"apiVersion": JAX["api"], "kind": jax_kind, **jax_fields},
+                JAX["driver"])]))
+            assert resp["allowed"] is theirs["allowed"] is allowed, \
+                (feature, fields, resp)
+            if not allowed:
+                assert kind in resp["status"]["message"]
+                assert "config[0]" in resp["status"]["message"]
 
     def test_both_drivers_are_validated_and_no_other(self):
         bad = {"apiVersion": API, "kind": "GpuConfig", "zz": 1}
