@@ -8,6 +8,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py controls
     python3 chip_ab.py serve OTHER_TREE [--rounds N]
     python3 chip_ab.py decode OTHER_TREE [--rounds N]
+    python3 chip_ab.py wire [--writers 3,6,12,16] [--cycles N]
 
 ``versions`` copies the port (``chip_smoke.py`` and
 ``k8s_dra_driver_tpu_torch/``) once per source under ``--work``, puts the
@@ -38,6 +39,14 @@ each turn builds its tree's kernels (printing each decode kernel's
 registers) and times its decode kernel at the smoke's width, beside the
 plain version and the library call; the JSON line holds every turn's
 times and decode kernels' registers.
+
+``wire`` runs ``run_wire_path`` (the host's HTTP claim path, baseline arm
+against the optimized one) once per ``--writers`` count of status
+writers, each in its own process, and prints per arm the claim→ready p50
+and p99, the status writes committed and their mean coalesced batch, then
+one JSON line of every turn with the card's name and power limit. It asks
+whether the status group commit pays at a denser writer load than the
+harness's default of 3.
 """
 
 from __future__ import annotations
@@ -194,10 +203,54 @@ def trees(mode: str, other: Path, rounds: int, timeout: float) -> int:
     return 0
 
 
+WIRE = "import chip_ab; chip_ab.wire_turn({writers}, {cycles})"
+
+
+def wire_turn(writers: int, cycles: int) -> None:
+    """One ``run_wire_path`` with ``writers`` status writers: prints an
+    ``AB_RESULT`` line of both arms' claim→ready and coalescing."""
+    import chip_smoke
+    from k8s_dra_driver_tpu_torch.internal.stresslab import run_wire_path
+
+    card = chip_smoke.phase_device()
+    r = run_wire_path(cycles=cycles, status_writers=writers)
+    arms = {}
+    for arm in ("baseline", "optimized"):
+        a, wp = r[arm], r[arm]["wire_path"]
+        writes = wp["status_batched"]
+        arms[arm] = {
+            "p50_ms": a["claim_ready_http"]["p50_ms"],
+            "p99_ms": a["claim_ready_http"]["p99_ms"],
+            "fanout_events": wp["fanout_events"],
+            "status_batches": wp["status_batches"],
+            "mean_batch": (round(writes / wp["status_batches"], 4)
+                           if wp["status_batches"] else None),
+            "error_count": a["error_count"]}
+    print("AB_RESULT " + json.dumps({"writers": writers, "cycles": cycles,
+                                     "card": card, **arms}), flush=True)
+
+
+def wire(writers: list, cycles: int, timeout: float) -> int:
+    turns = []
+    for w in writers:
+        rc, out = run(ROOT, WIRE.format(writers=w, cycles=cycles), timeout)
+        print(f"== writers {w} (exit {rc})", flush=True)
+        if rc != 0 or "AB_RESULT " not in out:
+            print(out[-4000:], flush=True)
+            return 1
+        result = json.loads(out.split("AB_RESULT ", 1)[1].splitlines()[0])
+        for arm in ("baseline", "optimized"):
+            print(f"[wire] writers={w} arm={arm} " + " ".join(
+                f"{k}={v}" for k, v in result[arm].items()), flush=True)
+        turns.append(result)
+    print(json.dumps({"wire_turns": turns}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("versions", "controls", "serve",
-                                     "decode"))
+                                     "decode", "wire"))
     ap.add_argument("sources", nargs="*",
                     help="other flash_attention.cu files (versions), or "
                          "the other tree's directory (serve, decode)")
@@ -209,7 +262,14 @@ def main(argv=None) -> int:
                          "lists)")
     ap.add_argument("--timeout", type=float, default=600,
                     help="seconds a turn may take")
+    ap.add_argument("--writers", default="3,6,12,16",
+                    help="wire: status-writer counts, comma-separated")
+    ap.add_argument("--cycles", type=int, default=160,
+                    help="wire: claims timed per arm")
     args = ap.parse_args(argv)
+    if args.mode == "wire":
+        return wire([int(w) for w in args.writers.split(",")],
+                    args.cycles, args.timeout)
     if args.mode == "versions":
         if not args.sources:
             ap.error("versions needs at least one other source")

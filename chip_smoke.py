@@ -148,6 +148,42 @@ One line per phase:
            4g.40gb claim then prepared; VFIO only on a materialized mock
            tree with the kernel's rebinding emulated, never on the card's
            /sys (claim_ready_ms, ttfb_ms, decode_tok_s)
+   alloc   ``run_allocator_scale()`` at the port's defaults (6 mock
+           ``h100-8`` nodes in MIG mode, 10,000 claims of 1-8 memory
+           slices, target_util 0.8, then the defrag leg): both arms'
+           trimmed allocations/s and p50/p99 allocation latency, whole-GPU
+           admission rates and their ratio, fragmentation and the defrag
+           line; holds zero errors, leaks and overcommit, the fragmentation
+           gauge, the admission alert, every defrag probe unblocked within
+           the eviction bound with no stuck victim, and an admission ratio
+           of at least 1.5 (throughput is printed, not held: host only)
+   wire    ``run_wire_path()`` (160 cycles): claim→ready over HTTP in the
+           baseline and the optimized arm (p50/p90/p99, segments,
+           p99_over_p50), copies per event, the coalesced status batches,
+           the LIST memo's hits, the backpressure counts and the top of
+           the contention before-picture; holds zero errors, leaks and
+           overcommit, copies_halved and backpressure_counted. Then the
+           served claim: a store at its defaults behind an in-process API
+           server, the GPU plugin on the device library that found the
+           card with its claim watcher, and the harness's contenders on
+           the same store (3 status writers over 6 claims each, a
+           reallocator, a fragmentation_report reader and a never-read
+           watch of queue 4); a claim for the card by UUID created over
+           HTTP, allocated, prepared and seen Ready on an HTTP watch; an
+           engine at the serve phase's width bound from its CDI spec serves
+           the selfheal batch through the decode kernel, launches equal to
+           decode steps; unreserved, unprepared and deleted over HTTP with
+           nothing left and the stalled watch cut off and counted
+           (claim_ready_http_ms, ttfb_ms, status_batches, status_batched,
+           dropped); then the decode kernel against its plain version at
+           the engine's shape
+   overhead  ``run_fleetwatch()``, ``run_blackbox_overhead()`` and
+           ``run_canary_overhead()`` at their defaults on mock ``h100-8``
+           nodes: detection and clear delays, false positives, the three
+           overhead percentages (printed, not held: a shared host), probe
+           and meter failures; holds the page fired and cleared within
+           their bounds, no false positive, both injected fault points
+           fired, no error or leak in any leg and no probe leaked
 10. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
            the device library that found the card, the controller's live
            loop reconciling a CD of numNodes 1, and one daemon reporting the
@@ -185,7 +221,7 @@ One line per phase:
 Kernel times are CUDA-event times of a run of back-to-back calls over the
 count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
 burnin, each of selfheal's two batches, the processes batch, the soak,
-the scale harness and the mig tenants) runs
+the scale harness, the mig tenants and the wire phase's claim) runs
 with every kernel's launch count set to 0 just before it and read just
 after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
@@ -266,13 +302,23 @@ from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
 )
 from k8s_dra_driver_tpu_torch.internal.stresslab import (
     SERVING_SMOKE_ENGINE,
+    WireContenders,
+    run_allocator_scale,
+    run_blackbox_overhead,
+    run_canary_overhead,
+    run_fleetwatch,
     run_serving_scale,
     run_serving_smoke,
     run_serving_soak,
+    run_wire_path,
 )
 from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
 from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
-from k8s_dra_driver_tpu_torch.k8sclient.httpapi import HttpClient
+from k8s_dra_driver_tpu_torch.k8sclient.httpapi import (
+    ApiServer,
+    HttpClient,
+    HttpWatch,
+)
 from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
 from k8s_dra_driver_tpu_torch.kubeletplugin.allocator import AllocationError
 from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import NodePrepareLoop
@@ -2434,7 +2480,10 @@ def phase_processes(card: str, seed: int, gpu, device_args: tuple = (),
             require(withdrawn, "the daemon left its clique entry")
             out["api_stop_ms"] = procs.stop(api)
         finally:
+            # The default tracer is process-global: leave it as found,
+            # off and without this phase's spans.
             tracing.disable()
+            tracing.default_tracer().store.clear()
             procs.close()
         exits = {p.name: p.returncode for p in procs.procs}
     left = child_processes()
@@ -3025,6 +3074,303 @@ def _mig_vfio_leg(root: str) -> dict:
             "restored": restored}
 
 
+def phase_alloc(card: str, **kwargs) -> dict:
+    """``run_allocator_scale()`` at the port's defaults (6 ``h100-8`` nodes
+    in MIG mode, 10,000 claims, ``target_util`` 0.8; ``kwargs`` override
+    them): both arms' trimmed throughput and allocation latency, both
+    whole-GPU admission rates and their ratio, fragmentation, and the
+    defrag leg. Holds zero errors, leaks and overcommit in both arms, the
+    fragmentation gauge exported, the admission alert fired, every defrag
+    probe unblocked within the eviction bound with no stuck victim, and
+    ``admission_ratio >= 1.5``. Throughput is printed, not held: the phase
+    runs on the host only. Prints one ``alloc`` line."""
+    t0 = time.monotonic()
+    r = run_allocator_scale(**kwargs)
+    seconds = time.monotonic() - t0
+    ff, bf, d = r["first_fit"], r["best_fit"], r["defrag"]
+    line("alloc", card=json.dumps(card), nodes=r["n_nodes"],
+         claims=r["n_claims"], total_slices=r["total_slices"],
+         target_util=r["target_util"],
+         ff_allocs_per_sec_trimmed=ff["allocs_per_sec_trimmed"],
+         bf_allocs_per_sec_trimmed=bf["allocs_per_sec_trimmed"],
+         ff_alloc_p50_us=ff["alloc_p50_us"], ff_alloc_p99_us=ff["alloc_p99_us"],
+         bf_alloc_p50_us=bf["alloc_p50_us"], bf_alloc_p99_us=bf["alloc_p99_us"],
+         throughput_ratio=r["throughput_ratio"],
+         ff_admission=ff["large_admission_rate"],
+         bf_admission=bf["large_admission_rate"],
+         admission_ratio=r["admission_ratio"],
+         fragmentation_mean=bf["fragmentation_mean"],
+         defrag=json.dumps({"probes": d["probes"],
+                            "unblocked": d["unblocked"],
+                            "planned": d["planner"]["planned"],
+                            "preempted": d["planner"]["preempted"],
+                            "skipped": d["planner"]["skipped"],
+                            "reallocated": d["reallocated"],
+                            "seconds": d["seconds"]}),
+         errors=r["error_count"], leaks=json.dumps(r["leaks"]),
+         seconds=seconds)
+    require(r["error_count"] == 0, f"alloc: errors {r['errors']}")
+    require(not r["leaks"], f"alloc: leaks {r['leaks']}")
+    for arm in (ff, bf):
+        require(arm["overlap_audit"]["overcommitted"] == 0,
+                f"alloc {arm['strategy']}: overcommitted counters "
+                f"{arm['overlap_audit']['overcommitted_samples']}")
+        require(arm["fragmentation_gauge_exported"],
+                f"alloc {arm['strategy']}: no fragmentation gauge")
+    require(d["alert_fired"], "alloc: the admission alert never fired")
+    require(d["unblocked"] == d["probes"] > 0,
+            f"alloc: {d['unblocked']} of {d['probes']} probes unblocked")
+    require(d["eviction_bound_held"] and not d["stuck_victims"],
+            f"alloc: eviction bound {d['eviction_bound_held']}, stuck "
+            f"{d['stuck_victims']}")
+    require(r["admission_ratio"] >= 1.5,
+            f"alloc: admission ratio {r['admission_ratio']} < 1.5")
+    return {**r, "seconds": seconds}
+
+
+#: The wire phase's served claim: the selfheal batch (16 requests, prompts
+#: of 512-3072 tokens, 64 new tokens) at the serve phase's width.
+WIRE_WIDTH = dict(SELFHEAL_WIDTH)
+
+
+def phase_wire(card: str, seed: int, lib, gpu, width: dict | None = None,
+               cycles: int = 160) -> dict:
+    """The wire path. First ``run_wire_path(cycles)`` (its default 160):
+    both arms' claim→ready over HTTP, the segments, the wire-path counters
+    and the top of the contention before-picture; holds zero errors, leaks
+    and overcommit, ``copies_halved`` and ``backpressure_counted``.
+
+    Then the served claim, on its own path: a ``FakeClient()`` at the
+    store's defaults behind an in-process ``ApiServer``, the GPU kubelet
+    plugin on ``lib`` with its claim watcher, and ``WireContenders`` on
+    the same store (3 status writers over 6 claims each, a reallocator,
+    the ``fragmentation_report`` reader and a never-read ``max_queue=4``
+    watch). A claim for the card by UUID is created over HTTP, allocated
+    and prepared, and seen Ready on an ``HttpWatch``; its CDI spec binds an
+    engine at ``width`` that serves its batch under the serve checks,
+    decode launches equal to decode steps. Then unreserve, unprepare and
+    delete over HTTP; no claim, checkpoint entry or CDI spec may be left,
+    and the stalled watch must have been cut off and counted. The decode
+    kernel is then held against its plain version at the engine's shape
+    (on the card). Prints ``wire`` lines."""
+    w = {**WIRE_WIDTH, **(width or {})}
+    t_phase = time.monotonic()
+    r = run_wire_path(cycles=cycles)
+    harness_s = time.monotonic() - t_phase
+    base, opt = r["baseline"], r["optimized"]
+    top = [f"{row['lock']}:{row['waits']}:{row['wait_total_s']}"
+           for row in r["contention_before"][:3]]
+    line("wire", cycles=r["cycles"],
+         base_ready=json.dumps(base["claim_ready_http"]),
+         opt_ready=json.dumps(opt["claim_ready_http"]),
+         opt_segments_p50_ms=json.dumps(
+             {k: v["p50_ms"] for k, v in opt["segments"].items()}),
+         base_segments_p50_ms=json.dumps(
+             {k: v["p50_ms"] for k, v in base["segments"].items()}),
+         p99_over_p50=r["p99_over_p50"],
+         base_copies_per_event=base["copies_per_event"],
+         opt_copies_per_event=opt["copies_per_event"],
+         status_batches=opt["wire_path"]["status_batches"],
+         status_batched=opt["wire_path"]["status_batched"],
+         mean_batch=(opt["wire_path"]["status_batched"]
+                     / max(1, opt["wire_path"]["status_batches"])),
+         memo_hits=opt["wire_path"]["wire_cache_hits"],
+         disconnects=json.dumps([a["wire_path"]["overflow_disconnects"]
+                                 for a in (base, opt)]),
+         dropped=json.dumps([a["wire_path"]["dropped_events"]
+                             for a in (base, opt)]),
+         contention_top=json.dumps(top),
+         encoder_fallbacks=json.dumps(r["encoder_fallbacks"]),
+         errors=r["error_count"], seconds=harness_s)
+    require(r["error_count"] == 0, f"wire: errors {r['errors']}")
+    for a in (base, opt):
+        require(not a["leaked_claims"] and
+                a["overcommit"]["overcommitted"] == 0,
+                f"wire: leaked {a['leaked_claims']}, overcommit "
+                f"{a['overcommit']}")
+    require(r["copies_halved"], "wire: copies per event not halved")
+    require(r["backpressure_counted"], "wire: backpressure not counted")
+
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        client = FakeClient()
+        client.create(new_object(
+            "DeviceClass", DRIVER_NAME, spec={"selectors": [{"cel": {
+                "expression": "device.attributes['type'] == 'gpu'"}}]}))
+        client.create(new_object("Node", "node-0"))
+        server = ApiServer(client).start()
+        driver = GpuDriver(client, DriverConfig(
+            node_name="node-0", state_dir=f"{tmp}/state",
+            cdi_root=f"{tmp}/cdi", env={}, retry_timeout=5.0),
+            device_lib=lib).start()
+        loop = NodePrepareLoop(client, driver, DRIVER_NAME, "node-0",
+                               namespace="default").start()
+        alloc = Allocator(client)
+        contenders = WireContenders(client, alloc, "serve")
+        watch = HttpWatch(server.endpoint, "ResourceClaim", "default")
+        try:
+            served = _wire_claim(seed, client, driver, gpu, alloc,
+                                 HttpClient(server.endpoint), watch, w)
+        finally:
+            watch.stop()
+            contender_errors = contenders.stop()
+            loop.stop()
+            driver.stop()
+            server.stop()
+        for c in client.list("ResourceClaim"):
+            if c["metadata"]["name"].startswith("wp-load-"):
+                client.delete("ResourceClaim", c["metadata"]["name"],
+                              "default")
+        snap = client.wire_path_snapshot()
+        residue = ([c["metadata"]["name"]
+                    for c in client.list("ResourceClaim")]
+                   + sorted(driver.state.prepared_claims_nolock())
+                   + driver.cdi.list_claim_uids()
+                   + sorted(p.name for p in driver.cdi.cdi_root.iterdir()))
+    on_card = w["device"] is None or torch.device(w["device"]).type == "cuda"
+    err = (soak_check(np.random.default_rng(seed), w, "wire", emit=False)
+           if on_card else None)
+    out = {**served, "overflow_disconnects": snap["overflow_disconnects"],
+           "stalled_dropped": contenders.stalled.dropped,
+           "contender_errors": contender_errors, "residue": residue,
+           "max_abs_err": err, "harness": r,
+           "seconds": time.monotonic() - t_phase}
+    line("wire", claim="wire-claim",
+         claim_ready_http_ms=served["claim_ready_http_ms"],
+         ttfb_ms=served["ttfb_ms"], status_batches=served["status_batches"],
+         status_batched=served["status_batched"],
+         decode_steps=served["decode_steps"],
+         kernel_launches=served["launches"],
+         overflow_disconnects=out["overflow_disconnects"],
+         dropped=out["stalled_dropped"],
+         contender_errors=json.dumps(contender_errors[:3]),
+         kernel_max_abs_err=err, residue=json.dumps(residue),
+         seconds=out["seconds"])
+    require(not contender_errors, f"wire: contenders {contender_errors}")
+    require(out["overflow_disconnects"] >= 1 and out["stalled_dropped"] >= 1,
+            "wire: the stalled watch was not cut off and counted")
+    require(not residue, f"wire: left behind {residue}")
+    return out
+
+
+def _wire_claim(seed: int, client, driver, gpu, alloc, hc, watch,
+                w: dict) -> dict:
+    """The wire phase's claim: created over HTTP, allocated, Ready seen on
+    the HTTP watch, bound and served, then released over HTTP."""
+    name = "wire-claim"
+    before = client.wire_path_snapshot()
+    t0 = time.monotonic()
+    claim = hc.create(new_object(
+        "ResourceClaim", name, "default", api_version="resource.k8s.io/v1",
+        spec={"devices": {"requests": [{"name": "gpu", "exactly": {
+            "deviceClassName": DRIVER_NAME, "allocationMode": "ExactCount",
+            "count": 1, "selectors": [{"cel": {"expression":
+                f"device.attributes['uuid'] == '{gpu.uuid}'"}}]}}]}}))
+    uid = claim["metadata"]["uid"]
+    alloc.allocate(claim, reserved_for=[
+        {"resource": "pods", "name": "wire-pod"}], node="node-0")
+    deadline = t0 + 30.0
+    while True:
+        require(time.monotonic() < deadline, "wire claim Ready on the watch")
+        ev = watch.next(timeout=1.0)
+        if (ev is not None and ev.object["metadata"].get("name") == name
+                and any(d.get("driver") == DRIVER_NAME and any(
+                    k.get("type") == "Ready" and k.get("status") == "True"
+                    for k in d.get("conditions") or [])
+                    for d in (ev.object.get("status") or {}).get("devices")
+                    or [])):
+            break
+    claim_ready_ms = (time.monotonic() - t0) * 1e3
+    watch.stop()
+    spec = driver.cdi.read_claim_spec(uid)
+    entries = visible_device_entries(spec)
+    require(entries == [gpu.uuid], f"wire: the spec names {entries}")
+    engine = bind_engine(
+        spec, "wire", device=w["device"], uuids=w["uuids"],
+        metrics=ServingMetrics(), max_batch=w["max_batch"],
+        kv_cap=w["kv_cap"], heads=w["heads"], head_dim=w["head_dim"],
+        tokens_per_chip_step=2048, queue_cap=64, modeled_chip_tok_s=1e9)
+    reqs = tenant_requests(np.random.default_rng(seed), w["requests"], "w",
+                           w["prompts"], w["new_tokens"])
+    serve_requests(engine, reqs, "wire")
+    done = finish_engine(engine)
+    check_served(engine, done, reqs, "wire")
+    ttfb_ms = (engine.first_batch_t - t0) * 1e3
+    on_card = engine.device.type == "cuda"
+    del engine
+    if on_card:
+        torch.cuda.empty_cache()
+    c = hc.get("ResourceClaim", name, "default")
+    c["status"].pop("reservedFor", None)
+    hc.update_status(c)
+    _wait(lambda: not any(
+        d.get("driver") == DRIVER_NAME for d in (hc.get(
+            "ResourceClaim", name, "default").get("status") or {}).get(
+            "devices") or []), "wire claim unprepared")
+    hc.delete("ResourceClaim", name, "default")
+    after = client.wire_path_snapshot()
+    return {"claim_ready_http_ms": claim_ready_ms, "ttfb_ms": ttfb_ms,
+            "status_batches": after["status_batches"]
+            - before["status_batches"],
+            "status_batched": after["status_batched"]
+            - before["status_batched"],
+            "decode_steps": done["decode_steps"],
+            "launches": done["counts"]["decode_attention"]}
+
+
+def phase_overhead(card: str, fleetwatch: dict | None = None,
+                   blackbox: dict | None = None,
+                   canary: dict | None = None) -> dict:
+    """The observability overhead legs at their defaults (each dict
+    overrides its harness's arguments): ``run_fleetwatch()``,
+    ``run_blackbox_overhead()`` and ``run_canary_overhead()`` on mock
+    ``h100-8`` nodes. Holds the fleetwatch oracles (page fired within
+    ``detect_bound_s`` and cleared within ``clear_bound_s``, no false
+    positive, both injected points fired: ``devicestate.prepare`` failing
+    prepares and ``telemetry.scrape`` failing scrapes), ``error_count`` 0
+    and no leak in every leg, and no probe leaked. The overhead
+    percentages are timing on a shared host: printed, not held. Prints
+    one ``overhead`` line."""
+    t0 = time.monotonic()
+    fw = run_fleetwatch(**(fleetwatch or {}))
+    bb = run_blackbox_overhead(**(blackbox or {}))
+    cn = run_canary_overhead(**(canary or {}))
+    seconds = time.monotonic() - t0
+    line("overhead", card=json.dumps(card), fired_page=fw["fired_page"],
+         detection_delay_s=fw["detection_delay_s"],
+         clear_delay_s=fw["clear_delay_s"],
+         false_positives=fw["false_positives"],
+         prepare_fault_failures=fw["prepare_fault_failures"],
+         scrapes=json.dumps(fw["scrapes"]),
+         fleetwatch_overhead_pct=fw["overhead"]["overhead_pct"],
+         blackbox_overhead_pct=bb["overhead_pct"],
+         canary_overhead_pct=cn["overhead_pct"],
+         profiler_samples=json.dumps(bb["profiler_samples"]),
+         probes=cn["probes"], probe_failures=cn["probe_failures"],
+         probe_leaked=cn["probe_leaked"],
+         meter_observe_failures=cn["meter_observe_failures"],
+         errors=json.dumps([fw["error_count"], bb["error_count"],
+                            cn["error_count"]]),
+         leaks=json.dumps(fw["leaks"]), seconds=seconds)
+    require(fw["fired_page"] and fw["detection_delay_s"] is not None
+            and fw["detection_delay_s"] <= fw["detect_bound_s"],
+            f"overhead: page fired {fw['fired_page']} after "
+            f"{fw['detection_delay_s']} s")
+    require(fw["cleared"] and fw["clear_delay_s"] <= fw["clear_bound_s"],
+            f"overhead: cleared {fw['cleared']} after {fw['clear_delay_s']}")
+    require(fw["false_positives"] == 0,
+            f"overhead: false positives {fw['false_positive_samples']}")
+    require(fw["prepare_fault_failures"] > 0 and fw["scrapes"]["error"] > 0,
+            "overhead: an injected fault point never fired")
+    for leg in (fw, bb, cn):
+        require(leg["error_count"] == 0, f"overhead: errors {leg['errors']}")
+    require(not fw["leaks"], f"overhead: leaks {fw['leaks']}")
+    require(cn["probe_leaked"] == 0, "overhead: a canary probe leaked")
+    return {"fleetwatch": fw, "blackbox": bb, "canary": cn,
+            "seconds": seconds}
+
+
 def servesmoke_check(rng: np.random.Generator) -> float:
     """The decode kernel against its plain version at the serving smoke's
     shapes (``SERVING_SMOKE_ENGINE``: q [8, 2, ql, 8], K/V [8, 2, 32, 8]),
@@ -3443,6 +3789,9 @@ def main(argv=None) -> int:
     soak = phase_soak(card, rng)
     scale = phase_scale(card)
     mig = phase_mig(card, args.seed, found["lib"], found["gpu"])
+    phase_alloc(card)
+    wire = phase_wire(card, args.seed, found["lib"], found["gpu"])
+    phase_overhead(card)
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -3458,9 +3807,9 @@ def main(argv=None) -> int:
         "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:125",
         "launches": (served["launches"] + processes["launches"]
                      + soak["launches"] + scale["launches"]
-                     + mig["kernel_launches"]),
+                     + mig["kernel_launches"] + wire["launches"]),
         "max_abs_err": max(max_abs_err, soak["max_abs_err"],
-                           mig["max_abs_err"]),
+                           mig["max_abs_err"], wire["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],

@@ -1,5 +1,6 @@
 """Stress harness: tenant replicas through the claim path, the soak, serving
-at scale, and the churn, fleet and chaos harnesses.
+at scale, the churn, fleet and chaos harnesses, allocation and the wire path
+at scale, and the observability overhead legs.
 
 The pieces of the JAX package's ``internal/stresslab.py`` that the port
 has so far:
@@ -32,6 +33,18 @@ has so far:
   machinery under a fleet of informer stacks), :func:`run_cd_fleet` (a
   ComputeDomain fleet through the live controller) and
   :func:`run_cross_kind_writes` (the sharded store against one lock).
+- :func:`run_allocator_scale`, first-fit against best-fit on one seeded
+  tape over ``h100-8`` nodes in MIG mode (the GPU x memory-slice mesh),
+  then the SLO-driven defrag leg, and :func:`run_wire_path`, claim→Ready
+  over HTTP with the store's baseline wire path against its defaults
+  under status-writer churn (:class:`WireContenders`).
+- The observability overhead legs: :func:`run_fleetwatch` (per-node
+  MetricsServers scraped over HTTP, a prepare-failure burst that must page
+  and clear, the scrape fault leg), :func:`run_blackbox_overhead` and
+  :func:`run_canary_overhead`.
+
+Left out: ``replay_protocol_counterexample``, which replays a protocol
+model checker's counterexample this package does not have yet.
 
 The serving paths run on the card unless the caller asks for the CPU
 (``device="cpu"``), where the engine uses the decode kernel's plain
@@ -4342,4 +4355,1607 @@ def run_claim_churn(
             "prepare_fault_failures": sorted(prep_fault_failed),
             "missing_events": missing_events,
         }
+    return out
+
+
+# --------------------------------------------------------------------------
+# Observability overhead legs: fleetwatch, the flight recorder and
+# profiler, the canary and the usage meter
+# --------------------------------------------------------------------------
+
+
+def run_fleetwatch(
+    n_nodes: int = 2,
+    workers_per_node: int = 2,
+    profile: str = "h100-8",
+    tmpdir: Optional[str] = None,
+    baseline_s: float = 1.5,
+    clean_s: float = 1.5,
+    burst_s: float = 2.0,
+    baseline2_s: float = 1.0,
+    scrape_interval_s: float = 0.1,
+    rule_window_s: float = 1.0,
+    burn_windows: Optional[tuple] = None,
+    burst_faults: str = "devicestate.prepare=rate:0.9",
+    scrape_faults: str = "telemetry.scrape=rate:0.2",
+    fault_seed: int = 0,
+    detect_bound_s: float = 2.5,
+    clear_bound_s: float = 10.0,
+    retry_timeout_s: float = 0.25,
+) -> dict:
+    """The whole telemetry plane — per-node MetricsServers scraped over
+    real HTTP, fleet aggregation, recording rules and the multi-window SLO
+    burn-rate engine — against live GPU node stacks on mock ``profile``
+    nodes, with three claims measured in one run:
+
+    1. **detection**: a seeded prepare-failure burst must fire the
+       fast-burn (page) alert within ``detect_bound_s`` of the burst
+       starting, and the alert must CLEAR within ``clear_bound_s`` of
+       the burst ending;
+    2. **zero false positives**: the telemetered fault-free window before
+       the burst must produce no alert transitions at all — including
+       while the ``telemetry.scrape`` fault leg is failing a fifth of
+       all scrapes (a scrape failure is per-target and non-fatal, never
+       an SLO signal);
+    3. **overhead**: the telemetered clean arm's trimmed-mean prepare
+       latency against UNTELEMETERED arms run before and after it in the
+       same process (bracketing, so one-sided drift cannot masquerade as
+       overhead).
+
+    The phases: baseline (no metrics servers, no scraper) → telemetered
+    clean (scrape-fault leg active) → burst → recovery (injection off,
+    alerts must clear) → trailing baseline. Workers churn claim →
+    allocate (node-pinned) → prepare → unprepare → delete throughout;
+    injected prepare failures during the burst are the SLO signal, not
+    harness errors."""
+    from k8s_dra_driver_tpu_torch.gpulib.device_lib import MockDeviceLib
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+    from k8s_dra_driver_tpu_torch.k8sclient.client import (
+        AlreadyExistsError,
+        NotFoundError,
+        new_object,
+    )
+    from k8s_dra_driver_tpu_torch.kubeletplugin import (
+        AllocationError,
+        Allocator,
+    )
+    from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
+    from k8s_dra_driver_tpu_torch.pkg import faultpoints, slo as slolib
+    from k8s_dra_driver_tpu_torch.pkg.events import (
+        REASON_SLO_BURN_RATE_CLEARED,
+        REASON_SLO_BURN_RATE_HIGH,
+        EventRecorder,
+        list_events,
+    )
+    from k8s_dra_driver_tpu_torch.pkg.metrics import MetricsServer
+    from k8s_dra_driver_tpu_torch.pkg.telemetry import (
+        FleetMetrics,
+        FleetTelemetry,
+    )
+    from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+        DriverConfig,
+        GpuDriver,
+    )
+
+    if burn_windows is None:
+        # Seconds-compressed SRE pairs: page 0.4 s / 1.6 s @ 14.4x,
+        # ticket 2.4 s / 7.2 s @ 1x — the production shape at the
+        # harness's clock (pkg/slo.compressed_windows form).
+        burn_windows = (
+            slolib.BurnWindow(slolib.SEVERITY_PAGE, 0.4, 1.6, 14.4),
+            slolib.BurnWindow(slolib.SEVERITY_TICKET, 2.4, 7.2, 1.0),
+        )
+    for spec in (burst_faults, scrape_faults):
+        _reject_crash_schedules(
+            faultpoints.FaultPlan(spec or "", seed=fault_seed),
+            "run_fleetwatch", "a churn worker thread")
+
+    tmp = tmpdir or tempfile.mkdtemp(prefix="fleetwatch-")
+    client = FakeClient()
+    client.create(new_object(
+        "DeviceClass", DRIVER_NAME,
+        spec={"selectors": [{"cel": {
+            "expression": "device.attributes['type'] == 'gpu'"}}]}))
+
+    drivers: list = []
+    for i in range(n_nodes):
+        node = f"node-{i}"
+        client.create(new_object("Node", node))
+        drivers.append(GpuDriver(client, DriverConfig(
+            node_name=node, state_dir=f"{tmp}/gpu-{i}",
+            cdi_root=f"{tmp}/cdi-gpu-{i}", env={},
+            retry_timeout=retry_timeout_s,
+        ), device_lib=MockDeviceLib(profile, host_index=i)).start())
+
+    alloc = Allocator(client)  # the one scheduler actor, shared; it
+    # serializes on its own reentrant mutex
+    phase = {"name": "baseline"}
+    lat: dict[str, list[float]] = {"baseline": [], "clean": [],
+                                   "baseline2": []}
+    lat_lock = sanitizer.new_lock("stresslab.fleetwatch.lat_lock")
+    errors: list = []
+    prep_fault_failures = [0]
+    cycles = [0]
+    stop_all = threading.Event()
+
+    def worker(node_i: int, w: int) -> None:
+        driver = drivers[node_i]
+        cycle = 0
+        while not stop_all.is_set():
+            cycle += 1
+            name = f"fw-{node_i}-{w}-{cycle}"
+            try:
+                claim = client.create(new_object(
+                    "ResourceClaim", name, "default",
+                    api_version="resource.k8s.io/v1",
+                    spec={"devices": {"requests": [{
+                        "name": "gpu", "exactly": {
+                            "deviceClassName": DRIVER_NAME,
+                            "allocationMode": "ExactCount", "count": 1}}]}}))
+                try:
+                    allocated = alloc.allocate(claim,
+                                               node=f"node-{node_i}")
+                except AllocationError:
+                    try:
+                        client.delete("ResourceClaim", name, "default")
+                    except NotFoundError:
+                        pass
+                    continue
+                uid = allocated["metadata"]["uid"]
+                arm = phase["name"]
+                t0 = time.perf_counter()
+                res = driver.prepare_resource_claims([allocated])[uid]
+                dt = time.perf_counter() - t0
+                if res.error is not None:
+                    if faultpoints.is_injected(res.error):
+                        with lat_lock:
+                            prep_fault_failures[0] += 1
+                    else:
+                        errors.append((name, repr(res.error)))
+                elif arm in lat:
+                    with lat_lock:
+                        lat[arm].append(dt)
+                with lat_lock:
+                    cycles[0] += 1
+                ref = ClaimRef(uid=uid, name=name, namespace="default")
+                errs = driver.unprepare_resource_claims([ref])
+                if errs[uid] is not None:
+                    errors.append((name, repr(errs[uid])))
+                client.delete("ResourceClaim", name, "default")
+            except AlreadyExistsError:
+                continue
+            except NotFoundError:
+                continue
+            except Exception as e:  # noqa: BLE001 — audited
+                errors.append((name, repr(e)))
+
+    fleet_metrics = FleetMetrics()
+    telemetry = None
+    servers: list = []
+    engine = None
+    prev_plan = faultpoints.active_plan()
+    t_burst = None
+    detection_delay = None
+    clear_delay = None
+    fired_page = False
+    cleared = False
+    threads = [threading.Thread(target=worker, args=(i, w), daemon=True)
+               for i in range(n_nodes) for w in range(workers_per_node)]
+    try:
+        for t in threads:
+            t.start()
+        # Phase 1: untelemetered baseline — no servers, no scraper.
+        time.sleep(baseline_s)
+
+        # Phase 2: telemetry up; scrape-fault leg active; must stay
+        # alert-free.
+        for d in drivers:
+            servers.append(MetricsServer(d.metrics.registry,
+                                         port=0).start())
+        telemetry = FleetTelemetry(
+            targets=[f"127.0.0.1:{s.port}" for s in servers],
+            interval_s=scrape_interval_s,
+            rule_window_s=rule_window_s,
+            metrics=fleet_metrics)
+        engine = slolib.SloEngine(
+            telemetry.rules, slos=slolib.default_slos(),
+            windows=burn_windows,
+            events=EventRecorder(client, "fleetwatch"),
+            metrics=slolib.SloMetrics())
+        telemetry.slo_engine = engine
+        telemetry.start()
+        if scrape_faults:
+            faultpoints.activate(faultpoints.FaultPlan(scrape_faults,
+                                                       seed=fault_seed))
+        phase["name"] = "clean"
+        time.sleep(clean_s)
+
+        # Phase 3: the burst. Detection delay = burst start → first page
+        # alert fired.
+        spec = ";".join(s for s in (scrape_faults, burst_faults) if s)
+        t_burst = time.monotonic()
+        faultpoints.activate(faultpoints.FaultPlan(spec, seed=fault_seed))
+        phase["name"] = "burst"
+        # Scan for the first page-fired transition through the burst
+        # window and, while undetected, a grace window past it (a late
+        # detection still lands and is still held against the bound).
+        burst_deadline = t_burst + burst_s
+        grace_deadline = t_burst + max(burst_s, detect_bound_s) + 1.0
+        while time.monotonic() < (burst_deadline if fired_page
+                                  else grace_deadline):
+            if not fired_page:
+                for tr in engine.transitions():
+                    if (tr.severity == slolib.SEVERITY_PAGE
+                            and tr.transition == "fired"
+                            and tr.at >= t_burst):
+                        fired_page = True
+                        detection_delay = tr.at - t_burst
+                        break
+            time.sleep(0.02)
+
+        # Phase 4: recovery — injection off, traffic continues, every
+        # alert must clear.
+        faultpoints.deactivate()
+        t_end_burst = time.monotonic()
+        phase["name"] = "recovery"
+        clear_deadline = t_end_burst + clear_bound_s
+        while time.monotonic() < clear_deadline:
+            if not engine.firing():
+                cleared = True
+                clear_delay = time.monotonic() - t_end_burst
+                break
+            time.sleep(0.05)
+
+        # Phase 5: trailing untelemetered baseline (the drift bracket).
+        telemetry.stop()
+        for s in servers:
+            s.stop()
+        servers = []
+        phase["name"] = "baseline2"
+        time.sleep(baseline2_s)
+    finally:
+        stop_all.set()
+        faultpoints.deactivate()
+        for t in threads:
+            t.join(timeout=30.0)
+        if telemetry is not None and telemetry._thread is not None:
+            telemetry.stop()
+        for s in servers:
+            s.stop()
+        for d in drivers:
+            d.stop()
+        if prev_plan is not None:
+            faultpoints.activate(prev_plan)
+
+    # False positives: any transition that FIRED before the burst began.
+    false_positives = [
+        tr for tr in (engine.transitions() if engine is not None else [])
+        if tr.transition == "fired"
+        and (t_burst is None or tr.at < t_burst)]
+
+    # Leak audit (fault-free window): checkpoints, CDI, claim objects.
+    leaks: dict[str, Any] = {}
+    for i in range(n_nodes):
+        if drivers[i].state.prepared_claims():
+            leaks[f"gpu-{i}-checkpoint"] = list(
+                drivers[i].state.prepared_claims())
+        if drivers[i].cdi.list_claim_uids():
+            leaks[f"gpu-{i}-cdi"] = drivers[i].cdi.list_claim_uids()
+    lingering = [c["metadata"]["name"]
+                 for c in client.list("ResourceClaim", "default")
+                 if c["metadata"]["name"].startswith("fw-")]
+    if lingering:
+        leaks["claims"] = lingering
+    if tmpdir is None:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    baseline_lat = lat["baseline"] + lat["baseline2"]
+    mean_base = _trimmed_mean(baseline_lat) * 1e3
+    mean_clean = _trimmed_mean(lat["clean"]) * 1e3
+    overhead_pct = (round((mean_clean - mean_base) / mean_base * 100, 2)
+                    if mean_base else 0.0)
+
+    scrape_errors = fleet_metrics.scrapes_total.value(outcome="error")
+    scrape_ok = fleet_metrics.scrapes_total.value(outcome="success")
+    high_events = len(list_events(client,
+                                  reason=REASON_SLO_BURN_RATE_HIGH))
+    cleared_events = len(list_events(client,
+                                     reason=REASON_SLO_BURN_RATE_CLEARED))
+
+    return {
+        "n_nodes": n_nodes,
+        "workers": n_nodes * workers_per_node,
+        "targets": n_nodes,
+        "cycles": cycles[0],
+        "prepare_fault_failures": prep_fault_failures[0],
+        "fired_page": fired_page,
+        "detection_delay_s": (round(detection_delay, 3)
+                              if detection_delay is not None else None),
+        "detect_bound_s": detect_bound_s,
+        "cleared": cleared,
+        "clear_delay_s": (round(clear_delay, 3)
+                          if clear_delay is not None else None),
+        "clear_bound_s": clear_bound_s,
+        "false_positives": len(false_positives),
+        "false_positive_samples": [vars(tr) for tr in false_positives[:3]],
+        "transitions": [vars(tr) for tr in (
+            engine.transitions() if engine is not None else [])],
+        "slo_events": {"high": high_events, "cleared": cleared_events},
+        "scrapes": {"success": int(scrape_ok), "error": int(scrape_errors)},
+        "ticks": telemetry.ticks() if telemetry is not None else 0,
+        "rule_values": (telemetry.rule_values()
+                        if telemetry is not None else {}),
+        "series": telemetry.rules.series_count() if telemetry else 0,
+        "series_dropped": (telemetry.rules.dropped_series
+                           if telemetry else 0),
+        "overhead": {
+            "mean_untelemetered_ms": round(mean_base, 3),
+            "mean_telemetered_ms": round(mean_clean, 3),
+            "overhead_pct": overhead_pct,
+            "ops": {k: len(v) for k, v in lat.items()},
+        },
+        "errors": errors[:10],
+        "error_count": len(errors),
+        "leaks": leaks,
+    }
+
+
+def _one_gpu_claim(name: str) -> dict:
+    """A ResourceClaim for one whole GPU of the ``gpu.nvidia.com`` class."""
+    from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+    return new_object(
+        "ResourceClaim", name, "default",
+        api_version="resource.k8s.io/v1",
+        spec={"devices": {"requests": [{
+            "name": "gpu", "exactly": {
+                "deviceClassName": DRIVER_NAME,
+                "allocationMode": "ExactCount", "count": 1}}]}})
+
+
+def _single_gpu_node(tmp: str, profile: str):
+    """One fake API with the ``gpu.nvidia.com`` class, ``node-0`` and its
+    started GPU driver on a mock ``profile`` node: the world of the
+    overhead legs. Returns ``(client, driver)``."""
+    from k8s_dra_driver_tpu_torch.gpulib.device_lib import MockDeviceLib
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+    from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+    from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+        DriverConfig,
+        GpuDriver,
+    )
+    client = FakeClient()
+    client.create(new_object(
+        "DeviceClass", DRIVER_NAME,
+        spec={"selectors": [{"cel": {
+            "expression": "device.attributes['type'] == 'gpu'"}}]}))
+    client.create(new_object("Node", "node-0"))
+    driver = GpuDriver(client, DriverConfig(
+        node_name="node-0", state_dir=f"{tmp}/gpu",
+        cdi_root=f"{tmp}/cdi", env={}, retry_timeout=2.0,
+    ), device_lib=MockDeviceLib(profile, host_index=0)).start()
+    return client, driver
+
+
+def run_blackbox_overhead(
+    cycles: int = 300,
+    profile: str = "h100-8",
+    tmpdir: Optional[str] = None,
+    sample_interval_s: float = 0.02,
+) -> dict:
+    """Flight-recorder + profiler overhead on the claim path, by the
+    interleaved-arm methodology: ONE sequential churn loop (create →
+    allocate → prepare → unprepare → delete on a single node's GPU
+    driver) alternating the profiler per cycle — even cycles paused, odd
+    cycles sampling at the BURST interval (the worst case; the always-on
+    base rate is strictly cheaper). Both arms share the same window, disk
+    state and heap, so drift cancels; trimmed means, not mode-flipping
+    medians. A live FlightRecorder rides the whole run (it is passive
+    between alerts — the measurement proves that, not assumes it)."""
+    from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
+    from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
+    from k8s_dra_driver_tpu_torch.pkg.blackbox import (
+        BlackboxMetrics,
+        ContinuousProfiler,
+        FlightRecorder,
+    )
+
+    tmp = tmpdir or tempfile.mkdtemp(prefix="bb-overhead-")
+    client, driver = _single_gpu_node(tmp, profile)
+    bbm = BlackboxMetrics()
+    profiler = ContinuousProfiler(
+        base_interval_s=sample_interval_s,
+        burst_interval_s=sample_interval_s, metrics=bbm)
+    profiler.pause()
+    profiler.start()
+    recorder = FlightRecorder(f"{tmp}/blackbox", client=client,
+                              metrics=bbm)
+    alloc = Allocator(client)
+    lat: dict[str, list[float]] = {"off": [], "on": []}
+    errors: list = []
+    try:
+        for i in range(cycles):
+            arm = "on" if i % 2 else "off"
+            if arm == "on":
+                profiler.resume()
+            else:
+                profiler.pause()
+            name = f"bb-ov-{i}"
+            try:
+                claim = client.create(_one_gpu_claim(name))
+                allocated = alloc.allocate(claim, node="node-0")
+                uid = allocated["metadata"]["uid"]
+                t0 = time.perf_counter()
+                res = driver.prepare_resource_claims([allocated])[uid]
+                dt = time.perf_counter() - t0
+                if res.error is not None:
+                    errors.append((name, repr(res.error)))
+                else:
+                    lat[arm].append(dt)
+                driver.unprepare_resource_claims([ClaimRef(
+                    uid=uid, name=name, namespace="default")])
+                client.delete("ResourceClaim", name, "default")
+            except Exception as e:  # noqa: BLE001 — audited
+                errors.append((name, repr(e)))
+    finally:
+        profiler.stop()
+        driver.stop()
+        if tmpdir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    # Top-trim only the extreme tail: the profiled arm's cost
+    # concentrates in the minority of cycles a sampling tick lands in,
+    # and the usual 10-90 % trim would cut exactly those cycles and
+    # report a vacuous zero.
+    mean_off = _trimmed_mean(lat["off"], lo=0.0, hi=0.98) * 1e3
+    mean_on = _trimmed_mean(lat["on"], lo=0.0, hi=0.98) * 1e3
+    overhead_pct = (round((mean_on - mean_off) / mean_off * 100, 2)
+                    if mean_off else 0.0)
+    prof = profiler.snapshot(top=3)
+    return {
+        "cycles": cycles,
+        "mean_unprofiled_ms": round(mean_off, 3),
+        "mean_profiled_ms": round(mean_on, 3),
+        "overhead_pct": overhead_pct,
+        "ops": {k: len(v) for k, v in lat.items()},
+        "profiler_samples": prof["samples"],
+        "distinct_stacks": prof["distinct_stacks"],
+        "recorder_captures": recorder.captures,
+        "errors": errors[:5],
+        "error_count": len(errors),
+    }
+
+
+def run_canary_overhead(
+    cycles: int = 240,
+    probe_every: int = 8,
+    profile: str = "h100-8",
+    tmpdir: Optional[str] = None,
+) -> dict:
+    """Canary + metering steady-state overhead on the claim path, by the
+    interleaved-arm methodology: ONE sequential churn loop (create →
+    allocate → prepare → unprepare → delete on a single node) alternating
+    the user-perspective plane per cycle — even cycles bare, odd cycles
+    pay a metering ``observe()`` tick plus (every ``probe_every``-th
+    active cycle) one full synthetic probe run CONCURRENTLY with the
+    timed claim work (started just before the timed section, joined
+    after it, before the next cycle — so the contention a live prober
+    causes, the shared allocator-mutex wait included, lands IN the
+    measured arm while the bare arm stays clean). Both arms share the
+    window, disk state and heap, so drift cancels; the prepare loop's
+    asynchronous event handling rides both arms. Trimmed means."""
+    from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
+    from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import (
+        NodePrepareLoop,
+    )
+    from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
+    from k8s_dra_driver_tpu_torch.pkg.canary import (
+        CanaryMetrics,
+        CanaryProber,
+    )
+    from k8s_dra_driver_tpu_torch.pkg.usage import UsageMeter, UsageMetrics
+
+    tmp = tmpdir or tempfile.mkdtemp(prefix="canary-overhead-")
+    client, driver = _single_gpu_node(tmp, profile)
+    alloc = Allocator(client)  # shared scheduler: the prober allocates
+    # through this same instance, so its probe serializes with the timed
+    # claim work on the allocator's own reentrant mutex
+    loop = NodePrepareLoop(client, driver, DRIVER_NAME, "node-0",
+                           namespace="default").start()
+    prober = CanaryProber(
+        client, alloc, nodes=["node-0"],
+        probe_deadline_s=2.0,
+        metrics=CanaryMetrics())
+    meter = UsageMeter(client, namespace="default", metrics=UsageMetrics())
+    lat: dict[str, list[float]] = {"off": [], "on": []}
+    errors: list = []
+    probes = 0
+    try:
+        for i in range(cycles):
+            arm = "on" if i % 2 else "off"
+            name = f"cn-ov-{i}"
+            probe_thread = None
+            try:
+                if arm == "on":
+                    meter.observe()
+                    if (i // 2) % probe_every == 0:
+                        # The probe runs DURING the timed claim work —
+                        # its allocator-mutex holds, prepare-loop events
+                        # and interpreter time are the interference
+                        # being measured.
+                        probe_thread = threading.Thread(
+                            target=prober.probe_node, args=("node-0",),
+                            daemon=True)
+                        probe_thread.start()
+                        probes += 1
+                claim = client.create(_one_gpu_claim(name))
+                t0 = time.perf_counter()
+                allocated = alloc.allocate(claim, node="node-0")
+                uid = allocated["metadata"]["uid"]
+                res = driver.prepare_resource_claims([allocated])[uid]
+                dt = time.perf_counter() - t0
+                if res.error is not None:
+                    errors.append((name, repr(res.error)))
+                else:
+                    lat[arm].append(dt)
+                driver.unprepare_resource_claims([ClaimRef(
+                    uid=uid, name=name, namespace="default")])
+                client.delete("ResourceClaim", name, "default")
+            except Exception as e:  # noqa: BLE001 — audited
+                errors.append((name, repr(e)))
+            finally:
+                if probe_thread is not None:
+                    # Joined before the next cycle: the bare arm never
+                    # overlaps a live probe.
+                    probe_thread.join(timeout=30.0)
+    finally:
+        loop.stop()
+        driver.stop()
+        if tmpdir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    # Top-trim only the extreme tail, as the blackbox overhead leg does:
+    # the canary arm's cost concentrates in the probe cycles, and a
+    # symmetric trim would cut exactly those and report zero.
+    mean_off = _trimmed_mean(lat["off"], lo=0.0, hi=0.98) * 1e3
+    mean_on = _trimmed_mean(lat["on"], lo=0.0, hi=0.98) * 1e3
+    overhead_pct = (round((mean_on - mean_off) / mean_off * 100, 2)
+                    if mean_off else 0.0)
+    return {
+        "cycles": cycles,
+        "probes": probes,
+        "mean_bare_ms": round(mean_off, 3),
+        "mean_canary_ms": round(mean_on, 3),
+        "overhead_pct": overhead_pct,
+        "ops": {k: len(v) for k, v in lat.items()},
+        "probe_failures": prober.failures,
+        "probe_leaked": prober.leaked,
+        "meter_observe_failures": meter.observe_failures,
+        "errors": errors[:5],
+        "error_count": len(errors),
+    }
+
+
+# --------------------------------------------------------------------------
+# Topology-aware allocation at fleet scale, and the defrag loop
+# --------------------------------------------------------------------------
+
+#: the allocator-scale harness's classes: claim size in memory slices →
+#: (DeviceClass, MIG profile it selects). Each class pins one published
+#: profile, as the JAX harness's classes pin one subslice shape: 1g.10gb,
+#: 1g.20gb (whose starts 0, 2, 4, 6 tile the GPU, where 2g.20gb's do not
+#: reach slice 7), 3g.40gb and 7g.80gb. The admission probe is one whole
+#: GPU (``gpu.nvidia.com``), the 1x8 box of the GPU × memory-slice mesh.
+ALLOC_SCALE_CLASSES = {
+    1: ("mig-1g.10gb", "1g.10gb"),
+    2: ("mig-1g.20gb", "1g.20gb"),
+    4: ("mig-3g.40gb", "3g.40gb"),
+    8: ("mig-7g.80gb", "7g.80gb"),
+}
+#: the seeded tape's size mix (the JAX harness's weights)
+ALLOC_SCALE_WEIGHTS = ((1, 0.50), (2, 0.22), (4, 0.18), (8, 0.10))
+#: memory slices of one ``h100-8`` node: 8 GPUs x 8 slices
+ALLOC_SCALE_NODE_SLICES = 64
+
+
+def alloc_scale_tape(n_claims: int, n_nodes: int, seed: int) -> list:
+    """The seeded op tape of :func:`run_allocator_scale`, identical for
+    both arms: ``(size in memory slices, node index, release fraction)``
+    per op, drawn exactly as the JAX harness draws it."""
+    import random
+
+    rng = random.Random(seed)
+    tape = []
+    for _ in range(n_claims):
+        roll = rng.random()
+        acc = 0.0
+        size = 1
+        for s, w in ALLOC_SCALE_WEIGHTS:
+            acc += w
+            if roll <= acc:
+                size = s
+                break
+        tape.append((size, rng.randrange(n_nodes), rng.random()))
+    return tape
+
+
+def alloc_scale_world(client, n_nodes: int) -> None:
+    """Create the allocator-scale classes and publish ``n_nodes`` pools,
+    each one ``h100-8`` mock in MIG mode: its whole GPUs with counters and
+    every MIG placement, over the node's memory-slice counter set (64
+    unit counters, as the JAX harness's 8x8 chip mesh)."""
+    from k8s_dra_driver_tpu_torch.gpulib.device_lib import MockDeviceLib
+    from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+    from k8s_dra_driver_tpu_torch.kubeletplugin.helper import Helper
+    from k8s_dra_driver_tpu_torch.kubeletplugin.types import (
+        DriverResources,
+        Pool,
+        Slice,
+    )
+    from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+        partitions,
+    )
+
+    client.create(new_object(
+        "DeviceClass", partitions.DEVICE_CLASS_GPU,
+        spec={"selectors": [{"cel": {"expression": partitions
+              .DEVICE_CLASS_SELECTORS[partitions.DEVICE_CLASS_GPU]}}]}))
+    for cls, profile in ALLOC_SCALE_CLASSES.values():
+        client.create(new_object(
+            "DeviceClass", cls,
+            spec={"selectors": [{"cel": {"expression":
+                "device.attributes['type'] == 'mig' && "
+                f"device.attributes['profile'] == '{profile}'"}}]}))
+    for i in range(n_nodes):
+        gpus = MockDeviceLib("h100-8", host_index=i,
+                             mig=True).enumerate_gpus()
+        devices = [partitions.full_gpu_device(g, with_counters=True)
+                   for g in gpus]
+        devices += partitions.mig_devices(gpus)
+        Helper(client, DRIVER_NAME, f"node-{i}",
+               _StubPlugin()).publish_resources(DriverResources(
+                   pools={f"node-{i}": Pool(slices=[Slice(
+                       devices=devices,
+                       shared_counters=[
+                           partitions.memory_slice_counter_set(gpus)])])}))
+
+
+class _StubPlugin:
+    """A plugin that prepares nothing: the allocator harnesses publish
+    devices directly and measure scheduling, not prepare."""
+
+    def prepare_resource_claims(self, claims):
+        return {}
+
+    def unprepare_resource_claims(self, refs):
+        return {}
+
+
+def _claim_spec(cls: str, request: str = "r") -> dict:
+    return {"devices": {"requests": [{"name": request, "exactly": {
+        "deviceClassName": cls, "allocationMode": "ExactCount",
+        "count": 1}}]}}
+
+
+def _counter_audit(client, alloc) -> dict:
+    """Every allocated claim's counter draws summed per (pool, counter
+    set, counter) against the published capacity: over-consumed counters
+    (the KEP-4815 invariant no strategy may bend) and the units in use."""
+    idx = alloc._slice_index()
+    consumed: dict = {}
+    for c in client.list("ResourceClaim"):
+        rs = ((c.get("status") or {}).get("allocation") or {}).get(
+            "devices", {}).get("results", [])
+        for r in rs:
+            dev = idx.by_pool_device.get((r["pool"], r["device"]))
+            if not dev:
+                continue
+            for cc in dev.get("consumesCounters", []):
+                for cn, cv in cc.get("counters", {}).items():
+                    k = (r["pool"], cc["counterSet"], cn)
+                    consumed[k] = consumed.get(k, 0) + cv["value"]
+    over = {k: v for k, v in consumed.items()
+            if v > idx.capacity.get(k, 0)}
+    return {"overcommitted": len(over),
+            "overcommitted_samples": list(over.items())[:3],
+            "used": sum(consumed.values())}
+
+
+def run_allocator_scale(
+    n_nodes: int = 6,
+    n_claims: int = 10000,
+    seed: int = 0,
+    target_util: float = 0.8,
+    probe_every: int = 10,
+    probe_warmup_frac: float = 0.3,
+    defrag: bool = True,
+    defrag_probes: int = 8,
+    defrag_timeout_s: float = 12.0,
+    max_evictions_per_claim: int = 4,
+    faults: Optional[str] = None,
+    fault_seed: int = 0,
+    realloc_restart: bool = False,
+    pending_batch: int = 500,
+) -> dict:
+    """The topology-aware allocator at fleet scale: the same seeded
+    mixed-size claim tape driven through a FIRST-FIT arm and a BEST-FIT
+    arm on identical fresh clusters, ops INTERLEAVED one per arm so
+    cross-arm clock drift cancels, then (best-fit arm) the SLO-driven
+    defrag leg.
+
+    Each arm: ``n_nodes`` pools, each one ``h100-8`` node in MIG mode —
+    the GPU × memory-slice mesh of 8 x 8 = 64 unit counters, publishing
+    every whole GPU and every MIG placement (:func:`alloc_scale_world`).
+    ``n_claims`` NODE-PINNED claims of 1, 2, 4 or 8 memory slices (the
+    classes of :data:`ALLOC_SCALE_CLASSES`, created in pending batches
+    ahead of allocation) are churned with every node held at
+    ``target_util`` (seeded releases), and non-perturbing whole-GPU
+    admission probes ride inside the churn every ``probe_every`` ops past
+    the warmup. Where the JAX harness counts chips, this one counts
+    memory slices (``total_slices``, ``slices_used``). Measured:
+    allocations/s over time spent INSIDE allocate/release calls (and the
+    trimmed-mean form the ratio uses), the time-integrated whole-GPU
+    admission rate, end-state fragmentation (gauge + report), cache
+    counters, and an overlap audit (no counter over-consumed).
+
+    ``target_util`` defaults to 0.8 where the JAX harness's is 0.55: a
+    whole GPU is an eighth of a node here, not a quarter of its 8x8 mesh,
+    so at 0.55 both arms admit every probe and the harness measures
+    nothing; at 0.8 first-fit admits 0.1429 and best-fit 0.2300 of the
+    probes at the defaults (6 x 10000).
+
+    The defrag leg proves the whole loop: blocked whole-GPU probes burn
+    the ``allocation_admission`` SLO (the allocator's
+    ``outcome=fragmented`` counter scraped through a FleetScraper +
+    RecordingRules), the ticket alert fires, the subscribed DefragPlanner
+    preempts movable small claims through the live ClaimReallocator
+    (annotation → release → re-allocate with the target placement
+    avoided), and the blocked probe's retry must land. The pressure is one
+    ``1g.10gb`` pin in every still-free GPU, placed by a naive scheduler;
+    the whole GPU and ``7g.80gb`` share the GPU's 1x8 box, so a free box
+    of volume 8 is one free GPU. ``faults`` layers a seeded fault mix over
+    the leg (crash schedules rejected); ``realloc_restart`` kills and
+    recreates the reallocator mid-leg (the annotation IS the crash-safe
+    work queue). Oracle: every preempted claim ends reallocated or
+    cleanly failed, evictions stay within ``max_evictions_per_claim`` per
+    blocked claim, zero leaks."""
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+    from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+    from k8s_dra_driver_tpu_torch.kubeletplugin import (
+        AllocationError,
+        Allocator,
+    )
+    from k8s_dra_driver_tpu_torch.kubeletplugin.allocator import (
+        STRATEGY_BEST_FIT,
+        STRATEGY_FIRST_FIT,
+    )
+    from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
+        ANN_DRAIN,
+        ANN_DRAIN_FAILED,
+        ClaimReallocator,
+        DefragPlanner,
+        attach_defrag_planner,
+    )
+    from k8s_dra_driver_tpu_torch.pkg import faultpoints, slo as slolib
+    from k8s_dra_driver_tpu_torch.pkg.events import EventRecorder
+    from k8s_dra_driver_tpu_torch.pkg.metrics import AllocatorMetrics
+    from k8s_dra_driver_tpu_torch.pkg.telemetry import (
+        FleetMetrics,
+        FleetScraper,
+        FleetTelemetry,
+    )
+    from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+        partitions,
+    )
+
+    if faults:
+        _reject_crash_schedules(
+            faultpoints.FaultPlan(faults, seed=fault_seed),
+            "run_allocator_scale", "the defrag leg's loop")
+
+    small_class = ALLOC_SCALE_CLASSES[1][0]
+    large_class, large_slices = partitions.DEVICE_CLASS_GPU, 8
+    node_slices = ALLOC_SCALE_NODE_SLICES
+    total_slices = n_nodes * node_slices
+
+    def build_cluster() -> FakeClient:
+        client = FakeClient()
+        alloc_scale_world(client, n_nodes)
+        return client
+
+    tape = alloc_scale_tape(n_claims, n_nodes, seed)
+
+    def overlap_audit(client: FakeClient, alloc: Allocator) -> dict:
+        a = _counter_audit(client, alloc)
+        return {"overcommitted": a["overcommitted"],
+                "overcommitted_samples": a["overcommitted_samples"],
+                "slices_used": a["used"],
+                "utilization": round(a["used"] / total_slices, 3)}
+
+    warmup = int(n_claims * probe_warmup_frac)
+
+    class _Arm:
+        """One strategy's whole world: its own cluster, allocator and
+        bookkeeping, advanced ONE TAPE OP AT A TIME so the two arms'
+        measurements interleave and cross-arm clock drift hits both."""
+
+        def __init__(self, strategy: str):
+            self.strategy = strategy
+            self.client = build_cluster()
+            self.metrics = AllocatorMetrics()
+            self.alloc = Allocator(self.client, metrics=self.metrics,
+                                   strategy=strategy)
+            # Per-node live sets: the churn policy holds EVERY node at
+            # the utilization target (a fleet-global target lets node
+            # utilizations drift apart, and then capacity, not
+            # placement, decides admission).
+            self.live: dict[int, list[tuple[str, int]]] = {
+                i: [] for i in range(n_nodes)}
+            self.used: dict[int, int] = {i: 0 for i in range(n_nodes)}
+            self.seq = 0
+            self.attempts = self.successes = self.releases = 0
+            self.alloc_seconds = 0.0
+            self.alloc_lat: list[float] = []
+            self.errors: list = []
+            self.pending: list[tuple[str, int, int]] = []
+            self.admitted = self.probed = 0
+
+        def _make_pending(self) -> None:
+            while len(self.pending) < pending_batch and self.seq < len(tape):
+                size, node_i, _frac = tape[self.seq]
+                name = f"as-{self.seq}"
+                self.client.create(new_object(
+                    "ResourceClaim", name, "default",
+                    api_version="resource.k8s.io/v1",
+                    spec=_claim_spec(ALLOC_SCALE_CLASSES[size][0])))
+                self.pending.append((name, size, node_i))
+                self.seq += 1
+
+        def _probe(self, p: int) -> None:
+            # Whole-GPU admission probes ride INSIDE the churn: each is a
+            # node-pinned, non-perturbing attempt (an admitted probe is
+            # released at once), so the admission rate integrates
+            # placement quality over the whole steady state.
+            name = f"as-large-{p}"
+            self.client.create(new_object(
+                "ResourceClaim", name, "default",
+                api_version="resource.k8s.io/v1",
+                spec=_claim_spec(large_class)))
+            self.probed += 1
+            try:
+                self.alloc.allocate(
+                    self.client.get("ResourceClaim", name, "default"),
+                    node=f"node-{p % n_nodes}")
+                self.admitted += 1
+                self.alloc.release(
+                    self.client.get("ResourceClaim", name, "default"))
+            except AllocationError:
+                pass
+            except Exception as e:  # noqa: BLE001 — audited
+                self.errors.append((name, repr(e)))
+            self.client.delete("ResourceClaim", name, "default")
+
+        def step(self, i: int) -> None:
+            self._make_pending()
+            if not self.pending:
+                return
+            name, size, node_i = self.pending.pop(0)
+            _size, _node, frac = tape[i]
+            claim = self.client.get("ResourceClaim", name, "default")
+            alloc = self.alloc
+            t0 = time.perf_counter()
+            try:
+                alloc.allocate(claim, node=f"node-{node_i}")
+                ok = True
+            except AllocationError:
+                ok = False
+            except Exception as e:  # noqa: BLE001 — audited
+                ok = False
+                self.errors.append((name, repr(e)))
+            dt = time.perf_counter() - t0
+            self.alloc_seconds += dt
+            self.alloc_lat.append(dt)
+            self.attempts += 1
+            if ok:
+                self.successes += 1
+                self.live[node_i].append((name, size))
+                self.used[node_i] += size
+            else:
+                self.client.delete("ResourceClaim", name, "default")
+            # Churn policy: above the node's utilization target, release
+            # seeded-chosen live claims of that node (the tape's
+            # fraction keeps the choice identical across arms with
+            # identical live sets).
+            node_live = self.live[node_i]
+            while node_live and self.used[node_i] / node_slices \
+                    > target_util:
+                victim_name, units = node_live.pop(
+                    int(frac * len(node_live)) % len(node_live))
+                t0 = time.perf_counter()
+                try:
+                    alloc.release(self.client.get(
+                        "ResourceClaim", victim_name, "default"))
+                except Exception as e:  # noqa: BLE001 — audited
+                    self.errors.append((victim_name, repr(e)))
+                self.alloc_seconds += time.perf_counter() - t0
+                self.client.delete("ResourceClaim", victim_name, "default")
+                self.releases += 1
+                self.used[node_i] -= units
+            if i + 1 > warmup and (i + 1) % probe_every == 0:
+                self._probe((i + 1) // probe_every)
+
+        def finish(self) -> dict:
+            self.alloc.blocked.clear()  # probes are gone; defrag gets
+            # fresh ones
+            frag_rows = self.alloc.fragmentation_report()
+            frags = [r["fragmentation"] for r in frag_rows]
+            audit = overlap_audit(self.client, self.alloc)
+            exposition = self.metrics.registry.expose_text()
+            m = self.metrics
+            return {
+                "strategy": self.strategy,
+                "attempts": self.attempts,
+                "allocations": self.successes,
+                "releases": self.releases,
+                "alloc_seconds": round(self.alloc_seconds, 3),
+                "allocs_per_sec": round(
+                    self.successes / self.alloc_seconds, 1)
+                if self.alloc_seconds else 0.0,
+                # Noise-robust throughput: 1 / trimmed-mean per-attempt
+                # latency — a GC pause or scheduler blip cannot swing
+                # the ratio.
+                "allocs_per_sec_trimmed": round(
+                    1.0 / _trimmed_mean(self.alloc_lat), 1)
+                if self.alloc_lat else 0.0,
+                "alloc_p50_us": round(_pct(self.alloc_lat, 0.50) * 1e6, 1)
+                if self.alloc_lat else 0.0,
+                "alloc_p99_us": round(_pct(self.alloc_lat, 0.99) * 1e6, 1)
+                if self.alloc_lat else 0.0,
+                "large_attempted": self.probed,
+                "large_admitted": self.admitted,
+                "large_admission_rate": round(
+                    self.admitted / self.probed, 4)
+                if self.probed else 0.0,
+                "end_utilization": audit["utilization"],
+                "fragmentation_mean": round(sum(frags) / len(frags), 4)
+                if frags else 0.0,
+                "fragmentation_max": max(frags) if frags else 0.0,
+                "fragmentation_gauge_exported":
+                    "gpu_dra_allocator_fragmentation{" in exposition,
+                "cache": {
+                    "usage_hits": int(m.cache_hits_total.value(
+                        cache="usage")),
+                    "usage_misses": int(m.cache_misses_total.value(
+                        cache="usage")),
+                    "evictions_counted":
+                        "gpu_dra_allocator_cache_evictions_total"
+                        in exposition,
+                },
+                "outcomes": {
+                    "success": int(m.allocations_total.value(
+                        outcome="success")),
+                    "fragmented": int(m.allocations_total.value(
+                        outcome="fragmented")),
+                    "unsatisfiable": int(m.allocations_total.value(
+                        outcome="unsatisfiable")),
+                },
+                "overlap_audit": audit,
+                "errors": self.errors[:10],
+                "error_count": len(self.errors),
+            }
+
+    ff_arm = _Arm(STRATEGY_FIRST_FIT)
+    bf_arm = _Arm(STRATEGY_BEST_FIT)
+    for i in range(len(tape)):
+        ff_arm.step(i)
+        bf_arm.step(i)
+    first_fit = ff_arm.finish()
+    best_fit = bf_arm.finish()
+    client, alloc, metrics = bf_arm.client, bf_arm.alloc, bf_arm.metrics
+
+    out: dict[str, Any] = {
+        "n_nodes": n_nodes,
+        "total_slices": total_slices,
+        "n_claims": n_claims,
+        "seed": seed,
+        "target_util": target_util,
+        "first_fit": first_fit,
+        "best_fit": best_fit,
+        "throughput_ratio": round(
+            best_fit["allocs_per_sec_trimmed"]
+            / first_fit["allocs_per_sec_trimmed"], 3)
+        if first_fit["allocs_per_sec_trimmed"] else 0.0,
+        "admission_ratio": round(
+            best_fit["large_admission_rate"]
+            / first_fit["large_admission_rate"], 3)
+        if first_fit["large_admission_rate"]
+        else (999.0 if best_fit["large_admission_rate"] else 0.0),
+        "errors": first_fit["errors"] + best_fit["errors"],
+        "error_count": first_fit["error_count"] + best_fit["error_count"],
+        "leaks": {},
+    }
+
+    if not defrag:
+        return out
+
+    # ---- defrag leg (best-fit arm's end state) ----------------------------
+    # The reallocator, the planner and the unblock probes below all
+    # coordinate through the shared allocator's own reentrant mutex.
+    realloc = ClaimReallocator(client, allocator=alloc).start()
+    planner = DefragPlanner(
+        client, alloc, max_evictions_per_claim=max_evictions_per_claim,
+        events=EventRecorder(client, "defrag-planner"))
+    fleet_metrics = FleetMetrics()
+    scraper = FleetScraper(
+        targets=[("allocator", "mem://allocator")],
+        metrics=fleet_metrics,
+        fetch=lambda _n, _u: metrics.registry.expose_text())
+    telemetry = FleetTelemetry(scraper=scraper, interval_s=3600.0,
+                               rule_window_s=1.0, metrics=fleet_metrics)
+    engine = slolib.SloEngine(
+        telemetry.rules,
+        slos=(slolib.allocation_admission_slo(),),
+        windows=(slolib.BurnWindow(slolib.SEVERITY_TICKET, 0.4, 1.6, 1.0),),
+        events=EventRecorder(client, "fleetwatch"),
+        metrics=slolib.SloMetrics())
+    telemetry.slo_engine = engine
+    attach_defrag_planner(engine, planner)
+
+    # Fragmentation pressure: small claims placed by an external naive
+    # scheduler (status.allocation written directly, the harness playing
+    # the scheduler) — one 1g.10gb pin inside every still-free GPU, so
+    # whole-GPU admission is blocked by PLACEMENT, not capacity. These
+    # pins are exactly the movable small claims the planner migrates.
+    pins = 0
+    for _round in range(total_slices):
+        idx = alloc._slice_index()
+        _s, _c, _a, _d, masks = alloc._usage()
+        target = None
+        for pool in sorted(idx.geometry):
+            geo = idx.geometry[pool]
+            pm = masks.get(pool, 0)
+            for g in geo.boxes.values():
+                if g.volume == large_slices and not g.mask & pm:
+                    unit = next(
+                        (cb for cb in geo.boxes.values()
+                         if cb.volume == 1 and cb.mask & g.mask),
+                        None)
+                    if unit is not None:
+                        target = (pool, unit.name)
+                        break
+            if target:
+                break
+        if target is None:
+            break
+        name = f"as-pin-{pins}"
+        pinned = client.create(new_object(
+            "ResourceClaim", name, "default",
+            api_version="resource.k8s.io/v1",
+            spec=_claim_spec(small_class)))
+        pinned.setdefault("status", {})["allocation"] = {
+            "devices": {"results": [{
+                "request": "r", "driver": DRIVER_NAME,
+                "pool": target[0], "device": target[1]}]}}
+        client.update_status(pinned)
+        pins += 1
+
+    probes = []
+    for p in range(defrag_probes):
+        name = f"as-defrag-{p}"
+        client.create(new_object(
+            "ResourceClaim", name, "default",
+            api_version="resource.k8s.io/v1",
+            spec=_claim_spec(large_class)))
+        probes.append(name)
+
+    prev_plan = faultpoints.active_plan()
+    defrag_errors: list = []
+    unblocked: set = set()
+    alert_fired = False
+    restarted = False
+    realloc_done = realloc_fail = 0
+    t0 = time.monotonic()
+    try:
+        if faults:
+            faultpoints.activate(faultpoints.FaultPlan(faults,
+                                                       seed=fault_seed))
+        while (len(unblocked) < len(probes)
+               and time.monotonic() - t0 < defrag_timeout_s):
+            for name in probes:
+                if name in unblocked:
+                    continue
+                try:
+                    alloc.allocate(client.get("ResourceClaim", name,
+                                              "default"))
+                    unblocked.add(name)
+                except AllocationError:
+                    pass
+                except Exception as e:  # noqa: BLE001 — injected/
+                    # transient API faults retry next round.
+                    if not faultpoints.is_injected(e):
+                        defrag_errors.append((name, repr(e)))
+            # One telemetry tick: scrape the allocator registry, ring the
+            # fragmented/total counters, evaluate the SLO — a FIRED
+            # transition calls the subscribed planner on this thread,
+            # and maybe_plan() retries while the alert stays firing (a
+            # pass that lost victims to injected API faults must not
+            # wait for a fresh alert edge).
+            telemetry.tick()
+            planner.maybe_plan()
+            alert_fired = alert_fired or any(
+                tr.transition == "fired" for tr in engine.transitions())
+            if (realloc_restart and not restarted
+                    and planner.preempted > 0):
+                # Crash-simulate the reallocator mid-preemption: the
+                # drain annotation is the durable work queue; the
+                # replacement must pick every victim back up via its
+                # initial informer LIST.
+                realloc_done += realloc.reallocated
+                realloc_fail += realloc.failed
+                realloc.stop()
+                realloc = ClaimReallocator(
+                    client, allocator=alloc).start()
+                restarted = True
+            time.sleep(0.05)
+    finally:
+        faultpoints.deactivate()
+
+    # Quiesce fault-free: keep planning/retrying until annotations
+    # resolve and every probe had a clean shot, then audit.
+    settle_deadline = time.monotonic() + 6.0
+    while time.monotonic() < settle_deadline:
+        planner.plan_once()
+        for name in probes:
+            if name in unblocked:
+                continue
+            try:
+                alloc.allocate(client.get("ResourceClaim", name,
+                                          "default"))
+                unblocked.add(name)
+            except AllocationError:
+                pass
+            except Exception as e:  # noqa: BLE001 — audited
+                defrag_errors.append((name, repr(e)))
+        pending_anns = [
+            c["metadata"]["name"] for c in client.list("ResourceClaim")
+            if ANN_DRAIN in (c["metadata"].get("annotations") or {})]
+        if not pending_anns and len(unblocked) == len(probes):
+            break
+        time.sleep(0.05)
+    realloc_done += realloc.reallocated
+    realloc_fail += realloc.failed
+    realloc.stop()
+
+    leaks: dict[str, Any] = {}
+    unresolved = [
+        c["metadata"]["name"] for c in client.list("ResourceClaim")
+        if ANN_DRAIN in (c["metadata"].get("annotations") or {})]
+    if unresolved:
+        leaks["unresolved_drain_annotations"] = unresolved
+    audit = overlap_audit(client, alloc)
+    if audit["overcommitted"]:
+        leaks["overcommitted_counters"] = audit["overcommitted_samples"]
+    # Every preempted victim must be terminal: re-bound (has an
+    # allocation) or cleanly failed (drain-failed annotation).
+    stuck = []
+    preempted_names = {v for h in planner.hints() for v in h["victims"]}
+    for full in preempted_names:
+        ns, _, vn = full.partition("/")
+        c = client.try_get("ResourceClaim", vn, ns)
+        if c is None:
+            continue  # released + deleted by churn — terminal enough
+        anns = c["metadata"].get("annotations") or {}
+        has_alloc = bool((c.get("status") or {}).get("allocation"))
+        if not has_alloc and ANN_DRAIN_FAILED not in anns:
+            stuck.append(full)
+    out["defrag"] = {
+        "pins": pins,
+        "probes": len(probes),
+        "unblocked": len(unblocked),
+        "alert_fired": alert_fired,
+        # The per-pool gauge must surface in the FLEET aggregate the
+        # scrape loop re-serves (the gpu_dra_fleet_* mirror contract).
+        "fleet_fragmentation_visible":
+            "gpu_dra_fleet_allocator_fragmentation"
+            in telemetry.aggregator.families(),
+        "planner": {"planned": planner.planned,
+                    "preempted": planner.preempted,
+                    "skipped": planner.skipped},
+        "hints": planner.hints()[:5],
+        "max_evictions_per_claim": max_evictions_per_claim,
+        "eviction_bound_held": all(
+            n <= max_evictions_per_claim
+            for n in planner._spent.values()) if planner._spent else True,
+        "reallocated": realloc_done,
+        "realloc_failed": realloc_fail,
+        "realloc_restarted": restarted,
+        "stuck_victims": stuck,
+        "seconds": round(time.monotonic() - t0, 3),
+        "errors": defrag_errors[:10],
+        "error_count": len(defrag_errors),
+    }
+    out["leaks"] = leaks
+    out["error_count"] += len(defrag_errors)
+    out["errors"] = (out["errors"] + defrag_errors)[:20]
+    if prev_plan is not None:
+        faultpoints.activate(prev_plan)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Wire-path tail latency: claim → Ready over HTTP under status churn
+# --------------------------------------------------------------------------
+
+
+def wire_path_world(client, profile: str = "h100-8") -> None:
+    """The wire-path world: the ``gpu.nvidia.com`` class, ``node-0`` and
+    its whole GPUs of a mock ``profile`` node published directly with
+    their memory-slice counters (no driver stack: the harness measures
+    the wire path, not prepare)."""
+    from k8s_dra_driver_tpu_torch.gpulib.device_lib import MockDeviceLib
+    from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+    from k8s_dra_driver_tpu_torch.kubeletplugin.helper import Helper
+    from k8s_dra_driver_tpu_torch.kubeletplugin.types import (
+        DriverResources,
+        Pool,
+        Slice,
+    )
+    from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
+        partitions,
+    )
+
+    client.create(new_object(
+        "DeviceClass", DRIVER_NAME,
+        spec={"selectors": [{"cel": {
+            "expression": "device.attributes['type'] == 'gpu'"}}]}))
+    client.create(new_object("Node", "node-0"))
+    gpus = MockDeviceLib(profile, host_index=0).enumerate_gpus()
+    devices = [partitions.full_gpu_device(g, with_counters=True)
+               for g in gpus]
+    Helper(client, DRIVER_NAME, "node-0",
+           _StubPlugin()).publish_resources(DriverResources(
+               pools={"node-0": Pool(slices=[Slice(
+                   devices=devices,
+                   shared_counters=[
+                       partitions.memory_slice_counter_set(gpus)])])}))
+
+
+class WireContenders:
+    """The control-plane load the wire-path harness rides on, over one
+    store: ``status_writers`` threads each churning ``update_status``
+    over ``writer_objects`` claims of their own, a ``ClaimReallocator``
+    watching the store, a reader polling ``fragmentation_report`` (an
+    ``Allocator.mutex`` consumer), and a bounded watch (``max_queue=4``)
+    that is NEVER read — the stalled-watcher probe, whose overflow must
+    be counted, never silent. :meth:`stop` ends them and returns the
+    first errors they met."""
+
+    def __init__(self, client, alloc, tag: str, status_writers: int = 3,
+                 writer_objects: int = 6, namespace: str = "default"):
+        from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
+        from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
+            ClaimReallocator,
+        )
+
+        self.client = client
+        self.alloc = alloc
+        self.tag = tag
+        self.namespace = namespace
+        self.writer_objects = writer_objects
+        self.errors: list = []
+        self.stop_all = threading.Event()
+        self.stalled = client.watch("ResourceClaim", namespace=namespace,
+                                    max_queue=4)
+        for w in range(status_writers):
+            for j in range(writer_objects):
+                client.create(new_object(
+                    "ResourceClaim", f"wp-load-{tag}-{w}-{j}", namespace,
+                    api_version="resource.k8s.io/v1",
+                    spec=_claim_spec(DRIVER_NAME, "gpu")))
+        self._threads = [threading.Thread(target=self._writer, args=(w,),
+                                          daemon=True)
+                         for w in range(status_writers)]
+        self._threads.append(threading.Thread(target=self._reader,
+                                              daemon=True))
+        for t in self._threads:
+            t.start()
+        self.realloc = ClaimReallocator(client, allocator=alloc).start()
+
+    def _writer(self, w: int) -> None:
+        tick = 0
+        while not self.stop_all.is_set():
+            tick += 1
+            name = f"wp-load-{self.tag}-{w}-{tick % self.writer_objects}"
+            try:
+                o = self.client.get("ResourceClaim", name, self.namespace)
+                o.setdefault("status", {})["writerTick"] = tick
+                self.client.update_status(o)
+            except Exception as e:  # noqa: BLE001 — audited
+                self.errors.append((name, repr(e)))
+                return
+            # Production-shaped churn: a kubelet stack's status writes are
+            # tens per second per writer, not thousands — saturating the
+            # GIL would measure interpreter starvation, not the wire path.
+            time.sleep(0.005)
+
+    def _reader(self) -> None:
+        while not self.stop_all.is_set():
+            try:
+                self.alloc.fragmentation_report(update_gauge=False)
+            except Exception as e:  # noqa: BLE001 — audited
+                self.errors.append(("fragmentation_report", repr(e)))
+                return
+            time.sleep(0.01)
+
+    def stop(self) -> list:
+        self.stop_all.set()
+        self.realloc.stop()
+        for t in self._threads:
+            t.join(timeout=5.0)
+        self.stalled.stop()
+        return self.errors
+
+
+def run_wire_path(
+    cycles: int = 160,
+    status_writers: int = 3,
+    writer_objects: int = 6,
+    contention_burst_s: float = 0.5,
+    profile: str = "h100-8",
+) -> dict:
+    """Claim→ready latency THROUGH THE HTTP PATH under status churn, by
+    the interleaved-arm methodology: two arms stepped alternately in one
+    window —
+
+    - ``baseline``: ``FakeClient(fanout_copy=True, coalesce_status=False)``
+      — one deep copy per event, one lock round-trip per status write;
+    - ``optimized``: the defaults (copy-free fan-out, group-committed
+      status writes, per-object wire-bytes memo on the LIST path).
+
+    Each arm is its own store behind its own in-process ``ApiServer``,
+    seeded with :func:`wire_path_world` (the whole GPUs of a mock
+    ``profile`` node). Each step times HTTP create → in-process allocate
+    → the MODIFIED event (with allocation status) arriving on an HTTP
+    watch. The whole run rides on :class:`WireContenders` (status writers,
+    a reallocator, a ``fragmentation_report`` reader, and a never-read
+    ``max_queue=4`` watch whose overflow must be counted).
+
+    Before the arms, a short baseline-shaped churn burst runs with lock
+    profiling enabled and the ranked ``lock_contention_snapshot`` rows
+    are returned as ``contention_before``. The arms run with the
+    interpreter's switch interval at 0.5 ms, restored on exit.
+
+    Returns per-arm latency distributions, wire-path counter snapshots
+    (fan-out copies/event, coalesce batches, wire-memo hits, backpressure
+    drops), encoder fallback counts, and leak/overcommit audits; derived:
+    ``p99_over_p50`` (optimized arm), ``copies_halved`` (optimized copies
+    per event at most half the baseline's) and ``backpressure_counted``
+    (the stalled watch was disconnected and counted in both arms)."""
+    import statistics
+    import sys
+
+    from k8s_dra_driver_tpu_torch.k8sclient import FakeClient, wirecodec
+    from k8s_dra_driver_tpu_torch.k8sclient.client import (
+        NotFoundError,
+        new_object,
+    )
+    from k8s_dra_driver_tpu_torch.k8sclient.httpapi import (
+        ApiServer,
+        HttpClient,
+        HttpWatch,
+    )
+    from k8s_dra_driver_tpu_torch.kubeletplugin import (
+        AllocationError,
+        Allocator,
+    )
+
+    def dist(xs: list[float]) -> dict:
+        return {
+            "ops": len(xs),
+            "p50_ms": round(statistics.median(xs) * 1e3, 3) if xs else 0.0,
+            "p90_ms": round(_pct(xs, 0.90) * 1e3, 3),
+            "p99_ms": round(_pct(xs, 0.99) * 1e3, 3),
+            "max_ms": round(max(xs) * 1e3, 3) if xs else 0.0,
+        }
+
+    def claim_spec() -> dict:
+        return _claim_spec(DRIVER_NAME, "gpu")
+
+    # ---- contention before-picture (baseline-shaped, profiled burst) ----
+    # Instrumented locks are minted only while profiling is ON, so the
+    # flag flips BEFORE the burst world is built.
+    sanitizer.set_lock_profiling(True)
+    sanitizer.reset_lock_contention()
+    try:
+        bc = FakeClient(fanout_copy=True, coalesce_status=False)
+        wire_path_world(bc, profile)
+        balloc = Allocator(bc)
+        burst_stop = threading.Event()
+        burst_errors: list = []
+
+        def burst(w: int) -> None:
+            i = 0
+            while not burst_stop.is_set():
+                i += 1
+                name = f"wp-burst-{w}-{i}"
+                try:
+                    claim = bc.create(new_object(
+                        "ResourceClaim", name, "default",
+                        api_version="resource.k8s.io/v1",
+                        spec=claim_spec()))
+                    try:
+                        got = balloc.allocate(claim, node="node-0")
+                    except AllocationError:
+                        bc.delete("ResourceClaim", name, "default")
+                        continue
+                    balloc.release(got)
+                    bc.delete("ResourceClaim", name, "default")
+                except Exception as e:  # noqa: BLE001 — audited
+                    burst_errors.append((name, repr(e)))
+        burst_threads = [threading.Thread(target=burst, args=(w,),
+                                          daemon=True) for w in range(4)]
+        for t in burst_threads:
+            t.start()
+        time.sleep(contention_burst_s)
+        burst_stop.set()
+        for t in burst_threads:
+            t.join(timeout=5.0)
+        contention_before = sanitizer.lock_contention_snapshot()[:12]
+    finally:
+        sanitizer.set_lock_profiling(False)
+        sanitizer.reset_lock_contention()
+
+    wirecodec.reset_fallback_counts()
+
+    # ---- interleaved arms -------------------------------------------------
+    class _Arm:
+        def __init__(self, name: str, fanout_copy: bool, coalesce: bool):
+            self.name = name
+            self.client = FakeClient(fanout_copy=fanout_copy,
+                                     coalesce_status=coalesce)
+            wire_path_world(self.client, profile)
+            self.alloc = Allocator(self.client)
+            self.server = ApiServer(self.client).start()
+            self.hc = HttpClient(self.server.endpoint)
+            self.lat: list[float] = []
+            self.seg: dict[str, list[float]] = {
+                "create": [], "allocate": [], "watch": []}
+            self.errors: list = []
+            self._ready_mu = threading.Lock()
+            self._ready: dict[str, threading.Event] = {}
+            self.stop_all = threading.Event()
+            # The measurement watcher: claim→ready is observed where a
+            # real consumer observes it — on the HTTP watch stream.
+            self.watch = HttpWatch(self.server.endpoint, "ResourceClaim",
+                                   "default")
+            self._consumer = threading.Thread(target=self._consume,
+                                              daemon=True)
+            self._consumer.start()
+            self.contenders = WireContenders(
+                self.client, self.alloc, name,
+                status_writers=status_writers,
+                writer_objects=writer_objects)
+
+        def _consume(self) -> None:
+            while not self.stop_all.is_set():
+                ev = self.watch.next(timeout=0.2)
+                if ev is None:
+                    continue
+                obj = ev.object
+                if not ((obj.get("status") or {}).get("allocation")):
+                    continue
+                with self._ready_mu:
+                    done = self._ready.pop(
+                        obj["metadata"].get("name", ""), None)
+                if done is not None:
+                    done.set()
+
+        def step(self, i: int) -> None:
+            name = f"wp-{self.name}-{i}"
+            done = threading.Event()
+            with self._ready_mu:
+                self._ready[name] = done
+            allocated = None
+            try:
+                t0 = time.perf_counter()
+                claim = self.hc.create(new_object(
+                    "ResourceClaim", name, "default",
+                    api_version="resource.k8s.io/v1", spec=claim_spec()))
+                t1 = time.perf_counter()
+                allocated = self.alloc.allocate(claim, node="node-0")
+                t2 = time.perf_counter()
+                if done.wait(timeout=10.0):
+                    t3 = time.perf_counter()
+                    self.lat.append(t3 - t0)
+                    self.seg["create"].append(t1 - t0)
+                    self.seg["allocate"].append(t2 - t1)
+                    self.seg["watch"].append(t3 - t2)
+                else:
+                    self.errors.append(
+                        (name, "never became ready on the HTTP watch"))
+            except Exception as e:  # noqa: BLE001 — audited
+                self.errors.append((name, repr(e)))
+            finally:
+                with self._ready_mu:
+                    self._ready.pop(name, None)
+                # Cleanup rides OUTSIDE the timed window.
+                try:
+                    if allocated is not None:
+                        self.alloc.release(allocated)
+                    self.hc.delete("ResourceClaim", name, "default")
+                except NotFoundError:
+                    pass
+                except Exception as e:  # noqa: BLE001 — audited
+                    self.errors.append((name, "cleanup: " + repr(e)))
+
+        def finish(self) -> dict:
+            self.stop_all.set()
+            self.errors.extend(self.contenders.stop())
+            self._consumer.join(timeout=5.0)
+            self.watch.stop()
+            self.server.stop()
+            snap = self.client.wire_path_snapshot()
+            leaked = [c["metadata"]["name"]
+                      for c in self.client.list("ResourceClaim")
+                      if c["metadata"]["name"].startswith(
+                          f"wp-{self.name}-")]
+            copies_per_event = round(
+                snap["fanout_copies"] / snap["fanout_events"], 4) \
+                if snap["fanout_events"] else 0.0
+            audit = _counter_audit(self.client, self.alloc)
+            return {
+                "claim_ready_http": dist(self.lat),
+                "segments": {k: dist(v) for k, v in self.seg.items()},
+                "wire_path": snap,
+                "copies_per_event": copies_per_event,
+                "stalled_watch_dropped": self.contenders.stalled.dropped,
+                "leaked_claims": leaked,
+                "overcommit": {
+                    "overcommitted": audit["overcommitted"],
+                    "overcommitted_samples":
+                        audit["overcommitted_samples"]},
+                "errors": self.errors[:10],
+                "error_count": len(self.errors),
+            }
+
+    base = _Arm("base", fanout_copy=True, coalesce=False)
+    opt = _Arm("opt", fanout_copy=False, coalesce=True)
+    # The interpreter's default 5 ms GIL switch interval quantizes every
+    # cross-thread hand-off (client → handler → client is two of them,
+    # watch delivery three) to multiples of 5 ms under load. The plugin
+    # mains pin a sub-millisecond interval; the harness pins it over the
+    # measured window and restores the caller's value on exit.
+    prev_switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.0005)
+    try:
+        for i in range(cycles):
+            base.step(i)
+            opt.step(i)
+    finally:
+        sys.setswitchinterval(prev_switch)
+        baseline = base.finish()
+        optimized = opt.finish()
+
+    out: dict[str, Any] = {
+        "cycles": cycles,
+        "status_writers": status_writers,
+        "contention_before": contention_before,
+        "contention_burst_errors": burst_errors[:5],
+        "baseline": baseline,
+        "optimized": optimized,
+        "encoder_fallbacks": wirecodec.fallback_counts(),
+        "errors": (baseline["errors"] + optimized["errors"])[:10],
+        "error_count": (baseline["error_count"]
+                        + optimized["error_count"]),
+    }
+    p = optimized["claim_ready_http"]
+    out["p99_over_p50"] = round(p["p99_ms"] / p["p50_ms"], 2) \
+        if p["p50_ms"] else 0.0
+    out["copies_halved"] = (
+        optimized["copies_per_event"]
+        <= baseline["copies_per_event"] / 2.0)
+    # The stalled watcher MUST have been disconnected and counted on
+    # both arms — backpressure is load-bearing, not best-effort.
+    out["backpressure_counted"] = all(
+        a["wire_path"]["overflow_disconnects"] >= 1
+        and a["wire_path"]["dropped_events"] >= 1
+        and a["stalled_watch_dropped"] >= 1
+        for a in (baseline, optimized))
     return out

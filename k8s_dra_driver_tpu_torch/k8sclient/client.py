@@ -31,19 +31,34 @@ watches.
   a faithful immutable snapshot — fan-out delivers it to every matching
   watcher WITHOUT a deep copy. Delivered objects are READ-ONLY by
   contract — informer caches hand them out as-is and handlers must copy
-  before mutating.
-- **Encode-once wire forms.** The HTTP transport serializes each event's
+  before mutating. ``fanout_copy=True`` restores the one-copy-per-event
+  behavior (the wire-path harness's baseline arm); copies are counted
+  either way.
+- **Status-patch coalescing.** ``update_status`` group-commits: writers
+  queue their status patch and a batch leader applies up to
+  ``DEFAULT_COALESCE_MAX`` of them under ONE shard-lock acquisition and
+  ONE fan-out drain (the checkpoint group-commit pattern), so N actors
+  stamping statuses together pay one lock convoy instead of N. Window
+  bounded and counted (``gpu_dra_status_coalesce_batch_size``);
+  per-transaction errors (conflict, not-found, injected commit faults)
+  are isolated to their own caller. ``coalesce_status=False`` restores
+  direct writes (baseline arm).
+- **Per-object wire memo.** The HTTP transport serializes each event's
   wire form once (:meth:`WatchEvent.wire`, spliced via :mod:`wirecodec`)
-  and shares the bytes across every remote watcher; LIST pages are
-  encoded by :meth:`FakeClient.list_page_wire`.
+  and shares the bytes across every remote watcher; the LIST serve path
+  (:meth:`FakeClient.list_page_wire`) additionally memoizes each
+  committed object's encoded bytes per shard, keyed by resourceVersion,
+  bounded and counted — a page of N unchanged objects is a byte splice,
+  not N re-encodes.
+- **Counted watcher backpressure.** A stalled watcher is disconnected at
+  its queue bound, but never silently: disconnects and dropped events
+  tick ``gpu_dra_watch_backpressure_*`` counters and the per-shard debug
+  snapshot (:meth:`FakeClient.wire_path_snapshot`).
 
 The counterpart of the JAX package's ``k8sclient/client.py``, with what
-``k8sclient/httpapi.py`` serves from. Left out: the status-patch group
-commit, the per-shard LIST wire memo, the wire-path counters and metric
-families, the commit and watch-expiry fault points and the bench's
-baseline modes there (a one-node port has no traffic that needs them yet),
-and the sanitizer's frozen deliveries, which this package's sanitizer does
-not have.
+``k8sclient/httpapi.py`` serves from. Left out: the sanitizer's deep-frozen
+deliveries, which need a ``deep_freeze`` this package's sanitizer does not
+have yet.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ import bisect
 import copy
 import json
 import queue
+import threading
 import time
 import uuid
 from collections import deque
@@ -70,6 +86,17 @@ DEFAULT_BACKLOG_WINDOW = 1024
 DEFAULT_WATCH_QUEUE = 1024
 #: idle time after which Watch.next synthesizes a BOOKMARK event.
 DEFAULT_BOOKMARK_INTERVAL = 5.0
+#: status-coalescing window: most patches a batch leader applies under
+#: one shard-lock acquisition (bounds the latency any one writer can add
+#: to a batch-mate; the batch-size histogram proves the bound holds).
+DEFAULT_COALESCE_MAX = 64
+#: followers never wait longer than this for their batch leader — past
+#: it something is wedged and the caller should see an error, not a hang.
+COALESCE_WAIT_TIMEOUT = 60.0
+#: per-shard wire-bytes memo entries (one per live object, FIFO-evicted
+#: past the cap, evictions counted) — bounds serve-path memory on kinds
+#: with more objects than any LIST page re-serves.
+WIRE_CACHE_MAX = 4096
 
 
 class NotFoundError(KeyError):
@@ -207,7 +234,8 @@ class Watch:
                  unsubscribe: Callable[["Watch"], None],
                  current_rv: Optional[Callable[[], int]] = None,
                  max_queue: int = DEFAULT_WATCH_QUEUE,
-                 bookmark_interval: float = DEFAULT_BOOKMARK_INTERVAL):
+                 bookmark_interval: float = DEFAULT_BOOKMARK_INTERVAL,
+                 on_drop: Optional[Callable[["Watch", bool], None]] = None):
         self.kind = kind
         self.namespace = namespace
         self.events: "queue.Queue[WatchEvent]" = queue.Queue()
@@ -215,6 +243,7 @@ class Watch:
         self.bookmark_interval = bookmark_interval
         self._unsubscribe = unsubscribe
         self._current_rv = current_rv
+        self._on_drop = on_drop  # (watch, disconnected) — backpressure tick
         self._stopped = False
         self._dead = False  # fault-injected stream death (alive → False)
         self._overflowed = False  # consumer stalled past max_queue
@@ -245,6 +274,8 @@ class Watch:
             # Commit-time watcher snapshots taken before the disconnect
             # can still aim events here — counted, never silent.
             self.dropped += 1
+            if self._on_drop is not None:
+                self._on_drop(self, False)
             return False
         if not replay and self.events.qsize() >= self.max_queue:
             # Stalled consumer: cut it off. alive goes False, so an HTTP
@@ -254,6 +285,8 @@ class Watch:
             self._overflowed = True
             self.dropped += 1
             self._unsubscribe(self)
+            if self._on_drop is not None:
+                self._on_drop(self, True)
             return False
         # HB edge: watch delivery is a cross-thread hand-off — everything
         # the committer did before this event is ordered before the
@@ -343,16 +376,54 @@ def match_labels(obj: Obj, selector: Optional[dict[str, str]]) -> bool:
     return all(labels.get(k) == v for k, v in selector.items())
 
 
+def _observe_status_batch(kind: str, size: int) -> None:
+    """Record one coalesced-status batch in the wire-path metrics. Never
+    raises — metrics must not break the write path."""
+    try:
+        from k8s_dra_driver_tpu_torch.pkg.metrics import (
+            default_wirepath_metrics,
+        )
+        default_wirepath_metrics().status_coalesce_batch_size.observe(
+            size, kind=kind or "_all")
+    except Exception:  # noqa: BLE001 — metrics hook
+        pass
+
+
+class _StatusTxn:
+    """One queued ``update_status`` awaiting its batch's group commit
+    (the checkpoint ``_Txn`` pattern on the apiserver write path)."""
+
+    __slots__ = ("obj", "done", "result", "error", "chan")
+
+    def __init__(self, obj: Obj):
+        self.obj = obj
+        self.done = threading.Event()
+        self.result: Optional[Obj] = None
+        self.error: Optional[BaseException] = None
+        # HB channel identity: a never-reused serial, NOT id(self) —
+        # txns are short-lived and CPython recycles addresses, so an
+        # id-keyed channel would hand a fresh txn a dead txn's clock.
+        self.chan = racelab.new_cell("status-txn")
+
+
 class _Shard:
     """One kind's slice of the store: its own lock, objects, write
     generation, watcher set, bounded event backlog, and notify FIFO.
     All fields are guarded by ``lock`` except the FIFO drain, which is
     serialized by ``notify_mu`` (acquired strictly BEFORE ``lock``; the
-    reverse order never occurs, so the pair cannot deadlock)."""
+    reverse order never occurs, so the pair cannot deadlock), and the
+    status-coalescing pipeline (``status_pending_mu`` guards the queue,
+    ``status_commit_mu`` serializes batch leaders; order:
+    status_commit_mu → lock → pending/notify internals)."""
 
     __slots__ = ("lock", "objects", "gens", "usage_gens", "watches",
                  "backlog", "trim_rv", "delivered_rv", "pending_notify",
-                 "notify_mu", "last_rv", "sorted_keys", "events_delivered")
+                 "notify_mu", "last_rv", "sorted_keys", "events_delivered",
+                 "wire_cache", "wire_hits", "wire_misses", "wire_evictions",
+                 "overflow_disconnects", "dropped_events",
+                 "fanout_events", "fanout_copies",
+                 "status_pending", "status_pending_mu", "status_commit_mu",
+                 "status_batches", "status_batched")
 
     def __init__(self, backlog_window: int):
         self.lock = sanitizer.new_lock("FakeClient._Shard.lock",
@@ -387,6 +458,30 @@ class _Shard:
         self.notify_mu = sanitizer.new_lock("FakeClient._Shard.notify_mu")
         self.events_delivered = 0  # per-watcher queue puts (guarded by
         # notify_mu — the only writer holds it)
+        # Per-object encoded-bytes memo for the LIST serve path: key →
+        # (resourceVersion, bytes). Guarded by ``lock``; bounded at
+        # WIRE_CACHE_MAX (FIFO eviction, counted).
+        self.wire_cache: dict[tuple[str, str, str], tuple[str, bytes]] = {}
+        self.wire_hits = 0
+        self.wire_misses = 0
+        self.wire_evictions = 0
+        # Backpressure accounting (guarded by ``lock``): stalled-watcher
+        # disconnects and events dropped at/after the disconnect.
+        self.overflow_disconnects = 0
+        self.dropped_events = 0
+        # Fan-out accounting (guarded by notify_mu, same as
+        # events_delivered): events drained vs. deep copies paid — the
+        # wire-path harness's copies-halved check reads these.
+        self.fanout_events = 0
+        self.fanout_copies = 0
+        # Status-coalescing pipeline (checkpoint group-commit shape).
+        self.status_pending: deque[_StatusTxn] = deque()
+        self.status_pending_mu = sanitizer.new_lock(
+            "FakeClient._Shard.status_pending_mu")
+        self.status_commit_mu = sanitizer.new_lock(
+            "FakeClient._Shard.status_commit_mu")
+        self.status_batches = 0   # batches committed (guarded by lock)
+        self.status_batched = 0   # txns committed via batches (ditto)
 
     def sorted_key_view(self) -> list[tuple[str, str, str]]:
         """Caller holds ``lock``. The returned list must not be mutated."""
@@ -401,10 +496,17 @@ class FakeClient:
 
     ``sharded=False`` collapses every kind onto ONE shard (one lock, one
     backlog, one notify FIFO): the single-lock baseline that
-    ``run_cross_kind_writes`` and ``run_node_fleet`` compare against."""
+    ``run_cross_kind_writes`` and ``run_node_fleet`` compare against.
+    ``fanout_copy=True`` and ``coalesce_status=False`` likewise restore
+    copy-per-event fan-out and direct (uncoalesced) status writes — the
+    baseline arm of ``run_wire_path``."""
 
-    def __init__(self, sharded: bool = True) -> None:
+    def __init__(self, sharded: bool = True,
+                 fanout_copy: bool = False,
+                 coalesce_status: bool = True) -> None:
         self._sharded = sharded
+        self._fanout_copy = fanout_copy
+        self._coalesce_status = coalesce_status
         self._shards: dict[str, _Shard] = {}
         self._shards_mu = sanitizer.new_lock("FakeClient._shards_mu")
         # Cluster-wide monotonic resourceVersion. Taken strictly INSIDE a
@@ -474,7 +576,10 @@ class FakeClient:
         copy-on-write (no verb mutates a published dict in place), so the
         committed object IS an immutable snapshot and every matching
         watcher shares the same reference — the client-go read-only
-        contract, with zero deep copies on the hot path.
+        contract, with zero deep copies on the hot path. ``fanout_copy=True``
+        (the wire-path harness's baseline arm) restores one deep copy per
+        event. Copies paid are counted (``fanout_copies``) against events
+        drained (``fanout_events``) — the harness's copies-halved check.
 
         The delivery lock ``notify_mu`` drains the FIFO one event at a
         time, so per-watcher delivery order always equals commit order
@@ -482,15 +587,22 @@ class FakeClient:
         advances only AFTER the queue puts, so a bookmark taken at
         delivered_rv can never name an rv whose event is still in
         flight."""
+        copy_fanout = self._fanout_copy
         while True:
             with shard.notify_mu:
                 with shard.lock:
                     if not shard.pending_notify:
                         return
                     rv, etype, obj, watchers = shard.pending_notify.popleft()
-                event = WatchEvent(etype, obj)
+                shard.fanout_events += 1
+                if copy_fanout:
+                    snapshot = _copy_obj(obj)
+                    shard.fanout_copies += 1
+                else:
+                    snapshot = obj
+                event = WatchEvent(etype, snapshot)
                 for w in watchers:
-                    if w.matches(obj) and w.deliver(event):
+                    if w.matches(snapshot) and w.deliver(event):
                         shard.events_delivered += 1
                 shard.delivered_rv = max(shard.delivered_rv, rv)
 
@@ -622,21 +734,106 @@ class FakeClient:
 
     def update_status(self, obj: Obj) -> Obj:
         """Status-subresource update: only ``status`` is taken from ``obj``
-        (and its resourceVersion, when set, must match)."""
+        (and its resourceVersion, when set, must match).
+
+        Group-committed (the checkpoint ``transact`` pattern): concurrent
+        status writers queue their patch and one batch leader applies up
+        to ``DEFAULT_COALESCE_MAX`` of them under a single shard-lock
+        acquisition followed by a single fan-out drain — N actors
+        stamping statuses together pay one apply window instead of N
+        lock convoys. The call stays synchronous (returns the committed
+        object, raises this patch's own conflict/not-found/injected-fault
+        error); the event is fanned out before the call returns."""
         faultpoints.maybe_fail(FP_FAKE_MUTATE)
         shard = self._shard(obj.get("kind", ""))
-        with shard.lock:
-            faultpoints.maybe_fail(FP_FAKE_COMMIT)
-            key = obj_key(obj)
-            if key not in shard.objects:
-                raise NotFoundError(f"{key} not found")
-            merged = _copy_obj(shard.objects[key])
-            merged["status"] = _copy_obj(obj.get("status"))
-            merged["metadata"]["resourceVersion"] = meta(obj).get(
-                "resourceVersion", merged["metadata"]["resourceVersion"])
-            ret = self._update_locked(shard, merged)
-        self._drain_notify(shard)
-        return ret
+        if not self._coalesce_status:
+            with shard.lock:
+                ret = self._apply_status_locked(shard, obj)
+            self._drain_notify(shard)
+            return ret
+        txn = _StatusTxn(obj)
+        with shard.status_pending_mu:
+            shard.status_pending.append(txn)
+        # The bounded window means a leader may commit a full batch that
+        # does not yet include us — loop until some leader (possibly this
+        # caller) has committed our txn. FIFO pops guarantee progress.
+        deadline = time.monotonic() + COALESCE_WAIT_TIMEOUT
+        while not txn.done.is_set():
+            batch_size = [0]
+            try:
+                with shard.status_commit_mu:
+                    if not txn.done.is_set():
+                        self._commit_status_batch(shard, batch_size)
+            finally:
+                # Histogram observation OUTSIDE the leadership lock:
+                # followers of the next batch are already queued on
+                # status_commit_mu.
+                if batch_size[0]:
+                    _observe_status_batch(obj.get("kind", ""), batch_size[0])
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    "update_status group-commit made no progress within "
+                    f"{COALESCE_WAIT_TIMEOUT}s")
+        racelab.hb_recv(txn.chan)
+        if txn.error is not None:
+            raise txn.error
+        assert txn.result is not None
+        return txn.result
+
+    def _apply_status_locked(self, shard: _Shard, obj: Obj) -> Obj:
+        """Merge + commit one status patch. Caller holds ``shard.lock``
+        and drains after. The commit fault point fires here, inside the
+        lock, once per patch — exactly as it fires per call without
+        coalescing (latency mode holds the critical section open; error
+        modes fail only this patch)."""
+        faultpoints.maybe_fail(FP_FAKE_COMMIT)
+        key = obj_key(obj)
+        if key not in shard.objects:
+            raise NotFoundError(f"{key} not found")
+        merged = _copy_obj(shard.objects[key])
+        merged["status"] = _copy_obj(obj.get("status"))
+        merged["metadata"]["resourceVersion"] = meta(obj).get(
+            "resourceVersion", merged["metadata"]["resourceVersion"])
+        return self._update_locked(shard, merged)
+
+    def _commit_status_batch(self, shard: _Shard,
+                             batch_size: Optional[list] = None) -> None:
+        """Apply up to ``DEFAULT_COALESCE_MAX`` queued status patches as
+        one batch: ONE shard-lock acquisition, per-txn error isolation, ONE
+        fan-out drain, then wake every member. Caller holds
+        ``status_commit_mu``."""
+        with shard.status_pending_mu:
+            batch = [shard.status_pending.popleft()
+                     for _ in range(min(len(shard.status_pending),
+                                        DEFAULT_COALESCE_MAX))]
+        if batch_size is not None:
+            batch_size[0] = len(batch)
+        if not batch:
+            return
+        try:
+            with shard.lock:
+                shard.status_batches += 1
+                shard.status_batched += len(batch)
+                for txn in batch:
+                    try:
+                        txn.result = self._apply_status_locked(
+                            shard, txn.obj)
+                    except Exception as e:  # noqa: BLE001 — per-txn failure
+                        txn.error = e
+            self._drain_notify(shard)
+        except BaseException as e:
+            # Batch-level failure: every member that has no error of its
+            # own failed with it (nobody may be left stranded in wait).
+            for txn in batch:
+                if txn.error is None and txn.result is None:
+                    txn.error = e
+            raise
+        finally:
+            for txn in batch:
+                # HB edge: the leader ran this follower's merge on ITS
+                # thread — order that work before the follower resuming.
+                racelab.hb_send(txn.chan)
+                txn.done.set()
 
     def delete(self, kind: str, name: str, namespace: str = "") -> None:
         faultpoints.maybe_fail(FP_FAKE_MUTATE)
@@ -698,14 +895,15 @@ class FakeClient:
                        label_selector: Optional[dict[str, str]] = None,
                        limit: int = 0, continue_token: str = "") -> bytes:
         """:meth:`list_page`, already encoded: byte-identical to
-        ``json.dumps(self.list_page(...)).encode()``, with no copy of the
-        selected objects (each is encoded outside the shard lock; stored
-        objects are immutable by contract). The HTTP apiserver serves LIST
-        from here."""
+        ``json.dumps(self.list_page(...)).encode()`` but each item's
+        bytes come from the shard's per-object wire memo (hit = splice,
+        no re-walk) — the LIST half of the serve path's encode-once
+        discipline. The HTTP apiserver serves LIST from here."""
+        shard = self._shard(kind)
         selected, snapshot_rv, next_key = self._list_page_select(
             kind, namespace, label_selector, limit, continue_token)
         return wirecodec.wire_list_page(
-            [wirecodec.encode_obj(o, site="list_item") for o in selected],
+            [self._wire_obj_bytes(shard, o) for o in selected],
             str(snapshot_rv), next_key)
 
     def _list_page_select(self, kind: str, namespace: Optional[str],
@@ -763,6 +961,54 @@ class FakeClient:
                 last_key = key
             return items, snapshot_rv, next_key
 
+    def _wire_obj_bytes(self, shard: _Shard, obj: Obj) -> bytes:
+        """Encoded bytes of a stored object, via the shard's bounded
+        per-object memo: valid exactly while the object's
+        resourceVersion is unchanged (every commit mints a fresh rv, so
+        rv equality IS content equality). Encoding happens OUTSIDE the
+        shard lock — stored objects are immutable-by-contract."""
+        key = obj_key(obj)
+        rv = (obj.get("metadata") or {}).get("resourceVersion", "")
+        with shard.lock:
+            ent = shard.wire_cache.get(key)
+            if ent is not None and ent[0] == rv:
+                shard.wire_hits += 1
+                return ent[1]
+            shard.wire_misses += 1
+        data = wirecodec.encode_obj(obj, site="list_item")
+        with shard.lock:
+            shard.wire_cache[key] = (rv, data)
+            while len(shard.wire_cache) > WIRE_CACHE_MAX:
+                shard.wire_cache.pop(next(iter(shard.wire_cache)))
+                shard.wire_evictions += 1
+        return data
+
+    def wire_path_snapshot(self) -> dict[str, int]:
+        """Aggregated wire-path accounting across shards (debug/harness
+        surface; the metric families mirror the backpressure and
+        coalescing rows). Copies-per-event is the wire-path harness's
+        allocation check: 1.0 in baseline arms, 0.0 copy-free."""
+        out = {"fanout_events": 0, "fanout_copies": 0,
+               "overflow_disconnects": 0, "dropped_events": 0,
+               "wire_cache_hits": 0, "wire_cache_misses": 0,
+               "wire_cache_evictions": 0,
+               "status_batches": 0, "status_batched": 0}
+        with self._shards_mu:
+            shards = list(self._shards.values())
+        for s in shards:
+            with s.notify_mu:
+                out["fanout_events"] += s.fanout_events
+                out["fanout_copies"] += s.fanout_copies
+            with s.lock:
+                out["overflow_disconnects"] += s.overflow_disconnects
+                out["dropped_events"] += s.dropped_events
+                out["wire_cache_hits"] += s.wire_hits
+                out["wire_cache_misses"] += s.wire_misses
+                out["wire_cache_evictions"] += s.wire_evictions
+                out["status_batches"] += s.status_batches
+                out["status_batched"] += s.status_batched
+        return out
+
     def _current_rv_locked(self, shard: _Shard) -> int:
         """Snapshot rv for a fresh list: the global counter would overstate
         what this shard has committed only by rvs belonging to OTHER
@@ -814,7 +1060,9 @@ class FakeClient:
                       lambda w, s=shard: self._remove_watch(s, w),
                       current_rv=lambda s=shard: s.delivered_rv,
                       max_queue=max_queue,
-                      bookmark_interval=bookmark_interval)
+                      bookmark_interval=bookmark_interval,
+                      on_drop=lambda w, disconnected, s=shard:
+                          self._note_backpressure(s, w, disconnected))
             shard.watches.append(w)
             if send_initial:
                 for key in shard.sorted_key_view():
@@ -822,13 +1070,43 @@ class FakeClient:
                         continue
                     obj = shard.objects[key]
                     if w.matches(obj):
-                        w.deliver(WatchEvent("ADDED", obj),
+                        w.deliver(WatchEvent("ADDED", self._snapshot(obj)),
                                   replay=True)
             if resource_version is not None:
                 for rv, etype, obj, _prev in shard.backlog:
                     if rv > resource_version and w.matches(obj):
-                        w.deliver(WatchEvent(etype, obj), replay=True)
+                        w.deliver(WatchEvent(etype, self._snapshot(obj)),
+                                  replay=True)
             return w
+
+    def _snapshot(self, obj: Obj) -> Obj:
+        """A delivery snapshot of a stored object: the object itself in
+        copy-free mode (copy-on-write store + read-only contract), a deep
+        copy in baseline mode."""
+        if self._fanout_copy:
+            return _copy_obj(obj)
+        return obj
+
+    def _note_backpressure(self, shard: _Shard, w: Watch,
+                           disconnected: bool) -> None:
+        """Backpressure tick: a watcher overflowed (``disconnected``) or
+        an already-overflowed watcher was aimed another event. Counted in
+        the shard snapshot AND the wire-path metric families — the
+        drop-to-relist is never silent."""
+        with shard.lock:
+            shard.dropped_events += 1
+            if disconnected:
+                shard.overflow_disconnects += 1
+        try:
+            from k8s_dra_driver_tpu_torch.pkg.metrics import (
+                default_wirepath_metrics,
+            )
+            m = default_wirepath_metrics()
+            m.backpressure_dropped_total.inc(kind=w.kind)
+            if disconnected:
+                m.backpressure_disconnects_total.inc(kind=w.kind)
+        except Exception:  # noqa: BLE001 — metrics hook
+            pass
 
     def _remove_watch(self, shard: _Shard, w: Watch) -> None:
         with shard.lock:

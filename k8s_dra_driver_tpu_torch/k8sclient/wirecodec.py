@@ -19,7 +19,8 @@ clients exchange:
 obvious ``json.dumps(...)`` spelling (default separators, ASCII
 escapes) for JSON-shaped input. Input outside the JSON shape (non-str
 keys, subclassed scalars, exotic values) takes the ``json.dumps`` slow
-path, COUNTED per call site in :func:`fallback_counts` — never silent.
+path, COUNTED per call site in :func:`fallback_counts` and in
+``gpu_dra_wire_encode_fallback_total{site=...}`` — never silent.
 """
 
 from __future__ import annotations
@@ -57,6 +58,13 @@ _fallbacks: dict[str, int] = {}
 def _count_fallback(site: str) -> None:
     with _fallback_mu:
         _fallbacks[site] = _fallbacks.get(site, 0) + 1
+    try:
+        from k8s_dra_driver_tpu_torch.pkg.metrics import (
+            default_wirepath_metrics,
+        )
+        default_wirepath_metrics().encode_fallback_total.inc(site=site)
+    except Exception:  # noqa: BLE001 — metrics must never break encoding
+        pass
 
 
 def fallback_counts() -> dict[str, int]:

@@ -780,6 +780,16 @@ class Allocator:
         #: fragmentation-blocked claims (capacity existed, no placement
         #: fit) — the defrag planner's work queue; bounded + counted.
         self.blocked: "OrderedDict[str, dict]" = OrderedDict()
+        #: nominated placements: (pool, device) → uid of the blocked claim
+        #: the defrag planner is clearing it for (guarded by ``mutex``).
+        #: Every other claim is steered off them, as the Kubernetes
+        #: scheduler holds a preemptor's nominated node: without it a
+        #: victim moved out of one cleared placement lands in another
+        #: one, and the preemptions chase each other. A nomination lives
+        #: as long as its claim's ``blocked`` entry: every path that
+        #: drops the entry drops it too, and the planner drops those of
+        #: claims deleted or allocated behind its back.
+        self.nominated: dict[tuple[str, str], str] = {}
 
     def _gens(self, *kinds: str) -> Optional[tuple[int, ...]]:
         return None if self._gen_of is None else self._gen_of(*kinds)
@@ -1302,7 +1312,7 @@ class Allocator:
         }
         self.blocked.move_to_end(uid)
         while len(self.blocked) > _BLOCKED_MAX:
-            self.blocked.popitem(last=False)
+            self.drop_nominations(self.blocked.popitem(last=False)[0])
             self.metrics.evict("blocked")
 
     def blocked_claims(self) -> list[dict]:
@@ -1321,6 +1331,7 @@ class Allocator:
         if status.get("allocation"):
             sanitizer.note_write(self._cell_blocked)
             self.blocked.pop(fresh["metadata"].get("uid", ""), None)
+            self.drop_nominations(fresh["metadata"].get("uid", ""))
             return fresh  # idempotent
 
         idx = self._slice_index()
@@ -1346,6 +1357,10 @@ class Allocator:
                 node=node)
             if avoid:
                 cands = self._avoid_filter(cands, avoid, idx)
+            others = [k for k, uid in self.nominated.items()
+                      if uid != holder[0]]
+            if others:
+                cands = self._avoid_filter(cands, others, idx)
             if mode == "All":
                 # DRA "All" semantics: every matching device must be
                 # allocatable, or the claim fails — a partial subset is
@@ -1431,9 +1446,24 @@ class Allocator:
         self.metrics.allocations_total.inc(outcome="success")
         sanitizer.note_write(self._cell_blocked)
         self.blocked.pop(holder[0], None)
+        self.drop_nominations(holder[0])
         self._update_fragmentation(
             idx, masks, {r["pool"] for r in results})
         return updated
+
+    def nominate(self, pool: str, device: str, uid: str) -> None:
+        """Hold the placement ``(pool, device)`` for the blocked claim
+        ``uid`` (its previous nomination dropped) until that claim is
+        allocated or :meth:`drop_nominations` releases it."""
+        with self.mutex:
+            self.drop_nominations(uid)
+            self.nominated[(pool, device)] = uid
+
+    def drop_nominations(self, uid: str) -> None:
+        """Release every placement held for the claim ``uid``."""
+        with self.mutex:
+            for key in [k for k, v in self.nominated.items() if v == uid]:
+                del self.nominated[key]
 
     # -- fragmentation accounting (docs/performance.md) -----------------------
 
@@ -1502,19 +1532,22 @@ class Allocator:
         """Every geometry placement that could host the claim's
         ExactCount requests, with its current occupants — the defrag
         planner's target menu. Each row: request, pool, device, volume,
-        victims (holding claims as uid, name, namespace and the chips
-        they hold, deduplicated), and victim_chips (total chips those
-        claims hold anywhere — the drain-priority weight preemption
-        scoring minimizes)."""
+        victims (holding claims as uid, name, namespace, the chips they
+        hold and the shapes of the boxes they hold, deduplicated), and
+        victim_chips (total chips those claims hold anywhere — the
+        drain-priority weight preemption scoring minimizes)."""
         with self.mutex:
             idx = self._slice_index()
             _stamp, _consumed, allocated, _dirty, _masks = self._usage()
             holder_chips: dict[tuple[str, str, str], int] = {}
+            holder_shapes: dict[tuple[str, str, str], set[str]] = {}
             for (pool, dev), h in allocated.items():
                 geo = idx.geometry.get(pool)
                 g = geo.boxes.get(dev) if geo is not None else None
                 holder_chips[h] = holder_chips.get(h, 0) + (
                     g.volume if g is not None else 1)
+                if g is not None:
+                    holder_shapes.setdefault(h, set()).add(g.shape)
             out: list[dict] = []
             for req in claim_requests(claim):
                 exact = req.get("exactly") or req
@@ -1540,7 +1573,8 @@ class Allocator:
                         "volume": g.volume,
                         "victims": [
                             {"uid": h[0], "name": h[1], "namespace": h[2],
-                             "chips": holder_chips.get(h, 0)}
+                             "chips": holder_chips.get(h, 0),
+                             "shapes": sorted(holder_shapes.get(h, ()))}
                             for h in victims],
                         "victim_chips": sum(holder_chips.get(h, 0)
                                             for h in victims),

@@ -616,6 +616,13 @@ class ClaimReallocator:
         self._pending: dict[str, tuple[str, str]] = sanitizer.track_state(
             {}, "ClaimReallocator._pending")  # uid -> (name, ns)
         self._attempts: dict[str, int] = {}
+        # Per-claim count of drain notices (guarded by _mu): a pass that
+        # finished a claim drops it from _pending only when no newer
+        # notice arrived meanwhile — a claim drained again while its
+        # previous drain was being processed (a defrag victim preempted
+        # a second time) must stay pending, not be dropped with the old
+        # work item.
+        self._notices: dict[str, int] = {}
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._informer: Optional[Informer] = None
@@ -630,9 +637,11 @@ class ClaimReallocator:
         if ANN_DRAIN not in anns or ANN_DRAIN_FAILED in anns:
             return
         meta = claim["metadata"]
+        uid = meta.get("uid", "")
         with self._mu:
-            self._pending[meta.get("uid", "")] = (
-                meta.get("name", ""), meta.get("namespace", ""))
+            self._pending[uid] = (meta.get("name", ""),
+                                  meta.get("namespace", ""))
+            self._notices[uid] = self._notices.get(uid, 0) + 1
         self._wake.set()
 
     def pending_count(self) -> int:
@@ -646,6 +655,7 @@ class ClaimReallocator:
         terminal outcome (reallocated or cleanly failed) this pass."""
         with self._mu:
             work = dict(self._pending)
+            notices = {uid: self._notices.get(uid, 0) for uid in work}
         done = 0
         for uid, (name, ns) in sorted(work.items()):
             if self._stop.is_set():
@@ -663,7 +673,9 @@ class ClaimReallocator:
             if finished:
                 done += 1
                 with self._mu:
-                    self._pending.pop(uid, None)
+                    if self._notices.get(uid, 0) == notices[uid]:
+                        self._pending.pop(uid, None)
+                        self._notices.pop(uid, None)
                     self._attempts.pop(uid, None)
         return done
 
@@ -900,6 +912,12 @@ class DefragPlanner:
         #: cumulative evictions spent per blocked-claim uid — the storm
         #: bound survives across passes; bounded like the blocked list.
         self._spent: dict[str, int] = {}
+        #: the victims (namespace, name, uid) of each blocked claim's
+        #: newest plan: while one is still draining, the claim waits for
+        #: its nominated placement instead of being planned again (a
+        #: second plan before the first one's victims moved spends the
+        #: budget on placements nobody uses).
+        self._inflight: dict[str, list[tuple[str, str, str]]] = {}
         self._hints: list[dict] = []
         #: True while the admission alert is FIRING (set on the fired
         #: transition, cleared on cleared) — :meth:`maybe_plan` keeps
@@ -930,6 +948,7 @@ class DefragPlanner:
         elif kind == "cleared":
             with self._mu:
                 self._armed = False
+            self.release_stale_nominations()
 
     @property
     def armed(self) -> bool:
@@ -940,10 +959,46 @@ class DefragPlanner:
         """One planning pass IF the admission alert is currently firing
         — the periodic companion to the edge-triggered :meth:`on_alert`
         (a controller main or a test calls this on its poll
-        ticks; it is a no-op while disarmed)."""
+        ticks). While disarmed it plans nothing and only releases the
+        nominations of claims that left the blocked path."""
         if not self.armed:
+            self.release_stale_nominations()
             return {}
         return self.plan_once()
+
+    def release_stale_nominations(self) -> int:
+        """Drop the nominated placement, the blocked entry and the plan in
+        flight of every nominated claim that is gone (deleted, or
+        recreated under a new uid) or allocated, as the scheduler clears
+        a nominated node when its pod goes. A disarmed planner runs no
+        pass that would find them. Returns how many were released."""
+        released = 0
+        with self._plan_mu:
+            with self.alloc_mutex:
+                uids = set(self.alloc.nominated.values())
+                infos = {i["uid"]: i for i in self.alloc.blocked_claims()}
+            for uid in sorted(uids):
+                info = infos.get(uid)
+                if info is not None and not self._resolved(
+                        self.client.try_get("ResourceClaim", info["name"],
+                                            info["namespace"]), uid):
+                    continue
+                self._release(uid)
+                released += 1
+        return released
+
+    @staticmethod
+    def _resolved(claim: Optional[dict], uid: str) -> bool:
+        """Whether the blocked claim ``uid`` no longer needs a placement:
+        deleted, recreated under another uid, or allocated."""
+        return (claim is None or claim["metadata"].get("uid") != uid
+                or bool((claim.get("status") or {}).get("allocation")))
+
+    def _release(self, uid: str) -> None:
+        with self.alloc_mutex:
+            self.alloc.blocked.pop(uid, None)
+            self.alloc.drop_nominations(uid)
+        self._inflight.pop(uid, None)
 
     # -- loop (controller-main wiring) ---------------------------------------
 
@@ -1002,15 +1057,11 @@ class DefragPlanner:
     def _plan_one(self, info: dict, counts: dict[str, int]) -> None:
         uid, name, ns = info["uid"], info["name"], info["namespace"]
         claim = self.client.try_get("ResourceClaim", name, ns)
-        if claim is None or claim["metadata"].get("uid") != uid:
-            with self.alloc_mutex:
-                self.alloc.blocked.pop(uid, None)
+        if self._resolved(claim, uid):
+            self._release(uid)
             counts["resolved"] += 1
             return
-        if (claim.get("status") or {}).get("allocation"):
-            with self.alloc_mutex:
-                self.alloc.blocked.pop(uid, None)
-            counts["resolved"] += 1
+        if self._plan_in_flight(uid):
             return
         budget = self.max_evictions_per_claim - self._spent.get(uid, 0)
         if budget <= 0:
@@ -1021,7 +1072,17 @@ class DefragPlanner:
         with self.alloc_mutex:
             options = self.alloc.placement_options(claim,
                                                    node=info.get("node"))
+            nominated = dict(self.alloc.nominated)
+        if any(not [v for v in opt["victims"] if v["uid"] != uid]
+               and nominated.get((opt["pool"], opt["device"]), uid) == uid
+               for opt in options):
+            # A placement is free for it (its cleared, nominated one, or
+            # one churn released): it needs only its allocation retried.
+            # Planning again would spend its budget on a second target
+            # and give up the first one's nomination.
+            return
         blocked_chips = max(1, int(info.get("chips") or 0))
+        blocked_shapes = frozenset(info.get("shapes") or ())
         viable = []
         for opt in options:
             victims = [v for v in opt["victims"] if v["uid"] != uid]
@@ -1029,7 +1090,7 @@ class DefragPlanner:
                 # The placement is already free — nothing to preempt,
                 # the blocked claim just needs its allocation retried.
                 continue
-            movable = self._movable(victims, blocked_chips)
+            movable = self._movable(victims, blocked_chips, blocked_shapes)
             if movable is None:
                 continue  # an unmovable occupant poisons this placement
             # Only REAL claims are billed; canary probes are free to
@@ -1071,17 +1132,40 @@ class DefragPlanner:
                 annotated += 1
                 if not v.get("canary"):
                     billed += 1
+        # The cleared placement is held for this claim: victims moved out
+        # of another claim's target must not land here.
+        self.alloc.nominate(opt["pool"], opt["device"], uid)
+        self._inflight[uid] = [(v["namespace"], v["name"], v["uid"])
+                               for v in movable]
+        while len(self._inflight) > _SPENT_MAX:
+            self._inflight.pop(next(iter(self._inflight)))
         self._spent[uid] = self._spent.get(uid, 0) + billed
         while len(self._spent) > _SPENT_MAX:
             self._spent.pop(next(iter(self._spent)))
         self.preempted += annotated
         counts["preempted"] += annotated
 
-    def _movable(self, victims: list[dict],
-                 blocked_chips: int) -> Optional[list[dict]]:
+    def _plan_in_flight(self, uid: str) -> bool:
+        """Whether a victim of the blocked claim's newest plan still
+        carries its drain annotation (not yet moved, nor cleanly
+        failed)."""
+        for ns, name, vuid in self._inflight.get(uid, ()):
+            c = self.client.try_get("ResourceClaim", name, ns)
+            if (c is not None and c["metadata"].get("uid") == vuid
+                    and ANN_DRAIN in (c["metadata"].get("annotations")
+                                      or {})):
+                return True
+        self._inflight.pop(uid, None)
+        return False
+
+    def _movable(self, victims: list[dict], blocked_chips: int,
+                 blocked_shapes: frozenset = frozenset()
+                 ) -> Optional[list[dict]]:
         """The victims sorted cheapest-first, or None when any occupant
         is unmovable (already draining, terminally failed, vanished —
-        or simply bigger than the claim being admitted). Canary claims
+        or bigger than the claim being admitted, or as big and holding a
+        box of one of ``blocked_shapes``, the shapes the blocked claim
+        can take). Canary claims
         (``gpu.nvidia.com/canary``, docs/observability.md "Synthetic
         probing") are FREE TO EVICT: always movable regardless of size,
         sorted ahead of real claims, and — in :meth:`_plan_one` — never
@@ -1097,7 +1181,17 @@ class DefragPlanner:
             if ANN_DRAIN in anns or ANN_DRAIN_FAILED in anns:
                 return None  # already in the pipeline: wait, don't pile on
             canary = ANN_CANARY in anns
-            if not canary and v["chips"] > blocked_chips:
+            if not canary and (v["chips"] > blocked_chips or (
+                    v["chips"] == blocked_chips
+                    and not blocked_shapes.isdisjoint(
+                        v.get("shapes", ())))):
+                # A victim as large as the blocked claim that holds a box
+                # of a shape the claim can take needs a free box of that
+                # shape itself: the one the blocked claim cannot find.
+                # Evicting it only swaps who is blocked (on the GPU x
+                # memory-slice mesh an evicted whole-GPU claim turned
+                # blocked and was planned for in turn, evicting an
+                # admitted probe).
                 return None
             out.append({**v, "canary": canary})
         out.sort(key=lambda v: (not v["canary"], v["chips"], v["uid"]))

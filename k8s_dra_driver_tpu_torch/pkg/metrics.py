@@ -340,6 +340,49 @@ def default_informer_metrics() -> InformerMetrics:
     return _default_informer_metrics
 
 
+class WirePathMetrics:
+    """Serve-path counters of the fake apiserver: watcher backpressure,
+    status-patch coalescing, and the wire encoder's counted slow path. One
+    process-global instance by default (:func:`default_wirepath_metrics`):
+    the fake apiserver is process-wide state, so its wire-path accounting
+    is too."""
+
+    def __init__(self, registry: Optional[Registry] = None):
+        self.registry = registry or Registry()
+        r = self.registry
+        self.backpressure_disconnects_total = r.register(Counter(
+            "gpu_dra_watch_backpressure_disconnects_total",
+            "Watchers disconnected for stalling past their bounded queue "
+            "(the consumer's informer relists — drop-to-relist, never "
+            "silent).",
+            ("kind",)))
+        self.backpressure_dropped_total = r.register(Counter(
+            "gpu_dra_watch_backpressure_dropped_total",
+            "Events not delivered to a watcher because it overflowed its "
+            "bounded queue (includes the event that hit the bound).",
+            ("kind",)))
+        self.status_coalesce_batch_size = r.register(Histogram(
+            "gpu_dra_status_coalesce_batch_size",
+            "Status patches coalesced per update_status group-commit "
+            "batch.",
+            (1, 2, 4, 8, 16, 32, 64), ("kind",)))
+        self.encode_fallback_total = r.register(Counter(
+            "gpu_dra_wire_encode_fallback_total",
+            "Serve-path documents outside the specialized encoder's JSON "
+            "shape, encoded by the json.dumps slow path instead.",
+            ("site",)))
+
+
+_default_wirepath_metrics: Optional[WirePathMetrics] = None
+
+
+def default_wirepath_metrics() -> WirePathMetrics:
+    global _default_wirepath_metrics
+    if _default_wirepath_metrics is None:
+        _default_wirepath_metrics = WirePathMetrics()
+    return _default_wirepath_metrics
+
+
 class WorkQueueMetrics:
     """Workqueue health, client-go's ``workqueue_*`` family GPU-named: how
     deep each queue is, how long items wait before a worker picks them up,

@@ -489,6 +489,9 @@ class NodeLeaseHeartbeat:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
+        # A stopped heartbeat leaves /debug/nodelease now, not whenever
+        # the collector reclaims it.
+        _live_heartbeats.discard(self)
 
 
 def fence_cleanup_for(driver, client) -> Callable[[], None]:

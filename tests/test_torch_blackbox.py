@@ -6,7 +6,10 @@ The scenarios of the JAX package's ``tests/test_blackbox.py``
 port's ``pkg/blackbox.py``: the causally-ordered timeline, the
 completeness chain, incident bundles captured on SLO transitions (under
 injected API faults, with counted retention and schema versioning), and
-``/debug/{slo,incidents}`` over HTTP. ``TestExemplars`` and
+``/debug/{slo,incidents}`` over HTTP. ``TestProfiler``, the
+``TestLockContention`` cases but the ``TrackedLock`` one (which waits for
+the sanitizer's lock-order tracking) and the overhead harness are held in
+``test_torch_overhead.py``. ``TestExemplars`` and
 ``TestPrepareSpanEvents`` wait for the tracer. ``TestAgainstJax`` holds
 ``build_timeline`` and ``audit_timeline_chain`` against the JAX package on
 seeded event lists, and one recorder's bundle on the same transitions."""

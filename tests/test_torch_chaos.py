@@ -11,8 +11,8 @@ churn and node-fleet harnesses under fault schedules with their leak
 audits as the oracle. The JAX package's slow classes are slow here too.
 ``TestAgainstJax`` runs the fleet and churn harnesses of both packages at
 one seed and holds their verdicts and timing-free counts equal.
-(``TestChaosSelfHealingQuick`` is held in ``test_torch_soak.py``;
-``TestChaosDefrag`` waits for ``run_allocator_scale``.)"""
+(``TestChaosSelfHealingQuick`` is held in ``test_torch_soak.py``, and
+``TestChaosDefrag`` in ``test_torch_allocator_scale.py``.)"""
 
 import threading
 import time

@@ -12,7 +12,9 @@ the MIG and VFIO modules; the modules of the last six slices are named and
 must be among them; a MIG and a passthrough claim prepare and unprepare
 in a child of their own with the same modules blocked;
 the serving-scale, churn, fleet and chaos harnesses run small in a child
-of their own with the same modules blocked;
+of their own with the same modules blocked, and so do the allocator-scale,
+wire-path and observability overhead harnesses with the store's wire-path
+ledger;
 the ``__main__`` modules, which run their binary when imported, are
 source-scanned only) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
@@ -244,6 +246,65 @@ def test_this_slices_functions_are_scanned(module):
     defined = {n.name for n in ast.parse(path.read_text()).body
                if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
     assert set(SCALE_FUNCTIONS[module]) <= defined
+
+
+#: The allocator and wire-path scale slice: the harnesses, the store's
+#: wire-path parts and the metric families they tick.
+WIRE_FUNCTIONS = {
+    "k8s_dra_driver_tpu_torch.internal.stresslab": (
+        "run_allocator_scale", "run_wire_path", "run_fleetwatch",
+        "run_blackbox_overhead", "run_canary_overhead", "WireContenders",
+        "alloc_scale_world", "wire_path_world"),
+    "k8s_dra_driver_tpu_torch.k8sclient.client": ("_StatusTxn",
+                                                  "FakeClient"),
+    "k8s_dra_driver_tpu_torch.pkg.metrics": ("WirePathMetrics",
+                                             "default_wirepath_metrics"),
+}
+
+_WIRE_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml", "grpc"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+from k8s_dra_driver_tpu_torch.internal.stresslab import (
+    run_allocator_scale, run_blackbox_overhead, run_canary_overhead,
+    run_wire_path)
+from k8s_dra_driver_tpu_torch.k8sclient.client import FakeClient, new_object
+c = FakeClient(fanout_copy=True, coalesce_status=False)
+w = c.watch("Pod", max_queue=1)
+for i in range(3):
+    c.create(new_object("Pod", f"p{i}"))
+snap = c.wire_path_snapshot()
+assert snap["fanout_copies"] == 3 and snap["overflow_disconnects"] == 1, snap
+a = run_allocator_scale(n_nodes=1, n_claims=120, defrag_probes=1,
+                        defrag_timeout_s=4.0)
+assert a["error_count"] == 0 and not a["leaks"], a
+r = run_wire_path(cycles=3, contention_burst_s=0.1)
+assert r["error_count"] == 0 and r["copies_halved"], r
+assert r["backpressure_counted"], r
+assert run_blackbox_overhead(cycles=6)["error_count"] == 0
+assert run_canary_overhead(cycles=6, probe_every=2)["error_count"] == 0
+print("WIRE_OK")
+"""
+
+
+def test_the_wire_and_overhead_harnesses_run_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _WIRE_CHILD, str(REPO)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "WIRE_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("module", sorted(WIRE_FUNCTIONS))
+def test_the_wire_slices_functions_are_scanned(module):
+    """Each function of the allocator and wire-path slice is defined in a
+    module the source scan reads."""
+    path = PORT / Path(*module.split(".")[1:]).with_suffix(".py")
+    assert path in _sources()
+    defined = {n.name for n in ast.parse(path.read_text()).body
+               if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    assert set(WIRE_FUNCTIONS[module]) <= defined
 
 
 _MIG_CHILD = r"""

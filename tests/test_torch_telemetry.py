@@ -1,7 +1,7 @@
 """The GPU port's fleet telemetry plane and SLO engine.
 
 The scenarios of the JAX package's ``tests/test_telemetry.py`` (all but
-``TestRunFleetwatch``, which waits with ``run_fleetwatch``) on the port's
+``TestRunFleetwatch``, which ``test_torch_overhead.py`` holds) on the port's
 ``pkg/telemetry.py`` and ``pkg/slo.py``: the exposition parser's round
 trip, the fleet scraper's per-target fault tolerance
 (``telemetry.scrape``), cross-target aggregation, recording rules, the

@@ -4,7 +4,7 @@ leg of the soak.
 The scenarios of the JAX package's ``tests/test_canary.py``
 ``TestUsageMeterConservation``, ``TestCanaryAvailabilitySlo``,
 ``TestDebugEndpoints`` and ``TestCanaryHarness`` (its node-kill leg; the
-overhead harness waits with ``run_canary_overhead``) on the port's
+overhead harness is held in ``test_torch_overhead.py``) on the port's
 ``pkg/usage.py``. The meter bills GPU-seconds: on the JAX package's mesh
 slices (chip and subslice devices drawing KEP-4815 counters) and on the
 ``h100-8`` mock's whole GPUs. ``TestAgainstJax`` drives one seeded claim
