@@ -184,6 +184,36 @@ One line per phase:
            and meter failures; holds the page fired and cleared within
            their bounds, no false positive, both injected fault points
            fired, no error or leak in any leg and no probe leaked
+   crash   the crash explorer: ``run_crashlab()`` over its seven scenarios
+           on mock ``h100-8`` nodes, twice (sites per scenario, torn
+           variants, wall time; 0 oracle violations, coverage_ok, no
+           uncrashed capable point, equal verdict logs). Then one claim for
+           the card prepared by the GPU plugin on the device library that
+           found the card, crashed at every site of its prepare as crashlab
+           enumerates them and recovered (replay idempotent, spec present,
+           nothing left after unprepare, every discarded plugin stopped);
+           after the sweep the claim prepared again on the plugin recovered
+           from the last site, and an engine at the serve phase's width
+           bound from its CDI spec serves the selfheal batch through the
+           decode kernel, launches equal to decode steps; then the kernel
+           against its plain version at the engine's shape; no claim,
+           checkpoint entry, CDI spec or thread left
+   race    the race detector: ``run_race_smoke()`` (every planted positive
+           on seeds 1-3, 0 false positives, a race-free, error-free and
+           leak-free claim churn in race mode, the fuzzer deterministic);
+           then, with ``GPU_DRA_SANITIZE=race`` and the detector on before
+           the stack is built and under a seeded schedule fuzzer, the GPU
+           plugin on the card's library with its claim watcher makes a
+           claim for the card Ready, an engine bound from its CDI spec
+           serves the selfheal batch through the decode kernel, and the
+           claim is released and unprepared: no race report, no sanitizer
+           violation, launches equal to decode steps, nothing left, the
+           environment restored; then the kernel against its plain version
+           at the engine's shape
+   proto   the protocol model checker: ``run_proto_smoke()`` (7 of 7
+           planted violations detected, each counterexample 1-minimal and
+           replayed identically, the real elector and fence-ack models
+           clean with their state counts, deterministic)
 10. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
            the device library that found the card, the controller's live
            loop reconciling a CD of numNodes 1, and one daemon reporting the
@@ -221,9 +251,9 @@ One line per phase:
 Kernel times are CUDA-event times of a run of back-to-back calls over the
 count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
 burnin, each of selfheal's two batches, the processes batch, the soak,
-the scale harness, the mig tenants and the wire phase's claim) runs
-with every kernel's launch count set to 0 just before it and read just
-after. Then one
+the scale harness, the mig tenants, the wire phase's claim, and the crash
+and race phases' claims) runs with every kernel's launch count set to 0
+just before it and read just after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero before that line;
 without a CUDA device the script exits 1 at once.
@@ -300,6 +330,7 @@ from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
     locate_gpu,
     new_device_lib,
 )
+from k8s_dra_driver_tpu_torch.internal.racecorpus import run_race_smoke
 from k8s_dra_driver_tpu_torch.internal.stresslab import (
     SERVING_SMOKE_ENGINE,
     WireContenders,
@@ -330,7 +361,15 @@ from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
     parse_gpu_index,
 )
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
-from k8s_dra_driver_tpu_torch.pkg import bootid, faultpoints, tracing
+from k8s_dra_driver_tpu_torch.pkg import (
+    bootid,
+    crashlab,
+    faultpoints,
+    protolab,
+    racelab,
+    sanitizer,
+    tracing,
+)
 from k8s_dra_driver_tpu_torch.pkg.canary import (
     CanaryProber,
     driver_probe_hooks,
@@ -1009,6 +1048,16 @@ def _claim_ready(client, name: str, namespace: str = "default") -> bool:
         for d in (c.get("status") or {}).get("devices") or [])
 
 
+def plugin_residue(client, driver) -> list:
+    """What a GPU plugin's claims left: ResourceClaims in ``client``, the
+    plugin's checkpoint entries and CDI claim specs, and any file in its
+    CDI root."""
+    return ([c["metadata"]["name"] for c in client.list("ResourceClaim")]
+            + sorted(driver.state.prepared_claims_nolock())
+            + driver.cdi.list_claim_uids()
+            + sorted(p.name for p in driver.cdi.cdi_root.iterdir()))
+
+
 def _wait(cond, what: str, timeout: float = 30.0) -> None:
     deadline = time.monotonic() + timeout
     while not cond():
@@ -1046,11 +1095,7 @@ def phase_serve(seed: int, lib, gpu) -> dict:
         finally:
             loop.stop()
             driver.stop()
-        residue = ([c["metadata"]["name"]
-                    for c in client.list("ResourceClaim")]
-                   + sorted(driver.state.prepared_claims_nolock())
-                   + driver.cdi.list_claim_uids()
-                   + sorted(p.name for p in driver.cdi.cdi_root.iterdir()))
+        residue = plugin_residue(client, driver)
     line("serve", residue=json.dumps(residue))
     require(not residue, f"left behind: {residue}")
     return served
@@ -1125,15 +1170,47 @@ def check_outputs(engine, summary: dict, reqs: list, what: str) -> None:
                 f"{what}: request {r.rid} decoded a wrong row")
 
 
-def _serve_claim(seed: int, client, driver, gpu) -> dict:
-    name = "smoke-claim"
-    t0 = time.monotonic()
-    claim = client.create(new_object(
+def _card_claim(client, name: str, gpu) -> dict:
+    """A ResourceClaim for the card by UUID, created (not allocated)."""
+    return client.create(new_object(
         "ResourceClaim", name, "default", api_version="resource.k8s.io/v1",
         spec={"devices": {"requests": [{"name": "gpu", "exactly": {
             "deviceClassName": DRIVER_NAME, "allocationMode": "ExactCount",
             "count": 1, "selectors": [{"cel": {"expression":
                 f"device.attributes['uuid'] == '{gpu.uuid}'"}}]}}]}}))
+
+
+def _serve_spec(spec: dict, name: str, w: dict, seed: int, gpu) -> dict:
+    """An engine ``name`` at ``w`` bound from a claim's CDI spec that names
+    the card serves ``w["requests"]`` requests under the serve checks
+    (decode launches equal decode steps on the card); its counts and the
+    first batch's time."""
+    entries = visible_device_entries(spec)
+    require(entries == [gpu.uuid], f"{name}: the spec names {entries}")
+    engine = bind_engine(
+        spec, name, device=w["device"], uuids=w["uuids"],
+        metrics=ServingMetrics(), max_batch=w["max_batch"],
+        kv_cap=w["kv_cap"], heads=w["heads"], head_dim=w["head_dim"],
+        tokens_per_chip_step=2048, queue_cap=64, modeled_chip_tok_s=1e9)
+    reqs = tenant_requests(np.random.default_rng(seed), w["requests"], name,
+                           w["prompts"], w["new_tokens"])
+    serve_requests(engine, reqs, name)
+    done = finish_engine(engine)
+    check_served(engine, done, reqs, name)
+    on_card = engine.device.type == "cuda"
+    first_batch_t = engine.first_batch_t
+    del engine
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"decode_steps": done["decode_steps"],
+            "launches": done["counts"]["decode_attention"],
+            "first_batch_t": first_batch_t}
+
+
+def _serve_claim(seed: int, client, driver, gpu) -> dict:
+    name = "smoke-claim"
+    t0 = time.monotonic()
+    claim = _card_claim(client, name, gpu)
     claim = Allocator(client).allocate(
         claim, reserved_for=[{"resource": "pods", "name": "smoke-pod"}],
         node="node-0")
@@ -1521,11 +1598,7 @@ def phase_selfheal(card: str, seed: int, lib, gpu,
                 f"reallocated {out['reallocated']}, failed {out['failed']}")
         expired = driver.state.delete_expired_aborted(
             now=time.time() + driver.state.aborted_ttl + 1)
-        residue = ([c["metadata"]["name"]
-                    for c in client.list("ResourceClaim")]
-                   + sorted(driver.state.prepared_claims_nolock())
-                   + driver.cdi.list_claim_uids()
-                   + sorted(p.name for p in driver.cdi.cdi_root.iterdir()))
+        residue = plugin_residue(client, driver)
     deadline = time.monotonic() + 10
     while True:
         left = sorted(t.name for t in threading.enumerate()
@@ -3223,11 +3296,7 @@ def phase_wire(card: str, seed: int, lib, gpu, width: dict | None = None,
                 client.delete("ResourceClaim", c["metadata"]["name"],
                               "default")
         snap = client.wire_path_snapshot()
-        residue = ([c["metadata"]["name"]
-                    for c in client.list("ResourceClaim")]
-                   + sorted(driver.state.prepared_claims_nolock())
-                   + driver.cdi.list_claim_uids()
-                   + sorted(p.name for p in driver.cdi.cdi_root.iterdir()))
+        residue = plugin_residue(client, driver)
     on_card = w["device"] is None or torch.device(w["device"]).type == "cuda"
     err = (soak_check(np.random.default_rng(seed), w, "wire", emit=False)
            if on_card else None)
@@ -3261,12 +3330,7 @@ def _wire_claim(seed: int, client, driver, gpu, alloc, hc, watch,
     name = "wire-claim"
     before = client.wire_path_snapshot()
     t0 = time.monotonic()
-    claim = hc.create(new_object(
-        "ResourceClaim", name, "default", api_version="resource.k8s.io/v1",
-        spec={"devices": {"requests": [{"name": "gpu", "exactly": {
-            "deviceClassName": DRIVER_NAME, "allocationMode": "ExactCount",
-            "count": 1, "selectors": [{"cel": {"expression":
-                f"device.attributes['uuid'] == '{gpu.uuid}'"}}]}}]}}))
+    claim = _card_claim(hc, name, gpu)
     uid = claim["metadata"]["uid"]
     alloc.allocate(claim, reserved_for=[
         {"resource": "pods", "name": "wire-pod"}], node="node-0")
@@ -3283,24 +3347,9 @@ def _wire_claim(seed: int, client, driver, gpu, alloc, hc, watch,
             break
     claim_ready_ms = (time.monotonic() - t0) * 1e3
     watch.stop()
-    spec = driver.cdi.read_claim_spec(uid)
-    entries = visible_device_entries(spec)
-    require(entries == [gpu.uuid], f"wire: the spec names {entries}")
-    engine = bind_engine(
-        spec, "wire", device=w["device"], uuids=w["uuids"],
-        metrics=ServingMetrics(), max_batch=w["max_batch"],
-        kv_cap=w["kv_cap"], heads=w["heads"], head_dim=w["head_dim"],
-        tokens_per_chip_step=2048, queue_cap=64, modeled_chip_tok_s=1e9)
-    reqs = tenant_requests(np.random.default_rng(seed), w["requests"], "w",
-                           w["prompts"], w["new_tokens"])
-    serve_requests(engine, reqs, "wire")
-    done = finish_engine(engine)
-    check_served(engine, done, reqs, "wire")
-    ttfb_ms = (engine.first_batch_t - t0) * 1e3
-    on_card = engine.device.type == "cuda"
-    del engine
-    if on_card:
-        torch.cuda.empty_cache()
+    served = _serve_spec(driver.cdi.read_claim_spec(uid), "wire", w, seed,
+                         gpu)
+    ttfb_ms = (served["first_batch_t"] - t0) * 1e3
     c = hc.get("ResourceClaim", name, "default")
     c["status"].pop("reservedFor", None)
     hc.update_status(c)
@@ -3315,8 +3364,8 @@ def _wire_claim(seed: int, client, driver, gpu, alloc, hc, watch,
             - before["status_batches"],
             "status_batched": after["status_batched"]
             - before["status_batched"],
-            "decode_steps": done["decode_steps"],
-            "launches": done["counts"]["decode_attention"]}
+            "decode_steps": served["decode_steps"],
+            "launches": served["launches"]}
 
 
 def phase_overhead(card: str, fleetwatch: dict | None = None,
@@ -3369,6 +3418,342 @@ def phase_overhead(card: str, fleetwatch: dict | None = None,
     require(cn["probe_leaked"] == 0, "overhead: a canary probe leaked")
     return {"fleetwatch": fw, "blackbox": bb, "canary": cn,
             "seconds": seconds}
+
+
+#: The crash and race phases' engine: the selfheal width (one attention
+#: layer of Llama-2-7B, 32 slots, a 4096-token cache) and its batch of 16.
+CHECK_WIDTH = dict(SELFHEAL_WIDTH)
+
+
+class CardPrepareScenario(crashlab.PrepareScenario):
+    """crashlab's prepare scenario with one claim for the card (the machine
+    has one GPU), prepared by ``GpuDriver`` on ``lib``: ``setup`` swaps
+    ``env["new_driver"]`` for a factory over that library, which keeps
+    every driver it builds in ``drivers`` so that the caller can stop the
+    ones a crash discarded."""
+
+    name = "card_prepare"
+    torn = False
+
+    def __init__(self, lib, gpu):
+        self.lib, self.gpu = lib, gpu
+        self.drivers: list = []
+
+    def setup(self, env: crashlab.CrashEnv) -> None:
+        def new_driver() -> GpuDriver:
+            drv = GpuDriver(env["client"], env["cfg"],
+                            device_lib=self.lib).start()
+            self.drivers.append(drv)
+            env["driver"] = drv
+            return drv
+
+        env["new_driver"] = new_driver
+        new_driver()
+        env["claims"] = [crashlab._allocate(
+            env, _card_claim(env["client"], "crash-claim", self.gpu))]
+
+    def stop_drivers(self) -> None:
+        for drv in self.drivers:
+            drv.stop()
+        self.drivers.clear()
+
+
+def phase_crash(card: str, seed: int, lib, gpu,
+                width: dict | None = None) -> dict:
+    """The crash explorer. Host leg: ``run_crashlab()`` over the full
+    corpus on the ``h100-8`` mock, twice; holds
+    0 oracle violations, ``coverage_ok``, no uncrashed capable point and
+    equal verdict logs. Card leg: one claim for the card prepared by the
+    GPU plugin on ``lib`` (:class:`CardPrepareScenario`), crashed at every
+    site of its prepare as crashlab enumerates them and recovered, the
+    oracle whole at each (replay idempotent, spec present, nothing left
+    after unprepare), every discarded driver stopped. Then the last site
+    crashed and recovered once more, the claim prepared again on the
+    recovered plugin, and an engine at ``width`` bound from its CDI spec
+    serves a batch through the decode kernel under the serve checks; the
+    kernel against its plain version at the engine's shape (on the card);
+    no claim, checkpoint entry, CDI spec or driver thread left. Prints
+    ``crash`` lines."""
+    w = {**CHECK_WIDTH, **(width or {})}
+    on_card = w["device"] is None
+    if on_card:
+        require(lib.backend in (BACKEND_NVML, BACKEND_PROCFS),
+                f"crash on the {lib.backend} library, not the one that "
+                "found the card")
+    t0 = time.monotonic()
+    # Every crashed stack logs its recovery; the verdicts carry what counts.
+    prev_disable = logging.root.manager.disable
+    logging.disable(logging.CRITICAL)
+    try:
+        runs = [crashlab.run_crashlab(seed=seed) for _ in range(2)]
+    finally:
+        logging.disable(prev_disable)
+    r = runs[0]
+    line("crash", leg="host", scenarios=len(r["scenarios"]),
+         sites=json.dumps({n: v["sites"]
+                           for n, v in r["per_scenario"].items()}),
+         sites_explored=r["sites_explored"], torn=r["torn_explored"],
+         violations=len(r["oracle_violations"]),
+         uncrashed=json.dumps(r["uncrashed_capable_points"]),
+         coverage_ok=r["coverage_ok"],
+         deterministic=runs[0]["verdict_log"] == runs[1]["verdict_log"],
+         wall_s=json.dumps([x["wall_s"] for x in runs]))
+    require(not r["oracle_violations"],
+            f"crash: violations {r['oracle_violations'][:3]}")
+    require(r["coverage_ok"] and not r["uncrashed_capable_points"],
+            f"crash: coverage {r['sites_skipped']} skipped, uncrashed "
+            f"{r['uncrashed_capable_points']}")
+    require(runs[0]["verdict_log"] == runs[1]["verdict_log"],
+            "crash: two runs of one seed gave different verdict logs")
+
+    threads_before = set(threading.enumerate())
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    scenario = CardPrepareScenario(lib, gpu)
+    t_card = time.monotonic()
+    logging.disable(logging.CRITICAL)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        try:
+            sites = crashlab.enumerate_sites(scenario, base_dir=tmp)
+            scenario.stop_drivers()
+            verdicts = []
+            for point, hit in sites:
+                verdicts.append(crashlab.explore_site(
+                    scenario, point, hit, seed, base_dir=tmp))
+                scenario.stop_drivers()
+            bad = [v for v in verdicts if not v["crashed"] or v["problems"]]
+            sweep_s = time.monotonic() - t_card
+            line("crash", leg="card", card=json.dumps(card),
+                 sites=len(sites),
+                 points=json.dumps(dict(collections.Counter(
+                     p for p, _ in sites))),
+                 violations=len(bad), sweep_s=sweep_s)
+            require(sites, "crash: the card's prepare hit no crash site")
+            require(not bad, f"crash: the card's prepare {bad[:2]}")
+            served = _crash_and_serve(scenario, sites[-1], seed, gpu, w,
+                                      f"{tmp}/last")
+        finally:
+            scenario.stop_drivers()
+            logging.disable(prev_disable)
+    deadline = time.monotonic() + 10
+    while True:
+        left = sorted(t.name for t in threading.enumerate()
+                      if t not in threads_before and t.is_alive())
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    err = (soak_check(np.random.default_rng(seed), w, "crash", emit=False)
+           if on_card else None)
+    out = {**served, "host": r, "card_sites": len(sites),
+           "max_abs_err": err, "threads_left": left,
+           "seconds": time.monotonic() - t0}
+    line("crash", leg="serve", last_site=json.dumps(list(sites[-1])),
+         claim_ready_ms=served["claim_ready_ms"], ttfb_ms=served["ttfb_ms"],
+         decode_steps=served["decode_steps"],
+         kernel_launches=served["launches"], kernel_max_abs_err=err,
+         residue=json.dumps(served["residue"]),
+         threads_left=json.dumps(left), seconds=out["seconds"])
+    require(not served["residue"], f"crash: left behind {served['residue']}")
+    require(not left, f"crash: left threads running: {left}")
+    return out
+
+
+def _crash_and_serve(scenario: CardPrepareScenario, site: tuple, seed: int,
+                     gpu, w: dict, root: str) -> dict:
+    """Crash the card's prepare at ``site``, recover and hold the oracle,
+    then prepare the claim once more on the recovered plugin and serve
+    from its CDI spec; unprepare, delete, and read what is left."""
+    os.makedirs(root)
+    env = crashlab._gpu_env(root)
+    scenario.setup(env)
+    crashed = False
+    with faultpoints.injected(plan=faultpoints.FaultPlan(seed=seed).add(
+            site[0], f"crash-nth:{site[1]}")):
+        try:
+            scenario.run(env)
+        except faultpoints.FaultCrash:
+            crashed = True
+    require(crashed, f"crash: site {site} did not crash")
+    scenario.recover(env)
+    problems: list = []
+    scenario.oracle(env, problems)
+    require(not problems, f"crash: recovery at {site}: {problems}")
+    drv, claim = env["driver"], env["claims"][0]
+    uid = claim["metadata"]["uid"]
+    t0 = time.monotonic()
+    res = drv.prepare_resource_claims([claim])[uid]
+    require(res.error is None, f"crash: prepare after recovery {res.error!r}")
+    claim_ready_ms = (time.monotonic() - t0) * 1e3
+    served = _serve_spec(drv.cdi.read_claim_spec(uid), "crash", w, seed, gpu)
+    err = drv.unprepare_resource_claims([crashlab._ref(claim)])[uid]
+    require(err is None, f"crash: unprepare {err!r}")
+    env["client"].delete("ResourceClaim", claim["metadata"]["name"],
+                         "default")
+    residue = plugin_residue(env["client"], drv)
+    return {"claim_ready_ms": claim_ready_ms,
+            "ttfb_ms": (served["first_batch_t"] - t0) * 1e3,
+            "decode_steps": served["decode_steps"],
+            "launches": served["launches"], "residue": residue}
+
+
+def phase_race(card: str, seed: int, lib, gpu, width: dict | None = None,
+               seeds: tuple = (1, 2, 3), churn_s: float = 0.8) -> dict:
+    """The race detector. First ``run_race_smoke(seeds, churn_s)``: every
+    planted positive detected on every seed, 0 false positives, a claim
+    churn in race mode with 0 races, errors and leaks, the fuzzer
+    deterministic. Then the card's claim served in race mode
+    (``GPU_DRA_SANITIZE=race``, the detector on before the stack is
+    built, all of it inside ``racelab.fuzz(seed)``): a FakeClient, the GPU
+    plugin on ``lib`` with its claim watcher, a claim for the card by UUID
+    made Ready, an engine at ``width`` bound from its CDI spec serving a
+    batch through the decode kernel, then the claim unreserved, unprepared
+    and deleted. Holds no race report, no sanitizer violation, launches
+    equal to decode steps and no residue; the environment and the
+    detector are restored. The kernel against its plain version at the
+    engine's shape (on the card). Prints ``race`` lines."""
+    w = {**CHECK_WIDTH, **(width or {})}
+    on_card = w["device"] is None
+    if on_card:
+        require(lib.backend in (BACKEND_NVML, BACKEND_PROCFS),
+                f"race on the {lib.backend} library, not the one that "
+                "found the card")
+    t0 = time.monotonic()
+    r = run_race_smoke(seeds=seeds, churn_s=churn_s)
+    line("race", leg="smoke", seeds=json.dumps(r["seeds"]),
+         positives=json.dumps([
+             f"{s['corpus']['positives_detected']}/"
+             f"{s['corpus']['positives_total']}" for s in r["per_seed"]]),
+         false_positives=r["false_positives"],
+         churn_races=r["churn_races"], churn_errors=r["churn_errors"],
+         churn_leaks=r["churn_leaks"],
+         churn_cells=json.dumps([s["churn"]["cells"]
+                                 for s in r["per_seed"]]),
+         deterministic=r["deterministic"],
+         seconds=time.monotonic() - t0)
+    require(r["all_positives_detected"] and r["false_positives"] == 0,
+            f"race: corpus {[s['corpus'] for s in r['per_seed']]}")
+    require(r["churn_races"] == 0 and r["churn_errors"] == 0
+            and not r["churn_leaks"],
+            f"race: churn races {r['churn_races']}, errors "
+            f"{r['churn_errors']}, leaks {r['churn_leaks']}")
+    require(r["deterministic"], "race: the fuzzer's log is not seed-pure")
+
+    prev_env = os.environ.get(sanitizer.ENV_SANITIZE)
+    was_active = racelab.active()
+    os.environ[sanitizer.ENV_SANITIZE] = "race"
+    racelab.enable()
+    sanitizer.reset()
+    racelab.reset()
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    t_card = time.monotonic()
+    try:
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp, \
+                racelab.fuzz(seed=seed) as fz:
+            served = _race_claim(seed, lib, gpu, w, tmp)
+        reports, violations = racelab.reports(), sanitizer.violations()
+        summary = racelab.report_summary()
+    finally:
+        racelab.reset()
+        sanitizer.reset()
+        if not was_active:
+            racelab.disable()
+        if prev_env is None:
+            os.environ.pop(sanitizer.ENV_SANITIZE, None)
+        else:
+            os.environ[sanitizer.ENV_SANITIZE] = prev_env
+    err = (soak_check(np.random.default_rng(seed), w, "race", emit=False)
+           if on_card else None)
+    out = {**served, "smoke": r, "reports": reports, "violations": violations,
+           "cells": summary["cells"], "fuzz_decisions": len(fz.log()),
+           "max_abs_err": err, "seconds": time.monotonic() - t0}
+    line("race", leg="card", card=json.dumps(card),
+         claim_ready_ms=served["claim_ready_ms"], ttfb_ms=served["ttfb_ms"],
+         decode_steps=served["decode_steps"],
+         kernel_launches=served["launches"], kernel_max_abs_err=err,
+         races=len(reports), violations=len(violations),
+         cells=summary["cells"], cells_dropped=summary["cells_dropped"],
+         fuzz_decisions=out["fuzz_decisions"],
+         residue=json.dumps(served["residue"]),
+         card_s=time.monotonic() - t_card)
+    require(not reports, f"race: data races {reports[:2]}")
+    require(not violations, f"race: sanitizer violations {violations[:2]}")
+    require(summary["cells"] > 0, "race: the detector tracked no cell")
+    require(not served["residue"], f"race: left behind {served['residue']}")
+    return out
+
+
+def _race_claim(seed: int, lib, gpu, w: dict, tmp: str) -> dict:
+    """The race phase's stack, built in race mode: a claim for the card
+    made Ready by the claim watcher, served, released and unprepared."""
+    client = FakeClient()
+    client.create(new_object(
+        "DeviceClass", DRIVER_NAME, spec={"selectors": [{"cel": {
+            "expression": "device.attributes['type'] == 'gpu'"}}]}))
+    client.create(new_object("Node", "node-0"))
+    driver = GpuDriver(client, DriverConfig(
+        node_name="node-0", state_dir=f"{tmp}/state", cdi_root=f"{tmp}/cdi",
+        env={}, retry_timeout=5.0), device_lib=lib).start()
+    require(isinstance(driver.state.checkpoints._commit_mu,
+                       sanitizer.TrackedLock),
+            "race: the plugin's locks were built untracked")
+    loop = NodePrepareLoop(client, driver, DRIVER_NAME, "node-0",
+                           namespace="default").start()
+    name = "race-claim"
+    try:
+        t0 = time.monotonic()
+        claim = Allocator(client).allocate(
+            _card_claim(client, name, gpu),
+            reserved_for=[{"resource": "pods", "name": "race-pod"}],
+            node="node-0")
+        uid = claim["metadata"]["uid"]
+        _wait(lambda: _claim_ready(client, name), "race claim Ready")
+        claim_ready_ms = (time.monotonic() - t0) * 1e3
+        served = _serve_spec(driver.cdi.read_claim_spec(uid), "race", w,
+                             seed, gpu)
+        c = client.get("ResourceClaim", name, "default")
+        c["status"].pop("reservedFor", None)
+        client.update_status(c)
+        _wait(lambda: not any(
+            d.get("driver") == DRIVER_NAME for d in (client.get(
+                "ResourceClaim", name, "default").get("status") or {}).get(
+                "devices") or []), "race claim unprepared")
+        client.delete("ResourceClaim", name, "default")
+    finally:
+        loop.stop()
+        driver.stop()
+    residue = plugin_residue(client, driver)
+    return {"claim_ready_ms": claim_ready_ms,
+            "ttfb_ms": (served["first_batch_t"] - t0) * 1e3,
+            "decode_steps": served["decode_steps"],
+            "launches": served["launches"], "residue": residue}
+
+
+def phase_proto(card: str, seed: int = 0) -> dict:
+    """The protocol model checker: ``run_proto_smoke(seed)``. Holds every
+    planted violation detected (7 of 7), each counterexample 1-minimal and
+    replayed identically, the real elector and fence-ack models clean with
+    full coverage, and the double run deterministic. Prints one ``proto``
+    line with the smoke's models' state counts."""
+    r = protolab.run_proto_smoke(seed=seed)
+    line("proto", card=json.dumps(card),
+         planted=f"{r['planted_detected']}/{r['planted_total']}",
+         all_minimal=r["all_minimal"],
+         all_replay_identical=r["all_replay_identical"],
+         violations=len(r["violations"]), coverage_ok=r["coverage_ok"],
+         states=json.dumps(r["states"]), deterministic=r["deterministic"],
+         wall_s=r["wall_s"])
+    require(r["planted_total"] == len(protolab.PLANTED_VIOLATIONS)
+            and r["planted_detected"] == r["planted_total"],
+            f"proto: detected {r['planted_detected']} of "
+            f"{r['planted_total']}")
+    require(r["all_minimal"] and r["all_replay_identical"],
+            "proto: a counterexample is not minimal or did not replay")
+    require(not r["violations"] and r["coverage_ok"],
+            f"proto: real models {r['violations']}, coverage "
+            f"{r['coverage_ok']}")
+    require(r["deterministic"], "proto: two runs gave different verdicts")
+    return r
 
 
 def servesmoke_check(rng: np.random.Generator) -> float:
@@ -3792,6 +4177,9 @@ def main(argv=None) -> int:
     phase_alloc(card)
     wire = phase_wire(card, args.seed, found["lib"], found["gpu"])
     phase_overhead(card)
+    crash = phase_crash(card, args.seed, found["lib"], found["gpu"])
+    race = phase_race(card, args.seed, found["lib"], found["gpu"])
+    phase_proto(card, args.seed)
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -3807,9 +4195,11 @@ def main(argv=None) -> int:
         "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:125",
         "launches": (served["launches"] + processes["launches"]
                      + soak["launches"] + scale["launches"]
-                     + mig["kernel_launches"] + wire["launches"]),
+                     + mig["kernel_launches"] + wire["launches"]
+                     + crash["launches"] + race["launches"]),
         "max_abs_err": max(max_abs_err, soak["max_abs_err"],
-                           mig["max_abs_err"], wire["max_abs_err"]),
+                           mig["max_abs_err"], wire["max_abs_err"],
+                           crash["max_abs_err"], race["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],

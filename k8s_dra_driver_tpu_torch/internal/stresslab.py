@@ -42,9 +42,9 @@ has so far:
   MetricsServers scraped over HTTP, a prepare-failure burst that must page
   and clear, the scrape fault leg), :func:`run_blackbox_overhead` and
   :func:`run_canary_overhead`.
-
-Left out: ``replay_protocol_counterexample``, which replays a protocol
-model checker's counterexample this package does not have yet.
+- :func:`replay_protocol_counterexample`, which replays a counterexample of
+  the protocol model checker (``pkg/protolab.py``) through the schedule
+  fuzzer's slot.
 
 The serving paths run on the card unless the caller asks for the CPU
 (``device="cpu"``), where the engine uses the decode kernel's plain
@@ -2925,6 +2925,43 @@ def run_soak(
                          "fault_errors": len(fault_errors),
                          "fired_by_point": fired}
     return out
+
+
+# -- protolab counterexample replay ------------------------------------------
+
+def replay_protocol_counterexample(model: str, entries: list,
+                                   planted: tuple = ()) -> dict:
+    """Re-run a protolab counterexample through the racelab fuzzer
+    harness: the schedule installs as THE active fuzzer (the same
+    ``set_fuzzer`` slot seeded ScheduleFuzzer runs use), the trace
+    replays against a fresh universe, and the violation must reproduce
+    byte-for-byte — a found trace is immediately a regression test,
+    not a one-off observation.
+
+    ``entries`` is the schedule's sorted ``(point, hit#, action)``
+    decision log (``CounterexampleSchedule.log()`` / the ``schedule``
+    field of an explorer violation)."""
+    from k8s_dra_driver_tpu_torch.pkg import protolab, racelab
+
+    sched = protolab.CounterexampleSchedule(entries)
+    prev = racelab.set_fuzzer(sched)
+    try:
+        result = protolab.replay_trace(model, sched.to_trace(),
+                                       planted=planted)
+    finally:
+        racelab.set_fuzzer(prev)
+    return {
+        "model": model,
+        "planted": sorted(planted),
+        "trace": result["trace"],
+        "violations": result["violations"],
+        # Round-trip proof: the replay re-encodes to the exact entries
+        # it was handed (sorted decision-log equality, the racelab
+        # same-seed contract).
+        "schedule_identical": result["schedule"] == sorted(
+            tuple(e) for e in entries),
+        "fuzzer_installed": prev is not sched,
+    }
 
 
 # ---------------------------------------------------------------------------

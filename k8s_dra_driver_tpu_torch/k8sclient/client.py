@@ -56,9 +56,9 @@ watches.
   snapshot (:meth:`FakeClient.wire_path_snapshot`).
 
 The counterpart of the JAX package's ``k8sclient/client.py``, with what
-``k8sclient/httpapi.py`` serves from. Left out: the sanitizer's deep-frozen
-deliveries, which need a ``deep_freeze`` this package's sanitizer does not
-have yet.
+``k8sclient/httpapi.py`` serves from. Under the sanitizer
+(``GPU_DRA_SANITIZE``) every delivered snapshot is a deep-frozen copy, so a
+watcher that mutates what it was handed raises at the mutation.
 """
 
 from __future__ import annotations
@@ -266,9 +266,11 @@ class Watch:
         """``replay``: initial-list / backlog-replay events generated
         synchronously under the shard lock — they bypass the stall bound
         (one bounded burst, not unbounded growth). Returns whether the
-        event was actually queued (False for stopped/overflowed watches,
-        so delivery counters don't count drops)."""
-        if self._stopped:
+        event was actually queued (False for stopped, dropped and
+        overflowed watches, so delivery counters don't count drops)."""
+        if self._stopped or self._dead:
+            # A commit-time watcher snapshot taken before the drop can
+            # still aim events here; a dead stream takes nothing more.
             return False
         if self._overflowed:
             # Commit-time watcher snapshots taken before the disconnect
@@ -310,6 +312,12 @@ class Watch:
                     self.events.get_nowait()
                 except queue.Empty:
                     break
+        if self._dead:
+            # Nothing after the drop: an event a racing fan-out queued
+            # after the discard is newer than the discarded ones, and
+            # handing it out would move the consumer's resume point past
+            # them — lost for good instead of replayed.
+            return None
         try:
             ev = self.events.get(timeout=timeout)
         except queue.Empty:
@@ -595,7 +603,10 @@ class FakeClient:
                         return
                     rv, etype, obj, watchers = shard.pending_notify.popleft()
                 shard.fanout_events += 1
-                if copy_fanout:
+                if sanitizer.enabled():
+                    snapshot = sanitizer.deep_freeze(_copy_obj(obj))
+                    shard.fanout_copies += 1
+                elif copy_fanout:
                     snapshot = _copy_obj(obj)
                     shard.fanout_copies += 1
                 else:
@@ -1082,7 +1093,9 @@ class FakeClient:
     def _snapshot(self, obj: Obj) -> Obj:
         """A delivery snapshot of a stored object: the object itself in
         copy-free mode (copy-on-write store + read-only contract), a deep
-        copy in baseline mode."""
+        copy in baseline mode, a frozen copy under sanitize."""
+        if sanitizer.enabled():
+            return sanitizer.deep_freeze(_copy_obj(obj))
         if self._fanout_copy:
             return _copy_obj(obj)
         return obj

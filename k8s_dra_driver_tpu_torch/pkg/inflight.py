@@ -20,9 +20,12 @@ the minimum serialization the state machine actually needs:
   (``checkpoint.CheckpointManager.transact``).
 
 Locks come from :func:`sanitizer.new_lock`, so under
-``GPU_DRA_SANITIZE=1`` the table lock and every per-claim lock feed the
-process-global lock-order graph (all per-claim locks share one name —
-an inversion against any claim lock is the same bug).
+``GPU_DRA_SANITIZE=1`` the table lock and every per-claim lock are
+``TrackedLock``s that feed the process-global lock-order graph (all
+per-claim locks share one name — an inversion against any claim lock is
+the same bug), and the flight map is a guarded dict whose mutations must
+hold the table lock; under ``GPU_DRA_SANITIZE=race`` their acquires and
+releases also order the race detector's accesses.
 
 Lock hierarchy (see docs/performance.md): the short table lock is never
 held while acquiring a claim lock, and a claim lock may be held while

@@ -84,7 +84,7 @@ class ShardMap:
     ``sync_once()`` is the whole protocol: renew every owned shard
     (stepping down exactly as the elector does when the renew deadline
     lapses or another holder appears), try to acquire unowned shards
-    up to the fair share, then rebalance hysteretically if the
+    while under ``max_shards``, then rebalance hysteretically if the
     live-holder census says this instance is over its fair share.
     Instances scan shards in an identity-rotated order so a fresh fleet
     spreads across the keyspace instead of herding onto shard 0.
@@ -100,7 +100,14 @@ class ShardMap:
     ``(reason, shard)`` tuples — ``acquire`` (fresh lease), ``takeover``
     (lease with prior holders), ``renew``, ``lost`` (involuntary),
     ``rebalance`` (voluntary shed), ``defer`` (shed suppressed by the
-    hysteresis cap) — which the metrics families count.
+    hysteresis cap) — which the metrics families count and the protocol
+    model checker's ``shard_rebalance`` universe labels its transitions
+    from.
+
+    ``max_shards`` caps how many shards this instance acquires (default:
+    all). ``elector_factory`` exists for the model checker's planted-bug
+    corpus (``pkg/protolab.py`` substitutes a deliberately broken
+    elector); production callers never pass it.
     """
 
     def __init__(
@@ -110,12 +117,14 @@ class ShardMap:
         shards: int,
         namespace: str = "default",
         lease_prefix: str = "controller-shard",
+        max_shards: Optional[int] = None,
         lease_duration: float = LEASE_DURATION,
         renew_deadline: float = RENEW_DEADLINE,
         retry_period: float = RETRY_PERIOD,
         clock: Callable[[], float] = time.time,
         on_acquired: Optional[Callable[[int], object]] = None,
         on_released: Optional[Callable[[int], object]] = None,
+        elector_factory: Optional[Callable[..., LeaderElector]] = None,
         rebalance_max_handoffs: int = 1,
         rebalance_window: Optional[float] = None,
         metrics: Optional[ShardMetrics] = None,
@@ -125,6 +134,7 @@ class ShardMap:
         self.client = client
         self.identity = identity
         self.shards = shards
+        self.max_shards = max_shards if max_shards is not None else shards
         self.namespace = namespace
         self.lease_prefix = lease_prefix
         self.lease_duration = lease_duration
@@ -138,6 +148,8 @@ class ShardMap:
         self.rebalance_window = (rebalance_window if rebalance_window
                                  is not None else 2.0 * lease_duration)
         self.deferred = 0
+        self.acquisitions = 0
+        self.releases = 0
         self.last_events: list[tuple[str, int]] = []
         self.metrics = metrics if metrics is not None \
             else default_shard_metrics()
@@ -148,8 +160,9 @@ class ShardMap:
         # off (the under-share peer needs a round to claim it).
         self._cooldown_until: dict[int, float] = {}
         self._electors: dict[int, LeaderElector] = {}
+        factory = elector_factory or LeaderElector
         for shard in range(shards):
-            self._electors[shard] = LeaderElector(
+            self._electors[shard] = factory(
                 client,
                 shard_lease_name(lease_prefix, shard),
                 identity,
@@ -164,12 +177,14 @@ class ShardMap:
 
     def _started_cb(self, shard: int) -> Callable[[], None]:
         def started() -> None:
+            self.acquisitions += 1
             if self.on_acquired is not None:
                 self.on_acquired(shard)
         return started
 
     def _stopped_cb(self, shard: int) -> Callable[[], None]:
         def stopped() -> None:
+            self.releases += 1
             if self.on_released is not None:
                 self.on_released(shard)
         return stopped
@@ -196,6 +211,22 @@ class ShardMap:
         the :class:`ShardOpLedger`."""
         return self._electors[shard].epoch
 
+    def debug_snapshot(self) -> dict:
+        now = self.clock()
+        return {
+            "identity": self.identity,
+            "owned": sorted(self.owned()),
+            "max_shards": self.max_shards,
+            "acquisitions": self.acquisitions,
+            "releases": self.releases,
+            "deferred": self.deferred,
+            "window_handoffs": self._window_handoffs,
+            "renew_age_s": {
+                s: round(now - e.last_renew, 3)
+                for s, e in self._electors.items() if e.is_leader
+            },
+        }
+
     def _scan_order(self) -> list[int]:
         # Identity-rotated, NOT hash() (randomized per process): every
         # run and every replica of the same identity scans the same way.
@@ -207,7 +238,7 @@ class ShardMap:
     def sync_once(self) -> set[int]:
         """One full round: renew this replica's membership lease, take
         the live-member census, renew owned shards, acquire unowned ones
-        up to the fair share, then shed over-fair-share
+        up to min(``max_shards``, fair share), then shed over-fair-share
         shards under the hysteresis cap. Returns the post-round owned
         set."""
         events: list[tuple[str, int]] = []
@@ -219,8 +250,9 @@ class ShardMap:
             members: Optional[set[str]] = self._census()
         except Exception:  # noqa: BLE001 — no census this round: acquire
             members = None  # conservatively, shed nothing
-        fair = (self.shards if not members
+        fair = (self.max_shards if not members
                 else -(-self.shards // len(members)))  # ceil
+        acquire_cap = min(self.max_shards, fair)
         for shard in self._scan_order():
             e = self._electors[shard]
             if e.is_leader:
@@ -230,7 +262,7 @@ class ShardMap:
                     events.append(("lost", shard))
                 elif e.last_renew > before:
                     events.append(("renew", shard))
-            elif len(self.owned()) < fair:
+            elif len(self.owned()) < acquire_cap:
                 if self.clock() < self._cooldown_until.get(shard, 0.0):
                     continue  # just shed it; let the under-share peer claim
                 e.run_once()  # try to acquire

@@ -86,6 +86,8 @@ ALL_FAULT_POINTS = [
     "checkpoint.write",
     "checkpoint.replace",
     "checkpoint.read",
+    "durability.write",
+    "durability.replace",
     "devicestate.prepare",
     "cdi.write",
     "gpulib.enumerate",
@@ -117,8 +119,7 @@ def _port_faultpoints_guard():
 
 def test_catalog_matches_registry():
     """Importing the port's packages registers exactly this catalog: the
-    JAX package's, with ``gpulib`` names for ``tpulib`` and without the
-    crash explorer's ``durability.*`` points (no crashlab in the port)."""
+    JAX package's, with ``gpulib`` names for ``tpulib``."""
     import k8s_dra_driver_tpu_torch.cdi.spec  # noqa: F401 — registration
     import k8s_dra_driver_tpu_torch.gpulib.device_lib  # noqa: F401
     import k8s_dra_driver_tpu_torch.k8sclient.httpapi  # noqa: F401

@@ -8,15 +8,16 @@ The contract:
   ``devicestate.prepare=latency:…`` fault schedule);
 - prepare/unprepare of the SAME claim still serialize — an unprepare
   issued mid-prepare lands after it and fully cleans up;
-- the overlap run and the worker pool run clean with every lock built
-  instrumented (the port's sanitizer has lock-contention profiling only;
-  its lock-order and race modes come with the lab code, ROADMAP §A);
+- the overlap run and the worker pool run clean under the sanitizer's
+  race mode (``GPU_DRA_SANITIZE=race``): no lock-order inversion, no
+  unguarded mutation, no frozen watch snapshot mutated, no data race;
 - concurrent checkpoint transactions coalesce into group-commit batches,
   one mutation's failure does not poison its batch-mates;
 - the allocator's generation-stamped indexes hit while the cluster is
   quiet, invalidate on writes, and never serve stale candidates.
 """
 
+import contextlib
 import threading
 import time
 
@@ -26,7 +27,7 @@ from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
 from k8s_dra_driver_tpu_torch.k8sclient.client import new_object
 from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
-from k8s_dra_driver_tpu_torch.pkg import faultpoints, sanitizer
+from k8s_dra_driver_tpu_torch.pkg import faultpoints, racelab, sanitizer
 from k8s_dra_driver_tpu_torch.pkg.errors import PermanentError
 from k8s_dra_driver_tpu_torch.pkg.metrics import AllocatorMetrics
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
@@ -55,6 +56,24 @@ def _port_faultpoints_guard():
 
 
 PREP_LATENCY = 0.4  # devicestate.prepare stall used to hold prepares open
+
+
+@contextlib.contextmanager
+def _race_mode(monkeypatch):
+    """The sanitizer's race mode for the stack built inside the block
+    (locks and guarded maps are chosen when they are created), with the
+    order graph and the detector clean on both sides."""
+    monkeypatch.setenv(sanitizer.ENV_SANITIZE, "race")
+    was_active = racelab.active()
+    racelab.enable()
+    sanitizer.reset()
+    racelab.reset()
+    try:
+        yield
+    finally:
+        if not was_active:
+            racelab.disable()
+        monkeypatch.delenv(sanitizer.ENV_SANITIZE)
 
 
 def _cluster(tmp_path, sub="", retry_timeout=5.0):
@@ -163,16 +182,15 @@ class TestDisjointClaimOverlap:
         assert driver.state.prepared_claims() == {}
         assert driver.cdi.list_claim_uids() == []
 
-    def test_overlap_run_clean_under_sanitizer(self, tmp_path):
-        """The concurrent path with every new lock (flight table, per-claim
-        locks, commit pipeline) built instrumented: a full overlap +
-        unprepare cycle completes clean and leaves nothing behind."""
-        sanitizer.set_lock_profiling(True)
-        sanitizer.reset_lock_contention()
-        try:
+    def test_overlap_run_clean_under_sanitizer(self, tmp_path, monkeypatch):
+        """The concurrent path under the sanitizer's race mode: every new
+        lock (flight table, per-claim locks, commit pipeline) is tracked,
+        and a full overlap + unprepare cycle leaves no lock-order or
+        guarded-mutation violation, no race report, and nothing behind."""
+        with _race_mode(monkeypatch):
             client, driver = _cluster(tmp_path, sub="-san")
             assert isinstance(driver.state.checkpoints._commit_mu,
-                              sanitizer.ContentionLock)
+                              sanitizer.TrackedLock)
             claims = [_alloc_claim(client, f"wl-san-{i}") for i in range(3)]
             with faultpoints.injected("devicestate.prepare=latency:0.1"):
                 spans = _run_overlapping_prepares(driver, claims)
@@ -183,9 +201,11 @@ class TestDisjointClaimOverlap:
                     uid=c["metadata"]["uid"], name=c["metadata"]["name"],
                     namespace="default")])
                 assert errs[c["metadata"]["uid"]] is None
-        finally:
-            sanitizer.set_lock_profiling(False)
-            sanitizer.reset_lock_contention()
+            violations, races = sanitizer.violations(), racelab.reports()
+            sanitizer.reset()
+            racelab.reset()
+        assert violations == []
+        assert races == []
         assert driver.state.prepared_claims() == {}
         assert driver.cdi.list_claim_uids() == []
 
@@ -296,12 +316,23 @@ class TestControlPlaneWorkers:
         assert state["max_cross_key"] >= 2, \
             "worker pool never overlapped distinct CDs"
 
-    def test_worker_pool_clean_under_sanitizer(self):
+    def test_worker_pool_clean_under_sanitizer(self, monkeypatch):
         """The multi-worker loop's cross-key shared state (uid map, clique
-        index, workqueue internals) with every lock built instrumented:
-        the fleet converges Ready."""
-        sanitizer.set_lock_profiling(True)
-        sanitizer.reset_lock_contention()
+        index, workqueue internals, fan-out snapshots) audited live under
+        the race mode: locks tracked, guarded dicts checked, shared watch
+        events frozen, accesses fed to the detector; the fleet converges
+        Ready with no violation and no race report."""
+        with _race_mode(monkeypatch):
+            self._converge_fleet()
+            violations, races = sanitizer.violations(), racelab.reports()
+            sanitizer.reset()
+            racelab.reset()
+        assert violations == []
+        assert races == []
+
+    def _converge_fleet(self):
+        """Six one-node ComputeDomains, each with a Ready clique, through
+        a four-worker controller until every one is Ready."""
         from k8s_dra_driver_tpu_torch.api.computedomain import (
             STATUS_READY,
             new_clique,
@@ -332,8 +363,6 @@ class TestControlPlaneWorkers:
                     pytest.fail("fleet never converged under sanitizer")
             finally:
                 ctrl.stop()
-                sanitizer.set_lock_profiling(False)
-                sanitizer.reset_lock_contention()
 
 
 class TestGroupCommit:

@@ -14,7 +14,8 @@ in a child of their own with the same modules blocked;
 the serving-scale, churn, fleet and chaos harnesses run small in a child
 of their own with the same modules blocked, and so do the allocator-scale,
 wire-path and observability overhead harnesses with the store's wire-path
-ledger;
+ledger, and the checkers (the crash explorer, the race corpus in race
+mode, the protocol model checker);
 the ``__main__`` modules, which run their binary when imported, are
 source-scanned only) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
@@ -168,6 +169,16 @@ MIG_MODULES = [
     "k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.device_state",
 ]
 
+#: Modules of the checkers slice.
+CHECKER_MODULES = [
+    "k8s_dra_driver_tpu_torch.pkg.crashlab",
+    "k8s_dra_driver_tpu_torch.pkg.protolab",
+    "k8s_dra_driver_tpu_torch.pkg.racelab",
+    "k8s_dra_driver_tpu_torch.pkg.sanitizer",
+    "k8s_dra_driver_tpu_torch.internal.racecorpus",
+    "k8s_dra_driver_tpu_torch.internal.sanitizer_guard",
+]
+
 #: The serving-scale, churn, fleet and chaos slice: its functions, each
 #: imported and run small in a child with JAX blocked.
 SCALE_FUNCTIONS = {
@@ -224,7 +235,7 @@ def test_port_imports_and_serves_with_jax_blocked():
     names = set(proc.stdout.split("NAMES", 1)[1].split()[0].split(","))
     want = (set(CD_MODULES) | set(SELFHEAL_MODULES) | set(BINARY_MODULES)
             | set(OBSERVABILITY_MODULES) | set(SHARDING_MODULES)
-            | set(MIG_MODULES))
+            | set(MIG_MODULES) | set(CHECKER_MODULES))
     assert want <= names, sorted(want - names)
     assert not any(n.endswith(".__main__") for n in names)
 
@@ -369,6 +380,43 @@ def test_this_slices_mig_and_vfio_paths_run_with_jax_blocked():
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "MIG_OK" in proc.stdout
+
+
+_CHECKER_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml", "grpc"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+from k8s_dra_driver_tpu_torch.internal.racecorpus import run_corpus
+from k8s_dra_driver_tpu_torch.internal.stresslab import (
+    replay_protocol_counterexample)
+from k8s_dra_driver_tpu_torch.pkg import crashlab, protolab, racelab
+c = crashlab.run_crashlab(scenarios=["node_epoch", "prepare"], torn=False)
+assert c["oracle_violations"] == [] and c["sites_explored"] == 38, c
+racelab.enable()
+r = run_corpus(1)
+assert r["positives_detected"] == r["positives_total"], r
+assert r["false_positives"] == 0, r
+racelab.disable()
+m = protolab.explore_model("elector")
+assert m["coverage_ok"] and m["states_explored"] == 271, m
+p = protolab.run_planted_corpus()["per_plant"]["zombie_leader"]
+out = replay_protocol_counterexample("elector", p["schedule"],
+                                     planted=("zombie_leader",))
+assert out["schedule_identical"] and out["violations"], out
+print("CHECKERS_OK")
+"""
+
+
+def test_the_checkers_run_with_jax_blocked():
+    """The crash explorer, the race corpus under the detector and the
+    protocol model checker with a counterexample replayed, in a child with
+    JAX blocked."""
+    proc = subprocess.run([sys.executable, "-c", _CHECKER_CHILD, str(REPO)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "CHECKERS_OK" in proc.stdout
 
 
 def test_every_main_file_is_scanned():

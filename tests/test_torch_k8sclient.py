@@ -138,3 +138,30 @@ def test_informer_resumes_then_relists():
                       for o in late.cached_list()) == ["n0", "n1"]
     finally:
         late.stop()
+
+
+def test_a_dropped_watch_hands_out_nothing_after_the_drop():
+    """A fan-out that captured its watcher list before the drop can still
+    aim a newer event at the dead watch. Handed out, that event would move
+    the consumer's resume point past the events the drop discarded, and
+    the resume would never replay them (the node fleet's claim that never
+    turned Ready). So a dropped watch yields nothing more, and the resume
+    from the last event consumed replays every discarded one."""
+    c = port_client.FakeClient()
+    w = c.watch("ConfigMap", "default")
+    for name in ("a", "b"):
+        c.create(port_client.new_object("ConfigMap", name, "default"))
+    first = w.next(timeout=1.0)
+    assert first.object["metadata"]["name"] == "a"
+    with faultpoints.injected("k8sclient.watch.drop=first:1"):
+        assert w.next(timeout=0.05) is None          # "b" discarded
+    assert not w.alive
+    late = port_client.new_object("ConfigMap", "late", "default")
+    late["metadata"]["resourceVersion"] = "99"
+    assert not w.deliver(port_client.WatchEvent("ADDED", late))
+    w.events.put(port_client.WatchEvent("ADDED", late))   # queued anyway
+    assert w.next(timeout=0.05) is None
+    resumed = c.watch("ConfigMap", "default", resource_version=int(
+        first.object["metadata"]["resourceVersion"]))
+    assert [resumed.next(timeout=1.0).object["metadata"]["name"]] == ["b"]
+    resumed.stop()

@@ -186,6 +186,12 @@ class TestLockContention:
         assert not any(r["lock"] == "TestBB.quiet"
                        for r in sanitizer.lock_contention_snapshot())
 
+    def test_tracked_lock_feeds_the_same_table(self):
+        lock = sanitizer.TrackedLock("TestBB.tracked")
+        self._contend(lock)
+        assert any(r["lock"] == "TestBB.tracked"
+                   for r in sanitizer.lock_contention_snapshot())
+
     def test_new_lock_returns_contention_lock_while_profiling(self):
         lock = sanitizer.new_lock("TestBB.newlock", environ={})
         assert isinstance(lock, sanitizer.ContentionLock)

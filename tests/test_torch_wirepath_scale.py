@@ -4,9 +4,8 @@ against the JAX package.
 ``TestStatusCoalescing``, ``TestBackpressureCounters`` and
 ``TestHttpKeepAlive`` are the JAX cases of ``tests/test_wirepath.py`` with
 their assertions, on the port's ``FakeClient``, its ``gpu_dra_`` metric
-families and its HTTP client. The fuzzer case runs under the port's
-``racelab.fuzz``; its ``racelab.reports() == []`` assertion waits for the
-race detector, which this package does not have yet. ``TestAgainstJax``
+families and its HTTP client; the fuzzer case runs under the port's
+``racelab.fuzz`` with its race detector on. ``TestAgainstJax``
 drives one seeded single-threaded sequence of creates, status writes,
 updates, deletes and LISTs through the JAX and the port ``FakeClient`` in
 every ``coalesce_status`` x ``fanout_copy`` mode: equal stores, equal watch
@@ -178,28 +177,38 @@ class TestBackpressureCounters:
 
     def test_drop_path_under_seeded_schedule_fuzzer(self):
         """The overflow-disconnect path under the seeded schedule fuzzer:
-        perturbed interleavings of committers must not lose the drop
-        accounting. (The JAX case also asserts ``racelab.reports() ==
-        []``; that waits for the race detector.)"""
-        for seed in (3, 17):
-            with racelab.fuzz(seed=seed):
-                c = FakeClient()
-                w = c.watch("Pod", max_queue=4)
+        perturbed interleavings of committers vs the consumer must neither
+        race nor lose the drop accounting."""
+        was_active = racelab.active()
+        racelab.enable()
+        try:
+            for seed in (3, 17):
+                racelab.reset()
+                with racelab.fuzz(seed=seed):
+                    c = FakeClient()
+                    w = c.watch("Pod", max_queue=4)
 
-                def burst(k: int):
-                    for i in range(6):
-                        c.create(new_object("Pod", f"s{seed}-w{k}-{i}"))
+                    def burst(k: int):
+                        for i in range(6):
+                            c.create(new_object("Pod", f"s{seed}-w{k}-{i}"))
 
-                ts = [threading.Thread(target=burst, args=(k,))
-                      for k in range(3)]
-                for t in ts:
-                    t.start()
-                for t in ts:
-                    t.join(5.0)
-                snap = c.wire_path_snapshot()
-                assert snap["overflow_disconnects"] == 1
-                assert snap["dropped_events"] >= 1
-                assert not w.alive
+                    ts = [threading.Thread(target=burst, args=(k,))
+                          for k in range(3)]
+                    for t in ts:
+                        t.start()
+                    for t in ts:
+                        t.join(5.0)
+                    snap = c.wire_path_snapshot()
+                    assert snap["overflow_disconnects"] == 1
+                    assert snap["dropped_events"] >= 1
+                    assert not w.alive
+                assert racelab.reports() == [], \
+                    f"seed {seed}: the drop path raced"
+                racelab.reset()
+        finally:
+            racelab.reset()
+            if not was_active:
+                racelab.disable()
 
 
 # -- the keep-alive HTTP client -----------------------------------------------
