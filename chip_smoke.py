@@ -214,6 +214,17 @@ One line per phase:
            planted violations detected, each counterexample 1-minimal and
            replayed identically, the real elector and fence-ack models
            clean with their state counts, deterministic)
+   cluster the port as a local cluster of real processes: first the
+           ``localcluster demo`` child's eight phases on mock nodes, each
+           phase's seconds; then one node whose GPU plugin process reads
+           the card through NVML behind the webhook, ``gpu-test2.yaml``
+           applied unchanged, its claim prepared by the process, both
+           containers' CUDA_VISIBLE_DEVICES the card's UUID, an engine at
+           the serve phase's width bound from the claim's CDI spec serving
+           the selfheal batch through the decode kernel (launches equal to
+           decode steps), the pod retired with nothing left; prints
+           cluster_up_ms, claim_ready_ms and first_batch_ms; then the
+           kernel against its plain version at the engine's shape
 10. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
            the device library that found the card, the controller's live
            loop reconciling a CD of numNodes 1, and one daemon reporting the
@@ -251,8 +262,8 @@ One line per phase:
 Kernel times are CUDA-event times of a run of back-to-back calls over the
 count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
 burnin, each of selfheal's two batches, the processes batch, the soak,
-the scale harness, the mig tenants, the wire phase's claim, and the crash
-and race phases' claims) runs with every kernel's launch count set to 0
+the scale harness, the mig tenants, the wire phase's claim, the crash
+and race phases' claims, and the cluster phase's pod) runs with every kernel's launch count set to 0
 just before it and read just after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero before that line;
@@ -3756,6 +3767,133 @@ def phase_proto(card: str, seed: int = 0) -> dict:
     return r
 
 
+#: The cluster phase's host leg: the local process cluster's demo as a
+#: child, its waits' limit, and the child's own limit (seconds).
+CLUSTER_DEMO_TIMEOUT_S, CLUSTER_DEMO_LIMIT_S = 90, 300
+#: The card leg's spec, applied unchanged, and its pod's claim.
+CLUSTER_SPEC, CLUSTER_CLAIM_REF = "gpu-test2", "shared-gpu"
+
+
+def phase_cluster(card: str, seed: int, gpu, width: dict | None = None,
+                  profile: str = "", host_leg: bool = True) -> dict:
+    """The GPU port as a local cluster of real processes
+    (``internal/localcluster.py``), in two legs.
+
+    Host leg: ``python -m k8s_dra_driver_tpu_torch.internal.localcluster
+    demo`` as a child, every phase on mock ``h100-8`` nodes (the webhook's
+    refusal, gpu-test5, gpu-test4, gpu-test7, the controller failover,
+    gpu-test6 over a materialized tree, the GPU and ComputeDomain plugins'
+    V1-checkpoint up/downgrades); each phase's seconds printed.
+
+    Card leg: a one-node cluster (webhook, API server, GPU plugin process)
+    whose plugin reads the machine's GPUs through NVML
+    (``GPU_DRA_DEVICE_BACKEND=nvml``: no NVML, no plugin) and must publish
+    the card by UUID. ``gpu-test2.yaml`` applied unchanged: its pod's claim
+    is prepared by the plugin process (its request record), both
+    containers' ``CUDA_VISIBLE_DEVICES`` are the card's UUID, and an engine
+    at ``width`` (the serve phase's) bound from the claim's CDI spec serves
+    the selfheal batch under the serve checks, decode launches equal to
+    decode steps. The pod retired: no claim, checkpoint entry, CDI spec or
+    child process left. Then the kernel against its plain version at the
+    engine's shape. ``profile`` (tests) names a mock profile file in place
+    of the machine's GPUs."""
+    from k8s_dra_driver_tpu_torch.internal import localcluster as lc
+    w = {**SELFHEAL_WIDTH, **(width or {})}
+    on_card = w["device"] is None
+    out: dict = {}
+    if host_leg:
+        t0 = time.monotonic()
+        r = subprocess.run(
+            [sys.executable, "-m", lc.__name__, "demo", "--timeout",
+             str(CLUSTER_DEMO_TIMEOUT_S)], capture_output=True, text=True,
+            timeout=CLUSTER_DEMO_LIMIT_S, cwd=ROOT)
+        require(r.returncode == 0 and "[demo] ALL PHASES PASS" in r.stdout,
+                f"cluster: the demo failed (rc {r.returncode}):\n"
+                f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        seconds = json.loads(r.stdout.split("[demo] phase seconds: ", 1)[1]
+                             .splitlines()[0])
+        require(set(lc.PHASES) <= set(seconds),
+                f"cluster: phases {sorted(seconds)}")
+        out["host_s"] = time.monotonic() - t0
+        out["phase_s"] = seconds
+        line("cluster", leg="host", phases_passed=len(lc.PHASES),
+             phase_s=json.dumps(seconds), host_s=out["host_s"])
+
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    ns = CLUSTER_SPEC
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        cluster = lc.LocalCluster(tmp, num_nodes=1, profile=profile,
+                                  controllers=0, cd_plugins=False)
+        try:
+            t0 = time.monotonic()
+            cluster.up()
+            up_ms = (time.monotonic() - t0) * 1e3
+            uuids = _slice_uuids(cluster.client, DRIVER_NAME,
+                                 cluster.node(0))
+            require(gpu.uuid in uuids, f"cluster: the plugin process "
+                                       f"published {uuids}, not {gpu.uuid}")
+            docs = lc.apply_spec(cluster, ns)
+            (pod,) = lc.pods(docs)
+            t1 = time.monotonic()
+            name = cluster.schedule_pod(pod, cluster.node(0))[
+                CLUSTER_CLAIM_REF]
+            lc.LocalCluster._wait(lambda: cluster.claim_ready(name, ns), 60,
+                                  "cluster: the gpu-test2 claim Ready")
+            claim_ready_ms = (time.monotonic() - t1) * 1e3
+            uid = cluster.claim_uid(name, ns)
+            log = cluster.log_text("gpu-plugin-0")
+            require(f"prepare request: {uid}=ok" in log,
+                    "cluster: the plugin process logged no prepare of the "
+                    "claim")
+            per_ctr = {}
+            for ctr in pod["spec"]["containers"]:
+                refs = [c["name"] for c in ctr["resources"]["claims"]]
+                require(refs == [CLUSTER_CLAIM_REF],
+                        f"cluster: {ctr['name']} names {refs}")
+                per_ctr[ctr["name"]] = cluster.container_env(
+                    cluster.node(0), [uid]).get("CUDA_VISIBLE_DEVICES")
+            require(len(per_ctr) == 2 and set(per_ctr.values())
+                    == {gpu.uuid}, f"cluster: containers see {per_ctr}")
+            spec = cluster.claim_cdi_spec(cluster.node(0), uid)
+            served = _serve_spec(spec, "cluster", w, seed, gpu)
+            first_batch_ms = (served["first_batch_t"] - t1) * 1e3
+
+            cluster.unreserve(name, ns)
+            lc.LocalCluster._wait(
+                lambda: not cluster.claim_ready(name, ns)
+                and cluster.claim_cdi_spec(cluster.node(0), uid) is None,
+                30, "cluster: the claim unprepared")
+            cluster.client.delete("ResourceClaim", name, ns)
+            cp = json.loads((cluster.gpu_state_dir(0) / "checkpoint.json")
+                            .read_text())
+            residue = sorted(
+                [f"claim:{c['metadata']['name']}" for c in
+                 cluster.client.list("ResourceClaim", ns)]
+                + [f"checkpoint:{u}" for u in cp["v2"]["preparedClaims"]]
+                + [f"cdi:{f.name}" for f in
+                   cluster.gpu_cdi_dir(0).glob("*.json")
+                   if uid in f.name])
+        finally:
+            cluster.down()
+        left = [p.args for p in cluster.children()]
+    err = (soak_check(np.random.default_rng(seed), w, "cluster", emit=False)
+           if on_card else None)
+    out.update(served, up_ms=up_ms, claim_ready_ms=claim_ready_ms,
+               first_batch_ms=first_batch_ms, residue=residue,
+               children=left, max_abs_err=err)
+    line("cluster", leg="card", card=json.dumps(card), spec=ns,
+         backend=BACKEND_NVML if not profile else "mock",
+         cuda_visible_devices=json.dumps(per_ctr), cluster_up_ms=up_ms,
+         claim_ready_ms=claim_ready_ms, first_batch_ms=first_batch_ms,
+         decode_steps=served["decode_steps"],
+         kernel_launches=served["launches"], kernel_max_abs_err=err,
+         residue=json.dumps(residue), children=len(left))
+    require(not residue, f"cluster: left behind {residue}")
+    require(not left, f"cluster: processes left {left}")
+    return out
+
+
 def servesmoke_check(rng: np.random.Generator) -> float:
     """The decode kernel against its plain version at the serving smoke's
     shapes (``SERVING_SMOKE_ENGINE``: q [8, 2, ql, 8], K/V [8, 2, 32, 8]),
@@ -4180,6 +4318,7 @@ def main(argv=None) -> int:
     crash = phase_crash(card, args.seed, found["lib"], found["gpu"])
     race = phase_race(card, args.seed, found["lib"], found["gpu"])
     phase_proto(card, args.seed)
+    cluster = phase_cluster(card, args.seed, found["gpu"])
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -4196,10 +4335,12 @@ def main(argv=None) -> int:
         "launches": (served["launches"] + processes["launches"]
                      + soak["launches"] + scale["launches"]
                      + mig["kernel_launches"] + wire["launches"]
-                     + crash["launches"] + race["launches"]),
+                     + crash["launches"] + race["launches"]
+                     + cluster["launches"]),
         "max_abs_err": max(max_abs_err, soak["max_abs_err"],
                            mig["max_abs_err"], wire["max_abs_err"],
-                           crash["max_abs_err"], race["max_abs_err"]),
+                           crash["max_abs_err"], race["max_abs_err"],
+                           cluster["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],

@@ -4,9 +4,9 @@ In a real cluster this work belongs to the kube-scheduler's DRA plugin; the
 reference therefore tests allocation with a live (kind) cluster. This repo's
 test substrate is the in-memory API, so allocation is reimplemented here in
 structured form (copied from the JAX package's allocator, which it decides
-exactly like on the same objects, the defrag planner's placement options
-and the fragmentation report included; the extended-resource claim
-synthesis is left out):
+exactly like on the same objects, the defrag planner's placement options,
+the fragmentation report and the extended-resource claim synthesis
+included):
 
 - honors ``deviceClassName`` (DeviceClass objects may carry selectors too),
 - request selectors (a CEL subset evaluated against ``device.attributes`` /
@@ -45,6 +45,11 @@ logger = logging.getLogger(__name__)
 #: Annotation of a synthetic canary claim: allocated last-fit so that it
 #: never contends with a real claim for the first free device.
 ANN_CANARY = "gpu.nvidia.com/canary"
+
+
+#: Annotation naming the extended resources an implicit claim stands for
+#: (KEP-5004; the scheduler sets it on the claims it synthesizes).
+ANN_EXTENDED_RESOURCE_NAMES = "resource.kubernetes.io/extended-resource-names"
 
 
 class AllocationError(RuntimeError):
@@ -1580,6 +1585,90 @@ class Allocator:
                                             for h in victims),
                     })
             return out
+
+    # -- extended resources (KEP-5004) --------------------------------------
+
+    def extended_resource_classes(self) -> dict[str, str]:
+        """Extended-resource name → DeviceClass name, for every class that
+        advertises the mapping via ``spec.extendedResourceName`` (the GPU
+        chart's ``deviceclasses.yaml``, as the reference's
+        ``deviceclass-gpu.yaml`` maps ``nvidia.com/gpu``). First advertiser
+        by class name wins, matching the scheduler's deterministic pick."""
+        out: dict[str, str] = {}
+        for dc in sorted(self.client.list("DeviceClass"),
+                         key=lambda d: d["metadata"]["name"]):
+            rname = (dc.get("spec") or {}).get("extendedResourceName", "")
+            if rname:
+                out.setdefault(rname, dc["metadata"]["name"])
+        return out
+
+    def synthesize_extended_claims(self, pod: Obj) -> list[Obj]:
+        """The scheduler side of extended-resource DRA (KEP-5004, the
+        reference's ``tests/bats/test_gpu_extres.bats``): a pod requesting
+        ``nvidia.com/gpu: N`` in container limits, with no ResourceClaim of
+        its own, gets one synthesized against the DeviceClass advertising
+        the mapping. Idempotent per pod UID; returns the (possibly
+        pre-existing) implicit claims."""
+        ns = pod["metadata"].get("namespace", "")
+        mapping = self.extended_resource_classes()
+        totals: dict[str, int] = {}
+        for ctr in (pod.get("spec") or {}).get("containers", []):
+            res = ctr.get("resources") or {}
+            # The API server makes limits equal requests for extended
+            # resources; the union tolerates specs carrying only one.
+            merged = {**(res.get("requests") or {}),
+                      **(res.get("limits") or {})}
+            for rname, qty in merged.items():
+                if rname in mapping:
+                    totals[rname] = (totals.get(rname, 0)
+                                     + _parse_quantity(str(qty)))
+        if not totals:
+            return []
+        claim_name = pod["metadata"]["name"] + "-extended-resources"
+        pod_uid = pod["metadata"].get("uid", "")
+        existing = self.client.try_get("ResourceClaim", claim_name, ns)
+        if existing is not None:
+            owners = existing["metadata"].get("ownerReferences") or [{}]
+            is_implicit = (ANN_EXTENDED_RESOURCE_NAMES
+                           in (existing["metadata"].get("annotations") or {})
+                           and owners[0].get("kind") == "Pod")
+            if not is_implicit:
+                # A user's claim that happens to carry the implicit name:
+                # never destroy an object this path does not own.
+                raise AllocationError(
+                    f"cannot synthesize extended-resource claim: "
+                    f"{ns}/{claim_name} exists and is not an implicit "
+                    "claim")
+            if owners[0].get("uid", "") == pod_uid:
+                return [existing]
+            # Same pod name, another incarnation: the stale claim belongs
+            # to a dead pod (its ownerRef GC would delete it under this
+            # one, and its counts may differ). Replace it.
+            self.client.delete("ResourceClaim", claim_name, ns)
+        claim = {
+            "apiVersion": "resource.k8s.io/v1",
+            "kind": "ResourceClaim",
+            "metadata": {
+                "name": claim_name,
+                "namespace": ns,
+                "annotations": {
+                    ANN_EXTENDED_RESOURCE_NAMES: ",".join(sorted(totals)),
+                },
+                "ownerReferences": [{
+                    "apiVersion": "v1", "kind": "Pod",
+                    "name": pod["metadata"]["name"],
+                    "uid": pod_uid,
+                }],
+            },
+            "spec": {"devices": {"requests": [
+                {"name": f"extres-{i}",
+                 "exactly": {"deviceClassName": mapping[rname],
+                             "allocationMode": "ExactCount",
+                             "count": count}}
+                for i, (rname, count) in enumerate(sorted(totals.items()))
+            ]}},
+        }
+        return [self.client.create(claim)]
 
     def release(self, claim: Obj) -> Obj:
         """Drop the claim's allocation and update the usage index IN

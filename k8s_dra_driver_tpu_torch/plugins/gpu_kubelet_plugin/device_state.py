@@ -70,6 +70,7 @@ from k8s_dra_driver_tpu_torch.gpulib.chip import (
 )
 from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
     DeviceLib,
+    FakeVfioKernel,
     enforce_fabric_consistency,
 )
 from k8s_dra_driver_tpu_torch.k8sclient.client import Obj
@@ -124,6 +125,10 @@ PREPARE_ABORTED_TTL = 10 * 60.0
 # Per-device env of a passthrough device (the JAX package's
 # TPU_PASSTHROUGH).
 PASSTHROUGH_DEVICE_ENV = "GPU_PASSTHROUGH"
+
+# Set to "1" in a plugin process that serves a materialized tree: the VFIO
+# manager's kernel reaction is emulated (:attr:`DeviceState.vfio`).
+ENV_FAKE_VFIO_KERNEL = "GPU_DRA_FAKE_VFIO_KERNEL"
 
 # Fault point inside the device-preparation window: after the claim's
 # PrepareStarted record is durable, before any device side effect. A
@@ -294,12 +299,21 @@ class DeviceState:
         """Lazy, so a node that never sees a passthrough claim never touches
         the VFIO sysfs surface (NewVfioPciManager is likewise conditional,
         device_state.go:195-198). Created under the state lock: concurrent
-        passthrough prepares share one manager."""
+        passthrough prepares share one manager. ``GPU_DRA_FAKE_VFIO_KERNEL=1``
+        swaps in the emulation of the kernel's reaction to the bind/unbind
+        writes, so a plugin process drives the whole VFIO path against a
+        materialized tree (the local cluster's gpu-test6; the JAX package's
+        ``TPU_DRA_FAKE_VFIO_KERNEL``): every driver line is real, only the
+        kernel's relinking is simulated."""
         with self._mu:
             if self._vfio is None:
-                self._vfio = VfioPciManager(
-                    sysfs_root=getattr(self.device_lib, "sysfs_root", "/sys"),
-                    dev_root=getattr(self.device_lib, "dev_root", "/dev"))
+                sysfs = getattr(self.device_lib, "sysfs_root", "/sys")
+                dev = getattr(self.device_lib, "dev_root", "/dev")
+                kernel = None
+                if os.environ.get(ENV_FAKE_VFIO_KERNEL) == "1":
+                    kernel = FakeVfioKernel(sysfs, dev)
+                self._vfio = VfioPciManager(sysfs_root=sysfs, dev_root=dev,
+                                            kernel=kernel)
             return self._vfio
 
     # -- startup ------------------------------------------------------------

@@ -1081,17 +1081,70 @@ class TestAgainstJax:
         assert _jax_plan_clear() and faultpoints.active_plan() is None
 
     def test_node_fleet(self):
+        """The port converges with no error; the timing-free counts agree.
+        JAX's ``Watch.next`` still hands out an event queued after a drop
+        (pinned by ``test_a_late_event_after_a_drop_in_both_clients``), so
+        under load its run can stall short of Ready (14 of 460 runs under
+        four to six CPU hogs; the port's 0 of 460): its verdict is compared
+        only on runs where it converged."""
         kw = dict(n_nodes=12, ready_timeout_s=180.0,
                   faults="k8sclient.watch.drop=rate:0.02", fault_seed=3)
         port, jax = run_node_fleet(**kw), jax_stresslab.run_node_fleet(**kw)
-        for key in ("n_nodes", "informers", "sharded", "converged",
-                    "error_count"):
-            assert port[key] == jax[key], key
-        assert port["converged"] and port["error_count"] == 0
-        assert port["prepares"] >= port["n_nodes"]
-        assert jax["prepares"] >= jax["n_nodes"]
+        sides = {side: {k: out[k] for k in ("converged", "error_count",
+                                             "prepares", "errors")}
+                 for side, out in (("port", port), ("jax", jax))}
+        for key in ("n_nodes", "informers", "sharded"):
+            assert port[key] == jax[key], (key, sides)
+        assert port["converged"] and port["error_count"] == 0, sides
+        assert port["prepares"] >= port["n_nodes"], sides
         assert set(port) == set(jax)
+        if jax["converged"]:
+            for key in ("converged", "error_count"):
+                assert port[key] == jax[key], (key, sides)
+            assert jax["prepares"] >= jax["n_nodes"], sides
         assert _jax_plan_clear() and faultpoints.active_plan() is None
+
+    def test_a_late_event_after_a_drop_in_both_clients(self):
+        """The interleaving behind JAX's stalled fleets, replayed on both
+        clients: a fan-out holding the watcher list from before a
+        ``k8sclient.watch.drop`` aims a newer event at the dropped watch.
+        JAX's watch hands it out (moving the consumer's resume point past
+        the discarded event, which a resume then never replays); the
+        port's hands out nothing after the drop. The JAX client is only
+        called."""
+        from k8s_dra_driver_tpu.k8sclient import client as jax_client
+        from k8s_dra_driver_tpu.pkg import faultpoints as jax_faultpoints
+        from k8s_dra_driver_tpu_torch.k8sclient import client as port_client
+        got = {}
+        for side, mod, fp in (("port", port_client, faultpoints),
+                              ("jax", jax_client, jax_faultpoints)):
+            c = mod.FakeClient()
+            w = c.watch("ConfigMap", "default")
+            for name in ("a", "b"):
+                c.create(mod.new_object("ConfigMap", name, "default"))
+            first = w.next(timeout=1.0)
+            assert first.object["metadata"]["name"] == "a"
+            with fp.injected("k8sclient.watch.drop=first:1"):
+                assert w.next(timeout=0.05) is None      # "b" discarded
+            assert not w.alive
+            late = mod.new_object("ConfigMap", "late", "default")
+            late["metadata"]["resourceVersion"] = "99"
+            # The racing fan-out's put, past the drop's discard.
+            w.events.put(mod.WatchEvent("ADDED", late))
+            ev = w.next(timeout=0.05)
+            got[side] = None if ev is None else ev.object["metadata"]["name"]
+            # What the consumer resumes from: the last event it was handed.
+            resume_rv = int((ev or first).object["metadata"][
+                "resourceVersion"])
+            resumed = c.watch("ConfigMap", "default",
+                              resource_version=resume_rv)
+            replay = resumed.next(timeout=0.2)
+            got[side + "_replays_b"] = (
+                replay is not None
+                and replay.object["metadata"]["name"] == "b")
+            resumed.stop()
+        assert got == {"port": None, "port_replays_b": True,
+                       "jax": "late", "jax_replays_b": False}
 
     def test_claim_churn(self, tmp_path):
         kw = dict(duration_s=1.0, n_nodes=2, workers_per_node=1,

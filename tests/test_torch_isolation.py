@@ -15,7 +15,9 @@ the serving-scale, churn, fleet and chaos harnesses run small in a child
 of their own with the same modules blocked, and so do the allocator-scale,
 wire-path and observability overhead harnesses with the store's wire-path
 ledger, and the checkers (the crash explorer, the race corpus in race
-mode, the protocol model checker);
+mode, the protocol model checker), and so does the deployment slice (the
+GPU quickstart specs and chart DeviceClasses read without PyYAML, an
+extended-resource claim synthesized);
 the ``__main__`` modules, which run their binary when imported, are
 source-scanned only) and
 ``chip_smoke.py``, serves a CPU engine to completion, runs
@@ -179,6 +181,13 @@ CHECKER_MODULES = [
     "k8s_dra_driver_tpu_torch.internal.sanitizer_guard",
 ]
 
+#: Modules of the deployment slice (the local process cluster and the
+#: manifest loader it reads the specs with).
+DEPLOYMENT_MODULES = [
+    "k8s_dra_driver_tpu_torch.internal.localcluster",
+    "k8s_dra_driver_tpu_torch.pkg.manifests",
+]
+
 #: The serving-scale, churn, fleet and chaos slice: its functions, each
 #: imported and run small in a child with JAX blocked.
 SCALE_FUNCTIONS = {
@@ -235,7 +244,8 @@ def test_port_imports_and_serves_with_jax_blocked():
     names = set(proc.stdout.split("NAMES", 1)[1].split()[0].split(","))
     want = (set(CD_MODULES) | set(SELFHEAL_MODULES) | set(BINARY_MODULES)
             | set(OBSERVABILITY_MODULES) | set(SHARDING_MODULES)
-            | set(MIG_MODULES) | set(CHECKER_MODULES))
+            | set(MIG_MODULES) | set(CHECKER_MODULES)
+            | set(DEPLOYMENT_MODULES))
     assert want <= names, sorted(want - names)
     assert not any(n.endswith(".__main__") for n in names)
 
@@ -417,6 +427,38 @@ def test_the_checkers_run_with_jax_blocked():
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "CHECKERS_OK" in proc.stdout
+
+
+_DEPLOYMENT_CHILD = r"""
+import sys
+for name in ("jax", "jaxlib", "k8s_dra_driver_tpu", "yaml", "grpc"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+from k8s_dra_driver_tpu_torch.internal import localcluster as lc
+from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
+from k8s_dra_driver_tpu_torch.kubeletplugin import Allocator
+from k8s_dra_driver_tpu_torch.pkg.manifests import load_file
+client = FakeClient()
+for d in load_file(lc.CHART / "templates" / "deviceclasses.yaml"):
+    client.create(d)
+docs = {i: load_file(lc.SPECS / f"gpu-test{i}.yaml") for i in range(1, 8)}
+assert all(docs.values()), docs
+pod = lc.pods(docs[7])[0]
+(claim,) = Allocator(client).synthesize_extended_claims(pod)
+assert claim["spec"]["devices"]["requests"][0]["exactly"]["count"] == 2
+print("DEPLOYMENT_OK")
+"""
+
+
+def test_the_deployment_slice_runs_with_jax_and_yaml_blocked():
+    """The GPU specs and the chart's DeviceClasses read by the port's own
+    loader, and an extended-resource claim synthesized, in a child with
+    JAX and PyYAML blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEPLOYMENT_CHILD, str(REPO)], cwd=REPO,
+        capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "DEPLOYMENT_OK" in proc.stdout
 
 
 def test_every_main_file_is_scanned():

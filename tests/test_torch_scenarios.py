@@ -1,6 +1,7 @@
 """The scenario suite on the GPU port: the classes of the JAX package's
-``tests/test_scenarios.py`` but its quickstart-spec class (GPU demo specs
-are not in the repo yet; ROADMAP §A).
+``tests/test_scenarios.py`` but its quickstart-spec class, which runs on
+the GPU quickstart specs (``demo/specs/quickstart-gpu/``) in
+``tests/test_torch_quickstart.py`` through this file's :func:`run_pod`.
 
 Two ``h100-8`` nodes run both kubelet plugins (GPU and ComputeDomain) and a
 ComputeDomain controller. The workloads are the JAX specs' objects in their
@@ -8,7 +9,9 @@ GPU form, built here: ``gpu-test1`` (two pods, one GPU each, from one
 ResourceClaimTemplate) and ``gpu-test5`` (a ComputeDomain of two nodes, each
 worker claiming a channel and all of its node's GPUs). Pods are "scheduled"
 by :func:`run_pod` (a copy of the JAX suite's helper): claims instantiated
-from templates, allocated node-pinned, prepared by the owning driver.
+from templates (or named global claims), a pod's extended resources given
+an implicit claim (KEP-5004), allocated node-pinned, prepared by the owning
+driver.
 Robustness (restart mid-prepare, checkpoint corruption, CD failover), the
 claims-to-compute tie (per-GPU claims tiling a node, then the port's
 data-parallel ResNet on gloo ranks), churn and the node fleet follow."""
@@ -173,21 +176,35 @@ class PodRun:
 def run_pod(client, pod: Obj, node: str, drivers: dict,
             allocator: Optional[Allocator] = None) -> PodRun:
     """'Schedule' a pod onto a node: instantiate its claims from their
-    templates, allocate them node-pinned and prepare each with the driver
-    that owns its results."""
+    templates (a ``resourceClaimName`` names a global claim), give its
+    extended resources an implicit claim, allocate them node-pinned and
+    prepare each with the driver that owns its results."""
     alloc = allocator or Allocator(client)
     ns = pod["metadata"]["namespace"]
     run = PodRun(pod, node)
-    for rc in pod["spec"]["resourceClaims"]:
+    names: list[tuple[str, str]] = []       # (reference, claim name)
+    for rc in pod["spec"].get("resourceClaims", []):
         ref = rc["name"]
-        name = f"{pod['metadata']['name']}-{ref}"
-        if client.try_get("ResourceClaim", name, ns) is None:
-            rct = client.get("ResourceClaimTemplate",
-                             rc["resourceClaimTemplateName"], ns)
-            client.create({"apiVersion": "resource.k8s.io/v1",
-                           "kind": "ResourceClaim",
-                           "metadata": {"name": name, "namespace": ns},
-                           "spec": rct["spec"]["spec"]})
+        if "resourceClaimTemplateName" in rc:
+            name = f"{pod['metadata']['name']}-{ref}"
+            if client.try_get("ResourceClaim", name, ns) is None:
+                rct = client.get("ResourceClaimTemplate",
+                                 rc["resourceClaimTemplateName"], ns)
+                client.create({"apiVersion": "resource.k8s.io/v1",
+                               "kind": "ResourceClaim",
+                               "metadata": {"name": name, "namespace": ns},
+                               "spec": rct["spec"]["spec"]})
+        else:
+            name = rc["resourceClaimName"]
+        names.append((ref, name))
+    # Extended resources (KEP-5004): container limits naming a resource a
+    # DeviceClass advertises get an implicit claim, no claim stanza.
+    try:
+        for implicit in alloc.synthesize_extended_claims(pod):
+            names.append(("extended-resources", implicit["metadata"]["name"]))
+    except Exception as e:  # noqa: BLE001 — scenario asserts on it
+        run.errors["extended-resources"] = e
+    for ref, name in names:
         try:
             claim = alloc.allocate(client.get("ResourceClaim", name, ns),
                                    node=node)
