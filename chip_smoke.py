@@ -136,18 +136,21 @@ One line per phase:
            the NVML error), required off, and the plugin on that library
            with DynamicMIG on publishing the card whole and no MIG device;
            then a mock ``h100-8`` node in MIG mode with DynamicMIG on: its
-           152 placements published, two tenant claims for 3g.40gb given
-           GPU 0's two halves, a 4g.40gb and a whole-GPU claim there
-           refused, each claim's CDI spec naming its own MIG-<uuid> and
+           208 placements published, every device name a DNS label of at
+           most 63 characters, two tenant claims for 3g.40gb given GPU
+           0's two halves, a 4g.40gb and a whole-GPU claim there refused, each claim's CDI spec naming its own MIG-<uuid> and
            nvidia-caps nodes; an engine per claim at the serve phase's
            width bound through its spec (the mock's MIG UUIDs mapped onto
            the card), within its profile's memory, decoding 8 requests
            through the decode kernel under the serve checks, launches equal
            to the two engines' decode steps; the kernel against its plain
            version at that shape; nothing left after unprepare, and the
-           4g.40gb claim then prepared; VFIO only on a materialized mock
-           tree with the kernel's rebinding emulated, never on the card's
-           /sys (claim_ready_ms, ttfb_ms, decode_tok_s)
+           4g.40gb claim then prepared, one 1g.10gb+me claim prepared on
+           GPU 1 and a second one there refused (the GPU's one media
+           counter); VFIO only on a materialized mock tree with the
+           kernel's rebinding emulated, never on the card's /sys, its
+           published names DNS labels too (claim_ready_ms, ttfb_ms,
+           decode_tok_s)
    alloc   ``run_allocator_scale()`` at the port's defaults (6 mock
            ``h100-8`` nodes in MIG mode, 10,000 claims of 1-8 memory
            slices, target_util 0.8, then the defrag leg): both arms'
@@ -225,6 +228,23 @@ One line per phase:
            decode steps), the pod retired with nothing left; prints
            cluster_up_ms, claim_ready_ms and first_batch_ms; then the
            kernel against its plain version at the engine's shape
+   gates   the feature gates a plugin process starts with: on mock nodes
+           behind one API server, the GPU and ComputeDomain plugin binaries
+           refusing DeviceMetadata without PassthroughSupport (exit
+           non-zero within seconds, ``invalid --feature-gates`` naming
+           PassthroughSupport, no slice), CrashOnNVLinkFabricErrors
+           refusing a node whose GPUs share a minor that the lenient
+           plugin publishes, and gpu-test6's VFIO claim carrying the
+           tree's pciAddress and iommuGroup as metadata on its status read
+           over HTTP with DeviceMetadata on, none with it off; then a
+           plugin process on the card through NVML under DeviceMetadata,
+           PassthroughSupport and CrashOnNVLinkFabricErrors publishing the
+           card by UUID, a whole-GPU claim over HTTP Ready with no
+           metadata, an engine at the serve phase's width bound from its
+           CDI spec serving the selfheal batch through the decode kernel
+           (launches equal to decode steps), nothing left; prints
+           claim_ready_ms and ttfb_ms; then the kernel against its plain
+           version at the engine's shape
 10. computedomain  a ComputeDomain of this node: the CD kubelet plugin on
            the device library that found the card, the controller's live
            loop reconciling a CD of numNodes 1, and one daemon reporting the
@@ -263,7 +283,8 @@ Kernel times are CUDA-event times of a run of back-to-back calls over the
 count (``cuda_ms``). Each main path of a kernel (serve, servesmoke, bench,
 burnin, each of selfheal's two batches, the processes batch, the soak,
 the scale harness, the mig tenants, the wire phase's claim, the crash
-and race phases' claims, and the cluster phase's pod) runs with every kernel's launch count set to 0
+and race phases' claims, the cluster phase's pod and the gates phase's
+claim) runs with every kernel's launch count set to 0
 just before it and read just after. Then one
 JSON line with every kernel's numbers, and the last line ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero before that line;
@@ -279,6 +300,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -331,6 +353,7 @@ from k8s_dra_driver_tpu_torch.entry import (
     entry,
 )
 from k8s_dra_driver_tpu_torch.api.configs import API_VERSION
+from k8s_dra_driver_tpu_torch.gpulib.chip import mig_device_name
 from k8s_dra_driver_tpu_torch.gpulib.device_lib import (
     BACKEND_NVML,
     BACKEND_PROCFS,
@@ -2884,8 +2907,9 @@ def phase_mig(card: str, seed: int, lib, gpu, width: dict | None = None
     error (a virtualized card cannot enter MIG mode); required off or a
     named error, and the plugin on that library with DynamicMIG on must
     publish each of its GPUs whole and no MIG device. The partition path,
-    on a mock ``h100-8`` node in MIG mode with DynamicMIG on: all 152
-    placements published (19 devices a GPU with the whole one); two
+    on a mock ``h100-8`` node in MIG mode with DynamicMIG on: all 208
+    placements published (26 devices a GPU with the whole one), every
+    device name a DNS label; two
     tenant claims for 3g.40gb on GPU 0 get its two halves, a 4g.40gb
     claim and a whole-GPU claim there are refused; each claim's CDI spec
     names its own ``MIG-<uuid>`` and ``nvidia-caps`` nodes, and the
@@ -2896,10 +2920,13 @@ def phase_mig(card: str, seed: int, lib, gpu, width: dict | None = None
     before, read after); the kernel against its plain version at the
     engines' shape outside it. After unprepare no MIG instance, claim,
     checkpoint entry, CDI spec or caps node is left, and the 4g.40gb
-    claim then allocates and prepares. VFIO on a materialized mock tree
-    only, with FakeVfioKernel: prepare binds, the restore record is in
-    the checkpoint, unprepare restores; no VfioPciManager is ever built
-    on the machine's /sys. Prints one ``mig`` line."""
+    claim then allocates and prepares; then one 1g.10gb+me claim on GPU 1
+    is prepared into a media-extensions instance and a second one there
+    is refused by the GPU's media counter. VFIO on a materialized mock
+    tree only, with FakeVfioKernel: prepare binds, the restore record is
+    in the checkpoint, unprepare restores, and the names published beside
+    the vfio-bound GPU are DNS labels; no VfioPciManager is ever built on
+    the machine's /sys. Prints one ``mig`` line."""
     w = {**MIG_WIDTH, **(width or {})}
     t_phase = time.monotonic()
     build_dir = _build.BUILD_DIR
@@ -2989,9 +3016,12 @@ def _mig_tenants(seed: int, client, driver, mock, dev_root: str,
     devices = {d["name"]: d for d in spec["devices"]}
     n_mig = sum(1 for d in devices.values()
                 if d["attributes"]["type"] == {"string": "mig"})
-    require(len(devices) == 8 * 19 and n_mig == 8 * 18
-            and len(spec["sharedCounters"][0]["counters"]) == 8 * 8,
+    require(len(devices) == 8 * 26 and n_mig == 8 * 25
+            and len(spec["sharedCounters"][0]["counters"]) == 8 * 8 + 8,
             f"published {len(devices)} devices, {n_mig} MIG")
+    not_labels = [n for n in devices if not is_dns_label(n)]
+    require(not not_labels, f"mig: device names not DNS labels: "
+                            f"{not_labels[:4]}")
     on0 = ["device.attributes['parentIndex'] == 0"]
     alloc = Allocator(client)
     names, ready_ms, t0s = ("tenant-mig-a", "tenant-mig-b"), [], []
@@ -3008,8 +3038,9 @@ def _mig_tenants(seed: int, client, driver, mock, dev_root: str,
     claims = [client.get("ResourceClaim", n, "default") for n in names]
     got = sorted(c["status"]["allocation"]["devices"]["results"][0]["device"]
                  for c in claims)
-    require(got == [f"gpu-0-mig-{MIG_PROFILE}-0-4",
-                    f"gpu-0-mig-{MIG_PROFILE}-4-4"], f"tenants got {got}")
+    require(got == [mig_device_name(0, MIG_PROFILE, 0, 4),
+                    mig_device_name(0, MIG_PROFILE, 4, 4)],
+            f"tenants got {got}")
     refused = []
     for name, cls, sels in (
             ("over-4g", partitions.DEVICE_CLASS_MIG,
@@ -3111,8 +3142,48 @@ def _mig_tenants(seed: int, client, driver, mock, dev_root: str,
     require((m.profile, m.start) == ("4g.40gb", 0), f"4g.40gb got {m}")
     out["after_4g"] = m.profile
     _release_claims(client, ["over-4g"])
+    out["media"] = _mig_media(client, alloc, mock)
     lap("teardown")
     return out
+
+
+#: The media-extensions profile: one instance a GPU.
+MIG_MEDIA_PROFILE = "1g.10gb+me"
+
+
+def _mig_media(client, alloc, mock) -> dict:
+    """One 1g.10gb+me claim on GPU 1 prepared into a media-extensions
+    instance; a second one there refused by the GPU's media counter; the
+    first released with no instance left."""
+    on1 = [f"device.attributes['profile'] == '{MIG_MEDIA_PROFILE}'",
+           "device.attributes['parentIndex'] == 1"]
+    claim = alloc.allocate(
+        _mig_claim(client, "media-a", partitions.DEVICE_CLASS_MIG, on1),
+        reserved_for=[{"resource": "pods", "name": "media-pod"}],
+        node="node-0")
+    _wait(lambda: _claim_ready(client, "media-a"), "1g.10gb+me Ready")
+    device = claim["status"]["allocation"]["devices"]["results"][0]["device"]
+    (m,) = mock.mig_devices()
+    require((m.profile, m.parent_index) == (MIG_MEDIA_PROFILE, 1)
+            and device == mig_device_name(1, MIG_MEDIA_PROFILE, m.start, 1),
+            f"1g.10gb+me got {device}, instance {m}")
+    _mig_claim(client, "media-b", partitions.DEVICE_CLASS_MIG, on1)
+    try:
+        alloc.allocate(client.get("ResourceClaim", "media-b", "default"))
+        refused = False
+    except AllocationError:
+        refused = True
+    require(refused, "a second 1g.10gb+me claim on GPU 1 was allocated")
+    client.delete("ResourceClaim", "media-b", "default")
+    _release_claims(client, ["media-a"])
+    require(mock.mig_devices() == [], "the 1g.10gb+me instance left")
+    return {"device": device, "twin_refused": refused}
+
+
+def is_dns_label(name: str) -> bool:
+    """An RFC 1123 label, the form of a DRA device name."""
+    return len(name) <= 63 and re.fullmatch(
+        r"[a-z0-9]([-a-z0-9]*[a-z0-9])?", name) is not None
 
 
 def _mig_vfio_leg(root: str) -> dict:
@@ -3143,6 +3214,17 @@ def _mig_vfio_leg(root: str) -> dict:
     require(res.error is None, f"vfio prepare: {res.error}")
     env = claim_spec_env(driver.cdi.read_claim_spec(uid))
     bdf = env["GPU_PASSTHROUGH_PCI_ADDRESSES"]
+    # An admin's vfio-pci bind of another GPU: published as a vfio-gpu.
+    other = next(g.pci_address for g in driver.state.gpus
+                 if g.pci_address != bdf)
+    mgr.configure(other)
+    shutil.rmtree(os.path.join(proc, "driver", "nvidia", "gpus", other))
+    driver.republish()
+    names = [d["name"] for s in client.list("ResourceSlice")
+             for d in s["spec"]["devices"]]
+    require(any(n.startswith("vfio-gpu-") for n in names)
+            and all(is_dns_label(n) for n in names),
+            f"vfio: published names {names}")
     bound = mgr.current_driver(bdf)
     ledger = dict(driver.state.prepared_claims()[uid].vfio_restore)
     require(bound == "vfio-pci" and ledger == {bdf: "nvidia"}
@@ -3155,7 +3237,7 @@ def _mig_vfio_leg(root: str) -> dict:
             f"vfio unprepare: {errs[uid]}, {restored}")
     driver.stop()
     return {"bdf": bdf, "bound": bound, "ledger": ledger,
-            "restored": restored}
+            "restored": restored, "names": len(names)}
 
 
 def phase_alloc(card: str, **kwargs) -> dict:
@@ -3894,6 +3976,241 @@ def phase_cluster(card: str, seed: int, gpu, width: dict | None = None,
     return out
 
 
+#: The gates phase's card leg: the plugin process's gates, the three that
+#: gate what it publishes and prepares with their dependency met.
+GATES_CARD = ("DeviceMetadata=true,PassthroughSupport=true,"
+              "CrashOnNVLinkFabricErrors=true")
+#: How long a plugin process refused at assembly may take to exit (s).
+GATES_EXIT_S = 30.0
+
+
+def _plugin_args(cluster, node: str, *extra: str) -> list:
+    """A kubelet plugin process's flags on ``node`` of ``cluster``, its
+    state and CDI dirs its own."""
+    root = cluster.workdir / node
+    return ["--node-name", node, "--state-dir", str(root / "state"),
+            "--cdi-root", str(root / "cdi"),
+            "--api-endpoint", cluster.endpoint, "--metrics-port", "-1",
+            "--healthcheck-addr", "", "--profile-interval", "0", *extra]
+
+
+def _refused_start(cluster, name: str, module: str, node: str, *extra: str,
+                   want: tuple) -> float:
+    """Start a plugin process that must refuse to serve: it exits non-zero
+    within ``GATES_EXIT_S`` with every string of ``want`` in its log, and
+    no ResourceSlice names ``node``. Ms from spawn to exit."""
+    t0 = time.monotonic()
+    proc = cluster._spawn(name, module, *_plugin_args(cluster, node, *extra))
+    try:
+        rc = proc.wait(timeout=GATES_EXIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10)
+        raise SystemExit(f"chip_smoke: FAILED: gates: {name} still serving "
+                         f"after {GATES_EXIT_S} s")
+    ms = (time.monotonic() - t0) * 1e3
+    log = cluster.log_text(name)
+    require(rc != 0 and all(w in log for w in want),
+            f"gates: {name} exited {rc}, log {log[-600:]}")
+    sliced = [s["metadata"]["name"] for s in cluster.client.list(
+        "ResourceSlice") if s["spec"].get("nodeName") == node]
+    require(not sliced, f"gates: {name} published {sliced}")
+    return ms
+
+
+def _gates_host_leg(tmp: str) -> dict:
+    """The gates on mock nodes behind one API server: the dependency
+    refused by both plugin binaries, the strict fabric gate refusing a node
+    whose GPUs disagree and the lenient plugin publishing it, and a VFIO
+    claim's metadata on its status with DeviceMetadata on and none with
+    it off."""
+    from k8s_dra_driver_tpu_torch.gpulib.device_lib import PROFILES
+    from k8s_dra_driver_tpu_torch.internal import localcluster as lc
+    out: dict = {}
+    cluster = lc.LocalCluster(
+        tmp, num_nodes=1, profile="h100-8", vfio=True, controllers=0,
+        cd_plugins=False, feature_gates="PassthroughSupport=true,"
+                                        "DeviceMetadata=true")
+    try:
+        cluster.up()
+        bad = ("invalid --feature-gates", "DeviceMetadata",
+               "PassthroughSupport")
+        out["bad_gpu_exit_ms"] = _refused_start(
+            cluster, "gpu-bad-gates", GPU_PLUGIN_MODULE, "node-bad",
+            "--mock-profile", "h100-8", "--feature-gates",
+            "DeviceMetadata=true", want=bad)
+        out["bad_cd_exit_ms"] = _refused_start(
+            cluster, "cd-bad-gates", CD_PLUGIN_MODULE, "node-bad",
+            "--mock-profile", "h100-8", "--feature-gates",
+            "DeviceMetadata=true", want=bad)
+        # A node whose GPU 1 reports GPU 0's minor.
+        broken = PROFILES["h100-8"](0)
+        broken["gpus"][1]["minor"] = broken["gpus"][0]["minor"]
+        path = cluster.workdir / "broken-fabric.json"
+        path.write_text(json.dumps(broken))
+        out["strict_exit_ms"] = _refused_start(
+            cluster, "gpu-strict", GPU_PLUGIN_MODULE, "node-strict",
+            "--mock-profile", str(path), "--feature-gates",
+            "CrashOnNVLinkFabricErrors=true",
+            want=("GPU fabric inconsistency (strict mode)",))
+        cluster.client.create({"apiVersion": "v1", "kind": "Node",
+                               "metadata": {"name": "node-lenient"}})
+        lenient = cluster._spawn("gpu-lenient", GPU_PLUGIN_MODULE,
+                                 *_plugin_args(cluster, "node-lenient",
+                                               "--mock-profile", str(path)))
+        _wait(lambda: lenient.poll() is None and any(
+            s["spec"].get("nodeName") == "node-lenient"
+            for s in cluster.client.list("ResourceSlice")),
+            "gates: the lenient plugin's slice", 60)
+        require("lenient fabric mode" in cluster.log_text("gpu-lenient"),
+                "gates: the lenient plugin logged no fabric problem")
+        cluster._kill(lenient)
+        out["lenient_published"] = True
+        (pod,) = lc.pods(lc.apply_spec(cluster, "gpu-test6"))
+        out["vfio_metadata"] = _gates_vfio(cluster, pod, cluster.feature_gates)
+        cluster.kill_gpu_plugin(0)
+        cluster.feature_gates = "PassthroughSupport=true"
+        cluster.spawn_gpu_plugin(0)
+        out["vfio_without"] = _gates_vfio(cluster, pod, cluster.feature_gates)
+        require(out["vfio_without"] is None,
+                "gates: metadata with DeviceMetadata off")
+    finally:
+        cluster.down()
+    out["children"] = [p.args for p in cluster.children()]
+    require(not out["children"], f"gates: processes left {out['children']}")
+    return out
+
+
+def _gates_vfio(cluster, pod: dict, gates: str):
+    """gpu-test6's ``pod``: its VFIO claim prepared by node 0's plugin
+    process under ``gates``, read back over HTTP: its status entry's
+    metadata (required to be the tree's PCI address and IOMMU group where
+    there is one), then the pod retired, the claim deleted and the GPU
+    back on its driver."""
+    from k8s_dra_driver_tpu_torch.internal import localcluster as lc
+    ns = pod["metadata"]["namespace"]
+    name = cluster.schedule_pod(pod, cluster.node(0))["gpu"]
+    _wait(lambda: cluster.claim_ready(name, ns), f"gates: {ns} Ready ({gates})",
+          60)
+    uid = cluster.claim_uid(name, ns)
+    (dev,) = cluster.client.get("ResourceClaim", name, ns)["status"]["devices"]
+    bdf = cluster.container_env(cluster.node(0), [uid])[
+        "GPU_PASSTHROUGH_PCI_ADDRESSES"]
+    md = dev.get("metadata")
+    if md is not None:
+        group = os.path.basename(os.path.realpath(
+            cluster.tree(0) / "sys" / "bus" / "pci" / "devices" / bdf
+            / "iommu_group"))
+        attrs = md.get("attributes") or {}
+        require(attrs.get("pciAddress") == bdf
+                and attrs.get("iommuGroup") == group,
+                f"gates: metadata {md}, the tree's {bdf} in group {group}")
+    cluster.retire_claim(name, ns, 30)
+    cluster.client.delete("ResourceClaim", name, ns)
+    _wait(lambda: cluster.tree_pci_driver(0, bdf) == lc.HOST_GPU_DRIVER,
+          f"gates: {bdf} back on its driver")
+    return md
+
+
+def phase_gates(card: str, seed: int, gpu, width: dict | None = None,
+                profile: str = "", host_leg: bool = True) -> dict:
+    """The feature gates a plugin process is started with, in two legs.
+
+    Host leg (mock nodes behind one API server and webhook): the GPU and
+    the ComputeDomain plugin binaries with ``DeviceMetadata=true`` alone
+    exit non-zero within seconds with an ``invalid --feature-gates``
+    message naming PassthroughSupport and publish no slice; a GPU plugin on
+    a mock node whose GPUs disagree (two share a minor) exits under
+    ``CrashOnNVLinkFabricErrors=true`` and publishes the node without it;
+    gpu-test6's VFIO claim on a materialized tree with the kernel's
+    rebinding emulated carries, under ``PassthroughSupport=true,
+    DeviceMetadata=true``, the tree's PCI address and IOMMU group as
+    ``metadata.attributes`` on its status read over HTTP, and no metadata
+    once the plugin restarts without DeviceMetadata.
+
+    Card leg: a one-node cluster whose GPU plugin process reads the
+    machine's GPUs through NVML (``GPU_DRA_DEVICE_BACKEND=nvml``) under
+    ``GATES_CARD``: the strict fabric check passes on the card, which is
+    published by UUID; a whole-GPU claim for it created over HTTP is Ready
+    with no metadata (it is not VFIO), and an engine at ``width`` (the
+    serve phase's) bound from its CDI spec serves the selfheal batch under
+    the serve checks, decode launches equal to decode steps; then no
+    claim, checkpoint entry, CDI spec or child process is left, and the
+    kernel is held against its plain version at the engine's shape.
+    ``profile`` (tests) names a mock profile file in place of the
+    machine's GPUs. Prints one ``gates`` line a leg."""
+    from k8s_dra_driver_tpu_torch.internal import localcluster as lc
+    w = {**SELFHEAL_WIDTH, **(width or {})}
+    on_card = w["device"] is None
+    build_dir = _build.BUILD_DIR
+    build_dir.mkdir(parents=True, exist_ok=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        if host_leg:
+            t0 = time.monotonic()
+            host = _gates_host_leg(f"{tmp}/host")
+            host["host_s"] = time.monotonic() - t0
+            out["host"] = host
+            line("gates", leg="host", **{
+                k: json.dumps(v) if isinstance(v, (list, dict)) else v
+                for k, v in host.items()})
+        cluster = lc.LocalCluster(f"{tmp}/card", num_nodes=1,
+                                  profile=profile, controllers=0,
+                                  cd_plugins=False, feature_gates=GATES_CARD)
+        try:
+            cluster.up()
+            uuids = _slice_uuids(cluster.client, DRIVER_NAME,
+                                 cluster.node(0))
+            require(gpu.uuid in uuids, f"gates: the strict plugin process "
+                                       f"published {uuids}, not {gpu.uuid}")
+            name = "gates-claim"
+            t0 = time.monotonic()
+            claim = Allocator(cluster.client).allocate(
+                _card_claim(cluster.client, name, gpu),
+                reserved_for=[{"resource": "pods", "name": "gates-pod"}],
+                node=cluster.node(0))
+            uid = claim["metadata"]["uid"]
+            _wait(lambda: _claim_ready(cluster.client, name),
+                  "gates: the claim Ready", 60)
+            claim_ready_ms = (time.monotonic() - t0) * 1e3
+            (dev,) = cluster.client.get("ResourceClaim", name,
+                                        "default")["status"]["devices"]
+            require("metadata" not in dev,
+                    f"gates: a whole GPU's status carries {dev}")
+            spec = cluster.claim_cdi_spec(cluster.node(0), uid)
+            served = _serve_spec(spec, "gates", w, seed, gpu)
+            ttfb_ms = (served["first_batch_t"] - t0) * 1e3
+            cluster.unreserve(name, "default")
+            _wait(lambda: not _claim_ready(cluster.client, name)
+                  and cluster.claim_cdi_spec(cluster.node(0), uid) is None,
+                  "gates: the claim unprepared")
+            cluster.client.delete("ResourceClaim", name, "default")
+            cp = json.loads((cluster.gpu_state_dir(0) / "checkpoint.json")
+                            .read_text())
+            residue = sorted(
+                [f"claim:{c['metadata']['name']}" for c in
+                 cluster.client.list("ResourceClaim")]
+                + [f"checkpoint:{u}" for u in cp["v2"]["preparedClaims"]]
+                + [f"cdi:{f.name}" for f in
+                   cluster.gpu_cdi_dir(0).glob("*.json")])
+        finally:
+            cluster.down()
+        left = [p.args for p in cluster.children()]
+    err = (soak_check(np.random.default_rng(seed), w, "gates", emit=False)
+           if on_card else None)
+    out.update(served, claim_ready_ms=claim_ready_ms, ttfb_ms=ttfb_ms,
+               residue=residue, children=left, max_abs_err=err)
+    line("gates", leg="card", card=json.dumps(card), gates=GATES_CARD,
+         backend=BACKEND_NVML if not profile else "mock",
+         claim_ready_ms=claim_ready_ms, ttfb_ms=ttfb_ms,
+         decode_steps=served["decode_steps"],
+         kernel_launches=served["launches"], kernel_max_abs_err=err,
+         residue=json.dumps(residue), children=len(left))
+    require(not residue, f"gates: left behind {residue}")
+    require(not left, f"gates: processes left {left}")
+    return out
+
+
 def servesmoke_check(rng: np.random.Generator) -> float:
     """The decode kernel against its plain version at the serving smoke's
     shapes (``SERVING_SMOKE_ENGINE``: q [8, 2, ql, 8], K/V [8, 2, 32, 8]),
@@ -4319,6 +4636,7 @@ def main(argv=None) -> int:
     race = phase_race(card, args.seed, found["lib"], found["gpu"])
     phase_proto(card, args.seed)
     cluster = phase_cluster(card, args.seed, found["gpu"])
+    gates = phase_gates(card, args.seed, found["gpu"])
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -4336,11 +4654,11 @@ def main(argv=None) -> int:
                      + soak["launches"] + scale["launches"]
                      + mig["kernel_launches"] + wire["launches"]
                      + crash["launches"] + race["launches"]
-                     + cluster["launches"]),
+                     + cluster["launches"] + gates["launches"]),
         "max_abs_err": max(max_abs_err, soak["max_abs_err"],
                            mig["max_abs_err"], wire["max_abs_err"],
                            crash["max_abs_err"], race["max_abs_err"],
-                           cluster["max_abs_err"]),
+                           cluster["max_abs_err"], gates["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],

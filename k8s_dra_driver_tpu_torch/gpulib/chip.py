@@ -17,6 +17,7 @@ passthrough (:class:`VfioGpuInfo`).
 from __future__ import annotations
 
 import enum
+import re
 from dataclasses import dataclass, field
 
 #: PCI vendor id of NVIDIA functions.
@@ -104,13 +105,16 @@ class MigProfile:
     """One GPU-instance profile: its name, the placement starts the driver
     accepts, its size in memory slices and its compute slices. ``nvml_index``
     is the profile's ``NVML_GPU_INSTANCE_PROFILE_*`` constant (nvml.h), the
-    argument of ``nvmlDeviceGetGpuInstanceProfileInfo``."""
+    argument of ``nvmlDeviceGetGpuInstanceProfileInfo``.
+    ``media_extensions`` marks the ``+me`` profile, whose instance takes
+    the GPU's media engines, so the GPU holds at most one of them."""
 
     name: str
     starts: tuple[int, ...]
     size: int
     compute_slices: int
     nvml_index: int
+    media_extensions: bool = False
 
     def memory_bytes(self, gpu_memory_bytes: int) -> int:
         """Its share of the GPU's memory: ``size`` of the eight slices."""
@@ -121,12 +125,14 @@ class MigProfile:
 # Multi-Instance GPU User Guide ("Supported MIG Profiles", H100 80GB):
 # placement starts and size in memory slices out of 8, compute slices out
 # of 7. The NVML constants: 1_SLICE 0, 2_SLICE 1, 3_SLICE 2, 4_SLICE 3,
-# 7_SLICE 4, 1_SLICE_REV2 9 (the 1g.20gb). 1g.10gb+me (1_SLICE_REV1, media
-# extensions) is not listed yet.
+# 7_SLICE 4, 1_SLICE_REV1 7 (the 1g.10gb+me: media extensions, one
+# instance per GPU), 1_SLICE_REV2 9 (the 1g.20gb).
 MIG_PROFILES: dict[GpuType, tuple[MigProfile, ...]] = {
     GpuType.H100_SXM_80GB: (
         MigProfile("1g.10gb", starts=(0, 1, 2, 3, 4, 5, 6), size=1,
                    compute_slices=1, nvml_index=0),
+        MigProfile("1g.10gb+me", starts=(0, 1, 2, 3, 4, 5, 6), size=1,
+                   compute_slices=1, nvml_index=7, media_extensions=True),
         MigProfile("1g.20gb", starts=(0, 2, 4, 6), size=2, compute_slices=1,
                    nvml_index=9),
         MigProfile("2g.20gb", starts=(0, 2, 4), size=2, compute_slices=2,
@@ -202,12 +208,26 @@ class GpuInfo:
         return f"gpu-{self.index}"
 
 
+def mig_profile_label(profile: str) -> str:
+    """The profile as a device name spells it: a DNS label allows only
+    ``[a-z0-9-]``, so ``3g.40gb`` → ``3g40gb``, ``1g.10gb+me`` →
+    ``1g10gbme``."""
+    return re.sub(r"[^a-z0-9]", "", profile.lower())
+
+
+#: The spelling in a device name → the profile's published name, over
+#: every product's table.
+MIG_PROFILE_BY_LABEL: dict[str, str] = {
+    mig_profile_label(p.name): p.name
+    for ps in MIG_PROFILES.values() for p in ps}
+
+
 def mig_device_name(gpu_index: int, profile: str, start: int,
                     size: int) -> str:
-    """DRA device name of a MIG placement:
-    ``gpu-<index>-mig-<profile>-<start>-<size>`` (the reference's canonical
-    MIG name, ``mig.go:111-116``)."""
-    return f"gpu-{gpu_index}-mig-{profile}-{start}-{size}"
+    """DRA device name of a MIG placement, a DNS label:
+    ``gpu-<index>-mig-<profile label>-<start>-<size>`` (the reference's
+    canonical MIG name, ``mig.go:111-116``), e.g. ``gpu-0-mig-3g40gb-0-4``."""
+    return f"gpu-{gpu_index}-mig-{mig_profile_label(profile)}-{start}-{size}"
 
 
 @dataclass

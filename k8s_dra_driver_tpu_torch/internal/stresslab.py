@@ -4981,10 +4981,10 @@ def run_canary_overhead(
 #: reach slice 7), 3g.40gb and 7g.80gb. The admission probe is one whole
 #: GPU (``gpu.nvidia.com``), the 1x8 box of the GPU × memory-slice mesh.
 ALLOC_SCALE_CLASSES = {
-    1: ("mig-1g.10gb", "1g.10gb"),
-    2: ("mig-1g.20gb", "1g.20gb"),
-    4: ("mig-3g.40gb", "3g.40gb"),
-    8: ("mig-7g.80gb", "7g.80gb"),
+    1: ("mig-1g10gb", "1g.10gb"),
+    2: ("mig-1g20gb", "1g.20gb"),
+    4: ("mig-3g40gb", "3g.40gb"),
+    8: ("mig-7g80gb", "7g.80gb"),
 }
 #: the seeded tape's size mix (the JAX harness's weights)
 ALLOC_SCALE_WEIGHTS = ((1, 0.50), (2, 0.22), (4, 0.18), (8, 0.10))

@@ -649,9 +649,21 @@ def _build_geometry(idx: "_SliceIndex",
     for pool, geo in pools.items():
         if not geo.boxes:
             continue
+        # A device whose box covers fewer cells than the unit counters it
+        # draws also draws a counter outside the mesh (a GPU's media
+        # engines): as a box its containment would be wrong, so it stays
+        # on the counter-fit path, and a counter that only such devices
+        # draw is no cell of the mesh.
+        off_mesh = {n for n, g in geo.boxes.items()
+                    if g.box is not None and g.box.num_chips != g.volume}
+        in_mesh = {k for n, g in geo.boxes.items() if n not in off_mesh
+                   for k in g.counters}
+        outside = {k for n in off_mesh for k in geo.boxes[n].counters
+                   } - in_mesh
+        geo.boxes = {n: g for n, g in geo.boxes.items() if n not in off_mesh}
         geo.unit_counters = frozenset(
             (cs, c) for (p, cs, c), v in idx.capacity.items()
-            if p == pool and v == 1)
+            if p == pool and v == 1 and (cs, c) not in outside)
         # Exclusive-placement geometry only: a unit DRAW against a
         # capacity-2 counter is shareable, so "some member dirty" would
         # not imply "unallocatable" and freeness-based scoring would

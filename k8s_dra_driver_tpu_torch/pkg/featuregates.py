@@ -41,6 +41,9 @@ PASSTHROUGH_SUPPORT = "PassthroughSupport"
 # Refuse to start instead of degrading when the GPUs of one node disagree
 # (duplicate minors or UUIDs, mixed products, or different NVLink cliques).
 CRASH_ON_NVLINK_FABRIC_ERRORS = "CrashOnNVLinkFabricErrors"
+# Surface prepared-device attributes (KEP-5304 metadata) on prepare results
+# and claim status; requires PassthroughSupport.
+DEVICE_METADATA = "DeviceMetadata"
 # Publish list-valued DRA device attributes (requires matching k8s gate).
 DRA_LIST_TYPE_ATTRIBUTES = "DRAListTypeAttributes"
 # Store per-daemon rendezvous info in ComputeDomainClique objects instead of
@@ -64,6 +67,7 @@ DEFAULT_FEATURE_GATES: dict[str, tuple[VersionedSpec, ...]] = {
     DEVICE_HEALTH_CHECK: (VersionedSpec((0, 1), True, BETA),),
     PASSTHROUGH_SUPPORT: (VersionedSpec((0, 1), False, ALPHA),),
     CRASH_ON_NVLINK_FABRIC_ERRORS: (VersionedSpec((0, 1), False, ALPHA),),
+    DEVICE_METADATA: (VersionedSpec((0, 1), False, ALPHA),),
     DRA_LIST_TYPE_ATTRIBUTES: (VersionedSpec((0, 1), False, ALPHA),),
     COMPUTE_DOMAIN_CLIQUES: (VersionedSpec((0, 1), True, BETA),),
     HOST_MANAGED_RENDEZVOUS: (VersionedSpec((0, 1), False, ALPHA),),
@@ -143,3 +147,12 @@ def new_feature_gates(flag: str = "",
         fg.set_from_map(values)
     return fg
 
+
+def validate_gate_dependencies(gates: FeatureGates) -> None:
+    """Cross-gate dependency validation (featuregates.go:247-256): some
+    gates are meaningless — and would silently do nothing — without their
+    prerequisite; fail at assembly time instead."""
+    if gates.enabled(DEVICE_METADATA) and not gates.enabled(PASSTHROUGH_SUPPORT):
+        raise ValueError(
+            f"feature gate {DEVICE_METADATA} requires {PASSTHROUGH_SUPPORT} "
+            "to also be enabled")

@@ -21,6 +21,7 @@ from typing import Any, Mapping, Optional
 from k8s_dra_driver_tpu_torch.pkg.featuregates import (
     FeatureGates,
     new_feature_gates,
+    validate_gate_dependencies,
 )
 
 logger = logging.getLogger(__name__)
@@ -188,12 +189,14 @@ def enable_tracing_if_requested(args: argparse.Namespace) -> None:
 
 
 def parse_feature_gates(args: argparse.Namespace) -> FeatureGates:
-    """Parse ``--feature-gates``: every binary sharing the flag fails
-    uniformly at assembly time on an unknown gate or value."""
+    """Parse AND cross-validate: every binary sharing the --feature-gates
+    flag fails uniformly at assembly time on an invalid combination, rather
+    than only the binaries that happen to consult the dependent gate."""
     try:
         gates = new_feature_gates(getattr(args, "feature_gates", "") or "")
+        validate_gate_dependencies(gates)
     except (KeyError, ValueError) as e:
-        # Operator typo: a clean usage error, not a
+        # Operator typo or invalid combination: a clean usage error, not a
         # traceback. str(KeyError) reprs its argument (adds quotes), so
         # unwrap args[0].
         msg = e.args[0] if isinstance(e, KeyError) and e.args else e

@@ -41,6 +41,7 @@ into the hosting main.
 from __future__ import annotations
 
 import logging
+import math
 import threading
 import time
 import weakref
@@ -137,6 +138,17 @@ def usage_debug_snapshot() -> list[dict[str, Any]]:
             # not blank the endpoint.
             out.append({"error": repr(e)})
     return out
+
+
+def _box_cells(dev: dict) -> int:
+    """The cells of the device's published ``shape`` attribute (``1x4``:
+    4); 0 without one."""
+    shape = ((dev.get("attributes") or {}).get("shape") or {}).get(
+        "string", "")
+    try:
+        return math.prod(int(n) for n in shape.split("x")) if shape else 0
+    except ValueError:
+        return 0
 
 
 class UsageMeter:
@@ -236,8 +248,12 @@ class UsageMeter:
                 for cc in dev.get("consumesCounters") or []:
                     for cval in cc.get("counters", {}).values():
                         draws += int(cval.get("value", 0) or 0)
+                # A device with a published box bills its cells: the draws
+                # of a MIG media-extensions placement also hold its GPU's
+                # media counter, which is no memory slice.
+                units = _box_cells(dev) or draws
                 gpus_of[(pool, dev.get("name", ""))] = max(
-                    1, draws if has_counters else 1)
+                    1, units if has_counters else 1)
                 is_gpu = draws == 1 or not has_counters
                 tainted = any(t.get("effect") in ("NoSchedule", "NoExecute")
                               for t in dev.get("taints") or [])

@@ -43,6 +43,7 @@ from k8s_dra_driver_tpu_torch.pkg.featuregates import (
     CRASH_ON_NVLINK_FABRIC_ERRORS,
     FeatureGates,
     new_feature_gates,
+    validate_gate_dependencies,
 )
 from k8s_dra_driver_tpu_torch.pkg.metrics import DRAMetrics
 from k8s_dra_driver_tpu_torch.pkg.nodelease import (
@@ -102,6 +103,7 @@ class CdDriver:
     ):
         self.config = config
         self.gates = config.feature_gates or new_feature_gates()
+        validate_gate_dependencies(self.gates)
         env = dict(os.environ if config.env is None else config.env)
         self.device_lib = device_lib or new_device_lib(env)
         self.metrics = metrics or DRAMetrics()

@@ -63,6 +63,7 @@ from k8s_dra_driver_tpu_torch.cdi.spec import (
 )
 from k8s_dra_driver_tpu_torch.gpulib.chip import (
     MIG_MEMORY_SLICES,
+    MIG_PROFILE_BY_LABEL,
     GpuInfo,
     NodeGpuInfo,
     VfioGpuInfo,
@@ -88,6 +89,7 @@ from k8s_dra_driver_tpu_torch.pkg.errors import (
 )
 from k8s_dra_driver_tpu_torch.pkg.featuregates import (
     CRASH_ON_NVLINK_FABRIC_ERRORS,
+    DEVICE_METADATA,
     DYNAMIC_MIG,
     PASSTHROUGH_SUPPORT,
     FeatureGates,
@@ -169,14 +171,18 @@ class _Enumeration:
 
 
 def parse_mig_name(name: str) -> Optional[tuple[int, str, int, int]]:
-    """``gpu-<index>-mig-<profile>-<start>-<size>`` → (index, profile,
-    start, size); None for any other name."""
+    """``gpu-<index>-mig-<profile label>-<start>-<size>`` → (index,
+    profile, start, size), the profile by its published name; None for any
+    other name. A name that spells the profile itself
+    (``gpu-0-mig-3g.40gb-0-4``, the form a checkpoint written before
+    device names became DNS labels holds) parses to the same tuple."""
     head, sep, tail = name.partition("-mig-")
     if not sep or not head.startswith("gpu-"):
         return None
     parts = tail.rsplit("-", 2)
     try:
-        return int(head[4:]), parts[0], int(parts[1]), int(parts[2])
+        return (int(head[4:]), MIG_PROFILE_BY_LABEL.get(parts[0], parts[0]),
+                int(parts[1]), int(parts[2]))
     except (ValueError, IndexError):
         return None
 
@@ -497,8 +503,12 @@ class DeviceState:
             pc.prepared_devices = [pd.to_dict() for pd in prepared]
 
         self.checkpoints.transact(complete)
-        return [pd.to_ref(self.cdi.qualified_id(pd.cdi_device_name))
-                for pd in prepared]
+        with_md = self.gates.enabled(DEVICE_METADATA)
+        return [
+            pd.to_ref(self.cdi.qualified_id(pd.cdi_device_name),
+                      with_metadata=with_md)
+            for pd in prepared
+        ]
 
     def _own_results(self, claim: Obj) -> list[dict[str, Any]]:
         return [r for r in claim_allocation_results(claim)
@@ -878,9 +888,11 @@ class DeviceState:
     def _refs_from_checkpoint(self, uid: str,
                               pc: PreparedClaimCP) -> list[PreparedDeviceRef]:
         out = []
+        with_md = self.gates.enabled(DEVICE_METADATA)
         for d in pc.prepared_devices:
             pd = PreparedDevice.from_dict(d)
-            out.append(pd.to_ref(self.cdi.qualified_id(pd.cdi_device_name)))
+            out.append(pd.to_ref(self.cdi.qualified_id(pd.cdi_device_name),
+                                 with_metadata=with_md))
         return out
 
     # -- unprepare ----------------------------------------------------------

@@ -10,7 +10,9 @@ of the MIG profile table (``gpulib.chip.MIG_PROFILES``) is a device drawing
 the counters of the slices it covers. Whole GPUs and MIG devices draw from
 the same counters, so the scheduler can never hand out overlapping
 placements, nor a placement on an exclusively claimed GPU: overlap is
-impossible by construction.
+impossible by construction. The ``1g.10gb+me`` placements also draw their
+GPU's one media counter: the GPU's media engines go to one such instance
+(NVIDIA's MIG User Guide), so the scheduler hands out at most one a GPU.
 
 MIG devices also carry the geometry the allocator's topology-aware
 placement reads (``shape`` ``1x<size>`` and ``origin`` ``<gpu>-<start>``):
@@ -61,18 +63,32 @@ def slice_counter_name(gpu_index: int, memory_slice: int) -> str:
     return f"gpu{gpu_index}-mem{memory_slice}"
 
 
+def media_counter_name(gpu_index: int) -> str:
+    return f"gpu{gpu_index}-media"
+
+
+def _has_media_profile(gpu: GpuInfo) -> bool:
+    return any(p.media_extensions for p in MIG_PROFILES.get(gpu.gpu_type, ()))
+
+
 def memory_slice_counter_set(gpus: list[GpuInfo]) -> CounterSet:
-    """One unit counter per (GPU, memory slice) of the node."""
-    return CounterSet(
-        name=COUNTER_SET_NAME,
-        counters={slice_counter_name(g.index, s): 1 for g in gpus
-                  for s in range(MIG_MEMORY_SLICES)})
+    """One unit counter per (GPU, memory slice) of the node, and one per
+    GPU whose MIG table has a media-extensions profile, for its media
+    engines."""
+    counters = {slice_counter_name(g.index, s): 1 for g in gpus
+                for s in range(MIG_MEMORY_SLICES)}
+    counters.update({media_counter_name(g.index): 1 for g in gpus
+                     if _has_media_profile(g)})
+    return CounterSet(name=COUNTER_SET_NAME, counters=counters)
 
 
-def _draw(gpu_index: int, start: int, size: int) -> list[CounterConsumption]:
-    return [CounterConsumption(COUNTER_SET_NAME, {
-        slice_counter_name(gpu_index, s): 1
-        for s in range(start, start + size)})]
+def _draw(gpu_index: int, start: int, size: int,
+          media: bool = False) -> list[CounterConsumption]:
+    counters = {slice_counter_name(gpu_index, s): 1
+                for s in range(start, start + size)}
+    if media:
+        counters[media_counter_name(gpu_index)] = 1
+    return [CounterConsumption(COUNTER_SET_NAME, counters)]
 
 
 def _gpu_attrs(gpu: GpuInfo, list_type_attrs: bool = False) -> dict:
@@ -134,8 +150,9 @@ def _geometry(gpu_index: int, start: int, size: int) -> dict:
 
 def mig_devices(gpus: list[GpuInfo]) -> list[Device]:
     """Every placement of every profile of the MIG table on each GPU whose
-    MIG mode is on, in table order (19 devices an H100 with its whole GPU:
-    7 + 4 + 3 + 2 + 1 + 1 placements)."""
+    MIG mode is on, in table order (26 devices an H100 with its whole GPU:
+    7 + 7 + 4 + 3 + 2 + 1 + 1 placements). A media-extensions placement
+    carries ``mediaExtensions`` and draws its GPU's media counter."""
     out: list[Device] = []
     for g in gpus:
         if not g.mig_enabled:
@@ -153,10 +170,13 @@ def mig_devices(gpus: list[GpuInfo]) -> list[Device]:
                         "placementSize": p.size,
                         "productName": g.product_name
                         or g.spec.product_name,
+                        **({"mediaExtensions": True}
+                           if p.media_extensions else {}),
                         **_geometry(g.index, start, p.size),
                     },
                     capacity={"memory": p.memory_bytes(_gpu_memory(g))},
-                    consumes_counters=_draw(g.index, start, p.size),
+                    consumes_counters=_draw(g.index, start, p.size,
+                                            p.media_extensions),
                 ))
     return out
 

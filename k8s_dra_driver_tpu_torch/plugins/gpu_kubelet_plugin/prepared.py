@@ -64,10 +64,19 @@ class PreparedDevice:
             mig=dict(d.get("mig") or {}),
         )
 
-    def to_ref(self, qualified_id: str) -> PreparedDeviceRef:
+    def to_ref(self, qualified_id: str,
+               with_metadata: bool = False) -> PreparedDeviceRef:
+        """``with_metadata`` (the DeviceMetadata gate, KEP-5304): passthrough
+        devices surface their identifying attributes on the prepare result —
+        the VM launcher reads them from pod status instead of probing sysfs
+        (device_state.go:977-987, vfio devices only there too)."""
+        metadata = {}
+        if with_metadata and self.vfio:
+            metadata = {"attributes": dict(self.vfio)}
         return PreparedDeviceRef(
             requests=list(self.requests),
             pool=self.pool,
             device=self.device,
             cdi_device_ids=[qualified_id],
+            metadata=metadata,
         )

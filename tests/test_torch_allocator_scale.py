@@ -379,12 +379,12 @@ def test_a_victim_as_large_as_the_blocked_claim_is_not_evicted():
 #: size 0 is the whole-GPU class
 _WHOLE = [(f"whole-{g}", 0, f"gpu-{g}") for g in range(6)]
 _PLANNER_WORLDS = {
-    "a-pin-in-every-gpu": [(f"pin-{g}", 1, f"gpu-{g}-mig-1g.10gb-{g % 7}-1")
+    "a-pin-in-every-gpu": [(f"pin-{g}", 1, f"gpu-{g}-mig-1g10gb-{g % 7}-1")
                            for g in range(8)],
     "a-smaller-victim-is-cheaper": _WHOLE + [
-        (f"half-{g}", 4, f"gpu-{g}-mig-3g.40gb-0-4") for g in (6, 7)],
+        (f"half-{g}", 4, f"gpu-{g}-mig-3g40gb-0-4") for g in (6, 7)],
     "a-same-size-victim-is-cheaper": _WHOLE + [
-        (f"pin-{g}-{k}", 1, f"gpu-{g}-mig-1g.10gb-{k}-1")
+        (f"pin-{g}-{k}", 1, f"gpu-{g}-mig-1g10gb-{k}-1")
         for g in (6, 7) for k in (0, 1)],
 }
 #: each world's first hint as (target device, victims): JAX's, then the
@@ -487,7 +487,7 @@ def test_a_blocked_claim_waits_for_its_plans_victims():
         c = client.create(_claim(f"pin-{g}", small))
         c.setdefault("status", {})["allocation"] = {"devices": {"results": [
             {"request": "r", "driver": "gpu.nvidia.com", "pool": "node-0",
-             "device": f"gpu-{g}-mig-1g.10gb-{g % 7}-1"}]}}
+             "device": f"gpu-{g}-mig-1g10gb-{g % 7}-1"}]}}
         client.update_status(c)
     probe = client.create(_claim("probe", partitions.DEVICE_CLASS_GPU))
     with pytest.raises(port_allocator.AllocationError):
@@ -540,7 +540,7 @@ def test_a_nomination_goes_with_its_blocked_claim(resolution):
         c = client.create(_claim(f"pin-{g}", small))
         c.setdefault("status", {})["allocation"] = {"devices": {"results": [
             {"request": "r", "driver": "gpu.nvidia.com", "pool": "node-0",
-             "device": f"gpu-{g}-mig-1g.10gb-{g % 7}-1"}]}}
+             "device": f"gpu-{g}-mig-1g10gb-{g % 7}-1"}]}}
         client.update_status(c)
     probe = client.create(_claim("probe", whole))
     with pytest.raises(port_allocator.AllocationError):

@@ -146,7 +146,8 @@ def rendered_docs(name: str, overrides: dict = None) -> list[dict]:
 #: and every flag renders.
 ALL_ON = {"webhook.enabled": True, "controller.leaderElect": True,
           "mockProfile": "h100-8",
-          "featureGates": "DynamicMIG=true,PassthroughSupport=true",
+          "featureGates": "DynamicMIG=true,PassthroughSupport=true,"
+                          "DeviceMetadata=true",
           "apiServer.endpoint": "http://127.0.0.1:8700"}
 
 
@@ -491,13 +492,13 @@ class TestChartAgainstTheCode:
         defaults and stages, and an ``ALL_ON`` render's gates parse."""
         text = (CHART / "values.yaml").read_text()
         listed = {m[0]: (m[1], m[2]) for m in re.findall(
-            r"^#\s+([A-Za-z]+)\s+\(default (true|false),\s+(\w+)\)",
+            r"^#\s+([A-Za-z]+)\s+\(default (true|false),\s+(\w+)[;)]",
             text, re.M)}
         want = {name: (str(specs[-1].default).lower(), specs[-1].prerelease)
                 for name, specs in DEFAULT_FEATURE_GATES.items()}
         assert listed == want
         gates = new_feature_gates(ALL_ON["featureGates"])
-        for name in ("DynamicMIG", "PassthroughSupport"):
+        for name in ("DynamicMIG", "PassthroughSupport", "DeviceMetadata"):
             assert gates.enabled(name)
 
     def test_rbac_covers_every_write_of_each_binary(self, tmp_path,

@@ -148,8 +148,9 @@ class TestPublication:
     @pytest.mark.parametrize("gate", [DYNAMIC_MIG, PASSTHROUGH_SUPPORT])
     def test_waiting_features_refuse_to_start(self, tmp_path, gate):
         """Once refused at assembly, each gate now starts the plugin:
-        DynamicMIG publishes the 19 devices of each GPU in MIG mode over
-        the memory-slice counters, PassthroughSupport the GPUs (the mock
+        DynamicMIG publishes the 26 devices of each GPU in MIG mode over
+        the memory-slice and media counters, PassthroughSupport the GPUs
+        (the mock
         binds none to vfio-pci)."""
         client = FakeClient()
         GpuDriver(client, DriverConfig(
@@ -159,9 +160,9 @@ class TestPublication:
             device_lib=MockDeviceLib("h100-8", mig=True)).start()
         (spec,) = [s["spec"] for s in client.list("ResourceSlice")]
         if gate == DYNAMIC_MIG:
-            assert len(spec["devices"]) == 8 * 19
+            assert len(spec["devices"]) == 8 * 26
             (cs,) = spec["sharedCounters"]
-            assert len(cs["counters"]) == 8 * 8
+            assert len(cs["counters"]) == 8 * 8 + 8
         else:
             assert [d["name"] for d in spec["devices"]] == [
                 f"gpu-{i}" for i in range(8)]

@@ -41,6 +41,7 @@ from k8s_dra_driver_tpu_torch.gpulib.chip import (
     MIG_PROFILES,
     GpuType,
     mig_profile,
+    mig_profile_label,
 )
 from k8s_dra_driver_tpu_torch.gpulib.topology import Box, Topology
 from k8s_dra_driver_tpu_torch.k8sclient import FakeClient
@@ -103,7 +104,8 @@ def _classes(client):
         client.create(new_object("DeviceClass", name, spec={"selectors": [
             {"cel": {"expression": expr}}]}))
     for p in PROFILES:
-        client.create(new_object("DeviceClass", f"mig-{p.name}", spec={
+        client.create(new_object("DeviceClass",
+                                 f"mig-{mig_profile_label(p.name)}", spec={
             "selectors": [{"cel": {"expression":
                 f"device.attributes['type'] == 'mig' && "
                 f"device.attributes['profile'] == '{p.name}'"}}]}))
@@ -173,7 +175,7 @@ class TestMigTenancy:
         a2 = alloc.allocate(make_claim(client, "tenant2",
                                        selectors=on_gpu0("3g.40gb")))
         assert {device_of(a1), device_of(a2)} == {
-            "gpu-0-mig-3g.40gb-0-4", "gpu-0-mig-3g.40gb-4-4"}
+            "gpu-0-mig-3g40gb-0-4", "gpu-0-mig-3g40gb-4-4"}
         with pytest.raises(AllocationError):
             alloc.allocate(make_claim(client, "tenant3",
                                       selectors=on_gpu0("3g.40gb")))
@@ -266,7 +268,7 @@ class TestMigPlacementProperties:
         client, _, _ = cluster
         (spec,) = [s["spec"] for s in client.list("ResourceSlice")]
         names = [d["name"] for d in spec["devices"]]
-        assert len(names) == len(set(names)) == 8 * 19
+        assert len(names) == len(set(names)) == 8 * 26
         topo = Topology(dims=(8, MIG_MEMORY_SLICES))
         by_profile: dict = {}
         for d in spec["devices"]:
@@ -278,8 +280,10 @@ class TestMigPlacementProperties:
             assert topo.is_valid_subslice(box), d["name"]
             drawn = {c for cc in d["consumesCounters"]
                      for c in cc["counters"]}
+            media = ({P.media_counter_name(box.origin[0])}
+                     if attrs.get("mediaExtensions") else set())
             assert drawn == {P.slice_counter_name(*xy)
-                             for xy in box.coords()}
+                             for xy in box.coords()} | media
             if attrs["type"] != "mig":
                 continue
             p = mig_profile(H100, attrs["profile"])
@@ -303,7 +307,7 @@ class TestMigPlacementProperties:
         _driver(client, tmp_path, lib).start()
         names = [d["name"] for d in
                  client.list("ResourceSlice")[0]["spec"]["devices"]]
-        assert len(names) == 8 + 7 * 18 and "gpu-3" in names
+        assert len(names) == 8 + 7 * 25 and "gpu-3" in names
         assert not any(n.startswith("gpu-3-mig-") for n in names)
 
     def test_table_not_the_enumerated_mesh(self):
@@ -315,9 +319,9 @@ class TestMigPlacementProperties:
         mesh = Topology(dims=(1, MIG_MEMORY_SLICES)).enumerate_subslices(
             [(1, 1)])
         assert len(mesh) == 8 and len([n for n in names
-                                       if "-1g.10gb-" in n]) == 7
-        assert "gpu-0-mig-1g.10gb-7-1" not in names
-        assert len(names) == sum(len(p.starts) for p in PROFILES) == 18
+                                       if "-1g10gb-" in n]) == 7
+        assert "gpu-0-mig-1g10gb-7-1" not in names
+        assert len(names) == sum(len(p.starts) for p in PROFILES) == 25
 
     def test_disjoint_placements_stay_within_compute_slices(self):
         """The compute slices are not a counter: every set of pairwise
@@ -344,8 +348,8 @@ class TestMigPlacementProperties:
         for name, s, size, _ in _placements():
             dev = f"gpu-3-mig-{name}-{s}-{size}"
             assert parse_mig_name(dev) == (3, name, s, size)
-        for bad in ("gpu-3", "gpu-x-mig-1g.10gb-0-1", "vfio-gpu-0",
-                    "gpu-1-mig-1g.10gb-0"):
+        for bad in ("gpu-3", "gpu-x-mig-1g10gb-0-1", "vfio-gpu-0",
+                    "gpu-1-mig-1g10gb-0"):
             assert parse_mig_name(bad) is None
 
 
@@ -392,18 +396,18 @@ class TestBestFitPlacement:
         client = make_mesh()
         alloc = Allocator(client, metrics=AllocatorMetrics())
         for j in range(4):
-            alloc.allocate(make_claim(client, f"c{j}", "mig-1g.10gb"))
+            alloc.allocate(make_claim(client, f"c{j}", "mig-1g10gb"))
         got = sorted(d for ds in held_devices(client).values() for d in ds)
-        assert got == [f"gpu-0-mig-1g.10gb-{s}-1" for s in range(4)]
+        assert got == [f"gpu-0-mig-1g10gb-{s}-1" for s in range(4)]
 
     def test_partition_prefers_broken_pool_over_pristine(self):
         client = make_mesh(n_nodes=2)
         alloc = Allocator(client, metrics=AllocatorMetrics())
-        alloc.allocate(make_claim(client, "pin", "mig-1g.10gb"))
-        sub = alloc.allocate(make_claim(client, "sub", "mig-3g.40gb"))
+        alloc.allocate(make_claim(client, "pin", "mig-1g10gb"))
+        sub = alloc.allocate(make_claim(client, "sub", "mig-3g40gb"))
         res = sub["status"]["allocation"]["devices"]["results"][0]
         assert res["pool"] == "node-0"
-        assert res["device"] == "gpu-0-mig-3g.40gb-4-4"
+        assert res["device"] == "gpu-0-mig-3g40gb-4-4"
 
     @pytest.mark.parametrize("strategy", ["best-fit", "first-fit"])
     def test_no_overlap_under_mixed_sizes(self, strategy):
@@ -413,9 +417,9 @@ class TestBestFitPlacement:
         client = make_mesh(n_gpus=3)
         alloc = Allocator(client, metrics=AllocatorMetrics(),
                           strategy=strategy)
-        sizes = ["mig-1g.10gb", "mig-3g.40gb", "mig-2g.20gb", "gpu.nvidia.com",
-                 "mig-1g.20gb", "mig-4g.40gb", "mig-1g.10gb", "mig-7g.80gb",
-                 "mig-1g.10gb", "mig-2g.20gb"]
+        sizes = ["mig-1g10gb", "mig-3g40gb", "mig-2g20gb", "gpu.nvidia.com",
+                 "mig-1g20gb", "mig-4g40gb", "mig-1g10gb", "mig-7g80gb",
+                 "mig-1g10gb", "mig-2g20gb"]
         placed = 0
         for j, cls in enumerate(sizes):
             try:
@@ -459,12 +463,17 @@ class TestGeometryIndex:
 
     def test_every_mig_device_is_in_the_index(self):
         """Every draw is a unit draw, so every MIG device and whole GPU
-        keeps its box in the geometry index."""
+        whose draws are the cells of its box keeps that box in the
+        geometry index: all but the 1g.10gb+me placements, which also draw
+        their GPU's media counter and stay on the counter-fit path. The
+        mesh is the 64 memory slices; the media counters are no cell."""
         client = make_mesh()
         geo = Allocator(client, metrics=AllocatorMetrics()) \
             ._slice_index().geometry["node-0"]
         assert len(geo.boxes) == 8 * 19
         assert all(g.box is not None for g in geo.boxes.values())
+        assert not any("-1g10gbme-" in n for n in geo.boxes)
+        assert len(geo.unit_counters) == 8 * MIG_MEMORY_SLICES
 
 
 class TestFragmentationAccounting:
@@ -475,7 +484,7 @@ class TestFragmentationAccounting:
         (row,) = alloc.fragmentation_report()
         assert (row["fragmentation"], row["free_chips"],
                 row["largest_free"]) == (0.0, 64, 64)
-        alloc.allocate(make_claim(client, "a", "mig-1g.10gb"))
+        alloc.allocate(make_claim(client, "a", "mig-1g10gb"))
         (row,) = alloc.fragmentation_report()
         assert row["free_chips"] == 63
         # Largest allocatable after one slice of GPU 0: a whole GPU row.
@@ -488,7 +497,7 @@ class TestFragmentationAccounting:
         client = make_mesh()
         alloc = Allocator(client, metrics=AllocatorMetrics())
         for j in range(8):
-            alloc.allocate(make_claim(client, f"c{j}", "mig-7g.80gb"))
+            alloc.allocate(make_claim(client, f"c{j}", "mig-7g80gb"))
         (row,) = alloc.fragmentation_report()
         assert row["free_chips"] == 0 and row["fragmentation"] == 0.0
 
@@ -496,9 +505,9 @@ class TestFragmentationAccounting:
 def _fragment(client, alloc):
     """On one GPU: a 1g.10gb in each half → no free 3g.40gb while six
     slices idle."""
-    alloc.allocate(make_claim(client, "pin-top", "mig-1g.10gb"))
-    alloc.allocate(make_claim(client, "pin-bot", "mig-1g.10gb"),
-                   avoid=[("node-0", "gpu-0-mig-3g.40gb-0-4")])
+    alloc.allocate(make_claim(client, "pin-top", "mig-1g10gb"))
+    alloc.allocate(make_claim(client, "pin-bot", "mig-1g10gb"),
+                   avoid=[("node-0", "gpu-0-mig-3g40gb-0-4")])
 
 
 class TestBlockedClassification:
@@ -508,7 +517,7 @@ class TestBlockedClassification:
         alloc = Allocator(client, metrics=m)
         _fragment(client, alloc)
         with pytest.raises(AllocationError, match="fragmented"):
-            alloc.allocate(make_claim(client, "big", "mig-3g.40gb"))
+            alloc.allocate(make_claim(client, "big", "mig-3g40gb"))
         assert m.allocations_total.value(outcome="fragmented") == 1
         blocked = alloc.blocked_claims()
         assert [b["name"] for b in blocked] == ["big"]
@@ -525,7 +534,7 @@ class TestBlockedClassification:
         alloc = Allocator(client, metrics=AllocatorMetrics())
         _fragment(client, alloc)
         with pytest.raises(AllocationError):
-            alloc.allocate(make_claim(client, "big", "mig-3g.40gb"))
+            alloc.allocate(make_claim(client, "big", "mig-3g40gb"))
         alloc.release(client.get("ResourceClaim", "pin-top", "default"))
         alloc.allocate(client.get("ResourceClaim", "big", "default"))
         assert alloc.blocked_claims() == []
@@ -533,23 +542,23 @@ class TestBlockedClassification:
     def test_avoid_excludes_overlapping_placements(self):
         client = make_mesh(n_gpus=1)
         alloc = Allocator(client, metrics=AllocatorMetrics())
-        alloc.allocate(make_claim(client, "c", "mig-1g.10gb"),
-                       avoid=[("node-0", "gpu-0-mig-3g.40gb-0-4")])
+        alloc.allocate(make_claim(client, "c", "mig-1g10gb"),
+                       avoid=[("node-0", "gpu-0-mig-3g40gb-0-4")])
         (dev,) = held_devices(client)["c"]
         assert min(slices_of(dev)) >= 4
 
     def test_placement_options_victims(self):
         client = make_mesh(n_gpus=1)
         alloc = Allocator(client, metrics=AllocatorMetrics())
-        alloc.allocate(make_claim(client, "small", "mig-1g.20gb"),
-                       avoid=[("node-0", "gpu-0-mig-3g.40gb-4-4")])
+        alloc.allocate(make_claim(client, "small", "mig-1g20gb"),
+                       avoid=[("node-0", "gpu-0-mig-3g40gb-4-4")])
         opts = alloc.placement_options(make_claim(client, "big",
-                                                  "mig-3g.40gb"))
-        top = next(o for o in opts if o["device"] == "gpu-0-mig-3g.40gb-0-4")
+                                                  "mig-3g40gb"))
+        top = next(o for o in opts if o["device"] == "gpu-0-mig-3g40gb-0-4")
         assert [v["name"] for v in top["victims"]] == ["small"]
         assert top["victim_chips"] == 2
         bottom = next(o for o in opts
-                      if o["device"] == "gpu-0-mig-3g.40gb-4-4")
+                      if o["device"] == "gpu-0-mig-3g40gb-4-4")
         assert bottom["victims"] == []
 
 
@@ -561,7 +570,7 @@ class TestDefragPlanner:
         alloc = Allocator(client, metrics=m)
         _fragment(client, alloc)
         with pytest.raises(AllocationError):
-            alloc.allocate(make_claim(client, "big", "mig-3g.40gb"))
+            alloc.allocate(make_claim(client, "big", "mig-3g40gb"))
         return client, alloc, mu, m
 
     def test_scored_preemption_unblocks(self):
@@ -616,7 +625,7 @@ class TestDefragPlanner:
         never preempted (a net-loss migration)."""
         client = make_mesh(n_gpus=1)
         alloc = Allocator(client, metrics=AllocatorMetrics())
-        alloc.allocate(make_claim(client, "big-old", "mig-4g.40gb"))
+        alloc.allocate(make_claim(client, "big-old", "mig-4g40gb"))
         planner = DefragPlanner(client, alloc, alloc_mutex=threading.Lock())
         uid = client.get("ResourceClaim", "big-old",
                          "default")["metadata"]["uid"]
@@ -640,12 +649,30 @@ def _plain(obj):
     return o
 
 
+def _without_media(obj):
+    """A ResourceSlice less its media-extensions placements and media
+    counters: the GPU × memory-slice mesh alone."""
+    if obj["kind"] != "ResourceSlice":
+        return obj
+    spec = obj["spec"]
+    spec["devices"] = [d for d in spec["devices"]
+                       if "mediaExtensions" not in d.get("attributes", {})]
+    for cs in spec.get("sharedCounters", []):
+        cs["counters"] = {k: v for k, v in cs["counters"].items()
+                          if not k.endswith("-media")}
+    return obj
+
+
+#: The profiles whose placements draw memory slices alone.
+MESH_PROFILES = tuple(p for p in PROFILES if not p.media_extensions)
+
+
 def _mig_request(rng):
     kind = rng.integers(4)
     if kind == 0:
         return P.DEVICE_CLASS_GPU, [
             f"device.attributes['index'] >= {rng.integers(0, 8)}"]
-    profile = PROFILES[rng.integers(len(PROFILES))].name
+    profile = MESH_PROFILES[rng.integers(len(MESH_PROFILES))].name
     sels = [f"device.attributes['profile'] == '{profile}'"]
     if kind == 2:
         sels.append(f"device.attributes['parentIndex'] == "
@@ -660,20 +687,26 @@ def _mig_request(rng):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_jax_and_port_allocators_agree_on_the_mig_slice(tmp_path, strategy,
                                                         seed):
-    """The port's published MIG slice (152 placements, 8 whole GPUs, 64
-    memory-slice counters) and its DeviceClasses in a JAX ``FakeClient``
-    and a port ``FakeClient``; a seeded sequence of claims and releases
-    through each package's ``Allocator``: the same placements, or the
-    same refusal, step for step."""
+    """The port's published MIG slice (208 placements, 8 whole GPUs, 64
+    memory-slice and 8 media counters) in a port ``FakeClient``, and its
+    GPU × memory-slice mesh (the slice less the 56 media-extensions
+    placements and their counters: 152 placements, the geometry the JAX
+    allocator models) in a JAX ``FakeClient``, with the DeviceClasses; a
+    seeded sequence of claims for whole GPUs and the mesh's profiles and
+    releases through each package's ``Allocator``: the same placements,
+    or the same refusal, step for step. The media-extensions placements
+    the port publishes change nothing for other traffic."""
     source = FakeClient()
     _classes(source)
     _driver(source, tmp_path, dl.MockDeviceLib("h100-8", mig=True)).start()
     objects = [_plain(o) for kind in ("DeviceClass", "ResourceSlice")
                for o in source.list(kind)]
+    assert len(objects[-1]["spec"]["devices"]) == 208
     clients = (JaxClient(), FakeClient())
-    for c in clients:
-        for o in objects:
-            c.create(copy.deepcopy(o))
+    for o in objects:
+        clients[0].create(_without_media(copy.deepcopy(o)))
+        clients[1].create(copy.deepcopy(o))
+    assert len(clients[0].list("ResourceSlice")[0]["spec"]["devices"]) == 152
     allocs = (jax_alloc.Allocator(clients[0], strategy=strategy),
               port_alloc.Allocator(clients[1], strategy=strategy))
     errors = (jax_alloc.AllocationError, port_alloc.AllocationError)
@@ -1117,14 +1150,14 @@ class TestNvmlMig:
             self, tmp_path):
         """What the smoke checks on the card: with DynamicMIG on, a GPU
         whose NVML mode is off (or not supported) is a whole GPU and
-        nothing else; one in MIG mode adds its 18 placements."""
+        nothing else; one in MIG mode adds its 25 placements."""
         _, lib = _nvml_node(tmp_path, [1, None])
         client = FakeClient()
         _driver(client, tmp_path, lib).start()
         names = [d["name"] for d in
                  client.list("ResourceSlice")[0]["spec"]["devices"]]
         assert names[:2] == ["gpu-0", "gpu-1"]
-        assert len(names) == 2 + 18
+        assert len(names) == 2 + 25
         assert all(n.startswith("gpu-0-mig-") for n in names[2:])
 
     def test_procfs_backend_has_no_mig(self, tmp_path):
@@ -1179,8 +1212,9 @@ def test_the_smokes_mig_phase_on_a_mock_node(tmp_path, monkeypatch, capsys):
     """``chip_smoke.phase_mig`` as the card runs it, its card an NVML
     library (the fake above) whose GPU answers Not Supported to the MIG
     mode, with small CPU engines: two 3g.40gb tenants on a mock node,
-    the refusals, the engines within their profile's memory, the VFIO leg
-    on a materialized tree, one ``mig`` line and nothing left."""
+    the refusals, the engines within their profile's memory, a
+    1g.10gb+me claim and its refused twin, the VFIO leg on a materialized
+    tree, one ``mig`` line and nothing left."""
     import chip_smoke
     from k8s_dra_driver_tpu_torch.compute import _build
 
@@ -1193,13 +1227,17 @@ def test_the_smokes_mig_phase_on_a_mock_node(tmp_path, monkeypatch, capsys):
         "device": "cpu"})
     assert out["nvml_mig"] == "Not Supported (code 3)"
     assert out["real_published"] == ["gpu-0"]
-    assert out["tenants"] == ["gpu-0-mig-3g.40gb-0-4",
-                              "gpu-0-mig-3g.40gb-4-4"]
+    assert out["tenants"] == ["gpu-0-mig-3g40gb-0-4",
+                              "gpu-0-mig-3g40gb-4-4"]
     assert out["refused"] == ["over-4g", "over-whole"]
     assert out["kernel_launches"] == 0 and out["decode_steps"] > 0
     assert out["kv_isolation_max_err"] < 1e-4
     assert all(b <= out["profile_memory_bytes"] for b in out["engine_bytes"])
     assert out["after_4g"] == "4g.40gb" and out["residue"] == []
+    assert out["devices_published"] == 208
+    assert out["media"]["twin_refused"]
+    assert out["media"]["device"].startswith("gpu-1-mig-1g10gbme-")
+    assert out["vfio"]["names"] == 8
     assert out["vfio"]["ledger"] == {out["vfio"]["bdf"]: "nvidia"}
     assert out["vfio"]["restored"] == "nvidia"
     assert out["vfio_managers"] == 1
