@@ -9,6 +9,8 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py serve OTHER_TREE [--rounds N]
     python3 chip_ab.py decode OTHER_TREE [--rounds N]
     python3 chip_ab.py wire [--writers 3,6,12,16] [--cycles N]
+    python3 chip_ab.py flash32 OTHER_TREE [--rounds N]
+    python3 chip_ab.py decode-keys
 
 ``versions`` copies the port (``chip_smoke.py`` and
 ``k8s_dra_driver_tpu_torch/``) once per source under ``--work``, puts the
@@ -47,6 +49,19 @@ and p99, the status writes committed and their mean coalesced batch, then
 one JSON line of every turn with the card's name and power limit. It asks
 whether the status group commit pays at a denser writer load than the
 harness's default of 3.
+
+``flash32`` does what ``decode`` does with f32 flash attention: each turn
+times ``flash_attention`` in f32 at FLASH32_SHAPES, causal off and on,
+with ``chip_smoke.cuda_ms``, and holds each output against
+``reference_attention`` (the limit's share, 2e-5 + 2e-5 |ref|). Against
+a tree from before the general flash kernel, it compares that kernel with
+the f32 one it replaced.
+
+``decode-keys`` times one decode launch with every sequence at the full
+4096-token cache (32 sequences, one head) for each of DECODE_KEY_CASES,
+tuned and general kernels, 8 query rows and 1, and prints the time per
+key of one block: what bounds a kernel whose grid is b * h blocks when
+b * h is small.
 """
 
 from __future__ import annotations
@@ -84,13 +99,52 @@ DECODE = ("import numpy as np, chip_smoke as c; card = c.phase_device(); "
           "rng = np.random.default_rng(0); "
           "c.phase_timing(rng, *c.smoke_inputs(rng))")
 DECODE_KEYS = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+# f32 flash shapes [b, h, S, d, dv]: the bench's headline and two sweep
+# rows, d 64 and 256, dv over d, padded head dims, one short sequence.
+FLASH32_SHAPES = ((4, 8, 2048, 128, 128), (16, 8, 512, 128, 128),
+                  (1, 8, 8192, 128, 128), (4, 8, 2048, 64, 64),
+                  (4, 8, 2048, 256, 256), (4, 8, 2048, 32, 256),
+                  (2, 3, 129, 40, 24), (8, 8, 64, 128, 128))
+FLASH32 = (
+    "import json, torch, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute.flashattention import "
+    "flash_attention as fa\n"
+    "from k8s_dra_driver_tpu_torch.compute.ringattention import "
+    "reference_attention as ref\n"
+    "card = c.phase_device(); print('AB_CARD ' + card)\n"
+    "g = torch.Generator(device='cuda:0').manual_seed(0)\n"
+    "ms, over = [], []\n"
+    f"for b, h, s, d, dv in {FLASH32_SHAPES!r}:\n"
+    "    q, k = (torch.randn((b, h, s, d), generator=g, device='cuda:0')"
+    " for _ in range(2))\n"
+    "    v = torch.randn((b, h, s, dv), generator=g, device='cuda:0')\n"
+    "    for causal in (False, True):\n"
+    "        ms.append(c.cuda_ms(lambda: fa(q, k, v, causal=causal), runs=10,"
+    " warmup=2))\n"
+    "        over.append(c.compare(fa(q, k, v, causal=causal),"
+    " ref(q, k, v, causal=causal), 2e-5, 2e-5)[1])\n"
+    "dump = lambda x: json.dumps([round(y, 5) for y in x],"
+    " separators=(',', ':'))\n"
+    "print('[flash32] ms=' + dump(ms) + ' err_over_limit=' + dump(over))\n")
 # What each mode runs in a tree, and the lines of its output it keeps.
 TREE_MODES = {
     "serve": (SERVE, lambda ln: ln.startswith("[serve] submitted="),
               SERVE_KEYS),
     "decode": (DECODE, lambda ln: ln.startswith("[timing]") or (
         ln.startswith("[build] kernel=decode")), DECODE_KEYS),
+    "flash32": (FLASH32, lambda ln: ln.startswith("[flash32]"),
+                ("ms", "err_over_limit")),
 }
+# decode-keys: (name, query rows, q's dtype, d, dv); K and V in bf16, so
+# an f32 q takes the general kernel at d = 128.
+DECODE_KEY_CASES = (
+    ("tuned_rows8_d128", 8, "bfloat16", 128, 128),
+    ("tuned_rows1_d128", 1, "bfloat16", 128, 128),
+    ("general_rows8_d128_f32q", 8, "float32", 128, 128),
+    ("general_rows1_d128_f32q", 1, "float32", 128, 128),
+    ("general_rows8_mla", 8, "bfloat16", 576, 512),
+    ("general_rows1_mla", 1, "bfloat16", 576, 512),
+)
 
 
 def copy_tree(dest: Path, kernel_source: str) -> Path:
@@ -247,16 +301,51 @@ def wire(writers: list, cycles: int, timeout: float) -> int:
     return 0
 
 
+def decode_keys() -> int:
+    """One decode launch per case of DECODE_KEY_CASES at a full cache:
+    ms per launch and microseconds per key of one block."""
+    import torch
+
+    import chip_smoke
+    from k8s_dra_driver_tpu_torch.compute.flashattention import (
+        flash_attention_decode,
+    )
+
+    card = chip_smoke.phase_device()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cap = chip_smoke.KV_CAP
+    lens = torch.full((32,), cap, dtype=torch.int32, device=dev)
+    rows = []
+    for name, ql, qdt, d, dv in DECODE_KEY_CASES:
+        q = torch.randn((32, 1, ql, d), generator=gen, device=dev).to(
+            getattr(torch, qdt))
+        k = torch.randn((32, 1, cap, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn((32, 1, cap, dv), generator=gen, device=dev).to(
+            torch.bfloat16)
+        ms = chip_smoke.cuda_ms(
+            lambda: flash_attention_decode(q, k, v, lens), runs=10,
+            warmup=2)
+        rows.append({"case": name, "ms": ms, "us_per_key": ms * 1e3 / cap})
+        print(f"[decode-keys] case={name} ms={ms} "
+              f"us_per_key={ms * 1e3 / cap}", flush=True)
+    print(json.dumps({"decode_keys": rows, "card": card}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("versions", "controls", "serve",
-                                     "decode", "wire"))
+                                     "decode", "wire", "flash32",
+                                     "decode-keys"))
     ap.add_argument("sources", nargs="*",
                     help="other flash_attention.cu files (versions), or "
-                         "the other tree's directory (serve, decode)")
+                         "the other tree's directory (serve, decode, "
+                         "flash32)")
     ap.add_argument("--rounds", type=int, default=2,
-                    help="serve, decode: rounds of other, this, this, "
-                         "other")
+                    help="serve, decode, flash32: rounds of other, this, "
+                         "this, other")
     ap.add_argument("--work", type=Path, default=ROOT / "chipcopy" / "ab",
                     help="where the copies go (a directory .gitignore "
                          "lists)")
@@ -270,6 +359,8 @@ def main(argv=None) -> int:
     if args.mode == "wire":
         return wire([int(w) for w in args.writers.split(",")],
                     args.cycles, args.timeout)
+    if args.mode == "decode-keys":
+        return decode_keys()
     if args.mode == "versions":
         if not args.sources:
             ap.error("versions needs at least one other source")

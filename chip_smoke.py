@@ -15,15 +15,19 @@ One line per phase:
 2. build   nvcc of every kernel source, all started together, with seconds;
            per kernel ptxas's registers, shared memory and spills, and its
            SASS count of warpgroup MMAs (HGMMA) and TMA loads (UTMALDG):
-           every bf16 flash kernel must have both
+           every bf16 and f16 flash kernel must have both
 3. check   the decode kernel against its plain PyTorch version on the card
            at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
-           lengths): f32 within 1e-4, bf16 within 2e-2, a poisoned cache
-           tail changes the output by less than 1e-5, and a block_k that
-           does not divide the cache raises ValueError; every compiled
-           variant at small shapes, with v's head dim unlike k's and 16 or
-           20 query rows (launched 8 rows at a time); then a small engine
-           on the card against the same engine on the CPU, step for step
+           lengths): f32 within 1e-4, bf16 and f16 within 2e-2, a poisoned
+           cache tail (+-6e4 in f16, which holds no 1e6) changes the output
+           by less than 1e-5, and a block_k that does not divide the cache
+           raises ValueError; every compiled variant at small shapes in
+           f32, bf16 and f16, with v's head dim unlike k's and 16 or 20
+           query rows (launched 8 rows at a time); the general kernel at
+           head dims 257-1024 (576/512, 64/640) and with q, k and v in
+           different dtypes, each within its narrowest input's limit and
+           one launch per 8 rows; then a small engine on the card against
+           the same engine on the CPU, step for step
 4. timing  the decode kernel, its plain version and one library call, at
            the engine's shape, beside the least time the card could take
 5. serve   the claim path: a ResourceClaim for that card (CEL on its UUID)
@@ -41,12 +45,14 @@ One line per phase:
            lengths): f32 within 1e-4, bf16 within 2e-2
 6. flash   the flash-attention kernel against its plain version
            (``reference_attention``) on the card at the compute bench's
-           width [4, 8, 2048, 128], causal off and on: bf16 within
+           width [4, 8, 2048, 128], causal off and on: bf16 and f16 within
            4e-3 + 1e-2 |ref| and f32 within 2e-5 + 2e-5 |ref| (the JAX
            tests' f32 criterion) at every element; every compiled variant at
-           small shapes, at S = 1 to 320 across the kernels' tile edges;
-           head dims 8, 40 and 24 that the wrapper zero-pads to multiples of
-           16, within the same limits;
+           small shapes in all three dtypes, at S = 1 to 320 across the
+           kernels' tile edges; head dims 8, 40 and 24 that the wrapper
+           zero-pads to multiples of 16, within the same limits; the general
+           kernel at head dims 257-1024 (576/512, 64/640) and with q, k and v
+           in different dtypes, each within its narrowest input's limit;
            block arguments that change nothing; causal row 0 equal to v's
            row 0; an indivisible S raising ValueError without a launch
 7. bench   the compute bench's flash rows (the JAX bench's headline shape
@@ -56,6 +62,15 @@ One line per phase:
            against its plain output within the bf16 limit above; then, at
            the headline, the kernel's and the library's device time per call
            from torch.profiler as a cross-check of the event times
+   wide    the inputs the kernels took last, at full width, each call a
+           line with kernel, plain and library ms, launches, the bound and
+           the CUDA kernels torch.profiler traced in one call (the port's
+           own kernel only; the library's names where it runs at d > 256):
+           DeepSeek-V3's absorbed-MLA decode in bf16 (q [32, 1, 128, 576]
+           against a latent cache k [32, 1, 4096, 576], v [.., 512], ragged
+           lengths), flash attention at 576/512 ([1, 16, 2048], bf16, causal
+           off and on), the f16 flash headline and the f16 decode serve
+           shape, each held against its plain version
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
@@ -467,6 +482,13 @@ BF16_FLOP_S = 989.4e12
 # sweep: seq 512-8192 at a constant b * seq = 8192 tokens, h = 8, d = 128.
 FLASH_SHAPE = (4, 8, 2048, 128)
 FLASH_SWEEP_SEQS = (512, 1024, 2048, 4096, 8192)
+# The wide leg: DeepSeek-V3's absorbed-MLA decode (its config.json:
+# num_attention_heads 128, kv_lora_rank 512 + qk_rope_head_dim 64 = 576 key
+# columns, 512 value columns; the 128 query heads of one token folded into
+# the query rows of the one latent KV head), at the smoke's 32 sequences and
+# 4096-token cache; and flash attention at those head dims, [b, h, S].
+MLA_ROWS, MLA_D, MLA_DV = 128, 576, 512
+WIDE_FLASH_SHAPE = (1, 16, 2048)
 # Sequence lengths of the flash check's small variants (tile edges).
 FLASH_EDGE_SEQS = (1, 64, 100, 129, 192, 256, 320)
 TENANTS = ("tenant-a", "tenant-b", "tenant-c", "tenant-d")
@@ -483,6 +505,20 @@ POISON_TOL = 1e-5
 # softmax scale 1% off, or one K tile left out, exceeds it.
 FLASH_F32_TOL = (2e-5, 2e-5)
 FLASH_BF16_TOL = (4e-3, 1e-2)
+# f16 and a mix of dtypes take the bf16 limits wherever any of q, k and v
+# is 16-bit: f16 rounds p and the output finer than bf16, and q.k is exact
+# f32 in every mix.
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+MIXED_DTYPES = ((torch.float32, torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.float16, torch.float16),
+                (torch.bfloat16, torch.float16, torch.float16))
+# Head dims (d, dv) for the general kernels: past the tuned kernels by one,
+# 320, 512, DeepSeek-V3's absorbed-MLA decode (keys kv_lora_rank 512 +
+# qk_rope_head_dim 64, values 512), 1024, and dv over 256 beside a narrow d.
+GENERAL_DIMS = ((257, 257), (320, 320), (512, 512), (576, 512), (1024, 1024),
+                (64, 640))
+# The masked-tail poison: f16 holds no 1e6 (its largest value is 65504).
+POISON, F16_POISON = 1e6, 6e4
 BURNIN_TOL = 3e-2
 # The multi-GPU plane's limits, the JAX tests' and its port tests': f32
 # outputs and losses, f32 weights after one SGD step, bf16 (the ResNet).
@@ -533,6 +569,22 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def decode_tol(*dtypes) -> float:
+    """The decode limit of a call with these input dtypes: f32's where all
+    are f32, else bf16's."""
+    return F32_TOL if set(dtypes) == {torch.float32} else BF16_TOL
+
+
+def flash_tol(*dtypes) -> tuple:
+    """The flash (atol, rtol) of a call with these input dtypes."""
+    return (FLASH_F32_TOL if set(dtypes) == {torch.float32}
+            else FLASH_BF16_TOL)
+
+
+def dtype_names(*dtypes) -> str:
+    return "/".join(str(t)[6:] for t in dtypes)
 
 
 def compare(out: torch.Tensor, ref: torch.Tensor, atol: float,
@@ -625,7 +677,7 @@ def phase_build() -> None:
     """Builds every kernel source; prints, for each kernel, ptxas's
     registers, static shared memory and spills, and how many of its SASS
     instructions are warpgroup MMAs (HGMMA) and TMA loads (UTMALDG). Every
-    bf16 flash kernel must have both."""
+    bf16 and f16 flash kernel must have both."""
     t0 = time.monotonic()
     built = _build.build_all(force=True)
     require(bool(built), "no kernel source was built")
@@ -656,7 +708,7 @@ def phase_build() -> None:
                  registers=regs.group(1) if regs else "?",
                  static_smem_bytes=smem.group(1) if smem else 0,
                  spill_bytes=spills, sass_HGMMA=hgmma, sass_UTMALDG=utmaldg)
-            if kernel.startswith("flash_bf16_kernel"):
+            if kernel.startswith(("flash_bf16_kernel", "flash_f16_kernel")):
                 require(hgmma > 0 and utmaldg > 0,
                         f"{kernel} has no wgmma or no TMA load in its SASS")
     line("build", total_seconds=f"{time.monotonic() - t0:.2f}")
@@ -700,22 +752,38 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
         refb = decode_attention_reference(qb, kb, vb, lens)
         e16 = (outb.float() - refb.float()).abs().max().item()
         require(outb.dtype == torch.bfloat16, f"bf16 output {outb.dtype}")
+        qh, kh, vh = q.half(), k.half(), v.half()
+        outh = flash_attention_decode(qh, kh, vh, lens)
+        eh = (outh.float() - decode_attention_reference(qh, kh, vh, lens)
+              .float()).abs().max().item()
+        require(outh.dtype == torch.float16, f"f16 output {outh.dtype}")
         # Poison every key beyond each length: a masked read would swamp it.
-        kp, vp = k.clone(), v.clone()
-        for i, n in enumerate(lens.tolist()):
-            kp[i, :, n:, :] = 1e6
-            vp[i, :, n:, :] = -1e6
-        ep = (flash_attention_decode(q, kp, vp, lens) - out).abs().max().item()
-        del kp, vp
+        eps = []
+        for qq, kk, vv, oo, poison in ((q, k, v, out, POISON),
+                                       (qh, kh, vh, outh, F16_POISON)):
+            kp, vp = kk.clone(), vv.clone()
+            for i, n in enumerate(lens.tolist()):
+                kp[i, :, n:, :] = poison
+                vp[i, :, n:, :] = -poison
+            eps.append((flash_attention_decode(qq, kp, vp, lens).float()
+                        - oo.float()).abs().max().item())
+            del kp, vp
+        ep, eph = eps
+        del qh, kh, vh
         line("check", kernel="decode_attention", ql=ql, f32_max_abs_err=e32,
-             bf16_max_abs_err=e16, poisoned_tail_max_abs_diff=ep)
+             bf16_max_abs_err=e16, f16_max_abs_err=eh,
+             poisoned_tail_max_abs_diff=ep,
+             f16_poisoned_tail_max_abs_diff=eph)
         require(e32 < F32_TOL, f"f32 error {e32} >= {F32_TOL} at ql={ql}")
         require(e16 < BF16_TOL, f"bf16 error {e16} >= {BF16_TOL} at ql={ql}")
+        require(eh < BF16_TOL, f"f16 error {eh} >= {BF16_TOL} at ql={ql}")
         require(ep < POISON_TOL, f"poisoned tail moved the output by {ep}")
+        require(eph < POISON_TOL,
+                f"poisoned f16 tail moved the output by {eph}")
         worst_f32 = max(worst_f32, e32)
     # Every compiled variant at a small shape: each q_len (the kernel is
     # built for 1, 2, 4 and 8 rows), 16-byte and scalar loads (d = 66 is
-    # not a multiple of a 16-byte vector), d up to 256, both dtypes.
+    # not a multiple of a 16-byte vector), d up to 256, every dtype.
     small = np.array([1, 45, 300], np.int32)
     worst = 0.0
     for ql in range(1, 9):
@@ -724,8 +792,8 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
                 rng.standard_normal((3, 2, ql, d), np.float32),
                 rng.standard_normal((3, 2, 300, d), np.float32),
                 rng.standard_normal((3, 2, 300, d), np.float32), small)]
-            for dtype, tol in ((torch.float32, F32_TOL),
-                               (torch.bfloat16, BF16_TOL)):
+            for dtype in DTYPES:
+                tol = decode_tol(dtype)
                 a = [t.to(dtype) for t in args[:3]] + args[3:]
                 err = (flash_attention_decode(*a, block_k=300).float()
                        - decode_attention_reference(*a).float()
@@ -733,7 +801,7 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
                 require(err < tol, f"{dtype} ql={ql} d={d}: error {err}")
                 worst = max(worst, err / tol)
     line("check", kernel="decode_attention", variants="ql 1-8 x d 66/128/256"
-         " x f32/bf16", worst_err_over_tol=worst)
+         " x f32/bf16/f16", worst_err_over_tol=worst)
     # The shapes beyond one launch that the JAX function takes: v's head dim
     # unlike k's, and more than 8 query rows, which the wrapper launches in
     # groups of 8 (ql 16: two launches; ql 20: three, the last of 4 rows).
@@ -744,8 +812,8 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
             rng.standard_normal((3, 2, ql, d), np.float32),
             rng.standard_normal((3, 2, 300, d), np.float32),
             rng.standard_normal((3, 2, 300, dv), np.float32), small)]
-        for dtype, tol in ((torch.float32, F32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
+        for dtype in DTYPES:
+            tol = decode_tol(dtype)
             a = [t.to(dtype) for t in args[:3]] + args[3:]
             before = flash_attention_decode.launches
             out = flash_attention_decode(*a, block_k=300)
@@ -758,8 +826,41 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
             require(groups == -(-ql // 8), f"ql={ql}: {groups} launches")
             worst = max(worst, err / tol)
     line("check", kernel="decode_attention",
-         variants="dv != d and ql 16/20 (launches of 8 rows) x f32/bf16",
+         variants="dv != d and ql 16/20 (launches of 8 rows) x f32/bf16/f16",
          worst_err_over_tol=worst)
+    # The general kernel: every head dim of GENERAL_DIMS in each dtype, and
+    # q, k and v in different dtypes at tuned and wide head dims; each call
+    # one launch per 8 query rows, held to its narrowest input's limit.
+    cases = [(ql, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
+             for ql in (1, 8, 10) for t in DTYPES]
+    cases += [(ql, d, dv, ts) for ts in MIXED_DTYPES
+              for d, dv in ((128, 128), (66, 130), (576, 512))
+              for ql in (1, 4)]
+    worst = 0.0
+    for ql, d, dv, ts in cases:
+        a = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, t) for shape, t in (((3, 2, ql, d), ts[0]),
+                                     ((3, 2, 300, d), ts[1]),
+                                     ((3, 2, 300, dv), ts[2]))]
+        a.append(torch.from_numpy(small).to(dev))
+        before = flash_attention_decode.launches
+        out = flash_attention_decode(*a, block_k=300)
+        groups = flash_attention_decode.launches - before
+        ref = decode_attention_reference(*a)
+        what = f"{dtype_names(*ts)} ql={ql} d={d} dv={dv}"
+        require(out.shape == ref.shape == (3, 2, ql, dv)
+                and out.dtype == ts[0], f"{what}: output {tuple(out.shape)} "
+                                        f"{out.dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        require(err < decode_tol(*ts), f"{what}: error {err}")
+        require(groups == -(-ql // 8), f"{what}: {groups} launches")
+        worst = max(worst, err / decode_tol(*ts))
+    line("check", kernel="decode_attention", variants=json.dumps(
+        "d/dv " + ", ".join(f"{d}/{dv}" for d, dv in GENERAL_DIMS)
+        + " x ql 1/8/10 x f32/bf16/f16; q/k/v "
+        + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
+        + " x d/dv 128/128, 66/130, 576/512 x ql 1/4"), calls=len(cases),
+        worst_err_over_tol=worst)
     before = flash_attention_decode.launches
     try:
         flash_attention_decode(q, k, v, lens, block_k=1000)
@@ -846,7 +947,8 @@ def phase_flash_check(seed: int) -> float:
     b, h, s, d = FLASH_SHAPE
     worst_bf16 = 0.0
     for dtype, tol in ((torch.bfloat16, FLASH_BF16_TOL),
-                       (torch.float32, FLASH_F32_TOL)):
+                       (torch.float32, FLASH_F32_TOL),
+                       (torch.float16, FLASH_BF16_TOL)):
         q, k, v = (randn(gen, FLASH_SHAPE, dtype) for _ in range(3))
         for causal in (False, True):
             out = flash_attention(q, k, v, causal=causal)
@@ -866,19 +968,20 @@ def phase_flash_check(seed: int) -> float:
                 worst_bf16 = max(worst_bf16, err)
         del q, k, v, out, ref
     # Every compiled variant at small shapes: the kernel is built for head
-    # dims up to 64, 128 and 256 (the larger of d and dv), in both dtypes.
+    # dims up to 64, 128 and 256 (the larger of d and dv), in every dtype.
     # The bf16 kernel takes 128 query rows a tile and 176 keys a tile (64
     # at 256): S = 1 and 64 are less than one tile, 64 is one 64-key tile,
     # 100, 129, 192, 256 and 320 leave a ragged last tile, and under causal
     # the 256 bucket's 128 query rows cross two 64-key tiles on the
-    # diagonal. The f32 kernel's tiles are 32 wide.
+    # diagonal. f32 takes the general kernel: 64 query rows and 64 keys a
+    # tile, d in 32-column chunks.
     alt_dv = {32: 256, 64: 128, 128: 64, 256: 32}
     worst = 0.0
     for d in (32, 64, 128, 256):
         for dv in (d, alt_dv[d]):
             for s_small in FLASH_EDGE_SEQS:
-                for dtype, tol in ((torch.float32, FLASH_F32_TOL),
-                                   (torch.bfloat16, FLASH_BF16_TOL)):
+                for dtype in DTYPES:
+                    tol = flash_tol(dtype)
                     q, k = (randn(gen, (2, 3, s_small, d), dtype)
                             for _ in range(2))
                     v = randn(gen, (2, 3, s_small, dv), dtype)
@@ -893,15 +996,15 @@ def phase_flash_check(seed: int) -> float:
                                            f"limit")
                         worst = max(worst, over)
     line("flash", variants="d 32/64/128/256 x dv = d or not x S "
-         + "/".join(map(str, FLASH_EDGE_SEQS)) + " x f32/bf16 x causal",
+         + "/".join(map(str, FLASH_EDGE_SEQS)) + " x f32/bf16/f16 x causal",
          worst_err_over_limit=worst)
     # Head dims that are not multiples of 16, which the wrapper zero-pads
     # to the next (8 -> 16, 40 -> 48, 24 -> 32) with the scale of the true d.
     worst = 0.0
     for d, dv in ((40, 40), (8, 8), (40, 24)):
         for s_small in (64, 129):
-            for dtype, tol in ((torch.float32, FLASH_F32_TOL),
-                               (torch.bfloat16, FLASH_BF16_TOL)):
+            for dtype in DTYPES:
+                tol = flash_tol(dtype)
                 q, k = (randn(gen, (2, 3, s_small, d), dtype)
                         for _ in range(2))
                 v = randn(gen, (2, 3, s_small, dv), dtype)
@@ -917,7 +1020,40 @@ def phase_flash_check(seed: int) -> float:
                                        f"error {err}, {over} of the limit")
                     worst = max(worst, over)
     line("flash", variants="padded head dims d/dv 40/40, 8/8, 40/24 x S "
-         "64/129 x f32/bf16 x causal", worst_err_over_limit=worst)
+         "64/129 x f32/bf16/f16 x causal", worst_err_over_limit=worst)
+    # The general kernel: every head dim of GENERAL_DIMS in each dtype at
+    # S = 1 (less than a tile), 33 (one tile and one row) and 100, and q, k
+    # and v in different dtypes at tuned, padded and wide head dims; each
+    # call one launch, held to its narrowest input's limit.
+    cases = [(s_small, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
+             for s_small in (1, 33, 100) for t in DTYPES]
+    cases += [(s_small, d, dv, ts) for ts in MIXED_DTYPES
+              for d, dv in ((64, 64), (40, 24), (576, 512))
+              for s_small in (64, 129)]
+    worst = 0.0
+    for s_small, d, dv, ts in cases:
+        q, k, v = (randn(gen, (2, 3, s_small, dim), t) for dim, t in
+                   ((d, ts[0]), (d, ts[1]), (dv, ts[2])))
+        for causal in (False, True):
+            before = flash_attention.launches
+            out = flash_attention(q, k, v, block_q=s_small, block_k=s_small,
+                                  causal=causal)
+            calls = flash_attention.launches - before
+            ref = reference_attention(q, k, v, causal=causal)
+            what = (f"flash {dtype_names(*ts)} d={d} dv={dv} S={s_small} "
+                    f"causal={causal}")
+            require(out.shape == ref.shape and out.dtype == ts[0]
+                    and calls == 1, f"{what}: {tuple(out.shape)} "
+                                    f"{out.dtype}, {calls} launches")
+            err, over = compare(out, ref, *flash_tol(*ts))
+            require(over <= 1, f"{what}: error {err}, {over} of the limit")
+            worst = max(worst, over)
+    line("flash", variants=json.dumps(
+        "d/dv " + ", ".join(f"{d}/{dv}" for d, dv in GENERAL_DIMS)
+        + " x S 1/33/100 x f32/bf16/f16; q/k/v "
+        + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
+        + " x d/dv 64/64, 40/24, 576/512 x S 64/129; x causal"),
+        calls=2 * len(cases), worst_err_over_limit=worst)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (randn(gen, (2, 3, 256, 64), dtype) for _ in range(3))
         outs = [flash_attention(q, k, v, block_q=bq, block_k=bk, causal=True)
@@ -1036,6 +1172,147 @@ def device_busy(fn, calls: int = 20) -> tuple:
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in ops)
     return busy_us / 1e3 / calls, len(ops) / calls
+
+
+def traced_kernels(fn, tries: int = 3) -> list:
+    """The names of the CUDA kernels and copies that torch.profiler traced
+    in one call of ``fn`` (after one untraced call); an empty trace, which
+    the profiler sometimes gives, is taken again, up to ``tries`` times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    names = []
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        if names:
+            break
+    return names
+
+
+def wide_row(leg: str, counter, kernel, plain, library, nbytes: int,
+             flops: int, tol: tuple, own: str, **shape) -> int:
+    """One line of the wide leg: the kernel's, plain version's and library
+    call's ms, the bound (bytes at 3.35 TB/s or operations at the 16-bit
+    tensor-core rate, whichever is longer), the last timed kernel output
+    against the last plain output within ``tol`` (atol, rtol), and the CUDA
+    kernels traced in one call of each: the port's call must run only
+    kernels whose names hold ``own``. Returns the kernel's launches."""
+    last = {}
+    before = counter.launches
+    ms = cuda_ms(lambda: last.__setitem__("out", kernel()))
+    per_call = (counter.launches - before) / (WARMUP_CALLS + TIMED_CALLS)
+    plain_ms = cuda_ms(lambda: last.__setitem__("ref", plain()))
+    library_ms = cuda_ms(library)
+    err, over = compare(last["out"], last["ref"], *tol)
+    ours = traced_kernels(kernel)
+    theirs = traced_kernels(library)
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    flops_ms = flops / BF16_FLOP_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    line("wide", leg=leg, **{k: json.dumps(v) if isinstance(v, (list, tuple))
+                             else v for k, v in shape.items()},
+         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+         bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+         bound_share=bound_ms / ms, launches_per_call=per_call,
+         max_abs_err=err, atol_rtol=json.dumps(tol), err_over_limit=over,
+         kernels=json.dumps(ours), library_kernels=json.dumps(theirs))
+    require(over <= 1, f"wide {leg}: error {err}, {over} of the limit")
+    require(ours and all(own in name for name in ours),
+            f"wide {leg}: the port's call ran {ours}, not only {own}")
+    return counter.launches - before
+
+
+def phase_wide(seed: int) -> dict:
+    """The inputs both kernels took last, at full width (``wide_row`` per
+    call): DeepSeek-V3's absorbed-MLA decode in bf16, flash attention at
+    576/512 in bf16 (causal off and on), the f16 flash headline and the
+    f16 decode serve shape. Its own main path: the counts are zeroed
+    before it and must equal the rows' launches after it. Returns them."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16, f16 = torch.bfloat16, torch.float16
+    lens = torch.from_numpy(smoke_lengths(np.random.default_rng(seed))).to(
+        dev)
+    keys = int(lens.clamp(max=KV_CAP).sum())
+    mask = (torch.arange(KV_CAP, device=dev)[None, None, None, :]
+            < lens[:, None, None, None])
+    reset_launches()
+    want = {"decode_attention": 0, "flash_attention": 0}
+
+    # Absorbed MLA: 128 rows of 576 against one latent head, 16 launches.
+    q = randn(gen, (BATCH, 1, MLA_ROWS, MLA_D), bf16)
+    k = randn(gen, (BATCH, 1, KV_CAP, MLA_D), bf16)
+    v = randn(gen, (BATCH, 1, KV_CAP, MLA_DV), bf16)
+    want["decode_attention"] += wide_row(
+        "mla_decode", flash_attention_decode,
+        lambda: flash_attention_decode(q, k, v, lens),
+        lambda: decode_attention_reference(q, k, v, lens),
+        lambda: sdpa(q, k, v, attn_mask=mask),
+        nbytes=(keys * (MLA_D + MLA_DV) + q.numel()
+                + BATCH * MLA_ROWS * MLA_DV) * 2 + lens.numel() * 4,
+        flops=2 * keys * MLA_ROWS * (MLA_D + MLA_DV), tol=(BF16_TOL, 0.0),
+        own="decode_general_kernel", q=list(q.shape), k=list(k.shape),
+        v=list(v.shape), dtype="bfloat16", mean_len=keys / BATCH)
+    del q, k, v
+
+    # Flash attention at the same head dims: the general kernel.
+    b, h, s = WIDE_FLASH_SHAPE
+    q, k = (randn(gen, (b, h, s, MLA_D), bf16) for _ in range(2))
+    v = randn(gen, (b, h, s, MLA_DV), bf16)
+    for causal in (False, True):
+        want["flash_attention"] += wide_row(
+            "flash_576_512", flash_attention,
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: reference_attention(q, k, v, causal=causal),
+            lambda: sdpa(q, k, v, is_causal=causal),
+            nbytes=b * h * s * (2 * MLA_D + 2 * MLA_DV) * 2,
+            flops=2 * b * h * s * s * (MLA_D + MLA_DV) // (2 if causal
+                                                           else 1),
+            tol=FLASH_BF16_TOL, own="flash_general_kernel",
+            shape=[b, h, s], d=MLA_D, dv=MLA_DV, dtype="bfloat16",
+            causal=causal)
+    del q, k, v
+
+    # The f16 flash headline on the wgmma path.
+    b, h, s, d = FLASH_SHAPE
+    q, k, v = (randn(gen, FLASH_SHAPE, f16) for _ in range(3))
+    want["flash_attention"] += wide_row(
+        "flash_f16_headline", flash_attention,
+        lambda: flash_attention(q, k, v),
+        lambda: reference_attention(q, k, v), lambda: sdpa(q, k, v),
+        nbytes=4 * b * h * s * d * 2, flops=4 * b * h * s * s * d,
+        tol=FLASH_BF16_TOL, own="flash_f16_kernel",
+        shape=list(FLASH_SHAPE), dtype="float16", causal=False)
+    del q, k, v
+
+    # The decode kernel at the serve shape in f16.
+    q = randn(gen, (BATCH, HEADS, 1, HEAD_DIM), f16)
+    k, v = (randn(gen, (BATCH, HEADS, KV_CAP, HEAD_DIM), f16)
+            for _ in range(2))
+    want["decode_attention"] += wide_row(
+        "decode_f16_serve", flash_attention_decode,
+        lambda: flash_attention_decode(q, k, v, lens),
+        lambda: decode_attention_reference(q, k, v, lens),
+        lambda: sdpa(q, k, v, attn_mask=mask),
+        nbytes=(keys * HEADS * HEAD_DIM * 2 + 2 * q.numel()) * 2
+        + lens.numel() * 4, flops=4 * keys * HEADS * HEAD_DIM,
+        tol=(BF16_TOL, 0.0), own="decode_attention_kernel",
+        q=list(q.shape), k=list(k.shape), dtype="float16")
+    del q, k, v
+    torch.cuda.synchronize()
+    counts = launches()
+    line("wide", launches=json.dumps(counts),
+         bound_basis="H100 SXM 3.35 TB/s HBM, 989.4 TFLOP/s dense bf16/f16")
+    require(counts == want, f"the wide leg's launches: {counts}, its rows "
+                            f"counted {want}")
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_burnin() -> None:
@@ -4623,6 +4900,7 @@ def main(argv=None) -> int:
     phase_servesmoke(rng)
     flash_err = phase_flash_check(args.seed)
     flash = phase_flash_bench(args.seed)
+    wide = phase_wide(args.seed)
     phase_burnin()
     phase_selfheal(card, args.seed, found["lib"], found["gpu"])
     processes = phase_processes(card, args.seed, found["gpu"])
@@ -4654,7 +4932,8 @@ def main(argv=None) -> int:
                      + soak["launches"] + scale["launches"]
                      + mig["kernel_launches"] + wire["launches"]
                      + crash["launches"] + race["launches"]
-                     + cluster["launches"] + gates["launches"]),
+                     + cluster["launches"] + gates["launches"]
+                     + wide["decode_attention"]),
         "max_abs_err": max(max_abs_err, soak["max_abs_err"],
                            mig["max_abs_err"], wire["max_abs_err"],
                            crash["max_abs_err"], race["max_abs_err"],
@@ -4666,7 +4945,8 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "k8s_dra_driver_tpu_torch/csrc/flash_attention.cu",
         "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:36",
-        "launches": flash["launches"], "max_abs_err": flash_err,
+        "launches": flash["launches"] + wide["flash_attention"],
+        "max_abs_err": flash_err,
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],

@@ -3,20 +3,33 @@
 ``flash_attention`` is exact attention over whole sequences, the compute
 plane's single-device hot op; ``flash_attention_decode`` is the serving
 engine's attend, a few query rows against a long padded KV cache. On CUDA
-tensors each launches its hand-written Hopper kernel
+tensors each launches a hand-written Hopper kernel
 (``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``); on CPU
 tensors each runs its plain PyTorch version (``reference_attention``,
 ``decode_attention_reference``). There is no other path: a CUDA call that
 cannot build or launch its kernel raises.
 
 The functions are the JAX package's ``flash_attention`` and
-``flash_attention_decode`` (Pallas kernels for the TPU): scores accumulated
-in f32 and scaled by 1/sqrt(d), the causal mask or the keys at index
->= ``kv_lengths[b]`` masked, softmax, output in q's dtype. Both take every
-shape the JAX functions take. On the card the wrappers fit a shape to its
-kernel: the flash wrapper zero-pads head dims to the next multiple of 16,
-and the decode wrapper launches once per group of up to 8 query rows. Only
-a head dim over 256 is refused there, and only there (``ValueError``).
+``flash_attention_decode`` (Pallas kernels for the TPU), and take every
+input those take: q, k and v each f32, bf16 or f16, in any mix, and any
+head dims d and dv. Scores are q.k accumulated in f32 (every one of the
+three types converts to f32 exactly, so this is the product in the
+promoted type) and scaled by 1/sqrt(d); the causal mask or the keys at
+index >= ``kv_lengths[b]`` are masked; softmax; p is rounded to v's dtype
+for P V, which accumulates in f32; the output is in q's dtype.
+
+On the card each wrapper picks its kernel by dtypes and head dims:
+
+- q, k and v of one dtype with d, dv <= TUNED_HEAD_DIM: the tuned kernels
+  (decode, in f32, bf16 or f16: one block per (b, h), per-warp online
+  softmax; flash, in bf16 or f16: the ``wgmma``/TMA path, head dims
+  zero-padded to the next multiple of 16);
+- anything else (mixed dtypes, d or dv over TUNED_HEAD_DIM, and f32 flash
+  attention): the general kernels, which convert each operand from its own
+  dtype on load and walk any head dim in chunks, with dv split across
+  blocks.
+
+The decode wrapper launches once per group of up to MAX_Q_LEN query rows.
 """
 
 from __future__ import annotations
@@ -32,23 +45,31 @@ from k8s_dra_driver_tpu_torch.compute.ringattention import (
     reference_attention,
 )
 
-#: The kernels' limits: query rows per decode launch and head dim; the flash
-#: kernel's head dims must also be multiples of HEAD_DIM_MULTIPLE, to which
-#: its wrapper pads them.
+#: Query rows per decode launch; the head dims up to which a call whose
+#: q, k and v share a dtype takes the tuned kernels; the multiple to which
+#: the flash wrapper pads head dims for them.
 MAX_Q_LEN = 8
-MAX_HEAD_DIM = 256
+TUNED_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 16
+#: The general decode kernel holds a launch's query rows in shared memory
+#: as f32; past this many bytes the wrapper takes fewer rows a launch.
+GENERAL_Q_SMEM_BYTES = 192 * 1024
 
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: Each dtype's suffix of a tuned kernel's C entry and its code in the
+#: general kernels' C entries; the dtypes each source's tuned kernel takes.
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TUNED = {"decode_attention": tuple(_DTYPES),
+          "flash_attention": (torch.bfloat16, torch.float16)}
 #: guards the wrappers' launch counts (a read-modify-write)
 _LAUNCH_COUNT_MU = threading.Lock()
 
 
-def _c_entry(source: str, dtype: torch.dtype, argtypes: list):
-    """(launch entry ``<source>_<dtype>``, its ``_error_string``) from
+def _c_entry(source: str, variant: str, argtypes: list):
+    """(launch entry ``<source>_<variant>``, its ``_error_string``) from
     ``lib<source>.so``, with their ctypes signatures declared."""
     lib = _build.load(source)
-    fn = getattr(lib, f"{source}_{_DTYPES[dtype]}")
+    fn = getattr(lib, f"{source}_{variant}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -65,6 +86,23 @@ def _raise_on(err: int, err_str, what: str) -> None:
                            f"({err_str(err).decode()})")
 
 
+def _check_dtypes(q, k, v) -> None:
+    if any(t.dtype not in _DTYPES for t in (q, k, v)):
+        raise ValueError(f"q, k and v must each be one of "
+                         f"{sorted(map(str, _DTYPES))}, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+
+
+def tuned_kernel_takes(source: str, q, k, v, d: int, dv: int) -> bool:
+    """Whether a CUDA call goes to the tuned kernel of ``source``
+    (``"decode_attention"`` or ``"flash_attention"``): one dtype for q, k
+    and v that the kernel is built for, and head dims ``d`` and ``dv`` (the
+    flash wrapper's padded ones) up to TUNED_HEAD_DIM. Every other call goes
+    to the source's general kernel."""
+    return (q.dtype == k.dtype == v.dtype and q.dtype in _TUNED[source]
+            and max(d, dv) <= TUNED_HEAD_DIM)
+
+
 def _check_flash(q, k, v) -> None:
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1:
@@ -74,10 +112,7 @@ def _check_flash(q, k, v) -> None:
     if k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
         raise ValueError(f"k {tuple(k.shape)} must be q's {tuple(q.shape)} "
                          f"and v {tuple(v.shape)} [{b},{h},{seq},dv]")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share one dtype of "
-                         f"{sorted(map(str, _DTYPES))}, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
+    _check_dtypes(q, k, v)
     if b < 1 or h < 1 or d < 1 or v.shape[3] < 1:
         raise ValueError(f"empty batch, heads or head dim: q "
                          f"{tuple(q.shape)}, v {tuple(v.shape)}")
@@ -85,19 +120,9 @@ def _check_flash(q, k, v) -> None:
         raise ValueError("q, k and v must be contiguous")
 
 
-def check_kernel_head_dims(kernel: str, d: int, dv: int) -> None:
-    """Raise ValueError, naming the limit, where ``d`` or ``dv`` exceeds
-    MAX_HEAD_DIM: the CUDA kernels' tiles and registers hold no more."""
-    for name, dim in (("d", d), ("dv", dv)):
-        if dim > MAX_HEAD_DIM:
-            raise ValueError(f"head dim {name}={dim}: the CUDA {kernel} "
-                             f"kernel takes head dims up to {MAX_HEAD_DIM}")
-
-
 def padded_head_dims(d: int, dv: int) -> tuple[int, int]:
-    """The flash kernel's head dims for true ``d`` and ``dv``: each rounded
-    up to a multiple of HEAD_DIM_MULTIPLE (ValueError over MAX_HEAD_DIM)."""
-    check_kernel_head_dims("flash_attention", d, dv)
+    """The tuned flash kernel's head dims for true ``d`` and ``dv``: each
+    rounded up to a multiple of HEAD_DIM_MULTIPLE."""
     step = HEAD_DIM_MULTIPLE
     return -(-d // step) * step, -(-dv // step) * step
 
@@ -114,18 +139,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """[b, h, S, d] -> [b, h, S, dv] exact attention, optionally causal.
 
-    q, k: [b, h, S, d]; v: [b, h, S, dv]; one dtype, f32 or bf16. Returns
-    [b, h, S, dv] in q's dtype. On the card, d and dv go up to 256; one that
-    is not a multiple of 16 is zero-padded to the next (zero columns add
-    nothing to q k^T, and the scale stays 1/sqrt(d)), and the output is cut
-    back to dv.
-    ``block_q`` and ``block_k`` are the JAX signature's block sizes: clamped
-    to S, they must divide it, as there (else ValueError); the CUDA kernel
-    walks the sequence in its own tiles.
+    q, k: [b, h, S, d]; v: [b, h, S, dv]; each f32, bf16 or f16, in any
+    mix. Returns [b, h, S, dv] in q's dtype. ``block_q`` and ``block_k``
+    are the JAX signature's block sizes: clamped to S, they must divide it,
+    as there (else ValueError); the CUDA kernels walk the sequence in their
+    own tiles.
 
-    CUDA tensors go through the CUDA kernel on the tensors' device and
-    current stream, counted in ``flash_attention.launches``; CPU tensors go
-    through ``reference_attention``."""
+    CUDA tensors go through a CUDA kernel on the tensors' device and
+    current stream (``tuned_kernel_takes`` says which), counted in
+    ``flash_attention.launches``; CPU tensors go through
+    ``reference_attention``."""
     if q.dim() != 4:
         raise ValueError(f"q must be [b,h,S,d], got {tuple(q.shape)}")
     seq = q.shape[2]
@@ -138,24 +161,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return reference_attention(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    b, h, _, d = q.shape
+    with torch.cuda.device(q.device):
+        return _launch_flash(q, k, v, causal,
+                             torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch_flash(q, k, v, causal: bool, stream: int) -> torch.Tensor:
+    """One launch of the flash kernel that takes these checked inputs, on
+    ``stream``; counted in ``flash_attention.launches``."""
+    b, h, seq, d = q.shape
     dv = v.shape[3]
     dp, dvp = padded_head_dims(d, dv)
-    q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start on 16-byte boundaries")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn, err_str = _c_entry("flash_attention", q.dtype,
-                           [p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
-    out = torch.empty((b, h, seq, dvp), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    scale = 1.0 / math.sqrt(d)
+    if tuned_kernel_takes("flash_attention", q, k, v, dp, dvp):
+        # Zero columns add nothing to q k^T, and the scale stays 1/sqrt(d).
+        q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("q, k and v must start on 16-byte boundaries")
+        fn, err_str = _c_entry("flash_attention", _DTYPES[q.dtype],
+                               [p, p, p, p, i, i, i, i, i, f, p])
+        out = torch.empty((b, h, seq, dvp), dtype=q.dtype, device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b * h, seq, dp, dvp, int(causal), 1.0 / math.sqrt(d), stream)
+                 b * h, seq, dp, dvp, int(causal), scale, stream)
+    else:
+        fn, err_str = _c_entry("flash_attention", "general",
+                               [p, p, p, p, i, i, i, i, i, f, i, i, i, p])
+        out = torch.empty((b, h, seq, dv), dtype=q.dtype, device=q.device)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b * h, seq, d, dv, int(causal), scale, _CODES[q.dtype],
+                 _CODES[k.dtype], _CODES[v.dtype], stream)
     _raise_on(err, err_str, "flash_attention")
     with _LAUNCH_COUNT_MU:
         flash_attention.launches += 1
-    return out if dvp == dv else out[..., :dv].contiguous()
+    return out if out.shape[3] == dv else out[..., :dv].contiguous()
 
 
 flash_attention.launches = 0
@@ -196,10 +235,7 @@ def _check(q, k, v, kv_lengths) -> None:
     if kv_lengths.shape != (b,) or kv_lengths.dtype != torch.int32:
         raise ValueError(f"kv_lengths must be int32 [{b}], got "
                          f"{kv_lengths.dtype} {tuple(kv_lengths.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share one dtype of "
-                         f"{sorted(map(str, _DTYPES))}, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
+    _check_dtypes(q, k, v)
     if ql < 1 or d < 1 or v.shape[3] < 1:
         raise ValueError(f"q_len {ql} and head dims d={d}, dv={v.shape[3]} "
                          f"must be at least 1")
@@ -220,15 +256,16 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v:          [b, h, kv_cap, dv]
     kv_lengths: [b] int32          — valid keys per sequence (> 0)
 
-    Returns [b, h, q_len, dv] in q's dtype (f32 or bf16). ``block_k`` is
-    the JAX signature's block size: it must divide ``kv_cap`` once clamped
-    to it, as there; the CUDA kernel walks the cache in its own tiles.
+    q, k and v are each f32, bf16 or f16, in any mix. Returns
+    [b, h, q_len, dv] in q's dtype. ``block_k`` is the JAX signature's
+    block size: it must divide ``kv_cap`` once clamped to it, as there; the
+    CUDA kernels walk the cache in their own tiles.
 
-    CUDA tensors go through the CUDA kernel on the tensors' device and
-    current stream, one launch per group of up to MAX_Q_LEN query rows
-    (the rows do not attend to each other), each counted in
-    ``flash_attention_decode.launches``; d and dv go up to MAX_HEAD_DIM
-    there. CPU tensors go through ``decode_attention_reference``."""
+    CUDA tensors go through a CUDA kernel on the tensors' device and
+    current stream (``tuned_kernel_takes`` says which), one launch per
+    group of up to MAX_Q_LEN query rows (the rows do not attend to each
+    other), each counted in ``flash_attention_decode.launches``. CPU
+    tensors go through ``decode_attention_reference``."""
     kv_cap = k.shape[2]
     block_k = min(block_k, kv_cap)
     if kv_cap % block_k:
@@ -238,24 +275,38 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_reference(q, k, v, kv_lengths)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    b, h, ql, d = q.shape
-    dv = v.shape[3]
-    check_kernel_head_dims("decode_attention", d, dv)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn, err_str = _c_entry("decode_attention", q.dtype,
-                           [p, p, p, p, p, i, i, i, i, i, i, i, i,
-                            ctypes.c_float, p])
-    out = torch.empty((b, h, ql, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        for row0 in range(0, ql, MAX_Q_LEN):
-            rows = min(MAX_Q_LEN, ql - row0)
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     kv_lengths.data_ptr(), out.data_ptr(), b, h, ql, row0,
-                     rows, kv_cap, d, dv, 1.0 / math.sqrt(d), stream)
-            _raise_on(err, err_str, "decode_attention")
-            with _LAUNCH_COUNT_MU:   # engines launch from several threads
-                flash_attention_decode.launches += 1
+        return _launch_decode(q, k, v, kv_lengths,
+                              torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch_decode(q, k, v, kv_lengths, stream: int) -> torch.Tensor:
+    """The decode kernel that takes these checked inputs, launched on
+    ``stream`` once per group of query rows; each launch counted in
+    ``flash_attention_decode.launches``."""
+    b, h, ql, d = q.shape
+    kv_cap, dv = k.shape[2], v.shape[3]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ints = [i] * 8   # b, h, ql, row0, rows, cap, d, dv
+    if tuned_kernel_takes("decode_attention", q, k, v, d, dv):
+        fn, err_str = _c_entry("decode_attention", _DTYPES[q.dtype],
+                               [p] * 5 + ints + [ctypes.c_float, p])
+        codes, group = (), MAX_Q_LEN
+    else:
+        fn, err_str = _c_entry("decode_attention", "general",
+                               [p] * 5 + ints + [ctypes.c_float] + [i] * 3
+                               + [p])
+        codes = (_CODES[q.dtype], _CODES[k.dtype], _CODES[v.dtype])
+        group = max(1, min(MAX_Q_LEN, GENERAL_Q_SMEM_BYTES // (4 * d)))
+    out = torch.empty((b, h, ql, dv), dtype=q.dtype, device=q.device)
+    for row0 in range(0, ql, group):
+        rows = min(group, ql - row0)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kv_lengths.data_ptr(), out.data_ptr(), b, h, ql, row0, rows,
+                 kv_cap, d, dv, 1.0 / math.sqrt(d), *codes, stream)
+        _raise_on(err, err_str, "decode_attention")
+        with _LAUNCH_COUNT_MU:   # engines launch from several threads
+            flash_attention_decode.launches += 1
     return out
 
 

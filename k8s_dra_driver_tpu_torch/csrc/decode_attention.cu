@@ -15,6 +15,12 @@
 // with more rows launches once per group of 8 and the groups write disjoint
 // rows of out.
 //
+// Which kernel takes a call (the C entries at the end):
+//   * q, k and v of one dtype (f32, bf16 or f16) with d, dv <= 256:
+//     `decode_attention_kernel`, entries decode_attention_{f32,bf16,f16};
+//   * anything else (q, k and v each in its own dtype, or d or dv over
+//     256): `decode_general_kernel`, entry decode_attention_general.
+//
 // What bounds it: device-memory bytes. Every valid K and V row is read once,
 // (d + dv) * sizeof(T) bytes per key per head (1 KiB at d = 128 in f32), and
 // each element feeds only ql <= 8 multiply-adds, far below the operations per
@@ -39,10 +45,27 @@
 //     and one row offset cover a key's K and V loads, which keeps all of a
 //     batch's loads issued together (with separate guards the same shapes
 //     ran 2.4% slower on the H100).
-// wgmma, TMA and split-KV across blocks (for batches too small to fill the
-// SMs) are left for later work.
+// The general kernel keeps that walk and lifts the width limit: a block
+// takes 256 output columns (a second grid dimension over dv, each block
+// computing the full scores again: q.k is cheap next to the bytes), walks d
+// in chunks of one warp load, holds the launch's query rows in shared memory
+// as f32 (interleaved so that a warp's reads hit 32 banks; row-major, a
+// warp's reads of a row meet 8-way bank conflicts), and
+// converts each operand from its own dtype as it is loaded (K
+// and V by template, q and out by a code read once per element), so no
+// caller has to cast a cache. Each block re-reads all of K: at dv = 512 the
+// bytes are 2 d + dv per key, not d + dv.
+// What holds the general kernel back (PERF.md): a grid of b * h * (dv /
+// 256) blocks leaves most SMs idle when b * h is small, and each warp's
+// batch waits on one load round trip per chunk of d. At absorbed MLA's
+// shape (b * h = 32; 128 query rows against one 576/512 latent cache, so
+// 16 launches each reading all of it, and 8 rows x 1,088 multiply-adds per
+// key on the SIMT units) it is far from its byte bound.
+// wgmma, TMA, split-KV across blocks (for batches too small to fill the
+// SMs) and one pass over more than 8 query rows are left for later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -59,6 +82,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -69,6 +93,10 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
 }
 
 // E consecutive elements at p, as floats: one 16-byte load when E elements
@@ -325,6 +353,274 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
                            dv, scale, s);
 }
 
+// ---- general kernel: any head dims; q, k and v each in its own dtype ------
+
+constexpr int kDvBlock = kThreads;  // output columns per block (grid.y)
+
+// The dtype codes of the general entry (the wrapper's): f32, bf16, f16.
+enum DtypeCode : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// Element i of a tensor whose dtype is known only at run time (q, out).
+__device__ __forceinline__ float load_any(const void* p, int type, size_t i) {
+  if (type == kBF16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  if (type == kF16) return __half2float(static_cast<const __half*>(p)[i]);
+  return static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_any(void* p, int type, size_t i,
+                                          float x) {
+  if (type == kBF16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(x);
+  else if (type == kF16)
+    static_cast<__half*>(p)[i] = __float2half(x);
+  else
+    static_cast<float*>(p)[i] = x;
+}
+
+// TK, TV: K's and V's element types. QL: query rows the kernel is built for
+// (rows <= QL). kVec: 16-byte loads (d and dv multiples of a 16-byte vector
+// of their types, k and v 16-byte aligned); else one element per lane.
+// Block (bh, y) computes output columns [256 y, 256 y + 256) of every row.
+template <typename TK, typename TV, int QL, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    decode_general_kernel(const void* __restrict__ q,
+                          const TK* __restrict__ k, const TV* __restrict__ v,
+                          const int* __restrict__ lens, void* __restrict__ out,
+                          int h, int ql, int row0, int rows, int cap, int d,
+                          int dv, float scale, int q_type) {
+  constexpr int EK = kVec ? 16 / sizeof(TK) : 1;   // K elements per lane load
+  constexpr int EV = kVec ? 16 / sizeof(TV) : 1;   // V elements per lane load
+  constexpr int kChunkK = 32 * EK;                 // d columns per warp load
+  constexpr int kChunkV = 32 * EV;
+  constexpr int kChunksV = kDvBlock / kChunkV;     // per block's columns
+  // The launch's query rows as f32, laid out so that a warp reads one
+  // element of each lane's share of a chunk from 32 consecutive floats (no
+  // bank conflict): column ch * kChunkK + lane * EK + e of row r at
+  // (ch * rows + r) * kChunkK + e * 32 + lane, zeros past d.
+  extern __shared__ float q_s[];
+  __shared__ float m_s[kWarps][QL];
+  __shared__ float l_s[kWarps][QL];
+  __shared__ float acc_s[kWarps][kDvBlock];
+
+  const int bh = blockIdx.x;
+  const int c0 = blockIdx.y * kDvBlock;
+  const int ncols = min(kDvBlock, dv - c0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const TK* kb = k + static_cast<size_t>(bh) * cap * d;
+  const TV* vb = v + static_cast<size_t>(bh) * cap * dv + c0;
+  const size_t q_off = (static_cast<size_t>(bh) * ql + row0) * d;
+  const size_t o_off = (static_cast<size_t>(bh) * ql + row0) * dv + c0;
+
+  const int n_ch = (d + kChunkK - 1) / kChunkK;
+  for (int i = tid; i < n_ch * rows * kChunkK; i += kThreads) {
+    const int ch_r = i / kChunkK, rem = i - ch_r * kChunkK;
+    const int ch = ch_r / rows, r = ch_r - ch * rows;
+    const int e = rem / 32, ln = rem - e * 32;
+    const int col = ch * kChunkK + ln * EK + e;
+    q_s[i] = col < d ? load_any(q, q_type, q_off + static_cast<size_t>(r) * d
+                                               + col)
+                     : 0.f;
+  }
+  __syncthreads();
+
+  const int n_valid = min(lens[bh / h], cap);
+  float m[QL], l[QL], acc[QL][kChunksV][EV];
+#pragma unroll
+  for (int r = 0; r < QL; ++r) {
+    m[r] = -CUDART_INF_F;
+    l[r] = 0.f;
+#pragma unroll
+    for (int ch = 0; ch < kChunksV; ++ch)
+#pragma unroll
+      for (int e = 0; e < EV; ++e) acc[r][ch][e] = 0.f;
+  }
+
+  // Warp w takes keys [w * kBatch, (w + 1) * kBatch), then the same span
+  // kWarps * kBatch further on, and so on, as the tuned kernel does.
+  for (int base = warp * kBatch; base < n_valid; base += kWarps * kBatch) {
+    // The batch's V rows (this block's columns) are requested first: they
+    // wait on nothing.
+    float vr[kBatch][kChunksV][EV];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+#pragma unroll
+      for (int ch = 0; ch < kChunksV; ++ch) {
+        const int c = ch * kChunkV + lane * EV;
+        if (base + u < n_valid && c < ncols) {
+          load_row<TV, EV>(vb + static_cast<size_t>(base + u) * dv + c,
+                           vr[u][ch]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EV; ++e) vr[u][ch][e] = 0.f;
+        }
+      }
+    // Each lane's share of q.k, d walked one warp load at a time.
+    float part[QL][kBatch];
+#pragma unroll
+    for (int r = 0; r < QL; ++r)
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) part[r][u] = 0.f;
+#pragma unroll 2
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const int c = ch * kChunkK + lane * EK;
+      float kr[kBatch][EK];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (base + u < n_valid && c < d) {
+          load_row<TK, EK>(kb + static_cast<size_t>(base + u) * d + c, kr[u]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EK; ++e) kr[u][e] = 0.f;
+        }
+      }
+      const float* qc = q_s + ch * rows * kChunkK + lane;
+#pragma unroll
+      for (int r = 0; r < QL; ++r) {
+        if (r < rows) {
+#pragma unroll
+          for (int e = 0; e < EK; ++e) {
+            const float qv = qc[r * kChunkK + e * 32];
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u)
+              part[r][u] = fmaf(qv, kr[u][e], part[r][u]);
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < QL; ++r) {
+      float s[kBatch];
+      float m_new = m[r];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        s[u] = base + u < n_valid ? warp_sum(part[r][u]) * scale
+                                  : -CUDART_INF_F;
+        m_new = fmaxf(m_new, s[u]);
+      }
+      // Key `base` is valid, so m_new is finite (as in the tuned kernel).
+      const float corr = expf(m[r] - m_new);
+      float p[kBatch], psum = 0.f;
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const float pu = expf(s[u] - m_new);
+        psum += pu;
+        p[u] = to_float(from_float<TV>(pu));  // p in V's dtype for PV
+      }
+      l[r] = l[r] * corr + psum;
+      m[r] = m_new;
+#pragma unroll
+      for (int ch = 0; ch < kChunksV; ++ch)
+#pragma unroll
+        for (int e = 0; e < EV; ++e) {
+          float a = acc[r][ch][e] * corr;
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) a = fmaf(p[u], vr[u][ch][e], a);
+          acc[r][ch][e] = a;
+        }
+    }
+  }
+
+  // The warps' merge, as in the tuned kernel, over this block's columns.
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < QL; ++r) {
+      m_s[warp][r] = m[r];
+      l_s[warp][r] = l[r];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < QL; ++r) {
+    if (r >= rows) break;
+#pragma unroll
+    for (int ch = 0; ch < kChunksV; ++ch)
+#pragma unroll
+      for (int e = 0; e < EV; ++e)
+        acc_s[warp][ch * kChunkV + lane * EV + e] = acc[r][ch][e];
+    __syncthreads();
+    if (tid < ncols) {
+      float m_tot = -CUDART_INF_F;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) m_tot = fmaxf(m_tot, m_s[w][r]);
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float mw = m_s[w][r];
+        const float wt = mw == -CUDART_INF_F ? 0.f : expf(mw - m_tot);
+        num = fmaf(wt, acc_s[w][tid], num);
+        den = fmaf(wt, l_s[w][r], den);
+      }
+      store_any(out, q_type, o_off + static_cast<size_t>(r) * dv + tid,
+                num / den);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename TK, typename TV, int QL, bool kVec>
+int launch_general_as(const void* q, const void* k, const void* v,
+                      const void* lens, void* out, int b, int h, int ql,
+                      int row0, int rows, int cap, int d, int dv, float scale,
+                      int q_type, cudaStream_t stream) {
+  const auto kernel = decode_general_kernel<TK, TV, QL, kVec>;
+  constexpr int kChunkK = 32 * (kVec ? 16 / sizeof(TK) : 1);
+  const size_t smem = static_cast<size_t>(rows) *
+                      ((d + kChunkK - 1) / kChunkK) * kChunkK * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(b * h, (dv + kDvBlock - 1) / kDvBlock);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      q, static_cast<const TK*>(k), static_cast<const TV*>(v),
+      static_cast<const int*>(lens), out, h, ql, row0, rows, cap, d, dv,
+      scale, q_type);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TK, typename TV>
+int launch_general(const void* q, const void* k, const void* v,
+                   const void* lens, void* out, int b, int h, int ql, int row0,
+                   int rows, int cap, int d, int dv, float scale, int q_type,
+                   cudaStream_t s) {
+  const bool vec = d % (16 / sizeof(TK)) == 0 &&
+                   dv % (16 / sizeof(TV)) == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  if (rows == 1)
+    return vec ? launch_general_as<TK, TV, 1, true>(
+                     q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
+                     scale, q_type, s)
+               : launch_general_as<TK, TV, 1, false>(
+                     q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
+                     scale, q_type, s);
+  return vec ? launch_general_as<TK, TV, kMaxQ, true>(
+                   q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
+                   scale, q_type, s)
+             : launch_general_as<TK, TV, kMaxQ, false>(
+                   q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
+                   scale, q_type, s);
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<T>{}) for the element type T of dtype code `code`.
+template <typename F>
+int with_dtype(int code, F&& f) {
+  if (code == kF32) return f(Tag<float>{});
+  if (code == kBF16) return f(Tag<__nv_bfloat16>{});
+  if (code == kF16) return f(Tag<__half>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Plain C entries for ctypes. Each launches on `stream` (a cudaStream_t) on
@@ -346,6 +642,37 @@ int decode_attention_bf16(const void* q, const void* k, const void* v,
                           float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
                                d, dv, scale, stream);
+}
+
+int decode_attention_f16(const void* q, const void* k, const void* v,
+                         const void* lens, void* out, int b, int h, int ql,
+                         int row0, int rows, int cap, int d, int dv,
+                         float scale, void* stream) {
+  return launch<__half>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
+                        scale, stream);
+}
+
+// Any head dims; q_type, k_type and v_type are each 0 (f32), 1 (bf16) or 2
+// (f16), and out has q's dtype.
+int decode_attention_general(const void* q, const void* k, const void* v,
+                             const void* lens, void* out, int b, int h,
+                             int ql, int row0, int rows, int cap, int d,
+                             int dv, float scale, int q_type, int k_type,
+                             int v_type, void* stream) {
+  if (b < 1 || h < 1 || cap < 1 || rows < 1 || rows > kMaxQ || row0 < 0 ||
+      row0 + rows > ql || d < 1 || dv < 1 ||
+      (dv + kDvBlock - 1) / kDvBlock > 65535 || q_type < kF32 ||
+      q_type > kF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return with_dtype(k_type, [&](auto tk) {
+    return with_dtype(v_type, [&](auto tv) {
+      return launch_general<typename decltype(tk)::type,
+                            typename decltype(tv)::type>(
+          q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv, scale,
+          q_type, s);
+    });
+  });
 }
 
 const char* decode_attention_error_string(int code) {

@@ -9,15 +9,22 @@
 // f32 running max and denominator; p rounded to V's dtype before the PV
 // product (a no-op in f32); an f32 accumulator; output acc / l in q's dtype.
 //
-// Layout: q and k are [bh, S, d], v and out are [bh, S, dv], all contiguous,
-// d and dv multiples of 16 up to 256.
+// Layout: q and k are [bh, S, d], v and out are [bh, S, dv], all contiguous.
+//
+// Which path takes a call (the C entries at the end):
+//   * q, k and v all bf16 or all f16, d and dv up to 256: `wgmma` + TMA,
+//     flash_attention_bf16 / flash_attention_f16 (the wrapper zero-pads d
+//     and dv to multiples of 16);
+//   * anything else (f32, mixed dtypes, or d or dv over 256; any d,
+//     dv >= 1): SIMT, flash_attention_general.
 //
 // What bounds it: operations. Per (b, h) the kernel does 4 S^2 d multiply-adds
 // counted as flops (half of them under causal) on (3 d + dv) S elements, so at
 // S = 2048, d = 128 in bf16 each byte moved feeds ~1000 flops, far above the
 // ~295 flops per byte at which the H100's bf16 tensor cores, not its memory,
 // become the limit. Hopper reaches its dense bf16 rate only through
-// warpgroup `wgmma`, so the bf16 path is built around it:
+// warpgroup `wgmma`, so the bf16 path is built around it (f16 takes the same
+// path, with `wgmma`'s f16 form and f16 tensor maps, at the same rate):
 //   * 3 warpgroups per block and one block per SM at most (a persistent
 //     grid), each block walking its share of the (bh, 128-row query tile)
 //     list. Warpgroup 0 is the producer: one thread issues every TMA load,
@@ -37,7 +44,7 @@
 //     8 j + 2 (lane % 4) (+ 1). Row max by two quad shuffles, the denominator
 //     summed per thread and reduced once at the end, all in base 2: one FMA
 //     and one ex2 per score;
-//   * P, rounded to bf16 in registers (the point where the TPU kernel casts
+//   * P, rounded to bf16 or f16 in registers (where the TPU kernel casts
 //     p to V's dtype), is the register A operand of O += P V by `wgmma`
 //     m64nDk16; V is MN-major (dv contiguous), read with the transpose bit;
 //   * a consumer issues S of key tile kt together with P V of tile kt - 1
@@ -54,22 +61,37 @@
 // What holds it back (PERF.md): at S = 2048 about a fifth of its time is a
 // fixed cost per query tile; at S = 8192 it streams K and V from L2 at
 // ~5 TB/s.
-// The f32 path keeps a walk with scalar FMA (never TF32) on 32 x 32 tiles:
-// 8 threads per query row, each with 4 keys of the score tile and dv / 8
-// columns of the accumulator.
+// The general path takes any widths and dtypes on the SIMT units (scalar
+// FMA, never TF32): Q K^T in 32-column chunks of d, the output columns split
+// 256 to a block (each block computes the scores again), each operand
+// converted from its own dtype as it is loaded, each thread a 4 x 4 block of
+// the scores. At d = 576, dv = 512 it does 2 x 576 + 512 multiply-adds per
+// score where the function needs 1,088; a `wgmma` path for head dims over
+// 256 is later work. It also takes f32 at every width: on the H100 it
+// outran the f32 kernel it replaced (8 threads a query row, two shared
+// loads an FMA) at every f32 shape that took more than 0.1 ms (PERF.md;
+// `chip_ab.py flash32`).
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached at run
                    // time, so the library does not link libcuda
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
-constexpr int kMaxD = 256;   // head dims d and dv
+// Whether a 16-bit element type of the wgmma path is f16 (else bf16).
+template <typename T>
+constexpr bool kIsF16 = std::is_same<T, f16>::value;
+
+constexpr int kMaxD = 256;   // the wgmma path's head dims d and dv
 constexpr int kDimStep = 16; // d and dv are multiples of it (one wgmma k-step)
 
 // ---- bf16 path ------------------------------------------------------------
@@ -208,7 +230,7 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
                                                       << 62;
 }
 
-// d[64 x N] (+)= a * b, bf16 in, f32 accumulate:
+// d[64 x N] (+)= a * b, T (bf16 or f16) in, f32 accumulate:
 // _ss (S, N = keys per tile: 64, 176): a (64 x 16) and b (16 x N) both
 // K-major in shared memory;
 // _rs (O, N = 64, 128, 256): a (64 x 16) in registers, b (16 x N) MN-major
@@ -216,100 +238,142 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
 // `acc` = 0 overwrites d. Thread t of the warpgroup holds d[i] at row
 // 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) +
 // 2 (t % 4) + i % 2; a's registers are mma.sync's m16n8k16 A fragment of
-// the warp's 16 rows.
+// the warp's 16 rows. The two input types share every layout.
 #define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define F32(i)                                                           \
   F4(i), F4(i + 4), F4(i + 8), F4(i + 12), F4(i + 16), F4(i + 20),       \
       F4(i + 24), F4(i + 28)
 
+#define WGMMA_SS_N64(TY)                                                                   \
+  asm volatile(                                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                      \
+      : F32(0)                                                                             \
+      : "l"(a), "l"(b), "r"(acc))
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F32(0)
-      : "l"(a), "l"(b), "r"(acc));
+  if constexpr (kIsF16<T>)
+    WGMMA_SS_N64("f16");
+  else
+    WGMMA_SS_N64("bf16");
 }
+#undef WGMMA_SS_N64
 
+#define WGMMA_SS_N176(TY)                                                                 \
+  asm volatile(                                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n"                                        \
+      "wgmma.mma_async.sync.aligned.m64n176k16.f32." TY "." TY " {"                       \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "  \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
+      "%80, %81, %82, %83, %84, %85, %86, %87}, "                                         \
+      "%88, %89, p, 1, 1, 0, 0;\n}\n"                                                     \
+      : F32(0), F32(32), F4(64), F4(68), F4(72), F4(76), F4(80), F4(84)                   \
+      : "l"(a), "l"(b), "r"(acc))
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n176(float (&d)[88], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87}, "
-      "%88, %89, p, 1, 1, 0, 0;\n}\n"
-      : F32(0), F32(32), F4(64), F4(68), F4(72), F4(76), F4(80), F4(84)
-      : "l"(a), "l"(b), "r"(acc));
+  if constexpr (kIsF16<T>)
+    WGMMA_SS_N176("f16");
+  else
+    WGMMA_SS_N176("bf16");
 }
+#undef WGMMA_SS_N176
+#define WGMMA_RS_N64(TY)                                                                   \
+  asm volatile(                                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                        \
+      : F32(0)                                                                             \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc))
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  if constexpr (kIsF16<T>)
+    WGMMA_RS_N64("f16");
+  else
+    WGMMA_RS_N64("bf16");
 }
+#undef WGMMA_RS_N64
 
+#define WGMMA_RS_N128(TY)                                                                  \
+  asm volatile(                                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                         \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                        \
+      : F32(0), F32(32)                                                                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc))
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : F32(0), F32(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  if constexpr (kIsF16<T>)
+    WGMMA_RS_N128("f16");
+  else
+    WGMMA_RS_N128("bf16");
 }
+#undef WGMMA_RS_N128
 
+#define WGMMA_RS_N256(TY)                                                                                  \
+  asm volatile(                                                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                                        \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {"                                        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                             \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                   \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                   \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "                   \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "                   \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                   \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "       \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "  \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                                                   \
+      : F32(0), F32(32), F32(64), F32(96)                                                                  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc))
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : F32(0), F32(32), F32(64), F32(96)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  if constexpr (kIsF16<T>)
+    WGMMA_RS_N256("f16");
+  else
+    WGMMA_RS_N256("bf16");
 }
+#undef WGMMA_RS_N256
 
 #undef F32
 #undef F4
 
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int acc) {
-  if constexpr (N == 64) wgmma_ss_n64(d, a, b, acc);
-  else wgmma_ss_n176(d, a, b, acc);
+  if constexpr (N == 64) wgmma_ss_n64<T>(d, a, b, acc);
+  else wgmma_ss_n176<T>(d, a, b, acc);
 }
 
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, b, 1);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, b, 1);
-  else wgmma_rs_n256(d, a, b, 1);
+  if constexpr (N == 64) wgmma_rs_n64<T>(d, a, b, 1);
+  else if constexpr (N == 128) wgmma_rs_n128<T>(d, a, b, 1);
+  else wgmma_rs_n256<T>(d, a, b, 1);
 }
 
-// Two floats rounded to bf16, `lo` in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two floats rounded to T (bf16 or f16), `lo` in the low half (the lower
+// column).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsF16<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // exp2 of x on the special-function unit; exp2(-inf) = 0.
@@ -357,13 +421,11 @@ __device__ __forceinline__ int key_tiles(int q0, int n_tiles, int causal) {
 // P V none to hide behind: both are peeled out of the loop, whose body has
 // no branch around a wgmma (with the branches inside, the same kernel took
 // 46% longer on an H100; PERF.md).
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
-                      const __grid_constant__ CUtensorMap k_map,
-                      const __grid_constant__ CUtensorMap v_map,
-                      bf16* __restrict__ out, int n_bh, int S, int dv,
-                      float scale_log2, int causal) {
+template <typename E, int DMAX>
+__device__ __forceinline__ void flash_wgmma_body(
+    const CUtensorMap& q_map, const CUtensorMap& k_map,
+    const CUtensorMap& v_map, E* __restrict__ out, int n_bh, int S, int dv,
+    float scale_log2, int causal) {
   using T = Tiles<DMAX>;
   constexpr int kN = T::kN;
   constexpr int kStages = T::kStages;
@@ -458,7 +520,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     float o[DMAX / 2];
     float s[kN / 2];           // one tile's scores, then its p
-    uint32_t pa[kN / 16][4];   // the previous tile's p in bf16
+    uint32_t pa[kN / 16][4];   // the previous tile's p in E
 
     const uint64_t q_desc = sw128_desc(q_s + 64 * cw * kPanelRowBytes, 16);
     // S = Q K^T: one wgmma per 16 columns of d; the descriptor's start
@@ -469,7 +531,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int ks = 0; ks < DMAX / kDimStep; ++ks) {
         const uint32_t qoff = (ks / 4) * T::kQPanelBytes + (ks % 4) * 32;
         const uint32_t koff = (ks / 4) * T::kKVPanelBytes + (ks % 4) * 32;
-        wgmma_ss<kN>(s, q_desc + (qoff >> 4), k_desc + (koff >> 4), ks > 0);
+        wgmma_ss<E, kN>(s, q_desc + (qoff >> 4), k_desc + (koff >> 4),
+                        ks > 0);
       }
       wgmma_commit();
     };
@@ -480,7 +543,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           sw128_desc(v_s + st * T::kKVBytes, T::kKVPanelBytes);
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk)
-        wgmma_rs<DMAX>(o, pa[kk], v_desc + ((kk * 2048) >> 4));
+        wgmma_rs<E, DMAX>(o, pa[kk], v_desc + ((kk * 2048) >> 4));
       wgmma_commit();
     };
 
@@ -524,15 +587,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ps[r];
     };
-    // p in bf16 as the A fragments of P V: k-step kk covers keys
+    // p in E as the A fragments of P V: k-step kk covers keys
     // 16 kk .. 16 kk + 15, which are s[8 kk .. 8 kk + 7].
     const auto pack_p = [&]() {
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        pa[kk][0] = pack2<E>(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack2<E>(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack2<E>(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack2<E>(s[8 * kk + 6], s[8 * kk + 7]);
       }
     };
     const auto rescale_o = [&](const float (&corr)[2]) {
@@ -625,7 +688,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         inv[r] = 1.f / l[r];
       }
-      bf16* ob = out + static_cast<size_t>(bh) * S * dv;
+      E* ob = out + static_cast<size_t>(bh) * S * dv;
 #pragma unroll
       for (int c = 0; c < DMAX / 8; ++c) {
         if (c * 8 < dv) {
@@ -633,11 +696,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (row_a < S)
             *reinterpret_cast<uint32_t*>(
                 ob + static_cast<size_t>(row_a) * dv + col) =
-                pack_bf16(o[4 * c] * inv[0], o[4 * c + 1] * inv[0]);
+                pack2<E>(o[4 * c] * inv[0], o[4 * c + 1] * inv[0]);
           if (row_b < S)
             *reinterpret_cast<uint32_t*>(
                 ob + static_cast<size_t>(row_b) * dv + col) =
-                pack_bf16(o[4 * c + 2] * inv[1], o[4 * c + 3] * inv[1]);
+                pack2<E>(o[4 * c + 2] * inv[1], o[4 * c + 3] * inv[1]);
         }
       }
     }
@@ -645,131 +708,277 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---- f32 path -------------------------------------------------------------
+// The wgmma path's kernels, one name per input type so that a build report
+// tells them apart.
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      bf16* __restrict__ out, int n_bh, int S, int dv,
+                      float scale_log2, int causal) {
+  flash_wgmma_body<bf16, DMAX>(q_map, k_map, v_map, out, n_bh, S, dv,
+                               scale_log2, causal);
+}
 
-constexpr int kTileF = 32;       // query rows per block, keys per tile
-constexpr int kThreadsF = 256;   // 8 per query row
-constexpr int kRowThreads = 8;
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_f16_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     f16* __restrict__ out, int n_bh, int S, int dv,
+                     float scale_log2, int causal) {
+  flash_wgmma_body<f16, DMAX>(q_map, k_map, v_map, out, n_bh, S, dv,
+                              scale_log2, causal);
+}
 
-size_t smem_bytes_f32(int d, int dv) {
-  // Q and K tiles with rows padded by one float, V tile, P tile.
-  return (static_cast<size_t>(kTileF) * (2 * (d + 1) + dv) +
-          kTileF * (kTileF + 1)) *
+// ---- general path: any head dims; q, k and v each in its own dtype ---------
+
+constexpr int kRowsG = 64;       // query rows per block
+constexpr int kKeysG = 64;       // keys per tile
+constexpr int kChunkG = 32;      // d columns of the Q and K tiles at a time
+constexpr int kDvBlockG = 256;   // output columns per block (grid.z over dv)
+constexpr int kThreadsG = 256;   // 16 x 16: rows ty + 16 i, keys tx + 16 j
+constexpr int kLdQK = kChunkG + 4;  // row strides in floats: 16-byte rows
+constexpr int kLdP = kKeysG + 4;    // whose float4 reads meet no conflict
+constexpr int kChunkLoads = kRowsG * kChunkG / kThreadsG;  // per thread
+constexpr int kVLoads = kKeysG * kDvBlockG / kThreadsG;
+
+// The dtype codes of the general entry (the wrapper's): f32, bf16, f16.
+enum DtypeCode : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// Element i of a tensor whose dtype (code `type`) is known at run time.
+__device__ __forceinline__ float load_any(const void* p, int type, size_t i) {
+  if (type == kBF16) return __bfloat162float(static_cast<const bf16*>(p)[i]);
+  if (type == kF16) return __half2float(static_cast<const f16*>(p)[i]);
+  return static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_any(void* p, int type, size_t i,
+                                          float x) {
+  if (type == kBF16)
+    static_cast<bf16*>(p)[i] = __float2bfloat16(x);
+  else if (type == kF16)
+    static_cast<f16*>(p)[i] = __float2half(x);
+  else
+    static_cast<float*>(p)[i] = x;
+}
+
+// x rounded to the dtype of code `type` (p before P V).
+__device__ __forceinline__ float round_to(int type, float x) {
+  if (type == kBF16) return __bfloat162float(__float2bfloat16(x));
+  if (type == kF16) return __half2float(__float2half(x));
+  return x;
+}
+
+// This thread's share of rows [r0, r0 + 64) x columns [c0, c0 + 32) of the
+// row-major [S, cols] matrix that starts `off` elements into src, as f32;
+// zeros at rows >= S and columns >= cols.
+__device__ __forceinline__ void chunk_regs(float (&reg)[kChunkLoads],
+                                           const void* src, int type,
+                                           size_t off, int r0, int S,
+                                           int cols, int c0) {
+#pragma unroll
+  for (int t = 0; t < kChunkLoads; ++t) {
+    const int i = threadIdx.x + kThreadsG * t;
+    const int rr = i / kChunkG, cc = i % kChunkG;
+    reg[t] = r0 + rr < S && c0 + cc < cols
+                 ? load_any(src, type,
+                            off + static_cast<size_t>(r0 + rr) * cols + c0 +
+                                cc)
+                 : 0.f;
+  }
+}
+
+__device__ __forceinline__ void chunk_store(float* dst,
+                                            const float (&reg)[kChunkLoads]) {
+#pragma unroll
+  for (int t = 0; t < kChunkLoads; ++t) {
+    const int i = threadIdx.x + kThreadsG * t;
+    dst[(i / kChunkG) * kLdQK + i % kChunkG] = reg[t];
+  }
+}
+
+size_t smem_bytes_general() {
+  return (static_cast<size_t>(2) * kRowsG * kLdQK + kKeysG * kDvBlockG +
+          kRowsG * kLdP) *
          sizeof(float);
 }
 
-__global__ void __launch_bounds__(kThreadsF)
-    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     int S, int d, int dv, float scale, int causal) {
+// Exact attention for any d, dv >= 1, each operand in its own dtype, on the
+// SIMT units: a block takes 64 query rows and 256 output columns (grid.z;
+// each block computes the scores again), walking 64-key tiles. S = Q K^T
+// runs over d in 32-column chunks held in shared memory as f32, the next
+// chunk's loads in flight while the current one is used; each thread owns a
+// 4 x 4 block of S (rows ty + 16 i, keys tx + 16 j) and reads 4 columns of a
+// row as one float4, so 16 FMAs cost 2 shared loads; P V likewise, 4 rows x
+// 16 columns a thread. p is rounded to V's dtype before P V, and l sums the
+// unrounded p, as the TPU kernel does. One block an SM: capped at two (128
+// registers), the 64 accumulators spill.
+__global__ void __launch_bounds__(kThreadsG, 1)
+    flash_general_kernel(const void* __restrict__ q,
+                         const void* __restrict__ k,
+                         const void* __restrict__ v, void* __restrict__ out,
+                         int S, int d, int dv, float scale, int causal,
+                         int q_type, int k_type, int v_type) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldk = d + 1, ldp = kTileF + 1;
-  float* q_s = reinterpret_cast<float*>(smem_raw);
-  float* k_s = q_s + kTileF * ldk;
-  float* v_s = k_s + kTileF * ldk;
-  float* p_s = v_s + kTileF * dv;
+  float* q_s = reinterpret_cast<float*>(smem_raw);   // [64][kLdQK]
+  float* k_s = q_s + kRowsG * kLdQK;                 // [64][kLdQK]
+  float* v_s = k_s + kKeysG * kLdQK;                 // [64][256]
+  float* p_s = v_s + kKeysG * kDvBlockG;             // [64][kLdP]
 
   const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qt * kTileF;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the longest causal rows first
+  const int q0 = qt * kRowsG;
+  const int c0 = blockIdx.z * kDvBlockG;      // the block's first column
+  const int w = min(kDvBlockG, dv - c0);
   const int tid = threadIdx.x;
-  const int r = tid / kRowThreads;  // query row in the tile
-  const int c = tid % kRowThreads;  // keys c + 8j, columns c + 8n
-  const int row = q0 + r;
-
-  const float* qb = q + static_cast<size_t>(bh) * S * d;
-  const float* kb = k + static_cast<size_t>(bh) * S * d;
-  const float* vb = v + static_cast<size_t>(bh) * S * dv;
-
-  for (int i = tid; i < kTileF * d; i += kThreadsF) {
-    const int rr = i / d, cc = i - rr * d;
-    q_s[rr * ldk + cc] =
-        q0 + rr < S ? qb[static_cast<size_t>(q0 + rr) * d + cc] : 0.f;
-  }
-
-  const int n_tiles = (S + kTileF - 1) / kTileF;
+  const int tx = tid % 16, ty = tid / 16;
+  const size_t qk_off = static_cast<size_t>(bh) * S * d;
+  const size_t v_off = static_cast<size_t>(bh) * S * dv;
+  const int n_tiles = (S + kKeysG - 1) / kKeysG;
   const int n_kt = causal ? min(n_tiles, qt + 1) : n_tiles;
-  const int n_cols = dv / kRowThreads;
+  const int n_ch = (d + kChunkG - 1) / kChunkG;
 
-  float o[kMaxD / kRowThreads];
+  float o[4][16];
+  float m[4], l[4];
 #pragma unroll
-  for (int n = 0; n < kMaxD / kRowThreads; ++n) o[n] = 0.f;
-  float m = -CUDART_INF_F, l = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -CUDART_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) o[i][n] = 0.f;
+  }
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTileF;
-    __syncthreads();  // the previous tile's K, V and P are no longer read
-    for (int i = tid; i < kTileF * d; i += kThreadsF) {
-      const int rr = i / d, cc = i - rr * d;
-      k_s[rr * ldk + cc] =
-          k0 + rr < S ? kb[static_cast<size_t>(k0 + rr) * d + cc] : 0.f;
+    const int k0 = kt * kKeysG;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    float qr[kChunkLoads], kr[kChunkLoads];
+    chunk_regs(qr, q, q_type, qk_off, q0, S, d, 0);
+    chunk_regs(kr, k, k_type, qk_off, k0, S, d, 0);
+    for (int ch = 0; ch < n_ch; ++ch) {
+      // The previous chunk (or tile: its P and V too) is no longer read.
+      __syncthreads();
+      chunk_store(q_s, qr);
+      chunk_store(k_s, kr);
+      __syncthreads();
+      if (ch + 1 < n_ch) {
+        chunk_regs(qr, q, q_type, qk_off, q0, S, d, (ch + 1) * kChunkG);
+        chunk_regs(kr, k, k_type, qk_off, k0, S, d, (ch + 1) * kChunkG);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kChunkG; kk += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(
+              q_s + (ty + 16 * i) * kLdQK + kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(
+              k_s + (tx + 16 * j) * kLdQK + kk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float a = s[i][j];
+            a = fmaf(qv[i].x, kv[j].x, a);
+            a = fmaf(qv[i].y, kv[j].y, a);
+            a = fmaf(qv[i].z, kv[j].z, a);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, a);
+          }
+      }
     }
-    for (int i = tid; i < kTileF * dv; i += kThreadsF) {
-      const int rr = i / dv;
-      v_s[i] = k0 + rr < S ? vb[static_cast<size_t>(k0) * dv + i] : 0.f;
+    // V's tile (the block's columns); its buffer was freed by the first
+    // chunk's barrier.
+    for (int t = 0; t < kVLoads; ++t) {
+      const int i = tid + kThreadsG * t;
+      const int rr = i / kDvBlockG, cc = i % kDvBlockG;
+      v_s[i] = k0 + rr < S && cc < w
+                   ? load_any(v, v_type,
+                              v_off + static_cast<size_t>(k0 + rr) * dv + c0 +
+                                  cc)
+                   : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        s[i][j] = col >= S || (causal && col > row) ? -CUDART_INF_F
+                                                    : s[i][j] * scale;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // The row's 16 threads are 16 consecutive lanes.
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      // A row with no unmasked key yet (past S) keeps its exponents finite.
+      const float base = mx == -CUDART_INF_F ? 0.f : mx;
+      const float corr = expf(m[i] - base);
+      m[i] = mx;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - base);
+        ps += p;
+        p_s[(ty + 16 * i) * kLdP + tx + 16 * j] = round_to(v_type, p);
+      }
+      l[i] = l[i] * corr + ps;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) o[i][n] *= corr;
     }
     __syncthreads();
-
-    float s[kTileF / kRowThreads];
+    for (int key = 0; key < kKeysG; ++key) {
+      float p[4];
 #pragma unroll
-    for (int j = 0; j < kTileF / kRowThreads; ++j) s[j] = 0.f;
-    for (int kk = 0; kk < d; ++kk) {
-      const float qv = q_s[r * ldk + kk];
+      for (int i = 0; i < 4; ++i) p[i] = p_s[(ty + 16 * i) * kLdP + key];
 #pragma unroll
-      for (int j = 0; j < kTileF / kRowThreads; ++j)
-        s[j] = fmaf(qv, k_s[(c + kRowThreads * j) * ldk + kk], s[j]);
-    }
-    float mx = m;
+      for (int n = 0; n < 4; ++n) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            v_s + key * kDvBlockG + 64 * n + 4 * tx);
 #pragma unroll
-    for (int j = 0; j < kTileF / kRowThreads; ++j) {
-      const int col = k0 + c + kRowThreads * j;
-      s[j] = col >= S || (causal && col > row) ? -CUDART_INF_F
-                                               : s[j] * scale;
-      mx = fmaxf(mx, s[j]);
-    }
-#pragma unroll
-    for (int off = 1; off < kRowThreads; off <<= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float base = mx == -CUDART_INF_F ? 0.f : mx;
-    const float corr = expf(m - base);
-    m = mx;
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTileF / kRowThreads; ++j) {
-      const float p = expf(s[j] - base);
-      ps += p;
-      p_s[r * ldp + c + kRowThreads * j] = p;
-    }
-    l = l * corr + ps;
-#pragma unroll
-    for (int n = 0; n < kMaxD / kRowThreads; ++n) o[n] *= corr;
-    __syncthreads();
-    for (int key = 0; key < kTileF; ++key) {
-      const float p = p_s[r * ldp + key];
-      const float* vr = v_s + key * dv + c;
-#pragma unroll
-      for (int n = 0; n < kMaxD / kRowThreads; ++n)
-        if (n < n_cols) o[n] = fmaf(p, vr[kRowThreads * n], o[n]);
+        for (int i = 0; i < 4; ++i) {
+          o[i][4 * n] = fmaf(p[i], vv.x, o[i][4 * n]);
+          o[i][4 * n + 1] = fmaf(p[i], vv.y, o[i][4 * n + 1]);
+          o[i][4 * n + 2] = fmaf(p[i], vv.z, o[i][4 * n + 2]);
+          o[i][4 * n + 3] = fmaf(p[i], vv.w, o[i][4 * n + 3]);
+        }
+      }
     }
   }
 
 #pragma unroll
-  for (int off = 1; off < kRowThreads; off <<= 1)
-    l += __shfl_xor_sync(0xffffffffu, l, off);
-  if (row < S) {
-    float* orow = out + (static_cast<size_t>(bh) * S + row) * dv + c;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int n = 0; n < kMaxD / kRowThreads; ++n)
-      if (n < n_cols) orow[kRowThreads * n] = o[n] / l;
+    for (int off = 1; off < 16; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+    const size_t o_row = (static_cast<size_t>(bh) * S + row) * dv + c0;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 64 * n + 4 * tx + e;
+        if (col < w) store_any(out, q_type, o_row + col, o[i][4 * n + e] / l[i]);
+      }
   }
 }
 
 // ---- launch ---------------------------------------------------------------
 
-bool dims_ok(int bh, int S, int d, int dv, int tile) {
+// The shapes the wgmma path takes.
+bool dims_ok(int bh, int S, int d, int dv) {
   return bh >= 1 && S >= 1 && d >= kDimStep && dv >= kDimStep &&
          d <= kMaxD && dv <= kMaxD && d % kDimStep == 0 &&
-         dv % kDimStep == 0 && (S + tile - 1) / tile <= 65535;
+         dv % kDimStep == 0 && (S + kRowsQ - 1) / kRowsQ <= 65535;
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -798,9 +1007,10 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of the bf16 tensor [bh, S, cols] in boxes of 64 columns x `rows`
-// rows of one (b, h), swizzled by 128 bytes; out-of-bounds elements read as
-// zeros.
+// A map of the 16-bit tensor [bh, S, cols] of element type E in boxes of
+// 64 columns x `rows` rows of one (b, h), swizzled by 128 bytes;
+// out-of-bounds elements read as zeros.
+template <typename E>
 bool encode_map(CUtensorMap* map, const void* ptr, int bh, int S, int cols,
                 int rows) {
   const EncodeTiled encode = encode_tiled();
@@ -809,30 +1019,41 @@ bool encode_map(CUtensorMap* map, const void* ptr, int bh, int S, int cols,
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(cols) * sizeof(bf16),
-      static_cast<cuuint64_t>(S) * cols * sizeof(bf16)};
+      static_cast<cuuint64_t>(cols) * sizeof(E),
+      static_cast<cuuint64_t>(S) * cols * sizeof(E)};
   const cuuint32_t box[3] = {kPanelCols, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map,
+                kIsF16<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3,
                 const_cast<void*>(ptr), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DMAX>
-int launch_bf16_dmax(const void* q, const void* k, const void* v, void* out,
-                     int bh, int S, int d, int dv, float scale, int causal,
-                     cudaStream_t stream) {
+template <typename E, int DMAX>
+auto wgmma_kernel() {
+  if constexpr (kIsF16<E>)
+    return flash_f16_kernel<DMAX>;
+  else
+    return flash_bf16_kernel<DMAX>;
+}
+
+template <typename E, int DMAX>
+int launch_wgmma_dmax(const void* q, const void* k, const void* v, void* out,
+                      int bh, int S, int d, int dv, float scale, int causal,
+                      cudaStream_t stream) {
   using T = Tiles<DMAX>;
+  const auto kernel = wgmma_kernel<E, DMAX>();
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, q, bh, S, d, kRowsQ) ||
-      !encode_map(&k_map, k, bh, S, d, T::kN) ||
-      !encode_map(&v_map, v, bh, S, dv, T::kN))
+  if (!encode_map<E>(&q_map, q, bh, S, d, kRowsQ) ||
+      !encode_map<E>(&k_map, k, bh, S, d, T::kN) ||
+      !encode_map<E>(&v_map, v, bh, S, dv, T::kN))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   // One block per SM at most (each takes all of an SM's registers), each
   // walking its share of the query tiles.
@@ -842,11 +1063,28 @@ int launch_bf16_dmax(const void* q, const void* k, const void* v, void* out,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_work = bh * ((S + kRowsQ - 1) / kRowsQ);
-  flash_bf16_kernel<DMAX>
-      <<<n_work < sms ? n_work : sms, kThreads, T::kSmemBytes, stream>>>(
-          q_map, k_map, v_map, static_cast<bf16*>(out), bh, S, dv,
-          scale * 1.4426950408889634f, causal);
+  kernel<<<n_work < sms ? n_work : sms, kThreads, T::kSmemBytes, stream>>>(
+      q_map, k_map, v_map, static_cast<E*>(out), bh, S, dv,
+      scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int bh, int S, int d, int dv, int causal, float scale,
+                 void* stream) {
+  if (!dims_ok(bh, S, d, dv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int dmax = d > dv ? d : dv;
+  if (dmax <= 64)
+    return launch_wgmma_dmax<E, 64>(q, k, v, out, bh, S, d, dv, scale,
+                                    causal, s);
+  if (dmax <= 128)
+    return launch_wgmma_dmax<E, 128>(q, k, v, out, bh, S, d, dv, scale,
+                                     causal, s);
+  return launch_wgmma_dmax<E, 256>(q, k, v, out, bh, S, d, dv, scale, causal,
+                                   s);
 }
 
 }  // namespace
@@ -859,34 +1097,39 @@ extern "C" {
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          void* out, int bh, int S, int d, int dv, int causal,
                          float scale, void* stream) {
-  if (!dims_ok(bh, S, d, dv, kRowsQ))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const int dmax = d > dv ? d : dv;
-  if (dmax <= 64)
-    return launch_bf16_dmax<64>(q, k, v, out, bh, S, d, dv, scale, causal, s);
-  if (dmax <= 128)
-    return launch_bf16_dmax<128>(q, k, v, out, bh, S, d, dv, scale, causal,
-                                 s);
-  return launch_bf16_dmax<256>(q, k, v, out, bh, S, d, dv, scale, causal, s);
+  return launch_wgmma<bf16>(q, k, v, out, bh, S, d, dv, causal, scale,
+                            stream);
 }
 
-int flash_attention_f32(const void* q, const void* k, const void* v,
+int flash_attention_f16(const void* q, const void* k, const void* v,
                         void* out, int bh, int S, int d, int dv, int causal,
                         float scale, void* stream) {
-  if (!dims_ok(bh, S, d, dv, kTileF))
+  return launch_wgmma<f16>(q, k, v, out, bh, S, d, dv, causal, scale,
+                           stream);
+}
+
+// Any head dims d, dv >= 1; q_type, k_type and v_type are each 0 (f32), 1
+// (bf16) or 2 (f16), and out has q's dtype.
+int flash_attention_general(const void* q, const void* k, const void* v,
+                            void* out, int bh, int S, int d, int dv,
+                            int causal, float scale, int q_type, int k_type,
+                            int v_type, void* stream) {
+  const auto type_ok = [](int t) { return t >= kF32 && t <= kF16; };
+  if (bh < 1 || S < 1 || d < 1 || dv < 1 ||
+      (S + kRowsG - 1) / kRowsG > 65535 ||
+      (dv + kDvBlockG - 1) / kDvBlockG > 65535 || !type_ok(q_type) ||
+      !type_ok(k_type) || !type_ok(v_type))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes_f32(d, dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem = smem_bytes_general();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (S + kTileF - 1) / kTileF);
-  flash_f32_kernel<<<grid, kThreadsF, smem, static_cast<cudaStream_t>(
-                                                 stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, d, dv, scale,
-      causal);
+  const dim3 grid(bh, (S + kRowsG - 1) / kRowsG,
+                  (dv + kDvBlockG - 1) / kDvBlockG);
+  flash_general_kernel<<<grid, kThreadsG, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, out, S, d, dv, scale, causal, q_type, k_type, v_type);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,12 @@ version (the CUDA kernel runs only on the card, where ``chip_smoke.py``
 holds it against the same plain version). The same seeded numpy inputs go
 through the JAX package's ``xla_decode_attention`` and its Pallas
 ``flash_attention_decode`` in interpret mode, at the JAX tests' shapes and
-tolerances (f32 1e-4, bf16 3e-2, poisoned tail 1e-5). Also here: the
-wrapper's input checks and the kernel build's error paths, which run
+tolerances (f32 1e-4, bf16 3e-2, poisoned tail 1e-5), and at the inputs
+the CUDA kernels took only later: head dims over 256 (257, DeepSeek-V3's
+absorbed-MLA 576/512), f16, and q, k and v in different dtypes, each held
+to the tolerance of its narrowest input (f32 1e-4, bf16 and f16 2e-2).
+Also here: the wrapper's input checks, which kernel a CUDA call goes to
+(the C entries mocked), and the kernel build's error paths, which run
 without a card.
 """
 
@@ -22,17 +26,45 @@ from k8s_dra_driver_tpu.compute.flashattention import (
     flash_attention_decode as jax_flash_decode,
 )
 from k8s_dra_driver_tpu.compute.serving import xla_decode_attention
-from k8s_dra_driver_tpu_torch.compute import _build
+from k8s_dra_driver_tpu_torch.compute import _build, flashattention
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
-    MAX_HEAD_DIM,
     MAX_Q_LEN,
-    check_kernel_head_dims,
+    TUNED_HEAD_DIM,
     decode_attention_reference,
     flash_attention_decode,
 )
 
 B, H, D, CAP = 4, 2, 8, 64
 LENS = np.array([1, 17, 33, 64], np.int32)
+JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f16": jnp.float16}
+TORCH = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+# The tolerance of a call is that of its narrowest input: the JAX tests'
+# 1e-4 where q, k and v are all f32, bf16's 2e-2 where any is 16-bit.
+F32_TOL, HALF_TOL = 1e-4, 2e-2
+
+
+def _tol(*dtypes) -> float:
+    return F32_TOL if set(dtypes) == {"f32"} else HALF_TOL
+
+
+def _agrees_with_jax(q, k, v, lens, dtypes, block_k=16):
+    """The port's CPU path and the JAX kernel (interpret mode) on the same
+    numpy inputs, cast to ``dtypes`` (q's, k's, v's): the port's output
+    is in q's dtype and within the tolerance of the narrowest input."""
+    tq, tk, tv = dtypes
+    jax_out = jax_flash_decode(jnp.asarray(q, JNP[tq]), jnp.asarray(k, JNP[tk]),
+                               jnp.asarray(v, JNP[tv]), lens, block_k=block_k,
+                               interpret=True)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(TORCH[t])
+            for a, t in ((q, tq), (k, tk), (v, tv))]
+    out = flash_attention_decode(*args, torch.from_numpy(lens),
+                                 block_k=block_k)
+    assert out.dtype == TORCH[tq] and str(jax_out.dtype) == str(
+        jnp.dtype(JNP[tq]))
+    assert tuple(out.shape) == q.shape[:3] + (v.shape[3],)
+    err = _max_abs(out.float().numpy(), jax_out.astype(jnp.float32))
+    assert err < _tol(*dtypes), f"{dtypes}: {err}"
+    return out
 
 
 def _inputs(seed, ql, b=B, h=H, d=D, cap=CAP, dv=None):
@@ -100,10 +132,10 @@ class TestAgainstJax:
 
     # Shapes the JAX function takes beyond the CUDA kernel's one launch: v's
     # head dim unlike k's, more than 8 query rows (the wrapper launches per
-    # group of 8 on the card), and head dims over 256 (refused on the card).
+    # group of 8 on the card), and head dims over 256 (the general kernel).
     @pytest.mark.parametrize("ql,d,dv", [
         (1, 16, 32), (4, 32, 16), (16, D, D), (MAX_Q_LEN + 1, D, D),
-        (20, 16, 24), (1, 2 * MAX_HEAD_DIM, 2 * MAX_HEAD_DIM)])
+        (20, 16, 24), (1, 2 * TUNED_HEAD_DIM, 2 * TUNED_HEAD_DIM)])
     def test_shapes_jax_takes(self, ql, d, dv):
         q, k, v = _inputs(17, ql, d=d, dv=dv)
         pallas = np.asarray(jax_flash_decode(q, k, v, LENS, block_k=16,
@@ -113,6 +145,41 @@ class TestAgainstJax:
         assert _max_abs(out.numpy(), pallas) < 1e-4
         assert _max_abs(out.numpy(),
                         xla_decode_attention(q, k, v, LENS)) < 1e-4
+
+    # Head dims over 256 at short caches, every dtype: 257 (past the tuned
+    # kernel by one), DeepSeek-V3's absorbed-MLA decode (keys 512 + 64 = 576
+    # wide, values 512; all query heads folded into one latent head's rows),
+    # and a value dim over 256 beside a narrow key dim.
+    @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+    @pytest.mark.parametrize("ql,d,dv", [(1, 257, 257), (8, 576, 512),
+                                         (MAX_Q_LEN + 2, 576, 512),
+                                         (2, 64, 640)])
+    def test_wide_head_dims_match_pallas(self, ql, d, dv, dtype):
+        q, k, v = _inputs(23, ql, d=d, cap=32, dv=dv)
+        lens = np.array([1, 7, 32, 20], np.int32)
+        _agrees_with_jax(q, k, v, lens, (dtype,) * 3, block_k=16)
+
+    @pytest.mark.parametrize("ql", [1, 4])
+    def test_f16_matches_xla_and_pallas(self, ql):
+        q, k, v = _inputs(19, ql)
+        out = _agrees_with_jax(q, k, v, LENS, ("f16",) * 3)
+        jq, jk, jv = (jnp.asarray(a, jnp.float16) for a in (q, k, v))
+        xla = xla_decode_attention(jq, jk, jv, LENS).astype(jnp.float32)
+        assert _max_abs(out.float().numpy(), xla) < HALF_TOL
+
+    # q, k and v in different dtypes, as JAX takes them: an f32 query over
+    # a bf16 or f16 cache, a bf16 query over an f16 cache, K and V apart.
+    @pytest.mark.parametrize("dtypes", [
+        ("f32", "bf16", "bf16"), ("f32", "f16", "f16"),
+        ("bf16", "f16", "f16"), ("f16", "bf16", "bf16"),
+        ("f32", "f32", "bf16"), ("bf16", "bf16", "f32"),
+        ("f16", "f32", "bf16")])
+    @pytest.mark.parametrize("ql,d,dv", [(1, D, D), (4, 32, 16),
+                                         (2, 320, 320)])
+    def test_mixed_dtypes_match_pallas(self, ql, d, dv, dtypes):
+        q, k, v = _inputs(29, ql, d=d, cap=32, dv=dv)
+        lens = np.array([3, 32, 9, 16], np.int32)
+        _agrees_with_jax(q, k, v, lens, dtypes)
 
     @pytest.mark.parametrize("block_k,raises", [(24, True), (48, True),
                                                 (16, False), (512, False)])
@@ -146,11 +213,11 @@ class TestWrapper:
                         xla_decode_attention(q, k, v, LENS)) < 1e-5
 
     @pytest.mark.parametrize("ql,d", [(MAX_Q_LEN + 1, D),
-                                      (1, MAX_HEAD_DIM + 1), (0, D)])
+                                      (1, TUNED_HEAD_DIM + 1), (0, D)])
     def test_kernel_limits_raise(self, ql, d):
-        # An empty q raises everywhere; more than 8 rows and a head dim over
-        # 256 run on the CPU path, and the head dim is refused for the
-        # CUDA kernel only.
+        # An empty q raises everywhere, as in JAX; more than 8 rows and a
+        # head dim over 256 are JAX's results on the CPU path, and no head
+        # dim is refused for the CUDA kernels any more.
         q, k, v = _inputs(1, ql, d=d, cap=16)
         args = _t(q, k, v, LENS)
         if ql < 1:
@@ -159,11 +226,11 @@ class TestWrapper:
             return
         out = flash_attention_decode(*args)
         assert torch.equal(out, decode_attention_reference(*args))
-        if d > MAX_HEAD_DIM:
-            with pytest.raises(ValueError, match=f"up to {MAX_HEAD_DIM}"):
-                check_kernel_head_dims("decode_attention", d, d)
-        else:
-            check_kernel_head_dims("decode_attention", d, d)
+        pallas = np.asarray(jax_flash_decode(q, k, v, LENS, block_k=16,
+                                             interpret=True))
+        assert _max_abs(out.numpy(), pallas) < F32_TOL
+        assert not hasattr(flashattention, "check_kernel_head_dims")
+        assert not hasattr(flashattention, "MAX_HEAD_DIM")
 
     def test_bad_inputs_raise(self):
         q, k, v = _inputs(2, 1)
@@ -174,12 +241,21 @@ class TestWrapper:
             (tq, tk, tv[:, :, :32], tl),                   # k/v mismatch
             (tq, tk.transpose(2, 3), tv, tl),              # k layout
             (tq.double(), tk.double(), tv.double(), tl),   # dtype
-            (tq.bfloat16(), tk, tv, tl),                   # mixed dtypes
+            (tq, tk.double(), tv, tl),                     # k's dtype
             (tq[0], tk, tv, tl),                           # q rank
         ]
         for case in cases:
             with pytest.raises(ValueError):
                 flash_attention_decode(*case)
+
+    def test_mixed_dtypes_take_the_plain_version(self):
+        # On the CPU a mixed call is the plain version, in q's dtype.
+        q, k, v = _inputs(6, 2)
+        tq, tk, tv, tl = _t(q, k, v, LENS)
+        args = (tq, tk.bfloat16(), tv.half(), tl)
+        out = flash_attention_decode(*args)
+        assert out.dtype == torch.float32
+        assert torch.equal(out, decode_attention_reference(*args))
 
     def test_non_contiguous_raises(self):
         q, k, v = _inputs(4, 1)
@@ -189,6 +265,84 @@ class TestWrapper:
         assert not strided.is_contiguous()
         with pytest.raises(ValueError, match="contiguous"):
             flash_attention_decode(tq, strided, tv, tl)
+
+
+class _FakeEntry:
+    """A C entry that records its arguments and returns cudaSuccess."""
+
+    def __init__(self):
+        self.argtypes = None
+        self.restype = None
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+class _FakeLib:
+    def __init__(self):
+        self.entries = {}
+
+    def __getattr__(self, name):
+        return self.entries.setdefault(name, _FakeEntry())
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    return lib
+
+
+class TestRouting:
+    """Which C entry a CUDA call reaches, with what: the launch routine
+    that ``flash_attention_decode`` runs on CUDA tensors, given CPU tensors
+    and a mocked library (no card here)."""
+
+    def _launch(self, ql, d, dv, dtypes, b=2, h=3, cap=16):
+        q, k, v = _inputs(31, ql, b=b, h=h, d=d, cap=cap, dv=dv)
+        args = [torch.from_numpy(a).to(TORCH[t])
+                for a, t in ((q, dtypes[0]), (k, dtypes[1]), (v, dtypes[2]))]
+        lens = torch.full((b,), cap, dtype=torch.int32)
+        before = flash_attention_decode.launches
+        out = flashattention._launch_decode(*args, lens, stream=0)
+        assert out.shape == (b, h, ql, dv) and out.dtype == TORCH[dtypes[0]]
+        return flash_attention_decode.launches - before
+
+    def test_1024_wide_call_goes_to_the_general_entry(self, fake_lib):
+        launches = self._launch(MAX_Q_LEN + 2, 1024, 1024, ("bf16",) * 3)
+        assert launches == 2 and set(fake_lib.entries) == {
+            "decode_attention_general", "decode_attention_error_string"}
+        calls = fake_lib.entries["decode_attention_general"].calls
+        # b, h, ql, row0, rows, cap, d, dv, scale, q/k/v dtype codes, stream
+        assert [c[5:] for c in calls] == [
+            (2, 3, 10, row0, rows, 16, 1024, 1024, pytest.approx(1 / 32),
+             1, 1, 1, 0) for row0, rows in ((0, 8), (8, 2))]
+
+    @pytest.mark.parametrize("ql,d,dv,dtypes,entry,codes", [
+        (1, 128, 128, ("f16",) * 3, "decode_attention_f16", ()),
+        (4, 256, 64, ("f32",) * 3, "decode_attention_f32", ()),
+        (1, 257, 64, ("bf16",) * 3, "decode_attention_general", (1, 1, 1)),
+        (1, 128, 128, ("f32", "bf16", "bf16"), "decode_attention_general",
+         (0, 1, 1)),
+        (2, 64, 64, ("bf16", "f16", "f16"), "decode_attention_general",
+         (1, 2, 2))])
+    def test_tuned_and_general_entries(self, fake_lib, ql, d, dv, dtypes,
+                                       entry, codes):
+        assert self._launch(ql, d, dv, dtypes) == 1
+        (call,) = fake_lib.entries[entry].calls
+        # row0, rows, cap, d, dv, scale; then the general entry's codes
+        assert call[8:14] == (0, ql, 16, d, dv, pytest.approx(d ** -0.5))
+        assert call[14:-1] == codes
+
+    def test_query_rows_a_launch_shrink_only_past_the_shared_memory(
+            self, fake_lib):
+        d = flashattention.GENERAL_Q_SMEM_BYTES // (4 * 3)  # 3 rows fit
+        assert self._launch(7, d, 8, ("f32", "bf16", "bf16"), b=1, h=1,
+                            cap=2) == 3
+        calls = fake_lib.entries["decode_attention_general"].calls
+        assert [c[8:10] for c in calls] == [(0, 3), (3, 3), (6, 1)]
 
 
 class TestBuild:

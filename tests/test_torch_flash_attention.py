@@ -6,8 +6,12 @@ On the CPU the port's ``flash_attention`` runs its plain PyTorch version,
 numpy inputs go through the JAX package's Pallas ``flash_attention`` in
 interpret mode and its ``reference_attention``, case for case as in
 ``tests/test_compute.py``'s ``TestFlashAttention``, at its tolerances (f32
-2e-5, bf16 3e-2). Also here: the wrapper's input checks, which run
-without a card.
+2e-5, bf16 3e-2), and at the inputs the CUDA kernels took only later: head
+dims over 256 (257, DeepSeek-V3's absorbed-MLA 576/512), f16, and q, k and
+v in different dtypes, each held to the tolerance of its narrowest input
+(f32 2e-5; bf16 and f16 4e-3 + 1e-2 |ref|, the card's bf16 limit). Also
+here: the wrapper's input checks and which kernel a CUDA call goes to (the
+C entries mocked), which run without a card.
 """
 
 import os
@@ -25,12 +29,13 @@ from k8s_dra_driver_tpu.compute.flashattention import (
 from k8s_dra_driver_tpu.compute.ringattention import (
     reference_attention as jax_reference_attention,
 )
-from k8s_dra_driver_tpu_torch.compute import _build
+from k8s_dra_driver_tpu_torch.compute import _build, flashattention
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     HEAD_DIM_MULTIPLE,
-    MAX_HEAD_DIM,
+    TUNED_HEAD_DIM,
     flash_attention,
     padded_head_dims,
+    tuned_kernel_takes,
 )
 from k8s_dra_driver_tpu_torch.compute.ringattention import (
     reference_attention,
@@ -38,6 +43,11 @@ from k8s_dra_driver_tpu_torch.compute.ringattention import (
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
+# (atol, rtol) where any input is bf16 or f16: the card's bf16 limit
+# (chip_smoke.FLASH_BF16_TOL).
+HALF_TOL = (4e-3, 1e-2)
+JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f16": jnp.float16}
+TORCH = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 
 
 def _rand(shape, seed):
@@ -54,6 +64,29 @@ def _close(out, ref, tol, msg=""):
     np.testing.assert_allclose(np.asarray(out, np.float32),
                                np.asarray(ref, np.float32),
                                rtol=tol, atol=tol, err_msg=msg)
+
+
+def _agrees_with_jax(q, k, v, dtypes, causal, block):
+    """The port's CPU path and the JAX kernel (interpret mode) on the same
+    numpy inputs cast to ``dtypes`` (q's, k's, v's): the output is in q's
+    dtype and within the tolerance of the narrowest input."""
+    tq, tk, tv = dtypes
+    jax_out = jax_flash_attention(
+        jnp.asarray(q, JNP[tq]), jnp.asarray(k, JNP[tk]),
+        jnp.asarray(v, JNP[tv]), block_q=block, block_k=block,
+        causal=causal, interpret=True)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(TORCH[t])
+            for a, t in ((q, tq), (k, tk), (v, tv))]
+    out = flash_attention(*args, block_q=block, block_k=block, causal=causal)
+    assert out.dtype == TORCH[tq] and str(jax_out.dtype) == str(
+        jnp.dtype(JNP[tq]))
+    assert tuple(out.shape) == q.shape[:3] + (v.shape[3],)
+    atol, rtol = ((F32_TOL, F32_TOL) if set(dtypes) == {"f32"}
+                  else HALF_TOL)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(jax_out.astype(jnp.float32)),
+                               atol=atol, rtol=rtol,
+                               err_msg=f"{dtypes} causal={causal}")
 
 
 class TestAgainstJax:
@@ -196,6 +229,42 @@ class TestAgainstJax:
         _close(out.numpy(), pallas, F32_TOL, f"d={d} dv={dv}")
 
 
+    # Head dims over 256 at short sequences, every dtype: 257 (past the tuned
+    # kernels by one), DeepSeek-V3's absorbed-MLA widths (576/512) and a
+    # value dim over 256 beside a narrow key dim.
+    @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+    @pytest.mark.parametrize("d,dv", [(257, 257), (576, 512), (64, 640)])
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_wide_head_dims_match_pallas(self, d, dv, dtype, causal):
+        q, k = _rand((1, 2, 32, d), 70), _rand((1, 2, 32, d), 71)
+        v = _rand((1, 2, 32, dv), 72)
+        _agrees_with_jax(q, k, v, (dtype,) * 3, causal, block=16)
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_f16(self, causal):
+        q, k, v = (_rand((1, 2, 128, 64), s) for s in (73, 74, 75))
+        _agrees_with_jax(q, k, v, ("f16",) * 3, causal, block=64)
+        jq, jk, jv = (jnp.asarray(a, jnp.float16) for a in (q, k, v))
+        ref = jax_reference_attention(jq, jk, jv, causal=causal)
+        out = flash_attention(*_t(q, k, v, dtype=torch.float16),
+                              causal=causal)
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   atol=HALF_TOL[0], rtol=HALF_TOL[1])
+
+    # q, k and v in different dtypes, as JAX takes them.
+    @pytest.mark.parametrize("dtypes", [
+        ("f32", "bf16", "bf16"), ("f32", "f16", "f16"),
+        ("bf16", "f16", "f16"), ("f16", "bf16", "bf16"),
+        ("f32", "f32", "bf16"), ("bf16", "bf16", "f32")])
+    @pytest.mark.parametrize("d,dv", [(64, 64), (40, 24), (320, 288)])
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_mixed_dtypes_match_pallas(self, d, dv, dtypes, causal):
+        q, k = _rand((1, 2, 64, d), 76), _rand((1, 2, 64, d), 77)
+        v = _rand((1, 2, 64, dv), 78)
+        _agrees_with_jax(q, k, v, dtypes, causal, block=32)
+
+
 class TestReferenceAttention:
     @pytest.mark.parametrize("causal", [False, True])
     def test_f32_matches_jax(self, causal):
@@ -226,27 +295,34 @@ class TestWrapper:
         assert flash_attention.launches == before
 
     @pytest.mark.parametrize("d,dv", [(24, 32), (32, 40), (
-        MAX_HEAD_DIM + HEAD_DIM_MULTIPLE, 32), (32, MAX_HEAD_DIM + 16)])
+        TUNED_HEAD_DIM + HEAD_DIM_MULTIPLE, 32), (32, TUNED_HEAD_DIM + 16)])
     def test_head_dim_limits_raise(self, d, dv):
-        # The CPU path takes every head dim; the CUDA kernel's limit is
-        # MAX_HEAD_DIM, below which the wrapper pads to multiples of 16.
+        # No head dim is refused: the CPU path is JAX's result at every
+        # one, and on the card bf16 and f16 head dims up to TUNED_HEAD_DIM
+        # are padded to multiples of 16 for the tuned kernel; wider ones,
+        # and f32 at any width, go unpadded to the general kernel.
         q, k = _rand((1, 1, 32, d), 1), _rand((1, 1, 32, d), 2)
         v = _rand((1, 1, 32, dv), 3)
         out = flash_attention(*_t(q, k, v))
         assert torch.equal(out, reference_attention(*_t(q, k, v)))
-        if max(d, dv) > MAX_HEAD_DIM:
-            with pytest.raises(ValueError, match=f"up to {MAX_HEAD_DIM}"):
-                padded_head_dims(d, dv)
-        else:
-            assert padded_head_dims(d, dv) == (
-                -(-d // HEAD_DIM_MULTIPLE) * HEAD_DIM_MULTIPLE,
-                -(-dv // HEAD_DIM_MULTIPLE) * HEAD_DIM_MULTIPLE)
+        _close(out.numpy(), jax_flash_attention(q, k, v, interpret=True),
+               F32_TOL)
+        padded = padded_head_dims(d, dv)
+        assert padded == (-(-d // HEAD_DIM_MULTIPLE) * HEAD_DIM_MULTIPLE,
+                          -(-dv // HEAD_DIM_MULTIPLE) * HEAD_DIM_MULTIPLE)
+        for dtype in (torch.bfloat16, torch.float16):
+            assert tuned_kernel_takes(
+                "flash_attention", *_t(q, k, v, dtype=dtype), *padded) == (
+                    max(d, dv) <= TUNED_HEAD_DIM)
+        assert not tuned_kernel_takes("flash_attention", *_t(q, k, v),
+                                      *padded)
+        assert not hasattr(flashattention, "MAX_HEAD_DIM")
 
     def test_largest_head_dims_pass(self):
-        q = _rand((1, 1, 16, MAX_HEAD_DIM), 4)
+        q = _rand((1, 1, 16, TUNED_HEAD_DIM), 4)
         (tq,) = _t(q)
         out = flash_attention(tq, tq, tq)
-        assert tuple(out.shape) == (1, 1, 16, MAX_HEAD_DIM)
+        assert tuple(out.shape) == (1, 1, 16, TUNED_HEAD_DIM)
 
     def test_bad_inputs_raise(self):
         tq, tk, tv = _t(*(_rand((1, 2, 32, 16), s) for s in (5, 6, 7)))
@@ -255,7 +331,7 @@ class TestWrapper:
             (tq, tk[:, :1], tv),                        # k's heads
             (tq, tk.transpose(2, 3), tv),               # k's layout
             (tq.double(), tk.double(), tv.double()),    # dtype
-            (tq.bfloat16(), tk, tv),                    # mixed dtypes
+            (tq, tk, tv.double()),                      # v's dtype
             (tq[0], tk, tv),                            # q's rank
             (tq, tk, tv[0]),                            # v's rank
             (tq[:0], tk[:0], tv[:0]),                   # empty batch
@@ -279,6 +355,82 @@ class TestWrapper:
         (tq,) = _t(_rand((1, 1, 32, 16), 11))
         with pytest.raises(ValueError, match="different devices"):
             flash_attention(tq, meta[1], meta[2])
+
+
+class _FakeEntry:
+    """A C entry that records its arguments and returns cudaSuccess."""
+
+    def __init__(self):
+        self.argtypes = None
+        self.restype = None
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+class _FakeLib:
+    def __init__(self):
+        self.entries = {}
+
+    def __getattr__(self, name):
+        return self.entries.setdefault(name, _FakeEntry())
+
+
+class TestRouting:
+    """Which C entry a CUDA call reaches, with what: the launch routine
+    that ``flash_attention`` runs on CUDA tensors, given CPU tensors and a
+    mocked library (no card here)."""
+
+    @pytest.fixture
+    def lib(self, monkeypatch):
+        lib = _FakeLib()
+        monkeypatch.setattr(_build, "load", lambda name: lib)
+        return lib
+
+    def _launch(self, d, dv, dtypes, causal=False):
+        q, k = _rand((2, 3, 16, d), 80), _rand((2, 3, 16, d), 81)
+        v = _rand((2, 3, 16, dv), 82)
+        args = [torch.from_numpy(a).to(TORCH[t])
+                for a, t in ((q, dtypes[0]), (k, dtypes[1]), (v, dtypes[2]))]
+        before = flash_attention.launches
+        out = flashattention._launch_flash(*args, causal, stream=0)
+        assert flash_attention.launches == before + 1
+        assert out.shape == (2, 3, 16, dv) and out.dtype == TORCH[dtypes[0]]
+
+    def test_1024_wide_call_goes_to_the_general_entry(self, lib):
+        self._launch(1024, 1024, ("bf16",) * 3, causal=True)
+        assert set(lib.entries) == {"flash_attention_general",
+                                    "flash_attention_error_string"}
+        (call,) = lib.entries["flash_attention_general"].calls
+        # bh, S, d, dv, causal, scale, q/k/v dtype codes, stream: unpadded
+        assert call[4:] == (6, 16, 1024, 1024, 1, pytest.approx(1 / 32),
+                            1, 1, 1, 0)
+
+    @pytest.mark.parametrize("d,dv,dtypes,entry,tail", [
+        (128, 128, ("f16",) * 3, "flash_attention_f16", (128, 128)),
+        (40, 24, ("bf16",) * 3, "flash_attention_bf16", (48, 32)),
+        (256, 8, ("f32",) * 3, "flash_attention_general",
+         (256, 8, 0, pytest.approx(1 / 16), 0, 0, 0)),
+        (264, 64, ("f16",) * 3, "flash_attention_general",
+         (264, 64, 0, pytest.approx(264 ** -0.5), 2, 2, 2)),
+        (40, 24, ("f32", "bf16", "bf16"), "flash_attention_general",
+         (40, 24, 0, pytest.approx(40 ** -0.5), 0, 1, 1)),
+        (64, 64, ("bf16", "f16", "f32"), "flash_attention_general",
+         (64, 64, 0, pytest.approx(1 / 8), 1, 2, 0))])
+    def test_tuned_and_general_entries(self, lib, d, dv, dtypes, entry,
+                                       tail):
+        # The tuned kernel gets head dims padded to multiples of 16 and the
+        # true d's scale; the general kernel (f32 too) the true dims and
+        # the dtype codes.
+        self._launch(d, dv, dtypes)
+        (call,) = lib.entries[entry].calls
+        assert call[4:6] == (6, 16)
+        if entry.endswith("general"):
+            assert call[6:-1] == tail
+        else:
+            assert call[6:-1] == tail + (0, pytest.approx(d ** -0.5))
 
 
 class TestBuildReport:
