@@ -11,6 +11,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py wire [--writers 3,6,12,16] [--cycles N]
     python3 chip_ab.py flash32 OTHER_TREE [--rounds N]
     python3 chip_ab.py decode-keys
+    python3 chip_ab.py wide-parts
 
 ``versions`` copies the port (``chip_smoke.py`` and
 ``k8s_dra_driver_tpu_torch/``) once per source under ``--work``, puts the
@@ -21,10 +22,16 @@ one other source), so that every version is timed by the same Python code
 and the same timing method. It prints each turn's bench rows, then one
 JSON line of every turn with the card's name and power limit.
 
-``controls`` makes two broken copies of the tree's kernel and runs
-``chip_smoke``'s flash check in each; both must fail it. The first scales
-the bf16 kernel's softmax scale by 1.01, the second drops the last key tile
-of the non-causal walk. It exits non-zero if a control passes.
+``controls`` makes broken copies of the tree's kernels and runs
+``chip_smoke``'s checks in each; every copy must fail them. Two break the
+tuned flash kernel, each run through the flash check: its softmax scale
+times 1.01, and the last key tile of the non-causal walk dropped. Two
+break the wide kernels' shared body (``wide_attention.cuh``), each run
+through the wide decode checks (the head dims the wide kernel takes in
+the decode check, and the absorbed-MLA layout) and the wide flash check,
+both of which must reject it: the softmax scale times 1.01, and the last
+key tile (flash) and the last split of the cache (decode) dropped. It
+exits non-zero if a control passes a check it must fail.
 
 ``serve`` runs ``chip_smoke``'s serve phase (48 requests from 4 tenants at
 one Llama-2-7B attention layer) in OTHER_TREE (a directory holding another
@@ -57,11 +64,20 @@ with ``chip_smoke.cuda_ms``, and holds each output against
 a tree from before the general flash kernel, it compares that kernel with
 the f32 one it replaced.
 
-``decode-keys`` times one decode launch with every sequence at the full
-4096-token cache (32 sequences, one head) for each of DECODE_KEY_CASES,
-tuned and general kernels, 8 query rows and 1, and prints the time per
-key of one block: what bounds a kernel whose grid is b * h blocks when
+``decode-keys`` times one decode call with every sequence at the full
+4096-token cache (32 sequences, one head) for each of DECODE_KEY_CASES:
+the tuned and general kernels at 8 query rows and 1 (one launch), the
+wide kernel at absorbed MLA's 128 rows and at 1; and prints the time per
+key of the call: what bounds a kernel whose grid is b * h blocks when
 b * h is small.
+
+``wide-parts`` splits the wide kernels' time: it times absorbed-MLA decode
+and flash attention at 576/512 (the smoke's wide rows, causal off and on)
+in this tree and in copies of it whose wide body (``wide_attention.cuh``)
+leaves out one part or walks it differently (WIDE_PARTS), each in its own
+process, and in this tree at other split counts of the MLA decode
+(``WIDE_BLOCKS_PER_SM``). A copy that leaves a part out computes a wrong
+result: it is timed, never checked.
 """
 
 from __future__ import annotations
@@ -76,19 +92,51 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL = Path("k8s_dra_driver_tpu_torch/csrc/flash_attention.cu")
+WIDE = Path("k8s_dra_driver_tpu_torch/csrc/wide_attention.cuh")
+# name: (the source broken, its (text, broken text) pairs, the checks that
+# must each reject it).
 CONTROLS = {
-    "softmax_scale_x1.01": ("scale * 1.4426950408889634f, causal);",
-                            "scale * 1.01f * 1.4426950408889634f, causal);"),
-    "last_key_tile_dropped": ("/ kN)\n                : n_tiles;",
-                              "/ kN)\n                : n_tiles - 1;"),
+    "softmax_scale_x1.01": (KERNEL, [
+        ("scale * 1.4426950408889634f, causal);",
+         "scale * 1.01f * 1.4426950408889634f, causal);")], ("flash",)),
+    "last_key_tile_dropped": (KERNEL, [
+        ("/ kN)\n                : n_tiles;",
+         "/ kN)\n                : n_tiles - 1;")], ("flash",)),
+    "wide_softmax_scale_x1.01": (WIDE, [
+        ("const float scale_log2 = a.scale_log2;",
+         "const float scale_log2 = a.scale_log2 * 1.01f;")],
+        ("wide_decode", "wide_flash")),
+    "wide_last_key_tile_and_split_dropped": (WIDE, [
+        ("w.n_kt = (w.k_limit + kKeys - 1) / kKeys;",
+         "w.n_kt = (w.k_limit + kKeys - 1) / kKeys - 1;"),
+        ("const int len = min(a.lens[w.bh / a.h], a.keys);",
+         "const int len = min(a.lens[w.bh / a.h],\n"
+         "                        min(a.keys, (a.splits - 1) * a.split_keys));")],
+        ("wide_decode", "wide_flash")),
 }
 # A version's library is built at its first call, in the bench's warm-up
 # (phase_build would hold every version to the tree's SASS requirements).
 BENCH = ("import json, chip_smoke as c; card = c.phase_device(); "
          "r = c.phase_flash_bench(0); "
          "print('AB_RESULT ' + json.dumps({**r, 'card': card}))")
-CHECK = ("import chip_smoke as c; c.phase_device(); c.phase_build(); "
-         "c.phase_flash_check(0)")
+# Each check in its own try: a control's line says which ones rejected it.
+CHECK = (
+    "import numpy as np, torch, chip_smoke as c\n"
+    "c.phase_device(); c.phase_build()\n"
+    "def wide_decode():\n"
+    "    rng = np.random.default_rng(0)\n"
+    "    c.general_dims_check(rng); c.wide_decode_check(rng)\n"
+    "checks = {{'flash': lambda: c.phase_flash_check(0),\n"
+    "           'wide_decode': wide_decode,\n"
+    "           'wide_flash': lambda: c.wide_flash_check(\n"
+    "               torch.Generator(device='cuda:0').manual_seed(0))}}\n"
+    "for name in {names!r}:\n"
+    "    try:\n"
+    "        checks[name]()\n"
+    "    except SystemExit as e:\n"
+    "        print(f'CONTROL_REJECTED {{name}}: {{e}}', flush=True)\n"
+    "    else:\n"
+    "        print(f'CONTROL_PASSED {{name}}', flush=True)\n")
 SERVE = ("import chip_smoke as c; card = c.phase_device(); "
          "print('AB_CARD ' + card); "
          "c.phase_serve(0, **c.phase_enumerate())")
@@ -135,20 +183,66 @@ TREE_MODES = {
     "flash32": (FLASH32, lambda ln: ln.startswith("[flash32]"),
                 ("ms", "err_over_limit")),
 }
+# wide-parts: the copies of the wide body, each with its (text, replacement)
+# pairs: the S loop over a panel count known only at run time (as first
+# built), S over one panel of d instead of all, and each consumer's P V
+# left out.
+_S_LOOP = "#pragma unroll\n        for (int p = 0; p < kDPanels; ++p) {"
+WIDE_PARTS = {
+    "this_tree": [],
+    "s_loop_runtime_count": [(_S_LOOP, "#pragma unroll 1\n        for (int p = 0;"
+                              " p < (a.d + kPanelCols - 1) / kPanelCols; ++p) {")],
+    "s_one_panel": [(_S_LOOP, "#pragma unroll\n        for (int p = 0; p < 1;"
+                     " ++p) {")],
+    "no_pv_consumer1": [(
+        "wgmma_rs_n256<E>(o, pa[kk], v_desc + ((kk * 2048) >> 4), 1);", ";")],
+    "no_pv_consumer2": [("""            wgmma_sst_n256<E>(o, p_desc + ((kk * 32) >> 4),
+                              v_desc + ((kk * 2048) >> 4), 1);""",
+                         "            ;")],
+}
+WIDE_SPLITS = (1, 2, 4)
+WIDE_PARTS_RUN = (
+    "import json, numpy as np, torch, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute import flashattention as fa\n"
+    "card = c.phase_device()\n"
+    "g = torch.Generator(device='cuda:0').manual_seed(0)\n"
+    "bf = torch.bfloat16\n"
+    "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
+    ".to('cuda:0')\n"
+    "q = c.randn(g, (c.BATCH, 1, c.MLA_ROWS, c.MLA_D), bf)\n"
+    "k = c.randn(g, (c.BATCH, 1, c.KV_CAP, c.MLA_D), bf)\n"
+    "v = c.randn(g, (c.BATCH, 1, c.KV_CAP, c.MLA_DV), bf)\n"
+    "r = {{}}\n"
+    "for bps in {splits!r}:\n"
+    "    fa.WIDE_BLOCKS_PER_SM = bps\n"
+    "    r[f'mla_decode_blocks_per_sm_{{bps}}'] = c.cuda_ms(\n"
+    "        lambda: fa.flash_attention_decode(q, k, v, lens))\n"
+    "del q, k, v\n"
+    "b, h, s = c.WIDE_FLASH_SHAPE\n"
+    "q, k = (c.randn(g, (b, h, s, c.MLA_D), bf) for _ in range(2))\n"
+    "v = c.randn(g, (b, h, s, c.MLA_DV), bf)\n"
+    "for causal in (False, True):\n"
+    "    r[f'flash_576_512_causal_{{causal}}'] = c.cuda_ms(\n"
+    "        lambda: fa.flash_attention(q, k, v, causal=causal))\n"
+    "print('AB_RESULT ' + json.dumps({{'card': card, **r}}), flush=True)\n")
 # decode-keys: (name, query rows, q's dtype, d, dv); K and V in bf16, so
-# an f32 q takes the general kernel at d = 128.
+# an f32 q takes the general kernel (at d = 128 and at 576/512).
 DECODE_KEY_CASES = (
     ("tuned_rows8_d128", 8, "bfloat16", 128, 128),
     ("tuned_rows1_d128", 1, "bfloat16", 128, 128),
     ("general_rows8_d128_f32q", 8, "float32", 128, 128),
     ("general_rows1_d128_f32q", 1, "float32", 128, 128),
-    ("general_rows8_mla", 8, "bfloat16", 576, 512),
-    ("general_rows1_mla", 1, "bfloat16", 576, 512),
+    ("general_rows8_mla_f32q", 8, "float32", 576, 512),
+    ("general_rows1_mla_f32q", 1, "float32", 576, 512),
+    ("wide_rows128_mla", 128, "bfloat16", 576, 512),
+    ("wide_rows1_mla", 1, "bfloat16", 576, 512),
 )
 
 
-def copy_tree(dest: Path, kernel_source: str) -> Path:
-    """The port, with ``kernel_source`` as its flash kernel, at ``dest``."""
+def copy_tree(dest: Path, kernel_source: str,
+              kernel: Path = KERNEL) -> Path:
+    """The port, with ``kernel_source`` as its ``kernel`` source (the flash
+    kernel by default), at ``dest``."""
     if dest.exists():
         shutil.rmtree(dest)
     dest.mkdir(parents=True)
@@ -156,7 +250,7 @@ def copy_tree(dest: Path, kernel_source: str) -> Path:
     shutil.copytree(ROOT / "k8s_dra_driver_tpu_torch",
                     dest / "k8s_dra_driver_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
-    (dest / KERNEL).write_text(kernel_source)
+    (dest / kernel).write_text(kernel_source)
     return dest
 
 
@@ -203,26 +297,32 @@ def versions(others: list, work: Path, timeout: float) -> int:
 
 
 def controls(work: Path, timeout: float) -> int:
-    source = (ROOT / KERNEL).read_text()
     passed = []
-    for name, (old, new) in CONTROLS.items():
-        if source.count(old) != 1:
-            raise SystemExit(f"control {name}: {old!r} is not in the kernel "
-                             f"source exactly once")
-        tree = copy_tree(work / name, source.replace(old, new))
-        rc, out = run(tree, CHECK, timeout)
-        failed = [ln for ln in out.splitlines() if "FAILED" in ln]
-        flash = [ln for ln in out.splitlines() if ln.startswith("[flash]")]
+    for name, (kernel, edits, checks) in CONTROLS.items():
+        source = (ROOT / kernel).read_text()
+        for old, new in edits:
+            if source.count(old) != 1:
+                raise SystemExit(f"control {name}: {old!r} is not in "
+                                 f"{kernel} exactly once")
+            source = source.replace(old, new)
+        tree = copy_tree(work / name, source, kernel)
+        rc, out = run(tree, CHECK.format(names=checks), timeout)
+        lines = out.splitlines()
         print(f"== control {name}: exit {rc}", flush=True)
-        for ln in flash + failed:
-            print(ln, flush=True)
-        # A control fails as it should when the flash check rejects it.
-        if rc <= 0 or not any("FAILED: flash" in ln for ln in failed):
+        for ln in lines:
+            if ln.startswith(("[flash]", "[check]", "CONTROL_")):
+                print(ln, flush=True)
+        # A control fails as it should when every one of its checks
+        # rejects it.
+        rejected = {ln.split()[1].rstrip(":") for ln in lines
+                    if ln.startswith("CONTROL_REJECTED ")}
+        if rc != 0 or rejected != set(checks):
+            print(out[-3000:], flush=True)
             passed.append(name)
     if passed:
-        print(f"controls the flash check did not reject: {passed}")
+        print(f"controls a check did not reject: {passed}")
         return 1
-    print("every control failed the flash check")
+    print("every control failed every check it must fail")
     return 0
 
 
@@ -334,11 +434,37 @@ def decode_keys() -> int:
     return 0
 
 
+def wide_parts(work: Path, timeout: float) -> int:
+    source = (ROOT / WIDE).read_text()
+    turns = []
+    for name, edits in WIDE_PARTS.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"wide part {name}: {old!r} is not in "
+                                 f"{WIDE} exactly once")
+            text = text.replace(old, new)
+        tree = copy_tree(work / name, text, WIDE)
+        splits = WIDE_SPLITS if name == "this_tree" else WIDE_SPLITS[:1]
+        rc, out = run(tree, WIDE_PARTS_RUN.format(splits=splits), timeout)
+        if rc != 0 or "AB_RESULT " not in out:
+            print(f"== wide part {name}: exit {rc}\n{out[-4000:]}",
+                  flush=True)
+            return 1
+        result = json.loads(out.split("AB_RESULT ", 1)[1].splitlines()[0])
+        print(f"[wide-parts] part={name} " + " ".join(
+            f"{k}={v}" for k, v in result.items() if k != "card"),
+            flush=True)
+        turns.append({"part": name, **result})
+    print(json.dumps({"wide_parts": turns}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("versions", "controls", "serve",
                                      "decode", "wire", "flash32",
-                                     "decode-keys"))
+                                     "decode-keys", "wide-parts"))
     ap.add_argument("sources", nargs="*",
                     help="other flash_attention.cu files (versions), or "
                          "the other tree's directory (serve, decode, "
@@ -361,6 +487,8 @@ def main(argv=None) -> int:
                     args.cycles, args.timeout)
     if args.mode == "decode-keys":
         return decode_keys()
+    if args.mode == "wide-parts":
+        return wide_parts(args.work, args.timeout)
     if args.mode == "versions":
         if not args.sources:
             ap.error("versions needs at least one other source")

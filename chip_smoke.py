@@ -15,7 +15,8 @@ One line per phase:
 2. build   nvcc of every kernel source, all started together, with seconds;
            per kernel ptxas's registers, shared memory and spills, and its
            SASS count of warpgroup MMAs (HGMMA) and TMA loads (UTMALDG):
-           every bf16 and f16 flash kernel must have both
+           every bf16 and f16 flash kernel and every wide kernel (decode and
+           flash, at head dims over 256) must have both
 3. check   the decode kernel against its plain PyTorch version on the card
            at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
            lengths): f32 within 1e-4, bf16 and f16 within 2e-2, a poisoned
@@ -23,11 +24,17 @@ One line per phase:
            by less than 1e-5, and a block_k that does not divide the cache
            raises ValueError; every compiled variant at small shapes in
            f32, bf16 and f16, with v's head dim unlike k's and 16 or 20
-           query rows (launched 8 rows at a time); the general kernel at
-           head dims 257-1024 (576/512, 64/640) and with q, k and v in
-           different dtypes, each within its narrowest input's limit and
-           one launch per 8 rows; then a small engine on the card against
-           the same engine on the CPU, step for step
+           query rows (launched 8 rows at a time); head dims 257-1024
+           (576/512, 64/640) and q, k and v in different dtypes, each within
+           its narrowest input's limit: bf16 and f16 up to 576/512 on the
+           wide kernel (one launch a call), the rest on the general kernel
+           (one launch per 8 rows); the wide kernel at DeepSeek-V3's
+           absorbed-MLA layout (128 query rows, 576/512, the smoke's cache)
+           in bf16 and f16 at lengths 1, 31, 32, 33, a split's edge and the
+           cache, one launch a call, and with a poisoned tail (+-1e6,
+           +-6e4 in f16) that moves its output by less than 1e-5; then a
+           small engine on the card against the same engine on the CPU,
+           step for step
 4. timing  the decode kernel, its plain version and one library call, at
            the engine's shape, beside the least time the card could take
 5. serve   the claim path: a ResourceClaim for that card (CEL on its UUID)
@@ -50,9 +57,12 @@ One line per phase:
            tests' f32 criterion) at every element; every compiled variant at
            small shapes in all three dtypes, at S = 1 to 320 across the
            kernels' tile edges; head dims 8, 40 and 24 that the wrapper
-           zero-pads to multiples of 16, within the same limits; the general
-           kernel at head dims 257-1024 (576/512, 64/640) and with q, k and v
-           in different dtypes, each within its narrowest input's limit;
+           zero-pads to multiples of 16, within the same limits; head dims
+           257-1024 (576/512, 64/640) and q, k and v in different dtypes,
+           each within its narrowest input's limit (bf16 and f16 up to
+           576/512 on the wide kernel, the rest on the general kernel); the
+           wide kernel at 576/512 in bf16 and f16 at S = 1, 63, 64, 65, 129
+           and 320 (its 64-row and 32-key tiles' edges), causal off and on;
            block arguments that change nothing; causal row 0 equal to v's
            row 0; an indivisible S raising ValueError without a launch
 7. bench   the compute bench's flash rows (the JAX bench's headline shape
@@ -65,11 +75,12 @@ One line per phase:
    wide    the inputs the kernels took last, at full width, each call a
            line with kernel, plain and library ms, launches, the bound and
            the CUDA kernels torch.profiler traced in one call (the port's
-           own kernel only; the library's names where it runs at d > 256):
+           own kernels only; the library's names where it runs at d > 256):
            DeepSeek-V3's absorbed-MLA decode in bf16 (q [32, 1, 128, 576]
            against a latent cache k [32, 1, 4096, 576], v [.., 512], ragged
-           lengths), flash attention at 576/512 ([1, 16, 2048], bf16, causal
-           off and on), the f16 flash headline and the f16 decode serve
+           lengths; the wide kernel and its merge, one launch a call), flash
+           attention at 576/512 ([1, 16, 2048], bf16, causal off and on; the
+           wide kernel), the f16 flash headline and the f16 decode serve
            shape, each held against its plain version
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
@@ -335,6 +346,9 @@ from k8s_dra_driver_tpu_torch.compute.flashattention import (
     decode_attention_reference,
     flash_attention,
     flash_attention_decode,
+    padded_head_dims,
+    wide_decode_splits,
+    wide_kernel_takes,
 )
 from k8s_dra_driver_tpu_torch.compute.ringattention import (
     reference_attention,
@@ -489,8 +503,10 @@ FLASH_SWEEP_SEQS = (512, 1024, 2048, 4096, 8192)
 # 4096-token cache; and flash attention at those head dims, [b, h, S].
 MLA_ROWS, MLA_D, MLA_DV = 128, 576, 512
 WIDE_FLASH_SHAPE = (1, 16, 2048)
-# Sequence lengths of the flash check's small variants (tile edges).
+# Sequence lengths of the flash check's small variants (tile edges), and of
+# its wide checks (the wide kernel's 64-row query and 32-key tiles).
 FLASH_EDGE_SEQS = (1, 64, 100, 129, 192, 256, 320)
+WIDE_FLASH_SEQS = (1, 63, 64, 65, 129, 320)
 TENANTS = ("tenant-a", "tenant-b", "tenant-c", "tenant-d")
 
 F32_TOL = 1e-4      # the JAX package's own decode-attention tolerance
@@ -660,15 +676,21 @@ def phase_enumerate() -> dict:
     return {"lib": lib, "gpu": gpu}
 
 
+# The 16-bit element types a kernel template may take, as the build report
+# names them.
+_TYPE_ARGS = {"__nv_bfloat16": "bf16", "__half": "f16"}
+
+
 def kernel_name(mangled: str, names: list) -> str:
-    """``flash_bf16_kernel<128>`` from a mangled name, given the names of
-    the source's kernels."""
-    for name in names:
+    """``flash_bf16_kernel<128>`` or ``wide_flash_kernel<bf16>`` from a
+    mangled name, given the names of the source's kernels."""
+    for name in sorted(names, key=len, reverse=True):
         i = mangled.find(name)
         if i >= 0:
             rest = mangled[i + len(name):]
-            args = (re.findall(r"L[ib](\d+)E", rest.split("Ev", 1)[0])
-                    if rest.startswith("I") else [])
+            args = ([m.group(1) or _TYPE_ARGS[m.group(2)] for m in re.finditer(
+                r"L[ib](\d+)E|\d+(__nv_bfloat16|__half)",
+                rest.split("Ev", 1)[0])] if rest.startswith("I") else [])
             return f"{name}<{','.join(args)}>" if args else name
     return mangled
 
@@ -677,12 +699,15 @@ def phase_build() -> None:
     """Builds every kernel source; prints, for each kernel, ptxas's
     registers, static shared memory and spills, and how many of its SASS
     instructions are warpgroup MMAs (HGMMA) and TMA loads (UTMALDG). Every
-    bf16 and f16 flash kernel must have both."""
+    bf16 and f16 flash kernel and every wide decode and flash kernel must
+    have both."""
     t0 = time.monotonic()
     built = _build.build_all(force=True)
     require(bool(built), "no kernel source was built")
+    # Kernels are defined in the sources and in the headers they include.
+    headers = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cuh")))
     for name, (s, log) in sorted(built.items()):
-        src = (_build.CSRC / f"{name}.cu").read_text()
+        src = (_build.CSRC / f"{name}.cu").read_text() + headers
         names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                            r"\s*)?(\w+)\s*\(", src)
         sass = {}
@@ -708,7 +733,8 @@ def phase_build() -> None:
                  registers=regs.group(1) if regs else "?",
                  static_smem_bytes=smem.group(1) if smem else 0,
                  spill_bytes=spills, sass_HGMMA=hgmma, sass_UTMALDG=utmaldg)
-            if kernel.startswith(("flash_bf16_kernel", "flash_f16_kernel")):
+            if kernel.startswith(("flash_bf16_kernel", "flash_f16_kernel",
+                                  "wide_flash_kernel", "wide_decode_kernel")):
                 require(hgmma > 0 and utmaldg > 0,
                         f"{kernel} has no wgmma or no TMA load in its SASS")
     line("build", total_seconds=f"{time.monotonic() - t0:.2f}")
@@ -828,39 +854,8 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
     line("check", kernel="decode_attention",
          variants="dv != d and ql 16/20 (launches of 8 rows) x f32/bf16/f16",
          worst_err_over_tol=worst)
-    # The general kernel: every head dim of GENERAL_DIMS in each dtype, and
-    # q, k and v in different dtypes at tuned and wide head dims; each call
-    # one launch per 8 query rows, held to its narrowest input's limit.
-    cases = [(ql, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
-             for ql in (1, 8, 10) for t in DTYPES]
-    cases += [(ql, d, dv, ts) for ts in MIXED_DTYPES
-              for d, dv in ((128, 128), (66, 130), (576, 512))
-              for ql in (1, 4)]
-    worst = 0.0
-    for ql, d, dv, ts in cases:
-        a = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
-            dev, t) for shape, t in (((3, 2, ql, d), ts[0]),
-                                     ((3, 2, 300, d), ts[1]),
-                                     ((3, 2, 300, dv), ts[2]))]
-        a.append(torch.from_numpy(small).to(dev))
-        before = flash_attention_decode.launches
-        out = flash_attention_decode(*a, block_k=300)
-        groups = flash_attention_decode.launches - before
-        ref = decode_attention_reference(*a)
-        what = f"{dtype_names(*ts)} ql={ql} d={d} dv={dv}"
-        require(out.shape == ref.shape == (3, 2, ql, dv)
-                and out.dtype == ts[0], f"{what}: output {tuple(out.shape)} "
-                                        f"{out.dtype}")
-        err = (out.float() - ref.float()).abs().max().item()
-        require(err < decode_tol(*ts), f"{what}: error {err}")
-        require(groups == -(-ql // 8), f"{what}: {groups} launches")
-        worst = max(worst, err / decode_tol(*ts))
-    line("check", kernel="decode_attention", variants=json.dumps(
-        "d/dv " + ", ".join(f"{d}/{dv}" for d, dv in GENERAL_DIMS)
-        + " x ql 1/8/10 x f32/bf16/f16; q/k/v "
-        + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
-        + " x d/dv 128/128, 66/130, 576/512 x ql 1/4"), calls=len(cases),
-        worst_err_over_tol=worst)
+    general_dims_check(rng)
+    wide_decode_check(rng)
     before = flash_attention_decode.launches
     try:
         flash_attention_decode(q, k, v, lens, block_k=1000)
@@ -872,6 +867,119 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
             "a refused call launched the kernel")
     torch.cuda.synchronize()
     return worst_f32
+
+
+def general_dims_check(rng: np.random.Generator) -> float:
+    """The decode kernels beyond the tuned ones at small shapes (3
+    sequences of lengths 1, 45 and 300, 2 heads). Returns the worst error's
+    share of its limit."""
+    dev = torch.device("cuda", 0)
+    small = np.array([1, 45, 300], np.int32)
+    # Every head dim of GENERAL_DIMS in each dtype, and q, k and v in
+    # different dtypes at tuned and wide head dims, each held to its
+    # narrowest input's limit: one launch a call where the wide kernel takes
+    # it (bf16 and f16 up to 576/512; held to the flash limit too, which a
+    # 1% scale or a dropped split exceeds and BF16_TOL alone may not), else
+    # the general kernel's one launch per 8 query rows.
+    cases = [(ql, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
+             for ql in (1, 8, 10) for t in DTYPES]
+    cases += [(ql, d, dv, ts) for ts in MIXED_DTYPES
+              for d, dv in ((128, 128), (66, 130), (576, 512))
+              for ql in (1, 4)]
+    worst, wide_calls, wide_over = 0.0, 0, 0.0
+    for ql, d, dv, ts in cases:
+        a = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev, t) for shape, t in (((3, 2, ql, d), ts[0]),
+                                     ((3, 2, 300, d), ts[1]),
+                                     ((3, 2, 300, dv), ts[2]))]
+        a.append(torch.from_numpy(small).to(dev))
+        wide = wide_kernel_takes(*a[:3], *padded_head_dims(d, dv))
+        wide_calls += wide
+        before = flash_attention_decode.launches
+        out = flash_attention_decode(*a, block_k=300)
+        groups = flash_attention_decode.launches - before
+        ref = decode_attention_reference(*a)
+        what = f"{dtype_names(*ts)} ql={ql} d={d} dv={dv}"
+        require(out.shape == ref.shape == (3, 2, ql, dv)
+                and out.dtype == ts[0], f"{what}: output {tuple(out.shape)} "
+                                        f"{out.dtype}")
+        err = (out.float() - ref.float()).abs().max().item()
+        require(err < decode_tol(*ts), f"{what}: error {err}")
+        want = 1 if wide else -(-ql // 8)
+        require(groups == want, f"{what}: {groups} launches, not {want}")
+        if wide:
+            over = compare(out, ref, *FLASH_BF16_TOL)[1]
+            require(over <= 1, f"{what}: {over} of the flash limit")
+            wide_over = max(wide_over, over)
+        worst = max(worst, err / decode_tol(*ts))
+    line("check", kernel="decode_attention", variants=json.dumps(
+        "d/dv " + ", ".join(f"{d}/{dv}" for d, dv in GENERAL_DIMS)
+        + " x ql 1/8/10 x f32/bf16/f16; q/k/v "
+        + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
+        + " x d/dv 128/128, 66/130, 576/512 x ql 1/4"), calls=len(cases),
+        wide_calls=wide_calls, general_calls=len(cases) - wide_calls,
+        worst_err_over_tol=worst, wide_worst_err_over_flash_limit=wide_over)
+    return worst
+
+
+def wide_decode_check(rng: np.random.Generator) -> float:
+    """The wide decode kernel at DeepSeek-V3's absorbed-MLA layout (128
+    query rows against one latent head, 576/512, the smoke's cache) in bf16
+    and f16: one sequence at each of the lengths 1, 31, 32 and 33 (a key
+    tile's edges), the first split's last key and the one after it, and
+    the whole cache. Each call is one launch within BF16_TOL of its plain
+    version and within the flash limit FLASH_BF16_TOL (atol, rtol); then
+    every key past each length is poisoned (+-POISON in K, -+ in V;
+    +-F16_POISON in f16), which must move the output by less than
+    POISON_TOL. Returns the worst error's share of the flash limit."""
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 7
+    split_keys = wide_decode_splits(n, 1, MLA_ROWS, KV_CAP, sms)[1]
+    lens_np = np.array([1, 31, 32, 33, split_keys, split_keys + 1, KV_CAP],
+                       np.int32)
+    lens = torch.from_numpy(lens_np).to(dev)
+    shapes = ((n, 1, MLA_ROWS, MLA_D), (n, 1, KV_CAP, MLA_D),
+              (n, 1, KV_CAP, MLA_DV))
+    base = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+            for shape in shapes]
+    worst, fields = 0.0, {}
+    for dtype, poison in ((torch.bfloat16, POISON),
+                          (torch.float16, F16_POISON)):
+        q, k, v = (t.to(dtype) for t in base)
+        before = flash_attention_decode.launches
+        out = flash_attention_decode(q, k, v, lens)
+        calls = flash_attention_decode.launches - before
+        ref = decode_attention_reference(q, k, v, lens)
+        what = f"wide decode {dtype_names(dtype)} absorbed MLA"
+        require(out.shape == ref.shape and out.dtype == dtype
+                and bool(torch.isfinite(out).all()),
+                f"{what}: output {tuple(out.shape)} {out.dtype}")
+        require(calls == 1, f"{what}: {calls} launches, not 1")
+        err, over = compare(out, ref, *FLASH_BF16_TOL)
+        require(err < BF16_TOL, f"{what}: error {err} >= {BF16_TOL}")
+        require(over <= 1, f"{what}: {over} of the flash limit")
+        kp, vp = k.clone(), v.clone()
+        for i, m in enumerate(lens_np.tolist()):
+            kp[i, :, m:] = poison
+            vp[i, :, m:] = -poison
+        moved = (flash_attention_decode(q, kp, vp, lens).float()
+                 - out.float()).abs().max().item()
+        require(moved < POISON_TOL, f"{what}: the poisoned tail moved the "
+                                    f"output by {moved}")
+        name = dtype_names(dtype)
+        fields[f"{name}_max_abs_err"] = err
+        fields[f"{name}_err_over_flash_limit"] = over
+        fields[f"{name}_poisoned_tail_max_abs_diff"] = moved
+        worst = max(worst, over)
+        del q, k, v, kp, vp, out, ref
+    line("check", kernel="decode_attention", route="wide",
+         layout=json.dumps([list(t) for t in shapes]),
+         lens=json.dumps(lens_np.tolist()), split_keys=split_keys,
+         launches_per_call=1, **fields,
+         flash_atol_rtol=json.dumps(FLASH_BF16_TOL))
+    torch.cuda.empty_cache()
+    return worst
 
 
 def engine_parity() -> None:
@@ -1054,6 +1162,7 @@ def phase_flash_check(seed: int) -> float:
         + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
         + " x d/dv 64/64, 40/24, 576/512 x S 64/129; x causal"),
         calls=2 * len(cases), worst_err_over_limit=worst)
+    wide_flash_check(gen)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (randn(gen, (2, 3, 256, 64), dtype) for _ in range(3))
         outs = [flash_attention(q, k, v, block_q=bq, block_k=bk, causal=True)
@@ -1080,6 +1189,39 @@ def phase_flash_check(seed: int) -> float:
             "a refused flash call launched the kernel")
     torch.cuda.synchronize()
     return worst_bf16
+
+
+def wide_flash_check(gen: torch.Generator) -> float:
+    """The wide flash kernel at 576/512 in bf16 and f16 at S =
+    WIDE_FLASH_SEQS (its 64-row query tiles' and 32-key tiles' edges),
+    causal off and on: each call one launch within FLASH_BF16_TOL of
+    ``reference_attention``. Returns the worst error's share of it."""
+    worst = 0.0
+    for s_small in WIDE_FLASH_SEQS:
+        for dtype in (torch.bfloat16, torch.float16):
+            q, k = (randn(gen, (2, 3, s_small, MLA_D), dtype)
+                    for _ in range(2))
+            v = randn(gen, (2, 3, s_small, MLA_DV), dtype)
+            for causal in (False, True):
+                before = flash_attention.launches
+                out = flash_attention(q, k, v, block_q=s_small,
+                                      block_k=s_small, causal=causal)
+                calls = flash_attention.launches - before
+                ref = reference_attention(q, k, v, causal=causal)
+                what = (f"wide flash {dtype_names(dtype)} S={s_small} "
+                        f"causal={causal}")
+                require(out.shape == ref.shape and out.dtype == dtype
+                        and calls == 1, f"{what}: {tuple(out.shape)} "
+                                        f"{out.dtype}, {calls} launches")
+                err, over = compare(out, ref, *FLASH_BF16_TOL)
+                require(over <= 1, f"{what}: error {err}, {over} of the "
+                                   f"limit")
+                worst = max(worst, over)
+    line("flash", route="wide", variants=json.dumps(
+        f"d/dv {MLA_D}/{MLA_DV} x S "
+        + "/".join(map(str, WIDE_FLASH_SEQS)) + " x bf16/f16 x causal"),
+        calls=4 * len(WIDE_FLASH_SEQS), worst_err_over_limit=worst)
+    return worst
 
 
 def flash_bench_row(gen: torch.Generator, b: int, h: int, s: int, d: int,
@@ -1195,13 +1337,14 @@ def traced_kernels(fn, tries: int = 3) -> list:
 
 
 def wide_row(leg: str, counter, kernel, plain, library, nbytes: int,
-             flops: int, tol: tuple, own: str, **shape) -> int:
+             flops: int, tol: tuple, own: str, **shape) -> dict:
     """One line of the wide leg: the kernel's, plain version's and library
     call's ms, the bound (bytes at 3.35 TB/s or operations at the 16-bit
     tensor-core rate, whichever is longer), the last timed kernel output
     against the last plain output within ``tol`` (atol, rtol), and the CUDA
     kernels traced in one call of each: the port's call must run only
-    kernels whose names hold ``own``. Returns the kernel's launches."""
+    kernels whose names hold ``own``, and launch once. Returns the row's
+    numbers and the kernel's launches."""
     last = {}
     before = counter.launches
     ms = cuda_ms(lambda: last.__setitem__("out", kernel()))
@@ -1224,15 +1367,22 @@ def wide_row(leg: str, counter, kernel, plain, library, nbytes: int,
     require(over <= 1, f"wide {leg}: error {err}, {over} of the limit")
     require(ours and all(own in name for name in ours),
             f"wide {leg}: the port's call ran {ours}, not only {own}")
-    return counter.launches - before
+    require(per_call == 1, f"wide {leg}: {per_call} launches a call")
+    return {"launches": counter.launches - before, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
 
 
 def phase_wide(seed: int) -> dict:
     """The inputs both kernels took last, at full width (``wide_row`` per
-    call): DeepSeek-V3's absorbed-MLA decode in bf16, flash attention at
-    576/512 in bf16 (causal off and on), the f16 flash headline and the
-    f16 decode serve shape. Its own main path: the counts are zeroed
-    before it and must equal the rows' launches after it. Returns them."""
+    call): DeepSeek-V3's absorbed-MLA decode in bf16 and flash attention at
+    576/512 in bf16 (causal off and on) on the wide kernels, the f16 flash
+    headline and the f16 decode serve shape on the tuned ones. Its own main
+    path: the counts are zeroed before it and must equal the rows' launches
+    after it. Returns the launches by route (``decode_attention`` and
+    ``flash_attention``: the tuned kernels; ``*_wide``: the wide ones) and
+    the MLA and non-causal flash rows (``mla_decode``, ``flash_576_512``)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1243,13 +1393,14 @@ def phase_wide(seed: int) -> dict:
     mask = (torch.arange(KV_CAP, device=dev)[None, None, None, :]
             < lens[:, None, None, None])
     reset_launches()
-    want = {"decode_attention": 0, "flash_attention": 0}
+    routes = {"decode_attention": 0, "decode_attention_wide": 0,
+              "flash_attention": 0, "flash_attention_wide": 0}
 
-    # Absorbed MLA: 128 rows of 576 against one latent head, 16 launches.
+    # Absorbed MLA: 128 rows of 576 against one latent head, one launch.
     q = randn(gen, (BATCH, 1, MLA_ROWS, MLA_D), bf16)
     k = randn(gen, (BATCH, 1, KV_CAP, MLA_D), bf16)
     v = randn(gen, (BATCH, 1, KV_CAP, MLA_DV), bf16)
-    want["decode_attention"] += wide_row(
+    mla = wide_row(
         "mla_decode", flash_attention_decode,
         lambda: flash_attention_decode(q, k, v, lens),
         lambda: decode_attention_reference(q, k, v, lens),
@@ -1257,16 +1408,18 @@ def phase_wide(seed: int) -> dict:
         nbytes=(keys * (MLA_D + MLA_DV) + q.numel()
                 + BATCH * MLA_ROWS * MLA_DV) * 2 + lens.numel() * 4,
         flops=2 * keys * MLA_ROWS * (MLA_D + MLA_DV), tol=(BF16_TOL, 0.0),
-        own="decode_general_kernel", q=list(q.shape), k=list(k.shape),
+        own="wide_decode", q=list(q.shape), k=list(k.shape),
         v=list(v.shape), dtype="bfloat16", mean_len=keys / BATCH)
+    routes["decode_attention_wide"] += mla["launches"]
     del q, k, v
 
-    # Flash attention at the same head dims: the general kernel.
+    # Flash attention at the same head dims: the wide kernel.
     b, h, s = WIDE_FLASH_SHAPE
     q, k = (randn(gen, (b, h, s, MLA_D), bf16) for _ in range(2))
     v = randn(gen, (b, h, s, MLA_DV), bf16)
+    flash_rows = []
     for causal in (False, True):
-        want["flash_attention"] += wide_row(
+        flash_rows.append(wide_row(
             "flash_576_512", flash_attention,
             lambda: flash_attention(q, k, v, causal=causal),
             lambda: reference_attention(q, k, v, causal=causal),
@@ -1274,28 +1427,29 @@ def phase_wide(seed: int) -> dict:
             nbytes=b * h * s * (2 * MLA_D + 2 * MLA_DV) * 2,
             flops=2 * b * h * s * s * (MLA_D + MLA_DV) // (2 if causal
                                                            else 1),
-            tol=FLASH_BF16_TOL, own="flash_general_kernel",
+            tol=FLASH_BF16_TOL, own="wide_flash",
             shape=[b, h, s], d=MLA_D, dv=MLA_DV, dtype="bfloat16",
-            causal=causal)
+            causal=causal))
+        routes["flash_attention_wide"] += flash_rows[-1]["launches"]
     del q, k, v
 
     # The f16 flash headline on the wgmma path.
     b, h, s, d = FLASH_SHAPE
     q, k, v = (randn(gen, FLASH_SHAPE, f16) for _ in range(3))
-    want["flash_attention"] += wide_row(
+    routes["flash_attention"] += wide_row(
         "flash_f16_headline", flash_attention,
         lambda: flash_attention(q, k, v),
         lambda: reference_attention(q, k, v), lambda: sdpa(q, k, v),
         nbytes=4 * b * h * s * d * 2, flops=4 * b * h * s * s * d,
         tol=FLASH_BF16_TOL, own="flash_f16_kernel",
-        shape=list(FLASH_SHAPE), dtype="float16", causal=False)
+        shape=list(FLASH_SHAPE), dtype="float16", causal=False)["launches"]
     del q, k, v
 
     # The decode kernel at the serve shape in f16.
     q = randn(gen, (BATCH, HEADS, 1, HEAD_DIM), f16)
     k, v = (randn(gen, (BATCH, HEADS, KV_CAP, HEAD_DIM), f16)
             for _ in range(2))
-    want["decode_attention"] += wide_row(
+    routes["decode_attention"] += wide_row(
         "decode_f16_serve", flash_attention_decode,
         lambda: flash_attention_decode(q, k, v, lens),
         lambda: decode_attention_reference(q, k, v, lens),
@@ -1303,16 +1457,18 @@ def phase_wide(seed: int) -> dict:
         nbytes=(keys * HEADS * HEAD_DIM * 2 + 2 * q.numel()) * 2
         + lens.numel() * 4, flops=4 * keys * HEADS * HEAD_DIM,
         tol=(BF16_TOL, 0.0), own="decode_attention_kernel",
-        q=list(q.shape), k=list(k.shape), dtype="float16")
+        q=list(q.shape), k=list(k.shape), dtype="float16")["launches"]
     del q, k, v
     torch.cuda.synchronize()
     counts = launches()
-    line("wide", launches=json.dumps(counts),
+    line("wide", launches=json.dumps(counts), routes=json.dumps(routes),
          bound_basis="H100 SXM 3.35 TB/s HBM, 989.4 TFLOP/s dense bf16/f16")
+    want = {name: routes[name] + routes[f"{name}_wide"]
+            for name in ("decode_attention", "flash_attention")}
     require(counts == want, f"the wide leg's launches: {counts}, its rows "
                             f"counted {want}")
     torch.cuda.empty_cache()
-    return counts
+    return {**routes, "mla_decode": mla, "flash_576_512": flash_rows[0]}
 
 
 def phase_burnin() -> None:
@@ -4950,7 +5106,17 @@ def main(argv=None) -> int:
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
-    }]
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": "k8s_dra_driver_tpu_torch/csrc/wide_attention.cuh",
+        "replaces": f"k8s_dra_driver_tpu/compute/flashattention.py:{line_no}",
+        "launches": wide[name],
+        **{key: wide[row][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, line_no, row in (
+        ("decode_attention_wide", 125, "mla_decode"),
+        ("flash_attention_wide", 36, "flash_576_512"))]
     require(all(math.isfinite(v) for k in kernels for v in
                 (k["ms"], k["plain_ms"], k["bound_ms"], k["library_ms"])),
             "non-finite time")

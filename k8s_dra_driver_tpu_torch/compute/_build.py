@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>.so`` inside the
 package, the first time a kernel of it is needed; all stale sources are
-compiled in parallel, one ``nvcc`` each. Nothing is built at import, so
+compiled in parallel, one ``nvcc`` each. A library is stale when its
+``.cu`` or any ``csrc/*.cuh`` header is newer than it. Nothing is built at import, so
 machines without ``nvcc`` (the CPU test runs) import every module.
 
 The libraries are loaded with ``ctypes``: a wrapper declares every pointer
@@ -56,9 +57,14 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Whether ``lib<name>.so`` is missing or older than its ``.cu`` or any
+    ``csrc/*.cuh`` (a header may be included by every source)."""
     lib = library_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return any(built < src.stat().st_mtime for src in sources)
 
 
 def build_all(force: bool = False) -> dict[str, tuple[float, str]]:

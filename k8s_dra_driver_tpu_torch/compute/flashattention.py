@@ -18,23 +18,31 @@ promoted type) and scaled by 1/sqrt(d); the causal mask or the keys at
 index >= ``kv_lengths[b]`` are masked; softmax; p is rounded to v's dtype
 for P V, which accumulates in f32; the output is in q's dtype.
 
-On the card each wrapper picks its kernel by dtypes and head dims:
+On the card each wrapper picks one of three routes by dtypes and head dims
+(head dims zero-padded to the next multiple of 16 where a route says so):
 
-- q, k and v of one dtype with d, dv <= TUNED_HEAD_DIM: the tuned kernels
-  (decode, in f32, bf16 or f16: one block per (b, h), per-warp online
-  softmax; flash, in bf16 or f16: the ``wgmma``/TMA path, head dims
-  zero-padded to the next multiple of 16);
-- anything else (mixed dtypes, d or dv over TUNED_HEAD_DIM, and f32 flash
-  attention): the general kernels, which convert each operand from its own
-  dtype on load and walk any head dim in chunks, with dv split across
-  blocks.
+- tuned: q, k and v of one dtype with d, dv <= TUNED_HEAD_DIM (decode, in
+  f32, bf16 or f16: one block per (b, h), per-warp online softmax; flash,
+  in bf16 or f16: the ``wgmma``/TMA path, padded head dims);
+- wide: q, k and v all bf16 or all f16, padded d <= WIDE_MAX_D and dv <=
+  WIDE_MAX_DV, one of them over TUNED_HEAD_DIM (DeepSeek-V3's absorbed
+  MLA, 576/512): the tensor-core kernels of ``csrc/wide_attention.cuh``,
+  64 query rows a tile with dv split between two warpgroups; decode takes
+  every query row in one call and splits the cache across blocks
+  (``wide_decode_splits``), then merges the splits;
+- general: anything else (mixed dtypes, f32 flash attention, f32 decode
+  over TUNED_HEAD_DIM, head dims past the wide route's): SIMT kernels that
+  convert each operand from its own dtype on load and walk any head dim in
+  chunks, with dv split across blocks.
 
-The decode wrapper launches once per group of up to MAX_Q_LEN query rows.
+The tuned and general decode kernels launch once per group of up to
+MAX_Q_LEN query rows.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -54,6 +62,15 @@ HEAD_DIM_MULTIPLE = 16
 #: The general decode kernel holds a launch's query rows in shared memory
 #: as f32; past this many bytes the wrapper takes fewer rows a launch.
 GENERAL_Q_SMEM_BYTES = 192 * 1024
+#: The wide route's largest padded head dims; its query rows and keys per
+#: tile; the least keys of one split of the decode cache, and the blocks an
+#: SM that the split count aims for.
+WIDE_MAX_D = 576
+WIDE_MAX_DV = 512
+WIDE_ROWS = 64
+WIDE_KEYS = 32
+WIDE_SPLIT_MIN_KEYS = 256
+WIDE_BLOCKS_PER_SM = 1
 
 #: Each dtype's suffix of a tuned kernel's C entry and its code in the
 #: general kernels' C entries; the dtypes each source's tuned kernel takes.
@@ -61,6 +78,7 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TUNED = {"decode_attention": tuple(_DTYPES),
           "flash_attention": (torch.bfloat16, torch.float16)}
+_WIDE = (torch.bfloat16, torch.float16)
 #: guards the wrappers' launch counts (a read-modify-write)
 _LAUNCH_COUNT_MU = threading.Lock()
 
@@ -103,6 +121,39 @@ def tuned_kernel_takes(source: str, q, k, v, d: int, dv: int) -> bool:
             and max(d, dv) <= TUNED_HEAD_DIM)
 
 
+def wide_kernel_takes(q, k, v, d: int, dv: int) -> bool:
+    """Whether a CUDA call that the tuned kernel does not take goes to the
+    wide kernels (either function): q, k and v all bf16 or all f16, padded
+    head dims ``d`` <= WIDE_MAX_D and ``dv`` <= WIDE_MAX_DV, one of them
+    over TUNED_HEAD_DIM."""
+    return (q.dtype == k.dtype == v.dtype and q.dtype in _WIDE
+            and TUNED_HEAD_DIM < max(d, dv) and d <= WIDE_MAX_D
+            and dv <= WIDE_MAX_DV)
+
+
+def wide_decode_splits(b: int, h: int, ql: int, kv_cap: int,
+                       sms: int) -> tuple[int, int]:
+    """(splits, keys per split) of the wide decode kernel's cache range.
+
+    Each of the b * h * ceil(ql / WIDE_ROWS) row tiles is split so that
+    the grid holds about WIDE_BLOCKS_PER_SM blocks for each of ``sms`` SMs,
+    but no split has fewer than WIDE_SPLIT_MIN_KEYS keys of the cache (each
+    costs a Q tile's load and a partial's write and read). A split is a
+    whole number of WIDE_KEYS tiles. From the shapes alone: the lengths are
+    on the device, and reading them would wait for it."""
+    tiles = -(-kv_cap // WIDE_KEYS)
+    blocks = b * h * -(-ql // WIDE_ROWS)
+    want = -(-WIDE_BLOCKS_PER_SM * sms // blocks)
+    most = max(1, tiles * WIDE_KEYS // WIDE_SPLIT_MIN_KEYS)
+    split_keys = -(-tiles // max(1, min(want, most))) * WIDE_KEYS
+    return -(-kv_cap // split_keys), split_keys
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check_flash(q, k, v) -> None:
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1:
@@ -121,10 +172,16 @@ def _check_flash(q, k, v) -> None:
 
 
 def padded_head_dims(d: int, dv: int) -> tuple[int, int]:
-    """The tuned flash kernel's head dims for true ``d`` and ``dv``: each
-    rounded up to a multiple of HEAD_DIM_MULTIPLE."""
+    """The tuned flash kernel's and the wide kernels' head dims for true
+    ``d`` and ``dv``: each rounded up to a multiple of HEAD_DIM_MULTIPLE."""
     step = HEAD_DIM_MULTIPLE
     return -(-d // step) * step, -(-dv // step) * step
+
+
+def _check_aligned(*tensors) -> None:
+    """TMA reads each tensor from a 16-byte boundary."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("q, k and v must start on 16-byte boundaries")
 
 
 def _pad_last(t: torch.Tensor, size: int) -> torch.Tensor:
@@ -146,8 +203,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     own tiles.
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
-    current stream (``tuned_kernel_takes`` says which), counted in
-    ``flash_attention.launches``; CPU tensors go through
+    current stream (``tuned_kernel_takes`` and ``wide_kernel_takes`` say
+    which), counted in ``flash_attention.launches``; CPU tensors go through
     ``reference_attention``."""
     if q.dim() != 4:
         raise ValueError(f"q must be [b,h,S,d], got {tuple(q.shape)}")
@@ -174,12 +231,13 @@ def _launch_flash(q, k, v, causal: bool, stream: int) -> torch.Tensor:
     dp, dvp = padded_head_dims(d, dv)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     scale = 1.0 / math.sqrt(d)
-    if tuned_kernel_takes("flash_attention", q, k, v, dp, dvp):
+    tuned = tuned_kernel_takes("flash_attention", q, k, v, dp, dvp)
+    if tuned or wide_kernel_takes(q, k, v, dp, dvp):
         # Zero columns add nothing to q k^T, and the scale stays 1/sqrt(d).
         q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("q, k and v must start on 16-byte boundaries")
-        fn, err_str = _c_entry("flash_attention", _DTYPES[q.dtype],
+        _check_aligned(q, k, v)
+        variant = _DTYPES[q.dtype] if tuned else f"wide_{_DTYPES[q.dtype]}"
+        fn, err_str = _c_entry("flash_attention", variant,
                                [p, p, p, p, i, i, i, i, i, f, p])
         out = torch.empty((b, h, seq, dvp), dtype=q.dtype, device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -262,10 +320,12 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA kernels walk the cache in their own tiles.
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
-    current stream (``tuned_kernel_takes`` says which), one launch per
-    group of up to MAX_Q_LEN query rows (the rows do not attend to each
-    other), each counted in ``flash_attention_decode.launches``. CPU
-    tensors go through ``decode_attention_reference``."""
+    current stream (``tuned_kernel_takes`` and ``wide_kernel_takes`` say
+    which): the wide kernels in one call for every query row, the others
+    one launch per group of up to MAX_Q_LEN query rows (the rows do not
+    attend to each other), each call counted in
+    ``flash_attention_decode.launches``. CPU tensors go through
+    ``decode_attention_reference``."""
     kv_cap = k.shape[2]
     block_k = min(block_k, kv_cap)
     if kv_cap % block_k:
@@ -280,13 +340,21 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _launch_decode(q, k, v, kv_lengths, stream: int) -> torch.Tensor:
+def _launch_decode(q, k, v, kv_lengths, stream: int,
+                   sms: int | None = None) -> torch.Tensor:
     """The decode kernel that takes these checked inputs, launched on
-    ``stream`` once per group of query rows; each launch counted in
-    ``flash_attention_decode.launches``."""
+    ``stream`` (the wide kernels once, the others once per group of query
+    rows); each launch counted in ``flash_attention_decode.launches``.
+    ``sms``: the SM count that sizes the wide kernel's split (the
+    device's by default)."""
     b, h, ql, d = q.shape
     kv_cap, dv = k.shape[2], v.shape[3]
     p, i = ctypes.c_void_p, ctypes.c_int
+    dp, dvp = padded_head_dims(d, dv)
+    if (not tuned_kernel_takes("decode_attention", q, k, v, d, dv)
+            and wide_kernel_takes(q, k, v, dp, dvp)):
+        return _launch_decode_wide(q, k, v, kv_lengths, stream,
+                                   sms or _sm_count(q.device))
     ints = [i] * 8   # b, h, ql, row0, rows, cap, d, dv
     if tuned_kernel_takes("decode_attention", q, k, v, d, dv):
         fn, err_str = _c_entry("decode_attention", _DTYPES[q.dtype],
@@ -308,6 +376,34 @@ def _launch_decode(q, k, v, kv_lengths, stream: int) -> torch.Tensor:
         with _LAUNCH_COUNT_MU:   # engines launch from several threads
             flash_attention_decode.launches += 1
     return out
+
+
+def _launch_decode_wide(q, k, v, kv_lengths, stream: int,
+                        sms: int) -> torch.Tensor:
+    """One call of the wide decode entry (the kernel and its merge) for
+    every query row, with head dims zero-padded and the cache split as
+    ``wide_decode_splits`` says; f32 partials in a workspace."""
+    b, h, ql, d = q.shape
+    kv_cap, dv = k.shape[2], v.shape[3]
+    dp, dvp = padded_head_dims(d, dv)
+    q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)
+    _check_aligned(q, k, v)
+    splits, split_keys = wide_decode_splits(b, h, ql, kv_cap, sms)
+    part_o = torch.empty(b * h * splits * ql * dvp, dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty(b * h * splits * ql * 2, dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty((b, h, ql, dvp), dtype=q.dtype, device=q.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn, err_str = _c_entry("decode_attention", f"wide_{_DTYPES[q.dtype]}",
+                           [p] * 7 + [i] * 6 + [ctypes.c_float, i, i, p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lengths.data_ptr(),
+             out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, h, ql,
+             kv_cap, dp, dvp, 1.0 / math.sqrt(d), splits, split_keys, stream)
+    _raise_on(err, err_str, "decode_attention")
+    with _LAUNCH_COUNT_MU:
+        flash_attention_decode.launches += 1
+    return out if dvp == dv else out[..., :dv].contiguous()
 
 
 flash_attention_decode.launches = 0

@@ -10,16 +10,25 @@
 //
 // Layout: q is [b, h, ql, d], k is [b, h, cap, d], v is [b, h, cap, dv] and
 // out is [b, h, ql, dv], all contiguous; lens is [b] int32 and applies to
-// every head of its sequence. One launch takes query rows [row0, row0 + rows)
-// of q, rows <= 8; the query rows do not attend to each other, so a caller
-// with more rows launches once per group of 8 and the groups write disjoint
-// rows of out.
+// every head of its sequence. A launch of the tuned or the general kernel
+// takes query rows [row0, row0 + rows) of q, rows <= 8; the query rows do
+// not attend to each other, so a caller with more rows launches once per
+// group of 8 and the groups write disjoint rows of out. The wide entry takes
+// every row in one call.
 //
 // Which kernel takes a call (the C entries at the end):
 //   * q, k and v of one dtype (f32, bf16 or f16) with d, dv <= 256:
 //     `decode_attention_kernel`, entries decode_attention_{f32,bf16,f16};
-//   * anything else (q, k and v each in its own dtype, or d or dv over
-//     256): `decode_general_kernel`, entry decode_attention_general.
+//   * q, k and v all bf16 or all f16, d or dv over 256, d <= 576 and
+//     dv <= 512 (the wrapper zero-pads both to multiples of 16): the wide
+//     tensor-core kernel of wide_attention.cuh and its merge, entries
+//     decode_attention_wide_{bf16,f16} (its note says what bounds it and
+//     what its design does about that: at absorbed MLA's 128 query rows
+//     each key feeds 128 x 1,088 multiply-adds, which is work for `wgmma`,
+//     not for the SIMT loop below);
+//   * anything else (q, k and v each in its own dtype, f32 over 256, or
+//     head dims past the wide kernel's): `decode_general_kernel`, entry
+//     decode_attention_general.
 //
 // What bounds it: device-memory bytes. Every valid K and V row is read once,
 // (d + dv) * sizeof(T) bytes per key per head (1 KiB at d = 128 in f32), and
@@ -57,18 +66,19 @@
 // bytes are 2 d + dv per key, not d + dv.
 // What holds the general kernel back (PERF.md): a grid of b * h * (dv /
 // 256) blocks leaves most SMs idle when b * h is small, and each warp's
-// batch waits on one load round trip per chunk of d. At absorbed MLA's
-// shape (b * h = 32; 128 query rows against one 576/512 latent cache, so
-// 16 launches each reading all of it, and 8 rows x 1,088 multiply-adds per
-// key on the SIMT units) it is far from its byte bound.
-// wgmma, TMA, split-KV across blocks (for batches too small to fill the
-// SMs) and one pass over more than 8 query rows are left for later work.
+// batch waits on one load round trip per chunk of d. Its 16-bit calls at
+// head dims up to 576/512, absorbed MLA's among them (16 launches of 8
+// rows, each reading the whole latent cache: 24 ms on an H100 where the
+// library took 0.48), go to the wide kernel instead; it keeps f32, mixed
+// dtypes and wider heads.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -650,6 +660,32 @@ int decode_attention_f16(const void* q, const void* k, const void* v,
                          float scale, void* stream) {
   return launch<__half>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
                         scale, stream);
+}
+
+// The wide path (wide_attention.cuh): q, k and v all bf16 or all f16, d and
+// dv multiples of 16 up to 576 and 512, every query row in one call. part_o
+// and part_ml are the f32 partials' workspace, [b h, splits, ql, dv] and
+// [b h, splits, ql, 2]; split s takes keys [s split_keys, (s + 1)
+// split_keys). Launches the kernel and the merge, and returns the first
+// error.
+int decode_attention_wide_bf16(const void* q, const void* k, const void* v,
+                               const void* lens, void* out, void* part_o,
+                               void* part_ml, int b, int h, int ql, int cap,
+                               int d, int dv, float scale, int splits,
+                               int split_keys, void* stream) {
+  return wide::launch_decode<__nv_bfloat16>(
+      q, k, v, lens, out, part_o, part_ml, b, h, ql, cap, d, dv, scale,
+      splits, split_keys, static_cast<cudaStream_t>(stream));
+}
+
+int decode_attention_wide_f16(const void* q, const void* k, const void* v,
+                              const void* lens, void* out, void* part_o,
+                              void* part_ml, int b, int h, int ql, int cap,
+                              int d, int dv, float scale, int splits,
+                              int split_keys, void* stream) {
+  return wide::launch_decode<__half>(
+      q, k, v, lens, out, part_o, part_ml, b, h, ql, cap, d, dv, scale,
+      splits, split_keys, static_cast<cudaStream_t>(stream));
 }
 
 // Any head dims; q_type, k_type and v_type are each 0 (f32), 1 (bf16) or 2

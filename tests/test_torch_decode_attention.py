@@ -16,6 +16,7 @@ without a card.
 
 import os
 import stat
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +31,12 @@ from k8s_dra_driver_tpu_torch.compute import _build, flashattention
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     MAX_Q_LEN,
     TUNED_HEAD_DIM,
+    WIDE_BLOCKS_PER_SM,
+    WIDE_KEYS,
+    WIDE_SPLIT_MIN_KEYS,
     decode_attention_reference,
     flash_attention_decode,
+    wide_decode_splits,
 )
 
 B, H, D, CAP = 4, 2, 8, 64
@@ -306,7 +311,7 @@ class TestRouting:
                 for a, t in ((q, dtypes[0]), (k, dtypes[1]), (v, dtypes[2]))]
         lens = torch.full((b,), cap, dtype=torch.int32)
         before = flash_attention_decode.launches
-        out = flashattention._launch_decode(*args, lens, stream=0)
+        out = flashattention._launch_decode(*args, lens, stream=0, sms=132)
         assert out.shape == (b, h, ql, dv) and out.dtype == TORCH[dtypes[0]]
         return flash_attention_decode.launches - before
 
@@ -323,7 +328,8 @@ class TestRouting:
     @pytest.mark.parametrize("ql,d,dv,dtypes,entry,codes", [
         (1, 128, 128, ("f16",) * 3, "decode_attention_f16", ()),
         (4, 256, 64, ("f32",) * 3, "decode_attention_f32", ()),
-        (1, 257, 64, ("bf16",) * 3, "decode_attention_general", (1, 1, 1)),
+        # bf16 at d = 257 takes the wide kernels, padded to 272
+        (1, 257, 64, ("bf16",) * 3, "decode_attention_wide_bf16", (1, 32)),
         (1, 128, 128, ("f32", "bf16", "bf16"), "decode_attention_general",
          (0, 1, 1)),
         (2, 64, 64, ("bf16", "f16", "f16"), "decode_attention_general",
@@ -332,9 +338,64 @@ class TestRouting:
                                        entry, codes):
         assert self._launch(ql, d, dv, dtypes) == 1
         (call,) = fake_lib.entries[entry].calls
+        if "wide" in entry:
+            # b, h, ql, cap, padded d and dv, scale, splits, split keys
+            assert call[7:-1] == (2, 3, ql, 16, -(-d // 16) * 16, dv,
+                                  pytest.approx(d ** -0.5)) + codes
+            return
         # row0, rows, cap, d, dv, scale; then the general entry's codes
         assert call[8:14] == (0, ql, 16, d, dv, pytest.approx(d ** -0.5))
         assert call[14:-1] == codes
+
+    @pytest.mark.parametrize("dtype", ["bf16", "f16"])
+    @pytest.mark.parametrize("d,dv,padded", [
+        (257, 257, (272, 272)), (320, 320, (320, 320)),
+        (576, 512, (576, 512)), (64, 320, (64, 320))])
+    def test_wide_head_dims_reach_the_wide_entry(self, fake_lib, dtype, d,
+                                                 dv, padded):
+        # Every query row in one call (10 rows: the tuned and general
+        # kernels would take two launches), dims padded to 16, the scale
+        # of the true d.
+        assert self._launch(MAX_Q_LEN + 2, d, dv, (dtype,) * 3) == 1
+        assert set(fake_lib.entries) == {f"decode_attention_wide_{dtype}",
+                                         "decode_attention_error_string"}
+        (call,) = fake_lib.entries[f"decode_attention_wide_{dtype}"].calls
+        splits, split_keys = wide_decode_splits(2, 3, 10, 16, 132)
+        assert call[7:-1] == (2, 3, 10, 16, *padded,
+                              pytest.approx(d ** -0.5), splits, split_keys)
+
+    def test_absorbed_mla_decode_is_one_launch(self, fake_lib):
+        # DeepSeek-V3's absorbed layout: 128 query rows against one latent
+        # head of 576/512, as one launch with the cache split across blocks.
+        b, cap = 4, 4096
+        q = torch.zeros((b, 1, 128, 576), dtype=torch.bfloat16)
+        k = torch.zeros((b, 1, cap, 576), dtype=torch.bfloat16)
+        v = torch.zeros((b, 1, cap, 512), dtype=torch.bfloat16)
+        lens = torch.tensor([1, 31, 33, cap], dtype=torch.int32)
+        before = flash_attention_decode.launches
+        out = flashattention._launch_decode(q, k, v, lens, stream=7, sms=132)
+        assert flash_attention_decode.launches == before + 1
+        assert out.shape == (b, 1, 128, 512) and out.dtype == torch.bfloat16
+        (call,) = fake_lib.entries["decode_attention_wide_bf16"].calls
+        splits, split_keys = wide_decode_splits(b, 1, 128, cap, 132)
+        assert splits > 1 and (splits - 1) * split_keys < cap
+        assert call[:5] == tuple(t.data_ptr() for t in (q, k, v, lens, out))
+        assert call[7:] == (b, 1, 128, cap, 576, 512,
+                            pytest.approx(576 ** -0.5), splits, split_keys,
+                            7)
+
+    @pytest.mark.parametrize("ql,d,dv,dtypes", [
+        (1, 576, 512, ("f32",) * 3),
+        (4, 576, 512, ("f32", "bf16", "bf16")),
+        (4, 576, 512, ("bf16", "f16", "f16")),
+        (1, 1024, 1024, ("bf16",) * 3),
+        (1, 64, 640, ("f16",) * 3)])
+    def test_what_the_wide_kernels_do_not_take_stays_general(
+            self, fake_lib, ql, d, dv, dtypes):
+        # f32, mixed dtypes, and padded dims past 576/512.
+        assert self._launch(ql, d, dv, dtypes) == -(-ql // MAX_Q_LEN)
+        assert set(fake_lib.entries) == {"decode_attention_general",
+                                         "decode_attention_error_string"}
 
     def test_query_rows_a_launch_shrink_only_past_the_shared_memory(
             self, fake_lib):
@@ -343,6 +404,39 @@ class TestRouting:
                             cap=2) == 3
         calls = fake_lib.entries["decode_attention_general"].calls
         assert [c[8:10] for c in calls] == [(0, 3), (3, 3), (6, 1)]
+
+
+class TestWideSplits:
+    """``wide_decode_splits``: the cache split of the wide decode kernel,
+    from the shapes and the SM count alone."""
+
+    @pytest.mark.parametrize("b,h,ql,cap,sms", [
+        (32, 1, 128, 4096, 132), (1, 1, 1, 16, 132), (3, 2, 70, 300, 132),
+        (64, 8, 1, 4096, 132), (1, 1, 1, 1 << 20, 132), (2, 2, 64, 33, 8)])
+    def test_splits_cover_the_cache_in_whole_tiles(self, b, h, ql, cap, sms):
+        splits, split_keys = wide_decode_splits(b, h, ql, cap, sms)
+        assert splits >= 1 and split_keys % WIDE_KEYS == 0
+        # Every key in one split, no split empty by construction.
+        assert (splits - 1) * split_keys < cap <= splits * split_keys
+
+    def test_one_split_when_the_row_tiles_fill_the_sms(self):
+        # 64 x 8 heads x 1 row tile = 512 blocks >= 2 a SM on 132 SMs.
+        assert wide_decode_splits(64, 8, 1, 4096, 132) == (1, 4096)
+
+    def test_a_cache_shorter_than_a_tile_is_one_tile(self):
+        assert wide_decode_splits(1, 1, 1, 16, 132) == (1, WIDE_KEYS)
+        assert wide_decode_splits(1, 1, 1, WIDE_KEYS + 1, 132) == (
+            1, 2 * WIDE_KEYS)
+
+    def test_splits_fill_the_sms_but_keep_their_least_keys(self):
+        # Absorbed MLA at 32 sequences: 64 row tiles, about 2 blocks an SM.
+        splits, split_keys = wide_decode_splits(32, 1, 128, 4096, 132)
+        assert splits * 64 >= WIDE_BLOCKS_PER_SM * 132
+        assert (splits - 1) * 64 < WIDE_BLOCKS_PER_SM * 132
+        # One sequence, one row: the split count stops at the least keys.
+        splits, split_keys = wide_decode_splits(1, 1, 1, 4096, 132)
+        assert split_keys == WIDE_SPLIT_MIN_KEYS
+        assert splits == 4096 // WIDE_SPLIT_MIN_KEYS
 
 
 class TestBuild:
@@ -383,6 +477,40 @@ class TestBuild:
         assert "arch=compute_90a,code=sm_90a" in args and "-shared" in args
         assert _build.build_all() == {}                 # nothing stale
         assert sorted(_build.build_all(force=True)) == sources
+
+    def test_a_newer_header_makes_every_source_stale(self, tmp_path,
+                                                    monkeypatch):
+        # Sources that include a header are rebuilt when only it changed.
+        csrc = tmp_path / "csrc"
+        csrc.mkdir()
+        for name in ("one.cu", "two.cu", "shared.cuh"):
+            (csrc / name).write_text("// source\n")
+        log = tmp_path / "args"
+        bindir = self._fake_nvcc(tmp_path, (
+            f'echo "$@" >> {log}\n'
+            'while [ "$1" != "-o" ]; do shift; done\n'
+            'echo lib > "$2"\n'))
+        monkeypatch.setattr(_build, "CSRC", csrc)
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(_build, "_libs", {})
+        monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}/bin")
+        assert sorted(_build.build_all()) == ["one", "two"]
+        assert _build.build_all() == {}
+
+        def age(path, seconds):
+            when = time.time() - seconds
+            os.utime(path, (when, when))
+
+        # The header edited after both libraries were built.
+        for name in ("one", "two"):
+            age(_build.library_path(name), 60)
+        age(csrc / "shared.cuh", 30)
+        assert sorted(_build.build_all()) == ["one", "two"]
+        assert _build.build_all() == {}
+        # Only one source edited after its library.
+        age(_build.library_path("two"), 20)
+        age(csrc / "two.cu", 10)
+        assert sorted(_build.build_all()) == ["two"]
 
     def test_failed_compile_raises_with_log_and_leaves_no_library(
             self, tmp_path, monkeypatch):

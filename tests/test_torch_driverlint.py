@@ -47,7 +47,7 @@ ALLOWLIST = {
     ("growth", "DL301", _PROTOLAB, "_ShardMapUniverse.crash_budget"): _BUDGET,
     ("growth", "DL301", _PROTOLAB, "_ShardMapUniverse.part_budget"): _BUDGET,
     ("durability", "DL402", "k8s_dra_driver_tpu_torch/compute/_build.py",
-     "Path.replace:98"):
+     "Path.replace:104"):
         "a kernel library built by nvcc, not driver state: the rename only "
         "keeps a loader from opening half a library, and a crash leaves a "
         "temporary file and no library, which the next call rebuilds",

@@ -413,17 +413,17 @@ class TestRouting:
         (40, 24, ("bf16",) * 3, "flash_attention_bf16", (48, 32)),
         (256, 8, ("f32",) * 3, "flash_attention_general",
          (256, 8, 0, pytest.approx(1 / 16), 0, 0, 0)),
-        (264, 64, ("f16",) * 3, "flash_attention_general",
-         (264, 64, 0, pytest.approx(264 ** -0.5), 2, 2, 2)),
+        # f16 at d = 264 takes the wide kernels, padded like the tuned ones
+        (264, 64, ("f16",) * 3, "flash_attention_wide_f16", (272, 64)),
         (40, 24, ("f32", "bf16", "bf16"), "flash_attention_general",
          (40, 24, 0, pytest.approx(40 ** -0.5), 0, 1, 1)),
         (64, 64, ("bf16", "f16", "f32"), "flash_attention_general",
          (64, 64, 0, pytest.approx(1 / 8), 1, 2, 0))])
     def test_tuned_and_general_entries(self, lib, d, dv, dtypes, entry,
                                        tail):
-        # The tuned kernel gets head dims padded to multiples of 16 and the
-        # true d's scale; the general kernel (f32 too) the true dims and
-        # the dtype codes.
+        # The tuned and wide kernels get head dims padded to multiples of 16
+        # and the true d's scale; the general kernel (f32 too) the true
+        # dims and the dtype codes.
         self._launch(d, dv, dtypes)
         (call,) = lib.entries[entry].calls
         assert call[4:6] == (6, 16)
@@ -431,6 +431,36 @@ class TestRouting:
             assert call[6:-1] == tail
         else:
             assert call[6:-1] == tail + (0, pytest.approx(d ** -0.5))
+
+
+    @pytest.mark.parametrize("dtype", ["bf16", "f16"])
+    @pytest.mark.parametrize("d,dv,padded", [
+        (257, 257, (272, 272)), (320, 320, (320, 320)),
+        (576, 512, (576, 512))])
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_wide_head_dims_reach_the_wide_entry(self, lib, dtype, d, dv,
+                                                 padded, causal):
+        self._launch(d, dv, (dtype,) * 3, causal=causal)
+        assert set(lib.entries) == {f"flash_attention_wide_{dtype}",
+                                    "flash_attention_error_string"}
+        (call,) = lib.entries[f"flash_attention_wide_{dtype}"].calls
+        # bh, S, padded d and dv, causal, the true d's scale, stream
+        assert call[4:] == (6, 16, *padded, int(causal),
+                            pytest.approx(d ** -0.5), 0)
+
+    @pytest.mark.parametrize("d,dv,dtypes", [
+        (576, 512, ("f32",) * 3), (576, 512, ("bf16", "f16", "f16")),
+        (320, 320, ("f16", "bf16", "bf16")), (1024, 1024, ("f16",) * 3),
+        (64, 640, ("bf16",) * 3), (592, 64, ("bf16",) * 3)])
+    def test_what_the_wide_kernels_do_not_take_stays_general(
+            self, lib, d, dv, dtypes):
+        # f32, mixed dtypes, and padded dims past 576/512.
+        self._launch(d, dv, dtypes)
+        assert set(lib.entries) == {"flash_attention_general",
+                                    "flash_attention_error_string"}
+        assert not flashattention.wide_kernel_takes(
+            *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
+            *padded_head_dims(d, dv))
 
 
 class TestBuildReport:
@@ -464,8 +494,17 @@ class TestBuildReport:
          "attention_kernelILi8EfEEvPKT0_S3_", "decode_attention_kernel<8>"),
         ("_ZN12_GLOBAL__N_123decode_attention_kernelIfLi1ELi4ELb1EEEvPKT_",
          "decode_attention_kernel<1,4,1>"),
+        ("_ZN12_GLOBAL__N_14wide17wide_flash_kernelI13__nv_bfloat16EEv14CU"
+         "tensorMap_stS3_S3_NS0_4ArgsE", "wide_flash_kernel<bf16>"),
+        ("_ZN12_GLOBAL__N_14wide24wide_decode_merge_kernelI6__halfEEvPKfS4_"
+         "PT_iii", "wide_decode_merge_kernel<f16>"),
+        ("_ZN12_GLOBAL__N_123decode_attention_kernelI6__halfLi1ELi8ELb1EEEv"
+         "PKT_", "decode_attention_kernel<f16,1,8,1>"),
         ("_Z5otheri", "_Z5otheri")])
     def test_kernel_names(self, mangled, name):
+        # A name inside another (flash_kernel in wide_flash_kernel) does not
+        # hide the longer one.
         names = ["flash_bf16_kernel", "flash_f32_kernel",
-                 "decode_attention_kernel"]
+                 "decode_attention_kernel", "flash_kernel",
+                 "wide_flash_kernel", "wide_decode_merge_kernel"]
         assert chip_smoke.kernel_name(mangled, names) == name
