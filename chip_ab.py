@@ -5,13 +5,15 @@ kernel's mutation controls, and compare the serve phase of two trees.
 Run from the root of a checkout on a machine with one CUDA device:
 
     python3 chip_ab.py versions OTHER.cu [OTHER.cu ...]
-    python3 chip_ab.py controls
+    python3 chip_ab.py controls [NAME ...]
     python3 chip_ab.py serve OTHER_TREE [--rounds N]
     python3 chip_ab.py decode OTHER_TREE [--rounds N]
     python3 chip_ab.py wire [--writers 3,6,12,16] [--cycles N]
     python3 chip_ab.py flash32 OTHER_TREE [--rounds N]
-    python3 chip_ab.py decode-keys
+    python3 chip_ab.py decode-keys [OTHER_TREE] [--rounds N]
     python3 chip_ab.py wide-parts
+    python3 chip_ab.py ring-variants
+    python3 chip_ab.py general
 
 ``versions`` copies the port (``chip_smoke.py`` and
 ``k8s_dra_driver_tpu_torch/``) once per source under ``--work``, puts the
@@ -30,8 +32,12 @@ break the wide kernels' shared body (``wide_attention.cuh``), each run
 through the wide decode checks (the head dims the wide kernel takes in
 the decode check, and the absorbed-MLA layout) and the wide flash check,
 both of which must reject it: the softmax scale times 1.01, and the last
-key tile (flash) and the last split of the cache (decode) dropped. It
-exits non-zero if a control passes a check it must fail.
+key tile (flash) and the last split of the cache (decode) dropped. Two
+break the tuned decode's ring kernel (``decode_attention.cu``), each run
+through its check (``tuned_decode_check``): the softmax scale times 1.01,
+and the last tile of every split dropped. Names given after ``controls``
+run those controls alone. It exits non-zero if a control passes a check it
+must fail.
 
 ``serve`` runs ``chip_smoke``'s serve phase (48 requests from 4 tenants at
 one Llama-2-7B attention layer) in OTHER_TREE (a directory holding another
@@ -46,8 +52,9 @@ power limit.
 ``decode`` does the same with ``chip_smoke``'s build and timing phases:
 each turn builds its tree's kernels (printing each decode kernel's
 registers) and times its decode kernel at the smoke's width, beside the
-plain version and the library call; the JSON line holds every turn's
-times and decode kernels' registers.
+plain version and the library call (f32, the engine's), then at the same
+shape in f16 and bf16 (kernel and library); the JSON line holds every
+turn's times and decode kernels' registers.
 
 ``wire`` runs ``run_wire_path`` (the host's HTTP claim path, baseline arm
 against the optimized one) once per ``--writers`` count of status
@@ -68,8 +75,9 @@ the f32 one it replaced.
 4096-token cache (32 sequences, one head) for each of DECODE_KEY_CASES:
 the tuned and general kernels at 8 query rows and 1 (one launch), the
 wide kernel at absorbed MLA's 128 rows and at 1; and prints the time per
-key of the call: what bounds a kernel whose grid is b * h blocks when
-b * h is small.
+key of the call and the device's busy time per call (torch.profiler):
+what bounds a kernel whose grid is b * h blocks when b * h is small. With
+OTHER_TREE it runs there and here in turns (other, this, this, other).
 
 ``wide-parts`` splits the wide kernels' time: it times absorbed-MLA decode
 and flash attention at 576/512 (the smoke's wide rows, causal off and on)
@@ -78,6 +86,23 @@ leaves out one part or walks it differently (WIDE_PARTS), each in its own
 process, and in this tree at other split counts of the MLA decode
 (``WIDE_BLOCKS_PER_SM``). A copy that leaves a part out computes a wrong
 result: it is timed, never checked.
+
+``ring-variants`` builds copies of the tree whose tuned decode ring kernel
+(``decode_attention.cu``) holds 8 query rows in other ways (RING_VARIANTS:
+q in registers instead of shared memory, 1 key a step instead of 2, the
+step loop unrolled, one block an SM instead of two), each in its own
+process, and prints each
+copy's registers and spills at 8 rows and the device time (torch.profiler)
+of the decode-keys tuned cases (1 and 8 rows at 32 one-head caches) and
+of the bf16 serve shape. The copies are timed, not checked.
+
+``general`` times the general SIMT kernels at the shapes they still take
+(GENERAL_ROWS): f32 flash attention at the bench's headline, causal off
+and on; f32 absorbed-MLA decode; a decode whose f32 query meets a bf16
+cache at the serve shape. Each row: kernel, plain and library ms
+(``scaled_dot_product_attention`` in f32; none for mixed dtypes, which no
+one call takes), launches a call, the bound and the error against the
+plain version.
 """
 
 from __future__ import annotations
@@ -93,6 +118,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL = Path("k8s_dra_driver_tpu_torch/csrc/flash_attention.cu")
 WIDE = Path("k8s_dra_driver_tpu_torch/csrc/wide_attention.cuh")
+DECODE_SRC = Path("k8s_dra_driver_tpu_torch/csrc/decode_attention.cu")
 # name: (the source broken, its (text, broken text) pairs, the checks that
 # must each reject it).
 CONTROLS = {
@@ -113,6 +139,13 @@ CONTROLS = {
          "const int len = min(a.lens[w.bh / a.h],\n"
          "                        min(a.keys, (a.splits - 1) * a.split_keys));")],
         ("wide_decode", "wide_flash")),
+    "ring_softmax_scale_x1.01": (DECODE_SRC, [
+        ("a.scale * kLog2e, a.split_keys);",
+         "a.scale * 1.01f * kLog2e, a.split_keys);")], ("tuned_decode",)),
+    "ring_last_tile_dropped": (DECODE_SRC, [
+        ("k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile : 0;",
+         "k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile - 1 : 0;")],
+        ("tuned_decode",)),
 }
 # A version's library is built at its first call, in the bench's warm-up
 # (phase_build would hold every version to the tree's SASS requirements).
@@ -128,6 +161,8 @@ CHECK = (
     "    c.general_dims_check(rng); c.wide_decode_check(rng)\n"
     "checks = {{'flash': lambda: c.phase_flash_check(0),\n"
     "           'wide_decode': wide_decode,\n"
+    "           'tuned_decode': lambda: c.tuned_decode_check(\n"
+    "               np.random.default_rng(0)),\n"
     "           'wide_flash': lambda: c.wide_flash_check(\n"
     "               torch.Generator(device='cuda:0').manual_seed(0))}}\n"
     "for name in {names!r}:\n"
@@ -142,11 +177,35 @@ SERVE = ("import chip_smoke as c; card = c.phase_device(); "
          "c.phase_serve(0, **c.phase_enumerate())")
 SERVE_KEYS = ("decode_tok_s", "step_ms_p50", "step_ms_p99", "steps",
               "kernel_launches", "claim_ready_ms", "ttfb_ms")
-DECODE = ("import numpy as np, chip_smoke as c; card = c.phase_device(); "
-          "print('AB_CARD ' + card); c.phase_build(); "
-          "rng = np.random.default_rng(0); "
-          "c.phase_timing(rng, *c.smoke_inputs(rng))")
-DECODE_KEYS = ("kernel_ms", "plain_ms", "library_ms", "bound_ms")
+# The f32 timing phase, then f16 and bf16 at the same shape and lengths
+# (code that runs in any tree whose wrapper takes f16).
+DECODE = (
+    "import numpy as np, torch, chip_smoke as c\n"
+    "card = c.phase_device(); print('AB_CARD ' + card)\n"
+    "# A tree's first turn builds (and prints the registers); later turns\n"
+    "# reuse its libraries.\n"
+    "if not c._build.library_path('decode_attention').exists():\n"
+    "    c.phase_build()\n"
+    "rng = np.random.default_rng(0)\n"
+    "k, v, lens = c.smoke_inputs(rng)\n"
+    "c.phase_timing(rng, k, v, lens)\n"
+    "mask = (torch.arange(c.KV_CAP, device=k.device)[None, None, None, :]"
+    " < lens[:, None, None, None])\n"
+    "q = torch.from_numpy(rng.standard_normal((c.BATCH, c.HEADS, 1,"
+    " c.HEAD_DIM), np.float32)).to(k.device)\n"
+    "fa, sdpa = c.flash_attention_decode,"
+    " torch.nn.functional.scaled_dot_product_attention\n"
+    "out = {}\n"
+    "for name, t in (('f16', torch.float16), ('bf16', torch.bfloat16)):\n"
+    "    qq, kk, vv = q.to(t), k.to(t), v.to(t)\n"
+    "    out[name + '_ms'] = c.cuda_ms(lambda: fa(qq, kk, vv, lens))\n"
+    "    out[name + '_library_ms'] = c.cuda_ms(lambda: sdpa(qq, kk, vv,"
+    " attn_mask=mask))\n"
+    "    del qq, kk, vv\n"
+    "print('[timing16] ' + ' '.join(f'{n}={x}' for n, x in out.items()),"
+    " flush=True)\n")
+DECODE_KEYS = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "f16_ms",
+               "f16_library_ms", "bf16_ms", "bf16_library_ms")
 # f32 flash shapes [b, h, S, d, dv]: the bench's headline and two sweep
 # rows, d 64 and 256, dv over d, padded head dims, one short sequence.
 FLASH32_SHAPES = ((4, 8, 2048, 128, 128), (16, 8, 512, 128, 128),
@@ -178,8 +237,8 @@ FLASH32 = (
 TREE_MODES = {
     "serve": (SERVE, lambda ln: ln.startswith("[serve] submitted="),
               SERVE_KEYS),
-    "decode": (DECODE, lambda ln: ln.startswith("[timing]") or (
-        ln.startswith("[build] kernel=decode")), DECODE_KEYS),
+    "decode": (DECODE, lambda ln: ln.startswith(("[timing]", "[timing16]"))
+               or ln.startswith("[build] kernel=decode"), DECODE_KEYS),
     "flash32": (FLASH32, lambda ln: ln.startswith("[flash32]"),
                 ("ms", "err_over_limit")),
 }
@@ -296,9 +355,14 @@ def versions(others: list, work: Path, timeout: float) -> int:
     return 0
 
 
-def controls(work: Path, timeout: float) -> int:
+def controls(names: list, work: Path, timeout: float) -> int:
+    unknown = set(names) - set(CONTROLS)
+    if unknown:
+        raise SystemExit(f"no control named {sorted(unknown)}")
     passed = []
     for name, (kernel, edits, checks) in CONTROLS.items():
+        if names and name not in names:
+            continue
         source = (ROOT / kernel).read_text()
         for old, new in edits:
             if source.count(old) != 1:
@@ -343,7 +407,10 @@ def trees(mode: str, other: Path, rounds: int, timeout: float) -> int:
         if rc != 0 or not lines:
             print(out[-4000:], flush=True)
             return 1
-        fields = dict(re.findall(r"(\w+)=(\{[^}]*\}|\S+)", lines[-1]))
+        fields = {}
+        for ln in lines:
+            if not ln.startswith("[build]"):
+                fields.update(re.findall(r"(\w+)=(\{[^}]*\}|\S+)", ln))
         record = {"turn": turn, "tree": label,
                   "card": out.split("AB_CARD ", 1)[1].splitlines()[0],
                   **{k: fields[k] for k in keys if k in fields}}
@@ -401,36 +468,235 @@ def wire(writers: list, cycles: int, timeout: float) -> int:
     return 0
 
 
-def decode_keys() -> int:
-    """One decode launch per case of DECODE_KEY_CASES at a full cache:
-    ms per launch and microseconds per key of one block."""
+# decode-keys: the same code in every tree (each tree's own wrapper).
+DECODE_KEYS_RUN = (
+    "import json, torch, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute.flashattention import "
+    "flash_attention_decode as fa\n"
+    "card = c.phase_device(); print('AB_CARD ' + card)\n"
+    "dev = torch.device('cuda', 0)\n"
+    "gen = torch.Generator(device=dev).manual_seed(0)\n"
+    "cap = c.KV_CAP\n"
+    "lens = torch.full((32,), cap, dtype=torch.int32, device=dev)\n"
+    "for name, ql, qdt, d, dv in {cases!r}:\n"
+    "    q = torch.randn((32, 1, ql, d), generator=gen, device=dev).to(\n"
+    "        getattr(torch, qdt))\n"
+    "    k = torch.randn((32, 1, cap, d), generator=gen, device=dev).to(\n"
+    "        torch.bfloat16)\n"
+    "    v = torch.randn((32, 1, cap, dv), generator=gen, device=dev).to(\n"
+    "        torch.bfloat16)\n"
+    "    fn = lambda: fa(q, k, v, lens)\n"
+    "    ms = c.cuda_ms(fn, runs=10, warmup=2)\n"
+    "    device_ms = c.device_busy(fn, calls=10)[0]\n"
+    "    print(f'[decode-keys] case={{name}} ms={{ms}} device_ms={{device_ms}}'"
+    " f' us_per_key={{ms * 1e3 / cap}}', flush=True)\n")
+
+
+def decode_keys(other: Path | None, rounds: int, timeout: float) -> int:
+    """DECODE_KEY_CASES in this tree, or in turns (other, this, this, other)
+    ``rounds`` times with another tree: ms a call (CUDA events), device ms
+    a call (torch.profiler) and microseconds a key."""
+    sides = [("this-tree", ROOT)]
+    order = [0]
+    if other is not None:
+        sides = [("other", other.resolve()), ("this-tree", ROOT)]
+        order = [0, 1, 1, 0] * rounds
+    turns = []
+    for turn, i in enumerate(order):
+        label, tree = sides[i]
+        rc, out = run(tree, DECODE_KEYS_RUN.format(cases=DECODE_KEY_CASES),
+                      timeout)
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("[decode-keys]")]
+        print(f"== turn {turn}: {label} (exit {rc})", flush=True)
+        for ln in lines:
+            print(ln, flush=True)
+        if rc != 0 or len(lines) != len(DECODE_KEY_CASES):
+            print(out[-4000:], flush=True)
+            return 1
+        turns.append({"turn": turn, "tree": label,
+                      "card": out.split("AB_CARD ", 1)[1].splitlines()[0],
+                      "rows": [dict(re.findall(r"(\w+)=(\S+)", ln))
+                               for ln in lines]})
+    print(json.dumps({"decode_keys_turns": turns}), flush=True)
+    return 0
+
+
+# ring-variants: copies of the ring kernel's 8-row form, each with its
+# (text, replacement) pairs in decode_attention.cu.
+_Q_SMEM = "constexpr bool q_in_smem(int ql) { return ql >= 8; }"
+_Q_REGS = "constexpr bool q_in_smem(int ql) { return false; }"
+_U = "constexpr int U = QL >= 4 ? 2 : 4; "
+_U1 = "constexpr int U = QL >= 8 ? 1 : QL >= 4 ? 2 : 4; "
+_STEPS = ("#pragma unroll (QL >= 8 ? 1 : kWarpKeys / kStepKeys)\n"
+          "    for (int step = 0;")
+_STEPS_UNROLLED = "#pragma unroll\n    for (int step = 0;"
+_BOUNDS = "__global__ void __launch_bounds__(kThreads, 2)"
+RING_VARIANTS = {
+    "this_tree": [],
+    "q_regs_u1_unrolled": [(_Q_SMEM, _Q_REGS), (_U, _U1),
+                           (_STEPS, _STEPS_UNROLLED)],
+    "q_regs_u1": [(_Q_SMEM, _Q_REGS), (_U, _U1)],
+    "q_smem_u1": [(_U, _U1)],
+    "q_smem_unrolled": [(_STEPS, _STEPS_UNROLLED)],
+    "q_regs_one_block_unrolled": [
+        (_Q_SMEM, _Q_REGS), (_STEPS, _STEPS_UNROLLED),
+        (_BOUNDS, "__global__ void __launch_bounds__(kThreads, "
+                  "QL >= 8 ? 1 : 2)")],
+}
+RING_VARIANTS_RUN = (
+    "import json, re, torch, numpy as np, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute import _build\n"
+    "from k8s_dra_driver_tpu_torch.compute.flashattention import "
+    "flash_attention_decode as fa\n"
+    "card = c.phase_device()\n"
+    "log = _build.build_all(force=True)['decode_attention'][1]\n"
+    "regs = {{}}\n"
+    "for chunk in log.split(\"Compiling entry function '\")[1:]:\n"
+    "    name = c.kernel_name(chunk.split(\"'\", 1)[0],"
+    " ['decode_ring_kernel'])\n"
+    "    if name.startswith('decode_ring_kernel<') and ',8,' in name:\n"
+    "        r = re.search(r'Used (\\d+) registers', chunk)\n"
+    "        sp = sum(int(n) for n in re.findall(r'(\\d+) bytes spill',"
+    " chunk))\n"
+    "        regs[name] = f'{{r.group(1)}}/{{sp}}'\n"
+    "dev = torch.device('cuda', 0)\n"
+    "g = torch.Generator(device=dev).manual_seed(0)\n"
+    "cap = c.KV_CAP\n"
+    "r = {{'card': card, 'registers_spills_8_rows': regs}}\n"
+    "lens = torch.full((32,), cap, dtype=torch.int32, device=dev)\n"
+    "for ql in (1, 8):\n"
+    "    q = c.randn(g, (32, 1, ql, 128), torch.bfloat16)\n"
+    "    k, v = (c.randn(g, (32, 1, cap, 128), torch.bfloat16)"
+    " for _ in range(2))\n"
+    "    r[f'keys_rows{{ql}}_device_ms'] = c.device_busy("
+    "lambda: fa(q, k, v, lens), calls=10)[0]\n"
+    "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
+    ".to(dev)\n"
+    "q = c.randn(g, (c.BATCH, c.HEADS, 1, c.HEAD_DIM), torch.bfloat16)\n"
+    "k, v = (c.randn(g, (c.BATCH, c.HEADS, cap, c.HEAD_DIM), torch.bfloat16)"
+    " for _ in range(2))\n"
+    "r['serve_bf16_ms'] = c.cuda_ms(lambda: fa(q, k, v, lens))\n"
+    "print('AB_RESULT ' + json.dumps(r), flush=True)\n")
+
+
+def ring_variants(work: Path, timeout: float) -> int:
+    source = (ROOT / DECODE_SRC).read_text()
+    turns = []
+    for name, edits in RING_VARIANTS.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"ring variant {name}: {old!r} is not in "
+                                 f"{DECODE_SRC} exactly once")
+            text = text.replace(old, new)
+        tree = copy_tree(work / name, text, DECODE_SRC)
+        rc, out = run(tree, RING_VARIANTS_RUN.format(), timeout)
+        if rc != 0 or "AB_RESULT " not in out:
+            print(f"== ring variant {name}: exit {rc}\n{out[-4000:]}",
+                  flush=True)
+            return 1
+        result = json.loads(out.split("AB_RESULT ", 1)[1].splitlines()[0])
+        print(f"[ring-variants] variant={name} " + " ".join(
+            f"{k}={json.dumps(v) if isinstance(v, dict) else v}"
+            for k, v in result.items() if k != "card"), flush=True)
+        turns.append({"variant": name, **result})
+    print(json.dumps({"ring_variants": turns}), flush=True)
+    return 0
+
+
+# general: (name, q, k and v dtypes, q, k and v shapes, causal or None for
+# decode, whether one PyTorch call computes it).
+GENERAL_ROWS = (
+    ("flash_f32_headline", ("float32",) * 3, ((4, 8, 2048, 128),) * 3,
+     False, True),
+    ("flash_f32_headline_causal", ("float32",) * 3,
+     ((4, 8, 2048, 128),) * 3, True, True),
+    ("mla_decode_f32", ("float32",) * 3,
+     ((32, 1, 128, 576), (32, 1, 4096, 576), (32, 1, 4096, 512)), None,
+     True),
+    ("decode_serve_f32q_bf16kv", ("float32", "bfloat16", "bfloat16"),
+     ((32, 32, 1, 128), (32, 32, 4096, 128), (32, 32, 4096, 128)), None,
+     False),
+)
+
+
+def general() -> int:
+    """GENERAL_ROWS on the general kernels: ms, plain ms, library ms, the
+    bound (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s, the longer),
+    launches a call and the error against the plain version."""
+    import numpy as np
     import torch
 
-    import chip_smoke
+    import chip_smoke as c
     from k8s_dra_driver_tpu_torch.compute.flashattention import (
+        decode_attention_reference,
+        flash_attention,
         flash_attention_decode,
     )
+    from k8s_dra_driver_tpu_torch.compute.ringattention import (
+        reference_attention,
+    )
 
-    card = chip_smoke.phase_device()
+    card = c.phase_device()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    cap = chip_smoke.KV_CAP
-    lens = torch.full((32,), cap, dtype=torch.int32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0))).to(
+        dev)
     rows = []
-    for name, ql, qdt, d, dv in DECODE_KEY_CASES:
-        q = torch.randn((32, 1, ql, d), generator=gen, device=dev).to(
-            getattr(torch, qdt))
-        k = torch.randn((32, 1, cap, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        v = torch.randn((32, 1, cap, dv), generator=gen, device=dev).to(
-            torch.bfloat16)
-        ms = chip_smoke.cuda_ms(
-            lambda: flash_attention_decode(q, k, v, lens), runs=10,
-            warmup=2)
-        rows.append({"case": name, "ms": ms, "us_per_key": ms * 1e3 / cap})
-        print(f"[decode-keys] case={name} ms={ms} "
-              f"us_per_key={ms * 1e3 / cap}", flush=True)
-    print(json.dumps({"decode_keys": rows, "card": card}), flush=True)
+    for name, dtypes, shapes, causal, has_library in GENERAL_ROWS:
+        q, k, v = (c.randn(gen, shape, getattr(torch, t))
+                   for shape, t in zip(shapes, dtypes))
+        b, h, ql, d = q.shape
+        dv, n = v.shape[3], k.shape[2]
+        if causal is None:
+            mask = (torch.arange(n, device=dev)[None, None, None, :]
+                    < lens[:, None, None, None])
+            keys = int(lens.clamp(max=n).sum()) * h
+            counter = flash_attention_decode
+            kernel = lambda: flash_attention_decode(q, k, v, lens)
+            plain = lambda: decode_attention_reference(q, k, v, lens)
+            library = lambda: sdpa(q, k, v, attn_mask=mask)
+            nbytes = (keys * (d * k.element_size() + dv * v.element_size())
+                      + q.numel() * q.element_size()
+                      + b * h * ql * dv * q.element_size() + lens.numel() * 4)
+            flops = 2 * keys * ql * (d + dv)
+        else:
+            keys = b * h * n
+            counter = flash_attention
+            kernel = lambda: flash_attention(q, k, v, causal=causal)
+            plain = lambda: reference_attention(q, k, v, causal=causal)
+            library = lambda: sdpa(q, k, v, is_causal=causal)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
+            flops = 2 * b * h * ql * n * (d + dv) // (2 if causal else 1)
+        before = counter.launches
+        out = kernel()
+        per_call = counter.launches - before
+        ms = c.cuda_ms(kernel, runs=10, warmup=2)
+        plain_ms = c.cuda_ms(plain, runs=10, warmup=2)
+        library_ms = c.cuda_ms(library, runs=10, warmup=2) if has_library \
+            else None
+        tol = c.FLASH_F32_TOL if set(dtypes) == {"float32"} else \
+            c.FLASH_BF16_TOL
+        err, over = c.compare(out, plain(), *tol)
+        bytes_ms = nbytes / c.HBM_BYTES_S * 1e3
+        flops_ms = flops / c.F32_FLOP_S * 1e3
+        row = {"row": name, "dtypes": "/".join(dtypes),
+               "q": list(q.shape), "k": list(k.shape), "v": list(v.shape),
+               "causal": causal, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "bound_ms": max(bytes_ms, flops_ms),
+               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+               "launches_per_call": per_call, "max_abs_err": err,
+               "err_over_limit": over}
+        print("[general] " + " ".join(
+            f"{key}={json.dumps(val) if isinstance(val, list) else val}"
+            for key, val in row.items()), flush=True)
+        rows.append(row)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    print(json.dumps({"general": rows, "card": card}), flush=True)
     return 0
 
 
@@ -464,14 +730,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("versions", "controls", "serve",
                                      "decode", "wire", "flash32",
-                                     "decode-keys", "wide-parts"))
+                                     "decode-keys", "wide-parts",
+                                     "ring-variants", "general"))
     ap.add_argument("sources", nargs="*",
-                    help="other flash_attention.cu files (versions), or "
+                    help="other flash_attention.cu files (versions), "
                          "the other tree's directory (serve, decode, "
-                         "flash32)")
+                         "flash32; decode-keys, optional), or controls' "
+                         "names (controls, optional)")
     ap.add_argument("--rounds", type=int, default=2,
-                    help="serve, decode, flash32: rounds of other, this, "
-                         "this, other")
+                    help="serve, decode, flash32, decode-keys: rounds of "
+                         "other, this, this, other")
     ap.add_argument("--work", type=Path, default=ROOT / "chipcopy" / "ab",
                     help="where the copies go (a directory .gitignore "
                          "lists)")
@@ -486,7 +754,14 @@ def main(argv=None) -> int:
         return wire([int(w) for w in args.writers.split(",")],
                     args.cycles, args.timeout)
     if args.mode == "decode-keys":
-        return decode_keys()
+        if len(args.sources) > 1:
+            ap.error("decode-keys takes at most one other tree")
+        return decode_keys(Path(args.sources[0]) if args.sources else None,
+                           args.rounds, args.timeout)
+    if args.mode == "general":
+        return general()
+    if args.mode == "ring-variants":
+        return ring_variants(args.work, args.timeout)
     if args.mode == "wide-parts":
         return wide_parts(args.work, args.timeout)
     if args.mode == "versions":
@@ -498,7 +773,7 @@ def main(argv=None) -> int:
             ap.error(f"{args.mode} needs the other tree's directory")
         return trees(args.mode, Path(args.sources[0]), args.rounds,
                      args.timeout)
-    return controls(args.work, args.timeout)
+    return controls(args.sources, args.work, args.timeout)
 
 
 if __name__ == "__main__":

@@ -14,9 +14,10 @@ One line per phase:
            memory within 1% of torch's and its /dev/nvidia<minor> node
 2. build   nvcc of every kernel source, all started together, with seconds;
            per kernel ptxas's registers, shared memory and spills, and its
-           SASS count of warpgroup MMAs (HGMMA) and TMA loads (UTMALDG):
-           every bf16 and f16 flash kernel and every wide kernel (decode and
-           flash, at head dims over 256) must have both
+           SASS count of warpgroup MMAs (HGMMA), TMA loads (UTMALDG) and
+           bulk copies (UBLKCP): every bf16 and f16 flash kernel and every
+           wide kernel (decode and flash, at head dims over 256) must have
+           the first two, and every tuned decode ring kernel the third
 3. check   the decode kernel against its plain PyTorch version on the card
            at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
            lengths): f32 within 1e-4, bf16 and f16 within 2e-2, a poisoned
@@ -34,7 +35,12 @@ One line per phase:
            cache, one launch a call, and with a poisoned tail (+-1e6,
            +-6e4 in f16) that moves its output by less than 1e-5; then a
            small engine on the card against the same engine on the CPU,
-           step for step
+           step for step; the tuned decode's ring kernel in bf16 and f16 at
+           d = dv = 128 (1 and 5 query rows), 64, 256, 128/64 and 64/256,
+           nine sequences of lengths 1, 2, its tile's edges (T - 1, T,
+           T + 1), a split's edges (+-1) and the cache, the cache split
+           across blocks: within 2e-2 and the flash limit, one launch a
+           call, and a poisoned tail that moves the output by less than 1e-5
 4. timing  the decode kernel, its plain version and one library call, at
            the engine's shape, beside the least time the card could take
 5. serve   the claim path: a ResourceClaim for that card (CEL on its UUID)
@@ -80,8 +86,9 @@ One line per phase:
            against a latent cache k [32, 1, 4096, 576], v [.., 512], ragged
            lengths; the wide kernel and its merge, one launch a call), flash
            attention at 576/512 ([1, 16, 2048], bf16, causal off and on; the
-           wide kernel), the f16 flash headline and the f16 decode serve
-           shape, each held against its plain version
+           wide kernel), the f16 flash headline and the f16 and bf16 decode
+           serve shapes (the ring kernel alone, one split), each held
+           against its plain version
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
@@ -347,6 +354,8 @@ from k8s_dra_driver_tpu_torch.compute.flashattention import (
     flash_attention,
     flash_attention_decode,
     padded_head_dims,
+    tuned_decode_splits,
+    tuned_decode_tile,
     wide_decode_splits,
     wide_kernel_takes,
 )
@@ -698,9 +707,10 @@ def kernel_name(mangled: str, names: list) -> str:
 def phase_build() -> None:
     """Builds every kernel source; prints, for each kernel, ptxas's
     registers, static shared memory and spills, and how many of its SASS
-    instructions are warpgroup MMAs (HGMMA) and TMA loads (UTMALDG). Every
-    bf16 and f16 flash kernel and every wide decode and flash kernel must
-    have both."""
+    instructions are warpgroup MMAs (HGMMA), TMA loads (UTMALDG) and 1-D
+    bulk copies (UBLKCP). Every bf16 and f16 flash kernel and every wide
+    decode and flash kernel must have the first two, and every tuned decode
+    ring kernel the bulk copy its K and V tiles arrive by."""
     t0 = time.monotonic()
     built = _build.build_all(force=True)
     require(bool(built), "no kernel source was built")
@@ -713,7 +723,8 @@ def phase_build() -> None:
         sass = {}
         for fn in _build.disassemble(name).split("Function : ")[1:]:
             sass[fn.split(None, 1)[0]] = (len(re.findall(r"\bHGMMA\.", fn)),
-                                          len(re.findall(r"\bUTMALDG\.", fn)))
+                                          len(re.findall(r"\bUTMALDG\.", fn)),
+                                          len(re.findall(r"\bUBLKCP\.", fn)))
         chunks = log.split("Compiling entry function '")[1:]
         line("build", source=f"{name}.cu", seconds=f"{s:.2f}",
              kernels=len(chunks))
@@ -728,15 +739,18 @@ def phase_build() -> None:
             smem = re.search(r"(\d+) bytes smem", chunk)
             spills = sum(int(n) for n in
                          re.findall(r"(\d+) bytes spill", chunk))
-            hgmma, utmaldg = sass.get(mangled, (0, 0))
+            hgmma, utmaldg, ublkcp = sass.get(mangled, (0, 0, 0))
             line("build", kernel=kernel,
                  registers=regs.group(1) if regs else "?",
                  static_smem_bytes=smem.group(1) if smem else 0,
-                 spill_bytes=spills, sass_HGMMA=hgmma, sass_UTMALDG=utmaldg)
+                 spill_bytes=spills, sass_HGMMA=hgmma, sass_UTMALDG=utmaldg,
+                 sass_UBLKCP=ublkcp)
             if kernel.startswith(("flash_bf16_kernel", "flash_f16_kernel",
                                   "wide_flash_kernel", "wide_decode_kernel")):
                 require(hgmma > 0 and utmaldg > 0,
                         f"{kernel} has no wgmma or no TMA load in its SASS")
+            if kernel.startswith("decode_ring_kernel"):
+                require(ublkcp > 0, f"{kernel} has no bulk copy in its SASS")
     line("build", total_seconds=f"{time.monotonic() - t0:.2f}")
 
 
@@ -807,9 +821,10 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
         require(eph < POISON_TOL,
                 f"poisoned f16 tail moved the output by {eph}")
         worst_f32 = max(worst_f32, e32)
-    # Every compiled variant at a small shape: each q_len (the kernel is
-    # built for 1, 2, 4 and 8 rows), 16-byte and scalar loads (d = 66 is
-    # not a multiple of a 16-byte vector), d up to 256, every dtype.
+    # Every compiled variant at a small shape: each q_len (the kernels are
+    # built for 1, 2, 4 and 8 rows), the ring kernel (d = 128, and 256 but
+    # in f32), the per-warp kernel's 16-byte loads (f32 at 256) and scalar
+    # loads (d = 66 is not a whole number of 16-byte chunks), every dtype.
     small = np.array([1, 45, 300], np.int32)
     worst = 0.0
     for ql in range(1, 9):
@@ -856,6 +871,7 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
          worst_err_over_tol=worst)
     general_dims_check(rng)
     wide_decode_check(rng)
+    tuned_decode_check(rng)
     before = flash_attention_decode.launches
     try:
         flash_attention_decode(q, k, v, lens, block_k=1000)
@@ -977,6 +993,83 @@ def wide_decode_check(rng: np.random.Generator) -> float:
          layout=json.dumps([list(t) for t in shapes]),
          lens=json.dumps(lens_np.tolist()), split_keys=split_keys,
          launches_per_call=1, **fields,
+         flash_atol_rtol=json.dumps(FLASH_BF16_TOL))
+    torch.cuda.empty_cache()
+    return worst
+
+
+# The tuned decode's ring kernel: (query rows, d, dv) of its checks, and
+# their sequences (one per length, one head, so that the cache is split).
+RING_DECODE_DIMS = ((1, 128, 128), (5, 128, 128), (1, 64, 64),
+                    (1, 256, 256), (2, 128, 64), (1, 64, 256))
+RING_DECODE_SEQS = 9
+
+
+def tuned_decode_check(rng: np.random.Generator) -> float:
+    """The tuned decode's ring kernel in bf16 and f16 at RING_DECODE_DIMS
+    against the smoke's cache: RING_DECODE_SEQS sequences of one head (a
+    grid of 9 blocks, so the cache is split across blocks and merged), of
+    lengths 1, 2, its tile's edges (T - 1, T, T + 1), a split's
+    (split_keys - 1, split_keys, split_keys + 1) and the whole cache. Each
+    call is one launch within BF16_TOL of its plain version and within the
+    flash limit FLASH_BF16_TOL (atol, rtol), which a softmax scale 1% off
+    exceeds where BF16_TOL alone may not; then every key past each length
+    is poisoned (+-POISON in K, -+ in V; +-F16_POISON in f16), which must
+    move the output by less than POISON_TOL. Returns the worst error's
+    share of the flash limit."""
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, rows = 0.0, []
+    for ql, d, dv in RING_DECODE_DIMS:
+        base = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            dev) for shape in ((RING_DECODE_SEQS, 1, ql, d),
+                               (RING_DECODE_SEQS, 1, KV_CAP, d),
+                               (RING_DECODE_SEQS, 1, KV_CAP, dv))]
+        for dtype, poison in ((torch.bfloat16, POISON),
+                              (torch.float16, F16_POISON)):
+            tile = tuned_decode_tile(dtype, d, dv)
+            splits, split_keys = tuned_decode_splits(
+                RING_DECODE_SEQS, 1, KV_CAP, tile, sms)
+            what = f"ring decode {dtype_names(dtype)} ql={ql} d={d} dv={dv}"
+            require(tile > 0 and splits > 1,
+                    f"{what}: tile {tile}, {splits} splits")
+            lens_np = np.array([1, 2, tile - 1, tile, tile + 1,
+                                split_keys - 1, split_keys, split_keys + 1,
+                                KV_CAP], np.int32)
+            lens = torch.from_numpy(lens_np).to(dev)
+            q, k, v = (t.to(dtype) for t in base)
+            before = flash_attention_decode.launches
+            out = flash_attention_decode(q, k, v, lens)
+            calls = flash_attention_decode.launches - before
+            ref = decode_attention_reference(q, k, v, lens)
+            require(out.shape == ref.shape and out.dtype == dtype
+                    and bool(torch.isfinite(out).all()),
+                    f"{what}: output {tuple(out.shape)} {out.dtype}")
+            require(calls == 1, f"{what}: {calls} launches, not 1")
+            err, over = compare(out, ref, *FLASH_BF16_TOL)
+            require(err < decode_tol(dtype), f"{what}: error {err}")
+            require(over <= 1, f"{what}: {over} of the flash limit")
+            kp, vp = k.clone(), v.clone()
+            for i, m in enumerate(lens_np.tolist()):
+                kp[i, :, m:] = poison
+                vp[i, :, m:] = -poison
+            moved = (flash_attention_decode(q, kp, vp, lens).float()
+                     - out.float()).abs().max().item()
+            require(moved < POISON_TOL, f"{what}: the poisoned tail moved "
+                                        f"the output by {moved}")
+            rows.append([dtype_names(dtype), ql, d, dv, tile, splits,
+                         split_keys, err, over, moved])
+            worst = max(worst, over)
+            del q, k, v, kp, vp, out, ref
+        del base
+    line("check", kernel="decode_attention", route="ring",
+         seqs=RING_DECODE_SEQS, cap=KV_CAP, launches_per_call=1,
+         rows=json.dumps(rows, separators=(",", ":")),
+         row_fields=json.dumps(["dtype", "ql", "d", "dv", "tile", "splits",
+                                "split_keys", "max_abs_err",
+                                "err_over_flash_limit",
+                                "poisoned_tail_max_abs_diff"]),
+         worst_err_over_flash_limit=worst,
          flash_atol_rtol=json.dumps(FLASH_BF16_TOL))
     torch.cuda.empty_cache()
     return worst
@@ -1378,11 +1471,13 @@ def phase_wide(seed: int) -> dict:
     """The inputs both kernels took last, at full width (``wide_row`` per
     call): DeepSeek-V3's absorbed-MLA decode in bf16 and flash attention at
     576/512 in bf16 (causal off and on) on the wide kernels, the f16 flash
-    headline and the f16 decode serve shape on the tuned ones. Its own main
-    path: the counts are zeroed before it and must equal the rows' launches
-    after it. Returns the launches by route (``decode_attention`` and
+    headline, and the f16 and bf16 decode serve shapes on the tuned ones
+    (the decode ring kernel alone: one split, no merge). Its own main path:
+    the counts are zeroed before it and must equal the rows' launches after
+    it. Returns the launches by route (``decode_attention`` and
     ``flash_attention``: the tuned kernels; ``*_wide``: the wide ones) and
-    the MLA and non-causal flash rows (``mla_decode``, ``flash_576_512``)."""
+    the MLA, non-causal flash and f16 decode rows (``mla_decode``,
+    ``flash_576_512``, ``decode_f16_serve``)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1445,20 +1540,25 @@ def phase_wide(seed: int) -> dict:
         shape=list(FLASH_SHAPE), dtype="float16", causal=False)["launches"]
     del q, k, v
 
-    # The decode kernel at the serve shape in f16.
-    q = randn(gen, (BATCH, HEADS, 1, HEAD_DIM), f16)
-    k, v = (randn(gen, (BATCH, HEADS, KV_CAP, HEAD_DIM), f16)
-            for _ in range(2))
-    routes["decode_attention"] += wide_row(
-        "decode_f16_serve", flash_attention_decode,
-        lambda: flash_attention_decode(q, k, v, lens),
-        lambda: decode_attention_reference(q, k, v, lens),
-        lambda: sdpa(q, k, v, attn_mask=mask),
-        nbytes=(keys * HEADS * HEAD_DIM * 2 + 2 * q.numel()) * 2
-        + lens.numel() * 4, flops=4 * keys * HEADS * HEAD_DIM,
-        tol=(BF16_TOL, 0.0), own="decode_attention_kernel",
-        q=list(q.shape), k=list(k.shape), dtype="float16")["launches"]
-    del q, k, v
+    # The decode kernel at the serve shape in f16 and bf16: the ring kernel,
+    # one split (1,024 blocks fill the SMs), so no merge in the trace.
+    serve_rows = {}
+    for leg, name, dtype in (("decode_f16_serve", "float16", f16),
+                             ("decode_bf16_serve", "bfloat16", bf16)):
+        q = randn(gen, (BATCH, HEADS, 1, HEAD_DIM), dtype)
+        k, v = (randn(gen, (BATCH, HEADS, KV_CAP, HEAD_DIM), dtype)
+                for _ in range(2))
+        serve_rows[leg] = wide_row(
+            leg, flash_attention_decode,
+            lambda: flash_attention_decode(q, k, v, lens),
+            lambda: decode_attention_reference(q, k, v, lens),
+            lambda: sdpa(q, k, v, attn_mask=mask),
+            nbytes=(keys * HEADS * HEAD_DIM * 2 + 2 * q.numel()) * 2
+            + lens.numel() * 4, flops=4 * keys * HEADS * HEAD_DIM,
+            tol=(BF16_TOL, 0.0), own="decode_ring_kernel",
+            q=list(q.shape), k=list(k.shape), dtype=name)
+        routes["decode_attention"] += serve_rows[leg]["launches"]
+        del q, k, v
     torch.cuda.synchronize()
     counts = launches()
     line("wide", launches=json.dumps(counts), routes=json.dumps(routes),
@@ -1468,7 +1568,8 @@ def phase_wide(seed: int) -> dict:
     require(counts == want, f"the wide leg's launches: {counts}, its rows "
                             f"counted {want}")
     torch.cuda.empty_cache()
-    return {**routes, "mla_decode": mla, "flash_576_512": flash_rows[0]}
+    return {**routes, "mla_decode": mla, "flash_576_512": flash_rows[0],
+            **serve_rows}
 
 
 def phase_burnin() -> None:
@@ -5088,8 +5189,7 @@ def main(argv=None) -> int:
                      + soak["launches"] + scale["launches"]
                      + mig["kernel_launches"] + wire["launches"]
                      + crash["launches"] + race["launches"]
-                     + cluster["launches"] + gates["launches"]
-                     + wide["decode_attention"]),
+                     + cluster["launches"] + gates["launches"]),
         "max_abs_err": max(max_abs_err, soak["max_abs_err"],
                            mig["max_abs_err"], wire["max_abs_err"],
                            crash["max_abs_err"], race["max_abs_err"],
@@ -5097,7 +5197,15 @@ def main(argv=None) -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
-    }, {
+    }] + [{
+        # The tuned decode at 16 bits: the wide leg's serve-shape rows.
+        "name": f"decode_attention_{name}", "route": "cuda",
+        "source": "k8s_dra_driver_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:125",
+        **{key: wide[f"decode_{name}_serve"][key] for key in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+    } for name in ("f16", "bf16")] + [{
         "name": "flash_attention", "route": "cuda",
         "source": "k8s_dra_driver_tpu_torch/csrc/flash_attention.cu",
         "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:36",

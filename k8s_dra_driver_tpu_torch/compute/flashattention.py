@@ -22,8 +22,12 @@ On the card each wrapper picks one of three routes by dtypes and head dims
 (head dims zero-padded to the next multiple of 16 where a route says so):
 
 - tuned: q, k and v of one dtype with d, dv <= TUNED_HEAD_DIM (decode, in
-  f32, bf16 or f16: one block per (b, h), per-warp online softmax; flash,
-  in bf16 or f16: the ``wgmma``/TMA path, padded head dims);
+  f32, bf16 or f16: where K's and V's rows are whole 16-byte chunks on
+  16-byte boundaries, the ring kernel, bulk copies of K and V tiles into
+  shared memory with the cache split across blocks when b * h would leave
+  SMs idle (``tuned_decode_tile``, ``tuned_decode_splits``), else one
+  block per (b, h) with a per-warp online softmax; flash, in bf16 or f16:
+  the ``wgmma``/TMA path, padded head dims);
 - wide: q, k and v all bf16 or all f16, padded d <= WIDE_MAX_D and dv <=
   WIDE_MAX_DV, one of them over TUNED_HEAD_DIM (DeepSeek-V3's absorbed
   MLA, 576/512): the tensor-core kernels of ``csrc/wide_attention.cuh``,
@@ -36,7 +40,8 @@ On the card each wrapper picks one of three routes by dtypes and head dims
   chunks, with dv split across blocks.
 
 The tuned and general decode kernels launch once per group of up to
-MAX_Q_LEN query rows.
+MAX_Q_LEN query rows (the ring kernel's merge, where it splits the cache,
+counts as part of its launch).
 """
 
 from __future__ import annotations
@@ -71,6 +76,13 @@ WIDE_ROWS = 64
 WIDE_KEYS = 32
 WIDE_SPLIT_MIN_KEYS = 256
 WIDE_BLOCKS_PER_SM = 1
+#: The tuned decode's ring kernel: the bytes of one stage of its ring (a
+#: tile of K rows and one of V rows), the least keys of one split of the
+#: cache, and the blocks an SM that the split count aims for (two blocks'
+#: rings fit an SM's shared memory).
+TUNED_STAGE_BYTES = 32 * 1024
+TUNED_SPLIT_MIN_KEYS = 256
+TUNED_BLOCKS_PER_SM = 2
 
 #: Each dtype's suffix of a tuned kernel's C entry and its code in the
 #: general kernels' C entries; the dtypes each source's tuned kernel takes.
@@ -146,6 +158,42 @@ def wide_decode_splits(b: int, h: int, ql: int, kv_cap: int,
     want = -(-WIDE_BLOCKS_PER_SM * sms // blocks)
     most = max(1, tiles * WIDE_KEYS // WIDE_SPLIT_MIN_KEYS)
     split_keys = -(-tiles // max(1, min(want, most))) * WIDE_KEYS
+    return -(-kv_cap // split_keys), split_keys
+
+
+def tuned_decode_tile(dtype: torch.dtype, d: int, dv: int) -> int:
+    """Keys per tile of the tuned decode's ring kernel for a call in
+    ``dtype`` with head dims ``d`` and ``dv`` (each <= TUNED_HEAD_DIM), or
+    0 where the per-warp kernel takes it: K's or V's row not a whole
+    number of 16-byte chunks, or more than 32 of them. A key takes 8, 16
+    or 32 lanes, one chunk of its K row and one of its V row each; a tile
+    is TUNED_STAGE_BYTES over two rows of that many chunks. (The kernel
+    also needs k and v on 16-byte boundaries; the wrapper checks.)"""
+    size = dtype.itemsize
+    if (d * size) % 16 or (dv * size) % 16:
+        return 0
+    chunks = max(d, dv) * size // 16
+    if chunks > 32:
+        return 0
+    lanes = 8 if chunks <= 8 else 16 if chunks <= 16 else 32
+    return TUNED_STAGE_BYTES // (2 * 16 * lanes)
+
+
+def tuned_decode_splits(b: int, h: int, kv_cap: int, tile: int,
+                        sms: int) -> tuple[int, int]:
+    """(splits, keys per split) of the ring kernel's cache range, for
+    ``tile`` keys a tile (``tuned_decode_tile``).
+
+    Each of the b * h caches is split so that the grid holds about
+    TUNED_BLOCKS_PER_SM blocks for each of ``sms`` SMs, but no split has
+    fewer than TUNED_SPLIT_MIN_KEYS keys of the cache, and a split is a
+    whole number of tiles; one split (no merge) once b * h fills the SMs.
+    From the shapes alone: the lengths are on the device, and reading them
+    would wait for it."""
+    tiles = -(-kv_cap // tile)
+    want = -(-TUNED_BLOCKS_PER_SM * sms // (b * h))
+    most = max(1, tiles * tile // TUNED_SPLIT_MIN_KEYS)
+    split_keys = -(-tiles // max(1, min(want, most))) * tile
     return -(-kv_cap // split_keys), split_keys
 
 
@@ -345,33 +393,50 @@ def _launch_decode(q, k, v, kv_lengths, stream: int,
     """The decode kernel that takes these checked inputs, launched on
     ``stream`` (the wide kernels once, the others once per group of query
     rows); each launch counted in ``flash_attention_decode.launches``.
-    ``sms``: the SM count that sizes the wide kernel's split (the
-    device's by default)."""
+    ``sms``: the SM count that sizes the wide and the ring kernels' splits
+    (the device's by default)."""
     b, h, ql, d = q.shape
     kv_cap, dv = k.shape[2], v.shape[3]
     p, i = ctypes.c_void_p, ctypes.c_int
     dp, dvp = padded_head_dims(d, dv)
-    if (not tuned_kernel_takes("decode_attention", q, k, v, d, dv)
-            and wide_kernel_takes(q, k, v, dp, dvp)):
+    tuned = tuned_kernel_takes("decode_attention", q, k, v, d, dv)
+    if not tuned and wide_kernel_takes(q, k, v, dp, dvp):
         return _launch_decode_wide(q, k, v, kv_lengths, stream,
                                    sms or _sm_count(q.device))
     ints = [i] * 8   # b, h, ql, row0, rows, cap, d, dv
-    if tuned_kernel_takes("decode_attention", q, k, v, d, dv):
+    group = MAX_Q_LEN
+    if tuned:
         fn, err_str = _c_entry("decode_attention", _DTYPES[q.dtype],
-                               [p] * 5 + ints + [ctypes.c_float, p])
-        codes, group = (), MAX_Q_LEN
+                               [p] * 7 + ints + [ctypes.c_float, i, i, p])
+        aligned = k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+        tile = tuned_decode_tile(q.dtype, d, dv) if aligned else 0
+        splits, split_keys = (tuned_decode_splits(
+            b, h, kv_cap, tile, sms or _sm_count(q.device)) if tile
+            else (1, kv_cap))
+        work = ()
+        if splits > 1:
+            # f32 partials of one launch's rows; the launches of a call run
+            # in stream order, each merged before the next writes.
+            rows = min(ql, group)
+            work = (torch.empty(b * h * splits * rows * dv,
+                                dtype=torch.float32, device=q.device),
+                    torch.empty(b * h * splits * rows * 2,
+                                dtype=torch.float32, device=q.device))
+        ptrs = tuple(t.data_ptr() for t in work) or (None, None)
+        tail = (splits, split_keys)
     else:
         fn, err_str = _c_entry("decode_attention", "general",
                                [p] * 5 + ints + [ctypes.c_float] + [i] * 3
                                + [p])
-        codes = (_CODES[q.dtype], _CODES[k.dtype], _CODES[v.dtype])
+        ptrs = ()
+        tail = (_CODES[q.dtype], _CODES[k.dtype], _CODES[v.dtype])
         group = max(1, min(MAX_Q_LEN, GENERAL_Q_SMEM_BYTES // (4 * d)))
     out = torch.empty((b, h, ql, dv), dtype=q.dtype, device=q.device)
     for row0 in range(0, ql, group):
         rows = min(group, ql - row0)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 kv_lengths.data_ptr(), out.data_ptr(), b, h, ql, row0, rows,
-                 kv_cap, d, dv, 1.0 / math.sqrt(d), *codes, stream)
+                 kv_lengths.data_ptr(), out.data_ptr(), *ptrs, b, h, ql,
+                 row0, rows, kv_cap, d, dv, 1.0 / math.sqrt(d), *tail, stream)
         _raise_on(err, err_str, "decode_attention")
         with _LAUNCH_COUNT_MU:   # engines launch from several threads
             flash_attention_decode.launches += 1

@@ -17,8 +17,14 @@
 // every row in one call.
 //
 // Which kernel takes a call (the C entries at the end):
-//   * q, k and v of one dtype (f32, bf16 or f16) with d, dv <= 256:
-//     `decode_attention_kernel`, entries decode_attention_{f32,bf16,f16};
+//   * q, k and v of one dtype (f32, bf16 or f16) with d, dv <= 256, entries
+//     decode_attention_{f32,bf16,f16}: `decode_ring_kernel` (and, where the
+//     cache is split, the merge of wide_attention.cuh) when every K and V
+//     row is a whole number of 16-byte chunks, at most 32 of them (f32 up
+//     to 128), and k and v start on 16-byte boundaries; else
+//     `decode_attention_kernel` (d = 66 in 16 bits, a view of a cache that
+//     starts mid-chunk, f32 past 128), which loads a row an element a lane
+//     where it is not whole chunks;
 //   * q, k and v all bf16 or all f16, d or dv over 256, d <= 576 and
 //     dv <= 512 (the wrapper zero-pads both to multiples of 16): the wide
 //     tensor-core kernel of wide_attention.cuh and its merge, entries
@@ -54,12 +60,46 @@
 //     and one row offset cover a key's K and V loads, which keeps all of a
 //     batch's loads issued together (with separate guards the same shapes
 //     ran 2.4% slower on the H100).
-// The general kernel keeps that walk and lifts the width limit: a block
-// takes 256 output columns (a second grid dimension over dv, each block
-// computing the full scores again: q.k is cheap next to the bytes), walks d
-// in chunks of one warp load, holds the launch's query rows in shared memory
-// as f32 (interleaved so that a warp's reads hit 32 banks; row-major, a
-// warp's reads of a row meet 8-way bank conflicts), and
+// What held that kernel back at 16 bits (PERF.md: 0.836 ms at the f16
+// serve shape on an H100, 38.6% of its bound, behind the library's 0.695):
+// a lane loads 8 elements, so at d = 128 lanes 16-31 load nothing yet take
+// part in every key's warp_sum; a warp's batch of loads and its arithmetic
+// take turns, and per byte the 16-bit batch costs twice f32's
+// instructions; and a grid of b h blocks leaves SMs idle when b h is
+// small. The ring kernel
+// (after the per-warp kernel below) is designed against each:
+//   * bytes in flight that cost no registers or issue slots: one producer
+//     warp, one lane of it, keeps a 3-stage ring of K and V tiles in flight
+//     into shared memory with the 1-D bulk copy (`cp.async.bulk`, UBLKCP in
+//     the SASS), completing on mbarriers. A (b h)'s cache is one contiguous
+//     [cap, d] span, so a tile of T keys is one copy of T d sizeof(T) bytes
+//     (and one of V); the last tile copies only its valid keys, and nothing
+//     at or past min(len, cap) is read. A stage is 32 KiB (T = 64 at d = 128
+//     in 16 bits), 96 KiB a block, two blocks an SM;
+//   * every lane working: 4 consumer warps compute from shared memory. A
+//     key takes G = 8, 16 or 32 lanes, one 16-byte chunk of its K row and
+//     of its V row each (G = 16 at d = 128 in 16 bits: a warp reads two
+//     keys' 512 contiguous bytes a load, with no bank conflict); q.k sums
+//     over G lanes (log2 G shuffles), so every lane of the warp works. Each
+//     lane group keeps its own online softmax (base-2 max, denominator and
+//     a chunk of the accumulator in f32) over U keys a step, p rounded to
+//     V's dtype before P V; the block's 4 x 32 / G softmaxes merge once, at
+//     the end, through the emptied ring;
+//   * split-KV when b h leaves SMs idle: blocks (b h, split), the split
+//     count sized by the wrapper from the shapes and the SM count alone
+//     (`tuned_decode_splits`), one split at the serve shape (1,024 blocks);
+//     with more, each block writes an f32 partial (O, base-2 max, l) and the
+//     wide path's merge kernel combines them.
+// f32 calls take it too where their rows are whole chunks (up to d = 128:
+// G = 32 lanes hold a 512-byte row): at the f32 serve shape on an H100 it
+// ran 0.696-0.705 ms against the per-warp kernel's 0.732-0.736 in one
+// call's interleaved turns (`chip_ab.py decode`; PERF.md).
+// The general kernel keeps the per-warp walk and lifts the width limit: a
+// block takes 256 output columns (a second grid dimension over dv, each
+// block computing the full scores again: q.k is cheap next to the bytes),
+// walks d in chunks of one warp load, holds the launch's query rows in
+// shared memory as f32 (interleaved so that a warp's reads hit 32 banks;
+// row-major, a warp's reads of a row meet 8-way bank conflicts), and
 // converts each operand from its own dtype as it is loaded (K
 // and V by template, q and out by a code read once per element), so no
 // caller has to cast a cache. Each block re-reads all of K: at dv = 512 the
@@ -310,23 +350,28 @@ void launch_dims(const void* q, const void* k, const void* v,
                  const void* lens, void* out, int b, int h, int ql, int row0,
                  int rows, int cap, int d, int dv, float scale,
                  cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const bool vec = d % kVec == 0 && dv % kVec == 0 &&
-                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const auto* qp = static_cast<const T*>(q);
   const auto* kp = static_cast<const T*>(k);
   const auto* vp = static_cast<const T*>(v);
   const auto* lp = static_cast<const int*>(lens);
   auto* op = static_cast<T*>(out);
-  if (vec)
-    decode_attention_kernel<T, QL, kVec, kSameDims>
-        <<<b * h, kThreads, 0, stream>>>(qp, kp, vp, lp, op, h, ql, row0,
-                                         rows, cap, d, dv, scale);
-  else
-    decode_attention_kernel<T, QL, 1, kSameDims>
-        <<<b * h, kThreads, 0, stream>>>(qp, kp, vp, lp, op, h, ql, row0,
-                                         rows, cap, d, dv, scale);
+  // Whole 16-byte chunks on 16-byte boundaries reach this kernel only in
+  // f32 past d = 128 (the ring kernel takes the rest), so only f32 has the
+  // 16-byte form.
+  if constexpr (sizeof(T) == 4) {
+    constexpr int kVec = 16 / sizeof(T);
+    if (d % kVec == 0 && dv % kVec == 0 &&
+        reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(v) % 16 == 0) {
+      decode_attention_kernel<T, QL, kVec, kSameDims>
+          <<<b * h, kThreads, 0, stream>>>(qp, kp, vp, lp, op, h, ql, row0,
+                                           rows, cap, d, dv, scale);
+      return;
+    }
+  }
+  decode_attention_kernel<T, QL, 1, kSameDims>
+      <<<b * h, kThreads, 0, stream>>>(qp, kp, vp, lp, op, h, ql, row0,
+                                       rows, cap, d, dv, scale);
 }
 
 template <typename T, int QL>
@@ -342,25 +387,394 @@ int launch_rows(const void* q, const void* k, const void* v, const void* lens,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the ring kernel: 16-bit (and f32) rows streamed through shared memory
+
+namespace ring {
+
+constexpr int kConsumers = 4;                     // consumer warps a block
+constexpr int kThreads = 32 * (kConsumers + 1);   // and one producer warp
+constexpr int kStages = 3;                        // tiles in flight a block
+constexpr int kStageBytes = 32 * 1024;            // a K tile and a V tile
+constexpr int kQOffset = kStages * kStageBytes + 64;  // after the barriers
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Whether a kernel of QL query rows holds q as f32 in shared memory rather
+// than in registers (at 8 rows of 16 bits, q in registers made ptxas spill
+// 176-488 bytes a thread under the 168 registers that two blocks an SM
+// leave; `chip_ab.py ring-variants`); and its dynamic shared memory: the
+// ring, its barriers and q.
+__host__ __device__ constexpr bool q_in_smem(int ql) { return ql >= 8; }
+__host__ __device__ constexpr int smem_bytes(int ql) {
+  return kQOffset + (q_in_smem(ql) ? ql * kMaxD * 4 : 0);
+}
+
+// Keys a tile when a K or V row is at most `lanes` 16-byte chunks: two rows
+// a key, so a stage never holds more than kStageBytes.
+__host__ __device__ constexpr int tile_keys(int lanes) {
+  return kStageBytes / (2 * 16 * lanes);
+}
+
+// Lanes a key (8, 16 or 32) for this call, or 0 where the ring kernel does
+// not take it: a K or V row whose byte width is not a multiple of 16, k or v
+// not on a 16-byte boundary, or a row of more than 32 chunks (f32 past 128).
+template <typename T>
+int lanes_for(const void* k, const void* v, int d, int dv) {
+  constexpr int kChunk = 16 / sizeof(T);  // elements a 16-byte chunk
+  if (d % kChunk || dv % kChunk || reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16)
+    return 0;
+  const int chunks = max(d, dv) / kChunk;
+  return chunks <= 8 ? 8 : chunks <= 16 ? 16 : chunks <= 32 ? 32 : 0;
+}
+
+// Sum over the G lanes of an aligned group (xor offsets below G stay in it).
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// A 16-byte chunk of T as floats.
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& raw,
+                                       float (&f)[16 / sizeof(T)]) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 16 / static_cast<int>(sizeof(T)); ++i)
+    f[i] = to_float(e[i]);
+}
+
+struct Call {
+  const void *q, *k, *v;
+  const int* lens;
+  void* out;
+  float *part_o, *part_ml;
+  int b, h, ql, row0, rows, cap, d, dv, splits, split_keys;
+  float scale;
+};
+
+// Block (bh, split) takes keys [split split_keys, (split + 1) split_keys)
+// of (b h) bh's cache, stopping at min(len, cap). T: element type; QL:
+// query rows built for (rows <= QL); G: lanes a key, each holding one
+// 16-byte chunk of the key's K row and one of its V row.
+template <typename T, int QL, int G>
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_ring_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const int* __restrict__ lens,
+                       T* __restrict__ out, float* __restrict__ part_o,
+                       float* __restrict__ part_ml, int h, int ql, int row0,
+                       int rows, int cap, int d, int dv, float scale_log2,
+                       int split_keys) {
+  constexpr int E = 16 / sizeof(T);             // elements a chunk
+  constexpr int NG = 32 / G;                    // lane groups a warp
+  constexpr int U = QL >= 4 ? 2 : 4;            // keys a group takes a step
+  constexpr bool kQSmem = q_in_smem(QL);
+  constexpr int kStepKeys = NG * U;             // keys a warp takes a step
+  constexpr int kTile = tile_keys(G);
+  constexpr int kWarpKeys = kTile / kConsumers;  // a warp's share of a tile
+  constexpr int kStates = kConsumers * NG;      // online softmaxes a block
+  static_assert(kWarpKeys % kStepKeys == 0, "a warp's share in whole steps");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t ring_s = smem_u32(smem);
+  const uint32_t bars = ring_s + kStages * kStageBytes;
+  const auto full = [&](int st) { return bars + 8 * st; };
+  const auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+
+  const int bh = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_valid = min(lens[bh / h], cap);
+  const int k_begin = split * split_keys;
+  const int k_end = min(k_begin + split_keys, n_valid);
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile : 0;
+  const int d_bytes = d * static_cast<int>(sizeof(T));
+  const int dv_bytes = dv * static_cast<int>(sizeof(T));
+  const int v_off = kTile * d_bytes;  // a stage's V tile, after its K tile
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers) {
+    // Producer: one lane keeps up to kStages tiles in flight, each tile one
+    // bulk copy of its K rows and one of its V rows (a (b h)'s rows are
+    // contiguous); the last tile copies only its valid keys.
+    if (lane == 0) {
+      const T* kb = k + static_cast<size_t>(bh) * cap * d;
+      const T* vb = v + static_cast<size_t>(bh) * cap * dv;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        const int key = k_begin + t * kTile;
+        const int n = min(kTile, k_end - key);
+        mbar_wait(empty(st), ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(st), n * (d_bytes + dv_bytes));
+        bulk_load(ring_s + st * kStageBytes, kb + static_cast<size_t>(key) * d,
+                  n * d_bytes, full(st));
+        bulk_load(ring_s + st * kStageBytes + v_off,
+                  vb + static_cast<size_t>(key) * dv, n * dv_bytes, full(st));
+      }
+    }
+    return;
+  }
+
+  // Consumers. Lane (g, c): chunk c of the keys of group g.
+  const int g = lane / G, c = lane % G;
+  const bool k_lane = c * E < d, v_lane = c * E < dv;
+  const size_t q_off = (static_cast<size_t>(bh) * ql + row0) * d;
+  // q as f32: the lane's chunk of each row in registers, or every row in
+  // shared memory ([QL][kMaxD], zeros past d and rows), read a chunk a row
+  // a step.
+  float qf[kQSmem ? 1 : QL][E];
+  float* const qs = reinterpret_cast<float*>(smem + kQOffset);
+  if constexpr (kQSmem) {
+    for (int i = threadIdx.x; i < QL * kMaxD; i += 32 * kConsumers) {
+      const int r = i / kMaxD, col = i - r * kMaxD;
+      qs[i] = r < rows && col < d ? to_float(q[q_off + r * d + col]) : 0.f;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
+  } else {
+#pragma unroll
+    for (int r = 0; r < QL; ++r)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        qf[r][e] = r < rows && k_lane ? to_float(q[q_off + r * d + c * E + e])
+                                      : 0.f;
+  }
+
+  // Each group's online softmax: base-2 running max, denominator and
+  // accumulator, the same in the group's lanes but for the accumulator's
+  // chunk.
+  float m[QL], l[QL], acc[QL][E];
+#pragma unroll
+  for (int r = 0; r < QL; ++r) {
+    m[r] = -CUDART_INF_F;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const int n = min(kTile, k_end - (k_begin + t * kTile));
+    mbar_wait(full(st), (t / kStages) & 1);
+    const unsigned char* ks = smem + st * kStageBytes;
+    const unsigned char* vs = ks + v_off;
+    // At 8 rows one step at a time: unrolled, ptxas spilled (PERF.md).
+#pragma unroll (QL >= 8 ? 1 : kWarpKeys / kStepKeys)
+    for (int step = 0; step < kWarpKeys / kStepKeys; ++step) {
+      // A step's keys: NG consecutive rows a load, so a warp reads one
+      // contiguous span; key0 + u NG + g for group g.
+      const int key0 = warp * kWarpKeys + step * kStepKeys;
+      if (key0 >= n) break;
+      float kf[U][E], vf[U][E];
+      bool valid[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int key = key0 + u * NG + g;
+        valid[u] = key < n;
+        // Past the tile's valid keys the stage holds an older tile or
+        // nothing yet: read zeros instead.
+        uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
+        if (valid[u] && k_lane)
+          kr = *reinterpret_cast<const uint4*>(ks + key * d_bytes + c * 16);
+        if (valid[u] && v_lane)
+          vr = *reinterpret_cast<const uint4*>(vs + key * dv_bytes + c * 16);
+        unpack<T>(kr, kf[u]);
+        unpack<T>(vr, vf[u]);
+      }
+#pragma unroll
+      for (int r = 0; r < QL; ++r) {
+        float qr[E];
+        if constexpr (kQSmem) {
+          const float4* qp =
+              reinterpret_cast<const float4*>(qs + r * kMaxD + c * E);
+#pragma unroll
+          for (int j = 0; j < E / 4; ++j) {
+            const float4 x = qp[j];
+            qr[4 * j] = x.x;
+            qr[4 * j + 1] = x.y;
+            qr[4 * j + 2] = x.z;
+            qr[4 * j + 3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e) qr[e] = qf[kQSmem ? 0 : r][e];
+        }
+        float s[U], mx = -CUDART_INF_F;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) part = fmaf(qr[e], kf[u][e], part);
+          part = group_sum<G>(part);
+          s[u] = valid[u] ? part * scale_log2 : -CUDART_INF_F;
+          mx = fmaxf(mx, s[u]);
+        }
+        // Until a group has seen a valid key its max stays -inf: offset by
+        // 0 then, so that no exp2 sees -inf - -inf (p and corr are 0).
+        const float m_new = fmaxf(m[r], mx);
+        const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+        const float corr = fast_exp2(m[r] - m_use);
+        float p[U], psum = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float pu = fast_exp2(s[u] - m_use);
+          psum += pu;
+          p[u] = to_float(from_float<T>(pu));  // p in V's dtype for PV
+        }
+        l[r] = l[r] * corr + psum;
+        m[r] = m_new;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          float a = acc[r][e] * corr;
+#pragma unroll
+          for (int u = 0; u < U; ++u) a = fmaf(p[u], vf[u][e], a);
+          acc[r][e] = a;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+  // Merge the block's kStates softmaxes: weights 2^(m_s - max m), a state
+  // that saw no key weighing 0. Every consumer has read its last tile, so
+  // the ring's first bytes hold the states: m and l [QL][kStates], then
+  // acc [QL][kStates][dv].
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
+  float* const ms = reinterpret_cast<float*>(smem);
+  float* const ls = ms + QL * kStates;
+  float* const as = ls + QL * kStates;
+  const int state = warp * NG + g;
+#pragma unroll
+  for (int r = 0; r < QL; ++r) {
+    if (c == 0) {
+      ms[r * kStates + state] = m[r];
+      ls[r * kStates + state] = l[r];
+    }
+    if (v_lane) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        as[(r * kStates + state) * dv + c * E + e] = acc[r][e];
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
+  const size_t o_off = (static_cast<size_t>(bh) * ql + row0) * dv;
+  for (int i = threadIdx.x; i < rows * dv; i += 32 * kConsumers) {
+    const int r = i / dv, col = i - r * dv;
+    float m_tot = -CUDART_INF_F;
+#pragma unroll
+    for (int sn = 0; sn < kStates; ++sn)
+      m_tot = fmaxf(m_tot, ms[r * kStates + sn]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int sn = 0; sn < kStates; ++sn) {
+      const float mw = ms[r * kStates + sn];
+      const float wt = mw == -CUDART_INF_F ? 0.f : fast_exp2(mw - m_tot);
+      num = fmaf(wt, as[(r * kStates + sn) * dv + col], num);
+      den = fmaf(wt, ls[r * kStates + sn], den);
+    }
+    if (splits == 1) {
+      // len <= 0 leaves every state empty and 0 / 0 = NaN, as the plain
+      // version gives.
+      out[o_off + static_cast<size_t>(r) * dv + col] = from_float<T>(num / den);
+    } else {
+      // An f32 partial for the merge: O unnormalised, (max, denominator).
+      const size_t part = (static_cast<size_t>(bh) * splits + split) * rows + r;
+      part_o[part * dv + col] = num;
+      if (col == 0) {
+        part_ml[part * 2] = m_tot;
+        part_ml[part * 2 + 1] = den;
+      }
+    }
+  }
+}
+
+template <typename T, int QL, int G>
+int launch_as(const Call& a, cudaStream_t stream) {
+  const auto kernel = decode_ring_kernel<T, QL, G>;
+  constexpr int kSmem = smem_bytes(QL);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.b * a.h, a.splits);
+  kernel<<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.out), a.part_o,
+      a.part_ml, a.h, a.ql, a.row0, a.rows, a.cap, a.d, a.dv,
+      a.scale * kLog2e, a.split_keys);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
+  wide::wide_decode_merge_kernel<T><<<a.b * a.h * a.rows, 128, 0, stream>>>(
+      a.part_o, a.part_ml, static_cast<T*>(a.out), a.rows, a.dv, a.splits,
+      a.ql, a.row0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int QL>
+int launch_lanes(const Call& a, int lanes, cudaStream_t stream) {
+  if (lanes == 8) return launch_as<T, QL, 8>(a, stream);
+  if (lanes == 16) return launch_as<T, QL, 16>(a, stream);
+  return launch_as<T, QL, 32>(a, stream);
+}
+
+template <typename T>
+int launch(const Call& a, int lanes, cudaStream_t stream) {
+  if (a.rows == 1) return launch_lanes<T, 1>(a, lanes, stream);
+  if (a.rows == 2) return launch_lanes<T, 2>(a, lanes, stream);
+  if (a.rows <= 4) return launch_lanes<T, 4>(a, lanes, stream);
+  return launch_lanes<T, 8>(a, lanes, stream);
+}
+
+}  // namespace ring
+
+// The tuned entries: the ring kernel where it takes the call (its splits
+// checked against its tile), else the per-warp kernel above with one split.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lens,
-           void* out, int b, int h, int ql, int row0, int rows, int cap,
-           int d, int dv, float scale, void* stream) {
+           void* out, void* part_o, void* part_ml, int b, int h, int ql,
+           int row0, int rows, int cap, int d, int dv, float scale,
+           int splits, int split_keys, void* stream) {
   if (b < 1 || h < 1 || cap < 1 || rows < 1 || rows > kMaxQ || row0 < 0 ||
-      row0 + rows > ql || d < 1 || d > kMaxD || dv < 1 || dv > kMaxD)
+      row0 + rows > ql || d < 1 || d > kMaxD || dv < 1 || dv > kMaxD ||
+      splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (rows == 1)
-    return launch_rows<T, 1>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d,
+  const int lanes = ring::lanes_for<T>(k, v, d, dv);
+  if (lanes == 0) {
+    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (rows == 1)
+      return launch_rows<T, 1>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
+                               d, dv, scale, s);
+    if (rows == 2)
+      return launch_rows<T, 2>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
+                               d, dv, scale, s);
+    if (rows <= 4)
+      return launch_rows<T, 4>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
+                               d, dv, scale, s);
+    return launch_rows<T, 8>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d,
                              dv, scale, s);
-  if (rows == 2)
-    return launch_rows<T, 2>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d,
-                             dv, scale, s);
-  if (rows <= 4)
-    return launch_rows<T, 4>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d,
-                             dv, scale, s);
-  return launch_rows<T, 8>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d,
-                           dv, scale, s);
+  }
+  // Splits of whole tiles that cover the cache, none empty by construction;
+  // a workspace when there is more than one.
+  const int tile = ring::tile_keys(lanes);
+  if (split_keys < tile || split_keys % tile != 0 || splits > 65535 ||
+      static_cast<long long>(splits - 1) * split_keys >= cap ||
+      static_cast<long long>(splits) * split_keys < cap ||
+      static_cast<long long>(b) * h * rows > 0x7fffffff ||
+      (splits > 1 && (part_o == nullptr || part_ml == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ring::Call a{q, k, v, static_cast<const int*>(lens), out,
+               static_cast<float*>(part_o), static_cast<float*>(part_ml),
+               b, h, ql, row0, rows, cap, d, dv, splits, split_keys, scale};
+  return ring::launch<T>(a, lanes, s);
 }
 
 // ---- general kernel: any head dims; q, k and v each in its own dtype ------
@@ -638,28 +1052,40 @@ int with_dtype(int code, F&& f) {
 // launch's cudaError_t (0 on success).
 extern "C" {
 
+// The tuned path: q, k and v of one dtype, d and dv up to 256, query rows
+// [row0, row0 + rows) of q, rows <= 8. Where the ring kernel takes the call,
+// split s takes keys [s split_keys, (s + 1) split_keys), split_keys a
+// multiple of its tile (the wrapper's tuned_decode_tile), and with more than
+// one split part_o and part_ml are the f32 partials' workspace, [b h,
+// splits, rows, dv] and [b h, splits, rows, 2]; elsewhere splits is 1.
+
 int decode_attention_f32(const void* q, const void* k, const void* v,
-                         const void* lens, void* out, int b, int h, int ql,
-                         int row0, int rows, int cap, int d, int dv,
-                         float scale, void* stream) {
-  return launch<float>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
-                       scale, stream);
+                         const void* lens, void* out, void* part_o,
+                         void* part_ml, int b, int h, int ql, int row0,
+                         int rows, int cap, int d, int dv, float scale,
+                         int splits, int split_keys, void* stream) {
+  return launch<float>(q, k, v, lens, out, part_o, part_ml, b, h, ql, row0,
+                       rows, cap, d, dv, scale, splits, split_keys, stream);
 }
 
 int decode_attention_bf16(const void* q, const void* k, const void* v,
-                          const void* lens, void* out, int b, int h, int ql,
-                          int row0, int rows, int cap, int d, int dv,
-                          float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
-                               d, dv, scale, stream);
+                          const void* lens, void* out, void* part_o,
+                          void* part_ml, int b, int h, int ql, int row0,
+                          int rows, int cap, int d, int dv, float scale,
+                          int splits, int split_keys, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, lens, out, part_o, part_ml, b, h,
+                               ql, row0, rows, cap, d, dv, scale, splits,
+                               split_keys, stream);
 }
 
 int decode_attention_f16(const void* q, const void* k, const void* v,
-                         const void* lens, void* out, int b, int h, int ql,
-                         int row0, int rows, int cap, int d, int dv,
-                         float scale, void* stream) {
-  return launch<__half>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
-                        scale, stream);
+                         const void* lens, void* out, void* part_o,
+                         void* part_ml, int b, int h, int ql, int row0,
+                         int rows, int cap, int d, int dv, float scale,
+                         int splits, int split_keys, void* stream) {
+  return launch<__half>(q, k, v, lens, out, part_o, part_ml, b, h, ql,
+                        row0, rows, cap, d, dv, scale, splits, split_keys,
+                        stream);
 }
 
 // The wide path (wide_attention.cuh): q, k and v all bf16 or all f16, d and

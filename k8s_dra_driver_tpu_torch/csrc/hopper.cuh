@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels: mbarriers,
-// TMA tensor loads, `setmaxnreg`, warpgroup MMAs (`wgmma`) with shared-memory
-// descriptors in the 128-byte swizzle, and the driver's tensor-map encoder
-// reached at run time (so no library links libcuda). Each source that
-// includes it gets its own copy (an anonymous namespace).
+// TMA tensor loads and 1-D bulk copies, `setmaxnreg`, warpgroup MMAs
+// (`wgmma`) with shared-memory descriptors in the 128-byte swizzle, and the
+// driver's tensor-map encoder reached at run time (so no library links
+// libcuda). Each source that includes it gets its own copy (an anonymous
+// namespace).
 
 #pragma once
 
@@ -77,6 +78,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory at `src` into shared memory at
+// `dst`, counted in bytes on `bar`: the 1-D bulk copy, no tensor map. `src`,
+// `dst` and `bytes` are multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(static_cast<uint64_t>(__cvta_generic_to_global(src))), "r"(bytes),
+      "r"(bar)
       : "memory");
 }
 

@@ -610,13 +610,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The decode splits' merge: one block per (b h, query row). Weights
 // 2^(m_s - max m) (a split with m = -inf weighs 0 and its O is not read);
 // out = sum w_s O_s / sum w_s l_s in E. With every split empty (a length of
-// 0) the output is 0 / 0 = NaN, as the plain version gives.
+// 0) the output is 0 / 0 = NaN, as the plain version gives. The partials
+// hold `ql` rows a split; they are rows row0 .. row0 + ql - 1 of out, which
+// has out_rows rows per (b h). The tuned decode kernel's splits
+// (decode_attention.cu) are merged here too, f32 among them; dv % 4 == 0.
 template <typename E>
 __global__ void __launch_bounds__(128)
     wide_decode_merge_kernel(const float* __restrict__ part_o,
                              const float* __restrict__ part_ml,
                              E* __restrict__ out, int ql, int dv,
-                             int splits) {
+                             int splits, int out_rows, int row0) {
   const int bh = blockIdx.x / ql, row = blockIdx.x - bh * ql;
   const size_t first = static_cast<size_t>(bh) * splits * ql + row;
   float mx = -CUDART_INF_F;
@@ -628,7 +631,7 @@ __global__ void __launch_bounds__(128)
     if (ml[0] != -CUDART_INF_F) den += exp2f(ml[0] - mx) * ml[1];
   }
   const float inv = 1.f / den;
-  E* dst = out + (static_cast<size_t>(bh) * ql + row) * dv;
+  E* dst = out + (static_cast<size_t>(bh) * out_rows + row0 + row) * dv;
   for (int c = 4 * threadIdx.x; c < dv; c += 4 * blockDim.x) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int sp = 0; sp < splits; ++sp) {
@@ -642,9 +645,15 @@ __global__ void __launch_bounds__(128)
       acc.z = fmaf(wt, x.z, acc.z);
       acc.w = fmaf(wt, x.w, acc.w);
     }
-    *reinterpret_cast<uint32_t*>(dst + c) = pack2<E>(acc.x * inv, acc.y * inv);
-    *reinterpret_cast<uint32_t*>(dst + c + 2) =
-        pack2<E>(acc.z * inv, acc.w * inv);
+    if constexpr (std::is_same<E, float>::value) {
+      *reinterpret_cast<float4*>(dst + c) = make_float4(
+          acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+    } else {
+      *reinterpret_cast<uint32_t*>(dst + c) =
+          pack2<E>(acc.x * inv, acc.y * inv);
+      *reinterpret_cast<uint32_t*>(dst + c + 2) =
+          pack2<E>(acc.z * inv, acc.w * inv);
+    }
   }
 }
 
@@ -739,7 +748,7 @@ int launch_decode(const void* q, const void* k, const void* v,
   if (err != 0) return err;
   wide_decode_merge_kernel<E><<<static_cast<int>(rows), 128, 0, stream>>>(
       static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
-      static_cast<E*>(out), ql, dv, splits);
+      static_cast<E*>(out), ql, dv, splits, ql, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

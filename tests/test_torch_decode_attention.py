@@ -30,12 +30,16 @@ from k8s_dra_driver_tpu.compute.serving import xla_decode_attention
 from k8s_dra_driver_tpu_torch.compute import _build, flashattention
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     MAX_Q_LEN,
+    TUNED_BLOCKS_PER_SM,
     TUNED_HEAD_DIM,
+    TUNED_SPLIT_MIN_KEYS,
     WIDE_BLOCKS_PER_SM,
     WIDE_KEYS,
     WIDE_SPLIT_MIN_KEYS,
     decode_attention_reference,
     flash_attention_decode,
+    tuned_decode_splits,
+    tuned_decode_tile,
     wide_decode_splits,
 )
 
@@ -162,6 +166,20 @@ class TestAgainstJax:
     def test_wide_head_dims_match_pallas(self, ql, d, dv, dtype):
         q, k, v = _inputs(23, ql, d=d, cap=32, dv=dv)
         lens = np.array([1, 7, 32, 20], np.int32)
+        _agrees_with_jax(q, k, v, lens, (dtype,) * 3, block_k=16)
+
+    # The tuned decode's ring kernel walks the cache in tiles of
+    # tuned_decode_tile keys (128 at d = 64, 64 at 128, 32 at 256 in 16
+    # bits): lengths 1, T - 1, T, T + 1 and the whole cache, in bf16 and
+    # f16, held to JAX through the plain version.
+    @pytest.mark.parametrize("dtype", ["bf16", "f16"])
+    @pytest.mark.parametrize("ql,d,dv", [(1, 64, 64), (1, 128, 128),
+                                         (2, 256, 256), (1, 128, 64)])
+    def test_tile_edge_lengths_match_pallas(self, ql, d, dv, dtype):
+        tile = tuned_decode_tile(TORCH[dtype], d, dv)
+        cap = 2 * tile
+        q, k, v = _inputs(37, ql, b=5, h=1, d=d, cap=cap, dv=dv)
+        lens = np.array([1, tile - 1, tile, tile + 1, cap], np.int32)
         _agrees_with_jax(q, k, v, lens, (dtype,) * 3, block_k=16)
 
     @pytest.mark.parametrize("ql", [1, 4])
@@ -326,8 +344,11 @@ class TestRouting:
              1, 1, 1, 0) for row0, rows in ((0, 8), (8, 2))]
 
     @pytest.mark.parametrize("ql,d,dv,dtypes,entry,codes", [
-        (1, 128, 128, ("f16",) * 3, "decode_attention_f16", ()),
-        (4, 256, 64, ("f32",) * 3, "decode_attention_f32", ()),
+        # the tuned entries' splits and keys a split: the ring kernel's one
+        # split of whole 64-key tiles; f32 at 256 (the per-warp kernel) the
+        # cache
+        (1, 128, 128, ("f16",) * 3, "decode_attention_f16", (1, 64)),
+        (4, 256, 64, ("f32",) * 3, "decode_attention_f32", (1, 16)),
         # bf16 at d = 257 takes the wide kernels, padded to 272
         (1, 257, 64, ("bf16",) * 3, "decode_attention_wide_bf16", (1, 32)),
         (1, 128, 128, ("f32", "bf16", "bf16"), "decode_attention_general",
@@ -343,9 +364,12 @@ class TestRouting:
             assert call[7:-1] == (2, 3, ql, 16, -(-d // 16) * 16, dv,
                                   pytest.approx(d ** -0.5)) + codes
             return
-        # row0, rows, cap, d, dv, scale; then the general entry's codes
-        assert call[8:14] == (0, ql, 16, d, dv, pytest.approx(d ** -0.5))
-        assert call[14:-1] == codes
+        # row0, rows, cap, d, dv, scale; then the general entry's codes or
+        # the tuned entry's splits (after its two workspace pointers)
+        at = 8 if entry.endswith("general") else 10
+        assert call[at:at + 6] == (0, ql, 16, d, dv,
+                                   pytest.approx(d ** -0.5))
+        assert call[at + 6:-1] == codes
 
     @pytest.mark.parametrize("dtype", ["bf16", "f16"])
     @pytest.mark.parametrize("d,dv,padded", [
@@ -397,6 +421,54 @@ class TestRouting:
         assert set(fake_lib.entries) == {"decode_attention_general",
                                          "decode_attention_error_string"}
 
+    @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+    def test_tuned_entry_takes_splits_and_a_workspace(self, fake_lib, dtype):
+        # 2 x 2 caches of 4096 keys leave most SMs idle: the ring kernel's
+        # cache is split, with an f32 workspace of [b h, splits, rows, dv]
+        # and [b h, splits, rows, 2]; ql 10 is two launches on one
+        # workspace (8 rows, then 2).
+        b, h, ql, d, cap = 2, 2, MAX_Q_LEN + 2, 64, 4096
+        args = [torch.zeros(shape, dtype=TORCH[dtype]) for shape in (
+            (b, h, ql, d), (b, h, cap, d), (b, h, cap, d))]
+        lens = torch.full((b,), cap, dtype=torch.int32)
+        before = flash_attention_decode.launches
+        flashattention._launch_decode(*args, lens, stream=5, sms=132)
+        assert flash_attention_decode.launches == before + 2
+        calls = fake_lib.entries[f"decode_attention_{dtype}"].calls
+        tile = tuned_decode_tile(TORCH[dtype], d, d)
+        splits, split_keys = tuned_decode_splits(b, h, cap, tile, 132)
+        assert tile and splits > 1 and split_keys % tile == 0
+        assert [c[7:] for c in calls] == [
+            (b, h, ql, row0, rows, cap, d, d, pytest.approx(d ** -0.5),
+             splits, split_keys, 5) for row0, rows in ((0, 8), (8, 2))]
+        # One workspace, both pointers set, the same in both launches.
+        assert calls[0][5:7] == calls[1][5:7] and all(calls[0][5:7])
+        assert calls[0][5] != calls[0][6]
+
+    @pytest.mark.parametrize("dtype,d,dv", [
+        ("bf16", 66, 66),      # a 132-byte row: not whole 16-byte chunks
+        ("f16", 128, 60),      # V's 120-byte row
+        ("f32", 256, 256)])    # 64 chunks: more than a warp's lanes
+    def test_rows_the_ring_does_not_take_keep_one_split(self, fake_lib,
+                                                        dtype, d, dv):
+        assert tuned_decode_tile(TORCH[dtype], d, dv) == 0
+        assert self._launch(1, d, dv, (dtype,) * 3, b=1, h=1, cap=4096) == 1
+        (call,) = fake_lib.entries[f"decode_attention_{dtype}"].calls
+        assert call[5:7] == (None, None) and call[-3:-1] == (1, 4096)
+
+    def test_k_off_a_16_byte_boundary_keeps_one_split(self, fake_lib):
+        # The ring kernel's bulk copies need 16-byte aligned rows.
+        b, h, d, cap = 1, 1, 128, 4096
+        flat = torch.zeros(b * h * cap * d + 1, dtype=torch.bfloat16)
+        k = flat[1:].view(b, h, cap, d)
+        assert k.is_contiguous() and k.data_ptr() % 16
+        q = torch.zeros((b, h, 1, d), dtype=torch.bfloat16)
+        v = torch.zeros((b, h, cap, d), dtype=torch.bfloat16)
+        lens = torch.full((b,), cap, dtype=torch.int32)
+        flashattention._launch_decode(q, k, v, lens, stream=0, sms=132)
+        (call,) = fake_lib.entries["decode_attention_bf16"].calls
+        assert call[5:7] == (None, None) and call[-3:-1] == (1, cap)
+
     def test_query_rows_a_launch_shrink_only_past_the_shared_memory(
             self, fake_lib):
         d = flashattention.GENERAL_Q_SMEM_BYTES // (4 * 3)  # 3 rows fit
@@ -437,6 +509,56 @@ class TestWideSplits:
         splits, split_keys = wide_decode_splits(1, 1, 1, 4096, 132)
         assert split_keys == WIDE_SPLIT_MIN_KEYS
         assert splits == 4096 // WIDE_SPLIT_MIN_KEYS
+
+
+class TestTunedSplits:
+    """``tuned_decode_splits``: the cache split of the tuned decode's ring
+    kernel, from the shapes, its tile and the SM count alone."""
+
+    @pytest.mark.parametrize("b,h,cap,tile,sms", [
+        (32, 32, 4096, 64, 132), (32, 1, 4096, 64, 132), (1, 1, 16, 64, 132),
+        (3, 2, 300, 128, 132), (7, 1, 4096, 32, 132), (1, 1, 1 << 20, 64, 132),
+        (2, 2, 65, 64, 8)])
+    def test_splits_cover_the_cache_in_whole_tiles(self, b, h, cap, tile,
+                                                   sms):
+        splits, split_keys = tuned_decode_splits(b, h, cap, tile, sms)
+        assert splits >= 1 and split_keys % tile == 0
+        # Every key in one split, no split empty by construction.
+        assert (splits - 1) * split_keys < cap <= splits * split_keys
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+    def test_one_split_at_the_serve_shape(self, dtype):
+        # 32 sequences x 32 heads of 128 against a 4096-key cache: 1024
+        # blocks already fill 132 SMs, so no merge is launched.
+        tile = tuned_decode_tile(dtype, 128, 128)
+        assert tile and tuned_decode_splits(32, 32, 4096, tile, 132) == (
+            1, 4096)
+
+    def test_splits_fill_the_sms_at_32_caches(self):
+        # One head of 32 sequences: 32 blocks would leave 100 of 132 SMs
+        # idle; the split brings the grid to about TUNED_BLOCKS_PER_SM an SM.
+        tile = tuned_decode_tile(torch.bfloat16, 128, 128)
+        splits, _ = tuned_decode_splits(32, 1, 4096, tile, 132)
+        slots = TUNED_BLOCKS_PER_SM * 132
+        assert slots - 32 < splits * 32 <= slots
+
+    def test_a_cache_shorter_than_a_tile_is_one_tile(self):
+        assert tuned_decode_splits(1, 1, 16, 64, 132) == (1, 64)
+        assert tuned_decode_splits(1, 1, 65, 64, 132) == (1, 128)
+        # One sequence, one head: the split count stops at the least keys.
+        splits, split_keys = tuned_decode_splits(1, 1, 4096, 64, 132)
+        assert split_keys == TUNED_SPLIT_MIN_KEYS
+        assert splits == 4096 // TUNED_SPLIT_MIN_KEYS
+
+    @pytest.mark.parametrize("dtype,d,dv,tile", [
+        (torch.bfloat16, 64, 64, 128), (torch.float16, 128, 128, 64),
+        (torch.bfloat16, 256, 256, 32), (torch.float16, 128, 64, 64),
+        (torch.float16, 8, 8, 128), (torch.float32, 128, 128, 32),
+        (torch.float32, 32, 32, 128), (torch.float16, 66, 66, 0),
+        (torch.float32, 256, 256, 0), (torch.float32, 130, 128, 0)])
+    def test_tiles_by_dtype_and_head_dims(self, dtype, d, dv, tile):
+        assert tuned_decode_tile(dtype, d, dv) == tile
 
 
 class TestBuild:

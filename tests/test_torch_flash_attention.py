@@ -500,11 +500,15 @@ class TestBuildReport:
          "PT_iii", "wide_decode_merge_kernel<f16>"),
         ("_ZN12_GLOBAL__N_123decode_attention_kernelI6__halfLi1ELi8ELb1EEEv"
          "PKT_", "decode_attention_kernel<f16,1,8,1>"),
+        ("_ZN52_GLOBAL__N__636dec3f_19_decode_attention_cu_7de7d0af4ring18"
+         "decode_ring_kernelI13__nv_bfloat16Li1ELi16EEEvPKT_",
+         "decode_ring_kernel<bf16,1,16>"),
         ("_Z5otheri", "_Z5otheri")])
     def test_kernel_names(self, mangled, name):
         # A name inside another (flash_kernel in wide_flash_kernel) does not
         # hide the longer one.
         names = ["flash_bf16_kernel", "flash_f32_kernel",
                  "decode_attention_kernel", "flash_kernel",
-                 "wide_flash_kernel", "wide_decode_merge_kernel"]
+                 "wide_flash_kernel", "wide_decode_merge_kernel",
+                 "decode_ring_kernel"]
         assert chip_smoke.kernel_name(mangled, names) == name
