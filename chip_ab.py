@@ -10,10 +10,12 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py decode OTHER_TREE [--rounds N]
     python3 chip_ab.py wire [--writers 3,6,12,16] [--cycles N]
     python3 chip_ab.py flash32 OTHER_TREE [--rounds N]
+    python3 chip_ab.py f32 OTHER_TREE [--rounds N]
     python3 chip_ab.py decode-keys [OTHER_TREE] [--rounds N]
     python3 chip_ab.py wide-parts
     python3 chip_ab.py ring-variants
     python3 chip_ab.py general
+    python3 chip_ab.py f32-splits
 
 ``versions`` copies the port (``chip_smoke.py`` and
 ``k8s_dra_driver_tpu_torch/``) once per source under ``--work``, puts the
@@ -35,9 +37,15 @@ both of which must reject it: the softmax scale times 1.01, and the last
 key tile (flash) and the last split of the cache (decode) dropped. Two
 break the tuned decode's ring kernel (``decode_attention.cu``), each run
 through its check (``tuned_decode_check``): the softmax scale times 1.01,
-and the last tile of every split dropped. Names given after ``controls``
-run those controls alone. It exits non-zero if a control passes a check it
-must fail.
+and the last tile of every split dropped. Three break the f32 tensor-core
+body (``f32tc_attention.cuh``), each run through the f32 decode checks
+(the f32 head dims of the decode check's general dims, and the
+absorbed-MLA layout) and the f32 flash check: one TF32 product where there
+were three (hi.lo and lo.hi dropped, in S and in P V: the checks must see
+plain TF32's error), the softmax scale times 1.01, and the last key tile
+(flash) and the last split of the cache (decode) dropped. Names given after
+``controls`` run those controls alone. It exits non-zero if a control
+passes a check it must fail.
 
 ``serve`` runs ``chip_smoke``'s serve phase (48 requests from 4 tenants at
 one Llama-2-7B attention layer) in OTHER_TREE (a directory holding another
@@ -71,6 +79,14 @@ with ``chip_smoke.cuda_ms``, and holds each output against
 a tree from before the general flash kernel, it compares that kernel with
 the f32 one it replaced.
 
+``f32`` does the same with the f32 rows (code that runs in any tree): the
+f32 flash headline [4, 8, 2048, 128], causal off and on, and absorbed-MLA
+decode in f32 (q [32, 1, 128, 576] against the smoke's latent cache and
+lengths), each timed with ``chip_smoke.cuda_ms`` and held against its
+plain version (the f32 flash limit's share), with the decode's launches a
+call. Against a tree from before the f32 route, it times the general SIMT
+kernels that route replaced.
+
 ``decode-keys`` times one decode call with every sequence at the full
 4096-token cache (32 sequences, one head) for each of DECODE_KEY_CASES:
 the tuned and general kernels at 8 query rows and 1 (one launch), the
@@ -96,13 +112,18 @@ copy's registers and spills at 8 rows and the device time (torch.profiler)
 of the decode-keys tuned cases (1 and 8 rows at 32 one-head caches) and
 of the bf16 serve shape. The copies are timed, not checked.
 
+``f32-splits`` times absorbed-MLA decode in f32 (the smoke's latent cache
+and lengths, 128 query rows and 1) on the f32 kernel at each
+F32_BLOCKS_PER_SM of F32_SPLITS_SWEEP, the blocks an SM its split count
+aims for, with the split count each gives: what sizes that constant.
+
 ``general`` times the general SIMT kernels at the shapes they still take
-(GENERAL_ROWS): f32 flash attention at the bench's headline, causal off
-and on; f32 absorbed-MLA decode; a decode whose f32 query meets a bf16
-cache at the serve shape. Each row: kernel, plain and library ms
-(``scaled_dot_product_attention`` in f32; none for mixed dtypes, which no
-one call takes), launches a call, the bound and the error against the
-plain version.
+(GENERAL_ROWS): a decode whose f32 query meets a bf16 cache at the serve
+shape. Each row: kernel, plain and library ms (none for mixed dtypes,
+which no one call takes), launches a call, the bound and the error
+against the plain version. (The f32 flash and f32 absorbed-MLA rows it
+timed before went to the f32 tensor-core kernels; ``f32`` times them
+against an older tree.)
 """
 
 from __future__ import annotations
@@ -119,6 +140,7 @@ ROOT = Path(__file__).resolve().parent
 KERNEL = Path("k8s_dra_driver_tpu_torch/csrc/flash_attention.cu")
 WIDE = Path("k8s_dra_driver_tpu_torch/csrc/wide_attention.cuh")
 DECODE_SRC = Path("k8s_dra_driver_tpu_torch/csrc/decode_attention.cu")
+F32TC = Path("k8s_dra_driver_tpu_torch/csrc/f32tc_attention.cuh")
 # name: (the source broken, its (text, broken text) pairs, the checks that
 # must each reject it).
 CONTROLS = {
@@ -146,6 +168,27 @@ CONTROLS = {
         ("k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile : 0;",
          "k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile - 1 : 0;")],
         ("tuned_decode",)),
+    "f32_single_tf32": (F32TC, [
+        ("""          wgmma_tf32_rs_n64(s, q_lo[b], kh + off, p + ks > 0);
+          wgmma_tf32_rs_n64(s, q_hi[b], kl + off, 1);
+          wgmma_tf32_rs_n64(s, q_hi[b], kh + off, 1);""",
+         "          wgmma_tf32_rs_n64(s, q_hi[b], kh + off, p + ks > 0);"),
+        ("""          wgmma_tf32_rs_n32(o[vp], p_lo[ks], vh + off);
+          wgmma_tf32_rs_n32(o[vp], p_hi[ks], vl + off);
+          wgmma_tf32_rs_n32(o[vp], p_hi[ks], vh + off);""",
+         "          wgmma_tf32_rs_n32(o[vp], p_hi[ks], vh + off);")],
+        ("f32_decode", "f32_flash")),
+    "f32_softmax_scale_x1.01": (F32TC, [
+        ("const float scale_log2 = a.scale_log2;",
+         "const float scale_log2 = a.scale_log2 * 1.01f;")],
+        ("f32_decode", "f32_flash")),
+    "f32_last_key_tile_and_split_dropped": (F32TC, [
+        ("w.n_kt = (w.k_limit + kKeys - 1) / kKeys;",
+         "w.n_kt = (w.k_limit + kKeys - 1) / kKeys - 1;"),
+        ("const int len = min(a.lens[w.bh / a.h], a.keys);",
+         "const int len = min(a.lens[w.bh / a.h],\n"
+         "                        min(a.keys, (a.splits - 1) * a.split_keys));")],
+        ("f32_decode", "f32_flash")),
 }
 # A version's library is built at its first call, in the bench's warm-up
 # (phase_build would hold every version to the tree's SASS requirements).
@@ -159,8 +202,14 @@ CHECK = (
     "def wide_decode():\n"
     "    rng = np.random.default_rng(0)\n"
     "    c.general_dims_check(rng); c.wide_decode_check(rng)\n"
+    "def f32_decode():\n"
+    "    rng = np.random.default_rng(0)\n"
+    "    c.general_dims_check(rng); c.f32_decode_check(rng)\n"
     "checks = {{'flash': lambda: c.phase_flash_check(0),\n"
     "           'wide_decode': wide_decode,\n"
+    "           'f32_decode': f32_decode,\n"
+    "           'f32_flash': lambda: c.f32_flash_check(\n"
+    "               torch.Generator(device='cuda:0').manual_seed(0)),\n"
     "           'tuned_decode': lambda: c.tuned_decode_check(\n"
     "               np.random.default_rng(0)),\n"
     "           'wide_flash': lambda: c.wide_flash_check(\n"
@@ -233,6 +282,40 @@ FLASH32 = (
     "dump = lambda x: json.dumps([round(y, 5) for y in x],"
     " separators=(',', ':'))\n"
     "print('[flash32] ms=' + dump(ms) + ' err_over_limit=' + dump(over))\n")
+# The f32 rows in any tree: the f32 flash headline, causal off and on, and
+# absorbed-MLA decode in f32 at the smoke's lengths.
+F32_AB = (
+    "import json, numpy as np, torch, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute.flashattention import ("
+    "decode_attention_reference, flash_attention, flash_attention_decode)\n"
+    "from k8s_dra_driver_tpu_torch.compute.ringattention import "
+    "reference_attention\n"
+    "card = c.phase_device(); print('AB_CARD ' + card)\n"
+    "g = torch.Generator(device='cuda:0').manual_seed(0)\n"
+    "f = torch.float32\n"
+    "r = {}\n"
+    "q, k, v = (c.randn(g, c.FLASH_SHAPE, f) for _ in range(3))\n"
+    "for causal in (False, True):\n"
+    "    name = 'flash_causal' if causal else 'flash'\n"
+    "    fn = lambda: flash_attention(q, k, v, causal=causal)\n"
+    "    r[name + '_ms'] = c.cuda_ms(fn, runs=10, warmup=2)\n"
+    "    r[name + '_err_over_limit'] = c.compare(fn(), reference_attention("
+    "q, k, v, causal=causal), *c.FLASH_F32_TOL)[1]\n"
+    "del q, k, v\n"
+    "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
+    ".to('cuda:0')\n"
+    "q = c.randn(g, (c.BATCH, 1, c.MLA_ROWS, c.MLA_D), f)\n"
+    "k = c.randn(g, (c.BATCH, 1, c.KV_CAP, c.MLA_D), f)\n"
+    "v = c.randn(g, (c.BATCH, 1, c.KV_CAP, c.MLA_DV), f)\n"
+    "fn = lambda: flash_attention_decode(q, k, v, lens)\n"
+    "before = flash_attention_decode.launches\n"
+    "out = fn()\n"
+    "r['mla_launches'] = flash_attention_decode.launches - before\n"
+    "r['mla_ms'] = c.cuda_ms(fn, runs=10, warmup=2)\n"
+    "r['mla_err_over_limit'] = c.compare(out, decode_attention_reference("
+    "q, k, v, lens), *c.FLASH_F32_TOL)[1]\n"
+    "print('[f32ab] ' + ' '.join(f'{n}={x}' for n, x in r.items()),"
+    " flush=True)\n")
 # What each mode runs in a tree, and the lines of its output it keeps.
 TREE_MODES = {
     "serve": (SERVE, lambda ln: ln.startswith("[serve] submitted="),
@@ -241,6 +324,10 @@ TREE_MODES = {
                or ln.startswith("[build] kernel=decode"), DECODE_KEYS),
     "flash32": (FLASH32, lambda ln: ln.startswith("[flash32]"),
                 ("ms", "err_over_limit")),
+    "f32": (F32_AB, lambda ln: ln.startswith("[f32ab]"),
+            ("flash_ms", "flash_causal_ms", "mla_ms", "mla_launches",
+             "flash_err_over_limit", "flash_causal_err_over_limit",
+             "mla_err_over_limit")),
 }
 # wide-parts: the copies of the wide body, each with its (text, replacement)
 # pairs: the S loop over a panel count known only at run time (as first
@@ -608,13 +695,6 @@ def ring_variants(work: Path, timeout: float) -> int:
 # general: (name, q, k and v dtypes, q, k and v shapes, causal or None for
 # decode, whether one PyTorch call computes it).
 GENERAL_ROWS = (
-    ("flash_f32_headline", ("float32",) * 3, ((4, 8, 2048, 128),) * 3,
-     False, True),
-    ("flash_f32_headline_causal", ("float32",) * 3,
-     ((4, 8, 2048, 128),) * 3, True, True),
-    ("mla_decode_f32", ("float32",) * 3,
-     ((32, 1, 128, 576), (32, 1, 4096, 576), (32, 1, 4096, 512)), None,
-     True),
     ("decode_serve_f32q_bf16kv", ("float32", "bfloat16", "bfloat16"),
      ((32, 32, 1, 128), (32, 32, 4096, 128), (32, 32, 4096, 128)), None,
      False),
@@ -700,6 +780,44 @@ def general() -> int:
     return 0
 
 
+F32_SPLITS_SWEEP = (1, 2, 3, 4, 6)
+
+
+def f32_splits() -> int:
+    """The f32 absorbed-MLA decode at each F32_BLOCKS_PER_SM of
+    F32_SPLITS_SWEEP: ms a call and the split count."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as c
+    from k8s_dra_driver_tpu_torch.compute import flashattention as fa
+
+    card = c.phase_device()
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0))).to(
+        dev)
+    rows = []
+    for ql in (c.MLA_ROWS, 1):
+        q = c.randn(gen, (c.BATCH, 1, ql, c.MLA_D), torch.float32)
+        k = c.randn(gen, (c.BATCH, 1, c.KV_CAP, c.MLA_D), torch.float32)
+        v = c.randn(gen, (c.BATCH, 1, c.KV_CAP, c.MLA_DV), torch.float32)
+        for bps in F32_SPLITS_SWEEP:
+            fa.F32_BLOCKS_PER_SM = bps
+            splits = fa.f32_decode_splits(c.BATCH, 1, ql, c.KV_CAP,
+                                          c.MLA_DV, sms)
+            ms = c.cuda_ms(lambda: fa.flash_attention_decode(q, k, v, lens))
+            row = {"ql": ql, "blocks_per_sm": bps, "splits": splits[0],
+                   "split_keys": splits[1], "ms": ms}
+            print("[f32-splits] " + " ".join(f"{n}={x}" for n, x in
+                                              row.items()), flush=True)
+            rows.append(row)
+        del q, k, v
+    print(json.dumps({"f32_splits": rows, "card": card}), flush=True)
+    return 0
+
+
 def wide_parts(work: Path, timeout: float) -> int:
     source = (ROOT / WIDE).read_text()
     turns = []
@@ -729,16 +847,19 @@ def wide_parts(work: Path, timeout: float) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("versions", "controls", "serve",
-                                     "decode", "wire", "flash32",
+                                     "decode", "wire", "flash32", "f32",
                                      "decode-keys", "wide-parts",
-                                     "ring-variants", "general"))
+                                     "ring-variants", "general",
+                                     "f32-splits"))
     ap.add_argument("sources", nargs="*",
                     help="other flash_attention.cu files (versions), "
                          "the other tree's directory (serve, decode, "
-                         "flash32; decode-keys, optional), or controls' "
+                         "flash32, f32; decode-keys, optional), or "
+                         "controls' "
                          "names (controls, optional)")
     ap.add_argument("--rounds", type=int, default=2,
-                    help="serve, decode, flash32, decode-keys: rounds of "
+                    help="serve, decode, flash32, f32, decode-keys: "
+                         "rounds of "
                          "other, this, this, other")
     ap.add_argument("--work", type=Path, default=ROOT / "chipcopy" / "ab",
                     help="where the copies go (a directory .gitignore "
@@ -760,6 +881,8 @@ def main(argv=None) -> int:
                            args.rounds, args.timeout)
     if args.mode == "general":
         return general()
+    if args.mode == "f32-splits":
+        return f32_splits()
     if args.mode == "ring-variants":
         return ring_variants(args.work, args.timeout)
     if args.mode == "wide-parts":

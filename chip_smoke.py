@@ -17,7 +17,9 @@ One line per phase:
            SASS count of warpgroup MMAs (HGMMA), TMA loads (UTMALDG) and
            bulk copies (UBLKCP): every bf16 and f16 flash kernel and every
            wide kernel (decode and flash, at head dims over 256) must have
-           the first two, and every tuned decode ring kernel the third
+           the first two, every tuned decode ring kernel the third, and
+           every f32 tensor-core kernel (3xTF32) TMA loads and HGMMAs all
+           of the TF32 form, with no spill
 3. check   the decode kernel against its plain PyTorch version on the card
            at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
            lengths): f32 within 1e-4, bf16 and f16 within 2e-2, a poisoned
@@ -28,8 +30,13 @@ One line per phase:
            query rows (launched 8 rows at a time); head dims 257-1024
            (576/512, 64/640) and q, k and v in different dtypes, each within
            its narrowest input's limit: bf16 and f16 up to 576/512 on the
-           wide kernel (one launch a call), the rest on the general kernel
-           (one launch per 8 rows); the wide kernel at DeepSeek-V3's
+           wide kernel and f32 there on the f32 tensor-core kernel (one
+           launch a call), the rest on the general kernel (one launch per
+           8 rows); the f32 kernel at absorbed MLA's layout at 128 query
+           rows and 1, lengths 1, 31-33, 63-65, a split's edges and the
+           cache, within 1e-4 and 2e-5 + 2e-5 |ref|, one launch a call,
+           and a poisoned tail that moves its output by less than 1e-5;
+           the wide kernel at DeepSeek-V3's
            absorbed-MLA layout (128 query rows, 576/512, the smoke's cache)
            in bf16 and f16 at lengths 1, 31, 32, 33, a split's edge and the
            cache, one launch a call, and with a poisoned tail (+-1e6,
@@ -66,9 +73,13 @@ One line per phase:
            zero-pads to multiples of 16, within the same limits; head dims
            257-1024 (576/512, 64/640) and q, k and v in different dtypes,
            each within its narrowest input's limit (bf16 and f16 up to
-           576/512 on the wide kernel, the rest on the general kernel); the
+           576/512 on the wide kernel, f32 up to 576/512 on the f32
+           tensor-core kernel, the rest on the general kernel); the
            wide kernel at 576/512 in bf16 and f16 at S = 1, 63, 64, 65, 129
            and 320 (its 64-row and 32-key tiles' edges), causal off and on;
+           the f32 kernel (3xTF32) at the headline and at 128/128, 256/256
+           and 576/512 at those S (its 64-row and 64-key tiles' edges),
+           causal off and on, within the f32 limit, one launch a call;
            block arguments that change nothing; causal row 0 equal to v's
            row 0; an indivisible S raising ValueError without a launch
 7. bench   the compute bench's flash rows (the JAX bench's headline shape
@@ -89,6 +100,11 @@ One line per phase:
            wide kernel), the f16 flash headline and the f16 and bf16 decode
            serve shapes (the ring kernel alone, one split), each held
            against its plain version
+   f32     the f32 tensor-core kernels (3xTF32) the same way: absorbed-MLA
+           decode in f32 (the f32 kernel and its merge, one launch a call),
+           the f32 flash headline and flash at 576/512, causal off and on;
+           bounds at 3 TF32 products per f32 one (494.7 TFLOP/s) with the
+           f32 SIMT bound (67 TFLOP/s) beside, shares against the first
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
@@ -351,6 +367,8 @@ from k8s_dra_driver_tpu_torch.compute import _build, _dist
 from k8s_dra_driver_tpu_torch.compute.burnin import matmul_flops_bench
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     decode_attention_reference,
+    f32_decode_splits,
+    f32_kernel_takes,
     flash_attention,
     flash_attention_decode,
     padded_head_dims,
@@ -501,6 +519,9 @@ BATCH, HEADS, HEAD_DIM, KV_CAP = 32, 32, 128, 4096
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 BF16_FLOP_S = 989.4e12
+# Dense TF32 on the tensor cores; the f32 route spends 3 TF32 products on
+# each f32 one (3xTF32).
+TF32_FLOP_S = 494.7e12
 # The compute bench's flash-attention headline shape [b, h, S, d], and its
 # sweep: seq 512-8192 at a constant b * seq = 8192 tokens, h = 8, d = 128.
 FLASH_SHAPE = (4, 8, 2048, 128)
@@ -516,6 +537,10 @@ WIDE_FLASH_SHAPE = (1, 16, 2048)
 # its wide checks (the wide kernel's 64-row query and 32-key tiles).
 FLASH_EDGE_SEQS = (1, 64, 100, 129, 192, 256, 320)
 WIDE_FLASH_SEQS = (1, 63, 64, 65, 129, 320)
+# The f32 route's head-dim buckets (4/4, 8/8 and 18/8 panels of 32
+# columns) checked at WIDE_FLASH_SEQS, which are its 64-row and 64-key
+# tiles' edges too.
+F32_FLASH_DIMS = ((128, 128), (256, 256), (MLA_D, MLA_DV))
 TENANTS = ("tenant-a", "tenant-b", "tenant-c", "tenant-d")
 
 F32_TOL = 1e-4      # the JAX package's own decode-attention tolerance
@@ -710,7 +735,8 @@ def phase_build() -> None:
     instructions are warpgroup MMAs (HGMMA), TMA loads (UTMALDG) and 1-D
     bulk copies (UBLKCP). Every bf16 and f16 flash kernel and every wide
     decode and flash kernel must have the first two, and every tuned decode
-    ring kernel the bulk copy its K and V tiles arrive by."""
+    ring kernel the bulk copy its K and V tiles arrive by; every f32
+    tensor-core kernel TF32 wgmmas only, TMA loads and no spill."""
     t0 = time.monotonic()
     built = _build.build_all(force=True)
     require(bool(built), "no kernel source was built")
@@ -724,7 +750,9 @@ def phase_build() -> None:
         for fn in _build.disassemble(name).split("Function : ")[1:]:
             sass[fn.split(None, 1)[0]] = (len(re.findall(r"\bHGMMA\.", fn)),
                                           len(re.findall(r"\bUTMALDG\.", fn)),
-                                          len(re.findall(r"\bUBLKCP\.", fn)))
+                                          len(re.findall(r"\bUBLKCP\.", fn)),
+                                          len(re.findall(r"\bHGMMA\.\S*TF32",
+                                                         fn)))
         chunks = log.split("Compiling entry function '")[1:]
         line("build", source=f"{name}.cu", seconds=f"{s:.2f}",
              kernels=len(chunks))
@@ -739,18 +767,24 @@ def phase_build() -> None:
             smem = re.search(r"(\d+) bytes smem", chunk)
             spills = sum(int(n) for n in
                          re.findall(r"(\d+) bytes spill", chunk))
-            hgmma, utmaldg, ublkcp = sass.get(mangled, (0, 0, 0))
+            hgmma, utmaldg, ublkcp, tf32 = sass.get(mangled, (0, 0, 0, 0))
             line("build", kernel=kernel,
                  registers=regs.group(1) if regs else "?",
                  static_smem_bytes=smem.group(1) if smem else 0,
                  spill_bytes=spills, sass_HGMMA=hgmma, sass_UTMALDG=utmaldg,
-                 sass_UBLKCP=ublkcp)
+                 sass_UBLKCP=ublkcp, sass_HGMMA_TF32=tf32)
             if kernel.startswith(("flash_bf16_kernel", "flash_f16_kernel",
                                   "wide_flash_kernel", "wide_decode_kernel")):
                 require(hgmma > 0 and utmaldg > 0,
                         f"{kernel} has no wgmma or no TMA load in its SASS")
             if kernel.startswith("decode_ring_kernel"):
                 require(ublkcp > 0, f"{kernel} has no bulk copy in its SASS")
+            if kernel.startswith(("f32tc_flash_kernel",
+                                  "f32tc_decode_kernel")):
+                require(tf32 > 0 and tf32 == hgmma and utmaldg > 0
+                        and spills == 0 and regs is not None,
+                        f"{kernel}: {tf32} TF32 wgmmas of {hgmma}, "
+                        f"{utmaldg} TMA loads, {spills} bytes spilled")
     line("build", total_seconds=f"{time.monotonic() - t0:.2f}")
 
 
@@ -871,6 +905,7 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
          worst_err_over_tol=worst)
     general_dims_check(rng)
     wide_decode_check(rng)
+    f32_decode_check(rng)
     tuned_decode_check(rng)
     before = flash_attention_decode.launches
     try:
@@ -893,16 +928,17 @@ def general_dims_check(rng: np.random.Generator) -> float:
     small = np.array([1, 45, 300], np.int32)
     # Every head dim of GENERAL_DIMS in each dtype, and q, k and v in
     # different dtypes at tuned and wide head dims, each held to its
-    # narrowest input's limit: one launch a call where the wide kernel takes
-    # it (bf16 and f16 up to 576/512; held to the flash limit too, which a
-    # 1% scale or a dropped split exceeds and BF16_TOL alone may not), else
-    # the general kernel's one launch per 8 query rows.
+    # narrowest input's limit: one launch a call where the wide or the f32
+    # kernel takes it (bf16 and f16, or f32, up to 576/512; held to the
+    # flash limit too, which a 1% scale or a dropped split exceeds and the
+    # decode limit alone may not), else the general kernel's one launch per
+    # 8 query rows.
     cases = [(ql, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
              for ql in (1, 8, 10) for t in DTYPES]
     cases += [(ql, d, dv, ts) for ts in MIXED_DTYPES
               for d, dv in ((128, 128), (66, 130), (576, 512))
               for ql in (1, 4)]
-    worst, wide_calls, wide_over = 0.0, 0, 0.0
+    worst, wide_calls, wide_over, f32_calls = 0.0, 0, 0.0, 0
     for ql, d, dv, ts in cases:
         a = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             dev, t) for shape, t in (((3, 2, ql, d), ts[0]),
@@ -910,7 +946,9 @@ def general_dims_check(rng: np.random.Generator) -> float:
                                      ((3, 2, 300, dv), ts[2]))]
         a.append(torch.from_numpy(small).to(dev))
         wide = wide_kernel_takes(*a[:3], *padded_head_dims(d, dv))
+        f32 = f32_kernel_takes(*a[:3], *padded_head_dims(d, dv))
         wide_calls += wide
+        f32_calls += f32
         before = flash_attention_decode.launches
         out = flash_attention_decode(*a, block_k=300)
         groups = flash_attention_decode.launches - before
@@ -921,10 +959,10 @@ def general_dims_check(rng: np.random.Generator) -> float:
                                         f"{out.dtype}")
         err = (out.float() - ref.float()).abs().max().item()
         require(err < decode_tol(*ts), f"{what}: error {err}")
-        want = 1 if wide else -(-ql // 8)
+        want = 1 if wide or f32 else -(-ql // 8)
         require(groups == want, f"{what}: {groups} launches, not {want}")
-        if wide:
-            over = compare(out, ref, *FLASH_BF16_TOL)[1]
+        if wide or f32:
+            over = compare(out, ref, *flash_tol(*ts))[1]
             require(over <= 1, f"{what}: {over} of the flash limit")
             wide_over = max(wide_over, over)
         worst = max(worst, err / decode_tol(*ts))
@@ -933,8 +971,10 @@ def general_dims_check(rng: np.random.Generator) -> float:
         + " x ql 1/8/10 x f32/bf16/f16; q/k/v "
         + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
         + " x d/dv 128/128, 66/130, 576/512 x ql 1/4"), calls=len(cases),
-        wide_calls=wide_calls, general_calls=len(cases) - wide_calls,
-        worst_err_over_tol=worst, wide_worst_err_over_flash_limit=wide_over)
+        wide_calls=wide_calls, f32_calls=f32_calls,
+        general_calls=len(cases) - wide_calls - f32_calls,
+        worst_err_over_tol=worst,
+        wide_f32_worst_err_over_flash_limit=wide_over)
     return worst
 
 
@@ -994,6 +1034,65 @@ def wide_decode_check(rng: np.random.Generator) -> float:
          lens=json.dumps(lens_np.tolist()), split_keys=split_keys,
          launches_per_call=1, **fields,
          flash_atol_rtol=json.dumps(FLASH_BF16_TOL))
+    torch.cuda.empty_cache()
+    return worst
+
+
+def f32_decode_check(rng: np.random.Generator) -> float:
+    """The f32 decode kernel (3xTF32) at DeepSeek-V3's absorbed-MLA layout
+    (576/512, the smoke's cache) at 128 query rows and 1: one sequence at
+    each of the lengths 1, 31, 32, 33, 63, 64 and 65 (the wide and the f32
+    kernels' key tiles' edges), the first split's last key and the keys
+    either side, and the whole cache. Each call is one launch within F32_TOL
+    of its plain version and within the flash limit FLASH_F32_TOL (atol,
+    rtol); then every key past each length is poisoned (+-POISON in K, -+
+    in V), which must move the output by less than POISON_TOL. Returns the
+    worst error's share of the flash limit."""
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 11
+    worst, fields = 0.0, {}
+    for ql in (MLA_ROWS, 1):
+        split_keys = f32_decode_splits(n, 1, ql, KV_CAP, MLA_DV, sms)[1]
+        lens_np = np.array([1, 31, 32, 33, 63, 64, 65, split_keys - 1,
+                            split_keys, split_keys + 1, KV_CAP], np.int32)
+        lens = torch.from_numpy(lens_np).to(dev)
+        shapes = ((n, 1, ql, MLA_D), (n, 1, KV_CAP, MLA_D),
+                  (n, 1, KV_CAP, MLA_DV))
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            shape, np.float32)).to(dev) for shape in shapes)
+        before = flash_attention_decode.launches
+        out = flash_attention_decode(q, k, v, lens)
+        calls = flash_attention_decode.launches - before
+        ref = decode_attention_reference(q, k, v, lens)
+        what = f"f32 decode absorbed MLA ql={ql}"
+        require(out.shape == ref.shape and out.dtype == torch.float32
+                and bool(torch.isfinite(out).all()),
+                f"{what}: output {tuple(out.shape)} {out.dtype}")
+        require(calls == 1, f"{what}: {calls} launches, not 1")
+        err, over = compare(out, ref, *FLASH_F32_TOL)
+        require(err < F32_TOL, f"{what}: error {err} >= {F32_TOL}")
+        require(over <= 1, f"{what}: {over} of the flash limit")
+        kp, vp = k.clone(), v.clone()
+        for i, m in enumerate(lens_np.tolist()):
+            kp[i, :, m:] = POISON
+            vp[i, :, m:] = -POISON
+        moved = (flash_attention_decode(q, kp, vp, lens)
+                 - out).abs().max().item()
+        require(moved < POISON_TOL, f"{what}: the poisoned tail moved the "
+                                    f"output by {moved}")
+        fields[f"ql{ql}_split_keys"] = split_keys
+        fields[f"ql{ql}_max_abs_err"] = err
+        fields[f"ql{ql}_err_over_flash_limit"] = over
+        fields[f"ql{ql}_poisoned_tail_max_abs_diff"] = moved
+        worst = max(worst, over)
+        del q, k, v, kp, vp, out, ref
+    line("check", kernel="decode_attention", route="f32",
+         layout=json.dumps([[n, 1, "ql", MLA_D], [n, 1, KV_CAP, MLA_D],
+                            [n, 1, KV_CAP, MLA_DV]]),
+         lens="1,31,32,33,63,64,65,split-1,split,split+1,cap",
+         launches_per_call=1, **fields,
+         flash_atol_rtol=json.dumps(FLASH_F32_TOL))
     torch.cuda.empty_cache()
     return worst
 
@@ -1174,8 +1273,8 @@ def phase_flash_check(seed: int) -> float:
     # at 256): S = 1 and 64 are less than one tile, 64 is one 64-key tile,
     # 100, 129, 192, 256 and 320 leave a ragged last tile, and under causal
     # the 256 bucket's 128 query rows cross two 64-key tiles on the
-    # diagonal. f32 takes the general kernel: 64 query rows and 64 keys a
-    # tile, d in 32-column chunks.
+    # diagonal. f32 takes the f32 tensor-core kernel: 64 query rows and 64
+    # keys a tile, head dims in buckets of 128, 256 and 576/512.
     alt_dv = {32: 256, 64: 128, 128: 64, 256: 32}
     worst = 0.0
     for d in (32, 64, 128, 256):
@@ -1223,9 +1322,10 @@ def phase_flash_check(seed: int) -> float:
     line("flash", variants="padded head dims d/dv 40/40, 8/8, 40/24 x S "
          "64/129 x f32/bf16/f16 x causal", worst_err_over_limit=worst)
     # The general kernel: every head dim of GENERAL_DIMS in each dtype at
-    # S = 1 (less than a tile), 33 (one tile and one row) and 100, and q, k
-    # and v in different dtypes at tuned, padded and wide head dims; each
-    # call one launch, held to its narrowest input's limit.
+    # S = 1 (less than a tile), 33 (one tile and one row) and 100 (bf16 and
+    # f16 up to 576/512 on the wide kernel, f32 there on the f32 one), and
+    # q, k and v in different dtypes at tuned, padded and wide head dims;
+    # each call one launch, held to its narrowest input's limit.
     cases = [(s_small, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
              for s_small in (1, 33, 100) for t in DTYPES]
     cases += [(s_small, d, dv, ts) for ts in MIXED_DTYPES
@@ -1256,6 +1356,7 @@ def phase_flash_check(seed: int) -> float:
         + " x d/dv 64/64, 40/24, 576/512 x S 64/129; x causal"),
         calls=2 * len(cases), worst_err_over_limit=worst)
     wide_flash_check(gen)
+    f32_flash_check(gen)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (randn(gen, (2, 3, 256, 64), dtype) for _ in range(3))
         outs = [flash_attention(q, k, v, block_q=bq, block_k=bk, causal=True)
@@ -1314,6 +1415,41 @@ def wide_flash_check(gen: torch.Generator) -> float:
         f"d/dv {MLA_D}/{MLA_DV} x S "
         + "/".join(map(str, WIDE_FLASH_SEQS)) + " x bf16/f16 x causal"),
         calls=4 * len(WIDE_FLASH_SEQS), worst_err_over_limit=worst)
+    return worst
+
+
+def f32_flash_check(gen: torch.Generator) -> float:
+    """The f32 flash kernel (3xTF32) at the compute bench's headline
+    [4, 8, 2048, 128] and at each head-dim bucket of F32_FLASH_DIMS at S =
+    WIDE_FLASH_SEQS (the 64-row query tiles' and 64-key tiles' edges),
+    causal off and on: each call one launch within FLASH_F32_TOL of
+    ``reference_attention``. Returns the worst error's share of it."""
+    worst = 0.0
+    cases = [(FLASH_SHAPE, FLASH_SHAPE[3], causal) for causal in (False, True)]
+    cases += [((2, 3, s_small, d), dv, causal) for d, dv in F32_FLASH_DIMS
+              for s_small in WIDE_FLASH_SEQS for causal in (False, True)]
+    for shape, dv, causal in cases:
+        q, k = (randn(gen, shape, torch.float32) for _ in range(2))
+        v = randn(gen, shape[:3] + (dv,), torch.float32)
+        s_small = shape[2]
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, block_q=s_small, block_k=s_small,
+                              causal=causal)
+        calls = flash_attention.launches - before
+        ref = reference_attention(q, k, v, causal=causal)
+        what = (f"f32 flash {list(shape)} dv={dv} causal={causal}")
+        require(out.shape == ref.shape and out.dtype == torch.float32
+                and calls == 1 and bool(torch.isfinite(out).all()),
+                f"{what}: {tuple(out.shape)} {out.dtype}, {calls} launches")
+        err, over = compare(out, ref, *FLASH_F32_TOL)
+        require(over <= 1, f"{what}: error {err}, {over} of the limit")
+        worst = max(worst, over)
+    line("flash", route="f32", variants=json.dumps(
+        f"{list(FLASH_SHAPE)} x causal; d/dv "
+        + ", ".join(f"{d}/{dv}" for d, dv in F32_FLASH_DIMS) + " x S "
+        + "/".join(map(str, WIDE_FLASH_SEQS)) + " x causal"),
+        calls=len(cases), worst_err_over_limit=worst,
+        atol_rtol=json.dumps(FLASH_F32_TOL))
     return worst
 
 
@@ -1430,14 +1566,18 @@ def traced_kernels(fn, tries: int = 3) -> list:
 
 
 def wide_row(leg: str, counter, kernel, plain, library, nbytes: int,
-             flops: int, tol: tuple, own: str, **shape) -> dict:
-    """One line of the wide leg: the kernel's, plain version's and library
-    call's ms, the bound (bytes at 3.35 TB/s or operations at the 16-bit
-    tensor-core rate, whichever is longer), the last timed kernel output
-    against the last plain output within ``tol`` (atol, rtol), and the CUDA
-    kernels traced in one call of each: the port's call must run only
-    kernels whose names hold ``own``, and launch once. Returns the row's
-    numbers and the kernel's launches."""
+             flops: int, tol: tuple, own, phase: str = "wide",
+             f32: bool = False, **shape) -> dict:
+    """One line of the wide (or f32) leg: the kernel's, plain version's and
+    library call's ms, the bound (bytes at 3.35 TB/s or operations at the
+    16-bit tensor-core rate, whichever is longer; with ``f32``, operations
+    as 3 TF32 products each, and beside it the bound at the f32 SIMT
+    rate), the last timed kernel output against the last plain output
+    within ``tol`` (atol, rtol), and the CUDA kernels traced in one call of
+    each: the port's call must run only kernels whose names hold ``own``
+    (a name, or a tuple of names each kernel may hold one of), and launch
+    once. Returns the row's numbers and the kernel's launches."""
+    own = (own,) if isinstance(own, str) else tuple(own)
     last = {}
     before = counter.launches
     ms = cuda_ms(lambda: last.__setitem__("out", kernel()))
@@ -1448,23 +1588,26 @@ def wide_row(leg: str, counter, kernel, plain, library, nbytes: int,
     ours = traced_kernels(kernel)
     theirs = traced_kernels(library)
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    flops_ms = flops / BF16_FLOP_S * 1e3
+    flops_ms = (3 * flops / TF32_FLOP_S if f32 else flops / BF16_FLOP_S) * 1e3
     bound_ms = max(bytes_ms, flops_ms)
-    line("wide", leg=leg, **{k: json.dumps(v) if isinstance(v, (list, tuple))
-                             else v for k, v in shape.items()},
+    simt = ({"simt_bound_ms": max(bytes_ms, flops / F32_FLOP_S * 1e3)}
+            if f32 else {})
+    line(phase, leg=leg, **{k: json.dumps(v) if isinstance(v, (list, tuple))
+                            else v for k, v in shape.items()},
          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
          bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-         bound_share=bound_ms / ms, launches_per_call=per_call,
+         **simt, bound_share=bound_ms / ms, launches_per_call=per_call,
          max_abs_err=err, atol_rtol=json.dumps(tol), err_over_limit=over,
          kernels=json.dumps(ours), library_kernels=json.dumps(theirs))
-    require(over <= 1, f"wide {leg}: error {err}, {over} of the limit")
-    require(ours and all(own in name for name in ours),
-            f"wide {leg}: the port's call ran {ours}, not only {own}")
-    require(per_call == 1, f"wide {leg}: {per_call} launches a call")
+    require(over <= 1, f"{phase} {leg}: error {err}, {over} of the limit")
+    require(ours and all(any(o in name for o in own) for name in ours),
+            f"{phase} {leg}: the port's call ran {ours}, not only {own}")
+    require(per_call == 1, f"{phase} {leg}: {per_call} launches a call")
     return {"launches": counter.launches - before, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            **simt}
 
 
 def phase_wide(seed: int) -> dict:
@@ -1570,6 +1713,90 @@ def phase_wide(seed: int) -> dict:
     torch.cuda.empty_cache()
     return {**routes, "mla_decode": mla, "flash_576_512": flash_rows[0],
             **serve_rows}
+
+
+def phase_f32(seed: int) -> dict:
+    """The f32 tensor-core kernels (3xTF32) at full width (``wide_row`` per
+    call, bounds at 3 TF32 products per f32 one with the f32 SIMT bound
+    beside): DeepSeek-V3's absorbed-MLA decode in f32 (the f32 decode
+    kernel and its merge, one launch a call), the f32 flash headline
+    [4, 8, 2048, 128] and flash attention at 576/512 ([1, 16, 2048]), each
+    causal off and on. Its own main path: the counts are zeroed before it
+    and must equal the rows' launches after it. Returns the launches by
+    function and the rows by leg."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f32 = torch.float32
+    lens = torch.from_numpy(smoke_lengths(np.random.default_rng(seed))).to(
+        dev)
+    keys = int(lens.clamp(max=KV_CAP).sum())
+    mask = (torch.arange(KV_CAP, device=dev)[None, None, None, :]
+            < lens[:, None, None, None])
+    reset_launches()
+    rows = {}
+
+    q = randn(gen, (BATCH, 1, MLA_ROWS, MLA_D), f32)
+    k = randn(gen, (BATCH, 1, KV_CAP, MLA_D), f32)
+    v = randn(gen, (BATCH, 1, KV_CAP, MLA_DV), f32)
+    rows["mla_decode_f32"] = wide_row(
+        "mla_decode_f32", flash_attention_decode,
+        lambda: flash_attention_decode(q, k, v, lens),
+        lambda: decode_attention_reference(q, k, v, lens),
+        lambda: sdpa(q, k, v, attn_mask=mask),
+        nbytes=(keys * (MLA_D + MLA_DV) + q.numel()
+                + BATCH * MLA_ROWS * MLA_DV) * 4 + lens.numel() * 4,
+        flops=2 * keys * MLA_ROWS * (MLA_D + MLA_DV), tol=FLASH_F32_TOL,
+        own=("f32tc_decode", "wide_decode_merge"), phase="f32", f32=True,
+        q=list(q.shape), k=list(k.shape), v=list(v.shape), dtype="float32",
+        mean_len=keys / BATCH)
+    del q, k, v
+
+    b, h, s, d = FLASH_SHAPE
+    q, k, v = (randn(gen, FLASH_SHAPE, f32) for _ in range(3))
+    for causal in (False, True):
+        leg = "flash_f32_headline" + ("_causal" if causal else "")
+        rows[leg] = wide_row(
+            leg, flash_attention,
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: reference_attention(q, k, v, causal=causal),
+            lambda: sdpa(q, k, v, is_causal=causal),
+            nbytes=4 * b * h * s * d * 4,
+            flops=4 * b * h * s * s * d // (2 if causal else 1),
+            tol=FLASH_F32_TOL, own="f32tc_flash", phase="f32", f32=True,
+            shape=list(FLASH_SHAPE), dtype="float32", causal=causal)
+    del q, k, v
+
+    b, h, s = WIDE_FLASH_SHAPE
+    q, k = (randn(gen, (b, h, s, MLA_D), f32) for _ in range(2))
+    v = randn(gen, (b, h, s, MLA_DV), f32)
+    for causal in (False, True):
+        leg = "flash_f32_576_512" + ("_causal" if causal else "")
+        rows[leg] = wide_row(
+            leg, flash_attention,
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: reference_attention(q, k, v, causal=causal),
+            lambda: sdpa(q, k, v, is_causal=causal),
+            nbytes=b * h * s * (2 * MLA_D + 2 * MLA_DV) * 4,
+            flops=2 * b * h * s * s * (MLA_D + MLA_DV) // (2 if causal
+                                                           else 1),
+            tol=FLASH_F32_TOL, own="f32tc_flash", phase="f32", f32=True,
+            shape=[b, h, s], d=MLA_D, dv=MLA_DV, dtype="float32",
+            causal=causal)
+    del q, k, v
+    torch.cuda.synchronize()
+    counts = launches()
+    want = {"decode_attention": rows["mla_decode_f32"]["launches"],
+            "flash_attention": sum(r["launches"] for leg, r in rows.items()
+                                   if leg.startswith("flash"))}
+    line("f32", launches=json.dumps(counts),
+         bound_basis="H100 SXM 3.35 TB/s HBM, 3 TF32 products per f32 "
+                     "product at 494.7 TFLOP/s dense TF32 (simt_bound_ms: "
+                     "67 TFLOP/s f32)")
+    require(counts == want, f"the f32 leg's launches: {counts}, its rows "
+                            f"counted {want}")
+    torch.cuda.empty_cache()
+    return {**{f"{name}_f32tc": n for name, n in counts.items()}, **rows}
 
 
 def phase_burnin() -> None:
@@ -5158,6 +5385,7 @@ def main(argv=None) -> int:
     flash_err = phase_flash_check(args.seed)
     flash = phase_flash_bench(args.seed)
     wide = phase_wide(args.seed)
+    f32 = phase_f32(args.seed)
     phase_burnin()
     phase_selfheal(card, args.seed, found["lib"], found["gpu"])
     processes = phase_processes(card, args.seed, found["gpu"])
@@ -5224,7 +5452,17 @@ def main(argv=None) -> int:
             "library_ms")},
     } for name, line_no, row in (
         ("decode_attention_wide", 125, "mla_decode"),
-        ("flash_attention_wide", 36, "flash_576_512"))]
+        ("flash_attention_wide", 36, "flash_576_512"))] + [{
+        "name": name, "route": "cuda",
+        "source": "k8s_dra_driver_tpu_torch/csrc/f32tc_attention.cuh",
+        "replaces": f"k8s_dra_driver_tpu/compute/flashattention.py:{line_no}",
+        "launches": f32[name],
+        **{key: f32[row][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, line_no, row in (
+        ("decode_attention_f32tc", 125, "mla_decode_f32"),
+        ("flash_attention_f32tc", 36, "flash_f32_headline"))]
     require(all(math.isfinite(v) for k in kernels for v in
                 (k["ms"], k["plain_ms"], k["bound_ms"], k["library_ms"])),
             "non-finite time")

@@ -18,7 +18,7 @@ promoted type) and scaled by 1/sqrt(d); the causal mask or the keys at
 index >= ``kv_lengths[b]`` are masked; softmax; p is rounded to v's dtype
 for P V, which accumulates in f32; the output is in q's dtype.
 
-On the card each wrapper picks one of three routes by dtypes and head dims
+On the card each wrapper picks one of four routes by dtypes and head dims
 (head dims zero-padded to the next multiple of 16 where a route says so):
 
 - tuned: q, k and v of one dtype with d, dv <= TUNED_HEAD_DIM (decode, in
@@ -34,10 +34,16 @@ On the card each wrapper picks one of three routes by dtypes and head dims
   64 query rows a tile with dv split between two warpgroups; decode takes
   every query row in one call and splits the cache across blocks
   (``wide_decode_splits``), then merges the splits;
-- general: anything else (mixed dtypes, f32 flash attention, f32 decode
-  over TUNED_HEAD_DIM, head dims past the wide route's): SIMT kernels that
-  convert each operand from its own dtype on load and walk any head dim in
-  chunks, with dv split across blocks.
+- f32: q, k and v all f32, padded d <= WIDE_MAX_D and dv <= WIDE_MAX_DV
+  (flash at every head dim up to those; decode only where d or dv is over
+  TUNED_HEAD_DIM, the tuned ring kernel keeping the rest): the tensor-core
+  kernels of ``csrc/f32tc_attention.cuh``, each f32 product as three TF32
+  products (3xTF32: hi.hi + hi.lo + lo.hi, f32-accurate), 64 query rows a
+  tile; decode takes every query row in one call and splits the cache
+  across blocks (``f32_decode_splits``), then merges the splits;
+- general: anything else (mixed dtypes, head dims past the wide and f32
+  routes'): SIMT kernels that convert each operand from its own dtype on
+  load and walk any head dim in chunks, with dv split across blocks.
 
 The tuned and general decode kernels launch once per group of up to
 MAX_Q_LEN query rows (the ring kernel's merge, where it splits the cache,
@@ -83,6 +89,16 @@ WIDE_BLOCKS_PER_SM = 1
 TUNED_STAGE_BYTES = 32 * 1024
 TUNED_SPLIT_MIN_KEYS = 256
 TUNED_BLOCKS_PER_SM = 2
+#: The f32 route: its query rows and keys per tile; the output columns one
+#: block takes at head dims over 256 (dv past it goes to more blocks); the
+#: least keys of one split of the decode cache, and the blocks an SM that
+#: the split count aims for (one is resident at a time; 3 ran fastest at
+#: absorbed MLA's shape on an H100, ``chip_ab.py f32-splits``).
+F32_ROWS = 64
+F32_KEYS = 64
+F32_DV_CHUNK = 256
+F32_SPLIT_MIN_KEYS = 256
+F32_BLOCKS_PER_SM = 3
 
 #: Each dtype's suffix of a tuned kernel's C entry and its code in the
 #: general kernels' C entries; the dtypes each source's tuned kernel takes.
@@ -141,6 +157,34 @@ def wide_kernel_takes(q, k, v, d: int, dv: int) -> bool:
     return (q.dtype == k.dtype == v.dtype and q.dtype in _WIDE
             and TUNED_HEAD_DIM < max(d, dv) and d <= WIDE_MAX_D
             and dv <= WIDE_MAX_DV)
+
+
+def f32_kernel_takes(q, k, v, d: int, dv: int) -> bool:
+    """Whether a CUDA call that the tuned kernel does not take goes to the
+    f32 tensor-core kernels (either function): q, k and v all f32 and
+    padded head dims ``d`` <= WIDE_MAX_D and ``dv`` <= WIDE_MAX_DV."""
+    return (q.dtype == k.dtype == v.dtype == torch.float32
+            and d <= WIDE_MAX_D and dv <= WIDE_MAX_DV)
+
+
+def f32_decode_splits(b: int, h: int, ql: int, kv_cap: int, dv: int,
+                      sms: int) -> tuple[int, int]:
+    """(splits, keys per split) of the f32 decode kernel's cache range, for
+    padded value dim ``dv``.
+
+    Each of the b * h * ceil(ql / F32_ROWS) row tiles, times the
+    ceil(dv / F32_DV_CHUNK) chunks of its output columns, is split so that
+    the grid holds about F32_BLOCKS_PER_SM blocks for each of ``sms`` SMs,
+    but no split has fewer than F32_SPLIT_MIN_KEYS keys of the cache (each
+    costs a partial's write and read). A split is a whole number of
+    F32_KEYS tiles. From the shapes alone: the lengths are on the device,
+    and reading them would wait for it."""
+    tiles = -(-kv_cap // F32_KEYS)
+    blocks = b * h * -(-ql // F32_ROWS) * -(-dv // F32_DV_CHUNK)
+    want = -(-F32_BLOCKS_PER_SM * sms // blocks)
+    most = max(1, tiles * F32_KEYS // F32_SPLIT_MIN_KEYS)
+    split_keys = -(-tiles // max(1, min(want, most))) * F32_KEYS
+    return -(-kv_cap // split_keys), split_keys
 
 
 def wide_decode_splits(b: int, h: int, ql: int, kv_cap: int,
@@ -251,8 +295,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     own tiles.
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
-    current stream (``tuned_kernel_takes`` and ``wide_kernel_takes`` say
-    which), counted in ``flash_attention.launches``; CPU tensors go through
+    current stream (``tuned_kernel_takes``, ``wide_kernel_takes`` and
+    ``f32_kernel_takes`` say which), counted in
+    ``flash_attention.launches``; CPU tensors go through
     ``reference_attention``."""
     if q.dim() != 4:
         raise ValueError(f"q must be [b,h,S,d], got {tuple(q.shape)}")
@@ -280,11 +325,13 @@ def _launch_flash(q, k, v, causal: bool, stream: int) -> torch.Tensor:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     scale = 1.0 / math.sqrt(d)
     tuned = tuned_kernel_takes("flash_attention", q, k, v, dp, dvp)
-    if tuned or wide_kernel_takes(q, k, v, dp, dvp):
+    f32 = f32_kernel_takes(q, k, v, dp, dvp)   # the tuned flash takes no f32
+    if tuned or f32 or wide_kernel_takes(q, k, v, dp, dvp):
         # Zero columns add nothing to q k^T, and the scale stays 1/sqrt(d).
         q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)
         _check_aligned(q, k, v)
-        variant = _DTYPES[q.dtype] if tuned else f"wide_{_DTYPES[q.dtype]}"
+        variant = (_DTYPES[q.dtype] if tuned else "f32tc" if f32
+                   else f"wide_{_DTYPES[q.dtype]}")
         fn, err_str = _c_entry("flash_attention", variant,
                                [p, p, p, p, i, i, i, i, i, f, p])
         out = torch.empty((b, h, seq, dvp), dtype=q.dtype, device=q.device)
@@ -368,10 +415,10 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA kernels walk the cache in their own tiles.
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
-    current stream (``tuned_kernel_takes`` and ``wide_kernel_takes`` say
-    which): the wide kernels in one call for every query row, the others
-    one launch per group of up to MAX_Q_LEN query rows (the rows do not
-    attend to each other), each call counted in
+    current stream (``tuned_kernel_takes``, ``wide_kernel_takes`` and
+    ``f32_kernel_takes`` say which): the wide and f32 kernels in one call
+    for every query row, the others one launch per group of up to MAX_Q_LEN
+    query rows (the rows do not attend to each other), each call counted in
     ``flash_attention_decode.launches``. CPU tensors go through
     ``decode_attention_reference``."""
     kv_cap = k.shape[2]
@@ -391,9 +438,9 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_decode(q, k, v, kv_lengths, stream: int,
                    sms: int | None = None) -> torch.Tensor:
     """The decode kernel that takes these checked inputs, launched on
-    ``stream`` (the wide kernels once, the others once per group of query
-    rows); each launch counted in ``flash_attention_decode.launches``.
-    ``sms``: the SM count that sizes the wide and the ring kernels' splits
+    ``stream`` (the wide and f32 kernels once, the others once per group of
+    query rows); each launch counted in ``flash_attention_decode.launches``.
+    ``sms``: the SM count that sizes the wide, f32 and ring kernels' splits
     (the device's by default)."""
     b, h, ql, d = q.shape
     kv_cap, dv = k.shape[2], v.shape[3]
@@ -401,8 +448,15 @@ def _launch_decode(q, k, v, kv_lengths, stream: int,
     dp, dvp = padded_head_dims(d, dv)
     tuned = tuned_kernel_takes("decode_attention", q, k, v, d, dv)
     if not tuned and wide_kernel_takes(q, k, v, dp, dvp):
-        return _launch_decode_wide(q, k, v, kv_lengths, stream,
+        split = wide_decode_splits(b, h, ql, kv_cap,
                                    sms or _sm_count(q.device))
+        return _launch_decode_once(q, k, v, kv_lengths, stream,
+                                   f"wide_{_DTYPES[q.dtype]}", split)
+    if not tuned and f32_kernel_takes(q, k, v, dp, dvp):
+        split = f32_decode_splits(b, h, ql, kv_cap, dvp,
+                                  sms or _sm_count(q.device))
+        return _launch_decode_once(q, k, v, kv_lengths, stream, "f32tc",
+                                   split)
     ints = [i] * 8   # b, h, ql, row0, rows, cap, d, dv
     group = MAX_Q_LEN
     if tuned:
@@ -443,24 +497,25 @@ def _launch_decode(q, k, v, kv_lengths, stream: int,
     return out
 
 
-def _launch_decode_wide(q, k, v, kv_lengths, stream: int,
-                        sms: int) -> torch.Tensor:
-    """One call of the wide decode entry (the kernel and its merge) for
-    every query row, with head dims zero-padded and the cache split as
-    ``wide_decode_splits`` says; f32 partials in a workspace."""
+def _launch_decode_once(q, k, v, kv_lengths, stream: int, variant: str,
+                        split: tuple[int, int]) -> torch.Tensor:
+    """One call of the wide or f32 decode entry ``decode_attention_<variant>``
+    (the kernel and its merge) for every query row, with head dims
+    zero-padded and the cache split in (splits, keys per split); f32
+    partials in a workspace."""
     b, h, ql, d = q.shape
     kv_cap, dv = k.shape[2], v.shape[3]
     dp, dvp = padded_head_dims(d, dv)
     q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)
     _check_aligned(q, k, v)
-    splits, split_keys = wide_decode_splits(b, h, ql, kv_cap, sms)
+    splits, split_keys = split
     part_o = torch.empty(b * h * splits * ql * dvp, dtype=torch.float32,
                          device=q.device)
     part_ml = torch.empty(b * h * splits * ql * 2, dtype=torch.float32,
                           device=q.device)
     out = torch.empty((b, h, ql, dvp), dtype=q.dtype, device=q.device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn, err_str = _c_entry("decode_attention", f"wide_{_DTYPES[q.dtype]}",
+    fn, err_str = _c_entry("decode_attention", variant,
                            [p] * 7 + [i] * 6 + [ctypes.c_float, i, i, p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lengths.data_ptr(),
              out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, h, ql,

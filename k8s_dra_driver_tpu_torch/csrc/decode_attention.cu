@@ -32,8 +32,12 @@
 //     what its design does about that: at absorbed MLA's 128 query rows
 //     each key feeds 128 x 1,088 multiply-adds, which is work for `wgmma`,
 //     not for the SIMT loop below);
-//   * anything else (q, k and v each in its own dtype, f32 over 256, or
-//     head dims past the wide kernel's): `decode_general_kernel`, entry
+//   * q, k and v all f32, d or dv over 256, d <= 576 and dv <= 512 (padded
+//     the same way): the f32 tensor-core kernel of f32tc_attention.cuh and
+//     the wide path's merge, entry decode_attention_f32tc, every query row
+//     in one call, each f32 product as three TF32 products (3xTF32);
+//   * anything else (q, k and v each in its own dtype, or head dims past
+//     the wide and f32 kernels'): `decode_general_kernel`, entry
 //     decode_attention_general.
 //
 // What bounds it: device-memory bytes. Every valid K and V row is read once,
@@ -109,8 +113,9 @@
 // batch waits on one load round trip per chunk of d. Its 16-bit calls at
 // head dims up to 576/512, absorbed MLA's among them (16 launches of 8
 // rows, each reading the whole latent cache: 24 ms on an H100 where the
-// library took 0.48), go to the wide kernel instead; it keeps f32, mixed
-// dtypes and wider heads.
+// library took 0.48), go to the wide kernel instead, and its f32 calls up
+// to 576/512 (15.9 ms there, the library 1.43) to the f32 tensor-core
+// kernel; it keeps mixed dtypes and heads past 576/512 in every dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -118,6 +123,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "f32tc_attention.cuh"
 #include "wide_attention.cuh"
 
 namespace {
@@ -1110,6 +1116,20 @@ int decode_attention_wide_f16(const void* q, const void* k, const void* v,
                               int d, int dv, float scale, int splits,
                               int split_keys, void* stream) {
   return wide::launch_decode<__half>(
+      q, k, v, lens, out, part_o, part_ml, b, h, ql, cap, d, dv, scale,
+      splits, split_keys, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 path (f32tc_attention.cuh): q, k and v all f32 on the tensor
+// cores in 3xTF32, d and dv multiples of 16 up to 576 and 512 with one of
+// them over 256, every query row in one call; the arguments are the wide
+// path's, and split_keys is a multiple of 64.
+int decode_attention_f32tc(const void* q, const void* k, const void* v,
+                           const void* lens, void* out, void* part_o,
+                           void* part_ml, int b, int h, int ql, int cap,
+                           int d, int dv, float scale, int splits,
+                           int split_keys, void* stream) {
+  return f32tc::launch_decode<float>(
       q, k, v, lens, out, part_o, part_ml, b, h, ql, cap, d, dv, scale,
       splits, split_keys, static_cast<cudaStream_t>(stream));
 }

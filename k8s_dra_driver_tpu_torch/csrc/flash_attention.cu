@@ -21,8 +21,12 @@
 //     f32 accumulator does not fit one warpgroup's registers, so dv is split
 //     between two consumer warpgroups, and S and the softmax are computed
 //     once per key tile by one of them (its note has the design);
-//   * anything else (f32, mixed dtypes, or head dims past the wide path's;
-//     any d, dv >= 1): SIMT, flash_attention_general.
+//   * q, k and v all f32, d <= 576 and dv <= 512 (padded the same way): the
+//     f32 tensor-core kernel of f32tc_attention.cuh, flash_attention_f32tc,
+//     each f32 product as three TF32 products (3xTF32), f32-accurate (its
+//     note has the design);
+//   * anything else (mixed dtypes, or head dims past the wide and f32
+//     paths'; any d, dv >= 1): SIMT, flash_attention_general.
 //
 // What bounds it: operations. Per (b, h) the kernel does 4 S^2 d multiply-adds
 // counted as flops (half of them under causal) on (3 d + dv) S elements, so at
@@ -73,14 +77,14 @@
 // converted from its own dtype as it is loaded, each thread a 4 x 4 block of
 // the scores. At d = 576, dv = 512 that was 2 x 576 + 512 multiply-adds per
 // score where the function needs 1,088, at ~1% of the bound (PERF.md); the
-// 16-bit calls there take the wide path now. It also takes f32 at every
-// width: on the H100 it
-// outran the f32 kernel it replaced (8 threads a query row, two shared
-// loads an FMA) at every f32 shape that took more than 0.1 ms (PERF.md;
-// `chip_ab.py flash32`).
+// 16-bit calls there take the wide path now, and the f32 calls up to
+// 576/512 the f32 tensor-core path (on the H100 4.7x faster at the f32
+// headline; PERF.md, `chip_ab.py f32`). It keeps mixed dtypes and head
+// dims past 576/512 in every dtype.
 
 #include <math_constants.h>
 
+#include "f32tc_attention.cuh"
 #include "hopper.cuh"
 #include "wide_attention.cuh"
 
@@ -803,6 +807,15 @@ int flash_attention_wide_f16(const void* q, const void* k, const void* v,
                              int causal, float scale, void* stream) {
   return wide::launch_flash<f16>(q, k, v, out, bh, S, d, dv, causal, scale,
                                  static_cast<cudaStream_t>(stream));
+}
+
+// The f32 path (f32tc_attention.cuh): q, k and v all f32 on the tensor
+// cores in 3xTF32, d and dv multiples of 16 up to 576 and 512.
+int flash_attention_f32tc(const void* q, const void* k, const void* v,
+                          void* out, int bh, int S, int d, int dv, int causal,
+                          float scale, void* stream) {
+  return f32tc::launch_flash<float>(q, k, v, out, bh, S, d, dv, causal,
+                                    scale, static_cast<cudaStream_t>(stream));
 }
 
 // Any head dims d, dv >= 1; q_type, k_type and v_type are each 0 (f32), 1

@@ -129,6 +129,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -304,8 +310,63 @@ __device__ __forceinline__ void wgmma_sst_n256(float (&d)[128], uint64_t a, uint
 }
 #undef WGMMA_SS_T_N256
 
+// ---- TF32: f32 operands on the tensor cores (the 3xTF32 route)
+//
+// A k-step of TF32 is 8 values, 32 bytes: the same 32-byte step through a
+// 128-byte swizzle row as the 16-bit forms take, with 32 f32 columns to a
+// row (kPanelColsF32). `wgmma` reads TF32 from shared memory K-major only
+// (the transpose bits exist for f16 and bf16 alone), and it reads an f32
+// operand's top 19 bits: the low 13 bits of the mantissa are ignored.
+
+// d[64 x 64] (+)= a * b: a (64 x 8) in registers (the fragment below), b
+// (8 x 64) K-major in shared memory; acc = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// d[64 x 32] += a * b: a (64 x 8) in registers, b (8 x 32) K-major in
+// shared memory. Each warp holds its 16 rows of a as mma.sync's m16n8k8
+// TF32 A fragment: a[0] at row lane / 4, column lane % 4; a[1] eight rows
+// down; a[2] four columns right; a[3] both.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : F4(0), F4(4), F4(8), F4(12)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef F32
 #undef F4
+
+constexpr int kPanelColsF32 = 32;  // f32 columns in one 128-byte swizzle row
+
+// x rounded to TF32 (to nearest, ties away from zero): PTX's
+// cvt.rna.tf32.f32, in f32's bit layout with the low 13 bits zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// The TF32 value a `wgmma` reads from a raw f32 operand: x with the low 13
+// bits of its mantissa cleared.
+__device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
 
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
@@ -394,6 +455,27 @@ bool encode_map(CUtensorMap* map, const void* ptr, int bh, int S, int cols,
                 kIsF16<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                 3,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same for an f32 tensor: boxes of 32 columns (128 bytes) x `rows`.
+inline bool encode_map_f32(CUtensorMap* map, const void* ptr, int bh, int S,
+                           int cols, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * sizeof(float),
+      static_cast<cuuint64_t>(S) * cols * sizeof(float)};
+  const cuuint32_t box[3] = {kPanelColsF32, static_cast<cuuint32_t>(rows),
+                             1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -29,6 +29,11 @@ from k8s_dra_driver_tpu.compute.flashattention import (
 from k8s_dra_driver_tpu.compute.serving import xla_decode_attention
 from k8s_dra_driver_tpu_torch.compute import _build, flashattention
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
+    F32_BLOCKS_PER_SM,
+    F32_DV_CHUNK,
+    F32_KEYS,
+    F32_ROWS,
+    F32_SPLIT_MIN_KEYS,
     MAX_Q_LEN,
     TUNED_BLOCKS_PER_SM,
     TUNED_HEAD_DIM,
@@ -37,6 +42,7 @@ from k8s_dra_driver_tpu_torch.compute.flashattention import (
     WIDE_KEYS,
     WIDE_SPLIT_MIN_KEYS,
     decode_attention_reference,
+    f32_decode_splits,
     flash_attention_decode,
     tuned_decode_splits,
     tuned_decode_tile,
@@ -181,6 +187,23 @@ class TestAgainstJax:
         q, k, v = _inputs(37, ql, b=5, h=1, d=d, cap=cap, dv=dv)
         lens = np.array([1, tile - 1, tile, tile + 1, cap], np.int32)
         _agrees_with_jax(q, k, v, lens, (dtype,) * 3, block_k=16)
+
+    # The f32 decode kernel's 64-key tiles and its splits at absorbed MLA's
+    # layout (576/512, 128 query rows and 1): lengths 1, T - 1, T, T + 1, a
+    # split's last key and the keys either side, and the whole cache, held
+    # to JAX (interpret mode and XLA) through the plain version.
+    @pytest.mark.parametrize("ql", [128, 1])
+    def test_f32_tile_and_split_edge_lengths_match_pallas(self, ql):
+        cap = 512
+        split_keys = f32_decode_splits(8, 1, ql, cap, 512, 132)[1]
+        assert split_keys < cap
+        lens = np.array([1, F32_KEYS - 1, F32_KEYS, F32_KEYS + 1,
+                         split_keys - 1, split_keys, split_keys + 1, cap],
+                        np.int32)
+        q, k, v = _inputs(41, ql, b=8, h=1, d=576, cap=cap, dv=512)
+        out = _agrees_with_jax(q, k, v, lens, ("f32",) * 3, block_k=64)
+        assert _max_abs(out.numpy(),
+                        xla_decode_attention(q, k, v, lens)) < F32_TOL
 
     @pytest.mark.parametrize("ql", [1, 4])
     def test_f16_matches_xla_and_pallas(self, ql):
@@ -409,16 +432,72 @@ class TestRouting:
                             7)
 
     @pytest.mark.parametrize("ql,d,dv,dtypes", [
-        (1, 576, 512, ("f32",) * 3),
         (4, 576, 512, ("f32", "bf16", "bf16")),
         (4, 576, 512, ("bf16", "f16", "f16")),
         (1, 1024, 1024, ("bf16",) * 3),
         (1, 64, 640, ("f16",) * 3)])
     def test_what_the_wide_kernels_do_not_take_stays_general(
             self, fake_lib, ql, d, dv, dtypes):
-        # f32, mixed dtypes, and padded dims past 576/512.
+        # Mixed dtypes, and padded dims past 576/512 (f32 at 576/512 takes
+        # the f32 kernels: test_f32_wide_head_dims_reach_the_f32_entry).
         assert self._launch(ql, d, dv, dtypes) == -(-ql // MAX_Q_LEN)
         assert set(fake_lib.entries) == {"decode_attention_general",
+                                         "decode_attention_error_string"}
+
+    # All-f32 decode with d or dv over 256, up to padded 576/512, takes the
+    # f32 tensor-core kernels (3xTF32): every query row in one call, dims
+    # padded to 16, the scale of the true d, the split count and keys a
+    # split of f32_decode_splits, and an f32 workspace (two pointers).
+    # 576/512 at one row was the general entry's before the f32 route.
+    @pytest.mark.parametrize("ql,d,dv,padded", [
+        (128, 576, 512, (576, 512)), (1, 576, 512, (576, 512)),
+        (MAX_Q_LEN + 2, 257, 257, (272, 272)), (1, 64, 320, (64, 320)),
+        (3, 300, 8, (304, 16))])
+    def test_f32_wide_head_dims_reach_the_f32_entry(self, fake_lib, ql, d,
+                                                    dv, padded):
+        assert self._launch(ql, d, dv, ("f32",) * 3, cap=200) == 1
+        assert set(fake_lib.entries) == {"decode_attention_f32tc",
+                                         "decode_attention_error_string"}
+        (call,) = fake_lib.entries["decode_attention_f32tc"].calls
+        splits, split_keys = f32_decode_splits(2, 3, ql, 200, padded[1], 132)
+        assert split_keys % F32_KEYS == 0
+        assert call[7:-1] == (2, 3, ql, 200, *padded,
+                              pytest.approx(d ** -0.5), splits, split_keys)
+        assert all(call[5:7]) and call[5] != call[6]
+
+    def test_f32_absorbed_mla_decode_is_one_launch(self, fake_lib):
+        # DeepSeek-V3's absorbed layout in f32: 128 query rows against one
+        # latent head of 576/512, one call with the cache split.
+        b, cap = 4, 4096
+        q = torch.zeros((b, 1, 128, 576))
+        k = torch.zeros((b, 1, cap, 576))
+        v = torch.zeros((b, 1, cap, 512))
+        lens = torch.tensor([1, 63, 65, cap], dtype=torch.int32)
+        before = flash_attention_decode.launches
+        out = flashattention._launch_decode(q, k, v, lens, stream=7, sms=132)
+        assert flash_attention_decode.launches == before + 1
+        assert out.shape == (b, 1, 128, 512) and out.dtype == torch.float32
+        (call,) = fake_lib.entries["decode_attention_f32tc"].calls
+        splits, split_keys = f32_decode_splits(b, 1, 128, cap, 512, 132)
+        assert splits > 1 and (splits - 1) * split_keys < cap
+        assert call[:5] == tuple(t.data_ptr() for t in (q, k, v, lens, out))
+        assert call[7:] == (b, 1, 128, cap, 576, 512,
+                            pytest.approx(576 ** -0.5), splits, split_keys,
+                            7)
+
+    @pytest.mark.parametrize("ql,d,dv,entry", [
+        (1, 128, 128, "decode_attention_f32"),
+        (MAX_Q_LEN + 2, 256, 256, "decode_attention_f32"),
+        (1, 1024, 1024, "decode_attention_general"),
+        (2, 64, 640, "decode_attention_general"),
+        (1, 592, 64, "decode_attention_general")])
+    def test_f32_the_f32_kernels_do_not_take(self, fake_lib, ql, d, dv,
+                                             entry):
+        # f32 up to 256 stays on the tuned kernels (the serve shape's ring
+        # kernel), f32 past padded 576/512 on the general one; each one
+        # launch per 8 query rows.
+        assert self._launch(ql, d, dv, ("f32",) * 3) == -(-ql // MAX_Q_LEN)
+        assert set(fake_lib.entries) == {entry,
                                          "decode_attention_error_string"}
 
     @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
@@ -509,6 +588,49 @@ class TestWideSplits:
         splits, split_keys = wide_decode_splits(1, 1, 1, 4096, 132)
         assert split_keys == WIDE_SPLIT_MIN_KEYS
         assert splits == 4096 // WIDE_SPLIT_MIN_KEYS
+
+
+class TestF32Splits:
+    """``f32_decode_splits``: the cache split of the f32 decode kernel, from
+    the shapes and the SM count alone."""
+
+    @pytest.mark.parametrize("b,h,ql,cap,dv,sms", [
+        (32, 1, 128, 4096, 512, 132), (1, 1, 1, 16, 272, 132),
+        (3, 2, 70, 300, 320, 132), (64, 8, 1, 4096, 512, 132),
+        (1, 1, 1, 1 << 20, 512, 132), (2, 2, 64, 65, 512, 8)])
+    def test_splits_cover_the_cache_in_whole_tiles(self, b, h, ql, cap, dv,
+                                                   sms):
+        splits, split_keys = f32_decode_splits(b, h, ql, cap, dv, sms)
+        assert splits >= 1 and split_keys % F32_KEYS == 0
+        # Every key in one split, no split empty by construction.
+        assert (splits - 1) * split_keys < cap <= splits * split_keys
+
+    def test_the_count_comes_from_the_shapes_and_the_sm_count(self):
+        # Absorbed MLA at 32 sequences: 32 x 2 row tiles x 2 dv chunks =
+        # 128 blocks a split, about F32_BLOCKS_PER_SM blocks an SM.
+        blocks = 32 * -(-128 // F32_ROWS) * -(-512 // F32_DV_CHUNK)
+        for sms in (66, 132, 264):
+            splits, _ = f32_decode_splits(32, 1, 128, 4096, 512, sms)
+            assert splits * blocks >= F32_BLOCKS_PER_SM * sms
+            assert (splits - 1) * blocks < F32_BLOCKS_PER_SM * sms
+        # A dv within one chunk halves the blocks a split: twice the splits.
+        assert (f32_decode_splits(32, 1, 128, 4096, 256, 132)[0]
+                >= f32_decode_splits(32, 1, 128, 4096, 512, 132)[0])
+
+    def test_one_split_when_the_row_tiles_fill_the_sms(self):
+        # 64 x 8 heads x 1 row tile x 2 chunks = 1,024 blocks.
+        assert f32_decode_splits(64, 8, 1, 4096, 512, 132) == (1, 4096)
+
+    def test_a_cache_shorter_than_a_tile_is_one_tile(self):
+        assert f32_decode_splits(1, 1, 1, 16, 512, 132) == (1, F32_KEYS)
+        assert f32_decode_splits(1, 1, 1, F32_KEYS + 1, 512, 132) == (
+            1, 2 * F32_KEYS)
+
+    def test_splits_keep_their_least_keys(self):
+        # One sequence, one row: the split count stops at the least keys.
+        splits, split_keys = f32_decode_splits(1, 1, 1, 4096, 512, 132)
+        assert split_keys == F32_SPLIT_MIN_KEYS
+        assert splits == 4096 // F32_SPLIT_MIN_KEYS
 
 
 class TestTunedSplits:

@@ -201,6 +201,17 @@ class TestAgainstJax:
         _close(out.numpy(), jax_reference_attention(q, k, v, causal=causal),
                F32_TOL, f"S={seq} causal={causal}")
 
+    # The f32 route's 64-row query tiles and 64-key tiles: S = 63, 65 and
+    # 128 (a tile less one, one and a row, two), at d = 128 and at its
+    # widest bucket, 576/512 (S 1, 64, 129 and 320 are above).
+    @pytest.mark.parametrize("seq", [63, 65, 128])
+    @pytest.mark.parametrize("d,dv", [(128, 128), (576, 512)])
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_f32_tile_edges_match_pallas(self, seq, d, dv, causal):
+        q, k = _rand((1, 2, seq, d), 53), _rand((1, 2, seq, d), 54)
+        v = _rand((1, 2, seq, dv), 55)
+        _agrees_with_jax(q, k, v, ("f32",) * 3, causal, block=seq)
+
     def test_value_dim_differs_from_key_dim(self):
         q, k = _rand((1, 2, 128, 32), 13), _rand((1, 2, 128, 32), 14)
         v = _rand((1, 2, 128, 64), 15)
@@ -411,8 +422,6 @@ class TestRouting:
     @pytest.mark.parametrize("d,dv,dtypes,entry,tail", [
         (128, 128, ("f16",) * 3, "flash_attention_f16", (128, 128)),
         (40, 24, ("bf16",) * 3, "flash_attention_bf16", (48, 32)),
-        (256, 8, ("f32",) * 3, "flash_attention_general",
-         (256, 8, 0, pytest.approx(1 / 16), 0, 0, 0)),
         # f16 at d = 264 takes the wide kernels, padded like the tuned ones
         (264, 64, ("f16",) * 3, "flash_attention_wide_f16", (272, 64)),
         (40, 24, ("f32", "bf16", "bf16"), "flash_attention_general",
@@ -422,8 +431,8 @@ class TestRouting:
     def test_tuned_and_general_entries(self, lib, d, dv, dtypes, entry,
                                        tail):
         # The tuned and wide kernels get head dims padded to multiples of 16
-        # and the true d's scale; the general kernel (f32 too) the true
-        # dims and the dtype codes.
+        # and the true d's scale; the general kernel the true dims and the
+        # dtype codes.
         self._launch(d, dv, dtypes)
         (call,) = lib.entries[entry].calls
         assert call[4:6] == (6, 16)
@@ -449,16 +458,52 @@ class TestRouting:
                             pytest.approx(d ** -0.5), 0)
 
     @pytest.mark.parametrize("d,dv,dtypes", [
-        (576, 512, ("f32",) * 3), (576, 512, ("bf16", "f16", "f16")),
+        (576, 512, ("bf16", "f16", "f16")),
         (320, 320, ("f16", "bf16", "bf16")), (1024, 1024, ("f16",) * 3),
         (64, 640, ("bf16",) * 3), (592, 64, ("bf16",) * 3)])
     def test_what_the_wide_kernels_do_not_take_stays_general(
             self, lib, d, dv, dtypes):
-        # f32, mixed dtypes, and padded dims past 576/512.
+        # Mixed dtypes, and padded dims past 576/512 (f32 takes the f32
+        # kernels: test_f32_reaches_the_f32_entry).
         self._launch(d, dv, dtypes)
         assert set(lib.entries) == {"flash_attention_general",
                                     "flash_attention_error_string"}
         assert not flashattention.wide_kernel_takes(
+            *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
+            *padded_head_dims(d, dv))
+
+
+    # Every all-f32 call up to padded 576/512 takes the f32 tensor-core
+    # kernels (3xTF32), at any S, causal off and on: one call of the f32
+    # entry with head dims padded to multiples of 16 and the true d's scale.
+    # 256/8 and 576/512 were the general entry's before the f32 route.
+    @pytest.mark.parametrize("d,dv,padded", [
+        (128, 128, (128, 128)), (40, 24, (48, 32)), (256, 8, (256, 16)),
+        (576, 512, (576, 512))])
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_f32_reaches_the_f32_entry(self, lib, d, dv, padded, causal):
+        self._launch(d, dv, ("f32",) * 3, causal=causal)
+        assert set(lib.entries) == {"flash_attention_f32tc",
+                                    "flash_attention_error_string"}
+        (call,) = lib.entries["flash_attention_f32tc"].calls
+        # bh, S, padded d and dv, causal, the true d's scale, stream
+        assert call[4:] == (6, 16, *padded, int(causal),
+                            pytest.approx(d ** -0.5), 0)
+        assert flashattention.f32_kernel_takes(
+            *[torch.zeros(1) for _ in range(3)], *padded)
+
+    @pytest.mark.parametrize("d,dv,dtypes", [
+        (1024, 1024, ("f32",) * 3), (64, 640, ("f32",) * 3),
+        (592, 64, ("f32",) * 3), (128, 128, ("f32", "bf16", "bf16")),
+        (576, 512, ("f32", "f32", "bf16")),
+        (40, 24, ("bf16", "bf16", "f32"))])
+    def test_what_the_f32_kernels_do_not_take_stays_general(
+            self, lib, d, dv, dtypes):
+        # f32 past padded 576/512, and every mix with an f32 operand.
+        self._launch(d, dv, dtypes)
+        assert set(lib.entries) == {"flash_attention_general",
+                                    "flash_attention_error_string"}
+        assert not flashattention.f32_kernel_takes(
             *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
             *padded_head_dims(d, dv))
 
