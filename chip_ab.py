@@ -11,10 +11,12 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py wire [--writers 3,6,12,16] [--cycles N]
     python3 chip_ab.py flash32 OTHER_TREE [--rounds N]
     python3 chip_ab.py f32 OTHER_TREE [--rounds N]
+    python3 chip_ab.py mixed OTHER_TREE [--rounds N]
+    python3 chip_ab.py host OTHER_TREE [--rounds N]
     python3 chip_ab.py decode-keys [OTHER_TREE] [--rounds N]
     python3 chip_ab.py wide-parts
     python3 chip_ab.py ring-variants
-    python3 chip_ab.py general
+    python3 chip_ab.py general [OTHER_TREE] [--rounds N]
     python3 chip_ab.py f32-splits
 
 ``versions`` copies the port (``chip_smoke.py`` and
@@ -43,7 +45,13 @@ body (``f32tc_attention.cuh``), each run through the f32 decode checks
 absorbed-MLA layout) and the f32 flash check: one TF32 product where there
 were three (hi.lo and lo.hi dropped, in S and in P V: the checks must see
 plain TF32's error), the softmax scale times 1.01, and the last key tile
-(flash) and the last split of the cache (decode) dropped. Names given after
+(flash) and the last split of the cache (decode) dropped. Three break the
+same body where it takes q's dtype apart from K's and V's (the mixed
+routes): the last key tile and split dropped, through the mixed decode and
+flash checks; an f32 query's lo product not issued, and p not rounded to
+V's dtype, both under the narrowest input's limit, through the mixed flash
+check's nearest-semantics checks. The ring controls run through the mixed
+decode check too (it takes a q of another dtype). Names given after
 ``controls`` run those controls alone. It exits non-zero if a control
 passes a check it must fail.
 
@@ -87,6 +95,18 @@ plain version (the f32 flash limit's share), with the decode's launches a
 call. Against a tree from before the f32 route, it times the general SIMT
 kernels that route replaced.
 
+``mixed`` does the same with MIXED_AB (code that runs in any tree): an
+f32 query over a bf16 cache at the decode serve shape, at absorbed MLA and
+at the flash headline (causal off and on), the calls the ring and mixed
+kernels took from the general kernels, beside the same decode shapes with
+a bf16 query; ms, launches a call and the flash limit's share of each.
+
+``host`` does the same with HOST_AB: the bf16 absorbed-MLA decode and the
+bf16 serve-shape decode, each call's event ms beside its device ms
+(torch.profiler) and the host's us a call, and the MLA call's Python time
+under cProfile: whether a short row's event time is the device's or the
+host's.
+
 ``decode-keys`` times one decode call with every sequence at the full
 4096-token cache (32 sequences, one head) for each of DECODE_KEY_CASES:
 the tuned and general kernels at 8 query rows and 1 (one launch), the
@@ -118,11 +138,13 @@ F32_BLOCKS_PER_SM of F32_SPLITS_SWEEP, the blocks an SM its split count
 aims for, with the split count each gives: what sizes that constant.
 
 ``general`` times the general SIMT kernels at the shapes they still take
-(GENERAL_ROWS): a decode whose f32 query meets a bf16 cache at the serve
-shape. Each row: kernel, plain and library ms (none for mixed dtypes,
-which no one call takes), launches a call, the bound and the error
-against the plain version. (The f32 flash and f32 absorbed-MLA rows it
-timed before went to the f32 tensor-core kernels; ``f32`` times them
+(GENERAL_ROWS): head dims 1024/1024 and 64/640 in bf16 and f32, decode and
+flash. Each row: kernel, plain and library ms, launches a call, the bound
+and the error against the plain version. With OTHER_TREE it runs those
+rows there and here in turns (other, this, this, other), each turn in its
+own process: the general kernels before and after a change. (The mixed,
+f32 flash and f32 absorbed-MLA rows it timed before went to the ring, the
+mixed and the f32 tensor-core kernels; ``mixed`` and ``f32`` time them
 against an older tree.)
 """
 
@@ -162,19 +184,25 @@ CONTROLS = {
          "                        min(a.keys, (a.splits - 1) * a.split_keys));")],
         ("wide_decode", "wide_flash")),
     "ring_softmax_scale_x1.01": (DECODE_SRC, [
-        ("a.scale * kLog2e, a.split_keys);",
-         "a.scale * 1.01f * kLog2e, a.split_keys);")], ("tuned_decode",)),
+        ("a.scale * kLog2e, a.split_keys, a.q_type);",
+         "a.scale * 1.01f * kLog2e, a.split_keys, a.q_type);")],
+        ("tuned_decode", "mixed_decode")),
     "ring_last_tile_dropped": (DECODE_SRC, [
         ("k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile : 0;",
          "k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile - 1 : 0;")],
-        ("tuned_decode",)),
+        ("tuned_decode", "mixed_decode")),
     "f32_single_tf32": (F32TC, [
-        ("""          wgmma_tf32_rs_n64(s, q_lo[b], kh + off, p + ks > 0);
-          wgmma_tf32_rs_n64(s, q_hi[b], kl + off, 1);
-          wgmma_tf32_rs_n64(s, q_hi[b], kh + off, 1);""",
+        ("""          if constexpr (!kQ16)
+            wgmma_tf32_rs_n64(s, q_lo[b], kh + off, p + ks > 0);
+          if constexpr (!kKV16)
+            wgmma_tf32_rs_n64(s, q_hi[b], kl + off, !kQ16 || p + ks > 0);
+          wgmma_tf32_rs_n64(s, q_hi[b], kh + off,
+                            !kQ16 || !kKV16 || p + ks > 0);""",
          "          wgmma_tf32_rs_n64(s, q_hi[b], kh + off, p + ks > 0);"),
-        ("""          wgmma_tf32_rs_n32(o[vp], p_lo[ks], vh + off);
-          wgmma_tf32_rs_n32(o[vp], p_hi[ks], vl + off);
+        ("""          if constexpr (!kKV16) {
+            wgmma_tf32_rs_n32(o[vp], p_lo[ks], vh + off);
+            wgmma_tf32_rs_n32(o[vp], p_hi[ks], vl + off);
+          }
           wgmma_tf32_rs_n32(o[vp], p_hi[ks], vh + off);""",
          "          wgmma_tf32_rs_n32(o[vp], p_hi[ks], vh + off);")],
         ("f32_decode", "f32_flash")),
@@ -189,6 +217,26 @@ CONTROLS = {
          "const int len = min(a.lens[w.bh / a.h],\n"
          "                        min(a.keys, (a.splits - 1) * a.split_keys));")],
         ("f32_decode", "f32_flash")),
+    # The mixed routes (the f32 body built for 16-bit q or K and V): the
+    # same dropped tile and split, through the mixed checks; an f32 query's
+    # lo product not issued (S from the query's TF32 part alone); p not
+    # rounded to V's dtype (the raw f32 p, read as TF32). The last two are
+    # below the narrowest input's limit: mixed_flash_check's nearest-
+    # semantics checks must reject them.
+    "mixed_last_key_tile_and_split_dropped": (F32TC, [
+        ("w.n_kt = (w.k_limit + kKeys - 1) / kKeys;",
+         "w.n_kt = (w.k_limit + kKeys - 1) / kKeys - 1;"),
+        ("const int len = min(a.lens[w.bh / a.h], a.keys);",
+         "const int len = min(a.lens[w.bh / a.h],\n"
+         "                        min(a.keys, (a.splits - 1) * a.split_keys));")],
+        ("mixed_decode", "mixed_flash")),
+    "mixed_q_lo_dropped": (F32TC, [
+        ("""          if constexpr (!kQ16)
+            wgmma_tf32_rs_n64(s, q_lo[b], kh + off, p + ks > 0);
+""", "")], ("mixed_flash",)),
+    "mixed_p_not_rounded": (F32TC, [
+        ("p_hi[ks][j] = __float_as_uint(round16(x, kv_f16));",
+         "p_hi[ks][j] = __float_as_uint(x);")], ("mixed_flash",)),
 }
 # A version's library is built at its first call, in the bench's warm-up
 # (phase_build would hold every version to the tree's SASS requirements).
@@ -213,6 +261,10 @@ CHECK = (
     "           'tuned_decode': lambda: c.tuned_decode_check(\n"
     "               np.random.default_rng(0)),\n"
     "           'wide_flash': lambda: c.wide_flash_check(\n"
+    "               torch.Generator(device='cuda:0').manual_seed(0)),\n"
+    "           'mixed_decode': lambda: c.mixed_decode_check(\n"
+    "               np.random.default_rng(0)),\n"
+    "           'mixed_flash': lambda: c.mixed_flash_check(\n"
     "               torch.Generator(device='cuda:0').manual_seed(0))}}\n"
     "for name in {names!r}:\n"
     "    try:\n"
@@ -317,6 +369,101 @@ F32_AB = (
     "print('[f32ab] ' + ' '.join(f'{n}={x}' for n, x in r.items()),"
     " flush=True)\n")
 # What each mode runs in a tree, and the lines of its output it keeps.
+# mixed: code that runs in any tree (an older one takes these calls on the
+# general kernels): an f32 q over a bf16 cache at the decode serve shape
+# and at absorbed MLA (q [32, 1, 128, 576] against the smoke's latent cache
+# and lengths), and at the flash headline [4, 8, 2048, 128], causal off and
+# on; beside them the same decode shapes with a bf16 q (the ring and wide
+# kernels, whose code the mixed routes share or sit beside), each with its
+# ms, launches a call and error against its plain version (the flash
+# limit's share).
+MIXED_ROWS = ("serve_f32q_bf16kv", "serve_bf16", "mla_f32q_bf16kv",
+              "mla_bf16", "flash_f32q_bf16kv", "flash_f32q_bf16kv_causal")
+MIXED_AB = (
+    "import numpy as np, torch, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute.flashattention import ("
+    "decode_attention_reference as dref, flash_attention as fa, "
+    "flash_attention_decode as fd)\n"
+    "from k8s_dra_driver_tpu_torch.compute.ringattention import "
+    "reference_attention as ref\n"
+    "card = c.phase_device(); print('AB_CARD ' + card)\n"
+    "g = torch.Generator(device='cuda:0').manual_seed(0)\n"
+    "f, bf = torch.float32, torch.bfloat16\n"
+    "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
+    ".to('cuda:0')\n"
+    "r = {}\n"
+    "def row(name, counter, fn, plain):\n"
+    "    before = counter.launches\n"
+    "    out = fn()\n"
+    "    r[name + '_launches'] = counter.launches - before\n"
+    "    r[name + '_ms'] = c.cuda_ms(fn, runs=10, warmup=2)\n"
+    "    r[name + '_err_over_limit'] = c.compare(out, plain(),"
+    " *c.FLASH_BF16_TOL)[1]\n"
+    "for name, shapes in (('serve', [(c.BATCH, c.HEADS, 1, c.HEAD_DIM),"
+    " (c.BATCH, c.HEADS, c.KV_CAP, c.HEAD_DIM)] * 2), ('mla', ["
+    "(c.BATCH, 1, c.MLA_ROWS, c.MLA_D), (c.BATCH, 1, c.KV_CAP, c.MLA_D),"
+    " (c.BATCH, 1, c.MLA_ROWS, c.MLA_DV), (c.BATCH, 1, c.KV_CAP,"
+    " c.MLA_DV)])):\n"
+    "    q = c.randn(g, shapes[0], f)\n"
+    "    k, v = c.randn(g, shapes[1], bf), c.randn(g, shapes[3], bf)\n"
+    "    row(name + '_f32q_bf16kv', fd, lambda: fd(q, k, v, lens),"
+    " lambda: dref(q, k, v, lens))\n"
+    "    qb = q.to(bf)\n"
+    "    row(name + '_bf16', fd, lambda: fd(qb, k, v, lens),"
+    " lambda: dref(qb, k, v, lens))\n"
+    "    del q, qb, k, v\n"
+    "q = c.randn(g, c.FLASH_SHAPE, f)\n"
+    "k, v = (c.randn(g, c.FLASH_SHAPE, bf) for _ in range(2))\n"
+    "for causal in (False, True):\n"
+    "    row('flash_f32q_bf16kv' + ('_causal' if causal else ''), fa,"
+    " lambda: fa(q, k, v, causal=causal),"
+    " lambda: ref(q, k, v, causal=causal))\n"
+    "print('[mixedab] ' + ' '.join(f'{n}={x}' for n, x in r.items()),"
+    " flush=True)\n")
+
+# host: code that runs in any tree: the bf16 absorbed-MLA decode (the wide
+# kernel, ~0.08 ms of device time a call) and the bf16 decode serve shape
+# (the ring kernel), each its event ms a call (chip_smoke.cuda_ms), its
+# device ms a call (torch.profiler) and the host's us a call (200 calls on
+# the host's clock, no synchronize inside), and for MLA the Python time a
+# call under cProfile: whether a row's event time is the device's or the
+# host's.
+HOST_AB = (
+    "import cProfile, pstats, time, numpy as np, torch, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute.flashattention import "
+    "flash_attention_decode as fd\n"
+    "card = c.phase_device(); print('AB_CARD ' + card)\n"
+    "g = torch.Generator(device='cuda:0').manual_seed(0)\n"
+    "bf = torch.bfloat16\n"
+    "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
+    ".to('cuda:0')\n"
+    "r = {}\n"
+    "def host_us(fn, calls=200):\n"
+    "    torch.cuda.synchronize()\n"
+    "    t0 = time.perf_counter()\n"
+    "    for _ in range(calls):\n"
+    "        fn()\n"
+    "    t1 = time.perf_counter()\n"
+    "    torch.cuda.synchronize()\n"
+    "    return (t1 - t0) * 1e6 / calls\n"
+    "for name, qs, ks, vs in (('mla', (c.BATCH, 1, c.MLA_ROWS, c.MLA_D),"
+    " (c.BATCH, 1, c.KV_CAP, c.MLA_D), (c.BATCH, 1, c.KV_CAP, c.MLA_DV)),"
+    " ('serve', (c.BATCH, c.HEADS, 1, c.HEAD_DIM), (c.BATCH, c.HEADS,"
+    " c.KV_CAP, c.HEAD_DIM), (c.BATCH, c.HEADS, c.KV_CAP, c.HEAD_DIM))):\n"
+    "    q, k, v = c.randn(g, qs, bf), c.randn(g, ks, bf), c.randn(g, vs, bf)\n"
+    "    fn = lambda: fd(q, k, v, lens)\n"
+    "    r[name + '_event_ms'] = c.cuda_ms(fn)\n"
+    "    r[name + '_device_ms'] = c.device_busy(fn, calls=20)[0]\n"
+    "    r[name + '_host_us'] = host_us(fn)\n"
+    "    if name == 'mla':\n"
+    "        prof = cProfile.Profile()\n"
+    "        prof.enable(); host_us(fn, 300); prof.disable()\n"
+    "        r['mla_profiled_python_us'] = pstats.Stats(prof).total_tt"
+    " * 1e6 / 300\n"
+    "    del q, k, v\n"
+    "print('[hostab] ' + ' '.join(f'{n}={x}' for n, x in r.items()),"
+    " flush=True)\n")
+
 TREE_MODES = {
     "serve": (SERVE, lambda ln: ln.startswith("[serve] submitted="),
               SERVE_KEYS),
@@ -328,6 +475,13 @@ TREE_MODES = {
             ("flash_ms", "flash_causal_ms", "mla_ms", "mla_launches",
              "flash_err_over_limit", "flash_causal_err_over_limit",
              "mla_err_over_limit")),
+    "mixed": (MIXED_AB, lambda ln: ln.startswith("[mixedab]"),
+              tuple(f"{row}_{key}" for row in MIXED_ROWS
+                    for key in ("ms", "launches", "err_over_limit"))),
+    "host": (HOST_AB, lambda ln: ln.startswith("[hostab]"),
+             tuple(f"{row}_{key}" for row in ("mla", "serve")
+                   for key in ("event_ms", "device_ms", "host_us"))
+             + ("mla_profiled_python_us",)),
 }
 # wide-parts: the copies of the wide body, each with its (text, replacement)
 # pairs: the S loop over a panel count known only at run time (as first
@@ -693,18 +847,33 @@ def ring_variants(work: Path, timeout: float) -> int:
 
 
 # general: (name, q, k and v dtypes, q, k and v shapes, causal or None for
-# decode, whether one PyTorch call computes it).
-GENERAL_ROWS = (
-    ("decode_serve_f32q_bf16kv", ("float32", "bfloat16", "bfloat16"),
-     ((32, 32, 1, 128), (32, 32, 4096, 128), (32, 32, 4096, 128)), None,
-     False),
-)
+# decode, whether one PyTorch call computes it). The head dims only the
+# general kernels take (past the wide, f32 and mixed routes' 576/512):
+# 1024/1024 and 64/640 in bf16 and f32, decode at the smoke's 32 sequences
+# and 4096-token cache (4 heads at 1024, 8 at 64/640) and flash at [1, 8,
+# 2048], each beside the library call.
+GENERAL_ROWS = tuple(
+    row for t in ("bfloat16", "float32") for row in (
+        (f"decode_1024_1024_{t}", (t,) * 3,
+         ((32, 4, 1, 1024), (32, 4, 4096, 1024), (32, 4, 4096, 1024)),
+         None, True),
+        (f"decode_64_640_{t}", (t,) * 3,
+         ((32, 8, 1, 64), (32, 8, 4096, 64), (32, 8, 4096, 640)), None,
+         True),
+        (f"flash_1024_1024_{t}", (t,) * 3,
+         ((1, 8, 2048, 1024), (1, 8, 2048, 1024), (1, 8, 2048, 1024)),
+         False, True),
+        (f"flash_64_640_{t}", (t,) * 3,
+         ((1, 8, 2048, 64), (1, 8, 2048, 64), (1, 8, 2048, 640)), False,
+         True)))
 
 
 def general() -> int:
     """GENERAL_ROWS on the general kernels: ms, plain ms, library ms, the
-    bound (bytes at 3.35 TB/s or f32 operations at 67 TFLOP/s, the longer),
-    launches a call and the error against the plain version."""
+    bound (bytes at 3.35 TB/s, or operations at 989.4 TFLOP/s in bf16 and
+    67 TFLOP/s in f32, the longer), launches a call and the error against
+    the plain version. It runs in the tree it is started from (an older
+    tree's kernels too: ``general_ab``)."""
     import numpy as np
     import torch
 
@@ -748,20 +917,22 @@ def general() -> int:
             kernel = lambda: flash_attention(q, k, v, causal=causal)
             plain = lambda: reference_attention(q, k, v, causal=causal)
             library = lambda: sdpa(q, k, v, is_causal=causal)
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4
+            nbytes = (q.numel() + k.numel() + v.numel()
+                      + b * h * ql * dv) * q.element_size()
             flops = 2 * b * h * ql * n * (d + dv) // (2 if causal else 1)
         before = counter.launches
         out = kernel()
         per_call = counter.launches - before
-        ms = c.cuda_ms(kernel, runs=10, warmup=2)
-        plain_ms = c.cuda_ms(plain, runs=10, warmup=2)
-        library_ms = c.cuda_ms(library, runs=10, warmup=2) if has_library \
+        ms = c.cuda_ms(kernel, runs=5, warmup=1)
+        plain_ms = c.cuda_ms(plain, runs=5, warmup=1)
+        library_ms = c.cuda_ms(library, runs=5, warmup=1) if has_library \
             else None
         tol = c.FLASH_F32_TOL if set(dtypes) == {"float32"} else \
             c.FLASH_BF16_TOL
         err, over = c.compare(out, plain(), *tol)
         bytes_ms = nbytes / c.HBM_BYTES_S * 1e3
-        flops_ms = flops / c.F32_FLOP_S * 1e3
+        flops_ms = flops / (c.F32_FLOP_S if q.dtype == torch.float32
+                            else c.BF16_FLOP_S) * 1e3
         row = {"row": name, "dtypes": "/".join(dtypes),
                "q": list(q.shape), "k": list(k.shape), "v": list(v.shape),
                "causal": causal, "ms": ms, "plain_ms": plain_ms,
@@ -777,6 +948,47 @@ def general() -> int:
         del q, k, v, out
         torch.cuda.empty_cache()
     print(json.dumps({"general": rows, "card": card}), flush=True)
+    return 0
+
+
+# general_ab: this tree's ``general`` run in another tree (its kernels,
+# its chip_smoke), loaded under another name beside that tree's own
+# chip_ab.
+GENERAL_RUN = (
+    "import importlib.util, sys\n"
+    "spec = importlib.util.spec_from_file_location('chip_ab_rows', {path!r})\n"
+    "rows = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(rows)\n"
+    "sys.exit(rows.general())\n")
+
+
+def general_ab(other: Path, rounds: int, timeout: float) -> int:
+    """GENERAL_ROWS in the other tree and this one, in turns (other, this,
+    this, other) ``rounds`` times, each in its own process: the general
+    kernels' times before and after a change to them. Prints each turn's
+    rows, then one JSON line of every turn's."""
+    code = GENERAL_RUN.format(path=str(Path(__file__).resolve()))
+    sides = [("other", other.resolve()), ("this-tree", ROOT)]
+    turns = []
+    for turn, i in enumerate([0, 1, 1, 0] * rounds):
+        label, tree = sides[i]
+        rc, out = run(tree, code, timeout)
+        print(f"== turn {turn}: {label} (exit {rc})", flush=True)
+        lines = out.splitlines()
+        for ln in lines:
+            if ln.startswith("[general]"):
+                print(ln, flush=True)
+        found = [ln for ln in lines if ln.startswith('{"general"')]
+        if rc != 0 or not found:
+            print(out[-4000:], flush=True)
+            return 1
+        result = json.loads(found[0])
+        turns.append({"turn": turn, "tree": label, "card": result["card"],
+                      "rows": [{k: r[k] for k in ("row", "ms", "library_ms",
+                                                  "launches_per_call",
+                                                  "err_over_limit")}
+                               for r in result["general"]]})
+    print(json.dumps({"general_turns": turns}), flush=True)
     return 0
 
 
@@ -848,6 +1060,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("versions", "controls", "serve",
                                      "decode", "wire", "flash32", "f32",
+                                     "mixed", "host",
                                      "decode-keys", "wide-parts",
                                      "ring-variants", "general",
                                      "f32-splits"))
@@ -880,7 +1093,10 @@ def main(argv=None) -> int:
         return decode_keys(Path(args.sources[0]) if args.sources else None,
                            args.rounds, args.timeout)
     if args.mode == "general":
-        return general()
+        if len(args.sources) > 1:
+            ap.error("general takes at most one other tree")
+        return (general_ab(Path(args.sources[0]), args.rounds, args.timeout)
+                if args.sources else general())
     if args.mode == "f32-splits":
         return f32_splits()
     if args.mode == "ring-variants":

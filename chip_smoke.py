@@ -18,8 +18,9 @@ One line per phase:
            bulk copies (UBLKCP): every bf16 and f16 flash kernel and every
            wide kernel (decode and flash, at head dims over 256) must have
            the first two, every tuned decode ring kernel the third, and
-           every f32 tensor-core kernel (3xTF32) TMA loads and HGMMAs all
-           of the TF32 form, with no spill
+           every f32 tensor-core kernel (3xTF32, and its mixed-dtype
+           builds) TMA loads and HGMMAs all of the TF32 form, with no
+           spill
 3. check   the decode kernel against its plain PyTorch version on the card
            at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
            lengths): f32 within 1e-4, bf16 and f16 within 2e-2, a poisoned
@@ -47,7 +48,13 @@ One line per phase:
            nine sequences of lengths 1, 2, its tile's edges (T - 1, T,
            T + 1), a split's edges (+-1) and the cache, the cache split
            across blocks: within 2e-2 and the flash limit, one launch a
-           call, and a poisoned tail that moves the output by less than 1e-5
+           call, and a poisoned tail that moves the output by less than
+           1e-5; q in a dtype apart from the one K and V share (an f32 q
+           over a bf16 and an f16 cache, a bf16 q over an f32 one) at the
+           serve shape on the ring kernel and at absorbed MLA's layout (128
+           and 1 rows, lengths at the tiles' and a split's edges) on the
+           mixed tensor-core kernel, one launch a call, within 2e-2 and the
+           flash limit, a poisoned tail moving nothing
 4. timing  the decode kernel, its plain version and one library call, at
            the engine's shape, beside the least time the card could take
 5. serve   the claim path: a ResourceClaim for that card (CEL on its UUID)
@@ -80,6 +87,11 @@ One line per phase:
            the f32 kernel (3xTF32) at the headline and at 128/128, 256/256
            and 576/512 at those S (its 64-row and 64-key tiles' edges),
            causal off and on, within the f32 limit, one launch a call;
+           the mixed tensor-core kernel at the headline in each mixed
+           class and at those head dims and S, within the bf16 limit, one
+           launch a call, and, at S = 64, nearer to the kernel's semantics
+           than to an unrounded p or a TF32-rounded f32 query (what the
+           bf16 limit cannot see);
            block arguments that change nothing; causal row 0 equal to v's
            row 0; an indivisible S raising ValueError without a launch
 7. bench   the compute bench's flash rows (the JAX bench's headline shape
@@ -105,6 +117,11 @@ One line per phase:
            the f32 flash headline and flash at 576/512, causal off and on;
            bounds at 3 TF32 products per f32 one (494.7 TFLOP/s) with the
            f32 SIMT bound (67 TFLOP/s) beside, shares against the first
+   mixed   an f32 query over a bf16 cache the same way (no library call
+           takes mixed dtypes): the decode serve shape on the ring kernel,
+           absorbed-MLA decode on the mixed tensor-core kernel and its
+           merge, the flash headline causal off and on; bounds at the TF32
+           products the kernel issues (S 2, P V 1 a multiply-add)
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
@@ -344,6 +361,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import json
 import logging
 import math
@@ -367,11 +385,14 @@ from k8s_dra_driver_tpu_torch.compute import _build, _dist
 from k8s_dra_driver_tpu_torch.compute.burnin import matmul_flops_bench
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     decode_attention_reference,
+    TUNED_HEAD_DIM,
     f32_decode_splits,
     f32_kernel_takes,
     flash_attention,
     flash_attention_decode,
+    mixed_kernel_takes,
     padded_head_dims,
+    tuned_kernel_takes,
     tuned_decode_splits,
     tuned_decode_tile,
     wide_decode_splits,
@@ -559,9 +580,19 @@ FLASH_BF16_TOL = (4e-3, 1e-2)
 # is 16-bit: f16 rounds p and the output finer than bf16, and q.k is exact
 # f32 in every mix.
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# q, k and v in different dtypes: K and V sharing one (the mixed routes'
+# classes: an f32 q over a 16-bit cache, a 16-bit q over an f32 one, a bf16
+# q over an f16 one), then K and V apart (the general kernels').
 MIXED_DTYPES = ((torch.float32, torch.bfloat16, torch.bfloat16),
                 (torch.float32, torch.float16, torch.float16),
-                (torch.bfloat16, torch.float16, torch.float16))
+                (torch.bfloat16, torch.float16, torch.float16),
+                (torch.bfloat16, torch.float32, torch.float32),
+                (torch.float32, torch.float32, torch.bfloat16))
+# The mixed routes' classes at full width: an f32 q over a bf16 and over an
+# f16 cache, a bf16 q over an f32 one.
+MIXED_FULL = ((torch.float32, torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.float16, torch.float16),
+              (torch.bfloat16, torch.float32, torch.float32))
 # Head dims (d, dv) for the general kernels: past the tuned kernels by one,
 # 320, 512, DeepSeek-V3's absorbed-MLA decode (keys kv_lora_rank 512 +
 # qk_rope_head_dim 64, values 512), 1024, and dv over 256 beside a narrow d.
@@ -740,6 +771,9 @@ def phase_build() -> None:
     t0 = time.monotonic()
     built = _build.build_all(force=True)
     require(bool(built), "no kernel source was built")
+    # Every library's SASS at once (cuobjdump a process each).
+    with concurrent.futures.ThreadPoolExecutor(len(built)) as pool:
+        listings = dict(zip(built, pool.map(_build.disassemble, built)))
     # Kernels are defined in the sources and in the headers they include.
     headers = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cuh")))
     for name, (s, log) in sorted(built.items()):
@@ -747,7 +781,7 @@ def phase_build() -> None:
         names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                            r"\s*)?(\w+)\s*\(", src)
         sass = {}
-        for fn in _build.disassemble(name).split("Function : ")[1:]:
+        for fn in listings[name].split("Function : ")[1:]:
             sass[fn.split(None, 1)[0]] = (len(re.findall(r"\bHGMMA\.", fn)),
                                           len(re.findall(r"\bUTMALDG\.", fn)),
                                           len(re.findall(r"\bUBLKCP\.", fn)),
@@ -907,6 +941,7 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
     wide_decode_check(rng)
     f32_decode_check(rng)
     tuned_decode_check(rng)
+    mixed_decode_check(rng)
     before = flash_attention_decode.launches
     try:
         flash_attention_decode(q, k, v, lens, block_k=1000)
@@ -928,27 +963,36 @@ def general_dims_check(rng: np.random.Generator) -> float:
     small = np.array([1, 45, 300], np.int32)
     # Every head dim of GENERAL_DIMS in each dtype, and q, k and v in
     # different dtypes at tuned and wide head dims, each held to its
-    # narrowest input's limit: one launch a call where the wide or the f32
-    # kernel takes it (bf16 and f16, or f32, up to 576/512; held to the
+    # narrowest input's limit: one launch a call where the wide, the f32 or
+    # the mixed tensor-core kernel takes it (bf16 and f16, or f32, or q's
+    # dtype apart from K's and V's shared one, up to 576/512; held to the
     # flash limit too, which a 1% scale or a dropped split exceeds and the
-    # decode limit alone may not), else the general kernel's one launch per
-    # 8 query rows.
+    # decode limit alone may not), else one launch per 8 query rows: the
+    # ring kernel's for a mixed call whose cache rows are whole 16-byte
+    # chunks at d, dv <= 256 (d = 128), the general kernel's for the rest.
     cases = [(ql, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
              for ql in (1, 8, 10) for t in DTYPES]
     cases += [(ql, d, dv, ts) for ts in MIXED_DTYPES
               for d, dv in ((128, 128), (66, 130), (576, 512))
               for ql in (1, 4)]
-    worst, wide_calls, wide_over, f32_calls = 0.0, 0, 0.0, 0
+    worst, wide_over = 0.0, 0.0
+    calls = {"wide": 0, "f32": 0, "mixed": 0, "ring_mixed": 0}
     for ql, d, dv, ts in cases:
         a = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             dev, t) for shape, t in (((3, 2, ql, d), ts[0]),
                                      ((3, 2, 300, d), ts[1]),
                                      ((3, 2, 300, dv), ts[2]))]
         a.append(torch.from_numpy(small).to(dev))
-        wide = wide_kernel_takes(*a[:3], *padded_head_dims(d, dv))
-        f32 = f32_kernel_takes(*a[:3], *padded_head_dims(d, dv))
-        wide_calls += wide
-        f32_calls += f32
+        dp, dvp = padded_head_dims(d, dv)
+        wide = wide_kernel_takes(*a[:3], dp, dvp)
+        f32 = f32_kernel_takes(*a[:3], dp, dvp)
+        mixed = (max(dp, dvp) > TUNED_HEAD_DIM
+                 and mixed_kernel_takes(*a[:3], dp, dvp))
+        calls["wide"] += wide
+        calls["f32"] += f32
+        calls["mixed"] += mixed
+        calls["ring_mixed"] += (ts[0] != ts[1] and tuned_kernel_takes(
+            "decode_attention", *a[:3], d, dv))
         before = flash_attention_decode.launches
         out = flash_attention_decode(*a, block_k=300)
         groups = flash_attention_decode.launches - before
@@ -959,9 +1003,9 @@ def general_dims_check(rng: np.random.Generator) -> float:
                                         f"{out.dtype}")
         err = (out.float() - ref.float()).abs().max().item()
         require(err < decode_tol(*ts), f"{what}: error {err}")
-        want = 1 if wide or f32 else -(-ql // 8)
+        want = 1 if wide or f32 or mixed else -(-ql // 8)
         require(groups == want, f"{what}: {groups} launches, not {want}")
-        if wide or f32:
+        if wide or f32 or mixed:
             over = compare(out, ref, *flash_tol(*ts))[1]
             require(over <= 1, f"{what}: {over} of the flash limit")
             wide_over = max(wide_over, over)
@@ -971,10 +1015,10 @@ def general_dims_check(rng: np.random.Generator) -> float:
         + " x ql 1/8/10 x f32/bf16/f16; q/k/v "
         + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
         + " x d/dv 128/128, 66/130, 576/512 x ql 1/4"), calls=len(cases),
-        wide_calls=wide_calls, f32_calls=f32_calls,
-        general_calls=len(cases) - wide_calls - f32_calls,
+        **{f"{route}_calls": n for route, n in calls.items()},
+        general_calls=len(cases) - sum(calls.values()),
         worst_err_over_tol=worst,
-        wide_f32_worst_err_over_flash_limit=wide_over)
+        wide_f32_mixed_worst_err_over_flash_limit=wide_over)
     return worst
 
 
@@ -1094,6 +1138,88 @@ def f32_decode_check(rng: np.random.Generator) -> float:
          launches_per_call=1, **fields,
          flash_atol_rtol=json.dumps(FLASH_F32_TOL))
     torch.cuda.empty_cache()
+    return worst
+
+
+def poisoned(k: torch.Tensor, v: torch.Tensor, lens: list) -> tuple:
+    """Copies of a cache with every key past each sequence's length set to
+    +-POISON (+-F16_POISON in f16, which holds no 1e6): a masked key that
+    is read swamps the output."""
+    kp, vp = k.clone(), v.clone()
+    for t, sign in ((kp, 1), (vp, -1)):
+        poison = F16_POISON if t.dtype == torch.float16 else POISON
+        for i, n in enumerate(lens):
+            t[i, :, n:] = sign * poison
+    return kp, vp
+
+
+def mixed_decode_check(rng: np.random.Generator) -> float:
+    """Decode whose q's dtype differs from the one K and V share, in each
+    MIXED_FULL class: at the serve shape (q [32, 32, 1, 128] against the
+    smoke's cache width and lengths) on the ring kernel, one launch a call;
+    at DeepSeek-V3's absorbed-MLA layout (576/512, the smoke's cache) at 128
+    query rows and 1 on the mixed tensor-core kernel, one launch a call,
+    one sequence at each of the lengths 1, 31, 32, 33, 63, 64, 65, the first
+    split's last key and the keys either side, and the cache. Each call
+    within its narrowest input's limit (BF16_TOL) and the flash limit
+    FLASH_BF16_TOL (atol, rtol); then the tail past each length poisoned,
+    which must move the output by less than POISON_TOL. Returns the worst
+    error's share of the flash limit."""
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    serve_lens = smoke_lengths(rng)
+    n = 11
+    cases = [("serve", 1, HEAD_DIM, HEAD_DIM, serve_lens)]
+    for ql in (MLA_ROWS, 1):
+        split_keys = f32_decode_splits(n, 1, ql, KV_CAP, MLA_DV, sms)[1]
+        cases.append((f"mla_ql{ql}", ql, MLA_D, MLA_DV, np.array(
+            [1, 31, 32, 33, 63, 64, 65, split_keys - 1, split_keys,
+             split_keys + 1, KV_CAP], np.int32)))
+    worst, rows = 0.0, []
+    for name, ql, d, dv, lens_np in cases:
+        b = len(lens_np)
+        h = HEADS if name == "serve" else 1
+        lens = torch.from_numpy(lens_np).to(dev)
+        for ts in MIXED_FULL:
+            q = randn(gen, (b, h, ql, d), ts[0])
+            k = randn(gen, (b, h, KV_CAP, d), ts[1])
+            v = randn(gen, (b, h, KV_CAP, dv), ts[2])
+            what = f"mixed decode {dtype_names(*ts)} {name}"
+            route = ("ring" if tuned_kernel_takes("decode_attention", q, k,
+                                                  v, d, dv) else "mixed")
+            require(route == ("ring" if name == "serve" else "mixed"),
+                    f"{what}: routed to the {route} kernel")
+            before = flash_attention_decode.launches
+            out = flash_attention_decode(q, k, v, lens)
+            calls = flash_attention_decode.launches - before
+            ref = decode_attention_reference(q, k, v, lens)
+            require(out.shape == ref.shape and out.dtype == ts[0]
+                    and bool(torch.isfinite(out).all()),
+                    f"{what}: output {tuple(out.shape)} {out.dtype}")
+            require(calls == 1, f"{what}: {calls} launches, not 1")
+            err, over = compare(out, ref, *FLASH_BF16_TOL)
+            require(err < decode_tol(*ts), f"{what}: error {err}")
+            require(over <= 1, f"{what}: {over} of the flash limit")
+            kp, vp = poisoned(k, v, lens_np.tolist())
+            moved = (flash_attention_decode(q, kp, vp, lens).float()
+                     - out.float()).abs().max().item()
+            require(moved < POISON_TOL, f"{what}: the poisoned tail moved "
+                                        f"the output by {moved}")
+            rows.append([name, dtype_names(*ts), route, err, over, moved])
+            worst = max(worst, over)
+            del q, k, v, kp, vp, out, ref
+        torch.cuda.empty_cache()
+    line("check", kernel="decode_attention", route="mixed",
+         rows=json.dumps(rows, separators=(",", ":")),
+         row_fields=json.dumps(["case", "dtypes", "route", "max_abs_err",
+                                "err_over_flash_limit",
+                                "poisoned_tail_max_abs_diff"]),
+         serve=json.dumps([BATCH, HEADS, 1, HEAD_DIM]),
+         mla=json.dumps([n, 1, "ql", MLA_D, MLA_DV]),
+         mla_lens="1,31,32,33,63,64,65,split-1,split,split+1,cap",
+         launches_per_call=1, worst_err_over_flash_limit=worst,
+         flash_atol_rtol=json.dumps(FLASH_BF16_TOL))
     return worst
 
 
@@ -1324,8 +1450,10 @@ def phase_flash_check(seed: int) -> float:
     # The general kernel: every head dim of GENERAL_DIMS in each dtype at
     # S = 1 (less than a tile), 33 (one tile and one row) and 100 (bf16 and
     # f16 up to 576/512 on the wide kernel, f32 there on the f32 one), and
-    # q, k and v in different dtypes at tuned, padded and wide head dims;
-    # each call one launch, held to its narrowest input's limit.
+    # q, k and v in different dtypes at tuned, padded and wide head dims
+    # (K and V sharing a dtype on the mixed tensor-core kernel, K and V
+    # apart on the general one); each call one launch, held to its
+    # narrowest input's limit.
     cases = [(s_small, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
              for s_small in (1, 33, 100) for t in DTYPES]
     cases += [(s_small, d, dv, ts) for ts in MIXED_DTYPES
@@ -1357,6 +1485,7 @@ def phase_flash_check(seed: int) -> float:
         calls=2 * len(cases), worst_err_over_limit=worst)
     wide_flash_check(gen)
     f32_flash_check(gen)
+    mixed_flash_check(gen)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (randn(gen, (2, 3, 256, 64), dtype) for _ in range(3))
         outs = [flash_attention(q, k, v, block_q=bq, block_k=bk, causal=True)
@@ -1450,6 +1579,98 @@ def f32_flash_check(gen: torch.Generator) -> float:
         + "/".join(map(str, WIDE_FLASH_SEQS)) + " x causal"),
         calls=len(cases), worst_err_over_limit=worst,
         atol_rtol=json.dumps(FLASH_F32_TOL))
+    return worst
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero: PTX's cvt.rna.tf32.f32), as f32: an f32 query's hi part."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def rounded_p_attention(q, k, v) -> torch.Tensor:
+    """Attention of one key tile (S <= 64, no mask) as the mixed kernel
+    computes it: scores q.k in f32, p = exp(s - the row's max) rounded to
+    V's dtype before P V, the denominator the sum of the unrounded p, the
+    output in f32."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(
+        q.shape[-1])
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e.to(v.dtype).float()
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / e.sum(
+        -1, keepdim=True)
+
+
+def mixed_flash_check(gen: torch.Generator) -> float:
+    """The mixed tensor-core flash kernel (q's dtype apart from K's and V's
+    shared one): at the compute bench's headline [4, 8, 2048, 128] in each
+    MIXED_FULL class and at each head-dim bucket (128/128, 256/256,
+    576/512) at S = WIDE_FLASH_SEQS in the first, causal off and on, each
+    call one launch within FLASH_BF16_TOL of ``reference_attention``. Then
+    what that limit cannot see, at S = 64 (one key tile, so the kernel
+    rounds each p against the row's final max) and an f32 q over a bf16
+    and an f16 cache, [16, 16, 64, 128]: the kernel's output is nearer
+    (summed squared difference under half) to ``rounded_p_attention`` than
+    to the plain version, whose p is not rounded (so p is rounded to V's
+    dtype), and than to ``rounded_p_attention`` of the query rounded to
+    TF32 (so the f32 query's lo part entered S). Returns the worst error's
+    share of the flash limit."""
+    worst = 0.0
+    cases = [(FLASH_SHAPE, FLASH_SHAPE[3], causal, ts) for ts in MIXED_FULL
+             for causal in (False, True)]
+    cases += [((2, 3, s_small, d), dv, causal, MIXED_FULL[0])
+              for d, dv in F32_FLASH_DIMS for s_small in WIDE_FLASH_SEQS
+              for causal in (False, True)]
+    for shape, dv, causal, ts in cases:
+        q, k = (randn(gen, shape, t) for t in ts[:2])
+        v = randn(gen, shape[:3] + (dv,), ts[2])
+        s_small = shape[2]
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, block_q=s_small, block_k=s_small,
+                              causal=causal)
+        calls = flash_attention.launches - before
+        ref = reference_attention(q, k, v, causal=causal)
+        what = (f"mixed flash {dtype_names(*ts)} {list(shape)} dv={dv} "
+                f"causal={causal}")
+        require(out.shape == ref.shape and out.dtype == ts[0]
+                and calls == 1 and bool(torch.isfinite(out).all()),
+                f"{what}: {tuple(out.shape)} {out.dtype}, {calls} launches")
+        err, over = compare(out, ref, *FLASH_BF16_TOL)
+        require(over <= 1, f"{what}: error {err}, {over} of the limit")
+        worst = max(worst, over)
+        del q, k, v, out, ref
+    line("flash", route="mixed", variants=json.dumps(
+        f"{list(FLASH_SHAPE)} x " + ", ".join(dtype_names(*ts)
+                                             for ts in MIXED_FULL)
+        + f" x causal; {dtype_names(*MIXED_FULL[0])} d/dv "
+        + ", ".join(f"{d}/{dv}" for d, dv in F32_FLASH_DIMS) + " x S "
+        + "/".join(map(str, WIDE_FLASH_SEQS)) + " x causal"),
+        calls=len(cases), worst_err_over_limit=worst,
+        atol_rtol=json.dumps(FLASH_BF16_TOL))
+    fields = {}
+    for ts in MIXED_FULL[:2]:
+        q = randn(gen, (16, 16, 64, HEAD_DIM), ts[0])
+        k, v = (randn(gen, (16, 16, 64, HEAD_DIM), t) for t in ts[1:])
+        out = flash_attention(q, k, v).float()
+        rounded = rounded_p_attention(q, k, v)
+        sq = lambda ref: ((out - ref.float()) ** 2).sum().item()
+        nearest = sq(rounded)
+        p_share = nearest / sq(reference_attention(q, k, v))
+        q_lo_share = nearest / sq(rounded_p_attention(tf32_round(q), k, v))
+        name = dtype_names(*ts).replace("/", "_")
+        fields[f"{name}_vs_unrounded_p"] = p_share
+        fields[f"{name}_vs_tf32_query"] = q_lo_share
+        require(p_share < 0.5, f"mixed flash {dtype_names(*ts)}: p is not "
+                               f"rounded to V's dtype ({p_share})")
+        require(q_lo_share < 0.5, f"mixed flash {dtype_names(*ts)}: the "
+                                  f"query's lo part is missing "
+                                  f"({q_lo_share})")
+        del q, k, v, out, rounded
+    line("flash", route="mixed", check="rounded p and the f32 query's lo "
+         "part: summed squared difference to the kernel's semantics over "
+         "that to each alternative (< 0.5)", shape="[16, 16, 64, 128]",
+         **fields)
     return worst
 
 
@@ -1567,28 +1788,35 @@ def traced_kernels(fn, tries: int = 3) -> list:
 
 def wide_row(leg: str, counter, kernel, plain, library, nbytes: int,
              flops: int, tol: tuple, own, phase: str = "wide",
-             f32: bool = False, **shape) -> dict:
-    """One line of the wide (or f32) leg: the kernel's, plain version's and
-    library call's ms, the bound (bytes at 3.35 TB/s or operations at the
-    16-bit tensor-core rate, whichever is longer; with ``f32``, operations
-    as 3 TF32 products each, and beside it the bound at the f32 SIMT
-    rate), the last timed kernel output against the last plain output
-    within ``tol`` (atol, rtol), and the CUDA kernels traced in one call of
-    each: the port's call must run only kernels whose names hold ``own``
-    (a name, or a tuple of names each kernel may hold one of), and launch
-    once. Returns the row's numbers and the kernel's launches."""
+             f32: bool = False, tf32_flops: int | None = None,
+             **shape) -> dict:
+    """One line of the wide (or f32, or mixed) leg: the kernel's, plain
+    version's and library call's ms (``library`` None where no one call
+    computes the function: its ms is then None), the bound (bytes at 3.35
+    TB/s or operations at the 16-bit tensor-core rate, whichever is longer;
+    with ``f32``, operations as 3 TF32 products each, and beside it the
+    bound at the f32 SIMT rate; with ``tf32_flops``, those TF32 operations
+    instead of 3 products each), the last timed kernel output against the
+    last plain output within ``tol`` (atol, rtol), and the CUDA kernels
+    traced in one call of each: the port's call must run only kernels whose
+    names hold ``own`` (a name, or a tuple of names each kernel may hold
+    one of), and launch once. Returns the row's numbers and the kernel's
+    launches."""
     own = (own,) if isinstance(own, str) else tuple(own)
     last = {}
     before = counter.launches
     ms = cuda_ms(lambda: last.__setitem__("out", kernel()))
     per_call = (counter.launches - before) / (WARMUP_CALLS + TIMED_CALLS)
     plain_ms = cuda_ms(lambda: last.__setitem__("ref", plain()))
-    library_ms = cuda_ms(library)
+    library_ms = cuda_ms(library) if library else None
     err, over = compare(last["out"], last["ref"], *tol)
     ours = traced_kernels(kernel)
-    theirs = traced_kernels(library)
+    theirs = traced_kernels(library) if library else []
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    flops_ms = (3 * flops / TF32_FLOP_S if f32 else flops / BF16_FLOP_S) * 1e3
+    if f32 and tf32_flops is None:
+        tf32_flops = 3 * flops
+    flops_ms = (tf32_flops / TF32_FLOP_S if tf32_flops is not None
+                else flops / BF16_FLOP_S) * 1e3
     bound_ms = max(bytes_ms, flops_ms)
     simt = ({"simt_bound_ms": max(bytes_ms, flops / F32_FLOP_S * 1e3)}
             if f32 else {})
@@ -1797,6 +2025,92 @@ def phase_f32(seed: int) -> dict:
                             f"counted {want}")
     torch.cuda.empty_cache()
     return {**{f"{name}_f32tc": n for name, n in counts.items()}, **rows}
+
+
+def phase_mixed(seed: int) -> dict:
+    """Mixed dtypes (an f32 q over a bf16 cache) at full width (``wide_row``
+    per call, no library call: none takes q, k and v in different dtypes):
+    the decode serve shape on the ring kernel (bound: bytes), DeepSeek-V3's
+    absorbed-MLA decode on the mixed tensor-core kernel and its merge, and
+    the flash headline [4, 8, 2048, 128] on the mixed tensor-core kernel,
+    causal off and on (bounds: TF32 products, 2 a multiply-add of S and 1 of
+    P V, at 494.7 TFLOP/s, or bytes). Its own main path: the counts are
+    zeroed before it and must equal the rows' launches after it. Returns
+    the launches by kernel and the rows by leg."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    lens = torch.from_numpy(smoke_lengths(np.random.default_rng(seed))).to(
+        dev)
+    keys = int(lens.clamp(max=KV_CAP).sum())
+    reset_launches()
+    rows = {}
+
+    q = randn(gen, (BATCH, HEADS, 1, HEAD_DIM), f32)
+    k, v = (randn(gen, (BATCH, HEADS, KV_CAP, HEAD_DIM), bf16)
+            for _ in range(2))
+    rows["decode_serve_f32q_bf16kv"] = wide_row(
+        "decode_serve_f32q_bf16kv", flash_attention_decode,
+        lambda: flash_attention_decode(q, k, v, lens),
+        lambda: decode_attention_reference(q, k, v, lens), None,
+        nbytes=keys * HEADS * HEAD_DIM * 2 * 2 + 2 * q.numel() * 4
+        + lens.numel() * 4, flops=4 * keys * HEADS * HEAD_DIM,
+        tol=(BF16_TOL, 0.0), own="decode_ring_kernel", phase="mixed",
+        q=list(q.shape), k=list(k.shape), dtypes="float32/bfloat16/bfloat16")
+    del q, k, v
+
+    q = randn(gen, (BATCH, 1, MLA_ROWS, MLA_D), f32)
+    k = randn(gen, (BATCH, 1, KV_CAP, MLA_D), bf16)
+    v = randn(gen, (BATCH, 1, KV_CAP, MLA_DV), bf16)
+    rows["mla_decode_f32q_bf16kv"] = wide_row(
+        "mla_decode_f32q_bf16kv", flash_attention_decode,
+        lambda: flash_attention_decode(q, k, v, lens),
+        lambda: decode_attention_reference(q, k, v, lens), None,
+        nbytes=keys * (MLA_D + MLA_DV) * 2
+        + (q.numel() + BATCH * MLA_ROWS * MLA_DV) * 4 + lens.numel() * 4,
+        flops=2 * keys * MLA_ROWS * (MLA_D + MLA_DV),
+        tf32_flops=2 * keys * MLA_ROWS * (2 * MLA_D + MLA_DV),
+        tol=FLASH_BF16_TOL, own=("f32tc_decode", "wide_decode_merge"),
+        phase="mixed", q=list(q.shape), k=list(k.shape), v=list(v.shape),
+        dtypes="float32/bfloat16/bfloat16", mean_len=keys / BATCH)
+    del q, k, v
+
+    b, h, s, d = FLASH_SHAPE
+    q = randn(gen, FLASH_SHAPE, f32)
+    k, v = (randn(gen, FLASH_SHAPE, bf16) for _ in range(2))
+    for causal in (False, True):
+        leg = "flash_f32q_bf16kv_headline" + ("_causal" if causal else "")
+        half = 2 if causal else 1
+        rows[leg] = wide_row(
+            leg, flash_attention,
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: reference_attention(q, k, v, causal=causal), None,
+            nbytes=b * h * s * d * (4 + 2 + 2 + 4),
+            flops=4 * b * h * s * s * d // half,
+            tf32_flops=2 * b * h * s * s * (2 * d + d) // half,
+            tol=FLASH_BF16_TOL, own="f32tc_flash", phase="mixed",
+            shape=list(FLASH_SHAPE), dtypes="float32/bfloat16/bfloat16",
+            causal=causal)
+    del q, k, v
+    torch.cuda.synchronize()
+    counts = launches()
+    ring = rows["decode_serve_f32q_bf16kv"]["launches"]
+    tc = rows["mla_decode_f32q_bf16kv"]["launches"]
+    flash = sum(r["launches"] for leg, r in rows.items()
+                if leg.startswith("flash"))
+    line("mixed", launches=json.dumps(counts), ring_launches=ring,
+         tensor_core_decode_launches=tc,
+         bound_basis="H100 SXM 3.35 TB/s HBM; TF32 products (S 2, P V 1 a "
+                     "multiply-add with an f32 q over a bf16 cache) at "
+                     "494.7 TFLOP/s dense TF32")
+    require(counts == {"decode_attention": ring + tc,
+                       "flash_attention": flash},
+            f"the mixed leg's launches: {counts}, its rows counted "
+            f"{ring + tc} decode and {flash} flash")
+    torch.cuda.empty_cache()
+    return {"decode_attention_mixed_ring": ring,
+            "decode_attention_mixed": tc, "flash_attention_mixed": flash,
+            **rows}
 
 
 def phase_burnin() -> None:
@@ -5386,6 +5700,7 @@ def main(argv=None) -> int:
     flash = phase_flash_bench(args.seed)
     wide = phase_wide(args.seed)
     f32 = phase_f32(args.seed)
+    mixed = phase_mixed(args.seed)
     phase_burnin()
     phase_selfheal(card, args.seed, found["lib"], found["gpu"])
     processes = phase_processes(card, args.seed, found["gpu"])
@@ -5462,10 +5777,25 @@ def main(argv=None) -> int:
             "library_ms")},
     } for name, line_no, row in (
         ("decode_attention_f32tc", 125, "mla_decode_f32"),
-        ("flash_attention_f32tc", 36, "flash_f32_headline"))]
+        ("flash_attention_f32tc", 36, "flash_f32_headline"))] + [{
+        # Mixed dtypes (no library call takes them: library_ms null).
+        "name": name, "route": "cuda",
+        "source": f"k8s_dra_driver_tpu_torch/csrc/{source}",
+        "replaces": f"k8s_dra_driver_tpu/compute/flashattention.py:{line_no}",
+        "launches": mixed[name],
+        **{key: mixed[row][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, source, line_no, row in (
+        ("decode_attention_mixed_ring", "decode_attention.cu", 125,
+         "decode_serve_f32q_bf16kv"),
+        ("decode_attention_mixed", "mixed_decode.cu", 125,
+         "mla_decode_f32q_bf16kv"),
+        ("flash_attention_mixed", "mixed_flash.cu", 36,
+         "flash_f32q_bf16kv_headline"))]
     require(all(math.isfinite(v) for k in kernels for v in
-                (k["ms"], k["plain_ms"], k["bound_ms"], k["library_ms"])),
-            "non-finite time")
+                (k["ms"], k["plain_ms"], k["bound_ms"], k["library_ms"])
+                if v is not None), "non-finite time")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,10 +92,10 @@ def _build_locked(force: bool) -> dict[str, tuple[float, str]]:
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
-    built = {}
+    built = _wait_all(procs, t0)
     for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        built[name] = (time.monotonic() - t0, log)
+        # Each source's seconds are its own nvcc job's (_wait_all).
+        log = built[name][1]
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
@@ -106,6 +106,26 @@ def _build_locked(force: bool) -> dict[str, tuple[float, str]]:
     if failed:
         raise KernelBuildError("kernel build failed: " + "\n".join(failed))
     return built
+
+
+def _wait_all(procs: dict, t0: float) -> dict[str, tuple[float, str]]:
+    """For each of ``procs`` (name -> (tmp path, nvcc process)): the
+    seconds from ``t0`` until that process ended, and its output. Each
+    process's output is read on a thread of its own, so that a source's
+    seconds are not the wait for a slower one read before it."""
+    ended: dict[str, tuple[float, str]] = {}
+
+    def drain(name: str, proc: subprocess.Popen) -> None:
+        log, _ = proc.communicate()
+        ended[name] = (time.monotonic() - t0, log)
+
+    readers = [threading.Thread(target=drain, args=(name, proc), daemon=True)
+               for name, (_, proc) in procs.items()]
+    for reader in readers:
+        reader.start()
+    for reader in readers:
+        reader.join()
+    return ended
 
 
 def disassemble(name: str) -> str:

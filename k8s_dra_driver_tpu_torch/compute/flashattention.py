@@ -3,8 +3,7 @@
 ``flash_attention`` is exact attention over whole sequences, the compute
 plane's single-device hot op; ``flash_attention_decode`` is the serving
 engine's attend, a few query rows against a long padded KV cache. On CUDA
-tensors each launches a hand-written Hopper kernel
-(``csrc/flash_attention.cu``, ``csrc/decode_attention.cu``); on CPU
+tensors each launches a hand-written Hopper kernel (``csrc/*.cu``); on CPU
 tensors each runs its plain PyTorch version (``reference_attention``,
 ``decode_attention_reference``). There is no other path: a CUDA call that
 cannot build or launch its kernel raises.
@@ -18,7 +17,7 @@ promoted type) and scaled by 1/sqrt(d); the causal mask or the keys at
 index >= ``kv_lengths[b]`` are masked; softmax; p is rounded to v's dtype
 for P V, which accumulates in f32; the output is in q's dtype.
 
-On the card each wrapper picks one of four routes by dtypes and head dims
+On the card each wrapper picks one of five routes by dtypes and head dims
 (head dims zero-padded to the next multiple of 16 where a route says so):
 
 - tuned: q, k and v of one dtype with d, dv <= TUNED_HEAD_DIM (decode, in
@@ -27,7 +26,10 @@ On the card each wrapper picks one of four routes by dtypes and head dims
   shared memory with the cache split across blocks when b * h would leave
   SMs idle (``tuned_decode_tile``, ``tuned_decode_splits``), else one
   block per (b, h) with a per-warp online softmax; flash, in bf16 or f16:
-  the ``wgmma``/TMA path, padded head dims);
+  the ``wgmma``/TMA path, padded head dims); and a decode whose q's dtype
+  differs from the one K and V share, where the ring kernel takes its rows
+  (the kernel is built for the cache's dtype and reads q and writes out in
+  q's);
 - wide: q, k and v all bf16 or all f16, padded d <= WIDE_MAX_D and dv <=
   WIDE_MAX_DV, one of them over TUNED_HEAD_DIM (DeepSeek-V3's absorbed
   MLA, 576/512): the tensor-core kernels of ``csrc/wide_attention.cuh``,
@@ -41,9 +43,18 @@ On the card each wrapper picks one of four routes by dtypes and head dims
   products (3xTF32: hi.hi + hi.lo + lo.hi, f32-accurate), 64 query rows a
   tile; decode takes every query row in one call and splits the cache
   across blocks (``f32_decode_splits``), then merges the splits;
-- general: anything else (mixed dtypes, head dims past the wide and f32
-  routes'): SIMT kernels that convert each operand from its own dtype on
-  load and walk any head dim in chunks, with dv split across blocks.
+- mixed: q in one dtype and K and V sharing another, padded d <=
+  WIDE_MAX_D and dv <= WIDE_MAX_DV (flash at every head dim up to those;
+  decode where d or dv is over TUNED_HEAD_DIM): the same tensor-core body
+  built for 16-bit q or K and V (``csrc/mixed_flash.cu``,
+  ``csrc/mixed_decode.cu``), each operand copied in its own dtype, a
+  16-bit one entering its products once (it is exact in TF32) and an f32
+  one as hi and lo; p rounded to V's dtype where V is 16-bit;
+- general: anything else (K and V in different dtypes, a mixed decode
+  whose rows the ring kernel does not take, head dims past the wide, f32
+  and mixed routes'): SIMT kernels that convert each operand from its own
+  dtype on load and walk any head dim in chunks, with dv split across
+  blocks.
 
 The tuned and general decode kernels launch once per group of up to
 MAX_Q_LEN query rows (the ring kernel's merge, where it splits the cache,
@@ -141,12 +152,25 @@ def _check_dtypes(q, k, v) -> None:
 
 def tuned_kernel_takes(source: str, q, k, v, d: int, dv: int) -> bool:
     """Whether a CUDA call goes to the tuned kernel of ``source``
-    (``"decode_attention"`` or ``"flash_attention"``): one dtype for q, k
-    and v that the kernel is built for, and head dims ``d`` and ``dv`` (the
-    flash wrapper's padded ones) up to TUNED_HEAD_DIM. Every other call goes
-    to the source's general kernel."""
-    return (q.dtype == k.dtype == v.dtype and q.dtype in _TUNED[source]
-            and max(d, dv) <= TUNED_HEAD_DIM)
+    (``"decode_attention"`` or ``"flash_attention"``): one dtype for k and
+    v that the kernel is built for, head dims ``d`` and ``dv`` (the flash
+    wrapper's padded ones) up to TUNED_HEAD_DIM, and q in that dtype too,
+    or, in decode, q in another where the ring kernel takes the call
+    (``ring_kernel_takes``)."""
+    if not (k.dtype == v.dtype and k.dtype in _TUNED[source]
+            and max(d, dv) <= TUNED_HEAD_DIM):
+        return False
+    return q.dtype == k.dtype or (source == "decode_attention"
+                                  and ring_kernel_takes(k, v, d, dv))
+
+
+def ring_kernel_takes(k, v, d: int, dv: int) -> bool:
+    """Whether the tuned decode's ring kernel takes a cache ``k``, ``v``
+    (one dtype, head dims ``d``, ``dv`` up to TUNED_HEAD_DIM): rows of
+    whole 16-byte chunks (``tuned_decode_tile``), and k and v on 16-byte
+    boundaries for its bulk copies."""
+    return (tuned_decode_tile(k.dtype, d, dv) > 0
+            and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
 
 
 def wide_kernel_takes(q, k, v, d: int, dv: int) -> bool:
@@ -165,6 +189,16 @@ def f32_kernel_takes(q, k, v, d: int, dv: int) -> bool:
     padded head dims ``d`` <= WIDE_MAX_D and ``dv`` <= WIDE_MAX_DV."""
     return (q.dtype == k.dtype == v.dtype == torch.float32
             and d <= WIDE_MAX_D and dv <= WIDE_MAX_DV)
+
+
+def mixed_kernel_takes(q, k, v, d: int, dv: int) -> bool:
+    """Whether a CUDA call that the tuned kernel does not take goes to the
+    mixed-dtype kernels of the f32 tensor-core body (either function; in
+    decode only where ``d`` or ``dv`` is over TUNED_HEAD_DIM): k and v of
+    one dtype, q of another, and padded head dims ``d`` <= WIDE_MAX_D and
+    ``dv`` <= WIDE_MAX_DV."""
+    return (k.dtype == v.dtype != q.dtype and d <= WIDE_MAX_D
+            and dv <= WIDE_MAX_DV)
 
 
 def f32_decode_splits(b: int, h: int, ql: int, kv_cap: int, dv: int,
@@ -295,8 +329,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     own tiles.
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
-    current stream (``tuned_kernel_takes``, ``wide_kernel_takes`` and
-    ``f32_kernel_takes`` say which), counted in
+    current stream (``tuned_kernel_takes``, ``wide_kernel_takes``,
+    ``f32_kernel_takes`` and ``mixed_kernel_takes`` say which), counted in
     ``flash_attention.launches``; CPU tensors go through
     ``reference_attention``."""
     if q.dim() != 4:
@@ -326,17 +360,24 @@ def _launch_flash(q, k, v, causal: bool, stream: int) -> torch.Tensor:
     scale = 1.0 / math.sqrt(d)
     tuned = tuned_kernel_takes("flash_attention", q, k, v, dp, dvp)
     f32 = f32_kernel_takes(q, k, v, dp, dvp)   # the tuned flash takes no f32
-    if tuned or f32 or wide_kernel_takes(q, k, v, dp, dvp):
+    mixed = mixed_kernel_takes(q, k, v, dp, dvp)
+    if tuned or f32 or mixed or wide_kernel_takes(q, k, v, dp, dvp):
         # Zero columns add nothing to q k^T, and the scale stays 1/sqrt(d).
         q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)
         _check_aligned(q, k, v)
-        variant = (_DTYPES[q.dtype] if tuned else "f32tc" if f32
-                   else f"wide_{_DTYPES[q.dtype]}")
-        fn, err_str = _c_entry("flash_attention", variant,
-                               [p, p, p, p, i, i, i, i, i, f, p])
         out = torch.empty((b, h, seq, dvp), dtype=q.dtype, device=q.device)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b * h, seq, dp, dvp, int(causal), scale, stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b * h, seq, dp, dvp, int(causal), scale)
+        if mixed:
+            fn, err_str = _c_entry("mixed_flash", "f32tc",
+                                   [p, p, p, p, i, i, i, i, i, f, i, i, p])
+            err = fn(*args, _CODES[q.dtype], _CODES[k.dtype], stream)
+        else:
+            variant = (_DTYPES[q.dtype] if tuned else "f32tc" if f32
+                       else f"wide_{_DTYPES[q.dtype]}")
+            fn, err_str = _c_entry("flash_attention", variant,
+                                   [p, p, p, p, i, i, i, i, i, f, p])
+            err = fn(*args, stream)
     else:
         fn, err_str = _c_entry("flash_attention", "general",
                                [p, p, p, p, i, i, i, i, i, f, i, i, i, p])
@@ -415,12 +456,14 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA kernels walk the cache in their own tiles.
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
-    current stream (``tuned_kernel_takes``, ``wide_kernel_takes`` and
-    ``f32_kernel_takes`` say which): the wide and f32 kernels in one call
-    for every query row, the others one launch per group of up to MAX_Q_LEN
-    query rows (the rows do not attend to each other), each call counted in
-    ``flash_attention_decode.launches``. CPU tensors go through
-    ``decode_attention_reference``."""
+    current stream (``tuned_kernel_takes``, ``wide_kernel_takes``,
+    ``f32_kernel_takes`` and ``mixed_kernel_takes`` say which): the wide,
+    f32 and mixed kernels in one call for every query row, the others one
+    launch per group of up to MAX_Q_LEN query rows (the rows do not attend
+    to each other), each call counted in
+    ``flash_attention_decode.launches``. No route casts or copies the cache
+    (the wide, f32 and mixed ones pad a head dim that is not a multiple of
+    16). CPU tensors go through ``decode_attention_reference``."""
     kv_cap = k.shape[2]
     block_k = min(block_k, kv_cap)
     if kv_cap % block_k:
@@ -438,10 +481,11 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_decode(q, k, v, kv_lengths, stream: int,
                    sms: int | None = None) -> torch.Tensor:
     """The decode kernel that takes these checked inputs, launched on
-    ``stream`` (the wide and f32 kernels once, the others once per group of
-    query rows); each launch counted in ``flash_attention_decode.launches``.
-    ``sms``: the SM count that sizes the wide, f32 and ring kernels' splits
-    (the device's by default)."""
+    ``stream`` (the wide, f32 and mixed kernels once, the others once per
+    group of query rows); each launch counted in
+    ``flash_attention_decode.launches``. ``sms``: the SM count that sizes
+    the wide, f32, mixed and ring kernels' splits (the device's by
+    default)."""
     b, h, ql, d = q.shape
     kv_cap, dv = k.shape[2], v.shape[3]
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -451,19 +495,28 @@ def _launch_decode(q, k, v, kv_lengths, stream: int,
         split = wide_decode_splits(b, h, ql, kv_cap,
                                    sms or _sm_count(q.device))
         return _launch_decode_once(q, k, v, kv_lengths, stream,
+                                   "decode_attention",
                                    f"wide_{_DTYPES[q.dtype]}", split)
     if not tuned and f32_kernel_takes(q, k, v, dp, dvp):
         split = f32_decode_splits(b, h, ql, kv_cap, dvp,
                                   sms or _sm_count(q.device))
-        return _launch_decode_once(q, k, v, kv_lengths, stream, "f32tc",
-                                   split)
+        return _launch_decode_once(q, k, v, kv_lengths, stream,
+                                   "decode_attention", "f32tc", split)
+    if (not tuned and max(dp, dvp) > TUNED_HEAD_DIM
+            and mixed_kernel_takes(q, k, v, dp, dvp)):
+        split = f32_decode_splits(b, h, ql, kv_cap, dvp,
+                                  sms or _sm_count(q.device))
+        return _launch_decode_once(q, k, v, kv_lengths, stream,
+                                   "mixed_decode", "f32tc", split,
+                                   (_CODES[q.dtype], _CODES[k.dtype]))
     ints = [i] * 8   # b, h, ql, row0, rows, cap, d, dv
     group = MAX_Q_LEN
     if tuned:
-        fn, err_str = _c_entry("decode_attention", _DTYPES[q.dtype],
-                               [p] * 7 + ints + [ctypes.c_float, i, i, p])
-        aligned = k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
-        tile = tuned_decode_tile(q.dtype, d, dv) if aligned else 0
+        # The entry of K's and V's dtype; q's dtype goes as its code.
+        fn, err_str = _c_entry("decode_attention", _DTYPES[k.dtype],
+                               [p] * 7 + ints + [ctypes.c_float, i, i, i, p])
+        tile = tuned_decode_tile(k.dtype, d, dv) if ring_kernel_takes(
+            k, v, d, dv) else 0
         splits, split_keys = (tuned_decode_splits(
             b, h, kv_cap, tile, sms or _sm_count(q.device)) if tile
             else (1, kv_cap))
@@ -477,7 +530,7 @@ def _launch_decode(q, k, v, kv_lengths, stream: int,
                     torch.empty(b * h * splits * rows * 2,
                                 dtype=torch.float32, device=q.device))
         ptrs = tuple(t.data_ptr() for t in work) or (None, None)
-        tail = (splits, split_keys)
+        tail = (splits, split_keys, _CODES[q.dtype])
     else:
         fn, err_str = _c_entry("decode_attention", "general",
                                [p] * 5 + ints + [ctypes.c_float] + [i] * 3
@@ -497,12 +550,14 @@ def _launch_decode(q, k, v, kv_lengths, stream: int,
     return out
 
 
-def _launch_decode_once(q, k, v, kv_lengths, stream: int, variant: str,
-                        split: tuple[int, int]) -> torch.Tensor:
-    """One call of the wide or f32 decode entry ``decode_attention_<variant>``
-    (the kernel and its merge) for every query row, with head dims
-    zero-padded and the cache split in (splits, keys per split); f32
-    partials in a workspace."""
+def _launch_decode_once(q, k, v, kv_lengths, stream: int, source: str,
+                        variant: str, split: tuple[int, int],
+                        codes: tuple = ()) -> torch.Tensor:
+    """One call of the wide, f32 or mixed decode entry
+    ``<source>_<variant>`` (the kernel and its merge) for every query row,
+    with head dims zero-padded and the cache split in (splits, keys per
+    split); f32 partials in a workspace; ``codes``, q's and the cache's
+    dtype codes, where the entry takes them."""
     b, h, ql, d = q.shape
     kv_cap, dv = k.shape[2], v.shape[3]
     dp, dvp = padded_head_dims(d, dv)
@@ -515,11 +570,13 @@ def _launch_decode_once(q, k, v, kv_lengths, stream: int, variant: str,
                           device=q.device)
     out = torch.empty((b, h, ql, dvp), dtype=q.dtype, device=q.device)
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn, err_str = _c_entry("decode_attention", variant,
-                           [p] * 7 + [i] * 6 + [ctypes.c_float, i, i, p])
+    fn, err_str = _c_entry(source, variant,
+                           [p] * 7 + [i] * 6 + [ctypes.c_float, i, i]
+                           + [i] * len(codes) + [p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lengths.data_ptr(),
              out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, h, ql,
-             kv_cap, dp, dvp, 1.0 / math.sqrt(d), splits, split_keys, stream)
+             kv_cap, dp, dvp, 1.0 / math.sqrt(d), splits, split_keys, *codes,
+             stream)
     _raise_on(err, err_str, "decode_attention")
     with _LAUNCH_COUNT_MU:
         flash_attention_decode.launches += 1

@@ -17,14 +17,18 @@
 // every row in one call.
 //
 // Which kernel takes a call (the C entries at the end):
-//   * q, k and v of one dtype (f32, bf16 or f16) with d, dv <= 256, entries
-//     decode_attention_{f32,bf16,f16}: `decode_ring_kernel` (and, where the
-//     cache is split, the merge of wide_attention.cuh) when every K and V
-//     row is a whole number of 16-byte chunks, at most 32 of them (f32 up
-//     to 128), and k and v start on 16-byte boundaries; else
-//     `decode_attention_kernel` (d = 66 in 16 bits, a view of a cache that
-//     starts mid-chunk, f32 past 128), which loads a row an element a lane
-//     where it is not whole chunks;
+//   * k and v of one dtype (f32, bf16 or f16) with d, dv <= 256, entries
+//     decode_attention_{f32,bf16,f16} (named by that dtype):
+//     `decode_ring_kernel` (and, where the cache is split, the merge of
+//     wide_attention.cuh) when every K and V row is a whole number of
+//     16-byte chunks, at most 32 of them (f32 up to 128), and k and v start
+//     on 16-byte boundaries, with q in that dtype or in another (q is read
+//     once a row by a run-time code and out written in q's dtype, so a
+//     16-bit cache under an f32 query streams as fast as under a 16-bit
+//     one); else, for a q in the cache's dtype, `decode_attention_kernel`
+//     (d = 66 in 16 bits, a view of a cache that starts mid-chunk, f32 past
+//     128), which loads a row an element a lane where it is not whole
+//     chunks;
 //   * q, k and v all bf16 or all f16, d or dv over 256, d <= 576 and
 //     dv <= 512 (the wrapper zero-pads both to multiples of 16): the wide
 //     tensor-core kernel of wide_attention.cuh and its merge, entries
@@ -36,8 +40,13 @@
 //     the same way): the f32 tensor-core kernel of f32tc_attention.cuh and
 //     the wide path's merge, entry decode_attention_f32tc, every query row
 //     in one call, each f32 product as three TF32 products (3xTF32);
-//   * anything else (q, k and v each in its own dtype, or head dims past
-//     the wide and f32 kernels'): `decode_general_kernel`, entry
+//   * q in a dtype apart from the one k and v share, d or dv over 256 (up
+//     to padded 576/512): the same f32 tensor-core body built for 16-bit q
+//     or K and V, in mixed_decode.cu (a source of its own: its own nvcc
+//     job);
+//   * anything else (k and v in different dtypes, a mixed call whose rows
+//     the ring kernel does not take, or head dims past the wide, f32 and
+//     mixed kernels'): `decode_general_kernel`, entry
 //     decode_attention_general.
 //
 // What bounds it: device-memory bytes. Every valid K and V row is read once,
@@ -104,10 +113,11 @@
 // walks d in chunks of one warp load, holds the launch's query rows in
 // shared memory as f32 (interleaved so that a warp's reads hit 32 banks;
 // row-major, a warp's reads of a row meet 8-way bank conflicts), and
-// converts each operand from its own dtype as it is loaded (K
-// and V by template, q and out by a code read once per element), so no
-// caller has to cast a cache. Each block re-reads all of K: at dv = 512 the
-// bytes are 2 d + dv per key, not d + dv.
+// converts each operand from its own dtype as it is loaded (by a code
+// read at run time: 8 elements a lane a load in every dtype, one 16-byte
+// load of 16-bit elements or two of f32, so one kernel serves every mix of
+// dtypes), so no caller has to cast a cache. Each block re-reads all of K:
+// at dv = 512 the bytes are 2 d + dv per key, not d + dv.
 // What holds the general kernel back (PERF.md): a grid of b * h * (dv /
 // 256) blocks leaves most SMs idle when b * h is small, and each warp's
 // batch waits on one load round trip per chunk of d. Its 16-bit calls at
@@ -115,7 +125,11 @@
 // rows, each reading the whole latent cache: 24 ms on an H100 where the
 // library took 0.48), go to the wide kernel instead, and its f32 calls up
 // to 576/512 (15.9 ms there, the library 1.43) to the f32 tensor-core
-// kernel; it keeps mixed dtypes and heads past 576/512 in every dtype.
+// kernel; mixed dtypes whose K and V share one went to the ring kernel
+// (d, dv <= 256, rows of whole 16-byte chunks) and to mixed_decode.cu (up
+// to 576/512). It keeps K and V in different dtypes, a mixed call whose
+// rows the ring kernel does not take, and heads past 576/512 in every
+// dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -393,6 +407,34 @@ int launch_rows(const void* q, const void* k, const void* v, const void* lens,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The dtype codes of the entries (the wrapper's): f32, bf16, f16.
+enum DtypeCode : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+template <typename T>
+constexpr int code_of() {
+  return std::is_same<T, float>::value           ? kF32
+         : std::is_same<T, __nv_bfloat16>::value ? kBF16
+                                                 : kF16;
+}
+
+// Element i of a tensor whose dtype is known only at run time (q, out).
+__device__ __forceinline__ float load_any(const void* p, int type, size_t i) {
+  if (type == kBF16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  if (type == kF16) return __half2float(static_cast<const __half*>(p)[i]);
+  return static_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_any(void* p, int type, size_t i,
+                                          float x) {
+  if (type == kBF16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(x);
+  else if (type == kF16)
+    static_cast<__half*>(p)[i] = __float2half(x);
+  else
+    static_cast<float*>(p)[i] = x;
+}
+
 // ---- the ring kernel: 16-bit (and f32) rows streamed through shared memory
 
 namespace ring {
@@ -458,20 +500,23 @@ struct Call {
   float *part_o, *part_ml;
   int b, h, ql, row0, rows, cap, d, dv, splits, split_keys;
   float scale;
+  int q_type;
 };
 
 // Block (bh, split) takes keys [split split_keys, (split + 1) split_keys)
-// of (b h) bh's cache, stopping at min(len, cap). T: element type; QL:
-// query rows built for (rows <= QL); G: lanes a key, each holding one
-// 16-byte chunk of the key's K row and one of its V row.
+// of (b h) bh's cache, stopping at min(len, cap). T: K's and V's element
+// type; q and out are in the dtype of code q_type (T's, or another: q is
+// read once a row and converted to f32, out written once). QL: query rows
+// built for (rows <= QL); G: lanes a key, each holding one 16-byte chunk of
+// the key's K row and one of its V row.
 template <typename T, int QL, int G>
 __global__ void __launch_bounds__(kThreads, 2)
-    decode_ring_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    decode_ring_kernel(const void* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ lens,
-                       T* __restrict__ out, float* __restrict__ part_o,
+                       void* __restrict__ out, float* __restrict__ part_o,
                        float* __restrict__ part_ml, int h, int ql, int row0,
                        int rows, int cap, int d, int dv, float scale_log2,
-                       int split_keys) {
+                       int split_keys, int q_type) {
   constexpr int E = 16 / sizeof(T);             // elements a chunk
   constexpr int NG = 32 / G;                    // lane groups a warp
   constexpr int U = QL >= 4 ? 2 : 4;            // keys a group takes a step
@@ -542,7 +587,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   if constexpr (kQSmem) {
     for (int i = threadIdx.x; i < QL * kMaxD; i += 32 * kConsumers) {
       const int r = i / kMaxD, col = i - r * kMaxD;
-      qs[i] = r < rows && col < d ? to_float(q[q_off + r * d + col]) : 0.f;
+      qs[i] = r < rows && col < d ? load_any(q, q_type, q_off + r * d + col)
+                                  : 0.f;
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
   } else {
@@ -550,8 +596,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int r = 0; r < QL; ++r)
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        qf[r][e] = r < rows && k_lane ? to_float(q[q_off + r * d + c * E + e])
-                                      : 0.f;
+        qf[r][e] = r < rows && k_lane
+                       ? load_any(q, q_type, q_off + r * d + c * E + e)
+                       : 0.f;
   }
 
   // Each group's online softmax: base-2 running max, denominator and
@@ -690,7 +737,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (splits == 1) {
       // len <= 0 leaves every state empty and 0 / 0 = NaN, as the plain
       // version gives.
-      out[o_off + static_cast<size_t>(r) * dv + col] = from_float<T>(num / den);
+      store_any(out, q_type, o_off + static_cast<size_t>(r) * dv + col,
+                num / den);
     } else {
       // An f32 partial for the merge: O unnormalised, (max, denominator).
       const size_t part = (static_cast<size_t>(bh) * splits + split) * rows + r;
@@ -712,15 +760,23 @@ int launch_as(const Call& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(a.b * a.h, a.splits);
   kernel<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.out), a.part_o,
-      a.part_ml, a.h, a.ql, a.row0, a.rows, a.cap, a.d, a.dv,
-      a.scale * kLog2e, a.split_keys);
+      a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.lens,
+      a.out, a.part_o, a.part_ml, a.h, a.ql, a.row0, a.rows, a.cap, a.d,
+      a.dv, a.scale * kLog2e, a.split_keys, a.q_type);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
-  wide::wide_decode_merge_kernel<T><<<a.b * a.h * a.rows, 128, 0, stream>>>(
-      a.part_o, a.part_ml, static_cast<T*>(a.out), a.rows, a.dv, a.splits,
-      a.ql, a.row0);
+  // The merge writes out in q's dtype.
+  const auto merge = [&](auto* out) {
+    using E = std::remove_pointer_t<decltype(out)>;
+    wide::wide_decode_merge_kernel<E><<<a.b * a.h * a.rows, 128, 0, stream>>>(
+        a.part_o, a.part_ml, out, a.rows, a.dv, a.splits, a.ql, a.row0);
+  };
+  if (a.q_type == kBF16)
+    merge(static_cast<__nv_bfloat16*>(a.out));
+  else if (a.q_type == kF16)
+    merge(static_cast<__half*>(a.out));
+  else
+    merge(static_cast<float*>(a.out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -742,20 +798,22 @@ int launch(const Call& a, int lanes, cudaStream_t stream) {
 }  // namespace ring
 
 // The tuned entries: the ring kernel where it takes the call (its splits
-// checked against its tile), else the per-warp kernel above with one split.
+// checked against its tile), else, for a q in K's and V's dtype T, the
+// per-warp kernel above with one split.
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lens,
            void* out, void* part_o, void* part_ml, int b, int h, int ql,
            int row0, int rows, int cap, int d, int dv, float scale,
-           int splits, int split_keys, void* stream) {
+           int splits, int split_keys, int q_type, void* stream) {
   if (b < 1 || h < 1 || cap < 1 || rows < 1 || rows > kMaxQ || row0 < 0 ||
       row0 + rows > ql || d < 1 || d > kMaxD || dv < 1 || dv > kMaxD ||
-      splits < 1)
+      splits < 1 || q_type < kF32 || q_type > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   const int lanes = ring::lanes_for<T>(k, v, d, dv);
   if (lanes == 0) {
-    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (splits != 1 || q_type != code_of<T>())
+      return static_cast<int>(cudaErrorInvalidValue);
     if (rows == 1)
       return launch_rows<T, 1>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
                                d, dv, scale, s);
@@ -779,7 +837,8 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
     return static_cast<int>(cudaErrorInvalidValue);
   ring::Call a{q, k, v, static_cast<const int*>(lens), out,
                static_cast<float*>(part_o), static_cast<float*>(part_ml),
-               b, h, ql, row0, rows, cap, d, dv, splits, split_keys, scale};
+               b, h, ql, row0, rows, cap, d, dv, splits, split_keys, scale,
+               q_type};
   return ring::launch<T>(a, lanes, s);
 }
 
@@ -787,40 +846,61 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
 
 constexpr int kDvBlock = kThreads;  // output columns per block (grid.y)
 
-// The dtype codes of the general entry (the wrapper's): f32, bf16, f16.
-enum DtypeCode : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
-
-// Element i of a tensor whose dtype is known only at run time (q, out).
-__device__ __forceinline__ float load_any(const void* p, int type, size_t i) {
-  if (type == kBF16)
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  if (type == kF16) return __half2float(static_cast<const __half*>(p)[i]);
-  return static_cast<const float*>(p)[i];
+// 8 consecutive elements from element i of a tensor of dtype code `type`,
+// as floats: one 16-byte load of 16-bit elements or two of f32 (the element
+// 16-byte aligned).
+__device__ __forceinline__ void load8_any(const void* p, int type, size_t i,
+                                          float (&out)[8]) {
+  if (type == kF32) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(static_cast<const float*>(p) + i);
+    const uint4 a = __ldg(src), b = __ldg(src + 1);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) out[e] = __uint_as_float(w[e]);
+  } else {
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const uint16_t*>(p) + i));
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      out[2 * e] = from16(w[e] & 0xffffu, type == kF16);
+      out[2 * e + 1] = from16(w[e] >> 16, type == kF16);
+    }
+  }
 }
 
-__device__ __forceinline__ void store_any(void* p, int type, size_t i,
-                                          float x) {
-  if (type == kBF16)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(x);
-  else if (type == kF16)
-    static_cast<__half*>(p)[i] = __float2half(x);
+// E elements from element i of a tensor of dtype code `type`: load8_any
+// where E is 8, else one element.
+template <int E>
+__device__ __forceinline__ void load_e(const void* p, int type, size_t i,
+                                       float (&out)[E]) {
+  if constexpr (E == 8)
+    load8_any(p, type, i, out);
   else
-    static_cast<float*>(p)[i] = x;
+    out[0] = load_any(p, type, i);
 }
 
-// TK, TV: K's and V's element types. QL: query rows the kernel is built for
-// (rows <= QL). kVec: 16-byte loads (d and dv multiples of a 16-byte vector
-// of their types, k and v 16-byte aligned); else one element per lane.
-// Block (bh, y) computes output columns [256 y, 256 y + 256) of every row.
-template <typename TK, typename TV, int QL, bool kVec>
+// x rounded to the dtype of code `type` (p before P V).
+__device__ __forceinline__ float round_to(int type, float x) {
+  return type == kF32 ? x : round16(x, type == kF16);
+}
+
+// QL: query rows the kernel is built for (rows <= QL). kVec: 8 elements a
+// lane a load (d and dv multiples of 8, k and v 16-byte aligned); else one.
+// q_type, k_type, v_type: each operand's dtype code; out is in q's. Block
+// (bh, y) computes output columns [256 y, 256 y + 256) of every row.
+template <int QL, bool kVec>
 __global__ void __launch_bounds__(kThreads)
     decode_general_kernel(const void* __restrict__ q,
-                          const TK* __restrict__ k, const TV* __restrict__ v,
+                          const void* __restrict__ k,
+                          const void* __restrict__ v,
                           const int* __restrict__ lens, void* __restrict__ out,
                           int h, int ql, int row0, int rows, int cap, int d,
-                          int dv, float scale, int q_type) {
-  constexpr int EK = kVec ? 16 / sizeof(TK) : 1;   // K elements per lane load
-  constexpr int EV = kVec ? 16 / sizeof(TV) : 1;   // V elements per lane load
+                          int dv, float scale, int q_type, int k_type,
+                          int v_type) {
+  constexpr int EK = kVec ? 8 : 1;                 // K elements per lane load
+  constexpr int EV = EK;                           // V elements per lane load
   constexpr int kChunkK = 32 * EK;                 // d columns per warp load
   constexpr int kChunkV = 32 * EV;
   constexpr int kChunksV = kDvBlock / kChunkV;     // per block's columns
@@ -839,8 +919,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const TK* kb = k + static_cast<size_t>(bh) * cap * d;
-  const TV* vb = v + static_cast<size_t>(bh) * cap * dv + c0;
+  const size_t k_off = static_cast<size_t>(bh) * cap * d;
+  const size_t v_off = static_cast<size_t>(bh) * cap * dv + c0;
   const size_t q_off = (static_cast<size_t>(bh) * ql + row0) * d;
   const size_t o_off = (static_cast<size_t>(bh) * ql + row0) * dv + c0;
 
@@ -880,8 +960,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int ch = 0; ch < kChunksV; ++ch) {
         const int c = ch * kChunkV + lane * EV;
         if (base + u < n_valid && c < ncols) {
-          load_row<TV, EV>(vb + static_cast<size_t>(base + u) * dv + c,
-                           vr[u][ch]);
+          load_e<EV>(v, v_type,
+                     v_off + static_cast<size_t>(base + u) * dv + c,
+                     vr[u][ch]);
         } else {
 #pragma unroll
           for (int e = 0; e < EV; ++e) vr[u][ch][e] = 0.f;
@@ -900,7 +981,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         if (base + u < n_valid && c < d) {
-          load_row<TK, EK>(kb + static_cast<size_t>(base + u) * d + c, kr[u]);
+          load_e<EK>(k, k_type,
+                     k_off + static_cast<size_t>(base + u) * d + c, kr[u]);
         } else {
 #pragma unroll
           for (int e = 0; e < EK; ++e) kr[u][e] = 0.f;
@@ -938,7 +1020,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int u = 0; u < kBatch; ++u) {
         const float pu = expf(s[u] - m_new);
         psum += pu;
-        p[u] = to_float(from_float<TV>(pu));  // p in V's dtype for PV
+        p[u] = round_to(v_type, pu);  // p in V's dtype for PV
       }
       l[r] = l[r] * corr + psum;
       m[r] = m_new;
@@ -990,13 +1072,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename TK, typename TV, int QL, bool kVec>
+template <int QL, bool kVec>
 int launch_general_as(const void* q, const void* k, const void* v,
                       const void* lens, void* out, int b, int h, int ql,
                       int row0, int rows, int cap, int d, int dv, float scale,
-                      int q_type, cudaStream_t stream) {
-  const auto kernel = decode_general_kernel<TK, TV, QL, kVec>;
-  constexpr int kChunkK = 32 * (kVec ? 16 / sizeof(TK) : 1);
+                      int q_type, int k_type, int v_type,
+                      cudaStream_t stream) {
+  const auto kernel = decode_general_kernel<QL, kVec>;
+  constexpr int kChunkK = 32 * (kVec ? 8 : 1);
   const size_t smem = static_cast<size_t>(rows) *
                       ((d + kChunkK - 1) / kChunkK) * kChunkK * sizeof(float);
   if (smem > 48 * 1024) {
@@ -1007,48 +1090,31 @@ int launch_general_as(const void* q, const void* k, const void* v,
   }
   const dim3 grid(b * h, (dv + kDvBlock - 1) / kDvBlock);
   kernel<<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const TK*>(k), static_cast<const TV*>(v),
-      static_cast<const int*>(lens), out, h, ql, row0, rows, cap, d, dv,
-      scale, q_type);
+      q, k, v, static_cast<const int*>(lens), out, h, ql, row0, rows, cap, d,
+      dv, scale, q_type, k_type, v_type);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TK, typename TV>
 int launch_general(const void* q, const void* k, const void* v,
                    const void* lens, void* out, int b, int h, int ql, int row0,
                    int rows, int cap, int d, int dv, float scale, int q_type,
-                   cudaStream_t s) {
-  const bool vec = d % (16 / sizeof(TK)) == 0 &&
-                   dv % (16 / sizeof(TV)) == 0 &&
+                   int k_type, int v_type, cudaStream_t s) {
+  const bool vec = d % 8 == 0 && dv % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   if (rows == 1)
-    return vec ? launch_general_as<TK, TV, 1, true>(
-                     q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
-                     scale, q_type, s)
-               : launch_general_as<TK, TV, 1, false>(
-                     q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
-                     scale, q_type, s);
-  return vec ? launch_general_as<TK, TV, kMaxQ, true>(
-                   q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
-                   scale, q_type, s)
-             : launch_general_as<TK, TV, kMaxQ, false>(
-                   q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
-                   scale, q_type, s);
-}
-
-template <typename T>
-struct Tag {
-  using type = T;
-};
-
-// f(Tag<T>{}) for the element type T of dtype code `code`.
-template <typename F>
-int with_dtype(int code, F&& f) {
-  if (code == kF32) return f(Tag<float>{});
-  if (code == kBF16) return f(Tag<__nv_bfloat16>{});
-  if (code == kF16) return f(Tag<__half>{});
-  return static_cast<int>(cudaErrorInvalidValue);
+    return vec ? launch_general_as<1, true>(q, k, v, lens, out, b, h, ql,
+                                            row0, rows, cap, d, dv, scale,
+                                            q_type, k_type, v_type, s)
+               : launch_general_as<1, false>(q, k, v, lens, out, b, h, ql,
+                                             row0, rows, cap, d, dv, scale,
+                                             q_type, k_type, v_type, s);
+  return vec ? launch_general_as<kMaxQ, true>(q, k, v, lens, out, b, h, ql,
+                                              row0, rows, cap, d, dv, scale,
+                                              q_type, k_type, v_type, s)
+             : launch_general_as<kMaxQ, false>(q, k, v, lens, out, b, h, ql,
+                                               row0, rows, cap, d, dv, scale,
+                                               q_type, k_type, v_type, s);
 }
 
 }  // namespace
@@ -1058,40 +1124,46 @@ int with_dtype(int code, F&& f) {
 // launch's cudaError_t (0 on success).
 extern "C" {
 
-// The tuned path: q, k and v of one dtype, d and dv up to 256, query rows
-// [row0, row0 + rows) of q, rows <= 8. Where the ring kernel takes the call,
-// split s takes keys [s split_keys, (s + 1) split_keys), split_keys a
-// multiple of its tile (the wrapper's tuned_decode_tile), and with more than
-// one split part_o and part_ml are the f32 partials' workspace, [b h,
-// splits, rows, dv] and [b h, splits, rows, 2]; elsewhere splits is 1.
+// The tuned path, entries named by K's and V's dtype: d and dv up to 256,
+// query rows [row0, row0 + rows) of q, rows <= 8. Where the ring kernel
+// takes the call, split s takes keys [s split_keys, (s + 1) split_keys),
+// split_keys a multiple of its tile (the wrapper's tuned_decode_tile), and
+// with more than one split part_o and part_ml are the f32 partials'
+// workspace, [b h, splits, rows, dv] and [b h, splits, rows, 2]; elsewhere
+// splits is 1. q_type (0 f32, 1 bf16, 2 f16) is q's and out's dtype: the
+// entry's own, or, where the ring kernel takes the call, another.
 
 int decode_attention_f32(const void* q, const void* k, const void* v,
                          const void* lens, void* out, void* part_o,
                          void* part_ml, int b, int h, int ql, int row0,
                          int rows, int cap, int d, int dv, float scale,
-                         int splits, int split_keys, void* stream) {
+                         int splits, int split_keys, int q_type,
+                         void* stream) {
   return launch<float>(q, k, v, lens, out, part_o, part_ml, b, h, ql, row0,
-                       rows, cap, d, dv, scale, splits, split_keys, stream);
+                       rows, cap, d, dv, scale, splits, split_keys, q_type,
+                       stream);
 }
 
 int decode_attention_bf16(const void* q, const void* k, const void* v,
                           const void* lens, void* out, void* part_o,
                           void* part_ml, int b, int h, int ql, int row0,
                           int rows, int cap, int d, int dv, float scale,
-                          int splits, int split_keys, void* stream) {
+                          int splits, int split_keys, int q_type,
+                          void* stream) {
   return launch<__nv_bfloat16>(q, k, v, lens, out, part_o, part_ml, b, h,
                                ql, row0, rows, cap, d, dv, scale, splits,
-                               split_keys, stream);
+                               split_keys, q_type, stream);
 }
 
 int decode_attention_f16(const void* q, const void* k, const void* v,
                          const void* lens, void* out, void* part_o,
                          void* part_ml, int b, int h, int ql, int row0,
                          int rows, int cap, int d, int dv, float scale,
-                         int splits, int split_keys, void* stream) {
+                         int splits, int split_keys, int q_type,
+                         void* stream) {
   return launch<__half>(q, k, v, lens, out, part_o, part_ml, b, h, ql,
                         row0, rows, cap, d, dv, scale, splits, split_keys,
-                        stream);
+                        q_type, stream);
 }
 
 // The wide path (wide_attention.cuh): q, k and v all bf16 or all f16, d and
@@ -1129,9 +1201,9 @@ int decode_attention_f32tc(const void* q, const void* k, const void* v,
                            void* part_ml, int b, int h, int ql, int cap,
                            int d, int dv, float scale, int splits,
                            int split_keys, void* stream) {
-  return f32tc::launch_decode<float>(
+  return f32tc::launch_decode<false, false>(
       q, k, v, lens, out, part_o, part_ml, b, h, ql, cap, d, dv, scale,
-      splits, split_keys, static_cast<cudaStream_t>(stream));
+      splits, split_keys, 0, 0, static_cast<cudaStream_t>(stream));
 }
 
 // Any head dims; q_type, k_type and v_type are each 0 (f32), 1 (bf16) or 2
@@ -1141,20 +1213,15 @@ int decode_attention_general(const void* q, const void* k, const void* v,
                              int ql, int row0, int rows, int cap, int d,
                              int dv, float scale, int q_type, int k_type,
                              int v_type, void* stream) {
+  const auto type_ok = [](int t) { return t >= kF32 && t <= kF16; };
   if (b < 1 || h < 1 || cap < 1 || rows < 1 || rows > kMaxQ || row0 < 0 ||
       row0 + rows > ql || d < 1 || dv < 1 ||
-      (dv + kDvBlock - 1) / kDvBlock > 65535 || q_type < kF32 ||
-      q_type > kF16)
+      (dv + kDvBlock - 1) / kDvBlock > 65535 || !type_ok(q_type) ||
+      !type_ok(k_type) || !type_ok(v_type))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  return with_dtype(k_type, [&](auto tk) {
-    return with_dtype(v_type, [&](auto tv) {
-      return launch_general<typename decltype(tk)::type,
-                            typename decltype(tv)::type>(
-          q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv, scale,
-          q_type, s);
-    });
-  });
+  return launch_general(q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
+                        scale, q_type, k_type, v_type,
+                        static_cast<cudaStream_t>(stream));
 }
 
 const char* decode_attention_error_string(int code) {

@@ -2,7 +2,11 @@
 // the tensor cores in 3xTF32. One device body computes one 64-row query tile
 // against a stream of 64-key K/V tiles; the flash kernels
 // (flash_attention.cu) and the decode kernel (decode_attention.cu) differ
-// only in which tiles a block takes and where its result goes.
+// only in which tiles a block takes and where its result goes. The same
+// body, built for a 16-bit q or 16-bit K and V (`body`'s kQ16 and kKV16),
+// takes the calls whose q's dtype differs from the one K and V share
+// (mixed_flash.cu, mixed_decode.cu): a 16-bit operand is exact in TF32, so
+// it enters each product once and only an f32 operand is split.
 //
 // It replaces, for f32 inputs, the TPU kernels `_flash_kernel` and
 // `_decode_kernel` (k8s_dra_driver_tpu/compute/flashattention.py) and
@@ -118,18 +122,21 @@ constexpr int kSmemBytes = 1024 + kBarsOffset + 3 * kStages * 8;
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block may have");
 
 // What a launch computes. Flash: rows = keys = S, out is [n_bh, S, dv]
-// (f32). Decode: rows = ql, keys = cap; part_o is [n_bh, splits, ql, dv]
-// and part_ml [n_bh, splits, ql, 2] (base-2 max, denominator). dv_chunk:
-// the output columns one work item takes.
+// in q's dtype. Decode: rows = ql, keys = cap; part_o is [n_bh, splits,
+// ql, dv] and part_ml [n_bh, splits, ql, 2] (base-2 max, denominator).
+// dv_chunk: the output columns one work item takes. q_f16, kv_f16: a 16-bit
+// q's and K/V's kind, 1 for f16 and 0 for bf16 (read where the kernel is
+// built for 16-bit q or K/V).
 struct Args {
   int n_bh, rows, keys, d, dv, dv_chunk;
   float scale_log2;
   int causal;
-  float* out;
+  void* out;
   const int* lens;
   int h, splits, split_keys;
   float* part_o;
   float* part_ml;
+  int q_f16, kv_f16;
 };
 
 // One work item: query rows [q0, q0 + 64) of (b h) `bh`, output columns
@@ -183,12 +190,26 @@ __device__ __forceinline__ Work work_of(const Args& a, int j) {
 
 // The body of every f32 kernel. DP: 32-column panels of Q and K; VP: of V
 // in one dv chunk. kDecode: decode's items and partials, else flash's.
-template <int DP, int VP, bool kDecode>
+// kQ16, kKV16: q, or K and V, 16-bit (bf16 or f16, by a.q_f16 and
+// a.kv_f16) rather than f32: TMA copies such a panel in its own dtype (32
+// columns, 64-byte rows in the 64-byte swizzle, `sw64_offset`), and it is
+// exact in TF32, so its lo part is zero and its lo product is not issued:
+// S takes 1 + !kQ16 + !kKV16 TF32 products a multiply-add; P V takes 3
+// with f32 V, and 1 with 16-bit V, where p is rounded to V's dtype (exact
+// in TF32) as the TPU kernel rounds it. A 16-bit K panel lands in plane 3
+// and the split warps write it as f32 into plane 1 (the hi plane a raw f32
+// panel is); a 16-bit V panel's transposed hi plane comes from its own
+// dtype; a 16-bit Q is converted in the consumers' registers.
+template <int DP, int VP, bool kDecode, bool kQ16, bool kKV16>
 __device__ __forceinline__ void body(const CUtensorMap& q_map,
                                      const CUtensorMap& k_map,
                                      const CUtensorMap& v_map,
                                      const Args& a) {
   const float scale_log2 = a.scale_log2;  // 1/sqrt(d) log2(e)
+  // Bytes of one Q, K or V panel as TMA copies it.
+  constexpr int kQBytes = kQ16 ? kPanelBytes / 2 : kPanelBytes;
+  constexpr int kKVBytes = kKV16 ? kPanelBytes / 2 : kPanelBytes;
+  const bool q_f16 = a.q_f16 != 0, kv_f16 = a.kv_f16 != 0;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -228,15 +249,15 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
           for (int p = 0; p < DP; ++p, ++it) {
             const int st = it % kStages;
             mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
-            mbar_expect_tx(full(st), 2 * kPanelBytes);
+            mbar_expect_tx(full(st), kQBytes + kKVBytes);
             tma_load(stage(st), &q_map, full(st), p * kCols, w.q0, w.bh);
-            tma_load(stage(st) + kPanelBytes, &k_map, full(st), p * kCols,
-                     key, w.bh);
+            tma_load(stage(st) + (kKV16 ? 3 : 1) * kPanelBytes, &k_map,
+                     full(st), p * kCols, key, w.bh);
           }
           for (int vp = 0; vp < VP; ++vp, ++it) {
             const int st = it % kStages;
             mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
-            mbar_expect_tx(full(st), kPanelBytes);
+            mbar_expect_tx(full(st), kKVBytes);
             tma_load(stage(st), &v_map, full(st), w.c0 + vp * kCols, key,
                      w.bh);
           }
@@ -245,13 +266,15 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
     }
   } else if (warp_id < 4) {
     // The split pass, 96 threads. S stages: lo = x - trunc(x) of K's panel
-    // into plane 3, element for element (the swizzle is the same). P V
-    // stages: V's panel [64 keys x 32 columns] transposed
-    // into [32 columns x 64 keys] (two 32-key halves of 32 rows x 128
-    // bytes), hi = rna(v) into plane 2 and lo into plane 3. Thread task
-    // (column c = lane, group g of 8 keys, parity): keys 8 g + parity +
-    // 2 j, j = 0..3, into slots 8 g + 4 parity + j: a warp reads one key
-    // row and writes 32 rows, each in one 16-byte chunk.
+    // into plane 3, element for element (the swizzle is the same); a
+    // 16-bit K panel (plane 3) as f32 into plane 1 instead, a 16-byte chunk
+    // (8 columns) a task. P V stages: V's panel [64 keys x 32 columns]
+    // transposed into [32 columns x 64 keys] (two 32-key halves of 32 rows
+    // x 128 bytes), hi = rna(v) into plane 2 and lo into plane 3 (16-bit V:
+    // hi = v, no lo). Thread task (column c = lane, group g of 8 keys,
+    // parity): keys 8 g + parity + 2 j, j = 0..3, into slots 8 g + 4 parity
+    // + j: a warp reads one key row and writes 32 rows, each in one 16-byte
+    // chunk.
     const int ts = threadIdx.x - 32;
     int it = 0;
     for (int r = 0; item(r) < work; ++r) {
@@ -261,12 +284,35 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
           const int st = it % kStages;
           mbar_wait(full(st), (it / kStages) & 1);
           unsigned char* const s = base_ptr + st * kStageBytes;
-          for (int i = ts; i < kPanelBytes / 16; i += kSplitThreads) {
-            const float4 x =
-                *reinterpret_cast<const float4*>(s + kPanelBytes + 16 * i);
-            *reinterpret_cast<float4*>(s + 3 * kPanelBytes + 16 * i) =
-                make_float4(x.x - tf32_trunc(x.x), x.y - tf32_trunc(x.y),
-                            x.z - tf32_trunc(x.z), x.w - tf32_trunc(x.w));
+          if constexpr (kKV16) {
+            for (int i = ts; i < kKeys * 4; i += kSplitThreads) {
+              const int key = i >> 2, c8 = i & 3;
+              const uint4 raw = *reinterpret_cast<const uint4*>(
+                  s + 3 * kPanelBytes + sw64_offset(key, 8 * c8));
+              const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+              float f[8];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                f[2 * e] = from16(w4[e] & 0xffffu, kv_f16);
+                f[2 * e + 1] = from16(w4[e] >> 16, kv_f16);
+              }
+              // Columns 8 c8 .. 8 c8 + 7: the f32 row's chunks 2 c8, 2 c8 + 1.
+              unsigned char* const row = s + kPanelBytes + key * 128;
+              *reinterpret_cast<float4*>(
+                  row + (((2 * c8) ^ (key & 7)) << 4)) =
+                  make_float4(f[0], f[1], f[2], f[3]);
+              *reinterpret_cast<float4*>(
+                  row + (((2 * c8 + 1) ^ (key & 7)) << 4)) =
+                  make_float4(f[4], f[5], f[6], f[7]);
+            }
+          } else {
+            for (int i = ts; i < kPanelBytes / 16; i += kSplitThreads) {
+              const float4 x =
+                  *reinterpret_cast<const float4*>(s + kPanelBytes + 16 * i);
+              *reinterpret_cast<float4*>(s + 3 * kPanelBytes + 16 * i) =
+                  make_float4(x.x - tf32_trunc(x.x), x.y - tf32_trunc(x.y),
+                              x.z - tf32_trunc(x.z), x.w - tf32_trunc(x.w));
+            }
           }
           fence_proxy_async();
           mbar_arrive(split(st));
@@ -282,11 +328,18 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               const int key = 8 * g + par + 2 * j;
-              const float x = *reinterpret_cast<const float*>(
-                  s + key * 128 + (((c >> 2) ^ (key & 7)) << 4) +
-                  4 * (c & 3));
-              hi[j] = tf32_rna(x);
-              lo[j] = x - hi[j];
+              if constexpr (kKV16) {
+                hi[j] = from16(*reinterpret_cast<const uint16_t*>(
+                                   s + sw64_offset(key, c)),
+                               kv_f16);
+                lo[j] = 0.f;
+              } else {
+                const float x = *reinterpret_cast<const float*>(
+                    s + key * 128 + (((c >> 2) ^ (key & 7)) << 4) +
+                    4 * (c & 3));
+                hi[j] = tf32_rna(x);
+                lo[j] = x - hi[j];
+              }
             }
             // Slot 8 g + 4 par: key half g / 4, chunk 2 (g % 4) + par.
             const int chunk = 2 * (g & 3) + par;
@@ -294,8 +347,9 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
                             ((chunk ^ (c & 7)) << 4);
             *reinterpret_cast<float4*>(s + 2 * kPanelBytes + off) =
                 make_float4(hi[0], hi[1], hi[2], hi[3]);
-            *reinterpret_cast<float4*>(s + 3 * kPanelBytes + off) =
-                make_float4(lo[0], lo[1], lo[2], lo[3]);
+            if constexpr (!kKV16)
+              *reinterpret_cast<float4*>(s + 3 * kPanelBytes + off) =
+                  make_float4(lo[0], lo[1], lo[2], lo[3]);
           }
           fence_proxy_async();
           mbar_arrive(split(st));
@@ -336,17 +390,24 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
       for (int j = 0; j < 4; ++j) {
         const int row = row_in + 8 * (j & 1);
         const int col = 8 * ks + t4 + 4 * (j >> 1);
-        const float x = *reinterpret_cast<const float*>(
-            qp + row * 128 + (((col >> 2) ^ (row & 7)) << 4) +
-            4 * (col & 3));
-        const float hi = tf32_rna(x);
-        q_hi[ks & 1][j] = __float_as_uint(hi);
-        q_lo[ks & 1][j] = __float_as_uint(x - hi);
+        if constexpr (kQ16) {
+          q_hi[ks & 1][j] = __float_as_uint(from16(
+              *reinterpret_cast<const uint16_t*>(qp + sw64_offset(row, col)),
+              q_f16));
+        } else {
+          const float x = *reinterpret_cast<const float*>(
+              qp + row * 128 + (((col >> 2) ^ (row & 7)) << 4) +
+              4 * (col & 3));
+          const float hi = tf32_rna(x);
+          q_hi[ks & 1][j] = __float_as_uint(hi);
+          q_lo[ks & 1][j] = __float_as_uint(x - hi);
+        }
       }
     };
     // S = Q K^T over the DP panels of one key tile, stage by stage, a
-    // commit group per k-step; each stage is released once the wgmmas that
-    // read it (and the A registers loaded from it) are done.
+    // commit group per k-step (lo.hi, hi.lo, hi.hi: the small terms first,
+    // the lo products only of f32 operands); each stage is released once the
+    // wgmmas that read it (and the A registers loaded from it) are done.
     const auto scores = [&](int it) {
 #pragma unroll
       for (int p = 0; p < DP; ++p) {
@@ -364,14 +425,17 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
           if (p + ks == 0) fence_regs(s);  // none while a group writes s
           wgmma_fence();
           const uint32_t off = (ks * 32) >> 4;
-          wgmma_tf32_rs_n64(s, q_lo[b], kh + off, p + ks > 0);
-          wgmma_tf32_rs_n64(s, q_hi[b], kl + off, 1);
-          wgmma_tf32_rs_n64(s, q_hi[b], kh + off, 1);
+          if constexpr (!kQ16)
+            wgmma_tf32_rs_n64(s, q_lo[b], kh + off, p + ks > 0);
+          if constexpr (!kKV16)
+            wgmma_tf32_rs_n64(s, q_hi[b], kl + off, !kQ16 || p + ks > 0);
+          wgmma_tf32_rs_n64(s, q_hi[b], kh + off,
+                            !kQ16 || !kKV16 || p + ks > 0);
           wgmma_commit();
           if (p + ks > 0) {
             wgmma_wait<1>();  // the other set's group is done
             fence_regs(q_hi[b ^ 1]);
-            fence_regs(q_lo[b ^ 1]);
+            if constexpr (!kQ16) fence_regs(q_lo[b ^ 1]);
             if (ks == 0) release(it + p - 1);
           }
         }
@@ -379,7 +443,7 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(q_hi[1]);
-      fence_regs(q_lo[1]);
+      if constexpr (!kQ16) fence_regs(q_lo[1]);
       release(it + DP - 1);
     };
     // O += P V over the VP panels of the tile's dv chunk.
@@ -398,8 +462,10 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
           // Keys 8 ks .. 8 ks + 7: half ks / 4, 32-byte step ks % 4.
           const uint32_t off =
               ((ks >> 2) * (kPanelBytes / 2) + (ks & 3) * 32) >> 4;
-          wgmma_tf32_rs_n32(o[vp], p_lo[ks], vh + off);
-          wgmma_tf32_rs_n32(o[vp], p_hi[ks], vl + off);
+          if constexpr (!kKV16) {
+            wgmma_tf32_rs_n32(o[vp], p_lo[ks], vh + off);
+            wgmma_tf32_rs_n32(o[vp], p_hi[ks], vl + off);
+          }
           wgmma_tf32_rs_n32(o[vp], p_hi[ks], vh + off);
         }
         wgmma_commit();
@@ -412,7 +478,7 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
 #pragma unroll
       for (int vp = 0; vp < VP; ++vp) fence_regs(o[vp]);
       fence_regs(p_hi);
-      fence_regs(p_lo);
+      if constexpr (!kKV16) fence_regs(p_lo);
       release(it + VP - 1);
     };
     // The softmax of the key tile at k0t, in place on s (base 2): s
@@ -462,16 +528,21 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
     };
     // P's TF32 A fragments, hi and lo: for the 8 keys of step ks, a[0] and
     // a[1] (rows row_in, row_in + 8) hold key 2 t4 in slot t4, a[2] and
-    // a[3] key 2 t4 + 1 in slot t4 + 4 (the V planes' key order).
+    // a[3] key 2 t4 + 1 in slot t4 + 4 (the V planes' key order). With
+    // 16-bit V, p rounded to V's dtype alone (l keeps the unrounded sum).
     const auto split_p = [&]() {
 #pragma unroll
       for (int ks = 0; ks < kKeys / 8; ++ks) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const float x = s[4 * ks + 2 * (j & 1) + (j >> 1)];
-          const float hi = tf32_rna(x);
-          p_hi[ks][j] = __float_as_uint(hi);
-          p_lo[ks][j] = __float_as_uint(x - hi);
+          if constexpr (kKV16) {
+            p_hi[ks][j] = __float_as_uint(round16(x, kv_f16));
+          } else {
+            const float hi = tf32_rna(x);
+            p_hi[ks][j] = __float_as_uint(hi);
+            p_lo[ks][j] = __float_as_uint(x - hi);
+          }
         }
       }
     };
@@ -531,14 +602,13 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
       for (int hr = 0; hr < 2; ++hr) {
         const int row = w.q0 + row_in + 8 * hr;
         if (row >= a.rows) continue;
-        float* dst;
+        size_t at;  // the row's first element
         float f;
         if constexpr (kDecode) {
-          dst = a.part_o + (static_cast<size_t>(w.part) * a.rows + row) *
-                               a.dv;
+          at = (static_cast<size_t>(w.part) * a.rows + row) * a.dv;
           f = 1.f;
         } else {
-          dst = a.out + (static_cast<size_t>(w.bh) * a.rows + row) * a.dv;
+          at = (static_cast<size_t>(w.bh) * a.rows + row) * a.dv;
           f = inv[hr];
         }
 #pragma unroll
@@ -546,10 +616,19 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int col = w.c0 + vp * kCols + 8 * c + 2 * t4;
-            if (col < a.dv)
-              *reinterpret_cast<float2*>(dst + col) =
-                  make_float2(o[vp][4 * c + 2 * hr] * f,
-                              o[vp][4 * c + 2 * hr + 1] * f);
+            if (col >= a.dv) continue;
+            const float x0 = o[vp][4 * c + 2 * hr] * f;
+            const float x1 = o[vp][4 * c + 2 * hr + 1] * f;
+            if (kDecode || !kQ16) {
+              float* dst = kDecode ? a.part_o : static_cast<float*>(a.out);
+              *reinterpret_cast<float2*>(dst + at + col) =
+                  make_float2(x0, x1);
+            } else {
+              // The flash output in q's 16-bit dtype.
+              *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(a.out) +
+                                           at + col) =
+                  q_f16 ? pack2<f16>(x0, x1) : pack2<bf16>(x0, x1);
+            }
           }
         if constexpr (kDecode) {
           if (w.c0 == 0 && t4 == 0) {
@@ -564,26 +643,44 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
   }
 }
 
-// The kernels, one per function; the build report names each bucket.
-template <int DP, int VP>
+// The kernels, one per function; the build report names each bucket and
+// dtype class (16-bit q, 16-bit K and V: all-f32 is <DP,VP,0,0>).
+template <int DP, int VP, bool kQ16, bool kKV16>
 __global__ void __launch_bounds__(kThreads, 1)
     f32tc_flash_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
                        const Args a) {
-  body<DP, VP, false>(q_map, k_map, v_map, a);
+  body<DP, VP, false, kQ16, kKV16>(q_map, k_map, v_map, a);
 }
 
-template <int DP, int VP>
+template <int DP, int VP, bool kQ16, bool kKV16>
 __global__ void __launch_bounds__(kThreads, 1)
     f32tc_decode_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map,
                         const Args a) {
-  body<DP, VP, true>(q_map, k_map, v_map, a);
+  body<DP, VP, true, kQ16, kKV16>(q_map, k_map, v_map, a);
 }
 
 // ---- launch ---------------------------------------------------------------
+
+// fn(kQ16, kKV16) as integral constants for the dtype class of a q and a
+// K/V cache whose dtype codes (0 f32, 1 bf16, 2 f16: the wrappers') differ,
+// then q's and the cache's 16-bit kinds (1 for f16) for `launch_flash` and
+// `launch_decode`; cudaErrorInvalidValue for any other pair.
+template <typename F>
+int with_mixed_class(int q_type, int kv_type, F&& fn) {
+  const auto ok = [](int t) { return t >= 0 && t <= 2; };
+  if (!ok(q_type) || !ok(kv_type) || q_type == kv_type)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using no = std::integral_constant<bool, false>;
+  using yes = std::integral_constant<bool, true>;
+  const int q_f16 = q_type == 2, kv_f16 = kv_type == 2;
+  if (q_type == 0) return fn(no{}, yes{}, q_f16, kv_f16);
+  if (kv_type == 0) return fn(yes{}, no{}, q_f16, kv_f16);
+  return fn(yes{}, yes{}, q_f16, kv_f16);
+}
 
 // The padded head dims the path takes: multiples of 16, d <= 576,
 // dv <= 512.
@@ -592,15 +689,21 @@ inline bool dims_ok(int d, int dv) {
          d % kDimStep == 0 && dv % kDimStep == 0;
 }
 
-// Encodes the Q, K and V maps ([n_bh, rows or keys, cols] each), sets the
-// kernel's shared memory, and launches it on `grid` blocks.
-template <typename K>
+// Encodes the Q, K and V maps ([n_bh, rows or keys, cols] each; a 16-bit
+// operand's in its own dtype, `encode_map_16_narrow`), sets the kernel's
+// shared memory, and launches it on `grid` blocks.
+template <bool kQ16, bool kKV16, typename K>
 int launch_body(K kernel, const void* q, const void* k, const void* v,
                 const Args& a, int grid, cudaStream_t stream) {
+  const auto encode = [](bool is16, CUtensorMap* map, const void* ptr,
+                         int n_bh, int rows, int cols, int box) {
+    return is16 ? encode_map_16_narrow(map, ptr, n_bh, rows, cols, box)
+                : encode_map_f32(map, ptr, n_bh, rows, cols, box);
+  };
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map_f32(&q_map, q, a.n_bh, a.rows, a.d, kRows) ||
-      !encode_map_f32(&k_map, k, a.n_bh, a.keys, a.d, kKeys) ||
-      !encode_map_f32(&v_map, v, a.n_bh, a.keys, a.dv, kKeys))
+  if (!encode(kQ16, &q_map, q, a.n_bh, a.rows, a.d, kRows) ||
+      !encode(kKV16, &k_map, k, a.n_bh, a.keys, a.d, kKeys) ||
+      !encode(kKV16, &v_map, v, a.n_bh, a.keys, a.dv, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -626,13 +729,14 @@ int with_bucket(int d, int dv, F&& fn) {
 }
 
 // Flash attention on q, k [bh, S, d] and v [bh, S, dv] (padded dims) into
-// out [bh, S, dv], E = float: a persistent grid of at most one block an SM.
-// (The launches are templates so that a source instantiates only the
-// kernels it calls.)
-template <typename E>
-int launch_flash(const void* q, const void* k, const void* v,
-                        void* out, int bh, int S, int d, int dv, int causal,
-                        float scale, cudaStream_t stream) {
+// out [bh, S, dv] in q's dtype: a persistent grid of at most one block an
+// SM. kQ16, kKV16: q, or k and v, 16-bit, of the kind q_f16 and kv_f16
+// say (1 f16, 0 bf16); f32 otherwise. (The launches are templates so that
+// a source instantiates only the kernels it calls.)
+template <bool kQ16, bool kKV16>
+int launch_flash(const void* q, const void* k, const void* v, void* out,
+                 int bh, int S, int d, int dv, int causal, float scale,
+                 int q_f16, int kv_f16, cudaStream_t stream) {
   if (bh < 1 || S < 1 || !dims_ok(d, dv))
     return static_cast<int>(cudaErrorInvalidValue);
   int device = 0, sms = 0;
@@ -649,31 +753,34 @@ int launch_flash(const void* q, const void* k, const void* v,
     a.dv_chunk = decltype(vp)::value * kCols;
     a.scale_log2 = scale * 1.4426950408889634f;
     a.causal = causal;
-    a.out = static_cast<E*>(out);
+    a.out = out;
+    a.q_f16 = q_f16;
+    a.kv_f16 = kv_f16;
     const long long n_work = static_cast<long long>(bh) *
                              ((S + kRows - 1) / kRows) *
                              ((dv + a.dv_chunk - 1) / a.dv_chunk);
     if (n_work > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
     const int grid = n_work < sms ? static_cast<int>(n_work) : sms;
-    return launch_body(
-        f32tc_flash_kernel<decltype(dp)::value, decltype(vp)::value>, q, k,
-        v, a, grid, stream);
+    return launch_body<kQ16, kKV16>(
+        f32tc_flash_kernel<decltype(dp)::value, decltype(vp)::value, kQ16,
+                           kKV16>,
+        q, k, v, a, grid, stream);
   });
 }
 
 // Decode attention on q [b h, ql, d], k [b h, cap, d] and v [b h, cap, dv]
-// (padded dims, d or dv over 256) into out [b h, ql, dv], E = float: one
-// block per
-// (b h, split, 64-row tile, dv chunk) writing f32 partials into part_o
-// [b h, splits, ql, dv] and part_ml [b h, splits, ql, 2], then the wide
-// path's merge. Split s takes keys [s split_keys, (s + 1) split_keys);
-// split_keys is a multiple of 64.
-template <typename E>
+// (padded dims, d or dv over 256) into out [b h, ql, dv] in q's dtype
+// (kQ16, kKV16, q_f16 and kv_f16 as for flash): one block per (b h,
+// split, 64-row tile, dv chunk) writing f32 partials into part_o [b h,
+// splits, ql, dv] and part_ml [b h, splits, ql, 2], then the wide path's
+// merge. Split s takes keys [s split_keys, (s + 1) split_keys); split_keys
+// is a multiple of 64.
+template <bool kQ16, bool kKV16>
 int launch_decode(const void* q, const void* k, const void* v,
-                         const void* lens, void* out, void* part_o,
-                         void* part_ml, int b, int h, int ql, int cap, int d,
-                         int dv, float scale, int splits, int split_keys,
-                         cudaStream_t stream) {
+                  const void* lens, void* out, void* part_o, void* part_ml,
+                  int b, int h, int ql, int cap, int d, int dv, float scale,
+                  int splits, int split_keys, int q_f16, int kv_f16,
+                  cudaStream_t stream) {
   if (b < 1 || h < 1 || ql < 1 || cap < 1 || !dims_ok(d, dv) ||
       (d <= 8 * kCols && dv <= 8 * kCols) || splits < 1 ||
       split_keys < kKeys || split_keys % kKeys != 0 ||
@@ -694,20 +801,34 @@ int launch_decode(const void* q, const void* k, const void* v,
   a.split_keys = split_keys;
   a.part_o = static_cast<float*>(part_o);
   a.part_ml = static_cast<float*>(part_ml);
+  a.q_f16 = q_f16;
+  a.kv_f16 = kv_f16;
   const long long n_work = static_cast<long long>(b) * h * splits *
                            ((ql + kRows - 1) / kRows) *
                            ((dv + a.dv_chunk - 1) / a.dv_chunk);
   const long long rows = static_cast<long long>(b) * h * ql;
   if (n_work > 0x7fffffff || rows > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_body(f32tc_decode_kernel<kDP, kVP>, q, k, v, a,
-                              static_cast<int>(n_work), stream);
+  const int err = launch_body<kQ16, kKV16>(
+      f32tc_decode_kernel<kDP, kVP, kQ16, kKV16>, q, k, v, a,
+      static_cast<int>(n_work), stream);
   if (err != 0) return err;
-  wide::wide_decode_merge_kernel<E>
-      <<<static_cast<int>(rows), 128, 0, stream>>>(
-          static_cast<const float*>(part_o),
-          static_cast<const float*>(part_ml), static_cast<E*>(out), ql, dv,
-          splits, ql, 0);
+  const auto merge = [&](auto* typed_out) {
+    using E = std::remove_pointer_t<decltype(typed_out)>;
+    wide::wide_decode_merge_kernel<E>
+        <<<static_cast<int>(rows), 128, 0, stream>>>(
+            static_cast<const float*>(part_o),
+            static_cast<const float*>(part_ml), typed_out, ql, dv, splits,
+            ql, 0);
+  };
+  if constexpr (kQ16) {
+    if (q_f16)
+      merge(static_cast<f16*>(out));
+    else
+      merge(static_cast<bf16*>(out));
+  } else {
+    merge(static_cast<float*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

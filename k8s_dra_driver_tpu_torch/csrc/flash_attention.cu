@@ -25,8 +25,12 @@
 //     f32 tensor-core kernel of f32tc_attention.cuh, flash_attention_f32tc,
 //     each f32 product as three TF32 products (3xTF32), f32-accurate (its
 //     note has the design);
-//   * anything else (mixed dtypes, or head dims past the wide and f32
-//     paths'; any d, dv >= 1): SIMT, flash_attention_general.
+//   * q in a dtype apart from the one k and v share, d <= 576 and dv <= 512
+//     (padded the same way): the same f32 tensor-core body built for
+//     16-bit q or K and V, in mixed_flash.cu (its own nvcc job);
+//   * anything else (k and v in different dtypes, or head dims past the
+//     wide, f32 and mixed paths'; any d, dv >= 1): SIMT,
+//     flash_attention_general.
 //
 // What bounds it: operations. Per (b, h) the kernel does 4 S^2 d multiply-adds
 // counted as flops (half of them under causal) on (3 d + dv) S elements, so at
@@ -79,8 +83,9 @@
 // score where the function needs 1,088, at ~1% of the bound (PERF.md); the
 // 16-bit calls there take the wide path now, and the f32 calls up to
 // 576/512 the f32 tensor-core path (on the H100 4.7x faster at the f32
-// headline; PERF.md, `chip_ab.py f32`). It keeps mixed dtypes and head
-// dims past 576/512 in every dtype.
+// headline; PERF.md, `chip_ab.py f32`), and the calls whose K and V share a
+// dtype apart from q's to mixed_flash.cu. It keeps K and V in different
+// dtypes and head dims past 576/512 in every dtype.
 
 #include <math_constants.h>
 
@@ -814,8 +819,9 @@ int flash_attention_wide_f16(const void* q, const void* k, const void* v,
 int flash_attention_f32tc(const void* q, const void* k, const void* v,
                           void* out, int bh, int S, int d, int dv, int causal,
                           float scale, void* stream) {
-  return f32tc::launch_flash<float>(q, k, v, out, bh, S, d, dv, causal,
-                                    scale, static_cast<cudaStream_t>(stream));
+  return f32tc::launch_flash<false, false>(
+      q, k, v, out, bh, S, d, dv, causal, scale, 0, 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Any head dims d, dv >= 1; q_type, k_type and v_type are each 0 (f32), 1

@@ -461,6 +461,52 @@ bool encode_map(CUtensorMap* map, const void* ptr, int bh, int S, int cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A map of a 16-bit tensor (bf16 or f16: TMA copies bits) [bh, S, cols] in
+// boxes of 32 columns (64 bytes, the columns of an f32 panel) x `rows`,
+// swizzled by 64 bytes: 16-byte chunk c of row r lands at chunk
+// c ^ ((r / 2) % 4) (`sw64_offset`); out-of-bounds elements read as zeros.
+inline bool encode_map_16_narrow(CUtensorMap* map, const void* ptr, int bh,
+                                 int S, int cols, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * 2,
+      static_cast<cuuint64_t>(S) * cols * 2};
+  const cuuint32_t box[3] = {kPanelColsF32, static_cast<cuuint32_t>(rows),
+                             1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The byte offset of element `col` (0-31) of row `row` in a panel of
+// `encode_map_16_narrow`: 64-byte rows, chunks swizzled by 64 bytes.
+__device__ __forceinline__ int sw64_offset(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ (row >> 1)) & 3) << 4) + 2 * (col & 7);
+}
+
+// A 16-bit value's bits as f32 (exact): f16 where `is_f16`, else bf16.
+// Both conversions are computed and one is selected, so no branch reaches
+// the loops that issue wgmmas.
+__device__ __forceinline__ float from16(uint32_t bits, bool is_f16) {
+  const float h = __half2float(__ushort_as_half(static_cast<uint16_t>(bits)));
+  const float b = __uint_as_float(bits << 16);
+  return is_f16 ? h : b;
+}
+
+// x rounded to f16 where `is_f16`, else to bf16 (to nearest even), as f32.
+__device__ __forceinline__ float round16(float x, bool is_f16) {
+  const float h = __half2float(__float2half_rn(x));
+  const float b = __bfloat162float(__float2bfloat16_rn(x));
+  return is_f16 ? h : b;
+}
+
 // The same for an f32 tensor: boxes of 32 columns (128 bytes) x `rows`.
 inline bool encode_map_f32(CUtensorMap* map, const void* ptr, int bh, int S,
                            int cols, int rows) {

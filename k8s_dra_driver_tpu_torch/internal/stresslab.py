@@ -2217,6 +2217,7 @@ def run_soak(
 
         quiesce_deadline = time.monotonic() + quiesce_timeout_s
         quiesced = False
+        pending_anns: list = []
         while time.monotonic() < quiesce_deadline:
             all_healthy = all(not lib._unhealthy for lib in libs)
             no_taints = all(not d.device_taints() for d in gpu_drivers)
@@ -2235,12 +2236,19 @@ def run_soak(
                 break
             time.sleep(0.05)
         if not quiesced:
+            # Every condition of the loop above, so that the message names
+            # the one that held.
+            firing = sorted(f"{slo}/{sev}" for engine in (bb_engine, cn_engine)
+                            if engine is not None for slo, sev in engine.firing())
             errors.append(("quiesce", "remediation pipeline never went "
                            f"idle within {quiesce_timeout_s}s: "
+                           f"unhealthy={[sorted(lib._unhealthy) for lib in libs]} "
                            f"taints={[d.device_taints() for d in gpu_drivers]} "
                            f"drains={[d.active_devices() for d in drainers]} "
                            f"realloc_pending={realloc_box['r'].pending_count()} "
-                           + (f"killed={sorted(killed)} cordoned="
+                           f"drain_annotated={pending_anns} firing={firing} "
+                           + (f"node_plane_quiet={node_plane_quiet()} "
+                              f"killed={sorted(killed)} cordoned="
                               f"{lifecycle.cordoned_nodes()} fenced="
                               f"{[i for i, hb in enumerate(heartbeats) if hb is not None and hb.fenced]}"
                               if node_plane else "")))

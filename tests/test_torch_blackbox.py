@@ -382,7 +382,9 @@ class TestIncidentLeg:
         r = run_soak(duration_s=6.0, gpu_fault_interval_s=0.8,
                      lease_duration_s=1.2, node_kill_at_s=1.2,
                      recovery_slo_s=8.0, blackbox=True)
-        assert r["error_count"] == 0, r["errors"]
+        # A string message: pytest cuts a non-string one at 240 characters,
+        # which hid which quiesce condition held and which claim stuck.
+        assert r["error_count"] == 0, "\n".join(map(str, r["errors"]))
         assert not r["leaks"], r["leaks"]
         assert r["outcomes"]["stuck"] == 0
         bb = r["blackbox"]

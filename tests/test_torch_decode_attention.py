@@ -205,6 +205,19 @@ class TestAgainstJax:
         assert _max_abs(out.numpy(),
                         xla_decode_attention(q, k, v, lens)) < F32_TOL
 
+    # The mixed tensor-core route's layout: DeepSeek-V3's absorbed MLA (128
+    # query rows against one latent head of 576/512) with q's dtype apart
+    # from the cache's, at a small cache, held to JAX (interpret mode)
+    # through the plain version within the narrowest input's limit.
+    @pytest.mark.parametrize("dtypes", [
+        ("f32", "bf16", "bf16"), ("f32", "f16", "f16"),
+        ("bf16", "f32", "f32"), ("bf16", "f16", "f16")])
+    def test_mixed_dtypes_match_pallas_at_absorbed_mla(self, dtypes):
+        cap = 64
+        q, k, v = _inputs(43, 128, b=2, h=1, d=576, cap=cap, dv=512)
+        lens = np.array([33, cap], np.int32)
+        _agrees_with_jax(q, k, v, lens, dtypes, block_k=32)
+
     @pytest.mark.parametrize("ql", [1, 4])
     def test_f16_matches_xla_and_pallas(self, ql):
         q, k, v = _inputs(19, ql)
@@ -367,17 +380,19 @@ class TestRouting:
              1, 1, 1, 0) for row0, rows in ((0, 8), (8, 2))]
 
     @pytest.mark.parametrize("ql,d,dv,dtypes,entry,codes", [
-        # the tuned entries' splits and keys a split: the ring kernel's one
-        # split of whole 64-key tiles; f32 at 256 (the per-warp kernel) the
-        # cache
-        (1, 128, 128, ("f16",) * 3, "decode_attention_f16", (1, 64)),
-        (4, 256, 64, ("f32",) * 3, "decode_attention_f32", (1, 16)),
+        # the tuned entries' splits, keys a split and q's dtype code: the
+        # ring kernel's one split of whole 64-key tiles; f32 at 256 (the
+        # per-warp kernel) the cache
+        (1, 128, 128, ("f16",) * 3, "decode_attention_f16", (1, 64, 2)),
+        (4, 256, 64, ("f32",) * 3, "decode_attention_f32", (1, 16, 0)),
         # bf16 at d = 257 takes the wide kernels, padded to 272
         (1, 257, 64, ("bf16",) * 3, "decode_attention_wide_bf16", (1, 32)),
-        (1, 128, 128, ("f32", "bf16", "bf16"), "decode_attention_general",
-         (0, 1, 1)),
-        (2, 64, 64, ("bf16", "f16", "f16"), "decode_attention_general",
-         (1, 2, 2))])
+        # q in its own dtype: the ring kernel of the cache's dtype (both the
+        # general entry's before the ring took them)
+        (1, 128, 128, ("f32", "bf16", "bf16"), "decode_attention_bf16",
+         (1, 64, 0)),
+        (2, 64, 64, ("bf16", "f16", "f16"), "decode_attention_f16",
+         (1, 128, 1))])
     def test_tuned_and_general_entries(self, fake_lib, ql, d, dv, dtypes,
                                        entry, codes):
         assert self._launch(ql, d, dv, dtypes) == 1
@@ -438,11 +453,18 @@ class TestRouting:
         (1, 64, 640, ("f16",) * 3)])
     def test_what_the_wide_kernels_do_not_take_stays_general(
             self, fake_lib, ql, d, dv, dtypes):
-        # Mixed dtypes, and padded dims past 576/512 (f32 at 576/512 takes
-        # the f32 kernels: test_f32_wide_head_dims_reach_the_f32_entry).
-        assert self._launch(ql, d, dv, dtypes) == -(-ql // MAX_Q_LEN)
-        assert set(fake_lib.entries) == {"decode_attention_general",
-                                         "decode_attention_error_string"}
+        # Padded dims past 576/512 stay general (f32 at 576/512 takes the
+        # f32 kernels: test_f32_wide_head_dims_reach_the_f32_entry); mixed
+        # dtypes at 576/512, the general entry's before the mixed route,
+        # take the mixed entry in one call.
+        mixed = dtypes[0] != dtypes[1]
+        entry = ("mixed_decode_f32tc" if mixed
+                 else "decode_attention_general")
+        assert self._launch(ql, d, dv, dtypes) == (
+            1 if mixed else -(-ql // MAX_Q_LEN))
+        assert set(fake_lib.entries) == {
+            entry, entry.replace("f32tc", "error_string").replace(
+                "general", "error_string")}
 
     # All-f32 decode with d or dv over 256, up to padded 576/512, takes the
     # f32 tensor-core kernels (3xTF32): every query row in one call, dims
@@ -517,9 +539,10 @@ class TestRouting:
         tile = tuned_decode_tile(TORCH[dtype], d, d)
         splits, split_keys = tuned_decode_splits(b, h, cap, tile, 132)
         assert tile and splits > 1 and split_keys % tile == 0
+        code = {"f32": 0, "bf16": 1, "f16": 2}[dtype]
         assert [c[7:] for c in calls] == [
             (b, h, ql, row0, rows, cap, d, d, pytest.approx(d ** -0.5),
-             splits, split_keys, 5) for row0, rows in ((0, 8), (8, 2))]
+             splits, split_keys, code, 5) for row0, rows in ((0, 8), (8, 2))]
         # One workspace, both pointers set, the same in both launches.
         assert calls[0][5:7] == calls[1][5:7] and all(calls[0][5:7])
         assert calls[0][5] != calls[0][6]
@@ -533,7 +556,8 @@ class TestRouting:
         assert tuned_decode_tile(TORCH[dtype], d, dv) == 0
         assert self._launch(1, d, dv, (dtype,) * 3, b=1, h=1, cap=4096) == 1
         (call,) = fake_lib.entries[f"decode_attention_{dtype}"].calls
-        assert call[5:7] == (None, None) and call[-3:-1] == (1, 4096)
+        assert call[5:7] == (None, None) and call[-4:-1] == (
+            1, 4096, {"f32": 0, "bf16": 1, "f16": 2}[dtype])
 
     def test_k_off_a_16_byte_boundary_keeps_one_split(self, fake_lib):
         # The ring kernel's bulk copies need 16-byte aligned rows.
@@ -546,7 +570,7 @@ class TestRouting:
         lens = torch.full((b,), cap, dtype=torch.int32)
         flashattention._launch_decode(q, k, v, lens, stream=0, sms=132)
         (call,) = fake_lib.entries["decode_attention_bf16"].calls
-        assert call[5:7] == (None, None) and call[-3:-1] == (1, cap)
+        assert call[5:7] == (None, None) and call[-4:-1] == (1, cap, 1)
 
     def test_query_rows_a_launch_shrink_only_past_the_shared_memory(
             self, fake_lib):
@@ -555,6 +579,108 @@ class TestRouting:
                             cap=2) == 3
         calls = fake_lib.entries["decode_attention_general"].calls
         assert [c[8:10] for c in calls] == [(0, 3), (3, 3), (6, 1)]
+
+
+class TestMixedRouting:
+    """Where a CUDA call whose q's dtype differs from the one K and V
+    share goes (the C entries mocked, as in TestRouting): the ring kernel of
+    the cache's dtype at d, dv <= 256 on rows of whole 16-byte chunks, the
+    mixed tensor-core entry past 256 up to padded 576/512, the general
+    entry for the rest and for K and V apart."""
+
+    _launch = TestRouting._launch
+
+    # Each class of the mixed route at the serve shape's head dim: the ring
+    # kernel built for the cache, with q's dtype code after the splits.
+    @pytest.mark.parametrize("dtypes,code", [
+        (("bf16", "f32", "f32"), 1), (("f16", "f32", "f32"), 2),
+        (("f32", "bf16", "bf16"), 0), (("f32", "f16", "f16"), 0),
+        (("bf16", "f16", "f16"), 1), (("f16", "bf16", "bf16"), 2)])
+    @pytest.mark.parametrize("ql", [1, MAX_Q_LEN + 2])
+    def test_a_q_of_another_dtype_reaches_the_ring_kernel(
+            self, fake_lib, dtypes, code, ql):
+        d = 128
+        assert self._launch(ql, d, d, dtypes, cap=4096) == -(-ql // MAX_Q_LEN)
+        entry = f"decode_attention_{dtypes[1]}"
+        assert set(fake_lib.entries) == {entry,
+                                         "decode_attention_error_string"}
+        tile = tuned_decode_tile(TORCH[dtypes[1]], d, d)
+        splits, split_keys = tuned_decode_splits(2, 3, 4096, tile, 132)
+        assert tile > 0 and splits > 1
+        for call in fake_lib.entries[entry].calls:
+            assert call[-4:-1] == (splits, split_keys, code)
+            assert all(call[5:7])   # the split cache's workspace
+
+    # Past 256 (absorbed MLA's 576/512 among them), every query row in one
+    # call of the mixed entry: padded dims, the true d's scale, the f32
+    # route's split count, then q's and the cache's dtype codes.
+    @pytest.mark.parametrize("dtypes,codes", [
+        (("f32", "bf16", "bf16"), (0, 1)), (("f32", "f16", "f16"), (0, 2)),
+        (("bf16", "f32", "f32"), (1, 0)), (("f16", "bf16", "bf16"), (2, 1))])
+    @pytest.mark.parametrize("ql,d,dv,padded", [
+        (128, 576, 512, (576, 512)), (1, 576, 512, (576, 512)),
+        (MAX_Q_LEN + 2, 257, 64, (272, 64)), (3, 64, 300, (64, 304))])
+    def test_wide_heads_reach_the_mixed_entry(self, fake_lib, dtypes, codes,
+                                              ql, d, dv, padded):
+        assert self._launch(ql, d, dv, dtypes, cap=200) == 1
+        assert set(fake_lib.entries) == {"mixed_decode_f32tc",
+                                         "mixed_decode_error_string"}
+        (call,) = fake_lib.entries["mixed_decode_f32tc"].calls
+        splits, split_keys = f32_decode_splits(2, 3, ql, 200, padded[1], 132)
+        assert call[7:-1] == (2, 3, ql, 200, *padded,
+                              pytest.approx(d ** -0.5), splits, split_keys,
+                              *codes)
+        assert all(call[5:7]) and call[5] != call[6]
+
+    # What stays on the general kernel: K and V in different dtypes, a
+    # mixed call whose cache rows are not whole 16-byte chunks (d = 66 in
+    # bf16, dv = 60 in f16, f32 at 256: 64 chunks), and head dims past
+    # 576/512.
+    @pytest.mark.parametrize("ql,d,dv,dtypes", [
+        (1, 128, 128, ("f32", "f32", "bf16")),
+        (1, 576, 512, ("bf16", "bf16", "f32")),
+        (2, 66, 66, ("f32", "bf16", "bf16")),
+        (1, 128, 60, ("bf16", "f16", "f16")),
+        (1, 256, 256, ("bf16", "f32", "f32")),
+        (1, 1024, 1024, ("f32", "bf16", "bf16")),
+        (1, 64, 640, ("bf16", "f32", "f32"))])
+    def test_what_the_mixed_routes_do_not_take_stays_general(
+            self, fake_lib, ql, d, dv, dtypes):
+        assert self._launch(ql, d, dv, dtypes) == 1
+        assert set(fake_lib.entries) == {"decode_attention_general",
+                                         "decode_attention_error_string"}
+        (call,) = fake_lib.entries["decode_attention_general"].calls
+        assert call[-4:-1] == tuple(
+            {"f32": 0, "bf16": 1, "f16": 2}[t] for t in dtypes)
+
+    def test_a_cache_off_a_16_byte_boundary_stays_general(self, fake_lib):
+        b, h, d, cap = 1, 1, 128, 64
+        flat = torch.zeros(b * h * cap * d + 1, dtype=torch.bfloat16)
+        k = flat[1:].view(b, h, cap, d)
+        q = torch.zeros((b, h, 1, d))
+        v = torch.zeros((b, h, cap, d), dtype=torch.bfloat16)
+        lens = torch.full((b,), cap, dtype=torch.int32)
+        flashattention._launch_decode(q, k, v, lens, stream=0, sms=132)
+        assert set(fake_lib.entries) == {"decode_attention_general",
+                                         "decode_attention_error_string"}
+
+    # No route casts or copies the cache: the entry gets the caller's K and
+    # V (and q) by pointer, in their own dtypes.
+    @pytest.mark.parametrize("ql,d,dv,entry", [
+        (1, 128, 128, "decode_attention_bf16"),
+        (128, 576, 512, "mixed_decode_f32tc")])
+    def test_the_entry_gets_the_callers_k_and_v(self, fake_lib, ql, d, dv,
+                                                entry):
+        b, cap = 2, 256
+        q = torch.zeros((b, 1, ql, d))
+        k = torch.zeros((b, 1, cap, d), dtype=torch.bfloat16)
+        v = torch.zeros((b, 1, cap, dv), dtype=torch.bfloat16)
+        lens = torch.tensor([1, cap], dtype=torch.int32)
+        out = flashattention._launch_decode(q, k, v, lens, stream=0, sms=132)
+        (call,) = fake_lib.entries[entry].calls
+        assert call[:5] == tuple(t.data_ptr() for t in (q, k, v, lens, out))
+        assert k.dtype == v.dtype == torch.bfloat16
+        assert out.dtype == torch.float32
 
 
 class TestWideSplits:

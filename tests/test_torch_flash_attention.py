@@ -424,19 +424,22 @@ class TestRouting:
         (40, 24, ("bf16",) * 3, "flash_attention_bf16", (48, 32)),
         # f16 at d = 264 takes the wide kernels, padded like the tuned ones
         (264, 64, ("f16",) * 3, "flash_attention_wide_f16", (272, 64)),
-        (40, 24, ("f32", "bf16", "bf16"), "flash_attention_general",
-         (40, 24, 0, pytest.approx(40 ** -0.5), 0, 1, 1)),
+        # K and V sharing a dtype apart from q's: the mixed entry (the
+        # general one's before the mixed route), padded, with q's and the
+        # cache's codes
+        (40, 24, ("f32", "bf16", "bf16"), "mixed_flash_f32tc",
+         (48, 32, 0, pytest.approx(40 ** -0.5), 0, 1)),
         (64, 64, ("bf16", "f16", "f32"), "flash_attention_general",
          (64, 64, 0, pytest.approx(1 / 8), 1, 2, 0))])
     def test_tuned_and_general_entries(self, lib, d, dv, dtypes, entry,
                                        tail):
         # The tuned and wide kernels get head dims padded to multiples of 16
         # and the true d's scale; the general kernel the true dims and the
-        # dtype codes.
+        # dtype codes; the mixed one padded dims and the codes.
         self._launch(d, dv, dtypes)
         (call,) = lib.entries[entry].calls
         assert call[4:6] == (6, 16)
-        if entry.endswith("general"):
+        if entry.endswith("general") or entry.startswith("mixed"):
             assert call[6:-1] == tail
         else:
             assert call[6:-1] == tail + (0, pytest.approx(d ** -0.5))
@@ -463,11 +466,14 @@ class TestRouting:
         (64, 640, ("bf16",) * 3), (592, 64, ("bf16",) * 3)])
     def test_what_the_wide_kernels_do_not_take_stays_general(
             self, lib, d, dv, dtypes):
-        # Mixed dtypes, and padded dims past 576/512 (f32 takes the f32
-        # kernels: test_f32_reaches_the_f32_entry).
+        # Padded dims past 576/512 stay general (f32 takes the f32 kernels:
+        # test_f32_reaches_the_f32_entry); mixed dtypes up to 576/512, the
+        # general entry's before the mixed route, take the mixed entry.
         self._launch(d, dv, dtypes)
-        assert set(lib.entries) == {"flash_attention_general",
-                                    "flash_attention_error_string"}
+        assert set(lib.entries) == (
+            {"mixed_flash_f32tc", "mixed_flash_error_string"}
+            if dtypes[0] != dtypes[1] else
+            {"flash_attention_general", "flash_attention_error_string"})
         assert not flashattention.wide_kernel_takes(
             *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
             *padded_head_dims(d, dv))
@@ -499,13 +505,77 @@ class TestRouting:
         (40, 24, ("bf16", "bf16", "f32"))])
     def test_what_the_f32_kernels_do_not_take_stays_general(
             self, lib, d, dv, dtypes):
-        # f32 past padded 576/512, and every mix with an f32 operand.
+        # f32 past padded 576/512, and every mix with an f32 operand: K and
+        # V apart stay general, K and V sharing a dtype apart from q's take
+        # the mixed entry (the general one's before the mixed route).
         self._launch(d, dv, dtypes)
-        assert set(lib.entries) == {"flash_attention_general",
-                                    "flash_attention_error_string"}
+        mixed = dtypes[1] == dtypes[2] != dtypes[0]
+        assert set(lib.entries) == (
+            {"mixed_flash_f32tc", "mixed_flash_error_string"} if mixed else
+            {"flash_attention_general", "flash_attention_error_string"})
+        assert flashattention.mixed_kernel_takes(
+            *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
+            *padded_head_dims(d, dv)) == mixed
         assert not flashattention.f32_kernel_takes(
             *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
             *padded_head_dims(d, dv))
+
+
+class TestMixedRouting:
+    """Where a CUDA flash call whose q's dtype differs from the one K and V
+    share goes (the C entries mocked): the mixed tensor-core entry at every
+    head dim up to padded 576/512, causal off and on; the general entry for
+    K and V apart and past 576/512."""
+
+    @pytest.fixture
+    def lib(self, monkeypatch):
+        lib = _FakeLib()
+        monkeypatch.setattr(_build, "load", lambda name: lib)
+        return lib
+
+    _launch = TestRouting._launch
+
+    # Each class at each of the body's head-dim buckets (4/4, 8/8 and 18/8
+    # panels) and a padded one: bh, S, padded dims, causal, the true d's
+    # scale, then q's and the cache's dtype codes.
+    @pytest.mark.parametrize("dtypes,codes", [
+        (("f32", "bf16", "bf16"), (0, 1)), (("f32", "f16", "f16"), (0, 2)),
+        (("bf16", "f32", "f32"), (1, 0)), (("f16", "f32", "f32"), (2, 0)),
+        (("bf16", "f16", "f16"), (1, 2)), (("f16", "bf16", "bf16"), (2, 1))])
+    @pytest.mark.parametrize("d,dv,padded", [
+        (128, 128, (128, 128)), (256, 256, (256, 256)),
+        (576, 512, (576, 512)), (40, 24, (48, 32))])
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_mixed_dtypes_reach_the_mixed_entry(self, lib, dtypes, codes, d,
+                                                dv, padded, causal):
+        self._launch(d, dv, dtypes, causal=causal)
+        assert set(lib.entries) == {"mixed_flash_f32tc",
+                                    "mixed_flash_error_string"}
+        (call,) = lib.entries["mixed_flash_f32tc"].calls
+        assert call[4:] == (6, 16, *padded, int(causal),
+                            pytest.approx(d ** -0.5), *codes, 0)
+
+    @pytest.mark.parametrize("d,dv,dtypes", [
+        (128, 128, ("f32", "f32", "bf16")), (128, 128, ("bf16", "f16", "bf16")),
+        (1024, 1024, ("f32", "bf16", "bf16")),
+        (64, 640, ("bf16", "f32", "f32")),
+        (592, 64, ("f16", "bf16", "bf16"))])
+    def test_what_the_mixed_route_does_not_take_stays_general(
+            self, lib, d, dv, dtypes):
+        self._launch(d, dv, dtypes)
+        assert set(lib.entries) == {"flash_attention_general",
+                                    "flash_attention_error_string"}
+
+    def test_the_entry_gets_the_callers_k_and_v(self, lib):
+        # At head dims that are multiples of 16 nothing is cast or copied:
+        # the entry gets the caller's tensors in their own dtypes.
+        q = torch.zeros((2, 3, 16, 64))
+        k, v = (torch.zeros((2, 3, 16, 64), dtype=torch.bfloat16)
+                for _ in range(2))
+        out = flashattention._launch_flash(q, k, v, False, stream=0)
+        (call,) = lib.entries["mixed_flash_f32tc"].calls
+        assert call[:4] == tuple(t.data_ptr() for t in (q, k, v, out))
+        assert out.dtype == torch.float32
 
 
 class TestBuildReport:
@@ -548,6 +618,8 @@ class TestBuildReport:
         ("_ZN52_GLOBAL__N__636dec3f_19_decode_attention_cu_7de7d0af4ring18"
          "decode_ring_kernelI13__nv_bfloat16Li1ELi16EEEvPKT_",
          "decode_ring_kernel<bf16,1,16>"),
+        ("_ZN12_GLOBAL__N_15f32tc18f32tc_flash_kernelILi18ELi8ELb0ELb1EEEv"
+         "14CUtensorMap_stS2_S2_NS0_4ArgsE", "f32tc_flash_kernel<18,8,0,1>"),
         ("_Z5otheri", "_Z5otheri")])
     def test_kernel_names(self, mangled, name):
         # A name inside another (flash_kernel in wide_flash_kernel) does not
@@ -555,5 +627,5 @@ class TestBuildReport:
         names = ["flash_bf16_kernel", "flash_f32_kernel",
                  "decode_attention_kernel", "flash_kernel",
                  "wide_flash_kernel", "wide_decode_merge_kernel",
-                 "decode_ring_kernel"]
+                 "decode_ring_kernel", "f32tc_flash_kernel"]
         assert chip_smoke.kernel_name(mangled, names) == name
