@@ -18,6 +18,10 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py ring-variants
     python3 chip_ab.py general [OTHER_TREE] [--rounds N]
     python3 chip_ab.py f32-splits
+    python3 chip_ab.py cluster-parts
+    python3 chip_ab.py stream-splits
+    python3 chip_ab.py stream-parts
+    python3 chip_ab.py tc-bodies
 
 ``versions`` copies the port (``chip_smoke.py`` and
 ``k8s_dra_driver_tpu_torch/``) once per source under ``--work``, puts the
@@ -137,15 +141,41 @@ and lengths, 128 query rows and 1) on the f32 kernel at each
 F32_BLOCKS_PER_SM of F32_SPLITS_SWEEP, the blocks an SM its split count
 aims for, with the split count each gives: what sizes that constant.
 
-``general`` times the general SIMT kernels at the shapes they still take
-(GENERAL_ROWS): head dims 1024/1024 and 64/640 in bf16 and f32, decode and
-flash. Each row: kernel, plain and library ms, launches a call, the bound
-and the error against the plain version. With OTHER_TREE it runs those
-rows there and here in turns (other, this, this, other), each turn in its
-own process: the general kernels before and after a change. (The mixed,
-f32 flash and f32 absorbed-MLA rows it timed before went to the ring, the
-mixed and the f32 tensor-core kernels; ``mixed`` and ``f32`` time them
-against an older tree.)
+``cluster-parts`` times the any-dtype flash kernel in copies of the tree
+whose body (``cluster_flash.cuh``) leaves one part out (CLUSTER_PARTS: the
+exchange of partial scores between a cluster's CTAs, the split warps'
+pass) or holds fewer stages or more P V groups in flight, and as it is
+with one CTA a cluster: where its time goes. The copies that leave a part
+out compute wrong results: they are timed, never checked.
+``tc-bodies`` times the f32 and mixed routes' flash rows on their body
+(``f32tc_attention.cuh``) and on the any-dtype body at its plan and at one
+CTA a cluster, each held against the plain version: whether one TF32
+flash body could take all three routes.
+
+``stream-splits`` times the any-dtype decode kernel at each STREAM_WAVES of
+STREAM_WAVES_SWEEP, the blocks a slot its split count aims for, with the
+tile that fits two blocks an SM and the one that fits one: what sizes
+those constants. ``stream-parts`` times it in copies whose tiles leave out
+the S phase, the softmax, P V, or all three (STREAM_PARTS): where its time
+goes. The copies' results are wrong: they are timed, never checked.
+
+``general`` times the calls past the tuned, wide, f32 and mixed routes
+(GENERAL_ROWS; the any-dtype kernels' since they replaced the general SIMT
+kernels): head dims 1024/1024 and 64/640 in bf16 and f32, decode and
+flash, and K and V in different dtypes (an f32 q and K over a bf16 V) at
+the decode serve shape and the flash headline, causal off and on. Each
+row: kernel, plain and library ms (none for the mix), launches a call, the
+bound (bytes at 3.35 TB/s, or each product at its operands' own rate:
+16-bit by 16-bit at 989.4 TFLOP/s, one with an f32 operand as the TF32
+products that keep f32's precision at 494.7; beside it the bound at the
+TF32 products the any-dtype flash kernel issues and, for f32, at 67
+TFLOP/s of SIMT) and the error against the plain version. With
+OTHER_TREE it runs those rows there and here in turns (other, this, this,
+other), each turn in its own process: the kernels before and after a
+change. (The mixed, f32 flash and
+f32 absorbed-MLA rows it timed before went to the ring, the mixed and the
+f32 tensor-core kernels; ``mixed`` and ``f32`` time them against an older
+tree.)
 """
 
 from __future__ import annotations
@@ -163,6 +193,8 @@ KERNEL = Path("k8s_dra_driver_tpu_torch/csrc/flash_attention.cu")
 WIDE = Path("k8s_dra_driver_tpu_torch/csrc/wide_attention.cuh")
 DECODE_SRC = Path("k8s_dra_driver_tpu_torch/csrc/decode_attention.cu")
 F32TC = Path("k8s_dra_driver_tpu_torch/csrc/f32tc_attention.cuh")
+CLUSTER = Path("k8s_dra_driver_tpu_torch/csrc/cluster_flash.cuh")
+STREAM = Path("k8s_dra_driver_tpu_torch/csrc/stream_decode.cu")
 # name: (the source broken, its (text, broken text) pairs, the checks that
 # must each reject it).
 CONTROLS = {
@@ -237,6 +269,28 @@ CONTROLS = {
     "mixed_p_not_rounded": (F32TC, [
         ("p_hi[ks][j] = __float_as_uint(round16(x, kv_f16));",
          "p_hi[ks][j] = __float_as_uint(x);")], ("mixed_flash",)),
+    # The any-dtype kernels: S scaled 1% off in each; the flash cluster's
+    # last CTA's partial of S left out of the sum; the decode cache's last
+    # split dropped (its keys never reach the merge).
+    "cluster_softmax_scale_x1.01": (CLUSTER, [
+        ("const float scale_log2 = a.scale_log2;",
+         "const float scale_log2 = a.scale_log2 * 1.01f;")],
+        ("cluster_flash",)),
+    "cluster_last_partial_dropped": (CLUSTER, [
+        ("      for (int j = 0; j < a.cluster; ++j) {\n"
+         "        // A CTA's 8 loads",
+         "      for (int j = 0; j < a.cluster - 1; ++j) {\n"
+         "        // A CTA's 8 loads")], ("cluster_flash",)),
+    "stream_softmax_scale_x1.01": (STREAM, [
+        ("const float scale_log2 = a.scale_log2;",
+         "const float scale_log2 = a.scale_log2 * 1.01f;")],
+        ("stream_decode",)),
+    "stream_last_split_dropped": (STREAM, [
+        ("const int k_end = min(k_begin + a.split_keys, n_valid);",
+         "const int k_end = split + 1 == splits && splits > 1\n"
+         "                        ? k_begin\n"
+         "                        : min(k_begin + a.split_keys, n_valid);")],
+        ("stream_decode",)),
 }
 # A version's library is built at its first call, in the bench's warm-up
 # (phase_build would hold every version to the tree's SASS requirements).
@@ -265,6 +319,10 @@ CHECK = (
     "           'mixed_decode': lambda: c.mixed_decode_check(\n"
     "               np.random.default_rng(0)),\n"
     "           'mixed_flash': lambda: c.mixed_flash_check(\n"
+    "               torch.Generator(device='cuda:0').manual_seed(0)),\n"
+    "           'stream_decode': lambda: c.stream_decode_check(\n"
+    "               np.random.default_rng(0)),\n"
+    "           'cluster_flash': lambda: c.cluster_flash_check(\n"
     "               torch.Generator(device='cuda:0').manual_seed(0))}}\n"
     "for name in {names!r}:\n"
     "    try:\n"
@@ -345,7 +403,7 @@ F32_AB = (
     "card = c.phase_device(); print('AB_CARD ' + card)\n"
     "g = torch.Generator(device='cuda:0').manual_seed(0)\n"
     "f = torch.float32\n"
-    "r = {}\n"
+    "r = {{}}\n"
     "q, k, v = (c.randn(g, c.FLASH_SHAPE, f) for _ in range(3))\n"
     "for causal in (False, True):\n"
     "    name = 'flash_causal' if causal else 'flash'\n"
@@ -391,7 +449,7 @@ MIXED_AB = (
     "f, bf = torch.float32, torch.bfloat16\n"
     "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
     ".to('cuda:0')\n"
-    "r = {}\n"
+    "r = {{}}\n"
     "def row(name, counter, fn, plain):\n"
     "    before = counter.launches\n"
     "    out = fn()\n"
@@ -437,7 +495,7 @@ HOST_AB = (
     "bf = torch.bfloat16\n"
     "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
     ".to('cuda:0')\n"
-    "r = {}\n"
+    "r = {{}}\n"
     "def host_us(fn, calls=200):\n"
     "    torch.cuda.synchronize()\n"
     "    t0 = time.perf_counter()\n"
@@ -848,10 +906,12 @@ def ring_variants(work: Path, timeout: float) -> int:
 
 # general: (name, q, k and v dtypes, q, k and v shapes, causal or None for
 # decode, whether one PyTorch call computes it). The head dims only the
-# general kernels take (past the wide, f32 and mixed routes' 576/512):
+# any-dtype kernels take (past the wide, f32 and mixed routes' 576/512):
 # 1024/1024 and 64/640 in bf16 and f32, decode at the smoke's 32 sequences
 # and 4096-token cache (4 heads at 1024, 8 at 64/640) and flash at [1, 8,
-# 2048], each beside the library call.
+# 2048], each beside the library call; then K and V in different dtypes (an
+# f32 q and K over a bf16 V) at the decode serve shape and the flash
+# headline, causal off and on, which no one library call takes.
 GENERAL_ROWS = tuple(
     row for t in ("bfloat16", "float32") for row in (
         (f"decode_1024_1024_{t}", (t,) * 3,
@@ -865,15 +925,42 @@ GENERAL_ROWS = tuple(
          False, True),
         (f"flash_64_640_{t}", (t,) * 3,
          ((1, 8, 2048, 64), (1, 8, 2048, 64), (1, 8, 2048, 640)), False,
-         True)))
+         True))) + (
+    ("decode_serve_f32qk_bf16v", ("float32", "float32", "bfloat16"),
+     ((32, 32, 1, 128), (32, 32, 4096, 128), (32, 32, 4096, 128)), None,
+     False),
+    ("flash_headline_f32qk_bf16v", ("float32", "float32", "bfloat16"),
+     ((4, 8, 2048, 128),) * 3, False, False),
+    ("flash_headline_f32qk_bf16v_causal", ("float32", "float32", "bfloat16"),
+     ((4, 8, 2048, 128),) * 3, True, False))
+
+
+def attention_flops_ms(s_macs: int, pv_macs: int, dtypes, bf16_flop_s:
+                       float, tf32_flop_s: float) -> float:
+    """``chip_smoke.attention_flops_ms`` (each of S's and P V's products at
+    its operands' own rate: 16-bit by 16-bit at the bf16 rate, one with an
+    f32 operand as 1 + [f32 a] + [f32 b] TF32 products; P takes V's dtype),
+    kept here because ``general`` also runs in older trees, whose
+    chip_smoke lacks it."""
+    q32, k32, v32 = (t == "float32" for t in dtypes)
+
+    def product_ms(macs: int, a32: bool, b32: bool) -> float:
+        if not (a32 or b32):
+            return 2 * macs / bf16_flop_s * 1e3
+        return 2 * macs * (1 + a32 + b32) / tf32_flop_s * 1e3
+
+    return product_ms(s_macs, q32, k32) + product_ms(pv_macs, v32, v32)
 
 
 def general() -> int:
-    """GENERAL_ROWS on the general kernels: ms, plain ms, library ms, the
-    bound (bytes at 3.35 TB/s, or operations at 989.4 TFLOP/s in bf16 and
-    67 TFLOP/s in f32, the longer), launches a call and the error against
-    the plain version. It runs in the tree it is started from (an older
-    tree's kernels too: ``general_ab``)."""
+    """GENERAL_ROWS on the kernels that take them: ms, plain ms, library ms
+    (None for the mix), the bound (bytes at 3.35 TB/s, or operations with
+    each product at its operands' own rate, ``attention_flops_ms``, the
+    longer; beside it the bound at the TF32 products the any-dtype flash
+    kernel issues, S 1 + [q f32] + [k f32] and P V 1 with a 16-bit V or 3,
+    and for f32 inputs the bound at 67 TFLOP/s of f32 SIMT), launches a
+    call and the error against the plain version. It runs in the tree it is
+    started from (an older tree's kernels too: ``general_ab``)."""
     import numpy as np
     import torch
 
@@ -911,15 +998,25 @@ def general() -> int:
                       + q.numel() * q.element_size()
                       + b * h * ql * dv * q.element_size() + lens.numel() * 4)
             flops = 2 * keys * ql * (d + dv)
+            s_macs, pv_macs = keys * ql * d, keys * ql * dv
+            tf32 = None
         else:
             keys = b * h * n
             counter = flash_attention
             kernel = lambda: flash_attention(q, k, v, causal=causal)
             plain = lambda: reference_attention(q, k, v, causal=causal)
             library = lambda: sdpa(q, k, v, is_causal=causal)
-            nbytes = (q.numel() + k.numel() + v.numel()
-                      + b * h * ql * dv) * q.element_size()
-            flops = 2 * b * h * ql * n * (d + dv) // (2 if causal else 1)
+            nbytes = (q.numel() * q.element_size()
+                      + k.numel() * k.element_size()
+                      + v.numel() * v.element_size()
+                      + b * h * ql * dv * q.element_size())
+            half = 2 if causal else 1
+            flops = 2 * b * h * ql * n * (d + dv) // half
+            s_macs = b * h * ql * n * d // half
+            pv_macs = b * h * ql * n * dv // half
+            f32 = [t == "float32" for t in dtypes]
+            tf32 = 2 * b * h * ql * n * (d * (1 + f32[0] + f32[1])
+                                         + dv * (3 if f32[2] else 1)) // half
         before = counter.launches
         out = kernel()
         per_call = counter.launches - before
@@ -931,14 +1028,22 @@ def general() -> int:
             c.FLASH_BF16_TOL
         err, over = c.compare(out, plain(), *tol)
         bytes_ms = nbytes / c.HBM_BYTES_S * 1e3
-        flops_ms = flops / (c.F32_FLOP_S if q.dtype == torch.float32
-                            else c.BF16_FLOP_S) * 1e3
+        all_f32 = set(dtypes) == {"float32"}
+        flops_ms = attention_flops_ms(s_macs, pv_macs, dtypes,
+                                      c.BF16_FLOP_S, c.TF32_FLOP_S)
         row = {"row": name, "dtypes": "/".join(dtypes),
                "q": list(q.shape), "k": list(k.shape), "v": list(v.shape),
                "causal": causal, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "bound_ms": max(bytes_ms, flops_ms),
                "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+               **({"tf32_bound_ms": max(bytes_ms,
+                                        tf32 / c.TF32_FLOP_S * 1e3)}
+                  if tf32 is not None else {}),
+               **({"simt_bound_ms": max(bytes_ms,
+                                        flops / c.F32_FLOP_S * 1e3)}
+                  if all_f32 else {}),
+               "bound_share": max(bytes_ms, flops_ms) / ms,
                "launches_per_call": per_call, "max_abs_err": err,
                "err_over_limit": over}
         print("[general] " + " ".join(
@@ -992,7 +1097,284 @@ def general_ab(other: Path, rounds: int, timeout: float) -> int:
     return 0
 
 
+# cluster-parts: copies of the any-dtype flash body (cluster_flash.cuh)
+# that leave one part out (the S exchange between a cluster's CTAs; the
+# split warps' pass), timed, never checked (their results are wrong), or
+# hold at most 6 stages in the ring, or keep 3 P V panels' groups in flight
+# where the body keeps 2, beside the body as it is and, in it, one CTA a
+# cluster (S computed again for each 256 columns of dv instead of
+# exchanged).
+CLUSTER_PARTS = {
+    "as_is": [],
+    "six_stages": [("constexpr int kMaxStages = 12;",
+                    "constexpr int kMaxStages = 6;")],
+    "pv_three_in_flight": [
+        ("        if (vp > 0) {\n          wgmma_wait<1>();\n"
+         "          release(it + vp - 1);\n",
+         "        if (vp > 1) {\n          wgmma_wait<2>();\n"
+         "          release(it + vp - 2);\n"),
+        ("      if constexpr (!kV16) fence_regs(p_lo);\n"
+         "      release(it + VP - 1);\n",
+         "      if constexpr (!kV16) fence_regs(p_lo);\n"
+         "      release(it + VP - 2);\n      release(it + VP - 1);\n")],
+    "no_exchange": [("        if (a.cluster > 1) exchange(tc);\n", "")],
+    "no_split_pass": [
+        ("for (int i = ts; i < kKeys * 4; i += kSplitThreads) {",
+         "for (int i = ts; i < 0; i += kSplitThreads) {"),
+        ("for (int i = ts; i < kPanelBytes / 16; i += kSplitThreads) {",
+         "for (int i = ts; i < 0; i += kSplitThreads) {"),
+        ("for (int i = ts; i < kCols / kPair * 2 * (kKeys / 8);",
+         "for (int i = ts; i < 0;")],
+}
+CLUSTER_PARTS_RUN = (
+    "import json, torch, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute import flashattention as fa\n"
+    "dev = torch.device('cuda', 0)\n"
+    "g = torch.Generator(device=dev).manual_seed(0)\n"
+    "r = {{}}\n"
+    "for name, shape, ts in (\n"
+    "        ('bf16_1024', (1, 8, 2048, 1024), ('bfloat16',) * 3),\n"
+    "        ('f32_1024', (1, 8, 2048, 1024), ('float32',) * 3),\n"
+    "        ('bf16_64_640', (1, 8, 2048, 64), ('bfloat16',) * 3),\n"
+    "        ('f32qk_bf16v_headline', (4, 8, 2048, 128),\n"
+    "         ('float32', 'float32', 'bfloat16'))):\n"
+    "    q, k = (c.randn(g, shape, getattr(torch, t)) for t in ts[:2])\n"
+    "    dv = 640 if name.endswith('640') else shape[3]\n"
+    "    v = c.randn(g, shape[:3] + (dv,), getattr(torch, ts[2]))\n"
+    "    r[name + '_ms'] = c.cuda_ms(lambda: fa.flash_attention(q, k, v))\n"
+    "    if {one_cta}:\n"
+    "        plan = fa.cluster_flash_plan\n"
+    "        fa.cluster_flash_plan = lambda d, dv: (1, -(-d // 128), 8)\n"
+    "        r[name + '_one_cta_ms'] = c.cuda_ms(\n"
+    "            lambda: fa.flash_attention(q, k, v))\n"
+    "        fa.cluster_flash_plan = plan\n"
+    "    del q, k, v\n"
+    "print('AB_RESULT ' + json.dumps(r), flush=True)\n")
+
+
+def cluster_parts(work: Path, timeout: float) -> int:
+    """Each CLUSTER_PARTS copy of the tree (csrc holding the any-dtype
+    flash sources alone, so that a copy builds only them) timed at the rows
+    of CLUSTER_PARTS_RUN, in its own process; prints one JSON line of
+    every copy's ms."""
+    source = (ROOT / CLUSTER).read_text()
+    results = {}
+    for name, edits in CLUSTER_PARTS.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"cluster part {name}: {old!r} is not in "
+                                 f"{CLUSTER} exactly once")
+            text = text.replace(old, new)
+        tree = copy_tree(work / f"cluster_{name}", text, CLUSTER)
+        for cu in (tree / CLUSTER).parent.glob("*.cu"):
+            if not cu.name.startswith("cluster_flash"):
+                cu.unlink()
+        rc, out = run(tree, CLUSTER_PARTS_RUN.format(
+            one_cta=name == "as_is"), timeout)
+        print(f"== {name} (exit {rc})", flush=True)
+        if rc != 0 or "AB_RESULT " not in out:
+            print(out[-3000:], flush=True)
+            return 1
+        results[name] = json.loads(out.split("AB_RESULT ", 1)[1]
+                                   .splitlines()[0])
+        print(json.dumps(results[name]), flush=True)
+    print(json.dumps({"cluster_parts": results}), flush=True)
+    return 0
+
+
+# tc-bodies: the f32 and mixed routes' flash rows (the smoke's f32 and
+# mixed legs) on the body that takes them (f32tc_attention.cuh) and on the
+# any-dtype body (cluster_flash.cuh) at its plan and at one CTA a cluster:
+# whether one TF32 flash body could take all three routes.
+TC_BODY_ROWS = (
+    ("f32_headline", (4, 8, 2048, 128), 128, ("float32",) * 3),
+    ("f32_576_512", (1, 16, 2048, 576), 512, ("float32",) * 3),
+    ("f32q_bf16kv_headline", (4, 8, 2048, 128), 128,
+     ("float32", "bfloat16", "bfloat16")),
+)
+
+
+def tc_bodies() -> int:
+    """TC_BODY_ROWS, causal off and on, each on the f32 or mixed route
+    (``f32tc``), on the any-dtype kernel at ``cluster_flash_plan``'s plan
+    (``cluster``) and at one CTA a cluster (``cluster_one_cta``, where the
+    plan has more), in turns A, B, C, C, B, A: ms a call and the error's
+    share of the flash limit for each."""
+    import torch
+
+    import chip_smoke as c
+    from k8s_dra_driver_tpu_torch.compute import flashattention as fa
+    from k8s_dra_driver_tpu_torch.compute.ringattention import (
+        reference_attention,
+    )
+
+    card = c.phase_device()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    takes = (fa.f32_kernel_takes, fa.mixed_kernel_takes)
+    plan = fa.cluster_flash_plan
+
+    def body(arm: str) -> None:
+        no = (lambda *a: False, lambda *a: False)
+        fa.f32_kernel_takes, fa.mixed_kernel_takes = (
+            takes if arm == "f32tc" else no)
+        fa.cluster_flash_plan = (
+            plan if arm != "cluster_one_cta" else
+            lambda d, dv: (1, -(-d // fa.CLUSTER_GROUP_COLS),
+                           plan(d, dv)[2]))
+
+    rows = []
+    for name, shape, dv, ts in TC_BODY_ROWS:
+        q, k = (c.randn(gen, shape, getattr(torch, t)) for t in ts[:2])
+        v = c.randn(gen, shape[:3] + (dv,), getattr(torch, ts[2]))
+        tol = c.FLASH_F32_TOL if set(ts) == {"float32"} else \
+            c.FLASH_BF16_TOL
+        arms = ["f32tc", "cluster"]
+        if plan(*fa.padded_head_dims(shape[3], dv))[0] > 1:
+            arms.append("cluster_one_cta")
+        for causal in (False, True):
+            ref = reference_attention(q, k, v, causal=causal)
+            row = {"row": name, "causal": causal}
+            for arm in arms + arms[::-1]:
+                body(arm)
+                out = fa.flash_attention(q, k, v, causal=causal)
+                ms = c.cuda_ms(lambda: fa.flash_attention(q, k, v,
+                                                          causal=causal))
+                row.setdefault(f"{arm}_ms", []).append(ms)
+                row[f"{arm}_err_over_limit"] = c.compare(out, ref, *tol)[1]
+            body("f32tc")
+            print("[tc-bodies] " + " ".join(
+                f"{key}={val}" for key, val in row.items()), flush=True)
+            rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    print(json.dumps({"tc_bodies": rows, "card": card}), flush=True)
+    return 0
+
+
 F32_SPLITS_SWEEP = (1, 2, 3, 4, 6)
+
+
+# stream-parts: copies of the any-dtype decode kernel (stream_decode.cu)
+# that leave one phase of a tile out (S, the softmax, P V, or all three:
+# the ring alone), timed, never checked, beside the kernel as it is.
+STREAM_PARTS = {
+    "as_is": [],
+    "no_s": [("    for (int kk = warp; kk < n; kk += kConsumers) {",
+              "    for (int kk = warp; kk < 0; kk += kConsumers) {")],
+    "no_softmax": [("    if (warp < rows) {\n      float mx = -CUDART_INF_F;",
+                    "    if (warp < 0) {\n      float mx = -CUDART_INF_F;")],
+    "no_pv": [("g < kg && qd < nq;", "g < 0 && qd < nq;")],
+}
+STREAM_PARTS["ring_alone"] = [e for name in ("no_s", "no_softmax", "no_pv")
+                              for e in STREAM_PARTS[name]]
+STREAM_PARTS_RUN = (
+    "import json, numpy as np, torch, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute import flashattention as fa\n"
+    "dev = torch.device('cuda', 0)\n"
+    "g = torch.Generator(device=dev).manual_seed(0)\n"
+    "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
+    ".to(dev)\n"
+    "r = {{}}\n"
+    "for name, heads, d, dv, ts in (\n"
+    "        ('bf16_1024', 4, 1024, 1024, ('bfloat16',) * 3),\n"
+    "        ('f32_1024', 4, 1024, 1024, ('float32',) * 3),\n"
+    "        ('bf16_64_640', 8, 64, 640, ('bfloat16',) * 3),\n"
+    "        ('f32qk_bf16v_serve', c.HEADS, c.HEAD_DIM, c.HEAD_DIM,\n"
+    "         ('float32', 'float32', 'bfloat16'))):\n"
+    "    dt = [getattr(torch, t) for t in ts]\n"
+    "    q = c.randn(g, (c.BATCH, heads, 1, d), dt[0])\n"
+    "    k = c.randn(g, (c.BATCH, heads, c.KV_CAP, d), dt[1])\n"
+    "    v = c.randn(g, (c.BATCH, heads, c.KV_CAP, dv), dt[2])\n"
+    "    r[name + '_ms'] = c.cuda_ms(\n"
+    "        lambda: fa.flash_attention_decode(q, k, v, lens))\n"
+    "    del q, k, v\n"
+    "print('AB_RESULT ' + json.dumps(r), flush=True)\n")
+
+
+def stream_parts(work: Path, timeout: float) -> int:
+    """Each STREAM_PARTS copy of the tree (csrc holding the any-dtype
+    decode source alone) timed at the rows of STREAM_PARTS_RUN, in its own
+    process; prints one JSON line of every copy's ms."""
+    source = (ROOT / STREAM).read_text()
+    results = {}
+    for name, edits in STREAM_PARTS.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"stream part {name}: {old!r} is not in "
+                                 f"{STREAM} exactly once")
+            text = text.replace(old, new)
+        tree = copy_tree(work / f"stream_{name}", text, STREAM)
+        for cu in (tree / STREAM).parent.glob("*.cu"):
+            if cu.name != STREAM.name:
+                cu.unlink()
+        rc, out = run(tree, STREAM_PARTS_RUN.format(), timeout)
+        print(f"== {name} (exit {rc})", flush=True)
+        if rc != 0 or "AB_RESULT " not in out:
+            print(out[-3000:], flush=True)
+            return 1
+        results[name] = json.loads(out.split("AB_RESULT ", 1)[1]
+                                   .splitlines()[0])
+        print(json.dumps(results[name]), flush=True)
+    print(json.dumps({"stream_parts": results}), flush=True)
+    return 0
+
+
+STREAM_WAVES_SWEEP = tuple((w, two) for two in (True, False)
+                           for w in (1, 2, 4))
+
+
+def stream_splits() -> int:
+    """The any-dtype decode kernel at each (STREAM_WAVES, two blocks an SM)
+    of STREAM_WAVES_SWEEP (the blocks a slot its split count aims for; the
+    tile that fits two blocks an SM, or one): ms a call, the tile and the
+    split count of bf16 and f32 at 1,024/1,024 (q [32, 4, 1,
+    1024]), bf16 at 64/640 and an f32 q and K over a bf16 V at the serve
+    shape, each against the smoke's cache and lengths."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as c
+    from k8s_dra_driver_tpu_torch.compute import flashattention as fa
+
+    card = c.phase_device()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0))).to(
+        dev)
+    rows = []
+    for name, heads, d, dv, ts in (
+            ("bf16_1024", 4, 1024, 1024, ("bfloat16",) * 3),
+            ("f32_1024", 4, 1024, 1024, ("float32",) * 3),
+            ("bf16_64_640", 8, 64, 640, ("bfloat16",) * 3),
+            ("f32qk_bf16v_serve", c.HEADS, c.HEAD_DIM, c.HEAD_DIM,
+             ("float32", "float32", "bfloat16"))):
+        dt = [getattr(torch, t) for t in ts]
+        q = c.randn(gen, (c.BATCH, heads, 1, d), dt[0])
+        k = c.randn(gen, (c.BATCH, heads, c.KV_CAP, d), dt[1])
+        v = c.randn(gen, (c.BATCH, heads, c.KV_CAP, dv), dt[2])
+        two = fa.STREAM_SMEM_TWO
+        for waves, two_blocks in STREAM_WAVES_SWEEP:
+            fa.STREAM_WAVES = waves
+            fa.STREAM_SMEM_TWO = two if two_blocks else 0
+            fa.stream_decode_plan.cache_clear()
+            plan = fa.stream_decode_plan(c.BATCH, heads, 1, c.KV_CAP, d, dv,
+                                         dt[1].itemsize, dt[2].itemsize, sms)
+            ms = c.cuda_ms(lambda: fa.flash_attention_decode(q, k, v, lens))
+            row = {"row": name, "waves": waves,
+                   "two_blocks_an_sm": two_blocks, "rows": plan[0],
+                   "tile": plan[1], "splits": plan[2], "ms": ms}
+            print("[stream-splits] " + " ".join(
+                f"{key}={val}" for key, val in row.items()), flush=True)
+            rows.append(row)
+        fa.STREAM_SMEM_TWO = two
+        del q, k, v
+        torch.cuda.empty_cache()
+    print(json.dumps({"stream_splits": rows, "card": card}), flush=True)
+    return 0
 
 
 def f32_splits() -> int:
@@ -1063,7 +1445,9 @@ def main(argv=None) -> int:
                                      "mixed", "host",
                                      "decode-keys", "wide-parts",
                                      "ring-variants", "general",
-                                     "f32-splits"))
+                                     "f32-splits", "cluster-parts",
+                                     "stream-splits", "stream-parts",
+                                     "tc-bodies"))
     ap.add_argument("sources", nargs="*",
                     help="other flash_attention.cu files (versions), "
                          "the other tree's directory (serve, decode, "
@@ -1099,6 +1483,14 @@ def main(argv=None) -> int:
                 if args.sources else general())
     if args.mode == "f32-splits":
         return f32_splits()
+    if args.mode == "cluster-parts":
+        return cluster_parts(args.work, args.timeout)
+    if args.mode == "stream-splits":
+        return stream_splits()
+    if args.mode == "tc-bodies":
+        return tc_bodies()
+    if args.mode == "stream-parts":
+        return stream_parts(args.work, args.timeout)
     if args.mode == "ring-variants":
         return ring_variants(args.work, args.timeout)
     if args.mode == "wide-parts":

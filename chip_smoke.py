@@ -17,10 +17,11 @@ One line per phase:
            SASS count of warpgroup MMAs (HGMMA), TMA loads (UTMALDG) and
            bulk copies (UBLKCP): every bf16 and f16 flash kernel and every
            wide kernel (decode and flash, at head dims over 256) must have
-           the first two, every tuned decode ring kernel the third, and
-           every f32 tensor-core kernel (3xTF32, and its mixed-dtype
-           builds) TMA loads and HGMMAs all of the TF32 form, with no
-           spill
+           the first two, every tuned decode ring kernel and every
+           bulk-copy any-dtype decode kernel the third, and every f32
+           tensor-core kernel (3xTF32, its mixed-dtype builds and the
+           any-dtype flash kernels) TMA loads and HGMMAs all of the TF32
+           form, with no spill
 3. check   the decode kernel against its plain PyTorch version on the card
            at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
            lengths): f32 within 1e-4, bf16 and f16 within 2e-2, a poisoned
@@ -31,9 +32,15 @@ One line per phase:
            query rows (launched 8 rows at a time); head dims 257-1024
            (576/512, 64/640) and q, k and v in different dtypes, each within
            its narrowest input's limit: bf16 and f16 up to 576/512 on the
-           wide kernel and f32 there on the f32 tensor-core kernel (one
-           launch a call), the rest on the general kernel (one launch per
-           8 rows); the f32 kernel at absorbed MLA's layout at 128 query
+           wide kernel, f32 there on the f32 tensor-core kernel and the
+           rest (K and V apart, wider heads) on the any-dtype decode
+           kernel, one launch a call within the flash limit too; the
+           any-dtype kernel at 8 sequences of lengths 1, its tile's and a
+           split's edges and the cache (2,048 keys, split), at 1,024/1,024
+           in bf16 and f32, K and V apart, 66/130 and a cache view off a 16-
+           byte boundary (its plain-copy variant), one launch a call and a
+           poisoned tail moving nothing; the f32 kernel at absorbed MLA's
+           layout at 128 query
            rows and 1, lengths 1, 31-33, 63-65, a split's edges and the
            cache, within 1e-4 and 2e-5 + 2e-5 |ref|, one launch a call,
            and a poisoned tail that moves its output by less than 1e-5;
@@ -81,7 +88,10 @@ One line per phase:
            257-1024 (576/512, 64/640) and q, k and v in different dtypes,
            each within its narrowest input's limit (bf16 and f16 up to
            576/512 on the wide kernel, f32 up to 576/512 on the f32
-           tensor-core kernel, the rest on the general kernel); the
+           tensor-core kernel, the rest on the any-dtype tensor-core
+           kernel, at S = 1, 33, 64, 65, 129 and 320, causal off and on,
+           one launch a call, and at S = 64 with an f32 q and K over a
+           16-bit V nearer to p rounded to V's dtype than not); the
            wide kernel at 576/512 in bf16 and f16 at S = 1, 63, 64, 65, 129
            and 320 (its 64-row and 32-key tiles' edges), causal off and on;
            the f32 kernel (3xTF32) at the headline and at 128/128, 256/256
@@ -103,7 +113,7 @@ One line per phase:
            from torch.profiler as a cross-check of the event times
    wide    the inputs the kernels took last, at full width, each call a
            line with kernel, plain and library ms, launches, the bound and
-           the CUDA kernels torch.profiler traced in one call (the port's
+           the CUDA kernels torch.profiler traced in three calls (the port's
            own kernels only; the library's names where it runs at d > 256):
            DeepSeek-V3's absorbed-MLA decode in bf16 (q [32, 1, 128, 576]
            against a latent cache k [32, 1, 4096, 576], v [.., 512], ragged
@@ -120,8 +130,16 @@ One line per phase:
    mixed   an f32 query over a bf16 cache the same way (no library call
            takes mixed dtypes): the decode serve shape on the ring kernel,
            absorbed-MLA decode on the mixed tensor-core kernel and its
-           merge, the flash headline causal off and on; bounds at the TF32
-           products the kernel issues (S 2, P V 1 a multiply-add)
+           merge, the flash headline causal off and on; bounds at each
+           product's own rate (S 2 TF32 products a multiply-add, P V at the
+           bf16 rate), the TF32 products issued (P V 1) beside
+   any     the any-dtype kernels the same way: K and V in different
+           dtypes (an f32 q and K over a bf16 V) at the decode serve shape
+           and the flash headline (causal off and on; no library call takes
+           them), and bf16 at 1,024/1,024 (decode q [32, 4, 1, 1024] against
+           the smoke's cache, flash [1, 8, 2048]) beside the library call;
+           bounds: bytes, or each product at its operands' rate (16-bit at
+           the bf16 rate), the TF32 products the kernel issues beside
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
@@ -392,6 +410,7 @@ from k8s_dra_driver_tpu_torch.compute.flashattention import (
     flash_attention_decode,
     mixed_kernel_takes,
     padded_head_dims,
+    stream_decode_plan,
     tuned_kernel_takes,
     tuned_decode_splits,
     tuned_decode_tile,
@@ -543,6 +562,24 @@ BF16_FLOP_S = 989.4e12
 # Dense TF32 on the tensor cores; the f32 route spends 3 TF32 products on
 # each f32 one (3xTF32).
 TF32_FLOP_S = 494.7e12
+
+
+def attention_flops_ms(s_macs: int, pv_macs: int, dtypes: str) -> float:
+    """The least time of attention's two products on the tensor cores:
+    S = Q Kᵀ (``s_macs`` multiply-adds) and P V (``pv_macs``), each at its
+    operands' own rate. Two 16-bit operands: the 16-bit rate. An f32
+    operand: the TF32 products that keep f32's precision (2 beside a 16-bit
+    operand, 3 beside an f32 one) at the TF32 rate. P takes V's dtype (p is
+    rounded to it). ``dtypes`` is "q/k/v", e.g. "float32/float32/bfloat16".
+    """
+    q32, k32, v32 = (t == "float32" for t in dtypes.split("/"))
+
+    def product_ms(macs: int, a32: bool, b32: bool) -> float:
+        if not (a32 or b32):
+            return 2 * macs / BF16_FLOP_S * 1e3
+        return 2 * macs * (1 + a32 + b32) / TF32_FLOP_S * 1e3
+
+    return product_ms(s_macs, q32, k32) + product_ms(pv_macs, v32, v32)
 # The compute bench's flash-attention headline shape [b, h, S, d], and its
 # sweep: seq 512-8192 at a constant b * seq = 8192 tokens, h = 8, d = 128.
 FLASH_SHAPE = (4, 8, 2048, 128)
@@ -582,7 +619,7 @@ FLASH_BF16_TOL = (4e-3, 1e-2)
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # q, k and v in different dtypes: K and V sharing one (the mixed routes'
 # classes: an f32 q over a 16-bit cache, a 16-bit q over an f32 one, a bf16
-# q over an f16 one), then K and V apart (the general kernels').
+# q over an f16 one), then K and V apart (the any-dtype kernels').
 MIXED_DTYPES = ((torch.float32, torch.bfloat16, torch.bfloat16),
                 (torch.float32, torch.float16, torch.float16),
                 (torch.bfloat16, torch.float16, torch.float16),
@@ -593,7 +630,7 @@ MIXED_DTYPES = ((torch.float32, torch.bfloat16, torch.bfloat16),
 MIXED_FULL = ((torch.float32, torch.bfloat16, torch.bfloat16),
               (torch.float32, torch.float16, torch.float16),
               (torch.bfloat16, torch.float32, torch.float32))
-# Head dims (d, dv) for the general kernels: past the tuned kernels by one,
+# Head dims (d, dv) past the tuned kernels: past them by one,
 # 320, 512, DeepSeek-V3's absorbed-MLA decode (keys kv_lora_rank 512 +
 # qk_rope_head_dim 64, values 512), 1024, and dv over 256 beside a narrow d.
 GENERAL_DIMS = ((257, 257), (320, 320), (512, 512), (576, 512), (1024, 1024),
@@ -766,8 +803,9 @@ def phase_build() -> None:
     instructions are warpgroup MMAs (HGMMA), TMA loads (UTMALDG) and 1-D
     bulk copies (UBLKCP). Every bf16 and f16 flash kernel and every wide
     decode and flash kernel must have the first two, and every tuned decode
-    ring kernel the bulk copy its K and V tiles arrive by; every f32
-    tensor-core kernel TF32 wgmmas only, TMA loads and no spill."""
+    ring kernel and every bulk-copy any-dtype decode kernel the bulk copy
+    its K and V tiles arrive by; every f32 tensor-core kernel and every
+    any-dtype flash kernel TF32 wgmmas only, TMA loads and no spill."""
     t0 = time.monotonic()
     built = _build.build_all(force=True)
     require(bool(built), "no kernel source was built")
@@ -813,8 +851,13 @@ def phase_build() -> None:
                         f"{kernel} has no wgmma or no TMA load in its SASS")
             if kernel.startswith("decode_ring_kernel"):
                 require(ublkcp > 0, f"{kernel} has no bulk copy in its SASS")
+            if kernel.startswith("stream_decode_kernel") and \
+                    kernel.endswith(("<1>", ",1>")):
+                # The bulk-copy variant (its last template argument).
+                require(ublkcp > 0, f"{kernel} has no bulk copy in its SASS")
             if kernel.startswith(("f32tc_flash_kernel",
-                                  "f32tc_decode_kernel")):
+                                  "f32tc_decode_kernel",
+                                  "cluster_flash_kernel")):
                 require(tf32 > 0 and tf32 == hgmma and utmaldg > 0
                         and spills == 0 and regs is not None,
                         f"{kernel}: {tf32} TF32 wgmmas of {hgmma}, "
@@ -942,6 +985,7 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
     f32_decode_check(rng)
     tuned_decode_check(rng)
     mixed_decode_check(rng)
+    stream_decode_check(rng)
     before = flash_attention_decode.launches
     try:
         flash_attention_decode(q, k, v, lens, block_k=1000)
@@ -961,64 +1005,164 @@ def general_dims_check(rng: np.random.Generator) -> float:
     share of its limit."""
     dev = torch.device("cuda", 0)
     small = np.array([1, 45, 300], np.int32)
-    # Every head dim of GENERAL_DIMS in each dtype, and q, k and v in
-    # different dtypes at tuned and wide head dims, each held to its
-    # narrowest input's limit: one launch a call where the wide, the f32 or
-    # the mixed tensor-core kernel takes it (bf16 and f16, or f32, or q's
-    # dtype apart from K's and V's shared one, up to 576/512; held to the
-    # flash limit too, which a 1% scale or a dropped split exceeds and the
-    # decode limit alone may not), else one launch per 8 query rows: the
-    # ring kernel's for a mixed call whose cache rows are whole 16-byte
-    # chunks at d, dv <= 256 (d = 128), the general kernel's for the rest.
-    cases = [(ql, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
-             for ql in (1, 8, 10) for t in DTYPES]
+    # Every head dim of GENERAL_DIMS in each dtype and in each MIXED_DTYPES
+    # mix, and the mixes at tuned head dims (128/128, and 66/130, whose rows
+    # the ring kernel does not take), each held to its narrowest input's
+    # limit: one launch a call where the wide, the f32, the mixed or the
+    # any-dtype kernel takes it (bf16 and f16 up to 576/512; f32; q's dtype
+    # apart from K's and V's shared one up to 576/512; everything else),
+    # held to the flash limit too, which a 1% scale or a dropped split
+    # exceeds and the decode limit alone may not; the ring kernel's (a mixed
+    # call at d, dv <= 256 on rows of whole 16-byte chunks) one launch per 8
+    # query rows.
+    cases = [(ql, d, dv, ts) for d, dv in GENERAL_DIMS for ql in (1, 8, 10)
+             for ts in [(t,) * 3 for t in DTYPES] + list(MIXED_DTYPES)]
     cases += [(ql, d, dv, ts) for ts in MIXED_DTYPES
-              for d, dv in ((128, 128), (66, 130), (576, 512))
-              for ql in (1, 4)]
-    worst, wide_over = 0.0, 0.0
-    calls = {"wide": 0, "f32": 0, "mixed": 0, "ring_mixed": 0}
+              for d, dv in ((128, 128), (66, 130)) for ql in (1, 4)]
+    worst, one_over = 0.0, 0.0
+    calls = {"wide": 0, "f32": 0, "mixed": 0, "ring_mixed": 0, "stream": 0}
     for ql, d, dv, ts in cases:
         a = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             dev, t) for shape, t in (((3, 2, ql, d), ts[0]),
                                      ((3, 2, 300, d), ts[1]),
                                      ((3, 2, 300, dv), ts[2]))]
         a.append(torch.from_numpy(small).to(dev))
-        dp, dvp = padded_head_dims(d, dv)
-        wide = wide_kernel_takes(*a[:3], dp, dvp)
-        f32 = f32_kernel_takes(*a[:3], dp, dvp)
-        mixed = (max(dp, dvp) > TUNED_HEAD_DIM
-                 and mixed_kernel_takes(*a[:3], dp, dvp))
-        calls["wide"] += wide
-        calls["f32"] += f32
-        calls["mixed"] += mixed
-        calls["ring_mixed"] += (ts[0] != ts[1] and tuned_kernel_takes(
-            "decode_attention", *a[:3], d, dv))
+        route = decode_route(*a[:3])
+        calls[route] += route != "tuned"
         before = flash_attention_decode.launches
         out = flash_attention_decode(*a, block_k=300)
         groups = flash_attention_decode.launches - before
         ref = decode_attention_reference(*a)
-        what = f"{dtype_names(*ts)} ql={ql} d={d} dv={dv}"
+        what = f"{dtype_names(*ts)} ql={ql} d={d} dv={dv} ({route})"
         require(out.shape == ref.shape == (3, 2, ql, dv)
                 and out.dtype == ts[0], f"{what}: output {tuple(out.shape)} "
                                         f"{out.dtype}")
         err = (out.float() - ref.float()).abs().max().item()
         require(err < decode_tol(*ts), f"{what}: error {err}")
-        want = 1 if wide or f32 or mixed else -(-ql // 8)
+        want = -(-ql // 8) if route in ("tuned", "ring_mixed") else 1
         require(groups == want, f"{what}: {groups} launches, not {want}")
-        if wide or f32 or mixed:
+        if want == 1:
             over = compare(out, ref, *flash_tol(*ts))[1]
             require(over <= 1, f"{what}: {over} of the flash limit")
-            wide_over = max(wide_over, over)
+            one_over = max(one_over, over)
         worst = max(worst, err / decode_tol(*ts))
     line("check", kernel="decode_attention", variants=json.dumps(
         "d/dv " + ", ".join(f"{d}/{dv}" for d, dv in GENERAL_DIMS)
-        + " x ql 1/8/10 x f32/bf16/f16; q/k/v "
+        + " x ql 1/8/10 x f32/bf16/f16 and q/k/v "
         + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
-        + " x d/dv 128/128, 66/130, 576/512 x ql 1/4"), calls=len(cases),
+        + "; those mixes x d/dv 128/128, 66/130 x ql 1/4"), calls=len(cases),
         **{f"{route}_calls": n for route, n in calls.items()},
-        general_calls=len(cases) - sum(calls.values()),
         worst_err_over_tol=worst,
-        wide_f32_mixed_worst_err_over_flash_limit=wide_over)
+        one_launch_worst_err_over_flash_limit=one_over)
+    require(calls["stream"] > 0, "no call reached the any-dtype kernel")
+    return worst
+
+
+def decode_route(q, k, v) -> str:
+    """Which decode kernel the wrapper gives these inputs: ``tuned``,
+    ``ring_mixed`` (the ring kernel under a q of another dtype), ``wide``,
+    ``f32``, ``mixed`` or ``stream`` (the any-dtype kernel)."""
+    d, dv = q.shape[3], v.shape[3]
+    dp, dvp = padded_head_dims(d, dv)
+    if tuned_kernel_takes("decode_attention", q, k, v, d, dv):
+        return "tuned" if q.dtype == k.dtype else "ring_mixed"
+    if wide_kernel_takes(q, k, v, dp, dvp):
+        return "wide"
+    if f32_kernel_takes(q, k, v, dp, dvp):
+        return "f32"
+    if max(dp, dvp) > TUNED_HEAD_DIM and mixed_kernel_takes(q, k, v, dp, dvp):
+        return "mixed"
+    return "stream"
+
+
+# The any-dtype decode kernel's edge cases (``stream_decode_check``): q, k
+# and v dtypes, head dims d and dv, query rows, and whether the cache is a
+# view one element off a 16-byte boundary (the plain-copy variant, as are
+# rows that are not whole 16-byte chunks: 66/130).
+STREAM_CHECKS = (
+    ((torch.bfloat16,) * 3, 1024, 1024, 1, False),
+    ((torch.float32,) * 3, 1024, 1024, 1, False),
+    ((torch.float32, torch.float32, torch.bfloat16), 128, 128, 1, False),
+    ((torch.float32, torch.float32, torch.float16), 64, 640, 10, False),
+    ((torch.bfloat16, torch.float16, torch.float16), 66, 130, 1, False),
+    ((torch.float32, torch.bfloat16, torch.bfloat16), 128, 128, 1, True),
+)
+
+
+def stream_decode_check(rng: np.random.Generator) -> float:
+    """The any-dtype decode kernel at each of STREAM_CHECKS, 8 sequences of
+    one head against a cache of 2,048 keys split across blocks
+    (``stream_decode_plan``): lengths 1, the tile's edges (T - 1, T, T +
+    1), a split's edges and the cache. Each call one launch (the kernel and
+    its merge) within its narrowest input's decode and flash limits; then
+    every key past each length is poisoned (+-POISON in K, -+ in V,
+    +-F16_POISON in f16), which must move the output by less than
+    POISON_TOL. Returns the worst error's share of the flash limit."""
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, cap = 8, 2048
+    worst, fields = 0.0, {}
+    for ts, d, dv, ql, offset in STREAM_CHECKS:
+        rows, tile, splits, split_keys = stream_decode_plan(
+            n, 1, ql, cap, d, dv, ts[1].itemsize, ts[2].itemsize, sms)
+        require(splits > 1, f"stream check {d}/{dv}: one split")
+        lens_np = np.array(sorted({1, max(1, tile - 1), tile, tile + 1,
+                                   split_keys - 1, split_keys,
+                                   split_keys + 1, cap}), np.int32)[:n]
+        lens_np = np.pad(lens_np, (0, n - len(lens_np)), constant_values=cap)
+        lens = torch.from_numpy(lens_np).to(dev)
+        q = torch.from_numpy(rng.standard_normal((n, 1, ql, d), np.float32)
+                             ).to(dev, ts[0])
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (n, 1, cap, w), np.float32)).to(dev, t)
+            for w, t in ((d, ts[1]), (dv, ts[2])))
+        def placed(t):
+            # With `offset`, the same cache as a view that starts one
+            # element in (its poisoned copy too: the same variant).
+            if not offset:
+                return t
+            flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            flat[1:] = t.reshape(-1)
+            view = flat[1:].view(t.shape)
+            require(view.data_ptr() % 16 != 0, "the view is aligned")
+            return view
+
+        k = placed(k)
+        what = (f"stream decode {dtype_names(*ts)} d={d} dv={dv} ql={ql}"
+                + (" (view off 16 bytes)" if offset else ""))
+        route = decode_route(q, k, v)
+        require(route == "stream", f"{what}: routed to {route}")
+        before = flash_attention_decode.launches
+        out = flash_attention_decode(q, k, v, lens)
+        calls = flash_attention_decode.launches - before
+        ref = decode_attention_reference(q, k, v, lens)
+        require(out.shape == ref.shape and out.dtype == ts[0]
+                and bool(torch.isfinite(out).all()) and calls == 1,
+                f"{what}: output {tuple(out.shape)} {out.dtype}, "
+                f"{calls} launches")
+        err = (out.float() - ref.float()).abs().max().item()
+        over = compare(out, ref, *flash_tol(*ts))[1]
+        require(err < decode_tol(*ts) and over <= 1,
+                f"{what}: error {err}, {over} of the flash limit")
+        kp, vp = k.clone(), v.clone()
+        for i, m in enumerate(lens_np.tolist()):
+            kp[i, :, m:] = F16_POISON if k.dtype == torch.float16 else POISON
+            vp[i, :, m:] = -(F16_POISON if v.dtype == torch.float16
+                             else POISON)
+        moved = (flash_attention_decode(q, placed(kp), vp, lens).float()
+                 - out.float()).abs().max().item()
+        require(moved < POISON_TOL, f"{what}: the poisoned tail moved the "
+                                    f"output by {moved}")
+        key = f"{dtype_names(*ts).replace('/', '_')}_{d}_{dv}" + (
+            "_offset" if offset else "")
+        fields[key] = json.dumps({"rows": rows, "tile": tile,
+                                  "splits": splits, "split_keys": split_keys,
+                                  "err_over_flash_limit": over,
+                                  "poisoned_tail_max_abs_diff": moved})
+        worst = max(worst, over)
+        del q, k, v, kp, vp, out, ref
+    line("check", kernel="decode_attention", route="stream", seqs=n,
+         cap=cap, **fields, worst_err_over_flash_limit=worst)
     return worst
 
 
@@ -1447,42 +1591,7 @@ def phase_flash_check(seed: int) -> float:
                     worst = max(worst, over)
     line("flash", variants="padded head dims d/dv 40/40, 8/8, 40/24 x S "
          "64/129 x f32/bf16/f16 x causal", worst_err_over_limit=worst)
-    # The general kernel: every head dim of GENERAL_DIMS in each dtype at
-    # S = 1 (less than a tile), 33 (one tile and one row) and 100 (bf16 and
-    # f16 up to 576/512 on the wide kernel, f32 there on the f32 one), and
-    # q, k and v in different dtypes at tuned, padded and wide head dims
-    # (K and V sharing a dtype on the mixed tensor-core kernel, K and V
-    # apart on the general one); each call one launch, held to its
-    # narrowest input's limit.
-    cases = [(s_small, d, dv, (t,) * 3) for d, dv in GENERAL_DIMS
-             for s_small in (1, 33, 100) for t in DTYPES]
-    cases += [(s_small, d, dv, ts) for ts in MIXED_DTYPES
-              for d, dv in ((64, 64), (40, 24), (576, 512))
-              for s_small in (64, 129)]
-    worst = 0.0
-    for s_small, d, dv, ts in cases:
-        q, k, v = (randn(gen, (2, 3, s_small, dim), t) for dim, t in
-                   ((d, ts[0]), (d, ts[1]), (dv, ts[2])))
-        for causal in (False, True):
-            before = flash_attention.launches
-            out = flash_attention(q, k, v, block_q=s_small, block_k=s_small,
-                                  causal=causal)
-            calls = flash_attention.launches - before
-            ref = reference_attention(q, k, v, causal=causal)
-            what = (f"flash {dtype_names(*ts)} d={d} dv={dv} S={s_small} "
-                    f"causal={causal}")
-            require(out.shape == ref.shape and out.dtype == ts[0]
-                    and calls == 1, f"{what}: {tuple(out.shape)} "
-                                    f"{out.dtype}, {calls} launches")
-            err, over = compare(out, ref, *flash_tol(*ts))
-            require(over <= 1, f"{what}: error {err}, {over} of the limit")
-            worst = max(worst, over)
-    line("flash", variants=json.dumps(
-        "d/dv " + ", ".join(f"{d}/{dv}" for d, dv in GENERAL_DIMS)
-        + " x S 1/33/100 x f32/bf16/f16; q/k/v "
-        + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
-        + " x d/dv 64/64, 40/24, 576/512 x S 64/129; x causal"),
-        calls=2 * len(cases), worst_err_over_limit=worst)
+    cluster_flash_check(gen)
     wide_flash_check(gen)
     f32_flash_check(gen)
     mixed_flash_check(gen)
@@ -1579,6 +1688,99 @@ def f32_flash_check(gen: torch.Generator) -> float:
         + "/".join(map(str, WIDE_FLASH_SEQS)) + " x causal"),
         calls=len(cases), worst_err_over_limit=worst,
         atol_rtol=json.dumps(FLASH_F32_TOL))
+    return worst
+
+
+# S for the flash checks of the any-dtype kernel: less than a row tile,
+# one tile and a row, a tile, a tile and one, two and one, five.
+CLUSTER_FLASH_SEQS = (1, 33, 64, 65, 129, 320)
+
+
+def flash_route(q, k, v) -> str:
+    """Which flash kernel the wrapper gives these inputs: ``tuned``,
+    ``wide``, ``f32``, ``mixed`` or ``cluster`` (the any-dtype kernel)."""
+    dp, dvp = padded_head_dims(q.shape[3], v.shape[3])
+    if tuned_kernel_takes("flash_attention", q, k, v, dp, dvp):
+        return "tuned"
+    if f32_kernel_takes(q, k, v, dp, dvp):
+        return "f32"
+    if mixed_kernel_takes(q, k, v, dp, dvp):
+        return "mixed"
+    if wide_kernel_takes(q, k, v, dp, dvp):
+        return "wide"
+    return "cluster"
+
+
+def cluster_flash_check(gen: torch.Generator) -> float:
+    """The flash kernels past the tuned ones at small shapes ([2, 3, S, d],
+    S = CLUSTER_FLASH_SEQS, causal off and on): every head dim of
+    GENERAL_DIMS in each dtype and in each MIXED_DTYPES mix, and the mixes
+    at 64/64 and 40/24; each call one launch within its narrowest input's
+    limit (the wide, f32, mixed or any-dtype kernel, by ``flash_route``).
+    Then what the bf16 limit cannot see, on the any-dtype kernel at S = 64
+    (one key tile: p is rounded against the row's final max) with an f32 q
+    and K over a bf16 and an f16 V, [8, 4, 64] at 128/128 and [2, 2, 64] at
+    1,024/1,024: the kernel's output is nearer (summed squared difference
+    under half) to ``rounded_p_attention`` than to the plain version, whose
+    p is not rounded. Returns the worst error's share of the limit."""
+    cases = [(s_small, d, dv, ts) for d, dv in GENERAL_DIMS
+             for ts in [(t,) * 3 for t in DTYPES] + list(MIXED_DTYPES)
+             for s_small in CLUSTER_FLASH_SEQS]
+    cases += [(s_small, d, dv, ts) for ts in MIXED_DTYPES
+              for d, dv in ((64, 64), (40, 24)) for s_small in (64, 129)]
+    worst = 0.0
+    routes = {}
+    for s_small, d, dv, ts in cases:
+        q, k, v = (randn(gen, (2, 3, s_small, dim), t) for dim, t in
+                   ((d, ts[0]), (d, ts[1]), (dv, ts[2])))
+        route = flash_route(q, k, v)
+        routes[route] = routes.get(route, 0) + 2
+        for causal in (False, True):
+            before = flash_attention.launches
+            out = flash_attention(q, k, v, block_q=s_small, block_k=s_small,
+                                  causal=causal)
+            calls = flash_attention.launches - before
+            ref = reference_attention(q, k, v, causal=causal)
+            what = (f"flash {dtype_names(*ts)} d={d} dv={dv} S={s_small} "
+                    f"causal={causal} ({route})")
+            require(out.shape == ref.shape and out.dtype == ts[0]
+                    and calls == 1 and bool(torch.isfinite(out).all()),
+                    f"{what}: {tuple(out.shape)} {out.dtype}, "
+                    f"{calls} launches")
+            err, over = compare(out, ref, *flash_tol(*ts))
+            require(over <= 1, f"{what}: error {err}, {over} of the limit")
+            worst = max(worst, over)
+        del q, k, v, out, ref
+    line("flash", route="cluster", variants=json.dumps(
+        "d/dv " + ", ".join(f"{d}/{dv}" for d, dv in GENERAL_DIMS)
+        + " x f32/bf16/f16 and q/k/v "
+        + ", ".join(dtype_names(*ts) for ts in MIXED_DTYPES)
+        + " x S " + "/".join(map(str, CLUSTER_FLASH_SEQS))
+        + "; those mixes x d/dv 64/64, 40/24 x S 64/129; x causal"),
+        calls=2 * len(cases), routes=json.dumps(routes),
+        worst_err_over_limit=worst)
+    require(routes.get("cluster", 0) > 0,
+            "no flash call reached the any-dtype kernel")
+    fields = {}
+    for shape in ((8, 4, 64, 128), (2, 2, 64, 1024)):
+        for vt in (torch.bfloat16, torch.float16):
+            q, k = (randn(gen, shape, torch.float32) for _ in range(2))
+            v = randn(gen, shape, vt)
+            require(flash_route(q, k, v) == "cluster",
+                    f"{list(shape)} {vt} is not the any-dtype kernel's")
+            out = flash_attention(q, k, v).float()
+            sq = lambda ref: ((out - ref.float()) ** 2).sum().item()
+            share = sq(rounded_p_attention(q, k, v)) / sq(
+                reference_attention(q, k, v))
+            name = (f"{dtype_names(torch.float32, torch.float32, vt)}"
+                    f"_{shape[3]}").replace("/", "_")
+            fields[f"{name}_vs_unrounded_p"] = share
+            require(share < 0.5, f"any-dtype flash {name}: p is not rounded "
+                                 f"to V's dtype ({share})")
+            del q, k, v, out
+    line("flash", route="cluster", check="rounded p: summed squared "
+         "difference to the kernel's semantics over that to the plain "
+         "version (< 0.5)", **fields)
     return worst
 
 
@@ -1766,39 +1968,51 @@ def device_busy(fn, calls: int = 20) -> tuple:
     return busy_us / 1e3 / calls, len(ops) / calls
 
 
-def traced_kernels(fn, tries: int = 3) -> list:
-    """The names of the CUDA kernels and copies that torch.profiler traced
-    in one call of ``fn`` (after one untraced call); an empty trace, which
-    the profiler sometimes gives, is taken again, up to ``tries`` times."""
+def traced_kernels(fn, tries: int = 8, calls: int = 3,
+                   pad_s: float = 0.005) -> tuple:
+    """(names, traces): the names of the CUDA kernels and copies that
+    torch.profiler traced in ``calls`` calls of ``fn`` (after one untraced
+    call), and how many traces that took. The calls sit ``pad_s`` of idle
+    host time inside each end of the capture window, and the device is
+    drained before the window closes: the profiler keeps only device
+    activity whose time stamps fall inside the window and that its
+    activity buffers have delivered by then, and a window as short as one
+    call has come back empty three times running. An empty trace is taken
+    again, up to ``tries`` times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     names = []
-    for _ in range(tries):
+    for traces in range(1, tries + 1):
         with torch.profiler.profile(activities=acts) as prof:
-            fn()
+            time.sleep(pad_s)
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
+            time.sleep(pad_s)
         names = sorted({e.name for e in prof.events()
                         if e.device_type == torch.autograd.DeviceType.CUDA})
         if names:
             break
-    return names
+    return names, traces
 
 
 def wide_row(leg: str, counter, kernel, plain, library, nbytes: int,
              flops: int, tol: tuple, own, phase: str = "wide",
-             f32: bool = False, tf32_flops: int | None = None,
-             **shape) -> dict:
-    """One line of the wide (or f32, or mixed) leg: the kernel's, plain
-    version's and library call's ms (``library`` None where no one call
-    computes the function: its ms is then None), the bound (bytes at 3.35
-    TB/s or operations at the 16-bit tensor-core rate, whichever is longer;
-    with ``f32``, operations as 3 TF32 products each, and beside it the
-    bound at the f32 SIMT rate; with ``tf32_flops``, those TF32 operations
-    instead of 3 products each), the last timed kernel output against the
-    last plain output within ``tol`` (atol, rtol), and the CUDA kernels
-    traced in one call of each: the port's call must run only kernels whose
+             f32: bool = False, flops_ms: float | None = None,
+             tf32_flops: int | None = None, **shape) -> dict:
+    """One line of the wide (or f32, mixed or any-dtype) leg: the kernel's,
+    plain version's and library call's ms (``library`` None where no one
+    call computes the function: its ms is then None), the bound (bytes at
+    3.35 TB/s or operations at the 16-bit tensor-core rate, whichever is
+    longer; with ``f32``, operations as 3 TF32 products each, and beside it
+    the bound at the f32 SIMT rate; with ``flops_ms``, that time of the
+    operations, from ``attention_flops_ms``; with ``tf32_flops``, beside it
+    the bound at the TF32 products the kernel issues), the last timed
+    kernel output against the last plain output within ``tol`` (atol,
+    rtol), and the CUDA kernels traced in three calls of each
+    (``traced_kernels``): the port's calls must run only kernels whose
     names hold ``own`` (a name, or a tuple of names each kernel may hold
     one of), and launch once. Returns the row's numbers and the kernel's
     launches."""
@@ -1810,23 +2024,26 @@ def wide_row(leg: str, counter, kernel, plain, library, nbytes: int,
     plain_ms = cuda_ms(lambda: last.__setitem__("ref", plain()))
     library_ms = cuda_ms(library) if library else None
     err, over = compare(last["out"], last["ref"], *tol)
-    ours = traced_kernels(kernel)
-    theirs = traced_kernels(library) if library else []
+    ours, traces = traced_kernels(kernel)
+    theirs = traced_kernels(library)[0] if library else []
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    if f32 and tf32_flops is None:
-        tf32_flops = 3 * flops
-    flops_ms = (tf32_flops / TF32_FLOP_S if tf32_flops is not None
-                else flops / BF16_FLOP_S) * 1e3
+    if flops_ms is None:
+        flops_ms = (3 * flops / TF32_FLOP_S if f32
+                    else flops / BF16_FLOP_S) * 1e3
     bound_ms = max(bytes_ms, flops_ms)
     simt = ({"simt_bound_ms": max(bytes_ms, flops / F32_FLOP_S * 1e3)}
             if f32 else {})
+    if tf32_flops is not None:
+        simt["tf32_bound_ms"] = max(bytes_ms,
+                                    tf32_flops / TF32_FLOP_S * 1e3)
     line(phase, leg=leg, **{k: json.dumps(v) if isinstance(v, (list, tuple))
                             else v for k, v in shape.items()},
          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
          bound_by="bytes" if bytes_ms >= flops_ms else "operations",
          **simt, bound_share=bound_ms / ms, launches_per_call=per_call,
          max_abs_err=err, atol_rtol=json.dumps(tol), err_over_limit=over,
-         kernels=json.dumps(ours), library_kernels=json.dumps(theirs))
+         kernels=json.dumps(ours), traces=traces,
+         library_kernels=json.dumps(theirs))
     require(over <= 1, f"{phase} {leg}: error {err}, {over} of the limit")
     require(ours and all(any(o in name for o in own) for name in ours),
             f"{phase} {leg}: the port's call ran {ours}, not only {own}")
@@ -2033,8 +2250,9 @@ def phase_mixed(seed: int) -> dict:
     the decode serve shape on the ring kernel (bound: bytes), DeepSeek-V3's
     absorbed-MLA decode on the mixed tensor-core kernel and its merge, and
     the flash headline [4, 8, 2048, 128] on the mixed tensor-core kernel,
-    causal off and on (bounds: TF32 products, 2 a multiply-add of S and 1 of
-    P V, at 494.7 TFLOP/s, or bytes). Its own main path: the counts are
+    causal off and on (bounds: bytes, or each product at its operands' rate,
+    ``attention_flops_ms``: S 2 TF32 products a multiply-add at 494.7
+    TFLOP/s, P V at the bf16 rate). Its own main path: the counts are
     zeroed before it and must equal the rows' launches after it. Returns
     the launches by kernel and the rows by leg."""
     dev = torch.device("cuda", 0)
@@ -2069,6 +2287,9 @@ def phase_mixed(seed: int) -> dict:
         nbytes=keys * (MLA_D + MLA_DV) * 2
         + (q.numel() + BATCH * MLA_ROWS * MLA_DV) * 4 + lens.numel() * 4,
         flops=2 * keys * MLA_ROWS * (MLA_D + MLA_DV),
+        flops_ms=attention_flops_ms(keys * MLA_ROWS * MLA_D,
+                                    keys * MLA_ROWS * MLA_DV,
+                                    "float32/bfloat16/bfloat16"),
         tf32_flops=2 * keys * MLA_ROWS * (2 * MLA_D + MLA_DV),
         tol=FLASH_BF16_TOL, own=("f32tc_decode", "wide_decode_merge"),
         phase="mixed", q=list(q.shape), k=list(k.shape), v=list(v.shape),
@@ -2087,6 +2308,9 @@ def phase_mixed(seed: int) -> dict:
             lambda: reference_attention(q, k, v, causal=causal), None,
             nbytes=b * h * s * d * (4 + 2 + 2 + 4),
             flops=4 * b * h * s * s * d // half,
+            flops_ms=attention_flops_ms(
+                b * h * s * s * d // half, b * h * s * s * d // half,
+                "float32/bfloat16/bfloat16"),
             tf32_flops=2 * b * h * s * s * (2 * d + d) // half,
             tol=FLASH_BF16_TOL, own="f32tc_flash", phase="mixed",
             shape=list(FLASH_SHAPE), dtypes="float32/bfloat16/bfloat16",
@@ -2100,9 +2324,10 @@ def phase_mixed(seed: int) -> dict:
                 if leg.startswith("flash"))
     line("mixed", launches=json.dumps(counts), ring_launches=ring,
          tensor_core_decode_launches=tc,
-         bound_basis="H100 SXM 3.35 TB/s HBM; TF32 products (S 2, P V 1 a "
-                     "multiply-add with an f32 q over a bf16 cache) at "
-                     "494.7 TFLOP/s dense TF32")
+         bound_basis="H100 SXM 3.35 TB/s HBM; each product at its "
+                     "operands' rate: S (f32 q, bf16 K) 2 TF32 products at "
+                     "494.7 TFLOP/s, P V (p rounded to bf16) at 989.4 "
+                     "(tf32_bound_ms: P V 1 TF32 product, as issued)")
     require(counts == {"decode_attention": ring + tc,
                        "flash_attention": flash},
             f"the mixed leg's launches: {counts}, its rows counted "
@@ -2111,6 +2336,111 @@ def phase_mixed(seed: int) -> dict:
     return {"decode_attention_mixed_ring": ring,
             "decode_attention_mixed": tc, "flash_attention_mixed": flash,
             **rows}
+
+
+def phase_any(seed: int) -> dict:
+    """The any-dtype kernels at full width (``wide_row`` per call): K and V
+    in different dtypes, an f32 q and K over a bf16 V, at the decode serve
+    shape and the flash headline [4, 8, 2048, 128] (causal off and on; no
+    library call takes the mix), and bf16 at 1,024/1,024 (decode q [32, 4,
+    1, 1024] against the smoke's cache and lengths, flash [1, 8, 2048]),
+    beside the library call. Bounds: bytes at 3.35 TB/s, or each product
+    at its operands' rate (``attention_flops_ms``), beside the bound at the
+    TF32 products the kernel issues. Its own main path: the counts are
+    zeroed before it and must equal the rows' launches after it. Returns
+    the launches by kernel and the rows by leg."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f32, bf16 = torch.float32, torch.bfloat16
+    lens = torch.from_numpy(smoke_lengths(np.random.default_rng(seed))).to(
+        dev)
+    keys = int(lens.clamp(max=KV_CAP).sum())
+    reset_launches()
+    rows = {}
+    own_decode = ("stream_decode_kernel", "wide_decode_merge")
+
+    q, k = (randn(gen, (BATCH, HEADS, n, HEAD_DIM), f32)
+            for n in (1, KV_CAP))
+    v = randn(gen, (BATCH, HEADS, KV_CAP, HEAD_DIM), bf16)
+    rows["decode_serve_f32qk_bf16v"] = wide_row(
+        "decode_serve_f32qk_bf16v", flash_attention_decode,
+        lambda: flash_attention_decode(q, k, v, lens),
+        lambda: decode_attention_reference(q, k, v, lens), None,
+        nbytes=keys * HEADS * HEAD_DIM * (4 + 2) + 2 * q.numel() * 4
+        + lens.numel() * 4, flops=4 * keys * HEADS * HEAD_DIM,
+        tol=FLASH_BF16_TOL, own=own_decode, phase="any",
+        q=list(q.shape), k=list(k.shape), dtypes="float32/float32/bfloat16")
+    del q, k, v
+
+    heads, d = 4, 1024
+    q = randn(gen, (BATCH, heads, 1, d), bf16)
+    k, v = (randn(gen, (BATCH, heads, KV_CAP, d), bf16) for _ in range(2))
+    mask = (torch.arange(KV_CAP, device=dev)[None, None, None, :]
+            < lens[:, None, None, None])
+    rows["decode_1024_1024_bf16"] = wide_row(
+        "decode_1024_1024_bf16", flash_attention_decode,
+        lambda: flash_attention_decode(q, k, v, lens),
+        lambda: decode_attention_reference(q, k, v, lens),
+        lambda: sdpa(q, k, v, attn_mask=mask),
+        nbytes=keys * heads * d * 2 * 2 + 2 * q.numel() * 2
+        + lens.numel() * 4, flops=4 * keys * heads * d,
+        tol=FLASH_BF16_TOL, own=own_decode, phase="any", q=list(q.shape),
+        k=list(k.shape), dtypes="bfloat16", mean_len=keys / BATCH)
+    del q, k, v, mask
+
+    b, h, s, d = FLASH_SHAPE
+    q, k = (randn(gen, FLASH_SHAPE, f32) for _ in range(2))
+    v = randn(gen, FLASH_SHAPE, bf16)
+    for causal in (False, True):
+        leg = "flash_f32qk_bf16v_headline" + ("_causal" if causal else "")
+        half = 2 if causal else 1
+        rows[leg] = wide_row(
+            leg, flash_attention,
+            lambda: flash_attention(q, k, v, causal=causal),
+            lambda: reference_attention(q, k, v, causal=causal), None,
+            nbytes=b * h * s * d * (4 + 4 + 2 + 4),
+            flops=4 * b * h * s * s * d // half,
+            flops_ms=attention_flops_ms(
+                b * h * s * s * d // half, b * h * s * s * d // half,
+                "float32/float32/bfloat16"),
+            tf32_flops=2 * b * h * s * s * (3 * d + d) // half,
+            tol=FLASH_BF16_TOL, own="cluster_flash", phase="any",
+            shape=list(FLASH_SHAPE), dtypes="float32/float32/bfloat16",
+            causal=causal)
+    del q, k, v
+
+    shape = (1, 8, 2048, 1024)
+    q, k, v = (randn(gen, shape, bf16) for _ in range(3))
+    b, h, s, d = shape
+    rows["flash_1024_1024_bf16"] = wide_row(
+        "flash_1024_1024_bf16", flash_attention,
+        lambda: flash_attention(q, k, v),
+        lambda: reference_attention(q, k, v), lambda: sdpa(q, k, v),
+        nbytes=4 * b * h * s * d * 2, flops=4 * b * h * s * s * d,
+        tf32_flops=4 * b * h * s * s * d, tol=FLASH_BF16_TOL,
+        own="cluster_flash", phase="any", shape=list(shape),
+        dtypes="bfloat16", causal=False)
+    del q, k, v
+    torch.cuda.synchronize()
+    counts = launches()
+    decode = sum(r["launches"] for leg, r in rows.items()
+                 if leg.startswith("decode"))
+    flash = sum(r["launches"] for leg, r in rows.items()
+                if leg.startswith("flash"))
+    line("any", launches=json.dumps(counts),
+         bound_basis="H100 SXM 3.35 TB/s HBM; each product at its "
+                     "operands' rate: 16-bit by 16-bit (P V under a 16-bit "
+                     "V: p is rounded to it) at 989.4 TFLOP/s, one with f32 "
+                     "operands 1 + [f32 a] + [f32 b] TF32 products at 494.7 "
+                     "(tf32_bound_ms: the TF32 products the kernel issues)")
+    require(counts == {"decode_attention": decode,
+                       "flash_attention": flash},
+            f"the any-dtype leg's launches: {counts}, its rows counted "
+            f"{decode} decode and {flash} flash")
+    torch.cuda.empty_cache()
+    return {"decode_attention_stream": decode,
+            "flash_attention_cluster": flash, **rows}
 
 
 def phase_burnin() -> None:
@@ -5701,6 +6031,7 @@ def main(argv=None) -> int:
     wide = phase_wide(args.seed)
     f32 = phase_f32(args.seed)
     mixed = phase_mixed(args.seed)
+    anyd = phase_any(args.seed)
     phase_burnin()
     phase_selfheal(card, args.seed, found["lib"], found["gpu"])
     processes = phase_processes(card, args.seed, found["gpu"])
@@ -5792,7 +6123,21 @@ def main(argv=None) -> int:
         ("decode_attention_mixed", "mixed_decode.cu", 125,
          "mla_decode_f32q_bf16kv"),
         ("flash_attention_mixed", "mixed_flash.cu", 36,
-         "flash_f32q_bf16kv_headline"))]
+         "flash_f32q_bf16kv_headline"))] + [{
+        # The any-dtype kernels: their bf16 rows at 1,024/1,024, where one
+        # library call computes the function.
+        "name": name, "route": "cuda",
+        "source": f"k8s_dra_driver_tpu_torch/csrc/{source}",
+        "replaces": f"k8s_dra_driver_tpu/compute/flashattention.py:{line_no}",
+        "launches": anyd[name],
+        **{key: anyd[row][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+    } for name, source, line_no, row in (
+        ("decode_attention_stream", "stream_decode.cu", 125,
+         "decode_1024_1024_bf16"),
+        ("flash_attention_cluster", "cluster_flash.cuh", 36,
+         "flash_1024_1024_bf16"))]
     require(all(math.isfinite(v) for k in kernels for v in
                 (k["ms"], k["plain_ms"], k["bound_ms"], k["library_ms"])
                 if v is not None), "non-finite time")

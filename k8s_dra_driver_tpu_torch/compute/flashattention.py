@@ -50,15 +50,25 @@ On the card each wrapper picks one of five routes by dtypes and head dims
   ``csrc/mixed_decode.cu``), each operand copied in its own dtype, a
   16-bit one entering its products once (it is exact in TF32) and an f32
   one as hi and lo; p rounded to V's dtype where V is 16-bit;
-- general: anything else (K and V in different dtypes, a mixed decode
-  whose rows the ring kernel does not take, head dims past the wide, f32
-  and mixed routes'): SIMT kernels that convert each operand from its own
-  dtype on load and walk any head dim in chunks, with dv split across
-  blocks.
+- any: anything else (K and V in different dtypes, a mixed decode whose
+  rows the ring kernel does not take, a mixed decode cache off a 16-byte
+  boundary, head dims past the wide, f32 and mixed routes'), at any head
+  dims and in any mix of dtypes. Flash: the tensor-core kernels of
+  ``csrc/cluster_flash.cuh`` (built by ``cluster_flash_q32.cu`` and
+  ``cluster_flash_q16.cu``), the f32 body with each operand's dtype its own
+  and a cluster of CTAs that split d between them, sum their partial
+  scores through distributed shared memory and take 256 columns of dv each
+  (one CTA a slice, computing the scores itself, where d is at most 128;
+  ``cluster_flash_plan``), padded head dims; decode: the byte-streaming
+  kernel of ``csrc/stream_decode.cu``, which reads each valid K and V row
+  once through a ring of bulk copies (plain copies where a row is not whole
+  16-byte chunks or the cache starts off a 16-byte boundary), takes every
+  query row in one call, up to STREAM_ROWS a block, and splits the cache
+  across blocks (``stream_decode_plan``), then merges the splits.
 
-The tuned and general decode kernels launch once per group of up to
-MAX_Q_LEN query rows (the ring kernel's merge, where it splits the cache,
-counts as part of its launch).
+The tuned decode kernels launch once per group of up to MAX_Q_LEN query
+rows (the ring kernel's merge, where it splits the cache, counts as part
+of its launch); every other decode route once a call.
 """
 
 from __future__ import annotations
@@ -81,9 +91,6 @@ from k8s_dra_driver_tpu_torch.compute.ringattention import (
 MAX_Q_LEN = 8
 TUNED_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 16
-#: The general decode kernel holds a launch's query rows in shared memory
-#: as f32; past this many bytes the wrapper takes fewer rows a launch.
-GENERAL_Q_SMEM_BYTES = 192 * 1024
 #: The wide route's largest padded head dims; its query rows and keys per
 #: tile; the least keys of one split of the decode cache, and the blocks an
 #: SM that the split count aims for.
@@ -111,8 +118,31 @@ F32_DV_CHUNK = 256
 F32_SPLIT_MIN_KEYS = 256
 F32_BLOCKS_PER_SM = 3
 
+#: The any-dtype flash (``csrc/cluster_flash.cuh``): the output columns
+#: one CTA of a cluster takes (a dv of at most half of them takes one CTA
+#: of that half), the most CTAs a cluster, and the columns of d in one of a
+#: CTA's panel groups.
+CLUSTER_DV_COLS = 256
+CLUSTER_MAX_CTAS = 8
+CLUSTER_GROUP_COLS = 128
+#: The any-dtype decode (``csrc/stream_decode.cu``): query rows a block, the
+#: most keys a tile, the ring's stages, a block's shared memory at one and
+#: at two blocks an SM, and the least keys of one split of the cache.
+STREAM_ROWS = 8
+STREAM_MAX_TILE = 64
+STREAM_STAGES = 3
+STREAM_SMEM_ONE = 232448
+STREAM_SMEM_TWO = 113 * 1024
+STREAM_SPLIT_MIN_KEYS = 256
+#: The any-dtype decode's split count aims for this many blocks for each
+#: block slot of the card (more, shorter splits even out ragged lengths; 4
+#: ran fastest of 1, 2 and 4 at every row of ``chip_ab.py stream-splits``
+#: on an H100).
+STREAM_WAVES = 4
+
 #: Each dtype's suffix of a tuned kernel's C entry and its code in the
-#: general kernels' C entries; the dtypes each source's tuned kernel takes.
+#: entries that take a dtype at run time; the dtypes each source's tuned
+#: kernel takes.
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TUNED = {"decode_attention": tuple(_DTYPES),
@@ -275,6 +305,90 @@ def tuned_decode_splits(b: int, h: int, kv_cap: int, tile: int,
     return -(-kv_cap // split_keys), split_keys
 
 
+def cluster_flash_plan(d: int, dv: int) -> tuple[int, int, int]:
+    """(CTAs a cluster, d panel groups a CTA, 32-column V panels a CTA)
+    of the any-dtype flash kernel for padded head dims ``d`` and ``dv``.
+
+    A CTA takes CLUSTER_DV_COLS columns of dv (8 panels; 4 where dv is at
+    most half of that, with one CTA); a cluster takes as many CTAs as dv has
+    such slices, at most CLUSTER_MAX_CTAS (past that a query tile takes one
+    cluster item per CLUSTER_MAX_CTAS slices). The cluster's CTAs split d
+    between them in groups of CLUSTER_GROUP_COLS columns, the same count of
+    groups each (those wholly past d are skipped), so that each computes a
+    partial of S once per key tile, and the partials are summed. Where d is
+    one group or less, one CTA takes each slice of dv and computes S itself:
+    the exchange of partials cost more than S of so narrow a d (at 64/640 in
+    bf16 on an H100, 1.47 ms in clusters of 3 against 0.85, ``chip_ab.py
+    cluster-parts``)."""
+    vp = 4 if dv <= CLUSTER_DV_COLS // 2 else 8
+    cluster = 1 if vp == 4 or d <= CLUSTER_GROUP_COLS else min(
+        CLUSTER_MAX_CTAS, -(-dv // CLUSTER_DV_COLS))
+    groups = -(-d // (cluster * CLUSTER_GROUP_COLS))
+    return cluster, groups, vp
+
+
+def stream_decode_smem(tile: int, rows: int, d: int, dv: int, k_size: int,
+                       v_size: int) -> int:
+    """Shared-memory bytes of one block of the any-dtype decode kernel:
+    STREAM_STAGES stages of ``tile`` keys' K and V rows (``k_size`` and
+    ``v_size`` bytes an element, each span on 16 bytes), its barriers, q of
+    ``rows`` query rows and O of each of its key groups as f32 (O's dv
+    rounded up to 4; as many groups of dv / 4 threads as its 256 consumer
+    threads hold), two buffers of the tile's scores for 8 rows, and 8 rows'
+    corrections, max and denominator (``stream_decode.cu``'s layout)."""
+    r16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    stage = r16(tile * d * k_size) + r16(tile * dv * v_size)
+    dvo = -(-dv // 4) * 4
+    groups = max(1, 256 // (dvo // 4))
+    return (STREAM_STAGES * stage + r16(2 * STREAM_STAGES * 8)
+            + r16(rows * d * 4) + r16(groups * rows * dvo * 4)
+            + 2 * tile * 8 * 4 + 4 * 8 * 4)
+
+
+@functools.lru_cache(maxsize=4096)
+def stream_decode_plan(b: int, h: int, ql: int, kv_cap: int, d: int, dv: int,
+                       k_size: int, v_size: int,
+                       sms: int) -> tuple[int, int, int, int]:
+    """(query rows a block, keys a tile, splits, keys per split) of the
+    any-dtype decode kernel, for K and V elements of ``k_size`` and
+    ``v_size`` bytes.
+
+    A block takes up to STREAM_ROWS query rows (every row of the call goes
+    to one launch, a grid dimension over groups of rows) and a tile of up to
+    STREAM_MAX_TILE keys (a multiple of 8, the consumer warps, once it has
+    8), the most that fit STREAM_SMEM_TWO (two blocks an SM) with at least
+    8 keys, else STREAM_SMEM_ONE with fewer rows a block if need be. The
+    cache of each (b, h, group of rows) is split so that the grid holds
+    about STREAM_WAVES blocks for each block slot of ``sms`` SMs, but no
+    split has fewer than STREAM_SPLIT_MIN_KEYS keys, and a split is a whole
+    number of tiles. From the shapes alone: the lengths are on the device,
+    and reading them would wait for it. Head dims whose rows do not fit one
+    key a tile raise ValueError."""
+    def fit(budget: int, rows: int) -> int:
+        tile = STREAM_MAX_TILE
+        while tile and stream_decode_smem(tile, rows, d, dv, k_size,
+                                          v_size) > budget:
+            tile -= 1
+        return tile - tile % 8 if tile >= 8 else tile
+
+    rows = min(ql, STREAM_ROWS)
+    tile, per_sm = fit(STREAM_SMEM_TWO, rows), 2
+    if tile < min(8, kv_cap):
+        tile, per_sm = fit(STREAM_SMEM_ONE, rows), 1
+        while not tile and rows > 1:
+            rows = -(-rows // 2)
+            tile = fit(STREAM_SMEM_ONE, rows)
+    if not tile:
+        raise ValueError(f"head dims d={d}, dv={dv} are too wide for the "
+                         f"decode kernel's shared memory")
+    tiles = -(-kv_cap // tile)
+    blocks = b * h * -(-ql // rows)
+    want = -(-STREAM_WAVES * per_sm * sms // blocks)
+    most = max(1, tiles * tile // STREAM_SPLIT_MIN_KEYS)
+    split_keys = -(-tiles // max(1, min(want, most))) * tile
+    return rows, tile, -(-kv_cap // split_keys), split_keys
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -330,9 +444,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
     current stream (``tuned_kernel_takes``, ``wide_kernel_takes``,
-    ``f32_kernel_takes`` and ``mixed_kernel_takes`` say which), counted in
-    ``flash_attention.launches``; CPU tensors go through
-    ``reference_attention``."""
+    ``f32_kernel_takes`` and ``mixed_kernel_takes`` say which; the any-dtype
+    kernel takes the rest), counted in ``flash_attention.launches``; CPU
+    tensors go through ``reference_attention``."""
     if q.dim() != 4:
         raise ValueError(f"q must be [b,h,S,d], got {tuple(q.shape)}")
     seq = q.shape[2]
@@ -379,12 +493,25 @@ def _launch_flash(q, k, v, causal: bool, stream: int) -> torch.Tensor:
                                    [p, p, p, p, i, i, i, i, i, f, p])
             err = fn(*args, stream)
     else:
-        fn, err_str = _c_entry("flash_attention", "general",
-                               [p, p, p, p, i, i, i, i, i, f, i, i, i, p])
-        out = torch.empty((b, h, seq, dv), dtype=q.dtype, device=q.device)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b * h, seq, d, dv, int(causal), scale, _CODES[q.dtype],
-                 _CODES[k.dtype], _CODES[v.dtype], stream)
+        # The any-dtype kernel: padded dims, each operand in its own dtype
+        # (TMA reads each from a 16-byte boundary: a view off one is copied).
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in
+                   (_pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)))
+        out = torch.empty((b, h, seq, dvp), dtype=q.dtype, device=q.device)
+        cluster, groups, vp = cluster_flash_plan(dp, dvp)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b * h, seq, dp, dvp, int(causal), scale)
+        plan = (_CODES[k.dtype], _CODES[v.dtype], cluster, groups, vp)
+        if q.dtype == torch.float32:
+            fn, err_str = _c_entry("cluster_flash_q32", "run",
+                                   [p, p, p, p, i, i, i, i, i, f, i, i, i, i,
+                                    i, p])
+            err = fn(*args, *plan, stream)
+        else:
+            fn, err_str = _c_entry("cluster_flash_q16", "run",
+                                   [p, p, p, p, i, i, i, i, i, f, i, i, i, i,
+                                    i, i, p])
+            err = fn(*args, _CODES[q.dtype], *plan, stream)
     _raise_on(err, err_str, "flash_attention")
     with _LAUNCH_COUNT_MU:
         flash_attention.launches += 1
@@ -457,13 +584,13 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
     current stream (``tuned_kernel_takes``, ``wide_kernel_takes``,
-    ``f32_kernel_takes`` and ``mixed_kernel_takes`` say which): the wide,
-    f32 and mixed kernels in one call for every query row, the others one
-    launch per group of up to MAX_Q_LEN query rows (the rows do not attend
-    to each other), each call counted in
-    ``flash_attention_decode.launches``. No route casts or copies the cache
-    (the wide, f32 and mixed ones pad a head dim that is not a multiple of
-    16). CPU tensors go through ``decode_attention_reference``."""
+    ``f32_kernel_takes`` and ``mixed_kernel_takes`` say which; the
+    any-dtype kernel takes the rest): the tuned kernels one launch per
+    group of up to MAX_Q_LEN query rows (the rows do not attend to each
+    other), every other route one launch for every query row, each launch
+    counted in ``flash_attention_decode.launches``. No route casts or copies
+    the cache (the wide, f32 and mixed ones pad a head dim that is not a
+    multiple of 16). CPU tensors go through ``decode_attention_reference``."""
     kv_cap = k.shape[2]
     block_k = min(block_k, kv_cap)
     if kv_cap % block_k:
@@ -481,11 +608,10 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_decode(q, k, v, kv_lengths, stream: int,
                    sms: int | None = None) -> torch.Tensor:
     """The decode kernel that takes these checked inputs, launched on
-    ``stream`` (the wide, f32 and mixed kernels once, the others once per
-    group of query rows); each launch counted in
-    ``flash_attention_decode.launches``. ``sms``: the SM count that sizes
-    the wide, f32, mixed and ring kernels' splits (the device's by
-    default)."""
+    ``stream`` (the tuned kernels once per group of query rows, the others
+    once); each launch counted in ``flash_attention_decode.launches``.
+    ``sms``: the SM count that sizes the splits of every kernel that splits
+    the cache (the device's by default)."""
     b, h, ql, d = q.shape
     kv_cap, dv = k.shape[2], v.shape[3]
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -509,35 +635,30 @@ def _launch_decode(q, k, v, kv_lengths, stream: int,
         return _launch_decode_once(q, k, v, kv_lengths, stream,
                                    "mixed_decode", "f32tc", split,
                                    (_CODES[q.dtype], _CODES[k.dtype]))
+    if not tuned:
+        return _launch_stream_decode(q, k, v, kv_lengths, stream,
+                                     sms or _sm_count(q.device))
     ints = [i] * 8   # b, h, ql, row0, rows, cap, d, dv
     group = MAX_Q_LEN
-    if tuned:
-        # The entry of K's and V's dtype; q's dtype goes as its code.
-        fn, err_str = _c_entry("decode_attention", _DTYPES[k.dtype],
-                               [p] * 7 + ints + [ctypes.c_float, i, i, i, p])
-        tile = tuned_decode_tile(k.dtype, d, dv) if ring_kernel_takes(
-            k, v, d, dv) else 0
-        splits, split_keys = (tuned_decode_splits(
-            b, h, kv_cap, tile, sms or _sm_count(q.device)) if tile
-            else (1, kv_cap))
-        work = ()
-        if splits > 1:
-            # f32 partials of one launch's rows; the launches of a call run
-            # in stream order, each merged before the next writes.
-            rows = min(ql, group)
-            work = (torch.empty(b * h * splits * rows * dv,
-                                dtype=torch.float32, device=q.device),
-                    torch.empty(b * h * splits * rows * 2,
-                                dtype=torch.float32, device=q.device))
-        ptrs = tuple(t.data_ptr() for t in work) or (None, None)
-        tail = (splits, split_keys, _CODES[q.dtype])
-    else:
-        fn, err_str = _c_entry("decode_attention", "general",
-                               [p] * 5 + ints + [ctypes.c_float] + [i] * 3
-                               + [p])
-        ptrs = ()
-        tail = (_CODES[q.dtype], _CODES[k.dtype], _CODES[v.dtype])
-        group = max(1, min(MAX_Q_LEN, GENERAL_Q_SMEM_BYTES // (4 * d)))
+    # The entry of K's and V's dtype; q's dtype goes as its code.
+    fn, err_str = _c_entry("decode_attention", _DTYPES[k.dtype],
+                           [p] * 7 + ints + [ctypes.c_float, i, i, i, p])
+    tile = tuned_decode_tile(k.dtype, d, dv) if ring_kernel_takes(
+        k, v, d, dv) else 0
+    splits, split_keys = (tuned_decode_splits(
+        b, h, kv_cap, tile, sms or _sm_count(q.device)) if tile
+        else (1, kv_cap))
+    work = ()
+    if splits > 1:
+        # f32 partials of one launch's rows; the launches of a call run in
+        # stream order, each merged before the next writes.
+        rows = min(ql, group)
+        work = (torch.empty(b * h * splits * rows * dv,
+                            dtype=torch.float32, device=q.device),
+                torch.empty(b * h * splits * rows * 2,
+                            dtype=torch.float32, device=q.device))
+    ptrs = tuple(t.data_ptr() for t in work) or (None, None)
+    tail = (splits, split_keys, _CODES[q.dtype])
     out = torch.empty((b, h, ql, dv), dtype=q.dtype, device=q.device)
     for row0 in range(0, ql, group):
         rows = min(group, ql - row0)
@@ -548,6 +669,37 @@ def _launch_decode(q, k, v, kv_lengths, stream: int,
         with _LAUNCH_COUNT_MU:   # engines launch from several threads
             flash_attention_decode.launches += 1
     return out
+
+
+def _launch_stream_decode(q, k, v, kv_lengths, stream: int,
+                          sms: int) -> torch.Tensor:
+    """One call of the any-dtype decode entry (the kernel and, with more
+    than one split, its merge) for every query row, at the true head dims,
+    each operand in its own dtype: the plan of ``stream_decode_plan``, f32
+    partials in a workspace, out's rows rounded up to 4 columns."""
+    b, h, ql, d = q.shape
+    kv_cap, dv = k.shape[2], v.shape[3]
+    rows, tile, splits, split_keys = stream_decode_plan(
+        b, h, ql, kv_cap, d, dv, k.dtype.itemsize, v.dtype.itemsize, sms)
+    dvo = -(-dv // 4) * 4
+    work = (None, None)
+    if splits > 1:
+        work = tuple(torch.empty(b * h * splits * ql * n, dtype=torch.float32,
+                                 device=q.device) for n in (dvo, 2))
+    out = torch.empty((b, h, ql, dvo), dtype=q.dtype, device=q.device)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn, err_str = _c_entry("stream_decode", "run",
+                           [p] * 7 + [i] * 11 + [ctypes.c_float] + [i] * 3
+                           + [p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lengths.data_ptr(),
+             out.data_ptr(), *(t if t is None else t.data_ptr() for t in work),
+             b, h, ql, rows, kv_cap, d, dv, dvo, tile, splits, split_keys,
+             1.0 / math.sqrt(d), _CODES[q.dtype], _CODES[k.dtype],
+             _CODES[v.dtype], stream)
+    _raise_on(err, err_str, "decode_attention")
+    with _LAUNCH_COUNT_MU:
+        flash_attention_decode.launches += 1
+    return out if dvo == dv else out[..., :dv].contiguous()
 
 
 def _launch_decode_once(q, k, v, kv_lengths, stream: int, source: str,

@@ -10,8 +10,8 @@
 //
 // Layout: q is [b, h, ql, d], k is [b, h, cap, d], v is [b, h, cap, dv] and
 // out is [b, h, ql, dv], all contiguous; lens is [b] int32 and applies to
-// every head of its sequence. A launch of the tuned or the general kernel
-// takes query rows [row0, row0 + rows) of q, rows <= 8; the query rows do
+// every head of its sequence. A launch of the tuned kernels takes query rows
+// [row0, row0 + rows) of q, rows <= 8; the query rows do
 // not attend to each other, so a caller with more rows launches once per
 // group of 8 and the groups write disjoint rows of out. The wide entry takes
 // every row in one call.
@@ -46,8 +46,8 @@
 //     job);
 //   * anything else (k and v in different dtypes, a mixed call whose rows
 //     the ring kernel does not take, or head dims past the wide, f32 and
-//     mixed kernels'): `decode_general_kernel`, entry
-//     decode_attention_general.
+//     mixed kernels'): the any-dtype kernel of stream_decode.cu (its own
+//     nvcc job), every query row in one call.
 //
 // What bounds it: device-memory bytes. Every valid K and V row is read once,
 // (d + dv) * sizeof(T) bytes per key per head (1 KiB at d = 128 in f32), and
@@ -107,29 +107,6 @@
 // G = 32 lanes hold a 512-byte row): at the f32 serve shape on an H100 it
 // ran 0.696-0.705 ms against the per-warp kernel's 0.732-0.736 in one
 // call's interleaved turns (`chip_ab.py decode`; PERF.md).
-// The general kernel keeps the per-warp walk and lifts the width limit: a
-// block takes 256 output columns (a second grid dimension over dv, each
-// block computing the full scores again: q.k is cheap next to the bytes),
-// walks d in chunks of one warp load, holds the launch's query rows in
-// shared memory as f32 (interleaved so that a warp's reads hit 32 banks;
-// row-major, a warp's reads of a row meet 8-way bank conflicts), and
-// converts each operand from its own dtype as it is loaded (by a code
-// read at run time: 8 elements a lane a load in every dtype, one 16-byte
-// load of 16-bit elements or two of f32, so one kernel serves every mix of
-// dtypes), so no caller has to cast a cache. Each block re-reads all of K:
-// at dv = 512 the bytes are 2 d + dv per key, not d + dv.
-// What holds the general kernel back (PERF.md): a grid of b * h * (dv /
-// 256) blocks leaves most SMs idle when b * h is small, and each warp's
-// batch waits on one load round trip per chunk of d. Its 16-bit calls at
-// head dims up to 576/512, absorbed MLA's among them (16 launches of 8
-// rows, each reading the whole latent cache: 24 ms on an H100 where the
-// library took 0.48), go to the wide kernel instead, and its f32 calls up
-// to 576/512 (15.9 ms there, the library 1.43) to the f32 tensor-core
-// kernel; mixed dtypes whose K and V share one went to the ring kernel
-// (d, dv <= 256, rows of whole 16-byte chunks) and to mixed_decode.cu (up
-// to 576/512). It keeps K and V in different dtypes, a mixed call whose
-// rows the ring kernel does not take, and heads past 576/512 in every
-// dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -842,281 +819,6 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
   return ring::launch<T>(a, lanes, s);
 }
 
-// ---- general kernel: any head dims; q, k and v each in its own dtype ------
-
-constexpr int kDvBlock = kThreads;  // output columns per block (grid.y)
-
-// 8 consecutive elements from element i of a tensor of dtype code `type`,
-// as floats: one 16-byte load of 16-bit elements or two of f32 (the element
-// 16-byte aligned).
-__device__ __forceinline__ void load8_any(const void* p, int type, size_t i,
-                                          float (&out)[8]) {
-  if (type == kF32) {
-    const uint4* src =
-        reinterpret_cast<const uint4*>(static_cast<const float*>(p) + i);
-    const uint4 a = __ldg(src), b = __ldg(src + 1);
-    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int e = 0; e < 8; ++e) out[e] = __uint_as_float(w[e]);
-  } else {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-        static_cast<const uint16_t*>(p) + i));
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      out[2 * e] = from16(w[e] & 0xffffu, type == kF16);
-      out[2 * e + 1] = from16(w[e] >> 16, type == kF16);
-    }
-  }
-}
-
-// E elements from element i of a tensor of dtype code `type`: load8_any
-// where E is 8, else one element.
-template <int E>
-__device__ __forceinline__ void load_e(const void* p, int type, size_t i,
-                                       float (&out)[E]) {
-  if constexpr (E == 8)
-    load8_any(p, type, i, out);
-  else
-    out[0] = load_any(p, type, i);
-}
-
-// x rounded to the dtype of code `type` (p before P V).
-__device__ __forceinline__ float round_to(int type, float x) {
-  return type == kF32 ? x : round16(x, type == kF16);
-}
-
-// QL: query rows the kernel is built for (rows <= QL). kVec: 8 elements a
-// lane a load (d and dv multiples of 8, k and v 16-byte aligned); else one.
-// q_type, k_type, v_type: each operand's dtype code; out is in q's. Block
-// (bh, y) computes output columns [256 y, 256 y + 256) of every row.
-template <int QL, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    decode_general_kernel(const void* __restrict__ q,
-                          const void* __restrict__ k,
-                          const void* __restrict__ v,
-                          const int* __restrict__ lens, void* __restrict__ out,
-                          int h, int ql, int row0, int rows, int cap, int d,
-                          int dv, float scale, int q_type, int k_type,
-                          int v_type) {
-  constexpr int EK = kVec ? 8 : 1;                 // K elements per lane load
-  constexpr int EV = EK;                           // V elements per lane load
-  constexpr int kChunkK = 32 * EK;                 // d columns per warp load
-  constexpr int kChunkV = 32 * EV;
-  constexpr int kChunksV = kDvBlock / kChunkV;     // per block's columns
-  // The launch's query rows as f32, laid out so that a warp reads one
-  // element of each lane's share of a chunk from 32 consecutive floats (no
-  // bank conflict): column ch * kChunkK + lane * EK + e of row r at
-  // (ch * rows + r) * kChunkK + e * 32 + lane, zeros past d.
-  extern __shared__ float q_s[];
-  __shared__ float m_s[kWarps][QL];
-  __shared__ float l_s[kWarps][QL];
-  __shared__ float acc_s[kWarps][kDvBlock];
-
-  const int bh = blockIdx.x;
-  const int c0 = blockIdx.y * kDvBlock;
-  const int ncols = min(kDvBlock, dv - c0);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const size_t k_off = static_cast<size_t>(bh) * cap * d;
-  const size_t v_off = static_cast<size_t>(bh) * cap * dv + c0;
-  const size_t q_off = (static_cast<size_t>(bh) * ql + row0) * d;
-  const size_t o_off = (static_cast<size_t>(bh) * ql + row0) * dv + c0;
-
-  const int n_ch = (d + kChunkK - 1) / kChunkK;
-  for (int i = tid; i < n_ch * rows * kChunkK; i += kThreads) {
-    const int ch_r = i / kChunkK, rem = i - ch_r * kChunkK;
-    const int ch = ch_r / rows, r = ch_r - ch * rows;
-    const int e = rem / 32, ln = rem - e * 32;
-    const int col = ch * kChunkK + ln * EK + e;
-    q_s[i] = col < d ? load_any(q, q_type, q_off + static_cast<size_t>(r) * d
-                                               + col)
-                     : 0.f;
-  }
-  __syncthreads();
-
-  const int n_valid = min(lens[bh / h], cap);
-  float m[QL], l[QL], acc[QL][kChunksV][EV];
-#pragma unroll
-  for (int r = 0; r < QL; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < kChunksV; ++ch)
-#pragma unroll
-      for (int e = 0; e < EV; ++e) acc[r][ch][e] = 0.f;
-  }
-
-  // Warp w takes keys [w * kBatch, (w + 1) * kBatch), then the same span
-  // kWarps * kBatch further on, and so on, as the tuned kernel does.
-  for (int base = warp * kBatch; base < n_valid; base += kWarps * kBatch) {
-    // The batch's V rows (this block's columns) are requested first: they
-    // wait on nothing.
-    float vr[kBatch][kChunksV][EV];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-#pragma unroll
-      for (int ch = 0; ch < kChunksV; ++ch) {
-        const int c = ch * kChunkV + lane * EV;
-        if (base + u < n_valid && c < ncols) {
-          load_e<EV>(v, v_type,
-                     v_off + static_cast<size_t>(base + u) * dv + c,
-                     vr[u][ch]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < EV; ++e) vr[u][ch][e] = 0.f;
-        }
-      }
-    // Each lane's share of q.k, d walked one warp load at a time.
-    float part[QL][kBatch];
-#pragma unroll
-    for (int r = 0; r < QL; ++r)
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) part[r][u] = 0.f;
-#pragma unroll 2
-    for (int ch = 0; ch < n_ch; ++ch) {
-      const int c = ch * kChunkK + lane * EK;
-      float kr[kBatch][EK];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (base + u < n_valid && c < d) {
-          load_e<EK>(k, k_type,
-                     k_off + static_cast<size_t>(base + u) * d + c, kr[u]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < EK; ++e) kr[u][e] = 0.f;
-        }
-      }
-      const float* qc = q_s + ch * rows * kChunkK + lane;
-#pragma unroll
-      for (int r = 0; r < QL; ++r) {
-        if (r < rows) {
-#pragma unroll
-          for (int e = 0; e < EK; ++e) {
-            const float qv = qc[r * kChunkK + e * 32];
-#pragma unroll
-            for (int u = 0; u < kBatch; ++u)
-              part[r][u] = fmaf(qv, kr[u][e], part[r][u]);
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < QL; ++r) {
-      float s[kBatch];
-      float m_new = m[r];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        s[u] = base + u < n_valid ? warp_sum(part[r][u]) * scale
-                                  : -CUDART_INF_F;
-        m_new = fmaxf(m_new, s[u]);
-      }
-      // Key `base` is valid, so m_new is finite (as in the tuned kernel).
-      const float corr = expf(m[r] - m_new);
-      float p[kBatch], psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const float pu = expf(s[u] - m_new);
-        psum += pu;
-        p[u] = round_to(v_type, pu);  // p in V's dtype for PV
-      }
-      l[r] = l[r] * corr + psum;
-      m[r] = m_new;
-#pragma unroll
-      for (int ch = 0; ch < kChunksV; ++ch)
-#pragma unroll
-        for (int e = 0; e < EV; ++e) {
-          float a = acc[r][ch][e] * corr;
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) a = fmaf(p[u], vr[u][ch][e], a);
-          acc[r][ch][e] = a;
-        }
-    }
-  }
-
-  // The warps' merge, as in the tuned kernel, over this block's columns.
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < QL; ++r) {
-      m_s[warp][r] = m[r];
-      l_s[warp][r] = l[r];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < QL; ++r) {
-    if (r >= rows) break;
-#pragma unroll
-    for (int ch = 0; ch < kChunksV; ++ch)
-#pragma unroll
-      for (int e = 0; e < EV; ++e)
-        acc_s[warp][ch * kChunkV + lane * EV + e] = acc[r][ch][e];
-    __syncthreads();
-    if (tid < ncols) {
-      float m_tot = -CUDART_INF_F;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) m_tot = fmaxf(m_tot, m_s[w][r]);
-      float num = 0.f, den = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float mw = m_s[w][r];
-        const float wt = mw == -CUDART_INF_F ? 0.f : expf(mw - m_tot);
-        num = fmaf(wt, acc_s[w][tid], num);
-        den = fmaf(wt, l_s[w][r], den);
-      }
-      store_any(out, q_type, o_off + static_cast<size_t>(r) * dv + tid,
-                num / den);
-    }
-    __syncthreads();
-  }
-}
-
-template <int QL, bool kVec>
-int launch_general_as(const void* q, const void* k, const void* v,
-                      const void* lens, void* out, int b, int h, int ql,
-                      int row0, int rows, int cap, int d, int dv, float scale,
-                      int q_type, int k_type, int v_type,
-                      cudaStream_t stream) {
-  const auto kernel = decode_general_kernel<QL, kVec>;
-  constexpr int kChunkK = 32 * (kVec ? 8 : 1);
-  const size_t smem = static_cast<size_t>(rows) *
-                      ((d + kChunkK - 1) / kChunkK) * kChunkK * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(b * h, (dv + kDvBlock - 1) / kDvBlock);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, v, static_cast<const int*>(lens), out, h, ql, row0, rows, cap, d,
-      dv, scale, q_type, k_type, v_type);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_general(const void* q, const void* k, const void* v,
-                   const void* lens, void* out, int b, int h, int ql, int row0,
-                   int rows, int cap, int d, int dv, float scale, int q_type,
-                   int k_type, int v_type, cudaStream_t s) {
-  const bool vec = d % 8 == 0 && dv % 8 == 0 &&
-                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  if (rows == 1)
-    return vec ? launch_general_as<1, true>(q, k, v, lens, out, b, h, ql,
-                                            row0, rows, cap, d, dv, scale,
-                                            q_type, k_type, v_type, s)
-               : launch_general_as<1, false>(q, k, v, lens, out, b, h, ql,
-                                             row0, rows, cap, d, dv, scale,
-                                             q_type, k_type, v_type, s);
-  return vec ? launch_general_as<kMaxQ, true>(q, k, v, lens, out, b, h, ql,
-                                              row0, rows, cap, d, dv, scale,
-                                              q_type, k_type, v_type, s)
-             : launch_general_as<kMaxQ, false>(q, k, v, lens, out, b, h, ql,
-                                               row0, rows, cap, d, dv, scale,
-                                               q_type, k_type, v_type, s);
-}
-
 }  // namespace
 
 // Plain C entries for ctypes. Each launches on `stream` (a cudaStream_t) on
@@ -1204,24 +906,6 @@ int decode_attention_f32tc(const void* q, const void* k, const void* v,
   return f32tc::launch_decode<false, false>(
       q, k, v, lens, out, part_o, part_ml, b, h, ql, cap, d, dv, scale,
       splits, split_keys, 0, 0, static_cast<cudaStream_t>(stream));
-}
-
-// Any head dims; q_type, k_type and v_type are each 0 (f32), 1 (bf16) or 2
-// (f16), and out has q's dtype.
-int decode_attention_general(const void* q, const void* k, const void* v,
-                             const void* lens, void* out, int b, int h,
-                             int ql, int row0, int rows, int cap, int d,
-                             int dv, float scale, int q_type, int k_type,
-                             int v_type, void* stream) {
-  const auto type_ok = [](int t) { return t >= kF32 && t <= kF16; };
-  if (b < 1 || h < 1 || cap < 1 || rows < 1 || rows > kMaxQ || row0 < 0 ||
-      row0 + rows > ql || d < 1 || dv < 1 ||
-      (dv + kDvBlock - 1) / kDvBlock > 65535 || !type_ok(q_type) ||
-      !type_ok(k_type) || !type_ok(v_type))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_general(q, k, v, lens, out, b, h, ql, row0, rows, cap, d, dv,
-                        scale, q_type, k_type, v_type,
-                        static_cast<cudaStream_t>(stream));
 }
 
 const char* decode_attention_error_string(int code) {

@@ -29,8 +29,9 @@
 //     (padded the same way): the same f32 tensor-core body built for
 //     16-bit q or K and V, in mixed_flash.cu (its own nvcc job);
 //   * anything else (k and v in different dtypes, or head dims past the
-//     wide, f32 and mixed paths'; any d, dv >= 1): SIMT,
-//     flash_attention_general.
+//     wide, f32 and mixed paths'): the any-dtype tensor-core kernels of
+//     cluster_flash.cuh, in cluster_flash_q32.cu and cluster_flash_q16.cu
+//     (each its own nvcc job).
 //
 // What bounds it: operations. Per (b, h) the kernel does 4 S^2 d multiply-adds
 // counted as flops (half of them under causal) on (3 d + dv) S elements, so at
@@ -75,17 +76,6 @@
 // What holds it back (PERF.md): at S = 2048 about a fifth of its time is a
 // fixed cost per query tile; at S = 8192 it streams K and V from L2 at
 // ~5 TB/s.
-// The general path takes any widths and dtypes on the SIMT units (scalar
-// FMA, never TF32): Q K^T in 32-column chunks of d, the output columns split
-// 256 to a block (each block computes the scores again), each operand
-// converted from its own dtype as it is loaded, each thread a 4 x 4 block of
-// the scores. At d = 576, dv = 512 that was 2 x 576 + 512 multiply-adds per
-// score where the function needs 1,088, at ~1% of the bound (PERF.md); the
-// 16-bit calls there take the wide path now, and the f32 calls up to
-// 576/512 the f32 tensor-core path (on the H100 4.7x faster at the f32
-// headline; PERF.md, `chip_ab.py f32`), and the calls whose K and V share a
-// dtype apart from q's to mixed_flash.cu. It keeps K and V in different
-// dtypes and head dims past 576/512 in every dtype.
 
 #include <math_constants.h>
 
@@ -474,246 +464,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                               scale_log2, causal);
 }
 
-// ---- general path: any head dims; q, k and v each in its own dtype ---------
-
-constexpr int kRowsG = 64;       // query rows per block
-constexpr int kKeysG = 64;       // keys per tile
-constexpr int kChunkG = 32;      // d columns of the Q and K tiles at a time
-constexpr int kDvBlockG = 256;   // output columns per block (grid.z over dv)
-constexpr int kThreadsG = 256;   // 16 x 16: rows ty + 16 i, keys tx + 16 j
-constexpr int kLdQK = kChunkG + 4;  // row strides in floats: 16-byte rows
-constexpr int kLdP = kKeysG + 4;    // whose float4 reads meet no conflict
-constexpr int kChunkLoads = kRowsG * kChunkG / kThreadsG;  // per thread
-constexpr int kVLoads = kKeysG * kDvBlockG / kThreadsG;
-
-// The dtype codes of the general entry (the wrapper's): f32, bf16, f16.
-enum DtypeCode : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
-
-// Element i of a tensor whose dtype (code `type`) is known at run time.
-__device__ __forceinline__ float load_any(const void* p, int type, size_t i) {
-  if (type == kBF16) return __bfloat162float(static_cast<const bf16*>(p)[i]);
-  if (type == kF16) return __half2float(static_cast<const f16*>(p)[i]);
-  return static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_any(void* p, int type, size_t i,
-                                          float x) {
-  if (type == kBF16)
-    static_cast<bf16*>(p)[i] = __float2bfloat16(x);
-  else if (type == kF16)
-    static_cast<f16*>(p)[i] = __float2half(x);
-  else
-    static_cast<float*>(p)[i] = x;
-}
-
-// x rounded to the dtype of code `type` (p before P V).
-__device__ __forceinline__ float round_to(int type, float x) {
-  if (type == kBF16) return __bfloat162float(__float2bfloat16(x));
-  if (type == kF16) return __half2float(__float2half(x));
-  return x;
-}
-
-// This thread's share of rows [r0, r0 + 64) x columns [c0, c0 + 32) of the
-// row-major [S, cols] matrix that starts `off` elements into src, as f32;
-// zeros at rows >= S and columns >= cols.
-__device__ __forceinline__ void chunk_regs(float (&reg)[kChunkLoads],
-                                           const void* src, int type,
-                                           size_t off, int r0, int S,
-                                           int cols, int c0) {
-#pragma unroll
-  for (int t = 0; t < kChunkLoads; ++t) {
-    const int i = threadIdx.x + kThreadsG * t;
-    const int rr = i / kChunkG, cc = i % kChunkG;
-    reg[t] = r0 + rr < S && c0 + cc < cols
-                 ? load_any(src, type,
-                            off + static_cast<size_t>(r0 + rr) * cols + c0 +
-                                cc)
-                 : 0.f;
-  }
-}
-
-__device__ __forceinline__ void chunk_store(float* dst,
-                                            const float (&reg)[kChunkLoads]) {
-#pragma unroll
-  for (int t = 0; t < kChunkLoads; ++t) {
-    const int i = threadIdx.x + kThreadsG * t;
-    dst[(i / kChunkG) * kLdQK + i % kChunkG] = reg[t];
-  }
-}
-
-size_t smem_bytes_general() {
-  return (static_cast<size_t>(2) * kRowsG * kLdQK + kKeysG * kDvBlockG +
-          kRowsG * kLdP) *
-         sizeof(float);
-}
-
-// Exact attention for any d, dv >= 1, each operand in its own dtype, on the
-// SIMT units: a block takes 64 query rows and 256 output columns (grid.z;
-// each block computes the scores again), walking 64-key tiles. S = Q K^T
-// runs over d in 32-column chunks held in shared memory as f32, the next
-// chunk's loads in flight while the current one is used; each thread owns a
-// 4 x 4 block of S (rows ty + 16 i, keys tx + 16 j) and reads 4 columns of a
-// row as one float4, so 16 FMAs cost 2 shared loads; P V likewise, 4 rows x
-// 16 columns a thread. p is rounded to V's dtype before P V, and l sums the
-// unrounded p, as the TPU kernel does. One block an SM: capped at two (128
-// registers), the 64 accumulators spill.
-__global__ void __launch_bounds__(kThreadsG, 1)
-    flash_general_kernel(const void* __restrict__ q,
-                         const void* __restrict__ k,
-                         const void* __restrict__ v, void* __restrict__ out,
-                         int S, int d, int dv, float scale, int causal,
-                         int q_type, int k_type, int v_type) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);   // [64][kLdQK]
-  float* k_s = q_s + kRowsG * kLdQK;                 // [64][kLdQK]
-  float* v_s = k_s + kKeysG * kLdQK;                 // [64][256]
-  float* p_s = v_s + kKeysG * kDvBlockG;             // [64][kLdP]
-
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // the longest causal rows first
-  const int q0 = qt * kRowsG;
-  const int c0 = blockIdx.z * kDvBlockG;      // the block's first column
-  const int w = min(kDvBlockG, dv - c0);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const size_t qk_off = static_cast<size_t>(bh) * S * d;
-  const size_t v_off = static_cast<size_t>(bh) * S * dv;
-  const int n_tiles = (S + kKeysG - 1) / kKeysG;
-  const int n_kt = causal ? min(n_tiles, qt + 1) : n_tiles;
-  const int n_ch = (d + kChunkG - 1) / kChunkG;
-
-  float o[4][16];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) o[i][n] = 0.f;
-  }
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kKeysG;
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    float qr[kChunkLoads], kr[kChunkLoads];
-    chunk_regs(qr, q, q_type, qk_off, q0, S, d, 0);
-    chunk_regs(kr, k, k_type, qk_off, k0, S, d, 0);
-    for (int ch = 0; ch < n_ch; ++ch) {
-      // The previous chunk (or tile: its P and V too) is no longer read.
-      __syncthreads();
-      chunk_store(q_s, qr);
-      chunk_store(k_s, kr);
-      __syncthreads();
-      if (ch + 1 < n_ch) {
-        chunk_regs(qr, q, q_type, qk_off, q0, S, d, (ch + 1) * kChunkG);
-        chunk_regs(kr, k, k_type, qk_off, k0, S, d, (ch + 1) * kChunkG);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kChunkG; kk += 4) {
-        float4 qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          qv[i] = *reinterpret_cast<const float4*>(
-              q_s + (ty + 16 * i) * kLdQK + kk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          kv[j] = *reinterpret_cast<const float4*>(
-              k_s + (tx + 16 * j) * kLdQK + kk);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float a = s[i][j];
-            a = fmaf(qv[i].x, kv[j].x, a);
-            a = fmaf(qv[i].y, kv[j].y, a);
-            a = fmaf(qv[i].z, kv[j].z, a);
-            s[i][j] = fmaf(qv[i].w, kv[j].w, a);
-          }
-      }
-    }
-    // V's tile (the block's columns); its buffer was freed by the first
-    // chunk's barrier.
-    for (int t = 0; t < kVLoads; ++t) {
-      const int i = tid + kThreadsG * t;
-      const int rr = i / kDvBlockG, cc = i % kDvBlockG;
-      v_s[i] = k0 + rr < S && cc < w
-                   ? load_any(v, v_type,
-                              v_off + static_cast<size_t>(k0 + rr) * dv + c0 +
-                                  cc)
-                   : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        s[i][j] = col >= S || (causal && col > row) ? -CUDART_INF_F
-                                                    : s[i][j] * scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // The row's 16 threads are 16 consecutive lanes.
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // A row with no unmasked key yet (past S) keeps its exponents finite.
-      const float base = mx == -CUDART_INF_F ? 0.f : mx;
-      const float corr = expf(m[i] - base);
-      m[i] = mx;
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - base);
-        ps += p;
-        p_s[(ty + 16 * i) * kLdP + tx + 16 * j] = round_to(v_type, p);
-      }
-      l[i] = l[i] * corr + ps;
-#pragma unroll
-      for (int n = 0; n < 16; ++n) o[i][n] *= corr;
-    }
-    __syncthreads();
-    for (int key = 0; key < kKeysG; ++key) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = p_s[(ty + 16 * i) * kLdP + key];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const float4 vv = *reinterpret_cast<const float4*>(
-            v_s + key * kDvBlockG + 64 * n + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][4 * n] = fmaf(p[i], vv.x, o[i][4 * n]);
-          o[i][4 * n + 1] = fmaf(p[i], vv.y, o[i][4 * n + 1]);
-          o[i][4 * n + 2] = fmaf(p[i], vv.z, o[i][4 * n + 2]);
-          o[i][4 * n + 3] = fmaf(p[i], vv.w, o[i][4 * n + 3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1)
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const size_t o_row = (static_cast<size_t>(bh) * S + row) * dv + c0;
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 64 * n + 4 * tx + e;
-        if (col < w) store_any(out, q_type, o_row + col, o[i][4 * n + e] / l[i]);
-      }
-  }
-}
-
 // ---- launch ---------------------------------------------------------------
 
 // The shapes the wgmma path takes.
@@ -822,31 +572,6 @@ int flash_attention_f32tc(const void* q, const void* k, const void* v,
   return f32tc::launch_flash<false, false>(
       q, k, v, out, bh, S, d, dv, causal, scale, 0, 0,
       static_cast<cudaStream_t>(stream));
-}
-
-// Any head dims d, dv >= 1; q_type, k_type and v_type are each 0 (f32), 1
-// (bf16) or 2 (f16), and out has q's dtype.
-int flash_attention_general(const void* q, const void* k, const void* v,
-                            void* out, int bh, int S, int d, int dv,
-                            int causal, float scale, int q_type, int k_type,
-                            int v_type, void* stream) {
-  const auto type_ok = [](int t) { return t >= kF32 && t <= kF16; };
-  if (bh < 1 || S < 1 || d < 1 || dv < 1 ||
-      (S + kRowsG - 1) / kRowsG > 65535 ||
-      (dv + kDvBlockG - 1) / kDvBlockG > 65535 || !type_ok(q_type) ||
-      !type_ok(k_type) || !type_ok(v_type))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes_general();
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (S + kRowsG - 1) / kRowsG,
-                  (dv + kDvBlockG - 1) / kDvBlockG);
-  flash_general_kernel<<<grid, kThreadsG, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, S, d, dv, scale, causal, q_type, k_type, v_type);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* flash_attention_error_string(int code) {

@@ -20,7 +20,7 @@
 // key, at 2 + 1 TF32 products each with an f32 q over a bf16 cache). At d,
 // dv <= 256 the same mixed calls go to decode_attention.cu's ring kernel
 // (bytes-bound), and calls whose K and V differ, or whose head dims pass
-// 576/512, to its general kernel. There is no fallback: a call that cannot
+// 576/512, to stream_decode.cu's. There is no fallback: a call that cannot
 // build or launch raises.
 
 #include "f32tc_attention.cuh"

@@ -24,8 +24,9 @@
 //
 // It replaces the general SIMT kernel of flash_attention.cu for these
 // calls (5.95 ms for an f32 q at that shape on an H100 in PR 20's call,
-// PERF.md); K and V in different dtypes and head dims past 576/512 stay
-// there. There is no fallback: a call that cannot build or launch raises.
+// PERF.md); K and V in different dtypes and head dims past 576/512 go to
+// cluster_flash.cuh's kernels. There is no fallback: a call that cannot
+// build or launch raises.
 
 #include "f32tc_attention.cuh"
 

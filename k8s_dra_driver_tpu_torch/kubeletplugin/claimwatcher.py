@@ -167,11 +167,16 @@ class NodePrepareLoop:
         # treated as already-done.
         self._prepared_sig: dict[str, tuple] = sanitizer.guarded_dict(
             self._mu, "NodePrepareLoop._prepared_sig")
-        # Claims the driver's checkpoint holds as prepared when this loop
-        # starts (a restarted loop or process: ``_prepared`` is empty then).
-        # A claim released or deleted while no loop ran sends no event that
-        # reaches the tracked paths, so without this record it would stay
-        # prepared — its devices refused to the next claim — forever.
+        # Claims the driver may hold though this loop has no completed
+        # prepare of them: those the driver's checkpoint holds as prepared
+        # when this loop starts (a restarted loop or process: ``_prepared``
+        # is empty then), and those whose prepare this loop asked for and
+        # that failed (a failed prepare can leave a PrepareStarted record
+        # that holds its devices; the kubelet likewise unprepares every
+        # claim it asked to prepare). A claim released, moved or deleted
+        # sends no event that reaches the tracked paths unless it is here,
+        # so without this record it would stay prepared — its devices
+        # refused to the next claim — forever.
         self._adopted: dict[str, ClaimRef] = sanitizer.guarded_dict(
             self._mu, "NodePrepareLoop._adopted")
         self._stopped = False
@@ -342,6 +347,23 @@ class NodePrepareLoop:
             cur = cur.__cause__ or cur.__context__
         return False
 
+    def _signature(self, claim: Obj) -> tuple:
+        """This driver's allocation results of ``claim`` as sorted (pool,
+        device) pairs: what a prepare of it takes."""
+        return tuple(sorted((r.get("pool", ""), r.get("device", ""))
+                            for r in self._our_results(claim)))
+
+    def _fresh(self, claim: Obj) -> Optional[Obj]:
+        """The claim as the API server holds it now (None where it is
+        gone or cannot be read: the caller then does not act on it)."""
+        meta = claim.get("metadata") or {}
+        try:
+            return self.client.try_get("ResourceClaim", meta.get("name", ""),
+                                       meta.get("namespace", ""))
+        except Exception:  # noqa: BLE001 — a transient read failure: the
+            # retry armed for the failed prepare looks again.
+            return None
+
     @staticmethod
     def _drain_pending(claim: Obj) -> bool:
         """Whether the claim is inside the drain → reallocation window
@@ -402,8 +424,7 @@ class NodePrepareLoop:
                                 "unpreparing", uid)
                 self._unprepare(ref)
             return
-        sig = tuple(sorted((r.get("pool", ""), r.get("device", ""))
-                           for r in ours))
+        sig = self._signature(claim)
         if uid in self._prepared:
             holds = self._driver_holds(uid)
             if self._prepared_sig.get(uid) == sig and holds:
@@ -443,23 +464,33 @@ class NodePrepareLoop:
         results = self.driver.prepare_resource_claims([claim])
         res = results.get(uid)
         if (res is not None and res.error is not None
-                and self._is_stale_aborted(res.error)
-                and not self._drain_pending(claim)):
-            # The claim's CURRENT allocation matches the drained version
-            # and no drain/reallocation is pending: the reallocator
-            # legitimately re-picked the (repaired) device. Resolve the
-            # tombstone — an unprepare of an aborted record just drops it
-            # — and prepare the current allocation. While the drain
-            # annotation IS present this must NOT run: the allocation is
-            # the old one and re-preparing would resurrect state onto the
-            # bad device.
-            logger.info("claim %s re-allocated onto its drained devices "
-                        "(post-repair): resolving tombstone", uid)
-            errs = self.driver.unprepare_resource_claims([ref])
-            if errs.get(uid) is None:
-                results = self.driver.prepare_resource_claims([claim])
-                res = results.get(uid)
+                and self._is_stale_aborted(res.error)):
+            # The tombstone is newer than the event's object, which may
+            # predate the drain: decide on the claim as it is now.
+            fresh = self._fresh(claim)
+            if (fresh is not None and claim_uid(fresh) == uid
+                    and not self._drain_pending(fresh)
+                    and self._reserved(fresh)
+                    and self._signature(fresh) == sig):
+                # The claim's CURRENT allocation matches the drained
+                # version and no drain/reallocation is pending: the
+                # reallocator legitimately re-picked the (repaired) device.
+                # Resolve the tombstone — an unprepare of an aborted record
+                # just drops it — and prepare the current allocation. While
+                # the drain annotation IS present this must NOT run: the
+                # allocation is the old one and re-preparing would
+                # resurrect state onto the bad device.
+                logger.info("claim %s re-allocated onto its drained "
+                            "devices (post-repair): resolving tombstone",
+                            uid)
+                errs = self.driver.unprepare_resource_claims([ref])
+                if errs.get(uid) is None:
+                    results = self.driver.prepare_resource_claims([fresh])
+                    res = results.get(uid)
         if res is None or res.error is not None:
+            # Tracked until an unprepare succeeds: the failed prepare may
+            # have left a record that holds the claim's devices.
+            self._adopted[uid] = ref
             logger.warning("node prepare of claim %s failed: %s",
                            uid, res.error if res else "no result")
             self._schedule_retry(ref.name, ref.namespace)

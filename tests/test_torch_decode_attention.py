@@ -35,6 +35,12 @@ from k8s_dra_driver_tpu_torch.compute.flashattention import (
     F32_ROWS,
     F32_SPLIT_MIN_KEYS,
     MAX_Q_LEN,
+    STREAM_MAX_TILE,
+    STREAM_ROWS,
+    STREAM_SMEM_ONE,
+    STREAM_SMEM_TWO,
+    STREAM_SPLIT_MIN_KEYS,
+    STREAM_WAVES,
     TUNED_BLOCKS_PER_SM,
     TUNED_HEAD_DIM,
     TUNED_SPLIT_MIN_KEYS,
@@ -44,6 +50,8 @@ from k8s_dra_driver_tpu_torch.compute.flashattention import (
     decode_attention_reference,
     f32_decode_splits,
     flash_attention_decode,
+    stream_decode_plan,
+    stream_decode_smem,
     tuned_decode_splits,
     tuned_decode_tile,
     wide_decode_splits,
@@ -240,6 +248,35 @@ class TestAgainstJax:
         lens = np.array([3, 32, 9, 16], np.int32)
         _agrees_with_jax(q, k, v, lens, dtypes)
 
+    # The any-dtype decode kernel's calls at wide heads (1,024/1,024 and
+    # 64/640) with K and V in different dtypes, held to JAX (interpret mode)
+    # through the plain version within the narrowest input's limit.
+    @pytest.mark.parametrize("dtypes", [
+        ("f32", "f32", "bf16"), ("bf16", "bf16", "f32"),
+        ("f16", "bf16", "f16")])
+    @pytest.mark.parametrize("ql,d,dv", [(1, 1024, 1024),
+                                         (MAX_Q_LEN + 2, 64, 640)])
+    def test_k_and_v_apart_match_pallas_at_wide_heads(self, ql, d, dv,
+                                                      dtypes):
+        q, k, v = _inputs(47, ql, d=d, cap=32, dv=dv)
+        lens = np.array([1, 31, 32, 9], np.int32)
+        _agrees_with_jax(q, k, v, lens, dtypes, block_k=16)
+
+    # The any-dtype decode kernel's tiles and splits at 1,024/1,024 in bf16
+    # (stream_decode_plan: 8 keys a tile, 256 a split at 8 one-row caches of
+    # 512): lengths 1, T - 1, T, T + 1, a split's last key and the keys
+    # either side, and the whole cache, held to JAX through the plain
+    # version.
+    def test_stream_tile_and_split_edge_lengths_match_pallas(self):
+        cap = 512
+        _, tile, splits, split_keys = stream_decode_plan(
+            8, 1, 1, cap, 1024, 1024, 2, 2, 132)
+        assert (tile, splits, split_keys) == (8, 2, 256)
+        lens = np.array([1, tile - 1, tile, tile + 1, split_keys - 1,
+                         split_keys, split_keys + 1, cap], np.int32)
+        q, k, v = _inputs(53, 1, b=8, h=1, d=1024, cap=cap, dv=1024)
+        _agrees_with_jax(q, k, v, lens, ("bf16",) * 3, block_k=64)
+
     @pytest.mark.parametrize("block_k,raises", [(24, True), (48, True),
                                                 (16, False), (512, False)])
     def test_block_k_must_divide_cap_as_in_jax(self, block_k, raises):
@@ -370,14 +407,21 @@ class TestRouting:
         return flash_attention_decode.launches - before
 
     def test_1024_wide_call_goes_to_the_general_entry(self, fake_lib):
+        # Past the wide route's 576/512: the any-dtype decode entry, every
+        # query row in one launch (the SIMT kernel it replaced took one per
+        # 8 rows).
         launches = self._launch(MAX_Q_LEN + 2, 1024, 1024, ("bf16",) * 3)
-        assert launches == 2 and set(fake_lib.entries) == {
-            "decode_attention_general", "decode_attention_error_string"}
-        calls = fake_lib.entries["decode_attention_general"].calls
-        # b, h, ql, row0, rows, cap, d, dv, scale, q/k/v dtype codes, stream
-        assert [c[5:] for c in calls] == [
-            (2, 3, 10, row0, rows, 16, 1024, 1024, pytest.approx(1 / 32),
-             1, 1, 1, 0) for row0, rows in ((0, 8), (8, 2))]
+        assert launches == 1 and set(fake_lib.entries) == {
+            "stream_decode_run", "stream_decode_error_string"}
+        (call,) = fake_lib.entries["stream_decode_run"].calls
+        rows, tile, splits, split_keys = stream_decode_plan(
+            2, 3, 10, 16, 1024, 1024, 2, 2, 132)
+        assert rows == STREAM_ROWS and splits == 1
+        # one split: no workspace; b, h, ql, rows a block, cap, d, dv, out's
+        # row, tile, splits, keys a split, scale, q/k/v codes, stream
+        assert call[5:7] == (None, None)
+        assert call[7:] == (2, 3, 10, rows, 16, 1024, 1024, 1024, tile, 1,
+                            split_keys, pytest.approx(1 / 32), 1, 1, 1, 0)
 
     @pytest.mark.parametrize("ql,d,dv,dtypes,entry,codes", [
         # the tuned entries' splits, keys a split and q's dtype code: the
@@ -388,7 +432,7 @@ class TestRouting:
         # bf16 at d = 257 takes the wide kernels, padded to 272
         (1, 257, 64, ("bf16",) * 3, "decode_attention_wide_bf16", (1, 32)),
         # q in its own dtype: the ring kernel of the cache's dtype (both the
-        # general entry's before the ring took them)
+        # SIMT general entry's before the ring took them)
         (1, 128, 128, ("f32", "bf16", "bf16"), "decode_attention_bf16",
          (1, 64, 0)),
         (2, 64, 64, ("bf16", "f16", "f16"), "decode_attention_f16",
@@ -402,12 +446,10 @@ class TestRouting:
             assert call[7:-1] == (2, 3, ql, 16, -(-d // 16) * 16, dv,
                                   pytest.approx(d ** -0.5)) + codes
             return
-        # row0, rows, cap, d, dv, scale; then the general entry's codes or
-        # the tuned entry's splits (after its two workspace pointers)
-        at = 8 if entry.endswith("general") else 10
-        assert call[at:at + 6] == (0, ql, 16, d, dv,
-                                   pytest.approx(d ** -0.5))
-        assert call[at + 6:-1] == codes
+        # row0, rows, cap, d, dv, scale; then the tuned entry's splits
+        # (after its two workspace pointers)
+        assert call[10:16] == (0, ql, 16, d, dv, pytest.approx(d ** -0.5))
+        assert call[16:-1] == codes
 
     @pytest.mark.parametrize("dtype", ["bf16", "f16"])
     @pytest.mark.parametrize("d,dv,padded", [
@@ -415,8 +457,8 @@ class TestRouting:
         (576, 512, (576, 512)), (64, 320, (64, 320))])
     def test_wide_head_dims_reach_the_wide_entry(self, fake_lib, dtype, d,
                                                  dv, padded):
-        # Every query row in one call (10 rows: the tuned and general
-        # kernels would take two launches), dims padded to 16, the scale
+        # Every query row in one call (10 rows: the tuned kernels would
+        # take two launches), dims padded to 16, the scale
         # of the true d.
         assert self._launch(MAX_Q_LEN + 2, d, dv, (dtype,) * 3) == 1
         assert set(fake_lib.entries) == {f"decode_attention_wide_{dtype}",
@@ -453,18 +495,21 @@ class TestRouting:
         (1, 64, 640, ("f16",) * 3)])
     def test_what_the_wide_kernels_do_not_take_stays_general(
             self, fake_lib, ql, d, dv, dtypes):
-        # Padded dims past 576/512 stay general (f32 at 576/512 takes the
-        # f32 kernels: test_f32_wide_head_dims_reach_the_f32_entry); mixed
-        # dtypes at 576/512, the general entry's before the mixed route,
-        # take the mixed entry in one call.
+        # Padded dims past 576/512 take the any-dtype decode entry, at the
+        # true dims (f32 at 576/512 takes the f32 kernels:
+        # test_f32_wide_head_dims_reach_the_f32_entry); mixed dtypes at
+        # 576/512, the SIMT general entry's before the mixed route, take the
+        # mixed entry. Each one launch a call.
         mixed = dtypes[0] != dtypes[1]
-        entry = ("mixed_decode_f32tc" if mixed
-                 else "decode_attention_general")
-        assert self._launch(ql, d, dv, dtypes) == (
-            1 if mixed else -(-ql // MAX_Q_LEN))
+        entry = "mixed_decode_f32tc" if mixed else "stream_decode_run"
+        assert self._launch(ql, d, dv, dtypes) == 1
         assert set(fake_lib.entries) == {
             entry, entry.replace("f32tc", "error_string").replace(
-                "general", "error_string")}
+                "run", "error_string")}
+        if not mixed:
+            (call,) = fake_lib.entries[entry].calls
+            assert call[12:14] == (d, dv) and call[-4:-1] == tuple(
+                {"f32": 0, "bf16": 1, "f16": 2}[t] for t in dtypes)
 
     # All-f32 decode with d or dv over 256, up to padded 576/512, takes the
     # f32 tensor-core kernels (3xTF32): every query row in one call, dims
@@ -510,17 +555,20 @@ class TestRouting:
     @pytest.mark.parametrize("ql,d,dv,entry", [
         (1, 128, 128, "decode_attention_f32"),
         (MAX_Q_LEN + 2, 256, 256, "decode_attention_f32"),
-        (1, 1024, 1024, "decode_attention_general"),
-        (2, 64, 640, "decode_attention_general"),
-        (1, 592, 64, "decode_attention_general")])
+        (1, 1024, 1024, "stream_decode_run"),
+        (2, 64, 640, "stream_decode_run"),
+        (1, 592, 64, "stream_decode_run")])
     def test_f32_the_f32_kernels_do_not_take(self, fake_lib, ql, d, dv,
                                              entry):
         # f32 up to 256 stays on the tuned kernels (the serve shape's ring
-        # kernel), f32 past padded 576/512 on the general one; each one
-        # launch per 8 query rows.
-        assert self._launch(ql, d, dv, ("f32",) * 3) == -(-ql // MAX_Q_LEN)
-        assert set(fake_lib.entries) == {entry,
-                                         "decode_attention_error_string"}
+        # kernel), one launch per 8 query rows; f32 past padded 576/512 on
+        # the any-dtype decode kernel, one launch a call.
+        tuned = entry.startswith("decode_attention")
+        assert self._launch(ql, d, dv, ("f32",) * 3) == (
+            -(-ql // MAX_Q_LEN) if tuned else 1)
+        assert set(fake_lib.entries) == {
+            entry, "decode_attention_error_string" if tuned
+            else "stream_decode_error_string"}
 
     @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
     def test_tuned_entry_takes_splits_and_a_workspace(self, fake_lib, dtype):
@@ -574,19 +622,27 @@ class TestRouting:
 
     def test_query_rows_a_launch_shrink_only_past_the_shared_memory(
             self, fake_lib):
-        d = flashattention.GENERAL_Q_SMEM_BYTES // (4 * 3)  # 3 rows fit
+        # At d = 7,000 in bf16 seven rows' q and O do not fit a block's
+        # shared memory beside one key a stage; a block takes 4 rows, still
+        # one launch for the 7 rows (a grid dimension of 2 groups).
+        d = 7000
+        assert stream_decode_smem(1, 7, d, 8, 2, 2) > STREAM_SMEM_ONE
         assert self._launch(7, d, 8, ("f32", "bf16", "bf16"), b=1, h=1,
-                            cap=2) == 3
-        calls = fake_lib.entries["decode_attention_general"].calls
-        assert [c[8:10] for c in calls] == [(0, 3), (3, 3), (6, 1)]
+                            cap=2) == 1
+        (call,) = fake_lib.entries["stream_decode_run"].calls
+        rows, tile = call[10], call[15]
+        assert (rows, tile) == stream_decode_plan(1, 1, 7, 2, d, 8, 2, 2,
+                                                  132)[:2]
+        assert rows == 4 and stream_decode_smem(
+            tile, rows, d, 8, 2, 2) <= STREAM_SMEM_ONE
 
 
 class TestMixedRouting:
     """Where a CUDA call whose q's dtype differs from the one K and V
     share goes (the C entries mocked, as in TestRouting): the ring kernel of
     the cache's dtype at d, dv <= 256 on rows of whole 16-byte chunks, the
-    mixed tensor-core entry past 256 up to padded 576/512, the general
-    entry for the rest and for K and V apart."""
+    mixed tensor-core entry past 256 up to padded 576/512, the any-dtype
+    decode entry for the rest and for K and V apart."""
 
     _launch = TestRouting._launch
 
@@ -632,10 +688,12 @@ class TestMixedRouting:
                               *codes)
         assert all(call[5:7]) and call[5] != call[6]
 
-    # What stays on the general kernel: K and V in different dtypes, a
-    # mixed call whose cache rows are not whole 16-byte chunks (d = 66 in
-    # bf16, dv = 60 in f16, f32 at 256: 64 chunks), and head dims past
-    # 576/512.
+    # What the any-dtype decode kernel takes (the SIMT general kernel's
+    # before it): K and V in different dtypes, a mixed call whose cache rows
+    # the ring does not take (d = 66 in bf16, dv = 60 in f16, f32 at 256: 64
+    # chunks), and head dims past 576/512; at the true dims, each operand's
+    # code, the splits of stream_decode_plan and, with more than one, a
+    # workspace.
     @pytest.mark.parametrize("ql,d,dv,dtypes", [
         (1, 128, 128, ("f32", "f32", "bf16")),
         (1, 576, 512, ("bf16", "bf16", "f32")),
@@ -646,14 +704,24 @@ class TestMixedRouting:
         (1, 64, 640, ("bf16", "f32", "f32"))])
     def test_what_the_mixed_routes_do_not_take_stays_general(
             self, fake_lib, ql, d, dv, dtypes):
-        assert self._launch(ql, d, dv, dtypes) == 1
-        assert set(fake_lib.entries) == {"decode_attention_general",
-                                         "decode_attention_error_string"}
-        (call,) = fake_lib.entries["decode_attention_general"].calls
-        assert call[-4:-1] == tuple(
+        assert self._launch(ql, d, dv, dtypes, cap=1024) == 1
+        assert set(fake_lib.entries) == {"stream_decode_run",
+                                         "stream_decode_error_string"}
+        (call,) = fake_lib.entries["stream_decode_run"].calls
+        sizes = [TORCH[t].itemsize for t in dtypes[1:]]
+        rows, tile, splits, split_keys = stream_decode_plan(
+            2, 3, ql, 1024, d, dv, *sizes, 132)
+        assert call[7:-1] == (2, 3, ql, rows, 1024, d, dv, -(-dv // 4) * 4,
+                              tile, splits, split_keys,
+                              pytest.approx(d ** -0.5)) + tuple(
             {"f32": 0, "bf16": 1, "f16": 2}[t] for t in dtypes)
+        # 6 caches of 1024 keys leave SMs idle: split, with a workspace.
+        assert splits > 1 and all(call[5:7]) and call[5] != call[6]
 
     def test_a_cache_off_a_16_byte_boundary_stays_general(self, fake_lib):
+        # A mixed call whose cache view starts mid-chunk: the any-dtype
+        # decode entry, given the caller's view (the kernel copies it with
+        # plain loads).
         b, h, d, cap = 1, 1, 128, 64
         flat = torch.zeros(b * h * cap * d + 1, dtype=torch.bfloat16)
         k = flat[1:].view(b, h, cap, d)
@@ -661,8 +729,10 @@ class TestMixedRouting:
         v = torch.zeros((b, h, cap, d), dtype=torch.bfloat16)
         lens = torch.full((b,), cap, dtype=torch.int32)
         flashattention._launch_decode(q, k, v, lens, stream=0, sms=132)
-        assert set(fake_lib.entries) == {"decode_attention_general",
-                                         "decode_attention_error_string"}
+        assert set(fake_lib.entries) == {"stream_decode_run",
+                                         "stream_decode_error_string"}
+        (call,) = fake_lib.entries["stream_decode_run"].calls
+        assert call[1] == k.data_ptr() and call[1] % 16
 
     # No route casts or copies the cache: the entry gets the caller's K and
     # V (and q) by pointer, in their own dtypes.
@@ -757,6 +827,69 @@ class TestF32Splits:
         splits, split_keys = f32_decode_splits(1, 1, 1, 4096, 512, 132)
         assert split_keys == F32_SPLIT_MIN_KEYS
         assert splits == 4096 // F32_SPLIT_MIN_KEYS
+
+
+class TestStreamPlan:
+    """``stream_decode_plan``: the rows a block, the tile and the cache split
+    of the any-dtype decode kernel, from the shapes and the SM count alone."""
+
+    @pytest.mark.parametrize("b,h,ql,cap,d,dv,ks,vs", [
+        (32, 4, 1, 4096, 1024, 1024, 2, 2), (32, 8, 1, 4096, 64, 640, 2, 2),
+        (32, 4, 1, 4096, 1024, 1024, 4, 4), (3, 2, 10, 300, 66, 130, 2, 4),
+        (1, 1, 1, 16, 2048, 2048, 4, 2), (1, 1, 1, 1 << 20, 128, 128, 4, 2),
+        (2, 2, 64, 33, 576, 512, 2, 4)])
+    def test_splits_cover_the_cache_in_whole_tiles(self, b, h, ql, cap, d,
+                                                   dv, ks, vs):
+        rows, tile, splits, split_keys = stream_decode_plan(
+            b, h, ql, cap, d, dv, ks, vs, 132)
+        assert 1 <= rows <= min(ql, STREAM_ROWS)
+        assert 1 <= tile <= STREAM_MAX_TILE and (tile < 8 or tile % 8 == 0)
+        assert split_keys % tile == 0
+        # Every key in one split, no split empty by construction.
+        assert (splits - 1) * split_keys < cap <= splits * split_keys
+        assert stream_decode_smem(tile, rows, d, dv, ks,
+                                  vs) <= STREAM_SMEM_ONE
+
+    def test_two_blocks_an_sm_where_a_tile_of_8_fits(self):
+        # bf16 at 1,024/1,024, one row: 8 keys a tile (32 KiB of K and V a
+        # stage) fit two blocks an SM; 16 do not.
+        _, tile, _, _ = stream_decode_plan(32, 4, 1, 4096, 1024, 1024, 2, 2,
+                                           132)
+        assert tile == 8
+        assert stream_decode_smem(8, 1, 1024, 1024, 2, 2) <= STREAM_SMEM_TWO
+        assert stream_decode_smem(16, 1, 1024, 1024, 2, 2) > STREAM_SMEM_TWO
+        # Narrow rows take the longest tile.
+        assert stream_decode_plan(32, 8, 1, 4096, 64, 64, 2, 2, 132)[1] == \
+            STREAM_MAX_TILE
+
+    @pytest.mark.parametrize("sms", [66, 132, 264])
+    def test_splits_fill_the_sms(self, sms):
+        # 32 x 4 one-row caches of 4,096 keys at 1,024/1,024 in bf16 (two
+        # blocks an SM): about STREAM_WAVES blocks a slot, unless that would
+        # cut a split below its least keys.
+        _, _, splits, _ = stream_decode_plan(32, 4, 1, 4096, 1024, 1024, 2, 2,
+                                             sms)
+        slots = STREAM_WAVES * 2 * sms
+        assert splits == min(-(-slots // 128),
+                             4096 // STREAM_SPLIT_MIN_KEYS)
+
+    def test_splits_keep_their_least_keys(self):
+        # One cache, one row: the split count stops at the least keys.
+        _, tile, splits, split_keys = stream_decode_plan(
+            1, 1, 1, 4096, 64, 64, 2, 2, 132)
+        assert split_keys == STREAM_SPLIT_MIN_KEYS
+        assert splits == 4096 // STREAM_SPLIT_MIN_KEYS
+
+    def test_one_split_when_the_caches_fill_the_sms(self):
+        # 256 x 8 one-row caches: 2,048 blocks already give each of 264
+        # slots STREAM_WAVES blocks or more.
+        assert 2048 >= STREAM_WAVES * 264
+        assert stream_decode_plan(256, 8, 1, 4096, 1024, 1024, 2, 2,
+                                  132)[2:] == (1, 4096)
+
+    def test_rows_too_wide_for_a_block_raise(self):
+        with pytest.raises(ValueError, match="too wide"):
+            stream_decode_plan(1, 1, 1, 16, 20000, 20000, 4, 4, 132)
 
 
 class TestTunedSplits:

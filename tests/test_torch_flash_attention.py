@@ -31,8 +31,12 @@ from k8s_dra_driver_tpu.compute.ringattention import (
 )
 from k8s_dra_driver_tpu_torch.compute import _build, flashattention
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
+    CLUSTER_DV_COLS,
+    CLUSTER_GROUP_COLS,
+    CLUSTER_MAX_CTAS,
     HEAD_DIM_MULTIPLE,
     TUNED_HEAD_DIM,
+    cluster_flash_plan,
     flash_attention,
     padded_head_dims,
     tuned_kernel_takes,
@@ -275,6 +279,21 @@ class TestAgainstJax:
         v = _rand((1, 2, 64, dv), 78)
         _agrees_with_jax(q, k, v, dtypes, causal, block=32)
 
+    # The any-dtype flash kernel's calls at wide heads (1,024/1,024: a
+    # cluster of 4 CTAs, 2 groups of d each; 64/640: one CTA for each 256
+    # columns of dv) with K and V in different dtypes, held to JAX
+    # (interpret mode) through the plain version.
+    @pytest.mark.parametrize("dtypes", [
+        ("f32", "f32", "bf16"), ("bf16", "bf16", "f32"),
+        ("f16", "bf16", "f16")])
+    @pytest.mark.parametrize("d,dv", [(1024, 1024), (64, 640)])
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_k_and_v_apart_match_pallas_at_wide_heads(self, d, dv, dtypes,
+                                                      causal):
+        q, k = _rand((1, 1, 64, d), 83), _rand((1, 1, 64, d), 84)
+        v = _rand((1, 1, 64, dv), 85)
+        _agrees_with_jax(q, k, v, dtypes, causal, block=32)
+
 
 class TestReferenceAttention:
     @pytest.mark.parametrize("causal", [False, True])
@@ -411,13 +430,17 @@ class TestRouting:
         assert out.shape == (2, 3, 16, dv) and out.dtype == TORCH[dtypes[0]]
 
     def test_1024_wide_call_goes_to_the_general_entry(self, lib):
+        # Past the wide route's 576/512: the any-dtype flash entry of a
+        # 16-bit q, with the cluster plan of 1,024/1,024 (4 CTAs of 256
+        # columns of dv, 2 groups of 128 columns of d each).
         self._launch(1024, 1024, ("bf16",) * 3, causal=True)
-        assert set(lib.entries) == {"flash_attention_general",
-                                    "flash_attention_error_string"}
-        (call,) = lib.entries["flash_attention_general"].calls
-        # bh, S, d, dv, causal, scale, q/k/v dtype codes, stream: unpadded
+        assert set(lib.entries) == {"cluster_flash_q16_run",
+                                    "cluster_flash_q16_error_string"}
+        (call,) = lib.entries["cluster_flash_q16_run"].calls
+        # bh, S, padded d and dv, causal, scale, q/k/v dtype codes, CTAs a
+        # cluster, groups a CTA, V panels a CTA, stream
         assert call[4:] == (6, 16, 1024, 1024, 1, pytest.approx(1 / 32),
-                            1, 1, 1, 0)
+                            1, 1, 1, 4, 2, 8, 0)
 
     @pytest.mark.parametrize("d,dv,dtypes,entry,tail", [
         (128, 128, ("f16",) * 3, "flash_attention_f16", (128, 128)),
@@ -425,21 +448,26 @@ class TestRouting:
         # f16 at d = 264 takes the wide kernels, padded like the tuned ones
         (264, 64, ("f16",) * 3, "flash_attention_wide_f16", (272, 64)),
         # K and V sharing a dtype apart from q's: the mixed entry (the
-        # general one's before the mixed route), padded, with q's and the
-        # cache's codes
+        # SIMT general one's before the mixed route), padded, with q's and
+        # the cache's codes
         (40, 24, ("f32", "bf16", "bf16"), "mixed_flash_f32tc",
          (48, 32, 0, pytest.approx(40 ** -0.5), 0, 1)),
-        (64, 64, ("bf16", "f16", "f32"), "flash_attention_general",
-         (64, 64, 0, pytest.approx(1 / 8), 1, 2, 0))])
+        # K and V apart: the any-dtype entry of q's width, padded, with the
+        # codes and the cluster plan (one CTA, one group, 4 V panels)
+        (64, 64, ("bf16", "f16", "f32"), "cluster_flash_q16_run",
+         (64, 64, 0, pytest.approx(1 / 8), 1, 2, 0, 1, 1, 4)),
+        (40, 24, ("f32", "f32", "bf16"), "cluster_flash_q32_run",
+         (48, 32, 0, pytest.approx(40 ** -0.5), 0, 1, 1, 1, 4))])
     def test_tuned_and_general_entries(self, lib, d, dv, dtypes, entry,
                                        tail):
         # The tuned and wide kernels get head dims padded to multiples of 16
-        # and the true d's scale; the general kernel the true dims and the
-        # dtype codes; the mixed one padded dims and the codes.
+        # and the true d's scale; the mixed and any-dtype ones padded dims
+        # and the codes (the any-dtype entry of an f32 q takes K's and V's
+        # alone), then the any-dtype one its cluster plan.
         self._launch(d, dv, dtypes)
         (call,) = lib.entries[entry].calls
         assert call[4:6] == (6, 16)
-        if entry.endswith("general") or entry.startswith("mixed"):
+        if entry.endswith("_run") or entry.startswith("mixed"):
             assert call[6:-1] == tail
         else:
             assert call[6:-1] == tail + (0, pytest.approx(d ** -0.5))
@@ -466,14 +494,15 @@ class TestRouting:
         (64, 640, ("bf16",) * 3), (592, 64, ("bf16",) * 3)])
     def test_what_the_wide_kernels_do_not_take_stays_general(
             self, lib, d, dv, dtypes):
-        # Padded dims past 576/512 stay general (f32 takes the f32 kernels:
-        # test_f32_reaches_the_f32_entry); mixed dtypes up to 576/512, the
-        # general entry's before the mixed route, take the mixed entry.
+        # Padded dims past 576/512 take the any-dtype entry (f32 takes the
+        # f32 kernels: test_f32_reaches_the_f32_entry); mixed dtypes up to
+        # 576/512, the SIMT general entry's before the mixed route, take the
+        # mixed entry.
         self._launch(d, dv, dtypes)
         assert set(lib.entries) == (
             {"mixed_flash_f32tc", "mixed_flash_error_string"}
             if dtypes[0] != dtypes[1] else
-            {"flash_attention_general", "flash_attention_error_string"})
+            {"cluster_flash_q16_run", "cluster_flash_q16_error_string"})
         assert not flashattention.wide_kernel_takes(
             *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
             *padded_head_dims(d, dv))
@@ -506,13 +535,16 @@ class TestRouting:
     def test_what_the_f32_kernels_do_not_take_stays_general(
             self, lib, d, dv, dtypes):
         # f32 past padded 576/512, and every mix with an f32 operand: K and
-        # V apart stay general, K and V sharing a dtype apart from q's take
-        # the mixed entry (the general one's before the mixed route).
+        # V apart take the any-dtype entry of q's width, K and V sharing a
+        # dtype apart from q's the mixed entry (the SIMT general one's before
+        # the mixed route).
         self._launch(d, dv, dtypes)
         mixed = dtypes[1] == dtypes[2] != dtypes[0]
+        source = ("cluster_flash_q32" if dtypes[0] == "f32"
+                  else "cluster_flash_q16")
         assert set(lib.entries) == (
             {"mixed_flash_f32tc", "mixed_flash_error_string"} if mixed else
-            {"flash_attention_general", "flash_attention_error_string"})
+            {f"{source}_run", f"{source}_error_string"})
         assert flashattention.mixed_kernel_takes(
             *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
             *padded_head_dims(d, dv)) == mixed
@@ -524,8 +556,8 @@ class TestRouting:
 class TestMixedRouting:
     """Where a CUDA flash call whose q's dtype differs from the one K and V
     share goes (the C entries mocked): the mixed tensor-core entry at every
-    head dim up to padded 576/512, causal off and on; the general entry for
-    K and V apart and past 576/512."""
+    head dim up to padded 576/512, causal off and on; the any-dtype entry
+    for K and V apart and past 576/512."""
 
     @pytest.fixture
     def lib(self, monkeypatch):
@@ -562,9 +594,19 @@ class TestMixedRouting:
         (592, 64, ("f16", "bf16", "bf16"))])
     def test_what_the_mixed_route_does_not_take_stays_general(
             self, lib, d, dv, dtypes):
+        # The any-dtype entry of q's width, at padded dims, with each
+        # operand's code and the cluster plan of those dims.
         self._launch(d, dv, dtypes)
-        assert set(lib.entries) == {"flash_attention_general",
-                                    "flash_attention_error_string"}
+        source = ("cluster_flash_q32" if dtypes[0] == "f32"
+                  else "cluster_flash_q16")
+        assert set(lib.entries) == {f"{source}_run",
+                                    f"{source}_error_string"}
+        (call,) = lib.entries[f"{source}_run"].calls
+        dp, dvp = padded_head_dims(d, dv)
+        codes = tuple({"f32": 0, "bf16": 1, "f16": 2}[t] for t in dtypes)
+        assert call[4:] == (6, 16, dp, dvp, 0, pytest.approx(d ** -0.5),
+                            *codes[dtypes[0] == "f32":],
+                            *cluster_flash_plan(dp, dvp), 0)
 
     def test_the_entry_gets_the_callers_k_and_v(self, lib):
         # At head dims that are multiples of 16 nothing is cast or copied:
@@ -576,6 +618,38 @@ class TestMixedRouting:
         (call,) = lib.entries["mixed_flash_f32tc"].calls
         assert call[:4] == tuple(t.data_ptr() for t in (q, k, v, out))
         assert out.dtype == torch.float32
+
+
+class TestClusterPlan:
+    """``cluster_flash_plan``: the any-dtype flash kernel's cluster, its
+    CTAs' shares of d and their V panels, from the padded head dims."""
+
+    @pytest.mark.parametrize("d,dv,plan", [
+        (1024, 1024, (4, 2, 8)), (64, 640, (1, 1, 8)), (128, 128, (1, 1, 4)),
+        (80, 144, (1, 1, 8)), (1024, 64, (1, 8, 4)), (576, 512, (2, 3, 8)),
+        (64, 4096, (1, 1, 8)), (144, 4096, (8, 1, 8)),
+        (2048, 2048, (8, 2, 8))])
+    def test_plans(self, d, dv, plan):
+        assert cluster_flash_plan(d, dv) == plan
+
+    @pytest.mark.parametrize("d", [16, 64, 80, 320, 1024, 1040, 4096])
+    @pytest.mark.parametrize("dv", [16, 128, 144, 640, 1024, 2064, 4096])
+    def test_the_cluster_covers_d_and_its_ctas_dv(self, d, dv):
+        cluster, groups, vp = cluster_flash_plan(d, dv)
+        assert 1 <= cluster <= CLUSTER_MAX_CTAS
+        # The CTAs' groups cover d, no CTA wholly past it but the ones a
+        # narrow d leaves without a group.
+        assert cluster * groups * CLUSTER_GROUP_COLS >= d
+        assert (groups - 1) * cluster * CLUSTER_GROUP_COLS < d
+        # A cluster's columns cover dv, or each of its cluster items'
+        # CLUSTER_MAX_CTAS slices, or, where d is one group, one CTA takes
+        # each slice; one CTA of 4 panels only where dv fits.
+        cols = cluster * vp * 32
+        assert (cols >= dv or cluster == CLUSTER_MAX_CTAS
+                or (cluster == 1 and d <= CLUSTER_GROUP_COLS))
+        assert vp == 8 or (cluster == 1 and dv <= CLUSTER_DV_COLS // 2)
+        # No CTA of the cluster wholly past dv.
+        assert (cluster - 1) * vp * 32 < dv
 
 
 class TestBuildReport:
