@@ -22,6 +22,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py stream-splits
     python3 chip_ab.py stream-parts
     python3 chip_ab.py tc-bodies
+    python3 chip_ab.py perwarp [OTHER_TREE] [--rounds N]
 
 ``versions`` copies the port (``chip_smoke.py`` and
 ``k8s_dra_driver_tpu_torch/``) once per source under ``--work``, puts the
@@ -157,7 +158,11 @@ STREAM_WAVES_SWEEP, the blocks a slot its split count aims for, with the
 tile that fits two blocks an SM and the one that fits one: what sizes
 those constants. ``stream-parts`` times it in copies whose tiles leave out
 the S phase, the softmax, P V, or all three (STREAM_PARTS): where its time
-goes. The copies' results are wrong: they are timed, never checked.
+goes, at the wide rows, K and V apart, and the rows the element variant
+takes (bf16 at d = 66, the bf16 serve shape on a cache view off 16
+bytes); one more copy times the element variant with one 16-byte chunk
+of a row a lane in S. The copies that leave a part out
+compute wrong results: they are timed, never checked.
 
 ``general`` times the calls past the tuned, wide, f32 and mixed routes
 (GENERAL_ROWS; the any-dtype kernels' since they replaced the general SIMT
@@ -176,6 +181,18 @@ change. (The mixed, f32 flash and
 f32 absorbed-MLA rows it timed before went to the ring, the mixed and the
 f32 tensor-core kernels; ``mixed`` and ``f32`` time them against an older
 tree.)
+
+``perwarp`` times the calls a per-warp decode kernel used to take
+(PERWARP_ROWS): f32 at 16 heads x 256 against the smoke's cache and
+lengths (R1) and at 4 sequences of the whole cache (R2), bf16 at d = 66
+(R3) and the bf16 serve shape on K and V views one element past a 16-byte
+boundary (R4), each on whichever kernel the tree routes it to, and R1 and
+R2 on the any-dtype decode entry as well. Each row: kernel, plain and
+library ms, the byte bound (each valid K and V row read once, q and out
+once, at 3.35 TB/s) and its share, launches a call, the error's share of
+the flash limit and the CUDA kernels traced. With OTHER_TREE it runs there
+and here in turns (other, this, this, other), each turn in its own
+process.
 """
 
 from __future__ import annotations
@@ -1097,6 +1114,142 @@ def general_ab(other: Path, rounds: int, timeout: float) -> int:
     return 0
 
 
+# perwarp: the calls a per-warp decode kernel took until the ring kernel's
+# two-chunk form and the any-dtype decode took them over, as (name, dtype,
+# (b, h, d, dv), lengths, K and V as views one element past a 16-byte
+# boundary): R1 f32 at 16 heads x 256 against the smoke's lengths (the f32
+# serve shape's cache bytes), R2 the same at 4 sequences of the whole cache,
+# R3 bf16 at d = 66, R4 the bf16 serve shape on views off 16 bytes. The
+# rows are kept here, not taken from chip_smoke, so that they run in older
+# trees too; "stream" rows time R1 and R2 on the any-dtype decode entry
+# (``_launch_stream_decode``) in whichever tree runs them.
+PERWARP_ROWS = (
+    ("r1_f32_hd256", "float32", (32, 16, 256, 256), "smoke", False),
+    ("r2_f32_hd256_few", "float32", (4, 16, 256, 256), "full", False),
+    ("r3_bf16_d66", "bfloat16", (32, 32, 66, 66), "smoke", False),
+    ("r4_bf16_off16", "bfloat16", (32, 32, 128, 128), "smoke", True),
+)
+PERWARP_STREAM = ("r1_f32_hd256", "r2_f32_hd256_few")
+
+
+def perwarp() -> int:
+    """PERWARP_ROWS on the kernels that take them in the tree it runs in
+    (and R1 and R2 on the any-dtype decode entry too): kernel, plain and
+    library ms (``scaled_dot_product_attention`` with the boolean length
+    mask), the byte bound (each valid K and V row read once, q read and out
+    written once, at 3.35 TB/s) and its share, launches a call, the error
+    against the plain version's share of the flash limit, and the CUDA
+    kernels ``torch.profiler`` traced in three calls. Prints a line a row,
+    then one JSON line of every row."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as c
+    from k8s_dra_driver_tpu_torch.compute import flashattention as fa
+
+    card = c.phase_device()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smoke = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0))).to(
+        dev)
+    rows = []
+    for name, dtype_name, (b, h, d, dv), lengths, offset in PERWARP_ROWS:
+        dtype = getattr(torch, dtype_name)
+
+        def cache(width: int) -> torch.Tensor:
+            t = c.randn(gen, (b, h, c.KV_CAP, width), dtype)
+            if not offset:
+                return t
+            flat = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+            flat[1:] = t.reshape(-1)
+            return flat[1:].view(t.shape)
+
+        q = c.randn(gen, (b, h, 1, d), dtype)
+        k, v = cache(d), cache(dv)
+        lens = (smoke[:b].contiguous() if lengths == "smoke" else
+                torch.full((b,), c.KV_CAP, dtype=torch.int32, device=dev))
+        mask = (torch.arange(c.KV_CAP, device=dev)[None, None, None, :]
+                < lens[:, None, None, None])
+        keys = int(lens.clamp(max=c.KV_CAP).sum()) * h
+        size = dtype.itemsize
+        nbytes = (keys * (d + dv) * size + q.numel() * size
+                  + b * h * dv * size + lens.numel() * 4)
+        bound_ms = nbytes / c.HBM_BYTES_S * 1e3
+        tol = c.FLASH_F32_TOL if dtype == torch.float32 else c.FLASH_BF16_TOL
+        plain = lambda: fa.decode_attention_reference(q, k, v, lens)
+        ref = plain()
+        plain_ms = c.cuda_ms(plain)
+        # The library's kernel faults (misaligned address) on views off a
+        # 16-byte boundary: it takes aligned copies of the same values.
+        lk, lv = (k.clone(), v.clone()) if offset else (k, v)
+        library_ms = c.cuda_ms(lambda: sdpa(q, lk, lv, attn_mask=mask))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        kernels = [("wrapper",
+                    lambda: fa.flash_attention_decode(q, k, v, lens))]
+        if name in PERWARP_STREAM:
+            kernels.append(("stream", lambda: fa._launch_stream_decode(
+                q, k, v, lens, stream, sms)))
+        for how, fn in kernels:
+            before = fa.flash_attention_decode.launches
+            out = fn()
+            per_call = fa.flash_attention_decode.launches - before
+            ms = c.cuda_ms(fn)
+            err, over = c.compare(out, ref, *tol)
+            traced, _ = c.traced_kernels(fn)
+            row = {"row": name, "via": how, "dtype": dtype_name,
+                   "q": list(q.shape), "k": list(k.shape),
+                   "view_off_16_bytes": bool(k.data_ptr() % 16),
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": "bytes",
+                   "bound_share": bound_ms / ms,
+                   "launches_per_call": per_call, "max_abs_err": err,
+                   "err_over_limit": over, "kernels": traced}
+            print("[perwarp] " + " ".join(
+                f"{key}={json.dumps(val)}" for key, val in row.items()),
+                flush=True)
+            rows.append(row)
+            del out
+        del q, k, v, lk, lv, lens, mask, ref
+        torch.cuda.empty_cache()
+    print(json.dumps({"perwarp": rows, "card": card}), flush=True)
+    return 0
+
+
+PERWARP_RUN = GENERAL_RUN.replace("rows.general()", "rows.perwarp()")
+
+
+def perwarp_ab(other: Path, rounds: int, timeout: float) -> int:
+    """PERWARP_ROWS in the other tree and this one, in turns (other, this,
+    this, other) ``rounds`` times, each in its own process; one JSON line
+    of every turn's rows."""
+    code = PERWARP_RUN.format(path=str(Path(__file__).resolve()))
+    sides = [("other", other.resolve()), ("this-tree", ROOT)]
+    turns = []
+    for turn, i in enumerate([0, 1, 1, 0] * rounds):
+        label, tree = sides[i]
+        rc, out = run(tree, code, timeout)
+        print(f"== turn {turn}: {label} (exit {rc})", flush=True)
+        lines = out.splitlines()
+        for ln in lines:
+            if ln.startswith(("[perwarp]", "[device]")):
+                print(ln, flush=True)
+        found = [ln for ln in lines if ln.startswith('{"perwarp"')]
+        if rc != 0 or not found:
+            print(out[-4000:], flush=True)
+            return 1
+        result = json.loads(found[0])
+        turns.append({"turn": turn, "tree": label, "card": result["card"],
+                      "rows": [{k: r[k] for k in (
+                          "row", "via", "ms", "plain_ms", "library_ms",
+                          "bound_ms", "bound_share", "launches_per_call",
+                          "err_over_limit", "kernels")}
+                          for r in result["perwarp"]]})
+    print(json.dumps({"perwarp_turns": turns}), flush=True)
+    return 0
+
+
 # cluster-parts: copies of the any-dtype flash body (cluster_flash.cuh)
 # that leave one part out (the S exchange between a cluster's CTAs; the
 # split warps' pass), timed, never checked (their results are wrong), or
@@ -1262,13 +1415,21 @@ F32_SPLITS_SWEEP = (1, 2, 3, 4, 6)
 STREAM_PARTS = {
     "as_is": [],
     "no_s": [("    for (int kk = warp; kk < n; kk += kConsumers) {",
-              "    for (int kk = warp; kk < 0; kk += kConsumers) {")],
+              "    for (int kk = warp; kk < 0; kk += kConsumers) {"),
+             ("      for (int base = warp * per_warp; base < n;",
+              "      for (int base = warp * per_warp; base < 0;")],
     "no_softmax": [("    if (warp < rows) {\n      float mx = -CUDART_INF_F;",
                     "    if (warp < 0) {\n      float mx = -CUDART_INF_F;")],
     "no_pv": [("g < kg && qd < nq;", "g < 0 && qd < nq;")],
 }
 STREAM_PARTS["ring_alone"] = [e for name in ("no_s", "no_softmax", "no_pv")
                               for e in STREAM_PARTS[name]]
+# The element variant (rows not whole 16-byte chunks or a cache off 16
+# bytes) with one 16-byte chunk of a row a lane in S (up to 32 lanes a key)
+# instead of about two, timed beside the kernel as it is.
+STREAM_PARTS["one_chunk_a_lane"] = [
+    ("while (lanes < 32 && 2 * lanes < chunks) lanes *= 2;",
+     "while (lanes < 32 && lanes < chunks) lanes *= 2;")]
 STREAM_PARTS_RUN = (
     "import json, numpy as np, torch, chip_smoke as c\n"
     "from k8s_dra_driver_tpu_torch.compute import flashattention as fa\n"
@@ -1277,16 +1438,26 @@ STREAM_PARTS_RUN = (
     "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
     ".to(dev)\n"
     "r = {{}}\n"
-    "for name, heads, d, dv, ts in (\n"
-    "        ('bf16_1024', 4, 1024, 1024, ('bfloat16',) * 3),\n"
-    "        ('f32_1024', 4, 1024, 1024, ('float32',) * 3),\n"
-    "        ('bf16_64_640', 8, 64, 640, ('bfloat16',) * 3),\n"
+    "def placed(t, offset):\n"
+    "    if not offset:\n"
+    "        return t\n"
+    "    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)\n"
+    "    flat[1:] = t.reshape(-1)\n"
+    "    return flat[1:].view(t.shape)\n"
+    "for name, heads, d, dv, ts, offset in (\n"
+    "        ('bf16_1024', 4, 1024, 1024, ('bfloat16',) * 3, False),\n"
+    "        ('f32_1024', 4, 1024, 1024, ('float32',) * 3, False),\n"
+    "        ('bf16_64_640', 8, 64, 640, ('bfloat16',) * 3, False),\n"
     "        ('f32qk_bf16v_serve', c.HEADS, c.HEAD_DIM, c.HEAD_DIM,\n"
-    "         ('float32', 'float32', 'bfloat16'))):\n"
+    "         ('float32', 'float32', 'bfloat16'), False),\n"
+    "        ('bf16_d66', c.HEADS, 66, 66, ('bfloat16',) * 3, False),\n"
+    "        ('bf16_serve_off16', c.HEADS, c.HEAD_DIM, c.HEAD_DIM,\n"
+    "         ('bfloat16',) * 3, True)):\n"
     "    dt = [getattr(torch, t) for t in ts]\n"
     "    q = c.randn(g, (c.BATCH, heads, 1, d), dt[0])\n"
-    "    k = c.randn(g, (c.BATCH, heads, c.KV_CAP, d), dt[1])\n"
-    "    v = c.randn(g, (c.BATCH, heads, c.KV_CAP, dv), dt[2])\n"
+    "    k = placed(c.randn(g, (c.BATCH, heads, c.KV_CAP, d), dt[1]), offset)\n"
+    "    v = placed(c.randn(g, (c.BATCH, heads, c.KV_CAP, dv), dt[2]),\n"
+    "               offset)\n"
     "    r[name + '_ms'] = c.cuda_ms(\n"
     "        lambda: fa.flash_attention_decode(q, k, v, lens))\n"
     "    del q, k, v\n"
@@ -1447,7 +1618,7 @@ def main(argv=None) -> int:
                                      "ring-variants", "general",
                                      "f32-splits", "cluster-parts",
                                      "stream-splits", "stream-parts",
-                                     "tc-bodies"))
+                                     "tc-bodies", "perwarp"))
     ap.add_argument("sources", nargs="*",
                     help="other flash_attention.cu files (versions), "
                          "the other tree's directory (serve, decode, "
@@ -1481,6 +1652,11 @@ def main(argv=None) -> int:
             ap.error("general takes at most one other tree")
         return (general_ab(Path(args.sources[0]), args.rounds, args.timeout)
                 if args.sources else general())
+    if args.mode == "perwarp":
+        if len(args.sources) > 1:
+            ap.error("perwarp takes at most one other tree")
+        return (perwarp_ab(Path(args.sources[0]), args.rounds, args.timeout)
+                if args.sources else perwarp())
     if args.mode == "f32-splits":
         return f32_splits()
     if args.mode == "cluster-parts":

@@ -18,7 +18,7 @@ One line per phase:
            bulk copies (UBLKCP): every bf16 and f16 flash kernel and every
            wide kernel (decode and flash, at head dims over 256) must have
            the first two, every tuned decode ring kernel and every
-           bulk-copy any-dtype decode kernel the third, and every f32
+           any-dtype decode kernel the third, and every f32
            tensor-core kernel (3xTF32, its mixed-dtype builds and the
            any-dtype flash kernels) TMA loads and HGMMAs all of the TF32
            form, with no spill
@@ -29,7 +29,9 @@ One line per phase:
            by less than 1e-5, and a block_k that does not divide the cache
            raises ValueError; every compiled variant at small shapes in
            f32, bf16 and f16, with v's head dim unlike k's and 16 or 20
-           query rows (launched 8 rows at a time); head dims 257-1024
+           query rows (the ring kernel launched 8 rows at a time, the
+           any-dtype kernel once), each with its masked tail poisoned;
+           head dims 257-1024
            (576/512, 64/640) and q, k and v in different dtypes, each within
            its narrowest input's limit: bf16 and f16 up to 576/512 on the
            wide kernel, f32 there on the f32 tensor-core kernel and the
@@ -38,9 +40,9 @@ One line per phase:
            any-dtype kernel at 8 sequences of lengths 1, its tile's and a
            split's edges and the cache (2,048 keys, split), at 1,024/1,024
            in bf16 and f32, K and V apart, 66/130 and a cache view off a 16-
-           byte boundary (its plain-copy variant), one launch a call and a
-           poisoned tail moving nothing; the f32 kernel at absorbed MLA's
-           layout at 128 query
+           byte boundary (its variant that copies the 16-byte chunks around
+           each tile), one launch a call and a poisoned tail moving
+           nothing; the f32 kernel at absorbed MLA's layout at 128 query
            rows and 1, lengths 1, 31-33, 63-65, a split's edges and the
            cache, within 1e-4 and 2e-5 + 2e-5 |ref|, one launch a call,
            and a poisoned tail that moves its output by less than 1e-5;
@@ -52,12 +54,14 @@ One line per phase:
            small engine on the card against the same engine on the CPU,
            step for step; the tuned decode's ring kernel in bf16 and f16 at
            d = dv = 128 (1 and 5 query rows), 64, 256, 128/64 and 64/256,
-           nine sequences of lengths 1, 2, its tile's edges (T - 1, T,
-           T + 1), a split's edges (+-1) and the cache, the cache split
-           across blocks: within 2e-2 and the flash limit, one launch a
-           call, and a poisoned tail that moves the output by less than
-           1e-5; q in a dtype apart from the one K and V share (an f32 q
-           over a bf16 and an f16 cache, a bf16 q over an f32 one) at the
+           and in f32 (two chunks a lane) at 256/256, 192/192, 256/128 (2
+           rows) and 128/256, nine sequences of lengths 1, 2, its tile's
+           edges (T - 1, T, T + 1), a split's edges (+-1) and the cache, the
+           cache split across blocks: within its dtype's decode limit and
+           the flash limit, one launch a call, and a poisoned tail that
+           moves the output by less than 1e-5; q in a dtype apart from
+           the one K and V share (an f32 q over a bf16 and an f16 cache, a
+           bf16 q over an f32 one) at the
            serve shape on the ring kernel and at absorbed MLA's layout (128
            and 1 rows, lengths at the tiles' and a split's edges) on the
            mixed tensor-core kernel, one launch a call, within 2e-2 and the
@@ -69,7 +73,11 @@ One line per phase:
            watcher into a CDI spec naming it, read back and bound to an
            engine at one attention layer of Llama-2-7B (32 heads of 128,
            a 4096-token cache, 32 slots) that serves 48 requests from 4
-           tenants through the decode kernel; then drained, unreserved,
+           tenants through the decode kernel; then a second engine from the
+           same spec at Gemma-2-9B's attention width (16 heads of 256, a
+           4096-token f32 cache, 32 slots) serves 16 requests from 2 tenants
+           under the same checks, and the kernel is held to its plain
+           version at its shape; then the claim is drained, unreserved,
            unprepared and deleted with nothing left behind (claim_ready_ms,
            ttfb_ms: claim create to Ready, to the first decoded batch)
    servesmoke  the port's run_serving_smoke() on the card: ok, accounted,
@@ -140,6 +148,12 @@ One line per phase:
            the smoke's cache, flash [1, 8, 2048]) beside the library call;
            bounds: bytes, or each product at its operands' rate (16-bit at
            the bf16 rate), the TF32 products the kernel issues beside
+   perwarp_rows  the calls a per-warp decode kernel used to take, the same
+           way, beside the library call: f32 at 16 heads of 256 against the
+           smoke's cache and lengths (R1) and at 4 sequences of the whole
+           cache (R2) on the ring kernel's two-chunk form, bf16 at d = 66
+           (R3) and the bf16 serve shape on K and V views off a 16-byte
+           boundary (R4) on the any-dtype kernel; bound bytes at 3.35 TB/s
 8. burnin  ``entry()`` on the card against the same step on the CPU with
            the same weights, then the bf16 matmul chain (dim 8192, 256
            matmuls) in TFLOP/s
@@ -401,15 +415,16 @@ import torch
 from k8s_dra_driver_tpu_torch.cdi.spec import CDIHandler, claim_spec_env
 from k8s_dra_driver_tpu_torch.compute import _build, _dist
 from k8s_dra_driver_tpu_torch.compute.burnin import matmul_flops_bench
+from k8s_dra_driver_tpu_torch.compute import flashattention
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     decode_attention_reference,
-    TUNED_HEAD_DIM,
     f32_decode_splits,
     f32_kernel_takes,
     flash_attention,
     flash_attention_decode,
     mixed_kernel_takes,
     padded_head_dims,
+    stream_decode_pad,
     stream_decode_plan,
     tuned_kernel_takes,
     tuned_decode_splits,
@@ -803,8 +818,8 @@ def phase_build() -> None:
     instructions are warpgroup MMAs (HGMMA), TMA loads (UTMALDG) and 1-D
     bulk copies (UBLKCP). Every bf16 and f16 flash kernel and every wide
     decode and flash kernel must have the first two, and every tuned decode
-    ring kernel and every bulk-copy any-dtype decode kernel the bulk copy
-    its K and V tiles arrive by; every f32 tensor-core kernel and every
+    ring kernel and every any-dtype decode kernel the bulk copy its K and V
+    tiles arrive by; every f32 tensor-core kernel and every
     any-dtype flash kernel TF32 wgmmas only, TMA loads and no spill."""
     t0 = time.monotonic()
     built = _build.build_all(force=True)
@@ -851,9 +866,9 @@ def phase_build() -> None:
                         f"{kernel} has no wgmma or no TMA load in its SASS")
             if kernel.startswith("decode_ring_kernel"):
                 require(ublkcp > 0, f"{kernel} has no bulk copy in its SASS")
-            if kernel.startswith("stream_decode_kernel") and \
-                    kernel.endswith(("<1>", ",1>")):
-                # The bulk-copy variant (its last template argument).
+            if kernel.startswith("stream_decode_kernel"):
+                # Both variants: tiles as they are, or the 16-byte chunks
+                # around them.
                 require(ublkcp > 0, f"{kernel} has no bulk copy in its SASS")
             if kernel.startswith(("f32tc_flash_kernel",
                                   "f32tc_decode_kernel",
@@ -932,12 +947,12 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
         require(eph < POISON_TOL,
                 f"poisoned f16 tail moved the output by {eph}")
         worst_f32 = max(worst_f32, e32)
-    # Every compiled variant at a small shape: each q_len (the kernels are
-    # built for 1, 2, 4 and 8 rows), the ring kernel (d = 128, and 256 but
-    # in f32), the per-warp kernel's 16-byte loads (f32 at 256) and scalar
-    # loads (d = 66 is not a whole number of 16-byte chunks), every dtype.
+    # Every compiled variant at a small shape: each q_len (the ring kernel
+    # is built for 1, 2, 4 and 8 rows), the ring kernel (d = 128, and 256:
+    # two 16-byte chunks a lane in f32), the any-dtype kernel's element
+    # reads (d = 66 is not a whole number of 16-byte chunks), every dtype.
     small = np.array([1, 45, 300], np.int32)
-    worst = 0.0
+    worst, moved = 0.0, 0.0
     for ql in range(1, 9):
         for d in (66, 128, 256):
             args = [torch.from_numpy(a).to(dev) for a in (
@@ -947,17 +962,22 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
             for dtype in DTYPES:
                 tol = decode_tol(dtype)
                 a = [t.to(dtype) for t in args[:3]] + args[3:]
-                err = (flash_attention_decode(*a, block_k=300).float()
-                       - decode_attention_reference(*a).float()
+                out = flash_attention_decode(*a, block_k=300)
+                err = (out.float() - decode_attention_reference(*a).float()
                        ).abs().max().item()
                 require(err < tol, f"{dtype} ql={ql} d={d}: error {err}")
                 worst = max(worst, err / tol)
+                moved = max(moved, poisoned_shift(a, out))
+    require(moved < POISON_TOL,
+            f"ql 1-8 variants: a poisoned tail moved the output by {moved}")
     line("check", kernel="decode_attention", variants="ql 1-8 x d 66/128/256"
-         " x f32/bf16/f16", worst_err_over_tol=worst)
+         " x f32/bf16/f16", worst_err_over_tol=worst,
+         poisoned_tail_max_abs_diff=moved)
     # The shapes beyond one launch that the JAX function takes: v's head dim
-    # unlike k's, and more than 8 query rows, which the wrapper launches in
-    # groups of 8 (ql 16: two launches; ql 20: three, the last of 4 rows).
-    worst = 0.0
+    # unlike k's, and more than 8 query rows, which the wrapper gives the
+    # ring kernel in groups of 8 (ql 16: two launches; ql 20: three, the
+    # last of 4 rows); 66/130 takes the any-dtype kernel, one launch.
+    worst, moved = 0.0, 0.0
     for ql, d, dv in ((1, 64, 128), (4, 128, 64), (2, 66, 130), (16, 128, 128),
                       (20, 64, 32)):
         args = [torch.from_numpy(a).to(dev) for a in (
@@ -975,11 +995,16 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
                     f"ql={ql} d={d} dv={dv}: output {tuple(out.shape)}")
             err = (out.float() - ref.float()).abs().max().item()
             require(err < tol, f"{dtype} ql={ql} d={d} dv={dv}: error {err}")
-            require(groups == -(-ql // 8), f"ql={ql}: {groups} launches")
+            want = -(-ql // 8) if decode_route(*a[:3]) == "tuned" else 1
+            require(groups == want, f"ql={ql} d={d} dv={dv}: {groups} "
+                                    f"launches, not {want}")
             worst = max(worst, err / tol)
+            moved = max(moved, poisoned_shift(a, out))
+    require(moved < POISON_TOL,
+            f"dv != d variants: a poisoned tail moved the output by {moved}")
     line("check", kernel="decode_attention",
          variants="dv != d and ql 16/20 (launches of 8 rows) x f32/bf16/f16",
-         worst_err_over_tol=worst)
+         worst_err_over_tol=worst, poisoned_tail_max_abs_diff=moved)
     general_dims_check(rng)
     wide_decode_check(rng)
     f32_decode_check(rng)
@@ -997,6 +1022,16 @@ def phase_check(rng: np.random.Generator, k, v, lens) -> float:
             "a refused call launched the kernel")
     torch.cuda.synchronize()
     return worst_f32
+
+
+def poisoned_shift(a: list, out: torch.Tensor) -> float:
+    """How far ``flash_attention_decode`` moves from ``out`` when every key
+    of ``a`` (q, k, v, lengths) past its sequence's length is poisoned:
+    +-POISON in K and -+ in V (+-F16_POISON in f16)."""
+    q, k, v, lens = a
+    kp, vp = poisoned(k, v, lens.tolist())
+    return (flash_attention_decode(q, kp, vp, lens, block_k=k.shape[2])
+            .float() - out.float()).abs().max().item()
 
 
 def general_dims_check(rng: np.random.Generator) -> float:
@@ -1059,26 +1094,21 @@ def general_dims_check(rng: np.random.Generator) -> float:
 
 
 def decode_route(q, k, v) -> str:
-    """Which decode kernel the wrapper gives these inputs: ``tuned``,
-    ``ring_mixed`` (the ring kernel under a q of another dtype), ``wide``,
-    ``f32``, ``mixed`` or ``stream`` (the any-dtype kernel)."""
-    d, dv = q.shape[3], v.shape[3]
-    dp, dvp = padded_head_dims(d, dv)
-    if tuned_kernel_takes("decode_attention", q, k, v, d, dv):
-        return "tuned" if q.dtype == k.dtype else "ring_mixed"
-    if wide_kernel_takes(q, k, v, dp, dvp):
-        return "wide"
-    if f32_kernel_takes(q, k, v, dp, dvp):
-        return "f32"
-    if max(dp, dvp) > TUNED_HEAD_DIM and mixed_kernel_takes(q, k, v, dp, dvp):
-        return "mixed"
-    return "stream"
+    """Which decode kernel the wrapper gives these inputs
+    (``flashattention.decode_route``): ``tuned``, ``ring_mixed`` (the ring
+    kernel under a q of another dtype), ``wide``, ``f32``, ``mixed`` or
+    ``stream`` (the any-dtype kernel)."""
+    route = flashattention.decode_route(q, k, v)
+    if route == "tuned" and q.dtype != k.dtype:
+        return "ring_mixed"
+    return route
 
 
 # The any-dtype decode kernel's edge cases (``stream_decode_check``): q, k
 # and v dtypes, head dims d and dv, query rows, and whether the cache is a
-# view one element off a 16-byte boundary (the plain-copy variant, as are
-# rows that are not whole 16-byte chunks: 66/130).
+# view one element off a 16-byte boundary (the element variant, which
+# copies the 16-byte chunks around each tile, as are rows that are not
+# whole 16-byte chunks: 66/130, 66, an odd d in f32).
 STREAM_CHECKS = (
     ((torch.bfloat16,) * 3, 1024, 1024, 1, False),
     ((torch.float32,) * 3, 1024, 1024, 1, False),
@@ -1086,6 +1116,9 @@ STREAM_CHECKS = (
     ((torch.float32, torch.float32, torch.float16), 64, 640, 10, False),
     ((torch.bfloat16, torch.float16, torch.float16), 66, 130, 1, False),
     ((torch.float32, torch.bfloat16, torch.bfloat16), 128, 128, 1, True),
+    ((torch.bfloat16,) * 3, 66, 66, 1, False),
+    ((torch.float16,) * 3, 128, 128, 3, True),
+    ((torch.float32,) * 3, 65, 65, 2, False),
 )
 
 
@@ -1103,14 +1136,6 @@ def stream_decode_check(rng: np.random.Generator) -> float:
     n, cap = 8, 2048
     worst, fields = 0.0, {}
     for ts, d, dv, ql, offset in STREAM_CHECKS:
-        rows, tile, splits, split_keys = stream_decode_plan(
-            n, 1, ql, cap, d, dv, ts[1].itemsize, ts[2].itemsize, sms)
-        require(splits > 1, f"stream check {d}/{dv}: one split")
-        lens_np = np.array(sorted({1, max(1, tile - 1), tile, tile + 1,
-                                   split_keys - 1, split_keys,
-                                   split_keys + 1, cap}), np.int32)[:n]
-        lens_np = np.pad(lens_np, (0, n - len(lens_np)), constant_values=cap)
-        lens = torch.from_numpy(lens_np).to(dev)
         q = torch.from_numpy(rng.standard_normal((n, 1, ql, d), np.float32)
                              ).to(dev, ts[0])
         k, v = (torch.from_numpy(rng.standard_normal(
@@ -1128,6 +1153,17 @@ def stream_decode_check(rng: np.random.Generator) -> float:
             return view
 
         k = placed(k)
+        # The wrapper's plan: its tile and splits, whose edges the lengths
+        # hit (stage buffers 16 bytes longer for a view off 16 bytes).
+        rows, tile, splits, split_keys = stream_decode_plan(
+            n, 1, ql, cap, d, dv, ts[1].itemsize, ts[2].itemsize, sms,
+            stream_decode_pad(k, v, d, dv))
+        require(splits > 1, f"stream check {d}/{dv}: one split")
+        lens_np = np.array(sorted({1, max(1, tile - 1), tile, tile + 1,
+                                   split_keys - 1, split_keys,
+                                   split_keys + 1, cap}), np.int32)[:n]
+        lens_np = np.pad(lens_np, (0, n - len(lens_np)), constant_values=cap)
+        lens = torch.from_numpy(lens_np).to(dev)
         what = (f"stream decode {dtype_names(*ts)} d={d} dv={dv} ql={ql}"
                 + (" (view off 16 bytes)" if offset else ""))
         route = decode_route(q, k, v)
@@ -1371,31 +1407,38 @@ def mixed_decode_check(rng: np.random.Generator) -> float:
 # their sequences (one per length, one head, so that the cache is split).
 RING_DECODE_DIMS = ((1, 128, 128), (5, 128, 128), (1, 64, 64),
                     (1, 256, 256), (2, 128, 64), (1, 64, 256))
+#: Its f32 rows of 33-64 16-byte chunks (two chunks a lane, 16-key tiles).
+RING_F32_DIMS = ((1, 256, 256), (1, 192, 192), (2, 256, 128), (1, 128, 256))
 RING_DECODE_SEQS = 9
 
 
 def tuned_decode_check(rng: np.random.Generator) -> float:
     """The tuned decode's ring kernel in bf16 and f16 at RING_DECODE_DIMS
-    against the smoke's cache: RING_DECODE_SEQS sequences of one head (a
-    grid of 9 blocks, so the cache is split across blocks and merged), of
-    lengths 1, 2, its tile's edges (T - 1, T, T + 1), a split's
+    and in f32 at RING_F32_DIMS against the smoke's cache:
+    RING_DECODE_SEQS sequences of one head (a grid of 9 blocks, so the
+    cache is split across blocks and merged), of lengths 1, 2, its tile's
+    edges (T - 1, T, T + 1: 15, 16, 17 in f32 at 129-256), a split's
     (split_keys - 1, split_keys, split_keys + 1) and the whole cache. Each
-    call is one launch within BF16_TOL of its plain version and within the
-    flash limit FLASH_BF16_TOL (atol, rtol), which a softmax scale 1% off
-    exceeds where BF16_TOL alone may not; then every key past each length
-    is poisoned (+-POISON in K, -+ in V; +-F16_POISON in f16), which must
-    move the output by less than POISON_TOL. Returns the worst error's
-    share of the flash limit."""
+    call is one launch within its dtype's decode limit of its plain version
+    and within the flash limit (FLASH_BF16_TOL, FLASH_F32_TOL in f32:
+    atol, rtol), which a softmax scale 1% off exceeds where the decode
+    limit alone may not; then every key past each length is poisoned
+    (+-POISON in K, -+ in V; +-F16_POISON in f16), which must move the
+    output by less than POISON_TOL. Returns the worst error's share of the
+    flash limit."""
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst, rows = 0.0, []
-    for ql, d, dv in RING_DECODE_DIMS:
+    sixteen = ((torch.bfloat16, POISON, FLASH_BF16_TOL),
+               (torch.float16, F16_POISON, FLASH_BF16_TOL))
+    f32 = ((torch.float32, POISON, FLASH_F32_TOL),)
+    for (ql, d, dv), forms in ([(dims, sixteen) for dims in RING_DECODE_DIMS]
+                               + [(dims, f32) for dims in RING_F32_DIMS]):
         base = [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
             dev) for shape in ((RING_DECODE_SEQS, 1, ql, d),
                                (RING_DECODE_SEQS, 1, KV_CAP, d),
                                (RING_DECODE_SEQS, 1, KV_CAP, dv))]
-        for dtype, poison in ((torch.bfloat16, POISON),
-                              (torch.float16, F16_POISON)):
+        for dtype, poison, flash_tol_d in forms:
             tile = tuned_decode_tile(dtype, d, dv)
             splits, split_keys = tuned_decode_splits(
                 RING_DECODE_SEQS, 1, KV_CAP, tile, sms)
@@ -1407,6 +1450,8 @@ def tuned_decode_check(rng: np.random.Generator) -> float:
                                 KV_CAP], np.int32)
             lens = torch.from_numpy(lens_np).to(dev)
             q, k, v = (t.to(dtype) for t in base)
+            require(decode_route(q, k, v) == "tuned",
+                    f"{what}: routed to {decode_route(q, k, v)}")
             before = flash_attention_decode.launches
             out = flash_attention_decode(q, k, v, lens)
             calls = flash_attention_decode.launches - before
@@ -1415,7 +1460,7 @@ def tuned_decode_check(rng: np.random.Generator) -> float:
                     and bool(torch.isfinite(out).all()),
                     f"{what}: output {tuple(out.shape)} {out.dtype}")
             require(calls == 1, f"{what}: {calls} launches, not 1")
-            err, over = compare(out, ref, *FLASH_BF16_TOL)
+            err, over = compare(out, ref, *flash_tol_d)
             require(err < decode_tol(dtype), f"{what}: error {err}")
             require(over <= 1, f"{what}: {over} of the flash limit")
             kp, vp = k.clone(), v.clone()
@@ -1439,7 +1484,8 @@ def tuned_decode_check(rng: np.random.Generator) -> float:
                                 "err_over_flash_limit",
                                 "poisoned_tail_max_abs_diff"]),
          worst_err_over_flash_limit=worst,
-         flash_atol_rtol=json.dumps(FLASH_BF16_TOL))
+         flash_atol_rtol=json.dumps(FLASH_BF16_TOL),
+         f32_flash_atol_rtol=json.dumps(FLASH_F32_TOL))
     torch.cuda.empty_cache()
     return worst
 
@@ -2443,6 +2489,109 @@ def phase_any(seed: int) -> dict:
             "flash_attention_cluster": flash, **rows}
 
 
+#: The calls a per-warp decode kernel used to take (``phase_perwarp``):
+#: (name, dtype, (b, h, d, dv), lengths, K and V as views one element past
+#: a 16-byte boundary). R1: f32 at Gemma-2-9B's 16 heads x 256 (the f32
+#: serve shape's cache bytes); R2: the same at 4 sequences of the whole
+#: cache (64 caches on 132 SMs); R3: bf16 at d = 66 (a 132-byte row, not
+#: whole 16-byte chunks); R4: the bf16 serve shape on views off 16 bytes.
+PERWARP_ROWS = (
+    ("r1_f32_hd256", torch.float32, (BATCH, 16, 256, 256), "smoke", False),
+    ("r2_f32_hd256_few", torch.float32, (4, 16, 256, 256), "full", False),
+    ("r3_bf16_d66", torch.bfloat16, (BATCH, HEADS, 66, 66), "smoke", False),
+    ("r4_bf16_off16", torch.bfloat16, (BATCH, HEADS, HEAD_DIM, HEAD_DIM),
+     "smoke", True),
+)
+
+
+def perwarp_inputs(gen: torch.Generator, row: tuple,
+                   smoke_lens: torch.Tensor) -> tuple:
+    """q [b, h, 1, d], K and V [b, h, KV_CAP, d / dv] (views one element
+    past a 16-byte boundary where the row says so) drawn from ``gen``, and
+    the lengths: the smoke's (``smoke_lens``) or the whole cache."""
+    _, dtype, (b, h, d, dv), lengths, offset = row
+    dev = gen.device
+
+    def cache(width: int) -> torch.Tensor:
+        t = randn(gen, (b, h, KV_CAP, width), dtype)
+        if not offset:
+            return t
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    q = randn(gen, (b, h, 1, d), dtype)
+    k, v = cache(d), cache(dv)
+    lens = (smoke_lens[:b].contiguous() if lengths == "smoke" else
+            torch.full((b,), KV_CAP, dtype=torch.int32, device=dev))
+    return q, k, v, lens
+
+
+def phase_perwarp(seed: int) -> dict:
+    """PERWARP_ROWS at full width (``wide_row`` per call): the kernel's,
+    plain version's and library call's (``scaled_dot_product_attention``
+    with the boolean length mask; on 16-byte-aligned copies of R4's views,
+    on which its kernel faults) ms, the bound (each valid K and V row
+    read once, q read and out written once, at 3.35 TB/s; operations at
+    f32's 67 TFLOP/s, the longer), and the kernels traced: R1 and R2 on the
+    ring kernel (two 16-byte chunks a lane; R2's cache split and merged),
+    R3 and R4 on the any-dtype kernel, which copies the 16-byte chunks
+    around each tile. Its own main path: the counts are zeroed before it
+    and must equal the rows' launches after it. Returns the rows by name
+    and their launches."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    smoke = torch.from_numpy(smoke_lengths(np.random.default_rng(seed))).to(
+        dev)
+    reset_launches()
+    rows = {}
+    for row in PERWARP_ROWS:
+        name, dtype = row[:2]
+        q, k, v, lens = perwarp_inputs(gen, row, smoke)
+        b, h, _, d = q.shape
+        dv = v.shape[3]
+        route = decode_route(q, k, v)
+        want = "stream" if name.startswith(("r3", "r4")) else "tuned"
+        require(route == want, f"perwarp_rows {name}: routed to {route}")
+        # dv = 66 is not whole float4s: the wrapper copies out's first dv
+        # columns from the kernel's output (rows rounded up to 4).
+        own = (("decode_ring_kernel" if route == "tuned"
+                else "stream_decode_kernel"), "wide_decode_merge") + (
+            ("direct_copy_kernel",) if dv % 4 else ())
+        mask = (torch.arange(KV_CAP, device=dev)[None, None, None, :]
+                < lens[:, None, None, None])
+        keys = int(lens.clamp(max=KV_CAP).sum()) * h
+        size = dtype.itemsize
+        flops = 2 * keys * (d + dv)
+        # The library's kernel faults (misaligned address) on views off a
+        # 16-byte boundary: it takes aligned copies of the same values.
+        lk, lv = (k.clone(), v.clone()) if k.data_ptr() % 16 else (k, v)
+        rows[name] = wide_row(
+            name, flash_attention_decode,
+            lambda: flash_attention_decode(q, k, v, lens),
+            lambda: decode_attention_reference(q, k, v, lens),
+            lambda: sdpa(q, lk, lv, attn_mask=mask),
+            nbytes=keys * (d + dv) * size + q.numel() * size
+            + b * h * dv * size + lens.numel() * 4, flops=flops,
+            flops_ms=flops / F32_FLOP_S * 1e3,
+            tol=FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL,
+            own=own, phase="perwarp_rows", route=route, q=list(q.shape),
+            k=list(k.shape), dtypes=dtype_names(dtype),
+            view_off_16_bytes=bool(k.data_ptr() % 16),
+            mean_len=int(lens.clamp(max=KV_CAP).sum()) / b)
+        del q, k, v, lk, lv, lens, mask
+        torch.cuda.empty_cache()
+    counts = launches()
+    total = sum(r["launches"] for r in rows.values())
+    line("perwarp_rows", launches=json.dumps(counts),
+         bound_basis="H100 SXM 3.35 TB/s HBM, 67 TFLOP/s f32")
+    require(counts == {"decode_attention": total, "flash_attention": 0},
+            f"the perwarp_rows leg's launches: {counts}, its rows counted "
+            f"{total}")
+    return {"launches": total, **rows}
+
+
 def phase_burnin() -> None:
     """``entry()`` on the card against the same step on the CPU, then the
     bf16 matmul chain. No kernel of the port runs here (the JAX block's
@@ -2710,6 +2859,7 @@ def _serve_claim(seed: int, client, driver, gpu) -> dict:
     check_served(engine, done, reqs, "serve")
     del engine
     torch.cuda.empty_cache()
+    hd256 = _serve_hd256(seed, spec, gpu)
 
     # Teardown: unreserve, wait for the claim watcher to unprepare, delete.
     c = client.get("ResourceClaim", name, "default")
@@ -2721,7 +2871,61 @@ def _serve_claim(seed: int, client, driver, gpu) -> dict:
             "devices") or []), "claim unprepared")
     client.delete("ResourceClaim", name, "default")
     return {"launches": n_launches, "claim_ready_ms": claim_ready_ms,
-            "ttfb_ms": ttfb_ms}
+            "ttfb_ms": ttfb_ms, "hd256_launches": hd256["launches"],
+            "hd256_max_abs_err": hd256["max_abs_err"]}
+
+
+#: The serve phase's second engine: the attention width of Gemma-2-9B
+#: (16 heads of head_dim 256, its published config.json), 32 slots and a
+#: 4096-token f32 cache (4.3 GB of slabs), bound from the same claim; its
+#: traffic: 16 requests from 2 tenants, prompts of 512-3072 tokens, 32 new
+#: tokens each. Its f32 rows of 1 KiB take the ring kernel's two-chunk
+#: form.
+HD256_WIDTH = {"max_batch": BATCH, "heads": 16, "head_dim": 256,
+               "kv_cap": KV_CAP, "requests": 16, "tenants": 2,
+               "prompts": (512, 3072), "new_tokens": 32}
+
+
+def _serve_hd256(seed: int, spec: dict, gpu) -> dict:
+    """An engine at HD256_WIDTH bound to the claim's CDI spec serves its
+    traffic under every serve check (``check_served``: completed ==
+    submitted, the accounting identity, ``kv_isolation_max_err``, decode
+    launches == decode steps, each last row its tenant's), then the kernel
+    is held to its plain version at the engine's shape (``soak_check``).
+    Returns the engine's decode launches and that error."""
+    w = HD256_WIDTH
+    engine = bind_engine(
+        spec, "smoke-hd256", metrics=ServingMetrics(),
+        max_batch=w["max_batch"], kv_cap=w["kv_cap"], heads=w["heads"],
+        head_dim=w["head_dim"], tokens_per_chip_step=2048, queue_cap=64,
+        modeled_chip_tok_s=1e9)
+    require(engine.device == torch.device("cuda", 0),
+            f"hd256 engine bound to {engine.device}")
+    rng = np.random.default_rng(seed + 1)
+    lengths = rng.integers(w["prompts"][0], w["prompts"][1] + 1,
+                           size=w["requests"])
+    reqs = [DecodeRequest(rid=f"g{i}", tenant=TENANTS[i % w["tenants"]],
+                          prompt_tokens=int(p),
+                          max_new_tokens=w["new_tokens"])
+            for i, p in enumerate(lengths)]
+    wall = serve_requests(engine, reqs, "serve hd256")
+    done = finish_engine(engine)
+    summary = done["summary"]
+    line("serve", engine="hd256", heads=w["heads"], head_dim=w["head_dim"],
+         max_batch=w["max_batch"], kv_cap=w["kv_cap"],
+         kv_slab_gb=2 * engine._K.numel() * 4 / 1e9,
+         submitted=summary["submitted"], completed=summary["completed"],
+         accounted=summary["accounted"], decode_steps=done["decode_steps"],
+         kernel_launches=json.dumps(done["counts"]), wall_s=wall,
+         decode_tok_s=summary["decode_tokens"] / wall,
+         kv_isolation_max_err=engine.kv_isolation_max_err)
+    check_served(engine, done, reqs, "serve hd256")
+    del engine
+    torch.cuda.empty_cache()
+    err = soak_check(np.random.default_rng(seed + 2), w, phase="serve")
+    torch.cuda.empty_cache()
+    return {"launches": done["counts"]["decode_attention"],
+            "max_abs_err": err}
 
 
 #: The selfheal phase's engine: the serve phase's width (one attention
@@ -6032,6 +6236,7 @@ def main(argv=None) -> int:
     f32 = phase_f32(args.seed)
     mixed = phase_mixed(args.seed)
     anyd = phase_any(args.seed)
+    perwarp = phase_perwarp(args.seed)
     phase_burnin()
     phase_selfheal(card, args.seed, found["lib"], found["gpu"])
     processes = phase_processes(card, args.seed, found["gpu"])
@@ -6064,13 +6269,25 @@ def main(argv=None) -> int:
                      + mig["kernel_launches"] + wire["launches"]
                      + crash["launches"] + race["launches"]
                      + cluster["launches"] + gates["launches"]),
-        "max_abs_err": max(max_abs_err, soak["max_abs_err"],
+        "max_abs_err": max(max_abs_err, served["hd256_max_abs_err"],
+                           soak["max_abs_err"],
                            mig["max_abs_err"], wire["max_abs_err"],
                            crash["max_abs_err"], race["max_abs_err"],
                            cluster["max_abs_err"], gates["max_abs_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+    }] + [{
+        # The ring kernel's two-chunk form (f32 rows of 129-256): launched
+        # by the serve phase's head-dim-256 engine; timed at perwarp_rows'
+        # R1, that engine's shape at 4096 keys.
+        "name": "decode_attention_f32_hd256", "route": "cuda",
+        "source": "k8s_dra_driver_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "k8s_dra_driver_tpu/compute/flashattention.py:125",
+        "launches": served["hd256_launches"],
+        **{key: perwarp["r1_f32_hd256"][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
     }] + [{
         # The tuned decode at 16 bits: the wide leg's serve-shape rows.
         "name": f"decode_attention_{name}", "route": "cuda",
@@ -6141,6 +6358,9 @@ def main(argv=None) -> int:
     require(all(math.isfinite(v) for k in kernels for v in
                 (k["ms"], k["plain_ms"], k["bound_ms"], k["library_ms"])
                 if v is not None), "non-finite time")
+    require(all(k["launches"] > 0 for k in kernels),
+            "a kernel launched no time on its main path: "
+            + ", ".join(k["name"] for k in kernels if k["launches"] <= 0))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

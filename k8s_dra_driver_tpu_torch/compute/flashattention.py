@@ -20,16 +20,14 @@ for P V, which accumulates in f32; the output is in q's dtype.
 On the card each wrapper picks one of five routes by dtypes and head dims
 (head dims zero-padded to the next multiple of 16 where a route says so):
 
-- tuned: q, k and v of one dtype with d, dv <= TUNED_HEAD_DIM (decode, in
-  f32, bf16 or f16: where K's and V's rows are whole 16-byte chunks on
-  16-byte boundaries, the ring kernel, bulk copies of K and V tiles into
-  shared memory with the cache split across blocks when b * h would leave
-  SMs idle (``tuned_decode_tile``, ``tuned_decode_splits``), else one
-  block per (b, h) with a per-warp online softmax; flash, in bf16 or f16:
-  the ``wgmma``/TMA path, padded head dims); and a decode whose q's dtype
-  differs from the one K and V share, where the ring kernel takes its rows
-  (the kernel is built for the cache's dtype and reads q and writes out in
-  q's);
+- tuned: flash with q, k and v of one dtype, bf16 or f16, and d, dv <=
+  TUNED_HEAD_DIM (the ``wgmma``/TMA path, padded head dims); decode with K
+  and V of one dtype, f32, bf16 or f16, d, dv <= TUNED_HEAD_DIM, rows of
+  whole 16-byte chunks on 16-byte boundaries and q in any dtype (the ring
+  kernel, built for the cache's dtype, reading q and writing out in q's:
+  bulk copies of K and V tiles into shared memory, 1 or 2 chunks of a row
+  a lane, with the cache split across blocks when b * h would leave SMs
+  idle, ``tuned_decode_tile``, ``tuned_decode_splits``);
 - wide: q, k and v all bf16 or all f16, padded d <= WIDE_MAX_D and dv <=
   WIDE_MAX_DV, one of them over TUNED_HEAD_DIM (DeepSeek-V3's absorbed
   MLA, 576/512): the tensor-core kernels of ``csrc/wide_attention.cuh``,
@@ -50,10 +48,11 @@ On the card each wrapper picks one of five routes by dtypes and head dims
   ``csrc/mixed_decode.cu``), each operand copied in its own dtype, a
   16-bit one entering its products once (it is exact in TF32) and an f32
   one as hi and lo; p rounded to V's dtype where V is 16-bit;
-- any: anything else (K and V in different dtypes, a mixed decode whose
-  rows the ring kernel does not take, a mixed decode cache off a 16-byte
-  boundary, head dims past the wide, f32 and mixed routes'), at any head
-  dims and in any mix of dtypes. Flash: the tensor-core kernels of
+- any: anything else (K and V in different dtypes, a decode whose rows the
+  ring kernel does not take, such as d = 66 in 16 bits or an odd d in f32,
+  a decode cache off a 16-byte boundary, head dims past the wide, f32 and
+  mixed routes'), at any head dims and in any mix of dtypes. Flash: the
+  tensor-core kernels of
   ``csrc/cluster_flash.cuh`` (built by ``cluster_flash_q32.cu`` and
   ``cluster_flash_q16.cu``), the f32 body with each operand's dtype its own
   and a cluster of CTAs that split d between them, sum their partial
@@ -61,14 +60,16 @@ On the card each wrapper picks one of five routes by dtypes and head dims
   (one CTA a slice, computing the scores itself, where d is at most 128;
   ``cluster_flash_plan``), padded head dims; decode: the byte-streaming
   kernel of ``csrc/stream_decode.cu``, which reads each valid K and V row
-  once through a ring of bulk copies (plain copies where a row is not whole
-  16-byte chunks or the cache starts off a 16-byte boundary), takes every
-  query row in one call, up to STREAM_ROWS a block, and splits the cache
-  across blocks (``stream_decode_plan``), then merges the splits.
+  once through a ring of bulk copies (of the 16-byte chunks around each
+  span where a row is not whole chunks or the cache starts off a 16-byte
+  boundary), takes every query row in one call, up to STREAM_ROWS a
+  block, and splits the cache across blocks (``stream_decode_plan``),
+  then merges the splits.
 
-The tuned decode kernels launch once per group of up to MAX_Q_LEN query
-rows (the ring kernel's merge, where it splits the cache, counts as part
-of its launch); every other decode route once a call.
+The tuned decode (the ring kernel) launches once per group of up to
+MAX_Q_LEN query rows (its merge, where it splits the cache, counts as part
+of its launch); every other decode route once a call. ``decode_route``
+says which route a decode call takes.
 """
 
 from __future__ import annotations
@@ -184,14 +185,15 @@ def tuned_kernel_takes(source: str, q, k, v, d: int, dv: int) -> bool:
     """Whether a CUDA call goes to the tuned kernel of ``source``
     (``"decode_attention"`` or ``"flash_attention"``): one dtype for k and
     v that the kernel is built for, head dims ``d`` and ``dv`` (the flash
-    wrapper's padded ones) up to TUNED_HEAD_DIM, and q in that dtype too,
-    or, in decode, q in another where the ring kernel takes the call
+    wrapper's padded ones) up to TUNED_HEAD_DIM; in flash, q in that dtype
+    too; in decode, q in any dtype where the ring kernel takes the cache
     (``ring_kernel_takes``)."""
     if not (k.dtype == v.dtype and k.dtype in _TUNED[source]
             and max(d, dv) <= TUNED_HEAD_DIM):
         return False
-    return q.dtype == k.dtype or (source == "decode_attention"
-                                  and ring_kernel_takes(k, v, d, dv))
+    if source == "decode_attention":
+        return ring_kernel_takes(k, v, d, dv)
+    return q.dtype == k.dtype
 
 
 def ring_kernel_takes(k, v, d: int, dv: int) -> bool:
@@ -270,21 +272,24 @@ def wide_decode_splits(b: int, h: int, ql: int, kv_cap: int,
 
 
 def tuned_decode_tile(dtype: torch.dtype, d: int, dv: int) -> int:
-    """Keys per tile of the tuned decode's ring kernel for a call in
+    """Keys per tile of the tuned decode's ring kernel for a cache in
     ``dtype`` with head dims ``d`` and ``dv`` (each <= TUNED_HEAD_DIM), or
-    0 where the per-warp kernel takes it: K's or V's row not a whole
-    number of 16-byte chunks, or more than 32 of them. A key takes 8, 16
-    or 32 lanes, one chunk of its K row and one of its V row each; a tile
-    is TUNED_STAGE_BYTES over two rows of that many chunks. (The kernel
-    also needs k and v on 16-byte boundaries; the wrapper checks.)"""
+    0 where the kernel does not take it (the any-dtype decode does): K's or
+    V's row not a whole number of 16-byte chunks, or more than 64 of them.
+    A key takes 8, 16 or 32 lanes, each one chunk of its K row and one of
+    its V row, or, for a row of 33-64 chunks (f32 at 129-256), 32 lanes of
+    two chunks each; a tile is TUNED_STAGE_BYTES over two rows of that many
+    chunks (16 keys at 256 in f32). (The kernel also needs k and v on
+    16-byte boundaries; the wrapper checks.)"""
     size = dtype.itemsize
     if (d * size) % 16 or (dv * size) % 16:
         return 0
     chunks = max(d, dv) * size // 16
-    if chunks > 32:
+    if chunks > 64:
         return 0
     lanes = 8 if chunks <= 8 else 16 if chunks <= 16 else 32
-    return TUNED_STAGE_BYTES // (2 * 16 * lanes)
+    per_lane = 1 if chunks <= 32 else 2
+    return TUNED_STAGE_BYTES // (2 * 16 * lanes * per_lane)
 
 
 def tuned_decode_splits(b: int, h: int, kv_cap: int, tile: int,
@@ -328,30 +333,35 @@ def cluster_flash_plan(d: int, dv: int) -> tuple[int, int, int]:
 
 
 def stream_decode_smem(tile: int, rows: int, d: int, dv: int, k_size: int,
-                       v_size: int) -> int:
+                       v_size: int, pad: int = 0) -> int:
     """Shared-memory bytes of one block of the any-dtype decode kernel:
     STREAM_STAGES stages of ``tile`` keys' K and V rows (``k_size`` and
-    ``v_size`` bytes an element, each span on 16 bytes), its barriers, q of
-    ``rows`` query rows and O of each of its key groups as f32 (O's dv
-    rounded up to 4; as many groups of dv / 4 threads as its 256 consumer
-    threads hold), two buffers of the tile's scores for 8 rows, and 8 rows'
-    corrections, max and denominator (``stream_decode.cu``'s layout)."""
+    ``v_size`` bytes an element, each span on 16 bytes and ``pad`` bytes
+    longer, 16 where a span is copied as the 16-byte chunks around it,
+    ``stream_decode_pad``), its barriers, q of ``rows`` query rows as f32
+    (each row padded to a multiple of 8 where ``pad``) and O of each of its
+    key groups as f32 (O's dv rounded up to 4; as many groups of dv / 4
+    threads as its 256 consumer threads hold), two buffers of the tile's
+    scores for 8 rows, and 8 rows' corrections, max and denominator
+    (``stream_decode.cu``'s layout)."""
     r16 = lambda x: -(-x // 16) * 16  # noqa: E731
-    stage = r16(tile * d * k_size) + r16(tile * dv * v_size)
+    stage = r16(tile * d * k_size) + r16(tile * dv * v_size) + 2 * pad
+    dq = -(-d // 8) * 8 if pad else d   # q's row, whole float4s of chunks
     dvo = -(-dv // 4) * 4
     groups = max(1, 256 // (dvo // 4))
     return (STREAM_STAGES * stage + r16(2 * STREAM_STAGES * 8)
-            + r16(rows * d * 4) + r16(groups * rows * dvo * 4)
+            + r16(rows * dq * 4) + r16(groups * rows * dvo * 4)
             + 2 * tile * 8 * 4 + 4 * 8 * 4)
 
 
 @functools.lru_cache(maxsize=4096)
 def stream_decode_plan(b: int, h: int, ql: int, kv_cap: int, d: int, dv: int,
-                       k_size: int, v_size: int,
-                       sms: int) -> tuple[int, int, int, int]:
+                       k_size: int, v_size: int, sms: int,
+                       pad: int = 0) -> tuple[int, int, int, int]:
     """(query rows a block, keys a tile, splits, keys per split) of the
     any-dtype decode kernel, for K and V elements of ``k_size`` and
-    ``v_size`` bytes.
+    ``v_size`` bytes and stage buffers ``pad`` bytes longer
+    (``stream_decode_pad``).
 
     A block takes up to STREAM_ROWS query rows (every row of the call goes
     to one launch, a grid dimension over groups of rows) and a tile of up to
@@ -367,7 +377,7 @@ def stream_decode_plan(b: int, h: int, ql: int, kv_cap: int, d: int, dv: int,
     def fit(budget: int, rows: int) -> int:
         tile = STREAM_MAX_TILE
         while tile and stream_decode_smem(tile, rows, d, dv, k_size,
-                                          v_size) > budget:
+                                          v_size, pad) > budget:
             tile -= 1
         return tile - tile % 8 if tile >= 8 else tile
 
@@ -387,6 +397,37 @@ def stream_decode_plan(b: int, h: int, ql: int, kv_cap: int, d: int, dv: int,
     most = max(1, tiles * tile // STREAM_SPLIT_MIN_KEYS)
     split_keys = -(-tiles // max(1, min(want, most))) * tile
     return rows, tile, -(-kv_cap // split_keys), split_keys
+
+
+def stream_decode_pad(k, v, d: int, dv: int) -> int:
+    """Bytes the any-dtype decode adds to each stage buffer for a cache
+    ``k``, ``v`` at head dims ``d``, ``dv``: 0 where every K and V row is
+    whole 16-byte chunks on 16-byte boundaries (its tiles are bulk-copied
+    as they are), else 16 (each tile's span is bulk-copied as the whole
+    16-byte chunks around it)."""
+    whole = ((d * k.dtype.itemsize) % 16 == 0
+             and (dv * v.dtype.itemsize) % 16 == 0
+             and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+    return 0 if whole else 16
+
+
+def decode_route(q, k, v) -> str:
+    """The route a CUDA decode call of these inputs takes: ``"tuned"``
+    (the ring kernel; q in the cache's dtype or another), ``"wide"``,
+    ``"f32"``, ``"mixed"`` (each only where d or dv, padded, is over
+    TUNED_HEAD_DIM) or ``"stream"`` (the any-dtype kernel: the rest)."""
+    d, dv = q.shape[3], v.shape[3]
+    dp, dvp = padded_head_dims(d, dv)
+    if tuned_kernel_takes("decode_attention", q, k, v, d, dv):
+        return "tuned"
+    if max(dp, dvp) > TUNED_HEAD_DIM:
+        if wide_kernel_takes(q, k, v, dp, dvp):
+            return "wide"
+        if f32_kernel_takes(q, k, v, dp, dvp):
+            return "f32"
+        if mixed_kernel_takes(q, k, v, dp, dvp):
+            return "mixed"
+    return "stream"
 
 
 @functools.lru_cache(maxsize=None)
@@ -583,12 +624,10 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA kernels walk the cache in their own tiles.
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
-    current stream (``tuned_kernel_takes``, ``wide_kernel_takes``,
-    ``f32_kernel_takes`` and ``mixed_kernel_takes`` say which; the
-    any-dtype kernel takes the rest): the tuned kernels one launch per
-    group of up to MAX_Q_LEN query rows (the rows do not attend to each
-    other), every other route one launch for every query row, each launch
-    counted in ``flash_attention_decode.launches``. No route casts or copies
+    current stream (``decode_route`` says which): the tuned ring kernel
+    one launch per group of up to MAX_Q_LEN query rows (the rows do not
+    attend to each other), every other route one launch for every query
+    row, each launch counted in ``flash_attention_decode.launches``. No route casts or copies
     the cache (the wide, f32 and mixed ones pad a head dim that is not a
     multiple of 16). CPU tensors go through ``decode_attention_reference``."""
     kv_cap = k.shape[2]
@@ -607,47 +646,40 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_decode(q, k, v, kv_lengths, stream: int,
                    sms: int | None = None) -> torch.Tensor:
-    """The decode kernel that takes these checked inputs, launched on
-    ``stream`` (the tuned kernels once per group of query rows, the others
-    once); each launch counted in ``flash_attention_decode.launches``.
+    """The decode kernel of ``decode_route`` for these checked inputs,
+    launched on ``stream`` (the ring kernel once per group of query rows,
+    the others once); each launch counted in
+    ``flash_attention_decode.launches``.
     ``sms``: the SM count that sizes the splits of every kernel that splits
     the cache (the device's by default)."""
     b, h, ql, d = q.shape
     kv_cap, dv = k.shape[2], v.shape[3]
     p, i = ctypes.c_void_p, ctypes.c_int
-    dp, dvp = padded_head_dims(d, dv)
-    tuned = tuned_kernel_takes("decode_attention", q, k, v, d, dv)
-    if not tuned and wide_kernel_takes(q, k, v, dp, dvp):
-        split = wide_decode_splits(b, h, ql, kv_cap,
-                                   sms or _sm_count(q.device))
+    route = decode_route(q, k, v)
+    sms = sms or _sm_count(q.device)
+    if route == "wide":
         return _launch_decode_once(q, k, v, kv_lengths, stream,
                                    "decode_attention",
-                                   f"wide_{_DTYPES[q.dtype]}", split)
-    if not tuned and f32_kernel_takes(q, k, v, dp, dvp):
-        split = f32_decode_splits(b, h, ql, kv_cap, dvp,
-                                  sms or _sm_count(q.device))
-        return _launch_decode_once(q, k, v, kv_lengths, stream,
-                                   "decode_attention", "f32tc", split)
-    if (not tuned and max(dp, dvp) > TUNED_HEAD_DIM
-            and mixed_kernel_takes(q, k, v, dp, dvp)):
-        split = f32_decode_splits(b, h, ql, kv_cap, dvp,
-                                  sms or _sm_count(q.device))
+                                   f"wide_{_DTYPES[q.dtype]}",
+                                   wide_decode_splits(b, h, ql, kv_cap, sms))
+    if route in ("f32", "mixed"):
+        split = f32_decode_splits(b, h, ql, kv_cap,
+                                  padded_head_dims(d, dv)[1], sms)
+        if route == "f32":
+            return _launch_decode_once(q, k, v, kv_lengths, stream,
+                                       "decode_attention", "f32tc", split)
         return _launch_decode_once(q, k, v, kv_lengths, stream,
                                    "mixed_decode", "f32tc", split,
                                    (_CODES[q.dtype], _CODES[k.dtype]))
-    if not tuned:
-        return _launch_stream_decode(q, k, v, kv_lengths, stream,
-                                     sms or _sm_count(q.device))
+    if route == "stream":
+        return _launch_stream_decode(q, k, v, kv_lengths, stream, sms)
     ints = [i] * 8   # b, h, ql, row0, rows, cap, d, dv
     group = MAX_Q_LEN
     # The entry of K's and V's dtype; q's dtype goes as its code.
     fn, err_str = _c_entry("decode_attention", _DTYPES[k.dtype],
                            [p] * 7 + ints + [ctypes.c_float, i, i, i, p])
-    tile = tuned_decode_tile(k.dtype, d, dv) if ring_kernel_takes(
-        k, v, d, dv) else 0
-    splits, split_keys = (tuned_decode_splits(
-        b, h, kv_cap, tile, sms or _sm_count(q.device)) if tile
-        else (1, kv_cap))
+    splits, split_keys = tuned_decode_splits(
+        b, h, kv_cap, tuned_decode_tile(k.dtype, d, dv), sms)
     work = ()
     if splits > 1:
         # f32 partials of one launch's rows; the launches of a call run in
@@ -680,7 +712,8 @@ def _launch_stream_decode(q, k, v, kv_lengths, stream: int,
     b, h, ql, d = q.shape
     kv_cap, dv = k.shape[2], v.shape[3]
     rows, tile, splits, split_keys = stream_decode_plan(
-        b, h, ql, kv_cap, d, dv, k.dtype.itemsize, v.dtype.itemsize, sms)
+        b, h, ql, kv_cap, d, dv, k.dtype.itemsize, v.dtype.itemsize, sms,
+        stream_decode_pad(k, v, d, dv))
     dvo = -(-dv // 4) * 4
     work = (None, None)
     if splits > 1:

@@ -17,25 +17,21 @@
 // every row in one call.
 //
 // Which kernel takes a call (the C entries at the end):
-//   * k and v of one dtype (f32, bf16 or f16) with d, dv <= 256, entries
-//     decode_attention_{f32,bf16,f16} (named by that dtype):
-//     `decode_ring_kernel` (and, where the cache is split, the merge of
-//     wide_attention.cuh) when every K and V row is a whole number of
-//     16-byte chunks, at most 32 of them (f32 up to 128), and k and v start
-//     on 16-byte boundaries, with q in that dtype or in another (q is read
-//     once a row by a run-time code and out written in q's dtype, so a
-//     16-bit cache under an f32 query streams as fast as under a 16-bit
-//     one); else, for a q in the cache's dtype, `decode_attention_kernel`
-//     (d = 66 in 16 bits, a view of a cache that starts mid-chunk, f32 past
-//     128), which loads a row an element a lane where it is not whole
-//     chunks;
+//   * k and v of one dtype (f32, bf16 or f16) with d, dv <= 256, every K
+//     and V row a whole number of 16-byte chunks and k and v on 16-byte
+//     boundaries, q in that dtype or in another, entries
+//     decode_attention_{f32,bf16,f16} (named by the cache's dtype):
+//     `decode_ring_kernel` below (and, where the cache is split, the merge
+//     of wide_attention.cuh). q is read once a row by a run-time code and
+//     out written in q's dtype, so a 16-bit cache under an f32 query
+//     streams as fast as under a 16-bit one;
 //   * q, k and v all bf16 or all f16, d or dv over 256, d <= 576 and
 //     dv <= 512 (the wrapper zero-pads both to multiples of 16): the wide
 //     tensor-core kernel of wide_attention.cuh and its merge, entries
 //     decode_attention_wide_{bf16,f16} (its note says what bounds it and
 //     what its design does about that: at absorbed MLA's 128 query rows
 //     each key feeds 128 x 1,088 multiply-adds, which is work for `wgmma`,
-//     not for the SIMT loop below);
+//     not for a SIMT loop);
 //   * q, k and v all f32, d or dv over 256, d <= 576 and dv <= 512 (padded
 //     the same way): the f32 tensor-core kernel of f32tc_attention.cuh and
 //     the wide path's merge, entry decode_attention_f32tc, every query row
@@ -44,43 +40,22 @@
 //     to padded 576/512): the same f32 tensor-core body built for 16-bit q
 //     or K and V, in mixed_decode.cu (a source of its own: its own nvcc
 //     job);
-//   * anything else (k and v in different dtypes, a mixed call whose rows
-//     the ring kernel does not take, or head dims past the wide, f32 and
-//     mixed kernels'): the any-dtype kernel of stream_decode.cu (its own
+//   * anything else (k and v in different dtypes; rows that are not whole
+//     16-byte chunks, such as d = 66 in 16 bits or an odd d in f32; a cache
+//     view that starts off a 16-byte boundary; head dims past the wide, f32
+//     and mixed kernels'): the any-dtype kernel of stream_decode.cu (its own
 //     nvcc job), every query row in one call.
 //
-// What bounds it: device-memory bytes. Every valid K and V row is read once,
-// (d + dv) * sizeof(T) bytes per key per head (1 KiB at d = 128 in f32), and
-// each element feeds only ql <= 8 multiply-adds, far below the operations per
-// byte at which the card's arithmetic would become the limit. So the design
-// is about keeping enough loads in flight and nothing else in their way:
-//   * one thread block per (b, h) pair, so a batch of sequences gives enough
-//     blocks to fill every SM, and the rows of one head stream through one SM;
-//   * each warp walks its own share of the keys, kBatch keys at a time, with
-//     its own online softmax (running max, denominator and accumulator in
-//     registers), so no barrier stalls the stream; the warps' partial
-//     results are merged once, at the end (the split-KV merge, inside a block);
-//   * a row is read by one warp with its lanes across d, 16 bytes per lane
-//     (512 contiguous bytes per K or V row at d = 128 in f32), and a batch's
-//     K and V rows are all requested before any is used;
-//   * the walk ends at key min(len, cap) - 1, so the masked tail of the padded
-//     cache is never read. (The TPU kernel walks all cap / block_k blocks; a
-//     fully masked block only adds exp(-inf) = 0 with a correction of 1, so
-//     skipping it changes no output.);
-//   * the number of query rows is a template parameter, so that the engine's
-//     ql = 1 spends no registers on rows it does not have;
-//   * so is whether V's head dim is K's (the engine's case): then one guard
-//     and one row offset cover a key's K and V loads, which keeps all of a
-//     batch's loads issued together (with separate guards the same shapes
-//     ran 2.4% slower on the H100).
-// What held that kernel back at 16 bits (PERF.md: 0.836 ms at the f16
-// serve shape on an H100, 38.6% of its bound, behind the library's 0.695):
-// a lane loads 8 elements, so at d = 128 lanes 16-31 load nothing yet take
-// part in every key's warp_sum; a warp's batch of loads and its arithmetic
-// take turns, and per byte the 16-bit batch costs twice f32's
-// instructions; and a grid of b h blocks leaves SMs idle when b h is
-// small. The ring kernel
-// (after the per-warp kernel below) is designed against each:
+// What bounds the ring kernel: device-memory bytes. Every valid K and V row
+// is read once, (d + dv) * sizeof(T) bytes per key per head (1 KiB at d =
+// 128 in f32), and each element feeds only ql <= 8 multiply-adds, far below
+// the operations per byte at which the card's arithmetic would become the
+// limit. The walk ends at key min(len, cap) - 1, so the masked tail of the
+// padded cache is never read. (The TPU kernel walks all cap / block_k
+// blocks; a fully masked block only adds exp(-inf) = 0 with a correction of
+// 1, so skipping it changes no output.) The number of query rows is a
+// template parameter, so that the engine's ql = 1 spends no registers on
+// rows it does not have. Its design:
 //   * bytes in flight that cost no registers or issue slots: one producer
 //     warp, one lane of it, keeps a 3-stage ring of K and V tiles in flight
 //     into shared memory with the 1-D bulk copy (`cp.async.bulk`, UBLKCP in
@@ -88,25 +63,27 @@
 //     [cap, d] span, so a tile of T keys is one copy of T d sizeof(T) bytes
 //     (and one of V); the last tile copies only its valid keys, and nothing
 //     at or past min(len, cap) is read. A stage is 32 KiB (T = 64 at d = 128
-//     in 16 bits), 96 KiB a block, two blocks an SM;
+//     in 16 bits, 16 at d = 256 in f32), 96 KiB a block, two blocks an SM;
 //   * every lane working: 4 consumer warps compute from shared memory. A
-//     key takes G = 8, 16 or 32 lanes, one 16-byte chunk of its K row and
-//     of its V row each (G = 16 at d = 128 in 16 bits: a warp reads two
-//     keys' 512 contiguous bytes a load, with no bank conflict); q.k sums
-//     over G lanes (log2 G shuffles), so every lane of the warp works. Each
-//     lane group keeps its own online softmax (base-2 max, denominator and
-//     a chunk of the accumulator in f32) over U keys a step, p rounded to
-//     V's dtype before P V; the block's 4 x 32 / G softmaxes merge once, at
-//     the end, through the emptied ring;
+//     key takes G = 8, 16 or 32 lanes, C = 1 (or, for an f32 row of 33-64
+//     chunks, 2) 16-byte chunks of its K row and of its V row each (G = 16
+//     at d = 128 in 16 bits: a warp reads two keys' 512 contiguous bytes a
+//     load, with no bank conflict); q.k sums over G lanes (log2 G shuffles),
+//     so every lane of the warp works. Each lane group keeps its own online
+//     softmax (base-2 max, denominator and C chunks of the accumulator in
+//     f32) over U keys a step, p rounded to V's dtype before P V; the
+//     block's 4 x 32 / G softmaxes merge once, at the end, through the
+//     emptied ring;
 //   * split-KV when b h leaves SMs idle: blocks (b h, split), the split
 //     count sized by the wrapper from the shapes and the SM count alone
 //     (`tuned_decode_splits`), one split at the serve shape (1,024 blocks);
 //     with more, each block writes an f32 partial (O, base-2 max, l) and the
 //     wide path's merge kernel combines them.
-// f32 calls take it too where their rows are whole chunks (up to d = 128:
-// G = 32 lanes hold a 512-byte row): at the f32 serve shape on an H100 it
-// ran 0.696-0.705 ms against the per-warp kernel's 0.732-0.736 in one
-// call's interleaved turns (`chip_ab.py decode`; PERF.md).
+// Against a block per (b, h) with each warp loading its own keys from global
+// memory, on an H100 (PERF.md): the f16 serve shape 0.836 -> 0.357 ms; the
+// f32 serve shape 0.732-0.736 -> 0.696-0.705 ms in one call's interleaved
+// turns (`chip_ab.py decode`); f32 rows of 129-256 (C = 2) in `chip_ab.py
+// perwarp`.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -119,11 +96,8 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBatch = 4;   // keys a warp has in flight (K and V rows each)
 constexpr int kMaxQ = 8;    // query rows per launch
-constexpr int kMaxD = 256;  // head dims (d, dv); kThreads >= kMaxD: the merge
+constexpr int kMaxD = 256;  // head dims (d, dv)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -146,253 +120,8 @@ __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half(x);
 }
 
-// E consecutive elements at p, as floats: one 16-byte load when E elements
-// fill 16 bytes (p then 16-byte aligned), else E scalar loads.
-template <typename T, int E>
-__device__ __forceinline__ void load_row(const T* p, float (&out)[E]) {
-  if constexpr (E * sizeof(T) == 16) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < E; ++i) out[i] = to_float(e[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < E; ++i) out[i] = to_float(p[i]);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// T: element type. QL: query rows the kernel is built for (rows <= QL; rows
-// rows..QL-1 are zero and never stored). E: elements per lane per load.
-// kSameDims: dv == d. ql is q's and out's row count per (b, h), of which this
-// launch takes rows row0 .. row0 + rows - 1.
-template <typename T, int QL, int E, bool kSameDims>
-__global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const int* __restrict__ lens, T* __restrict__ out,
-                            int h, int ql, int row0, int rows, int cap, int d,
-                            int dv, float scale) {
-  constexpr int kChunk = 32 * E;                         // elements per warp load
-  constexpr int kChunks = (kMaxD + kChunk - 1) / kChunk;  // per row, at most
-  __shared__ float q_s[QL][kMaxD];
-  __shared__ float m_s[kWarps][QL];
-  __shared__ float l_s[kWarps][QL];
-  __shared__ float acc_s[kWarps][kMaxD];
-
-  const int bh = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const T* kb = k + static_cast<size_t>(bh) * cap * d;
-  const T* vb = v + static_cast<size_t>(bh) * cap * dv;
-  const size_t q_off = (static_cast<size_t>(bh) * ql + row0) * d;
-  const size_t o_off = (static_cast<size_t>(bh) * ql + row0) * dv;
-
-  for (int i = tid; i < QL * kMaxD; i += kThreads) {
-    const int r = i / kMaxD, c = i - r * kMaxD;
-    q_s[r][c] = (r < rows && c < d) ? to_float(q[q_off + r * d + c]) : 0.f;
-  }
-  __syncthreads();
-
-  // Lane `lane` owns elements ch * kChunk + lane * E + e of every row; with
-  // d % E == 0 and dv % E == 0 those are all in range or all out of it.
-  float qr[QL][kChunks][E];
-#pragma unroll
-  for (int r = 0; r < QL; ++r)
-#pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch)
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int c = ch * kChunk + lane * E + e;
-        qr[r][ch][e] = c < kMaxD ? q_s[r][c] : 0.f;
-      }
-
-  const int n_valid = min(lens[bh / h], cap);
-  float m[QL], l[QL], acc[QL][kChunks][E];
-#pragma unroll
-  for (int r = 0; r < QL; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch)
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[r][ch][e] = 0.f;
-  }
-
-  // Warp w takes keys [w * kBatch, (w + 1) * kBatch), then the same span
-  // kWarps * kBatch further on, and so on.
-  for (int base = warp * kBatch; base < n_valid; base += kWarps * kBatch) {
-    float kr[kBatch][kChunks][E], vr[kBatch][kChunks][E];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-#pragma unroll
-      for (int ch = 0; ch < kChunks; ++ch) {
-        const int c = ch * kChunk + lane * E;
-        const bool key = base + u < n_valid;
-        if constexpr (kSameDims) {
-          if (key && c < d) {
-            const size_t row = static_cast<size_t>(base + u) * d + c;
-            load_row<T, E>(kb + row, kr[u][ch]);
-            load_row<T, E>(vb + row, vr[u][ch]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < E; ++e) kr[u][ch][e] = vr[u][ch][e] = 0.f;
-          }
-        } else {
-          if (key && c < d) {
-            load_row<T, E>(kb + static_cast<size_t>(base + u) * d + c,
-                           kr[u][ch]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < E; ++e) kr[u][ch][e] = 0.f;
-          }
-          if (key && c < dv) {
-            load_row<T, E>(vb + static_cast<size_t>(base + u) * dv + c,
-                           vr[u][ch]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < E; ++e) vr[u][ch][e] = 0.f;
-          }
-        }
-      }
-
-#pragma unroll
-    for (int r = 0; r < QL; ++r) {
-      float s[kBatch];
-      float m_new = m[r];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch)
-#pragma unroll
-          for (int e = 0; e < E; ++e)
-            part = fmaf(qr[r][ch][e], kr[u][ch][e], part);
-        s[u] = base + u < n_valid ? warp_sum(part) * scale : -CUDART_INF_F;
-        m_new = fmaxf(m_new, s[u]);
-      }
-      // Key `base` is valid, so m_new is finite and no exp sees -inf - -inf;
-      // the first batch gives corr = exp(-inf) = 0 against the empty state.
-      const float corr = expf(m[r] - m_new);
-      float p[kBatch], psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const float pu = expf(s[u] - m_new);
-        psum += pu;
-        p[u] = to_float(from_float<T>(pu));  // p in V's dtype for PV
-      }
-      l[r] = l[r] * corr + psum;
-      m[r] = m_new;
-#pragma unroll
-      for (int ch = 0; ch < kChunks; ++ch)
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          float a = acc[r][ch][e] * corr;
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) a = fmaf(p[u], vr[u][ch][e], a);
-          acc[r][ch][e] = a;
-        }
-    }
-  }
-
-  // Merge the warps' (m, l, acc): weights exp(m_w - max m); a warp that saw
-  // no key has m_w = -inf and weight 0. len <= 0 leaves every warp empty,
-  // l = 0, and a NaN output, as the plain version gives.
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < QL; ++r) {
-      m_s[warp][r] = m[r];
-      l_s[warp][r] = l[r];
-    }
-  }
-  // r runs to the compile-time QL so that acc stays in registers; the guard
-  // is the same in every thread, so the barriers inside are uniform.
-#pragma unroll
-  for (int r = 0; r < QL; ++r) {
-    if (r >= rows) break;
-#pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch)
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int c = ch * kChunk + lane * E + e;
-        if (c < kMaxD) acc_s[warp][c] = acc[r][ch][e];
-      }
-    __syncthreads();
-    if (tid < dv) {
-      float m_tot = -CUDART_INF_F;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) m_tot = fmaxf(m_tot, m_s[w][r]);
-      float num = 0.f, den = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float mw = m_s[w][r];
-        const float wt = mw == -CUDART_INF_F ? 0.f : expf(mw - m_tot);
-        num = fmaf(wt, acc_s[w][tid], num);
-        den = fmaf(wt, l_s[w][r], den);
-      }
-      out[o_off + r * dv + tid] = from_float<T>(num / den);
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, int QL, bool kSameDims>
-void launch_dims(const void* q, const void* k, const void* v,
-                 const void* lens, void* out, int b, int h, int ql, int row0,
-                 int rows, int cap, int d, int dv, float scale,
-                 cudaStream_t stream) {
-  const auto* qp = static_cast<const T*>(q);
-  const auto* kp = static_cast<const T*>(k);
-  const auto* vp = static_cast<const T*>(v);
-  const auto* lp = static_cast<const int*>(lens);
-  auto* op = static_cast<T*>(out);
-  // Whole 16-byte chunks on 16-byte boundaries reach this kernel only in
-  // f32 past d = 128 (the ring kernel takes the rest), so only f32 has the
-  // 16-byte form.
-  if constexpr (sizeof(T) == 4) {
-    constexpr int kVec = 16 / sizeof(T);
-    if (d % kVec == 0 && dv % kVec == 0 &&
-        reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-        reinterpret_cast<uintptr_t>(v) % 16 == 0) {
-      decode_attention_kernel<T, QL, kVec, kSameDims>
-          <<<b * h, kThreads, 0, stream>>>(qp, kp, vp, lp, op, h, ql, row0,
-                                           rows, cap, d, dv, scale);
-      return;
-    }
-  }
-  decode_attention_kernel<T, QL, 1, kSameDims>
-      <<<b * h, kThreads, 0, stream>>>(qp, kp, vp, lp, op, h, ql, row0,
-                                       rows, cap, d, dv, scale);
-}
-
-template <typename T, int QL>
-int launch_rows(const void* q, const void* k, const void* v, const void* lens,
-                void* out, int b, int h, int ql, int row0, int rows, int cap,
-                int d, int dv, float scale, cudaStream_t stream) {
-  if (d == dv)
-    launch_dims<T, QL, true>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d,
-                             dv, scale, stream);
-  else
-    launch_dims<T, QL, false>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
-                              d, dv, scale, stream);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The dtype codes of the entries (the wrapper's): f32, bf16, f16.
 enum DtypeCode : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
-
-template <typename T>
-constexpr int code_of() {
-  return std::is_same<T, float>::value           ? kF32
-         : std::is_same<T, __nv_bfloat16>::value ? kBF16
-                                                 : kF16;
-}
 
 // Element i of a tensor whose dtype is known only at run time (q, out).
 __device__ __forceinline__ float load_any(const void* p, int type, size_t i) {
@@ -433,23 +162,31 @@ __host__ __device__ constexpr int smem_bytes(int ql) {
   return kQOffset + (q_in_smem(ql) ? ql * kMaxD * 4 : 0);
 }
 
-// Keys a tile when a K or V row is at most `lanes` 16-byte chunks: two rows
-// a key, so a stage never holds more than kStageBytes.
-__host__ __device__ constexpr int tile_keys(int lanes) {
-  return kStageBytes / (2 * 16 * lanes);
+// Keys a tile when a K or V row is at most `lanes` x `chunks` 16-byte
+// chunks: two rows a key, so a stage never holds more than kStageBytes.
+__host__ __device__ constexpr int tile_keys(int lanes, int chunks) {
+  return kStageBytes / (2 * 16 * lanes * chunks);
 }
 
-// Lanes a key (8, 16 or 32) for this call, or 0 where the ring kernel does
-// not take it: a K or V row whose byte width is not a multiple of 16, k or v
-// not on a 16-byte boundary, or a row of more than 32 chunks (f32 past 128).
+// The form that takes this call, lanes a key (8, 16 or 32) and chunks a
+// lane (1, or 2 for an f32 row of 33-64 chunks: d or dv from 129 to 256),
+// or lanes 0 where the ring kernel does not take it: a K or V row whose
+// byte width is not a multiple of 16, k or v not on a 16-byte boundary, or
+// a row of more than 64 chunks.
+struct Form {
+  int lanes, chunks;
+};
+
 template <typename T>
-int lanes_for(const void* k, const void* v, int d, int dv) {
+Form form_for(const void* k, const void* v, int d, int dv) {
   constexpr int kChunk = 16 / sizeof(T);  // elements a 16-byte chunk
   if (d % kChunk || dv % kChunk || reinterpret_cast<uintptr_t>(k) % 16 ||
       reinterpret_cast<uintptr_t>(v) % 16)
-    return 0;
+    return {0, 0};
   const int chunks = max(d, dv) / kChunk;
-  return chunks <= 8 ? 8 : chunks <= 16 ? 16 : chunks <= 32 ? 32 : 0;
+  if (chunks > 64) return {0, 0};
+  if (chunks > 32) return {32, 2};
+  return {chunks <= 8 ? 8 : chunks <= 16 ? 16 : 32, 1};
 }
 
 // Sum over the G lanes of an aligned group (xor offsets below G stay in it).
@@ -484,9 +221,10 @@ struct Call {
 // of (b h) bh's cache, stopping at min(len, cap). T: K's and V's element
 // type; q and out are in the dtype of code q_type (T's, or another: q is
 // read once a row and converted to f32, out written once). QL: query rows
-// built for (rows <= QL); G: lanes a key, each holding one 16-byte chunk of
-// the key's K row and one of its V row.
-template <typename T, int QL, int G>
+// built for (rows <= QL); G: lanes a key; C: 16-byte chunks a lane holds of
+// the key's K row and of its V row (chunks c, c + G, ...: for each j a
+// group reads 16 G contiguous bytes).
+template <typename T, int QL, int G, int C>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_ring_kernel(const void* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ lens,
@@ -499,7 +237,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   constexpr int U = QL >= 4 ? 2 : 4;            // keys a group takes a step
   constexpr bool kQSmem = q_in_smem(QL);
   constexpr int kStepKeys = NG * U;             // keys a warp takes a step
-  constexpr int kTile = tile_keys(G);
+  constexpr int kTile = tile_keys(G, C);
   constexpr int kWarpKeys = kTile / kConsumers;  // a warp's share of a tile
   constexpr int kStates = kConsumers * NG;      // online softmaxes a block
   static_assert(kWarpKeys % kStepKeys == 0, "a warp's share in whole steps");
@@ -552,14 +290,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     return;
   }
 
-  // Consumers. Lane (g, c): chunk c of the keys of group g.
+  // Consumers. Lane (g, c): chunks c + j G (j < C) of the keys of group g.
   const int g = lane / G, c = lane % G;
-  const bool k_lane = c * E < d, v_lane = c * E < dv;
+  bool k_lane[C], v_lane[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    k_lane[j] = (c + j * G) * E < d;
+    v_lane[j] = (c + j * G) * E < dv;
+  }
   const size_t q_off = (static_cast<size_t>(bh) * ql + row0) * d;
-  // q as f32: the lane's chunk of each row in registers, or every row in
+  // q as f32: the lane's chunks of each row in registers, or every row in
   // shared memory ([QL][kMaxD], zeros past d and rows), read a chunk a row
   // a step.
-  float qf[kQSmem ? 1 : QL][E];
+  float qf[kQSmem ? 1 : QL][C][E];
   float* const qs = reinterpret_cast<float*>(smem + kQOffset);
   if constexpr (kQSmem) {
     for (int i = threadIdx.x; i < QL * kMaxD; i += 32 * kConsumers) {
@@ -572,22 +315,27 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int r = 0; r < QL; ++r)
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        qf[r][e] = r < rows && k_lane
-                       ? load_any(q, q_type, q_off + r * d + c * E + e)
-                       : 0.f;
+      for (int j = 0; j < C; ++j)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          qf[r][j][e] =
+              r < rows && k_lane[j]
+                  ? load_any(q, q_type, q_off + r * d + (c + j * G) * E + e)
+                  : 0.f;
   }
 
   // Each group's online softmax: base-2 running max, denominator and
   // accumulator, the same in the group's lanes but for the accumulator's
-  // chunk.
-  float m[QL], l[QL], acc[QL][E];
+  // chunks.
+  float m[QL], l[QL], acc[QL][C][E];
 #pragma unroll
   for (int r = 0; r < QL; ++r) {
     m[r] = -CUDART_INF_F;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+    for (int j = 0; j < C; ++j)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[r][j][e] = 0.f;
   }
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -603,7 +351,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       // contiguous span; key0 + u NG + g for group g.
       const int key0 = warp * kWarpKeys + step * kStepKeys;
       if (key0 >= n) break;
-      float kf[U][E], vf[U][E];
+      float kf[U][C][E], vf[U][C][E];
       bool valid[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -611,38 +359,48 @@ __global__ void __launch_bounds__(kThreads, 2)
         valid[u] = key < n;
         // Past the tile's valid keys the stage holds an older tile or
         // nothing yet: read zeros instead.
-        uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-        if (valid[u] && k_lane)
-          kr = *reinterpret_cast<const uint4*>(ks + key * d_bytes + c * 16);
-        if (valid[u] && v_lane)
-          vr = *reinterpret_cast<const uint4*>(vs + key * dv_bytes + c * 16);
-        unpack<T>(kr, kf[u]);
-        unpack<T>(vr, vf[u]);
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const int at = (c + j * G) * 16;
+          uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
+          if (valid[u] && k_lane[j])
+            kr = *reinterpret_cast<const uint4*>(ks + key * d_bytes + at);
+          if (valid[u] && v_lane[j])
+            vr = *reinterpret_cast<const uint4*>(vs + key * dv_bytes + at);
+          unpack<T>(kr, kf[u][j]);
+          unpack<T>(vr, vf[u][j]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < QL; ++r) {
-        float qr[E];
-        if constexpr (kQSmem) {
-          const float4* qp =
-              reinterpret_cast<const float4*>(qs + r * kMaxD + c * E);
+        float qr[C][E];
 #pragma unroll
-          for (int j = 0; j < E / 4; ++j) {
-            const float4 x = qp[j];
-            qr[4 * j] = x.x;
-            qr[4 * j + 1] = x.y;
-            qr[4 * j + 2] = x.z;
-            qr[4 * j + 3] = x.w;
+        for (int j = 0; j < C; ++j) {
+          if constexpr (kQSmem) {
+            const float4* qp = reinterpret_cast<const float4*>(
+                qs + r * kMaxD + (c + j * G) * E);
+#pragma unroll
+            for (int i = 0; i < E / 4; ++i) {
+              const float4 x = qp[i];
+              qr[j][4 * i] = x.x;
+              qr[j][4 * i + 1] = x.y;
+              qr[j][4 * i + 2] = x.z;
+              qr[j][4 * i + 3] = x.w;
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) qr[j][e] = qf[kQSmem ? 0 : r][j][e];
           }
-        } else {
-#pragma unroll
-          for (int e = 0; e < E; ++e) qr[e] = qf[kQSmem ? 0 : r][e];
         }
         float s[U], mx = -CUDART_INF_F;
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           float part = 0.f;
 #pragma unroll
-          for (int e = 0; e < E; ++e) part = fmaf(qr[e], kf[u][e], part);
+          for (int j = 0; j < C; ++j)
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              part = fmaf(qr[j][e], kf[u][j][e], part);
           part = group_sum<G>(part);
           s[u] = valid[u] ? part * scale_log2 : -CUDART_INF_F;
           mx = fmaxf(mx, s[u]);
@@ -662,12 +420,14 @@ __global__ void __launch_bounds__(kThreads, 2)
         l[r] = l[r] * corr + psum;
         m[r] = m_new;
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          float a = acc[r][e] * corr;
+        for (int j = 0; j < C; ++j)
 #pragma unroll
-          for (int u = 0; u < U; ++u) a = fmaf(p[u], vf[u][e], a);
-          acc[r][e] = a;
-        }
+          for (int e = 0; e < E; ++e) {
+            float a = acc[r][j][e] * corr;
+#pragma unroll
+            for (int u = 0; u < U; ++u) a = fmaf(p[u], vf[u][j][e], a);
+            acc[r][j][e] = a;
+          }
       }
     }
     __syncwarp();
@@ -689,10 +449,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       ms[r * kStates + state] = m[r];
       ls[r * kStates + state] = l[r];
     }
-    if (v_lane) {
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        as[(r * kStates + state) * dv + c * E + e] = acc[r][e];
+    for (int j = 0; j < C; ++j) {
+      if (v_lane[j]) {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          as[(r * kStates + state) * dv + (c + j * G) * E + e] = acc[r][j][e];
+      }
     }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumers) : "memory");
@@ -728,9 +491,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename T, int QL, int G>
+template <typename T, int QL, int G, int C>
 int launch_as(const Call& a, cudaStream_t stream) {
-  const auto kernel = decode_ring_kernel<T, QL, G>;
+  const auto kernel = decode_ring_kernel<T, QL, G, C>;
   constexpr int kSmem = smem_bytes(QL);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -758,25 +521,29 @@ int launch_as(const Call& a, cudaStream_t stream) {
 }
 
 template <typename T, int QL>
-int launch_lanes(const Call& a, int lanes, cudaStream_t stream) {
-  if (lanes == 8) return launch_as<T, QL, 8>(a, stream);
-  if (lanes == 16) return launch_as<T, QL, 16>(a, stream);
-  return launch_as<T, QL, 32>(a, stream);
+int launch_form(const Call& a, Form f, cudaStream_t stream) {
+  // Two chunks a lane only where a row is over 32 chunks: f32 past 128.
+  if constexpr (sizeof(T) == 4)
+    if (f.chunks == 2) return launch_as<T, QL, 32, 2>(a, stream);
+  if (f.lanes == 8) return launch_as<T, QL, 8, 1>(a, stream);
+  if (f.lanes == 16) return launch_as<T, QL, 16, 1>(a, stream);
+  return launch_as<T, QL, 32, 1>(a, stream);
 }
 
 template <typename T>
-int launch(const Call& a, int lanes, cudaStream_t stream) {
-  if (a.rows == 1) return launch_lanes<T, 1>(a, lanes, stream);
-  if (a.rows == 2) return launch_lanes<T, 2>(a, lanes, stream);
-  if (a.rows <= 4) return launch_lanes<T, 4>(a, lanes, stream);
-  return launch_lanes<T, 8>(a, lanes, stream);
+int launch(const Call& a, Form f, cudaStream_t stream) {
+  if (a.rows == 1) return launch_form<T, 1>(a, f, stream);
+  if (a.rows == 2) return launch_form<T, 2>(a, f, stream);
+  if (a.rows <= 4) return launch_form<T, 4>(a, f, stream);
+  return launch_form<T, 8>(a, f, stream);
 }
 
 }  // namespace ring
 
-// The tuned entries: the ring kernel where it takes the call (its splits
-// checked against its tile), else, for a q in K's and V's dtype T, the
-// per-warp kernel above with one split.
+// The tuned entries: the ring kernel, its splits checked against its tile.
+// A call it does not take (rows not whole 16-byte chunks, a cache off a
+// 16-byte boundary) is refused: the wrapper sends those to the any-dtype
+// decode (stream_decode.cu).
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lens,
            void* out, void* part_o, void* part_ml, int b, int h, int ql,
@@ -786,26 +553,11 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
       row0 + rows > ql || d < 1 || d > kMaxD || dv < 1 || dv > kMaxD ||
       splits < 1 || q_type < kF32 || q_type > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  const int lanes = ring::lanes_for<T>(k, v, d, dv);
-  if (lanes == 0) {
-    if (splits != 1 || q_type != code_of<T>())
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (rows == 1)
-      return launch_rows<T, 1>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
-                               d, dv, scale, s);
-    if (rows == 2)
-      return launch_rows<T, 2>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
-                               d, dv, scale, s);
-    if (rows <= 4)
-      return launch_rows<T, 4>(q, k, v, lens, out, b, h, ql, row0, rows, cap,
-                               d, dv, scale, s);
-    return launch_rows<T, 8>(q, k, v, lens, out, b, h, ql, row0, rows, cap, d,
-                             dv, scale, s);
-  }
+  const ring::Form form = ring::form_for<T>(k, v, d, dv);
+  if (form.lanes == 0) return static_cast<int>(cudaErrorInvalidValue);
   // Splits of whole tiles that cover the cache, none empty by construction;
   // a workspace when there is more than one.
-  const int tile = ring::tile_keys(lanes);
+  const int tile = ring::tile_keys(form.lanes, form.chunks);
   if (split_keys < tile || split_keys % tile != 0 || splits > 65535 ||
       static_cast<long long>(splits - 1) * split_keys >= cap ||
       static_cast<long long>(splits) * split_keys < cap ||
@@ -816,7 +568,7 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
                static_cast<float*>(part_o), static_cast<float*>(part_ml),
                b, h, ql, row0, rows, cap, d, dv, splits, split_keys, scale,
                q_type};
-  return ring::launch<T>(a, lanes, s);
+  return ring::launch<T>(a, form, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -826,14 +578,15 @@ int launch(const void* q, const void* k, const void* v, const void* lens,
 // launch's cudaError_t (0 on success).
 extern "C" {
 
-// The tuned path, entries named by K's and V's dtype: d and dv up to 256,
-// query rows [row0, row0 + rows) of q, rows <= 8. Where the ring kernel
-// takes the call, split s takes keys [s split_keys, (s + 1) split_keys),
-// split_keys a multiple of its tile (the wrapper's tuned_decode_tile), and
-// with more than one split part_o and part_ml are the f32 partials'
-// workspace, [b h, splits, rows, dv] and [b h, splits, rows, 2]; elsewhere
-// splits is 1. q_type (0 f32, 1 bf16, 2 f16) is q's and out's dtype: the
-// entry's own, or, where the ring kernel takes the call, another.
+// The tuned path, entries named by K's and V's dtype: the ring kernel, d
+// and dv up to 256 on K and V rows of whole 16-byte chunks that start on
+// 16-byte boundaries (anything else is refused), query rows [row0, row0 +
+// rows) of q, rows <= 8. Split s takes keys [s split_keys, (s + 1)
+// split_keys), split_keys a multiple of its tile (the wrapper's
+// tuned_decode_tile), and with more than one split part_o and part_ml are
+// the f32 partials' workspace, [b h, splits, rows, dv] and [b h, splits,
+// rows, 2]. q_type (0 f32, 1 bf16, 2 f16) is q's and out's dtype: the
+// entry's own, or another.
 
 int decode_attention_f32(const void* q, const void* k, const void* v,
                          const void* lens, void* out, void* part_o,

@@ -1,9 +1,9 @@
 // Decode attention for NVIDIA Hopper (sm_90a) at any head dims and in any
 // mix of dtypes: the calls that the tuned, wide, f32 and mixed decode
 // kernels do not take (K and V in different dtypes; head dims past padded
-// 576/512; a q whose dtype is apart from the cache's on rows the ring
-// kernel does not take, such as d = 66 in 16 bits; a cache view that starts
-// off a 16-byte boundary).
+// 576/512; rows the ring kernel does not take, such as d = 66 in 16 bits or
+// an odd d in f32, whatever q's dtype; a cache view that starts off a
+// 16-byte boundary).
 //
 // It replaces, for those calls, the TPU kernel `_decode_kernel`, reached
 // through `flash_attention_decode` (k8s_dra_driver_tpu/compute/
@@ -28,17 +28,25 @@
 //     keys' K rows and V rows, each operand in its own dtype, with the 1-D
 //     bulk copy (`cp.async.bulk`: a (b h)'s cache is one contiguous span, so
 //     a tile is one copy of K and one of V). Where a row is not a whole
-//     number of 16-byte chunks or k or v starts off a 16-byte boundary, the
-//     producer warp's 32 lanes copy the same spans with plain loads into the
-//     same ring (a compile-time variant). Nothing at or past min(len, cap)
-//     is read;
+//     number of 16-byte chunks or k or v starts off a 16-byte boundary (a
+//     compile-time variant), the same lane bulk-copies the whole 16-byte
+//     chunks around each span, and the consumers read the span from where
+//     it starts in its first chunk: the same bytes in flight as whole rows
+//     have (scalar copies by the producer warp's 32 lanes kept a few
+//     hundred bytes in flight a block). Nothing of a key
+//     at or past min(len, cap) is used, and no 16-byte chunk is read that
+//     holds none of a tile's valid bytes;
 //   * T, the rows a block takes and so the ring's size come from the
 //     wrapper (`stream_decode_plan`): as many keys a tile (up to 64) as fit
 //     two blocks an SM, else one;
 //   * per tile, two phases. S: each of the 8 consumer warps takes keys of
-//     the tile in turn, its lanes across d (16-byte chunks of the row, or
-//     elements in the plain variant), converts K in registers and dots it
-//     with q, which is held as f32 in shared memory, then sums over the warp.
+//     the tile in turn, its lanes across d (16-byte chunks of the row),
+//     converts K in registers and dots it with q, which is held as f32 in
+//     shared memory, then sums over the warp (in the variant whose rows
+//     start off 16-byte boundaries a key takes 4-32 lanes, about two of its
+//     chunks a lane, each chunk shifted out of the two stage chunks it
+//     spans, so that a narrow row such as d = 66 keeps the lanes busy and
+//     sums over fewer shuffles).
 //     Softmax: warp r takes query row r: the tile's max, the correction and
 //     p = 2^(s - m), rounded to V's dtype, back into shared memory. P V:
 //     each thread owns 4 columns of dv (and every 1,024th after) and a key
@@ -133,11 +141,13 @@ __device__ __forceinline__ void unpack(const uint4& raw,
 __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 
 // The block's dynamic shared memory, in bytes from its start: the ring
-// (kStages stages of a K tile then a V tile), the barriers, q as f32 [rows,
-// d], O as f32 [key groups, rows, dvo], two buffers of scores/p [tile, 8],
-// two of the rows' corrections and the rows' (max, denominator).
+// (kStages stages of a K tile then a V tile, each `pad` bytes longer where
+// a tile's span is copied as the 16-byte chunks around it), the barriers, q
+// as f32 [rows, d], O as f32 [key groups, rows, dvo], two buffers of
+// scores/p [tile, 8], two of the rows' corrections and the rows' (max,
+// denominator).
 struct Layout {
-  int stage, v_off, bars, q, o, s, corr, ml, total;
+  int pad, dq, stage, v_off, bars, q, o, s, corr, ml, total;
 };
 
 // The key groups of the P V phase: the consumer threads a group of dvo / 4
@@ -149,13 +159,19 @@ __host__ __device__ constexpr int key_groups(int dvo) {
 }
 
 __host__ __device__ inline Layout layout(int tile, int rows, int d, int dv,
-                                         int dvo, int k_size, int v_size) {
+                                         int dvo, int k_size, int v_size,
+                                         int pad) {
   Layout s{};
-  s.v_off = align16(tile * d * k_size);
-  s.stage = s.v_off + align16(tile * dv * v_size);
+  s.pad = pad;
+  // q's row stride: d, or d rounded up to 8 (zeros past d) where rows are
+  // read as the 16-byte chunks around them, so that a chunk's q is whole
+  // float4s.
+  s.dq = pad ? (d + 7) & ~7 : d;
+  s.v_off = align16(tile * d * k_size) + pad;
+  s.stage = s.v_off + align16(tile * dv * v_size) + pad;
   s.bars = kStages * s.stage;
   s.q = s.bars + align16(2 * kStages * 8);
-  s.o = s.q + align16(rows * d * 4);
+  s.o = s.q + align16(rows * s.dq * 4);
   s.s = s.o + align16(key_groups(dvo) * rows * dvo * 4);
   s.corr = s.s + 2 * tile * kMaxRows * 4;
   s.ml = s.corr + 2 * kMaxRows * 4;
@@ -172,15 +188,43 @@ struct Args {
   float* part_o;
   float* part_ml;
   int h, ql, rows, cap, d, dv, dvo, tile, split_keys, q_type;
+  int key_lanes;  // lanes a key in S where rows are read off their chunks
   float scale_log2;
   Layout lay;
 };
 
+// The byte at which a span of global memory starts in its first 16-byte
+// chunk: where the span lands in a stage that holds the chunks around it.
+__device__ __forceinline__ int chunk_offset(const void* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// The 16 bytes that start `off` bytes (0-15, a multiple of 2) into chunk
+// lo and run on into chunk hi: the words are picked by selects (no
+// register array indexed at run time) and shifted across word edges.
+__device__ __forceinline__ uint4 bytes_at(const uint4& lo, const uint4& hi,
+                                          int off) {
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int q = off >> 2;
+  const uint32_t bits = (off & 3) * 8;
+  uint32_t x[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    x[i] = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
+  return make_uint4(__funnelshift_r(x[0], x[1], bits),
+                    __funnelshift_r(x[1], x[2], bits),
+                    __funnelshift_r(x[2], x[3], bits),
+                    __funnelshift_r(x[3], x[4], bits));
+}
+
 // Block (bh, split, group): query rows [group rows, + rows) of (b h) bh
 // against keys [split split_keys, (split + 1) split_keys) of its cache,
 // stopping at min(len, cap). TK, TV: K's and V's element types. kBulk: every
-// K and V row whole 16-byte chunks and k and v on 16-byte boundaries (bulk
-// copies, 16-byte reads), else plain copies and element reads.
+// K and V row whole 16-byte chunks and k and v on 16-byte boundaries (each
+// tile's K and V spans bulk-copied as they are, 16-byte reads), else each
+// span bulk-copied as the whole 16-byte chunks around it (a span then
+// starts chunk_offset bytes into its stage buffer) and its rows read off
+// those chunks (`bytes_at`).
 template <typename TK, typename TV, bool kBulk>
 __global__ void __launch_bounds__(kThreads)
     stream_decode_kernel(const Args a) {
@@ -203,20 +247,21 @@ __global__ void __launch_bounds__(kThreads)
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(full(st), kBulk ? 1 : 32);
+      mbar_init(full(st), 1);
       mbar_init(empty(st), kConsumers);  // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
+  const TK* const kb = static_cast<const TK*>(a.k) +
+                       static_cast<size_t>(bh) * a.cap * d;
+  const TV* const vb = static_cast<const TV*>(a.v) +
+                       static_cast<size_t>(bh) * a.cap * dv;
   if (warp == kConsumers) {
     // Producer: tile t into stage t % kStages, its K rows then its V rows;
     // the last tile copies only its valid keys.
-    const TK* kb = static_cast<const TK*>(a.k) + static_cast<size_t>(bh) *
-                                                     a.cap * d;
-    const TV* vb = static_cast<const TV*>(a.v) + static_cast<size_t>(bh) *
-                                                     a.cap * dv;
+    if (lane != 0) return;
     for (int t = 0; t < n_tiles; ++t) {
       const int st = t % kStages;
       const int key = k_begin + t * tile;
@@ -226,26 +271,27 @@ __global__ void __launch_bounds__(kThreads)
       const TK* ksrc = kb + static_cast<size_t>(key) * d;
       const TV* vsrc = vb + static_cast<size_t>(key) * dv;
       unsigned char* const dst = smem + st * lay.stage;
+      mbar_wait(empty(st), ((t / kStages) & 1) ^ 1);
       if constexpr (kBulk) {
-        if (lane == 0) {
-          mbar_wait(empty(st), ((t / kStages) & 1) ^ 1);
-          mbar_expect_tx(full(st), k_bytes + v_bytes);
-          bulk_load(smem_u32(dst), ksrc, k_bytes, full(st));
-          bulk_load(smem_u32(dst + lay.v_off), vsrc, v_bytes, full(st));
-        }
+        mbar_expect_tx(full(st), k_bytes + v_bytes);
+        bulk_load(smem_u32(dst), ksrc, k_bytes, full(st));
+        bulk_load(smem_u32(dst + lay.v_off), vsrc, v_bytes, full(st));
       } else {
-        // 16-bit units: every dtype's rows are whole ones, and a tensor
-        // starts on its element's boundary.
-        mbar_wait(empty(st), ((t / kStages) & 1) ^ 1);
-        const uint16_t* ks = reinterpret_cast<const uint16_t*>(ksrc);
-        const uint16_t* vs = reinterpret_cast<const uint16_t*>(vsrc);
-        uint16_t* kd = reinterpret_cast<uint16_t*>(dst);
-        uint16_t* vd = reinterpret_cast<uint16_t*>(dst + lay.v_off);
-#pragma unroll 4
-        for (int i = lane; i < k_bytes / 2; i += 32) kd[i] = ks[i];
-#pragma unroll 4
-        for (int i = lane; i < v_bytes / 2; i += 32) vd[i] = vs[i];
-        mbar_arrive(full(st));  // release: this lane's copies
+        // The whole 16-byte chunks around each span (the bulk copy's
+        // source, size and destination are all 16-byte aligned). A chunk
+        // that holds a byte of the tensor lies in the same page as that
+        // byte, so reading the rest of it is safe; those bytes are never
+        // used.
+        const int ko = chunk_offset(ksrc), vo = chunk_offset(vsrc);
+        const int k_span = align16(ko + k_bytes);
+        const int v_span = align16(vo + v_bytes);
+        mbar_expect_tx(full(st), k_span + v_span);
+        bulk_load(smem_u32(dst),
+                  reinterpret_cast<const unsigned char*>(ksrc) - ko, k_span,
+                  full(st));
+        bulk_load(smem_u32(dst + lay.v_off),
+                  reinterpret_cast<const unsigned char*>(vsrc) - vo, v_span,
+                  full(st));
       }
     }
     return;
@@ -260,8 +306,11 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   constexpr int kCT = 32 * kConsumers;
   const size_t q_off = (static_cast<size_t>(bh) * a.ql + row0) * d;
-  for (int i = tid; i < rows * d; i += kCT)
-    q_s[i] = load_code(a.q, a.q_type, q_off + i);
+  const int dq = lay.dq;
+  for (int i = tid; i < rows * dq; i += kCT) {
+    const int r = i / dq, col = i - r * dq;
+    q_s[i] = col < d ? load_code(a.q, a.q_type, q_off + r * d + col) : 0.f;
+  }
   const int kg = key_groups(dvo);
   for (int i = tid; i < kg * rows * dvo; i += kCT) o_s[i] = 0.f;
   asm volatile("bar.sync 1, %0;\n" ::"n"(kCT) : "memory");
@@ -273,19 +322,26 @@ __global__ void __launch_bounds__(kThreads)
     const int st = t % kStages;
     const int n = min(tile, k_end - (k_begin + t * tile));
     mbar_wait(full(st), (t / kStages) & 1);
-    const unsigned char* const ks = smem + st * lay.stage;
-    const unsigned char* const vs = ks + lay.v_off;
+    // Where the tile's K and V rows start in the stage (past the bytes
+    // before each span in its first chunk, where it was copied so).
+    const int key_t = k_begin + t * tile;
+    const unsigned char* const ks =
+        smem + st * lay.stage +
+        (kBulk ? 0 : chunk_offset(kb + static_cast<size_t>(key_t) * d));
+    const unsigned char* const vs =
+        smem + st * lay.stage + lay.v_off +
+        (kBulk ? 0 : chunk_offset(vb + static_cast<size_t>(key_t) * dv));
     float* const sc = s_s + (t & 1) * tile * kMaxRows;
     float* const corr_t = c_s + (t & 1) * kMaxRows;
 
     // S: key kk's scores of every row into sc[kk][r], times log2(e)/sqrt(d);
     // each lane's products go to two sums (even and odd elements), so that
     // their chains are half as long.
-    for (int kk = warp; kk < n; kk += kConsumers) {
-      float part[2][kMaxRows];
+    if constexpr (kBulk) {
+      for (int kk = warp; kk < n; kk += kConsumers) {
+        float part[2][kMaxRows];
 #pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) part[0][r] = part[1][r] = 0.f;
-      if constexpr (kBulk) {
+        for (int r = 0; r < kMaxRows; ++r) part[0][r] = part[1][r] = 0.f;
         constexpr int E = 16 / sizeof(TK);
         const uint4* row = reinterpret_cast<const uint4*>(
             ks + static_cast<size_t>(kk) * d * sizeof(TK));
@@ -308,21 +364,66 @@ __global__ void __launch_bounds__(kThreads)
             }
           }
         }
-      } else {
-        const TK* row = reinterpret_cast<const TK*>(ks) +
-                        static_cast<size_t>(kk) * d;
-        for (int e = lane; e < d; e += 32) {
-          const float x = to_f(row[e]);
 #pragma unroll
-          for (int r = 0; r < kMaxRows; ++r)
-            if (r < rows) part[0][r] = fmaf(q_s[r * d + e], x, part[0][r]);
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r < rows) {
+            const float s = warp_sum(part[0][r] + part[1][r]);
+            if (lane == 0) sc[kk * kMaxRows + r] = s * scale_log2;
+          }
         }
       }
+    } else {
+      // Rows that start off 16-byte boundaries in the stage (rows not whole
+      // chunks, or a cache off 16 bytes): a key takes key_lanes lanes (32 /
+      // key_lanes keys a warp a pass), and a lane reads chunk c of its row
+      // as the two stage chunks it spans, shifted to the row's start, then
+      // drops the elements past d (the next row's or stale bytes, which may
+      // not be finite). Every lane runs each pass's shuffles.
+      constexpr int E = 16 / sizeof(TK);
+      const int kl = a.key_lanes, per_warp = 32 / kl;
+      const int c0 = lane % kl, chunks = (d + E - 1) / E;
+      for (int base = warp * per_warp; base < n;
+           base += kConsumers * per_warp) {
+        const int kk = base + lane / kl;
+        float part[kMaxRows];
 #pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < rows) {
-          const float s = warp_sum(part[0][r] + part[1][r]);
-          if (lane == 0) sc[kk * kMaxRows + r] = s * scale_log2;
+        for (int r = 0; r < kMaxRows; ++r) part[r] = 0.f;
+        if (kk < n) {
+          const uintptr_t at = reinterpret_cast<uintptr_t>(ks) +
+                               static_cast<size_t>(kk) * d * sizeof(TK);
+          const uint4* row = reinterpret_cast<const uint4*>(at & ~15ull);
+          const int off = static_cast<int>(at & 15);
+          for (int c = c0; c < chunks; c += kl) {
+            float kf[E];
+            unpack<TK>(bytes_at(row[c], row[c + 1], off), kf);
+#pragma unroll
+            for (int e = 0; e < E; ++e)
+              if (c * E + e >= d) kf[e] = 0.f;
+#pragma unroll
+            for (int r = 0; r < kMaxRows; ++r) {
+              if (r < rows) {
+                const float4* qp =
+                    reinterpret_cast<const float4*>(q_s + r * dq + c * E);
+#pragma unroll
+                for (int j = 0; j < E / 4; ++j) {
+                  const float4 x = qp[j];
+                  part[r] = fmaf(x.x, kf[4 * j], part[r]);
+                  part[r] = fmaf(x.y, kf[4 * j + 1], part[r]);
+                  part[r] = fmaf(x.z, kf[4 * j + 2], part[r]);
+                  part[r] = fmaf(x.w, kf[4 * j + 3], part[r]);
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kMaxRows; ++r) {
+          if (r < rows) {
+            float s = part[r];
+            for (int o = kl / 2; o > 0; o >>= 1)
+              s += __shfl_xor_sync(0xffffffffu, s, o);
+            if (c0 == 0 && kk < n) sc[kk * kMaxRows + r] = s * scale_log2;
+          }
         }
       }
     }
@@ -482,12 +583,8 @@ int launch_as(const Args& a, int b, int splits, cudaStream_t stream) {
 
 template <typename TK, typename TV>
 int launch_kv(const Args& a, int b, int splits, cudaStream_t stream) {
-  const bool bulk =
-      (a.d * sizeof(TK)) % 16 == 0 && (a.dv * sizeof(TV)) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
-  return bulk ? launch_as<TK, TV, true>(a, b, splits, stream)
-              : launch_as<TK, TV, false>(a, b, splits, stream);
+  return a.lay.pad == 0 ? launch_as<TK, TV, true>(a, b, splits, stream)
+                        : launch_as<TK, TV, false>(a, b, splits, stream);
 }
 
 template <typename TK>
@@ -499,6 +596,20 @@ int launch_k(const Args& a, int v_type, int b, int splits,
 }
 
 int size_of(int type) { return type == kF32 ? 4 : 2; }
+
+// Lanes a key in S where rows are read off their chunks: about 2 of the
+// row's 16-byte chunks a lane, a power of two from 4 to 32. Fewer lanes a
+// key leave fewer idle at a row's last chunks and need fewer shuffles;
+// more keep a pass's loads fewer deep. On an H100 (`chip_ab.py
+// stream-parts`): at bf16 d = 66 and the bf16 serve shape off 16 bytes, 8
+// lanes took 0.551 and 0.659 ms, one chunk a lane (16) 0.659 and 0.759,
+// 4 lanes (with 128-key tiles at d = 66) 0.600 and 0.910.
+int key_lanes(int d, int k_size) {
+  const int chunks = (d * k_size + 15) / 16;
+  int lanes = 4;
+  while (lanes < 32 && 2 * lanes < chunks) lanes *= 2;
+  return lanes;
+}
 
 }  // namespace stream
 }  // namespace
@@ -562,7 +673,16 @@ int stream_decode_run(const void* q, const void* k, const void* v,
   a.split_keys = split_keys;
   a.q_type = q_type;
   a.scale_log2 = scale * kLog2e;
-  a.lay = layout(tile, rows, d, dv, dvo, size_of(k_type), size_of(v_type));
+  a.key_lanes = key_lanes(d, size_of(k_type));
+  // Bulk copies of the spans as they are where every K and V row is whole
+  // 16-byte chunks and k and v start on 16-byte boundaries; else of the
+  // chunks around each span, 16 bytes more a buffer.
+  const bool bulk = (d * size_of(k_type)) % 16 == 0 &&
+                    (dv * size_of(v_type)) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  a.lay = layout(tile, rows, d, dv, dvo, size_of(k_type), size_of(v_type),
+                 bulk ? 0 : 16);
   if (a.lay.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (k_type == kBF16) return launch_k<bf16>(a, v_type, b, splits, s);

@@ -2439,6 +2439,7 @@ def run_soak(
                 else:
                     audit_samples.append((meta["id"], problems[:3]))
             http_complete = 0
+            http_samples: list = []
             try:
                 with _urlreq.urlopen(
                         f"http://127.0.0.1:{bb_debug_server.port}"
@@ -2448,10 +2449,14 @@ def run_soak(
                     served = [served]
                 for rec in served:
                     latest = rec.get("latest") or {}
-                    if (latest.get("status") == "resolved"
-                            and not audit_timeline_chain(
-                                latest.get("timeline") or [])):
+                    problems = audit_timeline_chain(
+                        latest.get("timeline") or [])
+                    if latest.get("status") == "resolved" and not problems:
                         http_complete += 1
+                    else:
+                        http_samples.append((latest.get("id"),
+                                             latest.get("status"),
+                                             problems[:3]))
             except Exception as e:  # noqa: BLE001 — audited below
                 errors.append(("blackbox_http", repr(e)))
             page_fired = None
@@ -2494,7 +2499,10 @@ def run_soak(
             if not http_complete:
                 errors.append(("blackbox_http",
                                "no HTTP-served bundle passed the "
-                               "timeline completeness oracle"))
+                               "timeline completeness oracle: served "
+                               f"{http_samples[:3]}; on disk "
+                               f"{[(m['id'], m['status']) for m in bundles]}"
+                               f"; audits {audit_samples[:3]}"))
             if bb_recorder.capture_errors:
                 errors.append(("blackbox_capture",
                                f"{bb_recorder.capture_errors} capture(s) "

@@ -865,21 +865,37 @@ class FlightRecorder:
         self._retain()
 
     def _retain(self) -> None:
-        """Bounded + counted on-disk retention: newest ``retention``
-        bundles survive (ids are sequence-prefixed, so lexicographic
-        order IS capture order)."""
+        """Bounded + counted on-disk retention: the newest ``retention``
+        bundles by capture survive. A bundle's last capture places it: an
+        incident opened early and resolved late is rewritten with its early
+        (sequence-prefixed) id, and that write is the newest, so ids alone
+        do not give the order. Files this recorder has not written (an
+        earlier incarnation's) count as older than all of its own, oldest
+        id first. Evicted bundles leave the index too, so that
+        ``list_bundles`` and ``/debug/incidents`` name only bundles that
+        can be read."""
         try:
-            names = sorted(n for n in os.listdir(self.dir)
-                           if n.endswith(".json"))
+            on_disk = {n[:-len(".json")] for n in os.listdir(self.dir)
+                       if n.endswith(".json")}
         except OSError:
             return
-        for name in names[:-self.retention]:
+        with self._mu:
+            captured = [m["id"] for m in self._index]   # oldest first
+        order = sorted(on_disk - set(captured)) + [
+            i for i in captured if i in on_disk]
+        evicted = set()
+        for ident in order[:-self.retention]:
             try:
-                os.remove(os.path.join(self.dir, name))
+                os.remove(os.path.join(self.dir, f"{ident}.json"))
                 self.evicted += 1
                 self.metrics.bundles_evicted_total.inc()
             except OSError:  # noqa: PERF203 — already gone is fine
                 pass
+            evicted.add(ident)
+        if evicted:
+            with self._mu:
+                self._index = [m for m in self._index
+                               if m["id"] not in evicted]
 
     # -- read side -----------------------------------------------------------
 

@@ -19,6 +19,10 @@ from typing import Callable
 
 logger = logging.getLogger(__name__)
 
+#: How long the main thread of a blocked ``run_*`` waits at a time before
+#: it runs any signal handler another thread's signal left pending.
+SIGNAL_POLL_S = 0.2
+
 
 class ProcessHandle:
     """Everything a ``run_*`` entrypoint started. The main registers each
@@ -52,11 +56,20 @@ def block_until_signaled(handle: ProcessHandle, ready: str = "") -> None:
     logged once the handlers are installed, so a caller that waits for
     that line before it sends SIGTERM always reaches the handler; a signal
     that comes earlier, during assembly, takes the default action (the
-    process dies with -15), as in the JAX package."""
+    process dies with -15), as in the JAX package.
+
+    The main thread waits in slices of SIGNAL_POLL_S, not at once: Python
+    runs a signal's handler only in the main thread, between bytecodes,
+    and the kernel may deliver SIGTERM to any thread of the process. An
+    untimed wait is woken only by a signal delivered to the main thread
+    itself, so a SIGTERM taken by one of the binary's other threads left
+    it parked for good (a controller process under CPU load, a few runs in
+    a hundred)."""
     stop_evt = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop_evt.set())
     signal.signal(signal.SIGINT, lambda *a: stop_evt.set())
     if ready:
         logger.info("%s", ready)
-    stop_evt.wait()
+    while not stop_evt.wait(SIGNAL_POLL_S):
+        pass
     handle.stop()

@@ -50,6 +50,7 @@ from k8s_dra_driver_tpu_torch.compute.flashattention import (
     decode_attention_reference,
     f32_decode_splits,
     flash_attention_decode,
+    stream_decode_pad,
     stream_decode_plan,
     stream_decode_smem,
     tuned_decode_splits,
@@ -194,6 +195,21 @@ class TestAgainstJax:
         cap = 2 * tile
         q, k, v = _inputs(37, ql, b=5, h=1, d=d, cap=cap, dv=dv)
         lens = np.array([1, tile - 1, tile, tile + 1, cap], np.int32)
+        _agrees_with_jax(q, k, v, lens, (dtype,) * 3, block_k=16)
+
+    # The one-dtype rows a per-warp kernel used to take on the card: f32 at
+    # d or dv from 129 to 256 (the ring kernel's two-chunk form, 16-key
+    # tiles: lengths 1, 15, 16, 17 and the cache) and rows that are not
+    # whole 16-byte chunks (bf16 d = 66 on the any-dtype decode's element
+    # reads), held to JAX's kernel in interpret mode through the plain
+    # version.
+    @pytest.mark.parametrize("dtype,ql,d,dv", [
+        ("f32", 1, 256, 256), ("f32", 3, 256, 128), ("f32", 1, 128, 256),
+        ("f32", 2, 192, 192), ("bf16", 1, 66, 66), ("bf16", 4, 66, 66)])
+    def test_rows_the_per_warp_kernel_took_match_pallas(self, dtype, ql, d,
+                                                        dv):
+        q, k, v = _inputs(41, ql, b=5, h=2, d=d, cap=48, dv=dv)
+        lens = np.array([1, 15, 16, 17, 48], np.int32)
         _agrees_with_jax(q, k, v, lens, (dtype,) * 3, block_k=16)
 
     # The f32 decode kernel's 64-key tiles and its splits at absorbed MLA's
@@ -425,8 +441,8 @@ class TestRouting:
 
     @pytest.mark.parametrize("ql,d,dv,dtypes,entry,codes", [
         # the tuned entries' splits, keys a split and q's dtype code: the
-        # ring kernel's one split of whole 64-key tiles; f32 at 256 (the
-        # per-warp kernel) the cache
+        # ring kernel's one split of whole 64-key tiles; f32 at 256/64 (two
+        # chunks a lane) one split of one 16-key tile, the cache
         (1, 128, 128, ("f16",) * 3, "decode_attention_f16", (1, 64, 2)),
         (4, 256, 64, ("f32",) * 3, "decode_attention_f32", (1, 16, 0)),
         # bf16 at d = 257 takes the wide kernels, padded to 272
@@ -595,30 +611,70 @@ class TestRouting:
         assert calls[0][5:7] == calls[1][5:7] and all(calls[0][5:7])
         assert calls[0][5] != calls[0][6]
 
-    @pytest.mark.parametrize("dtype,d,dv", [
-        ("bf16", 66, 66),      # a 132-byte row: not whole 16-byte chunks
-        ("f16", 128, 60),      # V's 120-byte row
-        ("f32", 256, 256)])    # 64 chunks: more than a warp's lanes
+    # Routing of the one-dtype rows a per-warp kernel used to take: f32 at
+    # 256/256 (64 chunks) on the ring kernel, two chunks a lane, in 16-key
+    # tiles, with the one cache of 4096 keys split; rows that are not whole
+    # 16-byte chunks (bf16 d = 66: 132 bytes; f16 dv = 60: 120 bytes) on the
+    # any-dtype decode entry, every query row in one launch, at the true
+    # dims, with a stage 16 bytes longer a buffer (its tiles are copied as
+    # the 16-byte chunks around them).
+    @pytest.mark.parametrize("dtype,d,dv,entry", [
+        ("bf16", 66, 66, "stream_decode_run"),
+        ("f16", 128, 60, "stream_decode_run"),
+        ("f32", 256, 256, "decode_attention_f32")])
     def test_rows_the_ring_does_not_take_keep_one_split(self, fake_lib,
-                                                        dtype, d, dv):
+                                                        dtype, d, dv, entry):
+        code = {"f32": 0, "bf16": 1, "f16": 2}[dtype]
+        ql = 1 if entry.startswith("decode") else MAX_Q_LEN + 2
+        assert self._launch(ql, d, dv, (dtype,) * 3, b=1, h=1,
+                            cap=4096) == 1
+        assert set(fake_lib.entries) == {
+            entry, entry.replace("run", "error_string").replace(
+                "f32", "error_string")}
+        (call,) = fake_lib.entries[entry].calls
+        if entry == "decode_attention_f32":
+            tile = tuned_decode_tile(TORCH[dtype], d, dv)
+            splits, split_keys = tuned_decode_splits(1, 1, 4096, tile, 132)
+            assert tile == 16 and splits > 1 and split_keys % tile == 0
+            assert all(call[5:7]) and call[-4:-1] == (splits, split_keys,
+                                                      code)
+            return
         assert tuned_decode_tile(TORCH[dtype], d, dv) == 0
-        assert self._launch(1, d, dv, (dtype,) * 3, b=1, h=1, cap=4096) == 1
-        (call,) = fake_lib.entries[f"decode_attention_{dtype}"].calls
-        assert call[5:7] == (None, None) and call[-4:-1] == (
-            1, 4096, {"f32": 0, "bf16": 1, "f16": 2}[dtype])
+        size = TORCH[dtype].itemsize
+        rows, tile, splits, split_keys = stream_decode_plan(
+            1, 1, ql, 4096, d, dv, size, size, 132, 16)
+        assert call[7:-1] == (1, 1, ql, rows, 4096, d, dv, -(-dv // 4) * 4,
+                              tile, splits, split_keys,
+                              pytest.approx(d ** -0.5), code, code, code)
 
-    def test_k_off_a_16_byte_boundary_keeps_one_split(self, fake_lib):
-        # The ring kernel's bulk copies need 16-byte aligned rows.
+    @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+    def test_k_off_a_16_byte_boundary_keeps_one_split(self, fake_lib, dtype):
+        # The ring kernel's bulk copies need 16-byte aligned rows: a cache
+        # view one element off a boundary, in one dtype, goes to the
+        # any-dtype decode entry with the caller's pointer, one launch for
+        # every query row, the plan's stages 16 bytes longer a buffer.
         b, h, d, cap = 1, 1, 128, 4096
-        flat = torch.zeros(b * h * cap * d + 1, dtype=torch.bfloat16)
+        t = TORCH[dtype]
+        flat = torch.zeros(b * h * cap * d + 1, dtype=t)
         k = flat[1:].view(b, h, cap, d)
         assert k.is_contiguous() and k.data_ptr() % 16
-        q = torch.zeros((b, h, 1, d), dtype=torch.bfloat16)
-        v = torch.zeros((b, h, cap, d), dtype=torch.bfloat16)
+        q = torch.zeros((b, h, MAX_Q_LEN + 2, d), dtype=t)
+        v = torch.zeros((b, h, cap, d), dtype=t)
         lens = torch.full((b,), cap, dtype=torch.int32)
+        assert flashattention.decode_route(q, k, v) == "stream"
+        before = flash_attention_decode.launches
         flashattention._launch_decode(q, k, v, lens, stream=0, sms=132)
-        (call,) = fake_lib.entries["decode_attention_bf16"].calls
-        assert call[5:7] == (None, None) and call[-4:-1] == (1, cap, 1)
+        assert flash_attention_decode.launches == before + 1
+        assert set(fake_lib.entries) == {"stream_decode_run",
+                                         "stream_decode_error_string"}
+        (call,) = fake_lib.entries["stream_decode_run"].calls
+        assert call[1] == k.data_ptr()
+        assert stream_decode_pad(k, v, d, d) == 16
+        assert stream_decode_pad(v, v, d, d) == 0
+        rows, tile, splits, split_keys = stream_decode_plan(
+            b, h, MAX_Q_LEN + 2, cap, d, d, t.itemsize, t.itemsize, 132, 16)
+        # rows a block, cap, d, dv, out's row, tile, splits, keys a split
+        assert call[10:-5] == (rows, cap, d, d, d, tile, splits, split_keys)
 
     def test_query_rows_a_launch_shrink_only_past_the_shared_memory(
             self, fake_lib):
@@ -699,7 +755,7 @@ class TestMixedRouting:
         (1, 576, 512, ("bf16", "bf16", "f32")),
         (2, 66, 66, ("f32", "bf16", "bf16")),
         (1, 128, 60, ("bf16", "f16", "f16")),
-        (1, 256, 256, ("bf16", "f32", "f32")),
+        (1, 255, 255, ("bf16", "f32", "f32")),
         (1, 1024, 1024, ("f32", "bf16", "bf16")),
         (1, 64, 640, ("bf16", "f32", "f32"))])
     def test_what_the_mixed_routes_do_not_take_stays_general(
@@ -937,7 +993,8 @@ class TestTunedSplits:
         (torch.bfloat16, 256, 256, 32), (torch.float16, 128, 64, 64),
         (torch.float16, 8, 8, 128), (torch.float32, 128, 128, 32),
         (torch.float32, 32, 32, 128), (torch.float16, 66, 66, 0),
-        (torch.float32, 256, 256, 0), (torch.float32, 130, 128, 0)])
+        (torch.float32, 256, 256, 16), (torch.float32, 130, 128, 0),
+        (torch.float32, 192, 192, 16), (torch.float32, 256, 128, 16)])
     def test_tiles_by_dtype_and_head_dims(self, dtype, d, dv, tile):
         assert tuned_decode_tile(dtype, d, dv) == tile
 

@@ -256,6 +256,10 @@ def _drive(engine, request_cls, stream, steps_before_drain):
              head_dim=16), None),
     (2, dict(max_batch=3, kv_cap=16, tokens_per_chip_step=4,
              queue_cap=10), 12),
+    # Gemma-2-9B's head dim (16 heads x 256 there; 2 here): the f32 slabs
+    # that the card's ring kernel takes two chunks a lane.
+    (3, dict(max_batch=4, kv_cap=32, tokens_per_chip_step=8, heads=2,
+             head_dim=256), None),
 ])
 def test_parity_with_jax_engine(seed, config, steps_before_drain):
     kw = dict(n_chips=2, modeled_chip_tok_s=1e9, queue_cap=64)
