@@ -21,7 +21,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py cluster-parts
     python3 chip_ab.py stream-splits
     python3 chip_ab.py stream-parts
-    python3 chip_ab.py tc-bodies
+    python3 chip_ab.py tc-flash OTHER_TREE [--rounds N]
     python3 chip_ab.py perwarp [OTHER_TREE] [--rounds N]
 
 ``versions`` copies the port (``chip_smoke.py`` and
@@ -44,21 +44,25 @@ both of which must reject it: the softmax scale times 1.01, and the last
 key tile (flash) and the last split of the cache (decode) dropped. Two
 break the tuned decode's ring kernel (``decode_attention.cu``), each run
 through its check (``tuned_decode_check``): the softmax scale times 1.01,
-and the last tile of every split dropped. Three break the f32 tensor-core
-body (``f32tc_attention.cuh``), each run through the f32 decode checks
-(the f32 head dims of the decode check's general dims, and the
-absorbed-MLA layout) and the f32 flash check: one TF32 product where there
-were three (hi.lo and lo.hi dropped, in S and in P V: the checks must see
-plain TF32's error), the softmax scale times 1.01, and the last key tile
-(flash) and the last split of the cache (decode) dropped. Three break the
-same body where it takes q's dtype apart from K's and V's (the mixed
-routes): the last key tile and split dropped, through the mixed decode and
-flash checks; an f32 query's lo product not issued, and p not rounded to
-V's dtype, both under the narrowest input's limit, through the mixed flash
-check's nearest-semantics checks. The ring controls run through the mixed
-decode check too (it takes a q of another dtype). Names given after
-``controls`` run those controls alone. It exits non-zero if a control
-passes a check it must fail.
+and the last tile of every split dropped. Three break the f32 and mixed
+decode body (``f32tc_attention.cuh``), each run through the f32 decode
+checks (the f32 head dims of the decode check's general dims, and the
+absorbed-MLA layout): one TF32 product where there were three (hi.lo and
+lo.hi dropped, in S and in P V: the checks must see plain TF32's error),
+the softmax scale times 1.01, and the last key tile of each split and the
+last split of the cache dropped. Three break the same body where it takes
+q's dtype apart from the cache's (the mixed decode): the last key tile and
+split dropped; an f32 query's lo product not issued, and p not rounded to
+V's dtype, both under the narrowest input's limit: all three through the
+mixed decode check, whose nearest-semantics checks must reject the last
+two. The any-dtype flash body (``cluster_flash.cuh``), which takes the f32
+and mixed flash calls, has the same four: one TF32 product where there
+were three and the last key tile dropped, through the f32 flash check; an
+f32 query's lo product not issued and p not rounded to V's dtype, through
+the mixed flash check's nearest-semantics checks. The ring controls run
+through the mixed decode check too (it takes a q of another dtype). Names
+given after ``controls`` run those controls alone. It exits non-zero if a
+control passes a check it must fail.
 
 ``serve`` runs ``chip_smoke``'s serve phase (48 requests from 4 tenants at
 one Llama-2-7B attention layer) in OTHER_TREE (a directory holding another
@@ -148,10 +152,17 @@ exchange of partial scores between a cluster's CTAs, the split warps'
 pass) or holds fewer stages or more P V groups in flight, and as it is
 with one CTA a cluster: where its time goes. The copies that leave a part
 out compute wrong results: they are timed, never checked.
-``tc-bodies`` times the f32 and mixed routes' flash rows on their body
-(``f32tc_attention.cuh``) and on the any-dtype body at its plan and at one
-CTA a cluster, each held against the plain version: whether one TF32
-flash body could take all three routes.
+
+``tc-flash`` does what ``f32`` does with TC_FLASH_ROWS (code that runs in
+any tree): flash with an f32 operand and flash in a mix of the two 16-bit
+dtypes, the calls that a tree before the one TF32 flash body sent to the
+f32 and mixed routes (``f32tc_attention.cuh``) and this tree sends to the
+any-dtype kernel: f32 at [4, 8, 2048] with 128/128 and 256/256 and at
+[1, 16, 2048] with 576/512, every q/cache class at the headline, an f32 q
+over bf16 K and V and a bf16 q over f32 ones at 576/512, causal off and
+on; ms and the error's share of the flash limit of each, and at 576/512
+also ms at one CTA a cluster (``cluster_flash_plan`` of one CTA, which
+changes nothing in a tree whose f32 and mixed calls take another kernel).
 
 ``stream-splits`` times the any-dtype decode kernel at each STREAM_WAVES of
 STREAM_WAVES_SWEEP, the blocks a slot its split count aims for, with the
@@ -212,6 +223,17 @@ DECODE_SRC = Path("k8s_dra_driver_tpu_torch/csrc/decode_attention.cu")
 F32TC = Path("k8s_dra_driver_tpu_torch/csrc/f32tc_attention.cuh")
 CLUSTER = Path("k8s_dra_driver_tpu_torch/csrc/cluster_flash.cuh")
 STREAM = Path("k8s_dra_driver_tpu_torch/csrc/stream_decode.cu")
+# The f32 and mixed decode body's last key tile of each split and last
+# split of the cache dropped.
+F32TC_TILE_AND_SPLIT = [
+    ("(w.k_limit - w.k0 + kKeys - 1) / kKeys : 0;",
+     "(w.k_limit - w.k0 + kKeys - 1) / kKeys - 1 : 0;"),
+    ("const int len = min(a.lens[w.bh / a.h], a.keys);",
+     "const int len = min(a.lens[w.bh / a.h],\n"
+     "                      min(a.keys, (a.splits - 1) * a.split_keys));")]
+# The any-dtype flash body's lo.hi product of S (an f32 query's lo part).
+CLUSTER_Q_LO = ("          if constexpr (!kQ16) "
+                "wgmma_tf32_rs_n64(s, q_lo[b], kh + off, 1);\n")
 # name: (the source broken, its (text, broken text) pairs, the checks that
 # must each reject it).
 CONTROLS = {
@@ -240,6 +262,8 @@ CONTROLS = {
         ("k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile : 0;",
          "k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile - 1 : 0;")],
         ("tuned_decode", "mixed_decode")),
+    # The f32 and mixed decode body (f32tc_attention.cuh), through the
+    # decode checks.
     "f32_single_tf32": (F32TC, [
         ("""          if constexpr (!kQ16)
             wgmma_tf32_rs_n64(s, q_lo[b], kh + off, p + ks > 0);
@@ -254,37 +278,51 @@ CONTROLS = {
           }
           wgmma_tf32_rs_n32(o[vp], p_hi[ks], vh + off);""",
          "          wgmma_tf32_rs_n32(o[vp], p_hi[ks], vh + off);")],
-        ("f32_decode", "f32_flash")),
+        ("f32_decode",)),
     "f32_softmax_scale_x1.01": (F32TC, [
         ("const float scale_log2 = a.scale_log2;",
          "const float scale_log2 = a.scale_log2 * 1.01f;")],
-        ("f32_decode", "f32_flash")),
-    "f32_last_key_tile_and_split_dropped": (F32TC, [
-        ("w.n_kt = (w.k_limit + kKeys - 1) / kKeys;",
-         "w.n_kt = (w.k_limit + kKeys - 1) / kKeys - 1;"),
-        ("const int len = min(a.lens[w.bh / a.h], a.keys);",
-         "const int len = min(a.lens[w.bh / a.h],\n"
-         "                        min(a.keys, (a.splits - 1) * a.split_keys));")],
-        ("f32_decode", "f32_flash")),
-    # The mixed routes (the f32 body built for 16-bit q or K and V): the
-    # same dropped tile and split, through the mixed checks; an f32 query's
-    # lo product not issued (S from the query's TF32 part alone); p not
-    # rounded to V's dtype (the raw f32 p, read as TF32). The last two are
-    # below the narrowest input's limit: mixed_flash_check's nearest-
-    # semantics checks must reject them.
-    "mixed_last_key_tile_and_split_dropped": (F32TC, [
-        ("w.n_kt = (w.k_limit + kKeys - 1) / kKeys;",
-         "w.n_kt = (w.k_limit + kKeys - 1) / kKeys - 1;"),
-        ("const int len = min(a.lens[w.bh / a.h], a.keys);",
-         "const int len = min(a.lens[w.bh / a.h],\n"
-         "                        min(a.keys, (a.splits - 1) * a.split_keys));")],
-        ("mixed_decode", "mixed_flash")),
+        ("f32_decode",)),
+    "f32_last_key_tile_and_split_dropped": (F32TC, F32TC_TILE_AND_SPLIT,
+                                            ("f32_decode",)),
+    # The mixed decode (the same body built for 16-bit q or K and V): the
+    # same dropped tile and split; an f32 query's lo product not issued (S
+    # from the query's TF32 part alone); p not rounded to V's dtype (the raw
+    # f32 p, read as TF32). The last two are below the narrowest input's
+    # limit: mixed_decode_check's nearest-semantics checks must reject them.
+    "mixed_last_key_tile_and_split_dropped": (F32TC, F32TC_TILE_AND_SPLIT,
+                                              ("mixed_decode",)),
     "mixed_q_lo_dropped": (F32TC, [
         ("""          if constexpr (!kQ16)
             wgmma_tf32_rs_n64(s, q_lo[b], kh + off, p + ks > 0);
-""", "")], ("mixed_flash",)),
+""", "")], ("mixed_decode",)),
     "mixed_p_not_rounded": (F32TC, [
         ("p_hi[ks][j] = __float_as_uint(round16(x, kv_f16));",
+         "p_hi[ks][j] = __float_as_uint(x);")], ("mixed_decode",)),
+    # The same four in the any-dtype flash body (cluster_flash.cuh), which
+    # takes the f32 and mixed flash calls: one TF32 product where there were
+    # three and the last key tile dropped, through the f32 flash check; the
+    # f32 query's lo product not issued and p not rounded, through the
+    # mixed flash check's nearest-semantics checks.
+    "cluster_f32_single_tf32": (CLUSTER, [
+        (CLUSTER_Q_LO + """\
+          if constexpr (!kK16) wgmma_tf32_rs_n64(s, q_hi[b], kl + off, 1);
+          wgmma_tf32_rs_n64(s, q_hi[b], kh + off, 1);""",
+         "          wgmma_tf32_rs_n64(s, q_hi[b], kh + off, 1);"),
+        ("""          if constexpr (!kV16) {
+            wgmma_tf32_rs_n32(o[vp], p_lo[ks], vh + off);
+            wgmma_tf32_rs_n32(o[vp], p_hi[ks], vl + off);
+          }
+          wgmma_tf32_rs_n32(o[vp], p_hi[ks], vh + off);""",
+         "          wgmma_tf32_rs_n32(o[vp], p_hi[ks], vh + off);")],
+        ("f32_flash",)),
+    "cluster_f32_last_key_tile_dropped": (CLUSTER, [
+        ("w.n_kt = (w.k_limit + kKeys - 1) / kKeys;",
+         "w.n_kt = (w.k_limit + kKeys - 1) / kKeys - 1;")], ("f32_flash",)),
+    "cluster_mixed_q_lo_dropped": (CLUSTER, [(CLUSTER_Q_LO, "")],
+                                   ("mixed_flash",)),
+    "cluster_mixed_p_not_rounded": (CLUSTER, [
+        ("p_hi[ks][j] = __float_as_uint(round16(x, v_f16));",
          "p_hi[ks][j] = __float_as_uint(x);")], ("mixed_flash",)),
     # The any-dtype kernels: S scaled 1% off in each; the flash cluster's
     # last CTA's partial of S left out of the sum; the decode cache's last
@@ -420,7 +458,7 @@ F32_AB = (
     "card = c.phase_device(); print('AB_CARD ' + card)\n"
     "g = torch.Generator(device='cuda:0').manual_seed(0)\n"
     "f = torch.float32\n"
-    "r = {{}}\n"
+    "r = {}\n"
     "q, k, v = (c.randn(g, c.FLASH_SHAPE, f) for _ in range(3))\n"
     "for causal in (False, True):\n"
     "    name = 'flash_causal' if causal else 'flash'\n"
@@ -466,7 +504,7 @@ MIXED_AB = (
     "f, bf = torch.float32, torch.bfloat16\n"
     "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
     ".to('cuda:0')\n"
-    "r = {{}}\n"
+    "r = {}\n"
     "def row(name, counter, fn, plain):\n"
     "    before = counter.launches\n"
     "    out = fn()\n"
@@ -512,7 +550,7 @@ HOST_AB = (
     "bf = torch.bfloat16\n"
     "lens = torch.from_numpy(c.smoke_lengths(np.random.default_rng(0)))"
     ".to('cuda:0')\n"
-    "r = {{}}\n"
+    "r = {}\n"
     "def host_us(fn, calls=200):\n"
     "    torch.cuda.synchronize()\n"
     "    t0 = time.perf_counter()\n"
@@ -539,6 +577,53 @@ HOST_AB = (
     "print('[hostab] ' + ' '.join(f'{n}={x}' for n, x in r.items()),"
     " flush=True)\n")
 
+# tc-flash: code that runs in any tree: the flash calls with an f32 operand
+# or a mix of the two 16-bit dtypes (the f32 and mixed routes' before the
+# any-dtype kernel took them), each causal off and on: ms and the error's
+# share of its narrowest input's flash limit, and at 576/512 ms at one CTA
+# a cluster too. Rows: (name, [b, h, S, d], dv, q/k/v dtypes).
+TC_FLASH_ROWS = (
+    ("f32_headline", (4, 8, 2048, 128), 128, ("float32",) * 3),
+    ("f32_256", (4, 8, 2048, 256), 256, ("float32",) * 3),
+    ("f32_576_512", (1, 16, 2048, 576), 512, ("float32",) * 3),
+) + tuple(
+    (f"{q}q_{kv}kv_headline", (4, 8, 2048, 128), 128, (q, kv, kv))
+    for q, kv in (("float32", "bfloat16"), ("float32", "float16"),
+                  ("bfloat16", "float32"), ("float16", "float32"),
+                  ("bfloat16", "float16"), ("float16", "bfloat16"))) + (
+    ("float32q_bfloat16kv_576_512", (1, 16, 2048, 576), 512,
+     ("float32", "bfloat16", "bfloat16")),
+    ("bfloat16q_float32kv_576_512", (1, 16, 2048, 576), 512,
+     ("bfloat16", "float32", "float32")))
+TC_FLASH = (
+    "import torch, chip_smoke as c\n"
+    "from k8s_dra_driver_tpu_torch.compute import flashattention as fa\n"
+    "from k8s_dra_driver_tpu_torch.compute.ringattention import "
+    "reference_attention as ref\n"
+    "card = c.phase_device(); print('AB_CARD ' + card)\n"
+    "g = torch.Generator(device='cuda:0').manual_seed(0)\n"
+    "plan = fa.cluster_flash_plan\n"
+    "r = {}\n"
+    f"for name, shape, dv, ts in {TC_FLASH_ROWS!r}:\n"
+    "    q, k = (c.randn(g, shape, getattr(torch, t)) for t in ts[:2])\n"
+    "    v = c.randn(g, shape[:3] + (dv,), getattr(torch, ts[2]))\n"
+    "    tol = c.flash_tol(*(getattr(torch, t) for t in ts))\n"
+    "    for causal in (False, True):\n"
+    "        key = name + ('_causal' if causal else '')\n"
+    "        fn = lambda: fa.flash_attention(q, k, v, causal=causal)\n"
+    "        r[key + '_ms'] = c.cuda_ms(fn, runs=10, warmup=2)\n"
+    "        r[key + '_err_over_limit'] = c.compare(fn(), ref(q, k, v,"
+    " causal=causal), *tol)[1]\n"
+    "        if dv > 256:\n"
+    "            fa.cluster_flash_plan = lambda d, dv: (1,"
+    " -(-d // fa.CLUSTER_GROUP_COLS), plan(d, dv)[2])\n"
+    "            r[key + '_one_cta_ms'] = c.cuda_ms(fn, runs=10, warmup=2)\n"
+    "            fa.cluster_flash_plan = plan\n"
+    "    del q, k, v\n"
+    "    torch.cuda.empty_cache()\n"
+    "print('[tcflash] ' + ' '.join(f'{n}={x}' for n, x in r.items()),"
+    " flush=True)\n")
+
 TREE_MODES = {
     "serve": (SERVE, lambda ln: ln.startswith("[serve] submitted="),
               SERVE_KEYS),
@@ -553,6 +638,10 @@ TREE_MODES = {
     "mixed": (MIXED_AB, lambda ln: ln.startswith("[mixedab]"),
               tuple(f"{row}_{key}" for row in MIXED_ROWS
                     for key in ("ms", "launches", "err_over_limit"))),
+    "tc-flash": (TC_FLASH, lambda ln: ln.startswith("[tcflash]"),
+                 tuple(f"{row[0]}{causal}_{key}" for row in TC_FLASH_ROWS
+                       for causal in ("", "_causal")
+                       for key in ("ms", "err_over_limit", "one_cta_ms"))),
     "host": (HOST_AB, lambda ln: ln.startswith("[hostab]"),
              tuple(f"{row}_{key}" for row in ("mla", "serve")
                    for key in ("event_ms", "device_ms", "host_us"))
@@ -1336,76 +1425,6 @@ def cluster_parts(work: Path, timeout: float) -> int:
     return 0
 
 
-# tc-bodies: the f32 and mixed routes' flash rows (the smoke's f32 and
-# mixed legs) on the body that takes them (f32tc_attention.cuh) and on the
-# any-dtype body (cluster_flash.cuh) at its plan and at one CTA a cluster:
-# whether one TF32 flash body could take all three routes.
-TC_BODY_ROWS = (
-    ("f32_headline", (4, 8, 2048, 128), 128, ("float32",) * 3),
-    ("f32_576_512", (1, 16, 2048, 576), 512, ("float32",) * 3),
-    ("f32q_bf16kv_headline", (4, 8, 2048, 128), 128,
-     ("float32", "bfloat16", "bfloat16")),
-)
-
-
-def tc_bodies() -> int:
-    """TC_BODY_ROWS, causal off and on, each on the f32 or mixed route
-    (``f32tc``), on the any-dtype kernel at ``cluster_flash_plan``'s plan
-    (``cluster``) and at one CTA a cluster (``cluster_one_cta``, where the
-    plan has more), in turns A, B, C, C, B, A: ms a call and the error's
-    share of the flash limit for each."""
-    import torch
-
-    import chip_smoke as c
-    from k8s_dra_driver_tpu_torch.compute import flashattention as fa
-    from k8s_dra_driver_tpu_torch.compute.ringattention import (
-        reference_attention,
-    )
-
-    card = c.phase_device()
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    takes = (fa.f32_kernel_takes, fa.mixed_kernel_takes)
-    plan = fa.cluster_flash_plan
-
-    def body(arm: str) -> None:
-        no = (lambda *a: False, lambda *a: False)
-        fa.f32_kernel_takes, fa.mixed_kernel_takes = (
-            takes if arm == "f32tc" else no)
-        fa.cluster_flash_plan = (
-            plan if arm != "cluster_one_cta" else
-            lambda d, dv: (1, -(-d // fa.CLUSTER_GROUP_COLS),
-                           plan(d, dv)[2]))
-
-    rows = []
-    for name, shape, dv, ts in TC_BODY_ROWS:
-        q, k = (c.randn(gen, shape, getattr(torch, t)) for t in ts[:2])
-        v = c.randn(gen, shape[:3] + (dv,), getattr(torch, ts[2]))
-        tol = c.FLASH_F32_TOL if set(ts) == {"float32"} else \
-            c.FLASH_BF16_TOL
-        arms = ["f32tc", "cluster"]
-        if plan(*fa.padded_head_dims(shape[3], dv))[0] > 1:
-            arms.append("cluster_one_cta")
-        for causal in (False, True):
-            ref = reference_attention(q, k, v, causal=causal)
-            row = {"row": name, "causal": causal}
-            for arm in arms + arms[::-1]:
-                body(arm)
-                out = fa.flash_attention(q, k, v, causal=causal)
-                ms = c.cuda_ms(lambda: fa.flash_attention(q, k, v,
-                                                          causal=causal))
-                row.setdefault(f"{arm}_ms", []).append(ms)
-                row[f"{arm}_err_over_limit"] = c.compare(out, ref, *tol)[1]
-            body("f32tc")
-            print("[tc-bodies] " + " ".join(
-                f"{key}={val}" for key, val in row.items()), flush=True)
-            rows.append(row)
-        del q, k, v
-        torch.cuda.empty_cache()
-    print(json.dumps({"tc_bodies": rows, "card": card}), flush=True)
-    return 0
-
-
 F32_SPLITS_SWEEP = (1, 2, 3, 4, 6)
 
 
@@ -1618,7 +1637,7 @@ def main(argv=None) -> int:
                                      "ring-variants", "general",
                                      "f32-splits", "cluster-parts",
                                      "stream-splits", "stream-parts",
-                                     "tc-bodies", "perwarp"))
+                                     "tc-flash", "perwarp"))
     ap.add_argument("sources", nargs="*",
                     help="other flash_attention.cu files (versions), "
                          "the other tree's directory (serve, decode, "
@@ -1663,8 +1682,6 @@ def main(argv=None) -> int:
         return cluster_parts(args.work, args.timeout)
     if args.mode == "stream-splits":
         return stream_splits()
-    if args.mode == "tc-bodies":
-        return tc_bodies()
     if args.mode == "stream-parts":
         return stream_parts(args.work, args.timeout)
     if args.mode == "ring-variants":

@@ -18,10 +18,10 @@ One line per phase:
            bulk copies (UBLKCP): every bf16 and f16 flash kernel and every
            wide kernel (decode and flash, at head dims over 256) must have
            the first two, every tuned decode ring kernel and every
-           any-dtype decode kernel the third, and every f32
-           tensor-core kernel (3xTF32, its mixed-dtype builds and the
-           any-dtype flash kernels) TMA loads and HGMMAs all of the TF32
-           form, with no spill
+           any-dtype decode kernel the third, and every TF32
+           tensor-core kernel (the f32 and mixed decode kernels, 3xTF32,
+           and the any-dtype flash kernels) TMA loads and HGMMAs all of the
+           TF32 form, with no spill
 3. check   the decode kernel against its plain PyTorch version on the card
            at the smoke's width (b=32, h=32, d=128, cap=4096, ragged
            lengths): f32 within 1e-4, bf16 and f16 within 2e-2, a poisoned
@@ -65,7 +65,9 @@ One line per phase:
            serve shape on the ring kernel and at absorbed MLA's layout (128
            and 1 rows, lengths at the tiles' and a split's edges) on the
            mixed tensor-core kernel, one launch a call, within 2e-2 and the
-           flash limit, a poisoned tail moving nothing
+           flash limit, a poisoned tail moving nothing, and, at one key
+           tile, nearer to the kernel's semantics than to an unrounded p or
+           a TF32-rounded f32 query
 4. timing  the decode kernel, its plain version and one library call, at
            the engine's shape, beside the least time the card could take
 5. serve   the claim path: a ResourceClaim for that card (CEL on its UUID)
@@ -95,18 +97,19 @@ One line per phase:
            zero-pads to multiples of 16, within the same limits; head dims
            257-1024 (576/512, 64/640) and q, k and v in different dtypes,
            each within its narrowest input's limit (bf16 and f16 up to
-           576/512 on the wide kernel, f32 up to 576/512 on the f32
-           tensor-core kernel, the rest on the any-dtype tensor-core
-           kernel, at S = 1, 33, 64, 65, 129 and 320, causal off and on,
+           576/512 on the wide kernel, the rest on the any-dtype
+           tensor-core kernel, at S = 1, 33, 64, 65, 129 and 320, causal
+           off and on,
            one launch a call, and at S = 64 with an f32 q and K over a
            16-bit V nearer to p rounded to V's dtype than not); the
            wide kernel at 576/512 in bf16 and f16 at S = 1, 63, 64, 65, 129
            and 320 (its 64-row and 32-key tiles' edges), causal off and on;
-           the f32 kernel (3xTF32) at the headline and at 128/128, 256/256
-           and 576/512 at those S (its 64-row and 64-key tiles' edges),
-           causal off and on, within the f32 limit, one launch a call;
-           the mixed tensor-core kernel at the headline in each mixed
-           class and at those head dims and S, within the bf16 limit, one
+           f32 on the any-dtype kernel (3xTF32) at the headline and at
+           128/128, 256/256 and 576/512 at those S (its 64-row and 64-key
+           tiles' edges), causal off and on, within the f32 limit, one
+           launch a call; q's dtype apart from K's and V's on the same
+           kernel at the headline in each such class and at those head dims
+           and S, within the bf16 limit, one
            launch a call, and, at S = 64, nearer to the kernel's semantics
            than to an unrounded p or a TF32-rounded f32 query (what the
            bf16 limit cannot see);
@@ -130,15 +133,17 @@ One line per phase:
            wide kernel), the f16 flash headline and the f16 and bf16 decode
            serve shapes (the ring kernel alone, one split), each held
            against its plain version
-   f32     the f32 tensor-core kernels (3xTF32) the same way: absorbed-MLA
-           decode in f32 (the f32 kernel and its merge, one launch a call),
-           the f32 flash headline and flash at 576/512, causal off and on;
+   f32     f32 on the tensor cores (3xTF32) the same way: absorbed-MLA
+           decode in f32 (the f32 decode kernel and its merge, one launch a
+           call), the f32 flash headline and flash at 576/512, causal off
+           and on (the any-dtype flash kernel);
            bounds at 3 TF32 products per f32 one (494.7 TFLOP/s) with the
            f32 SIMT bound (67 TFLOP/s) beside, shares against the first
    mixed   an f32 query over a bf16 cache the same way (no library call
            takes mixed dtypes): the decode serve shape on the ring kernel,
            absorbed-MLA decode on the mixed tensor-core kernel and its
-           merge, the flash headline causal off and on; bounds at each
+           merge, the flash headline causal off and on (the any-dtype flash
+           kernel); bounds at each
            product's own rate (S 2 TF32 products a multiply-add, P V at the
            bf16 rate), the TF32 products issued (P V 1) beside
    any     the any-dtype kernels the same way: K and V in different
@@ -419,10 +424,8 @@ from k8s_dra_driver_tpu_torch.compute import flashattention
 from k8s_dra_driver_tpu_torch.compute.flashattention import (
     decode_attention_reference,
     f32_decode_splits,
-    f32_kernel_takes,
     flash_attention,
     flash_attention_decode,
-    mixed_kernel_takes,
     padded_head_dims,
     stream_decode_pad,
     stream_decode_plan,
@@ -819,8 +822,8 @@ def phase_build() -> None:
     bulk copies (UBLKCP). Every bf16 and f16 flash kernel and every wide
     decode and flash kernel must have the first two, and every tuned decode
     ring kernel and every any-dtype decode kernel the bulk copy its K and V
-    tiles arrive by; every f32 tensor-core kernel and every
-    any-dtype flash kernel TF32 wgmmas only, TMA loads and no spill."""
+    tiles arrive by; every f32 and mixed decode kernel and every any-dtype
+    flash kernel TF32 wgmmas only, TMA loads and no spill."""
     t0 = time.monotonic()
     built = _build.build_all(force=True)
     require(bool(built), "no kernel source was built")
@@ -870,8 +873,7 @@ def phase_build() -> None:
                 # Both variants: tiles as they are, or the 16-byte chunks
                 # around them.
                 require(ublkcp > 0, f"{kernel} has no bulk copy in its SASS")
-            if kernel.startswith(("f32tc_flash_kernel",
-                                  "f32tc_decode_kernel",
+            if kernel.startswith(("f32tc_decode_kernel",
                                   "cluster_flash_kernel")):
                 require(tf32 > 0 and tf32 == hgmma and utmaldg > 0
                         and spills == 0 and regs is not None,
@@ -1343,8 +1345,10 @@ def mixed_decode_check(rng: np.random.Generator) -> float:
     split's last key and the keys either side, and the cache. Each call
     within its narrowest input's limit (BF16_TOL) and the flash limit
     FLASH_BF16_TOL (atol, rtol); then the tail past each length poisoned,
-    which must move the output by less than POISON_TOL. Returns the worst
-    error's share of the flash limit."""
+    which must move the output by less than POISON_TOL. Then, on the mixed
+    tensor-core kernel with an f32 q over a bf16 and an f16 cache of one
+    key tile, what the bf16 limit cannot see (``nearest_semantics``).
+    Returns the worst error's share of the flash limit."""
     dev = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
@@ -1400,6 +1404,26 @@ def mixed_decode_check(rng: np.random.Generator) -> float:
          mla_lens="1,31,32,33,63,64,65,split-1,split,split+1,cap",
          launches_per_call=1, worst_err_over_flash_limit=worst,
          flash_atol_rtol=json.dumps(FLASH_BF16_TOL))
+    # What the bf16 limit cannot see, on the mixed tensor-core decode at
+    # absorbed MLA's layout with one key tile (a 64-key cache, every
+    # sequence full: one split, p rounded against the row's final max).
+    fields = {}
+    full = torch.full((16,), 64, dtype=torch.int32, device=dev)
+    for ts in MIXED_FULL[:2]:
+        q = randn(gen, (16, 1, MLA_ROWS, MLA_D), ts[0])
+        k = randn(gen, (16, 1, 64, MLA_D), ts[1])
+        v = randn(gen, (16, 1, 64, MLA_DV), ts[2])
+        require(decode_route(q, k, v) == "mixed",
+                f"mixed decode {dtype_names(*ts)} at one key tile: routed "
+                f"to {decode_route(q, k, v)}")
+        fields.update(nearest_semantics(
+            flash_attention_decode(q, k, v, full), q, k, v, "mixed decode"))
+        del q, k, v
+    line("check", kernel="decode_attention", route="mixed",
+         check="rounded p and the f32 query's lo part: summed squared "
+         "difference to the kernel's semantics over that to each "
+         "alternative (< 0.5)", shape=json.dumps([16, 1, MLA_ROWS, MLA_D,
+                                                  MLA_DV, 64]), **fields)
     return worst
 
 
@@ -1589,8 +1613,8 @@ def phase_flash_check(seed: int) -> float:
     # at 256): S = 1 and 64 are less than one tile, 64 is one 64-key tile,
     # 100, 129, 192, 256 and 320 leave a ragged last tile, and under causal
     # the 256 bucket's 128 query rows cross two 64-key tiles on the
-    # diagonal. f32 takes the f32 tensor-core kernel: 64 query rows and 64
-    # keys a tile, head dims in buckets of 128, 256 and 576/512.
+    # diagonal. f32 takes the any-dtype kernel: 64 query rows and 64 keys a
+    # tile, one CTA a 256-column slice of dv up to d = 128, clusters past it.
     alt_dv = {32: 256, 64: 128, 128: 64, 256: 32}
     worst = 0.0
     for d in (32, 64, 128, 256):
@@ -1703,8 +1727,8 @@ def wide_flash_check(gen: torch.Generator) -> float:
 
 
 def f32_flash_check(gen: torch.Generator) -> float:
-    """The f32 flash kernel (3xTF32) at the compute bench's headline
-    [4, 8, 2048, 128] and at each head-dim bucket of F32_FLASH_DIMS at S =
+    """f32 flash on the any-dtype kernel (3xTF32) at the compute bench's
+    headline [4, 8, 2048, 128] and at each of F32_FLASH_DIMS at S =
     WIDE_FLASH_SEQS (the 64-row query tiles' and 64-key tiles' edges),
     causal off and on: each call one launch within FLASH_F32_TOL of
     ``reference_attention``. Returns the worst error's share of it."""
@@ -1715,6 +1739,8 @@ def f32_flash_check(gen: torch.Generator) -> float:
     for shape, dv, causal in cases:
         q, k = (randn(gen, shape, torch.float32) for _ in range(2))
         v = randn(gen, shape[:3] + (dv,), torch.float32)
+        require(flash_route(q, k, v) == "cluster",
+                f"f32 flash {list(shape)} dv={dv}: not the any-dtype kernel")
         s_small = shape[2]
         before = flash_attention.launches
         out = flash_attention(q, k, v, block_q=s_small, block_k=s_small,
@@ -1728,7 +1754,7 @@ def f32_flash_check(gen: torch.Generator) -> float:
         err, over = compare(out, ref, *FLASH_F32_TOL)
         require(over <= 1, f"{what}: error {err}, {over} of the limit")
         worst = max(worst, over)
-    line("flash", route="f32", variants=json.dumps(
+    line("flash", route="f32", kernel="cluster", variants=json.dumps(
         f"{list(FLASH_SHAPE)} x causal; d/dv "
         + ", ".join(f"{d}/{dv}" for d, dv in F32_FLASH_DIMS) + " x S "
         + "/".join(map(str, WIDE_FLASH_SEQS)) + " x causal"),
@@ -1744,14 +1770,10 @@ CLUSTER_FLASH_SEQS = (1, 33, 64, 65, 129, 320)
 
 def flash_route(q, k, v) -> str:
     """Which flash kernel the wrapper gives these inputs: ``tuned``,
-    ``wide``, ``f32``, ``mixed`` or ``cluster`` (the any-dtype kernel)."""
+    ``wide`` or ``cluster`` (the any-dtype kernel)."""
     dp, dvp = padded_head_dims(q.shape[3], v.shape[3])
     if tuned_kernel_takes("flash_attention", q, k, v, dp, dvp):
         return "tuned"
-    if f32_kernel_takes(q, k, v, dp, dvp):
-        return "f32"
-    if mixed_kernel_takes(q, k, v, dp, dvp):
-        return "mixed"
     if wide_kernel_takes(q, k, v, dp, dvp):
         return "wide"
     return "cluster"
@@ -1762,7 +1784,7 @@ def cluster_flash_check(gen: torch.Generator) -> float:
     S = CLUSTER_FLASH_SEQS, causal off and on): every head dim of
     GENERAL_DIMS in each dtype and in each MIXED_DTYPES mix, and the mixes
     at 64/64 and 40/24; each call one launch within its narrowest input's
-    limit (the wide, f32, mixed or any-dtype kernel, by ``flash_route``).
+    limit (the wide or the any-dtype kernel, by ``flash_route``).
     Then what the bf16 limit cannot see, on the any-dtype kernel at S = 64
     (one key tile: p is rounded against the row's final max) with an f32 q
     and K over a bf16 and an f16 V, [8, 4, 64] at 128/128 and [2, 2, 64] at
@@ -1851,19 +1873,15 @@ def rounded_p_attention(q, k, v) -> torch.Tensor:
 
 
 def mixed_flash_check(gen: torch.Generator) -> float:
-    """The mixed tensor-core flash kernel (q's dtype apart from K's and V's
-    shared one): at the compute bench's headline [4, 8, 2048, 128] in each
-    MIXED_FULL class and at each head-dim bucket (128/128, 256/256,
+    """Flash whose q's dtype is apart from K's and V's shared one, on the
+    any-dtype kernel: at the compute bench's headline [4, 8, 2048, 128] in
+    each MIXED_FULL class and at each of F32_FLASH_DIMS (128/128, 256/256,
     576/512) at S = WIDE_FLASH_SEQS in the first, causal off and on, each
     call one launch within FLASH_BF16_TOL of ``reference_attention``. Then
     what that limit cannot see, at S = 64 (one key tile, so the kernel
     rounds each p against the row's final max) and an f32 q over a bf16
-    and an f16 cache, [16, 16, 64, 128]: the kernel's output is nearer
-    (summed squared difference under half) to ``rounded_p_attention`` than
-    to the plain version, whose p is not rounded (so p is rounded to V's
-    dtype), and than to ``rounded_p_attention`` of the query rounded to
-    TF32 (so the f32 query's lo part entered S). Returns the worst error's
-    share of the flash limit."""
+    and an f16 cache, [16, 16, 64, 128] (``nearest_semantics``). Returns
+    the worst error's share of the flash limit."""
     worst = 0.0
     cases = [(FLASH_SHAPE, FLASH_SHAPE[3], causal, ts) for ts in MIXED_FULL
              for causal in (False, True)]
@@ -1874,13 +1892,15 @@ def mixed_flash_check(gen: torch.Generator) -> float:
         q, k = (randn(gen, shape, t) for t in ts[:2])
         v = randn(gen, shape[:3] + (dv,), ts[2])
         s_small = shape[2]
+        what = (f"mixed flash {dtype_names(*ts)} {list(shape)} dv={dv} "
+                f"causal={causal}")
+        require(flash_route(q, k, v) == "cluster",
+                f"{what}: not the any-dtype kernel")
         before = flash_attention.launches
         out = flash_attention(q, k, v, block_q=s_small, block_k=s_small,
                               causal=causal)
         calls = flash_attention.launches - before
         ref = reference_attention(q, k, v, causal=causal)
-        what = (f"mixed flash {dtype_names(*ts)} {list(shape)} dv={dv} "
-                f"causal={causal}")
         require(out.shape == ref.shape and out.dtype == ts[0]
                 and calls == 1 and bool(torch.isfinite(out).all()),
                 f"{what}: {tuple(out.shape)} {out.dtype}, {calls} launches")
@@ -1888,7 +1908,7 @@ def mixed_flash_check(gen: torch.Generator) -> float:
         require(over <= 1, f"{what}: error {err}, {over} of the limit")
         worst = max(worst, over)
         del q, k, v, out, ref
-    line("flash", route="mixed", variants=json.dumps(
+    line("flash", route="mixed", kernel="cluster", variants=json.dumps(
         f"{list(FLASH_SHAPE)} x " + ", ".join(dtype_names(*ts)
                                              for ts in MIXED_FULL)
         + f" x causal; {dtype_names(*MIXED_FULL[0])} d/dv "
@@ -1900,26 +1920,37 @@ def mixed_flash_check(gen: torch.Generator) -> float:
     for ts in MIXED_FULL[:2]:
         q = randn(gen, (16, 16, 64, HEAD_DIM), ts[0])
         k, v = (randn(gen, (16, 16, 64, HEAD_DIM), t) for t in ts[1:])
-        out = flash_attention(q, k, v).float()
-        rounded = rounded_p_attention(q, k, v)
-        sq = lambda ref: ((out - ref.float()) ** 2).sum().item()
-        nearest = sq(rounded)
-        p_share = nearest / sq(reference_attention(q, k, v))
-        q_lo_share = nearest / sq(rounded_p_attention(tf32_round(q), k, v))
-        name = dtype_names(*ts).replace("/", "_")
-        fields[f"{name}_vs_unrounded_p"] = p_share
-        fields[f"{name}_vs_tf32_query"] = q_lo_share
-        require(p_share < 0.5, f"mixed flash {dtype_names(*ts)}: p is not "
-                               f"rounded to V's dtype ({p_share})")
-        require(q_lo_share < 0.5, f"mixed flash {dtype_names(*ts)}: the "
-                                  f"query's lo part is missing "
-                                  f"({q_lo_share})")
-        del q, k, v, out, rounded
+        fields.update(nearest_semantics(
+            flash_attention(q, k, v), q, k, v, "mixed flash"))
+        del q, k, v
     line("flash", route="mixed", check="rounded p and the f32 query's lo "
          "part: summed squared difference to the kernel's semantics over "
          "that to each alternative (< 0.5)", shape="[16, 16, 64, 128]",
          **fields)
     return worst
+
+
+def nearest_semantics(out, q, k, v, what: str) -> dict:
+    """What the bf16 limit cannot see in an output ``out`` of one key tile
+    (no mask; the kernel rounds each p against the row's final max) with
+    an f32 q over a 16-bit K and V: it is nearer (summed squared difference
+    under half) to ``rounded_p_attention`` than to the plain version, whose
+    p is not rounded (so p is rounded to V's dtype), and than to
+    ``rounded_p_attention`` of the query rounded to TF32 (so the f32
+    query's lo part entered S). Returns both shares by name."""
+    out = out.float()
+    sq = lambda ref: ((out - ref.float()) ** 2).sum().item()  # noqa: E731
+    nearest = sq(rounded_p_attention(q, k, v))
+    p_share = nearest / sq(reference_attention(q, k, v))
+    q_lo_share = nearest / sq(rounded_p_attention(tf32_round(q), k, v))
+    names = dtype_names(q.dtype, k.dtype, v.dtype)
+    require(p_share < 0.5, f"{what} {names}: p is not rounded to V's dtype "
+                           f"({p_share})")
+    require(q_lo_share < 0.5, f"{what} {names}: the query's lo part is "
+                              f"missing ({q_lo_share})")
+    name = names.replace("/", "_")
+    return {f"{name}_vs_unrounded_p": p_share,
+            f"{name}_vs_tf32_query": q_lo_share}
 
 
 def flash_bench_row(gen: torch.Generator, b: int, h: int, s: int, d: int,
@@ -2207,14 +2238,14 @@ def phase_wide(seed: int) -> dict:
 
 
 def phase_f32(seed: int) -> dict:
-    """The f32 tensor-core kernels (3xTF32) at full width (``wide_row`` per
+    """f32 on the tensor cores (3xTF32) at full width (``wide_row`` per
     call, bounds at 3 TF32 products per f32 one with the f32 SIMT bound
     beside): DeepSeek-V3's absorbed-MLA decode in f32 (the f32 decode
     kernel and its merge, one launch a call), the f32 flash headline
     [4, 8, 2048, 128] and flash attention at 576/512 ([1, 16, 2048]), each
-    causal off and on. Its own main path: the counts are zeroed before it
-    and must equal the rows' launches after it. Returns the launches by
-    function and the rows by leg."""
+    causal off and on (the any-dtype flash kernel). Its own main path: the
+    counts are zeroed before it and must equal the rows' launches after
+    it. Returns the launches by kernel and the rows by leg."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2254,7 +2285,7 @@ def phase_f32(seed: int) -> dict:
             lambda: sdpa(q, k, v, is_causal=causal),
             nbytes=4 * b * h * s * d * 4,
             flops=4 * b * h * s * s * d // (2 if causal else 1),
-            tol=FLASH_F32_TOL, own="f32tc_flash", phase="f32", f32=True,
+            tol=FLASH_F32_TOL, own="cluster_flash", phase="f32", f32=True,
             shape=list(FLASH_SHAPE), dtype="float32", causal=causal)
     del q, k, v
 
@@ -2271,7 +2302,7 @@ def phase_f32(seed: int) -> dict:
             nbytes=b * h * s * (2 * MLA_D + 2 * MLA_DV) * 4,
             flops=2 * b * h * s * s * (MLA_D + MLA_DV) // (2 if causal
                                                            else 1),
-            tol=FLASH_F32_TOL, own="f32tc_flash", phase="f32", f32=True,
+            tol=FLASH_F32_TOL, own="cluster_flash", phase="f32", f32=True,
             shape=[b, h, s], d=MLA_D, dv=MLA_DV, dtype="float32",
             causal=causal)
     del q, k, v
@@ -2287,7 +2318,8 @@ def phase_f32(seed: int) -> dict:
     require(counts == want, f"the f32 leg's launches: {counts}, its rows "
                             f"counted {want}")
     torch.cuda.empty_cache()
-    return {**{f"{name}_f32tc": n for name, n in counts.items()}, **rows}
+    return {"decode_attention_f32tc": counts["decode_attention"],
+            "flash_attention_f32": counts["flash_attention"], **rows}
 
 
 def phase_mixed(seed: int) -> dict:
@@ -2295,7 +2327,7 @@ def phase_mixed(seed: int) -> dict:
     per call, no library call: none takes q, k and v in different dtypes):
     the decode serve shape on the ring kernel (bound: bytes), DeepSeek-V3's
     absorbed-MLA decode on the mixed tensor-core kernel and its merge, and
-    the flash headline [4, 8, 2048, 128] on the mixed tensor-core kernel,
+    the flash headline [4, 8, 2048, 128] on the any-dtype flash kernel,
     causal off and on (bounds: bytes, or each product at its operands' rate,
     ``attention_flops_ms``: S 2 TF32 products a multiply-add at 494.7
     TFLOP/s, P V at the bf16 rate). Its own main path: the counts are
@@ -2358,7 +2390,7 @@ def phase_mixed(seed: int) -> dict:
                 b * h * s * s * d // half, b * h * s * s * d // half,
                 "float32/bfloat16/bfloat16"),
             tf32_flops=2 * b * h * s * s * (2 * d + d) // half,
-            tol=FLASH_BF16_TOL, own="f32tc_flash", phase="mixed",
+            tol=FLASH_BF16_TOL, own="cluster_flash", phase="mixed",
             shape=list(FLASH_SHAPE), dtypes="float32/bfloat16/bfloat16",
             causal=causal)
     del q, k, v
@@ -6316,16 +6348,20 @@ def main(argv=None) -> int:
     } for name, line_no, row in (
         ("decode_attention_wide", 125, "mla_decode"),
         ("flash_attention_wide", 36, "flash_576_512"))] + [{
+        # f32: the decode kernel of the TF32 body, flash on the any-dtype
+        # kernel.
         "name": name, "route": "cuda",
-        "source": "k8s_dra_driver_tpu_torch/csrc/f32tc_attention.cuh",
+        "source": f"k8s_dra_driver_tpu_torch/csrc/{source}",
         "replaces": f"k8s_dra_driver_tpu/compute/flashattention.py:{line_no}",
         "launches": f32[name],
         **{key: f32[row][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-    } for name, line_no, row in (
-        ("decode_attention_f32tc", 125, "mla_decode_f32"),
-        ("flash_attention_f32tc", 36, "flash_f32_headline"))] + [{
+    } for name, source, line_no, row in (
+        ("decode_attention_f32tc", "f32tc_attention.cuh", 125,
+         "mla_decode_f32"),
+        ("flash_attention_f32", "cluster_flash.cuh", 36,
+         "flash_f32_headline"))] + [{
         # Mixed dtypes (no library call takes them: library_ms null).
         "name": name, "route": "cuda",
         "source": f"k8s_dra_driver_tpu_torch/csrc/{source}",
@@ -6339,7 +6375,7 @@ def main(argv=None) -> int:
          "decode_serve_f32q_bf16kv"),
         ("decode_attention_mixed", "mixed_decode.cu", 125,
          "mla_decode_f32q_bf16kv"),
-        ("flash_attention_mixed", "mixed_flash.cu", 36,
+        ("flash_attention_mixed", "cluster_flash.cuh", 36,
          "flash_f32q_bf16kv_headline"))] + [{
         # The any-dtype kernels: their bf16 rows at 1,024/1,024, where one
         # library call computes the function.

@@ -17,59 +17,62 @@ promoted type) and scaled by 1/sqrt(d); the causal mask or the keys at
 index >= ``kv_lengths[b]`` are masked; softmax; p is rounded to v's dtype
 for P V, which accumulates in f32; the output is in q's dtype.
 
-On the card each wrapper picks one of five routes by dtypes and head dims
-(head dims zero-padded to the next multiple of 16 where a route says so):
+On the card each wrapper picks a route by dtypes and head dims (head dims
+zero-padded to the next multiple of 16 where a route says so). Flash has
+three:
 
-- tuned: flash with q, k and v of one dtype, bf16 or f16, and d, dv <=
-  TUNED_HEAD_DIM (the ``wgmma``/TMA path, padded head dims); decode with K
-  and V of one dtype, f32, bf16 or f16, d, dv <= TUNED_HEAD_DIM, rows of
-  whole 16-byte chunks on 16-byte boundaries and q in any dtype (the ring
-  kernel, built for the cache's dtype, reading q and writing out in q's:
-  bulk copies of K and V tiles into shared memory, 1 or 2 chunks of a row
-  a lane, with the cache split across blocks when b * h would leave SMs
-  idle, ``tuned_decode_tile``, ``tuned_decode_splits``);
+- tuned: q, k and v of one dtype, bf16 or f16, and d, dv <=
+  TUNED_HEAD_DIM (the ``wgmma``/TMA path, padded head dims);
 - wide: q, k and v all bf16 or all f16, padded d <= WIDE_MAX_D and dv <=
   WIDE_MAX_DV, one of them over TUNED_HEAD_DIM (DeepSeek-V3's absorbed
-  MLA, 576/512): the tensor-core kernels of ``csrc/wide_attention.cuh``,
-  64 query rows a tile with dv split between two warpgroups; decode takes
-  every query row in one call and splits the cache across blocks
-  (``wide_decode_splits``), then merges the splits;
-- f32: q, k and v all f32, padded d <= WIDE_MAX_D and dv <= WIDE_MAX_DV
-  (flash at every head dim up to those; decode only where d or dv is over
-  TUNED_HEAD_DIM, the tuned ring kernel keeping the rest): the tensor-core
-  kernels of ``csrc/f32tc_attention.cuh``, each f32 product as three TF32
-  products (3xTF32: hi.hi + hi.lo + lo.hi, f32-accurate), 64 query rows a
-  tile; decode takes every query row in one call and splits the cache
-  across blocks (``f32_decode_splits``), then merges the splits;
-- mixed: q in one dtype and K and V sharing another, padded d <=
-  WIDE_MAX_D and dv <= WIDE_MAX_DV (flash at every head dim up to those;
-  decode where d or dv is over TUNED_HEAD_DIM): the same tensor-core body
-  built for 16-bit q or K and V (``csrc/mixed_flash.cu``,
-  ``csrc/mixed_decode.cu``), each operand copied in its own dtype, a
+  MLA, 576/512): the tensor-core kernel of ``csrc/wide_attention.cuh``, 64
+  query rows a tile with dv split between two warpgroups;
+- any: everything else (all-f32 calls, q in a dtype apart from the one K
+  and V share, K and V in different dtypes, head dims past the wide
+  route's), at any head dims and in any mix of dtypes: the tensor-core
+  kernels of ``csrc/cluster_flash.cuh`` (built by ``cluster_flash_q32.cu``
+  and ``cluster_flash_q16.cu``), each operand copied in its own dtype, a
   16-bit one entering its products once (it is exact in TF32) and an f32
-  one as hi and lo; p rounded to V's dtype where V is 16-bit;
-- any: anything else (K and V in different dtypes, a decode whose rows the
-  ring kernel does not take, such as d = 66 in 16 bits or an odd d in f32,
-  a decode cache off a 16-byte boundary, head dims past the wide, f32 and
-  mixed routes'), at any head dims and in any mix of dtypes. Flash: the
-  tensor-core kernels of
-  ``csrc/cluster_flash.cuh`` (built by ``cluster_flash_q32.cu`` and
-  ``cluster_flash_q16.cu``), the f32 body with each operand's dtype its own
-  and a cluster of CTAs that split d between them, sum their partial
-  scores through distributed shared memory and take 256 columns of dv each
-  (one CTA a slice, computing the scores itself, where d is at most 128;
-  ``cluster_flash_plan``), padded head dims; decode: the byte-streaming
-  kernel of ``csrc/stream_decode.cu``, which reads each valid K and V row
-  once through a ring of bulk copies (of the 16-byte chunks around each
-  span where a row is not whole chunks or the cache starts off a 16-byte
-  boundary), takes every query row in one call, up to STREAM_ROWS a
-  block, and splits the cache across blocks (``stream_decode_plan``),
-  then merges the splits.
+  one as hi and lo (3xTF32: hi.hi + hi.lo + lo.hi, f32-accurate); p
+  rounded to V's dtype where V is 16-bit; a cluster of CTAs that split d
+  between them, sum their partial scores through distributed shared
+  memory and take 256 columns of dv each (one CTA a slice, computing the
+  scores itself, where d is at most 128; ``cluster_flash_plan``), padded
+  head dims.
+
+Decode has five (``decode_route`` says which a call takes):
+
+- tuned: K and V of one dtype, f32, bf16 or f16, d, dv <= TUNED_HEAD_DIM,
+  rows of whole 16-byte chunks on 16-byte boundaries and q in any dtype
+  (the ring kernel, built for the cache's dtype, reading q and writing out
+  in q's: bulk copies of K and V tiles into shared memory, 1 or 2 chunks
+  of a row a lane, with the cache split across blocks when b * h would
+  leave SMs idle, ``tuned_decode_tile``, ``tuned_decode_splits``);
+- wide: q, k and v all bf16 or all f16, d or dv over TUNED_HEAD_DIM up to
+  padded WIDE_MAX_D and WIDE_MAX_DV: the wide kernel, every query row in
+  one call, the cache split across blocks (``wide_decode_splits``), then
+  the splits merged;
+- f32: q, k and v all f32, d or dv over TUNED_HEAD_DIM up to the same
+  dims: the tensor-core decode kernel of ``csrc/f32tc_attention.cuh``,
+  each f32 product as three TF32 products, 64 query rows a tile, every
+  query row in one call, the cache split across blocks
+  (``f32_decode_splits``), then the splits merged;
+- mixed: q in one dtype and K and V sharing another, d or dv over
+  TUNED_HEAD_DIM up to the same dims: the same body built for 16-bit q or
+  K and V (``csrc/mixed_decode.cu``);
+- stream: the rest (K and V in different dtypes, rows the ring kernel
+  does not take, such as d = 66 in 16 bits or an odd d in f32, a cache off
+  a 16-byte boundary, head dims past the wide, f32 and mixed routes'): the
+  byte-streaming kernel of ``csrc/stream_decode.cu``, which reads each
+  valid K and V row once through a ring of bulk copies (of the 16-byte
+  chunks around each span where a row is not whole chunks or the cache
+  starts off a 16-byte boundary), takes every query row in one call, up to
+  STREAM_ROWS a block, and splits the cache across blocks
+  (``stream_decode_plan``), then merges the splits.
 
 The tuned decode (the ring kernel) launches once per group of up to
 MAX_Q_LEN query rows (its merge, where it splits the cache, counts as part
-of its launch); every other decode route once a call. ``decode_route``
-says which route a decode call takes.
+of its launch); every other route once a call.
 """
 
 from __future__ import annotations
@@ -108,10 +111,10 @@ WIDE_BLOCKS_PER_SM = 1
 TUNED_STAGE_BYTES = 32 * 1024
 TUNED_SPLIT_MIN_KEYS = 256
 TUNED_BLOCKS_PER_SM = 2
-#: The f32 route: its query rows and keys per tile; the output columns one
-#: block takes at head dims over 256 (dv past it goes to more blocks); the
-#: least keys of one split of the decode cache, and the blocks an SM that
-#: the split count aims for (one is resident at a time; 3 ran fastest at
+#: The f32 and mixed decode: its query rows and keys per tile; the output
+#: columns one block takes (dv past them goes to more blocks); the least
+#: keys of one split of the cache, and the blocks an SM that the split
+#: count aims for (one is resident at a time; 3 ran fastest at
 #: absorbed MLA's shape on an H100, ``chip_ab.py f32-splits``).
 F32_ROWS = 64
 F32_KEYS = 64
@@ -216,19 +219,21 @@ def wide_kernel_takes(q, k, v, d: int, dv: int) -> bool:
 
 
 def f32_kernel_takes(q, k, v, d: int, dv: int) -> bool:
-    """Whether a CUDA call that the tuned kernel does not take goes to the
-    f32 tensor-core kernels (either function): q, k and v all f32 and
-    padded head dims ``d`` <= WIDE_MAX_D and ``dv`` <= WIDE_MAX_DV."""
+    """One of ``decode_route``'s tests (no flash call reads it: the
+    any-dtype flash takes every all-f32 call): q, k and v all f32 and
+    padded head dims ``d`` <= WIDE_MAX_D and ``dv`` <= WIDE_MAX_DV, which
+    the f32 decode kernel takes where ``d`` or ``dv`` is over
+    TUNED_HEAD_DIM."""
     return (q.dtype == k.dtype == v.dtype == torch.float32
             and d <= WIDE_MAX_D and dv <= WIDE_MAX_DV)
 
 
 def mixed_kernel_takes(q, k, v, d: int, dv: int) -> bool:
-    """Whether a CUDA call that the tuned kernel does not take goes to the
-    mixed-dtype kernels of the f32 tensor-core body (either function; in
-    decode only where ``d`` or ``dv`` is over TUNED_HEAD_DIM): k and v of
-    one dtype, q of another, and padded head dims ``d`` <= WIDE_MAX_D and
-    ``dv`` <= WIDE_MAX_DV."""
+    """One of ``decode_route``'s tests (no flash call reads it: the
+    any-dtype flash takes every mix): k and v of one dtype, q of another,
+    and padded head dims ``d`` <= WIDE_MAX_D and ``dv`` <= WIDE_MAX_DV,
+    which the mixed decode kernel takes where ``d`` or ``dv`` is over
+    TUNED_HEAD_DIM."""
     return (k.dtype == v.dtype != q.dtype and d <= WIDE_MAX_D
             and dv <= WIDE_MAX_DV)
 
@@ -484,10 +489,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     own tiles.
 
     CUDA tensors go through a CUDA kernel on the tensors' device and
-    current stream (``tuned_kernel_takes``, ``wide_kernel_takes``,
-    ``f32_kernel_takes`` and ``mixed_kernel_takes`` say which; the any-dtype
-    kernel takes the rest), counted in ``flash_attention.launches``; CPU
-    tensors go through ``reference_attention``."""
+    current stream (``tuned_kernel_takes`` and ``wide_kernel_takes`` say
+    which; the any-dtype kernel takes the rest), counted in
+    ``flash_attention.launches``; CPU tensors go through
+    ``reference_attention``."""
     if q.dim() != 4:
         raise ValueError(f"q must be [b,h,S,d], got {tuple(q.shape)}")
     seq = q.shape[2]
@@ -514,28 +519,20 @@ def _launch_flash(q, k, v, causal: bool, stream: int) -> torch.Tensor:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     scale = 1.0 / math.sqrt(d)
     tuned = tuned_kernel_takes("flash_attention", q, k, v, dp, dvp)
-    f32 = f32_kernel_takes(q, k, v, dp, dvp)   # the tuned flash takes no f32
-    mixed = mixed_kernel_takes(q, k, v, dp, dvp)
-    if tuned or f32 or mixed or wide_kernel_takes(q, k, v, dp, dvp):
+    if tuned or wide_kernel_takes(q, k, v, dp, dvp):
         # Zero columns add nothing to q k^T, and the scale stays 1/sqrt(d).
         q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)
         _check_aligned(q, k, v)
         out = torch.empty((b, h, seq, dvp), dtype=q.dtype, device=q.device)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b * h, seq, dp, dvp, int(causal), scale)
-        if mixed:
-            fn, err_str = _c_entry("mixed_flash", "f32tc",
-                                   [p, p, p, p, i, i, i, i, i, f, i, i, p])
-            err = fn(*args, _CODES[q.dtype], _CODES[k.dtype], stream)
-        else:
-            variant = (_DTYPES[q.dtype] if tuned else "f32tc" if f32
-                       else f"wide_{_DTYPES[q.dtype]}")
-            fn, err_str = _c_entry("flash_attention", variant,
-                                   [p, p, p, p, i, i, i, i, i, f, p])
-            err = fn(*args, stream)
+        variant = _DTYPES[q.dtype] if tuned else f"wide_{_DTYPES[q.dtype]}"
+        fn, err_str = _c_entry("flash_attention", variant,
+                               [p, p, p, p, i, i, i, i, i, f, p])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b * h, seq, dp, dvp, int(causal), scale, stream)
     else:
-        # The any-dtype kernel: padded dims, each operand in its own dtype
-        # (TMA reads each from a 16-byte boundary: a view off one is copied).
+        # The any-dtype kernel (every all-f32 call and every mix too):
+        # padded dims, each operand in its own dtype (TMA reads each from a
+        # 16-byte boundary: a view off one is copied).
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in
                    (_pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dvp)))
         out = torch.empty((b, h, seq, dvp), dtype=q.dtype, device=q.device)

@@ -1,9 +1,10 @@
 // Flash attention for NVIDIA Hopper (sm_90a) at any head dims and in any
-// mix of dtypes, on the tensor cores: the calls that the tuned, wide, f32 and
-// mixed flash kernels do not take (K and V in different dtypes; head dims
-// past padded 576/512, in every dtype and mix). Built by
-// cluster_flash_q32.cu (an f32 q) and cluster_flash_q16.cu (a bf16 or f16
-// q), each its own nvcc job.
+// mix of dtypes, on the tensor cores: every call that the tuned and wide
+// flash kernels (flash_attention.cu) do not take. That is every call with an
+// f32 operand (q, k and v all f32; an f32 q over a 16-bit K and V; a 16-bit
+// q over an f32 one), every mix of the two 16-bit dtypes, and head dims past
+// padded 576/512 in every dtype. Built by cluster_flash_q32.cu (an f32 q)
+// and cluster_flash_q16.cu (a bf16 or f16 q), each its own nvcc job.
 //
 // It replaces, for those calls, the TPU kernel `_flash_kernel`, reached
 // through `flash_attention` (k8s_dra_driver_tpu/compute/flashattention.py),
@@ -20,14 +21,15 @@
 // What bounds it: operations, each product at its operands' own rate. At
 // [1, 8, 2048] with d = dv = 1024 that is 137 GFLOP: 0.139 ms in bf16 at
 // 989.4 TFLOP/s (this kernel issues them as TF32 products, 0.28 ms at
-// 494.7), in f32 three TF32 products each (0.83 ms).
+// 494.7), in f32 three TF32 products each (0.83 ms). In f32 at [4, 8, 2048,
+// 128] it is 0.417 ms, at [1, 16, 2048] with 576/512 0.886 ms.
 //
-// The design: the f32 tensor-core body (f32tc_attention.cuh: a TMA ring of
-// 32-column panels, split warps that write K's f32 or lo plane and V
-// transposed as hi and lo planes, one consumer warpgroup issuing TF32
-// `wgmma`s with Q and P as register A operands) with a flag a operand (kQ16,
-// kK16, kV16), and a thread-block cluster so that S is computed once per key
-// tile whatever dv is:
+// The design: the f32 tensor-core body of the f32 and mixed decode
+// (f32tc_attention.cuh: a TMA ring of 32-column panels, split warps that
+// write K's f32 or lo plane and V transposed as hi and lo planes, one
+// consumer warpgroup issuing TF32 `wgmma`s with Q and P as register A
+// operands) with a flag an operand (kQ16, kK16, kV16), and a thread-block
+// cluster so that S is computed once per key tile whatever dv is:
 //   * a cluster of C CTAs (C = dv's 256-column slices, at most 8; the
 //     wrapper's `cluster_flash_plan`) takes one 64-row query tile. CTA r
 //     streams its own share of d: panel groups of kDP panels, groups
@@ -53,17 +55,17 @@
 //     under causal no key tile past a query tile's last row is loaded;
 //   * the ring's stages are sized for the dtype class (`Plan`): a 16-bit
 //     panel takes half an f32 one's bytes, so the ring holds 12 stages where
-//     q, K and V are 16-bit, 8 where they are f32 (the f32 route's body
-//     holds 6 of 32 KB), and more loads are in flight ahead of the split
-//     warps and the consumers;
+//     q, K and V are 16-bit, 8 where they are f32 (the decode body holds 6
+//     of 32 KB), and more loads are in flight ahead of the split warps and
+//     the consumers;
 //   * compile-time buckets: VP = 4 panels (dv up to 128) or 8, times the
 //     eight dtype classes: 16 kernels in two sources.
 // Where d is one group of 128 columns or less, the plan takes one CTA a
 // cluster, each 256-column slice of dv an item that computes S itself: the
 // exchange cost more than S of so narrow a d (PERF.md).
 // What holds it back (PERF.md, `chip_ab.py cluster-parts`): the body's
-// efficiency (a fifth to a third of the bound on the f32 and mixed
-// routes), and the exchange, a stall of every CTA of the cluster each key
+// efficiency (a fifth to a third of the bound at the f32 and mixed
+// headlines), and the exchange, a stall of every CTA of the cluster each key
 // tile until the slowest has its partial (at 1,024/1,024 in bf16, 2.80 ms
 // with it against 1.65 ms with it left out).
 // There is no fallback: a call that cannot build or launch raises.

@@ -1,21 +1,24 @@
-// The f32 attention path for NVIDIA Hopper (sm_90a): q, k and v all f32, on
-// the tensor cores in 3xTF32. One device body computes one 64-row query tile
-// against a stream of 64-key K/V tiles; the flash kernels
-// (flash_attention.cu) and the decode kernel (decode_attention.cu) differ
-// only in which tiles a block takes and where its result goes. The same
-// body, built for a 16-bit q or 16-bit K and V (`body`'s kQ16 and kKV16),
-// takes the calls whose q's dtype differs from the one K and V share
-// (mixed_flash.cu, mixed_decode.cu): a 16-bit operand is exact in TF32, so
-// it enters each product once and only an f32 operand is split.
+// The f32 and mixed decode body for NVIDIA Hopper (sm_90a), on the tensor
+// cores in 3xTF32: decode attention whose d or dv is over 256, up to padded
+// 576/512 (DeepSeek-V3's absorbed MLA: 128 query rows of 576/512 against
+// one latent head), with q, k and v all f32 (decode_attention.cu's
+// decode_attention_f32tc) or q in one dtype and K and V sharing another
+// (mixed_decode.cu). One device body computes one 64-row query tile of one
+// split of the cache against a stream of 64-key K/V tiles and writes an f32
+// partial; the wide path's merge kernel sums the splits. Built for a 16-bit
+// q or 16-bit K and V (`body`'s kQ16 and kKV16), a 16-bit operand is exact
+// in TF32, so it enters each product once and only an f32 operand is split.
+// Flash attention of these dtypes runs on cluster_flash.cuh's body, a fork
+// of this one with a flag an operand and a cluster exchange.
 //
-// It replaces, for f32 inputs, the TPU kernels `_flash_kernel` and
-// `_decode_kernel` (k8s_dra_driver_tpu/compute/flashattention.py) and
-// computes their function: scores q.k in f32, scaled by 1/sqrt(d) of the
-// true d; keys at index >= kv_lengths[b] (decode) or beyond the row (causal
-// flash) masked; an online softmax with f32 running max and denominator; p
-// not rounded (V is f32); P V accumulated in f32; the output in f32. The
-// wrapper zero-pads d and dv to multiples of 16; a zero column adds nothing
-// to q.k, and the output's padded columns are cut off.
+// It replaces, for those calls, the TPU kernel `_decode_kernel`
+// (k8s_dra_driver_tpu/compute/flashattention.py) and computes its function:
+// scores q.k of the upcast values accumulated in f32, scaled by 1/sqrt(d)
+// of the true d; keys at index >= kv_lengths[b] masked; an online softmax
+// with f32 running max and denominator; p rounded to V's dtype (f32 V: not
+// rounded); P V accumulated in f32; the output in q's dtype. The wrapper
+// zero-pads d and dv to multiples of 16; a zero column adds nothing to q.k,
+// and the output's padded columns are cut off.
 //
 // Why 3xTF32 and not TF32. The tensor cores take f32 operands only as TF32
 // (10 mantissa bits): one TF32 product is off by ~1e-3 of the value, 50
@@ -27,12 +30,10 @@
 // products, 494.7 / 3 = ~165 TFLOP/s of f32-accurate work against the SIMT
 // units' 67.
 //
-// What bounds it: operations, at that 3xTF32 rate. Flash at [4, 8, 2048,
-// 128] does 68.7 GFLOP of f32 work on 134 MB (0.417 ms of 3xTF32 work
-// against 0.040 ms of bytes); absorbed-MLA decode (128 query rows of
-// 576/512 against one latent cache) does 128 x 1,088 multiply-adds for each
-// key's 4,352 bytes, 18.4 GFLOP on ~305 MB at the smoke's lengths (0.111 ms
-// of work against 0.091 of bytes).
+// What bounds it: operations, at that 3xTF32 rate. Absorbed-MLA decode in
+// f32 does 128 x 1,088 multiply-adds for each key's 4,352 bytes, 18.4 GFLOP
+// on ~305 MB at the smoke's lengths (0.111 ms of work against 0.091 of
+// bytes).
 //
 // The design:
 //   * Operand major-ness. `wgmma` reads TF32 from shared memory K-major
@@ -62,16 +63,15 @@
 //     V's panel of 32 dv columns, with room for the split planes: 32 KB a
 //     stage, 6 stages (192 KB of the 227 KB a block may have). Q is not
 //     resident: at 576 columns one f32 Q tile is 144 KB, and its panels
-//     come again from L2 with each key tile, at 128 as at 576/512.
-//   * Head dims are compile-time buckets of panels (DP of d, VP of dv):
-//     4/4 up to 128, 8/8 up to 256, and 18/8 up to 576/512, whose dv goes in
-//     chunks of 256 columns, one work item each (O of 64 x 256 is 128
-//     registers a thread; S is computed once per chunk). Every loop that
-//     issues a `wgmma` runs to a compile-time count (a run-time panel count
-//     serialised every HGMMA of the wide kernels, PERF.md); the panels past
-//     d or dv are TMA's zeros. At 18/8 the consumer holds O, S, P's or Q's
-//     fragments and little else: 254 of 255 registers, no spill once each
-//     stage's address is pinned after its wait (`pinned`).
+//     come again from L2 with each key tile.
+//   * Head dims are one compile-time bucket of panels: 18 of d (576) and 8
+//     of dv, whose dv goes in chunks of 256 columns, one work item each (O
+//     of 64 x 256 is 128 registers a thread; S is computed once per chunk).
+//     Every loop that issues a `wgmma` runs to a compile-time count (a
+//     run-time panel count serialised every HGMMA of the wide kernels,
+//     PERF.md); the panels past d or dv are TMA's zeros. The consumer holds
+//     O, S, P's or Q's fragments and little else: 254 of 255 registers, no
+//     spill once each stage's address is pinned after its wait (`pinned`).
 //   * 8 warps a block, one block an SM. Warp 0: one thread issues every TMA
 //     load. Warps 1-3: the split pass (K's lo plane; V's transposed hi and
 //     lo planes), then `fence.proxy.async` and an arrival. Warps 4-7, one
@@ -81,18 +81,14 @@
 //     one 32-column accumulator per V panel. mbarriers per stage: full
 //     (TMA bytes), split (the 96 split threads), empty (the 4 consumer
 //     warps, once the `wgmma`s that read the stage are done).
-//   * Flash grid: persistent, one block an SM, over (64-row query tile,
-//     b h, dv chunk) with the most keys first, dealt in a snake; under
-//     causal no key tile past a query tile's last row is loaded.
-//   * Decode grid: one block per (b h, split, 64-row tile, dv chunk), the
-//     cache split across blocks by a count the wrapper takes from the
-//     shapes and the SM count (`f32_decode_splits`), never the lengths;
-//     f32 partials (O, base-2 max, l) merged by the wide path's merge
-//     kernel. All of absorbed MLA's 128 query rows go in one launch.
-// What holds it back (PERF.md): about a third of the 3xTF32 bound at the
-// f32 flash headline; at 18/8 S is computed once per dv chunk (twice at
+//   * Grid: one block per (b h, split, 64-row tile, dv chunk), the cache
+//     split across blocks by a count the wrapper takes from the shapes and
+//     the SM count (`f32_decode_splits`), never the lengths; f32 partials
+//     (O, base-2 max, l) merged by the wide path's merge kernel. All of
+//     absorbed MLA's 128 query rows go in one launch.
+// What holds it back (PERF.md): S is computed once per dv chunk (twice at
 // dv = 512) and Q's panels are read and split again with every key tile.
-// There is no fallback: an f32 call that cannot build or launch raises.
+// There is no fallback: a call that cannot build or launch raises.
 
 #pragma once
 
@@ -121,17 +117,14 @@ constexpr int kBarsOffset = kStages * kStageBytes;
 constexpr int kSmemBytes = 1024 + kBarsOffset + 3 * kStages * 8;
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block may have");
 
-// What a launch computes. Flash: rows = keys = S, out is [n_bh, S, dv]
-// in q's dtype. Decode: rows = ql, keys = cap; part_o is [n_bh, splits,
-// ql, dv] and part_ml [n_bh, splits, ql, 2] (base-2 max, denominator).
-// dv_chunk: the output columns one work item takes. q_f16, kv_f16: a 16-bit
-// q's and K/V's kind, 1 for f16 and 0 for bf16 (read where the kernel is
-// built for 16-bit q or K/V).
+// What a launch computes: rows = ql query rows against keys = cap; part_o
+// is [n_bh, splits, ql, dv] and part_ml [n_bh, splits, ql, 2] (base-2 max,
+// denominator). dv_chunk: the output columns one work item takes. q_f16,
+// kv_f16: a 16-bit q's and K/V's kind, 1 for f16 and 0 for bf16 (read where
+// the kernel is built for 16-bit q or K/V).
 struct Args {
   int n_bh, rows, keys, d, dv, dv_chunk;
   float scale_log2;
-  int causal;
-  void* out;
   const int* lens;
   int h, splits, split_keys;
   float* part_o;
@@ -141,8 +134,7 @@ struct Args {
 
 // One work item: query rows [q0, q0 + 64) of (b h) `bh`, output columns
 // [c0, c0 + dv_chunk), against key tiles from k0, n_kt of them, keys >=
-// k_limit masked (decode; flash masks by S and causal). `part` is the
-// decode item's partial (bh * splits + split).
+// k_limit masked. `part` is the item's partial (bh * splits + split).
 struct Work {
   int bh, q0, c0, k0, n_kt, k_limit, part;
 };
@@ -151,45 +143,31 @@ __device__ __forceinline__ int n_chunks(const Args& a) {
   return (a.dv + a.dv_chunk - 1) / a.dv_chunk;
 }
 
-template <bool kDecode>
 __device__ __forceinline__ int n_work(const Args& a) {
   const int n_rt = (a.rows + kRows - 1) / kRows;
-  return a.n_bh * n_rt * n_chunks(a) * (kDecode ? a.splits : 1);
+  return a.n_bh * n_rt * n_chunks(a) * a.splits;
 }
 
-template <bool kDecode>
+// Item j: the chunks of one tile, then the row tiles of one split, side by
+// side (neighbours read the same K and V, the later ones from L2).
 __device__ __forceinline__ Work work_of(const Args& a, int j) {
   const int n_rt = (a.rows + kRows - 1) / kRows;
   const int nc = n_chunks(a);
   const int rest = j / nc;
   Work w;
   w.c0 = (j - rest * nc) * a.dv_chunk;
-  if constexpr (kDecode) {
-    // The chunks of one tile, then the row tiles of one split, side by
-    // side: neighbours read the same K and V, the later ones from L2.
-    const int part = rest / n_rt;
-    w.part = part;
-    w.bh = part / a.splits;
-    w.q0 = (rest - part * n_rt) * kRows;
-    w.k0 = (part - w.bh * a.splits) * a.split_keys;
-    const int len = min(a.lens[w.bh / a.h], a.keys);
-    w.k_limit = min(w.k0 + a.split_keys, len);
-    w.n_kt = w.k_limit > w.k0 ? (w.k_limit - w.k0 + kKeys - 1) / kKeys : 0;
-  } else {
-    // The most keys first: the last query tiles of every (b h), then the
-    // ones before.
-    w.part = 0;
-    w.bh = rest % a.n_bh;
-    w.q0 = (n_rt - 1 - rest / a.n_bh) * kRows;
-    w.k0 = 0;
-    w.k_limit = a.causal ? min(a.keys, w.q0 + kRows) : a.keys;
-    w.n_kt = (w.k_limit + kKeys - 1) / kKeys;
-  }
+  const int part = rest / n_rt;
+  w.part = part;
+  w.bh = part / a.splits;
+  w.q0 = (rest - part * n_rt) * kRows;
+  w.k0 = (part - w.bh * a.splits) * a.split_keys;
+  const int len = min(a.lens[w.bh / a.h], a.keys);
+  w.k_limit = min(w.k0 + a.split_keys, len);
+  w.n_kt = w.k_limit > w.k0 ? (w.k_limit - w.k0 + kKeys - 1) / kKeys : 0;
   return w;
 }
 
-// The body of every f32 kernel. DP: 32-column panels of Q and K; VP: of V
-// in one dv chunk. kDecode: decode's items and partials, else flash's.
+// The body. DP: 32-column panels of Q and K; VP: of V in one dv chunk.
 // kQ16, kKV16: q, or K and V, 16-bit (bf16 or f16, by a.q_f16 and
 // a.kv_f16) rather than f32: TMA copies such a panel in its own dtype (32
 // columns, 64-byte rows in the 64-byte swizzle, `sw64_offset`), and it is
@@ -200,7 +178,7 @@ __device__ __forceinline__ Work work_of(const Args& a, int j) {
 // and the split warps write it as f32 into plane 1 (the hi plane a raw f32
 // panel is); a 16-bit V panel's transposed hi plane comes from its own
 // dtype; a 16-bit Q is converted in the consumers' registers.
-template <int DP, int VP, bool kDecode, bool kQ16, bool kKV16>
+template <int DP, int VP, bool kQ16, bool kKV16>
 __device__ __forceinline__ void body(const CUtensorMap& q_map,
                                      const CUtensorMap& k_map,
                                      const CUtensorMap& v_map,
@@ -220,7 +198,7 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
   const auto stage = [&](int st) { return base + st * kStageBytes; };
   unsigned char* const base_ptr = smem_raw + (base - raw);
 
-  const int work = n_work<kDecode>(a);
+  const int work = n_work(a);
   const int grid = gridDim.x, block = blockIdx.x;
   const auto item = [&](int r) {
     return r * grid + ((r & 1) ? grid - 1 - block : block);
@@ -243,7 +221,7 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
     if (threadIdx.x == 0) {
       int it = 0;
       for (int r = 0; item(r) < work; ++r) {
-        const Work w = work_of<kDecode>(a, item(r));
+        const Work w = work_of(a, item(r));
         for (int kt = 0; kt < w.n_kt; ++kt) {
           const int key = w.k0 + kt * kKeys;
           for (int p = 0; p < DP; ++p, ++it) {
@@ -278,7 +256,7 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
     const int ts = threadIdx.x - 32;
     int it = 0;
     for (int r = 0; item(r) < work; ++r) {
-      const Work w = work_of<kDecode>(a, item(r));
+      const Work w = work_of(a, item(r));
       for (int kt = 0; kt < w.n_kt; ++kt) {
         for (int p = 0; p < DP; ++p, ++it) {
           const int st = it % kStages;
@@ -486,19 +464,11 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
     // rescaled for the new row max.
     const auto softmax = [&](const Work& w, int k0t, float (&m)[2],
                              float (&l)[2], float (&corr)[2]) {
-      const int row_a = w.q0 + row_in;
-      const bool edge = kDecode ? k0t + kKeys > w.k_limit
-                                : k0t + kKeys > a.keys ||
-                                      (a.causal && k0t + kKeys - 1 > w.q0);
-      if (edge) {
+      if (k0t + kKeys > w.k_limit) {
 #pragma unroll
         for (int i = 0; i < kKeys / 2; ++i) {
           const int col = k0t + 8 * (i / 4) + 2 * t4 + (i & 1);
-          const int row = row_a + ((i & 2) ? 8 : 0);
-          const int limit = kDecode ? w.k_limit
-                                    : (a.causal ? min(row + 1, a.keys)
-                                                : a.keys);
-          if (col >= limit) s[i] = -CUDART_INF_F;
+          if (col >= w.k_limit) s[i] = -CUDART_INF_F;
         }
       }
       float mx[2] = {m[0], m[1]};
@@ -549,17 +519,15 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
 
     int it = 0;
     for (int r = 0; item(r) < work; ++r) {
-      const Work w = work_of<kDecode>(a, item(r));
+      const Work w = work_of(a, item(r));
       if (w.n_kt == 0) {
         // No valid key in the range: an empty partial for the merge.
-        if constexpr (kDecode) {
-          const int row = w.q0 + t;
-          if (w.c0 == 0 && t < kRows && row < a.rows) {
-            float* ml = a.part_ml +
-                        (static_cast<size_t>(w.part) * a.rows + row) * 2;
-            ml[0] = -CUDART_INF_F;
-            ml[1] = 0.f;
-          }
+        const int row = w.q0 + t;
+        if (w.c0 == 0 && t < kRows && row < a.rows) {
+          float* ml = a.part_ml +
+                      (static_cast<size_t>(w.part) * a.rows + row) * 2;
+          ml[0] = -CUDART_INF_F;
+          ml[1] = 0.f;
         }
         continue;
       }
@@ -589,86 +557,56 @@ __device__ __forceinline__ void body(const CUtensorMap& q_map,
         values(it);
         it += VP;
       }
-      float sum[2], inv[2];
+      float sum[2];
 #pragma unroll
       for (int r2 = 0; r2 < 2; ++r2) {
         sum[r2] = l[r2] + __shfl_xor_sync(0xffffffffu, l[r2], 1);
         sum[r2] += __shfl_xor_sync(0xffffffffu, sum[r2], 2);
-        inv[r2] = 1.f / sum[r2];
       }
-      // The flash output (times each row's 1/l) or the decode partial
-      // (unnormalised), this thread's columns of each V panel.
+      // The partial (unnormalised), this thread's columns of each V panel,
+      // and the rows' base-2 max and denominator.
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int row = w.q0 + row_in + 8 * hr;
         if (row >= a.rows) continue;
-        size_t at;  // the row's first element
-        float f;
-        if constexpr (kDecode) {
-          at = (static_cast<size_t>(w.part) * a.rows + row) * a.dv;
-          f = 1.f;
-        } else {
-          at = (static_cast<size_t>(w.bh) * a.rows + row) * a.dv;
-          f = inv[hr];
-        }
+        const size_t at = (static_cast<size_t>(w.part) * a.rows + row) * a.dv;
 #pragma unroll
         for (int vp = 0; vp < VP; ++vp)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int col = w.c0 + vp * kCols + 8 * c + 2 * t4;
             if (col >= a.dv) continue;
-            const float x0 = o[vp][4 * c + 2 * hr] * f;
-            const float x1 = o[vp][4 * c + 2 * hr + 1] * f;
-            if (kDecode || !kQ16) {
-              float* dst = kDecode ? a.part_o : static_cast<float*>(a.out);
-              *reinterpret_cast<float2*>(dst + at + col) =
-                  make_float2(x0, x1);
-            } else {
-              // The flash output in q's 16-bit dtype.
-              *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(a.out) +
-                                           at + col) =
-                  q_f16 ? pack2<f16>(x0, x1) : pack2<bf16>(x0, x1);
-            }
+            *reinterpret_cast<float2*>(a.part_o + at + col) = make_float2(
+                o[vp][4 * c + 2 * hr], o[vp][4 * c + 2 * hr + 1]);
           }
-        if constexpr (kDecode) {
-          if (w.c0 == 0 && t4 == 0) {
-            float* ml = a.part_ml +
-                        (static_cast<size_t>(w.part) * a.rows + row) * 2;
-            ml[0] = m[hr] * scale_log2;
-            ml[1] = sum[hr];
-          }
+        if (w.c0 == 0 && t4 == 0) {
+          float* ml = a.part_ml +
+                      (static_cast<size_t>(w.part) * a.rows + row) * 2;
+          ml[0] = m[hr] * scale_log2;
+          ml[1] = sum[hr];
         }
       }
     }
   }
 }
 
-// The kernels, one per function; the build report names each bucket and
-// dtype class (16-bit q, 16-bit K and V: all-f32 is <DP,VP,0,0>).
-template <int DP, int VP, bool kQ16, bool kKV16>
-__global__ void __launch_bounds__(kThreads, 1)
-    f32tc_flash_kernel(const __grid_constant__ CUtensorMap q_map,
-                       const __grid_constant__ CUtensorMap k_map,
-                       const __grid_constant__ CUtensorMap v_map,
-                       const Args a) {
-  body<DP, VP, false, kQ16, kKV16>(q_map, k_map, v_map, a);
-}
-
+// The kernel; the build report names its bucket and dtype class (16-bit
+// q, 16-bit K and V: all-f32 is <DP,VP,0,0>).
 template <int DP, int VP, bool kQ16, bool kKV16>
 __global__ void __launch_bounds__(kThreads, 1)
     f32tc_decode_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map,
                         const Args a) {
-  body<DP, VP, true, kQ16, kKV16>(q_map, k_map, v_map, a);
+  body<DP, VP, kQ16, kKV16>(q_map, k_map, v_map, a);
 }
 
 // ---- launch ---------------------------------------------------------------
 
 // fn(kQ16, kKV16) as integral constants for the dtype class of a q and a
 // K/V cache whose dtype codes (0 f32, 1 bf16, 2 f16: the wrappers') differ,
-// then q's and the cache's 16-bit kinds (1 for f16) for `launch_flash` and
-// `launch_decode`; cudaErrorInvalidValue for any other pair.
+// then q's and the cache's 16-bit kinds (1 for f16) for `launch_decode`;
+// cudaErrorInvalidValue for any other pair.
 template <typename F>
 int with_mixed_class(int q_type, int kv_type, F&& fn) {
   const auto ok = [](int t) { return t >= 0 && t <= 2; };
@@ -712,69 +650,15 @@ int launch_body(K kernel, const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bucket of head dims d and dv (padded): 4/4 panels up to 128, 8/8 up
-// to 256, else 18/8 with dv in chunks of 256 columns. `fn` gets the
-// bucket's panel counts as integral constants.
-template <typename F>
-int with_bucket(int d, int dv, F&& fn) {
-  const int m = d > dv ? d : dv;
-  if (m <= 4 * kCols)
-    return fn(std::integral_constant<int, 4>{},
-              std::integral_constant<int, 4>{});
-  if (m <= 8 * kCols)
-    return fn(std::integral_constant<int, 8>{},
-              std::integral_constant<int, 8>{});
-  return fn(std::integral_constant<int, kMaxD / kCols>{},
-            std::integral_constant<int, 8>{});
-}
-
-// Flash attention on q, k [bh, S, d] and v [bh, S, dv] (padded dims) into
-// out [bh, S, dv] in q's dtype: a persistent grid of at most one block an
-// SM. kQ16, kKV16: q, or k and v, 16-bit, of the kind q_f16 and kv_f16
-// say (1 f16, 0 bf16); f32 otherwise. (The launches are templates so that
-// a source instantiates only the kernels it calls.)
-template <bool kQ16, bool kKV16>
-int launch_flash(const void* q, const void* k, const void* v, void* out,
-                 int bh, int S, int d, int dv, int causal, float scale,
-                 int q_f16, int kv_f16, cudaStream_t stream) {
-  if (bh < 1 || S < 1 || !dims_ok(d, dv))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return with_bucket(d, dv, [&](auto dp, auto vp) {
-    Args a{};
-    a.n_bh = bh;
-    a.rows = a.keys = S;
-    a.d = d;
-    a.dv = dv;
-    a.dv_chunk = decltype(vp)::value * kCols;
-    a.scale_log2 = scale * 1.4426950408889634f;
-    a.causal = causal;
-    a.out = out;
-    a.q_f16 = q_f16;
-    a.kv_f16 = kv_f16;
-    const long long n_work = static_cast<long long>(bh) *
-                             ((S + kRows - 1) / kRows) *
-                             ((dv + a.dv_chunk - 1) / a.dv_chunk);
-    if (n_work > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-    const int grid = n_work < sms ? static_cast<int>(n_work) : sms;
-    return launch_body<kQ16, kKV16>(
-        f32tc_flash_kernel<decltype(dp)::value, decltype(vp)::value, kQ16,
-                           kKV16>,
-        q, k, v, a, grid, stream);
-  });
-}
-
 // Decode attention on q [b h, ql, d], k [b h, cap, d] and v [b h, cap, dv]
-// (padded dims, d or dv over 256) into out [b h, ql, dv] in q's dtype
-// (kQ16, kKV16, q_f16 and kv_f16 as for flash): one block per (b h,
-// split, 64-row tile, dv chunk) writing f32 partials into part_o [b h,
-// splits, ql, dv] and part_ml [b h, splits, ql, 2], then the wide path's
-// merge. Split s takes keys [s split_keys, (s + 1) split_keys); split_keys
-// is a multiple of 64.
+// (padded dims, d or dv over 256) into out [b h, ql, dv] in q's dtype:
+// one block per (b h, split, 64-row tile, dv chunk) writing f32 partials
+// into part_o [b h, splits, ql, dv] and part_ml [b h, splits, ql, 2], then
+// the wide path's merge. Split s takes keys [s split_keys, (s + 1)
+// split_keys); split_keys is a multiple of 64. kQ16, kKV16: q, or k and v,
+// 16-bit, of the kind q_f16 and kv_f16 say (1 f16, 0 bf16); f32 otherwise.
+// (The launch is a template so that a source instantiates only the kernels
+// it calls.)
 template <bool kQ16, bool kKV16>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* lens, void* out, void* part_o, void* part_ml,

@@ -21,17 +21,12 @@
 //     f32 accumulator does not fit one warpgroup's registers, so dv is split
 //     between two consumer warpgroups, and S and the softmax are computed
 //     once per key tile by one of them (its note has the design);
-//   * q, k and v all f32, d <= 576 and dv <= 512 (padded the same way): the
-//     f32 tensor-core kernel of f32tc_attention.cuh, flash_attention_f32tc,
-//     each f32 product as three TF32 products (3xTF32), f32-accurate (its
-//     note has the design);
-//   * q in a dtype apart from the one k and v share, d <= 576 and dv <= 512
-//     (padded the same way): the same f32 tensor-core body built for
-//     16-bit q or K and V, in mixed_flash.cu (its own nvcc job);
-//   * anything else (k and v in different dtypes, or head dims past the
-//     wide, f32 and mixed paths'): the any-dtype tensor-core kernels of
-//     cluster_flash.cuh, in cluster_flash_q32.cu and cluster_flash_q16.cu
-//     (each its own nvcc job).
+//   * anything else (q, k and v all f32; q in a dtype apart from k's or
+//     v's; head dims past the wide path's): the any-dtype tensor-core
+//     kernels of cluster_flash.cuh, in cluster_flash_q32.cu and
+//     cluster_flash_q16.cu (each its own nvcc job), each f32 product as
+//     three TF32 products (3xTF32), f32-accurate, and a 16-bit operand in
+//     its own dtype (its note has the design).
 //
 // What bounds it: operations. Per (b, h) the kernel does 4 S^2 d multiply-adds
 // counted as flops (half of them under causal) on (3 d + dv) S elements, so at
@@ -79,7 +74,6 @@
 
 #include <math_constants.h>
 
-#include "f32tc_attention.cuh"
 #include "hopper.cuh"
 #include "wide_attention.cuh"
 
@@ -562,16 +556,6 @@ int flash_attention_wide_f16(const void* q, const void* k, const void* v,
                              int causal, float scale, void* stream) {
   return wide::launch_flash<f16>(q, k, v, out, bh, S, d, dv, causal, scale,
                                  static_cast<cudaStream_t>(stream));
-}
-
-// The f32 path (f32tc_attention.cuh): q, k and v all f32 on the tensor
-// cores in 3xTF32, d and dv multiples of 16 up to 576 and 512.
-int flash_attention_f32tc(const void* q, const void* k, const void* v,
-                          void* out, int bh, int S, int d, int dv, int causal,
-                          float scale, void* stream) {
-  return f32tc::launch_flash<false, false>(
-      q, k, v, out, bh, S, d, dv, causal, scale, 0, 0,
-      static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int code) {

@@ -10,11 +10,17 @@
 // Replaces, for such inputs, the TPU kernel `_decode_kernel`, reached
 // through `flash_attention_decode`
 // (k8s_dra_driver_tpu/compute/flashattention.py), and computes its
-// function as mixed_flash.cu says for flash, with keys at index >=
-// kv_lengths[b] masked in place of the causal mask. Every query row goes in
-// one launch (the general SIMT kernel took one launch per 8 rows, each
-// reading the whole cache), the cache split across blocks by a count the
-// wrapper takes from the shapes and the SM count (`f32_decode_splits`).
+// function: scores q.k of the upcast values accumulated in f32 and scaled by
+// 1/sqrt(d) of the true d; keys at index >= kv_lengths[b] masked; an online
+// softmax in f32; p rounded to V's dtype before P V (f32 V: not rounded),
+// which accumulates in f32; the output in q's dtype. Every operand is read
+// in its own dtype (no cast or copy of the cache by the wrapper), and an f32
+// operand keeps f32 accuracy in its products: its hi and lo parts both
+// enter (3xTF32), while a 16-bit operand is exact in TF32 and enters once.
+// Every query row goes in one launch (the general SIMT kernel took one
+// launch per 8 rows, each reading the whole cache), the cache split across
+// blocks by a count the wrapper takes from the shapes and the SM count
+// (`f32_decode_splits`).
 //
 // What bounds it: at absorbed MLA, operations (128 x 1,088 multiply-adds a
 // key, at 2 + 1 TF32 products each with an f32 q over a bf16 cache). At d,

@@ -447,11 +447,12 @@ class TestRouting:
         (40, 24, ("bf16",) * 3, "flash_attention_bf16", (48, 32)),
         # f16 at d = 264 takes the wide kernels, padded like the tuned ones
         (264, 64, ("f16",) * 3, "flash_attention_wide_f16", (272, 64)),
-        # K and V sharing a dtype apart from q's: the mixed entry (the
-        # SIMT general one's before the mixed route), padded, with q's and
-        # the cache's codes
-        (40, 24, ("f32", "bf16", "bf16"), "mixed_flash_f32tc",
-         (48, 32, 0, pytest.approx(40 ** -0.5), 0, 1)),
+        # K and V sharing a dtype apart from q's: the any-dtype entry of
+        # q's width (the mixed entry's before the one TF32 flash body),
+        # padded, with K's and V's codes and the cluster plan (one CTA, one
+        # group, 4 V panels)
+        (40, 24, ("f32", "bf16", "bf16"), "cluster_flash_q32_run",
+         (48, 32, 0, pytest.approx(40 ** -0.5), 1, 1, 1, 1, 4)),
         # K and V apart: the any-dtype entry of q's width, padded, with the
         # codes and the cluster plan (one CTA, one group, 4 V panels)
         (64, 64, ("bf16", "f16", "f32"), "cluster_flash_q16_run",
@@ -461,13 +462,13 @@ class TestRouting:
     def test_tuned_and_general_entries(self, lib, d, dv, dtypes, entry,
                                        tail):
         # The tuned and wide kernels get head dims padded to multiples of 16
-        # and the true d's scale; the mixed and any-dtype ones padded dims
-        # and the codes (the any-dtype entry of an f32 q takes K's and V's
-        # alone), then the any-dtype one its cluster plan.
+        # and the true d's scale; the any-dtype ones padded dims, the codes
+        # (the entry of an f32 q takes K's and V's alone) and the cluster
+        # plan.
         self._launch(d, dv, dtypes)
         (call,) = lib.entries[entry].calls
         assert call[4:6] == (6, 16)
-        if entry.endswith("_run") or entry.startswith("mixed"):
+        if entry.endswith("_run"):
             assert call[6:-1] == tail
         else:
             assert call[6:-1] == tail + (0, pytest.approx(d ** -0.5))
@@ -494,36 +495,38 @@ class TestRouting:
         (64, 640, ("bf16",) * 3), (592, 64, ("bf16",) * 3)])
     def test_what_the_wide_kernels_do_not_take_stays_general(
             self, lib, d, dv, dtypes):
-        # Padded dims past 576/512 take the any-dtype entry (f32 takes the
-        # f32 kernels: test_f32_reaches_the_f32_entry); mixed dtypes up to
-        # 576/512, the SIMT general entry's before the mixed route, take the
-        # mixed entry.
+        # Padded dims past 576/512 and mixed dtypes up to them (the mixed
+        # entry's before the one TF32 flash body) take the any-dtype entry
+        # of q's width.
         self._launch(d, dv, dtypes)
-        assert set(lib.entries) == (
-            {"mixed_flash_f32tc", "mixed_flash_error_string"}
-            if dtypes[0] != dtypes[1] else
-            {"cluster_flash_q16_run", "cluster_flash_q16_error_string"})
+        assert set(lib.entries) == {"cluster_flash_q16_run",
+                                    "cluster_flash_q16_error_string"}
         assert not flashattention.wide_kernel_takes(
             *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
             *padded_head_dims(d, dv))
 
 
-    # Every all-f32 call up to padded 576/512 takes the f32 tensor-core
-    # kernels (3xTF32), at any S, causal off and on: one call of the f32
-    # entry with head dims padded to multiples of 16 and the true d's scale.
-    # 256/8 and 576/512 were the general entry's before the f32 route.
+    # Every all-f32 call up to padded 576/512 (the f32 entry's before the
+    # one TF32 flash body) takes the any-dtype kernel (3xTF32), at any S,
+    # causal off and on: one call of its f32-q entry with head dims padded
+    # to multiples of 16, the true d's scale, K's and V's codes and the
+    # cluster plan (clusters of 2 at 576/512). ``f32_kernel_takes``, one of
+    # ``decode_route``'s tests, still takes these dims.
     @pytest.mark.parametrize("d,dv,padded", [
         (128, 128, (128, 128)), (40, 24, (48, 32)), (256, 8, (256, 16)),
         (576, 512, (576, 512))])
     @pytest.mark.parametrize("causal", [False, True])
-    def test_f32_reaches_the_f32_entry(self, lib, d, dv, padded, causal):
+    def test_f32_reaches_the_any_dtype_entry(self, lib, d, dv, padded,
+                                             causal):
         self._launch(d, dv, ("f32",) * 3, causal=causal)
-        assert set(lib.entries) == {"flash_attention_f32tc",
-                                    "flash_attention_error_string"}
-        (call,) = lib.entries["flash_attention_f32tc"].calls
-        # bh, S, padded d and dv, causal, the true d's scale, stream
+        assert set(lib.entries) == {"cluster_flash_q32_run",
+                                    "cluster_flash_q32_error_string"}
+        (call,) = lib.entries["cluster_flash_q32_run"].calls
+        # bh, S, padded d and dv, causal, the true d's scale, K's and V's
+        # codes, the cluster plan, stream
         assert call[4:] == (6, 16, *padded, int(causal),
-                            pytest.approx(d ** -0.5), 0)
+                            pytest.approx(d ** -0.5), 0, 0,
+                            *cluster_flash_plan(*padded), 0)
         assert flashattention.f32_kernel_takes(
             *[torch.zeros(1) for _ in range(3)], *padded)
 
@@ -532,19 +535,19 @@ class TestRouting:
         (592, 64, ("f32",) * 3), (128, 128, ("f32", "bf16", "bf16")),
         (576, 512, ("f32", "f32", "bf16")),
         (40, 24, ("bf16", "bf16", "f32"))])
-    def test_what_the_f32_kernels_do_not_take_stays_general(
+    def test_f32_past_576_512_and_f32_mixes_take_the_any_dtype_entry(
             self, lib, d, dv, dtypes):
-        # f32 past padded 576/512, and every mix with an f32 operand: K and
-        # V apart take the any-dtype entry of q's width, K and V sharing a
-        # dtype apart from q's the mixed entry (the SIMT general one's before
-        # the mixed route).
+        # f32 past padded 576/512, and every mix with an f32 operand, K and
+        # V apart or sharing a dtype apart from q's (the mixed entry's
+        # before the one TF32 flash body): the any-dtype entry of q's width.
+        # Of ``decode_route``'s tests, ``mixed_kernel_takes`` takes the
+        # second kind and ``f32_kernel_takes`` none.
         self._launch(d, dv, dtypes)
         mixed = dtypes[1] == dtypes[2] != dtypes[0]
         source = ("cluster_flash_q32" if dtypes[0] == "f32"
                   else "cluster_flash_q16")
-        assert set(lib.entries) == (
-            {"mixed_flash_f32tc", "mixed_flash_error_string"} if mixed else
-            {f"{source}_run", f"{source}_error_string"})
+        assert set(lib.entries) == {f"{source}_run",
+                                    f"{source}_error_string"}
         assert flashattention.mixed_kernel_takes(
             *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
             *padded_head_dims(d, dv)) == mixed
@@ -552,12 +555,42 @@ class TestRouting:
             *[torch.zeros(1, dtype=TORCH[t]) for t in dtypes],
             *padded_head_dims(d, dv))
 
+    # Decode keeps its f32 and mixed routes over 256 (the TF32 decode body):
+    # only flash moved onto the any-dtype kernel.
+    @pytest.mark.parametrize("d,dv,dtypes,route", [
+        (576, 512, ("f32",) * 3, "f32"), (264, 64, ("f32",) * 3, "f32"),
+        (576, 512, ("f32", "bf16", "bf16"), "mixed"),
+        (320, 320, ("bf16", "f32", "f32"), "mixed"),
+        (40, 264, ("f16", "bf16", "bf16"), "mixed")])
+    def test_decode_keeps_the_f32_and_mixed_routes_over_256(
+            self, d, dv, dtypes, route):
+        q = torch.zeros((2, 3, 4, d), dtype=TORCH[dtypes[0]])
+        k = torch.zeros((2, 3, 64, d), dtype=TORCH[dtypes[1]])
+        v = torch.zeros((2, 3, 64, dv), dtype=TORCH[dtypes[2]])
+        assert flashattention.decode_route(q, k, v) == route
+
+    # One TF32 flash body: no mixed flash source, no f32 flash entry, and
+    # the f32 and mixed body keeps only its decode form.
+    @pytest.mark.parametrize("source,absent", [
+        ("mixed_flash.cu", None),
+        ("flash_attention.cu", ("f32tc", "flash_attention_f32tc")),
+        ("f32tc_attention.cuh", ("kDecode", "causal", "f32tc_flash_kernel",
+                                 "launch_flash"))])
+    def test_one_tf32_flash_body(self, source, absent):
+        path = _build.CSRC / source
+        if absent is None:
+            assert not path.exists()
+        else:
+            text = path.read_text()
+            assert not [word for word in absent if word in text]
+
 
 class TestMixedRouting:
-    """Where a CUDA flash call whose q's dtype differs from the one K and V
-    share goes (the C entries mocked): the mixed tensor-core entry at every
-    head dim up to padded 576/512, causal off and on; the any-dtype entry
-    for K and V apart and past 576/512."""
+    """Where a CUDA flash call in a mix of dtypes goes (the C entries
+    mocked): the any-dtype entry of q's width, with each operand's code and
+    ``cluster_flash_plan``'s plan, at every head dim, causal off and on;
+    up to padded 576/512 with K and V sharing a dtype apart from q's, that
+    was the mixed entry's before the one TF32 flash body."""
 
     @pytest.fixture
     def lib(self, monkeypatch):
@@ -567,9 +600,10 @@ class TestMixedRouting:
 
     _launch = TestRouting._launch
 
-    # Each class at each of the body's head-dim buckets (4/4, 8/8 and 18/8
-    # panels) and a padded one: bh, S, padded dims, causal, the true d's
-    # scale, then q's and the cache's dtype codes.
+    # Each class at each of the mixed entry's old head-dim buckets (4/4,
+    # 8/8 and 18/8 panels) and a padded one: bh, S, padded dims, causal, the
+    # true d's scale, then q's (16-bit q only), K's and V's dtype codes and
+    # the cluster plan.
     @pytest.mark.parametrize("dtypes,codes", [
         (("f32", "bf16", "bf16"), (0, 1)), (("f32", "f16", "f16"), (0, 2)),
         (("bf16", "f32", "f32"), (1, 0)), (("f16", "f32", "f32"), (2, 0)),
@@ -578,21 +612,26 @@ class TestMixedRouting:
         (128, 128, (128, 128)), (256, 256, (256, 256)),
         (576, 512, (576, 512)), (40, 24, (48, 32))])
     @pytest.mark.parametrize("causal", [False, True])
-    def test_mixed_dtypes_reach_the_mixed_entry(self, lib, dtypes, codes, d,
-                                                dv, padded, causal):
+    def test_mixed_dtypes_reach_the_any_dtype_entry(self, lib, dtypes, codes,
+                                                    d, dv, padded, causal):
         self._launch(d, dv, dtypes, causal=causal)
-        assert set(lib.entries) == {"mixed_flash_f32tc",
-                                    "mixed_flash_error_string"}
-        (call,) = lib.entries["mixed_flash_f32tc"].calls
+        source = ("cluster_flash_q32" if dtypes[0] == "f32"
+                  else "cluster_flash_q16")
+        assert set(lib.entries) == {f"{source}_run",
+                                    f"{source}_error_string"}
+        (call,) = lib.entries[f"{source}_run"].calls
+        q_code, kv_code = codes
         assert call[4:] == (6, 16, *padded, int(causal),
-                            pytest.approx(d ** -0.5), *codes, 0)
+                            pytest.approx(d ** -0.5),
+                            *(q_code, kv_code, kv_code)[q_code == 0:],
+                            *cluster_flash_plan(*padded), 0)
 
     @pytest.mark.parametrize("d,dv,dtypes", [
         (128, 128, ("f32", "f32", "bf16")), (128, 128, ("bf16", "f16", "bf16")),
         (1024, 1024, ("f32", "bf16", "bf16")),
         (64, 640, ("bf16", "f32", "f32")),
         (592, 64, ("f16", "bf16", "bf16"))])
-    def test_what_the_mixed_route_does_not_take_stays_general(
+    def test_k_and_v_apart_and_wide_mixes_take_the_any_dtype_entry(
             self, lib, d, dv, dtypes):
         # The any-dtype entry of q's width, at padded dims, with each
         # operand's code and the cluster plan of those dims.
@@ -615,7 +654,7 @@ class TestMixedRouting:
         k, v = (torch.zeros((2, 3, 16, 64), dtype=torch.bfloat16)
                 for _ in range(2))
         out = flashattention._launch_flash(q, k, v, False, stream=0)
-        (call,) = lib.entries["mixed_flash_f32tc"].calls
+        (call,) = lib.entries["cluster_flash_q32_run"].calls
         assert call[:4] == tuple(t.data_ptr() for t in (q, k, v, out))
         assert out.dtype == torch.float32
 
@@ -692,8 +731,11 @@ class TestBuildReport:
         ("_ZN52_GLOBAL__N__636dec3f_19_decode_attention_cu_7de7d0af4ring18"
          "decode_ring_kernelI13__nv_bfloat16Li1ELi16EEEvPKT_",
          "decode_ring_kernel<bf16,1,16>"),
-        ("_ZN12_GLOBAL__N_15f32tc18f32tc_flash_kernelILi18ELi8ELb0ELb1EEEv"
-         "14CUtensorMap_stS2_S2_NS0_4ArgsE", "f32tc_flash_kernel<18,8,0,1>"),
+        ("_ZN12_GLOBAL__N_15f32tc19f32tc_decode_kernelILi18ELi8ELb0ELb1EEEv"
+         "14CUtensorMap_stS2_S2_NS0_4ArgsE", "f32tc_decode_kernel<18,8,0,1>"),
+        ("_ZN12_GLOBAL__N_16cflash20cluster_flash_kernelILi8ELb0ELb0ELb1EEE"
+         "v14CUtensorMap_stS2_S2_NS0_4ArgsE",
+         "cluster_flash_kernel<8,0,0,1>"),
         ("_Z5otheri", "_Z5otheri")])
     def test_kernel_names(self, mangled, name):
         # A name inside another (flash_kernel in wide_flash_kernel) does not
@@ -701,5 +743,6 @@ class TestBuildReport:
         names = ["flash_bf16_kernel", "flash_f32_kernel",
                  "decode_attention_kernel", "flash_kernel",
                  "wide_flash_kernel", "wide_decode_merge_kernel",
-                 "decode_ring_kernel", "f32tc_flash_kernel"]
+                 "decode_ring_kernel", "f32tc_decode_kernel",
+                 "cluster_flash_kernel"]
         assert chip_smoke.kernel_name(mangled, names) == name
