@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one CUDA device:
     python3 chip_ab.py versions OTHER.cu [OTHER.cu ...]
     python3 chip_ab.py controls [NAME ...]
     python3 chip_ab.py serve OTHER_TREE [--rounds N]
+    python3 chip_ab.py serve-scale OTHER_TREE [--rounds N]
     python3 chip_ab.py decode OTHER_TREE [--rounds N]
     python3 chip_ab.py wire [--writers 3,6,12,16] [--cycles N]
     python3 chip_ab.py flash32 OTHER_TREE [--rounds N]
@@ -72,7 +73,9 @@ order other, this, this, other, ``--rounds`` times; both trees' serve
 phases start from a ResourceClaim on the GPU that ``phase_enumerate``
 finds. It prints each turn's serve line, then one JSON line
 of every turn's decode tokens/s and step p50/p99 with the card's name and
-power limit.
+power limit. ``serve-scale`` runs the serve phase and then the scale phase
+(``run_serving_scale`` at the smoke's width) in each turn, and adds the
+scale phase's tokens/s at one and four replicas and its TTFB to the JSON.
 
 ``decode`` does the same with ``chip_smoke``'s build and timing phases:
 each turn builds its tree's kernels (printing each decode kernel's
@@ -391,6 +394,9 @@ SERVE = ("import chip_smoke as c; card = c.phase_device(); "
          "c.phase_serve(0, **c.phase_enumerate())")
 SERVE_KEYS = ("decode_tok_s", "step_ms_p50", "step_ms_p99", "steps",
               "kernel_launches", "claim_ready_ms", "ttfb_ms")
+SERVE_SCALE = SERVE + "; c.phase_scale(card)"
+SERVE_SCALE_KEYS = SERVE_KEYS + ("tokens_s_lo", "tokens_s_hi", "scaling_x",
+                                 "ttfb_p50_ms", "ttfb_p99_ms")
 # The f32 timing phase, then f16 and bf16 at the same shape and lengths
 # (code that runs in any tree whose wrapper takes f16).
 DECODE = (
@@ -627,6 +633,9 @@ TC_FLASH = (
 TREE_MODES = {
     "serve": (SERVE, lambda ln: ln.startswith("[serve] submitted="),
               SERVE_KEYS),
+    "serve-scale": (SERVE_SCALE, lambda ln: ln.startswith(
+        ("[serve] submitted=", "[scale] card=", "[scale] ttfb_count=")),
+        SERVE_SCALE_KEYS),
     "decode": (DECODE, lambda ln: ln.startswith(("[timing]", "[timing16]"))
                or ln.startswith("[build] kernel=decode"), DECODE_KEYS),
     "flash32": (FLASH32, lambda ln: ln.startswith("[flash32]"),
@@ -1631,7 +1640,7 @@ def wide_parts(work: Path, timeout: float) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("versions", "controls", "serve",
-                                     "decode", "wire", "flash32", "f32",
+                                     "serve-scale", "decode", "wire", "flash32", "f32",
                                      "mixed", "host",
                                      "decode-keys", "wide-parts",
                                      "ring-variants", "general",

@@ -268,22 +268,32 @@ class NodePrepareLoop:
 
     def _schedule_retry(self, name: str, namespace: str) -> None:
         """A retryably-failed prepare (e.g. CD daemons not Ready yet) gets
-        another attempt without waiting for an unrelated claim event."""
+        another attempt without waiting for an unrelated claim event.
+
+        The retry reads the claim and reconciles it under one hold of
+        ``_mu``. A read taken before waiting for the lock goes stale while
+        an event is handled: were it the claim's delete, the retry would
+        prepare the deleted claim from its last object, and with no event
+        left to come for it, its checkpoint entry and CDI spec held the GPU
+        against the next claim for good."""
         def fire() -> None:
             if self._stopped:
                 return
-            try:
-                claim = self.client.try_get("ResourceClaim", name,
-                                            namespace)
-            except Exception:  # noqa: BLE001 — a transient/injected API
-                # failure here must NOT sever the retry chain: this timer
-                # is the claim's only pending recovery, and an exception
-                # would die silently with the timer thread.
-                self._schedule_retry(name, namespace)
-                return
-            if claim is not None:
+            with self._mu:
                 try:
-                    self._on_change(claim)
+                    claim = self.client.try_get("ResourceClaim", name,
+                                                namespace)
+                except Exception:  # noqa: BLE001 — a transient/injected
+                    # API failure here must NOT sever the retry chain:
+                    # this timer is the claim's only pending recovery, and
+                    # an exception would die silently with the timer
+                    # thread.
+                    self._schedule_retry(name, namespace)
+                    return
+                if claim is None:
+                    return
+                try:
+                    self._handle(claim)
                 except Exception:  # noqa: BLE001 — a still-failing retry
                     # re-arms itself inside _reconcile; the raise exists
                     # for the informer's rv gate, not for timer threads.
@@ -389,7 +399,13 @@ class NodePrepareLoop:
         # persist the rv of an event whose only recovery is an in-memory
         # retry timer, so a crash inside the retry window would make a
         # checkpoint-resumed restart skip the claim forever.
-        with self._mu, tracing.span_for_object(
+        with self._mu:
+            self._handle(claim)
+
+    def _handle(self, claim: Obj) -> None:
+        """Reconcile ``claim`` inside its ``node_prepare`` span. Caller
+        holds ``_mu``."""
+        with tracing.span_for_object(
                 "node_prepare", claim,
                 attributes={"driver": self.driver_name,
                             "claim": claim_uid(claim)}):

@@ -659,6 +659,16 @@ class RecordingRules:
     capacity with its oldest point inside the window) is likewise
     counted (``gpu_dra_fleet_window_truncated_total``): the result
     degrades to since-oldest-sample, visibly, never silently.
+
+    A counter starts at zero. A series that a target's previous snapshot
+    did not have was born since, so its ring opens with a zero at that
+    snapshot's time and its first value counts as increase (the zero
+    Prometheus ingests at a series' created timestamp). Without it the
+    first failed prepare a node reports under a new ``error_type`` was the
+    series' baseline and counted for nothing, and a burn-rate alert fired
+    only on the second. A target's first snapshot gives no such bound:
+    there each series' first point stays its baseline, so lifetime totals
+    never read as burn.
     """
 
     def __init__(
@@ -676,6 +686,8 @@ class RecordingRules:
         # (fleet sample name, target, sorted label items)
         #   -> (labels, deque[(t, v)])
         self._rings: dict[tuple, tuple[dict[str, str], deque]] = {}
+        # target -> when its last snapshot was observed
+        self._last_seen: dict[str, float] = {}
         self.dropped_series = 0
 
     _OBSERVED_TYPES = ("counter", "histogram")
@@ -703,6 +715,8 @@ class RecordingRules:
 
     def _observe_locked(self, families: dict[str, Family], t: float,
                         target: str, rename: bool) -> None:
+        born = self._last_seen.get(target)
+        self._last_seen[target] = t
         for fam in families.values():
             if fam.type not in self._OBSERVED_TYPES:
                 continue
@@ -718,6 +732,8 @@ class RecordingRules:
                     entry = (dict(s.labels),
                              deque(maxlen=self.ring_capacity))
                     self._rings[key] = entry
+                    if born is not None:
+                        entry[1].append((born, 0.0))
                 entry[1].append((t, s.value))
 
     # -- window math ---------------------------------------------------------
