@@ -5822,7 +5822,9 @@ def phase_gates(card: str, seed: int, gpu, width: dict | None = None,
             served = _serve_spec(spec, "gates", w, seed, gpu)
             ttfb_ms = (served["first_batch_t"] - t0) * 1e3
             cluster.unreserve(name, "default")
-            _wait(lambda: not _claim_ready(cluster.client, name)
+            # The entry goes after the node-side unprepare; Ready goes
+            # before it.
+            _wait(lambda: not cluster.claim_ready(name, "default")
                   and cluster.claim_cdi_spec(cluster.node(0), uid) is None,
                   "gates: the claim unprepared")
             cluster.client.delete("ResourceClaim", name, "default")

@@ -542,7 +542,10 @@ class LocalCluster:
                 if claim_uids is not None and not any(
                         f.name.endswith(f"_{uid}.json") for uid in claim_uids):
                     continue
-                spec = json.loads(f.read_text())
+                try:
+                    spec = json.loads(f.read_text())
+                except FileNotFoundError:
+                    continue  # unprepared since the glob
                 edits = [spec.get("containerEdits") or {}]
                 edits += [d.get("containerEdits") or {}
                           for d in spec.get("devices") or []]
@@ -555,7 +558,10 @@ class LocalCluster:
     def claim_cdi_spec(self, node: str, claim_uid: str) -> Optional[dict]:
         for cdi_dir in self._cdi_dirs(node):
             for f in Path(cdi_dir).glob(f"*_{claim_uid}.json"):
-                return json.loads(f.read_text())
+                try:
+                    return json.loads(f.read_text())
+                except FileNotFoundError:
+                    continue  # unprepared since the glob
         return None
 
 

@@ -54,6 +54,58 @@ RV_PERSIST_INTERVAL = 0.25
 
 RV_STATE_FILE = "informer-rv.json"
 
+#: The reasons of the ``Ready: False`` condition :func:`set_ready` leaves
+#: on a claim's status entries of a driver: a drain's, and the claim
+#: watcher's before a node-side unprepare (the entry itself goes after it,
+#: so that "no entry of ours" still means "unprepared").
+REASON_DRAINED = "Drained"
+REASON_UNPREPARING = "Unpreparing"
+
+
+def drain_marked(claim: Obj, driver_name: str) -> bool:
+    """Whether a drain has retracted ``driver_name``'s Ready entries of
+    ``claim`` (:func:`set_ready` with ``ready=False``): the node undid the
+    claim's devices, or is undoing them, and the reallocation is to come."""
+    return any(
+        d.get("driver") == driver_name
+        and any(c.get("type") == "Ready" and c.get("status") == "False"
+                and c.get("reason") == REASON_DRAINED
+                for c in d.get("conditions") or [])
+        for d in (claim.get("status") or {}).get("devices") or [])
+
+
+def set_ready(client, ref: ClaimRef, driver_name: str, pool: str,
+              ready: bool, reason: str = REASON_DRAINED) -> bool:
+    """Set the Ready condition of ``driver_name``'s status entries of the
+    claim in ``pool``: ``False`` with ``reason`` before the node undoes the
+    claim's devices (a Ready status says the node's checkpoint holds them
+    prepared), ``True`` to restore it. The entries stay, so the claim
+    watcher does not take a drain's retraction for a clobbered publish.
+    Returns whether it wrote; a claim that is gone, has another uid or
+    holds no such entry is left alone."""
+    cond = ({"type": "Ready", "status": "True"} if ready else
+            {"type": "Ready", "status": "False", "reason": reason})
+    while True:
+        try:
+            fresh = client.get("ResourceClaim", ref.name, ref.namespace)
+        except NotFoundError:
+            return False
+        if claim_uid(fresh) != ref.uid:
+            return False
+        entries = [d for d in (fresh.get("status") or {}).get("devices") or []
+                   if d.get("driver") == driver_name and d.get("pool") == pool]
+        if not entries or all(d.get("conditions") == [cond] for d in entries):
+            return False
+        for d in entries:
+            d["conditions"] = [dict(cond)]
+        try:
+            client.update_status(fresh)
+            return True
+        except ConflictError:
+            continue
+        except NotFoundError:
+            return False
+
 
 class InformerRvStore:
     """Persists an informer's newest-seen resourceVersion next to the
@@ -337,14 +389,18 @@ class NodePrepareLoop:
         )
         return pc is not None and pc.state == STATE_PREPARE_COMPLETED
 
-    def _status_has_our_entry(self, claim: Obj) -> bool:
+    def _status_ready(self, claim: Obj) -> bool:
         """Whether the claim's published status carries this driver's
-        device entry — read straight from the event's object, so checking
-        it on the already-prepared path costs nothing. A tracked claim
-        without one had its publish clobbered by a racing whole-status
-        writer and must republish."""
-        return any(d.get("driver") == self.driver_name
-                   for d in (claim.get("status") or {}).get("devices") or [])
+        device entries, each Ready — read straight from the event's object,
+        so checking it on the already-prepared path costs nothing. A
+        tracked claim without them had its publish clobbered by a racing
+        whole-status writer, or kept the retraction of an unprepare that
+        failed, and must republish."""
+        ours = [d for d in (claim.get("status") or {}).get("devices") or []
+                if d.get("driver") == self.driver_name]
+        return bool(ours) and all(
+            {"type": "Ready", "status": "True"} in (d.get("conditions") or [])
+            for d in ours)
 
     @staticmethod
     def _is_stale_aborted(err: BaseException) -> bool:
@@ -444,19 +500,31 @@ class NodePrepareLoop:
         if uid in self._prepared:
             holds = self._driver_holds(uid)
             if self._prepared_sig.get(uid) == sig and holds:
-                if self._status_has_our_entry(claim):
+                if drain_marked(claim, self.driver_name):
+                    # Ready retracted by a drain while the record still
+                    # reads completed: the drain is between its retraction
+                    # and its tombstone, or failed in between. Restore
+                    # Ready only if the record is still completed once the
+                    # claim's flight lock is ours, which the drain holds
+                    # throughout.
+                    self._restore_ready(ref, claim)
+                    return
+                if self._status_ready(claim):
                     return  # already prepared; status published
                 # Our Ready entry vanished from status (a racing
                 # whole-status writer — allocator, release — clobbered
-                # the publish): fall through to the prepare below, whose
-                # idempotent completed fast path returns the refs without
-                # device work, and republish.
+                # the publish) or is retracted: fall through to the
+                # prepare below, whose idempotent completed fast path
+                # returns the refs without device work, and republish.
                 logger.info("claim %s prepared but its status entry is "
-                            "missing: republishing", uid)
+                            "missing or not Ready: republishing", uid)
             else:
-                if not holds and self._drain_pending(claim):
+                if not holds and (self._drain_pending(claim) or
+                                  drain_marked(claim, self.driver_name)):
                     # Mid-drain: the node-side tombstone stands and the
-                    # allocation still points at the drained devices.
+                    # allocation still points at the drained devices. The
+                    # drain's own retraction of Ready comes before its
+                    # reallocation annotation, so either says so.
                     # Acting now (unprepare pops the tombstone, prepare
                     # re-enters the bad device) would resurrect exactly
                     # what the drain evicted — the reallocator's
@@ -518,19 +586,22 @@ class NodePrepareLoop:
             raise RuntimeError(
                 f"prepare of claim {uid} failed (retry armed): "
                 f"{res.error if res else 'no result'}")
+        entries = [
+            {"driver": self.driver_name,
+             "pool": d.pool,
+             "device": d.device,
+             "cdiDeviceIDs": list(d.cdi_device_ids),
+             "conditions": [{"type": "Ready", "status": "True"}],
+             # KEP-5304 device metadata (set under the DeviceMetadata
+             # gate) rides to status so consumers read it instead of
+             # probing sysfs.
+             **({"metadata": d.metadata} if d.metadata else {})}
+            for d in res.devices
+        ]
         try:
-            self._publish_status(ref, [
-                {"driver": self.driver_name,
-                 "pool": d.pool,
-                 "device": d.device,
-                 "cdiDeviceIDs": list(d.cdi_device_ids),
-                 "conditions": [{"type": "Ready", "status": "True"}],
-                 # KEP-5304 device metadata (set under the DeviceMetadata
-                 # gate) rides to status so consumers read it instead of
-                 # probing sysfs.
-                 **({"metadata": d.metadata} if d.metadata else {})}
-                for d in res.devices
-            ])
+            published = self._while_prepared(
+                uid, [e["device"] for e in entries],
+                lambda: self._publish_status(ref, entries))
         except Exception:
             # Status publish failed (transient/injected API fault): arm a
             # retry and do NOT record the claim as prepared — the retry
@@ -545,10 +616,58 @@ class NodePrepareLoop:
         self._prepared[uid] = ref
         self._prepared_sig[uid] = sig
         self._adopted.pop(uid, None)
+        if not published:
+            # A drain or an unprepare took the claim's record between the
+            # prepare and the publish: no Ready for devices the node no
+            # longer holds. Its own events (the drain's annotation, the
+            # release) drive the next transition.
+            logger.info("claim %s left its prepared state before its status "
+                        "was published: not publishing", uid)
+            return
         logger.info("node-prepared claim %s (%d devices)",
                     uid, len(res.devices))
 
+    def _while_prepared(self, uid: str, devices: list[str],
+                        fn: Callable[[], None]) -> bool:
+        """Run ``fn`` (a Ready publish) only while the driver's checkpoint
+        holds ``uid`` as a completed prepare of exactly ``devices``, under
+        the claim's flight lock, so that no drain or unprepare of the claim
+        runs between the check and the publish. Drivers without that
+        surface (the ComputeDomain plugin's, stub drivers in the fleet
+        harness) publish as they are."""
+        guard = getattr(getattr(self.driver, "state", None),
+                        "while_prepared", None)
+        if guard is None:
+            fn()
+            return True
+        return bool(guard(uid, devices, fn))
+
+    def _restore_ready(self, ref: ClaimRef, claim: Obj) -> None:
+        devices = [d.get("device", "") for d in
+                   (claim.get("status") or {}).get("devices") or []
+                   if d.get("driver") == self.driver_name
+                   and d.get("pool") == self.pool_name]
+        if self._while_prepared(
+                ref.uid, devices,
+                lambda: set_ready(self.client, ref, self.driver_name,
+                                  self.pool_name, True)):
+            logger.info("claim %s: its drain did not complete: Ready "
+                        "restored", ref.uid)
+
     def _unprepare(self, ref: ClaimRef) -> None:
+        # Retract Ready BEFORE the node-side unprepare: Ready says the
+        # checkpoint holds the claim's devices prepared, so it goes before
+        # the record does, never after. The entry itself goes after it.
+        try:
+            set_ready(self.client, ref, self.driver_name, self.pool_name,
+                      False, REASON_UNPREPARING)
+        except Exception:
+            # Keep the claim tracked and arm a retry: nothing was
+            # unprepared yet.
+            logger.warning("status retraction of claim %s failed: retry "
+                           "armed", ref.uid)
+            self._schedule_retry(ref.name, ref.namespace)
+            raise
         errs = self.driver.unprepare_resource_claims([ref])
         err = errs.get(ref.uid)
         if err is not None:
@@ -564,7 +683,7 @@ class NodePrepareLoop:
             self._publish_status(ref, None)
         except Exception:
             # Keep the claim tracked and arm a retry: dropping it now
-            # would strand the stale Ready entry in status with nothing
+            # would strand the retracted entry in status with nothing
             # left to clear it (the devices themselves are already
             # unprepared — the retry's unprepare is an idempotent noop).
             logger.warning("status clear of claim %s failed: retry armed",

@@ -925,7 +925,8 @@ class DeviceState:
 
     # -- drain (self-healing remediation, docs/self-healing.md) --------------
 
-    def drain(self, ref: ClaimRef, reason: str = "") -> bool:
+    def drain(self, ref: ClaimRef, reason: str = "",
+              retract: Optional[Callable[[], object]] = None) -> bool:
         """Gracefully evict one prepared claim from this node: undo its
         device state exactly like :meth:`unprepare`, but leave a
         ``PrepareAborted`` tombstone instead of dropping the record, so a
@@ -938,12 +939,20 @@ class DeviceState:
         unwinds the completed state. Returns whether anything was drained;
         crash-safe: a crash between the CDI delete and the tombstone commit
         leaves the claim checkpointed, so a replayed drain re-runs the
-        (idempotent) undo and commits the tombstone."""
+        (idempotent) undo and commits the tombstone.
+
+        ``retract``: called under the flight lock before any undo, when
+        there is something to drain — the driver retracts the claim's Ready
+        status there, so that no reader sees Ready for a claim whose record
+        is no longer a completed prepare. A raise aborts the drain with
+        nothing undone (the caller retries)."""
         with self._flights.claim(ref.uid):
             cp = self.checkpoints.read_cached()
             pc = cp.prepared_claims.get(ref.uid)
             if pc is None or pc.state == STATE_PREPARE_ABORTED:
                 return False
+            if retract is not None:
+                retract()
             self._undo_devices(pc)
             self.cdi.delete_claim_spec_file(ref.uid)
             expiry = self.clock() + self.aborted_ttl
@@ -963,6 +972,22 @@ class DeviceState:
                 logger.info("drained claim %s off this node%s", ref.uid,
                             f" ({reason})" if reason else "")
             return drained
+
+    def while_prepared(self, uid: str, devices: list[str],
+                       fn: Callable[[], None]) -> bool:
+        """Run ``fn`` under the claim's flight lock if the checkpoint holds
+        ``uid`` as a completed prepare of exactly ``devices``; returns
+        whether it ran. A drain or an unprepare of the claim holds the same
+        lock, so none lands between the check and ``fn``: the claim
+        watcher publishes Ready through here."""
+        with self._flights.claim(uid):
+            pc = self.checkpoints.read_cached().prepared_claims.get(uid)
+            if (pc is None or pc.state != STATE_PREPARE_COMPLETED
+                    or sorted(d.get("device", "") for d in pc.prepared_devices)
+                    != sorted(devices)):
+                return False
+            fn()
+            return True
 
     def delete_expired_aborted(self, now: Optional[float] = None) -> list[str]:
         """Drop expired PrepareAborted tombstones (the CD plugin's GC,

@@ -34,6 +34,7 @@ from k8s_dra_driver_tpu_torch.kubeletplugin import (
     PrepareResult,
     Slice,
 )
+from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import set_ready
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef, DeviceTaint, claim_uid
 from k8s_dra_driver_tpu_torch.pkg import bootid, sanitizer, tracing
 from k8s_dra_driver_tpu_torch.pkg.events import (
@@ -107,6 +108,7 @@ class GpuDriver:
         metrics: Optional[DRAMetrics] = None,
     ):
         self.config = config
+        self.client = client
         self.gates = config.feature_gates or new_feature_gates()
         validate_gate_dependencies(self.gates)
         env = dict(os.environ if config.env is None else config.env)
@@ -326,8 +328,13 @@ class GpuDriver:
 
     def drain_claim(self, ref: ClaimRef, reason: str = "") -> bool:
         """Gracefully unprepare one claim, leaving a crash-safe
-        PrepareAborted tombstone (DeviceState.drain)."""
-        drained = self.state.drain(ref, reason=reason)
+        PrepareAborted tombstone (DeviceState.drain). The claim's Ready
+        status entries of this node are retracted first, under the claim's
+        flight lock, so that Ready never outlives the prepared record."""
+        drained = self.state.drain(
+            ref, reason=reason,
+            retract=lambda: set_ready(self.client, ref, DRIVER_NAME,
+                                      self.pool_name, False))
         if drained:
             self._update_prepared_gauge()
         return drained

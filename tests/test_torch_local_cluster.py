@@ -220,3 +220,29 @@ class TestWhatTheClusterRunsOn:
         mgr = driver("b").state.vfio
         assert isinstance(mgr.kernel, dl.FakeVfioKernel)
         assert str(mgr.sysfs) == sysfs
+
+
+class TestCdiSpecReads:
+    def test_a_spec_removed_between_glob_and_read_reads_as_gone(
+            self, tmp_path, monkeypatch):
+        """An unprepare deletes a claim's CDI spec while a waiter polls
+        for that: the read after the glob finds no file, which is the
+        answer the waiter waits for, not an error."""
+        cluster = LocalCluster.__new__(LocalCluster)
+        cluster.workdir = tmp_path
+        cdi = tmp_path / "node-0" / "gpu-cdi"
+        cdi.mkdir(parents=True)
+        spec = cdi / "k8s.gpu.nvidia.com-claim_u1.json"
+        spec.write_text('{"containerEdits": {"env": ["A=1"]}}')
+        assert cluster.claim_cdi_spec("node-0", "u1") is not None
+        assert cluster.container_env("node-0", ["u1"]) == {"A": "1"}
+        read_text = Path.read_text
+
+        def unprepared_meanwhile(path, *a, **kw):
+            if path == spec:
+                spec.unlink()
+            return read_text(path, *a, **kw)
+        monkeypatch.setattr(Path, "read_text", unprepared_meanwhile)
+        assert cluster.claim_cdi_spec("node-0", "u1") is None
+        spec.write_text('{"containerEdits": {"env": ["A=1"]}}')
+        assert cluster.container_env("node-0", ["u1"]) == {}

@@ -381,6 +381,14 @@ class TestTracedChurnSmoke:
         assert {"allocate", "prepare", "total"} <= set(t["phases"])
 
 
+# The shard-vs-single-lock comparison at this tiny scale: an arm lasts
+# 30-60 ms, so one stall of the process under load (a busy host, a
+# neighbouring test process) can double it. Three alternating rounds, of
+# which each arm keeps its fastest, outlast such a stall.
+CROSS_KIND_ARGS = {"n_kinds": 2, "writes_per_kind": 40,
+                   "commit_hold_s": 0.0005, "rounds": 3}
+
+
 class TestInformerResume:
     def test_cross_kind_write_bench_runs(self):
         """The same-run shard-vs-single-lock comparison (a soft floor at
@@ -388,9 +396,32 @@ class TestInformerResume:
         from k8s_dra_driver_tpu_torch.internal.stresslab import (
             run_cross_kind_writes,
         )
-        out = run_cross_kind_writes(n_kinds=2, writes_per_kind=40,
-                                    commit_hold_s=0.0005, rounds=1)
+        out = run_cross_kind_writes(**CROSS_KIND_ARGS)
         assert out["single_lock_s"] > 0 and out["sharded_s"] > 0
+        assert out["speedup"] > 1.2, out
+
+    def test_cross_kind_floor_outlasts_one_stalled_arm(self, monkeypatch):
+        """A 50 ms stall of the first sharded arm, as a starved process
+        sees it: the comparison keeps each arm's fastest round, so the
+        floor holds."""
+        import sys
+
+        from k8s_dra_driver_tpu_torch.internal import stresslab
+
+        real = time.perf_counter
+        calls = [0]
+
+        def stalled():
+            # Only the arms' own clock reads count: the first sharded arm
+            # ends at the fourth.
+            if sys._getframe(1).f_code.co_name == "one":
+                calls[0] += 1
+                if calls[0] >= 4:
+                    return real() + 0.05
+            return real()
+        monkeypatch.setattr(stresslab.time, "perf_counter", stalled)
+        out = stresslab.run_cross_kind_writes(**CROSS_KIND_ARGS)
+        assert calls[0] == 4 * CROSS_KIND_ARGS["rounds"]
         assert out["speedup"] > 1.2, out
 
     def test_single_lock_store_keeps_kinds_apart(self):

@@ -74,6 +74,7 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.checkpoint import (
     STATE_PREPARE_ABORTED,
     STATE_PREPARE_COMPLETED,
+    STATE_PREPARE_STARTED,
 )
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.cleanup import (
     CheckpointCleanupManager,
@@ -270,7 +271,11 @@ class TestDrainPipeline:
 
         t = threading.Thread(target=prep, daemon=True)
         t.start()
-        time.sleep(0.1)  # prepare is now inside its latency window
+        # The record is registered just before the latency window opens:
+        # from then on the prepare is in flight and holds the flight lock.
+        assert stack.wait(lambda: getattr(
+            stack.driver.state.prepared_claims_nolock().get(uid), "state",
+            None) == STATE_PREPARE_STARTED)
         stack.lib.set_unhealthy(3, "mid-prepare fault")
         stack.monitor.poll_once()
         assert "gpu-3" in stack.driver.device_taints()
@@ -624,19 +629,29 @@ class TestSameResultsReallocation:
                 x.stop()
 
     def test_stale_bookkeeping_detected_against_checkpoint(self, stack):
+        """A drain whose release and same-device re-allocation reached the
+        loop only as their end state (a relist coalesced them): the claim
+        is as before, without this driver's status entries and with no
+        drain annotation, and the loop's bookkeeping still says prepared.
+        The checkpoint's tombstone shows it stale: the loop prepares the
+        claim again."""
         stack.allocate(stack.make_claim("c1"))
         assert stack.wait(lambda: stack.ready("c1"))
         uid = stack.claim("c1")["metadata"]["uid"]
         assert stack.driver.drain_claim(
             ClaimRef(uid=uid, name="c1", namespace="default"))
         c = stack.claim("c1")
-        c["metadata"].setdefault("labels", {})["touch"] = "1"
-        stack.client.update(c)
-        assert stack.wait(
-            lambda: stack.driver.state.prepared_claims_nolock().get(uid)
-            is not None
-            and stack.driver.state.prepared_claims_nolock()[uid].state
-            == STATE_PREPARE_COMPLETED)
+        c["status"]["devices"] = [d for d in c["status"].get("devices") or []
+                                  if d.get("driver") != DRIVER]
+        stack.client.update_status(c)
+
+        def completed():
+            # One read per check: the entry goes from the tombstone through
+            # no entry at all (the unprepare) to the new prepare.
+            pc = stack.driver.state.prepared_claims_nolock().get(uid)
+            return pc is not None and pc.state == STATE_PREPARE_COMPLETED
+        assert stack.wait(completed)
+        assert stack.wait(lambda: stack.ready("c1"))
 
 
 class TestClaimwatcherReallocation:
@@ -657,9 +672,15 @@ class TestClaimwatcherReallocation:
             return (pc is not None and pc.prepared_devices
                     and pc.prepared_devices[0].get("device") == "gpu-6")
         assert stack.wait(moved)
-        devs = [d["device"] for d in stack.claim("c1")["status"]["devices"]
-                if d.get("driver") == DRIVER]
-        assert devs == ["gpu-6"]
+
+        def devs():
+            return [d["device"] for d in
+                    stack.claim("c1")["status"].get("devices") or []
+                    if d.get("driver") == DRIVER]
+        # The checkpoint moves first and the status follows it: a Ready
+        # status is published only once its prepare is committed.
+        assert stack.wait(lambda: devs() == ["gpu-6"])
+        assert devs() == ["gpu-6"]
 
 
 class TestDefragPlannerWiring:
