@@ -539,6 +539,7 @@ from k8s_dra_driver_tpu_torch.plugins.compute_domain_daemon import (
 from k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin import (
     CD_DRIVER_NAME,
     MASTER_PORT,
+    PREPARE_ABORTED_TTL,
     CdDriver,
     CdDriverConfig,
 )
@@ -5955,9 +5956,10 @@ def phase_computedomain(card: str, lib, tmp: str):
     127.0.0.1. A channel claim is refused (retryably) while the CD is not
     Ready, and prepares once the daemon has made it Ready; its env is the
     rendezvous ``phase_multigpu``'s dry run starts from. Returns that env
-    and a teardown that unprepares and deletes the claim, deletes the CD,
-    stops the daemon's loop and the controller's threads, and requires that
-    nothing is left."""
+    and a teardown that unprepares and deletes the claim, drains a second
+    claim of the CD (``_cd_drain_leg``), deletes the CD, stops the daemon's
+    loop and the controller's threads, and requires that nothing is
+    left."""
     client = FakeClient()
     client.create(new_object("Node", "node-0"))
     client.create(new_object("DeviceClass", CHANNEL_CLASS, spec={
@@ -6039,6 +6041,7 @@ def phase_computedomain(card: str, lib, tmp: str):
         errs = driver.unprepare_resource_claims([ClaimRef(
             uid=claim_uid, name="smoke-channel", namespace="default")])
         client.delete("ResourceClaim", "smoke-channel", "default")
+        _cd_drain_leg(client, driver, template)
         daemon.stop()
         client.delete("ComputeDomain", "smoke-cd", "default")
         _wait(lambda: client.try_get("ComputeDomain", "smoke-cd", "default")
@@ -6058,6 +6061,73 @@ def phase_computedomain(card: str, lib, tmp: str):
         require(not residue, f"left behind: {residue}")
 
     return env, teardown
+
+
+def _cd_ready_conditions(client, name: str) -> list:
+    """The Ready conditions of the CD driver's status entries of claim
+    ``name``."""
+    claim = client.try_get("ResourceClaim", name, "default") or {}
+    return [c for d in (claim.get("status") or {}).get("devices") or []
+            if d.get("driver") == CD_DRIVER_NAME
+            for c in d.get("conditions") or [] if c.get("type") == "Ready"]
+
+
+def _cd_drain_leg(client, driver, template: dict) -> None:
+    """A second channel claim of the CD, reserved for a pod and prepared by
+    a claim watcher on the CD driver, is drained as the node cordon's
+    companion drain drains it. The status must read ``Ready: False``,
+    reason ``Drained``, when the tombstone commits, and the node label must
+    be gone; then the claim is deleted, its tombstone expired through the
+    GC's own path and the watcher stopped."""
+    name = "smoke-channel-drain"
+    loop = NodePrepareLoop(client, driver, CD_DRIVER_NAME, driver.pool_name,
+                           namespace="default", retry_delay=0.1).start()
+    try:
+        t0 = time.monotonic()
+        claim = Allocator(client).allocate(client.create(new_object(
+            "ResourceClaim", name, "default",
+            api_version="resource.k8s.io/v1",
+            spec=template["spec"]["spec"])),
+            reserved_for=[{"resource": "pods", "name": "smoke-cd-pod"}],
+            node="node-0")
+        _wait(lambda: {"type": "Ready", "status": "True"}
+              in _cd_ready_conditions(client, name), f"{name} Ready")
+        ready_ms = (time.monotonic() - t0) * 1e3
+        at_tombstone: list = []
+        transact = driver.state.checkpoints.transact
+
+        def watched(mutate):
+            at_tombstone.append(_cd_ready_conditions(client, name))
+            return transact(mutate)
+
+        driver.state.checkpoints.transact = watched
+        t1 = time.monotonic()
+        try:
+            drained = driver.drain_claim(ClaimRef(
+                uid=claim["metadata"]["uid"], name=name,
+                namespace="default"), reason="node node-0 cordoned")
+        finally:
+            del driver.state.checkpoints.transact
+        drain_ms = (time.monotonic() - t1) * 1e3
+        cond = at_tombstone[0][0] if at_tombstone and at_tombstone[0] else {}
+        label = client.get("Node", "node-0")["metadata"].get(
+            "labels", {}).get(NODE_LABEL_CD)
+        line("computedomain", leg="drain", claim=name, ready_ms=ready_ms,
+             drain_ms=drain_ms, ready_at_tombstone=cond.get("status"),
+             reason_at_tombstone=cond.get("reason"), node_label=label)
+        require(drained, f"{name}: nothing drained")
+        require(len(at_tombstone) == 1 and at_tombstone[0] == [
+            {"type": "Ready", "status": "False", "reason": "Drained"}],
+            f"{name}: the status read {at_tombstone} when the tombstone "
+            "committed")
+        require(label is None, f"{name}: the node is still labelled")
+        client.delete("ResourceClaim", name, "default")
+        require(driver.state.delete_expired_aborted(
+            now=time.time() + PREPARE_ABORTED_TTL + 1.0)
+            == [claim["metadata"]["uid"]], f"{name}: its tombstone did not "
+            "expire")
+    finally:
+        loop.stop()
 
 
 def phase_multigpu(card: str, seed: int, rendezvous: dict) -> None:

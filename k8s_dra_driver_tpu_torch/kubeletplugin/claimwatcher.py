@@ -467,7 +467,9 @@ class NodePrepareLoop:
                             "claim": claim_uid(claim)}):
             self._reconcile(claim)
 
-    def _reconcile(self, claim: Obj) -> None:
+    def _reconcile(self, claim: Obj, current: bool = False) -> None:
+        """``current``: ``claim`` was read from the API server just now,
+        not taken from an event."""
         uid = claim_uid(claim)
         ref = ClaimRef(
             uid=uid,
@@ -519,6 +521,21 @@ class NodePrepareLoop:
                 logger.info("claim %s prepared but its status entry is "
                             "missing or not Ready: republishing", uid)
             else:
+                if not holds and not current:
+                    # The record left its completed state behind the
+                    # loop's back, by a drain most likely. Decide on the
+                    # claim as it is now: an event older than the drain
+                    # carries neither its retraction nor its annotation,
+                    # and acting on it would undo the tombstone and prepare
+                    # the drained devices again. A claim that is gone, or
+                    # cannot be read, waits for its delete event or the
+                    # retry.
+                    fresh = self._fresh(claim)
+                    if fresh is None or claim_uid(fresh) != uid:
+                        self._schedule_retry(ref.name, ref.namespace)
+                        return
+                    self._reconcile(fresh, current=True)
+                    return
                 if not holds and (self._drain_pending(claim) or
                                   drain_marked(claim, self.driver_name)):
                     # Mid-drain: the node-side tombstone stands and the
@@ -632,9 +649,9 @@ class NodePrepareLoop:
         """Run ``fn`` (a Ready publish) only while the driver's checkpoint
         holds ``uid`` as a completed prepare of exactly ``devices``, under
         the claim's flight lock, so that no drain or unprepare of the claim
-        runs between the check and the publish. Drivers without that
-        surface (the ComputeDomain plugin's, stub drivers in the fleet
-        harness) publish as they are."""
+        runs between the check and the publish. Both kubelet plugins'
+        states have that surface; only the fleet harness's stub drivers
+        lack it, and publish as they are."""
         guard = getattr(getattr(self.driver, "state", None),
                         "while_prepared", None)
         if guard is None:

@@ -504,9 +504,18 @@ def fence_cleanup_for(driver, client) -> Callable[[], None]:
     its allocation still covers this driver's pool; everything else —
     deleted claims, replaced uids, allocations the reallocator moved to
     another node while we were gone — is unprepared (checkpoint entry
-    popped, CDI spec removed). Raises on failure so the fence stands and
-    the next renewal retries. Finishes with one republish: the node's
-    devices rejoin the published ResourceSlices in a single write."""
+    popped, CDI spec removed). Each such claim's Ready status entries of
+    this driver are retracted first (reason ``Unpreparing``), as the claim
+    watcher retracts them before its own unprepare: a Ready status says
+    the checkpoint holds the claim prepared, so it goes before the record
+    does (the watcher, deferred while the fence stood, removes the entry).
+    Raises on failure so the fence stands and the next renewal retries.
+    Finishes with one republish: the node's devices rejoin the published
+    ResourceSlices in a single write."""
+    from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import (
+        REASON_UNPREPARING,
+        set_ready,
+    )
     from k8s_dra_driver_tpu_torch.kubeletplugin.types import (
         ClaimRef,
         claim_allocation_results,
@@ -530,6 +539,9 @@ def fence_cleanup_for(driver, client) -> Callable[[], None]:
             if not keep:
                 stale.append(ref)
         if stale:
+            for ref in stale:
+                set_ready(client, ref, driver_name, pool, False,
+                          REASON_UNPREPARING)
             errs = driver.unprepare_resource_claims(stale)
             bad = {uid: repr(e) for uid, e in errs.items() if e is not None}
             if bad:

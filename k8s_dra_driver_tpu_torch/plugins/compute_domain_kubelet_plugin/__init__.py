@@ -7,6 +7,14 @@ rendezvous slots that inject the node's torch.distributed rendezvous env
 (``MASTER_ADDR``, ``MASTER_PORT``, ``NNODES``, ``NODE_RANK``) instead of
 IMEX device nodes; the daemon device bootstraps the per-CD rendezvous
 daemon with a per-domain directory.
+
+The rule the plugin keeps, as the GPU plugin does: a claim's status entry of
+this driver with ``Ready: True`` on device D implies that the node's
+checkpoint holds the claim as ``PrepareCompleted`` with D. The claim watcher
+publishes and restores Ready through ``CdDeviceState.while_prepared`` (the
+checkpoint check and the write under the claim's flight lock), and
+``CdDriver.drain_claim`` retracts Ready (reason ``Drained``) under that lock
+before it undoes the channel or daemon devices and commits the tombstone.
 """
 
 from k8s_dra_driver_tpu_torch.plugins.compute_domain_kubelet_plugin.cleanup import (

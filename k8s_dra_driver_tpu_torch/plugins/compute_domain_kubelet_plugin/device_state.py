@@ -40,6 +40,10 @@ from k8s_dra_driver_tpu_torch.api.configs import (
 )
 from k8s_dra_driver_tpu_torch.cdi.spec import CDIDevice, CDIHandler
 from k8s_dra_driver_tpu_torch.k8sclient.client import Obj
+from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import (
+    REASON_UNPREPARING,
+    set_ready,
+)
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import (
     ClaimRef,
     PreparedDeviceRef,
@@ -165,10 +169,16 @@ class CdDeviceState:
                 on_discard=self._discard_claim_artifacts)
 
     def _discard_claim_artifacts(self, uid: str, pc: PreparedClaimCP) -> None:
-        """Reboot unwinding for one discarded claim: CDI spec AND the node's
-        CD label — the label lives in the API server and survives the
-        reboot, so leaving it would wedge the node on a dead domain (any
-        other CD's prepare then fails 'already labeled' forever)."""
+        """Reboot unwinding for one discarded claim: its Ready status, CDI
+        spec AND the node's CD label — the label lives in the API server
+        and survives the reboot, so leaving it would wedge the node on a
+        dead domain (any other CD's prepare then fails 'already labeled'
+        forever). Ready is retracted first (reason ``Unpreparing``), before
+        the reset checkpoint drops the record; the claim watcher of the new
+        plugin prepares a claim that is still reserved again."""
+        set_ready(self.cd_manager.client,
+                  ClaimRef(uid=uid, name=pc.name, namespace=pc.namespace),
+                  self.driver_name, self.pool_name, False, REASON_UNPREPARING)
         self.cdi.delete_claim_spec_file(uid)
         domain_id = pc.domain_id or self._domain_id_from_env(pc)
         if domain_id and not self.host_managed:
@@ -531,18 +541,27 @@ class CdDeviceState:
 
     # -- drain (self-healing remediation, docs/self-healing.md) ---------------
 
-    def drain(self, ref: ClaimRef, reason: str = "") -> bool:
+    def drain(self, ref: ClaimRef, reason: str = "",
+              retract: Optional[Callable[[], object]] = None) -> bool:
         """Gracefully evict one prepared claim from this node during
         remediation: undo its channel/daemon side effects like
         :meth:`unprepare`, but ALWAYS leave a ``PrepareAborted`` tombstone
         (unprepare tombstones only mid-flight claims) so a stale prepare
         retry of the drained claim version is rejected while a re-allocated
-        version overwrites it. Returns whether anything was drained."""
+        version overwrites it. Returns whether anything was drained.
+
+        ``retract``: called under the claim's flight lock before any undo,
+        when there is something to drain. The driver retracts the claim's
+        Ready status there, so that no reader sees Ready for a claim whose
+        record is no longer a completed prepare. A raise aborts the drain
+        with nothing undone (the caller retries)."""
         with self._flights.claim(ref.uid):
             cp = self.checkpoints.read_cached()
             pc = cp.prepared_claims.get(ref.uid)
             if pc is None or pc.state == STATE_PREPARE_ABORTED:
                 return False
+            if retract is not None:
+                retract()
             self._unprepare_devices(pc)
             self.cdi.delete_claim_spec_file(ref.uid)
             expiry = self.clock() + self.aborted_ttl
@@ -561,6 +580,22 @@ class CdDeviceState:
                 logger.info("drained claim %s off this node%s", ref.uid,
                             f" ({reason})" if reason else "")
             return drained
+
+    def while_prepared(self, uid: str, devices: list[str],
+                       fn: Callable[[], None]) -> bool:
+        """Run ``fn`` under the claim's flight lock if the checkpoint holds
+        ``uid`` as a completed prepare of exactly ``devices``; returns
+        whether it ran. A drain or an unprepare of the claim holds the same
+        lock, so none lands between the check and ``fn``: the claim
+        watcher publishes and restores Ready through here."""
+        with self._flights.claim(uid):
+            pc = self.checkpoints.read_cached().prepared_claims.get(uid)
+            if (pc is None or pc.state != STATE_PREPARE_COMPLETED
+                    or sorted(d.get("device", "") for d in pc.prepared_devices)
+                    != sorted(devices)):
+                return False
+            fn()
+            return True
 
     def adopt_boot_id(self, new_id: str) -> None:
         """Record a repair-simulated reboot (the node's boot id changed

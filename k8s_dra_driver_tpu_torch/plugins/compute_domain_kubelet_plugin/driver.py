@@ -31,6 +31,7 @@ from k8s_dra_driver_tpu_torch.kubeletplugin import (
     PrepareResult,
     Slice,
 )
+from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import set_ready
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef, claim_uid
 from k8s_dra_driver_tpu_torch.pkg import bootid, sanitizer
 from k8s_dra_driver_tpu_torch.pkg.events import (
@@ -101,6 +102,7 @@ class CdDriver:
         device_lib: Optional[DeviceLib] = None,
         metrics: Optional[DRAMetrics] = None,
     ):
+        self.client = client
         self.config = config
         self.gates = config.feature_gates or new_feature_gates()
         validate_gate_dependencies(self.gates)
@@ -269,8 +271,14 @@ class CdDriver:
         """Gracefully unprepare one claim with a PrepareAborted tombstone —
         the node-repair drain path (docs/self-healing.md); CD channel
         devices carry no health taints of their own, so drains arrive here
-        through node-level remediation, not a taint poll."""
-        drained = self.state.drain(ref, reason=reason)
+        through node-level remediation, not a taint poll. The claim's Ready
+        status entries of this node are retracted first (``Ready: False``,
+        reason ``Drained``), under the claim's flight lock, so that Ready
+        never outlives the prepared record (CdDeviceState.drain)."""
+        drained = self.state.drain(
+            ref, reason=reason,
+            retract=lambda: set_ready(self.client, ref, CD_DRIVER_NAME,
+                                      self.pool_name, False))
         if drained:
             self._update_prepared_gauge()
         return drained

@@ -212,8 +212,10 @@ class DeviceState:
         metrics: Optional[DRAMetrics] = None,
         aborted_ttl: float = PREPARE_ABORTED_TTL,
         clock: Callable[[], float] = time.time,
+        retract_discarded: Optional[Callable[[ClaimRef], object]] = None,
     ):
         self.device_lib = device_lib
+        self._retract_discarded = retract_discarded
         # Built at the first passthrough prepare (:attr:`vfio`); a test
         # sets a manager over a materialized tree here first.
         self._vfio: Optional[VfioPciManager] = None
@@ -327,11 +329,19 @@ class DeviceState:
     def _bootstrap_checkpoint(self) -> None:
         """Boot-id invalidation via the shared helper; on a reboot the
         artifact to heal per claim is its CDI spec (MIG instances do not
-        survive a reboot, and the startup sweep destroys any that did)."""
+        survive a reboot, and the startup sweep destroys any that did).
+        ``retract_discarded`` runs first for each discarded claim: the
+        driver retracts its Ready status there, before the reset checkpoint
+        drops the record."""
+        def discard(uid: str, pc: PreparedClaimCP) -> None:
+            if self._retract_discarded is not None:
+                self._retract_discarded(ClaimRef(
+                    uid=uid, name=pc.name, namespace=pc.namespace))
+            self.cdi.delete_claim_spec_file(uid)
+
         with self.lock.held(timeout=10.0):
-            bootstrap_checkpoint(
-                self.checkpoints, self.node_boot_id,
-                on_discard=lambda uid, pc: self.cdi.delete_claim_spec_file(uid))
+            bootstrap_checkpoint(self.checkpoints, self.node_boot_id,
+                                 on_discard=discard)
 
     def sweep_unknown_claim_artifacts(self) -> list[str]:
         """Startup sweep (DestroyUnknownMIGDevices, device_state.go:448):

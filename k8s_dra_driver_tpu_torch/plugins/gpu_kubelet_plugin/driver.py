@@ -34,7 +34,10 @@ from k8s_dra_driver_tpu_torch.kubeletplugin import (
     PrepareResult,
     Slice,
 )
-from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import set_ready
+from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import (
+    REASON_UNPREPARING,
+    set_ready,
+)
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef, DeviceTaint, claim_uid
 from k8s_dra_driver_tpu_torch.pkg import bootid, sanitizer, tracing
 from k8s_dra_driver_tpu_torch.pkg.events import (
@@ -125,6 +128,9 @@ class GpuDriver:
             pool_name=self.pool_name,
             gates=self.gates,
             metrics=self.metrics,
+            retract_discarded=lambda ref: set_ready(
+                client, ref, DRIVER_NAME, self.pool_name, False,
+                REASON_UNPREPARING),
         )
         self.state.sweep_unknown_claim_artifacts()
         # Operator-facing transitions become durable Event objects

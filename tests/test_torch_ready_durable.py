@@ -54,8 +54,8 @@ class ReadyProbe:
     """Samples one claim's Ready devices against the node's checkpoint on a
     thread of its own until stopped."""
 
-    def __init__(self, stack, name):
-        self.stack, self.name = stack, name
+    def __init__(self, stack, name, driver=DRIVER):
+        self.stack, self.name, self.driver = stack, name, driver
         self.samples = 0        # Ready samples confirmed across the read
         self.unconfirmed = 0    # status changed during the checkpoint read
         self.violations = []
@@ -65,7 +65,7 @@ class ReadyProbe:
     def _run(self):
         while not self._stop.is_set():
             before = self.stack.claim(self.name)
-            ready = ready_devices(before)
+            ready = ready_devices(before, self.driver)
             if not ready:
                 continue
             uid = before["metadata"]["uid"]
