@@ -506,6 +506,7 @@ from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
     ClaimReallocator,
     DrainController,
     SimulatedRepair,
+    mutate_claim_with_retry,
     parse_gpu_index,
 )
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
@@ -550,6 +551,7 @@ from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import (
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin import partitions
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.checkpoint import (
     STATE_PREPARE_ABORTED,
+    STATE_PREPARE_COMPLETED,
     Checkpoint,
 )
 from k8s_dra_driver_tpu_torch.plugins.gpu_kubelet_plugin.device_state import (
@@ -5957,9 +5959,9 @@ def phase_computedomain(card: str, lib, tmp: str):
     Ready, and prepares once the daemon has made it Ready; its env is the
     rendezvous ``phase_multigpu``'s dry run starts from. Returns that env
     and a teardown that unprepares and deletes the claim, drains a second
-    claim of the CD (``_cd_drain_leg``), deletes the CD, stops the daemon's
-    loop and the controller's threads, and requires that nothing is
-    left."""
+    claim of the CD and drains and binds again a third (``_cd_drain_leg``),
+    deletes the CD, stops the daemon's loop and the controller's threads,
+    and requires that nothing is left."""
     client = FakeClient()
     client.create(new_object("Node", "node-0"))
     client.create(new_object("DeviceClass", CHANNEL_CLASS, spec={
@@ -6077,8 +6079,9 @@ def _cd_drain_leg(client, driver, template: dict) -> None:
     a claim watcher on the CD driver, is drained as the node cordon's
     companion drain drains it. The status must read ``Ready: False``,
     reason ``Drained``, when the tombstone commits, and the node label must
-    be gone; then the claim is deleted, its tombstone expired through the
-    GC's own path and the watcher stopped."""
+    be gone; then the claim is deleted and its tombstone expired through the
+    GC's own path, ``_cd_rejoin_leg`` runs on the same watcher, and the
+    watcher is stopped."""
     name = "smoke-channel-drain"
     loop = NodePrepareLoop(client, driver, CD_DRIVER_NAME, driver.pool_name,
                            namespace="default", retry_delay=0.1).start()
@@ -6126,8 +6129,90 @@ def _cd_drain_leg(client, driver, template: dict) -> None:
             now=time.time() + PREPARE_ABORTED_TTL + 1.0)
             == [claim["metadata"]["uid"]], f"{name}: its tombstone did not "
             "expire")
+        _cd_rejoin_leg(client, driver, template)
     finally:
         loop.stop()
+
+
+#: how soon a channel claim bound again to the device it was drained off
+#: must be Ready again (its drain tombstone's TTL is PREPARE_ABORTED_TTL).
+CD_REREADY_S = 5.0
+
+
+def _cd_rejoin_leg(client, driver, template: dict) -> None:
+    """Part of ``_cd_drain_leg``, on its claim watcher: a third channel
+    claim of the CD, Ready, is drained as the node cordon's drain drains it
+    and annotated for reallocation as that drain annotates it. The
+    reallocator binds it again to the same device of node-0, and the claim
+    watcher drops the drain's tombstone and prepares it again: Ready must
+    be back within ``CD_REREADY_S``, not after the tombstone's TTL, on a
+    completed prepare of that device, with the node's CD label back. Then
+    the claim is deleted and nothing of it may be left."""
+    name = "smoke-channel-rejoin"
+    ready = {"type": "Ready", "status": "True"}
+    claim = Allocator(client).allocate(client.create(new_object(
+        "ResourceClaim", name, "default",
+        api_version="resource.k8s.io/v1",
+        spec=template["spec"]["spec"])),
+        reserved_for=[{"resource": "pods", "name": "smoke-cd-rejoin-pod"}],
+        node="node-0")
+    uid = claim["metadata"]["uid"]
+
+    def devices(obj) -> list:
+        return [r.get("device") for r in
+                obj["status"]["allocation"]["devices"]["results"]]
+
+    device = devices(claim)
+    _wait(lambda: ready in _cd_ready_conditions(client, name),
+          f"{name} Ready")
+    require(driver.drain_claim(ClaimRef(uid=uid, name=name,
+                                        namespace="default"),
+                               reason="node node-0 cordoned"),
+            f"{name}: nothing drained")
+    note = json.dumps({"node": "node-0", "device": "node:node-0",
+                       "reason": "node cordoned", "at": time.time()})
+
+    def annotate(obj: dict) -> bool:
+        obj["metadata"].setdefault("annotations", {})[ANN_DRAIN] = note
+        return True
+
+    require(mutate_claim_with_retry(client, name, "default", annotate,
+                                    uid=uid), f"{name}: not annotated")
+    realloc = ClaimReallocator(client, retry_delay=0.05,
+                               metrics=RemediationMetrics())
+    t0 = time.monotonic()
+    realloc.start()
+    try:
+        deadline = t0 + 6 * CD_REREADY_S
+        while (ready not in _cd_ready_conditions(client, name)
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        reready_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        realloc.stop()
+    pc = driver.state.prepared_claims_nolock().get(uid)
+    state = pc.state if pc is not None else None
+    label = client.get("Node", "node-0")["metadata"].get(
+        "labels", {}).get(NODE_LABEL_CD)
+    rebound = devices(client.get("ResourceClaim", name, "default"))
+    client.delete("ResourceClaim", name, "default")
+    _wait(lambda: uid not in driver.state.prepared_claims_nolock()
+          and uid not in driver.cdi.list_claim_uids(),
+          f"{name}: its unprepare after the delete")
+    residue = [k for k in client.get("Node", "node-0")["metadata"].get(
+        "labels") or {} if k == NODE_LABEL_CD]
+    line("computedomain", leg="rejoin", claim=name, device=rebound[0],
+         reready_ms=reready_ms, state=state, node_label=label,
+         residue=json.dumps(residue))
+    require(rebound == device, f"{name}: bound again to {rebound}, not "
+            f"{device}")
+    require(reready_ms < CD_REREADY_S * 1e3, f"{name}: Ready again after "
+            f"{reready_ms:.0f} ms, not within {CD_REREADY_S} s")
+    require(state == STATE_PREPARE_COMPLETED,
+            f"{name}: its record is {state}")
+    require(label == client.get("ComputeDomain", "smoke-cd", "default")[
+        "metadata"]["uid"], f"{name}: the node's CD label is {label}")
+    require(not residue, f"{name}: left behind {residue}")
 
 
 def phase_multigpu(card: str, seed: int, rendezvous: dict) -> None:

@@ -62,6 +62,13 @@ REASON_DRAINED = "Drained"
 REASON_UNPREPARING = "Unpreparing"
 
 
+def _rv(obj: Obj) -> int:
+    try:
+        return int((obj.get("metadata") or {}).get("resourceVersion") or 0)
+    except (TypeError, ValueError):
+        return 0
+
+
 def drain_marked(claim: Obj, driver_name: str) -> bool:
     """Whether a drain has retracted ``driver_name``'s Ready entries of
     ``claim`` (:func:`set_ready` with ``ready=False``): the node undid the
@@ -219,6 +226,12 @@ class NodePrepareLoop:
         # treated as already-done.
         self._prepared_sig: dict[str, tuple] = sanitizer.guarded_dict(
             self._mu, "NodePrepareLoop._prepared_sig")
+        # The resourceVersion of the claim object each prepare was decided
+        # on. The loop may decide on a fresh read, newer than events it has
+        # still to handle (a drained claim bound again to its devices): a
+        # release event older than that prepare must not unprepare it.
+        self._prepared_rv: dict[str, int] = sanitizer.guarded_dict(
+            self._mu, "NodePrepareLoop._prepared_rv")
         # Claims the driver may hold though this loop has no completed
         # prepare of them: those the driver's checkpoint holds as prepared
         # when this loop starts (a restarted loop or process: ``_prepared``
@@ -492,6 +505,11 @@ class NodePrepareLoop:
         if not ours and not tracked:
             return
         if deleting or not self._reserved(claim) or not ours:
+            if (uid in self._prepared and not current
+                    and _rv(claim) < self._prepared_rv.get(uid, 0)):
+                logger.debug("claim %s: release event older than its "
+                             "prepare: ignored", uid)
+                return
             if tracked:
                 if uid not in self._prepared:
                     logger.info("claim %s released while no loop ran: "
@@ -562,6 +580,7 @@ class NodePrepareLoop:
                     raise RuntimeError(
                         f"unprepare of reallocated claim {uid} failed "
                         "(retry armed)")
+        decided = claim
         results = self.driver.prepare_resource_claims([claim])
         res = results.get(uid)
         if (res is not None and res.error is not None
@@ -571,21 +590,28 @@ class NodePrepareLoop:
             fresh = self._fresh(claim)
             if (fresh is not None and claim_uid(fresh) == uid
                     and not self._drain_pending(fresh)
+                    and not drain_marked(fresh, self.driver_name)
                     and self._reserved(fresh)
                     and self._signature(fresh) == sig):
                 # The claim's CURRENT allocation matches the drained
                 # version and no drain/reallocation is pending: the
-                # reallocator legitimately re-picked the (repaired) device.
-                # Resolve the tombstone — an unprepare of an aborted record
-                # just drops it — and prepare the current allocation. While
-                # the drain annotation IS present this must NOT run: the
-                # allocation is the old one and re-preparing would
-                # resurrect state onto the bad device.
+                # reallocator legitimately re-picked the (repaired) device,
+                # or the node's devices after an uncordon. Resolve the
+                # tombstone and prepare the current allocation. The GPU
+                # plugin resolves it by an unprepare, which drops a
+                # tombstone of any kind; the CD plugin's unprepare leaves
+                # every tombstone standing, so it drops only a drain's
+                # tombstone of these results (a rolled-back prepare's waits
+                # for the GC). While the drain annotation is present, or
+                # the drain's retraction of Ready (it comes before the
+                # annotation), this must NOT run: the allocation is the old
+                # one and re-preparing would resurrect state onto the bad
+                # device.
                 logger.info("claim %s re-allocated onto its drained "
-                            "devices (post-repair): resolving tombstone",
-                            uid)
-                errs = self.driver.unprepare_resource_claims([ref])
+                            "devices: resolving tombstone", uid)
+                errs = self.driver.resolve_drained_claims([fresh])
                 if errs.get(uid) is None:
+                    decided = fresh
                     results = self.driver.prepare_resource_claims([fresh])
                     res = results.get(uid)
         if res is None or res.error is not None:
@@ -632,6 +658,8 @@ class NodePrepareLoop:
             raise
         self._prepared[uid] = ref
         self._prepared_sig[uid] = sig
+        self._prepared_rv[uid] = max(self._prepared_rv.get(uid, 0),
+                                     _rv(decided))
         self._adopted.pop(uid, None)
         if not published:
             # A drain or an unprepare took the claim's record between the
@@ -709,6 +737,7 @@ class NodePrepareLoop:
             raise
         self._prepared.pop(ref.uid, None)
         self._prepared_sig.pop(ref.uid, None)
+        self._prepared_rv.pop(ref.uid, None)
         self._adopted.pop(ref.uid, None)
         logger.info("node-unprepared claim %s", ref.uid)
 
@@ -731,6 +760,7 @@ class NodePrepareLoop:
         if errs.get(ref.uid) is None:
             self._prepared.pop(uid, None)
             self._prepared_sig.pop(uid, None)
+            self._prepared_rv.pop(uid, None)
             self._adopted.pop(uid, None)
             return
         logger.warning("unprepare of deleted claim %s failed (%s); retrying "

@@ -573,6 +573,7 @@ class CdDeviceState:
                 entry.state = STATE_PREPARE_ABORTED
                 entry.prepared_devices = []
                 entry.aborted_expiry = expiry
+                entry.drained = True
                 return True
 
             drained = bool(self.checkpoints.transact(mark))
@@ -580,6 +581,33 @@ class CdDeviceState:
                 logger.info("drained claim %s off this node%s", ref.uid,
                             f" ({reason})" if reason else "")
             return drained
+
+    def resolve_drained(self, claim: Obj) -> bool:
+        """Drop the drain tombstone of ``claim`` if the claim's current
+        allocation is the one that was drained: the reallocator bound the
+        claim again to the same devices on this node (after an uncordon,
+        say). Returns whether a prepare of the current allocation is free
+        of a tombstone now. A mid-flight rollback's tombstone is kept and
+        keeps refusing its stale retry (the reference's rule, which
+        :meth:`unprepare` keeps too); the GC expires it. Under the claim's
+        flight lock, in one checkpoint transaction, so no drain or prepare
+        of the claim lands in between."""
+        uid = claim_uid(claim)
+        results = self._own_results(claim)
+        with self._flights.claim(uid):
+            def drop(c: Checkpoint) -> bool:
+                pc = c.prepared_claims.get(uid)
+                if (pc is None or pc.state != STATE_PREPARE_ABORTED
+                        or pc.results != results):
+                    return True
+                if not pc.drained:
+                    return False
+                del c.prepared_claims[uid]
+                logger.info("claim %s re-allocated onto its drained "
+                            "devices: drain tombstone dropped", uid)
+                return True
+
+            return bool(self.checkpoints.transact(drop))
 
     def while_prepared(self, uid: str, devices: list[str],
                        fn: Callable[[], None]) -> bool:

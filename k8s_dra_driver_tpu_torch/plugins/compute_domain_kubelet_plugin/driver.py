@@ -34,6 +34,7 @@ from k8s_dra_driver_tpu_torch.kubeletplugin import (
 from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import set_ready
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef, claim_uid
 from k8s_dra_driver_tpu_torch.pkg import bootid, sanitizer
+from k8s_dra_driver_tpu_torch.pkg.errors import StaleAbortedClaimError
 from k8s_dra_driver_tpu_torch.pkg.events import (
     REASON_PREPARE_FAILED,
     REASON_UNPREPARE_FAILED,
@@ -264,6 +265,28 @@ class CdDriver:
 
     def _unprepare_one(self, ref: ClaimRef) -> None:
         self.state.unprepare(ref)
+
+    def resolve_drained_claims(
+            self, claims: list[Obj]) -> dict[str, Optional[Exception]]:
+        """The claim watcher's resolution of a stale prepare of a claim
+        allocated again to the devices it was drained off: drop each
+        claim's drain tombstone (``CdDeviceState.resolve_drained``). The
+        unprepare of a tombstone stays a no-op here, as in the reference,
+        so the resolution cannot go through it. A claim whose tombstone is
+        a rolled-back prepare's maps to a StaleAbortedClaimError: it stays
+        refused until the GC expires it."""
+        out: dict[str, Optional[Exception]] = {}
+        for claim in claims:
+            uid = claim_uid(claim)
+            try:
+                out[uid] = None if self.state.resolve_drained(claim) else \
+                    StaleAbortedClaimError(
+                        f"claim {uid}: its tombstone is a rolled-back "
+                        "prepare's, not a drain's")
+            except Exception as e:  # noqa: BLE001 — reported per claim,
+                # like the request methods' errors; the watcher retries.
+                out[uid] = e
+        return out
 
     # -- remediation surface (kubeletplugin/remediation.py wiring) -------------
 

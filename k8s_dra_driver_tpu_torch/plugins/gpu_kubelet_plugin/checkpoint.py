@@ -25,7 +25,7 @@ import time
 import zlib
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Callable, Optional
+from typing import Any, Callable, ClassVar, Optional
 
 from k8s_dra_driver_tpu_torch.pkg import faultpoints, racelab, sanitizer, tracing
 from k8s_dra_driver_tpu_torch.pkg.durability import atomic_publish, fsync_enabled
@@ -88,6 +88,14 @@ class PreparedClaimCP:
     prepared_devices: list[dict[str, Any]] = field(default_factory=list)
     # PrepareAborted bookkeeping (CD plugin): expiry unix time.
     aborted_expiry: float = 0.0
+    # CD plugin: the PrepareAborted record is a drain's tombstone, not a
+    # rolled-back prepare's; only a drain's may be dropped when the claim
+    # is bound again to the drained devices. Set on the record only for a
+    # drain, and serialized only when set: every other record keeps the
+    # attributes and the encoding it had before the marker, which the JAX
+    # package's records share, and a file written before it reads as "not
+    # a drain".
+    drained: ClassVar[bool] = False
     # CD plugin: the ComputeDomain uid this claim belongs to, recorded at
     # PrepareStarted so Unprepare of a mid-flight claim can still undo node
     # labels (prepared_devices only exists from PrepareCompleted on).
@@ -109,11 +117,12 @@ class PreparedClaimCP:
             "abortedExpiry": self.aborted_expiry,
             "domainID": self.domain_id,
             "vfioRestore": self.vfio_restore,
+            **({"drained": True} if self.drained else {}),
         }
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "PreparedClaimCP":
-        return PreparedClaimCP(
+        pc = PreparedClaimCP(
             state=d.get("checkpointState", ""),
             name=d.get("name", ""),
             namespace=d.get("namespace", ""),
@@ -123,6 +132,9 @@ class PreparedClaimCP:
             domain_id=d.get("domainID", ""),
             vfio_restore=dict(d.get("vfioRestore") or {}),
         )
+        if d.get("drained"):
+            pc.drained = True
+        return pc
 
 
 @dataclass

@@ -487,6 +487,14 @@ class GpuDriver:
     def _unprepare_one(self, ref: ClaimRef) -> None:
         self.state.unprepare(ref)
 
+    def resolve_drained_claims(
+            self, claims: list[Obj]) -> dict[str, Optional[Exception]]:
+        """The claim watcher's resolution of a stale prepare of a claim
+        allocated again to the devices it was drained off: an unprepare,
+        which drops this plugin's tombstone of any kind."""
+        return self.unprepare_resource_claims(
+            [ClaimRef.from_claim(c) for c in claims])
+
     def _update_prepared_gauge(self) -> None:
         n = 0
         try:

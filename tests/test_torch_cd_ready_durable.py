@@ -37,8 +37,14 @@ from k8s_dra_driver_tpu_torch.kubeletplugin.claimwatcher import (
     NodePrepareLoop,
     drain_marked,
 )
+from k8s_dra_driver_tpu_torch.kubeletplugin.remediation import (
+    ANN_DRAIN,
+    ClaimReallocator,
+    DrainController,
+)
 from k8s_dra_driver_tpu_torch.kubeletplugin.types import ClaimRef
 from k8s_dra_driver_tpu_torch.pkg import bootid
+from k8s_dra_driver_tpu_torch.pkg.metrics import RemediationMetrics
 from k8s_dra_driver_tpu_torch.pkg.nodelease import fence_cleanup_for
 from k8s_dra_driver_tpu_torch.plugins.compute_domain_controller import (
     ComputeDomainController,
@@ -108,6 +114,13 @@ class CdStack:
             self.client, self.driver, CD_DRIVER_NAME, self.driver.pool_name,
             state_dir=self.state_dir, retry_delay=0.1).start()
 
+    def settle_loop(self, name="c1"):
+        """Wait until the claim watcher has handled the newest event of
+        claim ``name``: a watcher stopped before that resumes behind it and
+        replays the events it missed, the older ones first."""
+        rv = int(self.claim(name)["metadata"]["resourceVersion"])
+        assert self.wait(lambda: self.loop._rv_store._latest >= rv)
+
     def stop(self):
         if self.loop is not None:
             self.loop.stop()
@@ -163,6 +176,35 @@ class CdStack:
         return self.driver.state.delete_expired_aborted(
             now=time.time() + PREPARE_ABORTED_TTL + 1.0)
 
+    def allocated_device(self, name):
+        alloc = (self.claim(name).get("status") or {}).get("allocation")
+        return [r.get("device") for r in
+                ((alloc or {}).get("devices") or {}).get("results") or []
+                if r.get("driver") == CD_DRIVER_NAME]
+
+    def annotate_drained(self, name):
+        """Write the reallocation annotation that the node cordon's drain
+        writes for a claim it drained (the reallocator's work record)."""
+        assert DrainController(
+            self.client, self.driver, metrics=RemediationMetrics(),
+        )._annotate_drained(self.ref(name), "node:node-0")
+        assert ANN_DRAIN in self.claim(name)["metadata"]["annotations"]
+
+    def new_reallocator(self, name, budget=100):
+        realloc = ClaimReallocator(self.client, attempt_budget=budget,
+                                   metrics=RemediationMetrics())
+        realloc._on_claim(self.claim(name))
+        return realloc
+
+    def reallocate(self, name, realloc=None):
+        """The cluster side's reallocator releases the drained claim and
+        binds it again; returns the devices it bound."""
+        realloc = realloc or self.new_reallocator(name)
+        assert self.wait(lambda: realloc.reconcile_once() == 1)
+        assert ANN_DRAIN not in (
+            self.claim(name)["metadata"].get("annotations") or {})
+        return self.allocated_device(name)
+
 
 @pytest.fixture()
 def stack(tmp_path):
@@ -183,8 +225,10 @@ class TestReadyImpliesCommitted:
         """Three rounds of a channel claim and a daemon claim: prepared
         through the watcher, drained as the node cordon's companion drain
         drains them, released, their tombstones expired by the GC, and
-        prepared again. No sample may show Ready over a record that is not
-        a completed prepare of the Ready devices."""
+        prepared again. Then two rounds in which the drained claims are
+        bound again to the same devices by the reallocator, without the
+        GC, and prepared again at once. No sample may show Ready over a
+        record that is not a completed prepare of the Ready devices."""
         names = {"channel": "ch", "daemon": "dm"}
         for kind, name in names.items():
             stack.make(kind, name)
@@ -211,6 +255,34 @@ class TestReadyImpliesCommitted:
                 assert sorted(stack.expire_tombstones()) == sorted(
                     stack.claim(n)["metadata"]["uid"]
                     for n in names.values())
+                assert not stack.node_labelled()
+            # Two rounds in which the drained claims are bound again to
+            # the devices they were drained off, with no GC: the claim
+            # watcher drops the drain tombstones and prepares them again.
+            for rnd in range(2):
+                for name in names.values():
+                    stack.allocate(name)
+                for name in names.values():
+                    assert stack.wait(lambda name=name: stack.ready(name))
+                for name in names.values():
+                    assert stack.driver.drain_claim(
+                        stack.ref(name), reason="node node-0 cordoned")
+                    stack.annotate_drained(name)
+                for kind, name in names.items():
+                    assert stack.reallocate(name) == [DEVICE[kind]]
+                for name in names.values():
+                    assert stack.wait(lambda name=name: stack.ready(name))
+                    assert stack.checkpoint_entry(name).state == \
+                        STATE_PREPARE_COMPLETED
+                assert stack.node_labelled()
+                assert stack.wait(lambda rnd=rnd: min(
+                    pch.samples, pdm.samples) >= 40 * (rnd + 4))
+                for name in names.values():
+                    stack.release(name)
+                for name in names.values():
+                    assert stack.wait(
+                        lambda name=name: not stack.entries(name))
+                    assert stack.checkpoint_entry(name) is None
                 assert not stack.node_labelled()
         for probe in (pch, pdm):
             assert probe.violations == [], (
@@ -586,7 +658,8 @@ class TestAgainstJax:
 def test_the_smokes_drain_leg_on_a_mock_node(tmp_path, monkeypatch, capsys):
     """``chip_smoke.phase_computedomain``'s teardown on a mock node: its
     drain leg's line reads Ready retracted (``Drained``) when the tombstone
-    committed, and the residue is empty."""
+    committed, its rejoin leg's line reads the claim Ready again on a
+    completed prepare with the node labelled, and the residue is empty."""
     import chip_smoke
     import torch
 
@@ -594,10 +667,20 @@ def test_the_smokes_drain_leg_on_a_mock_node(tmp_path, monkeypatch, capsys):
     _env, teardown = chip_smoke.phase_computedomain(
         "mock", MockDeviceLib(PROFILE), str(tmp_path))
     teardown()
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if "leg=drain" in ln]
+    out = capsys.readouterr().out.splitlines()
+    lines = [ln for ln in out if "leg=drain" in ln]
     assert len(lines) == 1, lines
     fields = dict(f.split("=", 1) for f in lines[0].split()[1:])
     assert (fields["ready_at_tombstone"], fields["reason_at_tombstone"],
             fields["node_label"]) == ("False", REASON_DRAINED, "None")
     assert float(fields["ready_ms"]) > 0 and float(fields["drain_ms"]) > 0
+    # The rejoin leg: the drained claim, bound again to the same channel,
+    # is Ready again within the smoke's deadline, not after the TTL.
+    lines = [ln for ln in out if "leg=rejoin" in ln]
+    assert len(lines) == 1, lines
+    fields = dict(f.split("=", 1) for f in lines[0].split()[1:])
+    assert fields["device"] == "channel-0"
+    assert 0 < float(fields["reready_ms"]) < chip_smoke.CD_REREADY_S * 1e3
+    assert fields["state"] == STATE_PREPARE_COMPLETED
+    assert fields["node_label"] not in ("", "None")
+    assert fields["residue"] == "[]"

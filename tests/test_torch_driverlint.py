@@ -51,11 +51,11 @@ ALLOWLIST = {
         "a kernel library built by nvcc, not driver state: the rename only "
         "keeps a loader from opening half a library, and a crash leaves a "
         "temporary file and no library, which the next call rebuilds",
-    ("durability", "DL401", _CKPT, "prepared_claims[...] assignment/del:208"):
+    ("durability", "DL401", _CKPT, "prepared_claims[...] assignment/del:220"):
         "the V1 -> V2 upgrade-on-read inside the checkpoint module builds a "
         "Checkpoint that is not yet published (the JAX checkpoint's same "
         "line is exempt as the pass's checkpoint owner)",
-    ("durability", "DL401", _CKPT, "node_boot_id assignment:277"):
+    ("durability", "DL401", _CKPT, "node_boot_id assignment:289"):
         "bootstrap_checkpoint stamps the boot id at startup inside the "
         "checkpoint module, before any claim is prepared, and publishes it "
         "with the manager's atomic write (the JAX checkpoint's same line is "
